@@ -1,0 +1,209 @@
+"""Embedding modules: noise level, camera-pose patches, RoPE tables.
+
+Port of the parts of ``dfot_tpu/models/embeddings.py`` the UViT3DPose
+flagship uses. Module and parameter names are the upstream torch names, so
+an upstream state dict loads as is (``noise_level_pos_embedding.*``,
+``external_cond_embedding.patch_embedder.*``). The RoPE tables are host
+numpy, a copy of the JAX package's (whose module imports flax).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "timestep_embedding",
+    "TimestepEmbedding",
+    "FourierEmbedding",
+    "StochasticTimeEmbedding",
+    "PatchEmbed",
+    "patchify",
+    "RoPE",
+    "make_rope_nd",
+    "make_rope_1d",
+    "make_rope_2d",
+    "make_rope_3d",
+    "apply_rope",
+]
+
+
+def timestep_embedding(
+    t: torch.Tensor,
+    dim: int,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal embedding of (possibly fractional) timesteps, (..., dim)."""
+    half = dim // 2
+    # frequencies in float64 on the host, as the JAX package computes them
+    exponent = -math.log(max_period) * np.arange(half, dtype=np.float64)
+    freqs = np.exp(exponent / (half - downscale_freq_shift)).astype(np.float32)
+    emb = t.float()[..., None] * torch.as_tensor(freqs, device=t.device)
+    emb = torch.cat([emb.sin(), emb.cos()], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[..., half:], emb[..., :half]], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer SiLU MLP (``linear_1``, ``linear_2``)."""
+
+    def __init__(self, in_dim: int, emb_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, emb_dim)
+        self.linear_2 = nn.Linear(emb_dim, emb_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.linear_1.weight.dtype)
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class FourierEmbedding(nn.Module):
+    """EDM2 random Fourier features of continuous noise levels. ``freqs``
+    and ``phases`` are fixed buffers (carried by checkpoints)."""
+
+    def __init__(self, dim: int, bandwidth: float = 1.0):
+        super().__init__()
+        # fixed-seed draws, as the JAX package draws from fixed keys (the
+        # values differ from its; weights loaded later replace both)
+        freqs = torch.randn(dim, generator=torch.Generator().manual_seed(0))
+        phases = torch.rand(dim, generator=torch.Generator().manual_seed(1))
+        self.register_buffer("freqs", 2 * math.pi * freqs * bandwidth)
+        self.register_buffer("phases", 2 * math.pi * phases)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.float()[..., None] * self.freqs.float() + self.phases.float()
+        return (torch.cos(y) * math.sqrt(2.0)).to(x.dtype)
+
+
+class StochasticTimeEmbedding(nn.Module):
+    """Noise-level embedding: sinusoidal or Fourier features (``timesteps``)
+    then a SiLU MLP (``embedding``). The learned unknown-level token of the
+    JAX package (probability p > 0) is not used by the UViT and not ported."""
+
+    def __init__(self, dim: int, emb_dim: int, use_fourier: bool = False):
+        super().__init__()
+        self.dim = dim
+        self.timesteps = FourierEmbedding(dim) if use_fourier else None
+        self.embedding = TimestepEmbedding(dim, emb_dim)
+
+    def forward(self, noise_levels: torch.Tensor) -> torch.Tensor:
+        if self.timesteps is not None:
+            emb = self.timesteps(noise_levels)
+        else:
+            emb = timestep_embedding(noise_levels, self.dim)
+        return self.embedding(emb)
+
+
+def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
+    """(..., H, W, C) -> (..., H/p * W/p, p*p*C) patch rows in (p_h, p_w, C)
+    order."""
+    *lead, H, W, C = x.shape
+    x = x.reshape(*lead, H // p, p, W // p, p, C).transpose(-4, -3)
+    return x.reshape(*lead, (H // p) * (W // p), p * p * C)
+
+
+def conv_as_patch_matrix(weight: torch.Tensor) -> torch.Tensor:
+    """A stride == kernel Conv2d weight (D, C, p, p) as the (D, p*p*C)
+    matrix that acts on :func:`patchify` rows."""
+    D, C, p, _ = weight.shape
+    return weight.permute(0, 2, 3, 1).reshape(D, p * p * C)
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + linear projection; the weight keeps the upstream stride-p
+    Conv2d shape (``proj``) and is applied as one matmul on patch rows."""
+
+    def __init__(self, patch_size: int, in_channels: int, dim: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_channels, dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., H, W, C) channel-last -> (..., H/p * W/p, dim)."""
+        w = self.proj.weight
+        x = patchify(x.to(w.dtype), self.patch_size)
+        return F.linear(x, conv_as_patch_matrix(w), self.proj.bias)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (axial, N-dimensional), host numpy tables
+# ---------------------------------------------------------------------------
+
+
+class RoPE:
+    """Precomputed rotary tables: cos/sin of shape (N_flat, dim), numpy."""
+
+    __slots__ = ("cos", "sin", "sizes")
+
+    def __init__(self, cos: np.ndarray, sin: np.ndarray, sizes: Tuple[int, ...]):
+        self.cos = np.asarray(cos, dtype=np.float32)
+        self.sin = np.asarray(sin, dtype=np.float32)
+        self.sizes = sizes
+
+
+def _axis_freqs(dim: int, seq_len: int, theta: float) -> np.ndarray:
+    """Per-axis angles (seq_len, dim), each frequency repeated twice for the
+    adjacent-pair rotation convention."""
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2)[: dim // 2] / dim))
+    angles = np.outer(np.arange(seq_len, dtype=np.float64), freqs)
+    return np.repeat(angles, 2, axis=-1)
+
+
+def make_rope_nd(dims: Sequence[int], sizes: Sequence[int], theta: float = 10000.0) -> RoPE:
+    """Axial RoPE over an N-D grid, flattened row-major to (prod(sizes), sum(dims))."""
+    grids = []
+    for i, (dim, size) in enumerate(zip(dims, sizes)):
+        ang = _axis_freqs(dim, size, theta)
+        shape = [1] * len(sizes) + [dim]
+        shape[i] = size
+        grids.append(np.broadcast_to(ang.reshape(shape), tuple(sizes) + (dim,)))
+    angles = np.concatenate(grids, axis=-1).reshape(-1, sum(dims))
+    return RoPE(np.cos(angles), np.sin(angles), tuple(sizes))
+
+
+def make_rope_1d(dim: int, seq_len: int, theta: float = 10000.0) -> RoPE:
+    return make_rope_nd((dim,), (seq_len,), theta)
+
+
+def make_rope_2d(dim: int, sizes: Tuple[int, int], theta: float = 10000.0) -> RoPE:
+    assert dim % 2 == 0
+    return make_rope_nd((dim // 2, dim // 2), sizes, theta)
+
+
+def make_rope_3d(dim: int, sizes: Tuple[int, int, int], theta: float = 10000.0) -> RoPE:
+    """3-axis split: head_dim // 2 frequencies across (T, H, W), H and W
+    getting equal counts (the reference's uneven-dim rule)."""
+    assert dim % 2 == 0
+    half = dim // 2
+    r = half % 3
+    if r == 0:
+        parts = (half // 3,) * 3
+    elif r == 1:
+        parts = (half // 3 + 1, half // 3, half // 3)
+    else:
+        parts = (half // 3, half // 3 + 1, half // 3 + 1)
+    return make_rope_nd(tuple(p * 2 for p in parts), sizes, theta)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """Adjacent-pair rotation: (x0, x1) -> (-x1, x0), interleaved."""
+    x = x.reshape(x.shape[:-1] + (-1, 2))
+    return torch.stack([-x[..., 1], x[..., 0]], dim=-1).reshape(x.shape[:-2] + (-1,))
+
+
+def apply_rope(x: torch.Tensor, rope: RoPE) -> torch.Tensor:
+    """Rotate (..., N, D) queries/keys with the first N rows of the table."""
+    n = x.shape[-2]
+    cos = torch.as_tensor(rope.cos[:n], dtype=x.dtype, device=x.device)
+    sin = torch.as_tensor(rope.sin[:n], dtype=x.dtype, device=x.device)
+    return x * cos + _rotate_half(x) * sin

@@ -1,0 +1,484 @@
+"""U-ViT3D(+Pose) video denoiser in PyTorch: the DFoT_RE10K flagship.
+
+Port of ``dfot_tpu/models/uvit.py``: conv ResBlocks at high resolution,
+full 3D-RoPE transformer blocks at low resolution, one subtract/add residual
+skip per down/upsample, FiLM conditioning on a noise-level (+ camera-pose)
+embedding.
+
+Layouts follow the JAX package at the public surface: video (B, T, H, W, C),
+or with ``token_io`` patch tokens (B, T, h*w, p*p*C) in (p_h, p_w, C) order.
+Inside, conv levels carry (B*T, h, w, C) channel-last activations (convs see
+a channels-last NCHW view); transformer levels carry (B, T*h*w, C) tokens.
+Module and parameter names are the upstream torch names that
+``dfot_tpu/utils/torch_ckpt.py:import_uvit3d_params`` reads, so an upstream
+checkpoint loads with ``load_state_dict``. Every transformer block's
+attention runs through kernels B2 -> B1 -> B3 (``ops/qkv_prep.py``).
+Inference only: no dropout, no conditioning dropout, no axial blocks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, signed_sin
+from .embeddings import (
+    PatchEmbed,
+    StochasticTimeEmbedding,
+    conv_as_patch_matrix,
+    make_rope_3d,
+    patchify,
+)
+
+__all__ = [
+    "UViTSpec", "UViT3D", "UViT3DPose", "precompute_pose_conditioning",
+    "patchify_tokens", "unpatchify_tokens",
+]
+
+
+def patchify_tokens(x: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, T, H, W, C) pixels -> (B, T, h*w, p*p*C) patch tokens: the
+    sampler's token-layout state."""
+    return patchify(x, p)
+
+
+def unpatchify_tokens(x: torch.Tensor, p: int, H: int, W: int) -> torch.Tensor:
+    """Inverse of :func:`patchify_tokens`."""
+    B, T, N, D = x.shape
+    C = D // (p * p)
+    x = x.reshape(B, T, H // p, W // p, p, p, C).transpose(3, 4)
+    return x.reshape(B, T, H, W, C)
+
+
+def _nchw(fn, x: torch.Tensor) -> torch.Tensor:
+    """Apply an NCHW module to a (N, h, w, C) channel-last tensor."""
+    return fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with fp32 statistics."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        normed = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
+        return normed.to(x.dtype) * self.weight.to(x.dtype)
+
+
+class FiLMNorm(nn.Module):
+    """RMSNorm + FiLM from an embedding (upstream NormalizeWithCond).
+
+    ``emb`` is per token (B, N, E) or per frame (B, F, E), N = F * tokens per
+    frame: the modulation is then projected at frame rate and broadcast.
+    ``pose_mod`` (B, N, 2C) is a precomputed spatial FiLM term (see
+    :func:`precompute_pose_conditioning`), scaled by ``pose_scale``."""
+
+    def __init__(self, dim: int, emb_dim: int):
+        super().__init__()
+        self.emb_layer = nn.Linear(emb_dim, 2 * dim)
+        self.norm = RMSNorm(dim)
+
+    def forward(self, x, emb, pose_mod=None, pose_scale=None):
+        B, N, C = x.shape
+        mod = self.emb_layer(emb)
+        frames = mod.shape[1]
+        per_frame = frames != N
+        if per_frame:
+            mod = mod[:, :, None, :]  # (B, F, 1, 2C)
+        if pose_mod is not None:
+            pm = pose_mod if pose_scale is None else pose_mod * pose_scale
+            mod = mod + (pm.reshape(B, frames, N // frames, 2 * C) if per_frame else pm)
+        scale, shift = mod.chunk(2, dim=-1)
+        h = self.norm(x)
+        if per_frame:
+            h = h.reshape(B, frames, N // frames, C)
+        return (h * (1 + scale) + shift).reshape(B, N, C)
+
+
+class ResBlock(nn.Module):
+    """GroupNorm conv ResBlock with FiLM emb injection. x: (BT, h, w, C)
+    channel-last; emb: (BT, he, we, E) with (he, we) = (1, 1) or (h, w)."""
+
+    def __init__(self, channels: int, emb_dim: int):
+        super().__init__()
+        C = channels
+        self.in_layers = nn.Sequential(
+            nn.GroupNorm(32, C, eps=1e-6), nn.SiLU(), nn.Conv2d(C, C, 3, padding=1)
+        )
+        self.emb_layer = nn.Conv2d(emb_dim, 2 * C, 1)
+        self.out_norm = nn.GroupNorm(32, C, eps=1e-6)
+        self.out_rest = nn.Sequential(nn.SiLU(), nn.Conv2d(C, C, 3, padding=1))
+
+    def forward(self, x, emb, pose_mod=None, pose_scale=None):
+        h = _nchw(self.in_layers, x)
+        mod = F.linear(emb, self.emb_layer.weight[:, :, 0, 0], self.emb_layer.bias)
+        if pose_mod is not None:
+            mod = mod + (pose_mod if pose_scale is None else pose_mod * pose_scale)
+        scale, shift = mod.chunk(2, dim=-1)
+        h = _nchw(self.out_norm, h) * (1 + scale) + shift
+        return x + _nchw(self.out_rest, h)
+
+
+class RopeTables:
+    """One level's 3D RoPE tables (fp32, sign folded into sin), shared by
+    the level's blocks, with one copy per device made at first use."""
+
+    def __init__(self, rope):
+        self._np = (rope.cos, signed_sin(rope.sin))
+        self._dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        if device not in self._dev:
+            self._dev[device] = tuple(
+                torch.as_tensor(t, dtype=torch.float32, device=device) for t in self._np
+            )
+        return self._dev[device]
+
+
+class TransformerBlock(nn.Module):
+    """Parallel attention + MLP block with QK RMSNorm and 3D RoPE
+    (ViT-22B style; the non-axial upstream TransformerBlock)."""
+
+    def __init__(self, dim: int, heads: int, emb_dim: int, rope: RopeTables):
+        super().__init__()
+        self.heads = heads
+        d = dim // heads
+        self.norm = FiLMNorm(dim, emb_dim)
+        self.fused_attn_mlp_proj = nn.Linear(dim, 3 * dim + 4 * dim)
+        self.q_norm = RMSNorm(d)
+        self.k_norm = RMSNorm(d)
+        self.attn_out = nn.Linear(dim, dim)
+        # index 1 is the upstream training-time dropout
+        self.mlp_out = nn.Sequential(nn.SiLU(), nn.Identity(), nn.Linear(4 * dim, dim))
+        self.rope = rope
+        self._folded_key = None
+        self._folded = None
+        # True: run the plain versions of the attention kernels (a reference
+        # for the kernel route, e.g. on the card)
+        self.plain_attention = False
+
+    def _tables(self, device, dtype):
+        """The RoPE tables with the q/k norm scales folded in, in ``dtype``.
+        Folded once, and again only when a scale changes (a load, a cast or
+        a move gives it new data or a new version)."""
+        qw, kw = self.q_norm.weight, self.k_norm.weight
+        key = (device, dtype, qw.data_ptr(), qw._version, kw.data_ptr(), kw._version)
+        if key != self._folded_key:
+            with torch.no_grad():
+                self._folded = fold_qk_tables(*self.rope.on(device), qw, kw, dtype)
+            self._folded_key = key
+        return self._folded
+
+    def forward(self, x, emb, pose_mod=None, pose_scale=None):
+        C = x.shape[-1]
+        h = self.norm(x, emb, pose_mod, pose_scale)
+        fused = self.fused_attn_mlp_proj(h)
+        qkv, mlp_h = fused[..., : 3 * C], fused[..., 3 * C:]
+        o = attention_from_packed_qkv(
+            qkv, self.heads, C // self.heads, self._tables(x.device, qkv.dtype),
+            norm=True, eps=self.q_norm.eps, plain=self.plain_attention,
+        )
+        x = x + self.attn_out(o)
+        return x + self.mlp_out(mlp_h)
+
+
+class Downsample(nn.Module):
+    """2x avg-pool then 3x3 conv."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        return _nchw(lambda t: self.conv(F.avg_pool2d(t, 2)), x)
+
+
+class Upsample(nn.Module):
+    """3x3 conv then 2x nearest upsample."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        return _nchw(lambda t: F.interpolate(self.conv(t), scale_factor=2, mode="nearest"), x)
+
+
+class PatchUnembed(nn.Module):
+    """Stride-p ConvTranspose2d (``proj``, upstream shape (C, C_out, p, p))
+    applied as one matmul to (..., C) rows -> (..., p*p*C_out)."""
+
+    def __init__(self, patch_size: int, in_channels: int, out_channels: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.ConvTranspose2d(in_channels, out_channels, patch_size, stride=patch_size)
+
+    def forward(self, x):
+        w = self.proj.weight
+        C_in, C_out, p, _ = w.shape
+        kernel = w.permute(0, 2, 3, 1).reshape(C_in, p * p * C_out)
+        return F.linear(x, kernel.t(), self.proj.bias.repeat(p * p))
+
+
+@dataclasses.dataclass(frozen=True)
+class UViTSpec:
+    channels: Tuple[int, ...] = (128, 256, 512, 1024)
+    emb_channels: int = 1024
+    patch_size: int = 2
+    block_types: Tuple[str, ...] = (
+        "ResBlock", "ResBlock", "TransformerBlock", "TransformerBlock",
+    )
+    block_dropouts: Tuple[float, ...] = (0.0, 0.0, 0.1, 0.1)
+    num_updown_blocks: Tuple[int, ...] = (3, 3, 3)
+    num_mid_blocks: int = 16
+    num_heads: int = 4
+    pos_emb_type: str = "rope"
+    use_checkpointing: Tuple[bool, ...] = (False, False, False, False)
+    max_temporal_length: int = 8
+    remat_policy: Optional[str] = None
+
+
+class UViT3D(nn.Module):
+    """Residual U-ViT video denoiser; x (B, T, H, W, C) or, with
+    ``token_io``, (B, T, h*w, p*p*C). Returns fp32 in the input layout."""
+
+    def __init__(self, spec: UViTSpec, x_channels: int, resolution: int,
+                 use_fourier_noise_emb: bool = False, token_io: bool = False):
+        super().__init__()
+        s = spec
+        if s.pos_emb_type != "rope":
+            raise NotImplementedError(f"pos_emb_type {s.pos_emb_type!r} is not ported")
+        bad = set(s.block_types) - {"ResBlock", "TransformerBlock"}
+        if bad:
+            raise NotImplementedError(f"block types {sorted(bad)} are not ported")
+        self.spec, self.x_channels, self.resolution = s, x_channels, resolution
+        self.token_io = token_io
+        self._ropes: Dict[int, RopeTables] = {}  # per level, shared by its blocks
+        L, E, p = len(s.channels), s.emb_channels, s.patch_size
+        self.embed_input = PatchEmbed(p, x_channels, s.channels[0])
+        self.noise_level_pos_embedding = StochasticTimeEmbedding(256, E, use_fourier_noise_emb)
+        self.down_blocks = nn.ModuleList(
+            nn.ModuleList(
+                [self._make_block(i) for _ in range(s.num_updown_blocks[i])]
+                + [Downsample(s.channels[i], s.channels[i + 1])]
+            )
+            for i in range(L - 1)
+        )
+        self.mid_blocks = nn.ModuleList(self._make_block(L - 1) for _ in range(s.num_mid_blocks))
+        # up_blocks[_i] serves level L - 2 - _i: [Upsample, blocks...]
+        self.up_blocks = nn.ModuleList(
+            nn.ModuleList(
+                [Upsample(s.channels[i + 1], s.channels[i])]
+                + [self._make_block(i) for _ in range(s.num_updown_blocks[i])]
+            )
+            for i in reversed(range(L - 1))
+        )
+        self.project_output = PatchUnembed(p, s.channels[0], x_channels)
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.spec.channels)
+
+    def level_resolution(self, i_level: int) -> int:
+        return self.resolution // self.spec.patch_size // (2**i_level)
+
+    def _make_block(self, i: int) -> nn.Module:
+        s = self.spec
+        ch = s.channels[i]
+        if s.block_types[i] == "ResBlock":
+            return ResBlock(ch, s.emb_channels)
+        if i not in self._ropes:
+            r = self.level_resolution(i)
+            self._ropes[i] = RopeTables(make_rope_3d(ch // s.num_heads, (s.max_temporal_length, r, r)))
+        return TransformerBlock(ch, s.num_heads, s.emb_channels, self._ropes[i])
+
+    def block_names(self):
+        """[(block_name, i_level)] in forward order, the JAX package's names."""
+        s = self.spec
+        out = []
+        for i in range(self.num_levels - 1):
+            out += [(f"down_{i}_{j}", i) for j in range(s.num_updown_blocks[i])]
+        out += [(f"mid_{j}", self.num_levels - 1) for j in range(s.num_mid_blocks)]
+        for i in reversed(range(self.num_levels - 1)):
+            out += [(f"up_{i}_{j}", i) for j in range(s.num_updown_blocks[i])]
+        return out
+
+    def block(self, name: str) -> nn.Module:
+        """The module of a block named as in :meth:`block_names`."""
+        kind, *idx = name.split("_")
+        if kind == "mid":
+            return self.mid_blocks[int(idx[0])]
+        i, j = int(idx[0]), int(idx[1])
+        if kind == "down":
+            return self.down_blocks[i][j]
+        return self.up_blocks[self.num_levels - 2 - i][1 + j]
+
+    def use_plain_attention(self, plain: bool = True) -> None:
+        """Route every transformer block through the plain versions of the
+        attention kernels (True) or through the kernels (False)."""
+        for m in self.modules():
+            if isinstance(m, TransformerBlock):
+                m.plain_attention = plain
+
+    def _run_block(self, block, x, emb, pose_mod, pose_scale, B, T):
+        if isinstance(block, ResBlock):
+            if pose_mod is not None:
+                pose_mod = pose_mod.reshape((-1,) + pose_mod.shape[2:])
+                if pose_scale is not None:
+                    pose_scale = pose_scale.reshape(-1, 1, 1, 1)
+            return block(x, emb, pose_mod, pose_scale)
+        BT, h, w, C = x.shape
+        E = emb.shape[-1]
+        xt = x.reshape(B, T * h * w, C)
+        if emb.shape[1] == 1 and emb.shape[2] == 1:
+            et = emb.reshape(B, T, E)  # per frame: FiLMNorm broadcasts
+        else:
+            et = emb.reshape(B, T * h * w, E)
+        if pose_mod is not None:
+            pose_mod = pose_mod.reshape(B, T * h * w, pose_mod.shape[-1])
+            if pose_scale is not None:
+                pose_scale = pose_scale[:, :, None].expand(B, T, h * w).reshape(B, T * h * w, 1)
+        return block(xt, et, pose_mod, pose_scale).reshape(BT, h, w, C)
+
+    def forward(self, x, noise_levels, external_cond=None, external_cond_mask=None):
+        s = self.spec
+        p = s.patch_size
+        hh = ww = self.level_resolution(0)
+        w_in = self.embed_input.proj.weight
+        if self.token_io:
+            B, T, N, D = x.shape
+            if N != hh * ww or D != p * p * self.x_channels:
+                raise ValueError(f"token_io expects (B, T, {hh * ww}, {p * p * self.x_channels}), got {tuple(x.shape)}")
+            rows = x
+        else:
+            B, T = x.shape[:2]
+            rows = patchify(x, p)
+        if T != s.max_temporal_length:
+            raise ValueError(f"U-ViT temporal length fixed at {s.max_temporal_length}, got {T}")
+        x = F.linear(rows.to(w_in.dtype), conv_as_patch_matrix(w_in), self.embed_input.proj.bias)
+        x = x.reshape(B * T, hh, ww, -1)
+
+        emb = self.noise_level_pos_embedding(noise_levels)  # (B, T, E)
+        embs, pose_mods, pose_scale = self._conditioning(emb, external_cond, external_cond_mask, B, T)
+        run = lambda blk, x, i, name: self._run_block(
+            blk, x, embs[i], pose_mods.get(name), pose_scale, B, T
+        )
+
+        L = self.num_levels
+        hs_before, hs_after = [], []
+        for i in range(L - 1):
+            blocks = self.down_blocks[i]
+            for j in range(s.num_updown_blocks[i]):
+                x = run(blocks[j], x, i, f"down_{i}_{j}")
+            hs_before.append(x)
+            x = blocks[-1](x)
+            hs_after.append(x)
+        for j, blk in enumerate(self.mid_blocks):
+            x = run(blk, x, L - 1, f"mid_{j}")
+        for _i in range(L - 1):
+            i = L - 2 - _i
+            blocks = self.up_blocks[_i]
+            x = x - hs_after.pop()
+            x = blocks[0](x)
+            x = x + hs_before.pop()
+            for j in range(s.num_updown_blocks[i]):
+                x = run(blocks[1 + j], x, i, f"up_{i}_{j}")
+
+        x = self.project_output(x).reshape(B, T, hh * ww, p * p * self.x_channels).float()
+        if self.token_io:
+            return x
+        return unpatchify_tokens(x, p, self.resolution, self.resolution)
+
+    def _conditioning(self, emb, external_cond, external_cond_mask, B, T):
+        """(per-level emb maps, per-block pose FiLM terms, pose scale)."""
+        if external_cond is not None:
+            raise NotImplementedError("UViT3D external conditioning is not ported; use UViT3DPose")
+        return [emb.reshape(B * T, 1, 1, -1)] * self.num_levels, {}, None
+
+
+class UViT3DPose(UViT3D):
+    """U-ViT with spatial camera-pose conditioning. ``external_cond`` is the
+    raw (B, T, H, W, Cp) pose map, or the dict of
+    :func:`precompute_pose_conditioning` (the sampling path)."""
+
+    def __init__(self, spec: UViTSpec, x_channels: int, resolution: int,
+                 external_cond_dim: int, use_fourier_noise_emb: bool = False,
+                 token_io: bool = False):
+        super().__init__(spec, x_channels, resolution, use_fourier_noise_emb, token_io)
+        self.external_cond_embedding = nn.Module()
+        self.external_cond_embedding.patch_embedder = PatchEmbed(
+            spec.patch_size, external_cond_dim, spec.emb_channels
+        )
+
+    def forward(self, x, noise_levels, external_cond=None, external_cond_mask=None):
+        if external_cond is None:
+            raise ValueError("UViT3DPose requires camera-pose conditioning")
+        return super().forward(x, noise_levels, external_cond, external_cond_mask)
+
+    def _conditioning(self, emb, external_cond, external_cond_mask, B, T):
+        E = emb.shape[-1]
+        if isinstance(external_cond, dict):
+            if external_cond.get("levels"):
+                raise NotImplementedError("per-level pose maps (axial blocks) are not ported")
+            pose_scale = None
+            if external_cond_mask is not None:
+                keep = 1.0 - external_cond_mask.to(emb.dtype)
+                pose_scale = keep.reshape(B, -1).expand(B, T)
+            embs = [emb.reshape(B * T, 1, 1, E)] * self.num_levels
+            return embs, external_cond.get("mods") or {}, pose_scale
+        hh = self.level_resolution(0)
+        pose = self.external_cond_embedding.patch_embedder(external_cond)
+        pose = pose.reshape(B, T, hh, hh, E)
+        if external_cond_mask is not None:
+            m = external_cond_mask.reshape(
+                external_cond_mask.shape + (1,) * (pose.ndim - external_cond_mask.ndim)
+            )
+            pose = torch.where(m, 0.0, pose)
+        e0 = (emb[:, :, None, None, :] + pose.to(emb.dtype)).reshape(B * T, hh, hh, E)
+        embs = [e0] + [
+            _nchw(lambda t, k=2**i: F.avg_pool2d(t, k), e0) for i in range(1, self.num_levels)
+        ]
+        return embs, {}, None
+
+
+@torch.no_grad()
+def precompute_pose_conditioning(model: UViT3DPose, pose_map: torch.Tensor) -> dict:
+    """Step-invariant half of the pose conditioning, once per window.
+
+    Every block's FiLM modulation is ``emb_layer(noise_vec + pose_map_emb)``;
+    ``emb_layer`` is linear, so the pose term ``W @ pose_map_emb`` (patch
+    embedding, per-level pooling, every block's projection) is computed here
+    and added inside the blocks. pose_map: raw (B, T, H, W, Cp).
+    Returns {"mods": {block_name: (B, T, h_l, w_l, 2C)}, "levels": {}}.
+    """
+    s = model.spec
+    B, T, H, W, Cp = pose_map.shape
+    pe = model.external_cond_embedding.patch_embedder.proj
+    dt = pe.weight.dtype
+    h0, w0 = H // s.patch_size, W // s.patch_size
+    rows = patchify(pose_map.to(dt), s.patch_size)
+    emb0 = F.linear(rows, conv_as_patch_matrix(pe.weight), pe.bias)
+    E = emb0.shape[-1]
+    emb0 = emb0.reshape(B * T, h0, w0, E)
+    lvls = [emb0] + [
+        _nchw(lambda t, k=2**i: F.avg_pool2d(t, k), emb0) for i in range(1, model.num_levels)
+    ]
+    mods = {}
+    for name, i in model.block_names():
+        blk = model.block(name)
+        if isinstance(blk, ResBlock):
+            w = blk.emb_layer.weight[:, :, 0, 0]
+        else:
+            w = blk.norm.emb_layer.weight
+        m = F.linear(lvls[i], w)
+        mods[name] = m.reshape((B, T) + m.shape[1:])
+    return {"mods": mods, "levels": {}}

@@ -1,0 +1,32 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+``ops.attention`` and ``ops.qkv_prep`` are the modules; their wrappers are
+re-exported here under names that do not shadow them.
+"""
+
+from .attention import attention_reference, flash_attention
+from .qkv_prep import (
+    attention_from_packed_qkv,
+    attn_out_collect,
+    fold_qk_tables,
+    reference_qkv_prep,
+    signed_sin,
+    swap_pairs,
+)
+from .qkv_prep import qkv_prep as _qkv_prep
+
+# every kernel wrapper of the package; each carries a ``launches`` count
+KERNEL_WRAPPERS = {
+    "flash_fwd": flash_attention,
+    "qkv_prep": _qkv_prep,
+    "attn_out_collect": attn_out_collect,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}

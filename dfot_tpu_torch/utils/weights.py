@@ -1,0 +1,194 @@
+"""Weights for the port's UViT3DPose: from the JAX package, or seeded random.
+
+:func:`uvit3d_state_dict_from_flax` is the inverse of
+``dfot_tpu/utils/torch_ckpt.py:import_uvit3d_params``: it turns the JAX
+package's UViT3D(+Pose) variables (``params`` and the Fourier-embedding
+``buffers``, as numpy arrays) into a state dict of upstream torch names and
+layouts, which the port's model loads with ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["uvit3d_state_dict_from_flax", "init_random_weights"]
+
+
+def _linear(k):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
+    return np.ascontiguousarray(np.asarray(k).T)
+
+
+def _conv(k):  # flax Conv kernel (kh, kw, in, out) -> torch (out, in, kh, kw)
+    return np.ascontiguousarray(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def _patchify_conv(k, channels: int, p: int):
+    """(p*p*C, D) dense in (p_h, p_w, C) order -> stride-p Conv2d (D, C, p, p)."""
+    D = k.shape[1]
+    return np.ascontiguousarray(np.asarray(k).reshape(p, p, channels, D).transpose(3, 2, 0, 1))
+
+
+def _unpatchify_convT(k, p: int):
+    """(C_in, p*p*C_out) dense -> stride-p ConvTranspose2d (C_in, C_out, p, p)."""
+    C_in = k.shape[0]
+    return np.ascontiguousarray(np.asarray(k).reshape(C_in, p, p, -1).transpose(0, 3, 1, 2))
+
+
+# flax sub-path inside a U-ViT block -> (torch suffix, converter)
+_BLOCK_LEAVES = {
+    "in_norm/scale": ("in_layers.0.weight", np.asarray),
+    "in_norm/bias": ("in_layers.0.bias", np.asarray),
+    "in_conv/kernel": ("in_layers.2.weight", _conv),
+    "in_conv/bias": ("in_layers.2.bias", np.asarray),
+    "emb_layer/kernel": ("emb_layer.weight", _conv),
+    "emb_layer/bias": ("emb_layer.bias", np.asarray),
+    "out_norm/scale": ("out_norm.weight", np.asarray),
+    "out_norm/bias": ("out_norm.bias", np.asarray),
+    "out_conv/kernel": ("out_rest.1.weight", _conv),
+    "out_conv/bias": ("out_rest.1.bias", np.asarray),
+    "norm/emb_layer/kernel": ("norm.emb_layer.weight", _linear),
+    "norm/emb_layer/bias": ("norm.emb_layer.bias", np.asarray),
+    "norm/norm/weight": ("norm.norm.weight", np.asarray),
+    "fused_proj/kernel": ("fused_attn_mlp_proj.weight", _linear),
+    "fused_proj/bias": ("fused_attn_mlp_proj.bias", np.asarray),
+    "q_norm/weight": ("q_norm.weight", np.asarray),
+    "k_norm/weight": ("k_norm.weight", np.asarray),
+    "attn_out/kernel": ("attn_out.weight", _linear),
+    "attn_out/bias": ("attn_out.bias", np.asarray),
+    "mlp_out/kernel": ("mlp_out.2.weight", _linear),
+    "mlp_out/bias": ("mlp_out.2.bias", np.asarray),
+}
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(_flatten(dict(v), path))
+        else:
+            out[path] = v
+    return out
+
+
+def uvit3d_state_dict_from_flax(
+    params: Dict[str, Any],
+    buffers: Optional[Dict[str, Any]],
+    spec,
+    x_channels: int = 3,
+    external_cond_dim: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """JAX UViT3D(+Pose) variables -> the port's state dict (fp32 tensors).
+
+    ``params``: the flax ``params`` tree; ``buffers``: the flax ``buffers``
+    tree (the Fourier noise embedding's fixed freqs/phases) or None.
+    ``spec``: the model's UViTSpec (JAX's or the port's).
+    """
+    p = spec.patch_size
+    L = len(spec.channels)
+    out: Dict[str, np.ndarray] = {}
+    for path, value in _flatten(params).items():
+        head, _, rest = path.partition("/")
+        if head == "embed_input":
+            key = "embed_input.proj." + ("weight" if rest == "kernel" else "bias")
+            out[key] = _patchify_conv(value, x_channels, p) if rest == "kernel" else np.asarray(value)
+        elif head == "project_output":
+            if rest == "kernel":
+                out["project_output.proj.weight"] = _unpatchify_convT(value, p)
+            else:
+                b = np.asarray(value).reshape(p * p, -1)
+                if not (b == b[:1]).all():
+                    raise ValueError("project_output bias is not a p*p tile of one bias")
+                out["project_output.proj.bias"] = np.ascontiguousarray(b[0])
+        elif head == "pose_embed":
+            kind = rest.rsplit("/", 1)[-1]
+            key = "external_cond_embedding.patch_embedder.proj." + ("weight" if kind == "kernel" else "bias")
+            out[key] = (
+                _patchify_conv(value, external_cond_dim, p) if kind == "kernel" else np.asarray(value)
+            )
+        elif head == "noise_emb":
+            m = re.fullmatch(r"mlp/linear_(\d)/(kernel|bias)", rest)
+            if m is None:
+                raise KeyError(f"unmapped noise_emb parameter {path}")
+            key = f"noise_level_pos_embedding.embedding.linear_{m.group(1)}."
+            out[key + ("weight" if m.group(2) == "kernel" else "bias")] = (
+                _linear(value) if m.group(2) == "kernel" else np.asarray(value)
+            )
+        elif m := re.fullmatch(r"(down|up)sample_(\d+)", head):
+            i = int(m.group(2))
+            prefix = (
+                f"down_blocks.{i}.{spec.num_updown_blocks[i]}" if m.group(1) == "down"
+                else f"up_blocks.{L - 2 - i}.0"
+            )
+            kind = rest.rsplit("/", 1)[-1]
+            out[f"{prefix}.conv." + ("weight" if kind == "kernel" else "bias")] = (
+                _conv(value) if kind == "kernel" else np.asarray(value)
+            )
+        elif m := re.fullmatch(r"(down|up)_(\d+)_(\d+)|mid_(\d+)", head):
+            if m.group(4) is not None:
+                prefix = f"mid_blocks.{m.group(4)}"
+            elif m.group(1) == "down":
+                prefix = f"down_blocks.{m.group(2)}.{m.group(3)}"
+            else:
+                prefix = f"up_blocks.{L - 2 - int(m.group(2))}.{int(m.group(3)) + 1}"
+            if rest not in _BLOCK_LEAVES:
+                raise KeyError(f"unmapped block parameter {path}")
+            suffix, conv = _BLOCK_LEAVES[rest]
+            out[f"{prefix}.{suffix}"] = conv(value)
+        else:
+            raise KeyError(f"unmapped parameter {path}")
+    for path, value in _flatten(buffers or {}).items():
+        m = re.fullmatch(r"noise_emb/fourier/(freqs|phases)", path)
+        if m is None:
+            raise KeyError(f"unmapped buffer {path}")
+        out[f"noise_level_pos_embedding.timesteps.{m.group(1)}"] = np.asarray(value)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+# parameters the JAX package initializes to zero (residual-branch outputs),
+# but attn_out, get their random values scaled down by ZERO_INIT_SCALE:
+# small, but not zero
+_ZERO_INIT = re.compile(r".*(out_rest\.1|mlp_out\.2|project_output\.proj)\.(weight|bias)$")
+ZERO_INIT_SCALE = 0.1
+# q/k RMSNorm scales are QK_NORM_SCALE times the other norm scales: attention
+# scores then have std ~4 and the softmax is peaked, as a trained model's is.
+# At unit scales it is nearly flat over thousands of keys, and the output
+# would hardly depend on the attention pattern.
+QK_NORM_SCALE = 2.0
+
+
+@torch.no_grad()
+def init_random_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Fill every parameter and buffer with seeded random values.
+
+    Weights are U(-1, 1) / sqrt(fan_in), biases U(-0.02, 0.02), norm scales
+    1 + U(-0.1, 0.1) (q/k norm scales ``QK_NORM_SCALE`` times that). Layers
+    the JAX package zero-initializes get the same law times
+    ``ZERO_INIT_SCALE``, small but non-zero, except ``attn_out``, which
+    keeps the plain law: the output depends on every block and on the
+    attention pattern. Fourier buffers get their own law (2 pi N(0, 1)
+    frequencies, 2 pi U(0, 1) phases).
+    """
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        u = torch.rand(t.shape, generator=generator, dtype=torch.float32) * 2 - 1
+        if name.endswith("timesteps.freqs"):
+            v = 2 * math.pi * torch.randn(t.shape, generator=generator)
+        elif name.endswith("timesteps.phases"):
+            v = 2 * math.pi * (u + 1) / 2
+        elif t.ndim == 1 and re.search(r"(norm|in_layers\.0)(\.norm)?\.weight$", name):
+            v = 1 + 0.1 * u
+            if name.endswith(("q_norm.weight", "k_norm.weight")):
+                v = v * QK_NORM_SCALE
+        elif t.ndim == 1:
+            v = 0.02 * u
+        else:
+            fan_in = t.shape[1] * math.prod(t.shape[2:])
+            v = u / math.sqrt(fan_in)
+        if _ZERO_INIT.match(name):
+            v = v * ZERO_INIT_SCALE
+        t.copy_(v.to(t.dtype))
