@@ -1,9 +1,11 @@
 """Discrete-time diffusion math with per-token noise levels, on tensors.
 
-Port of the sampling side of ``dfot_tpu/diffusion/core.py``. The noise
-level ``k`` is an integer tensor of shape (B, T): every token (frame) has
-its own diffusion time. Schedule buffers are fp32 tensors on one device;
-random draws take an explicit ``torch.Generator``.
+Port of ``dfot_tpu/diffusion/core.py``, sampling and training side. The
+noise level ``k`` is an integer tensor of shape (B, T): every token (frame)
+has its own diffusion time. Schedule buffers are fp32 tensors on one
+device; random draws take an explicit ``torch.Generator``. Functions that
+make tensors from nothing take ``device=None``, which means the card
+(``"cuda"``); the CPU only when the caller says ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,8 +30,19 @@ __all__ = [
     "model_predictions",
     "ddim_step",
     "ddpm_step",
+    "predict_v",
+    "compute_loss_weights",
+    "training_targets",
+    "training_loss",
     "ddim_idx_to_noise_level",
 ]
+
+CARD = "cuda"  # what ``device=None`` means
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` is the card; anything else is taken as given."""
+    return torch.device(CARD if device is None else device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +104,10 @@ class ModelPrediction(NamedTuple):
     model_out: torch.Tensor
 
 
-def make_schedule(cfg: DiffusionConfig, device="cpu") -> Schedule:
-    """All schedule buffers, computed in float64 on the host and cast once."""
+def make_schedule(cfg: DiffusionConfig, device=None) -> Schedule:
+    """All schedule buffers, computed in float64 on the host and cast once,
+    on ``device`` (None: the card)."""
+    device = resolve_device(device)
     betas = make_beta_schedule(
         schedule=cfg.beta_schedule,
         timesteps=cfg.timesteps,
@@ -138,10 +153,11 @@ def _gather(buf: torch.Tensor, k: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def clipped_normal(
     shape, clip: float, generator: Optional[torch.Generator] = None,
-    device="cpu", dtype=torch.float32,
+    device=None, dtype=torch.float32,
 ) -> torch.Tensor:
-    """Standard normal noise clipped to +-clip (the reference's convention)."""
-    x = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    """Standard normal noise clipped to +-clip (the reference's convention),
+    on ``device`` (None: the card)."""
+    x = torch.randn(shape, generator=generator, device=resolve_device(device), dtype=dtype)
     return x.clamp_(-clip, clip)
 
 
@@ -174,6 +190,14 @@ def predict_noise_from_start(sched, x_k, k, x0):
     n = x_k.ndim
     return (x_k - _gather(sched.sqrt_alphas_cumprod, k, n) * x0) / _gather(
         sched.sqrt_one_minus_alphas_cumprod, k, n
+    )
+
+
+def predict_v(sched, x_start, k, noise):
+    n = x_start.ndim
+    return (
+        _gather(sched.sqrt_alphas_cumprod, k, n) * noise
+        - _gather(sched.sqrt_one_minus_alphas_cumprod, k, n) * x_start
     )
 
 
@@ -243,6 +267,76 @@ def ddpm_step(sched: Schedule, cfg: DiffusionConfig, x, curr_k, pred: ModelPredi
     noise = torch.where(bcast_right(kc > 0, n), noise, 0.0)
     x_pred = mean + torch.exp(0.5 * log_var) * noise
     return torch.where(bcast_right(curr_k == -1, n), x, x_pred)
+
+
+def _shifted_ema(seq: torch.Tensor, decay: float) -> torch.Tensor:
+    """Exponential moving average along T of a (B, T) sequence, shifted right
+    by one with a zero in front (the loss at t sees the cumulated SNR of < t)."""
+    cum = [seq[:, 0]]
+    for t in range(1, seq.shape[1]):
+        cum.append(decay * cum[-1] + (1 - decay) * seq[:, t])
+    cum = torch.stack(cum, dim=1)
+    return torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=1)
+
+
+def compute_loss_weights(sched: Schedule, cfg: DiffusionConfig, k: torch.Tensor) -> torch.Tensor:
+    """Per-token loss weights, fp32; ``k`` has shape (B, T).
+
+    Strategies: ``uniform``; ``sigmoid`` (sigmoid(bias - logsnr)); ``min_snr``;
+    ``fused_min_snr`` (Diffusion Forcing v1 cumulative SNR along T,
+    bidirectional for non-causal models).
+    """
+    strategy = cfg.loss_weighting_strategy
+    if strategy == "uniform":
+        return torch.ones(k.shape, dtype=torch.float32, device=k.device)
+    k = k.long()
+    snr = sched.snr[k]
+    if strategy == "sigmoid":
+        eps_w = torch.sigmoid(cfg.sigmoid_bias - sched.logsnr[k])
+    elif strategy == "min_snr":
+        eps_w = sched.clipped_snr[k] / snr.clamp(min=1e-8)
+    elif strategy == "fused_min_snr":
+        norm_clipped = sched.clipped_snr[k] / cfg.snr_clip
+        norm_snr = snr / cfg.snr_clip
+        decay = cfg.cum_snr_decay
+        cum_snr = _shifted_ema(norm_clipped, decay)
+        if not cfg.use_causal_mask:
+            bwd = _shifted_ema(norm_clipped.flip(1), decay).flip(1)
+            cum_snr = 0.5 * (cum_snr + bwd)
+        clipped = (1 - (1 - cum_snr * decay) * (1 - norm_clipped)) * cfg.snr_clip
+        snr = (1 - (1 - cum_snr * decay) * (1 - norm_snr)) * cfg.snr_clip
+        eps_w = clipped / snr.clamp(min=1e-8)
+    else:
+        raise ValueError(f"unknown loss weighting strategy {strategy}")
+    if cfg.objective == "pred_noise":
+        return eps_w
+    if cfg.objective == "pred_x0":
+        return eps_w * snr
+    if cfg.objective == "pred_v":
+        return eps_w * snr / (snr + 1)
+    raise ValueError(f"unknown objective {cfg.objective}")
+
+
+def training_targets(sched: Schedule, cfg: DiffusionConfig, x, k, noise):
+    """(noised x, target) for the configured objective."""
+    noised = q_sample(sched, x, k, noise)
+    if cfg.objective == "pred_noise":
+        target = noise
+    elif cfg.objective == "pred_x0":
+        target = x
+    elif cfg.objective == "pred_v":
+        target = predict_v(sched, x, k, noise)
+    else:
+        raise ValueError(f"unknown objective {cfg.objective}")
+    return noised, target
+
+
+def training_loss(sched: Schedule, cfg: DiffusionConfig, model_out, target, k) -> torch.Tensor:
+    """Elementwise weighted MSE, no reduction: the caller applies the frame
+    mask and reduces. No gradient flows into the target."""
+    loss = (model_out - target.detach()) ** 2
+    w = compute_loss_weights(sched, cfg, k)
+    return loss * bcast_right(w, loss.ndim)
 
 
 def ddim_idx_to_noise_level(timesteps: int, sampling_timesteps: int, indices) -> np.ndarray:

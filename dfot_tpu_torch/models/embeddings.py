@@ -1,8 +1,10 @@
 """Embedding modules: noise level, camera-pose patches, RoPE tables.
 
 Port of the parts of ``dfot_tpu/models/embeddings.py`` the UViT3DPose
-flagship uses. Module and parameter names are the upstream torch names, so
-an upstream state dict loads as is (``noise_level_pos_embedding.*``,
+flagship uses (``RandomDropoutCondEmbedding`` embeds vector conditions; the
+pose model embeds its ray maps with :class:`PatchEmbed` and never reaches
+it, so it is not ported). Module and parameter names are the upstream torch
+names, so an upstream state dict loads as is (``noise_level_pos_embedding.*``,
 ``external_cond_embedding.patch_embedder.*``). The RoPE tables are host
 numpy, a copy of the JAX package's (whose module imports flax).
 """
@@ -75,10 +77,11 @@ class FourierEmbedding(nn.Module):
         super().__init__()
         # fixed-seed draws, as the JAX package draws from fixed keys (the
         # values differ from its; weights loaded later replace both)
-        freqs = torch.randn(dim, generator=torch.Generator().manual_seed(0))
-        phases = torch.rand(dim, generator=torch.Generator().manual_seed(1))
-        self.register_buffer("freqs", 2 * math.pi * freqs * bandwidth)
-        self.register_buffer("phases", 2 * math.pi * phases)
+        freqs = torch.randn(dim, generator=torch.Generator().manual_seed(0), device="cpu")
+        phases = torch.rand(dim, generator=torch.Generator().manual_seed(1), device="cpu")
+        device = torch.empty(0).device  # the device the module is being built on
+        self.register_buffer("freqs", (2 * math.pi * freqs * bandwidth).to(device))
+        self.register_buffer("phases", (2 * math.pi * phases).to(device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.float()[..., None] * self.freqs.float() + self.phases.float()
@@ -87,20 +90,31 @@ class FourierEmbedding(nn.Module):
 
 class StochasticTimeEmbedding(nn.Module):
     """Noise-level embedding: sinusoidal or Fourier features (``timesteps``)
-    then a SiLU MLP (``embedding``). The learned unknown-level token of the
-    JAX package (probability p > 0) is not used by the UViT and not ported."""
+    then a SiLU MLP (``embedding``).
 
-    def __init__(self, dim: int, emb_dim: int, use_fourier: bool = False):
+    With ``p`` > 0 (sinusoidal features only) the module owns a learned
+    "unknown level" token: in training mode each position takes it with
+    probability ``p`` (a draw from the device's global generator, which the
+    train step seeds), in eval mode wherever ``mask`` is True. The UViT
+    builds it with ``p`` = 0."""
+
+    def __init__(self, dim: int, emb_dim: int, use_fourier: bool = False, p: float = 0.0):
         super().__init__()
-        self.dim = dim
+        self.dim, self.p = dim, p
         self.timesteps = FourierEmbedding(dim) if use_fourier else None
+        if p > 0.0 and not use_fourier:
+            self.unknown_token = nn.Parameter(torch.randn(1, dim))
         self.embedding = TimestepEmbedding(dim, emb_dim)
 
-    def forward(self, noise_levels: torch.Tensor) -> torch.Tensor:
+    def forward(self, noise_levels: torch.Tensor, mask=None) -> torch.Tensor:
         if self.timesteps is not None:
             emb = self.timesteps(noise_levels)
         else:
             emb = timestep_embedding(noise_levels, self.dim)
+            if self.p > 0.0:
+                if self.training or self.p == 1.0 or mask is None:
+                    mask = torch.rand(emb.shape[:-1], device=emb.device) < self.p
+                emb = torch.where(mask[..., None], self.unknown_token.to(emb.dtype), emb)
         return self.embedding(emb)
 
 

@@ -12,8 +12,14 @@ a channels-last NCHW view); transformer levels carry (B, T*h*w, C) tokens.
 Module and parameter names are the upstream torch names that
 ``dfot_tpu/utils/torch_ckpt.py:import_uvit3d_params`` reads, so an upstream
 checkpoint loads with ``load_state_dict``. Every transformer block's
-attention runs through kernels B2 -> B1 -> B3 (``ops/qkv_prep.py``).
-Inference only: no dropout, no conditioning dropout, no axial blocks.
+attention runs through kernels B2 -> B1 -> B3 (``ops/qkv_prep.py``) and, in
+the backward, B7 -> B4, B5 -> B6.
+
+Training follows PyTorch's idiom: ``model.train()`` switches on the block
+dropouts and the whole-sample pose dropout (draws come from the device's
+global generator, which the train step seeds), ``model.eval()`` switches
+them off. Levels with ``use_checkpointing`` recompute their transformer
+blocks in the backward whenever gradients are enabled. No axial blocks.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, signed_sin
+from .remat import remat
 from .embeddings import (
     PatchEmbed,
     StochasticTimeEmbedding,
@@ -148,7 +155,8 @@ class TransformerBlock(nn.Module):
     """Parallel attention + MLP block with QK RMSNorm and 3D RoPE
     (ViT-22B style; the non-axial upstream TransformerBlock)."""
 
-    def __init__(self, dim: int, heads: int, emb_dim: int, rope: RopeTables):
+    def __init__(self, dim: int, heads: int, emb_dim: int, rope: RopeTables,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         d = dim // heads
@@ -157,8 +165,7 @@ class TransformerBlock(nn.Module):
         self.q_norm = RMSNorm(d)
         self.k_norm = RMSNorm(d)
         self.attn_out = nn.Linear(dim, dim)
-        # index 1 is the upstream training-time dropout
-        self.mlp_out = nn.Sequential(nn.SiLU(), nn.Identity(), nn.Linear(4 * dim, dim))
+        self.mlp_out = nn.Sequential(nn.SiLU(), nn.Dropout(dropout), nn.Linear(4 * dim, dim))
         self.rope = rope
         self._folded_key = None
         self._folded = None
@@ -167,10 +174,17 @@ class TransformerBlock(nn.Module):
         self.plain_attention = False
 
     def _tables(self, device, dtype):
-        """The RoPE tables with the q/k norm scales folded in, in ``dtype``.
-        Folded once, and again only when a scale changes (a load, a cast or
-        a move gives it new data or a new version)."""
+        """The RoPE tables with the q/k norm scales folded in.
+
+        Where a gradient can reach a scale (gradients enabled and the scale
+        requires one) the fold is plain differentiable fp32 ops, made anew on
+        every call: the table cotangents of the qkv_prep backward then reach
+        ``q_norm.weight`` and ``k_norm.weight``. Otherwise the tables are
+        folded once in ``dtype``, and again only when a scale changes (a
+        load, a cast or a move gives it new data or a new version)."""
         qw, kw = self.q_norm.weight, self.k_norm.weight
+        if torch.is_grad_enabled() and (qw.requires_grad or kw.requires_grad):
+            return fold_qk_tables(*self.rope.on(device), qw, kw, torch.float32)
         key = (device, dtype, qw.data_ptr(), qw._version, kw.data_ptr(), kw._version)
         if key != self._folded_key:
             with torch.no_grad():
@@ -182,13 +196,33 @@ class TransformerBlock(nn.Module):
         C = x.shape[-1]
         h = self.norm(x, emb, pose_mod, pose_scale)
         fused = self.fused_attn_mlp_proj(h)
-        qkv, mlp_h = fused[..., : 3 * C], fused[..., 3 * C:]
+        if torch.is_grad_enabled() and fused.requires_grad:
+            qkv, mlp_h = _SplitFused.apply(fused, 3 * C)
+        else:
+            qkv, mlp_h = fused[..., : 3 * C], fused[..., 3 * C:]
         o = attention_from_packed_qkv(
             qkv, self.heads, C // self.heads, self._tables(x.device, qkv.dtype),
             norm=True, eps=self.q_norm.eps, plain=self.plain_attention,
         )
         x = x + self.attn_out(o)
         return x + self.mlp_out(mlp_h)
+
+
+class _SplitFused(torch.autograd.Function):
+    """The fused projection's (..., 7C) output as its qkv and MLP slices
+    (views, no copy). The backward joins the two gradients with one ``cat``
+    (one read and one write of the 7C-wide gradient) where autograd's own
+    slice backward would zero-fill two 7C-wide buffers, copy a slice into
+    each and add them."""
+
+    @staticmethod
+    def forward(ctx, fused, split):
+        ctx.split = split
+        return fused[..., :split], fused[..., split:]
+
+    @staticmethod
+    def backward(ctx, d_qkv, d_mlp):
+        return torch.cat([d_qkv, d_mlp], dim=-1), None
 
 
 class Downsample(nn.Module):
@@ -260,6 +294,8 @@ class UViT3D(nn.Module):
         bad = set(s.block_types) - {"ResBlock", "TransformerBlock"}
         if bad:
             raise NotImplementedError(f"block types {sorted(bad)} are not ported")
+        if any(s.use_checkpointing):
+            remat(s.remat_policy)  # raises now on a policy that is not ported
         self.spec, self.x_channels, self.resolution = s, x_channels, resolution
         self.token_io = token_io
         self._ropes: Dict[int, RopeTables] = {}  # per level, shared by its blocks
@@ -299,7 +335,8 @@ class UViT3D(nn.Module):
         if i not in self._ropes:
             r = self.level_resolution(i)
             self._ropes[i] = RopeTables(make_rope_3d(ch // s.num_heads, (s.max_temporal_length, r, r)))
-        return TransformerBlock(ch, s.num_heads, s.emb_channels, self._ropes[i])
+        return TransformerBlock(ch, s.num_heads, s.emb_channels, self._ropes[i],
+                                dropout=s.block_dropouts[i])
 
     def block_names(self):
         """[(block_name, i_level)] in forward order, the JAX package's names."""
@@ -329,7 +366,7 @@ class UViT3D(nn.Module):
             if isinstance(m, TransformerBlock):
                 m.plain_attention = plain
 
-    def _run_block(self, block, x, emb, pose_mod, pose_scale, B, T):
+    def _run_block(self, block, x, emb, pose_mod, pose_scale, B, T, i_level):
         if isinstance(block, ResBlock):
             if pose_mod is not None:
                 pose_mod = pose_mod.reshape((-1,) + pose_mod.shape[2:])
@@ -347,7 +384,11 @@ class UViT3D(nn.Module):
             pose_mod = pose_mod.reshape(B, T * h * w, pose_mod.shape[-1])
             if pose_scale is not None:
                 pose_scale = pose_scale[:, :, None].expand(B, T, h * w).reshape(B, T * h * w, 1)
-        return block(xt, et, pose_mod, pose_scale).reshape(BT, h, w, C)
+        if self.spec.use_checkpointing[i_level] and torch.is_grad_enabled():
+            out = remat(self.spec.remat_policy)(block, xt, et, pose_mod, pose_scale)
+        else:
+            out = block(xt, et, pose_mod, pose_scale)
+        return out.reshape(BT, h, w, C)
 
     def forward(self, x, noise_levels, external_cond=None, external_cond_mask=None):
         s = self.spec
@@ -370,7 +411,7 @@ class UViT3D(nn.Module):
         emb = self.noise_level_pos_embedding(noise_levels)  # (B, T, E)
         embs, pose_mods, pose_scale = self._conditioning(emb, external_cond, external_cond_mask, B, T)
         run = lambda blk, x, i, name: self._run_block(
-            blk, x, embs[i], pose_mods.get(name), pose_scale, B, T
+            blk, x, embs[i], pose_mods.get(name), pose_scale, B, T, i
         )
 
         L = self.num_levels
@@ -412,8 +453,9 @@ class UViT3DPose(UViT3D):
 
     def __init__(self, spec: UViTSpec, x_channels: int, resolution: int,
                  external_cond_dim: int, use_fourier_noise_emb: bool = False,
-                 token_io: bool = False):
+                 token_io: bool = False, external_cond_dropout: float = 0.0):
         super().__init__(spec, x_channels, resolution, use_fourier_noise_emb, token_io)
+        self.external_cond_dropout = external_cond_dropout
         self.external_cond_embedding = nn.Module()
         self.external_cond_embedding.patch_embedder = PatchEmbed(
             spec.patch_size, external_cond_dim, spec.emb_channels
@@ -427,6 +469,8 @@ class UViT3DPose(UViT3D):
     def _conditioning(self, emb, external_cond, external_cond_mask, B, T):
         E = emb.shape[-1]
         if isinstance(external_cond, dict):
+            if self.training:
+                raise ValueError("precomputed pose conditioning is for inference only")
             if external_cond.get("levels"):
                 raise NotImplementedError("per-level pose maps (axial blocks) are not ported")
             pose_scale = None
@@ -438,7 +482,11 @@ class UViT3DPose(UViT3D):
         hh = self.level_resolution(0)
         pose = self.external_cond_embedding.patch_embedder(external_cond)
         pose = pose.reshape(B, T, hh, hh, E)
-        if external_cond_mask is not None:
+        if self.external_cond_dropout > 0 and self.training:
+            # whole-sample dropout of the pose conditioning (CFG)
+            drop = torch.rand(B, device=pose.device) < self.external_cond_dropout
+            pose = torch.where(drop[:, None, None, None, None], 0.0, pose)
+        elif external_cond_mask is not None:
             m = external_cond_mask.reshape(
                 external_cond_mask.shape + (1,) * (pose.ndim - external_cond_mask.ndim)
             )

@@ -4,11 +4,19 @@
 re-exported here under names that do not shadow them.
 """
 
-from .attention import attention_reference, flash_attention
+from .attention import (
+    attention_backward_reference,
+    attention_reference,
+    flash_attention,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+)
 from .qkv_prep import (
     attention_from_packed_qkv,
     attn_out_collect,
+    attn_out_scatter,
     fold_qk_tables,
+    qkv_prep_bwd,
     reference_qkv_prep,
     signed_sin,
     swap_pairs,
@@ -20,6 +28,10 @@ KERNEL_WRAPPERS = {
     "flash_fwd": flash_attention,
     "qkv_prep": _qkv_prep,
     "attn_out_collect": attn_out_collect,
+    "flash_bwd_dq": flash_bwd_dq,
+    "flash_bwd_dkv": flash_bwd_dkv,
+    "qkv_prep_bwd": qkv_prep_bwd,
+    "attn_out_scatter": attn_out_scatter,
 }
 
 

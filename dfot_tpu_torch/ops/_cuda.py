@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
 The sources under ``dfot_tpu_torch/csrc/`` expose plain C entry points, so
-one ``nvcc -shared`` call builds them in seconds (no PyTorch headers). The
-library is built at first use into ``build/dfot_tpu_torch/`` at the root of
-the checkout, named by a hash of the sources so an edited kernel is rebuilt,
-and loaded once per process. Every C entry returns a ``cudaError_t``;
-:func:`check` turns a non-zero code into an exception.
+nvcc builds them in seconds (no PyTorch headers): one ``nvcc -c`` per source,
+all started together, then one link. The library is built at first use into
+``build/dfot_tpu_torch/`` at the root of the checkout, named by a hash of the
+sources so an edited kernel is rebuilt, and loaded once per process. Every C
+entry returns a ``cudaError_t``; :func:`check` turns a non-zero code into an
+exception.
 """
 
 from __future__ import annotations
@@ -21,7 +22,11 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dfot_tpu_torch"
-_SOURCES = ("flash_fwd.cu", "qkv_prep.cu", "attn_out_collect.cu")
+_SOURCES = (
+    "flash_fwd.cu", "flash_bwd.cu", "qkv_prep.cu", "qkv_prep_bwd.cu",
+    "attn_out_collect.cu", "attn_out_scatter.cu",
+)
+_HEADERS = ("mma.cuh",)
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -33,6 +38,13 @@ _SIGNATURES = {
     "dfot_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "dfot_qkv_prep": (_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "dfot_attn_out_collect": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "dfot_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "dfot_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "dfot_qkv_prep_bwd": (
+        _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    "dfot_attn_out_scatter": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -54,26 +66,44 @@ def _nvcc() -> str:
 
 def _build() -> Path:
     sources = [_CSRC / s for s in _SOURCES]
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)).hexdigest()[:16]
+    hashed = sources + [_CSRC / h for h in _HEADERS]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in hashed)).hexdigest()[:16]
     out = _BUILD_DIR / f"libdfot_kernels_{digest}.so"
     build_info["path"] = str(out)
     if out.exists():
         build_info["seconds"] = 0.0
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
+    objects = [_BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-        *(str(s) for s in sources),
-    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log']}")
-    os.replace(tmp, out)
+    try:
+        compiles = [
+            subprocess.Popen(
+                [nvcc, "-gencode", _ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        logs = [proc.communicate()[0] for proc in compiles]
+        build_info["log"] = "".join(f"== {s.name}\n{log}" for s, log in zip(sources, logs))
+        failed = [s.name for s, proc in zip(sources, compiles) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_info['log']}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objects)],
+            capture_output=True, text=True,
+        )
+        build_info["log"] += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_info['log']}")
+        os.replace(tmp, out)
+    finally:
+        build_info["seconds"] = time.perf_counter() - t0
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

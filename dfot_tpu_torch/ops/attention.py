@@ -1,19 +1,27 @@
-"""Attention ops: the flash-attention forward kernel and its plain version.
+"""Attention ops: the flash-attention kernels and their plain versions.
 
-Port of ``dfot_tpu/ops/attention.py`` (forward side). Layout (B, H, N, D)
-as in the JAX package.
+Port of ``dfot_tpu/ops/attention.py``. Layout (B, H, N, D) as in the JAX
+package.
 
-- :func:`flash_attention` is the wrapper of kernel B1
-  (``csrc/flash_fwd.cu``, the port of ``_flash_kernel``): a CUDA tensor goes
-  to the kernel or the call raises; a CPU tensor takes the plain version.
-- :func:`attention_reference` is the plain version, the counterpart of
-  ``_xla_attention``: fp32 scores, fp32 softmax, one cast at the end.
+- :func:`flash_attention` is differentiable: its forward is kernel B1
+  (``csrc/flash_fwd.cu``, the port of ``_flash_kernel``), which saves q, k,
+  v, O and the LSE; its backward computes delta = rowsum(dO * O) with plain
+  tensor ops, as the JAX package does, and calls :func:`flash_bwd_dq`
+  (kernel B4, the port of ``_flash_bwd_dq_kernel`` and of its streaming twin)
+  and :func:`flash_bwd_dkv` (kernel B5, the port of
+  ``_flash_bwd_dkv_kernel``), both in ``csrc/flash_bwd.cu``.
+- A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes
+  the plain versions: :func:`attention_reference` (the counterpart of
+  ``_xla_attention``: fp32 scores, fp32 softmax, one cast at the end) and
+  :func:`attention_backward_reference` (the explicit backward formulas in
+  fp32, not autograd of the forward).
 - :func:`attention` is the dispatcher (counterpart of ``attention``).
   Sequence-parallel ring attention and the small-N kernel are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -21,9 +29,41 @@ import torch
 
 from . import _cuda
 
-__all__ = ["attention", "attention_reference", "flash_attention"]
+__all__ = [
+    "attention", "attention_reference", "attention_backward_reference",
+    "flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
+]
 
 
+def _full_precision(fn):
+    """Run a plain version outside any autocast region: its fp32 products
+    are the reference and must not be downcast."""
+
+    @functools.wraps(fn)
+    def wrapped(q, *args, **kwargs):
+        with torch.autocast(device_type=q.device.type, enabled=False):
+            return fn(q, *args, **kwargs)
+
+    return wrapped
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """Upcast to the plain versions' working precision: fp32, or fp64 for an
+    fp64 input (gradient checks)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _scores(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
+    """fp32 scaled scores, -inf above the diagonal when causal."""
+    s = torch.matmul(_f32(q), _f32(k).transpose(-1, -2)) * sm_scale
+    if causal:
+        n, m = s.shape[-2:]
+        keep = torch.ones(n, m, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return s
+
+
+@_full_precision
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -38,26 +78,72 @@ def attention_reference(
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    if causal:
-        n, m = s.shape[-2:]
-        keep = torch.ones(n, m, dtype=torch.bool, device=s.device).tril()
-        s = s.masked_fill(~keep, float("-inf"))
+    s = _scores(q, k, causal, sm_scale)
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    out = torch.matmul(torch.exp(s - lse), v.float()).to(q.dtype)
+    out = torch.matmul(torch.exp(s - lse), _f32(v)).to(q.dtype)
     return (out, lse) if return_lse else out
+
+
+@_full_precision
+def _dq_plain(q, k, v, do, lse, delta, causal, sm_scale):
+    """Plain version of kernel B4: dq = scale * (p * (dO v^T - delta)) k."""
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse)
+    ds = p * (torch.matmul(_f32(do), _f32(v).transpose(-1, -2)) - delta)
+    return (torch.matmul(ds, _f32(k)) * sm_scale).to(q.dtype)
+
+
+@_full_precision
+def _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale):
+    """Plain version of kernel B5: dk = scale * ds^T q, dv = p^T dO."""
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse)
+    dv = torch.matmul(p.transpose(-1, -2), _f32(do))
+    ds = p * (torch.matmul(_f32(do), _f32(v).transpose(-1, -2)) - delta)
+    dk = torch.matmul(ds.transpose(-1, -2), _f32(q)) * sm_scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(o, do) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, (B, H, N, 1)."""
+    return (_f32(do) * _f32(o)).sum(-1, keepdim=True)
+
+
+def attention_backward_reference(q, k, v, o, lse, do, causal=False, sm_scale=None):
+    """Plain attention backward from the saved forward results:
+    (dq, dk, dv), each in its input's dtype. ``lse``: (B, H, N, 1) fp32."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = _delta(o, do)
+    dq = _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    return (dq, *_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale))
+
+
+def _check_qkv(what, q, *others):
+    """The kernels' common contract: bf16 (B, H, N, D), one shape and
+    device, D in {64, 128}, N a multiple of 64."""
+    B, H, N, D = q.shape
+    if any(t.dtype != torch.bfloat16 for t in (q, *others)):
+        raise TypeError(f"{what} takes bf16, got {[t.dtype for t in (q, *others)]}")
+    if any(t.shape != q.shape for t in others):
+        raise ValueError(f"{what}: shapes differ: {[tuple(t.shape) for t in (q, *others)]}")
+    if D not in (64, 128) or N % 64 or B * H > 65535:
+        raise ValueError(f"{what} takes d in (64, 128) and N % 64 == 0, got {tuple(q.shape)}")
+    if any(t.device != q.device for t in others):
+        raise ValueError(f"{what}: tensors on different devices")
+
+
+def _check_stats(what, q, *stats):
+    B, H, N, _ = q.shape
+    for t in stats:
+        if t.dtype != torch.float32 or t.shape != (B, H, N, 1) or t.device != q.device:
+            raise ValueError(
+                f"{what}: lse/delta must be fp32 ({B}, {H}, {N}, 1) on {q.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
 
 
 def _flash_cuda(q, k, v, causal, sm_scale, return_lse):
     B, H, N, D = q.shape
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if D not in (64, 128) or N % 64 or B * H > 65535:
-        raise ValueError(f"flash kernel takes d in (64, 128) and N % 64 == 0, got {q.shape}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q/k/v on different devices")
+    _check_qkv("flash attention forward", q, k, v)
     q, k, v = (t.contiguous() for t in (q, k, v))
     _cuda.check_aligned("flash attention forward", 16, q, k, v)
     out = torch.empty_like(q)
@@ -78,6 +164,110 @@ def _flash_cuda(q, k, v, causal, sm_scale, return_lse):
     return (out, lse) if return_lse else out
 
 
+def _flash_forward(q, k, v, causal, sm_scale, return_lse, plain=False):
+    """Kernel B1 for a CUDA tensor, its plain version for a CPU tensor (or
+    on any device with ``plain``)."""
+    if plain or q.device.type == "cpu":
+        return attention_reference(q, k, v, causal, sm_scale, return_lse)
+    if not q.is_cuda:
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    return _flash_cuda(q, k, v, causal, sm_scale, return_lse)
+
+
+def _bwd_operands(what, q, k, v, do, lse, delta):
+    _check_qkv(what, q, k, v, do)
+    _check_stats(what, q, lse, delta)
+    tensors = tuple(t.contiguous() for t in (q, k, v, do, lse, delta))
+    _cuda.check_aligned(what, 16, *tensors[:4])
+    return tensors
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """dq of attention from the saved LSE and delta = rowsum(dO * O), both
+    (B, H, N, 1) fp32. On a CUDA device this launches kernel B4 (bf16, D in
+    {64, 128}, N a multiple of 64; anything else raises); on the CPU it runs
+    the plain version."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    if not q.is_cuda:
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    what = "flash attention backward (dq)"
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    dq = torch.empty_like(q)
+    _cuda.check(
+        _cuda.library().dfot_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B * H, N, D, float(sm_scale), int(causal),
+            _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
+                  sm_scale: Optional[float] = None):
+    """(dk, dv) of attention, arguments as :func:`flash_bwd_dq`. On a CUDA
+    device this launches kernel B5 or raises; on the CPU it runs the plain
+    version."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    if not q.is_cuda:
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    what = "flash attention backward (dk, dv)"
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _cuda.check(
+        _cuda.library().dfot_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, N, D, float(sm_scale),
+            int(causal), _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _wants_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these tensors. Where it would
+    not (sampling), the wrappers call their kernels directly and skip the
+    autograd Function's bookkeeping."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B1 forward, B4 + B5 backward (or their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, plain):
+        out, lse = _flash_forward(q, k, v, causal, sm_scale, True, plain)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, sm_scale, plain = ctx.args
+        delta = _delta(out, do)
+        if plain:
+            dq = _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
+            dk, dv = _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
+        else:
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -85,26 +275,30 @@ def flash_attention(
     causal: bool = False,
     sm_scale: Optional[float] = None,
     return_lse: bool = False,
+    plain: bool = False,
 ):
-    """Flash attention forward, (B, H, N, D) layout [, lse (B, H, N, 1)].
+    """Flash attention, (B, H, N, D) layout [, lse (B, H, N, 1)].
 
     ``sm_scale`` defaults to 1/sqrt(D). On a CUDA device this launches the
-    hand-written kernel (bf16, D in {64, 128}, N a multiple of 64; anything
-    else raises); on the CPU it runs :func:`attention_reference`.
+    hand-written kernels, forward and backward (bf16, D in {64, 128}, N a
+    multiple of 64; anything else raises); on the CPU, or on any device with
+    ``plain``, it runs the plain versions. With ``return_lse`` the call is
+    the bare forward and carries no gradient.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
-        return _flash_cuda(q, k, v, causal, sm_scale, return_lse)
-    if q.device.type != "cpu":
-        raise ValueError(f"no flash-attention path for device {q.device}")
-    return attention_reference(q, k, v, causal, sm_scale, return_lse)
+    if return_lse or not _wants_grad(q, k, v):
+        return _flash_forward(q, k, v, causal, sm_scale, return_lse, plain)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, plain)
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset
+flash_attention.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
 
 
 def attention(q, k, v, causal: bool = False) -> torch.Tensor:
-    """Attention dispatcher, (B, H, N, D) layout: the flash kernel on the
-    card, its plain version on the CPU."""
+    """Attention dispatcher, (B, H, N, D) layout: the flash kernels on the
+    card, their plain versions on the CPU."""
     return flash_attention(q, k, v, causal)

@@ -1,16 +1,20 @@
 """Fused qkv preparation and attention-output collect, with plain versions.
 
-Port of ``dfot_tpu/ops/qkv_prep.py`` (forward side). The chain between the
-packed qkv projection and attention (head split, per-head RMSNorm, RoPE,
-optional zero lane-pad) and the chain after it (drop pad lanes, merge
-heads) are one pass each:
+Port of ``dfot_tpu/ops/qkv_prep.py``. The chain between the packed qkv
+projection and attention (head split, per-head RMSNorm, RoPE, optional zero
+lane-pad) and the chain after it (drop pad lanes, merge heads) are one pass
+each, forward and backward:
 
 - :func:`qkv_prep` wraps kernel B2 (``csrc/qkv_prep.cu``, the port of
-  ``_prep_kernel``);
+  ``_prep_kernel``); its backward is :func:`qkv_prep_bwd`, kernel B6
+  (``csrc/qkv_prep_bwd.cu``, the port of ``_bwd_kernel``), which returns the
+  packed dqkv and the fp32 cotangents of the four RoPE tables;
 - :func:`attn_out_collect` wraps kernel B3 (``csrc/attn_out_collect.cu``,
-  the port of ``_collect_kernel``);
+  the port of ``_collect_kernel``); its backward is
+  :func:`attn_out_scatter`, kernel B7 (``csrc/attn_out_scatter.cu``, the
+  port of ``_scatter_kernel``);
 - :func:`attention_from_packed_qkv` runs B2 -> B1 -> B3, the route of every
-  UViT transformer block.
+  UViT transformer block, and B7 -> B4, B5 -> B6 on the way back.
 
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes the
 plain versions. RoPE pairs are ADJACENT lanes (rotate_half is
@@ -28,15 +32,19 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .attention import attention_reference, flash_attention
+from .attention import _f32, _wants_grad, flash_attention
 
 __all__ = [
     "signed_sin",
     "swap_pairs",
     "fold_qk_tables",
     "qkv_prep",
+    "qkv_prep_bwd",
     "reference_qkv_prep",
     "attn_out_collect",
+    "attn_out_scatter",
+    "reference_attn_out_collect",
+    "reference_attn_out_scatter",
     "attention_from_packed_qkv",
 ]
 
@@ -61,14 +69,16 @@ def fold_qk_tables(cos, sin_signed, q_scale=None, k_scale=None, dtype=torch.bflo
     ``cos``/``sin_signed``: (N, D) fp32 tables, sign already folded. Each
     learned RMSNorm scale is folded into its pair in fp32 before the cast to
     ``dtype``: rope(u * s) = u * (s * cos) + swap(u) * (swap(s) * sin_signed).
+    Plain differentiable tensor ops: the table cotangents that
+    :func:`qkv_prep_bwd` returns reach the scales through them.
     """
-    c, s = cos.float(), sin_signed.float()
+    c, s = _f32(cos), _f32(sin_signed)
     out = []
     for scale in (q_scale, k_scale):
         if scale is None:
             pair = (c, s)
         else:
-            pair = (c * scale.float(), s * swap_pairs(scale.float()))
+            pair = (c * _f32(scale), s * swap_pairs(_f32(scale)))
         out.append(tuple(t.to(dtype).contiguous() for t in pair))
     return tuple(out)
 
@@ -82,7 +92,7 @@ def _prep_plain(qkv, tabs, heads, head_dim, d_out, norm, eps):
         t = x[:, :, i].transpose(1, 2)  # (B, H, N, D)
         if i < 2:
             if norm:
-                tf = t.float()
+                tf = _f32(t)
                 r = torch.rsqrt(tf.pow(2).mean(-1, keepdim=True) + eps)
                 t = (tf * r).to(qkv.dtype)
             c, s = tabs[i]
@@ -93,18 +103,50 @@ def _prep_plain(qkv, tabs, heads, head_dim, d_out, norm, eps):
     return tuple(outs)
 
 
+def _prep_bwd_plain(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps):
+    """Plain version of kernel B6: the VJP of :func:`_prep_plain`.
+
+    Returns the packed dqkv (B, N, 3*H*D) in qkv's dtype and the table
+    cotangents (dcq, dsq, dck, dsk), each (N, D) fp32, summed over batch
+    and heads. Arithmetic in fp32, as the kernel's."""
+    B, N, _ = qkv.shape
+    D = head_dim
+    x = qkv.reshape(B, N, 3, heads, D)
+    streams, dtabs = [], []
+    for i, dy in enumerate((dq, dk)):
+        dy = _f32(dy[..., :D].transpose(1, 2))  # (B, N, H, D)
+        c, s = (_f32(t)[None, :, None, :] for t in tabs[i])
+        du = dy * c + swap_pairs(dy * s)
+        xf = _f32(x[:, :, i])
+        if norm:
+            r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+            dx = r * du - xf * (r.pow(3) * (du * xf).mean(-1, keepdim=True))
+            u = _f32((xf * r).to(qkv.dtype))  # the u the forward multiplied
+        else:
+            dx, u = du, xf
+        streams.append(dx.to(qkv.dtype))
+        dtabs += [(u * dy).sum((0, 2)), (swap_pairs(u) * dy).sum((0, 2))]
+    streams.append(dv[..., :D].transpose(1, 2).to(qkv.dtype))
+    return (torch.stack(streams, dim=2).reshape(B, N, 3 * heads * D), *dtabs)
+
+
+def _check_prep_operands(what, qkv, tabs, head_dim, d_out):
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16, got {qkv.dtype}")
+    if qkv.stride(-1) != 1 or qkv.stride(0) % 2 or qkv.stride(1) % 2:
+        raise ValueError(f"{what} kernel needs a unit, even-aligned last dim, strides {qkv.stride()}")
+    if head_dim % 2 or head_dim > 256 or d_out % 2:
+        raise ValueError(f"{what} kernel takes even head dims <= 256, got {head_dim}/{d_out}")
+    flat = tuple(t.contiguous() for pair in tabs for t in pair)
+    if any(t.device != qkv.device for t in flat):
+        raise ValueError("RoPE tables must be on the device of qkv")
+    _cuda.check_aligned(what, 4, qkv, *flat)
+    return flat
+
+
 def _prep_cuda(qkv, tabs, heads, head_dim, d_out, norm, eps):
     B, N, _ = qkv.shape
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"qkv_prep kernel takes bf16, got {qkv.dtype}")
-    if qkv.stride(-1) != 1 or qkv.stride(0) % 2 or qkv.stride(1) % 2:
-        raise ValueError(f"qkv_prep kernel needs a unit, even-aligned last dim, strides {qkv.stride()}")
-    if head_dim % 2 or head_dim > 256 or d_out % 2:
-        raise ValueError(f"qkv_prep kernel takes even head dims <= 256, got {head_dim}/{d_out}")
-    (cq, sq), (ck, sk) = ((c.contiguous(), s.contiguous()) for c, s in tabs)
-    if any(t.device != qkv.device for t in (cq, sq, ck, sk)):
-        raise ValueError("RoPE tables must be on the device of qkv")
-    _cuda.check_aligned("qkv_prep", 4, qkv, cq, sq, ck, sk)
+    cq, sq, ck, sk = _check_prep_operands("qkv_prep", qkv, tabs, head_dim, d_out)
     outs = [
         torch.empty((B, heads, N, d_out), dtype=qkv.dtype, device=qkv.device)
         for _ in range(3)
@@ -124,10 +166,37 @@ def _prep_cuda(qkv, tabs, heads, head_dim, d_out, norm, eps):
     return tuple(outs)
 
 
-def _prep(qkv, tabs, heads, head_dim, d_out, norm, eps, plain=False):
-    """Check the shapes, then kernel B2 for a CUDA tensor or its plain
-    version for a CPU tensor (or on any device with ``plain``).
-    ``tabs``: folded (N, head_dim) tables in qkv's dtype."""
+def _prep_bwd_cuda(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps):
+    B, N, W = qkv.shape
+    d_out = dq.shape[-1]
+    cq, sq, ck, sk = _check_prep_operands("qkv_prep backward", qkv, tabs, head_dim, d_out)
+    grads = tuple(g.contiguous() for g in (dq, dk, dv))
+    for g in grads:
+        if g.dtype != qkv.dtype or g.shape != (B, heads, N, d_out) or g.device != qkv.device:
+            raise ValueError(
+                f"qkv_prep backward: cotangents must be ({B}, {heads}, {N}, {d_out}) "
+                f"{qkv.dtype} on {qkv.device}, got {tuple(g.shape)} {g.dtype} on {g.device}"
+            )
+    _cuda.check_aligned("qkv_prep backward", 4, *grads)
+    dqkv = torch.empty((B, N, W), dtype=qkv.dtype, device=qkv.device)
+    dtabs = [torch.empty((N, head_dim), dtype=torch.float32, device=qkv.device) for _ in range(4)]
+    _cuda.check(
+        _cuda.library().dfot_qkv_prep_bwd(
+            qkv.data_ptr(), qkv.stride(0), qkv.stride(1),
+            cq.data_ptr(), sq.data_ptr(), ck.data_ptr(), sk.data_ptr(),
+            *(g.data_ptr() for g in grads),
+            dqkv.data_ptr(), dqkv.stride(0), dqkv.stride(1),
+            *(t.data_ptr() for t in dtabs),
+            B, N, heads, head_dim, d_out, int(norm), float(eps),
+            _cuda.stream_handle(qkv.device),
+        ),
+        "qkv_prep backward",
+    )
+    qkv_prep_bwd.launches += 1
+    return (dqkv, *dtabs)
+
+
+def _check_prep_shapes(qkv, tabs, heads, head_dim, d_out):
     B, N, W = qkv.shape
     if W != 3 * heads * head_dim or head_dim % 2:
         raise ValueError(f"packed width {W} does not match 3 * {heads} * {head_dim}")
@@ -138,11 +207,69 @@ def _prep(qkv, tabs, heads, head_dim, d_out, norm, eps, plain=False):
             raise ValueError(
                 f"RoPE tables must be ({N}, {head_dim}) {qkv.dtype}, got {tuple(t.shape)} {t.dtype}"
             )
+
+
+def _prep(qkv, tabs, heads, head_dim, d_out, norm, eps, plain=False):
+    """Check the shapes, then kernel B2 for a CUDA tensor or its plain
+    version for a CPU tensor (or on any device with ``plain``).
+    ``tabs``: folded (N, head_dim) tables in qkv's dtype."""
+    _check_prep_shapes(qkv, tabs, heads, head_dim, d_out)
     if plain or qkv.device.type == "cpu":
         return _prep_plain(qkv, tabs, heads, head_dim, d_out, norm, eps)
     if not qkv.is_cuda:
         raise ValueError(f"no qkv_prep path for device {qkv.device}")
     return _prep_cuda(qkv, tabs, heads, head_dim, d_out, norm, eps)
+
+
+def qkv_prep_bwd(qkv, tabs, dq, dk, dv, heads, head_dim, norm=False, eps=1e-6, plain=False):
+    """VJP of the qkv preparation on folded tables.
+
+    ``qkv``: the packed (B, N, 3*H*D) tensor the forward read (it may be a
+    strided slice of a wider projection); ``tabs``: the folded
+    ``((cq, sq), (ck, sk))`` in qkv's dtype; ``dq, dk, dv``: (B, H, N, d_out)
+    cotangents. Returns ``(dqkv, dcq, dsq, dck, dsk)``: the packed gradient,
+    contiguous, in qkv's dtype and the four (N, D) fp32 table cotangents,
+    summed over batch and heads. Kernel B6 for a CUDA tensor, its plain
+    version for a CPU tensor (or on any device with ``plain``)."""
+    _check_prep_shapes(qkv, tabs, heads, head_dim, dq.shape[-1])
+    if plain or qkv.device.type == "cpu":
+        return _prep_bwd_plain(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps)
+    if not qkv.is_cuda:
+        raise ValueError(f"no qkv_prep path for device {qkv.device}")
+    return _prep_bwd_cuda(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps)
+
+
+class _QkvPrep(torch.autograd.Function):
+    """B2 forward, B6 backward (or their plain versions). The tables come in
+    any float dtype (fp32 on the differentiable route), are cast to qkv's
+    dtype here, after the fold, and get their cotangents back in fp32."""
+
+    @staticmethod
+    def forward(ctx, qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain):
+        tabs = ((cq.to(qkv.dtype), sq.to(qkv.dtype)), (ck.to(qkv.dtype), sk.to(qkv.dtype)))
+        ctx.save_for_backward(qkv, *tabs[0], *tabs[1])
+        ctx.args = (heads, head_dim, norm, eps, plain)
+        ctx.table_dtypes = tuple(t.dtype for t in (cq, sq, ck, sk))
+        return _prep(qkv, tabs, heads, head_dim, d_out, norm, eps, plain)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        qkv, cq, sq, ck, sk = ctx.saved_tensors
+        dqkv, *dtabs = qkv_prep_bwd(qkv, ((cq, sq), (ck, sk)), dq, dk, dv, *ctx.args)
+        dtabs = [
+            g.to(dt) if need else None
+            for g, dt, need in zip(dtabs, ctx.table_dtypes, ctx.needs_input_grad[1:5])
+        ]
+        return (dqkv if ctx.needs_input_grad[0] else None, *dtabs, *(None,) * 6)
+
+
+def _prep_route(qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain):
+    """The preparation on folded tables of any float dtype: through the
+    autograd Function where a gradient is wanted, directly otherwise."""
+    if _wants_grad(qkv, cq, sq, ck, sk):
+        return _QkvPrep.apply(qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain)
+    tabs = ((cq.to(qkv.dtype), sq.to(qkv.dtype)), (ck.to(qkv.dtype), sk.to(qkv.dtype)))
+    return _prep(qkv, tabs, heads, head_dim, d_out, norm, eps, plain)
 
 
 def qkv_prep(
@@ -157,31 +284,29 @@ def qkv_prep(
     norm: bool = False,
     eps: float = 1e-6,
     d_out: Optional[int] = None,
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, N, 3*H*D) packed qkv -> q, k, v, each (B, H, N, d_out).
 
     ``cos``/``sin_signed``: (N, D) tables, sign already folded. With ``norm``,
     q and k get the per-head fp32 1/rms(x); their learned scales are folded
-    into the tables here. ``d_out`` zero-pads each head. The JAX package's
-    ones lane on v (``aug_v``) is a TPU matrix-unit device and not produced.
+    into the tables here. ``d_out`` zero-pads each head. Differentiable in
+    qkv and in the scales. The JAX package's ones lane on v (``aug_v``) is a
+    TPU matrix-unit device and not produced. ``plain`` runs the plain
+    versions on any device.
     """
     n = qkv.shape[1]
-    tabs = fold_qk_tables(cos[:n], sin_signed[:n], q_scale, k_scale, qkv.dtype)
-    return _prep(qkv, tabs, heads, head_dim, d_out or head_dim, norm, eps)
+    (cq, sq), (ck, sk) = fold_qk_tables(
+        cos[:n], sin_signed[:n], q_scale, k_scale,
+        torch.float64 if qkv.dtype == torch.float64 else torch.float32,
+    )
+    return _prep_route(qkv, cq, sq, ck, sk, heads, head_dim, d_out or head_dim, norm, eps, plain)
 
 
-qkv_prep.launches = 0  # kernel launches since the last reset
-
-
-def reference_qkv_prep(
-    qkv, heads, head_dim, cos, sin_signed,
-    *, q_scale=None, k_scale=None, norm=False, eps=1e-6, d_out=None,
-):
+def reference_qkv_prep(qkv, heads, head_dim, cos, sin_signed, **kwargs):
     """Plain version of :func:`qkv_prep` on any device (the oracle the
     kernel is held against)."""
-    n = qkv.shape[1]
-    tabs = fold_qk_tables(cos[:n], sin_signed[:n], q_scale, k_scale, qkv.dtype)
-    return _prep(qkv, tabs, heads, head_dim, d_out or head_dim, norm, eps, plain=True)
+    return qkv_prep(qkv, heads, head_dim, cos, sin_signed, plain=True, **kwargs)
 
 
 def reference_attn_out_collect(o: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -190,12 +315,24 @@ def reference_attn_out_collect(o: torch.Tensor, head_dim: int) -> torch.Tensor:
     return o[..., :head_dim].transpose(1, 2).reshape(B, N, H * head_dim)
 
 
+def reference_attn_out_scatter(g: torch.Tensor, heads: int, head_dim: int,
+                               d_in: int) -> torch.Tensor:
+    """Plain version of :func:`attn_out_scatter` on any device."""
+    B, N, _ = g.shape
+    do = g.reshape(B, N, heads, head_dim).transpose(1, 2)
+    return torch.nn.functional.pad(do, (0, d_in - head_dim)).contiguous()
+
+
+def _check_collect_operands(what, t, head_dim, d_in):
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16, got {t.dtype}")
+    if head_dim % 8 or d_in % 8 or d_in < head_dim:
+        raise ValueError(f"{what} kernel takes D, DP multiples of 8, got {head_dim}/{d_in}")
+
+
 def _collect_cuda(o, head_dim):
     B, H, N, DP = o.shape
-    if o.dtype != torch.bfloat16:
-        raise TypeError(f"attn_out_collect kernel takes bf16, got {o.dtype}")
-    if head_dim % 8 or DP % 8 or DP < head_dim:
-        raise ValueError(f"attn_out_collect kernel takes D, DP multiples of 8, got {head_dim}/{DP}")
+    _check_collect_operands("attn_out_collect", o, head_dim, DP)
     o = o.contiguous()
     out = torch.empty((B, N, H * head_dim), dtype=o.dtype, device=o.device)
     _cuda.check_aligned("attn_out_collect", 16, o, out)
@@ -211,17 +348,75 @@ def _collect_cuda(o, head_dim):
     return out
 
 
-def attn_out_collect(o: torch.Tensor, head_dim: int) -> torch.Tensor:
-    """(B, H, N, DP) attention output -> (B, N, H*head_dim): drop the pad
-    lanes and merge the heads in one pass."""
-    if o.is_cuda:
-        return _collect_cuda(o, head_dim)
-    if o.device.type != "cpu":
+def _scatter_cuda(g, heads, head_dim, d_in):
+    B, N, W = g.shape
+    _check_collect_operands("attn_out_scatter", g, head_dim, d_in)
+    g = g.contiguous()
+    do = torch.empty((B, heads, N, d_in), dtype=g.dtype, device=g.device)
+    _cuda.check_aligned("attn_out_scatter", 16, g, do)
+    _cuda.check(
+        _cuda.library().dfot_attn_out_scatter(
+            g.data_ptr(), do.data_ptr(), B, heads, N, head_dim, d_in,
+            _cuda.stream_handle(g.device),
+        ),
+        "attn_out_scatter",
+    )
+    attn_out_scatter.launches += 1
+    return do
+
+
+def attn_out_scatter(g: torch.Tensor, heads: int, head_dim: int, d_in: int,
+                     plain: bool = False) -> torch.Tensor:
+    """(B, N, H*head_dim) merged-token cotangent -> (B, H, N, d_in): split
+    the heads and zero the pad lanes in one pass (the VJP of
+    :func:`attn_out_collect`). Kernel B7 for a CUDA tensor, its plain version
+    for a CPU tensor (or on any device with ``plain``)."""
+    if g.shape[-1] != heads * head_dim:
+        raise ValueError(f"merged width {g.shape[-1]} does not match {heads} * {head_dim}")
+    if plain or g.device.type == "cpu":
+        return reference_attn_out_scatter(g, heads, head_dim, d_in)
+    if not g.is_cuda:
+        raise ValueError(f"no attn_out_scatter path for device {g.device}")
+    return _scatter_cuda(g, heads, head_dim, d_in)
+
+
+def _collect(o, head_dim, plain):
+    """Kernel B3 for a CUDA tensor, its plain version for a CPU tensor (or
+    on any device with ``plain``)."""
+    if plain or o.device.type == "cpu":
+        return reference_attn_out_collect(o, head_dim).contiguous()
+    if not o.is_cuda:
         raise ValueError(f"no attn_out_collect path for device {o.device}")
-    return reference_attn_out_collect(o, head_dim)
+    return _collect_cuda(o, head_dim)
 
 
-attn_out_collect.launches = 0  # kernel launches since the last reset
+class _AttnOutCollect(torch.autograd.Function):
+    """B3 forward, B7 backward (or their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, o, head_dim, plain):
+        ctx.args = (o.shape[1], head_dim, o.shape[-1], plain)
+        return _collect(o, head_dim, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        return attn_out_scatter(g, *ctx.args), None, None
+
+
+def attn_out_collect(o: torch.Tensor, head_dim: int, plain: bool = False) -> torch.Tensor:
+    """(B, H, N, DP) attention output -> (B, N, H*head_dim): drop the pad
+    lanes and merge the heads in one pass. Differentiable. ``plain`` runs
+    the plain versions on any device."""
+    if not _wants_grad(o):
+        return _collect(o, head_dim, plain)
+    return _AttnOutCollect.apply(o, head_dim, plain)
+
+
+# kernel launches since the last reset
+qkv_prep.launches = 0
+qkv_prep_bwd.launches = 0
+attn_out_collect.launches = 0
+attn_out_scatter.launches = 0
 
 
 def attention_from_packed_qkv(
@@ -237,10 +432,12 @@ def attention_from_packed_qkv(
 ) -> torch.Tensor:
     """Packed (B, N, 3*H*D) qkv -> attention output (B, N, H*D).
 
-    ``tables``: the folded ``((cq, sq), (ck, sk))`` of :func:`fold_qk_tables`
-    in qkv's dtype, (>= N, D) each, or None for no rotation and no learned
-    scale. Softmax scale is 1/sqrt(D) of the true head dim. ``plain=True``
-    runs the plain versions of all three kernels on any device: the
+    ``tables``: the folded ``((cq, sq), (ck, sk))`` of :func:`fold_qk_tables`,
+    (>= N, D) each, or None for no rotation and no learned scale; in qkv's
+    dtype, or in fp32 where their cotangents are wanted (they are cast after
+    the fold either way). Softmax scale is 1/sqrt(D) of the true head dim.
+    Differentiable in qkv and the tables. ``plain=True`` runs the plain
+    versions of all the kernels, forward and backward, on any device: the
     reference a caller compares the kernel route with.
     """
     B, N, _ = qkv.shape
@@ -248,9 +445,7 @@ def attention_from_packed_qkv(
     if tables is None:
         ones = torch.ones((N, D), dtype=torch.float32, device=qkv.device)
         tables = fold_qk_tables(ones, torch.zeros_like(ones), dtype=qkv.dtype)
-    tabs = tuple((c[:N], s[:N]) for c, s in tables)
-    scale = 1.0 / math.sqrt(D)
-    q, k, v = _prep(qkv, tabs, heads, D, D, norm, eps, plain=plain)
-    if plain:
-        return reference_attn_out_collect(attention_reference(q, k, v, causal, scale), D)
-    return attn_out_collect(flash_attention(q, k, v, causal, scale), D)
+    (cq, sq), (ck, sk) = ((c[:N], s[:N]) for c, s in tables)
+    q, k, v = _prep_route(qkv, cq, sq, ck, sk, heads, D, D, norm, eps, plain)
+    o = flash_attention(q, k, v, causal, 1.0 / math.sqrt(D), plain=plain)
+    return attn_out_collect(o, D, plain)

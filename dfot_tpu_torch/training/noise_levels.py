@@ -1,0 +1,117 @@
+"""Training noise-level generation, per token (B, T).
+
+Port of ``dfot_tpu/training/noise_levels.py``:
+
+- random_independent : iid per token (Diffusion Forcing)
+- random_uniform     : one level per video (classic video diffusion)
+- interleaved        : one level for odd, one for even tokens
+- uniform_future     : context keeps iid levels, future shares one level
+- fixed/variable context masks for the standard-diffusion baselines, with
+  context dropout (context tokens forced to max noise with prob ``dropout``),
+- unavailable frames (mask False) forced to max noise.
+
+Random draws come from an explicit ``torch.Generator`` on the device of the
+frame mask. PyTorch and JAX draw different streams from one seed, so every
+draw can also be injected (``draws``), which is how the parity tests feed
+both packages the same numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+__all__ = ["NoiseLevelConfig", "training_noise_levels"]
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseLevelConfig:
+    noise_level: str = "random_independent"
+    timesteps: int = 1000
+    is_continuous: bool = False
+    n_context_tokens: int = 0
+    uniform_future: bool = False
+    fixed_context: bool = False
+    fixed_context_indices: Optional[Tuple[int, ...]] = None
+    fixed_context_dropout: float = 0.0
+    variable_context: bool = False
+    variable_context_prob: float = 0.25
+    variable_context_dropout: float = 0.3
+
+
+def training_noise_levels(
+    generator: Optional[torch.Generator],
+    cfg: NoiseLevelConfig,
+    frame_mask: torch.Tensor,  # (B, T) bool: frame available?
+    train: bool = True,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(noise levels (B, T), loss mask (B, T) bool).
+
+    Levels are fp32 in [0, 1) for continuous diffusion, int64 in
+    [0, timesteps) otherwise. ``draws`` may hold any of the random parts and
+    then replaces the generator for it: ``"levels"`` ((B, T), (B, 1) or
+    (B, 2) by mode), ``"future"`` (B, 1), ``"context"`` (B, T) bool,
+    ``"context_drop"`` (B, 1) bool.
+    """
+    B, T = frame_mask.shape
+    dev = frame_mask.device
+    draws = draws or {}
+
+    def levels_of(name, shape):
+        if name in draws:
+            got = torch.as_tensor(draws[name], device=dev)
+            if tuple(got.shape) != shape:
+                raise ValueError(f"draws[{name!r}] must be {shape}, got {tuple(got.shape)}")
+            return got.float() if cfg.is_continuous else got.long()
+        if cfg.is_continuous:
+            return torch.rand(shape, generator=generator, device=dev)
+        return torch.randint(0, cfg.timesteps, shape, generator=generator, device=dev)
+
+    def bernoulli_of(name, p, shape):
+        if name in draws:
+            return torch.as_tensor(draws[name], device=dev).bool().reshape(shape)
+        return torch.rand(shape, generator=generator, device=dev) < p
+
+    if cfg.noise_level == "random_independent":
+        levels = levels_of("levels", (B, T))
+    elif cfg.noise_level == "random_uniform":
+        levels = levels_of("levels", (B, 1)).expand(B, T)
+    elif cfg.noise_level == "interleaved":
+        pair = levels_of("levels", (B, 2))
+        levels = pair[:, torch.arange(T, device=dev) % 2]
+    else:
+        raise ValueError(f"unknown noise_level {cfg.noise_level}")
+
+    if cfg.uniform_future:
+        future = levels_of("future", (B, 1)).expand(B, T)
+        is_future = torch.arange(T, device=dev)[None] >= cfg.n_context_tokens
+        levels = torch.where(is_future, future, levels)
+
+    max_level = 1.0 if cfg.is_continuous else cfg.timesteps - 1
+    levels = torch.where(frame_mask, levels, torch.full_like(levels, max_level))
+
+    loss_mask = frame_mask
+    context_mask = None
+    if cfg.variable_context:
+        context_mask = bernoulli_of("context", cfg.variable_context_prob, (B, T))
+        dropout = cfg.variable_context_dropout
+    elif cfg.fixed_context:
+        idx = (
+            list(cfg.fixed_context_indices) if cfg.fixed_context_indices is not None
+            else list(range(cfg.n_context_tokens))
+        )
+        context_mask = torch.zeros((B, T), dtype=torch.bool, device=dev)
+        context_mask[:, idx] = True
+        dropout = cfg.fixed_context_dropout
+
+    if context_mask is not None:
+        # per-video context dropout: the context is forced to max noise (CFG)
+        dropped = bernoulli_of("context_drop", dropout if train else 0.0, (B, 1))
+        ctx_levels = dropped.to(levels.dtype) * (1 if cfg.is_continuous else cfg.timesteps - 1)
+        levels = torch.where(context_mask, ctx_levels.expand(B, T), levels)
+        loss_mask = loss_mask & ~context_mask  # context frames carry no loss
+
+    return levels, loss_mask

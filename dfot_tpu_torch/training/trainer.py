@@ -1,0 +1,96 @@
+"""The train step.
+
+Port of ``dfot_tpu/training/trainer.py``: draw per-token noise levels,
+diffuse, run the denoiser, weighted-MSE loss with the frame mask as a
+weight, backward, AdamW update, EMA update. Eager PyTorch: the state is
+updated in place and handed back.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..diffusion import core as dc
+from ..diffusion.continuous import continuous_training_fields, continuous_v_loss
+from .noise_levels import NoiseLevelConfig, training_noise_levels
+from .optim import global_norm
+from .state import TrainState, gated_ema_update
+
+__all__ = ["make_train_step"]
+
+
+def make_train_step(
+    model_apply: Callable,
+    dcfg: dc.DiffusionConfig,
+    sched: dc.Schedule,
+    nl_cfg: NoiseLevelConfig,
+    ema_decay: float = 0.9999,
+    accumulate_steps: int = 1,
+):
+    """Build ``train_step(state, batch, generator) -> (state, metrics)``.
+
+    ``model_apply(model, x, noise_levels, cond, cond_mask)`` runs the
+    denoiser (noise_levels: raw k for discrete models, precond-scaled logSNR
+    for continuous ones) and returns fp32; mixed precision is its business.
+
+    batch: {"xs": (B, T, *x), "conditions": optional, "masks": (B, T) bool},
+    on the device of ``sched``. metrics: {"loss", "grad_norm"}, 0-d tensors
+    on that device (reading them waits for the step).
+
+    Noise levels and noise are drawn from ``generator``; dropout inside the
+    model draws from the device's global generator, seeded here from the
+    generator's seed and the step count and restored afterwards. For
+    parity tests the draws can be injected: ``noise_levels`` (the level draw
+    as a tensor, or a dict of draws as :func:`training_noise_levels` takes
+    them), ``noise`` (unclipped N(0, 1), same shape as xs), and
+    ``dropout=False`` puts the model in eval mode.
+    """
+    dev = sched.device
+
+    def loss_fn(model, xs, conditions, frame_mask, generator, noise_levels, noise):
+        draws = noise_levels if isinstance(noise_levels, dict) or noise_levels is None \
+            else {"levels": noise_levels}
+        k, loss_mask = training_noise_levels(generator, nl_cfg, frame_mask, True, draws)
+        xs = xs.float()
+        if noise is None:
+            noise = dc.clipped_normal(xs.shape, dcfg.clip_noise, generator, dev, xs.dtype)
+        else:
+            noise = torch.as_tensor(noise, device=dev, dtype=xs.dtype).clamp(
+                -dcfg.clip_noise, dcfg.clip_noise)
+        if dcfg.is_continuous:
+            x_t, logsnr, alpha_t, sigma_t = continuous_training_fields(dcfg, xs, k, noise)
+            out = model_apply(model, x_t, dcfg.precond_scale * logsnr, conditions, None)
+            _, loss = continuous_v_loss(dcfg, out, x_t, noise, logsnr, alpha_t, sigma_t)
+        else:
+            noised, target = dc.training_targets(sched, dcfg, xs, k, noise)
+            out = model_apply(model, noised, k.float(), conditions, None)
+            loss = dc.training_loss(sched, dcfg, out, target, k)
+        # the frame mask weighs the loss; the mean is over all elements
+        w = dc.bcast_right(loss_mask.to(loss.dtype), loss.ndim)
+        return (loss * w).mean()
+
+    def train_step(
+        state: TrainState, batch: Dict, generator: Optional[torch.Generator], *,
+        noise_levels=None, noise=None, dropout: bool = True,
+    ) -> Tuple[TrainState, Dict]:
+        model, opt = state.model, state.optimizer
+        model.train(dropout)
+        opt.zero_grad()
+        seed = 0 if generator is None else generator.initial_seed()
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+            torch.manual_seed((seed * 1000003 + state.step) % (2 ** 63))
+            loss = loss_fn(model, batch["xs"], batch.get("conditions"), batch["masks"],
+                           generator, noise_levels, noise)
+            loss.backward()
+        grads = [p.grad for p in opt.params if p.grad is not None]
+        grad_norm = global_norm(grads)
+        opt.step()
+        state.step += 1
+        if state.ema is not None:
+            gated_ema_update(state.ema, dict(model.named_parameters()), ema_decay,
+                             state.step, accumulate_steps)
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return train_step

@@ -4,7 +4,11 @@
 ``dfot_tpu/utils/torch_ckpt.py:import_uvit3d_params``: it turns the JAX
 package's UViT3D(+Pose) variables (``params`` and the Fourier-embedding
 ``buffers``, as numpy arrays) into a state dict of upstream torch names and
-layouts, which the port's model loads with ``load_state_dict``.
+layouts, which the port's model loads with ``load_state_dict``. The same map
+carries training state across: fp32 parameters become the port's fp32 master
+weights, and with ``cotangent=True`` a tree of gradients (or of any other
+quantity that is linear in them) lands on the port's parameter names, so the
+two packages' trees can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -82,12 +86,19 @@ def uvit3d_state_dict_from_flax(
     spec,
     x_channels: int = 3,
     external_cond_dim: int = 0,
+    cotangent: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """JAX UViT3D(+Pose) variables -> the port's state dict (fp32 tensors).
 
     ``params``: the flax ``params`` tree; ``buffers``: the flax ``buffers``
     tree (the Fourier noise embedding's fixed freqs/phases) or None.
     ``spec``: the model's UViTSpec (JAX's or the port's).
+
+    Every leaf but one is a permutation of its flax leaf. The exception is
+    the output projection's bias: flax holds p*p copies of it (one per pixel
+    of a patch), the upstream ConvTranspose2d one. As parameters
+    (``cotangent=False``) the copies must be equal and one is taken; as
+    gradients (``cotangent=True``) they are summed.
     """
     p = spec.patch_size
     L = len(spec.channels)
@@ -102,6 +113,9 @@ def uvit3d_state_dict_from_flax(
                 out["project_output.proj.weight"] = _unpatchify_convT(value, p)
             else:
                 b = np.asarray(value).reshape(p * p, -1)
+                if cotangent:
+                    out["project_output.proj.bias"] = b.sum(0)
+                    continue
                 if not (b == b[:1]).all():
                     raise ValueError("project_output bias is not a p*p tile of one bias")
                 out["project_output.proj.bias"] = np.ascontiguousarray(b[0])

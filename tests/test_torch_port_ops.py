@@ -176,4 +176,6 @@ def test_cpu_wrappers_launch_no_kernel():
     x = torch.randn(1, 1, 64, 64)
     TA.flash_attention(x, x, x)
     TQ.attn_out_collect(x, 64)
-    assert TOPS.launch_counts() == {"flash_fwd": 0, "qkv_prep": 0, "attn_out_collect": 0}
+    counts = TOPS.launch_counts()
+    assert set(counts) >= {"flash_fwd", "qkv_prep", "attn_out_collect"}
+    assert not any(counts.values())

@@ -96,7 +96,7 @@ def test_beta_schedules_equal(name, kw):
 
 def test_make_schedule_equal():
     dcfg = flagship().dcfg
-    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg)
+    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg, device="cpu")
     for name in JDC.Schedule._fields:
         np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)))
 
@@ -144,7 +144,7 @@ def test_plan_sampling_equal(refine, pad):
 
 def test_diffusion_steps_match():
     dcfg = small_dcfg()
-    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg)
+    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg, device="cpu")
     rng = np.random.default_rng(0)
     x, noise, out = (rng.standard_normal((2, 4, 3, 3)).astype(np.float32) for _ in range(3))
     k = np.array([[-1, 0, 500, 999], [10, 10, 998, 3]], np.int32)
@@ -175,7 +175,7 @@ def test_diffusion_steps_match():
 @pytest.mark.parametrize("replacement_only", [False, True])
 def test_hg_prepare_and_compose_match(replacement_only):
     dcfg = small_dcfg()
-    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg)
+    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg, device="cpu")
     jh, th = hg_pairs()[1]
     mask = np.stack([MASKS[1], MASKS[0]])
     table_j = jh.plan_batched(mask)
@@ -212,7 +212,7 @@ def _pin_noise(monkeypatch):
     )
     monkeypatch.setattr(
         TDC, "clipped_normal",
-        lambda shape, clip, generator=None, device="cpu", dtype=torch.float32:
+        lambda shape, clip, generator=None, device=None, dtype=torch.float32:
             torch.as_tensor(pinned(tuple(shape)), dtype=dtype, device=device),
     )
 
@@ -222,7 +222,7 @@ def test_window_sampler_all_branches(monkeypatch):
     with identity rows) through an analytic model, in both packages."""
     _pin_noise(monkeypatch)
     dcfg = dataclasses.replace(small_dcfg(10), is_continuous=False)
-    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg)
+    js, ts = JDC.make_schedule(jax_dcfg(dcfg)), TDC.make_schedule(dcfg, device="cpu")
     jh, th = hg_pairs()[1]
     ctx = np.stack([MASKS[1]])
     kw = dict(refine={"goback_length": 2, "n_goback": 1}, pad_steps_to=40)
@@ -286,7 +286,7 @@ def test_sample_sequence_matches_jax(monkeypatch):
             state_codec=(lambda x: TU.patchify_tokens(x, p),
                          lambda x: TU.unpatchify_tokens(x, p, R, R)),
         ),
-        dcfg, TDC.make_schedule(dcfg), pm,
+        dcfg, TDC.make_schedule(dcfg, device="cpu"), pm,
     )
     got = tro.sample_sequence(None, 1, length=T, context=ctx, context_mask=mask,
                               conditions=poses, history_guidance=th)
@@ -298,7 +298,7 @@ def test_sample_sequence_matches_jax(monkeypatch):
 
 def test_unported_options_raise():
     dcfg = small_dcfg()
-    ts = TDC.make_schedule(dcfg)
+    ts = TDC.make_schedule(dcfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TSM.make_window_sampler(None, dcfg, ts, reconstruction_guidance=1.0)
     with pytest.raises(NotImplementedError):
@@ -340,9 +340,14 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import dfot_tpu_torch\n"
-        "for m in pkgutil.walk_packages(dfot_tpu_torch.__path__, 'dfot_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "bad = [m for m in ('jax', 'flax', 'dfot_tpu', 'triton') if m in sys.modules]\n"
+        "names = [m.name for m in pkgutil.walk_packages(dfot_tpu_torch.__path__, 'dfot_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "want = {'models.remat', 'training.trainer', 'training.state', 'training.optim',\n"
+        "        'training.noise_levels', 'algorithms.dfot_video', 'ops.attention'}\n"
+        "missing = {'dfot_tpu_torch.' + w for w in want} - set(names)\n"
+        "assert not missing, missing\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'dfot_tpu', 'triton') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
