@@ -7,11 +7,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (one compile per source, all started together);
 2. checks each kernel (B1 flash forward, B2 qkv_prep, B3 attn_out_collect,
    B4 flash backward dq, B5 flash backward dk/dv, B6 qkv_prep backward, B7
-   attn_out_scatter) against its plain PyTorch version at the DFoT_RE10K
-   flagship shapes, B = 1 (the train step) and B = 2 (the window), in bf16
-   on seeded inputs, times both, computes each kernel's bound (the least
-   time the card could take) and, where one PyTorch call computes the same
-   function, times that call as a yardstick;
+   attn_out_scatter, B8 ln_modulate, B9 its backward, B10 small-N attention)
+   against its plain PyTorch version in bf16 on seeded inputs: B1-B7 at the
+   DFoT_RE10K flagship shapes, B = 1 (the train step) and B = 2 (the
+   window), and at K600 @DiT/XL's (8, 16, 1280, 72 -> 128) with the true
+   1/sqrt(72) scale; B8, B9 at the XL, DiT/B and factorized-DiT widths; B10
+   at the axial and factorized shapes and at N = 5 and 32, d = 64 and 128
+   (once in fp32).
+   It times both, computes each kernel's bound (the least time the card
+   could take) and, where one PyTorch call computes the same function,
+   times that call as a yardstick;
 3. runs one full-width flagship UViT3DPose forward (B = 2, T = 8, 256 px,
    seeded random bf16 weights) on the kernel route and on the plain route;
 4. samples a small 3-step window on both routes with the same random
@@ -29,13 +34,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the flagship recipe, a warm-up step and then five steps on a seeded
    synthetic batch, launch counts reset just before and read just after,
    time per step and peak memory;
-9. takes one more train step under ``torch.profiler``.
+9. takes one more train step under ``torch.profiler``;
+10. builds K600 @DiT/XL at full width and depth (DiT3D, hidden 1152, depth
+    28, 16 heads of 72, 1280 tokens; its parameter count is printed) and
+    runs a batch-8 forward and a forward + backward on the kernel route and
+    the plain route;
+11. drives the XL sampling path: one 50-step DDIM window of 8 videos of 5
+    latent frames (2 context), launch counts reset before and required
+    after, wall time and peak memory; then a shorter window under
+    ``torch.profiler``;
+12. drives the XL training path: a warm-up step and five ``train_step``s at
+    batch 8 (every block checkpointed), launch counts required, time per
+    step and peak memory; then one more step under ``torch.profiler``;
+13. runs the factorized-attention DiT (hidden 384, 6 heads of 64, depth 12)
+    on the Minecraft latent shape, batch 8, and the flagship U-ViT with
+    axial transformer blocks at a cut depth: route checks forward and
+    forward + backward, then one forward and one forward + backward with
+    launch counts required (kernel B10 on both).
 
-Steps 3, 4 and 7 also run a control (an attention that ignores q and k; a
-backward whose dq is zero) and fail unless their bound rejects it. Any
-failed check exits non-zero. The last two lines of standard output are the
-kernels' JSON record and ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``.
+Steps 3, 4, 7, 10 and 13 also run controls (an attention that ignores q and
+k; a backward whose dq is zero; a LayerNorm + modulate that skips the
+normalisation; a LayerNorm backward without its row means), and step 2 holds
+a faulty plain version of B8, B9 and B10 against each one's bounds; all fail
+unless the bound rejects them. Any failed check
+exits non-zero. The last two lines of standard output are the kernels' JSON
+record and ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut: the
+whole takes a few minutes.
 """
 
 from __future__ import annotations
@@ -62,8 +87,14 @@ KERNELS = (
     ("flash_bwd_dkv", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:500"),
     ("qkv_prep_bwd", "dfot_tpu_torch/csrc/qkv_prep_bwd.cu", "dfot_tpu/ops/qkv_prep.py:147"),
     ("attn_out_scatter", "dfot_tpu_torch/csrc/attn_out_scatter.cu", "dfot_tpu/ops/qkv_prep.py:534"),
+    ("ln_modulate", "dfot_tpu_torch/csrc/ln_modulate.cu", "dfot_tpu/ops/ln_modulate.py:64"),
+    ("ln_modulate_bwd", "dfot_tpu_torch/csrc/ln_modulate.cu", "dfot_tpu/ops/ln_modulate.py:72"),
+    ("small_n_attn", "dfot_tpu_torch/csrc/small_n_attn.cu", "dfot_tpu/ops/attention.py:800"),
 )
 FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
+ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
+# the paths that are driven between a reset and a read of the launch counts
+PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -75,6 +106,24 @@ PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
 PEAK_BYTES = 3.35e12       # device memory, bytes/s
 # flagship attention sites: (level, tokens N, heads, head dim)
 SITES = ((2, 8192, 9, 64), (3, 2048, 9, 128))
+# K600 @DiT/XL: batch of the window (before and after NFE expansion: its
+# sampling is conditional, one evaluation a step) and of the train step;
+# attention over N tokens of H heads of dim D, padded to DP inside B2
+XL_BATCH = 8
+XL_SITE = (1280, 16, 72, 128)
+# LayerNorm + modulate shapes (B, N, C): K600 @DiT/XL, Minecraft @DiT/B, and
+# the factorized DiT's spatial view (B * T, P, C)
+LN_SHAPES = (("xl", (XL_BATCH, 1280, 1152)), ("dit_b", (8, 1024, 768)),
+             ("factorized", (128, 16, 384)))
+# small-N attention shapes (items Z = B * H, N, D): the axial U-ViT's temporal
+# attention at levels 2 and 3 (B0 * tokens a frame * heads), the factorized
+# DiT's temporal and spatial attention, five latent frames, the longest row
+SMALL_N_SHAPES = (("axial level2", (2 * 1024 * 9, 8, 64)), ("axial level3", (2 * 256 * 9, 8, 128)),
+                  ("factorized", (8 * 16 * 6, 16, 64)), ("frames5", (8 * 256 * 6, 5, 64)),
+                  ("rows32 d64", (768, 32, 64)), ("rows32 d128", (768, 32, 128)))
+SMALL_N_MAIN = ("axial level2", "axial level3")
+# the fp32 instantiation at the one shape whose item passes 48 KB of shared memory
+SMALL_N_FP32_SHAPE = ("rows32 d128 fp32", (768, 32, 128))
 # bf16 kernel route vs plain route, relative L2: about 3x the sound route's
 # reading (7.5e-3, 6.6e-3) and 6-10x under the control's (0.20, 0.12),
 # both at the random-weight law of dfot_tpu_torch/utils/weights.py
@@ -84,8 +133,20 @@ WINDOW_REL_TOL = 2e-2
 # difference of the loss, relative L2 of each named parameter's gradient
 GRAD_LOSS_TOL = 1e-3
 GRAD_REL_TOL = 5e-2
+# B8, B9, B10 against their plain versions, relative L2 of each output on its
+# own, beside the max-abs bound: two sound bf16 results differ by one ulp
+# (2^-8 to 2^-7 of the value) on a small share of the elements (read: up to
+# 6.3e-5 in all); the mildest fault held against it (a variance without its
+# mu^2 term, 2.2e-2; a dx without its row means, 4e-2 to 8e-2) reads 10x above
+KERNEL_REL_L2_TOL = 2e-3
+KERNEL_REL_L2_TOL_FP32 = 1e-5
 PROFILED_WINDOW_STEPS = 10
 TRAIN_STEPS = 5
+# the factorized DiT of configurations/algorithm/backbone/dit3d_factorized_attention.yaml
+# on the Minecraft latent shape, and the axial U-ViT's depth (flagship widths)
+FACTORIZED_BATCH = 8
+AXIAL_BATCH = 2
+AXIAL_DEPTH = dict(num_updown_blocks=(1, 1, 2), num_mid_blocks=4)
 # device kernels by class for the profiled window: (class, name substrings),
 # first match wins; anything else is eager elementwise work and copies
 KERNEL_CLASSES = (
@@ -96,6 +157,9 @@ KERNEL_CLASSES = (
     ("B5 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("B6 qkv_prep_bwd", ("qkv_prep_bwd_kernel",)),
     ("B7 attn_out_scatter", ("attn_out_scatter_kernel",)),
+    ("B8 ln_modulate", ("ln_modulate_fwd",)),
+    ("B9 ln_modulate_bwd", ("ln_modulate_bwd",)),
+    ("B10 small_n_attn", ("small_n_attn_kernel",)),
     ("optimizer, clipping, EMA (foreach)", ("multi_tensor_apply",)),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cuDNN backward convolutions", ("dgrad", "wgrad", "bwd_data", "bwd_filter", "backward_data",
@@ -197,21 +261,63 @@ def ref_tol(rel: float, *refs) -> float:
     return rel * max(1.0, max(float(r.float().abs().max()) for r in refs))
 
 
+def readings(pairs, rel: float) -> list:
+    """(label, max abs error, its bound, relative L2) for each (label, got,
+    want): every tensor against the magnitude of its own reference."""
+    return [(label, max_err(g, w), ref_tol(rel, w), rel_l2(g, w)) for label, g, w in pairs]
+
+
+def ln_modulate_uncentred_variance(x, shift, scale, eps: float = 1e-6):
+    """Control for B8: the variance is E[x^2], without the - mu^2."""
+    import torch
+
+    xf = x.float()
+    yn = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return yn.to(x.dtype) * (1 + scale) + shift
+
+
+def ln_backward_without_means(x, scale, g, eps: float = 1e-6, plain: bool = False):
+    """Control for B9: dx without the two row means of the LayerNorm backward
+    (the projections that keep dx orthogonal to 1 and to yn); dscale is sound."""
+    from dfot_tpu_torch.ops import ln_modulate as L
+
+    yn, rstd = L._normalized(x, eps)
+    return (rstd * (g * (1 + scale)).float()).to(x.dtype), g * yn.to(x.dtype)
+
+
+def attention_scaled_for_twice_the_width(q, k, v):
+    """Control for B10: scores scaled by 1/sqrt(2 D), the scale of a head
+    twice as wide (what a padded head dim would give)."""
+    import torch
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(2 * q.shape[-1])
+    return torch.matmul(torch.softmax(s, -1), v.float()).to(q.dtype)
+
+
 def check_kernels(record: dict) -> dict:
-    """Each kernel against its plain version at the flagship shapes, at the
-    train step's batch and at the window's."""
+    """Each kernel against its plain version at the shapes the paths give it:
+    B1-B7 at the flagship's two attention sites (the train step's batch and
+    the window's) and at K600 @DiT/XL's (heads of 72 padded to 128, the true
+    scale); B8, B9 at the XL, DiT/B and factorized widths; B10 at the axial
+    and factorized shapes and at N = 5 and 32. A site is ``main`` where the
+    kernels line reports its times. Every output tensor is held on its own
+    (:func:`readings`); B8, B9 and B10 also by relative L2, and their bounds
+    must reject a faulty plain version of each."""
     import torch
     import torch.nn.functional as F
     from dfot_tpu_torch.models.embeddings import make_rope_3d
-    from dfot_tpu_torch.ops import attention as A, qkv_prep as Q
+    from dfot_tpu_torch.ops import attention as A, ln_modulate as L, qkv_prep as Q
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16 = torch.bfloat16
     results = {name: {"by_site": {}} for name, _, _ in KERNELS}
 
-    def note(name, site, err, tol, ms, plain_ms, bnd, library_ms=None, **extra):
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(bf16)
+
+    def note(name, site, main, err, tol, ms, plain_ms, bnd, library_ms=None, **extra):
         results[name]["by_site"][site] = {
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "main": main, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bnd, **extra,
         }
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
@@ -219,122 +325,215 @@ def check_kernels(record: dict) -> dict:
             f"plain {plain_ms:.4f} ms  bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}){lib}")
         require(err <= tol, f"{name} at {site}: error {err} above {tol}")
 
+    def hold(name, site, pairs, rel, l2_tol=None):
+        """Every tensor within its own bounds; returns what :func:`note` takes
+        of the tensor closest to its max-abs bound."""
+        rows = readings(pairs, rel)
+        for label, e, t, l2 in rows:
+            require(e <= t, f"{name} at {site}: {label} off by {e} (tol {t})")
+            require(l2_tol is None or l2 <= l2_tol,
+                    f"{name} at {site}: {label} relative L2 {l2} above {l2_tol}")
+        _, err, tol, _ = max(rows, key=lambda r: r[1] / r[2])
+        extra = {} if l2_tol is None else {
+            "rel_l2": {label: l2 for label, _, _, l2 in rows}, "rel_l2_tol": l2_tol}
+        return err, tol, extra
+
+    def rejected(name, site, fault, pairs, rel, l2_tol):
+        """The bounds of :func:`hold` must fail the faulty result in ``pairs``."""
+        rows = readings(pairs, rel)
+        log(f"  {name:17s} {site}: control '{fault}': " + ", ".join(
+            f"{label} max_abs_err {e:.3e} (tol {t:.3e}) rel L2 {l2:.3e} (tol {l2_tol})"
+            for label, e, t, l2 in rows))
+        require(any(e > t or l2 > l2_tol for _, e, t, l2 in rows),
+                f"{name} at {site}: the bounds pass the control '{fault}'")
+        return {fault: {label: {"max_abs_err": e, "tol": t, "rel_l2": l2}
+                        for label, e, t, l2 in rows}}
+
+    def attention_site(site, B, N, H, D, DP, rope_sizes, norm, fused_width, main):
+        """B2, B6, B1, B4, B5, B3, B7 at one attention site. ``main``: which
+        kernels (forward, backward) report this site in the kernels line."""
+        C = H * D
+        is_main = lambda name: main[0] if name in FORWARD_KERNELS else main[1]
+        # B2: packed qkv as the model passes it (for the U-ViT a strided slice
+        # of the fused qkv+mlp projection), tables and norm scales as in the model
+        fused = rand(B, N, fused_width * C)
+        qkv = fused[..., : 3 * C]
+        rope = make_rope_3d(D, rope_sizes)
+        cos = torch.as_tensor(rope.cos, device="cuda")
+        sin = torch.as_tensor(Q.signed_sin(rope.sin), device="cuda")
+        scales = [(1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(bf16)
+                  for _ in range(2)] if norm else [None, None]
+        kw = dict(q_scale=scales[0], k_scale=scales[1], norm=norm, d_out=DP)
+        got = Q.qkv_prep(qkv, H, D, cos, sin, **kw)
+        torch.cuda.synchronize()
+        want = Q.reference_qkv_prep(qkv, H, D, cos, sin, **kw)
+        err, tol, _ = hold("qkv_prep", site, zip("qkv", got, want), 2e-2)
+        require(all(not bool(g[..., D:].any()) for g in got), f"qkv_prep at {site}: pad lanes not zero")
+        # times of the kernel and of its plain version alone, on tables
+        # already folded (the fold is the same small torch ops on both routes)
+        tabs = Q.fold_qk_tables(cos, sin, *scales, dtype=bf16)
+        flat_tabs = [t for pair in tabs for t in pair]
+        packed_bytes = B * N * 3 * C * 2
+        note("qkv_prep", site, is_main("qkv_prep"), err, tol,
+             cuda_ms(lambda: Q._prep_cuda(qkv, tabs, H, D, DP, norm, 1e-6)),
+             cuda_ms(lambda: Q._prep_plain(qkv, tabs, H, D, DP, norm, 1e-6)),
+             # per q/k element: square + sum, scale, two multiply-adds
+             bound(7 * B * N * 2 * C, packed_bytes + nbytes(*flat_tabs, *got), PEAK_FP32_FLOPS))
+
+        # B6: the cotangents of q, k, v back to the packed layout
+        dys = [rand(B, H, N, DP) for _ in range(3)]
+        got = Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm)
+        torch.cuda.synchronize()
+        want = Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm, plain=True)
+        require(all(g.dtype == torch.float32 for g in got[1:]),
+                "qkv_prep_bwd: table cotangents are not fp32")
+        err_t = max(max_err(g, w) for g, w in zip(got[1:], want[1:]))
+        tol_t = ref_tol(5e-3, *want[1:])
+        log(f"  qkv_prep_bwd tabs  {site}: max_abs_err {err_t:.3e} (tol {tol_t:.3e})")
+        require(err_t <= tol_t, f"qkv_prep_bwd table cotangents at {site}: {err_t} > {tol_t}")
+        note("qkv_prep_bwd", site, is_main("qkv_prep_bwd"), max_err(got[0], want[0]),
+             ref_tol(2e-2, want[0]),
+             cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm)),
+             cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm, plain=True)),
+             # per q/k element: the forward's norm again, the rotation
+             # back, the norm's backward and two table products
+             bound(20 * B * N * 2 * C,
+                   packed_bytes + nbytes(*flat_tabs, *dys) + nbytes(*got), PEAK_FP32_FLOPS),
+             table_err=err_t, table_tol=tol_t)
+        del fused, qkv, got, want, dys
+
+        # B1: peaked attention (score std ~3) so outputs are O(1); heads that
+        # B2 pads have zero lanes D..DP and the scale of the true head dim
+        scale = 1.0 / math.sqrt(D)
+        q, k, v = (F.pad(t, (0, DP - D)) for t in
+                   (rand(B, H, N, D, scale=1.7), rand(B, H, N, D, scale=1.7), rand(B, H, N, D)))
+        o, lse = A.flash_attention(q, k, v, sm_scale=scale, return_lse=True)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = A.attention_reference(q, k, v, sm_scale=scale, return_lse=True)
+        err_l = max_err(lse, lse_ref)
+        require(err_l <= 1e-3, f"flash_fwd lse at {site}: error {err_l} above 1e-3")
+        log(f"  flash_fwd lse     {site}: max_abs_err {err_l:.3e} (tol 1.000e-03)")
+        pairs = B * H * N * N * DP  # multiply-adds of one N x N x d product
+        note("flash_fwd", site, is_main("flash_fwd"), max_err(o, o_ref), ref_tol(1e-2, o_ref),
+             cuda_ms(lambda: A.flash_attention(q, k, v, sm_scale=scale)),
+             cuda_ms(lambda: A.attention_reference(q, k, v, sm_scale=scale), reps=3, warmup=1),
+             bound(4 * pairs, nbytes(q, k, v, o, lse), PEAK_BF16_FLOPS),
+             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)), lse_err=err_l)
+
+        # B4, B5 on the forward's saved results; the plain versions are
+        # the explicit fp32 formulas on the same O and LSE
+        do = F.pad(rand(B, H, N, D), (0, DP - D))
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale)
+        dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=scale)
+        torch.cuda.synchronize()
+        dq_ref, dk_ref, dv_ref = A.attention_backward_reference(q, k, v, o, lse, do, sm_scale=scale)
+        # the yardstick: the backward of PyTorch's fused attention, one
+        # call that gives dq, dk and dv (what B4 and B5 give together)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        sdpa_bwd = cuda_ms(
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True))
+        del ol, ql, kl, vl
+        note("flash_bwd_dq", site, is_main("flash_bwd_dq"), max_err(dq, dq_ref),
+             ref_tol(2e-2, dq_ref),
+             cuda_ms(lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale)),
+             cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, False, scale),
+                     reps=3, warmup=1),
+             bound(6 * pairs, nbytes(q, k, v, do, lse, delta, dq), PEAK_BF16_FLOPS),
+             sdpa_bwd, library_covers="dq, dk and dv")
+        note("flash_bwd_dkv", site, is_main("flash_bwd_dkv"),
+             *hold("flash_bwd_dkv", site, (("dk", dk, dk_ref), ("dv", dv, dv_ref)), 2e-2)[:2],
+             cuda_ms(lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=scale)),
+             cuda_ms(lambda: A._dkv_plain(q, k, v, do, lse, delta, False, scale),
+                     reps=3, warmup=1),
+             bound(8 * pairs, nbytes(q, k, v, do, lse, delta, dk, dv), PEAK_BF16_FLOPS),
+             sdpa_bwd, library_covers="dq, dk and dv")
+        del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dq, dk, dv
+
+        # B3 and B7: exact copies; PyTorch's strided copy is both the
+        # plain version and the one library call
+        got = Q.attn_out_collect(o, D)
+        torch.cuda.synchronize()
+        plain = cuda_ms(lambda: Q.reference_attn_out_collect(o, D).contiguous())
+        note("attn_out_collect", site, is_main("attn_out_collect"),
+             max_err(got, Q.reference_attn_out_collect(o, D)), 0.0,
+             cuda_ms(lambda: Q.attn_out_collect(o, D)), plain,
+             bound(0, nbytes(o, got), PEAK_FP32_FLOPS), plain)
+        g = rand(B, N, C)
+        got = Q.attn_out_scatter(g, H, D, DP)
+        torch.cuda.synchronize()
+        plain = cuda_ms(lambda: Q.reference_attn_out_scatter(g, H, D, DP))
+        note("attn_out_scatter", site, is_main("attn_out_scatter"),
+             max_err(got, Q.reference_attn_out_scatter(g, H, D, DP)),
+             0.0, cuda_ms(lambda: Q.attn_out_scatter(g, H, D, DP)), plain,
+             bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain)
+
     for B in BATCHES:
         for level, N, H, D in SITES:
-            site = f"level{level} B={B} N={N} H={H} d={D}"
-            C = H * D
-            # B2: packed qkv sliced out of the fused qkv+mlp projection (strided
-            # rows, as in the model), tables and norm scales as in the model
-            fused = torch.randn(B, N, 7 * C, generator=gen, device="cuda").to(bf16)
-            qkv = fused[..., : 3 * C]
             side = int(math.isqrt(N // 8))
-            rope = make_rope_3d(D, (8, side, side))
-            cos = torch.as_tensor(rope.cos, device="cuda")
-            sin = torch.as_tensor(Q.signed_sin(rope.sin), device="cuda")
-            scales = [(1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(bf16)
-                      for _ in range(2)]
-            kw = dict(q_scale=scales[0], k_scale=scales[1], norm=True)
-            got = Q.qkv_prep(qkv, H, D, cos, sin, **kw)
-            torch.cuda.synchronize()
-            want = Q.reference_qkv_prep(qkv, H, D, cos, sin, **kw)
-            err = max(max_err(g, w) for g, w in zip(got, want))
-            # times of the kernel and of its plain version alone, on tables
-            # already folded (the fold is the same small torch ops on both routes)
-            tabs = Q.fold_qk_tables(cos, sin, *scales, dtype=bf16)
-            flat_tabs = [t for pair in tabs for t in pair]
-            packed_bytes = B * N * 3 * C * 2
-            note("qkv_prep", site, err, ref_tol(2e-2, *want),
-                 cuda_ms(lambda: Q._prep_cuda(qkv, tabs, H, D, D, True, 1e-6)),
-                 cuda_ms(lambda: Q._prep_plain(qkv, tabs, H, D, D, True, 1e-6)),
-                 # per q/k element: square + sum, scale, two multiply-adds
-                 bound(7 * B * N * 2 * C, packed_bytes + nbytes(*flat_tabs, *got),
-                       PEAK_FP32_FLOPS))
+            attention_site(f"level{level} B={B} N={N} H={H} d={D}", B, N, H, D, D, (8, side, side),
+                           True, 7, (B == WINDOW_BATCH, B == TRAIN_BATCH))
+    N, H, D, DP = XL_SITE
+    attention_site(f"xl B={XL_BATCH} N={N} H={H} d={D}->{DP}", XL_BATCH, N, H, D, DP, (5, 16, 16),
+                   False, 3, (False, False))
 
-            # B6: the cotangents of q, k, v back to the packed layout
-            dys = [torch.randn(B, H, N, D, generator=gen, device="cuda").to(bf16)
-                   for _ in range(3)]
-            got = Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, True)
-            torch.cuda.synchronize()
-            want = Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, True, plain=True)
-            require(all(g.dtype == torch.float32 for g in got[1:]),
-                    "qkv_prep_bwd: table cotangents are not fp32")
-            err_t = max(max_err(g, w) for g, w in zip(got[1:], want[1:]))
-            tol_t = ref_tol(5e-3, *want[1:])
-            log(f"  qkv_prep_bwd tabs  {site}: max_abs_err {err_t:.3e} (tol {tol_t:.3e})")
-            require(err_t <= tol_t, f"qkv_prep_bwd table cotangents at {site}: {err_t} > {tol_t}")
-            note("qkv_prep_bwd", site, max_err(got[0], want[0]), ref_tol(2e-2, want[0]),
-                 cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, True)),
-                 cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, True, plain=True)),
-                 # per q/k element: the forward's norm again, the rotation
-                 # back, the norm's backward and two table products
-                 bound(20 * B * N * 2 * C,
-                       packed_bytes + nbytes(*flat_tabs, *dys) + nbytes(*got), PEAK_FP32_FLOPS),
-                 table_err=err_t, table_tol=tol_t)
-            del fused, qkv, got, want, dys
+    # B8, B9: no one PyTorch call computes either, so no library yardstick.
+    # dx and dscale are each held against their own reference (dscale's
+    # values are several times dx's: a shared bound would pass a wrong dx)
+    l2 = KERNEL_REL_L2_TOL
+    for label, shape in LN_SHAPES:
+        site = f"{label} {shape}"
+        x = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(bf16)
+        shift, scale, g = rand(*shape), rand(*shape, scale=0.3), rand(*shape)
+        y = L.ln_modulate(x, shift, scale)
+        dx, dscale = L.ln_modulate_bwd(x, scale, g)
+        torch.cuda.synchronize()
+        y_ref = L.reference_ln_modulate(x, shift, scale)
+        dx_ref, dscale_ref = L.reference_ln_modulate_bwd(x, scale, g)
+        elems = x.numel()
+        err, tol, extra = hold("ln_modulate", site, [("y", y, y_ref)], 2e-2, l2)
+        extra["controls"] = rejected(
+            "ln_modulate", site, "variance without the mean's square",
+            [("y", ln_modulate_uncentred_variance(x, shift, scale), y_ref)], 2e-2, l2)
+        note("ln_modulate", site, label == "xl", err, tol,
+             cuda_ms(lambda: L.ln_modulate(x, shift, scale)),
+             cuda_ms(lambda: L.reference_ln_modulate(x, shift, scale)),
+             # per element: two statistics sums, normalize, modulate
+             bound(8 * elems, nbytes(x, shift, scale, y), PEAK_FP32_FLOPS), **extra)
+        err, tol, extra = hold("ln_modulate_bwd", site,
+                               (("dx", dx, dx_ref), ("dscale", dscale, dscale_ref)), 2e-2, l2)
+        extra["controls"] = rejected(
+            "ln_modulate_bwd", site, "dx without the row means",
+            [("dx", ln_backward_without_means(x, scale, g)[0], dx_ref)], 2e-2, l2)
+        note("ln_modulate_bwd", site, label == "xl", err, tol,
+             cuda_ms(lambda: L.ln_modulate_bwd(x, scale, g)),
+             cuda_ms(lambda: L.reference_ln_modulate_bwd(x, scale, g)),
+             # the statistics again, gl and its two sums, dx, dscale
+             bound(16 * elems, nbytes(x, scale, g, dx, dscale), PEAK_FP32_FLOPS), **extra)
+        del x, shift, scale, g, y, dx, dscale, y_ref, dx_ref, dscale_ref
 
-            # B1: peaked attention (score std ~3) so outputs are O(1)
-            q, k, v = (torch.randn(B, H, N, D, generator=gen, device="cuda") for _ in range(3))
-            q, k, v = (q * 1.7).to(bf16), (k * 1.7).to(bf16), v.to(bf16)
-            o, lse = A.flash_attention(q, k, v, return_lse=True)
-            torch.cuda.synchronize()
-            o_ref, lse_ref = A.attention_reference(q, k, v, return_lse=True)
-            err_l = max_err(lse, lse_ref)
-            require(err_l <= 1e-3, f"flash_fwd lse at {site}: error {err_l} above 1e-3")
-            log(f"  flash_fwd lse     {site}: max_abs_err {err_l:.3e} (tol 1.000e-03)")
-            pairs = B * H * N * N * D  # multiply-adds of one N x N x d product
-            note("flash_fwd", site, max_err(o, o_ref), ref_tol(1e-2, o_ref),
-                 cuda_ms(lambda: A.flash_attention(q, k, v)),
-                 cuda_ms(lambda: A.attention_reference(q, k, v), reps=3, warmup=1),
-                 bound(4 * pairs, nbytes(q, k, v, o, lse), PEAK_BF16_FLOPS),
-                 cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), lse_err=err_l)
-
-            # B4, B5 on the forward's saved results; the plain versions are
-            # the explicit fp32 formulas on the same O and LSE
-            do = torch.randn(B, H, N, D, generator=gen, device="cuda").to(bf16)
-            delta = (do.float() * o.float()).sum(-1, keepdim=True)
-            dq = A.flash_bwd_dq(q, k, v, do, lse, delta)
-            dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta)
-            torch.cuda.synchronize()
-            dq_ref, dk_ref, dv_ref = A.attention_backward_reference(q, k, v, o, lse, do)
-            scale = 1.0 / math.sqrt(D)
-            # the yardstick: the backward of PyTorch's fused attention, one
-            # call that gives dq, dk and dv (what B4 and B5 give together)
-            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-            ol = F.scaled_dot_product_attention(ql, kl, vl)
-            sdpa_bwd = cuda_ms(
-                lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True))
-            del ol, ql, kl, vl
-            note("flash_bwd_dq", site, max_err(dq, dq_ref), ref_tol(2e-2, dq_ref),
-                 cuda_ms(lambda: A.flash_bwd_dq(q, k, v, do, lse, delta)),
-                 cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, False, scale),
-                         reps=3, warmup=1),
-                 bound(6 * pairs, nbytes(q, k, v, do, lse, delta, dq), PEAK_BF16_FLOPS),
-                 sdpa_bwd, library_covers="dq, dk and dv")
-            note("flash_bwd_dkv", site, max(max_err(dk, dk_ref), max_err(dv, dv_ref)),
-                 ref_tol(2e-2, dk_ref, dv_ref),
-                 cuda_ms(lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta)),
-                 cuda_ms(lambda: A._dkv_plain(q, k, v, do, lse, delta, False, scale),
-                         reps=3, warmup=1),
-                 bound(8 * pairs, nbytes(q, k, v, do, lse, delta, dk, dv), PEAK_BF16_FLOPS),
-                 sdpa_bwd, library_covers="dq, dk and dv")
-            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dq, dk, dv
-
-            # B3 and B7: exact copies; PyTorch's strided copy is both the
-            # plain version and the one library call
-            got = Q.attn_out_collect(o, D)
-            torch.cuda.synchronize()
-            plain = cuda_ms(lambda: Q.reference_attn_out_collect(o, D).contiguous())
-            note("attn_out_collect", site, max_err(got, Q.reference_attn_out_collect(o, D)), 0.0,
-                 cuda_ms(lambda: Q.attn_out_collect(o, D)), plain,
-                 bound(0, nbytes(o, got), PEAK_FP32_FLOPS), plain)
-            g = torch.randn(B, N, C, generator=gen, device="cuda").to(bf16)
-            got = Q.attn_out_scatter(g, H, D, D)
-            torch.cuda.synchronize()
-            plain = cuda_ms(lambda: Q.reference_attn_out_scatter(g, H, D, D))
-            note("attn_out_scatter", site, max_err(got, Q.reference_attn_out_scatter(g, H, D, D)),
-                 0.0, cuda_ms(lambda: Q.attn_out_scatter(g, H, D, D)), plain,
-                 bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain)
-            del q, k, v, o, lse, do, delta, g, got
+    for label, (Z, N, D), dtype in (*((a, b, bf16) for a, b in SMALL_N_SHAPES),
+                                    (*SMALL_N_FP32_SHAPE, torch.float32)):
+        site = f"{label} Z={Z} N={N} d={D}"
+        fp32 = dtype == torch.float32
+        rel, l2 = (2e-5, KERNEL_REL_L2_TOL_FP32) if fp32 else (2e-2, KERNEL_REL_L2_TOL)
+        q, k, v = (t.to(dtype) for t in
+                   (rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D)))
+        o = A.small_n_attention(q, k, v)
+        torch.cuda.synchronize()
+        o_ref = A.small_n_attention_reference(q, k, v)
+        err, tol, extra = hold("small_n_attn", site, [("o", o, o_ref)], rel, l2)
+        extra["controls"] = rejected(
+            "small_n_attn", site, "the scale of a head twice as wide",
+            [("o", attention_scaled_for_twice_the_width(q, k, v), o_ref)], rel, l2)
+        note("small_n_attn", site, label in SMALL_N_MAIN, err, tol,
+             cuda_ms(lambda: A.small_n_attention(q, k, v)),
+             cuda_ms(lambda: A.small_n_attention_reference(q, k, v)),
+             bound(4 * Z * N * N * D, nbytes(q, k, v, o),
+                   PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS),
+             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), **extra)
+        del q, k, v, o, o_ref
     record["kernel_checks"] = results
     _hold_operands.cache_clear()  # the later phases read peak memory
     return results
@@ -342,14 +541,15 @@ def check_kernels(record: dict) -> dict:
 
 def kernel_summary(results: dict, launches: dict) -> list:
     """One record per kernel for the kernels line: errors are the largest
-    over every site and batch checked; times and bounds are summed over the
-    two flagship sites at the batch of the kernel's own path (the window's
-    for the forward kernels, the train step's for the backward kernels)."""
+    over every site checked; times and bounds are summed over the kernel's
+    ``main`` sites (B1-B7: the two flagship sites at the batch of the kernel's
+    own path, the window's for the forward kernels and the train step's for
+    the backward ones; B8, B9: the K600 @DiT/XL shape; B10: the axial U-ViT's
+    two levels); every other site is listed under ``other_sites``."""
     out = []
     for name, src, rep in KERNELS:
-        B = WINDOW_BATCH if name in FORWARD_KERNELS else TRAIN_BATCH
         sites = results[name]["by_site"]
-        mine = [r for s, r in sites.items() if f" B={B} " in s]
+        mine = [r for r in sites.values() if r["main"]]
         bounds = {r["bound_by"] for r in mine}
         lib = [r["library_ms"] for r in mine]
         out.append({
@@ -360,7 +560,10 @@ def kernel_summary(results: dict, launches: dict) -> list:
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": bounds.pop() if len(bounds) == 1 else "bytes",
             "library_ms": None if None in lib else sum(lib),
-            "timed_at": f"B={B}, level 2 + level 3",
+            "timed_at": " + ".join(s for s, r in sites.items() if r["main"]),
+            "other_sites": {
+                s: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for s, r in sites.items() if not r["main"]},
         })
     return out
 
@@ -483,28 +686,76 @@ def control_zero_dq():
         A.flash_bwd_dq = real
 
 
-def check_route(record: dict, key: str, what: str, tol: float, model, run) -> None:
-    """``run()`` on the kernel route, the plain route and the control; the
-    kernel route must be within ``tol`` (relative L2) of the plain route and
-    the control must not be."""
+def mean_value_attention(q, k, v, **_):
+    """The same control for the dispatcher's (B, H, N, D) layout."""
+    return v.mean(-2, keepdim=True).expand_as(v)
+
+
+def unnormalized_modulate(x, shift, scale, eps=None, plain=False):
+    """Control: a LayerNorm + modulate that skips the normalisation."""
+    return x * (1 + scale) + shift
+
+
+@contextlib.contextmanager
+def patched(module, name: str, replacement):
+    """``module.name`` is ``replacement`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def control_ln_backward():
+    """Every LayerNorm + modulate backward (kernel B9's place) loses the row
+    means of its dx: :func:`ln_backward_without_means`."""
+    from dfot_tpu_torch.ops import ln_modulate as L
+
+    return patched(L, "ln_modulate_bwd", ln_backward_without_means)
+
+
+def dit_controls() -> dict:
+    """The controls of a DiT route check, by label: every block's attention
+    ignores q and k; every LayerNorm + modulate skips the normalisation."""
+    from dfot_tpu_torch.models import dit
+
+    def no_qk():
+        with patched(dit, "attention_from_packed_qkv", uniform_attention), \
+                patched(dit, "attention", mean_value_attention):
+            yield
+
+    return {"attention ignoring q, k": contextlib.contextmanager(no_qk),
+            "ln_modulate without the normalisation":
+                lambda: patched(dit, "ln_modulate", unnormalized_modulate)}
+
+
+def check_route(record: dict, key: str, what: str, tol: float, set_plain, run,
+                controls: dict) -> None:
+    """``run()`` on the kernel route, the plain route (``set_plain(True)``)
+    and under every control (label -> context manager); the kernel route must
+    be within ``tol`` (relative L2) of the plain route and no control may be."""
     import torch
 
     out_k = run()
     torch.cuda.synchronize()
     require(bool(torch.isfinite(out_k).all()), f"{what}: non-finite output")
-    model.use_plain_attention(True)
+    set_plain(True)
     try:
         out_p = run()
     finally:
-        model.use_plain_attention(False)
-    with control_attention():
-        out_c = run()
-    err, ctrl = rel_l2(out_k, out_p), rel_l2(out_c, out_p)
+        set_plain(False)
+    err = rel_l2(out_k, out_p)
+    ctrl = {}
+    for label, control in controls.items():
+        with control():
+            ctrl[label] = rel_l2(run(), out_p)
     record[key] = {"rel_l2": err, "control_rel_l2": ctrl, "tol": tol, "shape": list(out_k.shape)}
-    log(f"{what}, kernel vs plain route: rel L2 {err:.3e} (tol {tol}); "
-        f"control (attention ignoring q, k) {ctrl:.3e}")
+    log(f"{what}, kernel vs plain route: rel L2 {err:.3e} (tol {tol}); controls: "
+        + "; ".join(f"{label} {c:.3e}" for label, c in ctrl.items()))
     require(err <= tol, f"{what}: kernel route off by {err}")
-    require(ctrl > tol, f"{what}: the bound {tol} does not reject the control ({ctrl})")
+    for label, c in ctrl.items():
+        require(c > tol, f"{what}: the bound {tol} does not reject the control '{label}' ({c})")
 
 
 def small_window_check(record: dict) -> None:
@@ -524,8 +775,9 @@ def small_window_check(record: dict) -> None:
     dcfg = dataclasses.replace(fs.dcfg, sampling_timesteps=3)
     model = build_random_model(fs, seed=2).to(torch.bfloat16).eval()
     ro = make_rollout(fs, model, dcfg)
-    check_route(record, "small_window", "small 3-step window", WINDOW_REL_TOL, model,
-                lambda: run_window(ro, fs, seed=3))
+    check_route(record, "small_window", "small 3-step window", WINDOW_REL_TOL,
+                model.use_plain_attention, lambda: run_window(ro, fs, seed=3),
+                {"attention ignoring q, k": control_attention})
 
 
 def train_batch(fs, B: int, seed: int) -> dict:
@@ -555,10 +807,71 @@ GRAD_PROBES = (
 )
 
 
-def gradient_route_check(record: dict, fs, model) -> None:
-    """One full-width forward and backward at B = 1 (dropout off, the mid
-    level checkpointed) on the kernel route, the plain route and the
-    zero-dq control: loss and the gradients of :data:`GRAD_PROBES`."""
+def gradient_routes(record: dict, key: str, what: str, model, set_plain, loss_fn, probes,
+                    control=None, must_reject=()) -> None:
+    """One forward and backward of ``loss_fn()`` (a scalar loss of ``model``;
+    dropout off, checkpointed blocks recomputed) on the kernel route, the
+    plain route and, if given, under ``control``: the loss and the gradients
+    of the parameters named in ``probes``, each within ``GRAD_REL_TOL``. Under the
+    control, a parameter of every suffix in ``must_reject`` must fall outside
+    its gradient bound; a parameter the control cuts off has a zero gradient."""
+    import torch
+
+    params = dict(model.named_parameters())
+    tols = dict.fromkeys(probes, GRAD_REL_TOL)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {
+            n: (torch.zeros_like(params[n]) if params[n].grad is None
+                else params[n].grad.detach().clone()) for n in probes}
+
+    was_training = model.training
+    model.eval()
+    try:
+        loss_k, grads_k = run()
+        set_plain(True)
+        try:
+            loss_p, grads_p = run()
+        finally:
+            set_plain(False)
+        if control is not None:
+            with control():
+                loss_c, grads_c = run()
+    finally:
+        model.train(was_training)
+        model.zero_grad(set_to_none=True)
+
+    require(math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
+            f"{what}: non-finite loss or gradient")
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs = {n: rel_l2(grads_k[n], grads_p[n]) for n in probes}
+    ctrl = {n: rel_l2(grads_c[n], grads_p[n]) for n in probes} if control is not None else {}
+    record[key] = {
+        "loss_kernel": loss_k, "loss_plain": loss_p,
+        "loss_control": loss_c if control is not None else None,
+        "loss_rel_err": loss_err, "loss_tol": GRAD_LOSS_TOL, "grad_tol": GRAD_REL_TOL,
+        "grad_rel_l2": errs, "control_grad_rel_l2": ctrl,
+    }
+    log(f"{what}, kernel vs plain route: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3e}, "
+        f"tol {GRAD_LOSS_TOL}); gradients, relative L2 (tol {GRAD_REL_TOL})"
+        + (", sound route / control:" if control is not None else ":"))
+    for n in probes:
+        log(f"  {n:52s} {errs[n]:.3e}" + (f" / {ctrl[n]:.3e}" if control is not None else ""))
+    require(loss_err <= GRAD_LOSS_TOL, f"{what}: loss off by {loss_err}")
+    for n, e in errs.items():
+        require(e <= tols[n], f"{what}: gradient of {n} off by {e} (tol {tols[n]})")
+    rejected = [n for n, e in ctrl.items() if e > tols[n]]
+    require(all(any(n.endswith(suffix) for n in rejected) for suffix in must_reject),
+            f"{what}: the gradient bound {GRAD_REL_TOL} does not reject the control: {ctrl}")
+
+
+def flagship_loss_fn(fs, model, B: int, seed: int):
+    """The pose recipe's training loss of ``model`` on a seeded batch of B
+    videos with fixed noise levels and noise, as a function without arguments."""
     import torch
     from dfot_tpu_torch.algorithms.dfot_video import make_train_apply
     from dfot_tpu_torch.diffusion.continuous import (
@@ -566,83 +879,82 @@ def gradient_route_check(record: dict, fs, model) -> None:
     )
 
     apply = make_train_apply(fs)
-    batch = train_batch(fs, TRAIN_BATCH, seed=7)
-    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = train_batch(fs, B, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     t = torch.rand(batch["masks"].shape, generator=gen, device="cuda")
     noise = torch.randn(batch["xs"].shape, generator=gen, device="cuda")
     x_t, logsnr, alpha_t, sigma_t = continuous_training_fields(fs.dcfg, batch["xs"], t, noise)
-    params = dict(model.named_parameters())
 
-    def run():
-        model.zero_grad(set_to_none=True)
+    def loss_fn():
         out = apply(model, x_t, fs.dcfg.precond_scale * logsnr, batch["conditions"], None)
         _, loss = continuous_v_loss(fs.dcfg, out, x_t, noise, logsnr, alpha_t, sigma_t)
-        loss = loss.mean()
-        loss.backward()
-        torch.cuda.synchronize()
-        return float(loss.detach()), {n: params[n].grad.detach().clone() for n in GRAD_PROBES}
+        return loss.mean()
 
-    was_training = model.training
-    model.eval()
-    try:
-        loss_k, grads_k = run()
-        model.use_plain_attention(True)
-        try:
-            loss_p, grads_p = run()
-        finally:
-            model.use_plain_attention(False)
-        with control_zero_dq():
-            loss_c, grads_c = run()
-    finally:
-        model.train(was_training)
-        model.zero_grad(set_to_none=True)
+    return loss_fn
 
-    require(math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
-            "forward + backward: non-finite loss or gradient")
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    errs = {n: rel_l2(grads_k[n], grads_p[n]) for n in GRAD_PROBES}
-    ctrl = {n: rel_l2(grads_c[n], grads_p[n]) for n in GRAD_PROBES}
-    record["gradient_route"] = {
-        "loss_kernel": loss_k, "loss_plain": loss_p, "loss_control": loss_c,
-        "loss_rel_err": loss_err, "loss_tol": GRAD_LOSS_TOL, "grad_tol": GRAD_REL_TOL,
-        "grad_rel_l2": errs, "control_grad_rel_l2": ctrl,
-    }
-    log(f"full-width forward + backward B={TRAIN_BATCH}, kernel vs plain route: loss "
-        f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3e}, tol {GRAD_LOSS_TOL}); gradients, "
-        f"relative L2 (tol {GRAD_REL_TOL}), sound route / control with dq = 0:")
-    for n in GRAD_PROBES:
-        log(f"  {n:46s} {errs[n]:.3e} / {ctrl[n]:.3e}")
-    require(loss_err <= GRAD_LOSS_TOL, f"forward + backward: loss off by {loss_err}")
-    for n, e in errs.items():
-        require(e <= GRAD_REL_TOL, f"forward + backward: gradient of {n} off by {e}")
-    rejected = [n for n, e in ctrl.items() if e > GRAD_REL_TOL]
-    require(any(n.endswith("q_norm.weight") for n in rejected) and
-            any(n.endswith("fused_attn_mlp_proj.weight") for n in rejected),
-            f"the gradient bound {GRAD_REL_TOL} does not reject the zero-dq control: {ctrl}")
+
+def gradient_route_check(record: dict, fs, model) -> None:
+    """The flagship at full width and B = 1 (the mid level checkpointed):
+    loss and the gradients of :data:`GRAD_PROBES` on the kernel route, the
+    plain route and the zero-dq control."""
+    gradient_routes(record, "gradient_route", f"full-width forward + backward B={TRAIN_BATCH}",
+                    model, model.use_plain_attention, flagship_loss_fn(fs, model, TRAIN_BATCH, 7),
+                    GRAD_PROBES, control_zero_dq, ("q_norm.weight", "fused_attn_mlp_proj.weight"))
+
+
+def no_launches() -> dict:
+    return {name: 0 for name, _, _ in KERNELS}
 
 
 def expected_train_launches(fs, steps: int) -> dict:
-    """Launches of ``steps`` train steps: every transformer block runs the
-    three forward kernels once, and once more in the backward where its
-    level is checkpointed; every block runs the four backward kernels once."""
+    """Launches of ``steps`` flagship train steps: every transformer block
+    runs the three forward kernels once, and once more in the backward where
+    its level is checkpointed; every block runs the four backward kernels once."""
     s = fs.spec
     blocks = recomputed = 0
     for i, kind in enumerate(s.block_types):
-        if kind != "TransformerBlock":
+        if kind == "ResBlock":
             continue
         n = s.num_mid_blocks if i == len(s.channels) - 1 else 2 * s.num_updown_blocks[i]
         blocks += n
         recomputed += n if s.use_checkpointing[i] else 0
-    return {name: steps * (blocks + recomputed if name in FORWARD_KERNELS else blocks)
-            for name, _, _ in KERNELS}
+    return {**no_launches(),
+            **{name: steps * (blocks + recomputed if name in FORWARD_KERNELS else blocks)
+               for name in ATTENTION_KERNELS}}
 
 
-def run_train_path(record: dict, fs, model) -> dict:
-    """The training path at full width: train state and train step of the
-    recipe, a warm-up step, then ``TRAIN_STEPS`` steps between a reset and a
-    read of the launch counts. The warm-up of the learning rate is cut to
-    two steps so that the steps taken here move the weights by a visible
-    amount (the recipe's 10000-step warm-up starts at rate 0)."""
+def expected_dit_launches(spec, forwards: int = 0, train_steps: int = 0) -> dict:
+    """Launches of a full-variant DiT with long rows: a forward runs B8 once
+    per block (twice where the blocks have an MLP) and once in the final
+    layer, and B2, B1, B3 once per block; a train step runs all that, the
+    blocks' share twice under checkpointing, and B9 and B4-B7 once for each."""
+    per_block = 2 if spec.spatial_mlp_ratio else 1
+    again = 2 if spec.use_gradient_checkpointing else 1
+    ln_fwd, ln_train = per_block * spec.depth + 1, again * per_block * spec.depth + 1
+    out = no_launches()
+    out["ln_modulate"] = forwards * ln_fwd + train_steps * ln_train
+    out["ln_modulate_bwd"] = train_steps * ln_fwd
+    for name in ATTENTION_KERNELS:
+        fwd = name in FORWARD_KERNELS
+        out[name] = (forwards * spec.depth if fwd else 0) + train_steps * spec.depth * (
+            again if fwd else 1)
+    return out
+
+
+def require_launches(what: str, launches: dict, expect: dict) -> None:
+    for name, n in launches.items():
+        require(n == expect[name], f"kernel {name}: {n} launches on {what}, expected {expect[name]}")
+    require(any(launches.values()), f"no kernel was launched on {what}")
+
+
+def run_train_path(record: dict, key: str, what: str, fs, model, batch: dict, probes,
+                   expect: dict) -> dict:
+    """A recipe's training path at full width: its train state and train
+    step, a warm-up step, then ``TRAIN_STEPS`` steps between a reset and a
+    read of the launch counts, which must equal ``expect``. The warm-up of
+    the learning rate is cut to two steps so that the steps taken here move
+    the weights by a visible amount (the recipes' 10000-step warm-up starts
+    at rate 0)."""
     import torch
     from dfot_tpu_torch import ops
     from dfot_tpu_torch.algorithms.dfot_video import make_train_state, make_train_step
@@ -651,9 +963,9 @@ def run_train_path(record: dict, fs, model) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state = make_train_state(fs, model)
     step = make_train_step(fs)
-    batch = train_batch(fs, TRAIN_BATCH, seed=9)
+    B = batch["xs"].shape[0]
     gen = torch.Generator(device="cuda").manual_seed(10)
-    before = {n: p.detach().clone() for n, p in model.named_parameters() if n in GRAD_PROBES}
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if n in probes}
     ema_before = {n: state.ema[n].clone() for n in before}
 
     state, warm = step(state, batch, gen)
@@ -676,31 +988,325 @@ def run_train_path(record: dict, fs, model) -> dict:
     ema_moved = {n: float((state.ema[n] - ema_before[n]).abs().max()) for n in before}
     step_s = sum(walls) / len(walls)
     median_s = sorted(walls)[len(walls) // 2]
-    record["train"] = {
-        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "step_wall_s": walls, "step_s_mean": step_s,
+    record[key] = {
+        "batch": B, "steps": TRAIN_STEPS, "step_wall_s": walls, "step_s_mean": step_s,
         "step_s_median": median_s, "steps_per_s": 1 / median_s, "loss": losses,
         "grad_norm": norms,
         "launches": launches,
         "peak_memory_bytes": peak, "param_max_change": moved, "ema_max_change": ema_moved,
         "lr_after": state.optimizer.lr, "num_warmup_steps": fs.train.num_warmup_steps,
     }
-    log(f"flagship train step B={TRAIN_BATCH} (AdamW, clip {fs.train.grad_clip}, EMA, bf16 "
+    log(f"{what} B={B} (AdamW, clip {fs.train.grad_clip}, EMA, bf16 "
         f"compute over fp32 weights): median {median_s * 1e3:.1f} ms per step, "
         f"{1 / median_s:.3f} steps/s, over {TRAIN_STEPS} steps "
         f"({', '.join(f'{w * 1e3:.1f}' for w in walls)}; mean {step_s * 1e3:.1f}), peak memory "
         f"{peak / 2**30:.2f} GiB")
     log(f"  loss {losses}  grad norm {norms}  launches {launches}")
-    require(all(math.isfinite(v) for v in losses + norms), "train step: non-finite loss or norm")
+    require(all(math.isfinite(v) for v in losses + norms), f"{what}: non-finite loss or norm")
     require(state.step == TRAIN_STEPS + 1, f"train state counts {state.step} steps")
-    require(all(v > 0 for v in moved.values()), f"train steps left parameters unchanged: {moved}")
-    require(all(v > 0 for v in ema_moved.values()),
-            f"train steps left the EMA unchanged: {ema_moved}")
-    expect = expected_train_launches(fs, TRAIN_STEPS)
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the training path")
-        require(n == expect[name], f"kernel {name}: {n} launches in {TRAIN_STEPS} train steps, "
-                                   f"expected {expect[name]}")
+    require(all(v > 0 for v in moved.values()), f"{what}: parameters unchanged: {moved}")
+    require(all(v > 0 for v in ema_moved.values()), f"{what}: the EMA unchanged: {ema_moved}")
+    require_launches(f"{TRAIN_STEPS} steps of the {what}", launches, expect)
     return {"state": state, "step": step, "batch": batch, "gen": gen, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# the DiT family: K600 @DiT/XL, the factorized DiT, the axial U-ViT
+# ---------------------------------------------------------------------------
+
+def dit_grad_probes(depth: int, factorized: bool) -> tuple:
+    """Parameters of the first, a middle and the last block, the patch
+    embedding and the final layer."""
+    mid, last = depth // 2, depth - 1
+    if factorized:
+        return (
+            "dit_base.blocks.0.attn.qkv.weight",
+            "dit_base.blocks.0.norm2.modulation.1.weight",
+            f"dit_base.temporal_blocks.{mid}.attn.qkv.weight",
+            f"dit_base.temporal_blocks.{mid}.norm1.modulation.1.weight",
+            f"dit_base.temporal_blocks.{last}.mlp.fc1.weight",
+            "dit_base.final_layer.linear.weight",
+        )
+    return (
+        "patch_embedder.proj.weight",
+        "dit_base.blocks.0.norm1.modulation.1.weight",
+        "dit_base.blocks.0.attn.qkv.weight",
+        f"dit_base.blocks.{mid}.norm1.modulation.1.weight",
+        f"dit_base.blocks.{mid}.attn.qkv.weight",
+        f"dit_base.blocks.{last}.attn.proj.weight",
+        "dit_base.final_layer.norm_final.modulation.1.weight",
+    )
+
+
+# the temporal attention's projections read B10's output (out) or feed its
+# inputs (proj) directly; its q/k norm scales are no probe: their gradients
+# are sums of nearly cancelling terms (a softmax row's score cotangents sum
+# to zero) through a backward that both routes share, so they tell two sound
+# bf16 routes apart and say little about the kernel
+AXIAL_GRAD_PROBES = (
+    "down_blocks.2.0.fused_attn_mlp_proj.weight",
+    "down_blocks.2.0.another_attn.proj.weight",
+    "down_blocks.2.0.another_attn.out.weight",
+    "mid_blocks.1.another_attn.proj.weight",
+    "mid_blocks.1.another_attn.out.weight",
+    "up_blocks.0.1.another_attn.out.weight",
+)
+
+
+def latent_batch(shape, B: int, seed: int) -> dict:
+    """Seeded synthetic latents (normalized latents are about N(0, 1)),
+    every frame available."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"xs": torch.randn(B, *shape, generator=gen, device="cuda"),
+            "masks": torch.ones(B, shape[0], dtype=torch.bool, device="cuda")}
+
+
+def discrete_loss_fn(dcfg, apply, model, batch: dict, seed: int):
+    """A discrete-diffusion recipe's training loss of ``model`` on ``batch``
+    with fixed noise levels and noise, as a function without arguments."""
+    import torch
+    from dfot_tpu_torch.diffusion import core as dc
+
+    sched = dc.make_schedule(dcfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randint(0, dcfg.timesteps, batch["masks"].shape, generator=gen, device="cuda")
+    noise = torch.randn(batch["xs"].shape, generator=gen, device="cuda")
+    noised, target = dc.training_targets(sched, dcfg, batch["xs"], k, noise)
+
+    def loss_fn():
+        out = apply(model, noised, k.float(), None, None)
+        return dc.training_loss(sched, dcfg, out, target, k).mean()
+
+    return loss_fn
+
+
+def run_xl_window(ro, r, B: int, seed: int):
+    """One window of the K600 recipe: B videos of 5 latent frames, the
+    first 2 given as context, conditional sampling."""
+    import numpy as np
+    import torch
+
+    T = r.max_tokens
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ctx = torch.randn(B, T, *r.resolution, r.x_channels, generator=gen, device="cuda")
+    mask = np.zeros((B, T), dtype=np.int64)
+    mask[:, : r.n_context_tokens] = 1
+    return ro.sample_sequence(gen, B, length=T, context=ctx, context_mask=mask,
+                              history_guidance=r.history_guidance)
+
+
+def run_xl_paths(record: dict) -> dict:
+    """K600 @DiT/XL at full width and depth: a forward and a forward +
+    backward on the kernel route, the plain route and the controls; the
+    50-step window and the train steps with their launch counts; one
+    profiled window of fewer steps and one profiled train step."""
+    import dataclasses
+
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl, make_train_apply
+    from dfot_tpu_torch.diffusion.core import make_schedule
+    from dfot_tpu_torch.sampling import DFoTRollout, RolloutConfig
+
+    r = k600_dit_xl()
+    s, B, T = r.spec, XL_BATCH, r.max_tokens
+    x_shape = (T, *r.resolution, r.x_channels)
+    t0 = time.perf_counter()
+    train_model = build_random_model(r, seed=20, token_io=False)
+    model = sampling_copy(r, train_model)
+    n_params = sum(p.numel() for p in model.parameters())
+    record["xl_model"] = {"parameters": n_params, "hidden_size": s.hidden_size, "depth": s.depth,
+                          "num_heads": s.num_heads, "tokens": T * r.resolution[0] * r.resolution[1]}
+    log(f"K600 @DiT/XL DiT3D: {n_params / 1e6:.1f}M parameters (hidden {s.hidden_size}, depth "
+        f"{s.depth}, {s.num_heads} heads of {s.hidden_size // s.num_heads}, "
+        f"{record['xl_model']['tokens']} tokens), seeded random weights, fp32 to train and a "
+        f"bf16 copy to sample ({time.perf_counter() - t0:.1f} s)")
+
+    batch = latent_batch(x_shape, B, seed=21)
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        k = torch.randint(0, r.dcfg.timesteps, (B, T), generator=gen, device="cuda").float()
+        check_route(record, "xl_forward", f"XL full-width forward B={B}", FORWARD_REL_TOL,
+                    model.use_plain_kernels, lambda: model(batch["xs"], k), dit_controls())
+    gradient_routes(record, "xl_gradient_route", f"XL full-width forward + backward B={B}",
+                    train_model, train_model.use_plain_kernels,
+                    discrete_loss_fn(r.dcfg, make_train_apply(r), train_model, batch, 23),
+                    dit_grad_probes(s.depth, False), control_ln_backward,
+                    must_reject=("patch_embedder.proj.weight", "blocks.0.attn.qkv.weight"))
+
+    # the sampling path
+    def rollout(dcfg):
+        cfg = RolloutConfig(max_tokens=T, x_shape=x_shape[1:])
+        return DFoTRollout(cfg, dcfg, make_schedule(dcfg, "cuda"), model)
+
+    ro = rollout(r.dcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    latents = run_xl_window(ro, r, B, seed=24)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window_launches = ops.launch_counts()
+    evals = ro.stats["denoiser_evals_b1"] // B
+    generated = B * (T - r.n_context_tokens)
+    record["xl_window"] = {
+        "batch": B, "wall_s": wall, "denoiser_evals": evals, "windows_per_s": 1 / wall,
+        "latent_frames_per_s": generated / wall, "launches": window_launches,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "shape": list(latents.shape),
+    }
+    log(f"K600 @DiT/XL window: {B} videos x {T} latent frames ({r.n_context_tokens} context), "
+        f"{r.dcfg.sampling_timesteps} DDIM steps = {evals} evaluations at batch {B}: {wall:.3f} s "
+        f"wall, {generated / wall:.3f} generated latent frames/s; peak memory "
+        f"{record['xl_window']['peak_memory_bytes'] / 2**30:.2f} GiB; launches {window_launches}")
+    require(tuple(latents.shape) == (B, *x_shape), f"XL window shape {tuple(latents.shape)}")
+    require(bool(torch.isfinite(latents).all()), "XL window: non-finite output")
+    require(evals == r.dcfg.sampling_timesteps, f"XL window took {evals} evaluations")
+    require_launches("the XL window", window_launches, expected_dit_launches(s, forwards=evals))
+    del latents
+
+    short = rollout(dataclasses.replace(r.dcfg, sampling_timesteps=PROFILED_WINDOW_STEPS))
+    profiled(record, "xl_profile", f"{PROFILED_WINDOW_STEPS}-step XL window",
+             lambda: run_xl_window(short, r, B, seed=25))
+    del ro, short, model
+    torch.cuda.empty_cache()
+
+    # the training path
+    trained = run_train_path(
+        record, "xl_train", "K600 @DiT/XL train step", r, train_model, batch,
+        dit_grad_probes(s.depth, False),
+        expected_dit_launches(s, train_steps=TRAIN_STEPS))
+    profiled(record, "xl_train_profile", "XL train step",
+             lambda: trained["step"](trained["state"], trained["batch"], trained["gen"]),
+             unprofiled_s=record["xl_train"]["step_s_median"])
+    return {"xl_window": window_launches, "xl_train": trained["launches"]}
+
+
+def run_factorized_path(record: dict) -> dict:
+    """The factorized-attention DiT of the repo's backbone config (hidden
+    384, 6 heads of 64, depth 12, an MLP in the spatial blocks) on the
+    Minecraft latent shape (16, 8, 8, 32), patch 2: temporal attention over
+    16 frames and spatial attention over 16 patches, both kernel B10. Route
+    checks, then one forward and one forward + backward between a reset and
+    a read of the launch counts."""
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl, make_train_apply
+    from dfot_tpu_torch.models.dit import DiT3D, DiTSpec
+    from dfot_tpu_torch.utils.weights import init_random_weights
+
+    spec = DiTSpec(hidden_size=384, depth=12, num_heads=6, mlp_ratio=4.0, spatial_mlp_ratio=4.0,
+                   variant="factorized_attention", pos_emb_type="sinusoidal_factorized",
+                   patch_size=2, max_temporal_length=16, use_gradient_checkpointing=True)
+    x_shape, B = (16, 8, 8, 32), FACTORIZED_BATCH
+    with torch.device("cuda"):
+        train_model = DiT3D(spec, x_shape[-1], x_shape[1:3])
+        model = DiT3D(spec, x_shape[-1], x_shape[1:3])
+    init_random_weights(train_model, torch.Generator().manual_seed(30))
+    model.load_state_dict(train_model.state_dict())
+    model = model.to(torch.bfloat16).eval()
+    recipe = k600_dit_xl()  # its diffusion and its bf16 train apply; the model is ours
+    batch = latent_batch(x_shape, B, seed=31)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    k = torch.randint(0, 1000, (B, x_shape[0]), generator=gen, device="cuda").float()
+    loss_fn = discrete_loss_fn(recipe.dcfg, make_train_apply(recipe), train_model, batch, 33)
+
+    with torch.no_grad():
+        check_route(record, "factorized_forward", f"factorized DiT forward B={B}",
+                    FORWARD_REL_TOL, model.use_plain_kernels, lambda: model(batch["xs"], k),
+                    dit_controls())
+    gradient_routes(record, "factorized_gradient_route",
+                    f"factorized DiT forward + backward B={B}", train_model,
+                    train_model.use_plain_kernels, loss_fn, dit_grad_probes(spec.depth, True),
+                    control_ln_backward, must_reject=("blocks.0.attn.qkv.weight",))
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = model(batch["xs"], k)
+    train_model.eval()
+    loss_fn().backward()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    train_model.zero_grad(set_to_none=True)
+    require(bool(torch.isfinite(out).all()), "factorized DiT: non-finite output")
+    # a spatial and a temporal block, each with an MLP, run B8 four times and
+    # B10 twice; the checkpointed forward + backward runs both twice
+    ln_fwd, attn_fwd = 4 * spec.depth + 1, 2 * spec.depth
+    expect = {**no_launches(), "ln_modulate": ln_fwd + (2 * 4 * spec.depth + 1),
+              "ln_modulate_bwd": ln_fwd, "small_n_attn": attn_fwd + 2 * attn_fwd}
+    record["factorized"] = {"batch": B, "launches": launches, "shape": list(out.shape)}
+    log(f"factorized DiT path (one forward, one forward + backward): launches {launches}")
+    require_launches("the factorized DiT path", launches, expect)
+    return launches
+
+
+def run_axial_path(record: dict) -> dict:
+    """The flagship U-ViT with ``AxialTransformerBlock`` on its two
+    transformer levels, at the flagship's widths and a cut depth: each block
+    attends over a frame's tokens (B2 -> B1 -> B3) and then over the 8 frames
+    of each position, kernel B10 with B0 * tokens a frame * heads items.
+    Route checks, then one forward (B = 2) and one forward + backward (B = 1)
+    between a reset and a read of the launch counts."""
+    import dataclasses
+
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.algorithms.dfot_video import cond_transform, flagship
+    from dfot_tpu_torch.diffusion.continuous import continuous_model_noise_input
+    from dfot_tpu_torch.diffusion.core import make_schedule
+    from dfot_tpu_torch.models import uvit
+
+    fs = flagship()
+    spec = dataclasses.replace(
+        fs.spec, block_types=("ResBlock", "ResBlock", "AxialTransformerBlock",
+                              "AxialTransformerBlock"), **AXIAL_DEPTH)
+    fs = fs._replace(spec=spec)
+    train_model = build_random_model(fs, seed=40, token_io=False)
+    model = sampling_copy(fs, train_model)
+    B, T, R, p = AXIAL_BATCH, spec.max_temporal_length, fs.resolution, spec.patch_size
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.randn(B, T, (R // p) ** 2, p * p * fs.x_channels, generator=gen, device="cuda")
+    k = torch.randint(0, fs.dcfg.timesteps, (B, T), generator=gen, device="cuda")
+    noise_in = continuous_model_noise_input(fs.dcfg, make_schedule(fs.dcfg, "cuda"), k)
+    pose = cond_transform(fs, torch.bfloat16)(identity_poses(B, T, "cuda"))  # raw ray maps
+
+    @contextlib.contextmanager
+    def no_qk():
+        with control_attention(), patched(uvit, "attention", mean_value_attention):
+            yield
+
+    with torch.no_grad():
+        check_route(record, "axial_forward", f"axial U-ViT forward B={B}", FORWARD_REL_TOL,
+                    model.use_plain_attention, lambda: model(x, noise_in, pose),
+                    {"attention ignoring q, k": no_qk})
+    loss_fn = flagship_loss_fn(fs, train_model, TRAIN_BATCH, 42)
+    gradient_routes(record, "axial_gradient_route",
+                    f"axial U-ViT forward + backward B={TRAIN_BATCH}", train_model,
+                    train_model.use_plain_attention, loss_fn, AXIAL_GRAD_PROBES, no_qk,
+                    must_reject=("another_attn.proj.weight", "another_attn.out.weight"))
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = model(x, noise_in, pose)
+    train_model.eval()
+    loss_fn().backward()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    train_model.zero_grad(set_to_none=True)
+    require(bool(torch.isfinite(out).all()), "axial U-ViT: non-finite output")
+    # per axial block: the packed route once (spatial) and B10 once (temporal)
+    expect = expected_train_launches(fs, 1)
+    blocks = expect["flash_bwd_dq"]
+    expect = {name: n + (blocks if name in FORWARD_KERNELS else 0) for name, n in expect.items()}
+    expect["small_n_attn"] = expect["flash_fwd"]
+    record["axial"] = {"batch_forward": B, "batch_backward": TRAIN_BATCH, "axial_blocks": blocks,
+                       "launches": launches, "shape": list(out.shape)}
+    log(f"axial U-ViT path ({blocks} axial blocks; one forward, one forward + backward): "
+        f"launches {launches}")
+    require_launches("the axial U-ViT path", launches, expect)
+    return launches
 
 
 def kernel_class(name: str) -> str:
@@ -808,7 +1414,7 @@ def main() -> int:
     (OUT_DIR / "nvcc_build.log").write_text(_cuda.build_info["log"])
 
     try:
-        log("kernels vs plain versions at the flagship shapes (bf16):")
+        log("kernels vs plain versions at the shapes of the paths (bf16):")
         results = check_kernels(record)
         from dfot_tpu_torch.algorithms.dfot_video import flagship
 
@@ -823,7 +1429,8 @@ def main() -> int:
             x, nl, cond, cmask = flagship_inputs(
                 fs, model, 2, torch.Generator(device="cuda").manual_seed(4))
             check_route(record, "forward", "full-width forward B=2 T=8 256px", FORWARD_REL_TOL,
-                        model, lambda: model(x, nl, cond, cmask))
+                        model.use_plain_attention, lambda: model(x, nl, cond, cmask),
+                        {"attention ignoring q, k": control_attention})
             del x, cond
 
         small_window_check(record)
@@ -860,10 +1467,27 @@ def main() -> int:
 
         # the training path
         gradient_route_check(record, fs, train_model)
-        trained = run_train_path(record, fs, train_model)
+        trained = run_train_path(
+            record, "train", "flagship train step", fs, train_model,
+            train_batch(fs, TRAIN_BATCH, seed=9), GRAD_PROBES,
+            expected_train_launches(fs, TRAIN_STEPS))
         profiled(record, "train_profile", "train step",
                  lambda: trained["step"](trained["state"], trained["batch"], trained["gen"]),
                  unprofiled_s=record["train"]["step_s_median"])
+        by_path = {"window": window_launches, "train": trained["launches"]}
+        del trained, train_model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the DiT family
+        by_path.update(run_xl_paths(record))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["factorized"] = run_factorized_path(record)
+        by_path["axial"] = run_axial_path(record)
+        for name, _, _ in KERNELS:
+            require(any(by_path[path][name] for path in PATHS),
+                    f"kernel {name} was launched on no path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -872,8 +1496,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"chip_smoke: all phases passed in {record['seconds_total']:.1f} s")
 
-    launches = {name: {"window": window_launches[name], "train": trained["launches"][name]}
-                for name, _, _ in KERNELS}
+    launches = {name: {path: by_path[path][name] for path in PATHS} for name, _, _ in KERNELS}
     log(smi)
     log(json.dumps({"kernels": kernel_summary(results, launches)}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,335 @@
+// Fused LayerNorm + AdaLN modulate for Hopper, forward and backward.
+//
+// Replaces the Pallas TPU kernels dfot_tpu/ops/ln_modulate.py:_fwd_kernel
+// (reached through _ln_mod_fwd and ln_modulate) and :_bwd_kernel (reached
+// through _ln_mod_bwd). Per token, with a scale-free, bias-free LayerNorm over
+// the C channels:
+//
+//   forward   mu, rstd from fp32 sums (var = E[x^2] - mu^2)
+//             yn = cast((x - mu) * rstd)             (x's dtype)
+//             y  = yn * (1 + scale) + shift          (x's dtype, op by op)
+//   backward  stats recomputed from the saved x
+//             gl = float(g * (1 + scale))
+//             dx = rstd * (gl - mean(gl) - yn * mean(gl * yn))   (fp32 yn)
+//             dscale = g * cast(yn)                  (dshift = g: not written)
+//
+// The rounding points are the TPU kernel's: statistics and dx in fp32, yn
+// rounded to x's dtype before the modulate and before dscale.
+//
+// Bound: bytes. The forward moves four (tokens, C) tensors, the backward
+// five, with a handful of flops per element, so the only lever is to touch
+// every byte once. One warp owns one token: it loads the row with 16-byte
+// accesses, keeps it in registers between the statistics and the
+// normalisation (x is read once), reduces with warp shuffles, and reads
+// shift / scale / g and writes the outputs as 16-byte accesses too. Rows whose
+// width is no multiple of a 16-byte vector, or wider than the registers
+// hold (C > 2048), take a second kernel of the same arithmetic that walks
+// the row in pairs and reads x again from cache.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxRegWidth = 2048;  // widest row the register kernels hold
+
+// round to T and back: arithmetic "in T" is fp32 arithmetic rounded per op
+template <typename T> __device__ __forceinline__ float rnd(float v);
+template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T> struct Io;
+
+template <> struct Io<__nv_bfloat16> {
+  static constexpr int kVec = 8;  // elements per 16-byte access
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+template <> struct Io<float> {
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ void load(const float* p, float* out) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    out[0] = f.x, out[1] = f.y, out[2] = f.z, out[3] = f.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* in) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  }
+  static __device__ __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// y = yn * (1 + scale) + shift, each op rounded to T
+template <typename T>
+__device__ __forceinline__ float modulate(float yn, float shift, float scale) {
+  return rnd<T>(rnd<T>(yn * rnd<T>(1.f + scale)) + shift);
+}
+
+// ---- register kernels: C a multiple of the 16-byte vector, C <= 2048 -------
+
+template <typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    ln_modulate_fwd_kernel(const T* __restrict__ x, const T* __restrict__ shift,
+                           const T* __restrict__ scale, T* __restrict__ y, long long tokens,
+                           int c, float eps) {
+  constexpr int V = Io<T>::kVec;
+  constexpr int kMaxVec = kMaxRegWidth / (32 * V);  // vectors per lane
+  const long long tok = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (tok >= tokens) return;
+  const long long base = tok * c;
+  const int nvec = c / V;
+
+  float xv[kMaxVec][V];
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int v = lane + 32 * i;
+    if (v < nvec) {
+      Io<T>::load(x + base + v * V, xv[i]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        s += xv[i][j];
+        ss += xv[i][j] * xv[i][j];
+      }
+    }
+  }
+  const float mu = warp_sum(s) / c;
+  const float rstd = rsqrtf(warp_sum(ss) / c - mu * mu + eps);
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int v = lane + 32 * i;
+    if (v < nvec) {
+      float sh[V], sc[V], out[V];
+      Io<T>::load(shift + base + v * V, sh);
+      Io<T>::load(scale + base + v * V, sc);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        out[j] = modulate<T>(rnd<T>((xv[i][j] - mu) * rstd), sh[j], sc[j]);
+      Io<T>::store(y + base + v * V, out);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    ln_modulate_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                           const T* __restrict__ g, T* __restrict__ dx, T* __restrict__ dscale,
+                           long long tokens, int c, float eps) {
+  constexpr int V = Io<T>::kVec;
+  constexpr int kMaxVec = kMaxRegWidth / (32 * V);
+  const long long tok = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (tok >= tokens) return;
+  const long long base = tok * c;
+  const int nvec = c / V;
+
+  float yn[kMaxVec][V];  // x, then (x - mu) * rstd in fp32
+  float gl[kMaxVec][V];  // float(g * (1 + scale))
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int v = lane + 32 * i;
+    if (v < nvec) {
+      Io<T>::load(x + base + v * V, yn[i]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        s += yn[i][j];
+        ss += yn[i][j] * yn[i][j];
+      }
+    }
+  }
+  const float mu = warp_sum(s) / c;
+  const float rstd = rsqrtf(warp_sum(ss) / c - mu * mu + eps);
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int v = lane + 32 * i;
+    if (v < nvec) {
+      float gv[V], sc[V], ds[V];
+      Io<T>::load(g + base + v * V, gv);
+      Io<T>::load(scale + base + v * V, sc);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        yn[i][j] = (yn[i][j] - mu) * rstd;
+        gl[i][j] = rnd<T>(gv[j] * rnd<T>(1.f + sc[j]));
+        ds[j] = rnd<T>(gv[j] * rnd<T>(yn[i][j]));
+        s1 += gl[i][j];
+        s2 += gl[i][j] * yn[i][j];
+      }
+      Io<T>::store(dscale + base + v * V, ds);
+    }
+  }
+  const float m1 = warp_sum(s1) / c;
+  const float m2 = warp_sum(s2) / c;
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int v = lane + 32 * i;
+    if (v < nvec) {
+      float out[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[j] = rstd * (gl[i][j] - m1 - yn[i][j] * m2);
+      Io<T>::store(dx + base + v * V, out);
+    }
+  }
+}
+
+// ---- pair kernels: any even C ------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void row_stats(const T* __restrict__ row, int c, int lane, float eps,
+                                          float* mu, float* rstd) {
+  float s = 0.f, ss = 0.f;
+  for (int p = lane; p < c / 2; p += 32) {
+    const float2 f = Io<T>::load2(row + 2 * p);
+    s += f.x + f.y;
+    ss += f.x * f.x + f.y * f.y;
+  }
+  *mu = warp_sum(s) / c;
+  *rstd = rsqrtf(warp_sum(ss) / c - *mu * *mu + eps);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    ln_modulate_fwd_pairs_kernel(const T* __restrict__ x, const T* __restrict__ shift,
+                                 const T* __restrict__ scale, T* __restrict__ y,
+                                 long long tokens, int c, float eps) {
+  const long long tok = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (tok >= tokens) return;
+  const long long base = tok * c;
+  float mu, rstd;
+  row_stats(x + base, c, lane, eps, &mu, &rstd);
+  for (int p = lane; p < c / 2; p += 32) {
+    const long long at = base + 2 * p;
+    const float2 xf = Io<T>::load2(x + at);
+    const float2 sh = Io<T>::load2(shift + at);
+    const float2 sc = Io<T>::load2(scale + at);
+    Io<T>::store2(y + at, modulate<T>(rnd<T>((xf.x - mu) * rstd), sh.x, sc.x),
+                  modulate<T>(rnd<T>((xf.y - mu) * rstd), sh.y, sc.y));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    ln_modulate_bwd_pairs_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                                 const T* __restrict__ g, T* __restrict__ dx,
+                                 T* __restrict__ dscale, long long tokens, int c, float eps) {
+  const long long tok = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (tok >= tokens) return;
+  const long long base = tok * c;
+  float mu, rstd;
+  row_stats(x + base, c, lane, eps, &mu, &rstd);
+  float s1 = 0.f, s2 = 0.f;
+  for (int p = lane; p < c / 2; p += 32) {
+    const long long at = base + 2 * p;
+    const float2 xf = Io<T>::load2(x + at);
+    const float2 gv = Io<T>::load2(g + at);
+    const float2 sc = Io<T>::load2(scale + at);
+    const float y0 = (xf.x - mu) * rstd, y1 = (xf.y - mu) * rstd;
+    const float g0 = rnd<T>(gv.x * rnd<T>(1.f + sc.x)), g1 = rnd<T>(gv.y * rnd<T>(1.f + sc.y));
+    Io<T>::store2(dscale + at, rnd<T>(gv.x * rnd<T>(y0)), rnd<T>(gv.y * rnd<T>(y1)));
+    s1 += g0 + g1;
+    s2 += g0 * y0 + g1 * y1;
+  }
+  const float m1 = warp_sum(s1) / c;
+  const float m2 = warp_sum(s2) / c;
+  for (int p = lane; p < c / 2; p += 32) {
+    const long long at = base + 2 * p;
+    const float2 xf = Io<T>::load2(x + at);
+    const float2 gv = Io<T>::load2(g + at);
+    const float2 sc = Io<T>::load2(scale + at);
+    const float y0 = (xf.x - mu) * rstd, y1 = (xf.y - mu) * rstd;
+    const float g0 = rnd<T>(gv.x * rnd<T>(1.f + sc.x)), g1 = rnd<T>(gv.y * rnd<T>(1.f + sc.y));
+    Io<T>::store2(dx + at, rstd * (g0 - m1 - y0 * m2), rstd * (g1 - m1 - y1 * m2));
+  }
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* shift, const void* scale, void* y, long long tokens,
+               int c, float eps, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((tokens + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const bool regs = c % Io<T>::kVec == 0 && c <= kMaxRegWidth;
+  auto* kernel = regs ? ln_modulate_fwd_kernel<T> : ln_modulate_fwd_pairs_kernel<T>;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(shift), static_cast<const T*>(scale),
+      static_cast<T*>(y), tokens, c, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* scale, const void* g, void* dx, void* dscale,
+               long long tokens, int c, float eps, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((tokens + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const bool regs = c % Io<T>::kVec == 0 && c <= kMaxRegWidth;
+  auto* kernel = regs ? ln_modulate_bwd_kernel<T> : ln_modulate_bwd_pairs_kernel<T>;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(g),
+      static_cast<T*>(dx), static_cast<T*>(dscale), tokens, c, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(long long tokens, int c) {
+  return tokens <= 0 || c <= 0 || c % 2 != 0 ||
+         (tokens + kWarpsPerBlock - 1) / kWarpsPerBlock > 2147483647LL;
+}
+
+}  // namespace
+
+// x, shift, scale, y: (tokens, C) contiguous, all bf16 (is_fp32 = 0) or all
+// fp32 (is_fp32 = 1), 16-byte aligned; C even. Returns a cudaError_t code.
+extern "C" int dfot_ln_modulate_fwd(const void* x, const void* shift, const void* scale, void* y,
+                                    long long tokens, int c, float eps, int is_fp32,
+                                    void* stream) {
+  if (bad_shape(tokens, c)) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return is_fp32 ? launch_fwd<float>(x, shift, scale, y, tokens, c, eps, s)
+                 : launch_fwd<__nv_bfloat16>(x, shift, scale, y, tokens, c, eps, s);
+}
+
+// x, scale, g in; dx, dscale out: (tokens, C) contiguous of one dtype, as
+// above. The cotangent of shift is g itself and is not written.
+extern "C" int dfot_ln_modulate_bwd(const void* x, const void* scale, const void* g, void* dx,
+                                    void* dscale, long long tokens, int c, float eps,
+                                    int is_fp32, void* stream) {
+  if (bad_shape(tokens, c)) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return is_fp32 ? launch_bwd<float>(x, scale, g, dx, dscale, tokens, c, eps, s)
+                 : launch_bwd<__nv_bfloat16>(x, scale, g, dx, dscale, tokens, c, eps, s);
+}

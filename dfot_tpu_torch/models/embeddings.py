@@ -1,18 +1,18 @@
-"""Embedding modules: noise level, camera-pose patches, RoPE tables.
+"""Embedding modules: noise level, labels, vector conditions, patches, RoPE
+and sinusoidal position tables.
 
-Port of the parts of ``dfot_tpu/models/embeddings.py`` the UViT3DPose
-flagship uses (``RandomDropoutCondEmbedding`` embeds vector conditions; the
-pose model embeds its ray maps with :class:`PatchEmbed` and never reaches
-it, so it is not ported). Module and parameter names are the upstream torch
-names, so an upstream state dict loads as is (``noise_level_pos_embedding.*``,
-``external_cond_embedding.patch_embedder.*``). The RoPE tables are host
-numpy, a copy of the JAX package's (whose module imports flax).
+Port of ``dfot_tpu/models/embeddings.py`` (the twin-stream ``double_merge``
+RoPE of the difference-DiT is not ported). Module and parameter names are the
+upstream torch names, so an upstream state dict loads as is
+(``noise_level_pos_embedding.*``, ``external_cond_embedding.*``). The RoPE and
+sinusoidal tables are host numpy, copies of the JAX package's (whose module
+imports flax).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +24,13 @@ __all__ = [
     "TimestepEmbedding",
     "FourierEmbedding",
     "StochasticTimeEmbedding",
+    "LabelEmbedding",
+    "RandomDropoutCondEmbedding",
     "PatchEmbed",
     "patchify",
+    "get_nd_sincos_pos_embed",
+    "DeviceTable",
+    "RopeTables",
     "RoPE",
     "make_rope_nd",
     "make_rope_1d",
@@ -118,6 +123,47 @@ class StochasticTimeEmbedding(nn.Module):
         return self.embedding(emb)
 
 
+class LabelEmbedding(nn.Module):
+    """Class-label embedding table; with ``dropout_prob`` > 0 it has one more
+    row, the null class of classifier-free guidance: in training mode each
+    label takes it with that probability (a draw from the device's global
+    generator), in eval mode wherever ``mask`` is True."""
+
+    def __init__(self, num_classes: int, emb_dim: int, dropout_prob: float = 0.0):
+        super().__init__()
+        self.num_classes, self.dropout_prob = num_classes, dropout_prob
+        self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), emb_dim)
+
+    def forward(self, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        labels = labels.long()
+        if self.dropout_prob > 0:
+            if self.training:
+                mask = torch.rand(labels.shape, device=labels.device) < self.dropout_prob
+            if mask is not None:
+                labels = torch.where(mask, self.num_classes, labels)
+        return self.embedding_table(labels)
+
+
+class RandomDropoutCondEmbedding(nn.Module):
+    """Embedding of a continuous condition (actions) by a SiLU MLP
+    (``embedding``), zeroed for a whole sample with probability
+    ``dropout_prob`` in training mode and wherever ``mask`` is True."""
+
+    def __init__(self, in_dim: int, emb_dim: int, dropout_prob: float = 0.0):
+        super().__init__()
+        self.dropout_prob = dropout_prob
+        self.embedding = TimestepEmbedding(in_dim, emb_dim)
+
+    def forward(self, cond: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        emb = self.embedding(cond)
+        if self.dropout_prob > 0 and self.training:
+            mask = torch.rand(emb.shape[:1], device=emb.device) < self.dropout_prob
+        if mask is not None:
+            mask = mask.reshape(mask.shape + (1,) * (emb.ndim - mask.ndim))
+            emb = torch.where(mask, 0.0, emb)
+        return emb
+
+
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
     """(..., H, W, C) -> (..., H/p * W/p, p*p*C) patch rows in (p_h, p_w, C)
     order."""
@@ -149,6 +195,43 @@ class PatchEmbed(nn.Module):
         return F.linear(x, conv_as_patch_matrix(w), self.proj.bias)
 
 
+def get_nd_sincos_pos_embed(embed_dim: int, shape: Sequence[int]) -> np.ndarray:
+    """N-D sinusoidal position table, (prod(shape), embed_dim) float32:
+    per-axis sin || cos tables of embed_dim / ndim channels, concatenated. The
+    grid is ``np.meshgrid``'s default 'xy' indexing, which swaps the first
+    two axes: the published tables are built so."""
+    ndim = len(shape)
+    assert embed_dim % (2 * ndim) == 0
+    grid = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32) for s in shape]), axis=0)
+
+    def _1d(dim, pos):
+        omega = 1.0 / 10000 ** (np.arange(dim // 2, dtype=np.float64) / (dim / 2.0))
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    return np.concatenate(
+        [_1d(embed_dim // ndim, grid[i]) for i in range(ndim)], axis=1
+    ).astype(np.float32)
+
+
+class DeviceTable:
+    """A host numpy table with one copy per (device, dtype), made at first
+    use."""
+
+    def __init__(self, table: np.ndarray):
+        self._np = np.asarray(table, dtype=np.float32)
+        self._dev: Dict[tuple, torch.Tensor] = {}
+
+    def __len__(self) -> int:
+        return len(self._np)
+
+    def on(self, device, dtype=torch.float32) -> torch.Tensor:
+        key = (device, dtype)
+        if key not in self._dev:
+            self._dev[key] = torch.as_tensor(self._np, device=device).to(dtype)
+        return self._dev[key]
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (axial, N-dimensional), host numpy tables
 # ---------------------------------------------------------------------------
@@ -163,6 +246,34 @@ class RoPE:
         self.cos = np.asarray(cos, dtype=np.float32)
         self.sin = np.asarray(sin, dtype=np.float32)
         self.sizes = sizes
+
+
+class RopeTables:
+    """RoPE tables on the device (fp32, sign folded into sin), shared by the
+    blocks that rotate alike, with one copy per device made at first use."""
+
+    def __init__(self, rope: RoPE):
+        # rotate_half's (-1, +1) pair sign folded into the sin table
+        sin = np.array(rope.sin, copy=True)
+        sin[..., 0::2] = -sin[..., 0::2]
+        self._np = (rope.cos, sin)
+        self._dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._cast: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        if device not in self._dev:
+            self._dev[device] = tuple(
+                torch.as_tensor(t, dtype=torch.float32, device=device) for t in self._np
+            )
+        return self._dev[device]
+
+    def cast(self, device, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cos, signed sin) in ``dtype``, for blocks that fold no learned
+        scale into them; cached."""
+        key = (device, dtype)
+        if key not in self._cast:
+            self._cast[key] = tuple(t.to(dtype).contiguous() for t in self.on(device))
+        return self._cast[key]
 
 
 def _axis_freqs(dim: int, seq_len: int, theta: float) -> np.ndarray:

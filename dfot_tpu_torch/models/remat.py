@@ -1,8 +1,9 @@
 """Rematerialization of checkpointed backbone blocks.
 
-Port of ``dfot_tpu/models/remat.py``. A level with ``use_checkpointing``
-runs its transformer blocks under ``torch.utils.checkpoint`` (non-reentrant,
-random state preserved so dropout replays): nothing inside the block is
+Port of ``dfot_tpu/models/remat.py``. A U-ViT level with
+``use_checkpointing`` runs its transformer blocks, and a DiT with
+``use_gradient_checkpointing`` every block, under ``torch.utils.checkpoint``
+(non-reentrant, random state preserved so dropout replays): nothing inside the block is
 kept, and the whole block, attention kernels included, runs again in the
 backward. That is the policy ``None`` / ``"none"``, the one the recipes use.
 The JAX package's selective policies (``dots``: keep matmul outputs;

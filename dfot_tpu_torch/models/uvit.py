@@ -13,13 +13,15 @@ Module and parameter names are the upstream torch names that
 ``dfot_tpu/utils/torch_ckpt.py:import_uvit3d_params`` reads, so an upstream
 checkpoint loads with ``load_state_dict``. Every transformer block's
 attention runs through kernels B2 -> B1 -> B3 (``ops/qkv_prep.py``) and, in
-the backward, B7 -> B4, B5 -> B6.
+the backward, B7 -> B4, B5 -> B6. An ``AxialTransformerBlock`` level attends
+over each frame's tokens that way and then over the frames of each position
+(:class:`AxialAttention`): rows of 8 tokens, kernel B10.
 
 Training follows PyTorch's idiom: ``model.train()`` switches on the block
 dropouts and the whole-sample pose dropout (draws come from the device's
 global generator, which the train step seeds), ``model.eval()`` switches
 them off. Levels with ``use_checkpointing`` recompute their transformer
-blocks in the backward whenever gradients are enabled. No axial blocks.
+blocks in the backward whenever gradients are enabled.
 """
 
 from __future__ import annotations
@@ -32,12 +34,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, signed_sin
+from ..ops.attention import attention, attention_route
+from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, swap_pairs
 from .remat import remat
 from .embeddings import (
     PatchEmbed,
+    RopeTables,
     StochasticTimeEmbedding,
     conv_as_patch_matrix,
+    make_rope_1d,
+    make_rope_2d,
     make_rope_3d,
     patchify,
 )
@@ -135,46 +141,21 @@ class ResBlock(nn.Module):
         return x + _nchw(self.out_rest, h)
 
 
-class RopeTables:
-    """One level's 3D RoPE tables (fp32, sign folded into sin), shared by
-    the level's blocks, with one copy per device made at first use."""
+class _QKNormAttention:
+    """Attention on a packed qkv projection with per-head RMSNorm of q and k
+    (``q_norm``, ``k_norm``) and RoPE, for the modules that own those norms."""
 
-    def __init__(self, rope):
-        self._np = (rope.cos, signed_sin(rope.sin))
-        self._dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        if device not in self._dev:
-            self._dev[device] = tuple(
-                torch.as_tensor(t, dtype=torch.float32, device=device) for t in self._np
-            )
-        return self._dev[device]
-
-
-class TransformerBlock(nn.Module):
-    """Parallel attention + MLP block with QK RMSNorm and 3D RoPE
-    (ViT-22B style; the non-axial upstream TransformerBlock)."""
-
-    def __init__(self, dim: int, heads: int, emb_dim: int, rope: RopeTables,
-                 dropout: float = 0.0):
-        super().__init__()
+    def _init_attention(self, heads: int) -> None:
         self.heads = heads
-        d = dim // heads
-        self.norm = FiLMNorm(dim, emb_dim)
-        self.fused_attn_mlp_proj = nn.Linear(dim, 3 * dim + 4 * dim)
-        self.q_norm = RMSNorm(d)
-        self.k_norm = RMSNorm(d)
-        self.attn_out = nn.Linear(dim, dim)
-        self.mlp_out = nn.Sequential(nn.SiLU(), nn.Dropout(dropout), nn.Linear(4 * dim, dim))
-        self.rope = rope
         self._folded_key = None
         self._folded = None
         # True: run the plain versions of the attention kernels (a reference
         # for the kernel route, e.g. on the card)
         self.plain_attention = False
 
-    def _tables(self, device, dtype):
-        """The RoPE tables with the q/k norm scales folded in.
+    def _tables(self, device, dtype, rope: Optional[RopeTables] = None):
+        """The RoPE tables (``rope``, by default the module's own) with the
+        q/k norm scales folded in.
 
         Where a gradient can reach a scale (gradients enabled and the scale
         requires one) the fold is plain differentiable fp32 ops, made anew on
@@ -182,17 +163,95 @@ class TransformerBlock(nn.Module):
         ``q_norm.weight`` and ``k_norm.weight``. Otherwise the tables are
         folded once in ``dtype``, and again only when a scale changes (a
         load, a cast or a move gives it new data or a new version)."""
+        rope = self.rope if rope is None else rope
         qw, kw = self.q_norm.weight, self.k_norm.weight
         if torch.is_grad_enabled() and (qw.requires_grad or kw.requires_grad):
-            return fold_qk_tables(*self.rope.on(device), qw, kw, torch.float32)
+            return fold_qk_tables(*rope.on(device), qw, kw, torch.float32)
         key = (device, dtype, qw.data_ptr(), qw._version, kw.data_ptr(), kw._version)
         if key != self._folded_key:
             with torch.no_grad():
-                self._folded = fold_qk_tables(*self.rope.on(device), qw, kw, dtype)
+                self._folded = fold_qk_tables(*rope.on(device), qw, kw, dtype)
             self._folded_key = key
         return self._folded
 
+    def _attend(self, qkv: torch.Tensor, rope: RopeTables) -> torch.Tensor:
+        """(B, N, 3C) packed qkv -> (B, N, C) attention output. Long rows take
+        the packed kernel route (norm, RoPE and the learned scales inside
+        B2); short rows (an axial block's 8 frames) the chain norm -> RoPE ->
+        dispatcher, whose kernel is B10."""
+        B, N, C3 = qkv.shape
+        H, D = self.heads, C3 // (3 * self.heads)
+        if attention_route(N, D) in ("flash", "padded_flash"):
+            return attention_from_packed_qkv(
+                qkv, H, D, self._tables(qkv.device, qkv.dtype, rope),
+                norm=True, eps=self.q_norm.eps, plain=self.plain_attention,
+            )
+        q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # each (B, H, N, D)
+        q, k = self.q_norm(q), self.k_norm(k)
+        cos, sin = (t[:N] for t in rope.cast(qkv.device, qkv.dtype))
+        q = q * cos + swap_pairs(q) * sin
+        k = k * cos + swap_pairs(k) * sin
+        o = attention(q, k, v, plain=self.plain_attention)
+        return o.transpose(1, 2).reshape(B, N, C3 // 3)
+
+
+class AxialAttention(nn.Module, _QKNormAttention):
+    """The second (temporal) attention of an axial transformer block
+    (upstream ``AttentionBlock``, held as ``another_attn``): FiLM norm,
+    bias-free projections, and the zero-initialized ``out`` projection added
+    to the attention output itself; the block outside holds the residual."""
+
+    def __init__(self, dim: int, heads: int, emb_dim: int, rope: RopeTables):
+        super().__init__()
+        self._init_attention(heads)
+        d = dim // heads
+        self.norm = FiLMNorm(dim, emb_dim)
+        self.proj = nn.Linear(dim, 3 * dim, bias=False)
+        self.q_norm = RMSNorm(d)
+        self.k_norm = RMSNorm(d)
+        self.out = nn.Linear(dim, dim, bias=False)
+        self.rope = rope
+
+    def forward(self, x, emb):
+        o = self._attend(self.proj(self.norm(x, emb)), self.rope)
+        return o + self.out(o)
+
+
+class TransformerBlock(nn.Module, _QKNormAttention):
+    """Parallel attention + MLP block with QK RMSNorm and RoPE (ViT-22B
+    style; upstream TransformerBlock). ``rope`` is the 3D table of a full
+    block. An axial block (``rope_ax1``, ``rope_ax2`` and ``ax1_len`` given)
+    attends over the ``ax2`` tokens of each of the ``ax1_len`` frames here,
+    with the 2D table, and over the frames of each position in
+    ``another_attn``, with the 1D one."""
+
+    def __init__(self, dim: int, heads: int, emb_dim: int, rope: Optional[RopeTables],
+                 dropout: float = 0.0, rope_ax1: Optional[RopeTables] = None,
+                 rope_ax2: Optional[RopeTables] = None, ax1_len: Optional[int] = None):
+        super().__init__()
+        self._init_attention(heads)
+        d = dim // heads
+        self.use_axial = rope_ax1 is not None
+        self.ax1_len = ax1_len
+        self.norm = FiLMNorm(dim, emb_dim)
+        self.fused_attn_mlp_proj = nn.Linear(dim, 3 * dim + 4 * dim)
+        self.q_norm = RMSNorm(d)
+        self.k_norm = RMSNorm(d)
+        self.attn_out = nn.Linear(dim, dim)
+        if self.use_axial:
+            self.another_attn = AxialAttention(dim, heads, emb_dim, rope_ax1)
+        self.mlp_out = nn.Sequential(nn.SiLU(), nn.Dropout(dropout), nn.Linear(4 * dim, dim))
+        self.rope = rope_ax2 if self.use_axial else rope
+
     def forward(self, x, emb, pose_mod=None, pose_scale=None):
+        if self.use_axial:
+            if pose_mod is not None:
+                raise ValueError("precomputed pose FiLM terms are not for axial blocks")
+            B0, N0, C = x.shape
+            ax1, E = self.ax1_len, emb.shape[-1]
+            ax2 = N0 // ax1
+            x = x.reshape(B0 * ax1, ax2, C)
+            emb = emb.reshape(B0 * ax1, ax2, E)
         C = x.shape[-1]
         h = self.norm(x, emb, pose_mod, pose_scale)
         fused = self.fused_attn_mlp_proj(h)
@@ -200,12 +259,15 @@ class TransformerBlock(nn.Module):
             qkv, mlp_h = _SplitFused.apply(fused, 3 * C)
         else:
             qkv, mlp_h = fused[..., : 3 * C], fused[..., 3 * C:]
-        o = attention_from_packed_qkv(
-            qkv, self.heads, C // self.heads, self._tables(x.device, qkv.dtype),
-            norm=True, eps=self.q_norm.eps, plain=self.plain_attention,
-        )
-        x = x + self.attn_out(o)
-        return x + self.mlp_out(mlp_h)
+        x = x + self.attn_out(self._attend(qkv, self.rope))
+        if self.use_axial:
+            # (B*ax1, ax2, C) -> (B*ax2, ax1, C): attend over the frames
+            x = x.reshape(B0, ax1, ax2, C).transpose(1, 2).reshape(B0 * ax2, ax1, C)
+            e = emb.reshape(B0, ax1, ax2, E).transpose(1, 2).reshape(B0 * ax2, ax1, E)
+            x = self.another_attn(x, e)
+            x = x.reshape(B0, ax2, ax1, C).transpose(1, 2).reshape(B0 * ax1, ax2, C)
+        x = x + self.mlp_out(mlp_h)
+        return x.reshape(B0, N0, C) if self.use_axial else x
 
 
 class _SplitFused(torch.autograd.Function):
@@ -291,14 +353,14 @@ class UViT3D(nn.Module):
         s = spec
         if s.pos_emb_type != "rope":
             raise NotImplementedError(f"pos_emb_type {s.pos_emb_type!r} is not ported")
-        bad = set(s.block_types) - {"ResBlock", "TransformerBlock"}
+        bad = set(s.block_types) - {"ResBlock", "TransformerBlock", "AxialTransformerBlock"}
         if bad:
-            raise NotImplementedError(f"block types {sorted(bad)} are not ported")
+            raise ValueError(f"unknown block types {sorted(bad)}")
         if any(s.use_checkpointing):
             remat(s.remat_policy)  # raises now on a policy that is not ported
         self.spec, self.x_channels, self.resolution = s, x_channels, resolution
         self.token_io = token_io
-        self._ropes: Dict[int, RopeTables] = {}  # per level, shared by its blocks
+        self._ropes: Dict[int, dict] = {}  # per level, shared by its blocks
         L, E, p = len(s.channels), s.emb_channels, s.patch_size
         self.embed_input = PatchEmbed(p, x_channels, s.channels[0])
         self.noise_level_pos_embedding = StochasticTimeEmbedding(256, E, use_fourier_noise_emb)
@@ -332,11 +394,18 @@ class UViT3D(nn.Module):
         ch = s.channels[i]
         if s.block_types[i] == "ResBlock":
             return ResBlock(ch, s.emb_channels)
-        if i not in self._ropes:
-            r = self.level_resolution(i)
-            self._ropes[i] = RopeTables(make_rope_3d(ch // s.num_heads, (s.max_temporal_length, r, r)))
-        return TransformerBlock(ch, s.num_heads, s.emb_channels, self._ropes[i],
-                                dropout=s.block_dropouts[i])
+        d, T, r = ch // s.num_heads, s.max_temporal_length, self.level_resolution(i)
+        if s.block_types[i] == "TransformerBlock":
+            if i not in self._ropes:
+                self._ropes[i] = {"rope": RopeTables(make_rope_3d(d, (T, r, r)))}
+            axial = {}
+        else:
+            if i not in self._ropes:
+                self._ropes[i] = {"rope": None, "rope_ax1": RopeTables(make_rope_1d(d, T)),
+                                  "rope_ax2": RopeTables(make_rope_2d(d, (r, r)))}
+            axial = {"ax1_len": T}
+        return TransformerBlock(ch, s.num_heads, s.emb_channels, dropout=s.block_dropouts[i],
+                                **self._ropes[i], **axial)
 
     def block_names(self):
         """[(block_name, i_level)] in forward order, the JAX package's names."""
@@ -363,7 +432,7 @@ class UViT3D(nn.Module):
         """Route every transformer block through the plain versions of the
         attention kernels (True) or through the kernels (False)."""
         for m in self.modules():
-            if isinstance(m, TransformerBlock):
+            if isinstance(m, _QKNormAttention):
                 m.plain_attention = plain
 
     def _run_block(self, block, x, emb, pose_mod, pose_scale, B, T, i_level):
@@ -376,7 +445,10 @@ class UViT3D(nn.Module):
         BT, h, w, C = x.shape
         E = emb.shape[-1]
         xt = x.reshape(B, T * h * w, C)
-        if emb.shape[1] == 1 and emb.shape[2] == 1:
+        if emb.shape[1] == 1 and emb.shape[2] == 1 and block.use_axial:
+            # an axial block regroups its tokens and takes the embedding per token
+            et = emb.reshape(B, T, 1, E).expand(B, T, h * w, E).reshape(B, T * h * w, E)
+        elif emb.shape[1] == 1 and emb.shape[2] == 1:
             et = emb.reshape(B, T, E)  # per frame: FiLMNorm broadcasts
         else:
             et = emb.reshape(B, T * h * w, E)
@@ -509,6 +581,10 @@ def precompute_pose_conditioning(model: UViT3DPose, pose_map: torch.Tensor) -> d
     Returns {"mods": {block_name: (B, T, h_l, w_l, 2C)}, "levels": {}}.
     """
     s = model.spec
+    if "AxialTransformerBlock" in s.block_types:
+        raise NotImplementedError(
+            "precomputed pose conditioning for axial blocks (per-level pose maps) is not "
+            "ported: give the model the raw pose map")
     B, T, H, W, Cp = pose_map.shape
     pe = model.external_cond_embedding.patch_embedder.proj
     dt = pe.weight.dtype

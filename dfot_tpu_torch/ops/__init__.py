@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-``ops.attention`` and ``ops.qkv_prep`` are the modules; their wrappers are
-re-exported here under names that do not shadow them.
+``ops.attention``, ``ops.qkv_prep`` and ``ops.ln_modulate`` are the modules;
+their wrappers are re-exported here under names that do not shadow them.
 """
 
 from .attention import (
@@ -10,7 +10,11 @@ from .attention import (
     flash_attention,
     flash_bwd_dkv,
     flash_bwd_dq,
+    small_n_attention,
+    small_n_attention_reference,
 )
+from .ln_modulate import ln_modulate_bwd, reference_ln_modulate, reference_ln_modulate_bwd
+from .ln_modulate import ln_modulate as _ln_modulate
 from .qkv_prep import (
     attention_from_packed_qkv,
     attn_out_collect,
@@ -32,6 +36,9 @@ KERNEL_WRAPPERS = {
     "flash_bwd_dkv": flash_bwd_dkv,
     "qkv_prep_bwd": qkv_prep_bwd,
     "attn_out_scatter": attn_out_scatter,
+    "ln_modulate": _ln_modulate,
+    "ln_modulate_bwd": ln_modulate_bwd,
+    "small_n_attn": small_n_attention,
 }
 
 

@@ -24,7 +24,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dfot_tpu_torch"
 _SOURCES = (
     "flash_fwd.cu", "flash_bwd.cu", "qkv_prep.cu", "qkv_prep_bwd.cu",
-    "attn_out_collect.cu", "attn_out_scatter.cu",
+    "attn_out_collect.cu", "attn_out_scatter.cu", "ln_modulate.cu", "small_n_attn.cu",
 )
 _HEADERS = ("mma.cuh",)
 _ARCH = "arch=compute_90a,code=sm_90a"
@@ -45,6 +45,9 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     "dfot_attn_out_scatter": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "dfot_ln_modulate_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
+    "dfot_ln_modulate_bwd": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _P),
+    "dfot_small_n_attn": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -15,8 +15,14 @@ package.
   ``_xla_attention``: fp32 scores, fp32 softmax, one cast at the end) and
   :func:`attention_backward_reference` (the explicit backward formulas in
   fp32, not autograd of the forward).
-- :func:`attention` is the dispatcher (counterpart of ``attention``).
-  Sequence-parallel ring attention and the small-N kernel are not ported.
+- :func:`small_n_attention` is whole-row attention for N <= 32: its forward
+  is kernel B10 (``csrc/small_n_attn.cu``, the port of ``_small_n_kernel``),
+  its backward the plain backward formulas, as the JAX package leaves it to
+  autodiff of its plain attention. Plain version:
+  :func:`small_n_attention_reference`.
+- :func:`attention` is the dispatcher (counterpart of ``attention``); its
+  rule is :func:`attention_route`. Sequence-parallel ring attention is not
+  ported.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from . import _cuda
 __all__ = [
     "attention", "attention_reference", "attention_backward_reference",
     "flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
+    "small_n_attention", "small_n_attention_reference", "attention_route",
 ]
 
 
@@ -298,7 +305,133 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
-def attention(q, k, v, causal: bool = False) -> torch.Tensor:
-    """Attention dispatcher, (B, H, N, D) layout: the flash kernels on the
-    card, their plain versions on the CPU."""
-    return flash_attention(q, k, v, causal)
+SMALL_N_MAX = 32
+
+
+@_full_precision
+def small_n_attention_reference(q, k, v) -> torch.Tensor:
+    """Plain version of kernel B10 on any device: fp32 scaled scores, fp32
+    softmax over the whole row, weights rounded to v's dtype, fp32-accumulated
+    product, one cast at the end."""
+    p = torch.softmax(_scores(q, k, False, 1.0 / math.sqrt(q.shape[-1])), dim=-1)
+    return torch.matmul(_f32(p.to(v.dtype)), _f32(v)).to(q.dtype)
+
+
+def _small_n_cuda(q, k, v):
+    B, H, N, D = q.shape
+    what = "small-N attention"
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what} takes all bf16 or all fp32, got {[t.dtype for t in (q, k, v)]}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: shapes differ: {[tuple(t.shape) for t in (q, k, v)]}")
+    if not 1 <= N <= SMALL_N_MAX or D not in (64, 128):
+        raise ValueError(f"{what} takes N <= {SMALL_N_MAX} and d in (64, 128), got {tuple(q.shape)}")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError(f"{what}: tensors on different devices")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    _cuda.check_aligned(what, 16, q, k, v)
+    out = torch.empty_like(q)
+    _cuda.check(
+        _cuda.library().dfot_small_n_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, D,
+            1.0 / math.sqrt(D), int(q.dtype == torch.float32), _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    small_n_attention.launches += 1
+    return out
+
+
+def _small_n_forward(q, k, v, plain):
+    """Kernel B10 for a CUDA tensor, its plain version for a CPU tensor (or
+    on any device with ``plain``)."""
+    if plain or q.device.type == "cpu":
+        if q.shape[-2] > SMALL_N_MAX:
+            raise ValueError(f"small-N attention takes N <= {SMALL_N_MAX}, got {tuple(q.shape)}")
+        return small_n_attention_reference(q, k, v)
+    if not q.is_cuda:
+        raise ValueError(f"no small-N attention path for device {q.device}")
+    return _small_n_cuda(q, k, v)
+
+
+class _SmallNAttention(torch.autograd.Function):
+    """B10 forward (or its plain version); the backward is the plain
+    backward formulas on a recomputed forward: at these row lengths the
+    N x N scores are tiny."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plain):
+        ctx.save_for_backward(q, k, v)
+        return _small_n_forward(q, k, v, plain)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        o, lse = attention_reference(q, k, v, return_lse=True)
+        return (*attention_backward_reference(q, k, v, o, lse, do), None)
+
+
+def small_n_attention(q, k, v, plain: bool = False) -> torch.Tensor:
+    """Non-causal attention for short rows, (B, H, N, D) with N <= 32: the
+    whole row at once, no online softmax. On a CUDA device this launches
+    kernel B10 (bf16 or fp32, D in {64, 128}; anything else raises); on the CPU, or
+    on any device with ``plain``, it runs the plain version. Differentiable."""
+    if not _wants_grad(q, k, v):
+        return _small_n_forward(q, k, v, plain)
+    return _SmallNAttention.apply(q, k, v, plain)
+
+
+small_n_attention.launches = 0
+
+
+def attention_route(n: int, d: int, causal: bool = False) -> str:
+    """Which path :func:`attention` takes for N tokens of head dim d, the one
+    place the rule is written:
+
+    - ``"small_n"``: non-causal, N <= 32, d in {64, 128}: kernel B10;
+    - ``"flash"``: d in {64, 128} and N a multiple of 64: kernels B1, B4, B5;
+    - ``"padded_flash"``: d no multiple of 64, its zero-padding to the next
+      one in {64, 128} and N a multiple of 64: the same kernels on padded
+      heads with the true 1/sqrt(d) scale, sliced after;
+    - ``"plain"``: what is left and the JAX package too computes outside any
+      kernel (ragged N above 32, short causal rows): the plain version, on the
+      card as well;
+    - ``"unported"``: a shape the JAX package gives to a Pallas kernel and no
+      kernel of the port takes (padded head dim above 128); it raises.
+    """
+    dp = d + (-d % 64)
+    if not causal and n <= SMALL_N_MAX and dp == d:
+        return "small_n" if d <= 128 else "unported"
+    if n % 64 == 0 and dp <= 128:
+        return "flash" if dp == d else "padded_flash"
+    if n % 128 == 0 and n >= 512:
+        return "unported"
+    return "plain"
+
+
+def _padded_flash(q, k, v, causal, plain):
+    """Flash attention for a head dim that is no multiple of 64 (K600
+    @DiT/XL: 1152 / 16 = 72): zero-pad to the next one, run the kernels with
+    the true 1/sqrt(d) scale, slice back. Zero lanes are inert in every
+    product, forward and backward."""
+    d = q.shape[-1]
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, -d % 64)) for t in (q, k, v))
+    return flash_attention(qp, kp, vp, causal, 1.0 / math.sqrt(d), plain=plain)[..., :d]
+
+
+def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tensor:
+    """Attention dispatcher, (B, H, N, D) layout, by :func:`attention_route`.
+    Each route launches its kernels for a CUDA tensor or raises, and runs
+    their plain versions for a CPU tensor (or on any device with ``plain``)."""
+    route = attention_route(q.shape[-2], q.shape[-1], causal)
+    if route == "small_n":
+        return small_n_attention(q, k, v, plain)
+    if route == "flash":
+        return flash_attention(q, k, v, causal, plain=plain)
+    if route == "padded_flash":
+        return _padded_flash(q, k, v, causal, plain)
+    if route == "plain":
+        return attention_reference(q, k, v, causal)
+    raise NotImplementedError(
+        f"attention of shape {tuple(q.shape)} (causal={causal}): no kernel of the port takes it"
+    )

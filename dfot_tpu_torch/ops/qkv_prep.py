@@ -435,7 +435,8 @@ def attention_from_packed_qkv(
     ``tables``: the folded ``((cq, sq), (ck, sk))`` of :func:`fold_qk_tables`,
     (>= N, D) each, or None for no rotation and no learned scale; in qkv's
     dtype, or in fp32 where their cotangents are wanted (they are cast after
-    the fold either way). Softmax scale is 1/sqrt(D) of the true head dim.
+    the fold either way). Softmax scale is 1/sqrt(D) of the true head dim,
+    also where the heads are padded to the next multiple of 64.
     Differentiable in qkv and the tables. ``plain=True`` runs the plain
     versions of all the kernels, forward and backward, on any device: the
     reference a caller compares the kernel route with.
@@ -446,6 +447,10 @@ def attention_from_packed_qkv(
         ones = torch.ones((N, D), dtype=torch.float32, device=qkv.device)
         tables = fold_qk_tables(ones, torch.zeros_like(ones), dtype=qkv.dtype)
     (cq, sq), (ck, sk) = ((c[:N], s[:N]) for c, s in tables)
-    q, k, v = _prep_route(qkv, cq, sq, ck, sk, heads, D, D, norm, eps, plain)
+    # a head dim that is no multiple of 64 (K600 @DiT/XL: 72) is zero-padded
+    # to the next one by B2 and cut back by B3; the pad lanes are inert in
+    # every product, and B6/B7 drop and re-zero their cotangents
+    DP = D + (-D % 64)
+    q, k, v = _prep_route(qkv, cq, sq, ck, sk, heads, D, DP, norm, eps, plain)
     o = flash_attention(q, k, v, causal, 1.0 / math.sqrt(D), plain=plain)
     return attn_out_collect(o, D, plain)

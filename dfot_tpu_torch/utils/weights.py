@@ -1,4 +1,4 @@
-"""Weights for the port's UViT3DPose: from the JAX package, or seeded random.
+"""Weights for the port's models: from the JAX package, or seeded random.
 
 :func:`uvit3d_state_dict_from_flax` is the inverse of
 ``dfot_tpu/utils/torch_ckpt.py:import_uvit3d_params``: it turns the JAX
@@ -9,6 +9,9 @@ carries training state across: fp32 parameters become the port's fp32 master
 weights, and with ``cotangent=True`` a tree of gradients (or of any other
 quantity that is linear in them) lands on the port's parameter names, so the
 two packages' trees can be compared leaf by leaf.
+:func:`dit3d_state_dict_from_flax` is the same for DiT3D and DiT3DPose, the
+inverse of ``import_dit3d_params``; there every leaf is a permutation of its
+flax leaf, so parameters and gradients go through it alike.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["uvit3d_state_dict_from_flax", "init_random_weights"]
+__all__ = ["uvit3d_state_dict_from_flax", "dit3d_state_dict_from_flax", "init_random_weights"]
 
 
 def _linear(k):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
@@ -66,6 +69,14 @@ _BLOCK_LEAVES = {
     "attn_out/bias": ("attn_out.bias", np.asarray),
     "mlp_out/kernel": ("mlp_out.2.weight", _linear),
     "mlp_out/bias": ("mlp_out.2.bias", np.asarray),
+    # the temporal attention of an axial block
+    "temporal_attn/norm/emb_layer/kernel": ("another_attn.norm.emb_layer.weight", _linear),
+    "temporal_attn/norm/emb_layer/bias": ("another_attn.norm.emb_layer.bias", np.asarray),
+    "temporal_attn/norm/norm/weight": ("another_attn.norm.norm.weight", np.asarray),
+    "temporal_attn/proj/kernel": ("another_attn.proj.weight", _linear),
+    "temporal_attn/q_norm/weight": ("another_attn.q_norm.weight", np.asarray),
+    "temporal_attn/k_norm/weight": ("another_attn.k_norm.weight", np.asarray),
+    "temporal_attn/out/kernel": ("another_attn.out.weight", _linear),
 }
 
 
@@ -164,6 +175,74 @@ def uvit3d_state_dict_from_flax(
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 
+# flax sub-path inside a DiT block -> torch module path
+_DIT_BLOCK_MODULES = {
+    "mod_attn/linear": "norm1.modulation.1",
+    "mod_mlp/linear": "norm2.modulation.1",
+    "attn/qkv": "attn.qkv",
+    "attn/proj": "attn.proj",
+    "mlp/fc1": "mlp.fc1",
+    "mlp/fc2": "mlp.fc2",
+}
+
+
+def _dense(prefix: str, kind: str, value):
+    """A flax Dense leaf under the torch Linear ``prefix``."""
+    if kind == "kernel":
+        return prefix + ".weight", _linear(value)
+    return prefix + ".bias", np.asarray(value)
+
+
+def _dit3d_leaf(path: str, value, p: int):
+    """(torch name, array) of one leaf of the flax DiT3D params tree."""
+    module, _, kind = path.rpartition("/")
+    if module in ("patch_embed/proj", "pose_embed/proj"):
+        name = {"patch_embed/proj": "patch_embedder", "pose_embed/proj": "pose_embed"}[module]
+        if kind == "bias":
+            return f"{name}.proj.bias", np.asarray(value)
+        return f"{name}.proj.weight", _patchify_conv(value, value.shape[0] // (p * p), p)
+    if m := re.fullmatch(r"noise_emb/mlp/(linear_\d)", module):
+        return _dense(f"noise_level_pos_embedding.embedding.{m.group(1)}", kind, value)
+    if path == "cond_emb/embedding_table":
+        return "external_cond_embedding.embedding_table.weight", np.asarray(value)
+    if m := re.fullmatch(r"cond_emb/embedding/(linear_\d)", module):
+        return _dense(f"external_cond_embedding.embedding.{m.group(1)}", kind, value)
+    if path == "dit/pos_emb":
+        return "dit_base.pos_emb.pos_emb", np.asarray(value)
+    if m := re.fullmatch(r"dit/(temporal_)?block_(\d+)/(.+)", module):
+        if m.group(3) in _DIT_BLOCK_MODULES:
+            blocks = "temporal_blocks" if m.group(1) else "blocks"
+            return _dense(
+                f"dit_base.{blocks}.{m.group(2)}.{_DIT_BLOCK_MODULES[m.group(3)]}", kind, value)
+    if module == "dit/final_layer/mod/linear":
+        return _dense("dit_base.final_layer.norm_final.modulation.1", kind, value)
+    if module == "dit/final_layer/proj":
+        return _dense("dit_base.final_layer.linear", kind, value)
+    raise KeyError(f"unmapped parameter {path}")
+
+
+def dit3d_state_dict_from_flax(
+    params: Dict[str, Any], buffers: Optional[Dict[str, Any]], patch_size: int,
+) -> Dict[str, torch.Tensor]:
+    """JAX DiT3D or DiT3DPose variables -> the port's state dict (fp32
+    tensors). ``params``: the flax ``params`` tree (or a tree of gradients);
+    ``buffers``: the flax ``buffers`` tree (the Fourier noise embedding's
+    fixed freqs/phases) or None. A DiT3DPose tree holds its denoiser under
+    ``trunk``, as the port's module does."""
+    out: Dict[str, np.ndarray] = {}
+    for path, value in _flatten(params).items():
+        prefix = "trunk." if path.startswith("trunk/") else ""
+        name, array = _dit3d_leaf(path[len(prefix):], np.asarray(value), patch_size)
+        out[prefix + name] = array
+    for path, value in _flatten(buffers or {}).items():
+        m = re.fullmatch(r"(trunk/)?noise_emb/fourier/(freqs|phases)", path)
+        if m is None:
+            raise KeyError(f"unmapped buffer {path}")
+        prefix = "trunk." if m.group(1) else ""
+        out[f"{prefix}noise_level_pos_embedding.timesteps.{m.group(2)}"] = np.asarray(value)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
 # parameters the JAX package initializes to zero (residual-branch outputs),
 # but attn_out, get their random values scaled down by ZERO_INIT_SCALE:
 # small, but not zero
@@ -174,6 +253,13 @@ ZERO_INIT_SCALE = 0.1
 # At unit scales it is nearly flat over thousands of keys, and the output
 # would hardly depend on the attention pattern.
 QK_NORM_SCALE = 2.0
+# A DiT has no q/k norm: the q and k rows of its qkv projections are
+# DIT_QK_SCALE times the law, for scores of the same spread. Its AdaLN
+# modulations (zero-initialized in the JAX package) are DIT_MODULATION_SCALE
+# times the law, which puts shifts, scales and gates near 0.5: every block's
+# attention and MLP then reach the output, and so does the conditioning.
+DIT_QK_SCALE = 3.0
+DIT_MODULATION_SCALE = 8.0
 
 
 @torch.no_grad()
@@ -186,7 +272,9 @@ def init_random_weights(model: torch.nn.Module, generator: torch.Generator) -> N
     ``ZERO_INIT_SCALE``, small but non-zero, except ``attn_out``, which
     keeps the plain law: the output depends on every block and on the
     attention pattern. Fourier buffers get their own law (2 pi N(0, 1)
-    frequencies, 2 pi U(0, 1) phases).
+    frequencies, 2 pi U(0, 1) phases). A DiT's modulation weights and the q and
+    k rows of its qkv projections are scaled up (``DIT_MODULATION_SCALE``,
+    ``DIT_QK_SCALE``): never zero, as its zero-initialized gates would be.
     """
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         u = torch.rand(t.shape, generator=generator, dtype=torch.float32) * 2 - 1
@@ -203,6 +291,10 @@ def init_random_weights(model: torch.nn.Module, generator: torch.Generator) -> N
         else:
             fan_in = t.shape[1] * math.prod(t.shape[2:])
             v = u / math.sqrt(fan_in)
+        if name.endswith("modulation.1.weight"):
+            v = v * DIT_MODULATION_SCALE
+        elif name.endswith("attn.qkv.weight"):
+            v[: 2 * (t.shape[0] // 3)] *= DIT_QK_SCALE
         if _ZERO_INIT.match(name):
             v = v * ZERO_INIT_SCALE
         t.copy_(v.to(t.dtype))

@@ -13,6 +13,11 @@ rounds to bf16 three times, the kernel once); B3 and B7 exact; B4 and B5
 bf16 before the second products, the plain versions keep fp32 throughout);
 B6's dqkv within 2e-2 * max(1, |ref|max) and its fp32 table cotangents
 within 1e-3 * max(1, |ref|max) (sums of bf16 products in another order).
+B8 and B9 within 2e-2 * max(1, |ref|max) in bf16 (the row sums run in another
+order, so a normalized value can round to the neighbouring bf16) and 2e-5 in
+fp32; B10 within 2e-2 * max(1, |ref|max) in bf16 (weights rounded to bf16 on
+both sides, products summed in another order) and 2e-5 in fp32; the
+head-dim-72 route as the head-dim-64 one.
 """
 
 import pytest
@@ -21,6 +26,7 @@ import torch
 from dfot_tpu_torch import ops
 from dfot_tpu_torch.models.embeddings import make_rope_3d
 from dfot_tpu_torch.ops import attention as A
+from dfot_tpu_torch.ops import ln_modulate as L
 from dfot_tpu_torch.ops import qkv_prep as Q
 
 
@@ -183,7 +189,9 @@ def test_packed_route_gradients(cuda):
     for got, want in zip(*results):
         assert _close(got, want, 2e-2)
     counts = ops.launch_counts()
-    assert all(n >= 1 for n in counts.values()), counts
+    route = ("qkv_prep", "flash_fwd", "attn_out_collect", "attn_out_scatter", "flash_bwd_dq",
+             "flash_bwd_dkv", "qkv_prep_bwd")
+    assert all(counts[name] >= 1 for name in route), counts
 
 
 @pytest.mark.gpu
@@ -202,3 +210,128 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
         Q.attn_out_scatter(torch.randn(1, 64, 128, device=cuda), 2, 64, 64)  # fp32
     with pytest.raises(ValueError):
         Q.attn_out_scatter(y.reshape(1, 256, 64), 3, 64, 64)  # width != H * D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("shape", [(2, 1280, 1152), (16, 16, 384), (3, 7, 768), (2, 5, 1150),
+                                   (1, 3, 4096)])
+def test_ln_modulate_forward_and_backward(cuda, dtype, rel, shape):
+    """B8 and B9 at the XL, DiT/B and factorized widths, a width that is no
+    multiple of the 16-byte vector and one wider than the registers hold
+    (both take the pair kernels), through the autograd Function."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = (2 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype).requires_grad_()
+    shift = torch.randn(shape, generator=g, device=cuda).to(dtype).requires_grad_()
+    scale = (0.3 * torch.randn(shape, generator=g, device=cuda)).to(dtype).requires_grad_()
+    cot = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    ops.reset_launch_counts()
+    y = L.ln_modulate(x, shift, scale)
+    grads = torch.autograd.grad(y, (x, shift, scale), cot)
+    counts = ops.launch_counts()
+    assert (counts["ln_modulate"], counts["ln_modulate_bwd"]) == (1, 1)
+    y_ref = L.ln_modulate(x, shift, scale, plain=True)
+    grads_ref = torch.autograd.grad(y_ref, (x, shift, scale), cot)
+    assert ops.launch_counts() == counts  # the plain route launches nothing
+    assert y.dtype == dtype and _close(y, y_ref, rel)
+    for a, b in zip(grads, grads_ref):
+        assert a.dtype == dtype and _close(a, b, rel)
+    assert torch.equal(grads[1], cot)  # the cotangent of shift is g itself
+
+
+@pytest.mark.gpu
+def test_ln_modulate_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(2, 8, 16, device=cuda)
+    odd = torch.randn(2, 8, 15, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="C even"):
+        L.ln_modulate(odd, odd, odd)
+    with pytest.raises(ValueError, match="C even"):
+        L.ln_modulate_bwd(odd, odd, odd)
+    with pytest.raises(TypeError):
+        L.ln_modulate(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="share"):
+        L.ln_modulate(x, x.to(torch.bfloat16), x)
+    with pytest.raises(ValueError, match="token-wise"):
+        L.ln_modulate(x, x[:, :1], x[:, :1])
+    flat = torch.randn(2 * 8 * 16 + 1, device=cuda).to(torch.bfloat16)
+    off = flat[1:].view(2, 8, 16)  # two bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        L.ln_modulate(off, off, off)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("z,n,d", [(18432, 8, 64), (4608, 8, 128), (768, 16, 64), (70000, 5, 64),
+                                   (333, 32, 64), (100, 32, 128), (7, 1, 64)])
+def test_small_n_attention(cuda, z, n, d, dtype, rel):
+    """B10 at the axial (N = 8, d = 64 and 128) and factorized-DiT (N = 16)
+    shapes, at row lengths that are no multiple of a tensor-core tile, at the
+    longest row (in fp32 its item passes 48 KB of shared memory), and with
+    more items than a grid's second dimension holds."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = ((1.5 * torch.randn(2, z // 2 or 1, n, d, generator=g, device=cuda)).to(
+        dtype).requires_grad_() for _ in range(3))
+    cot = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    ops.reset_launch_counts()
+    o = A.attention(q, k, v)  # the dispatcher sends short rows to B10
+    assert ops.launch_counts()["small_n_attn"] == 1 and ops.launch_counts()["flash_fwd"] == 0
+    o_ref = A.small_n_attention_reference(q, k, v)
+    assert o.dtype == dtype and _close(o, o_ref, rel)
+    assert _close(o, A.attention_reference(q, k, v), rel)
+    grads = torch.autograd.grad(o, (q, k, v), cot)
+    want = torch.autograd.grad(A.attention(q, k, v, plain=True), (q, k, v), cot)
+    for a, b in zip(grads, want):
+        assert _close(a, b, rel)
+    assert ops.launch_counts()["small_n_attn"] == 1
+
+
+@pytest.mark.gpu
+def test_small_n_attention_rejects_what_it_does_not_take(cuda):
+    y = torch.randn(1, 2, 64, 64, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="N <= 32"):
+        A.small_n_attention(y, y, y)  # N > 32
+    with pytest.raises(ValueError, match="d in"):
+        A.small_n_attention(y[..., :8, :32], y[..., :8, :32], y[..., :8, :32])  # d = 32
+    with pytest.raises(TypeError):
+        A.small_n_attention(y[..., :8, :].half(), y[..., :8, :].half(), y[..., :8, :].half())
+    with pytest.raises(TypeError):
+        A.small_n_attention(y[..., :8, :].float(), y[..., :8, :], y[..., :8, :])  # mixed
+    assert ops.launch_counts()["small_n_attn"] == 0
+    # a causal short row is no shape of B10: the dispatcher computes it plainly
+    short = y[..., :8, :].contiguous()
+    out = A.attention(short, short, short, causal=True)
+    assert ops.launch_counts()["small_n_attn"] == 0
+    assert _close(out, A.attention_reference(short, short, short, True), 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+def test_packed_route_head_dim_72(cuda, batch):
+    """K600 @DiT/XL's attention, (B, 16, 1280, 72 -> 128): B2 pads, B1 runs at
+    the true 1/sqrt(72) scale, B3 cuts back; B7, B4, B5, B6 on the way back."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    H, d, N = 16, 72, 1280
+    qkv = torch.randn(batch, N, 3 * H * d, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    cot = torch.randn(batch, N, H * d, generator=g, device=cuda).to(torch.bfloat16)
+    rope = make_rope_3d(d, (5, 16, 16))
+    tables = Q.fold_qk_tables(torch.as_tensor(rope.cos, device=cuda),
+                              torch.as_tensor(Q.signed_sin(rope.sin), device=cuda),
+                              dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    out = Q.attention_from_packed_qkv(qkv, H, d, tables)
+    (grad,) = torch.autograd.grad(out, qkv, cot)
+    assert set(ops.launch_counts().values()) - {0} == {1}
+    assert {k for k, n in ops.launch_counts().items() if n} == {
+        "qkv_prep", "flash_fwd", "attn_out_collect", "attn_out_scatter", "flash_bwd_dq",
+        "flash_bwd_dkv", "qkv_prep_bwd"}
+    ref = Q.attention_from_packed_qkv(qkv, H, d, tables, plain=True)
+    (grad_ref,) = torch.autograd.grad(ref, qkv, cot)
+    assert out.shape == (batch, N, H * d)
+    assert _close(out, ref, 1e-2) and _close(grad, grad_ref, 2e-2)
+    q, k, v = Q._prep_cuda(qkv.detach(), tables, H, d, 128, False, 1e-6)
+    assert q.shape == (batch, H, N, 128)
+    assert not q[..., d:].any() and not k[..., d:].any() and not v[..., d:].any()
