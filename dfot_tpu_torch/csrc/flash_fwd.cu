@@ -6,195 +6,301 @@
 // LSE = m * scale + ln(l) in natural-log units of the scaled scores (the
 // convention of attention.py:180 that the backward and ring attention read).
 //
-// Bound: at the flagship shapes (N = 8192, d = 64 and N = 2048, d = 128) the
-// work is 4 N^2 d flops per (b, h) against 4 N d bytes of q/k/v, so the kernel
-// is bound by the tensor cores, not memory. The design keeps every N x N
-// quantity in registers: the q k^T accumulators of mma.sync m16n8k16 are
-// re-packed in place as the A operand of the p v product, the softmax row
-// statistics and the row sum stay in registers (the TPU kernel's ones-column
-// normalizer on v is not needed), and only 64-key K/V tiles pass through
-// shared memory, with a row pitch of d + 8 so ldmatrix reads are free of bank
-// conflicts. One block = 4 warps = 64 query rows; K/V tiles are 64 keys.
-// wgmma, TMA and warp specialisation are left for later work.
+// Bound: 4 N^2 d flops per (b, h) against 4 N d bytes of q/k/v/o, so the
+// tensor cores bound it at every shape of the paths. The design feeds them
+// through wgmma and keeps every N x N quantity in registers:
+// - one block is three warpgroups: a producer that gives up its registers
+//   (setmaxnreg) and whose one elected thread issues TMA, and two consumers
+//   of 64 query rows each (block = 128 query rows);
+// - TMA brings the block's Q tile once and streams 128-key K/V tiles through
+//   a ring of STAGES stages with full/empty mbarriers, so loads overlap the
+//   products; a 3-D tensor map (d, n, bh) reads zeros past n;
+// - S = Q K^T is a shared-memory wgmma (m64 n128), the online softmax runs
+//   on its fp32 accumulators (exp2, running max of the raw scores), P is
+//   rounded to bf16 in registers and is the register A operand of O += P V,
+//   with V in its natural (keys x d) layout as the transposed B operand;
+// - FA3's schedule: a consumer issues S_j and then O += P_{j-1} V_{j-1} as
+//   two wgmma groups and runs the softmax of tile j while the second one
+//   runs; the two consumers take turns to issue (named barriers 1 and 2),
+//   so one's softmax overlaps the other's products;
+// - only the first DV lanes are computed: DV = the true head dim rounded up
+//   to 16 (80 for K600 @DiT/XL's heads of 72 zero-padded to 128), so QK^T
+//   runs DV / 16 k-steps and PV an n of DV; lanes DV..D-1 of O are written as
+//   zeros (the pad lanes of v are zero, so they are exact).
+// Every batch of products starts with a wgmma.fence of its own, after the
+// registers it reads are pinned (fence_regs): with one fence for both
+// groups, or a conditional wait inside the loop, ptxas serializes the
+// products (its warnings C7514, C7515).
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace dfot;
+using bf16 = __nv_bfloat16;
 
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
+constexpr int kBlock = 128;                          // query rows; keys per K/V tile
+constexpr int kThreads = 384;                        // producer + two consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kAtomBytes = kBlock * kLineBytes;      // one 64-lane column block of a tile
 constexpr float kNegInf = -1e30f;
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+__host__ __device__ constexpr int tile_bytes() { return D / kAtomLanes * kAtomBytes; }
+
+// dynamic shared memory: 1 KB of alignment slack, Q, STAGES x (K, V), barriers
+template <int D, int STAGES>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024 + tile_bytes<D>() * (1 + 2 * STAGES) + 8 * (1 + 2 * STAGES);
+}
+
+template <int D, int DV, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
                      float* __restrict__ lse, int n, float sm_scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kBlockM * (D + kPad);
-  __nv_bfloat16* vs = ks + kBlockN * (D + kPad);
+  constexpr int kTile = tile_bytes<D>();
+  constexpr int kAtoms = D / kAtomLanes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);
+  unsigned char* ks = qs + kTile;
+  unsigned char* vs = ks + STAGES * kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;  // fragment row group, column pair
-  const int q0 = blockIdx.x * kBlockM;
-  const size_t head = static_cast<size_t>(blockIdx.y) * n * D;
-  const float a2 = sm_scale * kLog2e;  // exp(x * scale) = exp2(x * a2)
+  const int n_blocks = (n + kBlock - 1) / kBlock;
+  // causal: the longest rows first, so the short ones fill the tail
+  const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * kBlock;
+  const int head = blockIdx.y;
+  const int n_tiles = causal ? qb + 1 : n_blocks;
 
-  load_tile<D>(qs, q + head + static_cast<size_t>(q0) * D, kBlockM);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per 16-wide slice of d
-  uint32_t qa[D / 16][4];
-  {
-    const int row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldmatrix_x4(qa[kk], qs + row * (D + kPad) + kk * 16 + (lane / 16) * 8);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  // running max of the RAW scores and this thread's partial row sums, for
-  // rows g and g + 8 of the warp's 16
-  float m_i[2] = {kNegInf, kNegInf};
-  float l_i[2] = {0.f, 0.f};
-  const int row_g = q0 + warp * 16 + g;
-
-  const int n_tiles = causal ? (q0 + kBlockM) / kBlockN : n / kBlockN;
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(ks, k + head + static_cast<size_t>(j) * kBlockN * D, kBlockN);
-    load_tile<D>(vs, v + head + static_cast<size_t>(j) * kBlockN * D, kBlockN);
-    __syncthreads();
-
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int t = 0; t < kBlockN / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; nt += 2) {
-        uint32_t b[4];
-        const int key = nt * 8 + (lane % 8) + (lane / 16) * 8;
-        ldmatrix_x4(b, ks + key * (D + kPad) + kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[nt], qa[kk], b[0], b[1]);
-        mma_bf16(s[nt + 1], qa[kk], b[2], b[3]);
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, kTile);
+      for (int a = 0; a < kAtoms; ++a)
+        tma_load_3d(qs + a * kAtomBytes, &tm_q, q_full, a * kAtomLanes, q0, head);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load_3d(ks + s * kTile + a * kAtomBytes, &tm_k, &full[s], a * kAtomLanes,
+                      j * kBlock, head);
+          tma_load_3d(vs + s * kTile + a * kAtomBytes, &tm_v, &full[s], a * kAtomLanes,
+                      j * kBlock, head);
+        }
       }
     }
+  } else {
+    // consumer warpgroups: 64 query rows each
+    setmaxnreg_inc<240>();
+    const int w = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int row0 = q0 + w * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    const float a2 = sm_scale * kLog2e;             // exp(x * scale) = exp2(x * a2)
+    const uint32_t q_addr = smem_u32(qs) + w * 64 * kLineBytes;
 
-    if (causal && j == n_tiles - 1) {  // the diagonal tile (kBlockM == kBlockN)
+    float acc[DV / 2];  // O, DV / 8 chunks of 8 columns
 #pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const int key = j * kBlockN + nt * 8 + 2 * c;
-        if (key > row_g) s[nt][0] = kNegInf;
-        if (key + 1 > row_g) s[nt][1] = kNegInf;
-        if (key > row_g + 8) s[nt][2] = kNegInf;
-        if (key + 1 > row_g + 8) s[nt][3] = kNegInf;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+    // running max of the RAW scores and this thread's partial row sums
+    float m_i[2] = {kNegInf, kNegInf};
+    float l_i[2] = {0.f, 0.f};
+
+    uint32_t pa[kBlock / 16][4];  // P of the tile before, the A operand of its PV product
+    // S_j = Q K_j^T into sc (16 chunks of 8 keys), its own wgmma group
+    auto issue_s = [&](int j, float* sc) {
+      const int s = j % STAGES;
+      mbar_wait(&full[s], (j / STAGES) & 1);
+      const uint32_t k_addr = smem_u32(ks + s * kTile);
+      fence_regs<kBlock / 2>(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+        WgmmaSS<kBlock>::mma(sc, sw128_desc(q_addr + off), sw128_desc(k_addr + off), kk > 0);
       }
-    }
-
-    float mx[2] = {m_i[0], m_i[1]};
+      wgmma_commit();
+    };
+    // O += P_j V_j, its own wgmma group
+    auto issue_pv = [&](int j) {
+      const uint32_t v_addr = smem_u32(vs + (j % STAGES) * kTile);
+      fence_regs<DV / 2>(acc);
+      fence_regs<kBlock / 16>(pa);
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float alpha[2];
+      for (int kc = 0; kc < kBlock / 16; ++kc)
+        wgmma_rs_wide<DV>(acc, pa[kc], v_addr + kc * 16 * kLineBytes, kAtomBytes);
+      wgmma_commit();
+    };
+    // tile j's mask, running row max and sum; P in place of S, and the
+    // factors that move O to the new row max in alpha
+    auto softmax = [&](int j, float* sc, float* alpha) {
+      const int key0 = j * kBlock;
+      if (key0 + kBlock > n || (causal && j == n_tiles - 1)) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the four threads of a quad share a row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f((m_i[r] - mx[r]) * a2);
-      m_i[r] = mx[r];
-      l_i[r] *= alpha[r];
-    }
+        for (int i = 0; i < kBlock / 8; ++i) {
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = exp2f((s[nt][0] - mx[0]) * a2);
-      s[nt][1] = exp2f((s[nt][1] - mx[0]) * a2);
-      s[nt][2] = exp2f((s[nt][2] - mx[1]) * a2);
-      s[nt][3] = exp2f((s[nt][3] - mx[1]) * a2);
-      l_i[0] += s[nt][0] + s[nt][1];
-      l_i[1] += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      acc[t][0] *= alpha[0];
-      acc[t][1] *= alpha[0];
-      acc[t][2] *= alpha[1];
-      acc[t][3] *= alpha[1];
-    }
-
-    // acc += p v: the score accumulators of key tiles 2kc, 2kc+1 are the A
-    // fragment of the 16-key slice kc
-#pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * kc][0], s[2 * kc][1]), pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
-          pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        const int key = kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-        ldmatrix_x4_trans(b, vs + key * (D + kPad) + dt * 8 + (lane / 16) * 8);
-        mma_bf16(acc[dt], pa, b[0], b[1]);
-        mma_bf16(acc[dt + 1], pa, b[2], b[3]);
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 8 * i + 2 * c + (e & 1);
+            const int row = row0 + (e / 2) * 8;
+            if (key >= n || (causal && key > row)) sc[4 * i + e] = kNegInf;
+          }
+        }
       }
+      float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+      for (int i = 0; i < kBlock / 8; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f((m_i[r] - mx[r]) * a2);
+        m_i[r] = mx[r];
+        l_i[r] *= alpha[r];
+      }
+      const float mb0 = mx[0] * a2, mb1 = mx[1] * a2;
+#pragma unroll
+      for (int i = 0; i < kBlock / 8; ++i) {
+        sc[4 * i + 0] = exp2f(fmaf(sc[4 * i + 0], a2, -mb0));
+        sc[4 * i + 1] = exp2f(fmaf(sc[4 * i + 1], a2, -mb0));
+        sc[4 * i + 2] = exp2f(fmaf(sc[4 * i + 2], a2, -mb1));
+        sc[4 * i + 3] = exp2f(fmaf(sc[4 * i + 3], a2, -mb1));
+        l_i[0] += sc[4 * i] + sc[4 * i + 1];
+        l_i[1] += sc[4 * i + 2] + sc[4 * i + 3];
+      }
+    };
+
+    // consumer w issues products only between wait_turn and pass_turn:
+    // named barrier 1 + w counts its 128 threads and the other consumer's
+    // 128; each consumer syncs n_tiles + 1 times and the other arrives as often
+    auto wait_turn = [&] { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w)); };
+    auto pass_turn = [&] { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w)); };
+    if (w == 1) pass_turn();  // consumer 0 goes first
+    mbar_wait(q_full, 0);
+    {
+      float sc[kBlock / 2], alpha[2];
+      wait_turn();
+      issue_s(0, sc);
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs<kBlock / 2>(sc);
+      softmax(0, sc, alpha);
+      pack_a<kBlock / 16>(pa, sc);
     }
-  }
+    for (int j = 1; j < n_tiles; ++j) {
+      float sc[kBlock / 2], alpha[2];
+      wait_turn();
+      issue_s(j, sc);
+      issue_pv(j - 1);
+      pass_turn();
+      wgmma_wait<1>();  // S_j is done, PV_{j-1} may still run
+      fence_regs<kBlock / 2>(sc);
+      softmax(j, sc, alpha);
+      wgmma_wait<0>();
+      fence_regs<DV / 2>(acc);
+      fence_regs<kBlock / 16>(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(j - 1) % STAGES]);  // done with tile j - 1
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i) {
+        acc[4 * i + 0] *= alpha[0];
+        acc[4 * i + 1] *= alpha[0];
+        acc[4 * i + 2] *= alpha[1];
+        acc[4 * i + 3] *= alpha[1];
+      }
+      pack_a<kBlock / 16>(pa, sc);
+    }
+    wait_turn();
+    issue_pv(n_tiles - 1);
+    if (w == 0) pass_turn();  // consumer 1's last turn is its last sync
+    wgmma_wait<0>();
+    fence_regs<DV / 2>(acc);
+    fence_regs<kBlock / 16>(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(n_tiles - 1) % STAGES]);
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-  }
-  const float inv0 = 1.f / l_i[0], inv1 = 1.f / l_i[1];
-  __nv_bfloat16* o0 = o + head + static_cast<size_t>(row_g) * D;
-  __nv_bfloat16* o1 = o0 + 8 * D;
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    }
+    const float inv[2] = {1.f / l_i[0], 1.f / l_i[1]};
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
-    const int col = t * 8 + 2 * c;
-    *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
-        __floats2bfloat162_rn(acc[t][0] * inv0, acc[t][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
-        __floats2bfloat162_rn(acc[t][2] * inv1, acc[t][3] * inv1);
-  }
-  if (lse != nullptr && c == 0) {
-    float* l = lse + static_cast<size_t>(blockIdx.y) * n;
-    l[row_g] = m_i[0] * sm_scale + logf(l_i[0]);
-    l[row_g + 8] = m_i[1] * sm_scale + logf(l_i[1]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= n) continue;
+      bf16* out = o + (static_cast<size_t>(head) * n + row) * D;
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv[r], acc[4 * i + 2 * r + 1] * inv[r]);
+#pragma unroll
+      for (int i = DV / 8; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(0.f, 0.f);
+      if (lse != nullptr && c == 0)
+        lse[static_cast<size_t>(head) * n + row] = m_i[r] * sm_scale + logf(l_i[r]);
+    }
   }
 }
 
-template <int D>
+template <int D, int DV, int STAGES>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                   int n, float sm_scale, int causal, cudaStream_t stream) {
-  const int smem = (kBlockM + 2 * kBlockN) * (D + kPad) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n / kBlockM, bh);
-  flash_fwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), n, sm_scale, causal);
+                   int n, int stages, int smem, float sm_scale, int causal,
+                   cudaStream_t stream) {
+  // the caller's tile plan must be the one compiled here
+  if (stages != STAGES || smem != smem_bytes<D, STAGES>()) return cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_head_map(&tm_q, q, bh, n, D, kBlock) ||
+      !make_head_map(&tm_k, k, bh, n, D, kBlock) || !make_head_map(&tm_v, v, bh, n, D, kBlock))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_kernel<D, DV, STAGES>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((n + kBlock - 1) / kBlock, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(o),
+                                           static_cast<float*>(lse), n, sm_scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, n, d) contiguous bf16; lse: (bh, n) fp32 or null.
-// d in {64, 128}, n a multiple of 64. Returns a cudaError_t code.
+// q, k, v, o: (bh, n, d) contiguous bf16, 16-byte aligned; lse: (bh, n) fp32
+// or null. d in {64, 128}, n a multiple of 64. ``dv``: the lanes computed,
+// the true head dim rounded up to a compiled width (d, or 80 at d = 128);
+// lanes dv..d-1 of q, k, v must be zero and come out zero in o. ``stages``
+// and ``smem``: the caller's tile plan (dfot_tpu_torch/ops/attention.py:
+// flash_plan), checked against the compiled one. Returns a cudaError_t code.
 extern "C" int dfot_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                              int bh, int n, int d, float sm_scale, int causal, void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || n % kBlockM != 0) return cudaErrorInvalidValue;
+                              int bh, int n, int d, int dv, int stages, int smem,
+                              float sm_scale, int causal, void* stream) {
+  if (bh <= 0 || bh > 65535 || n <= 0 || n % 64 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(q, k, v, o, lse, bh, n, sm_scale, causal, s);
-  if (d == 128) return launch<128>(q, k, v, o, lse, bh, n, sm_scale, causal, s);
+  if (d == 64 && dv == 64)
+    return launch<64, 64, 4>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
+  if (d == 128 && dv == 80)
+    return launch<128, 80, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
+  if (d == 128 && dv == 128)
+    return launch<128, 128, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
   return cudaErrorInvalidValue;
 }

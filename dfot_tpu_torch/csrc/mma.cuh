@@ -1,21 +1,19 @@
-// Warp-level building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): ldmatrix loads, the bf16 m16n8k16 mma.sync
-// with fp32 accumulation, the two warp-level tile products built from them,
-// and the staged copy of a tile into padded shared memory. One block is
-// kWarps warps; every tile row in shared memory has a pitch of d + kPad
-// elements so ldmatrix reads are free of bank conflicts.
+// Warp-level building blocks of the flash-attention backward's dq kernel
+// (flash_bwd.cu, B4): ldmatrix loads, the bf16 m16n8k16 mma.sync with fp32
+// accumulation, the two warp-level tile products built from them, and the
+// staged copy of a tile into padded shared memory. One block is kWarps warps;
+// every tile row in shared memory has a pitch of d + kPad elements so
+// ldmatrix reads are free of bank conflicts. kLog2e and pack_bf16x2 come from
+// hopper.cuh, which the wgmma kernels share.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace dfot {
 
 constexpr int kWarps = 4;
 constexpr int kPad = 8;  // bf16 elements of padding per shared-memory row
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -41,11 +39,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // (rows x D) bf16 tile from device memory (row pitch D) to shared memory

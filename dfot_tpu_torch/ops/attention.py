@@ -9,7 +9,10 @@ package.
   tensor ops, as the JAX package does, and calls :func:`flash_bwd_dq`
   (kernel B4, the port of ``_flash_bwd_dq_kernel`` and of its streaming twin)
   and :func:`flash_bwd_dkv` (kernel B5, the port of
-  ``_flash_bwd_dkv_kernel``), both in ``csrc/flash_bwd.cu``.
+  ``_flash_bwd_dkv_kernel``), both in ``csrc/flash_bwd.cu``. B1 and B5 are
+  wgmma kernels whose tile plan (:func:`flash_plan`) is computed here and
+  checked by their C entries; where q, k, v are zero-padded heads, the true
+  head dim (``head_dim``) lets them compute only its lanes.
 - A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes
   the plain versions: :func:`attention_reference` (the counterpart of
   ``_xla_attention``: fp32 scores, fp32 softmax, one cast at the end) and
@@ -37,7 +40,7 @@ from . import _cuda
 
 __all__ = [
     "attention", "attention_reference", "attention_backward_reference",
-    "flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
+    "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_plan",
     "small_n_attention", "small_n_attention_reference", "attention_route",
 ]
 
@@ -148,9 +151,58 @@ def _check_stats(what, q, *stats):
             )
 
 
-def _flash_cuda(q, k, v, causal, sm_scale, return_lse):
+# The wgmma kernels' tile plan (B1 csrc/flash_fwd.cu, B5 csrc/flash_bwd.cu):
+# each C entry takes it and refuses a plan other than the one it was built for.
+FLASH_BLOCK = 128           # query rows of a B1 block, keys of a B5 block
+FLASH_BWD_Q_ROWS = 64       # query rows of a tile that streams through B5
+FLASH_MAX_STAGES = 4
+# lanes a kernel instantiation computes, by padded head dim: the true head dim
+# rounded up to 16 and then to the next compiled width
+FLASH_LANES = {64: (64,), 128: (80, 128)}
+SMEM_PER_BLOCK = 232448     # shared memory one H100 block can take (227 KB)
+
+
+def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = None) -> dict:
+    """Tile plan of kernel B1 (``kernel="fwd"``) or B5 (``"dkv"``) for
+    ``bh`` heads of ``n`` tokens, padded head dim ``d`` and true head dim
+    ``head_dim`` (default ``d``).
+
+    Tiles are 64-lane column blocks of 128-byte rows (TMA's 128-byte swizzle).
+    B1 holds a 128-row Q tile and streams 128-key K and V tiles through
+    ``stages`` ring slots; B5 holds 128 keys of K and V and streams 64-row Q
+    and dO tiles with their LSE and delta slices. Stages: as many as fit the
+    block's shared memory, at most four. ``lanes``: the head-dim lanes the
+    kernel computes (products contract over ``k_steps`` = lanes / 16 steps);
+    ``smem_bytes`` includes 1 KB of alignment slack and the mbarriers.
+    """
+    head_dim = d if head_dim is None else head_dim
+    if d not in FLASH_LANES or not 0 < head_dim <= d:
+        raise ValueError(f"no flash kernel for head dim {head_dim} padded to {d}")
+    rounded = -(-head_dim // 16) * 16
+    lanes = next(w for w in FLASH_LANES[d] if w >= rounded)
+    row = d * 2  # bytes of one head-dim row of a tile
+    if kernel == "fwd":
+        tile_rows, resident = FLASH_BLOCK, FLASH_BLOCK * row                  # Q
+        stage = 2 * FLASH_BLOCK * row                                         # K, V
+    elif kernel == "dkv":
+        tile_rows, resident = FLASH_BWD_Q_ROWS, 2 * FLASH_BLOCK * row         # K, V
+        stage = 2 * FLASH_BWD_Q_ROWS * row + 2 * FLASH_BWD_Q_ROWS * 4         # Q, dO, LSE, delta
+    else:
+        raise ValueError(f"unknown flash kernel {kernel!r}")
+    barrier = 8
+    stages = min(FLASH_MAX_STAGES,
+                 (SMEM_PER_BLOCK - 1024 - resident - barrier) // (stage + 2 * barrier))
+    return {
+        "tile_rows": tile_rows, "stages": stages,
+        "smem_bytes": 1024 + resident + stages * stage + barrier * (1 + 2 * stages),
+        "lanes": lanes, "k_steps": lanes // 16, "grid": (-(-n // FLASH_BLOCK), bh),
+    }
+
+
+def _flash_cuda(q, k, v, causal, sm_scale, return_lse, head_dim):
     B, H, N, D = q.shape
     _check_qkv("flash attention forward", q, k, v)
+    plan = flash_plan("fwd", B * H, N, D, head_dim)
     q, k, v = (t.contiguous() for t in (q, k, v))
     _cuda.check_aligned("flash attention forward", 16, q, k, v)
     out = torch.empty_like(q)
@@ -163,7 +215,8 @@ def _flash_cuda(q, k, v, causal, sm_scale, return_lse):
         lib.dfot_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            B * H, N, D, float(sm_scale), int(causal), _cuda.stream_handle(q.device),
+            B * H, N, D, plan["lanes"], plan["stages"], plan["smem_bytes"], float(sm_scale),
+            int(causal), _cuda.stream_handle(q.device),
         ),
         "flash attention forward",
     )
@@ -171,21 +224,21 @@ def _flash_cuda(q, k, v, causal, sm_scale, return_lse):
     return (out, lse) if return_lse else out
 
 
-def _flash_forward(q, k, v, causal, sm_scale, return_lse, plain=False):
+def _flash_forward(q, k, v, causal, sm_scale, return_lse, plain=False, head_dim=None):
     """Kernel B1 for a CUDA tensor, its plain version for a CPU tensor (or
     on any device with ``plain``)."""
     if plain or q.device.type == "cpu":
         return attention_reference(q, k, v, causal, sm_scale, return_lse)
     if not q.is_cuda:
         raise ValueError(f"no flash-attention path for device {q.device}")
-    return _flash_cuda(q, k, v, causal, sm_scale, return_lse)
+    return _flash_cuda(q, k, v, causal, sm_scale, return_lse, head_dim)
 
 
 def _bwd_operands(what, q, k, v, do, lse, delta):
     _check_qkv(what, q, k, v, do)
     _check_stats(what, q, lse, delta)
     tensors = tuple(t.contiguous() for t in (q, k, v, do, lse, delta))
-    _cuda.check_aligned(what, 16, *tensors[:4])
+    _cuda.check_aligned(what, 16, *tensors)
     return tensors
 
 
@@ -218,10 +271,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
-                  sm_scale: Optional[float] = None):
+                  sm_scale: Optional[float] = None, *, head_dim: Optional[int] = None):
     """(dk, dv) of attention, arguments as :func:`flash_bwd_dq`. On a CUDA
     device this launches kernel B5 or raises; on the CPU it runs the plain
-    version."""
+    version. ``head_dim``: the true head dim where q, k, v, do are heads
+    zero-padded to D (the kernel then computes only its lanes and writes the
+    pad lanes of dk and dv as zeros)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -231,12 +286,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     what = "flash attention backward (dk, dv)"
     q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
     B, H, N, D = q.shape
+    plan = flash_plan("dkv", B * H, N, D, head_dim)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _cuda.check(
         _cuda.library().dfot_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, N, D, float(sm_scale),
-            int(causal), _cuda.stream_handle(q.device),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, N, D, plan["lanes"],
+            plan["stages"], plan["smem_bytes"], float(sm_scale), int(causal),
+            _cuda.stream_handle(q.device),
         ),
         what,
     )
@@ -255,24 +312,24 @@ class _FlashAttention(torch.autograd.Function):
     """B1 forward, B4 + B5 backward (or their plain versions)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, plain):
-        out, lse = _flash_forward(q, k, v, causal, sm_scale, True, plain)
+    def forward(ctx, q, k, v, causal, sm_scale, plain, head_dim):
+        out, lse = _flash_forward(q, k, v, causal, sm_scale, True, plain, head_dim)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, sm_scale, plain)
+        ctx.args = (causal, sm_scale, plain, head_dim)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, sm_scale, plain = ctx.args
+        causal, sm_scale, plain, head_dim = ctx.args
         delta = _delta(out, do)
         if plain:
             dq = _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
             dk, dv = _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
         else:
             dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale)
-        return dq, dk, dv, None, None, None
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -283,6 +340,8 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     return_lse: bool = False,
     plain: bool = False,
+    *,
+    head_dim: Optional[int] = None,
 ):
     """Flash attention, (B, H, N, D) layout [, lse (B, H, N, 1)].
 
@@ -290,13 +349,18 @@ def flash_attention(
     hand-written kernels, forward and backward (bf16, D in {64, 128}, N a
     multiple of 64; anything else raises); on the CPU, or on any device with
     ``plain``, it runs the plain versions. With ``return_lse`` the call is
-    the bare forward and carries no gradient.
+    the bare forward and carries no gradient. ``head_dim`` is for the
+    callers that zero-pad heads to D (:func:`_padded_flash`,
+    ``qkv_prep.attention_from_packed_qkv``): the true head dim, whose lanes
+    alone the kernels B1 and B5 then compute.
     """
+    if head_dim is not None and not 0 < head_dim <= q.shape[-1]:
+        raise ValueError(f"head_dim {head_dim} outside (0, {q.shape[-1]}]")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if return_lse or not _wants_grad(q, k, v):
-        return _flash_forward(q, k, v, causal, sm_scale, return_lse, plain)
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, plain)
+        return _flash_forward(q, k, v, causal, sm_scale, return_lse, plain, head_dim)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, plain, head_dim)
 
 
 # kernel launches since the last reset
@@ -416,7 +480,8 @@ def _padded_flash(q, k, v, causal, plain):
     product, forward and backward."""
     d = q.shape[-1]
     qp, kp, vp = (torch.nn.functional.pad(t, (0, -d % 64)) for t in (q, k, v))
-    return flash_attention(qp, kp, vp, causal, 1.0 / math.sqrt(d), plain=plain)[..., :d]
+    return flash_attention(qp, kp, vp, causal, 1.0 / math.sqrt(d), plain=plain,
+                           head_dim=d)[..., :d]
 
 
 def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tensor:

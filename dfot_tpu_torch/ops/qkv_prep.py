@@ -449,8 +449,9 @@ def attention_from_packed_qkv(
     (cq, sq), (ck, sk) = ((c[:N], s[:N]) for c, s in tables)
     # a head dim that is no multiple of 64 (K600 @DiT/XL: 72) is zero-padded
     # to the next one by B2 and cut back by B3; the pad lanes are inert in
-    # every product, and B6/B7 drop and re-zero their cotangents
+    # every product, B1 and B5 compute only the true head dim's lanes, and
+    # B6/B7 drop and re-zero the cotangents of the rest
     DP = D + (-D % 64)
     q, k, v = _prep_route(qkv, cq, sq, ck, sk, heads, D, DP, norm, eps, plain)
-    o = flash_attention(q, k, v, causal, 1.0 / math.sqrt(D), plain=plain)
+    o = flash_attention(q, k, v, causal, 1.0 / math.sqrt(D), plain=plain, head_dim=D)
     return attn_out_collect(o, D, plain)

@@ -1,0 +1,85 @@
+"""The tile plan of the wgmma flash-attention kernels B1 and B5, and the work
+count their bounds are taken from, on the CPU.
+
+``ops/attention.py:flash_plan`` is what the wrappers pass to the C entries
+(which refuse any other plan), so it is checked here where no card is
+needed: shared memory within one H100 block's 227 KB and k-steps at the true
+head dim at every shape the paths give the kernels. ``chip_smoke.py`` counts
+attention's operations at the true head dim, not at the padded width.
+"""
+
+import math
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from dfot_tpu_torch.ops import attention as A  # noqa: E402
+
+# (what, batch * heads, tokens, padded head dim, true head dim) of every
+# flash-attention call on the paths: the flagship's levels 2 and 3 in the
+# window (B * NFE = 2) and the train step (B = 1), its axial blocks' spatial
+# attention (a frame's tokens, B * T items), K600 @DiT/XL at batch 8
+MAIN_SHAPES = (
+    ("flagship level 2, window", 2 * 9, 8192, 64, 64),
+    ("flagship level 3, window", 2 * 9, 2048, 128, 128),
+    ("flagship level 2, train", 9, 8192, 64, 64),
+    ("flagship level 3, train", 9, 2048, 128, 128),
+    ("axial level 2", 2 * 8 * 9, 1024, 64, 64),
+    ("axial level 3", 2 * 8 * 9, 256, 128, 128),
+    ("K600 @DiT/XL", 8 * 16, 1280, 128, 72),
+)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("what,bh,n,d,head_dim", MAIN_SHAPES)
+def test_plan_fits_and_contracts_over_the_true_head_dim(kernel, what, bh, n, d, head_dim):
+    plan = A.flash_plan(kernel, bh, n, d, head_dim)
+    assert plan["smem_bytes"] <= A.SMEM_PER_BLOCK == 227 * 1024
+    assert plan["k_steps"] == math.ceil(head_dim / 16)
+    assert plan["lanes"] == 16 * plan["k_steps"] <= d
+    assert 2 <= plan["stages"] <= A.FLASH_MAX_STAGES
+    assert plan["grid"] == (math.ceil(n / 128), bh)
+    assert plan["tile_rows"] == (128 if kernel == "fwd" else 64)
+    # the tiles a block holds, at 2 bytes a lane, and 1 KB of alignment slack
+    tiles = (1 + 2 * plan["stages"]) * 128 * d * 2 if kernel == "fwd" else (
+        2 * 128 * d * 2 + plan["stages"] * (2 * 64 * d * 2 + 2 * 64 * 4))
+    assert plan["smem_bytes"] == 1024 + tiles + 8 * (1 + 2 * plan["stages"])
+
+
+@pytest.mark.parametrize("d,head_dim,lanes", [(64, 64, 64), (64, 40, 64), (128, 72, 80),
+                                              (128, 80, 80), (128, 96, 128), (128, 128, 128)])
+def test_plan_rounds_the_head_dim_up_to_a_compiled_width(d, head_dim, lanes):
+    """Only the true head dim rounded up to 16 is computed where a kernel
+    for that width is compiled (80 at d = 128); other widths take the next
+    compiled one, whose extra lanes are zero and inert."""
+    assert A.flash_plan("fwd", 1, 192, d, head_dim)["lanes"] == lanes
+    assert A.flash_plan("dkv", 1, 192, d, head_dim)["lanes"] == lanes
+
+
+@pytest.mark.parametrize("kernel,d,head_dim", [("fwd", 96, 96), ("fwd", 128, 0),
+                                               ("dkv", 64, 72), ("bwd", 64, 64)])
+def test_plan_refuses_what_no_kernel_takes(kernel, d, head_dim):
+    with pytest.raises(ValueError):
+        A.flash_plan(kernel, 1, 128, d, head_dim)
+
+
+def test_flash_attention_checks_the_true_head_dim():
+    q = torch.zeros(1, 1, 64, 128)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_attention(q, q, q, head_dim=129)
+    assert torch.equal(A.flash_attention(q, q, q, head_dim=72), q)
+
+
+def test_attention_ops_at_the_true_head_dim():
+    """The XL site's bound counts 72 lanes, not the 128 its heads are padded
+    to: 4 B H N^2 72 = 60.4 GFLOP for the forward."""
+    B, H, N = chip_smoke.XL_BATCH, chip_smoke.XL_SITE[1], chip_smoke.XL_SITE[0]
+    assert chip_smoke.XL_SITE[2:] == (72, 128)
+    assert chip_smoke.attention_ops(B, H, N, 72) == 4 * B * H * N**2 * 72 == 60_397_977_600
+    # causal: the pairs at or below the diagonal
+    assert chip_smoke.attention_ops(1, 1, 4, 8, causal=True) == 4 * 10 * 8

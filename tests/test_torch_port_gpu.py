@@ -17,11 +17,17 @@ B8 and B9 within 2e-2 * max(1, |ref|max) in bf16 (the row sums run in another
 order, so a normalized value can round to the neighbouring bf16) and 2e-5 in
 fp32; B10 within 2e-2 * max(1, |ref|max) in bf16 (weights rounded to bf16 on
 both sides, products summed in another order) and 2e-5 in fp32; the
-head-dim-72 route as the head-dim-64 one.
+head-dim-72 route as the head-dim-64 one. B1's O and B5's dk, dv also within
+1e-2 relative L2 (``chip_smoke.ATTN_REL_L2_TOL``: P, dS and the outputs are
+rounded to bf16 once each), with the lanes past the true head dim exact
+zeros.
 """
+
+import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dfot_tpu_torch import ops
 from dfot_tpu_torch.models.embeddings import make_rope_3d
@@ -335,3 +341,74 @@ def test_packed_route_head_dim_72(cuda, batch):
     q, k, v = Q._prep_cuda(qkv.detach(), tables, H, d, 128, False, 1e-6)
     assert q.shape == (batch, H, N, 128)
     assert not q[..., d:].any() and not k[..., d:].any() and not v[..., d:].any()
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def _padded_heads(g, bh, n, d, dp, cuda, scale=1.0):
+    """(1, bh, n, d) seeded bf16 heads zero-padded to dp lanes."""
+    x = scale * torch.randn(1, bh, n, d, generator=g, device=cuda)
+    return F.pad(x.to(torch.bfloat16), (0, dp - d))
+
+
+def _check_wgmma_pair(cuda, bh, n, d, dp, causal, seed):
+    """B1 and B5 on padded heads with the true head dim passed, against the
+    plain versions: O and the LSE, then dk and dv on the plain forward's O and
+    LSE; pad lanes zeros; one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    scale = 1.0 / math.sqrt(d)
+    q, k = (_padded_heads(g, bh, n, d, dp, cuda, 1.7) for _ in range(2))
+    v, do = (_padded_heads(g, bh, n, d, dp, cuda) for _ in range(2))
+    ops.reset_launch_counts()
+    o, lse = A.flash_attention(q, k, v, causal, scale, return_lse=True, head_dim=d)
+    o_ref, lse_ref = A.attention_reference(q, k, v, causal, scale, return_lse=True)
+    assert _close(o, o_ref, 1e-2) and _rel_l2(o, o_ref) <= 1e-2
+    assert (lse - lse_ref).abs().max() <= 1e-3
+    assert not o[..., d:].any()
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    dk, dv = A.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale, head_dim=d)
+    dk_ref, dv_ref = A._dkv_plain(q, k, v, do, lse_ref, delta, causal, scale)
+    for got, want in ((dk, dk_ref), (dv, dv_ref)):
+        assert _close(got, want, 2e-2) and _rel_l2(got, want) <= 1e-2
+        assert not got[..., d:].any()
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd_dkv"]) == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128)])
+@pytest.mark.parametrize("bh", [1, 128])
+@pytest.mark.parametrize("n", [64, 192, 1280])
+def test_wgmma_flash_kernels(cuda, n, bh, d, dp):
+    """B1 and B5 where N is half a 128-row block, one and a half (the
+    block's second half lies past N), and ten; with one head and with 128 (a
+    tile past a head's last row must read zeros, not the next head's rows);
+    heads of 72 padded to 128 contract over 80 lanes and come back with zero
+    pad lanes."""
+    _check_wgmma_pair(cuda, bh, n, d, dp, False, seed=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128)])
+def test_wgmma_flash_kernels_causal(cuda, d, dp):
+    """Causal at N = 320: 128-row blocks and 128-key tiles meet the diagonal
+    mid-tile, and the last block is half past N."""
+    _check_wgmma_pair(cuda, 2, 320, d, dp, True, seed=21)
+
+
+@pytest.mark.gpu
+def test_wgmma_flash_kernels_reject_what_they_do_not_take(cuda):
+    y = torch.zeros(1, 2, 128, 128, device=cuda, dtype=torch.bfloat16)
+    stat = torch.zeros(1, 2, 128, 1, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_attention(y, y, y, head_dim=130)
+    with pytest.raises(ValueError):
+        A.flash_bwd_dkv(y, y, y, y, stat, stat, head_dim=0)
+    off = torch.zeros(2 * 128 + 1, device=cuda)[1:].view(1, 2, 128, 1)  # 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        A.flash_bwd_dkv(y, y, y, y, off, stat)
+    assert ops.launch_counts()["flash_fwd"] == ops.launch_counts()["flash_bwd_dkv"] == 0
