@@ -11,9 +11,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against its plain PyTorch version in bf16 on seeded inputs: B1-B7 at the
    DFoT_RE10K flagship shapes, B = 1 (the train step) and B = 2 (the
    window), and at K600 @DiT/XL's (8, 16, 1280, 72 -> 128) with the true
-   1/sqrt(72) scale and the true head dim passed to B1 and B5; B1 and B5
-   also at N = 192 (a multiple of 64 but not of their 128-row blocks),
-   causal and not, at d = 64, 128 and 72 -> 128; B8, B9 at the XL, DiT/B and
+   1/sqrt(72) scale and the true head dim passed to B1, B4 and B5; B1, B4
+   and B5 also at N = 192 (a multiple of 64 but not of their 128-row
+   blocks), causal and not, at d = 64, 128 and 72 -> 128; B8, B9 at the XL, DiT/B and
    factorized-DiT widths; B10 at the axial and factorized shapes and at
    N = 5 and 32, d = 64 and 128 (once in fp32).
    It times both, computes each kernel's bound (the least time the card
@@ -58,8 +58,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Steps 3, 4, 7, 10 and 13 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
-a faulty plain version of B1, B5, B8, B9 and B10 against each one's bounds;
-all fail unless the bound rejects them. Any failed check
+a faulty plain version of B1, B2, B4, B5, B8, B9 and B10 against each one's
+bounds; all fail unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut: the
@@ -143,14 +143,20 @@ GRAD_REL_TOL = 5e-2
 # mu^2 term, 2.2e-2; a dx without its row means, 4e-2 to 8e-2) reads 10x above
 KERNEL_REL_L2_TOL = 2e-3
 KERNEL_REL_L2_TOL_FP32 = 1e-5
-# B1 and B5 against their fp32 plain versions, relative L2 of O, dk and dv:
-# the kernels round P (and dS) to bf16 before the second products and the
-# outputs to bf16 once, each a relative error of at most 2^-9, so a sound
+# B1, B4 and B5 against their fp32 plain versions, relative L2 of O, dq, dk
+# and dv: the kernels round P (and dS) to bf16 before the second products and
+# the outputs to bf16 once, each a relative error of at most 2^-9, so a sound
 # kernel reads a few 1e-3 (first readings: 1.4e-3 for O, 2.7e-3 for dk and
-# dv); the faults held against it (the scale of a head twice as wide; dk
-# without its delta term) read 1e-1 and more
+# dv); the faults held against it (the scale of a head twice as wide; dq or
+# dk without its delta term) read 1e-1 and more
 ATTN_REL_L2_TOL = 1e-2
-# B1 and B5 at a row count that is a multiple of 64 but not of their
+# B2 against its plain version, relative L2 of q, k and v: the plain version
+# rounds the two RoPE products and their sum to bf16, the kernel rounds once,
+# so a sound kernel reads a few 1e-3 on q and k (first readings: 2.0e-3 to
+# 2.7e-3; 0 on v, a copy); RoPE without its pair swap reads 0.5 and more,
+# q, k without their norm 6e-2 to 9e-2 (random rows have an rms near 1)
+PREP_REL_L2_TOL = 1e-2
+# B1, B4 and B5 at a row count that is a multiple of 64 but not of their
 # 128-row blocks, causal and not: (N, head dim, padded head dim)
 EDGE_SITES = ((192, 64, 64), (192, 128, 128), (192, 72, 128))
 PROFILED_WINDOW_STEPS = 10
@@ -349,6 +355,28 @@ def dkv_without_delta(q, k, v, do, lse, delta, causal, scale):
     return A._dkv_plain(q, k, v, do, lse, torch.zeros_like(delta), causal, scale)[0]
 
 
+def dq_without_delta(q, k, v, do, lse, delta, causal, scale):
+    """Control for B4: dq from dS = P dP, without the delta term."""
+    import torch
+    from dfot_tpu_torch.ops import attention as A
+
+    return A._dq_plain(q, k, v, do, lse, torch.zeros_like(delta), causal, scale)
+
+
+def prep_controls(qkv, tabs, heads, head_dim, d_out, norm, eps: float = 1e-6) -> dict:
+    """Controls for B2, by label: q and k (v is a copy) of its plain version
+    with RoPE's pair swap left out, and, where the norm is on, without it."""
+    from dfot_tpu_torch.ops import qkv_prep as Q
+
+    with patched(Q, "swap_pairs", lambda x, dim=-1: x):
+        no_swap = Q._prep_plain(qkv, tabs, heads, head_dim, d_out, norm, eps)[:2]
+    out = {"RoPE without the pair swap": no_swap}
+    if norm:
+        out["q, k without the norm"] = Q._prep_plain(qkv, tabs, heads, head_dim, d_out, False,
+                                                     eps)[:2]
+    return out
+
+
 def check_kernels(record: dict) -> dict:
     """Each kernel against its plain version at the shapes the paths give it:
     B1-B7 at the flagship's two attention sites (the train step's batch and
@@ -357,8 +385,9 @@ def check_kernels(record: dict) -> dict:
     XL, DiT/B and factorized widths; B10 at the axial and factorized shapes
     and at N = 5 and 32. A site is ``main`` where the kernels line reports
     its times. Every output tensor is held on its own (:func:`readings`); B1,
-    B5, B8, B9 and B10 also by relative L2, and their bounds must reject a
-    faulty plain version of each; B1's and B5's pad lanes must be zeros."""
+    B2, B4, B5, B8, B9 and B10 also by relative L2, and their bounds must
+    reject a faulty plain version of each; the pad lanes of B1, B2, B4 and B5
+    must be zeros."""
     import torch
     import torch.nn.functional as F
     from dfot_tpu_torch.models.embeddings import make_rope_3d
@@ -367,7 +396,7 @@ def check_kernels(record: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16 = torch.bfloat16
     results = {name: {"by_site": {}} for name, _, _ in KERNELS}
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         results[name]["edge_sites"] = {}
 
     def rand(*shape, scale=1.0):
@@ -450,6 +479,22 @@ def check_kernels(record: dict) -> dict:
             ATTN_REL_L2_TOL)
         return err, tol, extra
 
+    def flash_dq_check(site, q, k, v, do, lse, delta, D, causal):
+        """B4 (true head dim D) against its plain version on the same LSE and
+        delta: dq within its max-abs and relative-L2 bounds, the pad lanes
+        zeros, and the bounds rejecting dq without its delta term."""
+        scale = 1.0 / math.sqrt(D)
+        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, head_dim=D)
+        torch.cuda.synchronize()
+        dq_ref = A._dq_plain(q, k, v, do, lse, delta, causal, scale)
+        require(not bool(dq[..., D:].any()), f"flash_bwd_dq at {site}: pad lanes not zero")
+        err, tol, extra = hold("flash_bwd_dq", site, [("dq", dq, dq_ref)], 2e-2, ATTN_REL_L2_TOL)
+        extra["controls"] = rejected(
+            "flash_bwd_dq", site, "dq without the delta term",
+            [("dq", dq_without_delta(q, k, v, do, lse, delta, causal, scale), dq_ref)], 2e-2,
+            ATTN_REL_L2_TOL)
+        return err, tol, extra
+
     def attention_site(site, B, N, H, D, DP, rope_sizes, norm, fused_width, main):
         """B2, B6, B1, B4, B5, B3, B7 at one attention site. ``main``: which
         kernels (forward, backward) report this site in the kernels line."""
@@ -468,18 +513,23 @@ def check_kernels(record: dict) -> dict:
         got = Q.qkv_prep(qkv, H, D, cos, sin, **kw)
         torch.cuda.synchronize()
         want = Q.reference_qkv_prep(qkv, H, D, cos, sin, **kw)
-        err, tol, _ = hold("qkv_prep", site, zip("qkv", got, want), 2e-2)
+        err, tol, extra = hold("qkv_prep", site, zip("qkv", got, want), 2e-2, PREP_REL_L2_TOL)
         require(all(not bool(g[..., D:].any()) for g in got), f"qkv_prep at {site}: pad lanes not zero")
         # times of the kernel and of its plain version alone, on tables
         # already folded (the fold is the same small torch ops on both routes)
         tabs = Q.fold_qk_tables(cos, sin, *scales, dtype=bf16)
+        extra["controls"] = {}
+        for fault, faulty in prep_controls(qkv, tabs, H, D, DP, norm).items():
+            extra["controls"].update(rejected("qkv_prep", site, fault, zip("qk", faulty, want),
+                                              2e-2, PREP_REL_L2_TOL))
         flat_tabs = [t for pair in tabs for t in pair]
         packed_bytes = B * N * 3 * C * 2
         note("qkv_prep", site, is_main("qkv_prep"), err, tol,
              cuda_ms(lambda: Q._prep_cuda(qkv, tabs, H, D, DP, norm, 1e-6)),
              cuda_ms(lambda: Q._prep_plain(qkv, tabs, H, D, DP, norm, 1e-6)),
              # per q/k element: square + sum, scale, two multiply-adds
-             bound(7 * B * N * 2 * C, packed_bytes + nbytes(*flat_tabs, *got), PEAK_FP32_FLOPS))
+             bound(7 * B * N * 2 * C, packed_bytes + nbytes(*flat_tabs, *got), PEAK_FP32_FLOPS),
+             host_us=host_us(lambda: Q._prep_cuda(qkv, tabs, H, D, DP, norm, 1e-6)), **extra)
 
         # B6: the cotangents of q, k, v back to the packed layout
         dys = [rand(B, H, N, DP) for _ in range(3)]
@@ -521,9 +571,7 @@ def check_kernels(record: dict) -> dict:
         # the explicit fp32 formulas on the same O and LSE
         do = F.pad(rand(B, H, N, D), (0, DP - D))
         delta = (do.float() * o.float()).sum(-1, keepdim=True)
-        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale)
-        torch.cuda.synchronize()
-        dq_ref = A._dq_plain(q, k, v, do, lse, delta, False, scale)
+        err_dq, tol_dq, extra_dq = flash_dq_check(site, q, k, v, do, lse, delta, D, False)
         err_dkv, tol_dkv, extra_dkv = flash_dkv_check(site, q, k, v, do, lse, delta, D, False)
         # the yardstick: the backward of PyTorch's fused attention on
         # unpadded heads, one call that gives dq, dk and dv (what B4 and B5
@@ -534,15 +582,15 @@ def check_kernels(record: dict) -> dict:
         sdpa_bwd = cuda_ms(
             lambda: torch.autograd.grad(ol, (ql, kl, vl), dod, retain_graph=True))
         del ol, ql, kl, vl, qd, kd, vd, dod
-        # host_us of B4, whose wrapper makes the same checks but no tile plan
-        # and no tensor maps, is the reference for what those cost B1 and B5
-        bwd_dq = lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale)  # noqa: E731
-        note("flash_bwd_dq", site, is_main("flash_bwd_dq"), max_err(dq, dq_ref),
-             ref_tol(2e-2, dq_ref), cuda_ms(bwd_dq),
+        # host_us: what the checks, the tile plan, the four tensor maps and
+        # the launch cost the host a call (B1 encodes three maps)
+        bwd_dq = lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
+                                        head_dim=D)
+        note("flash_bwd_dq", site, is_main("flash_bwd_dq"), err_dq, tol_dq, cuda_ms(bwd_dq),
              cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, False, scale),
                      reps=3, warmup=1),
-             bound(3 * ops // 2, nbytes(q, k, v, do, lse, delta, dq), PEAK_BF16_FLOPS),
-             sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dq))
+             bound(3 * ops // 2, nbytes(q, k, v, do, lse, delta) + nbytes(q), PEAK_BF16_FLOPS),
+             sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dq), **extra_dq)
         bwd_dkv = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
                                           head_dim=D)
         note("flash_bwd_dkv", site, is_main("flash_bwd_dkv"), err_dkv, tol_dkv, cuda_ms(bwd_dkv),
@@ -550,7 +598,6 @@ def check_kernels(record: dict) -> dict:
                      reps=3, warmup=1),
              bound(2 * ops, nbytes(q, k, v, do, lse, delta) + 2 * nbytes(k), PEAK_BF16_FLOPS),
              sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dkv), **extra_dkv)
-        del dq_ref, dq
 
         # B3 and B7: exact copies; PyTorch's strided copy is both the
         # plain version and the one library call
@@ -579,8 +626,8 @@ def check_kernels(record: dict) -> dict:
     attention_site(f"xl B={XL_BATCH} N={N} H={H} d={D}->{DP}", XL_BATCH, N, H, D, DP, (5, 16, 16),
                    False, 3, (False, False))
 
-    # B1 and B5 where the last 128-row block is half past N, causal and not
-    # (no timing: these shapes are on no path)
+    # B1, B4 and B5 where the last 128-row block is half past N, causal and
+    # not (no timing: these shapes are on no path)
     for N, D, DP in EDGE_SITES:
         for causal in (False, True):
             site = f"edge B=1 H=2 N={N} d={D}->{DP} causal={causal}"
@@ -588,10 +635,12 @@ def check_kernels(record: dict) -> dict:
             results["flash_fwd"]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
             do = F.pad(rand(1, 2, N, D), (0, DP - D))
             delta = (do.float() * o.float()).sum(-1, keepdim=True)
-            err, tol, extra = flash_dkv_check(site, q, k, v, do, lse, delta, D, causal)
-            results["flash_bwd_dkv"]["edge_sites"][site] = {"max_abs_err": err, "tol": tol,
-                                                            **extra}
-            log(f"  flash_fwd, flash_bwd_dkv {site}: within bounds, controls rejected")
+            for name, check in (("flash_bwd_dq", flash_dq_check),
+                                ("flash_bwd_dkv", flash_dkv_check)):
+                err, tol, extra = check(site, q, k, v, do, lse, delta, D, causal)
+                results[name]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
+            log(f"  flash_fwd, flash_bwd_dq, flash_bwd_dkv {site}: within bounds, controls "
+                f"rejected")
 
     # B8, B9: no one PyTorch call computes either, so no library yardstick.
     # dx and dscale are each held against their own reference (dscale's

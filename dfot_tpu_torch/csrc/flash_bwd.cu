@@ -18,9 +18,22 @@
 // no atomics, deterministic results. The softmax scale is applied once, to
 // the fp32 sums.
 //
-// dq (B4): mma.sync m16n8k16 (csrc/mma.cuh); one block = 4 warps = a 64-row
-// query tile, looping over 64-key K/V tiles copied into padded shared memory
-// (row pitch d + 8, conflict-free ldmatrix).
+// dq (B4): query-stationary, the shape of B1 (csrc/flash_fwd.cu). One block
+// owns 128 query rows: a producer warpgroup (setmaxnreg down; one elected
+// thread issues TMA) and two consumer warpgroups of 64 rows each. Q and dO
+// (128 x d) are loaded once; KN-key K and V tiles stream through a ring of
+// STAGES stages (full/empty mbarriers), so loads overlap the products. Per
+// tile each consumer computes S = Q K^T and dP = dO V^T (shared-memory
+// wgmma, both operands K-major: B1's QK^T twice), P = exp2(S a2 - LSE log2 e)
+// with the causal mask on the diagonal tiles and keys >= n masked,
+// dS = P (dP - delta) in fp32, rounded to bf16 in place and packed as the
+// register A operand of dQ += dS K (register-A wgmma, K as the MN-major B
+// operand: B1's PV). LSE and delta of a thread's two rows are read once.
+// B1's schedule: the dS of tile j is computed while the product of tile
+// j - 1 runs, and the two consumers take turns to issue, so one's exp2
+// overlaps the other's products. K/V tiles are 128 keys at d = 64 and 64 at
+// d = 128, where two 128-key score tiles, dQ and the packed dS would take
+// 224 registers and spill.
 //
 // dk, dv (B5): wgmma, TMA and warp specialisation (csrc/hopper.cuh). One block
 // owns 128 keys: a producer warpgroup (setmaxnreg down; one elected thread
@@ -31,108 +44,20 @@
 // S^T = K Q^T and dP^T = V dO^T (shared-memory wgmma, m64 n64),
 // P^T = exp2(S^T a2 - LSE log2 e), dS^T = P^T (dP^T - delta) in fp32, then
 // dV += P^T dO and dK += dS^T Q (register-A wgmma, with dO and Q in their
-// natural layout as the transposed B operand). Only the first DV lanes are
-// computed: DV = the true head dim rounded up to 16 (80 for K600 @DiT/XL's
-// heads of 72 zero-padded to 128); lanes DV..D-1 of dk, dv are written as
-// zeros (the pad lanes of q and dO are zero, so they are exact).
+// natural layout as the transposed B operand).
+//
+// Both compute only the first DV lanes: DV = the true head dim rounded up to
+// 16 (80 for K600 @DiT/XL's heads of 72 zero-padded to 128), so the score
+// products contract over DV / 16 k-steps and the output products have an n
+// of DV; lanes DV..D-1 of dq, dk, dv are written as zeros (the pad lanes of
+// q, k, v and dO are zero, so they are exact). The 3-D tensor maps (d, n, bh)
+// read zeros past a head's last row; no row >= n is stored.
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace dfot;
-
-constexpr int kTile = 64;  // rows of the block's own tile and of K/V tiles
-
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ d_o,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int n, float sm_scale, int causal) {
-  constexpr int kPitch = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + kTile * kPitch;
-  __nv_bfloat16* ks = dos + kTile * kPitch;
-  __nv_bfloat16* vs = ks + kTile * kPitch;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;
-  const int q0 = blockIdx.x * kTile;
-  const size_t head = static_cast<size_t>(blockIdx.y) * n * D;
-  const float a2 = sm_scale * kLog2e;
-
-  load_tile<D>(qs, q + head + static_cast<size_t>(q0) * D, kTile);
-  load_tile<D>(dos, d_o + head + static_cast<size_t>(q0) * D, kTile);
-
-  // this thread's two query rows and their statistics
-  const int row_g = q0 + warp * 16 + g;
-  const float* lse_h = lse + static_cast<size_t>(blockIdx.y) * n;
-  const float* delta_h = delta + static_cast<size_t>(blockIdx.y) * n;
-  const float l2[2] = {lse_h[row_g] * kLog2e, lse_h[row_g + 8] * kLog2e};
-  const float dl[2] = {delta_h[row_g], delta_h[row_g + 8]};
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  const int n_tiles = causal ? (q0 + kTile) / kTile : n / kTile;
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(ks, k + head + static_cast<size_t>(j) * kTile * D, kTile);
-    load_tile<D>(vs, v + head + static_cast<size_t>(j) * kTile * D, kTile);
-    __syncthreads();
-
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int t = 0; t < kTile / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-    warp_gemm_abt<D, kTile / 8>(s, qs + warp * 16 * kPitch, ks, lane);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] * a2 - l2[0]);
-      s[nt][1] = exp2f(s[nt][1] * a2 - l2[0]);
-      s[nt][2] = exp2f(s[nt][2] * a2 - l2[1]);
-      s[nt][3] = exp2f(s[nt][3] * a2 - l2[1]);
-    }
-    if (causal && j == n_tiles - 1) {  // the diagonal tile
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const int key = j * kTile + nt * 8 + 2 * c;
-        if (key > row_g) s[nt][0] = 0.f;
-        if (key + 1 > row_g) s[nt][1] = 0.f;
-        if (key > row_g + 8) s[nt][2] = 0.f;
-        if (key + 1 > row_g + 8) s[nt][3] = 0.f;
-      }
-    }
-
-    float dp[kTile / 8][4];
-#pragma unroll
-    for (int t = 0; t < kTile / 8; ++t) dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
-    warp_gemm_abt<D, kTile / 8>(dp, dos + warp * 16 * kPitch, vs, lane);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {  // ds = p * (dp - delta), in place
-      dp[nt][0] = s[nt][0] * (dp[nt][0] - dl[0]);
-      dp[nt][1] = s[nt][1] * (dp[nt][1] - dl[0]);
-      dp[nt][2] = s[nt][2] * (dp[nt][2] - dl[1]);
-      dp[nt][3] = s[nt][3] * (dp[nt][3] - dl[1]);
-    }
-    uint32_t dsa[kTile / 16][4];
-    pack_fragments<kTile / 8>(dsa, dp);
-    warp_gemm_pb<D, kTile / 16>(acc, dsa, ks, lane);
-  }
-
-  __nv_bfloat16* o0 = dq + head + static_cast<size_t>(row_g) * D;
-  __nv_bfloat16* o1 = o0 + 8 * D;
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
-    const int col = t * 8 + 2 * c;
-    *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
-        __floats2bfloat162_rn(acc[t][0] * sm_scale, acc[t][1] * sm_scale);
-    *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
-        __floats2bfloat162_rn(acc[t][2] * sm_scale, acc[t][3] * sm_scale);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // dk, dv: wgmma, a TMA ring of query tiles, warp specialisation
@@ -140,7 +65,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 constexpr int kKeys = 128;       // keys of one block, 64 per consumer warpgroup
 constexpr int kQRows = 64;       // query rows of a streamed tile
-constexpr int kDkvThreads = 384;  // producer + two consumers
+constexpr int kThreads = 384;  // producer + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kKeyAtomBytes = kKeys * kLineBytes;   // one 64-lane column block of K or V
 constexpr int kQAtomBytes = kQRows * kLineBytes;    // ... of a Q or dO tile
@@ -158,7 +83,7 @@ __host__ __device__ constexpr int dkv_smem_bytes() {
 }
 
 template <int D, int DV, int STAGES>
-__global__ void __launch_bounds__(kDkvThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -331,20 +256,250 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
 }
 
-using bf16 = __nv_bfloat16;
+// ---------------------------------------------------------------------------
+// dq: wgmma, a TMA ring of K/V tiles, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int kDqRows = 128;                         // query rows of one block
+constexpr int kDqAtomBytes = kDqRows * kLineBytes;   // one 64-lane column block of Q or dO
+// keys of a streamed K/V tile, by padded head dim (the tile plan's
+// ``tile_rows``, ops/attention.py:FLASH_DQ_KEYS)
+constexpr int kDqKeys64 = 128;
+constexpr int kDqKeys128 = 64;  // 128 keys: 224 live registers a consumer thread, spills
 
 template <int D>
+__host__ __device__ constexpr int dq_q_bytes() { return D / kAtomLanes * kDqAtomBytes; }
+template <int D, int KN>
+__host__ __device__ constexpr int dq_kv_bytes() { return D / kAtomLanes * KN * kLineBytes; }
+// dynamic shared memory: 1 KB of alignment slack, Q, dO, STAGES x (K, V),
+// barriers
+template <int D, int KN, int STAGES>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return 1024 + 2 * dq_q_bytes<D>() + STAGES * 2 * dq_kv_bytes<D, KN>() + 8 * (1 + 2 * STAGES);
+}
+
+template <int D, int DV, int KN, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int n,
+                        float sm_scale, int causal) {
+  constexpr int kQ = dq_q_bytes<D>();
+  constexpr int kKV = dq_kv_bytes<D, KN>();
+  constexpr int kKVAtomBytes = KN * kLineBytes;
+  constexpr int kAtoms = D / kAtomLanes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);
+  unsigned char* dos = qs + kQ;
+  unsigned char* ks = dos + kQ;
+  unsigned char* vs = ks + STAGES * kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * kKV);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  // causal: the longest rows first, so the short ones fill the tail
+  const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * kDqRows;
+  const int head = blockIdx.y;
+  const int n_kv = (n + KN - 1) / KN;
+  // causal: the block's last row sees keys up to q0 + 127
+  const int n_tiles = causal ? min(n_kv, (q0 + kDqRows + KN - 1) / KN) : n_kv;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * kQ);
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_3d(qs + a * kDqAtomBytes, &tm_q, q_full, a * kAtomLanes, q0, head);
+        tma_load_3d(dos + a * kDqAtomBytes, &tm_do, q_full, a * kAtomLanes, q0, head);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kKV);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load_3d(ks + s * kKV + a * kKVAtomBytes, &tm_k, &full[s], a * kAtomLanes, j * KN,
+                      head);
+          tma_load_3d(vs + s * kKV + a * kKVAtomBytes, &tm_v, &full[s], a * kAtomLanes, j * KN,
+                      head);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: 64 query rows each
+    setmaxnreg_inc<240>();
+    const int w = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int row0 = q0 + w * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    const float a2 = sm_scale * kLog2e;             // exp(x * scale) = exp2(x * a2)
+    const uint32_t q_addr = smem_u32(qs) + w * 64 * kLineBytes;
+    const uint32_t do_addr = smem_u32(dos) + w * 64 * kLineBytes;
+    const size_t row_base = static_cast<size_t>(head) * n;
+
+    // LSE (in log2 units) and delta of the two rows; a row >= n (the second
+    // consumer where n is an odd multiple of 64) reads zeros, computes on
+    // the zero rows TMA filled in, and is never stored
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      l2[r] = row < n ? lse[row_base + row] * kLog2e : 0.f;
+      dl[r] = row < n ? delta[row_base + row] : 0.f;
+    }
+
+    float acc[DV / 2];  // dQ, DV / 8 chunks of 8 columns
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+    uint32_t dsa[KN / 16][4];  // dS of the tile before, the A operand of its dQ product
+
+    // S_j = Q K_j^T and dP_j = dO V_j^T (64 rows x KN keys), one wgmma group
+    auto issue_sdp = [&](int j, float* st, float* dp) {
+      const int s = j % STAGES;
+      mbar_wait(&full[s], (j / STAGES) & 1);
+      const uint32_t k_addr = smem_u32(ks + s * kKV);
+      const uint32_t v_addr = smem_u32(vs + s * kKV);
+      fence_regs<KN / 2>(st);
+      fence_regs<KN / 2>(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        const uint32_t q_off = (kk / 4) * kDqAtomBytes + (kk % 4) * 32;
+        const uint32_t k_off = (kk / 4) * kKVAtomBytes + (kk % 4) * 32;
+        WgmmaSS<KN>::mma(st, sw128_desc(q_addr + q_off), sw128_desc(k_addr + k_off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        const uint32_t q_off = (kk / 4) * kDqAtomBytes + (kk % 4) * 32;
+        const uint32_t k_off = (kk / 4) * kKVAtomBytes + (kk % 4) * 32;
+        WgmmaSS<KN>::mma(dp, sw128_desc(do_addr + q_off), sw128_desc(v_addr + k_off), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // dQ += dS_j K_j, contracting over the tile's keys, its own wgmma group
+    auto issue_dq = [&](int j) {
+      const uint32_t k_addr = smem_u32(ks + (j % STAGES) * kKV);
+      fence_regs<DV / 2>(acc);
+      fence_regs<KN / 16>(dsa);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < KN / 16; ++kc)
+        wgmma_rs_wide<DV>(acc, dsa[kc], k_addr + kc * 16 * kLineBytes, kKVAtomBytes);
+      wgmma_commit();
+    };
+    // P = exp2(S a2 - lse log2 e), dS = P (dP - delta), in place in dp, in
+    // fp32; keys >= n and (causal) keys after the row are masked
+    auto ds = [&](int j, const float* st, float* dp) {
+      const int key0 = j * KN;
+      const bool masked = key0 + KN > n || (causal && key0 + KN - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < KN / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(st[4 * i + e], a2, -l2[e / 2]));
+          const int key = key0 + 8 * i + 2 * c + (e & 1);
+          if (masked && (key >= n || (causal && key > row0 + (e / 2) * 8))) p = 0.f;
+          dp[4 * i + e] = p * (dp[4 * i + e] - dl[e / 2]);
+        }
+      }
+    };
+    // done with tile j's stage
+    auto release = [&](int j) {
+      fence_regs<DV / 2>(acc);
+      fence_regs<KN / 16>(dsa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[j % STAGES]);
+    };
+
+    // B1's schedule: a consumer issues S_j, dP_j and then dQ += dS_{j-1}
+    // K_{j-1} as two wgmma groups and computes dS_j while the second one
+    // runs; the two consumers take turns to issue (named barriers 1 and 2),
+    // so one's exp2 overlaps the other's products. Each consumer syncs
+    // n_tiles + 1 times and the other arrives as often.
+    auto wait_turn = [&] { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w)); };
+    auto pass_turn = [&] { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w)); };
+    if (w == 1) pass_turn();  // consumer 0 goes first
+    mbar_wait(q_full, 0);
+    {
+      float st[KN / 2], dp[KN / 2];
+      wait_turn();
+      issue_sdp(0, st, dp);
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs<KN / 2>(st);
+      fence_regs<KN / 2>(dp);
+      ds(0, st, dp);
+      pack_a<KN / 16>(dsa, dp);
+    }
+    for (int j = 1; j < n_tiles; ++j) {
+      float st[KN / 2], dp[KN / 2];
+      wait_turn();
+      issue_sdp(j, st, dp);
+      issue_dq(j - 1);
+      pass_turn();
+      wgmma_wait<1>();  // S_j and dP_j are done, dQ of tile j - 1 may still run
+      fence_regs<KN / 2>(st);
+      fence_regs<KN / 2>(dp);
+      ds(j, st, dp);
+      wgmma_wait<0>();
+      release(j - 1);
+      pack_a<KN / 16>(dsa, dp);
+    }
+    wait_turn();
+    issue_dq(n_tiles - 1);
+    if (w == 0) pass_turn();  // consumer 1's last turn is its last sync
+    wgmma_wait<0>();
+    release(n_tiles - 1);
+
+    // the softmax scale once, on the fp32 sums; lanes DV..D-1 are zeros
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= n) continue;
+      __nv_bfloat16* out = dq + (row_base + row) * D;
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(
+            acc[4 * i + 2 * r] * sm_scale, acc[4 * i + 2 * r + 1] * sm_scale);
+#pragma unroll
+      for (int i = DV / 8; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+}
+
+using bf16 = __nv_bfloat16;
+
+template <int D, int DV, int KN, int STAGES>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d_o,
-                      const void* lse, const void* delta, void* dq, int bh, int n,
-                      float sm_scale, int causal, cudaStream_t stream) {
-  const int smem = 4 * kTile * (D + kPad) * static_cast<int>(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D><<<dim3(n / kTile, bh), kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), n, sm_scale, causal);
+                      const void* lse, const void* delta, void* dq, int bh, int n, int stages,
+                      int smem, float sm_scale, int causal, cudaStream_t stream) {
+  // the caller's tile plan must be the one compiled here
+  if (stages != STAGES || smem != dq_smem_bytes<D, KN, STAGES>()) return cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if (!make_head_map(&tm_q, q, bh, n, D, kDqRows) || !make_head_map(&tm_do, d_o, bh, n, D, kDqRows) ||
+      !make_head_map(&tm_k, k, bh, n, D, KN) || !make_head_map(&tm_v, v, bh, n, D, KN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dq_kernel<D, DV, KN, STAGES>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3((n + kDqRows - 1) / kDqRows, bh), kThreads, smem, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), n, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -362,27 +517,41 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3((n + kKeys - 1) / kKeys, bh), kDkvThreads, smem, stream>>>(
+  kernel<<<dim3((n + kKeys - 1) / kKeys, bh), kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, sm_scale, causal);
   return cudaGetLastError();
 }
 
 bool shape_ok(int bh, int n, int d) {
-  return bh > 0 && bh <= 65535 && n > 0 && n % kTile == 0 && (d == 64 || d == 128);
+  return bh > 0 && bh <= 65535 && n > 0 && n % 64 == 0 && (d == 64 || d == 128);
 }
 
 }  // namespace
 
-// q, k, v, d_o, dq: (bh, n, d) contiguous bf16; lse, delta: (bh, n) fp32.
-// d in {64, 128}, n a multiple of 64. Returns a cudaError_t code.
+// q, k, v, d_o, dq: (bh, n, d) contiguous bf16, 16-byte aligned; lse, delta:
+// (bh, n) fp32. d in {64, 128}, n a multiple of 64. ``lanes``: the lanes
+// computed, the true head dim rounded up to a compiled width (d, or 80 at
+// d = 128); lanes lanes..d-1 of q, k, v, d_o must be zero and come out zero
+// in dq. ``stages`` and ``smem``: the caller's tile plan
+// (dfot_tpu_torch/ops/attention.py:flash_plan), checked against the compiled
+// one. Returns a cudaError_t code.
 extern "C" int dfot_flash_bwd_dq(const void* q, const void* k, const void* v, const void* d_o,
                                  const void* lse, const void* delta, void* dq, int bh, int n,
-                                 int d, float sm_scale, int causal, void* stream) {
+                                 int d, int lanes, int stages, int smem, float sm_scale,
+                                 int causal, void* stream) {
   if (!shape_ok(bh, n, d)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_dq<64>(q, k, v, d_o, lse, delta, dq, bh, n, sm_scale, causal, s);
-  return launch_dq<128>(q, k, v, d_o, lse, delta, dq, bh, n, sm_scale, causal, s);
+  if (d == 64 && lanes == 64)
+    return launch_dq<64, 64, kDqKeys64, 4>(q, k, v, d_o, lse, delta, dq, bh, n, stages, smem,
+                                           sm_scale, causal, s);
+  if (d == 128 && lanes == 80)
+    return launch_dq<128, 80, kDqKeys128, 4>(q, k, v, d_o, lse, delta, dq, bh, n, stages, smem,
+                                             sm_scale, causal, s);
+  if (d == 128 && lanes == 128)
+    return launch_dq<128, 128, kDqKeys128, 4>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                              smem, sm_scale, causal, s);
+  return cudaErrorInvalidValue;
 }
 
 // As above, with dk, dv: (bh, n, d) contiguous bf16; every (bh, n) array

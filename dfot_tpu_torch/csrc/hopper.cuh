@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels B1
-// (flash_fwd.cu) and B5 (flash_bwd.cu, dk/dv): thin PTX wrappers for
-// mbarriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma
-// shared-memory descriptors and the asynchronous warpgroup products, and
-// setmaxnreg; on the host, 3-D tensor maps encoded by libcuda's
-// cuTensorMapEncodeTiled, looked up at run time (no -lcuda at link time).
+// (flash_fwd.cu) and B4, B5 (flash_bwd.cu), and of B2's bulk copies
+// (qkv_prep.cu): thin PTX wrappers for mbarriers, TMA tile loads into
+// 128-byte-swizzled shared memory and bulk copies, wgmma shared-memory
+// descriptors and the asynchronous warpgroup products, and setmaxnreg; on
+// the host, 3-D tensor maps encoded by libcuda's cuTensorMapEncodeTiled,
+// looked up at run time (no -lcuda at link time).
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B and a
 // box 64 bf16 wide: each tile row is one 128-byte line, 8 rows make a

@@ -26,7 +26,7 @@ _SOURCES = (
     "flash_fwd.cu", "flash_bwd.cu", "qkv_prep.cu", "qkv_prep_bwd.cu",
     "attn_out_collect.cu", "attn_out_scatter.cu", "ln_modulate.cu", "small_n_attn.cu",
 )
-_HEADERS = ("mma.cuh", "hopper.cuh")
+_HEADERS = ("hopper.cuh",)
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -38,7 +38,7 @@ _SIGNATURES = {
     "dfot_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dfot_qkv_prep": (_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "dfot_attn_out_collect": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "dfot_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "dfot_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dfot_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dfot_qkv_prep_bwd": (
         _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P,

@@ -9,10 +9,10 @@ package.
   tensor ops, as the JAX package does, and calls :func:`flash_bwd_dq`
   (kernel B4, the port of ``_flash_bwd_dq_kernel`` and of its streaming twin)
   and :func:`flash_bwd_dkv` (kernel B5, the port of
-  ``_flash_bwd_dkv_kernel``), both in ``csrc/flash_bwd.cu``. B1 and B5 are
-  wgmma kernels whose tile plan (:func:`flash_plan`) is computed here and
-  checked by their C entries; where q, k, v are zero-padded heads, the true
-  head dim (``head_dim``) lets them compute only its lanes.
+  ``_flash_bwd_dkv_kernel``), both in ``csrc/flash_bwd.cu``. B1, B4 and B5
+  are wgmma kernels whose tile plan (:func:`flash_plan`) is computed here
+  and checked by their C entries; where q, k, v are zero-padded heads, the
+  true head dim (``head_dim``) lets them compute only its lanes.
 - A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes
   the plain versions: :func:`attention_reference` (the counterpart of
   ``_xla_attention``: fp32 scores, fp32 softmax, one cast at the end) and
@@ -151,10 +151,12 @@ def _check_stats(what, q, *stats):
             )
 
 
-# The wgmma kernels' tile plan (B1 csrc/flash_fwd.cu, B5 csrc/flash_bwd.cu):
-# each C entry takes it and refuses a plan other than the one it was built for.
-FLASH_BLOCK = 128           # query rows of a B1 block, keys of a B5 block
+# The wgmma kernels' tile plan (B1 csrc/flash_fwd.cu, B4 and B5
+# csrc/flash_bwd.cu): each C entry takes it and refuses a plan other than the
+# one it was built for.
+FLASH_BLOCK = 128           # query rows of a B1 or B4 block, keys of a B5 block
 FLASH_BWD_Q_ROWS = 64       # query rows of a tile that streams through B5
+FLASH_DQ_KEYS = {64: 128, 128: 64}  # keys of a K/V tile that streams through B4, by d
 FLASH_MAX_STAGES = 4
 # lanes a kernel instantiation computes, by padded head dim: the true head dim
 # rounded up to 16 and then to the next compiled width
@@ -163,14 +165,16 @@ SMEM_PER_BLOCK = 232448     # shared memory one H100 block can take (227 KB)
 
 
 def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = None) -> dict:
-    """Tile plan of kernel B1 (``kernel="fwd"``) or B5 (``"dkv"``) for
-    ``bh`` heads of ``n`` tokens, padded head dim ``d`` and true head dim
-    ``head_dim`` (default ``d``).
+    """Tile plan of kernel B1 (``kernel="fwd"``), B4 (``"dq"``) or B5
+    (``"dkv"``) for ``bh`` heads of ``n`` tokens, padded head dim ``d`` and
+    true head dim ``head_dim`` (default ``d``).
 
     Tiles are 64-lane column blocks of 128-byte rows (TMA's 128-byte swizzle).
     B1 holds a 128-row Q tile and streams 128-key K and V tiles through
-    ``stages`` ring slots; B5 holds 128 keys of K and V and streams 64-row Q
-    and dO tiles with their LSE and delta slices. Stages: as many as fit the
+    ``stages`` ring slots; B4 holds 128 rows of Q and dO and streams K and V
+    tiles of :data:`FLASH_DQ_KEYS` keys; B5 holds 128 keys of K and V and
+    streams 64-row Q and dO tiles with their LSE and delta slices.
+    ``tile_rows``: the rows of a streamed tile. Stages: as many as fit the
     block's shared memory, at most four. ``lanes``: the head-dim lanes the
     kernel computes (products contract over ``k_steps`` = lanes / 16 steps);
     ``smem_bytes`` includes 1 KB of alignment slack and the mbarriers.
@@ -184,6 +188,9 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     if kernel == "fwd":
         tile_rows, resident = FLASH_BLOCK, FLASH_BLOCK * row                  # Q
         stage = 2 * FLASH_BLOCK * row                                         # K, V
+    elif kernel == "dq":
+        tile_rows, resident = FLASH_DQ_KEYS[d], 2 * FLASH_BLOCK * row         # Q, dO
+        stage = 2 * tile_rows * row                                           # K, V
     elif kernel == "dkv":
         tile_rows, resident = FLASH_BWD_Q_ROWS, 2 * FLASH_BLOCK * row         # K, V
         stage = 2 * FLASH_BWD_Q_ROWS * row + 2 * FLASH_BWD_Q_ROWS * 4         # Q, dO, LSE, delta
@@ -243,11 +250,14 @@ def _bwd_operands(what, q, k, v, do, lse, delta):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
-                 sm_scale: Optional[float] = None) -> torch.Tensor:
+                 sm_scale: Optional[float] = None, *,
+                 head_dim: Optional[int] = None) -> torch.Tensor:
     """dq of attention from the saved LSE and delta = rowsum(dO * O), both
     (B, H, N, 1) fp32. On a CUDA device this launches kernel B4 (bf16, D in
     {64, 128}, N a multiple of 64; anything else raises); on the CPU it runs
-    the plain version."""
+    the plain version. ``head_dim``: the true head dim where q, k, v, do are
+    heads zero-padded to D (the kernel then computes only its lanes and
+    writes the pad lanes of dq as zeros)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -257,12 +267,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     what = "flash attention backward (dq)"
     q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
     B, H, N, D = q.shape
+    plan = flash_plan("dq", B * H, N, D, head_dim)
     dq = torch.empty_like(q)
     _cuda.check(
         _cuda.library().dfot_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), B * H, N, D, float(sm_scale), int(causal),
-            _cuda.stream_handle(q.device),
+            delta.data_ptr(), dq.data_ptr(), B * H, N, D, plan["lanes"], plan["stages"],
+            plan["smem_bytes"], float(sm_scale), int(causal), _cuda.stream_handle(q.device),
         ),
         what,
     )
@@ -327,7 +338,7 @@ class _FlashAttention(torch.autograd.Function):
             dq = _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
             dk, dv = _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
         else:
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
         return dq, dk, dv, None, None, None, None
 
@@ -352,7 +363,7 @@ def flash_attention(
     the bare forward and carries no gradient. ``head_dim`` is for the
     callers that zero-pad heads to D (:func:`_padded_flash`,
     ``qkv_prep.attention_from_packed_qkv``): the true head dim, whose lanes
-    alone the kernels B1 and B5 then compute.
+    alone the kernels B1, B4 and B5 then compute.
     """
     if head_dim is not None and not 0 < head_dim <= q.shape[-1]:
         raise ValueError(f"head_dim {head_dim} outside (0, {q.shape[-1]}]")

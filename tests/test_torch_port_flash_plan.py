@@ -1,5 +1,5 @@
-"""The tile plan of the wgmma flash-attention kernels B1 and B5, and the work
-count their bounds are taken from, on the CPU.
+"""The tile plan of the wgmma flash-attention kernels B1, B4 and B5, and the
+work count their bounds are taken from, on the CPU.
 
 ``ops/attention.py:flash_plan`` is what the wrappers pass to the C entries
 (which refuse any other plan), so it is checked here where no card is
@@ -35,7 +35,7 @@ MAIN_SHAPES = (
 )
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("what,bh,n,d,head_dim", MAIN_SHAPES)
 def test_plan_fits_and_contracts_over_the_true_head_dim(kernel, what, bh, n, d, head_dim):
     plan = A.flash_plan(kernel, bh, n, d, head_dim)
@@ -44,10 +44,16 @@ def test_plan_fits_and_contracts_over_the_true_head_dim(kernel, what, bh, n, d, 
     assert plan["lanes"] == 16 * plan["k_steps"] <= d
     assert 2 <= plan["stages"] <= A.FLASH_MAX_STAGES
     assert plan["grid"] == (math.ceil(n / 128), bh)
-    assert plan["tile_rows"] == (128 if kernel == "fwd" else 64)
-    # the tiles a block holds, at 2 bytes a lane, and 1 KB of alignment slack
-    tiles = (1 + 2 * plan["stages"]) * 128 * d * 2 if kernel == "fwd" else (
-        2 * 128 * d * 2 + plan["stages"] * (2 * 64 * d * 2 + 2 * 64 * 4))
+    rows = {"fwd": 128, "dkv": 64, "dq": A.FLASH_DQ_KEYS[d]}[kernel]
+    assert plan["tile_rows"] == rows
+    # the tiles a block holds, at 2 bytes a lane, and 1 KB of alignment slack:
+    # B1 Q and K/V stages, B5 K, V and Q/dO/LSE/delta stages, B4 Q, dO and
+    # K/V stages
+    tiles = {
+        "fwd": (1 + 2 * plan["stages"]) * 128 * d * 2,
+        "dkv": 2 * 128 * d * 2 + plan["stages"] * (2 * 64 * d * 2 + 2 * 64 * 4),
+        "dq": 2 * 128 * d * 2 + plan["stages"] * 2 * rows * d * 2,
+    }[kernel]
     assert plan["smem_bytes"] == 1024 + tiles + 8 * (1 + 2 * plan["stages"])
 
 
@@ -59,10 +65,13 @@ def test_plan_rounds_the_head_dim_up_to_a_compiled_width(d, head_dim, lanes):
     compiled one, whose extra lanes are zero and inert."""
     assert A.flash_plan("fwd", 1, 192, d, head_dim)["lanes"] == lanes
     assert A.flash_plan("dkv", 1, 192, d, head_dim)["lanes"] == lanes
+    assert A.flash_plan("dq", 1, 192, d, head_dim)["lanes"] == lanes
 
 
 @pytest.mark.parametrize("kernel,d,head_dim", [("fwd", 96, 96), ("fwd", 128, 0),
-                                               ("dkv", 64, 72), ("bwd", 64, 64)])
+                                               ("dkv", 64, 72), ("bwd", 64, 64),
+                                               ("dq", 96, 96), ("dq", 64, 72), ("dq", 128, 0),
+                                               ("dq", 256, 256)])
 def test_plan_refuses_what_no_kernel_takes(kernel, d, head_dim):
     with pytest.raises(ValueError):
         A.flash_plan(kernel, 1, 128, d, head_dim)

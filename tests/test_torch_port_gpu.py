@@ -412,3 +412,105 @@ def test_wgmma_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         A.flash_bwd_dkv(y, y, y, y, off, stat)
     assert ops.launch_counts()["flash_fwd"] == ops.launch_counts()["flash_bwd_dkv"] == 0
+
+
+def _check_dq(cuda, bh, n, d, dp, causal, seed):
+    """B4 on padded heads with the true head dim passed, against its plain
+    version on the plain forward's LSE and delta: within 2e-2 * max(1,
+    |ref|max) and 1e-2 relative L2, pad lanes zeros, one launch."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    scale = 1.0 / math.sqrt(d)
+    q, k = (_padded_heads(g, bh, n, d, dp, cuda, 1.7) for _ in range(2))
+    v, do = (_padded_heads(g, bh, n, d, dp, cuda) for _ in range(2))
+    o, lse = A.attention_reference(q, k, v, causal, scale, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ops.reset_launch_counts()
+    dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, head_dim=d)
+    assert ops.launch_counts()["flash_bwd_dq"] == 1
+    ref = A._dq_plain(q, k, v, do, lse, delta, causal, scale)
+    assert _close(dq, ref, 2e-2) and _rel_l2(dq, ref) <= 1e-2
+    assert not dq[..., d:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128)])
+@pytest.mark.parametrize("bh", [1, 128])
+@pytest.mark.parametrize("n", [64, 192, 1280])
+def test_wgmma_dq_kernel(cuda, n, bh, d, dp, causal):
+    """B4 where N is half a 128-row block, one and a half (the block's
+    second consumer lies past N) and ten, with one head and 128 (a tile past
+    a head's last row must read zeros), causal and not; heads of 72 padded
+    to 128 contract over 80 lanes and come back with zero pad lanes."""
+    _check_dq(cuda, bh, n, d, dp, causal, seed=22)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1280, 100])
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("d,dp", [(64, 64), (72, 128), (128, 128), (64, 128), (72, 72),
+                                  (70, 70), (256, 256)])
+def test_qkv_prep_token_tiles(cuda, d, dp, norm, n):
+    """B2 on strided rows (a slice of a fused projection seven heads' widths
+    wide, as the flagship passes it) at the model head dims, padded and not,
+    with a ragged last token tile (N = 100); a head dim of 70 takes the
+    kernel's 4-byte chunks. Each of q, k, v within 2e-2 * max(1, |ref|max)
+    and 1e-2 relative L2, pad lanes zeros, one launch."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    B, H = 2, 3
+    fused = torch.randn(B, n, 7 * H * d, generator=g, device=cuda).to(torch.bfloat16)
+    qkv = fused[..., : 3 * H * d]
+    cos = torch.randn(n, d, generator=g, device=cuda).cos()
+    sin = torch.randn(n, d, generator=g, device=cuda).sin()
+    scales = [(1 + 0.1 * torch.randn(d, generator=g, device=cuda)) for _ in range(2)]
+    tabs = Q.fold_qk_tables(cos, sin, *scales, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    got = Q._prep(qkv, tabs, H, d, dp, norm, 1e-6)
+    assert ops.launch_counts()["qkv_prep"] == 1
+    want = Q._prep_plain(qkv, tabs, H, d, dp, norm, 1e-6)
+    for a, b in zip(got, want):
+        assert a.shape == (B, H, n, dp)
+        assert _close(a, b, 2e-2) and _rel_l2(a, b) <= 1e-2
+        assert not a[..., d:].any()
+    assert torch.equal(got[2], want[2])  # v is a copy
+
+
+@pytest.mark.gpu
+def test_dq_and_prep_entries_refuse_what_they_do_not_take(cuda):
+    """B4's C entry refuses a tile plan other than the compiled one and a
+    lane count it has no instantiation for; its wrapper raises for a head
+    dim outside {64, 128} and a head_dim above d. B2's entry refuses an odd
+    head dim, one above 256 and a padded width below it; its wrapper raises
+    for rows off a 4-byte boundary."""
+    from dfot_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    y = torch.zeros(1, 2, 128, 128, device=cuda, dtype=torch.bfloat16)
+    stat = torch.zeros(1, 2, 128, 1, device=cuda)
+    plan = A.flash_plan("dq", 2, 128, 128, 72)
+    stream = _cuda.stream_handle(y.device)
+    ptrs = [t.data_ptr() for t in (y, y, y, y, stat, stat, y)]
+    for lanes, stages, smem in ((plan["lanes"], plan["stages"] + 1, plan["smem_bytes"]),
+                                (plan["lanes"], plan["stages"], plan["smem_bytes"] + 8),
+                                (96, plan["stages"], plan["smem_bytes"])):
+        assert lib.dfot_flash_bwd_dq(*ptrs, 2, 128, 128, lanes, stages, smem, 0.1, 0,
+                                     stream) == 1  # cudaErrorInvalidValue
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError):
+        z = torch.zeros(1, 2, 128, 96, device=cuda, dtype=torch.bfloat16)
+        A.flash_bwd_dq(z, z, z, z, stat, stat)
+    with pytest.raises(ValueError):
+        A.flash_bwd_dq(y, y, y, y, stat, stat, head_dim=129)
+    assert ops.launch_counts()["flash_bwd_dq"] == 0
+
+    x = torch.zeros(1, 64, 3 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    tab = torch.zeros(64, 64, device=cuda, dtype=torch.bfloat16)
+    out = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    for d, dp in ((63, 64), (258, 258), (64, 62)):
+        assert lib.dfot_qkv_prep(x.data_ptr(), x.stride(0), x.stride(1), *(tab.data_ptr(),) * 4,
+                                 *(out.data_ptr(),) * 3, 1, 64, 2, d, dp, 0, 1e-6,
+                                 stream) == 1
+    flat = torch.zeros(64 * 3 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        Q.qkv_prep(flat[1:].view(1, 64, 3 * 2 * 64), 2, 64, tab.float(), tab.float())
+    assert ops.launch_counts()["qkv_prep"] == 0

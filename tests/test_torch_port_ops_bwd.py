@@ -80,6 +80,39 @@ def test_flash_backward_matches_jax(monkeypatch, d, causal, stream):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_padded_head_dim_matches_jax(causal):
+    """K600 @DiT/XL's heads: d = 72 zero-padded to 128 with the true scale
+    and ``head_dim=72`` passed to B4 and B5 (the kernels then compute 80
+    lanes and write the rest as zeros), against the JAX package's
+    ``_flash_backward`` (Pallas, interpret mode) on the unpadded heads."""
+    rng = np.random.default_rng(15)
+    B, H, N, d, dp = 1, 2, 256, 72, 128
+    q, k, v, do = (rng.standard_normal((B, H, N, d)).astype(np.float32) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    _, vjp = jax.vjp(
+        lambda q, k, v: JA.flash_attention(q, k, v, causal, 128, 128, True, scale),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    want = vjp(jnp.asarray(do))
+
+    tq, tk, tv, tdo = (torch.nn.functional.pad(_t(a), (0, dp - d)) for a in (q, k, v, do))
+    o, lse = TA.attention_reference(tq, tk, tv, causal, scale, return_lse=True)
+    delta = TA._delta(o, tdo)
+    dq = TA.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, causal, scale, head_dim=d)
+    dk, dv = TA.flash_bwd_dkv(tq, tk, tv, tdo, lse, delta, causal, scale, head_dim=d)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.shape == (B, H, N, dp) and not got[..., d:].any()
+        _close(got[..., :d].numpy(), w)
+
+    # and through autograd, with the head dim carried to both backward kernels
+    tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+    TA.flash_attention(tq, tk, tv, causal, scale, head_dim=d).backward(tdo)
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert not got[..., d:].any()
+        _close(got[..., :d].numpy(), w)
+
+
+@pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_matches_xla_autodiff(causal):
     rng = np.random.default_rng(11)
     q, k, v, do = (rng.standard_normal((2, 3, 64, 32)).astype(np.float32) for _ in range(4))
