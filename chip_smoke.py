@@ -10,20 +10,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    attn_out_scatter, B8 ln_modulate, B9 its backward, B10 small-N attention)
    against its plain PyTorch version in bf16 on seeded inputs: B1-B7 at the
    DFoT_RE10K flagship shapes, B = 1 (the train step) and B = 2 (the
-   window), and at K600 @DiT/XL's (8, 16, 1280, 72 -> 128) with the true
-   1/sqrt(72) scale and the true head dim passed to B1, B4 and B5; B1, B4
-   and B5 also at N = 192 (a multiple of 64 but not of their 128-row
-   blocks), causal and not, at d = 64, 128 and 72 -> 128; B8, B9 at the XL, DiT/B and
-   factorized-DiT widths; B10 at the axial and factorized shapes and at
-   N = 5 and 32, d = 64 and 128 (once in fp32).
+   window), at K600 @DiT/XL's (8, 16, 1280, 72 -> 128) with the true
+   1/sqrt(72) scale and the true head dim passed to B1, B4 and B5, at the
+   base-width U-ViT's level 3 (B, 4, 2048, 256), B = 1 and 2, and at a head
+   dim of 160 padded to 256 (B = 1, 4 heads, 2048 tokens); B1, B4 and B5
+   also at N = 192 (a multiple of 64 but not of their 128-row blocks),
+   causal and not, at d = 64, 128, 72 -> 128, 256 and 160 -> 256; B8, B9 at
+   the XL, DiT/B and factorized-DiT widths; B10 at the axial and factorized
+   shapes, the base axial U-ViT's (2048, 8, 256) and at N = 5 and 32, d =
+   64, 128 and 256 (twice in fp32).
    It times both, computes each kernel's bound (the least time the card
    could take; attention's operations at the true head dim) and, where one
    PyTorch call computes the same function, times that call as a yardstick
    (at XL on the unpadded heads of 72);
-3. runs one full-width flagship UViT3DPose forward (B = 2, T = 8, 256 px,
+3. samples a small 3-step window of a narrow U-ViT on both routes with the
+   same random stream and compares them;
+4. runs one full-width flagship UViT3DPose forward (B = 2, T = 8, 256 px,
    seeded random bf16 weights) on the kernel route and on the plain route;
-4. samples a small 3-step window on both routes with the same random
-   stream and compares them;
 5. drives the sampling path: ``DFoTRollout.sample_sequence`` for the
    8-frame quick-start window (1 context frame, identity poses, vanilla
    history guidance at scale 4, 50 DDIM steps), with every kernel's launch
@@ -53,9 +56,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     on the Minecraft latent shape, batch 8, and the flagship U-ViT with
     axial transformer blocks at a cut depth: route checks forward and
     forward + backward, then one forward and one forward + backward with
-    launch counts required (kernel B10 on both).
+    launch counts required (kernel B10 on both); the axial U-ViT's
+    gradients also against an fp32 plain-route witness;
+14. builds UViT3DPose at the backbone's own published widths
+    (``uvit3d_pose_base``: channels 128-1024, 4 heads, so level 3 has heads
+    of 256 over 2048 tokens) and runs steps 4-9 on it: a full-width
+    forward (B = 2) with its control, a forward + backward (B = 1) with the
+    zero-dq control, the 50-step 8-frame window with its launch counts
+    required, a profiled 10-step window, six train steps with their launch
+    counts required, a profiled step;
+15. runs that model with axial blocks at level 3 at a cut depth: route
+    checks, the fp32 gradient witness, launch counts (B10 at d = 256).
 
-Steps 3, 4, 7, 10 and 13 also run controls (an attention that ignores q and
+Steps 3, 4, 7, 10, 13, 14 and 15 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1, B2, B4, B5, B8, B9 and B10 against each one's
@@ -97,7 +110,8 @@ KERNELS = (
 FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
 # the paths that are driven between a reset and a read of the launch counts
-PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial")
+PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
+         "base_train", "base_axial")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -109,6 +123,12 @@ PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
 PEAK_BYTES = 3.35e12       # device memory, bytes/s
 # flagship attention sites: (level, tokens N, heads, head dim)
 SITES = ((2, 8192, 9, 64), (3, 2048, 9, 128))
+# UViT3DPose at the backbone's own widths (uvit3d_pose_base): level 2 has 4
+# heads of 128 over 8192 tokens, level 3 4 heads of 256 over 2048; its level
+# 3 is the kernels' d = 256 site, at the window's batch and the train step's
+BASE_SITE = (3, 2048, 4, 256)
+# a head dim of 160, zero-padded to 256 (the true 1/sqrt(160) scale)
+PADDED_SITE = (2048, 4, 160, 256)
 # K600 @DiT/XL: batch of the window (before and after NFE expansion: its
 # sampling is conditional, one evaluation a step) and of the train step;
 # attention over N tokens of H heads of dim D, padded to DP inside B2
@@ -123,10 +143,12 @@ LN_SHAPES = (("xl", (XL_BATCH, 1280, 1152)), ("dit_b", (8, 1024, 768)),
 # DiT's temporal and spatial attention, five latent frames, the longest row
 SMALL_N_SHAPES = (("axial level2", (2 * 1024 * 9, 8, 64)), ("axial level3", (2 * 256 * 9, 8, 128)),
                   ("factorized", (8 * 16 * 6, 16, 64)), ("frames5", (8 * 256 * 6, 5, 64)),
-                  ("rows32 d64", (768, 32, 64)), ("rows32 d128", (768, 32, 128)))
+                  ("rows32 d64", (768, 32, 64)), ("rows32 d128", (768, 32, 128)),
+                  ("base axial level3", (2 * 256 * 4, 8, 256)), ("rows32 d256", (768, 32, 256)))
 SMALL_N_MAIN = ("axial level2", "axial level3")
-# the fp32 instantiation at the one shape whose item passes 48 KB of shared memory
-SMALL_N_FP32_SHAPE = ("rows32 d128 fp32", (768, 32, 128))
+# the fp32 instantiation where an item passes 48 KB of shared memory, and
+# where it passes 96 KB (a block of its own)
+SMALL_N_FP32_SHAPES = (("rows32 d128 fp32", (768, 32, 128)), ("rows32 d256 fp32", (768, 32, 256)))
 # bf16 kernel route vs plain route, relative L2: about 3x the sound route's
 # reading (7.5e-3, 6.6e-3) and 6-10x under the control's (0.20, 0.12),
 # both at the random-weight law of dfot_tpu_torch/utils/weights.py
@@ -158,7 +180,7 @@ ATTN_REL_L2_TOL = 1e-2
 PREP_REL_L2_TOL = 1e-2
 # B1, B4 and B5 at a row count that is a multiple of 64 but not of their
 # 128-row blocks, causal and not: (N, head dim, padded head dim)
-EDGE_SITES = ((192, 64, 64), (192, 128, 128), (192, 72, 128))
+EDGE_SITES = ((192, 64, 64), (192, 128, 128), (192, 72, 128), (192, 256, 256), (192, 160, 256))
 PROFILED_WINDOW_STEPS = 10
 TRAIN_STEPS = 5
 # the factorized DiT of configurations/algorithm/backbone/dit3d_factorized_attention.yaml
@@ -166,6 +188,8 @@ TRAIN_STEPS = 5
 FACTORIZED_BATCH = 8
 AXIAL_BATCH = 2
 AXIAL_DEPTH = dict(num_updown_blocks=(1, 1, 2), num_mid_blocks=4)
+# the base-width U-ViT with axial blocks at level 3 (heads of 256), cut depth
+BASE_AXIAL_DEPTH = dict(num_updown_blocks=(1, 1, 1), num_mid_blocks=4)
 # device kernels by class for the profiled window: (class, name substrings),
 # first match wins; anything else is eager elementwise work and copies
 KERNEL_CLASSES = (
@@ -625,6 +649,15 @@ def check_kernels(record: dict) -> dict:
     N, H, D, DP = XL_SITE
     attention_site(f"xl B={XL_BATCH} N={N} H={H} d={D}->{DP}", XL_BATCH, N, H, D, DP, (5, 16, 16),
                    False, 3, (False, False))
+    # d = 256: the base-width U-ViT's level 3 at the window's batch and the
+    # train step's, and a head of 160 padded to 256 (listed under other sites)
+    level, N, H, D = BASE_SITE
+    for B in BATCHES:
+        attention_site(f"base level{level} B={B} N={N} H={H} d={D}", B, N, H, D, D, (8, 16, 16),
+                       True, 7, (False, False))
+    N, H, D, DP = PADDED_SITE
+    attention_site(f"padded B={TRAIN_BATCH} N={N} H={H} d={D}->{DP}", TRAIN_BATCH, N, H, D, DP,
+                   (8, 16, 16), True, 7, (False, False))
 
     # B1, B4 and B5 where the last 128-row block is half past N, causal and
     # not (no timing: these shapes are on no path)
@@ -678,7 +711,7 @@ def check_kernels(record: dict) -> dict:
         del x, shift, scale, g, y, dx, dscale, y_ref, dx_ref, dscale_ref
 
     for label, (Z, N, D), dtype in (*((a, b, bf16) for a, b in SMALL_N_SHAPES),
-                                    (*SMALL_N_FP32_SHAPE, torch.float32)):
+                                    *((a, b, torch.float32) for a, b in SMALL_N_FP32_SHAPES)):
         site = f"{label} Z={Z} N={N} d={D}"
         fp32 = dtype == torch.float32
         rel, l2 = (2e-5, KERNEL_REL_L2_TOL_FP32) if fp32 else (2e-2, KERNEL_REL_L2_TOL)
@@ -1057,34 +1090,34 @@ def flagship_loss_fn(fs, model, B: int, seed: int):
     return loss_fn
 
 
-def gradient_route_check(record: dict, fs, model) -> None:
-    """The flagship at full width and B = 1 (the mid level checkpointed):
-    loss and the gradients of :data:`GRAD_PROBES` on the kernel route, the
-    plain route and the zero-dq control."""
-    gradient_routes(record, "gradient_route", f"full-width forward + backward B={TRAIN_BATCH}",
-                    model, model.use_plain_attention, flagship_loss_fn(fs, model, TRAIN_BATCH, 7),
-                    GRAD_PROBES, control_zero_dq, ("q_norm.weight", "fused_attn_mlp_proj.weight"))
-
-
 def no_launches() -> dict:
     return {name: 0 for name, _, _ in KERNELS}
 
 
-def expected_train_launches(fs, steps: int) -> dict:
-    """Launches of ``steps`` flagship train steps: every transformer block
-    runs the three forward kernels once, and once more in the backward where
-    its level is checkpointed; every block runs the four backward kernels once."""
+def expected_uvit_launches(fs, forwards: int = 0, train_steps: int = 0) -> dict:
+    """Launches of ``forwards`` no-grad forwards and ``train_steps`` forward
+    + backward passes (or train steps) of a recipe's U-ViT: every
+    transformer block runs the three forward kernels once a pass, and once
+    more in the backward where its level is checkpointed; every block runs
+    the four backward kernels once a backward; an axial block also runs B10
+    (its temporal attention) wherever it runs the forward kernels, and its
+    backward is the plain formulas."""
     s = fs.spec
-    blocks = recomputed = 0
+    blocks = recomputed = axial = axial_recomputed = 0
     for i, kind in enumerate(s.block_types):
         if kind == "ResBlock":
             continue
         n = s.num_mid_blocks if i == len(s.channels) - 1 else 2 * s.num_updown_blocks[i]
-        blocks += n
-        recomputed += n if s.use_checkpointing[i] else 0
-    return {**no_launches(),
-            **{name: steps * (blocks + recomputed if name in FORWARD_KERNELS else blocks)
-               for name in ATTENTION_KERNELS}}
+        again = n if s.use_checkpointing[i] else 0
+        blocks, recomputed = blocks + n, recomputed + again
+        if kind == "AxialTransformerBlock":
+            axial, axial_recomputed = axial + n, axial_recomputed + again
+    out = no_launches()
+    for name in ATTENTION_KERNELS:
+        out[name] = (forwards * blocks + train_steps * (blocks + recomputed)
+                     if name in FORWARD_KERNELS else train_steps * blocks)
+    out["small_n_attn"] = forwards * axial + train_steps * (axial + axial_recomputed)
+    return out
 
 
 def expected_dit_launches(spec, forwards: int = 0, train_steps: int = 0) -> dict:
@@ -1214,6 +1247,33 @@ AXIAL_GRAD_PROBES = (
     "mid_blocks.1.another_attn.proj.weight",
     "mid_blocks.1.another_attn.out.weight",
     "up_blocks.0.1.another_attn.out.weight",
+)
+
+
+# the temporal attention's q/k norm scales: no route probe (see above), but
+# held by the fp32 witness (fp32_witness), where two bf16 routes once read
+# 6.7e-2 apart
+AXIAL_NORM_PROBES = (
+    "down_blocks.2.0.another_attn.q_norm.weight",
+    "mid_blocks.1.another_attn.q_norm.weight",
+    "mid_blocks.1.another_attn.k_norm.weight",
+    "up_blocks.0.1.another_attn.k_norm.weight",
+)
+# the base-width U-ViT: the flagship's probes at its block counts (16 mid blocks)
+BASE_GRAD_PROBES = tuple(n.replace("mid_blocks.10.", "mid_blocks.8.") for n in GRAD_PROBES)
+# its axial variant (axial blocks at level 3 only, 4 mid blocks)
+BASE_AXIAL_GRAD_PROBES = (
+    "down_blocks.2.0.fused_attn_mlp_proj.weight",
+    "mid_blocks.1.fused_attn_mlp_proj.weight",
+    "mid_blocks.1.another_attn.proj.weight",
+    "mid_blocks.1.another_attn.out.weight",
+    "mid_blocks.3.another_attn.out.weight",
+)
+BASE_AXIAL_NORM_PROBES = (
+    "mid_blocks.0.another_attn.q_norm.weight",
+    "mid_blocks.1.another_attn.q_norm.weight",
+    "mid_blocks.1.another_attn.k_norm.weight",
+    "mid_blocks.3.another_attn.k_norm.weight",
 )
 
 
@@ -1406,31 +1466,35 @@ def run_factorized_path(record: dict) -> dict:
     return launches
 
 
-def run_axial_path(record: dict) -> dict:
-    """The flagship U-ViT with ``AxialTransformerBlock`` on its two
-    transformer levels, at the flagship's widths and a cut depth: each block
-    attends over a frame's tokens (B2 -> B1 -> B3) and then over the 8 frames
-    of each position, kernel B10 with B0 * tokens a frame * heads items.
-    Route checks, then one forward (B = 2) and one forward + backward (B = 1)
-    between a reset and a read of the launch counts."""
+def run_axial_path(record: dict, fs, axial_levels, depth: dict, key: str, what: str, seeds,
+                   probes, norm_probes) -> dict:
+    """A pose recipe's U-ViT with ``AxialTransformerBlock`` on the
+    transformer levels in ``axial_levels``, at the recipe's widths and the
+    cut ``depth``: each axial block attends over a frame's tokens (B2 -> B1
+    -> B3) and then over the 8 frames of each position, kernel B10 with
+    B0 * tokens a frame * heads items. Route checks forward (B = 2) and
+    forward + backward (B = 1, ``probes``), the fp32 gradient witness
+    (``probes`` and the temporal q/k norm scales ``norm_probes``), then one
+    forward and one forward + backward between a reset and a read of the
+    launch counts. ``seeds``: the model's, the inputs' and the loss's."""
     import dataclasses
 
     import torch
     from dfot_tpu_torch import ops
-    from dfot_tpu_torch.algorithms.dfot_video import cond_transform, flagship
+    from dfot_tpu_torch.algorithms.dfot_video import cond_transform
     from dfot_tpu_torch.diffusion.continuous import continuous_model_noise_input
     from dfot_tpu_torch.diffusion.core import make_schedule
     from dfot_tpu_torch.models import uvit
 
-    fs = flagship()
-    spec = dataclasses.replace(
-        fs.spec, block_types=("ResBlock", "ResBlock", "AxialTransformerBlock",
-                              "AxialTransformerBlock"), **AXIAL_DEPTH)
+    s_model, s_inputs, s_loss = seeds
+    block_types = tuple("AxialTransformerBlock" if i in axial_levels else kind
+                        for i, kind in enumerate(fs.spec.block_types))
+    spec = dataclasses.replace(fs.spec, block_types=block_types, **depth)
     fs = fs._replace(spec=spec)
-    train_model = build_random_model(fs, seed=40, token_io=False)
+    train_model = build_random_model(fs, seed=s_model, token_io=False)
     model = sampling_copy(fs, train_model)
     B, T, R, p = AXIAL_BATCH, spec.max_temporal_length, fs.resolution, spec.patch_size
-    gen = torch.Generator(device="cuda").manual_seed(41)
+    gen = torch.Generator(device="cuda").manual_seed(s_inputs)
     x = torch.randn(B, T, (R // p) ** 2, p * p * fs.x_channels, generator=gen, device="cuda")
     k = torch.randint(0, fs.dcfg.timesteps, (B, T), generator=gen, device="cuda")
     noise_in = continuous_model_noise_input(fs.dcfg, make_schedule(fs.dcfg, "cuda"), k)
@@ -1442,14 +1506,15 @@ def run_axial_path(record: dict) -> dict:
             yield
 
     with torch.no_grad():
-        check_route(record, "axial_forward", f"axial U-ViT forward B={B}", FORWARD_REL_TOL,
+        check_route(record, f"{key}_forward", f"{what} forward B={B}", FORWARD_REL_TOL,
                     model.use_plain_attention, lambda: model(x, noise_in, pose),
                     {"attention ignoring q, k": no_qk})
-    loss_fn = flagship_loss_fn(fs, train_model, TRAIN_BATCH, 42)
-    gradient_routes(record, "axial_gradient_route",
-                    f"axial U-ViT forward + backward B={TRAIN_BATCH}", train_model,
-                    train_model.use_plain_attention, loss_fn, AXIAL_GRAD_PROBES, no_qk,
+    loss_fn = flagship_loss_fn(fs, train_model, TRAIN_BATCH, s_loss)
+    gradient_routes(record, f"{key}_gradient_route",
+                    f"{what} forward + backward B={TRAIN_BATCH}", train_model,
+                    train_model.use_plain_attention, loss_fn, probes, no_qk,
                     must_reject=("another_attn.proj.weight", "another_attn.out.weight"))
+    fp32_witness(record, f"{key}_fp32_witness", what, fs, train_model, probes + norm_probes)
 
     ops.reset_launch_counts()
     with torch.no_grad():
@@ -1459,18 +1524,151 @@ def run_axial_path(record: dict) -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     train_model.zero_grad(set_to_none=True)
-    require(bool(torch.isfinite(out).all()), "axial U-ViT: non-finite output")
+    require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
     # per axial block: the packed route once (spatial) and B10 once (temporal)
-    expect = expected_train_launches(fs, 1)
-    blocks = expect["flash_bwd_dq"]
-    expect = {name: n + (blocks if name in FORWARD_KERNELS else 0) for name, n in expect.items()}
-    expect["small_n_attn"] = expect["flash_fwd"]
-    record["axial"] = {"batch_forward": B, "batch_backward": TRAIN_BATCH, "axial_blocks": blocks,
-                       "launches": launches, "shape": list(out.shape)}
-    log(f"axial U-ViT path ({blocks} axial blocks; one forward, one forward + backward): "
-        f"launches {launches}")
-    require_launches("the axial U-ViT path", launches, expect)
+    expect = expected_uvit_launches(fs, forwards=1, train_steps=1)
+    record[key] = {"batch_forward": B, "batch_backward": TRAIN_BATCH, "launches": launches,
+                   "shape": list(out.shape)}
+    log(f"{what} path (one forward, one forward + backward): launches {launches}")
+    require_launches(f"the {what} path", launches, expect)
     return launches
+
+
+def fp32_witness(record: dict, key: str, what: str, fs, model, probes) -> None:
+    """The gradients of ``probes`` (a pose recipe's loss at B = 1, dropout
+    off) on the bf16 kernel route and the bf16 plain route, each held against
+    an fp32 witness: the plain route with the recipe's precision set to fp32
+    (no autocast; TF32 is off). Records each route's relative L2 to the
+    witness and the two bf16 routes' to each other; the kernel route must be
+    no further from the witness than twice the plain bf16 route or
+    ``GRAD_REL_TOL``, whichever is larger."""
+    import torch
+
+    params = dict(model.named_parameters())
+    fs32 = fs._replace(train=fs.train._replace(precision="fp32"))
+    grads = {}
+    was_training = model.training
+    model.eval()
+    try:
+        for label, recipe, plain in (("bf16 kernel", fs, False), ("bf16 plain", fs, True),
+                                     ("fp32 plain", fs32, True)):
+            model.use_plain_attention(plain)
+            model.zero_grad(set_to_none=True)
+            flagship_loss_fn(recipe, model, TRAIN_BATCH, 42)().backward()
+            torch.cuda.synchronize()
+            grads[label] = {n: params[n].grad.detach().float().clone() for n in probes}
+    finally:
+        model.use_plain_attention(False)
+        model.zero_grad(set_to_none=True)
+        model.train(was_training)
+    wit = grads["fp32 plain"]
+    rel = {label: {n: rel_l2(grads[label][n], wit[n]) for n in probes}
+           for label in ("bf16 kernel", "bf16 plain")}
+    between = {n: rel_l2(grads["bf16 kernel"][n], grads["bf16 plain"][n]) for n in probes}
+    record[key] = {"vs_fp32": rel, "kernel_vs_plain_bf16": between, "probes": list(probes)}
+    log(f"{what}: gradients against the fp32 plain-route witness, relative L2 "
+        f"(bf16 kernel route / bf16 plain route / kernel vs plain):")
+    for n in probes:
+        log(f"  {n:52s} {rel['bf16 kernel'][n]:.3e} / {rel['bf16 plain'][n]:.3e} / "
+            f"{between[n]:.3e}")
+    for n in probes:
+        require(all(bool(torch.isfinite(g[n]).all()) for g in grads.values()),
+                f"{what}: non-finite gradient of {n}")
+        bound = max(2 * rel["bf16 plain"][n], GRAD_REL_TOL)
+        require(rel["bf16 kernel"][n] <= bound,
+                f"{what}: the kernel route's gradient of {n} is {rel['bf16 kernel'][n]} from "
+                f"the fp32 witness (bound {bound})")
+
+
+def run_uvit_paths(record: dict, fs, key: str, what: str, seeds, probes) -> dict:
+    """A pose recipe's U-ViT at full width and depth (the flagship, or
+    UViT3DPose at the backbone's own widths, whose level 3 has heads of
+    256), seeded random weights, fp32 to train and a bf16 copy to sample: a
+    forward (B = 2) on the kernel route, the plain route and the
+    uniform-attention control; the 50-step 8-frame window with its launch
+    counts required; a profiled 10-step window; a forward + backward
+    (B = 1) against the plain route with the zero-dq control (``probes``);
+    six train steps with their launch counts required; a profiled step.
+    ``key`` prefixes the record's keys and the paths' names; ``seeds``: the
+    model's, the forward's inputs', the window's, the profiled window's, the
+    gradient check's and the train batch's."""
+    import dataclasses
+
+    import torch
+    from dfot_tpu_torch import ops
+
+    s_model, s_inputs, s_window, s_profile, s_grad, s_batch = seeds
+    s = fs.spec
+    t0 = time.perf_counter()
+    train_model = build_random_model(fs, seed=s_model, token_io=False)
+    model = sampling_copy(fs, train_model)
+    n_params = sum(p.numel() for p in model.parameters())
+    record[f"{key}model"] = {"parameters": n_params, "channels": list(s.channels),
+                             "num_heads": s.num_heads,
+                             "head_dims": [c // s.num_heads for c in s.channels[2:]]}
+    log(f"{what} UViT3DPose: {n_params / 1e6:.1f}M parameters (channels {s.channels}, "
+        f"{s.num_heads} heads: d = {s.channels[2] // s.num_heads} at level 2, "
+        f"{s.channels[3] // s.num_heads} at level 3), seeded random weights, fp32 to train "
+        f"and a bf16 copy to sample ({time.perf_counter() - t0:.1f} s)")
+    with torch.no_grad():
+        x, nl, cond, cmask = flagship_inputs(
+            fs, model, WINDOW_BATCH, torch.Generator(device="cuda").manual_seed(s_inputs))
+        check_route(record, f"{key}forward", f"{what} forward B={WINDOW_BATCH} T=8 256px",
+                    FORWARD_REL_TOL, model.use_plain_attention, lambda: model(x, nl, cond, cmask),
+                    {"attention ignoring q, k": control_attention})
+        del x, nl, cond, cmask
+
+    # the sampling path
+    ro = make_rollout(fs, model, fs.dcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = run_window(ro, fs, seed=s_window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window_launches = ops.launch_counts()
+    T = s.max_temporal_length
+    evals = ro.stats["denoiser_evals_b1"] // WINDOW_BATCH
+    record[f"{key}window"] = {
+        "wall_s": wall, "frames_per_s": (T - 1) / wall, "launches": window_launches,
+        "denoiser_evals_b1": ro.stats["denoiser_evals_b1"], "denoiser_evals": evals,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "shape": list(video.shape),
+    }
+    log(f"{what} 8-frame window, 50 DDIM steps, vanilla HG 4.0: {wall:.3f} s wall, "
+        f"{(T - 1) / wall:.4f} generated frames/s, peak memory "
+        f"{record[f'{key}window']['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+        f"{window_launches}")
+    expect = (1, T, fs.resolution, fs.resolution, fs.x_channels)
+    require(tuple(video.shape) == expect, f"{what} window shape {tuple(video.shape)} != {expect}")
+    require(bool(torch.isfinite(video).all()), f"{what} window: non-finite output")
+    require(evals == fs.dcfg.sampling_timesteps, f"{what} window took {evals} evaluations")
+    # every transformer block runs the packed route once an evaluation
+    require_launches(f"the {what} window", window_launches,
+                     expected_uvit_launches(fs, forwards=evals))
+    del video
+
+    short = dataclasses.replace(fs.dcfg, sampling_timesteps=PROFILED_WINDOW_STEPS)
+    ro_short = make_rollout(fs, model, short)
+    profiled(record, f"{key}profile", f"{PROFILED_WINDOW_STEPS}-step {what} window",
+             lambda: run_window(ro_short, fs, seed=s_profile))
+    del ro, ro_short, model
+    torch.cuda.empty_cache()
+
+    # the training path
+    gradient_routes(record, f"{key}gradient_route",
+                    f"{what} forward + backward B={TRAIN_BATCH}", train_model,
+                    train_model.use_plain_attention,
+                    flagship_loss_fn(fs, train_model, TRAIN_BATCH, s_grad), probes,
+                    control_zero_dq, ("q_norm.weight", "fused_attn_mlp_proj.weight"))
+    trained = run_train_path(
+        record, f"{key}train", f"{what} train step", fs, train_model,
+        train_batch(fs, TRAIN_BATCH, seed=s_batch), probes,
+        expected_uvit_launches(fs, train_steps=TRAIN_STEPS))
+    profiled(record, f"{key}train_profile", f"{what} train step",
+             lambda: trained["step"](trained["state"], trained["batch"], trained["gen"]),
+             unprofiled_s=record[f"{key}train"]["step_s_median"])
+    return {f"{key}window": window_launches, f"{key}train": trained["launches"]}
 
 
 def kernel_class(name: str) -> str:
@@ -1549,9 +1747,6 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}", file=sys.stderr)
         return 2
-    import dataclasses
-
-    from dfot_tpu_torch import ops
     from dfot_tpu_torch.ops import _cuda
 
     # stated numerics: fp32 matmuls and convolutions in full fp32 (the plain
@@ -1580,66 +1775,11 @@ def main() -> int:
     try:
         log("kernels vs plain versions at the shapes of the paths (bf16):")
         results = check_kernels(record)
-        from dfot_tpu_torch.algorithms.dfot_video import flagship
-
-        fs = flagship()
-        t0 = time.perf_counter()
-        train_model = build_random_model(fs, seed=0, token_io=False)
-        model = sampling_copy(fs, train_model)
-        log(f"flagship UViT3DPose: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
-            f"parameters, seeded random weights, fp32 to train and a bf16 copy to sample "
-            f"({time.perf_counter() - t0:.1f} s)")
-        with torch.no_grad():
-            x, nl, cond, cmask = flagship_inputs(
-                fs, model, 2, torch.Generator(device="cuda").manual_seed(4))
-            check_route(record, "forward", "full-width forward B=2 T=8 256px", FORWARD_REL_TOL,
-                        model.use_plain_attention, lambda: model(x, nl, cond, cmask),
-                        {"attention ignoring q, k": control_attention})
-            del x, cond
+        from dfot_tpu_torch.algorithms.dfot_video import flagship, uvit3d_pose_base
 
         small_window_check(record)
-
-        # the sampling path
-        ro = make_rollout(fs, model, fs.dcfg)
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        video = run_window(ro, fs, seed=5)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        window_launches = ops.launch_counts()
-        T = fs.spec.max_temporal_length
-        expect = (1, T, fs.resolution, fs.resolution, fs.x_channels)
-        record["window"] = {
-            "wall_s": wall, "frames_per_s": (T - 1) / wall, "launches": window_launches,
-            "denoiser_evals_b1": ro.stats["denoiser_evals_b1"], "shape": list(video.shape),
-        }
-        log(f"8-frame window, 50 DDIM steps, vanilla HG 4.0: {wall:.3f} s wall, "
-            f"{(T - 1) / wall:.4f} generated frames/s; launches {window_launches}")
-        require(tuple(video.shape) == expect, f"window shape {tuple(video.shape)} != {expect}")
-        require(bool(torch.isfinite(video).all()), "window: non-finite output")
-        for name in FORWARD_KERNELS:
-            require(window_launches[name] > 0, f"kernel {name} was not launched by the window")
-        del video
-
-        short = dataclasses.replace(fs.dcfg, sampling_timesteps=PROFILED_WINDOW_STEPS)
-        ro_short = make_rollout(fs, model, short)
-        profiled(record, "profile", f"{PROFILED_WINDOW_STEPS}-step window",
-                 lambda: run_window(ro_short, fs, seed=6))
-        del ro, ro_short, model
-        torch.cuda.empty_cache()
-
-        # the training path
-        gradient_route_check(record, fs, train_model)
-        trained = run_train_path(
-            record, "train", "flagship train step", fs, train_model,
-            train_batch(fs, TRAIN_BATCH, seed=9), GRAD_PROBES,
-            expected_train_launches(fs, TRAIN_STEPS))
-        profiled(record, "train_profile", "train step",
-                 lambda: trained["step"](trained["state"], trained["batch"], trained["gen"]),
-                 unprofiled_s=record["train"]["step_s_median"])
-        by_path = {"window": window_launches, "train": trained["launches"]}
-        del trained, train_model
+        by_path = run_uvit_paths(record, flagship(), "", "flagship", (0, 4, 5, 6, 7, 9),
+                                 GRAD_PROBES)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1648,7 +1788,21 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path["factorized"] = run_factorized_path(record)
-        by_path["axial"] = run_axial_path(record)
+        by_path["axial"] = run_axial_path(
+            record, flagship(), (2, 3), AXIAL_DEPTH, "axial", "axial U-ViT", (40, 41, 42),
+            AXIAL_GRAD_PROBES, AXIAL_NORM_PROBES)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # UViT3DPose at the backbone's own widths: heads of 256 at level 3
+        by_path.update(run_uvit_paths(record, uvit3d_pose_base(), "base_", "base-width",
+                                      (50, 51, 52, 53, 54, 55), BASE_GRAD_PROBES))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["base_axial"] = run_axial_path(
+            record, uvit3d_pose_base(), (3,), BASE_AXIAL_DEPTH, "base_axial",
+            "base-width axial U-ViT", (60, 61, 62), BASE_AXIAL_GRAD_PROBES,
+            BASE_AXIAL_NORM_PROBES)
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

@@ -16,7 +16,8 @@ per-block pose FiLM terms, once per window) and the training side
 :func:`flagship` gives the values that command composes, in code (the
 machine with the card has no YAML loader); a CPU test holds them equal to
 ``dfot_tpu.config``'s composition, the training values with
-``experiment.tasks=[training]``. :func:`k600_dit_xl` does the same for the
+``experiment.tasks=[training]``. :func:`uvit3d_pose_base` is the same recipe
+on the backbone at its own published widths (heads of 256 at level 3). :func:`k600_dit_xl` does the same for the
 plain ``DFoTVideoAlgo`` on the Kinetics-600 latent recipe::
 
     python main.py +name=k600 dataset=kinetics_600 algorithm=dfot_video \
@@ -31,6 +32,7 @@ build tensors take ``device=None``, which means the card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -46,7 +48,8 @@ from ..training.trainer import make_train_step as _make_train_step
 from ..utils.geometry import expand_pose_conditions
 
 __all__ = [
-    "Flagship", "DiTRecipe", "TrainRecipe", "flagship", "k600_dit_xl", "build_model",
+    "Flagship", "DiTRecipe", "TrainRecipe", "flagship", "uvit3d_pose_base", "k600_dit_xl",
+    "build_model",
     "sampling_cond_transform",
     "cond_transform", "make_train_apply", "make_train_state", "make_train_step",
 ]
@@ -132,6 +135,23 @@ def flagship() -> Flagship:
     return Flagship(spec, dcfg, hg, resolution=256, x_channels=3,
                     conditioning_type="ray_encoding", external_cond_dim=180,
                     use_fourier_noise_emb=True, external_cond_dropout=0.1, train=train)
+
+
+def uvit3d_pose_base() -> Flagship:
+    """The flagship recipe (256 px, 8 frames, ray encodings, continuous
+    v-prediction, 50 DDIM steps, vanilla HG at 4, the same training values)
+    on UViT3DPose at the backbone's own published widths,
+    ``configurations/algorithm/backbone/u_vit3d_pose.yaml`` without the
+    RealEstate10K overlay: channels (128, 256, 512, 1024), 4 heads, (3, 3, 3)
+    up/down blocks and 16 mid blocks, no checkpointing. Level 2 has heads of
+    128 over 8192 tokens, level 3 heads of 256 over 2048."""
+    fs = flagship()
+    spec = dataclasses.replace(
+        fs.spec, channels=(128, 256, 512, 1024), emb_channels=1024, patch_size=2,
+        num_updown_blocks=(3, 3, 3), num_mid_blocks=16, num_heads=4,
+        use_checkpointing=(False, False, False, False),
+    )
+    return fs._replace(spec=spec)
 
 
 class DiTRecipe(NamedTuple):

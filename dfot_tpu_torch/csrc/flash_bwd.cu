@@ -31,13 +31,19 @@
 // operand: B1's PV). LSE and delta of a thread's two rows are read once.
 // B1's schedule: the dS of tile j is computed while the product of tile
 // j - 1 runs, and the two consumers take turns to issue, so one's exp2
-// overlaps the other's products. K/V tiles are 128 keys at d = 64 and 64 at
+// overlaps the other's products. K/V tiles are 128 keys at d = 64, 64 at
 // d = 128, where two 128-key score tiles, dQ and the packed dS would take
-// 224 registers and spill.
+// 224 registers and spill, and 32 at d = 256 (3 stages): Q and dO take
+// 128 KB there, and dQ alone 128 registers a consumer thread.
 //
-// dk, dv (B5): wgmma, TMA and warp specialisation (csrc/hopper.cuh). One block
-// owns 128 keys: a producer warpgroup (setmaxnreg down; one elected thread
-// issues TMA) and two consumer warpgroups of 64 keys each. K and V are loaded
+// dk, dv (B5): wgmma, TMA and warp specialisation (csrc/hopper.cuh). At d = 64
+// and 128 one block owns 128 keys: a producer warpgroup (setmaxnreg down; one
+// elected thread issues TMA) and two consumer warpgroups of 64 keys each. At
+// d = 256 the dK and dV accumulators of 64 keys would take 256 registers a
+// thread, so a block owns 64 keys and its two consumers split the outputs:
+// both compute the block's S^T and dP^T, consumer 0 accumulates dV and
+// consumer 1 dK (128 registers each); K and V take 64 KB and two Q/dO stages
+// 129 KB. It stays deterministic, with no atomics. K and V are loaded
 // once; 64-row Q and dO tiles with their LSE and delta slices stream through
 // a ring of STAGES stages (full/empty mbarriers), so loads overlap the
 // products. Per tile each consumer works on transposed scores (keys as rows):
@@ -47,7 +53,8 @@
 // natural layout as the transposed B operand).
 //
 // Both compute only the first DV lanes: DV = the true head dim rounded up to
-// 16 (80 for K600 @DiT/XL's heads of 72 zero-padded to 128), so the score
+// 16 (80 for K600 @DiT/XL's heads of 72 zero-padded to 128) and then to a
+// compiled width (192 or 256 for a head padded to 256), so the score
 // products contract over DV / 16 k-steps and the output products have an n
 // of DV; lanes DV..D-1 of dq, dk, dv are written as zeros (the pad lanes of
 // q, k, v and dO are zero, so they are exact). The 3-D tensor maps (d, n, bh)
@@ -63,26 +70,28 @@ using namespace dfot;
 // dk, dv: wgmma, a TMA ring of query tiles, warp specialisation
 // ---------------------------------------------------------------------------
 
-constexpr int kKeys = 128;       // keys of one block, 64 per consumer warpgroup
+// keys of one block, by padded head dim (the tile plan's FLASH_DKV_KEYS): 128,
+// 64 per consumer warpgroup, or at d = 256 64 that both consumers share
+constexpr int kKeysNarrow = 128;
+constexpr int kKeysWide = 64;
 constexpr int kQRows = 64;       // query rows of a streamed tile
 constexpr int kThreads = 384;  // producer + two consumers
 constexpr int kConsumerWarps = 8;
-constexpr int kKeyAtomBytes = kKeys * kLineBytes;   // one 64-lane column block of K or V
-constexpr int kQAtomBytes = kQRows * kLineBytes;    // ... of a Q or dO tile
+constexpr int kQAtomBytes = kQRows * kLineBytes;    // one 64-lane column block of Q or dO
 
-template <int D>
-__host__ __device__ constexpr int kv_bytes() { return D / kAtomLanes * kKeyAtomBytes; }
+template <int D, int KEYS>
+__host__ __device__ constexpr int kv_bytes() { return D / kAtomLanes * KEYS * kLineBytes; }
 template <int D>
 __host__ __device__ constexpr int q_bytes() { return D / kAtomLanes * kQAtomBytes; }
 // dynamic shared memory: 1 KB of alignment slack, K, V, STAGES x (Q, dO, LSE,
 // delta), barriers
-template <int D, int STAGES>
+template <int D, int KEYS, int STAGES>
 __host__ __device__ constexpr int dkv_smem_bytes() {
-  return 1024 + 2 * kv_bytes<D>() + STAGES * (2 * q_bytes<D>() + 2 * kQRows * 4) +
+  return 1024 + 2 * kv_bytes<D, KEYS>() + STAGES * (2 * q_bytes<D>() + 2 * kQRows * 4) +
          8 * (1 + 2 * STAGES);
 }
 
-template <int D, int DV, int STAGES>
+template <int D, int DV, int KEYS, int STAGES>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do,
@@ -90,7 +99,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int n, float sm_scale, int causal) {
-  constexpr int kKV = kv_bytes<D>();
+  // split: the block's keys are both consumers', consumer 0 owns their dV
+  // and consumer 1 their dK
+  constexpr bool kSplit = KEYS == kKeysWide;
+  constexpr int kKeyAtomBytes = KEYS * kLineBytes;  // one 64-lane column block of K or V
+  constexpr int kKV = kv_bytes<D, KEYS>();
   constexpr int kQ = q_bytes<D>();
   constexpr int kAtoms = D / kAtomLanes;
   extern __shared__ unsigned char smem_raw[];
@@ -104,7 +117,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int k0 = blockIdx.x * kKeys;
+  const int k0 = blockIdx.x * KEYS;
   const int head = blockIdx.y;
   // causal: queries before the block's first key see none of its keys
   const int i0 = causal ? k0 / kQRows : 0;
@@ -148,16 +161,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     // consumer warpgroups: 64 keys each; scores are transposed (keys as rows)
     setmaxnreg_inc<240>();
     const int w = threadIdx.x / 128 - 1;
+    const int kw = kSplit ? 0 : w;  // which 64 of the block's keys
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, c = lane % 4;
-    const int key0 = k0 + w * 64 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+    const int key0 = k0 + kw * 64 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
     const float a2 = sm_scale * kLog2e;
-    const uint32_t k_addr = smem_u32(ks) + w * 64 * kLineBytes;
-    const uint32_t v_addr = smem_u32(vs) + w * 64 * kLineBytes;
+    const uint32_t k_addr = smem_u32(ks) + kw * 64 * kLineBytes;
+    const uint32_t v_addr = smem_u32(vs) + kw * 64 * kLineBytes;
 
-    float dk_acc[DV / 2], dv_acc[DV / 2];
+    // dV; split: consumer 0's dV or consumer 1's dK, and dk_acc unused
+    float dv_acc[DV / 2], dk_acc[kSplit ? 1 : DV / 2];
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kSplit ? 1 : DV / 2); ++i) dk_acc[i] = 0.f;
 
     mbar_wait(kv_full, 0);
     for (int t = 0; t < n_tiles; ++t) {
@@ -191,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // P^T = exp2(S^T a2 - lse log2 e), the query's LSE broadcast down the
       // column; dS^T = P^T (dP^T - delta), both in place, in fp32
-      const bool diagonal = causal && r0 < k0 + kKeys;
+      const bool diagonal = causal && r0 < k0 + KEYS;
       const float* l_s = ls + s * kQRows;
       const float* d_s = dls + s * kQRows;
 #pragma unroll
@@ -205,52 +222,91 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float dd = (e & 1) ? dl.y : dl.x;
           float p = exp2f(fmaf(st[4 * i + e], a2, -lq * kLog2e));
           if (diagonal && r0 + col + (e & 1) < key0 + (e / 2) * 8) p = 0.f;
-          st[4 * i + e] = p;
-          dpt[4 * i + e] = p * (dpt[4 * i + e] - dd);
+          if constexpr (kSplit) {
+            // the A operand of this consumer's product: P^T or dS^T
+            dpt[4 * i + e] = w == 0 ? p : p * (dpt[4 * i + e] - dd);
+          } else {
+            st[4 * i + e] = p;
+            dpt[4 * i + e] = p * (dpt[4 * i + e] - dd);
+          }
         }
       }
-      uint32_t pt[kQRows / 16][4], dst[kQRows / 16][4];
-      pack_a<kQRows / 16>(pt, st);
-      pack_a<kQRows / 16>(dst, dpt);
-
-      // dV += P^T dO and dK += dS^T Q, contracting over the tile's queries
-      fence_regs<kQRows / 16>(pt);
-      fence_regs<kQRows / 16>(dst);
-      wgmma_fence();
+      if constexpr (kSplit) {
+        // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q
+        uint32_t pa[kQRows / 16][4];
+        pack_a<kQRows / 16>(pa, dpt);
+        const uint32_t b_addr = w == 0 ? do_addr : q_addr;
+        fence_regs<kQRows / 16>(pa);
+        wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kQRows / 16; ++kc) {
-        wgmma_rs_wide<DV>(dv_acc, pt[kc], do_addr + kc * 16 * kLineBytes, kQAtomBytes);
-        wgmma_rs_wide<DV>(dk_acc, dst[kc], q_addr + kc * 16 * kLineBytes, kQAtomBytes);
+        for (int kc = 0; kc < kQRows / 16; ++kc)
+          wgmma_rs_wide<DV>(dv_acc, pa[kc], b_addr + kc * 16 * kLineBytes, kQAtomBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<DV / 2>(dv_acc);
+        fence_regs<kQRows / 16>(pa);
+      } else {
+        uint32_t pt[kQRows / 16][4], dst[kQRows / 16][4];
+        pack_a<kQRows / 16>(pt, st);
+        pack_a<kQRows / 16>(dst, dpt);
+
+        // dV += P^T dO and dK += dS^T Q, contracting over the tile's queries
+        fence_regs<kQRows / 16>(pt);
+        fence_regs<kQRows / 16>(dst);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < kQRows / 16; ++kc) {
+          wgmma_rs_wide<DV>(dv_acc, pt[kc], do_addr + kc * 16 * kLineBytes, kQAtomBytes);
+          wgmma_rs_wide<DV>(dk_acc, dst[kc], q_addr + kc * 16 * kLineBytes, kQAtomBytes);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<DV / 2>(dv_acc);
+        fence_regs<DV / 2>(dk_acc);
+        fence_regs<kQRows / 16>(pt);
+        fence_regs<kQRows / 16>(dst);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<DV / 2>(dv_acc);
-      fence_regs<DV / 2>(dk_acc);
-      fence_regs<kQRows / 16>(pt);
-      fence_regs<kQRows / 16>(dst);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
     }
 
     // the softmax scale once, on the fp32 sums; lanes DV..D-1 are zeros
+    if constexpr (kSplit) {
+      __nv_bfloat16* out = w == 0 ? dv : dk;
+      const float scale = w == 0 ? 1.f : sm_scale;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key >= n) continue;
-      const size_t row = (row_base + key) * D;
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= n) continue;
+        __nv_bfloat16* row = out + (row_base + key) * D;
 #pragma unroll
-      for (int i = 0; i < DV / 8; ++i) {
-        const int col = 8 * i + 2 * c;
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + col) = __floats2bfloat162_rn(
-            dk_acc[4 * i + 2 * r] * sm_scale, dk_acc[4 * i + 2 * r + 1] * sm_scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
-            __floats2bfloat162_rn(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
+        for (int i = 0; i < DV / 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + 2 * c) = __floats2bfloat162_rn(
+              dv_acc[4 * i + 2 * r] * scale, dv_acc[4 * i + 2 * r + 1] * scale);
+#pragma unroll
+        for (int i = DV / 8; i < D / 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + 2 * c) = __floats2bfloat162_rn(0.f, 0.f);
       }
+    } else {
 #pragma unroll
-      for (int i = DV / 8; i < D / 8; ++i) {
-        const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * i + 2 * c) = zero;
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * i + 2 * c) = zero;
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= n) continue;
+        const size_t row = (row_base + key) * D;
+#pragma unroll
+        for (int i = 0; i < DV / 8; ++i) {
+          const int col = 8 * i + 2 * c;
+          *reinterpret_cast<__nv_bfloat162*>(dk + row + col) = __floats2bfloat162_rn(
+              dk_acc[4 * i + 2 * r] * sm_scale, dk_acc[4 * i + 2 * r + 1] * sm_scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+              __floats2bfloat162_rn(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
+        }
+#pragma unroll
+        for (int i = DV / 8; i < D / 8; ++i) {
+          const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+          *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * i + 2 * c) = zero;
+          *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * i + 2 * c) = zero;
+        }
       }
     }
   }
@@ -266,6 +322,7 @@ constexpr int kDqAtomBytes = kDqRows * kLineBytes;   // one 64-lane column block
 // ``tile_rows``, ops/attention.py:FLASH_DQ_KEYS)
 constexpr int kDqKeys64 = 128;
 constexpr int kDqKeys128 = 64;  // 128 keys: 224 live registers a consumer thread, spills
+constexpr int kDqKeys256 = 32;  // Q and dO take 128 KB: three 32 KB stages fit beside them
 
 template <int D>
 __host__ __device__ constexpr int dq_q_bytes() { return D / kAtomLanes * kDqAtomBytes; }
@@ -503,36 +560,37 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <int D, int DV, int STAGES>
+template <int D, int DV, int KEYS, int STAGES>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int n,
                        int stages, int smem, float sm_scale, int causal, cudaStream_t stream) {
   // the caller's tile plan must be the one compiled here
-  if (stages != STAGES || smem != dkv_smem_bytes<D, STAGES>()) return cudaErrorInvalidValue;
+  if (stages != STAGES || smem != dkv_smem_bytes<D, KEYS, STAGES>()) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   if (!make_head_map(&tm_q, q, bh, n, D, kQRows) || !make_head_map(&tm_do, d_o, bh, n, D, kQRows) ||
-      !make_head_map(&tm_k, k, bh, n, D, kKeys) || !make_head_map(&tm_v, v, bh, n, D, kKeys))
+      !make_head_map(&tm_k, k, bh, n, D, KEYS) || !make_head_map(&tm_v, v, bh, n, D, KEYS))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dkv_kernel<D, DV, STAGES>;
+  auto kernel = flash_bwd_dkv_kernel<D, DV, KEYS, STAGES>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3((n + kKeys - 1) / kKeys, bh), kThreads, smem, stream>>>(
+  kernel<<<dim3((n + KEYS - 1) / KEYS, bh), kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, sm_scale, causal);
   return cudaGetLastError();
 }
 
 bool shape_ok(int bh, int n, int d) {
-  return bh > 0 && bh <= 65535 && n > 0 && n % 64 == 0 && (d == 64 || d == 128);
+  return bh > 0 && bh <= 65535 && n > 0 && n % 64 == 0 && (d == 64 || d == 128 || d == 256);
 }
 
 }  // namespace
 
 // q, k, v, d_o, dq: (bh, n, d) contiguous bf16, 16-byte aligned; lse, delta:
-// (bh, n) fp32. d in {64, 128}, n a multiple of 64. ``lanes``: the lanes
-// computed, the true head dim rounded up to a compiled width (d, or 80 at
-// d = 128); lanes lanes..d-1 of q, k, v, d_o must be zero and come out zero
+// (bh, n) fp32. d in {64, 128, 256}, n a multiple of 64. ``lanes``: the lanes
+// computed, the true head dim rounded up to a compiled width (d, 80 at
+// d = 128, 192 at d = 256); lanes lanes..d-1 of q, k, v, d_o must be zero and
+// come out zero
 // in dq. ``stages`` and ``smem``: the caller's tile plan
 // (dfot_tpu_torch/ops/attention.py:flash_plan), checked against the compiled
 // one. Returns a cudaError_t code.
@@ -551,12 +609,19 @@ extern "C" int dfot_flash_bwd_dq(const void* q, const void* k, const void* v, co
   if (d == 128 && lanes == 128)
     return launch_dq<128, 128, kDqKeys128, 4>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
                                               smem, sm_scale, causal, s);
+  if (d == 256 && lanes == 192)
+    return launch_dq<256, 192, kDqKeys256, 3>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                              smem, sm_scale, causal, s);
+  if (d == 256 && lanes == 256)
+    return launch_dq<256, 256, kDqKeys256, 3>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                              smem, sm_scale, causal, s);
   return cudaErrorInvalidValue;
 }
 
 // As above, with dk, dv: (bh, n, d) contiguous bf16; every (bh, n) array
 // 16-byte aligned. ``dv_lanes``: the lanes computed, the true head dim rounded
-// up to a compiled width (d, or 80 at d = 128); lanes dv_lanes..d-1 of q, k,
+// up to a compiled width (d, 80 at d = 128, 192 at d = 256); lanes
+// dv_lanes..d-1 of q, k,
 // v, d_o must be zero and come out zero in dk, dv. ``stages`` and ``smem``:
 // the caller's tile plan (dfot_tpu_torch/ops/attention.py:flash_plan),
 // checked against the compiled one.
@@ -567,13 +632,19 @@ extern "C" int dfot_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   if (!shape_ok(bh, n, d)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64 && dv_lanes == 64)
-    return launch_dkv<64, 64, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages, smem,
-                                 sm_scale, causal, s);
+    return launch_dkv<64, 64, kKeysNarrow, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
+                                              smem, sm_scale, causal, s);
   if (d == 128 && dv_lanes == 80)
-    return launch_dkv<128, 80, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages, smem,
-                                  sm_scale, causal, s);
+    return launch_dkv<128, 80, kKeysNarrow, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
+                                               smem, sm_scale, causal, s);
   if (d == 128 && dv_lanes == 128)
-    return launch_dkv<128, 128, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages, smem,
-                                   sm_scale, causal, s);
+    return launch_dkv<128, 128, kKeysNarrow, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n,
+                                                stages, smem, sm_scale, causal, s);
+  if (d == 256 && dv_lanes == 192)
+    return launch_dkv<256, 192, kKeysWide, 2>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
+                                              smem, sm_scale, causal, s);
+  if (d == 256 && dv_lanes == 256)
+    return launch_dkv<256, 256, kKeysWide, 2>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
+                                              smem, sm_scale, causal, s);
   return cudaErrorInvalidValue;
 }

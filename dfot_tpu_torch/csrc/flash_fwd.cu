@@ -12,10 +12,14 @@
 // - one block is three warpgroups: a producer that gives up its registers
 //   (setmaxnreg) and whose one elected thread issues TMA, and two consumers
 //   of 64 query rows each (block = 128 query rows);
-// - TMA brings the block's Q tile once and streams 128-key K/V tiles through
+// - TMA brings the block's Q tile once and streams KN-key K/V tiles through
 //   a ring of STAGES stages with full/empty mbarriers, so loads overlap the
-//   products; a 3-D tensor map (d, n, bh) reads zeros past n;
-// - S = Q K^T is a shared-memory wgmma (m64 n128), the online softmax runs
+//   products; a 3-D tensor map (d, n, bh) reads zeros past n. KN is 128 at
+//   d = 64 and 128; at d = 256 it is 64, with 2 stages: Q (64 KB) and two
+//   64 KB K/V stages fill the 227 KB a block can take, and the 64 x 256 fp32
+//   O accumulator (128 registers a consumer thread) leaves room for a 64 x 64
+//   score tile (32) but not for a 64 x 128 one;
+// - S = Q K^T is a shared-memory wgmma (m64 nKN), the online softmax runs
 //   on its fp32 accumulators (exp2, running max of the raw scores), P is
 //   rounded to bf16 in registers and is the register A operand of O += P V,
 //   with V in its natural (keys x d) layout as the transposed B operand;
@@ -24,7 +28,8 @@
 //   runs; the two consumers take turns to issue (named barriers 1 and 2),
 //   so one's softmax overlaps the other's products;
 // - only the first DV lanes are computed: DV = the true head dim rounded up
-//   to 16 (80 for K600 @DiT/XL's heads of 72 zero-padded to 128), so QK^T
+//   to 16 (80 for K600 @DiT/XL's heads of 72 zero-padded to 128) and then to
+//   a compiled width (192 or 256 for a head padded to 256), so QK^T
 //   runs DV / 16 k-steps and PV an n of DV; lanes DV..D-1 of O are written as
 //   zeros (the pad lanes of v are zero, so they are exact).
 // Every batch of products starts with a wgmma.fence of its own, after the
@@ -39,43 +44,48 @@ namespace {
 using namespace dfot;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlock = 128;                          // query rows; keys per K/V tile
+constexpr int kBlock = 128;                          // query rows of a block
 constexpr int kThreads = 384;                        // producer + two consumers
 constexpr int kConsumerWarps = 8;
-constexpr int kAtomBytes = kBlock * kLineBytes;      // one 64-lane column block of a tile
+constexpr int kQAtomBytes = kBlock * kLineBytes;     // one 64-lane column block of Q
 constexpr float kNegInf = -1e30f;
 
 template <int D>
-__host__ __device__ constexpr int tile_bytes() { return D / kAtomLanes * kAtomBytes; }
+__host__ __device__ constexpr int q_tile_bytes() { return D / kAtomLanes * kQAtomBytes; }
+template <int D, int KN>
+__host__ __device__ constexpr int kv_tile_bytes() { return D / kAtomLanes * KN * kLineBytes; }
 
 // dynamic shared memory: 1 KB of alignment slack, Q, STAGES x (K, V), barriers
-template <int D, int STAGES>
+template <int D, int KN, int STAGES>
 __host__ __device__ constexpr int smem_bytes() {
-  return 1024 + tile_bytes<D>() * (1 + 2 * STAGES) + 8 * (1 + 2 * STAGES);
+  return 1024 + q_tile_bytes<D>() + 2 * STAGES * kv_tile_bytes<D, KN>() + 8 * (1 + 2 * STAGES);
 }
 
-template <int D, int DV, int STAGES>
+template <int D, int DV, int KN, int STAGES>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
                      float* __restrict__ lse, int n, float sm_scale, int causal) {
-  constexpr int kTile = tile_bytes<D>();
+  constexpr int kQTile = q_tile_bytes<D>();
+  constexpr int kKVTile = kv_tile_bytes<D, KN>();
+  constexpr int kKVAtomBytes = KN * kLineBytes;
   constexpr int kAtoms = D / kAtomLanes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);
-  unsigned char* ks = qs + kTile;
-  unsigned char* vs = ks + STAGES * kTile;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * kTile);
+  unsigned char* ks = qs + kQTile;
+  unsigned char* vs = ks + STAGES * kKVTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * kKVTile);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int n_blocks = (n + kBlock - 1) / kBlock;
   // causal: the longest rows first, so the short ones fill the tail
   const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * kBlock;
   const int head = blockIdx.y;
-  const int n_tiles = causal ? qb + 1 : n_blocks;
+  const int n_kv = (n + KN - 1) / KN;
+  // causal: the block's last row sees keys up to q0 + 127
+  const int n_tiles = causal ? min(n_kv, (q0 + kBlock + KN - 1) / KN) : n_kv;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -91,18 +101,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     // producer warpgroup: one thread issues every load
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(q_full, kTile);
+      mbar_arrive_expect_tx(q_full, kQTile);
       for (int a = 0; a < kAtoms; ++a)
-        tma_load_3d(qs + a * kAtomBytes, &tm_q, q_full, a * kAtomLanes, q0, head);
+        tma_load_3d(qs + a * kQAtomBytes, &tm_q, q_full, a * kAtomLanes, q0, head);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        mbar_arrive_expect_tx(&full[s], 2 * kKVTile);
         for (int a = 0; a < kAtoms; ++a) {
-          tma_load_3d(ks + s * kTile + a * kAtomBytes, &tm_k, &full[s], a * kAtomLanes,
-                      j * kBlock, head);
-          tma_load_3d(vs + s * kTile + a * kAtomBytes, &tm_v, &full[s], a * kAtomLanes,
-                      j * kBlock, head);
+          tma_load_3d(ks + s * kKVTile + a * kKVAtomBytes, &tm_k, &full[s], a * kAtomLanes,
+                      j * KN, head);
+          tma_load_3d(vs + s * kKVTile + a * kKVAtomBytes, &tm_v, &full[s], a * kAtomLanes,
+                      j * KN, head);
         }
       }
     }
@@ -123,39 +133,41 @@ __global__ void __launch_bounds__(kThreads, 1)
     float m_i[2] = {kNegInf, kNegInf};
     float l_i[2] = {0.f, 0.f};
 
-    uint32_t pa[kBlock / 16][4];  // P of the tile before, the A operand of its PV product
-    // S_j = Q K_j^T into sc (16 chunks of 8 keys), its own wgmma group
+    uint32_t pa[KN / 16][4];  // P of the tile before, the A operand of its PV product
+    // S_j = Q K_j^T into sc (KN / 8 chunks of 8 keys), its own wgmma group
     auto issue_s = [&](int j, float* sc) {
       const int s = j % STAGES;
       mbar_wait(&full[s], (j / STAGES) & 1);
-      const uint32_t k_addr = smem_u32(ks + s * kTile);
-      fence_regs<kBlock / 2>(sc);
+      const uint32_t k_addr = smem_u32(ks + s * kKVTile);
+      fence_regs<KN / 2>(sc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DV / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
-        WgmmaSS<kBlock>::mma(sc, sw128_desc(q_addr + off), sw128_desc(k_addr + off), kk > 0);
+        const uint32_t q_off = (kk / 4) * kQAtomBytes + (kk % 4) * 32;
+        const uint32_t k_off = (kk / 4) * kKVAtomBytes + (kk % 4) * 32;
+        WgmmaSS<KN>::mma(sc, sw128_desc(q_addr + q_off), sw128_desc(k_addr + k_off), kk > 0);
       }
       wgmma_commit();
     };
     // O += P_j V_j, its own wgmma group
     auto issue_pv = [&](int j) {
-      const uint32_t v_addr = smem_u32(vs + (j % STAGES) * kTile);
+      const uint32_t v_addr = smem_u32(vs + (j % STAGES) * kKVTile);
       fence_regs<DV / 2>(acc);
-      fence_regs<kBlock / 16>(pa);
+      fence_regs<KN / 16>(pa);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kBlock / 16; ++kc)
-        wgmma_rs_wide<DV>(acc, pa[kc], v_addr + kc * 16 * kLineBytes, kAtomBytes);
+      for (int kc = 0; kc < KN / 16; ++kc)
+        wgmma_rs_wide<DV>(acc, pa[kc], v_addr + kc * 16 * kLineBytes, kKVAtomBytes);
       wgmma_commit();
     };
     // tile j's mask, running row max and sum; P in place of S, and the
-    // factors that move O to the new row max in alpha
+    // factors that move O to the new row max in alpha. Masked: keys >= n
+    // and (causal) the tiles that reach past the block's first row
     auto softmax = [&](int j, float* sc, float* alpha) {
-      const int key0 = j * kBlock;
-      if (key0 + kBlock > n || (causal && j == n_tiles - 1)) {
+      const int key0 = j * KN;
+      if (key0 + KN > n || (causal && key0 + KN - 1 > q0)) {
 #pragma unroll
-        for (int i = 0; i < kBlock / 8; ++i) {
+        for (int i = 0; i < KN / 8; ++i) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = key0 + 8 * i + 2 * c + (e & 1);
@@ -166,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
-      for (int i = 0; i < kBlock / 8; ++i) {
+      for (int i = 0; i < KN / 8; ++i) {
         mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
         mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
       }
@@ -180,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       const float mb0 = mx[0] * a2, mb1 = mx[1] * a2;
 #pragma unroll
-      for (int i = 0; i < kBlock / 8; ++i) {
+      for (int i = 0; i < KN / 8; ++i) {
         sc[4 * i + 0] = exp2f(fmaf(sc[4 * i + 0], a2, -mb0));
         sc[4 * i + 1] = exp2f(fmaf(sc[4 * i + 1], a2, -mb0));
         sc[4 * i + 2] = exp2f(fmaf(sc[4 * i + 2], a2, -mb1));
@@ -198,27 +210,27 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (w == 1) pass_turn();  // consumer 0 goes first
     mbar_wait(q_full, 0);
     {
-      float sc[kBlock / 2], alpha[2];
+      float sc[KN / 2], alpha[2];
       wait_turn();
       issue_s(0, sc);
       pass_turn();
       wgmma_wait<0>();
-      fence_regs<kBlock / 2>(sc);
+      fence_regs<KN / 2>(sc);
       softmax(0, sc, alpha);
-      pack_a<kBlock / 16>(pa, sc);
+      pack_a<KN / 16>(pa, sc);
     }
     for (int j = 1; j < n_tiles; ++j) {
-      float sc[kBlock / 2], alpha[2];
+      float sc[KN / 2], alpha[2];
       wait_turn();
       issue_s(j, sc);
       issue_pv(j - 1);
       pass_turn();
       wgmma_wait<1>();  // S_j is done, PV_{j-1} may still run
-      fence_regs<kBlock / 2>(sc);
+      fence_regs<KN / 2>(sc);
       softmax(j, sc, alpha);
       wgmma_wait<0>();
       fence_regs<DV / 2>(acc);
-      fence_regs<kBlock / 16>(pa);
+      fence_regs<KN / 16>(pa);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[(j - 1) % STAGES]);  // done with tile j - 1
 #pragma unroll
@@ -228,14 +240,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         acc[4 * i + 2] *= alpha[1];
         acc[4 * i + 3] *= alpha[1];
       }
-      pack_a<kBlock / 16>(pa, sc);
+      pack_a<KN / 16>(pa, sc);
     }
     wait_turn();
     issue_pv(n_tiles - 1);
     if (w == 0) pass_turn();  // consumer 1's last turn is its last sync
     wgmma_wait<0>();
     fence_regs<DV / 2>(acc);
-    fence_regs<kBlock / 16>(pa);
+    fence_regs<KN / 16>(pa);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[(n_tiles - 1) % STAGES]);
 
@@ -263,17 +275,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, int DV, int STAGES>
+template <int D, int DV, int KN, int STAGES>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                    int n, int stages, int smem, float sm_scale, int causal,
                    cudaStream_t stream) {
   // the caller's tile plan must be the one compiled here
-  if (stages != STAGES || smem != smem_bytes<D, STAGES>()) return cudaErrorInvalidValue;
+  if (stages != STAGES || smem != smem_bytes<D, KN, STAGES>()) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_head_map(&tm_q, q, bh, n, D, kBlock) ||
-      !make_head_map(&tm_k, k, bh, n, D, kBlock) || !make_head_map(&tm_v, v, bh, n, D, kBlock))
+      !make_head_map(&tm_k, k, bh, n, D, KN) || !make_head_map(&tm_v, v, bh, n, D, KN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_kernel<D, DV, STAGES>;
+  auto kernel = flash_fwd_kernel<D, DV, KN, STAGES>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
@@ -286,9 +298,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 }  // namespace
 
 // q, k, v, o: (bh, n, d) contiguous bf16, 16-byte aligned; lse: (bh, n) fp32
-// or null. d in {64, 128}, n a multiple of 64. ``dv``: the lanes computed,
-// the true head dim rounded up to a compiled width (d, or 80 at d = 128);
-// lanes dv..d-1 of q, k, v must be zero and come out zero in o. ``stages``
+// or null. d in {64, 128, 256}, n a multiple of 64. ``dv``: the lanes
+// computed, the true head dim rounded up to a compiled width (d, 80 at
+// d = 128, 192 at d = 256); lanes dv..d-1 of q, k, v must be zero and come
+// out zero in o. ``stages``
 // and ``smem``: the caller's tile plan (dfot_tpu_torch/ops/attention.py:
 // flash_plan), checked against the compiled one. Returns a cudaError_t code.
 extern "C" int dfot_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -297,10 +310,14 @@ extern "C" int dfot_flash_fwd(const void* q, const void* k, const void* v, void*
   if (bh <= 0 || bh > 65535 || n <= 0 || n % 64 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64 && dv == 64)
-    return launch<64, 64, 4>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
+    return launch<64, 64, 128, 4>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
   if (d == 128 && dv == 80)
-    return launch<128, 80, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
+    return launch<128, 80, 128, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
   if (d == 128 && dv == 128)
-    return launch<128, 128, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
+    return launch<128, 128, 128, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
+  if (d == 256 && dv == 192)
+    return launch<256, 192, 64, 2>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
+  if (d == 256 && dv == 256)
+    return launch<256, 256, 64, 2>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
   return cudaErrorInvalidValue;
 }

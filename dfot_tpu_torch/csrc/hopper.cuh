@@ -9,8 +9,8 @@
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B and a
 // box 64 bf16 wide: each tile row is one 128-byte line, 8 rows make a
 // 1024-byte swizzle atom, and a head dim of 128 is two such 64-lane column
-// blocks ("atoms" below), one after the other. Every tile starts on a
-// 1024-byte boundary, which the swizzle requires.
+// blocks ("atoms" below), one after the other (four at a head dim of 256).
+// Every tile starts on a 1024-byte boundary, which the swizzle requires.
 
 #pragma once
 
@@ -152,6 +152,23 @@ template <int N>
 struct WgmmaRS;
 
 template <>
+struct WgmmaSS<32> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaSS<64> {
   static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
                                            int scale_d) {
@@ -256,17 +273,21 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NK][4], const float* s) {
   }
 }
 
-// d (64 x DV) += A B for a transposed B of DV <= 128 lanes that starts at
-// shared address ``b`` (its first atom; a second atom follows ``atom_bytes``
-// later): one instruction per atom, n 64 on the first and n DV - 64 on the
-// second.
+// d (64 x DV) += A B for a transposed B of DV lanes that starts at shared
+// address ``b`` (its first atom; atom i follows i * ``atom_bytes`` later): one
+// instruction per atom, n 64 on each whole atom and n 16 on the last one where
+// DV is 16 past a multiple of 64 (80: the true head dim 72 rounded up).
 template <int DV>
 __device__ __forceinline__ void wgmma_rs_wide(float* d, const uint32_t (&a)[4], uint32_t b,
                                               uint32_t atom_bytes) {
-  static_assert(DV == 64 || DV == 80 || DV == 128, "no instantiation for this width");
-  WgmmaRS<64>::mma(d, a, sw128_desc(b), 1);
-  if constexpr (DV == 80) WgmmaRS<16>::mma(d + 32, a, sw128_desc(b + atom_bytes), 1);
-  if constexpr (DV == 128) WgmmaRS<64>::mma(d + 32, a, sw128_desc(b + atom_bytes), 1);
+  static_assert(DV == 64 || DV == 80 || DV == 128 || DV == 192 || DV == 256,
+                "no instantiation for this width");
+#pragma unroll
+  for (int at = 0; at < DV / kAtomLanes; ++at)
+    WgmmaRS<64>::mma(d + 32 * at, a, sw128_desc(b + at * atom_bytes), 1);
+  if constexpr (DV % kAtomLanes == 16)
+    WgmmaRS<16>::mma(d + 32 * (DV / kAtomLanes), a,
+                     sw128_desc(b + (DV / kAtomLanes) * atom_bytes), 1);
 }
 
 // ---------------------------------------------------------------------------

@@ -22,7 +22,11 @@
 // recipes), so the products are plain FMAs: the arithmetic is far below the
 // card's fp32 rate at these sizes. Rows of q and k are padded by 16 bytes in
 // shared memory so that the lanes of a quarter warp, which read different k
-// rows with 16-byte loads, hit different banks.
+// rows with 16-byte loads, hit different banks. At d = 256 (the base U-ViT's
+// level 3) a lane owns 8 channels of the p v product, and an item can pass
+// the budget below (a bf16 item of 32 x 256 takes 54 KB, an fp32 one 102 KB):
+// a block then holds that one item in dynamic shared memory, above the
+// static 48 KB after the opt-in.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,8 +40,10 @@ constexpr int kMaxWarps = 8;
 
 // Per element type: elements of a 16-byte access, the dot product of two such
 // accesses, channel pairs, rounding to the type, and the shared memory a block
-// may take (bf16 stays inside the static 48 KB; an fp32 item of 32 x 128 is
-// larger, so that instantiation opts in to more).
+// may take for its items (bf16 stays inside the static 48 KB; an fp32 item of
+// 32 x 128 is larger, so that instantiation opts in to more).
+constexpr int kMaxSmem = 232448;  // what one H100 block can take after the opt-in
+
 template <typename T> struct Elem;
 
 template <> struct Elem<__nv_bfloat16> {
@@ -160,10 +166,11 @@ __global__ void small_n_attn_kernel(const T* __restrict__ q, const T* __restrict
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, long long items, int n, int d,
            float scale, cudaStream_t stream) {
-  constexpr int budget = Elem<T>::kSmemBudget;
   const int per_item = item_smem_bytes(n, d, sizeof(T));
+  // an item larger than the budget (d = 256, long rows) gets a block of its own
+  const int budget = per_item > Elem<T>::kSmemBudget ? per_item : Elem<T>::kSmemBudget;
+  if (budget > kMaxSmem) return cudaErrorInvalidValue;
   int warps = budget / per_item;
-  if (warps < 1) return cudaErrorInvalidValue;
   if (warps > kMaxWarps) warps = kMaxWarps;
   const long long blocks = (items + warps - 1) / warps;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
@@ -182,11 +189,11 @@ int launch(const void* q, const void* k, const void* v, void* o, long long items
 
 // q, k, v, o: (items, N, D) contiguous, all bf16 (is_fp32 = 0) or all fp32
 // (is_fp32 = 1), 16-byte aligned; 1 <= N <= 32, D a multiple of 8 and at most
-// 128. Returns a cudaError_t code.
+// 256. Returns a cudaError_t code.
 extern "C" int dfot_small_n_attn(const void* q, const void* k, const void* v, void* o,
                                  long long items, int n, int d, float scale, int is_fp32,
                                  void* stream) {
-  if (items <= 0 || n <= 0 || n > kMaxN || d <= 0 || d % 8 != 0 || d > 128)
+  if (items <= 0 || n <= 0 || n > kMaxN || d <= 0 || d % 8 != 0 || d > 256)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return is_fp32 ? launch<float>(q, k, v, o, items, n, d, scale, s)

@@ -11,7 +11,8 @@ package.
   and :func:`flash_bwd_dkv` (kernel B5, the port of
   ``_flash_bwd_dkv_kernel``), both in ``csrc/flash_bwd.cu``. B1, B4 and B5
   are wgmma kernels whose tile plan (:func:`flash_plan`) is computed here
-  and checked by their C entries; where q, k, v are zero-padded heads, the
+  and checked by their C entries; they take padded head dims of 64, 128 and
+  256 (:data:`FLASH_WIDTHS`), and where q, k, v are zero-padded heads, the
   true head dim (``head_dim``) lets them compute only its lanes.
 - A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes
   the plain versions: :func:`attention_reference` (the counterpart of
@@ -42,6 +43,7 @@ __all__ = [
     "attention", "attention_reference", "attention_backward_reference",
     "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_plan",
     "small_n_attention", "small_n_attention_reference", "attention_route",
+    "padded_head_dim",
 ]
 
 
@@ -129,14 +131,15 @@ def attention_backward_reference(q, k, v, o, lse, do, causal=False, sm_scale=Non
 
 def _check_qkv(what, q, *others):
     """The kernels' common contract: bf16 (B, H, N, D), one shape and
-    device, D in {64, 128}, N a multiple of 64."""
+    device, D in :data:`FLASH_WIDTHS`, N a multiple of 64."""
     B, H, N, D = q.shape
     if any(t.dtype != torch.bfloat16 for t in (q, *others)):
         raise TypeError(f"{what} takes bf16, got {[t.dtype for t in (q, *others)]}")
     if any(t.shape != q.shape for t in others):
         raise ValueError(f"{what}: shapes differ: {[tuple(t.shape) for t in (q, *others)]}")
-    if D not in (64, 128) or N % 64 or B * H > 65535:
-        raise ValueError(f"{what} takes d in (64, 128) and N % 64 == 0, got {tuple(q.shape)}")
+    if D not in FLASH_WIDTHS or N % 64 or B * H > 65535:
+        raise ValueError(f"{what} takes d in {FLASH_WIDTHS} and N % 64 == 0, "
+                         f"got {tuple(q.shape)}")
     if any(t.device != q.device for t in others):
         raise ValueError(f"{what}: tensors on different devices")
 
@@ -153,15 +156,31 @@ def _check_stats(what, q, *stats):
 
 # The wgmma kernels' tile plan (B1 csrc/flash_fwd.cu, B4 and B5
 # csrc/flash_bwd.cu): each C entry takes it and refuses a plan other than the
-# one it was built for.
-FLASH_BLOCK = 128           # query rows of a B1 or B4 block, keys of a B5 block
+# one it was built for. Tables by padded head dim; at d = 256 the tiles are
+# narrower, for the O, dQ, dK and dV accumulators of 256 lanes take 128
+# registers a consumer thread and Q, K, V rows twice the shared memory.
+FLASH_WIDTHS = (64, 128, 256)  # padded head dims the kernels are compiled for
+FLASH_BLOCK = 128           # query rows of a B1 or B4 block
 FLASH_BWD_Q_ROWS = 64       # query rows of a tile that streams through B5
-FLASH_DQ_KEYS = {64: 128, 128: 64}  # keys of a K/V tile that streams through B4, by d
+FLASH_FWD_KEYS = {64: 128, 128: 128, 256: 64}  # keys of a K/V tile that streams through B1
+FLASH_DQ_KEYS = {64: 128, 128: 64, 256: 32}    # keys of a K/V tile that streams through B4
+# keys of a B5 block: 64 for each of its two consumers, or at d = 256 64 that
+# both share (consumer 0 accumulates their dV, consumer 1 their dK)
+FLASH_DKV_KEYS = {64: 128, 128: 128, 256: 64}
 FLASH_MAX_STAGES = 4
 # lanes a kernel instantiation computes, by padded head dim: the true head dim
 # rounded up to 16 and then to the next compiled width
-FLASH_LANES = {64: (64,), 128: (80, 128)}
+FLASH_LANES = {64: (64,), 128: (80, 128), 256: (192, 256)}
 SMEM_PER_BLOCK = 232448     # shared memory one H100 block can take (227 KB)
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels take for heads of ``d`` lanes: the smallest
+    of :data:`FLASH_WIDTHS` that holds d (the JAX package pads to the next
+    multiple of 64 instead: 192 where the port pads to 256; zero lanes are
+    inert either way). Past the widest, the next multiple of 64, which no
+    kernel takes."""
+    return next((w for w in FLASH_WIDTHS if w >= d), d + (-d % 64))
 
 
 def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = None) -> dict:
@@ -170,14 +189,16 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     true head dim ``head_dim`` (default ``d``).
 
     Tiles are 64-lane column blocks of 128-byte rows (TMA's 128-byte swizzle).
-    B1 holds a 128-row Q tile and streams 128-key K and V tiles through
-    ``stages`` ring slots; B4 holds 128 rows of Q and dO and streams K and V
-    tiles of :data:`FLASH_DQ_KEYS` keys; B5 holds 128 keys of K and V and
-    streams 64-row Q and dO tiles with their LSE and delta slices.
-    ``tile_rows``: the rows of a streamed tile. Stages: as many as fit the
-    block's shared memory, at most four. ``lanes``: the head-dim lanes the
-    kernel computes (products contract over ``k_steps`` = lanes / 16 steps);
-    ``smem_bytes`` includes 1 KB of alignment slack and the mbarriers.
+    B1 holds a 128-row Q tile and streams K and V tiles of
+    :data:`FLASH_FWD_KEYS` keys through ``stages`` ring slots; B4 holds 128
+    rows of Q and dO and streams K and V tiles of :data:`FLASH_DQ_KEYS` keys;
+    B5 holds :data:`FLASH_DKV_KEYS` keys of K and V and streams 64-row Q and
+    dO tiles with their LSE and delta slices. ``tile_rows``: the rows of a
+    streamed tile; ``block_rows``: the rows (B1, B4: queries; B5: keys) a
+    block owns, which set the grid. Stages: as many as fit the block's shared
+    memory, at most four. ``lanes``: the head-dim lanes the kernel computes
+    (products contract over ``k_steps`` = lanes / 16 steps); ``smem_bytes``
+    includes 1 KB of alignment slack and the mbarriers.
     """
     head_dim = d if head_dim is None else head_dim
     if d not in FLASH_LANES or not 0 < head_dim <= d:
@@ -186,23 +207,24 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     lanes = next(w for w in FLASH_LANES[d] if w >= rounded)
     row = d * 2  # bytes of one head-dim row of a tile
     if kernel == "fwd":
-        tile_rows, resident = FLASH_BLOCK, FLASH_BLOCK * row                  # Q
-        stage = 2 * FLASH_BLOCK * row                                         # K, V
+        block_rows, tile_rows = FLASH_BLOCK, FLASH_FWD_KEYS[d]
+        resident, stage = block_rows * row, 2 * tile_rows * row               # Q; K, V
     elif kernel == "dq":
-        tile_rows, resident = FLASH_DQ_KEYS[d], 2 * FLASH_BLOCK * row         # Q, dO
-        stage = 2 * tile_rows * row                                           # K, V
+        block_rows, tile_rows = FLASH_BLOCK, FLASH_DQ_KEYS[d]
+        resident, stage = 2 * block_rows * row, 2 * tile_rows * row           # Q, dO; K, V
     elif kernel == "dkv":
-        tile_rows, resident = FLASH_BWD_Q_ROWS, 2 * FLASH_BLOCK * row         # K, V
-        stage = 2 * FLASH_BWD_Q_ROWS * row + 2 * FLASH_BWD_Q_ROWS * 4         # Q, dO, LSE, delta
+        block_rows, tile_rows = FLASH_DKV_KEYS[d], FLASH_BWD_Q_ROWS
+        resident = 2 * block_rows * row                                       # K, V
+        stage = 2 * tile_rows * row + 2 * tile_rows * 4                       # Q, dO, LSE, delta
     else:
         raise ValueError(f"unknown flash kernel {kernel!r}")
     barrier = 8
     stages = min(FLASH_MAX_STAGES,
                  (SMEM_PER_BLOCK - 1024 - resident - barrier) // (stage + 2 * barrier))
     return {
-        "tile_rows": tile_rows, "stages": stages,
+        "tile_rows": tile_rows, "block_rows": block_rows, "stages": stages,
         "smem_bytes": 1024 + resident + stages * stage + barrier * (1 + 2 * stages),
-        "lanes": lanes, "k_steps": lanes // 16, "grid": (-(-n // FLASH_BLOCK), bh),
+        "lanes": lanes, "k_steps": lanes // 16, "grid": (-(-n // block_rows), bh),
     }
 
 
@@ -254,7 +276,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                  head_dim: Optional[int] = None) -> torch.Tensor:
     """dq of attention from the saved LSE and delta = rowsum(dO * O), both
     (B, H, N, 1) fp32. On a CUDA device this launches kernel B4 (bf16, D in
-    {64, 128}, N a multiple of 64; anything else raises); on the CPU it runs
+    {64, 128, 256}, N a multiple of 64; anything else raises); on the CPU it runs
     the plain version. ``head_dim``: the true head dim where q, k, v, do are
     heads zero-padded to D (the kernel then computes only its lanes and
     writes the pad lanes of dq as zeros)."""
@@ -357,7 +379,7 @@ def flash_attention(
     """Flash attention, (B, H, N, D) layout [, lse (B, H, N, 1)].
 
     ``sm_scale`` defaults to 1/sqrt(D). On a CUDA device this launches the
-    hand-written kernels, forward and backward (bf16, D in {64, 128}, N a
+    hand-written kernels, forward and backward (bf16, D in {64, 128, 256}, N a
     multiple of 64; anything else raises); on the CPU, or on any device with
     ``plain``, it runs the plain versions. With ``return_lse`` the call is
     the bare forward and carries no gradient. ``head_dim`` is for the
@@ -381,6 +403,7 @@ flash_bwd_dkv.launches = 0
 
 
 SMALL_N_MAX = 32
+SMALL_N_MAX_D = 256  # kernel B10 takes head dims that are multiples of 64 up to this
 
 
 @_full_precision
@@ -399,8 +422,9 @@ def _small_n_cuda(q, k, v):
         raise TypeError(f"{what} takes all bf16 or all fp32, got {[t.dtype for t in (q, k, v)]}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{what}: shapes differ: {[tuple(t.shape) for t in (q, k, v)]}")
-    if not 1 <= N <= SMALL_N_MAX or D not in (64, 128):
-        raise ValueError(f"{what} takes N <= {SMALL_N_MAX} and d in (64, 128), got {tuple(q.shape)}")
+    if not 1 <= N <= SMALL_N_MAX or D % 64 or not 0 < D <= SMALL_N_MAX_D:
+        raise ValueError(f"{what} takes N <= {SMALL_N_MAX} and d in multiples of 64 up to "
+                         f"{SMALL_N_MAX_D}, got {tuple(q.shape)}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError(f"{what}: tensors on different devices")
     q, k, v = (t.contiguous() for t in (q, k, v))
@@ -449,8 +473,9 @@ class _SmallNAttention(torch.autograd.Function):
 def small_n_attention(q, k, v, plain: bool = False) -> torch.Tensor:
     """Non-causal attention for short rows, (B, H, N, D) with N <= 32: the
     whole row at once, no online softmax. On a CUDA device this launches
-    kernel B10 (bf16 or fp32, D in {64, 128}; anything else raises); on the CPU, or
-    on any device with ``plain``, it runs the plain version. Differentiable."""
+    kernel B10 (bf16 or fp32, D a multiple of 64 up to 256; anything else
+    raises); on the CPU, or on any device with ``plain``, it runs the plain
+    version. Differentiable."""
     if not _wants_grad(q, k, v):
         return _small_n_forward(q, k, v, plain)
     return _SmallNAttention.apply(q, k, v, plain)
@@ -463,34 +488,35 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
     """Which path :func:`attention` takes for N tokens of head dim d, the one
     place the rule is written:
 
-    - ``"small_n"``: non-causal, N <= 32, d in {64, 128}: kernel B10;
-    - ``"flash"``: d in {64, 128} and N a multiple of 64: kernels B1, B4, B5;
-    - ``"padded_flash"``: d no multiple of 64, its zero-padding to the next
-      one in {64, 128} and N a multiple of 64: the same kernels on padded
-      heads with the true 1/sqrt(d) scale, sliced after;
+    - ``"small_n"``: non-causal, N <= 32, d a multiple of 64 up to 256 (the
+      JAX package's gate, ``d % 64 == 0``): kernel B10;
+    - ``"flash"``: d in {64, 128, 256} and N a multiple of 64: kernels B1,
+      B4, B5;
+    - ``"padded_flash"``: any other d up to 256 (:func:`padded_head_dim`) and
+      N a multiple of 64: the same kernels on heads zero-padded to the next
+      of those widths, with the true 1/sqrt(d) scale, sliced after;
     - ``"plain"``: what is left and the JAX package too computes outside any
       kernel (ragged N above 32, short causal rows): the plain version, on the
       card as well;
     - ``"unported"``: a shape the JAX package gives to a Pallas kernel and no
-      kernel of the port takes (padded head dim above 128); it raises.
+      kernel of the port takes (padded head dim above 256); it raises.
     """
-    dp = d + (-d % 64)
-    if not causal and n <= SMALL_N_MAX and dp == d:
-        return "small_n" if d <= 128 else "unported"
-    if n % 64 == 0 and dp <= 128:
-        return "flash" if dp == d else "padded_flash"
+    if not causal and n <= SMALL_N_MAX and d % 64 == 0:
+        return "small_n" if d <= SMALL_N_MAX_D else "unported"
+    if n % 64 == 0 and d <= FLASH_WIDTHS[-1]:
+        return "flash" if d in FLASH_WIDTHS else "padded_flash"
     if n % 128 == 0 and n >= 512:
         return "unported"
     return "plain"
 
 
 def _padded_flash(q, k, v, causal, plain):
-    """Flash attention for a head dim that is no multiple of 64 (K600
-    @DiT/XL: 1152 / 16 = 72): zero-pad to the next one, run the kernels with
-    the true 1/sqrt(d) scale, slice back. Zero lanes are inert in every
-    product, forward and backward."""
+    """Flash attention for a head dim the kernels are not compiled for (K600
+    @DiT/XL: 1152 / 16 = 72): zero-pad to :func:`padded_head_dim`, run the
+    kernels with the true 1/sqrt(d) scale, slice back. Zero lanes are inert
+    in every product, forward and backward."""
     d = q.shape[-1]
-    qp, kp, vp = (torch.nn.functional.pad(t, (0, -d % 64)) for t in (q, k, v))
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, padded_head_dim(d) - d)) for t in (q, k, v))
     return flash_attention(qp, kp, vp, causal, 1.0 / math.sqrt(d), plain=plain,
                            head_dim=d)[..., :d]
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .attention import _f32, _wants_grad, flash_attention
+from .attention import _f32, _wants_grad, flash_attention, padded_head_dim
 
 __all__ = [
     "signed_sin",
@@ -436,7 +436,7 @@ def attention_from_packed_qkv(
     (>= N, D) each, or None for no rotation and no learned scale; in qkv's
     dtype, or in fp32 where their cotangents are wanted (they are cast after
     the fold either way). Softmax scale is 1/sqrt(D) of the true head dim,
-    also where the heads are padded to the next multiple of 64.
+    also where the heads are padded to a width the kernels take.
     Differentiable in qkv and the tables. ``plain=True`` runs the plain
     versions of all the kernels, forward and backward, on any device: the
     reference a caller compares the kernel route with.
@@ -447,11 +447,11 @@ def attention_from_packed_qkv(
         ones = torch.ones((N, D), dtype=torch.float32, device=qkv.device)
         tables = fold_qk_tables(ones, torch.zeros_like(ones), dtype=qkv.dtype)
     (cq, sq), (ck, sk) = ((c[:N], s[:N]) for c, s in tables)
-    # a head dim that is no multiple of 64 (K600 @DiT/XL: 72) is zero-padded
-    # to the next one by B2 and cut back by B3; the pad lanes are inert in
-    # every product, B1 and B5 compute only the true head dim's lanes, and
-    # B6/B7 drop and re-zero the cotangents of the rest
-    DP = D + (-D % 64)
+    # a head dim the flash kernels are not compiled for (K600 @DiT/XL: 72) is
+    # zero-padded to the next width they take by B2 and cut back by B3; the
+    # pad lanes are inert in every product, B1, B4 and B5 compute only the
+    # true head dim's lanes, and B6/B7 drop and re-zero the cotangents of the rest
+    DP = padded_head_dim(D)
     q, k, v = _prep_route(qkv, cq, sq, ck, sk, heads, D, DP, norm, eps, plain)
     o = flash_attention(q, k, v, causal, 1.0 / math.sqrt(D), plain=plain, head_dim=D)
     return attn_out_collect(o, D, plain)

@@ -12,7 +12,8 @@ seeded numpy inputs:
 - the head-dim-72 packed route (B2 with ``d_out`` 128, B1 at the true scale,
   B3 back to 72; B7, B4, B5, B6 on the way back) against the JAX fused route
   under ``force_fused_interpret(True)``: 2e-5 / 1e-4 absolute;
-- the dispatcher's rule, as a table.
+- the dispatcher's rule, as a table: no shape the JAX package gives a Pallas
+  kernel with a head dim up to 256 is left ``"unported"``.
 
 The CUDA kernels themselves are tested on the card by
 ``tests/test_torch_port_gpu.py``.
@@ -111,7 +112,7 @@ def test_ln_modulate_takes_token_wise_conditioning_only():
         TL.ln_modulate(x.to("meta"), x.to("meta"), x.to("meta"))
 
 
-@pytest.mark.parametrize("n,d", [(8, 64), (16, 64), (5, 64), (32, 128)])
+@pytest.mark.parametrize("n,d", [(8, 64), (16, 64), (5, 64), (32, 128), (8, 256), (32, 256)])
 def test_small_n_attention_matches_pallas_kernel(n, d):
     rng = np.random.default_rng(3)
     q, k, v, g = (rng.standard_normal((4, 3, n, d)).astype(np.float32) for _ in range(4))
@@ -150,9 +151,17 @@ ROUTES = [
     ((1280, 96, True), "padded_flash"),
     ((100, 64, False), "plain"),        # ragged N: XLA attention
     ((1000, 72, False), "plain"),
-    ((1024, 192, False), "unported"),   # Pallas flash at d = 192; no kernel of the port
-    ((16, 192, False), "unported"),     # _small_n_kernel at d = 192
+    ((1024, 320, False), "unported"),   # Pallas flash at d = 320; no kernel of the port
+    ((16, 320, False), "unported"),     # _small_n_kernel at d = 320
     ((300, 192, False), "plain"),
+    ((2048, 256, False), "flash"),      # the base U-ViT's level 3: 1024 channels, 4 heads
+    ((2048, 256, True), "flash"),
+    ((2048, 160, False), "padded_flash"),  # 160 -> 256 (the JAX package pads to 192)
+    ((1024, 192, False), "padded_flash"),  # Pallas flash at d = 192; 192 -> 256 here
+    ((8, 256, False), "small_n"),       # the base axial U-ViT's temporal attention
+    ((16, 192, False), "small_n"),      # _small_n_kernel at d = 192
+    ((2048, 320, True), "unported"),
+    ((8, 160, False), "plain"),
 ]
 
 
@@ -175,7 +184,7 @@ def test_attention_dispatcher_matches_plain_jax_attention(n, d, causal):
 
 
 def test_attention_dispatcher_refuses_what_no_kernel_takes():
-    x = torch.zeros(1, 1, 1024, 192)
+    x = torch.zeros(1, 1, 1024, 320)
     with pytest.raises(NotImplementedError, match="no kernel"):
         TA.attention(x, x, x)
 
@@ -221,3 +230,22 @@ def test_new_wrappers_are_counted():
     assert len(TOPS.KERNEL_WRAPPERS) == 10
     TOPS.reset_launch_counts()
     assert set(TOPS.launch_counts().values()) == {0}
+
+
+def test_no_kernel_shape_up_to_head_dim_256_is_unported():
+    """Every (N, d) the JAX dispatcher gives a Pallas kernel (``_blocks_ok``
+    on the padded head dim, or its small-N gate) with a padded head dim of
+    at most 256 has a kernel route in the port; past 256 it stays unported."""
+    for d in range(8, 321, 8):
+        dp = d + (-d % 64)
+        for n in (8, 16, 32, 512, 1024, 1280, 2048, 8192):
+            for causal in (False, True):
+                small = not causal and n <= 32 and d % 64 == 0
+                pallas = small or (JA._blocks_ok(n, dp) and n % 64 == 0)
+                if not pallas:
+                    continue
+                route = TA.attention_route(n, d, causal)
+                if dp <= 256:
+                    assert route in ("small_n", "flash", "padded_flash"), (n, d, causal, route)
+                else:
+                    assert route == "unported", (n, d, causal, route)

@@ -270,12 +270,14 @@ def test_ln_modulate_rejects_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("z,n,d", [(18432, 8, 64), (4608, 8, 128), (768, 16, 64), (70000, 5, 64),
-                                   (333, 32, 64), (100, 32, 128), (7, 1, 64)])
+                                   (333, 32, 64), (100, 32, 128), (7, 1, 64), (2048, 8, 256),
+                                   (100, 32, 256), (64, 16, 192)])
 def test_small_n_attention(cuda, z, n, d, dtype, rel):
-    """B10 at the axial (N = 8, d = 64 and 128) and factorized-DiT (N = 16)
-    shapes, at row lengths that are no multiple of a tensor-core tile, at the
-    longest row (in fp32 its item passes 48 KB of shared memory), and with
-    more items than a grid's second dimension holds."""
+    """B10 at the axial (N = 8, d = 64, 128 and 256) and factorized-DiT
+    (N = 16) shapes, at row lengths that are no multiple of a tensor-core
+    tile, at the longest row (in fp32 its item passes 48 KB of shared memory;
+    at d = 256 it passes the budget in bf16 too and takes a block of its
+    own), and with more items than a grid's second dimension holds."""
     g = torch.Generator(device=cuda).manual_seed(11)
     q, k, v = ((1.5 * torch.randn(2, z // 2 or 1, n, d, generator=g, device=cuda)).to(
         dtype).requires_grad_() for _ in range(3))
@@ -301,6 +303,9 @@ def test_small_n_attention_rejects_what_it_does_not_take(cuda):
         A.small_n_attention(y, y, y)  # N > 32
     with pytest.raises(ValueError, match="d in"):
         A.small_n_attention(y[..., :8, :32], y[..., :8, :32], y[..., :8, :32])  # d = 32
+    wide = torch.zeros(1, 2, 8, 320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d in"):
+        A.small_n_attention(wide, wide, wide)  # d = 320
     with pytest.raises(TypeError):
         A.small_n_attention(y[..., :8, :].half(), y[..., :8, :].half(), y[..., :8, :].half())
     with pytest.raises(TypeError):
@@ -379,20 +384,21 @@ def _check_wgmma_pair(cuda, bh, n, d, dp, causal, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128)])
+@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128), (256, 256), (160, 256)])
 @pytest.mark.parametrize("bh", [1, 128])
 @pytest.mark.parametrize("n", [64, 192, 1280])
 def test_wgmma_flash_kernels(cuda, n, bh, d, dp):
     """B1 and B5 where N is half a 128-row block, one and a half (the
     block's second half lies past N), and ten; with one head and with 128 (a
     tile past a head's last row must read zeros, not the next head's rows);
-    heads of 72 padded to 128 contract over 80 lanes and come back with zero
-    pad lanes."""
+    heads of 72 padded to 128 contract over 80 lanes, heads of 160 padded to
+    256 over 192, and both come back with zero pad lanes; at d = 256 B1
+    streams 64-key tiles and a B5 block owns 64 keys."""
     _check_wgmma_pair(cuda, bh, n, d, dp, False, seed=20)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128)])
+@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128), (256, 256), (160, 256)])
 def test_wgmma_flash_kernels_causal(cuda, d, dp):
     """Causal at N = 320: 128-row blocks and 128-key tiles meet the diagonal
     mid-tile, and the last block is half past N."""
@@ -434,7 +440,7 @@ def _check_dq(cuda, bh, n, d, dp, causal, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128)])
+@pytest.mark.parametrize("d,dp", [(64, 64), (128, 128), (72, 128), (256, 256), (160, 256)])
 @pytest.mark.parametrize("bh", [1, 128])
 @pytest.mark.parametrize("n", [64, 192, 1280])
 def test_wgmma_dq_kernel(cuda, n, bh, d, dp, causal):
@@ -479,7 +485,7 @@ def test_qkv_prep_token_tiles(cuda, d, dp, norm, n):
 def test_dq_and_prep_entries_refuse_what_they_do_not_take(cuda):
     """B4's C entry refuses a tile plan other than the compiled one and a
     lane count it has no instantiation for; its wrapper raises for a head
-    dim outside {64, 128} and a head_dim above d. B2's entry refuses an odd
+    dim outside {64, 128, 256} and a head_dim above d. B2's entry refuses an odd
     head dim, one above 256 and a padded width below it; its wrapper raises
     for rows off a 4-byte boundary."""
     from dfot_tpu_torch.ops import _cuda
@@ -514,3 +520,63 @@ def test_dq_and_prep_entries_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         Q.qkv_prep(flat[1:].view(1, 64, 3 * 2 * 64), 2, 64, tab.float(), tab.float())
     assert ops.launch_counts()["qkv_prep"] == 0
+
+
+@pytest.mark.gpu
+def test_attention_at_head_dim_256_launches_the_kernels(cuda):
+    """The base-width U-ViT's level-3 attention, (1, 4, 2048, 256): the
+    dispatcher's flash route launches B1, and B4 and B5 under grad, by the
+    wrappers' counts; a head of 160 takes the padded route (B1 on heads
+    padded to 256); d = 320 is the one width no kernel takes."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q, k, v = ((1.7 * torch.randn(1, 4, 2048, 256, generator=g, device=cuda)).to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    assert A.attention_route(2048, 256) == "flash"
+    ops.reset_launch_counts()
+    out = A.attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    counts = ops.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) == (1, 1, 1)
+    want = A.attention(q, k, v, plain=True)
+    want_g = torch.autograd.grad(want, (q, k, v), do)
+    assert _close(out, want, 1e-2) and _rel_l2(out, want) <= 1e-2
+    for a, b in zip(grads, want_g):
+        assert _close(a, b, 2e-2) and _rel_l2(a, b) <= 1e-2
+    ops.reset_launch_counts()
+    x = q.detach()[..., :160].contiguous()
+    assert A.attention_route(2048, 160) == "padded_flash"
+    assert _close(A.attention(x, x, x), A.attention_reference(x, x, x), 1e-2)
+    assert ops.launch_counts()["flash_fwd"] == 1
+    wide = torch.zeros(1, 1, 1024, 320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        A.attention(wide, wide, wide)
+
+
+@pytest.mark.gpu
+def test_packed_route_head_dim_256(cuda):
+    """attention_from_packed_qkv at the base-width level 3 (4 heads of 256,
+    2048 tokens, norm and 3D RoPE): B2 -> B1 -> B3 and back B7 -> B4, B5 -> B6
+    against the plain route: output, dqkv and the norm-scale gradients."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    B, N, H, d = 1, 2048, 4, 256
+    rope = make_rope_3d(d, (8, 16, 16))
+    cos = torch.as_tensor(rope.cos, device=cuda)
+    sin = torch.as_tensor(Q.signed_sin(rope.sin), device=cuda)
+    qkv0 = torch.randn(B, N, 3 * H * d, generator=g, device=cuda).to(torch.bfloat16)
+    do = torch.randn(B, N, H * d, generator=g, device=cuda).to(torch.bfloat16)
+    results = []
+    ops.reset_launch_counts()
+    for plain in (False, True):
+        qkv = qkv0.clone().requires_grad_()
+        scales = [torch.full((d,), 2.0, device=cuda, requires_grad=True) for _ in range(2)]
+        tabs = Q.fold_qk_tables(cos, sin, *scales, dtype=torch.float32)
+        out = Q.attention_from_packed_qkv(qkv, H, d, tabs, norm=True, plain=plain)
+        out.backward(do)
+        results.append((out, qkv.grad, scales[0].grad, scales[1].grad))
+    for got, want in zip(*results):
+        assert _close(got, want, 2e-2)
+    counts = ops.launch_counts()
+    route = ("qkv_prep", "flash_fwd", "attn_out_collect", "attn_out_scatter", "flash_bwd_dq",
+             "flash_bwd_dkv", "qkv_prep_bwd")
+    assert all(counts[name] == 1 for name in route), counts

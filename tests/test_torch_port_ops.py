@@ -88,7 +88,7 @@ def test_qkv_prep_pads_and_reads_strided_rows():
         assert not g[..., d:].any()
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("variant", ["row", "pvt"])
 def test_flash_forward_matches_jax(d, causal, variant):
@@ -107,6 +107,27 @@ def test_flash_forward_matches_jax(d, causal, variant):
     assert got_lse.shape == (B, H, N, 1)
     np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-5)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_head_dim_160_matches_jax(causal):
+    """Heads of 160: the JAX package pads them to 192 for its Pallas kernel
+    (``_padded_flash``, interpret mode), the port to 256 (``"padded_flash"``);
+    the zero lanes are inert, so both give the function of the true heads at
+    the true 1/sqrt(160) scale. Also ``flash_attention`` on heads padded by
+    the caller with ``head_dim=160``: pad lanes come back zero."""
+    rng = np.random.default_rng(13)
+    B, H, N, d, dp = 1, 2, 256, 160, 256
+    q, k, v = (rng.standard_normal((B, H, N, d)).astype(np.float32) for _ in range(3))
+    assert TA.attention_route(N, d, causal) == "padded_flash" and TA.padded_head_dim(d) == dp
+    want = JA._padded_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, True)
+    got = TA.attention(_t(q), _t(k), _t(v), causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    tq, tk, tv = (torch.nn.functional.pad(_t(a), (0, dp - d)) for a in (q, k, v))
+    got, lse = TA.flash_attention(tq, tk, tv, causal, 1.0 / math.sqrt(d), return_lse=True,
+                                  head_dim=d)
+    assert got.shape == (B, H, N, dp) and not got[..., d:].any()
+    np.testing.assert_allclose(got[..., :d].numpy(), np.asarray(want), atol=2e-5)
 
 
 def test_attention_dispatcher_matches_xla():

@@ -46,7 +46,7 @@ def _tables(rng, n, d):
     return cos.astype(np.float32), JQ.signed_sin(sin).astype(np.float32)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("stream", [False, True])
 def test_flash_backward_matches_jax(monkeypatch, d, causal, stream):
@@ -110,6 +110,38 @@ def test_flash_backward_padded_head_dim_matches_jax(causal):
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         assert not got[..., d:].any()
         _close(got[..., :d].numpy(), w)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_head_dim_160_matches_jax(causal):
+    """Heads of 160 zero-padded to 256 with the true scale and
+    ``head_dim=160`` passed to B4 and B5 (the kernels then compute 192
+    lanes and write the rest as zeros), and the dispatcher's
+    ``"padded_flash"`` route through autograd, against the JAX package's
+    Pallas backward (interpret mode) on the unpadded heads."""
+    rng = np.random.default_rng(16)
+    B, H, N, d, dp = 1, 2, 256, 160, 256
+    q, k, v, do = (rng.standard_normal((B, H, N, d)).astype(np.float32) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    _, vjp = jax.vjp(
+        lambda q, k, v: JA._padded_flash(q, k, v, causal, True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    want = vjp(jnp.asarray(do))
+
+    tq, tk, tv, tdo = (torch.nn.functional.pad(_t(a), (0, dp - d)) for a in (q, k, v, do))
+    o, lse = TA.attention_reference(tq, tk, tv, causal, scale, return_lse=True)
+    delta = TA._delta(o, tdo)
+    dq = TA.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, causal, scale, head_dim=d)
+    dk, dv = TA.flash_bwd_dkv(tq, tk, tv, tdo, lse, delta, causal, scale, head_dim=d)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.shape == (B, H, N, dp) and not got[..., d:].any()
+        _close(got[..., :d].numpy(), w)
+
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    TA.attention(tq, tk, tv, causal).backward(_t(do))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        _close(got.numpy(), w)
 
 
 @pytest.mark.parametrize("causal", [False, True])
