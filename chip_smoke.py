@@ -18,11 +18,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    causal and not, at d = 64, 128, 72 -> 128, 256 and 160 -> 256; B8, B9 at
    the XL, DiT/B and factorized-DiT widths; B10 at the axial and factorized
    shapes, the base axial U-ViT's (2048, 8, 256) and at N = 5 and 32, d =
-   64, 128 and 256 (twice in fp32).
-   It times both, computes each kernel's bound (the least time the card
-   could take; attention's operations at the true head dim) and, where one
-   PyTorch call computes the same function, times that call as a yardstick
-   (at XL on the unpadded heads of 72);
+   64, 128 and 256 (twice in fp32); B6 also at a tail shape (a token count
+   no multiple of its tile, 9 heads), and twice on the same operands, which
+   must give the same bits.
+   It times both, the kernel warm and with a cold L2 (``cold_ms``: 256 MB
+   written before each call), computes each kernel's bound (the least time
+   the card could take; attention's operations at the true head dim, B6's
+   bytes those the function needs) and, where one PyTorch call computes the
+   same function, times that call as a yardstick (at XL on the unpadded
+   heads of 72);
 3. samples a small 3-step window of a narrow U-ViT on both routes with the
    same random stream and compares them;
 4. runs one full-width flagship UViT3DPose forward (B = 2, T = 8, 256 px,
@@ -56,8 +60,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     on the Minecraft latent shape, batch 8, and the flagship U-ViT with
     axial transformer blocks at a cut depth: route checks forward and
     forward + backward, then one forward and one forward + backward with
-    launch counts required (kernel B10 on both); the axial U-ViT's
-    gradients also against an fp32 plain-route witness;
+    launch counts required (kernel B10 on both), and the same once more
+    under ``torch.profiler``; the axial U-ViT's gradients also against an
+    fp32 plain-route witness;
 14. builds UViT3DPose at the backbone's own published widths
     (``uvit3d_pose_base``: channels 128-1024, 4 heads, so level 3 has heads
     of 256 over 2048 tokens) and runs steps 4-9 on it: a full-width
@@ -66,13 +71,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     required, a profiled 10-step window, six train steps with their launch
     counts required, a profiled step;
 15. runs that model with axial blocks at level 3 at a cut depth: route
-    checks, the fp32 gradient witness, launch counts (B10 at d = 256).
+    checks, the fp32 gradient witness, launch counts (B10 at d = 256), a
+    profile.
 
 Steps 3, 4, 7, 10, 13, 14 and 15 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
-a faulty plain version of B1, B2, B4, B5, B8, B9 and B10 against each one's
-bounds; all fail unless the bound rejects them. Any failed check
+a faulty plain version of B1, B2, B4, B5, B6, B8, B9 and B10 against each
+one's bounds (B6: dx without the norm's mean term, table cotangents over
+half the (batch, head) items; B10 also: a softmax that counts the keys that
+pad N = 5 or 8 to a 16-key tile); all fail unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut: the
@@ -146,6 +154,10 @@ SMALL_N_SHAPES = (("axial level2", (2 * 1024 * 9, 8, 64)), ("axial level3", (2 *
                   ("rows32 d64", (768, 32, 64)), ("rows32 d128", (768, 32, 128)),
                   ("base axial level3", (2 * 256 * 4, 8, 256)), ("rows32 d256", (768, 32, 256)))
 SMALL_N_MAIN = ("axial level2", "axial level3")
+# row lengths whose keys B10 pads to a 16-key tile, where a control counts the pads
+PAD_CONTROL_ROWS = (5, 8)
+# B6's four fp32 table cotangents
+TABLE_LABELS = ("dcos q", "dsin q", "dcos k", "dsin k")
 # the fp32 instantiation where an item passes 48 KB of shared memory, and
 # where it passes 96 KB (a block of its own)
 SMALL_N_FP32_SHAPES = (("rows32 d128 fp32", (768, 32, 128)), ("rows32 d256 fp32", (768, 32, 256)))
@@ -178,6 +190,8 @@ ATTN_REL_L2_TOL = 1e-2
 # 2.7e-3; 0 on v, a copy); RoPE without its pair swap reads 0.5 and more,
 # q, k without their norm 6e-2 to 9e-2 (random rows have an rms near 1)
 PREP_REL_L2_TOL = 1e-2
+# B6 at a tail shape: (B, N, H, d), N no multiple of any tile, H odd
+PREP_TAIL_SITE = (3, 1000, 9, 64)
 # B1, B4 and B5 at a row count that is a multiple of 64 but not of their
 # 128-row blocks, causal and not: (N, head dim, padded head dim)
 EDGE_SITES = ((192, 64, 64), (192, 128, 128), (192, 72, 128), (192, 256, 256), (192, 160, 256))
@@ -275,6 +289,36 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return _event_ms(fn, reps)
 
 
+@functools.lru_cache(maxsize=None)
+def _flush_buffer():
+    """256 MB to write between launches: five times the H100's 50 MB L2."""
+    import torch
+
+    return torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+
+
+def cold_ms(fn, reps: int = 10) -> float:
+    """Median device time of one call of ``fn`` in ms with a cold L2: before
+    each call 256 MB are written, so its operands come from device memory,
+    as a caller between other layers finds them; CUDA events around the call
+    alone, queued behind :func:`hold_device`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    buf, times = _flush_buffer(), []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        hold_device(2.0)
+        buf.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
 def host_us(fn, reps: int = 50) -> float:
     """Host time of one call of ``fn`` in microseconds: what the wrapper
     costs the host to enqueue its kernel (checks, tile plan, tensor maps,
@@ -360,6 +404,37 @@ def attention_scaled_for_twice_the_width(q, k, v, causal: bool = False):
     return torch.matmul(torch.softmax(s, -1), v.float()).to(q.dtype)
 
 
+def attention_counting_pad_keys(q, k, v):
+    """Control for B10: the softmax also counts the keys that pad the row to
+    a 16-key tile, as keys of score 0 (and weight them by nothing): the fault
+    a tensor-core kernel risks where it pads N = 5 or 8 keys."""
+    import torch
+
+    n = q.shape[-2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    s = torch.cat([s, s.new_zeros(*s.shape[:-1], 16 - n)], -1)
+    p = torch.softmax(s, -1)[..., :n]
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def prep_bwd_without_norm_mean(qkv, tabs, dq, dk, heads: int, head_dim: int, eps: float = 1e-6):
+    """Control for B6: the q and k columns of dqkv with dx = r du, without
+    the norm's - x r^3 mean(du x) term."""
+    import torch
+    from dfot_tpu_torch.ops import qkv_prep as Q
+
+    B, N, _ = qkv.shape
+    x = qkv.reshape(B, N, 3, heads, head_dim)
+    out = []
+    for i, dy in enumerate((dq, dk)):
+        dy = dy[..., :head_dim].transpose(1, 2).float()
+        c, s = (t.float()[None, :, None, :] for t in tabs[i])
+        du = dy * c + Q.swap_pairs(dy * s)
+        xf = x[:, :, i].float()
+        out.append((torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps) * du).to(qkv.dtype))
+    return torch.stack(out, dim=2).reshape(B, N, 2 * heads * head_dim)
+
+
 def attention_ops(B: int, H: int, N: int, D: int, causal: bool = False) -> int:
     """Operations of attention's forward over B * H heads, two (N x N x D)
     products at 2 operations a multiply-add, at the true head dim D: the
@@ -426,16 +501,20 @@ def check_kernels(record: dict) -> dict:
     def rand(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(bf16)
 
-    def note(name, site, main, err, tol, ms, plain_ms, bnd, library_ms=None, **extra):
+    def note(name, site, main, err, tol, kernel, plain_ms, bnd, library_ms=None, **extra):
+        """Record a site: ``kernel`` (the wrapper's call) is timed warm
+        (:func:`cuda_ms`) and with a cold L2 (:func:`cold_ms`)."""
+        ms, cold = cuda_ms(kernel), cold_ms(kernel)
         results[name]["by_site"][site] = {
-            "main": main, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bnd, **extra,
+            "main": main, "max_abs_err": err, "tol": tol, "ms": ms, "cold_ms": cold,
+            "plain_ms": plain_ms, "library_ms": library_ms, **bnd, **extra,
         }
         more = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         if "host_us" in extra:
             more += f"  host {extra['host_us']:.1f} us a call"
-        log(f"  {name:17s} {site}: max_abs_err {err:.3e} (tol {tol:.3e})  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}){more}")
+        log(f"  {name:17s} {site}: max_abs_err {err:.3e} (tol {tol:.3e})  kernel {ms:.4f} ms "
+            f"(cold {cold:.4f})  plain {plain_ms:.4f} ms  bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}){more}")
         require(err <= tol, f"{name} at {site}: error {err} above {tol}")
 
     def hold(name, site, pairs, rel, l2_tol=None):
@@ -461,6 +540,29 @@ def check_kernels(record: dict) -> dict:
                 f"{name} at {site}: the bounds pass the control '{fault}'")
         return {fault: {label: {"max_abs_err": e, "tol": t, "rel_l2": l2}
                         for label, e, t, l2 in rows}}
+
+    def prep_bwd_check(site, qkv, tabs, dys, H, D, norm):
+        """B6 twice on the same operands, which must give the same bits (the
+        table cotangents are summed in a fixed order), and against its plain
+        version: dqkv within 2e-2 and each fp32 table cotangent within 5e-3
+        of its reference's magnitude, all within PREP_REL_L2_TOL relative L2.
+        Returns the result, the reference, dqkv's and the tables' readings."""
+        got, again = (Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm) for _ in range(2))
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"qkv_prep_bwd at {site}: two calls on the same operands differ")
+        want = Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm, plain=True)
+        require(all(g.dtype == torch.float32 for g in got[1:]),
+                "qkv_prep_bwd: table cotangents are not fp32")
+        err, tol, extra = hold("qkv_prep_bwd", site, [("dqkv", got[0], want[0])], 2e-2,
+                               PREP_REL_L2_TOL)
+        err_t, tol_t, extra_t = hold("qkv_prep_bwd", site, zip(TABLE_LABELS, got[1:], want[1:]),
+                                     5e-3, PREP_REL_L2_TOL)
+        extra["rel_l2"].update(extra_t["rel_l2"])
+        log(f"  qkv_prep_bwd tabs  {site}: max_abs_err {err_t:.3e} (tol {tol_t:.3e}); rel L2 "
+            + ", ".join(f"{k} {v:.2e}" for k, v in extra["rel_l2"].items())
+            + f" (tol {PREP_REL_L2_TOL}); two calls bit-identical")
+        return got, want, err, tol, dict(extra, table_err=err_t, table_tol=tol_t)
 
     def flash_forward_check(site, B, H, N, D, DP, causal=False):
         """B1 on seeded peaked heads of D lanes zero-padded to DP: O within
@@ -549,7 +651,7 @@ def check_kernels(record: dict) -> dict:
         flat_tabs = [t for pair in tabs for t in pair]
         packed_bytes = B * N * 3 * C * 2
         note("qkv_prep", site, is_main("qkv_prep"), err, tol,
-             cuda_ms(lambda: Q._prep_cuda(qkv, tabs, H, D, DP, norm, 1e-6)),
+             lambda: Q._prep_cuda(qkv, tabs, H, D, DP, norm, 1e-6),
              cuda_ms(lambda: Q._prep_plain(qkv, tabs, H, D, DP, norm, 1e-6)),
              # per q/k element: square + sum, scale, two multiply-adds
              bound(7 * B * N * 2 * C, packed_bytes + nbytes(*flat_tabs, *got), PEAK_FP32_FLOPS),
@@ -557,25 +659,33 @@ def check_kernels(record: dict) -> dict:
 
         # B6: the cotangents of q, k, v back to the packed layout
         dys = [rand(B, H, N, DP) for _ in range(3)]
-        got = Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm)
-        torch.cuda.synchronize()
-        want = Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm, plain=True)
-        require(all(g.dtype == torch.float32 for g in got[1:]),
-                "qkv_prep_bwd: table cotangents are not fp32")
-        err_t = max(max_err(g, w) for g, w in zip(got[1:], want[1:]))
-        tol_t = ref_tol(5e-3, *want[1:])
-        log(f"  qkv_prep_bwd tabs  {site}: max_abs_err {err_t:.3e} (tol {tol_t:.3e})")
-        require(err_t <= tol_t, f"qkv_prep_bwd table cotangents at {site}: {err_t} > {tol_t}")
-        note("qkv_prep_bwd", site, is_main("qkv_prep_bwd"), max_err(got[0], want[0]),
-             ref_tol(2e-2, want[0]),
-             cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm)),
+        got, want, err, tol, extra = prep_bwd_check(site, qkv, tabs, dys, H, D, norm)
+        extra["controls"] = {}
+        if norm:
+            extra["controls"].update(rejected(
+                "qkv_prep_bwd", site, "dx without the norm's r^3 mean(du x) term",
+                [("dq, dk", prep_bwd_without_norm_mean(qkv, tabs, dys[0], dys[1], H, D),
+                  want[0][..., :2 * C])], 2e-2, PREP_REL_L2_TOL))
+        half = [g.clone() for g in dys]
+        for g in half:
+            g.view(B * H, N, DP)[1::2] = 0  # the odd (batch, head) items left out
+        extra["controls"].update(rejected(
+            "qkv_prep_bwd", site, "table cotangents over half the (batch, head) items",
+            list(zip(TABLE_LABELS, Q.qkv_prep_bwd(qkv, tabs, *half, H, D, norm, plain=True)[1:],
+                     want[1:])), 5e-3, PREP_REL_L2_TOL))
+        bwd = lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm)  # noqa: E731
+        note("qkv_prep_bwd", site, is_main("qkv_prep_bwd"), err, tol, bwd,
              cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm, plain=True)),
-             # per q/k element: the forward's norm again, the rotation
-             # back, the norm's backward and two table products
+             # per q/k element: the forward's norm again, the rotation back,
+             # the norm's backward and two table products; the bytes the
+             # function needs: the q and k columns of the packed qkv, the
+             # tables, the d true lanes of the three cotangents, dqkv and the
+             # four fp32 table cotangents
              bound(20 * B * N * 2 * C,
-                   packed_bytes + nbytes(*flat_tabs, *dys) + nbytes(*got), PEAK_FP32_FLOPS),
-             table_err=err_t, table_tol=tol_t)
-        del fused, qkv, got, want, dys
+                   2 * B * N * C * 2 + nbytes(*flat_tabs) + 3 * B * H * N * D * 2
+                   + nbytes(*got), PEAK_FP32_FLOPS),
+             host_us=host_us(bwd), **extra)
+        del fused, qkv, got, want, dys, half
 
         # B1: peaked attention (score std ~3) so outputs are O(1); heads that
         # B2 pads have zero lanes D..DP, the scale and head dim of the true D
@@ -585,7 +695,7 @@ def check_kernels(record: dict) -> dict:
         qd, kd, vd = (t[..., :D].contiguous() for t in (q, k, v))
         ops = attention_ops(B, H, N, D)
         fwd = lambda: A.flash_attention(q, k, v, sm_scale=scale, head_dim=D)  # noqa: E731
-        note("flash_fwd", site, is_main("flash_fwd"), err, tol, cuda_ms(fwd),
+        note("flash_fwd", site, is_main("flash_fwd"), err, tol, fwd,
              cuda_ms(lambda: A.attention_reference(q, k, v, sm_scale=scale), reps=3, warmup=1),
              bound(ops, nbytes(q, k, v, o, lse), PEAK_BF16_FLOPS),
              cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, scale=scale)),
@@ -610,14 +720,14 @@ def check_kernels(record: dict) -> dict:
         # the launch cost the host a call (B1 encodes three maps)
         bwd_dq = lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
                                         head_dim=D)
-        note("flash_bwd_dq", site, is_main("flash_bwd_dq"), err_dq, tol_dq, cuda_ms(bwd_dq),
+        note("flash_bwd_dq", site, is_main("flash_bwd_dq"), err_dq, tol_dq, bwd_dq,
              cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, False, scale),
                      reps=3, warmup=1),
              bound(3 * ops // 2, nbytes(q, k, v, do, lse, delta) + nbytes(q), PEAK_BF16_FLOPS),
              sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dq), **extra_dq)
         bwd_dkv = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
                                           head_dim=D)
-        note("flash_bwd_dkv", site, is_main("flash_bwd_dkv"), err_dkv, tol_dkv, cuda_ms(bwd_dkv),
+        note("flash_bwd_dkv", site, is_main("flash_bwd_dkv"), err_dkv, tol_dkv, bwd_dkv,
              cuda_ms(lambda: A._dkv_plain(q, k, v, do, lse, delta, False, scale),
                      reps=3, warmup=1),
              bound(2 * ops, nbytes(q, k, v, do, lse, delta) + 2 * nbytes(k), PEAK_BF16_FLOPS),
@@ -630,7 +740,7 @@ def check_kernels(record: dict) -> dict:
         plain = cuda_ms(lambda: Q.reference_attn_out_collect(o, D).contiguous())
         note("attn_out_collect", site, is_main("attn_out_collect"),
              max_err(got, Q.reference_attn_out_collect(o, D)), 0.0,
-             cuda_ms(lambda: Q.attn_out_collect(o, D)), plain,
+             lambda: Q.attn_out_collect(o, D), plain,
              bound(0, nbytes(o, got), PEAK_FP32_FLOPS), plain)
         g = rand(B, N, C)
         got = Q.attn_out_scatter(g, H, D, DP)
@@ -638,7 +748,7 @@ def check_kernels(record: dict) -> dict:
         plain = cuda_ms(lambda: Q.reference_attn_out_scatter(g, H, D, DP))
         note("attn_out_scatter", site, is_main("attn_out_scatter"),
              max_err(got, Q.reference_attn_out_scatter(g, H, D, DP)),
-             0.0, cuda_ms(lambda: Q.attn_out_scatter(g, H, D, DP)), plain,
+             0.0, lambda: Q.attn_out_scatter(g, H, D, DP), plain,
              bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain)
 
     for B in BATCHES:
@@ -675,6 +785,22 @@ def check_kernels(record: dict) -> dict:
             log(f"  flash_fwd, flash_bwd_dq, flash_bwd_dkv {site}: within bounds, controls "
                 f"rejected")
 
+    # B6 at a tail shape: a token count that is no multiple of its tile, an
+    # odd head count, rows of a 7C-wide fused projection (no timing: on no path)
+    B, N, H, D = PREP_TAIL_SITE
+    site = f"tail B={B} N={N} H={H} d={D}"
+    C = H * D
+    qkv = rand(B, N, 7 * C)[..., :3 * C]
+    rope = make_rope_3d(D, (1, 1, N))
+    tabs = Q.fold_qk_tables(torch.as_tensor(rope.cos, device="cuda"),
+                            torch.as_tensor(Q.signed_sin(rope.sin), device="cuda"),
+                            *[(1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(bf16)
+                              for _ in range(2)], dtype=bf16)
+    dys = [rand(B, H, N, D) for _ in range(3)]
+    _, _, err, tol, extra = prep_bwd_check(site, qkv, tabs, dys, H, D, True)
+    results["qkv_prep_bwd"]["edge_sites"] = {site: {"max_abs_err": err, "tol": tol, **extra}}
+    del qkv, dys
+
     # B8, B9: no one PyTorch call computes either, so no library yardstick.
     # dx and dscale are each held against their own reference (dscale's
     # values are several times dx's: a shared bound would pass a wrong dx)
@@ -694,7 +820,7 @@ def check_kernels(record: dict) -> dict:
             "ln_modulate", site, "variance without the mean's square",
             [("y", ln_modulate_uncentred_variance(x, shift, scale), y_ref)], 2e-2, l2)
         note("ln_modulate", site, label == "xl", err, tol,
-             cuda_ms(lambda: L.ln_modulate(x, shift, scale)),
+             lambda: L.ln_modulate(x, shift, scale),
              cuda_ms(lambda: L.reference_ln_modulate(x, shift, scale)),
              # per element: two statistics sums, normalize, modulate
              bound(8 * elems, nbytes(x, shift, scale, y), PEAK_FP32_FLOPS), **extra)
@@ -704,7 +830,7 @@ def check_kernels(record: dict) -> dict:
             "ln_modulate_bwd", site, "dx without the row means",
             [("dx", ln_backward_without_means(x, scale, g)[0], dx_ref)], 2e-2, l2)
         note("ln_modulate_bwd", site, label == "xl", err, tol,
-             cuda_ms(lambda: L.ln_modulate_bwd(x, scale, g)),
+             lambda: L.ln_modulate_bwd(x, scale, g),
              cuda_ms(lambda: L.reference_ln_modulate_bwd(x, scale, g)),
              # the statistics again, gl and its two sums, dx, dscale
              bound(16 * elems, nbytes(x, scale, g, dx, dscale), PEAK_FP32_FLOPS), **extra)
@@ -717,22 +843,28 @@ def check_kernels(record: dict) -> dict:
         rel, l2 = (2e-5, KERNEL_REL_L2_TOL_FP32) if fp32 else (2e-2, KERNEL_REL_L2_TOL)
         q, k, v = (t.to(dtype) for t in
                    (rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D)))
-        o = A.small_n_attention(q, k, v)
+        fwd = lambda: A.small_n_attention(q, k, v)  # noqa: E731
+        o = fwd()
         torch.cuda.synchronize()
         o_ref = A.small_n_attention_reference(q, k, v)
         err, tol, extra = hold("small_n_attn", site, [("o", o, o_ref)], rel, l2)
         extra["controls"] = rejected(
             "small_n_attn", site, "the scale of a head twice as wide",
             [("o", attention_scaled_for_twice_the_width(q, k, v), o_ref)], rel, l2)
-        note("small_n_attn", site, label in SMALL_N_MAIN, err, tol,
-             cuda_ms(lambda: A.small_n_attention(q, k, v)),
+        if N in PAD_CONTROL_ROWS:
+            extra["controls"].update(rejected(
+                "small_n_attn", site, f"a softmax that counts {16 - N} zero-score pad keys",
+                [("o", attention_counting_pad_keys(q, k, v), o_ref)], rel, l2))
+        note("small_n_attn", site, label in SMALL_N_MAIN, err, tol, fwd,
              cuda_ms(lambda: A.small_n_attention_reference(q, k, v)),
              bound(4 * Z * N * N * D, nbytes(q, k, v, o),
                    PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS),
-             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), **extra)
+             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), host_us=host_us(fwd),
+             **extra)
         del q, k, v, o, o_ref
     record["kernel_checks"] = results
     _hold_operands.cache_clear()  # the later phases read peak memory
+    _flush_buffer.cache_clear()
     return results
 
 
@@ -753,13 +885,15 @@ def kernel_summary(results: dict, launches: dict) -> list:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(launches[name].values()), "launches_by_path": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in sites.values()),
-            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+            "ms": sum(r["ms"] for r in mine), "cold_ms": sum(r["cold_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": bounds.pop() if len(bounds) == 1 else "bytes",
             "library_ms": None if None in lib else sum(lib),
             "timed_at": " + ".join(s for s, r in sites.items() if r["main"]),
             "other_sites": {
-                s: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                s: {k: r[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}
                 for s, r in sites.items() if not r["main"]},
         })
     return out
@@ -1463,6 +1597,14 @@ def run_factorized_path(record: dict) -> dict:
     record["factorized"] = {"batch": B, "launches": launches, "shape": list(out.shape)}
     log(f"factorized DiT path (one forward, one forward + backward): launches {launches}")
     require_launches("the factorized DiT path", launches, expect)
+
+    def forward_and_backward():
+        with torch.no_grad():
+            model(batch["xs"], k)
+        loss_fn().backward()
+        train_model.zero_grad(set_to_none=True)
+
+    profiled(record, "factorized_profile", "factorized DiT path", forward_and_backward)
     return launches
 
 
@@ -1531,6 +1673,14 @@ def run_axial_path(record: dict, fs, axial_levels, depth: dict, key: str, what: 
                    "shape": list(out.shape)}
     log(f"{what} path (one forward, one forward + backward): launches {launches}")
     require_launches(f"the {what} path", launches, expect)
+
+    def forward_and_backward():
+        with torch.no_grad():
+            model(x, noise_in, pose)
+        loss_fn().backward()
+        train_model.zero_grad(set_to_none=True)
+
+    profiled(record, f"{key}_profile", f"{what} path", forward_and_backward)
     return launches
 
 

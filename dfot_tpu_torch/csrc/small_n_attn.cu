@@ -13,189 +13,498 @@
 // q, k, v, o are all bf16 or all fp32 (the TPU kernel takes either too).
 //
 // Bound: bytes. An item is 4 * N * D elements of traffic (q, k, v in, o out)
-// against 4 * N^2 * D flops, a few flops per byte, and there are tens of
-// thousands of items. So each item's q, k, v are read from device memory
-// once, with 16-byte accesses, into shared memory, and scores, softmax and
-// the p v product never leave the SM. One warp owns one item and needs no
-// block-wide barrier; several warps share a block so that enough loads are in
-// flight. N need not be a multiple of the tensor-core tile (5, 8, 16 on the
-// recipes), so the products are plain FMAs: the arithmetic is far below the
-// card's fp32 rate at these sizes. Rows of q and k are padded by 16 bytes in
-// shared memory so that the lanes of a quarter warp, which read different k
-// rows with 16-byte loads, hit different banks. At d = 256 (the base U-ViT's
-// level 3) a lane owns 8 channels of the p v product, and an item can pass
-// the budget below (a bf16 item of 32 x 256 takes 54 KB, an fp32 one 102 KB):
-// a block then holds that one item in dynamic shared memory, above the
-// static 48 KB after the opt-in.
+// against 4 * N^2 * D operations, a few per byte, and there are thousands of
+// items. The design keeps the memory system busy and takes the arithmetic off
+// the issue path:
+// - a persistent grid (the plan: up to 4 blocks an SM) walks groups of items;
+//   each group's q, k, v rows come into a ring of 2-4 shared-memory stages by
+//   16-byte cp.async, issued by every thread a group ahead of the compute, so
+//   the loads of the next groups overlap the products of this one. Each row
+//   is padded by 16 bytes in shared memory, so the eight rows an ldmatrix
+//   reads fall on different banks;
+// - bf16: a warp owns 16 query rows of one item, one warp an item for
+//   N <= 16, two (halves of the rows, sharing the item's k and v) for
+//   N <= 32, so a block of up to 4 warps holds 4 items (or 2) a stage and an
+//   item of 32 x 256 no longer runs alone. Both products run on the tensor
+//   cores, mma.sync m16n8k16 with fp32 accumulators (an item has at most 32
+//   rows, under wgmma's 64). Q and K fragments come by ldmatrix, V by
+//   ldmatrix.trans; keys pad to 8 for the scores and to 16 for p v, pad keys
+//   get -inf before the softmax, and pad rows are read from a valid row (a
+//   finite value times a zero weight) and never stored. The softmax runs on
+//   the score fragments (row max and sum by quad shuffles) and p is packed to
+//   bf16 A fragments in registers. o is staged in the warp's own q rows (free
+//   once the scores are taken) and written with 16-byte stores;
+// - fp32 (TF32 stays off, so the products are exact fp32 FMAs): the 8 warps
+//   of a block share the stage's items: scores by (row, 4 keys) tasks with
+//   the softmax by shuffles, then p v by (4 rows, 4 channels) tasks, both
+//   register-blocked over 16-byte loads; o goes out in 16-byte stores
+//   straight from registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <initializer_list>
 
 namespace {
 
 constexpr int kMaxN = 32;
-constexpr int kPadBytes = 16;  // padding of every shared-memory row
-constexpr int kMaxWarps = 8;
+constexpr int kMaxWarps = 4;      // bf16: warps of a block, 16 query rows each
+constexpr int kWarpsFp32 = 8;     // fp32: warps of a block
+constexpr int kMaxItemsFp32 = 16; // fp32: items a stage, at most
+constexpr int kMaxStages = 4;
+constexpr int kRowPad = 16;       // bytes after every shared-memory row
+constexpr int kSmCount = 132;     // H100 SXM
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemPerBlock = 232448;
+constexpr int kBlockReserve = 1024;  // shared memory the card keeps for each block
 
-// Per element type: elements of a 16-byte access, the dot product of two such
-// accesses, channel pairs, rounding to the type, and the shared memory a block
-// may take for its items (bf16 stays inside the static 48 KB; an fp32 item of
-// 32 x 128 is larger, so that instantiation opts in to more).
-constexpr int kMaxSmem = 232448;  // what one H100 block can take after the opt-in
-
-template <typename T> struct Elem;
-
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static constexpr int kSmemBudget = 48 * 1024;
-  static __device__ __forceinline__ float dot(const uint4& a, const uint4& b) {
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
-    float acc = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 fa = __bfloat1622float2(a2[e]), fb = __bfloat1622float2(b2[e]);
-      acc += fa.x * fb.x + fa.y * fb.y;
-    }
-    return acc;
-  }
-  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-  static __device__ __forceinline__ float rnd(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
+// The caller's plan (dfot_tpu_torch/ops/attention.py:small_n_plan), computed
+// again here: warps a block, items a stage, stages, shared memory, grid.
+struct Plan {
+  int warps, items_per_stage, stages, smem;
+  long long grid;
 };
 
-template <> struct Elem<float> {
-  static constexpr int kVec = 4;
-  static constexpr int kSmemBudget = 96 * 1024;
-  static __device__ __forceinline__ float dot(const uint4& a, const uint4& b) {
-    const float* fa = reinterpret_cast<const float*>(&a);
-    const float* fb = reinterpret_cast<const float*>(&b);
-    return fa[0] * fb[0] + fa[1] * fb[1] + fa[2] * fb[2] + fa[3] * fb[3];
-  }
-  static __device__ __forceinline__ float2 load2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  static __device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-  static __device__ __forceinline__ float rnd(float v) { return v; }
-};
+__host__ __device__ inline int round16(int bytes) { return (bytes + 15) / 16 * 16; }
 
-// shared memory of one item, rounded up so that every warp's share starts on
-// a 16-byte boundary
-__host__ __device__ inline int item_smem_bytes(int n, int d, int elem_bytes) {
-  return (3 * n * (d * elem_bytes + kPadBytes) + n * (n + 1) * 4 + 15) / 16 * 16;
-}
-
-template <typename T>
-__global__ void small_n_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                    const T* __restrict__ v, T* __restrict__ o, long long items,
-                                    int n, int d, float scale) {
-  constexpr int V = Elem<T>::kVec;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long item = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + warp;
-  if (item >= items) return;  // whole warps leave; no block-wide barrier below
-
-  const int ds = d + V;  // shared-memory row stride, elements
-  unsigned char* mine = smem + static_cast<size_t>(warp) * item_smem_bytes(n, d, sizeof(T));
-  T* qs = reinterpret_cast<T*>(mine);
-  T* ks = qs + n * ds;
-  T* vs = ks + n * ds;
-  float* ps = reinterpret_cast<float*>(vs + n * ds);  // (n, n + 1) scores, then weights
-
-  // stage q, k, v: the item is n * d contiguous elements in each
-  const int dv = d / V;
-  const long long base = item * n * d;
-  for (int i = lane; i < n * dv; i += 32) {
-    const int row = i / dv, col = i % dv;
-    const int at = row * ds + col * V;
-    *reinterpret_cast<uint4*>(qs + at) = *reinterpret_cast<const uint4*>(q + base + V * i);
-    *reinterpret_cast<uint4*>(ks + at) = *reinterpret_cast<const uint4*>(k + base + V * i);
-    *reinterpret_cast<uint4*>(vs + at) = *reinterpret_cast<const uint4*>(v + base + V * i);
-  }
-  __syncwarp();
-
-  // scores: one (query, key) pair per lane and round
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n, j = idx % n;
-    const uint4* qr = reinterpret_cast<const uint4*>(qs + i * ds);
-    const uint4* kr = reinterpret_cast<const uint4*>(ks + j * ds);
-    float acc = 0.f;
-    for (int c = 0; c < dv; ++c) acc += Elem<T>::dot(qr[c], kr[c]);
-    ps[i * (n + 1) + j] = acc * scale;
-  }
-  __syncwarp();
-
-  // softmax: lane i owns row i; weights rounded to T as the p v product reads them
-  if (lane < n) {
-    float* row = ps + lane * (n + 1);
-    float m = row[0];
-    for (int j = 1; j < n; ++j) m = fmaxf(m, row[j]);
-    float sum = 0.f;
-    for (int j = 0; j < n; ++j) {
-      row[j] = expf(row[j] - m);
-      sum += row[j];
-    }
-    for (int j = 0; j < n; ++j) row[j] = Elem<T>::rnd(row[j] / sum);
-  }
-  __syncwarp();
-
-  // o = p v: lane owns channel pairs, walks the query rows
-  for (int i = 0; i < n; ++i) {
-    const float* row = ps + i * (n + 1);
-    for (int pp = lane; pp < d / 2; pp += 32) {
-      float ax = 0.f, ay = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float2 fv = Elem<T>::load2(vs + j * ds + 2 * pp);
-        ax += row[j] * fv.x;
-        ay += row[j] * fv.y;
+bool make_plan(long long items, int n, int d, int elem_bytes, Plan* p) {
+  const int item_bytes = 3 * n * (d * elem_bytes + kRowPad);
+  // bf16: a warp an item's 16 query rows, up to 4 warps; fp32: 8 warps share
+  // the stage's items, as many as give the score phase 256 (row, 4-key) tasks
+  const bool fp32 = elem_bytes == 4;
+  const int units = n <= 16 ? 1 : 2;
+  const int most = fp32 ? std::min(kMaxItemsFp32, (255 + n * ((n + 3) / 4)) / (n * ((n + 3) / 4)))
+                        : kMaxWarps / units;
+  for (int ipb = most; ipb >= 1; --ipb) {
+    const int warps = fp32 ? kWarpsFp32 : ipb * units, stage = ipb * item_bytes;
+    const int fixed = fp32 ? round16(ipb * n * (n + 1) * 4) : 0;
+    for (int per_sm : {4, 2, 1}) {
+      const int budget = std::min(kSmemPerBlock, (kSmemPerSm - per_sm * kBlockReserve) / per_sm);
+      const int stages = std::min(kMaxStages, (budget - fixed) / stage);
+      if (stages >= 2) {
+        const long long groups = (items + ipb - 1) / ipb;
+        *p = {warps, ipb, stages, fixed + stages * stage,
+              std::min(groups, static_cast<long long>(per_sm) * kSmCount)};
+        return true;
       }
-      Elem<T>::store2(o + base + i * d + 2 * pp, ax, ay);
     }
+  }
+  return false;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most ``pending`` of this thread's groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, long long items, int n, int d,
-           float scale, cudaStream_t stream) {
-  const int per_item = item_smem_bytes(n, d, sizeof(T));
-  // an item larger than the budget (d = 256, long rows) gets a block of its own
-  const int budget = per_item > Elem<T>::kSmemBudget ? per_item : Elem<T>::kSmemBudget;
-  if (budget > kMaxSmem) return cudaErrorInvalidValue;
-  int warps = budget / per_item;
-  if (warps > kMaxWarps) warps = kMaxWarps;
-  const long long blocks = (items + warps - 1) / warps;
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  if (budget > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        small_n_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
-    if (err != cudaSuccess) return static_cast<int>(err);
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c / cpr, with a shift where cpr is a power of two (``shift`` >= 0)
+__device__ __forceinline__ int div_cpr(int c, int cpr, int shift) {
+  return shift >= 0 ? c >> shift : c / cpr;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One warp, 16 query rows (from ``row0``) of one bf16 item whose q, k, v rows
+// are at ``qs``, ``ks``, ``vs`` in shared memory (``rb`` bytes a row); NT8
+// key tiles of 8 cover the item's n keys. ``shift``: log2 of the row's
+// 16-byte chunks, or -1.
+template <int NT8>
+__device__ __forceinline__ void item_bf16(unsigned char* qs, const unsigned char* ks,
+                                          const unsigned char* vs, __nv_bfloat16* out, int n,
+                                          int d, int rb, int shift, int row0, float scale,
+                                          int lane) {
+  constexpr int KS = (NT8 + 1) / 2;  // k16 steps of p v
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int g = lane / 4, t4 = lane % 4;
+  // scores: A = 16 q rows (pad rows read the warp's first row), B = k rows
+  int qrow = row0 + lane % 16;
+  if (qrow >= n) qrow = row0;
+  int krow[NT8];
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) {
+    krow[nt] = nt * 8 + lane % 8;
+    if (krow[nt] >= n) krow[nt] = 0;
   }
-  small_n_attn_kernel<T><<<static_cast<unsigned>(blocks), warps * 32, warps * per_item, stream>>>(
+  const uint32_t qa = smem_u32(qs) + qrow * rb + (lane / 16) * 16;
+  const uint32_t kb = smem_u32(ks) + ((lane / 8) % 2) * 16;
+  float s[NT8][4];
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < d / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, qa + kk * 32);
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      uint32_t b[2];
+      ldmatrix_x2(b, kb + krow[nt] * rb + kk * 32);
+      mma_16816(s[nt], a, b[0], b[1]);
+    }
+  }
+
+  // softmax of rows g (s[.][0..1]) and g + 8 (s[.][2..3]) in base 2; a row's
+  // 4 lanes are a quad
+  const float scale2 = scale * kLog2e;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool key = nt * 8 + 2 * t4 + e < n;
+      s[nt][e] = key ? s[nt][e] * scale2 : -INFINITY;
+      s[nt][2 + e] = key ? s[nt][2 + e] * scale2 : -INFINITY;
+      m0 = fmaxf(m0, s[nt][e]);
+      m1 = fmaxf(m1, s[nt][2 + e]);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = exp2f(s[nt][e] - m0);
+      s[nt][2 + e] = exp2f(s[nt][2 + e] - m1);
+      l0 += s[nt][e];
+      l1 += s[nt][2 + e];
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = 1.f / l0;
+  l1 = 1.f / l1;
+  // p as the A fragments of p v: key tiles 2 ks and 2 ks + 1 make k16 step ks
+  uint32_t pa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    pa[ks][0] = pack_bf16x2(s[2 * ks][0] * l0, s[2 * ks][1] * l0);
+    pa[ks][1] = pack_bf16x2(s[2 * ks][2] * l1, s[2 * ks][3] * l1);
+    if (2 * ks + 1 < NT8) {
+      pa[ks][2] = pack_bf16x2(s[2 * ks + 1][0] * l0, s[2 * ks + 1][1] * l0);
+      pa[ks][3] = pack_bf16x2(s[2 * ks + 1][2] * l1, s[2 * ks + 1][3] * l1);
+    } else {
+      pa[ks][2] = pa[ks][3] = 0u;
+    }
+  }
+  __syncwarp();  // every lane is done reading its q rows
+
+  // o = p v, 16 channels at a time; V by ldmatrix.trans (keys past n read row 0)
+  int vrow[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    vrow[ks] = ks * 16 + lane % 16;
+    if (vrow[ks] >= n) vrow[ks] = 0;
+  }
+  const uint32_t vb = smem_u32(vs) + (lane / 16) * 16;
+  const int r0 = row0 + g, r1 = r0 + 8;
+#pragma unroll 2
+  for (int c16 = 0; c16 < d / 16; ++c16) {
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vb + vrow[ks] * rb + c16 * 32);
+      mma_16816(acc[0], pa[ks], b[0], b[1]);
+      mma_16816(acc[1], pa[ks], b[2], b[3]);
+    }
+    // stage in the q rows: lane holds channels 2 t4, 2 t4 + 1 of each 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int byte = (c16 * 16 + h * 8 + 2 * t4) * 2;
+      if (r0 < n)
+        *reinterpret_cast<uint32_t*>(qs + r0 * rb + byte) = pack_bf16x2(acc[h][0], acc[h][1]);
+      if (r1 < n)
+        *reinterpret_cast<uint32_t*>(qs + r1 * rb + byte) = pack_bf16x2(acc[h][2], acc[h][3]);
+    }
+  }
+  __syncwarp();
+  // the warp's rows of o: 16-byte chunks, consecutive lanes on consecutive chunks
+  const int rows = min(16, n - row0), cpr = d / 8;
+  for (int c = lane; c < rows * cpr; c += 32) {
+    const int r = div_cpr(c, cpr, shift), col = c - r * cpr;
+    *reinterpret_cast<uint4*>(out + (row0 + r) * d + col * 8) =
+        *reinterpret_cast<const uint4*>(qs + (row0 + r) * rb + col * 16);
+  }
+  __syncwarp();  // the q rows are the next item's slot
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// fp32, exact FMAs: the block's threads on the ``items`` items of a stage
+// (q rows of all items, then k rows, then v rows; ``ipb`` items a stage), in
+// phases with the scores in ``sc`` (a row of n + 1 floats): scores by (row,
+// 4 keys) tasks (keys kq + j n / 4, so that neighbouring lanes read
+// neighbouring k rows) with the softmax by shuffles over a row's tasks (or,
+// where they are no power of two, by rows in a phase of its own), then p v
+// by (4 rows, 4 channels) tasks, the products register-blocked over 16-byte
+// loads.
+__device__ __forceinline__ void stage_fp32(const unsigned char* stage, int items, int ipb,
+                                           float* sc, float* out, int n, int d, int rb,
+                                           float scale) {
+  const unsigned char* qs = stage;
+  const unsigned char* ks = stage + ipb * n * rb;
+  const unsigned char* vs = stage + 2 * ipb * n * rb;
+  const int quarts = (n + 3) / 4, quads = d / 4, sld = n + 1, rows = items * n;
+  // where a row's quarts tasks are a power of two, they sit in neighbouring
+  // lanes of one warp and take the softmax by shuffles; else a second phase
+  const bool in_warp = (quarts & (quarts - 1)) == 0;
+  for (int base = 0; base < rows * quarts; base += blockDim.x) {
+    const int task = min(base + static_cast<int>(threadIdx.x), rows * quarts - 1);
+    const int row = task / quarts, kq = task - row * quarts;  // row of the stage, key quarter
+    const int first = row - row % n;                          // the item's row 0
+    const float4* q = reinterpret_cast<const float4*>(qs + row * rb);
+    const float4* k[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      k[j] = reinterpret_cast<const float4*>(ks + (first + min(kq + quarts * j, n - 1)) * rb);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int c = 0; c < quads; ++c) {
+      const float4 qv = q[c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = dot4(qv, k[j][c], acc[j]);
+    }
+    if (in_warp) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j] = kq + quarts * j < n ? acc[j] * scale : -INFINITY;
+        m = fmaxf(m, acc[j]);
+      }
+      for (int off = 1; off < quarts; off *= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      float l = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j] = expf(acc[j] - m);
+        l += acc[j];
+      }
+      for (int off = 1; off < quarts; off *= 2) l += __shfl_xor_sync(0xffffffffu, l, off);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = acc[j] / l;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] *= scale;
+    }
+    if (base + static_cast<int>(threadIdx.x) < rows * quarts) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kq + quarts * j < n) sc[row * sld + kq + quarts * j] = acc[j];
+    }
+  }
+  __syncthreads();
+  if (!in_warp) {
+    for (int row = threadIdx.x; row < rows; row += blockDim.x) {
+      float* s = sc + row * sld;
+      float m = s[0];
+      for (int j = 1; j < n; ++j) m = fmaxf(m, s[j]);
+      float l = 0.f;
+      for (int j = 0; j < n; ++j) {
+        s[j] = expf(s[j] - m);
+        l += s[j];
+      }
+      for (int j = 0; j < n; ++j) s[j] = s[j] / l;
+    }
+    __syncthreads();
+  }
+  for (int task = threadIdx.x; task < items * quarts * quads; task += blockDim.x) {
+    const int rq = task / quads, cq = task - rq * quads;  // 4 rows of the stage, 4 channels
+    const int it = rq / quarts, r4 = 4 * (rq - it * quarts);
+    const float* p[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[r] = sc + (it * n + min(r4 + r, n - 1)) * sld;
+    float4 acc[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const unsigned char* v = vs + it * n * rb;
+    for (int j = 0; j < n; ++j) {
+      const float4 vv = reinterpret_cast<const float4*>(v + j * rb)[cq];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float pr = p[r][j];
+        acc[r].x = fmaf(pr, vv.x, acc[r].x);
+        acc[r].y = fmaf(pr, vv.y, acc[r].y);
+        acc[r].z = fmaf(pr, vv.z, acc[r].z);
+        acc[r].w = fmaf(pr, vv.w, acc[r].w);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r4 + r < n) reinterpret_cast<float4*>(out + (it * n + r4 + r) * d)[cq] = acc[r];
+  }
+}
+
+template <typename T, int NT8>
+__global__ void __launch_bounds__(kWarpsFp32 * 32)
+    small_n_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o, long long items, int n, int d,
+                        float scale, int items_per_stage, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kFp32 = sizeof(T) == 4;
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte chunk
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int units = n <= 16 ? 1 : 2;
+  const int rb = d * static_cast<int>(sizeof(T)) + kRowPad;
+  const int tensor_bytes = items_per_stage * n * rb, stage_bytes = 3 * tensor_bytes;
+  // fp32: the scores of a stage's items first, then the ring
+  float* sc = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + (kFp32 ? round16(items_per_stage * n * (n + 1) * 4) : 0);
+  const long long groups = (items + items_per_stage - 1) / items_per_stage;
+  const int count =
+      groups > blockIdx.x ? static_cast<int>((groups - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+  const int cpr = d / kElems;  // 16-byte chunks a row
+  const int shift = (cpr & (cpr - 1)) == 0 ? __ffs(cpr) - 1 : -1;
+
+  // the i-th group of this block into stage i % stages: the q rows of its
+  // items, then their k rows, then their v rows (each a contiguous run in
+  // device memory), every thread copying 16-byte chunks
+  auto load = [&](int i) {
+    const long long first = (blockIdx.x + static_cast<long long>(i) * gridDim.x) * items_per_stage;
+    const int chunks =
+        static_cast<int>(min(static_cast<long long>(items_per_stage), items - first)) * n * cpr;
+    unsigned char* slot = ring + (i % stages) * stage_bytes;
+    const long long base = first * n * d;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const T* src = (t == 0 ? q : t == 1 ? k : v) + base;
+      unsigned char* dst = slot + t * tensor_bytes;
+      for (int c = tid; c < chunks; c += blockDim.x) {
+        const int row = div_cpr(c, cpr, shift), col = c - row * cpr;
+        cp_async16(dst + row * rb + col * 16, src + row * d + col * kElems);
+      }
+    }
+  };
+
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < count) load(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < count; ++i) {
+    if (i + stages - 1 < count) load(i + stages - 1);
+    cp_async_commit();
+    cp_async_wait(stages - 1);
+    __syncthreads();
+    unsigned char* stage = ring + (i % stages) * stage_bytes;
+    const long long first = (blockIdx.x + static_cast<long long>(i) * gridDim.x) * items_per_stage;
+    if constexpr (kFp32) {
+      const int here =
+          static_cast<int>(min(static_cast<long long>(items_per_stage), items - first));
+      stage_fp32(stage, here, items_per_stage, sc, reinterpret_cast<float*>(o) + first * n * d,
+                 n, d, rb, scale);
+    } else {
+      const int it = warp / units;
+      if (it < items_per_stage && first + it < items) {
+        unsigned char* qs = stage + it * n * rb;
+        item_bf16<NT8>(qs, qs + tensor_bytes, qs + 2 * tensor_bytes,
+                       reinterpret_cast<__nv_bfloat16*>(o) + (first + it) * n * d, n, d, rb,
+                       shift, 16 * (warp % units), scale, lane);
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next round's load
+  }
+  cp_async_wait(0);
+}
+
+template <typename T, int NT8>
+int launch(const void* q, const void* k, const void* v, void* o, long long items, int n, int d,
+           float scale, const Plan& plan, cudaStream_t stream) {
+  auto kernel = small_n_attn_kernel<T, NT8>;
+  // once per instantiation: the most shared memory a block can take
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlock);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<static_cast<unsigned>(plan.grid), plan.warps * 32, plan.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), items, n, d, scale);
+      static_cast<T*>(o), items, n, d, scale, plan.items_per_stage, plan.stages);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_n(const void* q, const void* k, const void* v, void* o, long long items, int n, int d,
+             float scale, const Plan& plan, cudaStream_t stream) {
+  if (sizeof(T) == 4) return launch<T, 4>(q, k, v, o, items, n, d, scale, plan, stream);
+  if (n <= 8) return launch<T, 1>(q, k, v, o, items, n, d, scale, plan, stream);
+  if (n <= 16) return launch<T, 2>(q, k, v, o, items, n, d, scale, plan, stream);
+  return launch<T, 4>(q, k, v, o, items, n, d, scale, plan, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: (items, N, D) contiguous, all bf16 (is_fp32 = 0) or all fp32
-// (is_fp32 = 1), 16-byte aligned; 1 <= N <= 32, D a multiple of 8 and at most
-// 256. Returns a cudaError_t code.
+// (is_fp32 = 1), 16-byte aligned; 1 <= N <= 32, D a multiple of 16 up to 256.
+// ``warps``, ``items_per_stage``, ``stages``, ``smem`` and ``grid``: the
+// caller's plan (dfot_tpu_torch/ops/attention.py:small_n_plan), refused
+// unless it is the one computed here. Returns a cudaError_t code.
 extern "C" int dfot_small_n_attn(const void* q, const void* k, const void* v, void* o,
                                  long long items, int n, int d, float scale, int is_fp32,
-                                 void* stream) {
-  if (items <= 0 || n <= 0 || n > kMaxN || d <= 0 || d % 8 != 0 || d > 256)
+                                 int warps, int items_per_stage, int stages, int smem,
+                                 long long grid, void* stream) {
+  if (items <= 0 || n <= 0 || n > kMaxN || d <= 0 || d % 16 != 0 || d > 256)
+    return cudaErrorInvalidValue;
+  Plan plan;
+  if (!make_plan(items, n, d, is_fp32 ? 4 : 2, &plan) || plan.warps != warps ||
+      plan.items_per_stage != items_per_stage || plan.stages != stages || plan.smem != smem ||
+      plan.grid != grid)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return is_fp32 ? launch<float>(q, k, v, o, items, n, d, scale, s)
-                 : launch<__nv_bfloat16>(q, k, v, o, items, n, d, scale, s);
+  return is_fp32 ? launch_n<float>(q, k, v, o, items, n, d, scale, plan, s)
+                 : launch_n<__nv_bfloat16>(q, k, v, o, items, n, d, scale, plan, s);
 }

@@ -42,12 +42,12 @@ _SIGNATURES = {
     "dfot_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dfot_qkv_prep_bwd": (
         _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _F, _P,
+        _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P,
     ),
     "dfot_attn_out_scatter": (_P, _P, _I, _I, _I, _I, _I, _P),
     "dfot_ln_modulate_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
     "dfot_ln_modulate_bwd": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _P),
-    "dfot_small_n_attn": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _P),
+    "dfot_small_n_attn": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P),
 }
 
 _lock = threading.Lock()

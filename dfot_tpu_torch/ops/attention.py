@@ -42,7 +42,7 @@ from . import _cuda
 __all__ = [
     "attention", "attention_reference", "attention_backward_reference",
     "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_plan",
-    "small_n_attention", "small_n_attention_reference", "attention_route",
+    "small_n_attention", "small_n_attention_reference", "small_n_plan", "attention_route",
     "padded_head_dim",
 ]
 
@@ -415,6 +415,61 @@ def small_n_attention_reference(q, k, v) -> torch.Tensor:
     return torch.matmul(_f32(p.to(v.dtype)), _f32(v)).to(q.dtype)
 
 
+# kernel B10's plan (csrc/small_n_attn.cu): a persistent grid whose blocks
+# walk groups of items through a ring of shared-memory stages
+SM_COUNT = 132              # streaming multiprocessors of an H100 SXM
+SMEM_PER_SM = 233472        # shared memory of one SM (228 KB)
+SMEM_BLOCK_RESERVE = 1024   # of which the card keeps this much for each block
+SMALL_N_MAX_WARPS = 4       # bf16: warps of a block, 16 query rows each
+SMALL_N_WARPS_FP32 = 8      # fp32: warps of a block
+SMALL_N_MAX_ITEMS_FP32 = 16
+SMALL_N_MAX_STAGES = 4
+SMALL_N_ROW_PAD = 16        # bytes after each shared-memory row (ldmatrix's banks)
+
+
+@functools.lru_cache(maxsize=256)
+def small_n_plan(items: int, n: int, d: int, dtype: torch.dtype) -> dict:
+    """Plan of kernel B10 for ``items`` items of ``n`` tokens and head dim
+    ``d`` in ``dtype`` (bf16 or fp32), as its C entry computes it again and
+    checks it.
+
+    A stage holds the q, k, v rows of ``items_per_stage`` items, rows padded
+    by 16 bytes (``3 n (d e + 16)`` bytes an item). bf16: an item takes
+    ``units`` warps (16 query rows each: one for n <= 16, two above) and a
+    block ``warps`` = units x items_per_stage, from 4 items (or 2) down; fp32:
+    a block is 8 warps whose threads share the stage's items, from as many
+    as give its score phase 256 (row, 4-key) tasks (at most 16) down, and
+    holds their n x (n + 1) fp32 scores beside the ring. The first count of
+    items a stage that, at 4, 2 or 1 blocks an SM, leaves two stages in the
+    block's share of the SM's shared memory is taken, with as many stages as
+    fit (at most 4); ``grid``: that many blocks an SM over
+    :data:`SM_COUNT` SMs, or fewer where there are fewer groups.
+    """
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"no small-N kernel for {dtype}")
+    if items <= 0 or not 1 <= n <= SMALL_N_MAX or d <= 0 or d % 16 or d > SMALL_N_MAX_D:
+        raise ValueError(f"no small-N plan for {items} items of ({n}, {d})")
+    fp32 = dtype == torch.float32
+    item_bytes = 3 * n * (d * (4 if fp32 else 2) + SMALL_N_ROW_PAD)
+    units = 1 if n <= 16 else 2
+    tasks = n * -(-n // 4)
+    most = (min(SMALL_N_MAX_ITEMS_FP32, -(-256 // tasks)) if fp32
+            else SMALL_N_MAX_WARPS // units)
+    for ipb in range(most, 0, -1):
+        warps = SMALL_N_WARPS_FP32 if fp32 else ipb * units
+        stage = ipb * item_bytes
+        fixed = -(-ipb * n * (n + 1) * 4 // 16) * 16 if fp32 else 0
+        for per_sm in (4, 2, 1):
+            budget = min(SMEM_PER_BLOCK, (SMEM_PER_SM - per_sm * SMEM_BLOCK_RESERVE) // per_sm)
+            stages = min(SMALL_N_MAX_STAGES, (budget - fixed) // stage)
+            if stages >= 2:
+                return {"units": 0 if fp32 else units, "warps": warps, "items_per_stage": ipb,
+                        "stages": stages, "smem_bytes": fixed + stages * stage,
+                        "blocks_per_sm": per_sm,
+                        "grid": min(-(-items // ipb), per_sm * SM_COUNT)}
+    raise ValueError(f"no small-N plan fits ({n}, {d}) {dtype}")
+
+
 def _small_n_cuda(q, k, v):
     B, H, N, D = q.shape
     what = "small-N attention"
@@ -429,11 +484,14 @@ def _small_n_cuda(q, k, v):
         raise ValueError(f"{what}: tensors on different devices")
     q, k, v = (t.contiguous() for t in (q, k, v))
     _cuda.check_aligned(what, 16, q, k, v)
+    plan = small_n_plan(B * H, N, D, q.dtype)
     out = torch.empty_like(q)
     _cuda.check(
         _cuda.library().dfot_small_n_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, D,
-            1.0 / math.sqrt(D), int(q.dtype == torch.float32), _cuda.stream_handle(q.device),
+            1.0 / math.sqrt(D), int(q.dtype == torch.float32), plan["warps"],
+            plan["items_per_stage"], plan["stages"], plan["smem_bytes"], plan["grid"],
+            _cuda.stream_handle(q.device),
         ),
         what,
     )

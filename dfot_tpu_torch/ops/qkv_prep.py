@@ -25,6 +25,7 @@ their cast to the model dtype, exactly as the JAX package does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .attention import _f32, _wants_grad, flash_attention, padded_head_dim
+from .attention import SM_COUNT, _f32, _wants_grad, flash_attention, padded_head_dim
 
 __all__ = [
     "signed_sin",
@@ -40,6 +41,7 @@ __all__ = [
     "fold_qk_tables",
     "qkv_prep",
     "qkv_prep_bwd",
+    "prep_bwd_plan",
     "reference_qkv_prep",
     "attn_out_collect",
     "attn_out_scatter",
@@ -166,6 +168,59 @@ def _prep_cuda(qkv, tabs, heads, head_dim, d_out, norm, eps):
     return tuple(outs)
 
 
+# kernel B6's plan (csrc/qkv_prep_bwd.cu)
+PREP_BWD_THREADS = 256
+PREP_BWD_STAGES = 6         # a lane's ring of cp.async stages
+PREP_BWD_STAGE_BYTES = 2 * 16 * PREP_BWD_THREADS  # a stage: every lane's x and dy chunks
+PREP_BWD_BLOCKS_PER_SM = 3  # blocks an SM holds: the tile is chosen for this grid
+
+
+@functools.lru_cache(maxsize=256)
+def prep_bwd_plan(B: int, N: int, H: int, d: int, dp: int, chunk: int = 8) -> dict:
+    """Plan of kernel B6 for a (B, N, 3*H*d) packed qkv and (B, H, N, dp)
+    cotangents, as its C entry computes it again and checks it.
+
+    ``chunk``: bf16 lanes a thread moves at once, 8 (16 bytes) or 2 (4
+    bytes, where d, dp, a stride or a pointer is off 16 bytes). ``lanes``:
+    the power of two of lanes that covers a row's d / chunk chunks (at most
+    32). A block of 256 threads owns ``tile`` tokens of one stream, the
+    largest of 32, 16, 8, 4, 2 whose rows fit the block and whose 2 x tiles
+    blocks give the :data:`SM_COUNT` SMs :data:`PREP_BWD_BLOCKS_PER_SM` each,
+    as many as one holds (else 1); its ``groups`` = 256 / (tile x lanes)
+    lane groups take the B x H (batch, head) items in turns, ``rounds``
+    items a group, each lane streaming its chunks through a private ring of
+    ``stages`` cp.async stages. ``grid``: the 2 x tiles q and k blocks (each
+    also copies the v cotangent of half the items of its tile).
+    ``smem_bytes``: the rings (48 KB), where the groups' fp32 partials of
+    the table cotangents (at most 16 KB) meet at the end.
+    """
+    if chunk not in (8, 2) or not 0 < d <= 256 or d % chunk or dp < d or dp % chunk:
+        raise ValueError(f"no qkv_prep backward plan for d {d}, dp {dp}, chunk {chunk}")
+    if min(B, N, H) <= 0:
+        raise ValueError(f"no qkv_prep backward plan for B {B}, N {N}, H {H}")
+    lanes = 1
+    while lanes * chunk < d and lanes < 32:
+        lanes *= 2
+    tile = next((t for t in (32, 16, 8, 4, 2) if t * lanes <= PREP_BWD_THREADS
+                 and 2 * -(-N // t) >= PREP_BWD_BLOCKS_PER_SM * SM_COUNT), 1)
+    groups = PREP_BWD_THREADS // (tile * lanes)
+    tiles = -(-N // tile)
+    return {"chunk": chunk, "lanes": lanes, "tile": tile, "groups": groups,
+            "rounds": -(-(B * H) // groups), "stages": PREP_BWD_STAGES,
+            "smem_bytes": PREP_BWD_STAGES * PREP_BWD_STAGE_BYTES,
+            "tiles": tiles, "grid": 2 * tiles}
+
+
+def _prep_bwd_chunk(qkv, d, dp, tensors) -> int:
+    """16-byte chunks (8) where d, dp, qkv's strides and every pointer allow
+    them, else 4-byte ones (2): the rule the C entry checks."""
+    B = qkv.shape[0]
+    ok = (d % 8 == 0 and dp % 8 == 0 and qkv.stride(1) % 8 == 0
+          and (B == 1 or qkv.stride(0) % 8 == 0)
+          and all(t.data_ptr() % 16 == 0 for t in (qkv, *tensors)))
+    return 8 if ok else 2
+
+
 def _prep_bwd_cuda(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps):
     B, N, W = qkv.shape
     d_out = dq.shape[-1]
@@ -180,6 +235,8 @@ def _prep_bwd_cuda(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps):
     _cuda.check_aligned("qkv_prep backward", 4, *grads)
     dqkv = torch.empty((B, N, W), dtype=qkv.dtype, device=qkv.device)
     dtabs = [torch.empty((N, head_dim), dtype=torch.float32, device=qkv.device) for _ in range(4)]
+    plan = prep_bwd_plan(B, N, heads, head_dim, d_out,
+                         _prep_bwd_chunk(qkv, head_dim, d_out, (cq, sq, ck, sk, *grads, dqkv)))
     _cuda.check(
         _cuda.library().dfot_qkv_prep_bwd(
             qkv.data_ptr(), qkv.stride(0), qkv.stride(1),
@@ -187,7 +244,8 @@ def _prep_bwd_cuda(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps):
             *(g.data_ptr() for g in grads),
             dqkv.data_ptr(), dqkv.stride(0), dqkv.stride(1),
             *(t.data_ptr() for t in dtabs),
-            B, N, heads, head_dim, d_out, int(norm), float(eps),
+            B, N, heads, head_dim, d_out, int(norm), float(eps), plan["chunk"], plan["tile"],
+            plan["groups"], plan["stages"], plan["smem_bytes"], plan["grid"],
             _cuda.stream_handle(qkv.device),
         ),
         "qkv_prep backward",

@@ -164,6 +164,44 @@ def test_qkv_prep_backward(cuda, d, d_out, norm):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,N,H,d,d_out,width,norm", [
+    (3, 1000, 9, 64, 64, 7 * 9 * 64, True),     # no multiple of a tile, odd H, 7C rows
+    (8, 320, 16, 72, 128, 3 * 16 * 72, False),  # K600 @DiT/XL's heads, 72 -> 128
+    (2, 256, 3, 64, 128, 3 * 3 * 64 + 2, True),  # rows off 16 bytes: 4-byte chunks
+    (1, 2048, 4, 160, 256, 7 * 4 * 160, True),  # a head of 160 padded to 256
+])
+def test_qkv_prep_backward_tails_and_repeats(cuda, B, N, H, d, d_out, width, norm):
+    """B6 at a token count that is no multiple of its tile, an odd head count
+    and strided rows, at XL's head dim and on the 4-byte path: within
+    ``chip_smoke.py``'s bounds (dqkv 2e-2, each table cotangent 5e-3 of its
+    reference's magnitude: where the kernel's and the plain version's rms
+    sums differ in the last bit, a u can round to the neighbouring bf16 and
+    move a table sum by 2^-8 of one product; and 1e-2 relative L2 on each),
+    and two calls on the same operands give the same bits (the table
+    cotangents are summed over (batch, head) in a fixed order, without
+    atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    fused = torch.randn(B, N, width, generator=g, device=cuda).to(torch.bfloat16)
+    qkv = fused[..., : 3 * H * d]
+    rope = make_rope_3d(d, (1, 1, N))
+    cos = torch.as_tensor(rope.cos, device=cuda)
+    sin = torch.as_tensor(Q.signed_sin(rope.sin), device=cuda)
+    scales = [torch.rand(d, generator=g, device=cuda) + 0.5 for _ in range(2)]
+    tabs = Q.fold_qk_tables(cos, sin, *scales, dtype=torch.bfloat16)
+    grads = [torch.randn(B, H, N, d_out, generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(3)]
+    ops.reset_launch_counts()
+    got = Q.qkv_prep_bwd(qkv, tabs, *grads, H, d, norm)
+    again = Q.qkv_prep_bwd(qkv, tabs, *grads, H, d, norm)
+    assert ops.launch_counts()["qkv_prep_bwd"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = Q.qkv_prep_bwd(qkv, tabs, *grads, H, d, norm, plain=True)
+    assert _close(got[0], want[0], 2e-2) and _rel_l2(got[0], want[0]) <= 1e-2
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and _close(a, b, 5e-3) and _rel_l2(a, b) <= 1e-2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d,d_in", [(64, 64), (64, 128)])
 def test_attn_out_scatter(cuda, d, d_in):
     g = torch.randn(2, 256, 3 * d, device=cuda).to(torch.bfloat16)

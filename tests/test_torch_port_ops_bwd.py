@@ -157,14 +157,17 @@ def test_flash_backward_matches_xla_autodiff(causal):
         _close(got.numpy(), w)
 
 
-@pytest.mark.parametrize("d,d_out", [(64, 64), (128, 128), (32, 64)])
+@pytest.mark.parametrize("d,d_out", [(64, 64), (128, 128), (32, 64), (72, 128), (160, 256),
+                                     (256, 256)])
 @pytest.mark.parametrize("norm", [False, True])
 @pytest.mark.parametrize("strided", [False, True])
 def test_qkv_prep_backward_matches_jax(d, d_out, norm, strided):
     """B6 (``_bwd_kernel`` in interpret mode, and its mirror ``_bwd_jax``):
     packed dqkv, the four fp32 table cotangents, and, through the
     differentiable fold, the gradients of the learned q/k norm scales.
-    ``strided``: qkv is a slice of a wider fused projection."""
+    ``strided``: qkv is a slice of a wider fused projection. The widths
+    include those at which the kernel is held on the card: K600 @DiT/XL's
+    72 -> 128, a head of 160 padded to 256, and the base widths' 256."""
     rng = np.random.default_rng(12)
     B, N, H = 2, 128, 2
     W = 3 * H * d
