@@ -16,15 +16,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dim of 160 padded to 256 (B = 1, 4 heads, 2048 tokens); B1, B4 and B5
    also at N = 192 (a multiple of 64 but not of their 128-row blocks),
    causal and not, at d = 64, 128, 72 -> 128, 256 and 160 -> 256; B8, B9 at
-   the XL, DiT/B and factorized-DiT widths; B10 at the axial and factorized
+   the XL, DiT/B and factorized-DiT widths; B8 also at tails (token counts no
+   multiple of a block's tokens, its other width-exact widths, C = 1154 and
+   2304, fp32); B3 bit for bit, also at N = 1000 for every path head dim,
+   and timed on B1's output as B1 has just written it (F level 2 and XL);
+   B10 at the axial and factorized
    shapes, the base axial U-ViT's (2048, 8, 256) and at N = 5 and 32, d =
    64, 128 and 256 (twice in fp32); B6 also at a tail shape (a token count
    no multiple of its tile, 9 heads), and twice on the same operands, which
    must give the same bits.
    It times both, the kernel warm and with a cold L2 (``cold_ms``: 256 MB
    written before each call), computes each kernel's bound (the least time
-   the card could take; attention's operations at the true head dim, B6's
-   bytes those the function needs) and, where one PyTorch call computes the
+   the card could take; attention's operations at the true head dim, B3's
+   and B6's bytes those the function needs) and, where one PyTorch call computes the
    same function, times that call as a yardstick (at XL on the unpadded
    heads of 72);
 3. samples a small 3-step window of a narrow U-ViT on both routes with the
@@ -77,10 +81,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Steps 3, 4, 7, 10, 13, 14 and 15 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
-a faulty plain version of B1, B2, B4, B5, B6, B8, B9 and B10 against each
-one's bounds (B6: dx without the norm's mean term, table cotangents over
-half the (batch, head) items; B10 also: a softmax that counts the keys that
-pad N = 5 or 8 to a 16-key tile); all fail unless the bound rejects them. Any failed check
+a faulty plain version of B1, B2, B3, B4, B5, B6, B8, B9 and B10 against each
+one's bounds (B3: the heads in reverse order; B6: dx without the norm's mean
+term, table cotangents over half the (batch, head) items; B10 also: a
+softmax that counts the keys that pad N = 5 or 8 to a 16-key tile); all fail
+unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut: the
@@ -192,6 +197,16 @@ ATTN_REL_L2_TOL = 1e-2
 PREP_REL_L2_TOL = 1e-2
 # B6 at a tail shape: (B, N, H, d), N no multiple of any tile, H odd
 PREP_TAIL_SITE = (3, 1000, 9, 64)
+# B3 at token counts that are no multiple of any of its tiles: (B, H, N, d, dp)
+COLLECT_TAIL_SITES = ((1, 3, 1000, 64, 64), (2, 3, 1000, 72, 128), (1, 3, 1000, 128, 128),
+                      (2, 3, 1000, 160, 256), (1, 2, 1000, 256, 256))
+# B8 at tails (shape, dtype name): token counts that are no multiple of a
+# block's tokens, the other width-exact widths, a width that is no multiple of
+# the 16-byte vector (pair kernel), one wider than the registers hold, and
+# fp32 (the generic kernels) at the XL width
+LN_TAIL_SHAPES = (((3, 7, 1152), "bf16"), ((1, 5, 384), "bf16"), ((3, 7, 896), "bf16"),
+                  ((2, 3, 1024), "bf16"), ((1, 5, 2048), "bf16"), ((2, 5, 1154), "bf16"),
+                  ((1, 3, 2304), "bf16"), ((3, 7, 1152), "fp32"), ((2, 5, 1154), "fp32"))
 # B1, B4 and B5 at a row count that is a multiple of 64 but not of their
 # 128-row blocks, causal and not: (N, head dim, padded head dim)
 EDGE_SITES = ((192, 64, 64), (192, 128, 128), (192, 72, 128), (192, 256, 256), (192, 160, 256))
@@ -313,6 +328,28 @@ def cold_ms(fn, reps: int = 10) -> float:
         buf.fill_(1.0)
         start.record()
         fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def after_ms(producer, consumer, reps: int = 10) -> float:
+    """Median device time in ms of ``consumer(producer())``'s second half:
+    CUDA events around the consumer alone, the first recorded as the
+    producer ends, so the consumer finds the producer's output where the
+    producer left it (in L2 where it fits), as on the model's path."""
+    import torch
+
+    consumer(producer())
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        hold_device(2.0)
+        out = producer()
+        start.record()
+        consumer(out)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -512,6 +549,8 @@ def check_kernels(record: dict) -> dict:
         more = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         if "host_us" in extra:
             more += f"  host {extra['host_us']:.1f} us a call"
+        if "copy_ms" in extra:
+            more += f"  contiguous copy {extra['copy_ms']:.4f} (cold {extra['copy_cold_ms']:.4f})"
         log(f"  {name:17s} {site}: max_abs_err {err:.3e} (tol {tol:.3e})  kernel {ms:.4f} ms "
             f"(cold {cold:.4f})  plain {plain_ms:.4f} ms  bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']}){more}")
@@ -621,9 +660,33 @@ def check_kernels(record: dict) -> dict:
             ATTN_REL_L2_TOL)
         return err, tol, extra
 
-    def attention_site(site, B, N, H, D, DP, rope_sizes, norm, fused_width, main):
+    def contiguous_copy(elems):
+        """The device's own contiguous copy of ``elems`` bf16 values (the
+        same bytes a copy kernel moves: read once, written once), warm and
+        cold: what no kernel of a pure data movement can beat."""
+        src = torch.empty(elems, dtype=bf16, device="cuda")
+        dst = torch.empty_like(src)
+        copy = lambda: dst.copy_(src)  # noqa: E731
+        return {"copy_ms": cuda_ms(copy), "copy_cold_ms": cold_ms(copy)}
+
+    def collect_check(site, o, D):
+        """B3 against its plain version, bit for bit, and the exact check
+        rejecting a collect that takes the heads in the wrong order (the
+        last first). Returns B3's output."""
+        got = Q.attn_out_collect(o, D)
+        torch.cuda.synchronize()
+        want = Q.reference_attn_out_collect(o, D)
+        require(torch.equal(got, want), f"attn_out_collect at {site}: not an exact copy "
+                f"(max_abs_err {max_err(got, want):.3e})")
+        require(not torch.equal(Q.reference_attn_out_collect(o.flip(1), D), want),
+                f"attn_out_collect at {site}: the exact check passes the heads in reverse order")
+        return got
+
+    def attention_site(site, B, N, H, D, DP, rope_sizes, norm, fused_width, main,
+                       in_path=False):
         """B2, B6, B1, B4, B5, B3, B7 at one attention site. ``main``: which
-        kernels (forward, backward) report this site in the kernels line."""
+        kernels (forward, backward) report this site in the kernels line;
+        ``in_path``: also time B3 on B1's output as it has just been written."""
         C = H * D
         is_main = lambda name: main[0] if name in FORWARD_KERNELS else main[1]
         # B2: packed qkv as the model passes it (for the U-ViT a strided slice
@@ -734,14 +797,20 @@ def check_kernels(record: dict) -> dict:
              sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dkv), **extra_dkv)
 
         # B3 and B7: exact copies; PyTorch's strided copy is both the
-        # plain version and the one library call
-        got = Q.attn_out_collect(o, D)
-        torch.cuda.synchronize()
+        # plain version and the one library call. B3's bound counts the bytes
+        # the function needs: the D true lanes of every head row and the output
+        got = collect_check(site, o, D)
         plain = cuda_ms(lambda: Q.reference_attn_out_collect(o, D).contiguous())
-        note("attn_out_collect", site, is_main("attn_out_collect"),
-             max_err(got, Q.reference_attn_out_collect(o, D)), 0.0,
-             lambda: Q.attn_out_collect(o, D), plain,
-             bound(0, nbytes(o, got), PEAK_FP32_FLOPS), plain)
+        collect = lambda: Q.attn_out_collect(o, D)  # noqa: E731
+        extra = {}
+        if in_path:
+            # in the window B3 reads what B1 has just written
+            extra["in_path_ms"] = after_ms(fwd, lambda out: Q.attn_out_collect(out, D))
+            log(f"  attn_out_collect  {site}: in path (right after B1, on its output) "
+                f"{extra['in_path_ms']:.4f} ms")
+        note("attn_out_collect", site, is_main("attn_out_collect"), 0.0, 0.0, collect, plain,
+             bound(0, B * H * N * D * o.element_size() + nbytes(got), PEAK_FP32_FLOPS), plain,
+             host_us=host_us(collect), **extra, **contiguous_copy(got.numel()))
         g = rand(B, N, C)
         got = Q.attn_out_scatter(g, H, D, DP)
         torch.cuda.synchronize()
@@ -755,10 +824,11 @@ def check_kernels(record: dict) -> dict:
         for level, N, H, D in SITES:
             side = int(math.isqrt(N // 8))
             attention_site(f"level{level} B={B} N={N} H={H} d={D}", B, N, H, D, D, (8, side, side),
-                           True, 7, (B == WINDOW_BATCH, B == TRAIN_BATCH))
+                           True, 7, (B == WINDOW_BATCH, B == TRAIN_BATCH),
+                           in_path=(level, B) == (2, WINDOW_BATCH))
     N, H, D, DP = XL_SITE
     attention_site(f"xl B={XL_BATCH} N={N} H={H} d={D}->{DP}", XL_BATCH, N, H, D, DP, (5, 16, 16),
-                   False, 3, (False, False))
+                   False, 3, (False, False), in_path=True)
     # d = 256: the base-width U-ViT's level 3 at the window's batch and the
     # train step's, and a head of 160 padded to 256 (listed under other sites)
     level, N, H, D = BASE_SITE
@@ -785,6 +855,15 @@ def check_kernels(record: dict) -> dict:
             log(f"  flash_fwd, flash_bwd_dq, flash_bwd_dkv {site}: within bounds, controls "
                 f"rejected")
 
+    # B3 at tails: a token count that is no multiple of any tile, at every
+    # path head dim, padded or not (no timing: on no path)
+    results["attn_out_collect"]["edge_sites"] = {}
+    for B, H, N, D, DP in COLLECT_TAIL_SITES:
+        site = f"tail B={B} H={H} N={N} d={D}->{DP}"
+        collect_check(site, rand(B, H, N, DP), D)
+        results["attn_out_collect"]["edge_sites"][site] = {"max_abs_err": 0.0, "tol": 0.0}
+        log(f"  attn_out_collect  {site}: exact, reversed heads rejected")
+
     # B6 at a tail shape: a token count that is no multiple of its tile, an
     # odd head count, rows of a 7C-wide fused projection (no timing: on no path)
     B, N, H, D = PREP_TAIL_SITE
@@ -805,6 +884,27 @@ def check_kernels(record: dict) -> dict:
     # dx and dscale are each held against their own reference (dscale's
     # values are several times dx's: a shared bound would pass a wrong dx)
     l2 = KERNEL_REL_L2_TOL
+    results["ln_modulate"]["edge_sites"] = {}
+    for shape, dtype_name in LN_TAIL_SHAPES:
+        site = f"tail {shape} {dtype_name}"
+        fp32 = dtype_name == "fp32"
+        dtype = torch.float32 if fp32 else bf16
+        x = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(dtype)
+        shift = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        scale = (0.3 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+        before = L.ln_modulate.launches
+        y = L.ln_modulate(x, shift, scale)
+        torch.cuda.synchronize()
+        require(L.ln_modulate.launches == before + 1, f"ln_modulate at {site}: not one launch")
+        rel, tol_l2 = (2e-5, KERNEL_REL_L2_TOL_FP32) if fp32 else (2e-2, l2)
+        y_ref = L.reference_ln_modulate(x, shift, scale)
+        err, tol, extra = hold("ln_modulate", site, [("y", y, y_ref)], rel, tol_l2)
+        extra["controls"] = rejected(
+            "ln_modulate", site, "variance without the mean's square",
+            [("y", ln_modulate_uncentred_variance(x, shift, scale), y_ref)], rel, tol_l2)
+        results["ln_modulate"]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
+        log(f"  ln_modulate       {site}: max_abs_err {err:.3e} (tol {tol:.3e}) rel L2 "
+            f"{extra['rel_l2']['y']:.3e} (tol {tol_l2}), control rejected")
     for label, shape in LN_SHAPES:
         site = f"{label} {shape}"
         x = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(bf16)
@@ -819,11 +919,12 @@ def check_kernels(record: dict) -> dict:
         extra["controls"] = rejected(
             "ln_modulate", site, "variance without the mean's square",
             [("y", ln_modulate_uncentred_variance(x, shift, scale), y_ref)], 2e-2, l2)
-        note("ln_modulate", site, label == "xl", err, tol,
-             lambda: L.ln_modulate(x, shift, scale),
+        fwd = lambda: L.ln_modulate(x, shift, scale)  # noqa: E731
+        note("ln_modulate", site, label == "xl", err, tol, fwd,
              cuda_ms(lambda: L.reference_ln_modulate(x, shift, scale)),
              # per element: two statistics sums, normalize, modulate
-             bound(8 * elems, nbytes(x, shift, scale, y), PEAK_FP32_FLOPS), **extra)
+             bound(8 * elems, nbytes(x, shift, scale, y), PEAK_FP32_FLOPS),
+             host_us=host_us(fwd), **extra, **contiguous_copy(2 * elems))
         err, tol, extra = hold("ln_modulate_bwd", site,
                                (("dx", dx, dx_ref), ("dscale", dscale, dscale_ref)), 2e-2, l2)
         extra["controls"] = rejected(

@@ -18,13 +18,21 @@
 //
 // Bound: bytes. The forward moves four (tokens, C) tensors, the backward
 // five, with a handful of flops per element, so the only lever is to touch
-// every byte once. One warp owns one token: it loads the row with 16-byte
-// accesses, keeps it in registers between the statistics and the
-// normalisation (x is read once), reduces with warp shuffles, and reads
-// shift / scale / g and writes the outputs as 16-byte accesses too. Rows whose
-// width is no multiple of a 16-byte vector, or wider than the registers
-// hold (C > 2048), take a second kernel of the same arithmetic that walks
-// the row in pairs and reads x again from cache.
+// every byte once and keep enough of them in flight.
+//
+// Forward at the model widths (bf16, C in the list of launch_exact below):
+// the width is a compile-time constant and a group of `lanes` lanes owns a
+// token, `lanes` the largest power of two up to 32 that divides C / 8, so
+// every lane holds exactly C / (8 lanes) 16-byte vectors of each row (1152:
+// 16 lanes x 9, 768: 32 x 3, 384: 16 x 3). A lane issues the loads of x,
+// shift and scale together, keeps them as raw bf16 in registers, reduces the
+// statistics with shuffles inside its group and writes y: one round trip to
+// device memory per token. The plan (lanes, tokens a block, grid) is
+// ops/ln_modulate.py:ln_modulate_plan; the C entry computes it again and
+// refuses any other. Every other shape, fp32 and the backward take the
+// generic kernels: one warp per token, the row in registers up to C = 2048
+// when C is a multiple of the 16-byte vector, else a kernel that walks the
+// row in pairs and reads x again from cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,8 +40,10 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 128;       // threads of every block
+constexpr int kWarpsPerBlock = 4;   // generic kernels: a warp a token
 constexpr int kMaxRegWidth = 2048;  // widest row the register kernels hold
+constexpr int kMaxLanes = 32;       // width-exact kernel: lanes of a token, at most
 
 // round to T and back: arithmetic "in T" is fp32 arithmetic rounded per op
 template <typename T> __device__ __forceinline__ float rnd(float v);
@@ -42,19 +52,23 @@ template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// eight bf16 (one 16-byte vector) as floats
+__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 template <typename T> struct Io;
 
 template <> struct Io<__nv_bfloat16> {
   static constexpr int kVec = 8;  // elements per 16-byte access
   static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
+    unpack8(*reinterpret_cast<const uint4*>(p), out);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
     uint4 raw;
@@ -98,6 +112,84 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T>
 __device__ __forceinline__ float modulate(float yn, float shift, float scale) {
   return rnd<T>(rnd<T>(yn * rnd<T>(1.f + scale)) + shift);
+}
+
+// sum over the L lanes of a group (L a power of two; the groups of a warp
+// are aligned runs of L lanes, so the butterfly stays inside each)
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// ---- width-exact forward: bf16, C a compile-time constant ---------------------
+
+// (a, b) rounded to bf16 by one paired conversion, as floats again
+__device__ __forceinline__ float2 rnd2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+// The token's x, shift and scale rows are loaded together (kVec vectors of
+// each, raw), the statistics reduced over the group, y written: every lane
+// of the block takes part in the shuffles, so the groups past the last token
+// work on the last token's rows and store nothing.
+template <int C, int L>
+__global__ void __launch_bounds__(kThreads)
+    ln_modulate_fwd_exact_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ shift,
+                                 const __nv_bfloat16* __restrict__ scale,
+                                 __nv_bfloat16* __restrict__ y, long long tokens, float eps) {
+  constexpr int kVec = C / (8 * L);  // 16-byte vectors of a row a lane holds
+  static_assert(kVec * 8 * L == C && (L & (L - 1)) == 0 && L <= kMaxLanes, "no exact plan");
+  const long long tok = static_cast<long long>(blockIdx.x) * (kThreads / L) + threadIdx.x / L;
+  const bool live = tok < tokens;
+  const int lane = threadIdx.x % L;
+  const long long at = (live ? tok : tokens - 1) * (C / 8) + lane;  // in vectors
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + at;
+  const uint4* shv = reinterpret_cast<const uint4*>(shift) + at;
+  const uint4* scv = reinterpret_cast<const uint4*>(scale) + at;
+  uint4 xr[kVec], shr[kVec], scr[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) xr[i] = __ldg(xv + i * L);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) shr[i] = __ldg(shv + i * L);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) scr[i] = __ldg(scv + i * L);
+
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    float f[8];
+    unpack8(xr[i], f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s += f[j];
+      ss += f[j] * f[j];
+    }
+  }
+  const float mu = group_sum<L>(s) / C;
+  const float rstd = rsqrtf(group_sum<L>(ss) / C - mu * mu + eps);
+  if (!live) return;
+  uint4* yv = reinterpret_cast<uint4*>(y) + at;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    float f[8], sh[8], sc[8];
+    unpack8(xr[i], f);
+    unpack8(shr[i], sh);
+    unpack8(scr[i], sc);
+    uint4 out;
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      // modulate<bf16> on a pair: each op rounded to bf16, two at a time
+      const float2 yn = rnd2((f[j] - mu) * rstd, (f[j + 1] - mu) * rstd);
+      const float2 one = rnd2(1.f + sc[j], 1.f + sc[j + 1]);
+      const float2 prod = rnd2(yn.x * one.x, yn.y * one.y);
+      o[j / 2] = __floats2bfloat162_rn(prod.x + sh[j], prod.y + sh[j + 1]);
+    }
+    yv[i * L] = out;
+  }
 }
 
 // ---- register kernels: C a multiple of the 16-byte vector, C <= 2048 -------
@@ -281,13 +373,51 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+// lanes of a token in the width-exact kernel: the largest power of two up to
+// kMaxLanes that divides the row's C / 8 vectors
+constexpr int exact_lanes(int c) {
+  int lanes = 1;
+  while (lanes < kMaxLanes && (c / 8) % (2 * lanes) == 0) lanes *= 2;
+  return lanes;
+}
+
+template <int C>
+int launch_exact(const void* x, const void* shift, const void* scale, void* y, long long tokens,
+                 float eps, long long grid, cudaStream_t stream) {
+  ln_modulate_fwd_exact_kernel<C, exact_lanes(C)><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(shift),
+      static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(y), tokens, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the widths with a width-exact instantiation (bf16): the DiT family's hidden
+// sizes (S 384, B 768, ABL 896, L 1024, XL 1152) and 2048; 0 for any other
+int exact_width(int c, int is_fp32) {
+  switch (is_fp32 ? 0 : c) {
+    case 384: case 768: case 896: case 1024: case 1152: case 2048: return c;
+    default: return 0;
+  }
+}
+
+int launch_exact_width(const void* x, const void* shift, const void* scale, void* y,
+                       long long tokens, int c, float eps, long long grid, cudaStream_t stream) {
+  switch (c) {
+    case 384: return launch_exact<384>(x, shift, scale, y, tokens, eps, grid, stream);
+    case 768: return launch_exact<768>(x, shift, scale, y, tokens, eps, grid, stream);
+    case 896: return launch_exact<896>(x, shift, scale, y, tokens, eps, grid, stream);
+    case 1024: return launch_exact<1024>(x, shift, scale, y, tokens, eps, grid, stream);
+    case 1152: return launch_exact<1152>(x, shift, scale, y, tokens, eps, grid, stream);
+    case 2048: return launch_exact<2048>(x, shift, scale, y, tokens, eps, grid, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int launch_fwd(const void* x, const void* shift, const void* scale, void* y, long long tokens,
-               int c, float eps, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((tokens + kWarpsPerBlock - 1) / kWarpsPerBlock);
+               int c, float eps, long long grid, cudaStream_t stream) {
   const bool regs = c % Io<T>::kVec == 0 && c <= kMaxRegWidth;
   auto* kernel = regs ? ln_modulate_fwd_kernel<T> : ln_modulate_fwd_pairs_kernel<T>;
-  kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  kernel<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(shift), static_cast<const T*>(scale),
       static_cast<T*>(y), tokens, c, eps);
   return static_cast<int>(cudaGetLastError());
@@ -313,14 +443,24 @@ bool bad_shape(long long tokens, int c) {
 }  // namespace
 
 // x, shift, scale, y: (tokens, C) contiguous, all bf16 (is_fp32 = 0) or all
-// fp32 (is_fp32 = 1), 16-byte aligned; C even. Returns a cudaError_t code.
+// fp32 (is_fp32 = 1), 16-byte aligned; C even. ``lanes`` (of a token),
+// ``block_tokens`` and ``grid``: the plan of ops/ln_modulate.py:
+// ln_modulate_plan, refused unless it is this entry's own. Returns a
+// cudaError_t code.
 extern "C" int dfot_ln_modulate_fwd(const void* x, const void* shift, const void* scale, void* y,
-                                    long long tokens, int c, float eps, int is_fp32,
-                                    void* stream) {
+                                    long long tokens, int c, float eps, int is_fp32, int lanes,
+                                    int block_tokens, long long grid, void* stream) {
   if (bad_shape(tokens, c)) return cudaErrorInvalidValue;
+  const int exact = exact_width(c, is_fp32);
+  const int my_lanes = exact ? exact_lanes(c) : 32;
+  const int my_block_tokens = kThreads / my_lanes;
+  if (lanes != my_lanes || block_tokens != my_block_tokens ||
+      grid != (tokens + my_block_tokens - 1) / my_block_tokens)
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return is_fp32 ? launch_fwd<float>(x, shift, scale, y, tokens, c, eps, s)
-                 : launch_fwd<__nv_bfloat16>(x, shift, scale, y, tokens, c, eps, s);
+  if (exact) return launch_exact_width(x, shift, scale, y, tokens, c, eps, grid, s);
+  return is_fp32 ? launch_fwd<float>(x, shift, scale, y, tokens, c, eps, grid, s)
+                 : launch_fwd<__nv_bfloat16>(x, shift, scale, y, tokens, c, eps, grid, s);
 }
 
 // x, scale, g in; dx, dscale out: (tokens, C) contiguous of one dtype, as

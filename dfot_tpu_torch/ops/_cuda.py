@@ -37,7 +37,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dfot_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dfot_qkv_prep": (_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    "dfot_attn_out_collect": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "dfot_attn_out_collect": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dfot_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dfot_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "dfot_qkv_prep_bwd": (
@@ -45,7 +45,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P,
     ),
     "dfot_attn_out_scatter": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "dfot_ln_modulate_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _P),
+    "dfot_ln_modulate_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _L, _P),
     "dfot_ln_modulate_bwd": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _P),
     "dfot_small_n_attn": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P),
 }

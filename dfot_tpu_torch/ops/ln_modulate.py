@@ -17,10 +17,13 @@ bias; with token-wise conditioning, shift and scale have x's shape.
 Rounding points, the same in the kernels and the plain versions: fp32
 statistics with var = E[x^2] - mu^2; the normalized value is cast to x's dtype
 before the modulate and before dscale; dx comes from the fp32 one. The kernels
-take bf16 or fp32, any token count and any even C.
+take bf16 or fp32, any token count and any even C; B8's launch is planned by
+:func:`ln_modulate_plan`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,8 +31,53 @@ from . import _cuda
 from .attention import _f32, _wants_grad
 
 __all__ = [
-    "ln_modulate", "ln_modulate_bwd", "reference_ln_modulate", "reference_ln_modulate_bwd",
+    "ln_modulate", "ln_modulate_bwd", "ln_modulate_plan", "reference_ln_modulate",
+    "reference_ln_modulate_bwd",
 ]
+
+# kernel B8's plan (csrc/ln_modulate.cu)
+LN_THREADS = 128    # threads of a block
+LN_MAX_LANES = 32   # width-exact kernel: lanes of a token, at most
+LN_MAX_REG_WIDTH = 2048  # generic kernel: widest row held in registers
+# bf16 widths with a width-exact instantiation: the DiT family's hidden sizes
+# (S 384, B 768, ABL 896, L 1024, XL 1152) and 2048
+LN_EXACT_WIDTHS = (384, 768, 896, 1024, 1152, 2048)
+
+
+@functools.lru_cache(maxsize=256)
+def ln_modulate_plan(tokens: int, C: int, dtype: torch.dtype) -> dict:
+    """Plan of kernel B8 for ``tokens`` rows of ``C`` channels in ``dtype``,
+    as its C entry computes it again and checks it.
+
+    ``kernel``: "exact" for bf16 at :data:`LN_EXACT_WIDTHS`, where a group of
+    ``lanes`` lanes owns a token (the largest power of two up to 32 that
+    divides the C / 8 16-byte vectors of a row) and each lane holds
+    ``vectors`` of them of x, shift and scale; else "registers" (a warp a
+    token, C a multiple of the 16-byte vector up to 2048) or "pairs" (a warp
+    a token walking the row in pairs). ``block_tokens``: the tokens of a
+    block of :data:`LN_THREADS` threads; ``grid``: the blocks, one for each
+    ``block_tokens`` tokens, the last one ragged.
+    """
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"ln_modulate kernel takes bf16 or fp32, got {dtype}")
+    if tokens <= 0 or C <= 0 or C % 2:
+        raise ValueError(f"no ln_modulate plan for {tokens} tokens of C {C} (C even)")
+    vec = 8 if dtype == torch.bfloat16 else 4  # elements of a 16-byte vector
+    if dtype == torch.bfloat16 and C in LN_EXACT_WIDTHS:
+        lanes = 1
+        while lanes < LN_MAX_LANES and (C // 8) % (2 * lanes) == 0:
+            lanes *= 2
+        kernel, vectors = "exact", C // (8 * lanes)
+    else:
+        lanes, vectors = 32, None
+        kernel = "registers" if C % vec == 0 and C <= LN_MAX_REG_WIDTH else "pairs"
+    # the C entry refuses more tokens than 2^31 - 1 blocks of a warp a token take
+    if -(-tokens // (LN_THREADS // 32)) >= 2 ** 31:
+        raise ValueError(f"no ln_modulate plan for {tokens} tokens")
+    block_tokens = LN_THREADS // lanes
+    grid = -(-tokens // block_tokens)
+    return {"kernel": kernel, "lanes": lanes, "vectors": vectors,
+            "block_tokens": block_tokens, "threads": LN_THREADS, "grid": grid}
 
 
 def _normalized(x: torch.Tensor, eps: float):
@@ -79,10 +127,12 @@ def _operands(what, x, *others):
 def _fwd_cuda(x, shift, scale, eps):
     (x, shift, scale), (tokens, C, is_fp32) = _operands("ln_modulate", x, shift, scale)
     y = torch.empty_like(x)
+    plan = ln_modulate_plan(tokens, C, x.dtype)
     _cuda.check(
         _cuda.library().dfot_ln_modulate_fwd(
             x.data_ptr(), shift.data_ptr(), scale.data_ptr(), y.data_ptr(), tokens, C,
-            float(eps), is_fp32, _cuda.stream_handle(x.device),
+            float(eps), is_fp32, plan["lanes"], plan["block_tokens"], plan["grid"],
+            _cuda.stream_handle(x.device),
         ),
         "ln_modulate",
     )

@@ -44,6 +44,7 @@ __all__ = [
     "prep_bwd_plan",
     "reference_qkv_prep",
     "attn_out_collect",
+    "collect_plan",
     "attn_out_scatter",
     "reference_attn_out_collect",
     "reference_attn_out_scatter",
@@ -388,16 +389,45 @@ def _check_collect_operands(what, t, head_dim, d_in):
         raise ValueError(f"{what} kernel takes D, DP multiples of 8, got {head_dim}/{d_in}")
 
 
+# kernel B3's plan (csrc/attn_out_collect.cu)
+COLLECT_THREADS = 256
+COLLECT_VEC_PER_THREAD = 4   # 16-byte loads in flight a thread
+COLLECT_MIN_BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=256)
+def collect_plan(B: int, H: int, N: int, d: int, dp: int) -> dict:
+    """Plan of kernel B3 for a (B, H, N, dp) input of true head dim ``d``,
+    as its C entry computes it again and checks it.
+
+    A block owns ``tile`` whole token rows (all H heads) of one batch entry,
+    and the grid is (``grid_x`` token tiles, B): every (batch, head, token)
+    once, the last tile of a batch entry ragged. ``tile`` is the tokens whose
+    H * d / 8 16-byte vectors a block's :data:`COLLECT_THREADS` threads move
+    with :data:`COLLECT_VEC_PER_THREAD` each (at least 1, at most N), halved
+    while the grid would give the :data:`SM_COUNT` SMs fewer than
+    :data:`COLLECT_MIN_BLOCKS_PER_SM` blocks each.
+    """
+    if d <= 0 or d % 8 or dp % 8 or dp < d:
+        raise ValueError(f"no attn_out_collect plan for d {d}, dp {dp} (multiples of 8, dp >= d)")
+    if min(B, H, N) <= 0 or B > 65535:
+        raise ValueError(f"no attn_out_collect plan for B {B}, H {H}, N {N}")
+    tile = min(N, max(1, COLLECT_THREADS * COLLECT_VEC_PER_THREAD // (H * d // 8)))
+    while tile > 1 and -(-N // tile) * B < COLLECT_MIN_BLOCKS_PER_SM * SM_COUNT:
+        tile //= 2
+    return {"tile": tile, "grid": (-(-N // tile), B), "threads": COLLECT_THREADS}
+
+
 def _collect_cuda(o, head_dim):
     B, H, N, DP = o.shape
     _check_collect_operands("attn_out_collect", o, head_dim, DP)
     o = o.contiguous()
     out = torch.empty((B, N, H * head_dim), dtype=o.dtype, device=o.device)
     _cuda.check_aligned("attn_out_collect", 16, o, out)
-    lib = _cuda.library()
+    plan = collect_plan(B, H, N, head_dim, DP)
     _cuda.check(
-        lib.dfot_attn_out_collect(
-            o.data_ptr(), out.data_ptr(), B, H, N, head_dim, DP,
+        _cuda.library().dfot_attn_out_collect(
+            o.data_ptr(), out.data_ptr(), B, H, N, head_dim, DP, plan["tile"], plan["grid"][0],
             _cuda.stream_handle(o.device),
         ),
         "attn_out_collect",

@@ -618,3 +618,77 @@ def test_packed_route_head_dim_256(cuda):
     route = ("qkv_prep", "flash_fwd", "attn_out_collect", "attn_out_scatter", "flash_bwd_dq",
              "flash_bwd_dkv", "qkv_prep_bwd")
     assert all(counts[name] == 1 for name in route), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel,l2", [(torch.bfloat16, 2e-2, 2e-3), (torch.float32, 2e-5, 1e-5)])
+@pytest.mark.parametrize("shape", [(8, 1280, 1152), (8, 1024, 768), (128, 16, 384), (3, 7, 1152),
+                                   (1, 5, 384), (3, 7, 896), (2, 3, 1024), (1, 5, 2048),
+                                   (2, 5, 1154), (1, 3, 2304)])
+def test_ln_modulate_forward_plans(cuda, dtype, rel, l2, shape):
+    """B8 against its plain version at the XL, DiT/B and factorized-DiT
+    shapes (bf16: width-exact kernel), at token counts that are no multiple
+    of a block's tokens (21 and 5), at the other exact widths, at a width
+    that is no multiple of the 16-byte vector (1154) and one wider than the
+    registers hold (2304), and in fp32 (generic kernels): one launch a call,
+    within ``chip_smoke.py``'s bounds (2e-2 of the magnitude and 2e-3
+    relative L2 in bf16)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (2 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
+    shift = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    scale = (0.3 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    ops.reset_launch_counts()
+    y = L.ln_modulate(x, shift, scale)
+    assert ops.launch_counts()["ln_modulate"] == 1
+    want = L.reference_ln_modulate(x, shift, scale)
+    assert y.dtype == dtype and _close(y, want, rel) and _rel_l2(y, want) <= l2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("d,dp", [(64, 64), (72, 128), (128, 128), (160, 256), (256, 256)])
+@pytest.mark.parametrize("n", [2048, 1000])
+def test_attn_out_collect_plans(cuda, B, d, dp, n):
+    """B3 is an exact copy at every path head dim, padded or not, at both
+    batches and at a token count that is no multiple of any tile; one launch
+    a call. A collect that takes the heads in the wrong order is not."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    H = 3
+    o = torch.randn(B, H, n, dp, generator=g, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    got = Q.attn_out_collect(o, d)
+    assert ops.launch_counts()["attn_out_collect"] == 1
+    want = Q.reference_attn_out_collect(o, d)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, Q.reference_attn_out_collect(o.flip(1), d))
+
+
+@pytest.mark.gpu
+def test_attn_out_collect_rows_wider_than_a_block(cuda):
+    """B3 where one token row (5 heads of 2048 lanes) is more than a block's
+    loads move at once: a block walks its row in several rounds."""
+    o = torch.randn(1, 5, 37, 2048, device=cuda).to(torch.bfloat16)
+    assert torch.equal(Q.attn_out_collect(o, 2048), Q.reference_attn_out_collect(o, 2048))
+
+
+@pytest.mark.gpu
+def test_ln_modulate_and_collect_entries_refuse_other_plans(cuda):
+    """The C entries of B8 and B3 refuse any plan but their own."""
+    from dfot_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    stream = _cuda.stream_handle(cuda)
+    x = torch.zeros(3, 7, 1152, device=cuda, dtype=torch.bfloat16)
+    plan = L.ln_modulate_plan(21, 1152, torch.bfloat16)
+    ptrs = [x.data_ptr()] * 4
+    for lanes, per_block, grid in ((32, plan["block_tokens"], plan["grid"]),
+                                   (plan["lanes"], 4, plan["grid"]),
+                                   (plan["lanes"], plan["block_tokens"], plan["grid"] + 1)):
+        assert lib.dfot_ln_modulate_fwd(*ptrs, 21, 1152, 1e-6, 0, lanes, per_block, grid,
+                                        stream) == 1  # cudaErrorInvalidValue
+    o = torch.zeros(1, 2, 1000, 128, device=cuda, dtype=torch.bfloat16)
+    out = torch.zeros(1, 1000, 2 * 72, device=cuda, dtype=torch.bfloat16)
+    plan = Q.collect_plan(1, 2, 1000, 72, 128)
+    for tile, gx in ((plan["tile"] + 1, plan["grid"][0]), (plan["tile"], plan["grid"][0] + 1)):
+        assert lib.dfot_attn_out_collect(o.data_ptr(), out.data_ptr(), 1, 2, 1000, 72, 128, tile,
+                                         gx, stream) == 1

@@ -1,14 +1,16 @@
-"""The plans of kernels B10 (small-N attention) and B6 (qkv_prep backward),
-on the CPU.
+"""The plans of kernels B10 (small-N attention), B6 (qkv_prep backward), B8
+(ln_modulate forward) and B3 (attn_out_collect), on the CPU.
 
-``ops/attention.py:small_n_plan`` and ``ops/qkv_prep.py:prep_bwd_plan`` are
-what the wrappers pass to the C entries, which compute the plan again and
-refuse any other; so the plans are checked here, where no card is needed:
-every item (B10) or token, stream and (batch, head) item (B6) is covered
-exactly once, the shared memory fits one H100 block (and the blocks an SM is
-planned to hold fit the SM), and the grid gives every SM a block at the
-shapes the paths give the kernels. The constants the C sources compute the
-plans from are read from the sources and held against the Python ones.
+``ops/attention.py:small_n_plan``, ``ops/qkv_prep.py:prep_bwd_plan``,
+``ops/ln_modulate.py:ln_modulate_plan`` and ``ops/qkv_prep.py:collect_plan``
+are what the wrappers pass to the C entries, which compute the plan again
+and refuse any other; so the plans are checked here, where no card is
+needed: every item (B10), token, stream and (batch, head) item (B6), token
+(B8) or (batch, head, token tile) item (B3) is covered exactly once, the
+shared memory fits one H100 block (and the blocks an SM is planned to hold
+fit the SM), and the grid gives every SM a block at the shapes the paths
+give the kernels. The constants the C sources compute the plans from are
+read from the sources and held against the Python ones.
 """
 
 import math
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from dfot_tpu_torch.ops import attention as A
+from dfot_tpu_torch.ops import ln_modulate as L
 from dfot_tpu_torch.ops import qkv_prep as Q
 
 CSRC = Path(A.__file__).resolve().parent.parent / "csrc"
@@ -51,6 +54,33 @@ PREP_SHAPES = (
     ("base level 3, B = 2", 2, 2048, 4, 256, 256),
     ("head dim 160", 1, 2048, 4, 160, 256),
     ("tail", 3, 1000, 9, 64, 64),
+)
+
+
+# (what, tokens, C) of every B8 call on the paths: K600 @DiT/XL at batch 8,
+# DiT/B's widths, the factorized DiT's spatial view (B * T, P, C)
+LN_SHAPES = (
+    ("K600 @DiT/XL", 8 * 1280, 1152),
+    ("DiT/B", 8 * 1024, 768),
+    ("factorized DiT", 128 * 16, 384),
+)
+
+# (what, B, H, N, d, dp) of every B3 call on the paths and its tails: the
+# flagship's levels 2 and 3 at the window's batch and the train step's, K600
+# @DiT/XL (72 -> 128), the base widths' level 3 at B = 1 and 2, a head of 160
+# padded to 256, and N = 1000 (no multiple of any tile)
+COLLECT_SHAPES = (
+    ("flagship level 2", 2, 9, 8192, 64, 64),
+    ("flagship level 3", 2, 9, 2048, 128, 128),
+    ("flagship level 2, B = 1", 1, 9, 8192, 64, 64),
+    ("K600 @DiT/XL", 8, 16, 1280, 72, 128),
+    ("base level 3", 2, 4, 2048, 256, 256),
+    ("base level 3, B = 1", 1, 4, 2048, 256, 256),
+    ("head dim 160", 1, 4, 2048, 160, 256),
+    ("tail, d 72", 1, 3, 1000, 72, 128),
+    ("tail, d 160", 2, 4, 1000, 160, 256),
+    ("tail, d 256", 1, 2, 1000, 256, 256),
+    ("token rows wider than a block's loads", 1, 5, 37, 2048, 2048),
 )
 
 
@@ -184,3 +214,129 @@ def test_the_c_sources_plan_with_the_same_constants():
     b6 = _constants("qkv_prep_bwd.cu")
     assert (b6["kThreads"], b6["kStages"], b6["kSmCount"], b6["kBlocksPerSm"]) == (
         Q.PREP_BWD_THREADS, Q.PREP_BWD_STAGES, Q.SM_COUNT, Q.PREP_BWD_BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tokens,C", [(10240, 1152), (8192, 768), (2048, 384), (1001, 1152),
+                                      (7, 896), (5, 2048), (3, 1154), (3, 2304), (1, 2)])
+def test_ln_modulate_plan_covers_every_token_once(tokens, C, dtype):
+    plan = L.ln_modulate_plan(tokens, C, dtype)
+    lanes, per_block = plan["lanes"], plan["block_tokens"]
+    # block b owns the tokens b * per_block + (thread / lanes): every token
+    # once, the last block's surplus groups store nothing
+    assert per_block * lanes == plan["threads"] == L.LN_THREADS
+    owned = [b * per_block + t // lanes for b in range(plan["grid"])
+             for t in range(0, plan["threads"], lanes)]
+    assert [t for t in owned if t < tokens] == list(range(tokens))
+    assert plan["grid"] == math.ceil(tokens / per_block)
+    if plan["kernel"] == "exact":
+        # width-exact: every lane holds the same whole number of the row's vectors
+        assert dtype == torch.bfloat16 and C in L.LN_EXACT_WIDTHS
+        assert lanes * plan["vectors"] * 8 == C and lanes & (lanes - 1) == 0
+        assert lanes <= L.LN_MAX_LANES and (lanes == L.LN_MAX_LANES or (C // 8) % (2 * lanes))
+    else:
+        # a warp a token: the row in registers where it is a whole number of
+        # 16-byte vectors up to 2048 wide, else in pairs
+        vec = 8 if dtype == torch.bfloat16 else 4
+        assert lanes == 32 and plan["vectors"] is None
+        regs = C % vec == 0 and C <= L.LN_MAX_REG_WIDTH
+        assert plan["kernel"] == ("registers" if regs else "pairs")
+
+
+@pytest.mark.parametrize("what,tokens,C", LN_SHAPES)
+def test_ln_modulate_plan_fills_the_card_at_the_path_shapes(what, tokens, C):
+    plan = L.ln_modulate_plan(tokens, C, torch.bfloat16)
+    assert plan["kernel"] == "exact" and plan["grid"] >= A.SM_COUNT
+
+
+def test_ln_modulate_plan_at_the_path_widths():
+    """K600 @DiT/XL: 16 lanes of 9 vectors a token (1152 = 16 x 9 x 8), 8
+    tokens a block; DiT/B: 32 lanes of 3; the factorized DiT: 16 lanes of 3."""
+    got = {C: L.ln_modulate_plan(tokens, C, torch.bfloat16) for _, tokens, C in LN_SHAPES}
+    assert {C: (p["lanes"], p["vectors"], p["block_tokens"], p["grid"]) for C, p in got.items()} == {
+        1152: (16, 9, 8, 1280), 768: (32, 3, 4, 2048), 384: (16, 3, 8, 256)}
+    assert L.ln_modulate_plan(10240, 1152, torch.float32)["kernel"] == "registers"
+
+
+@pytest.mark.parametrize("tokens,C,dtype,error", [
+    (0, 768, torch.bfloat16, ValueError), (8, 0, torch.bfloat16, ValueError),
+    (8, 767, torch.bfloat16, ValueError), (8, 768, torch.float16, TypeError),
+    (4 * 2 ** 31, 768, torch.bfloat16, ValueError)])
+def test_ln_modulate_plan_refuses_what_the_kernel_refuses(tokens, C, dtype, error):
+    with pytest.raises(error):
+        L.ln_modulate_plan(tokens, C, dtype)
+
+
+@pytest.mark.parametrize("what,B,H,N,d,dp", COLLECT_SHAPES)
+def test_collect_plan_covers_every_item_once(what, B, H, N, d, dp):
+    plan = Q.collect_plan(B, H, N, d, dp)
+    tile, (gx, gy) = plan["tile"], plan["grid"]
+    assert gy == B and gx == math.ceil(N / tile) and 1 <= tile <= N
+    # block (x, b) copies all heads of tokens x * tile .. of batch entry b
+    items = sorted((b, h, t) for b in range(gy) for x in range(gx) for h in range(H)
+                   for t in range(x * tile, min((x + 1) * tile, N)))
+    assert items == [(b, h, t) for b in range(B) for h in range(H) for t in range(N)]
+    # a thread walks the block's output run (token, head, vector) in steps of
+    # the block's threads, carrying the three indices forward: the walk
+    # lands where a division would
+    d8, threads = d // 8, plan["threads"]
+    row = H * d8
+
+    def split(i):
+        return i // row, i % row // d8, i % row % d8
+
+    step = split(threads)
+    for i in (0, 1, threads - 1):
+        t, h, p = split(i)
+        for k in range(2 * Q.COLLECT_VEC_PER_THREAD + 1):
+            assert (t, h, p) == split(i + k * threads)
+            t, h, p = t + step[0], h + step[1], p + step[2]
+            if p >= d8:
+                h, p = h + 1, p - d8
+            if h >= H:
+                t, h = t + 1, h - H
+    # a block's loads cover its tile, unless the tile was halved to fill the card
+    full = min(N, max(1, threads * Q.COLLECT_VEC_PER_THREAD // row))
+    assert tile * row <= threads * Q.COLLECT_VEC_PER_THREAD or tile == 1
+    if tile < full:
+        assert math.ceil(N / (2 * tile)) * B < Q.COLLECT_MIN_BLOCKS_PER_SM * Q.SM_COUNT
+
+
+@pytest.mark.parametrize("what,B,H,N,d,dp", COLLECT_SHAPES[:7])
+def test_collect_plan_fills_the_card_at_the_path_shapes(what, B, H, N, d, dp):
+    gx, gy = Q.collect_plan(B, H, N, d, dp)["grid"]
+    assert gx * gy >= Q.COLLECT_MIN_BLOCKS_PER_SM * Q.SM_COUNT
+
+
+def test_collect_plan_at_the_flagship_and_xl_shapes():
+    """The flagship's level 2: tiles of 14 token rows of 9 heads x 8 vectors
+    (1008 of the 1024 a block's loads take); K600 @DiT/XL: 7 rows of 16 x 9;
+    the base widths' level 3 at B = 1: 8 rows of 4 x 32 halved to 4, so that
+    the 512 blocks give every SM two."""
+    assert Q.collect_plan(2, 9, 8192, 64, 64) == {"tile": 14, "grid": (586, 2), "threads": 256}
+    assert Q.collect_plan(8, 16, 1280, 72, 128)["tile"] == 7
+    assert Q.collect_plan(1, 4, 2048, 256, 256)["grid"] == (512, 1)
+
+
+@pytest.mark.parametrize("B,H,N,d,dp", [(1, 1, 64, 60, 64), (1, 1, 64, 64, 60), (1, 1, 64, 128, 64),
+                                        (1, 1, 64, 0, 64), (0, 1, 64, 64, 64), (1, 0, 64, 64, 64),
+                                        (1, 1, 0, 64, 64), (65536, 1, 64, 64, 64)])
+def test_collect_plan_refuses_what_the_kernel_refuses(B, H, N, d, dp):
+    with pytest.raises(ValueError):
+        Q.collect_plan(B, H, N, d, dp)
+
+
+def test_the_b8_and_b3_sources_plan_with_the_same_constants():
+    """B8's block, lane bound, register width and width-exact instantiations,
+    and B3's block, loads a thread and fill rule, are the Python plans' own."""
+    b8 = _constants("ln_modulate.cu")
+    assert (b8["kThreads"], b8["kMaxLanes"], b8["kMaxRegWidth"], b8["kWarpsPerBlock"] * 32) == (
+        L.LN_THREADS, L.LN_MAX_LANES, L.LN_MAX_REG_WIDTH, L.LN_THREADS)
+    text = (CSRC / "ln_modulate.cu").read_text()
+    # the widths the entry plans as exact, then the instantiations it launches
+    widths = tuple(int(w) for w in re.findall(r"case (\d+):", text))
+    assert widths == 2 * L.LN_EXACT_WIDTHS
+    assert re.findall(r"return launch_exact<(\d+)>", text) == [str(w) for w in L.LN_EXACT_WIDTHS]
+    b3 = _constants("attn_out_collect.cu")
+    assert (b3["kThreads"], b3["kVecPerThread"], b3["kSmCount"], b3["kMinBlocksPerSm"]) == (
+        Q.COLLECT_THREADS, Q.COLLECT_VEC_PER_THREAD, Q.SM_COUNT, Q.COLLECT_MIN_BLOCKS_PER_SM)
