@@ -16,11 +16,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dim of 160 padded to 256 (B = 1, 4 heads, 2048 tokens); B1, B4 and B5
    also at N = 192 (a multiple of 64 but not of their 128-row blocks),
    causal and not, at d = 64, 128, 72 -> 128, 256 and 160 -> 256; B8, B9 at
-   the XL, DiT/B and factorized-DiT widths; B8 also at tails (token counts no
-   multiple of a block's tokens, its other width-exact widths, C = 1154 and
-   2304, fp32); B3 bit for bit, also at N = 1000 for every path head dim,
-   and timed on B1's output as B1 has just written it (F level 2 and XL);
-   B10 at the axial and factorized
+   the XL, DiT/B and factorized-DiT widths, and at tails (token counts no
+   multiple of a block's tokens, the other width-exact widths, C = 1154 and
+   2304, fp32), B9 twice on the same operands for the same bits; B3 and B7
+   bit for bit, also at N = 1000 for every path head dim (B7 twice for the
+   same bits), B3 timed on B1's output as B1 has just written it (F level 2
+   and XL); B3, B7, B8 and B9 beside the device's contiguous copy of the
+   same bytes; B10 at the axial and factorized
    shapes, the base axial U-ViT's (2048, 8, 256) and at N = 5 and 32, d =
    64, 128 and 256 (twice in fp32); B6 also at a tail shape (a token count
    no multiple of its tile, 9 heads), and twice on the same operands, which
@@ -81,8 +83,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Steps 3, 4, 7, 10, 13, 14 and 15 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
-a faulty plain version of B1, B2, B3, B4, B5, B6, B8, B9 and B10 against each
-one's bounds (B3: the heads in reverse order; B6: dx without the norm's mean
+a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
+heads in reverse order; B6: dx without the norm's mean
 term, table cotangents over half the (batch, head) items; B10 also: a
 softmax that counts the keys that pad N = 5 or 8 to a 16-key tile); all fail
 unless the bound rejects them. Any failed check
@@ -197,13 +199,14 @@ ATTN_REL_L2_TOL = 1e-2
 PREP_REL_L2_TOL = 1e-2
 # B6 at a tail shape: (B, N, H, d), N no multiple of any tile, H odd
 PREP_TAIL_SITE = (3, 1000, 9, 64)
-# B3 at token counts that are no multiple of any of its tiles: (B, H, N, d, dp)
+# B3 and B7 at token counts that are no multiple of any of their tiles:
+# (B, H, N, d, dp)
 COLLECT_TAIL_SITES = ((1, 3, 1000, 64, 64), (2, 3, 1000, 72, 128), (1, 3, 1000, 128, 128),
-                      (2, 3, 1000, 160, 256), (1, 2, 1000, 256, 256))
-# B8 at tails (shape, dtype name): token counts that are no multiple of a
-# block's tokens, the other width-exact widths, a width that is no multiple of
-# the 16-byte vector (pair kernel), one wider than the registers hold, and
-# fp32 (the generic kernels) at the XL width
+                      (2, 3, 1000, 160, 256), (1, 2, 1000, 256, 256), (3, 3, 1000, 72, 128))
+# B8 and B9 at tails (shape, dtype name): token counts that are no multiple
+# of a block's tokens, the other width-exact widths, a width that is no
+# multiple of the 16-byte vector (pair kernel), one wider than the registers
+# hold, and fp32 (the generic kernels) at the XL width
 LN_TAIL_SHAPES = (((3, 7, 1152), "bf16"), ((1, 5, 384), "bf16"), ((3, 7, 896), "bf16"),
                   ((2, 3, 1024), "bf16"), ((1, 5, 2048), "bf16"), ((2, 5, 1154), "bf16"),
                   ((1, 3, 2304), "bf16"), ((3, 7, 1152), "fp32"), ((2, 5, 1154), "fp32"))
@@ -682,6 +685,40 @@ def check_kernels(record: dict) -> dict:
                 f"attn_out_collect at {site}: the exact check passes the heads in reverse order")
         return got
 
+    def scatter_check(site, g, H, D, DP):
+        """B7 twice on the same operands, which must give the same bits, and
+        against its plain version bit for bit; the exact check must reject a
+        scatter that takes the heads in the wrong order (the last first).
+        Returns B7's output."""
+        got, again = (Q.attn_out_scatter(g, H, D, DP) for _ in range(2))
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"attn_out_scatter at {site}: two calls differ")
+        want = Q.reference_attn_out_scatter(g, H, D, DP)
+        require(torch.equal(got, want), f"attn_out_scatter at {site}: not an exact copy "
+                f"(max_abs_err {max_err(got, want):.3e})")
+        B, N, _ = g.shape
+        reversed_heads = g.reshape(B, N, H, D).flip(2).reshape(B, N, H * D)
+        require(not torch.equal(Q.reference_attn_out_scatter(reversed_heads, H, D, DP), want),
+                f"attn_out_scatter at {site}: the exact check passes the heads in reverse order")
+        return got
+
+    def ln_bwd_check(site, x, scale, g, rel, l2_tol):
+        """B9 twice on the same operands, which must give the same bits, and
+        dx and dscale each within their own bounds of the plain version (a
+        shared bound would pass a wrong dx: dscale's values are several times
+        dx's), which must reject dx without the row means."""
+        (dx, dscale), again = (L.ln_modulate_bwd(x, scale, g) for _ in range(2))
+        torch.cuda.synchronize()
+        require(torch.equal(dx, again[0]) and torch.equal(dscale, again[1]),
+                f"ln_modulate_bwd at {site}: two calls differ")
+        dx_ref, dscale_ref = L.reference_ln_modulate_bwd(x, scale, g)
+        err, tol, extra = hold("ln_modulate_bwd", site,
+                               (("dx", dx, dx_ref), ("dscale", dscale, dscale_ref)), rel, l2_tol)
+        extra["controls"] = rejected(
+            "ln_modulate_bwd", site, "dx without the row means",
+            [("dx", ln_backward_without_means(x, scale, g)[0], dx_ref)], rel, l2_tol)
+        return err, tol, extra
+
     def attention_site(site, B, N, H, D, DP, rope_sizes, norm, fused_width, main,
                        in_path=False):
         """B2, B6, B1, B4, B5, B3, B7 at one attention site. ``main``: which
@@ -811,14 +848,15 @@ def check_kernels(record: dict) -> dict:
         note("attn_out_collect", site, is_main("attn_out_collect"), 0.0, 0.0, collect, plain,
              bound(0, B * H * N * D * o.element_size() + nbytes(got), PEAK_FP32_FLOPS), plain,
              host_us=host_us(collect), **extra, **contiguous_copy(got.numel()))
+        # B7: its bound and the device's copy count the D lanes it reads and
+        # the DP lanes (pad lanes included) it writes
         g = rand(B, N, C)
-        got = Q.attn_out_scatter(g, H, D, DP)
-        torch.cuda.synchronize()
+        got = scatter_check(site, g, H, D, DP)
         plain = cuda_ms(lambda: Q.reference_attn_out_scatter(g, H, D, DP))
-        note("attn_out_scatter", site, is_main("attn_out_scatter"),
-             max_err(got, Q.reference_attn_out_scatter(g, H, D, DP)),
-             0.0, lambda: Q.attn_out_scatter(g, H, D, DP), plain,
-             bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain)
+        scatter = lambda: Q.attn_out_scatter(g, H, D, DP)  # noqa: E731
+        note("attn_out_scatter", site, is_main("attn_out_scatter"), 0.0, 0.0, scatter, plain,
+             bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain, host_us=host_us(scatter),
+             **contiguous_copy((g.numel() + got.numel()) // 2))
 
     for B in BATCHES:
         for level, N, H, D in SITES:
@@ -855,14 +893,17 @@ def check_kernels(record: dict) -> dict:
             log(f"  flash_fwd, flash_bwd_dq, flash_bwd_dkv {site}: within bounds, controls "
                 f"rejected")
 
-    # B3 at tails: a token count that is no multiple of any tile, at every
-    # path head dim, padded or not (no timing: on no path)
+    # B3 and B7 at tails: a token count that is no multiple of any tile, at
+    # every path head dim, padded or not (no timing: on no path)
     results["attn_out_collect"]["edge_sites"] = {}
+    results["attn_out_scatter"]["edge_sites"] = {}
     for B, H, N, D, DP in COLLECT_TAIL_SITES:
         site = f"tail B={B} H={H} N={N} d={D}->{DP}"
         collect_check(site, rand(B, H, N, DP), D)
-        results["attn_out_collect"]["edge_sites"][site] = {"max_abs_err": 0.0, "tol": 0.0}
-        log(f"  attn_out_collect  {site}: exact, reversed heads rejected")
+        scatter_check(site, rand(B, N, H * D), H, D, DP)
+        for name in ("attn_out_collect", "attn_out_scatter"):
+            results[name]["edge_sites"][site] = {"max_abs_err": 0.0, "tol": 0.0}
+        log(f"  attn_out_collect, attn_out_scatter {site}: exact, reversed heads rejected")
 
     # B6 at a tail shape: a token count that is no multiple of its tile, an
     # odd head count, rows of a 7C-wide fused projection (no timing: on no path)
@@ -885,6 +926,7 @@ def check_kernels(record: dict) -> dict:
     # values are several times dx's: a shared bound would pass a wrong dx)
     l2 = KERNEL_REL_L2_TOL
     results["ln_modulate"]["edge_sites"] = {}
+    results["ln_modulate_bwd"]["edge_sites"] = {}
     for shape, dtype_name in LN_TAIL_SHAPES:
         site = f"tail {shape} {dtype_name}"
         fp32 = dtype_name == "fp32"
@@ -905,15 +947,22 @@ def check_kernels(record: dict) -> dict:
         results["ln_modulate"]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
         log(f"  ln_modulate       {site}: max_abs_err {err:.3e} (tol {tol:.3e}) rel L2 "
             f"{extra['rel_l2']['y']:.3e} (tol {tol_l2}), control rejected")
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        before = L.ln_modulate_bwd.launches
+        err, tol, extra = ln_bwd_check(site, x, scale, g, rel, tol_l2)
+        require(L.ln_modulate_bwd.launches == before + 2,
+                f"ln_modulate_bwd at {site}: not one launch a call")
+        results["ln_modulate_bwd"]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
+        log(f"  ln_modulate_bwd   {site}: max_abs_err {err:.3e} (tol {tol:.3e}) rel L2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in extra["rel_l2"].items())
+            + f" (tol {tol_l2}), control rejected, two calls bit-identical")
     for label, shape in LN_SHAPES:
         site = f"{label} {shape}"
         x = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(bf16)
         shift, scale, g = rand(*shape), rand(*shape, scale=0.3), rand(*shape)
         y = L.ln_modulate(x, shift, scale)
-        dx, dscale = L.ln_modulate_bwd(x, scale, g)
         torch.cuda.synchronize()
         y_ref = L.reference_ln_modulate(x, shift, scale)
-        dx_ref, dscale_ref = L.reference_ln_modulate_bwd(x, scale, g)
         elems = x.numel()
         err, tol, extra = hold("ln_modulate", site, [("y", y, y_ref)], 2e-2, l2)
         extra["controls"] = rejected(
@@ -925,17 +974,15 @@ def check_kernels(record: dict) -> dict:
              # per element: two statistics sums, normalize, modulate
              bound(8 * elems, nbytes(x, shift, scale, y), PEAK_FP32_FLOPS),
              host_us=host_us(fwd), **extra, **contiguous_copy(2 * elems))
-        err, tol, extra = hold("ln_modulate_bwd", site,
-                               (("dx", dx, dx_ref), ("dscale", dscale, dscale_ref)), 2e-2, l2)
-        extra["controls"] = rejected(
-            "ln_modulate_bwd", site, "dx without the row means",
-            [("dx", ln_backward_without_means(x, scale, g)[0], dx_ref)], 2e-2, l2)
-        note("ln_modulate_bwd", site, label == "xl", err, tol,
-             lambda: L.ln_modulate_bwd(x, scale, g),
+        err, tol, extra = ln_bwd_check(site, x, scale, g, 2e-2, l2)
+        bwd = lambda: L.ln_modulate_bwd(x, scale, g)  # noqa: E731
+        note("ln_modulate_bwd", site, label == "xl", err, tol, bwd,
              cuda_ms(lambda: L.reference_ln_modulate_bwd(x, scale, g)),
-             # the statistics again, gl and its two sums, dx, dscale
-             bound(16 * elems, nbytes(x, scale, g, dx, dscale), PEAK_FP32_FLOPS), **extra)
-        del x, shift, scale, g, y, dx, dscale, y_ref, dx_ref, dscale_ref
+             # the statistics again, gl and its two sums, dx, dscale; three
+             # (tokens, C) tensors read, two written
+             bound(16 * elems, 5 * nbytes(x), PEAK_FP32_FLOPS), host_us=host_us(bwd), **extra,
+             **contiguous_copy(5 * elems // 2))
+        del x, shift, scale, g, y, y_ref
 
     for label, (Z, N, D), dtype in (*((a, b, bf16) for a, b in SMALL_N_SHAPES),
                                     *((a, b, torch.float32) for a, b in SMALL_N_FP32_SHAPES)):

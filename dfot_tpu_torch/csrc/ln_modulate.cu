@@ -20,19 +20,26 @@
 // five, with a handful of flops per element, so the only lever is to touch
 // every byte once and keep enough of them in flight.
 //
-// Forward at the model widths (bf16, C in the list of launch_exact below):
-// the width is a compile-time constant and a group of `lanes` lanes owns a
-// token, `lanes` the largest power of two up to 32 that divides C / 8, so
-// every lane holds exactly C / (8 lanes) 16-byte vectors of each row (1152:
-// 16 lanes x 9, 768: 32 x 3, 384: 16 x 3). A lane issues the loads of x,
-// shift and scale together, keeps them as raw bf16 in registers, reduces the
-// statistics with shuffles inside its group and writes y: one round trip to
-// device memory per token. The plan (lanes, tokens a block, grid) is
-// ops/ln_modulate.py:ln_modulate_plan; the C entry computes it again and
-// refuses any other. Every other shape, fp32 and the backward take the
-// generic kernels: one warp per token, the row in registers up to C = 2048
-// when C is a multiple of the 16-byte vector, else a kernel that walks the
-// row in pairs and reads x again from cache.
+// At the model widths (bf16, C in the list of launch_exact below) both
+// directions take width-exact kernels: the width is a compile-time constant
+// and a group of `lanes` lanes owns a token, `lanes` the largest power of two
+// up to 32 that divides C / 8, so every lane holds exactly C / (8 lanes)
+// 16-byte vectors of each row (1152: 16 lanes x 9, 768: 32 x 3, 384: 16 x 3).
+// A lane issues the loads of its three input rows together (forward: x,
+// shift, scale; backward: x, scale, g), keeps them as raw bf16 in registers,
+// reduces over its group with shuffles and writes its outputs: one round trip
+// to device memory per token. The backward reduces twice, (sum x, sum x^2)
+// and then (sum gl, sum gl * yn), writing dscale in between (one round of
+// four sums, taking mean(gl * yn) from sum gl * x, was no faster on the card
+// and moves the rounding: dfot_tpu_torch/tools/kernel_variants.py); gl is a
+// bf16 value, so it takes scale's raw registers, and yn is recomputed from x
+// for dx rather than kept in fp32 rows. The plan (lanes, tokens a block,
+// grid) is ops/ln_modulate.py:ln_modulate_plan (ln_modulate_bwd_plan for the
+// backward, the same plan); the C entries compute it again and refuse any
+// other. Every other shape and fp32 take the generic kernels: one warp per
+// token, the row in registers up to C = 2048 when C is a multiple of the
+// 16-byte vector, else a kernel that walks the row in pairs and reads x again
+// from cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,6 +196,117 @@ __global__ void __launch_bounds__(kThreads)
       o[j / 2] = __floats2bfloat162_rn(prod.x + sh[j], prod.y + sh[j + 1]);
     }
     yv[i * L] = out;
+  }
+}
+
+// Hide raw rows from common-subexpression elimination: the floats unpacked
+// from them before this point are not reused after it, so they need not stay
+// live across a reduction (without it ptxas kept them, two to three times the
+// raw rows' registers). Emits no instruction.
+template <int N>
+__device__ __forceinline__ void fence_rows(uint4 (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+r"(r[i].x), "+r"(r[i].y), "+r"(r[i].z), "+r"(r[i].w));
+}
+
+// Blocks an SM the width-exact backward is held to, for `vec` vectors a row
+// a lane: three (168 registers a thread) where the three raw rows take at
+// most half of those, else no bound (held to three, ptxas spilled at C =
+// 1152 and 2048, 9 and 8 vectors).
+constexpr int bwd_min_blocks(int vec) { return 3 * 4 * vec <= 84 ? 3 : 1; }
+
+// The backward on the same plan: x, scale and g loaded together, the
+// statistics reduced over the group, then dscale written while the two row
+// means are summed, then dx. gl = g * (1 + scale) is rounded to bf16, so it
+// replaces scale in its raw registers; yn is recomputed from x. Surplus groups
+// past the last token work on the last token's rows and store nothing, as in
+// the forward.
+template <int C, int L>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(C / (8 * L)))
+    ln_modulate_bwd_exact_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ scale,
+                                 const __nv_bfloat16* __restrict__ g,
+                                 __nv_bfloat16* __restrict__ dx,
+                                 __nv_bfloat16* __restrict__ dscale, long long tokens, float eps) {
+  constexpr int kVec = C / (8 * L);
+  static_assert(kVec * 8 * L == C && (L & (L - 1)) == 0 && L <= kMaxLanes, "no exact plan");
+  const long long tok = static_cast<long long>(blockIdx.x) * (kThreads / L) + threadIdx.x / L;
+  const bool live = tok < tokens;
+  const int lane = threadIdx.x % L;
+  const long long at = (live ? tok : tokens - 1) * (C / 8) + lane;  // in vectors
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + at;
+  const uint4* scv = reinterpret_cast<const uint4*>(scale) + at;
+  const uint4* gv = reinterpret_cast<const uint4*>(g) + at;
+  uint4 xr[kVec], glr[kVec], gr[kVec];  // x; scale, then gl; g
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) xr[i] = __ldg(xv + i * L);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) glr[i] = __ldg(scv + i * L);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) gr[i] = __ldg(gv + i * L);
+
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    float f[8];
+    unpack8(xr[i], f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s += f[j];
+      ss += f[j] * f[j];
+    }
+  }
+  const float mu = group_sum<L>(s) / C;
+  const float rstd = rsqrtf(group_sum<L>(ss) / C - mu * mu + eps);
+  fence_rows(xr);
+
+  // gl = float(g * (1 + scale)), each op rounded to bf16; yn in fp32;
+  // dscale = g * cast(yn), written here, so g is free before the last pass
+  uint4* dsv = reinterpret_cast<uint4*>(dscale) + at;
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    float f[8], sc[8], gf[8];
+    unpack8(xr[i], f);
+    unpack8(glr[i], sc);
+    unpack8(gr[i], gf);
+    __nv_bfloat162* glh = reinterpret_cast<__nv_bfloat162*>(&glr[i]);
+    uint4 o_ds;
+    __nv_bfloat162* pds = reinterpret_cast<__nv_bfloat162*>(&o_ds);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      const float2 one = rnd2(1.f + sc[j], 1.f + sc[j + 1]);
+      glh[j / 2] = __floats2bfloat162_rn(gf[j] * one.x, gf[j + 1] * one.y);
+      const float2 gl = __bfloat1622float2(glh[j / 2]);
+      const float y0 = (f[j] - mu) * rstd, y1 = (f[j + 1] - mu) * rstd;
+      const float2 yn = rnd2(y0, y1);
+      pds[j / 2] = __floats2bfloat162_rn(gf[j] * yn.x, gf[j + 1] * yn.y);
+      s1 += gl.x + gl.y;
+      s2 += gl.x * y0 + gl.y * y1;
+    }
+    if (live) dsv[i * L] = o_ds;
+  }
+  const float m1 = group_sum<L>(s1) / C;
+  const float m2 = group_sum<L>(s2) / C;
+  if (!live) return;
+  fence_rows(xr);
+  fence_rows(glr);
+  uint4* dxv = reinterpret_cast<uint4*>(dx) + at;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    float f[8], gl[8];
+    unpack8(xr[i], f);
+    unpack8(glr[i], gl);
+    uint4 o_dx;
+    __nv_bfloat162* pdx = reinterpret_cast<__nv_bfloat162*>(&o_dx);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      const float y0 = (f[j] - mu) * rstd, y1 = (f[j + 1] - mu) * rstd;
+      pdx[j / 2] = __floats2bfloat162_rn(rstd * (gl[j] - m1 - y0 * m2),
+                                         rstd * (gl[j + 1] - m1 - y1 * m2));
+    }
+    dxv[i * L] = o_dx;
   }
 }
 
@@ -381,12 +499,27 @@ constexpr int exact_lanes(int c) {
   return lanes;
 }
 
+// a width-exact launch: rows (x, shift, scale) -> y forward, (x, scale, g)
+// -> (dx, dscale) backward
+struct Rows {
+  const void* in[3];
+  void* out[2];
+};
+
 template <int C>
-int launch_exact(const void* x, const void* shift, const void* scale, void* y, long long tokens,
-                 float eps, long long grid, cudaStream_t stream) {
-  ln_modulate_fwd_exact_kernel<C, exact_lanes(C)><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(shift),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(y), tokens, eps);
+int launch_exact(bool backward, const Rows& r, long long tokens, float eps, long long grid,
+                 cudaStream_t stream) {
+  constexpr int L = exact_lanes(C);
+  using bf = __nv_bfloat16;
+  const bf *a = static_cast<const bf*>(r.in[0]), *b = static_cast<const bf*>(r.in[1]),
+           *c = static_cast<const bf*>(r.in[2]);
+  const unsigned blocks = static_cast<unsigned>(grid);
+  if (backward)
+    ln_modulate_bwd_exact_kernel<C, L><<<blocks, kThreads, 0, stream>>>(
+        a, b, c, static_cast<bf*>(r.out[0]), static_cast<bf*>(r.out[1]), tokens, eps);
+  else
+    ln_modulate_fwd_exact_kernel<C, L><<<blocks, kThreads, 0, stream>>>(
+        a, b, c, static_cast<bf*>(r.out[0]), tokens, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,15 +532,15 @@ int exact_width(int c, int is_fp32) {
   }
 }
 
-int launch_exact_width(const void* x, const void* shift, const void* scale, void* y,
-                       long long tokens, int c, float eps, long long grid, cudaStream_t stream) {
+int launch_exact_width(bool backward, const Rows& r, long long tokens, int c, float eps,
+                       long long grid, cudaStream_t stream) {
   switch (c) {
-    case 384: return launch_exact<384>(x, shift, scale, y, tokens, eps, grid, stream);
-    case 768: return launch_exact<768>(x, shift, scale, y, tokens, eps, grid, stream);
-    case 896: return launch_exact<896>(x, shift, scale, y, tokens, eps, grid, stream);
-    case 1024: return launch_exact<1024>(x, shift, scale, y, tokens, eps, grid, stream);
-    case 1152: return launch_exact<1152>(x, shift, scale, y, tokens, eps, grid, stream);
-    case 2048: return launch_exact<2048>(x, shift, scale, y, tokens, eps, grid, stream);
+    case 384: return launch_exact<384>(backward, r, tokens, eps, grid, stream);
+    case 768: return launch_exact<768>(backward, r, tokens, eps, grid, stream);
+    case 896: return launch_exact<896>(backward, r, tokens, eps, grid, stream);
+    case 1024: return launch_exact<1024>(backward, r, tokens, eps, grid, stream);
+    case 1152: return launch_exact<1152>(backward, r, tokens, eps, grid, stream);
+    case 2048: return launch_exact<2048>(backward, r, tokens, eps, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -425,19 +558,26 @@ int launch_fwd(const void* x, const void* shift, const void* scale, void* y, lon
 
 template <typename T>
 int launch_bwd(const void* x, const void* scale, const void* g, void* dx, void* dscale,
-               long long tokens, int c, float eps, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((tokens + kWarpsPerBlock - 1) / kWarpsPerBlock);
+               long long tokens, int c, float eps, long long grid, cudaStream_t stream) {
   const bool regs = c % Io<T>::kVec == 0 && c <= kMaxRegWidth;
   auto* kernel = regs ? ln_modulate_bwd_kernel<T> : ln_modulate_bwd_pairs_kernel<T>;
-  kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  kernel<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(g),
       static_cast<T*>(dx), static_cast<T*>(dscale), tokens, c, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(long long tokens, int c) {
-  return tokens <= 0 || c <= 0 || c % 2 != 0 ||
-         (tokens + kWarpsPerBlock - 1) / kWarpsPerBlock > 2147483647LL;
+// true unless (lanes, block_tokens, grid) is the plan of ops/ln_modulate.py:
+// ln_modulate_plan for this shape (or the shape is one no kernel takes)
+bool not_my_plan(long long tokens, int c, int is_fp32, int lanes, int block_tokens,
+                 long long grid) {
+  if (tokens <= 0 || c <= 0 || c % 2 != 0 ||
+      (tokens + kWarpsPerBlock - 1) / kWarpsPerBlock > 2147483647LL)
+    return true;
+  const int my_lanes = exact_width(c, is_fp32) ? exact_lanes(c) : 32;
+  const int my_block_tokens = kThreads / my_lanes;
+  return lanes != my_lanes || block_tokens != my_block_tokens ||
+         grid != (tokens + my_block_tokens - 1) / my_block_tokens;
 }
 
 }  // namespace
@@ -450,26 +590,27 @@ bool bad_shape(long long tokens, int c) {
 extern "C" int dfot_ln_modulate_fwd(const void* x, const void* shift, const void* scale, void* y,
                                     long long tokens, int c, float eps, int is_fp32, int lanes,
                                     int block_tokens, long long grid, void* stream) {
-  if (bad_shape(tokens, c)) return cudaErrorInvalidValue;
-  const int exact = exact_width(c, is_fp32);
-  const int my_lanes = exact ? exact_lanes(c) : 32;
-  const int my_block_tokens = kThreads / my_lanes;
-  if (lanes != my_lanes || block_tokens != my_block_tokens ||
-      grid != (tokens + my_block_tokens - 1) / my_block_tokens)
-    return cudaErrorInvalidValue;
+  if (not_my_plan(tokens, c, is_fp32, lanes, block_tokens, grid)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (exact) return launch_exact_width(x, shift, scale, y, tokens, c, eps, grid, s);
+  if (exact_width(c, is_fp32))
+    return launch_exact_width(false, Rows{{x, shift, scale}, {y, nullptr}}, tokens, c, eps, grid,
+                              s);
   return is_fp32 ? launch_fwd<float>(x, shift, scale, y, tokens, c, eps, grid, s)
                  : launch_fwd<__nv_bfloat16>(x, shift, scale, y, tokens, c, eps, grid, s);
 }
 
 // x, scale, g in; dx, dscale out: (tokens, C) contiguous of one dtype, as
-// above. The cotangent of shift is g itself and is not written.
+// above, with the plan of ops/ln_modulate.py:ln_modulate_bwd_plan (the
+// forward's), refused unless it is this entry's own. The cotangent of shift is
+// g itself and is not written.
 extern "C" int dfot_ln_modulate_bwd(const void* x, const void* scale, const void* g, void* dx,
                                     void* dscale, long long tokens, int c, float eps,
-                                    int is_fp32, void* stream) {
-  if (bad_shape(tokens, c)) return cudaErrorInvalidValue;
+                                    int is_fp32, int lanes, int block_tokens, long long grid,
+                                    void* stream) {
+  if (not_my_plan(tokens, c, is_fp32, lanes, block_tokens, grid)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return is_fp32 ? launch_bwd<float>(x, scale, g, dx, dscale, tokens, c, eps, s)
-                 : launch_bwd<__nv_bfloat16>(x, scale, g, dx, dscale, tokens, c, eps, s);
+  if (exact_width(c, is_fp32))
+    return launch_exact_width(true, Rows{{x, scale, g}, {dx, dscale}}, tokens, c, eps, grid, s);
+  return is_fp32 ? launch_bwd<float>(x, scale, g, dx, dscale, tokens, c, eps, grid, s)
+                 : launch_bwd<__nv_bfloat16>(x, scale, g, dx, dscale, tokens, c, eps, grid, s);
 }

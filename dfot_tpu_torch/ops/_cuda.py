@@ -44,9 +44,9 @@ _SIGNATURES = {
         _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P,
     ),
-    "dfot_attn_out_scatter": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "dfot_attn_out_scatter": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dfot_ln_modulate_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _L, _P),
-    "dfot_ln_modulate_bwd": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _P),
+    "dfot_ln_modulate_bwd": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _L, _P),
     "dfot_small_n_attn": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P),
 }
 

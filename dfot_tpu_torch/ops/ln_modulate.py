@@ -18,7 +18,8 @@ Rounding points, the same in the kernels and the plain versions: fp32
 statistics with var = E[x^2] - mu^2; the normalized value is cast to x's dtype
 before the modulate and before dscale; dx comes from the fp32 one. The kernels
 take bf16 or fp32, any token count and any even C; B8's launch is planned by
-:func:`ln_modulate_plan`.
+:func:`ln_modulate_plan`, B9's by :func:`ln_modulate_bwd_plan` (the same plan:
+at the bf16 DiT widths both are width-exact kernels, a lane group a token).
 """
 
 from __future__ import annotations
@@ -31,11 +32,11 @@ from . import _cuda
 from .attention import _f32, _wants_grad
 
 __all__ = [
-    "ln_modulate", "ln_modulate_bwd", "ln_modulate_plan", "reference_ln_modulate",
-    "reference_ln_modulate_bwd",
+    "ln_modulate", "ln_modulate_bwd", "ln_modulate_bwd_plan", "ln_modulate_plan",
+    "reference_ln_modulate", "reference_ln_modulate_bwd",
 ]
 
-# kernel B8's plan (csrc/ln_modulate.cu)
+# kernels B8's and B9's plan (csrc/ln_modulate.cu)
 LN_THREADS = 128    # threads of a block
 LN_MAX_LANES = 32   # width-exact kernel: lanes of a token, at most
 LN_MAX_REG_WIDTH = 2048  # generic kernel: widest row held in registers
@@ -78,6 +79,15 @@ def ln_modulate_plan(tokens: int, C: int, dtype: torch.dtype) -> dict:
     grid = -(-tokens // block_tokens)
     return {"kernel": kernel, "lanes": lanes, "vectors": vectors,
             "block_tokens": block_tokens, "threads": LN_THREADS, "grid": grid}
+
+
+def ln_modulate_bwd_plan(tokens: int, C: int, dtype: torch.dtype) -> dict:
+    """Plan of kernel B9, as its C entry computes it again and checks it:
+    the forward's (:func:`ln_modulate_plan`). At :data:`LN_EXACT_WIDTHS` in
+    bf16 a group of ``lanes`` lanes owns a token and each lane holds
+    ``vectors`` 16-byte vectors of x, scale and g, loaded together; the
+    other shapes take a warp a token."""
+    return ln_modulate_plan(tokens, C, dtype)
 
 
 def _normalized(x: torch.Tensor, eps: float):
@@ -165,10 +175,12 @@ def ln_modulate_bwd(x, scale, g, eps: float = 1e-6, plain: bool = False):
         raise ValueError(f"no ln_modulate path for device {x.device}")
     (x, scale, g), (tokens, C, is_fp32) = _operands("ln_modulate backward", x, scale, g)
     dx, dscale = torch.empty_like(x), torch.empty_like(x)
+    plan = ln_modulate_bwd_plan(tokens, C, x.dtype)
     _cuda.check(
         _cuda.library().dfot_ln_modulate_bwd(
             x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-            tokens, C, float(eps), is_fp32, _cuda.stream_handle(x.device),
+            tokens, C, float(eps), is_fp32, plan["lanes"], plan["block_tokens"], plan["grid"],
+            _cuda.stream_handle(x.device),
         ),
         "ln_modulate backward",
     )

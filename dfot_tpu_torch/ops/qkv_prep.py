@@ -46,6 +46,7 @@ __all__ = [
     "attn_out_collect",
     "collect_plan",
     "attn_out_scatter",
+    "scatter_plan",
     "reference_attn_out_collect",
     "reference_attn_out_scatter",
     "attention_from_packed_qkv",
@@ -389,33 +390,50 @@ def _check_collect_operands(what, t, head_dim, d_in):
         raise ValueError(f"{what} kernel takes D, DP multiples of 8, got {head_dim}/{d_in}")
 
 
-# kernel B3's plan (csrc/attn_out_collect.cu)
+# kernels B3's and B7's plan (csrc/attn_out_collect.cu, csrc/attn_out_scatter.cu)
 COLLECT_THREADS = 256
-COLLECT_VEC_PER_THREAD = 4   # 16-byte loads in flight a thread
+COLLECT_VEC_PER_THREAD = 4   # 16-byte vectors in flight a thread
 COLLECT_MIN_BLOCKS_PER_SM = 2
+
+
+def _token_tile_plan(what: str, B: int, H: int, N: int, d: int, dp: int, row: int) -> dict:
+    """A block owns ``tile`` whole token rows of one batch entry, the grid
+    is (``grid_x`` token tiles, B), the last tile of a batch entry ragged.
+    ``tile`` is the tokens whose ``row`` 16-byte vectors each a block's
+    :data:`COLLECT_THREADS` threads move with :data:`COLLECT_VEC_PER_THREAD`
+    each (at least 1, at most N), halved while the grid would give the
+    :data:`SM_COUNT` SMs fewer than :data:`COLLECT_MIN_BLOCKS_PER_SM` blocks
+    each."""
+    if d <= 0 or d % 8 or dp % 8 or dp < d:
+        raise ValueError(f"no {what} plan for d {d}, dp {dp} (multiples of 8, dp >= d)")
+    if min(B, H, N) <= 0 or B > 65535:
+        raise ValueError(f"no {what} plan for B {B}, H {H}, N {N}")
+    tile = min(N, max(1, COLLECT_THREADS * COLLECT_VEC_PER_THREAD // row))
+    while tile > 1 and -(-N // tile) * B < COLLECT_MIN_BLOCKS_PER_SM * SM_COUNT:
+        tile //= 2
+    return {"tile": tile, "grid": (-(-N // tile), B), "threads": COLLECT_THREADS}
 
 
 @functools.lru_cache(maxsize=256)
 def collect_plan(B: int, H: int, N: int, d: int, dp: int) -> dict:
     """Plan of kernel B3 for a (B, H, N, dp) input of true head dim ``d``,
-    as its C entry computes it again and checks it.
-
-    A block owns ``tile`` whole token rows (all H heads) of one batch entry,
-    and the grid is (``grid_x`` token tiles, B): every (batch, head, token)
-    once, the last tile of a batch entry ragged. ``tile`` is the tokens whose
-    H * d / 8 16-byte vectors a block's :data:`COLLECT_THREADS` threads move
-    with :data:`COLLECT_VEC_PER_THREAD` each (at least 1, at most N), halved
-    while the grid would give the :data:`SM_COUNT` SMs fewer than
-    :data:`COLLECT_MIN_BLOCKS_PER_SM` blocks each.
+    as its C entry computes it again and checks it: a block owns ``tile``
+    whole token rows (all H heads, H * d / 8 16-byte vectors a token) of one
+    batch entry (:func:`_token_tile_plan`), so every (batch, head, token) once.
     """
-    if d <= 0 or d % 8 or dp % 8 or dp < d:
-        raise ValueError(f"no attn_out_collect plan for d {d}, dp {dp} (multiples of 8, dp >= d)")
-    if min(B, H, N) <= 0 or B > 65535:
-        raise ValueError(f"no attn_out_collect plan for B {B}, H {H}, N {N}")
-    tile = min(N, max(1, COLLECT_THREADS * COLLECT_VEC_PER_THREAD // (H * d // 8)))
-    while tile > 1 and -(-N // tile) * B < COLLECT_MIN_BLOCKS_PER_SM * SM_COUNT:
-        tile //= 2
-    return {"tile": tile, "grid": (-(-N // tile), B), "threads": COLLECT_THREADS}
+    return _token_tile_plan("attn_out_collect", B, H, N, d, dp, H * d // 8)
+
+
+@functools.lru_cache(maxsize=256)
+def scatter_plan(B: int, H: int, N: int, d: int, dp: int) -> dict:
+    """Plan of kernel B7 for a (B, N, H * d) cotangent scattered to
+    (B, H, N, dp), as its C entry computes it again and checks it: B3's
+    blocks (:func:`_token_tile_plan`) over H * dp / 8 16-byte output slots a
+    token (pad lanes included), so every (batch, token, head, output lane)
+    once; a block's input is one contiguous run, its output one run of
+    ``tile`` rows a head.
+    """
+    return _token_tile_plan("attn_out_scatter", B, H, N, d, dp, H * dp // 8)
 
 
 def _collect_cuda(o, head_dim):
@@ -442,10 +460,11 @@ def _scatter_cuda(g, heads, head_dim, d_in):
     g = g.contiguous()
     do = torch.empty((B, heads, N, d_in), dtype=g.dtype, device=g.device)
     _cuda.check_aligned("attn_out_scatter", 16, g, do)
+    plan = scatter_plan(B, heads, N, head_dim, d_in)
     _cuda.check(
         _cuda.library().dfot_attn_out_scatter(
-            g.data_ptr(), do.data_ptr(), B, heads, N, head_dim, d_in,
-            _cuda.stream_handle(g.device),
+            g.data_ptr(), do.data_ptr(), B, heads, N, head_dim, d_in, plan["tile"],
+            plan["grid"][0], _cuda.stream_handle(g.device),
         ),
         "attn_out_scatter",
     )

@@ -54,7 +54,7 @@ def _ln_inputs(seed, shape):
     return x, shift, 0.3 * scale, g
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 128), (1, 128, 384)])
+@pytest.mark.parametrize("shape", [(2, 256, 128), (1, 128, 384), (1, 256, 1152)])
 def test_ln_modulate_matches_pallas_kernel(ln_interpret, shape):
     x, shift, scale, g = _ln_inputs(0, shape)
     want, vjp = jax.vjp(JL.ln_modulate, *(jnp.asarray(a) for a in (x, shift, scale)))

@@ -202,13 +202,25 @@ def test_qkv_prep_backward_tails_and_repeats(cuda, B, N, H, d, d_out, width, nor
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,d_in", [(64, 64), (64, 128)])
-def test_attn_out_scatter(cuda, d, d_in):
-    g = torch.randn(2, 256, 3 * d, device=cuda).to(torch.bfloat16)
+@pytest.mark.parametrize("B,N,H,d,d_in", [(2, 256, 3, 64, 64), (2, 256, 3, 64, 128),
+                                          (8, 1280, 16, 72, 128), (2, 2048, 4, 256, 256),
+                                          (3, 1000, 3, 64, 64), (3, 1000, 4, 160, 256),
+                                          (1, 37, 5, 2048, 2048)])
+def test_attn_out_scatter(cuda, B, N, H, d, d_in):
+    """B7 is an exact copy at the path head dims, padded or not (K600
+    @DiT/XL's 72 -> 128 at its shape, heads of 256), at a token count that is
+    no multiple of any tile with B = 3, and where one token row is more than
+    a block's slots; one launch a call, the same bits twice. A scatter that
+    takes the heads in the wrong order is not."""
+    g = torch.randn(B, N, H * d, device=cuda).to(torch.bfloat16)
     ops.reset_launch_counts()
-    got = Q.attn_out_scatter(g, 3, d, d_in)
+    got = Q.attn_out_scatter(g, H, d, d_in)
     assert ops.launch_counts()["attn_out_scatter"] == 1
-    assert torch.equal(got, Q.reference_attn_out_scatter(g, 3, d, d_in))
+    want = Q.reference_attn_out_scatter(g, H, d, d_in)
+    assert torch.equal(got, want)
+    assert torch.equal(Q.attn_out_scatter(g, H, d, d_in), got)
+    reversed_heads = g.reshape(B, N, H, d).flip(2).reshape(B, N, H * d)
+    assert not torch.equal(Q.reference_attn_out_scatter(reversed_heads, H, d, d_in), want)
 
 
 @pytest.mark.gpu
@@ -259,11 +271,15 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("shape", [(2, 1280, 1152), (16, 16, 384), (3, 7, 768), (2, 5, 1150),
-                                   (1, 3, 4096)])
+                                   (1, 3, 4096), (3, 7, 384), (1, 5, 896), (2, 3, 1024),
+                                   (3, 7, 1152), (1, 5, 2048)])
 def test_ln_modulate_forward_and_backward(cuda, dtype, rel, shape):
-    """B8 and B9 at the XL, DiT/B and factorized widths, a width that is no
-    multiple of the 16-byte vector and one wider than the registers hold
-    (both take the pair kernels), through the autograd Function."""
+    """B8 and B9 at the XL, DiT/B and factorized widths, at every other
+    width-exact width with a token count that is no multiple of a block's
+    tokens (21, 5, 6), a width that is no multiple of the 16-byte vector and
+    one wider than the registers hold (both take the pair kernels), through
+    the autograd Function; B9 twice on the same operands gives the same
+    bits."""
     g = torch.Generator(device=cuda).manual_seed(10)
     x = (2 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype).requires_grad_()
     shift = torch.randn(shape, generator=g, device=cuda).to(dtype).requires_grad_()
@@ -281,6 +297,8 @@ def test_ln_modulate_forward_and_backward(cuda, dtype, rel, shape):
     for a, b in zip(grads, grads_ref):
         assert a.dtype == dtype and _close(a, b, rel)
     assert torch.equal(grads[1], cot)  # the cotangent of shift is g itself
+    again = L.ln_modulate_bwd(x.detach(), scale.detach(), cot)
+    assert torch.equal(again[0], grads[0]) and torch.equal(again[1], grads[2])
 
 
 @pytest.mark.gpu
@@ -692,3 +710,31 @@ def test_ln_modulate_and_collect_entries_refuse_other_plans(cuda):
     for tile, gx in ((plan["tile"] + 1, plan["grid"][0]), (plan["tile"], plan["grid"][0] + 1)):
         assert lib.dfot_attn_out_collect(o.data_ptr(), out.data_ptr(), 1, 2, 1000, 72, 128, tile,
                                          gx, stream) == 1
+
+
+@pytest.mark.gpu
+def test_ln_modulate_bwd_and_scatter_entries_refuse_other_plans(cuda):
+    """The C entries of B9 and B7 refuse any plan but their own."""
+    from dfot_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    stream = _cuda.stream_handle(cuda)
+    x = torch.zeros(3, 7, 1152, device=cuda, dtype=torch.bfloat16)
+    ptrs = [x.data_ptr()] * 5
+    for dtype, is_fp32 in ((torch.bfloat16, 0), (torch.float32, 1)):
+        plan = L.ln_modulate_bwd_plan(21, 1152, dtype)
+        for lanes, per_block, grid in (
+                (plan["lanes"] // 2, plan["block_tokens"], plan["grid"]),
+                (plan["lanes"], plan["block_tokens"] * 2, plan["grid"]),
+                (plan["lanes"], plan["block_tokens"], plan["grid"] + 1)):
+            assert lib.dfot_ln_modulate_bwd(*ptrs, 21, 1152, 1e-6, is_fp32, lanes, per_block,
+                                            grid, stream) == 1  # cudaErrorInvalidValue
+    g = torch.zeros(1, 1000, 2 * 72, device=cuda, dtype=torch.bfloat16)
+    do = torch.zeros(1, 2, 1000, 128, device=cuda, dtype=torch.bfloat16)
+    plan = Q.scatter_plan(1, 2, 1000, 72, 128)
+    for tile, gx in ((plan["tile"] + 1, plan["grid"][0]), (plan["tile"], plan["grid"][0] + 1),
+                     (plan["tile"] // 2, -(-1000 // (plan["tile"] // 2)))):
+        assert lib.dfot_attn_out_scatter(g.data_ptr(), do.data_ptr(), 1, 2, 1000, 72, 128, tile,
+                                         gx, stream) == 1
+    torch.cuda.synchronize()
+    assert not do.any()  # nothing was launched

@@ -1,14 +1,16 @@
 """The plans of kernels B10 (small-N attention), B6 (qkv_prep backward), B8
-(ln_modulate forward) and B3 (attn_out_collect), on the CPU.
+and B9 (ln_modulate forward and backward), B3 (attn_out_collect) and B7
+(attn_out_scatter), on the CPU.
 
 ``ops/attention.py:small_n_plan``, ``ops/qkv_prep.py:prep_bwd_plan``,
-``ops/ln_modulate.py:ln_modulate_plan`` and ``ops/qkv_prep.py:collect_plan``
-are what the wrappers pass to the C entries, which compute the plan again
-and refuse any other; so the plans are checked here, where no card is
-needed: every item (B10), token, stream and (batch, head) item (B6), token
-(B8) or (batch, head, token tile) item (B3) is covered exactly once, the
-shared memory fits one H100 block (and the blocks an SM is planned to hold
-fit the SM), and the grid gives every SM a block at the shapes the paths
+``ops/ln_modulate.py:ln_modulate_plan`` and ``ln_modulate_bwd_plan``, and
+``ops/qkv_prep.py:collect_plan`` and ``scatter_plan`` are what the wrappers
+pass to the C entries, which compute the plan again and refuse any other; so
+the plans are checked here, where no card is needed: every item (B10), token,
+stream and (batch, head) item (B6), token (B8, B9), (batch, head, token
+tile) item (B3) or (batch, token, head, lane) (B7) is covered exactly once,
+the shared memory fits one H100 block (and the blocks an SM is planned to
+hold fit the SM), and the grid gives every SM a block at the shapes the paths
 give the kernels. The constants the C sources compute the plans from are
 read from the sources and held against the Python ones.
 """
@@ -339,4 +341,153 @@ def test_the_b8_and_b3_sources_plan_with_the_same_constants():
     assert re.findall(r"return launch_exact<(\d+)>", text) == [str(w) for w in L.LN_EXACT_WIDTHS]
     b3 = _constants("attn_out_collect.cu")
     assert (b3["kThreads"], b3["kVecPerThread"], b3["kSmCount"], b3["kMinBlocksPerSm"]) == (
+        Q.COLLECT_THREADS, Q.COLLECT_VEC_PER_THREAD, Q.SM_COUNT, Q.COLLECT_MIN_BLOCKS_PER_SM)
+
+
+# (what, B, N, H, d, dp) of every B7 call on the paths and its tails: the
+# flagship's levels 2 and 3 in the train step, K600 @DiT/XL (72 -> 128), the
+# base widths' levels 2 and 3, a head of 160 padded to 256, and N = 1000 (no
+# multiple of any tile) at B = 3
+SCATTER_SHAPES = (
+    ("flagship level 2", 1, 8192, 9, 64, 64),
+    ("flagship level 3", 1, 2048, 9, 128, 128),
+    ("K600 @DiT/XL", 8, 1280, 16, 72, 128),
+    ("base level 2", 1, 8192, 4, 128, 128),
+    ("base level 3", 1, 2048, 4, 256, 256),
+    ("head dim 160", 1, 2048, 4, 160, 256),
+    ("tail, d 64", 3, 1000, 3, 64, 64),
+    ("tail, d 72", 3, 1000, 3, 72, 128),
+    ("tail, d 256", 3, 1000, 2, 256, 256),
+    ("token rows wider than a block's slots", 1, 37, 5, 2048, 2048),
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tokens,C", [(10240, 1152), (8192, 768), (2048, 384), (1001, 1152),
+                                      (21, 384), (7, 896), (6, 1024), (5, 2048), (3, 1154),
+                                      (3, 2304)])
+def test_ln_modulate_bwd_plan_covers_every_token_once(tokens, C, dtype):
+    plan = L.ln_modulate_bwd_plan(tokens, C, dtype)
+    lanes, per_block = plan["lanes"], plan["block_tokens"]
+    # block b's lane group k owns token b * per_block + k: every token once;
+    # the groups of the last block past the last token store nothing
+    assert per_block * lanes == plan["threads"] == L.LN_THREADS
+    owned = [b * per_block + k for b in range(plan["grid"]) for k in range(per_block)]
+    assert [t for t in owned if t < tokens] == list(range(tokens))
+    assert len(owned) - tokens < per_block
+    if dtype == torch.bfloat16 and C in L.LN_EXACT_WIDTHS:
+        # each lane holds the same whole number of 16-byte vectors of x,
+        # scale and g, its group's lanes a power of two inside one warp
+        assert plan["kernel"] == "exact" and lanes * plan["vectors"] * 8 == C
+        assert lanes & (lanes - 1) == 0 and 32 % lanes == 0
+        vectors = sorted(v for lane in range(lanes) for v in range(lane, C // 8, lanes))
+        assert vectors == list(range(C // 8))
+    else:
+        assert lanes == 32 and plan["kernel"] in ("registers", "pairs")
+    assert plan == L.ln_modulate_plan(tokens, C, dtype)
+
+
+@pytest.mark.parametrize("what,tokens,C", LN_SHAPES)
+def test_ln_modulate_bwd_plan_fills_the_card_at_the_path_shapes(what, tokens, C):
+    plan = L.ln_modulate_bwd_plan(tokens, C, torch.bfloat16)
+    assert plan["kernel"] == "exact" and plan["grid"] >= A.SM_COUNT
+
+
+@pytest.mark.parametrize("tokens,C,dtype,error", [
+    (0, 1152, torch.bfloat16, ValueError), (8, 0, torch.bfloat16, ValueError),
+    (8, 1151, torch.bfloat16, ValueError), (8, 1152, torch.float16, TypeError),
+    (4 * 2 ** 31, 1152, torch.bfloat16, ValueError)])
+def test_ln_modulate_bwd_plan_refuses_what_the_kernel_refuses(tokens, C, dtype, error):
+    with pytest.raises(error):
+        L.ln_modulate_bwd_plan(tokens, C, dtype)
+
+
+@pytest.mark.parametrize("what,B,N,H,d,dp", SCATTER_SHAPES)
+def test_scatter_plan_covers_every_token_head_and_lane_once(what, B, N, H, d, dp):
+    plan = Q.scatter_plan(B, H, N, d, dp)
+    tile, (gx, gy), threads = plan["tile"], plan["grid"], plan["threads"]
+    assert gy == B and gx == math.ceil(N / tile) and 1 <= tile <= N
+    d8, dp8 = d // 8, dp // 8
+    row = H * dp8  # output slots of a token
+
+    def split(i):
+        return i // row, i % row // dp8, i % row % dp8
+
+    # block (x, b) walks its slots (token, head, vector) in steps of its
+    # threads, carrying the indices forward as the kernel does: every output
+    # vector of (b, h, t) is written once and every input vector read once
+    step = split(threads)
+
+    def walk(x, b):
+        t0, written, read = x * tile, [], []
+        total = min(tile, N - t0) * row
+        for first in range(min(threads, total)):
+            t, h, p = split(first)
+            for i in range(first, total, threads):
+                assert (t, h, p) == split(i)
+                written.append(((b * H + h) * N + t0 + t) * dp8 + p)
+                if p < d8:
+                    read.append(((b * N + t0 + t) * H + h) * d8 + p)
+                t, h, p = t + step[0], h + step[1], p + step[2]
+                if p >= dp8:
+                    h, p = h + 1, p - dp8
+                if h >= H:
+                    t, h = t + 1, h - H
+        return written, read
+
+    small = B * N * row <= 60000
+    # every block of a small shape; the first and the last block of a large one
+    blocks = [(x, b) for b in range(gy) for x in range(gx)] if small else [(0, 0), (gx - 1, B - 1)]
+    walks = [walk(x, b) for x, b in blocks]
+    written = sorted(v for w, _ in walks for v in w)
+    read = sorted(v for _, r in walks for v in r)
+    if small:
+        assert written == list(range(B * H * N * dp8))
+        assert read == list(range(B * N * H * d8))
+    else:
+        last = N - (gx - 1) * tile
+        assert len(set(written)) == len(written) == (tile + last) * row
+        assert len(set(read)) == len(read) == (tile + last) * H * d8
+    # a block's slots fit its threads' loads, unless the tile was halved to fill the card
+    full = min(N, max(1, threads * Q.COLLECT_VEC_PER_THREAD // row))
+    assert tile * row <= threads * Q.COLLECT_VEC_PER_THREAD or tile == 1
+    if tile < full:
+        assert math.ceil(N / (2 * tile)) * B < Q.COLLECT_MIN_BLOCKS_PER_SM * Q.SM_COUNT
+
+
+@pytest.mark.parametrize("what,B,N,H,d,dp", SCATTER_SHAPES[:6])
+def test_scatter_plan_fills_the_card_at_the_path_shapes(what, B, N, H, d, dp):
+    gx, gy = Q.scatter_plan(B, H, N, d, dp)["grid"]
+    assert gx * gy >= Q.COLLECT_MIN_BLOCKS_PER_SM * Q.SM_COUNT
+
+
+def test_scatter_plan_at_the_flagship_and_xl_shapes():
+    """The flagship's level 2: tiles of 14 token rows of 9 heads x 8 slots;
+    K600 @DiT/XL: 4 rows of 16 heads x 16 slots (9 loaded, 7 of zeros);
+    the base widths' level 3 at B = 1: 8 rows of 4 x 32 halved to 4."""
+    assert Q.scatter_plan(1, 9, 8192, 64, 64) == {"tile": 14, "grid": (586, 1), "threads": 256}
+    assert Q.scatter_plan(8, 16, 1280, 72, 128) == {"tile": 4, "grid": (320, 8), "threads": 256}
+    assert Q.scatter_plan(1, 4, 2048, 256, 256)["grid"] == (512, 1)
+
+
+@pytest.mark.parametrize("B,H,N,d,dp", [(1, 1, 64, 60, 64), (1, 1, 64, 64, 60), (1, 1, 64, 128, 64),
+                                        (1, 1, 64, 0, 64), (0, 1, 64, 64, 64), (1, 0, 64, 64, 64),
+                                        (1, 1, 0, 64, 64), (65536, 1, 64, 64, 64)])
+def test_scatter_plan_refuses_what_the_kernel_refuses(B, H, N, d, dp):
+    with pytest.raises(ValueError):
+        Q.scatter_plan(B, H, N, d, dp)
+
+
+def test_the_b9_and_b7_sources_plan_with_the_same_constants():
+    """B9's exact kernel is instantiated at every width B8's is, through the
+    one launch switch, and refuses a plan by the same rule; B7's block, slots
+    a thread and fill rule are the Python plan's own (B3's)."""
+    text = (CSRC / "ln_modulate.cu").read_text()
+    assert "ln_modulate_bwd_exact_kernel<C, L>" in text
+    assert len(re.findall(r"not_my_plan\(tokens, c, is_fp32, lanes, block_tokens, grid\)",
+                          text)) == 2
+    assert re.findall(r"return launch_exact<(\d+)>\(backward", text) == [
+        str(w) for w in L.LN_EXACT_WIDTHS]
+    b7 = _constants("attn_out_scatter.cu")
+    assert (b7["kThreads"], b7["kVecPerThread"], b7["kSmCount"], b7["kMinBlocksPerSm"]) == (
         Q.COLLECT_THREADS, Q.COLLECT_VEC_PER_THREAD, Q.SM_COUNT, Q.COLLECT_MIN_BLOCKS_PER_SM)
