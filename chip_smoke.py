@@ -51,36 +51,50 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    synthetic batch, launch counts reset just before and read just after,
    time per step and peak memory;
 9. takes one more train step under ``torch.profiler``;
-10. builds K600 @DiT/XL at full width and depth (DiT3D, hidden 1152, depth
+10. runs the long-video tasks (``predict_videos``, ``interpolate_videos``):
+    the narrow model of step 3 over 72 frames from one (9 keyframes in 2
+    sliding windows, two interpolation rounds of 8 chunks: 18 windows) on
+    the kernel route, the plain route and the control; then, at full width
+    and depth, the two-image interpolation of BASELINE.json config 2 (8
+    frames, vanilla HG at 4.0, 50 DDIM steps, twice, both timed, the second
+    counted: frames 0 and 7 must come back bit for bit)
+    and config 3, the 200-frame rollout with bench.py's
+    settings (keyframe density 0.0625, 12 keyframes by stabilized vanilla
+    HG, interpolation rounds of 11 and 35 one-chunk windows by vanilla HG
+    at 1.5: 48 windows of 50 steps), each with its launch counts reset
+    before and required after; the rollout's wall time, frames/s, phase
+    split and peak memory, its keyframes held bit for bit against the
+    keyframe pass's output, and its wall against 48 times step 5's window;
+11. builds K600 @DiT/XL at full width and depth (DiT3D, hidden 1152, depth
     28, 16 heads of 72, 1280 tokens; its parameter count is printed) and
     runs a batch-8 forward and a forward + backward on the kernel route and
     the plain route;
-11. drives the XL sampling path: one 50-step DDIM window of 8 videos of 5
+12. drives the XL sampling path: one 50-step DDIM window of 8 videos of 5
     latent frames (2 context), launch counts reset before and required
     after, wall time and peak memory; then a shorter window under
     ``torch.profiler``;
-12. drives the XL training path: a warm-up step and five ``train_step``s at
+13. drives the XL training path: a warm-up step and five ``train_step``s at
     batch 8 (every block checkpointed), launch counts required, time per
     step and peak memory; then one more step under ``torch.profiler``;
-13. runs the factorized-attention DiT (hidden 384, 6 heads of 64, depth 12)
+14. runs the factorized-attention DiT (hidden 384, 6 heads of 64, depth 12)
     on the Minecraft latent shape, batch 8, and the flagship U-ViT with
     axial transformer blocks at a cut depth: route checks forward and
     forward + backward, then one forward and one forward + backward with
     launch counts required (kernel B10 on both), and the same once more
     under ``torch.profiler``; the axial U-ViT's gradients also against an
     fp32 plain-route witness;
-14. builds UViT3DPose at the backbone's own published widths
+15. builds UViT3DPose at the backbone's own published widths
     (``uvit3d_pose_base``: channels 128-1024, 4 heads, so level 3 has heads
     of 256 over 2048 tokens) and runs steps 4-9 on it: a full-width
     forward (B = 2) with its control, a forward + backward (B = 1) with the
     zero-dq control, the 50-step 8-frame window with its launch counts
     required, a profiled 10-step window, six train steps with their launch
     counts required, a profiled step;
-15. runs that model with axial blocks at level 3 at a cut depth: route
+16. runs that model with axial blocks at level 3 at a cut depth: route
     checks, the fp32 gradient witness, launch counts (B10 at d = 256), a
     profile.
 
-Steps 3, 4, 7, 10, 13, 14 and 15 also run controls (an attention that ignores q and
+Steps 3, 4, 7, 10, 11, 14, 15 and 16 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -91,7 +105,7 @@ unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut: the
-whole takes a few minutes.
+whole takes about five minutes.
 """
 
 from __future__ import annotations
@@ -126,7 +140,7 @@ FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
 # the paths that are driven between a reset and a read of the launch counts
 PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
-         "base_train", "base_axial")
+         "base_train", "base_axial", "interp2", "rollout")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -215,6 +229,14 @@ LN_TAIL_SHAPES = (((3, 7, 1152), "bf16"), ((1, 5, 384), "bf16"), ((3, 7, 896), "
 EDGE_SITES = ((192, 64, 64), (192, 128, 128), (192, 72, 128), (192, 256, 256), (192, 160, 256))
 PROFILED_WINDOW_STEPS = 10
 TRAIN_STEPS = 5
+# the long-video tasks (BASELINE.json configs 2 and 3, bench.py's rollout):
+# rollout settings, the 200-frame rollout's keyframe density and the plan
+# it must give (keyframes, sliding windows, chunks a round), and the small
+# rollout of the narrow model that holds the kernel route against the plain
+ROLLOUT_SETTINGS = dict(external_cond_type="action", sliding_context_len=4,
+                        interpolation_max_batch_size=1)
+LONG_FRAMES, LONG_DENSITY, LONG_PLAN = 200, 0.0625, (12, 2, [11, 35])
+SMALL_ROLLOUT_FRAMES, SMALL_ROLLOUT_DENSITY, SMALL_ROLLOUT_PLAN = 72, 0.125, (9, 2, [8, 8])
 # the factorized DiT of configurations/algorithm/backbone/dit3d_factorized_attention.yaml
 # on the Minecraft latent shape, and the axial U-ViT's depth (flagship widths)
 FACTORIZED_BATCH = 8
@@ -1075,7 +1097,9 @@ def identity_poses(B: int, T: int, device):
     return pose
 
 
-def make_rollout(fs, model, dcfg):
+def make_rollout(fs, model, dcfg, **cfg_kw):
+    """The recipe's rollout on the card; ``cfg_kw``: further RolloutConfig
+    fields (the long-video tasks' settings)."""
     from dfot_tpu_torch.algorithms.dfot_video import sampling_cond_transform
     from dfot_tpu_torch.diffusion.core import make_schedule
     from dfot_tpu_torch.models.uvit import patchify_tokens, unpatchify_tokens
@@ -1087,6 +1111,7 @@ def make_rollout(fs, model, dcfg):
         x_shape=(R, R, fs.x_channels),
         cond_transform=sampling_cond_transform(model, fs.conditioning_type),
         state_codec=(lambda x: patchify_tokens(x, p), lambda x: unpatchify_tokens(x, p, R, R)),
+        **cfg_kw,
     )
     return DFoTRollout(cfg, dcfg, make_schedule(dcfg, "cuda"), model)
 
@@ -1237,9 +1262,9 @@ def check_route(record: dict, key: str, what: str, tol: float, set_plain, run,
         require(c > tol, f"{what}: the bound {tol} does not reject the control '{label}' ({c})")
 
 
-def small_window_check(record: dict) -> None:
-    """3-step window of a narrow model (d = 64 and 128 heads) on the kernel
-    route, the plain route and the control, same weights and random stream."""
+def narrow_flagship():
+    """The flagship recipe on a narrow model (heads of d = 64 and 128) at
+    64 px, 3 DDIM steps, seeded random bf16 weights: (recipe, dcfg, model)."""
     import dataclasses
 
     import torch
@@ -1252,11 +1277,100 @@ def small_window_check(record: dict) -> None:
     )
     fs = fs._replace(spec=spec, resolution=64)
     dcfg = dataclasses.replace(fs.dcfg, sampling_timesteps=3)
-    model = build_random_model(fs, seed=2).to(torch.bfloat16).eval()
+    return fs, dcfg, build_random_model(fs, seed=2).to(torch.bfloat16).eval()
+
+
+def small_window_check(record: dict) -> None:
+    """3-step window of the narrow model on the kernel route, the plain
+    route and the control, same weights and random stream."""
+    fs, dcfg, model = narrow_flagship()
     ro = make_rollout(fs, model, dcfg)
     check_route(record, "small_window", "small 3-step window", WINDOW_REL_TOL,
                 model.use_plain_attention, lambda: run_window(ro, fs, seed=3),
                 {"attention ignoring q, k": control_attention})
+
+
+def rollout_plan(frames: int, density: float, max_tokens: int):
+    """What the port's planners give a one-context-frame rollout: the
+    keyframes, the keyframe pass's sliding windows and the interpolation
+    rounds' chunk counts."""
+    import numpy as np
+    from dfot_tpu_torch.sampling import interpolation_plan, keyframe_indices, sliding_window_plan
+
+    keys = keyframe_indices(density, frames, 1)
+    windows = sliding_window_plan(1, len(keys), max_tokens,
+                                  ROLLOUT_SETTINGS["sliding_context_len"])
+    known = np.zeros(frames, dtype=bool)
+    known[keys] = True
+    return keys, windows, [len(r) for r in interpolation_plan(known, max_tokens)]
+
+
+def check_plan(what: str, frames: int, density: float, max_tokens: int, expect) -> tuple:
+    keys, windows, rounds = rollout_plan(frames, density, max_tokens)
+    got = (len(keys), len(windows), rounds)
+    log(f"{what} plan: {got[0]} keyframes in {got[1]} sliding windows (generated context "
+        f"{[w.generated_context_len for w in windows]}), interpolation rounds of {rounds} "
+        f"chunks: {got[1] + sum(rounds)} windows")
+    require(got == expect, f"{what}: the planners give {got}, expected {expect}")
+    require(any(w.generated_context_len for w in windows),
+            f"{what}: no keyframe window has generated context (mask code 2)")
+    return keys, got[1] + sum(rounds)
+
+
+def seeded_image(fs, seed: int):
+    """(1, R, R, C) uniform in [-1, 1] on the card."""
+    import torch
+
+    R = fs.resolution
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(1, R, R, fs.x_channels, generator=gen, device="cuda") * 2 - 1
+
+
+def card_state() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def rollout_guidance(fs):
+    """bench.py's rollout guidance: stabilized vanilla HG at 4.0 (level
+    0.02) for the keyframes, vanilla at 1.5 for the interpolation."""
+    from dfot_tpu_torch.guidance.history_guidance import HistoryGuidance
+
+    k = fs.dcfg.timesteps
+    return dict(prediction_hg=HistoryGuidance.stabilized_vanilla(4.0, 0.02, timesteps=k),
+                interpolation_hg=HistoryGuidance.vanilla(1.5, timesteps=k))
+
+
+def small_rollout_check(record: dict) -> None:
+    """``predict_videos`` of the narrow model over 72 frames from one (9
+    keyframes in 2 sliding windows, two interpolation rounds of 8 one-chunk
+    windows) on the kernel route, the plain route and the control, same
+    weights and random stream."""
+    import torch
+
+    fs, dcfg, model = narrow_flagship()
+    n = SMALL_ROLLOUT_FRAMES
+    _, n_windows = check_plan("small rollout", n, SMALL_ROLLOUT_DENSITY,
+                              fs.spec.max_temporal_length, SMALL_ROLLOUT_PLAN)
+    ro = make_rollout(fs, model, dcfg, keyframe_density=SMALL_ROLLOUT_DENSITY,
+                      **ROLLOUT_SETTINGS)
+    xs = torch.zeros(1, n, fs.resolution, fs.resolution, fs.x_channels, device="cuda")
+    xs[:, 0] = seeded_image(fs, 90)
+    poses = identity_poses(1, n, "cuda")
+
+    def run():
+        ro.stats = {"denoiser_evals_b1": 0, "windows": 0}
+        out = ro.predict_videos(torch.Generator(device="cuda").manual_seed(91), xs, 1,
+                                conditions=poses, **rollout_guidance(fs))
+        require(ro.stats["windows"] == n_windows,
+                f"small rollout: {ro.stats['windows']} windows, expected {n_windows}")
+        return out
+
+    check_route(record, "small_rollout", f"small {n}-frame rollout", WINDOW_REL_TOL,
+                model.use_plain_attention, run, {"attention ignoring q, k": control_attention})
 
 
 def train_batch(fs, B: int, seed: int) -> dict:
@@ -1923,6 +2037,7 @@ def run_uvit_paths(record: dict, fs, key: str, what: str, seeds, probes) -> dict
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     video = run_window(ro, fs, seed=s_window)
+    host_s = time.perf_counter() - t0  # when the host has queued the last step
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     window_launches = ops.launch_counts()
@@ -1930,11 +2045,13 @@ def run_uvit_paths(record: dict, fs, key: str, what: str, seeds, probes) -> dict
     evals = ro.stats["denoiser_evals_b1"] // WINDOW_BATCH
     record[f"{key}window"] = {
         "wall_s": wall, "frames_per_s": (T - 1) / wall, "launches": window_launches,
+        "host_queued_s": host_s,
         "denoiser_evals_b1": ro.stats["denoiser_evals_b1"], "denoiser_evals": evals,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(), "shape": list(video.shape),
     }
-    log(f"{what} 8-frame window, 50 DDIM steps, vanilla HG 4.0: {wall:.3f} s wall, "
-        f"{(T - 1) / wall:.4f} generated frames/s, peak memory "
+    log(f"{what} 8-frame window, 50 DDIM steps, vanilla HG 4.0: {wall:.3f} s wall (the host "
+        f"had queued the last step at {host_s:.3f} s), {(T - 1) / wall:.4f} generated frames/s, "
+        f"peak memory "
         f"{record[f'{key}window']['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
         f"{window_launches}")
     expect = (1, T, fs.resolution, fs.resolution, fs.x_channels)
@@ -1967,6 +2084,172 @@ def run_uvit_paths(record: dict, fs, key: str, what: str, seeds, probes) -> dict
              lambda: trained["step"](trained["state"], trained["batch"], trained["gen"]),
              unprofiled_s=record[f"{key}train"]["step_s_median"])
     return {f"{key}window": window_launches, f"{key}train": trained["launches"]}
+
+
+def run_long_video_paths(record: dict, fs) -> dict:
+    """The flagship's long-video tasks at full width and depth on a bf16
+    copy of seeded random weights. ``interp2`` (BASELINE.json config 2):
+    ``interpolate_videos`` of frames 0 and 7 to an 8-frame video, vanilla HG
+    at 4.0, one window. ``rollout`` (config 3, bench.py's settings): one
+    image to 200 frames by ``predict_videos``, 12 keyframes in 2 sliding
+    windows and interpolation rounds of 11 and 35 one-chunk windows, each of
+    (B = 1, T = 8, NFE 2), 50 DDIM steps; wall time, frames/s, the phase
+    split, peak memory, and the wall beyond 48 times the 8-frame window's
+    (``record["window"]``, the same model shape earlier in the run)."""
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.guidance.history_guidance import HistoryGuidance
+
+    T, R, C = fs.spec.max_temporal_length, fs.resolution, fs.x_channels
+    steps = fs.dcfg.sampling_timesteps
+    model = sampling_copy(fs, build_random_model(fs, seed=0, token_io=False))
+    gc.collect()
+    out = {}
+
+    def driven(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        video = run()
+        torch.cuda.synchronize()
+        return video, time.perf_counter() - t0, ops.launch_counts()
+
+    # config 2: two-image interpolation, twice (one window's wall varies from
+    # run to run); the second run counted
+    ro = make_rollout(fs, model, fs.dcfg, external_cond_type="action")
+    ctx = torch.zeros(1, T, R, R, C, device="cuda")
+    ctx[:, 0], ctx[:, T - 1] = seeded_image(fs, 70), seeded_image(fs, 71)
+
+    def interpolate():
+        ro.stats = {"denoiser_evals_b1": 0, "windows": 0}
+        return ro.interpolate_videos(
+            torch.Generator(device="cuda").manual_seed(72), ctx,
+            conditions=identity_poses(1, T, "cuda"),
+            history_guidance=HistoryGuidance.vanilla(4.0, timesteps=fs.dcfg.timesteps))
+
+    _, first_wall, _ = driven(interpolate)
+    video, wall, launches = driven(interpolate)
+    record["interp2"] = {"wall_s": wall, "first_wall_s": first_wall,
+                         "frames_per_s": (T - 2) / wall, "launches": launches,
+                         "stats": dict(ro.stats), "shape": list(video.shape),
+                         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log(f"two-image interpolation (config 2), 8 frames, {steps} DDIM steps, vanilla HG 4.0: "
+        f"{wall:.3f} s wall ({first_wall:.3f} s the run before), "
+        f"{(T - 2) / wall:.4f} generated frames/s; launches {launches}")
+    require(tuple(video.shape) == (1, T, R, R, C) and bool(torch.isfinite(video).all()),
+            f"interpolation: shape {tuple(video.shape)} or non-finite values")
+    require(torch.equal(video[:, [0, T - 1]], ctx[:, [0, T - 1]]),
+            "interpolation: frames 0 and 7 do not come back bit for bit")
+    require(ro.stats["windows"] == 1 and ro.stats["denoiser_evals_b1"] == 2 * steps,
+            f"interpolation stats {ro.stats}")
+    require_launches("the interpolation", launches, expected_uvit_launches(fs, forwards=steps))
+    out["interp2"] = launches
+    del video, ro
+
+    # config 3: the 200-frame rollout
+    n = LONG_FRAMES
+    keys, n_windows = check_plan("200-frame rollout", n, LONG_DENSITY, T, LONG_PLAN)
+    ro = make_rollout(fs, model, fs.dcfg, keyframe_density=LONG_DENSITY, **ROLLOUT_SETTINGS)
+    xs = torch.zeros(1, n, R, R, C, device="cuda")
+    xs[:, 0] = seeded_image(fs, 80)
+    poses = identity_poses(1, n, "cuda")
+    keyframe_pass, phases = {}, []
+    predict_sequence = ro.predict_sequence
+
+    def capture_keyframes(*args, **kw):
+        keyframe_pass["out"] = predict_sequence(*args, **kw)
+        return keyframe_pass["out"]
+
+    ro.predict_sequence = capture_keyframes
+    # each window bracketed by CUDA events: its span on the device, the
+    # device's idle gap before it, and the host's time in the call
+    marks = []
+    sample_sequence = ro.sample_sequence
+
+    def timed_window(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        window = sample_sequence(*args, **kw)
+        end.record()
+        marks.append((start, end, time.perf_counter() - t0))
+        return window
+
+    ro.sample_sequence = timed_window
+    t_start = [0.0]
+    last = {"at_s": 0.0, "windows": 0, "build_s": 0.0, "wait_s": 0.0}
+
+    def progress(phase, info):
+        """Each phase's wall, windows and host-build and device-wait seconds."""
+        now = {"at_s": time.perf_counter() - t_start[0], "windows": ro.stats["windows"],
+               "build_s": ro.stats.get("interp_host_build_sec", 0.0),
+               "wait_s": ro.stats.get("interp_device_wait_sec", 0.0)}
+        phases.append({"phase": phase, "frames_known": info["frames_known"], "at_s": now["at_s"],
+                       "wall_s": now["at_s"] - last["at_s"],
+                       "windows": now["windows"] - last["windows"],
+                       "host_build_s": now["build_s"] - last["build_s"],
+                       "device_wait_s": now["wait_s"] - last["wait_s"]})
+        last.update(now)
+
+    ro.progress = progress
+
+    def run():
+        t_start[0] = time.perf_counter()
+        return ro.predict_videos(torch.Generator(device="cuda").manual_seed(81), xs, 1,
+                                 conditions=poses, **rollout_guidance(fs))
+
+    state_before = card_state()
+    video, wall, launches = driven(run)
+    state_after = card_state()
+    peak = torch.cuda.max_memory_allocated()
+    window_wall = record["window"]["wall_s"]
+    st = dict(ro.stats)
+    spans = [a.elapsed_time(b) / 1e3 for a, b, _ in marks]
+    gaps = [marks[i - 1][1].elapsed_time(marks[i][0]) / 1e3 for i in range(1, len(marks))]
+    host = [h for _, _, h in marks]
+    record["rollout"] = {
+        "wall_s": wall, "frames_per_s": (n - 1) / wall, "launches": launches, "stats": st,
+        "phases": phases, "peak_memory_bytes": peak, "shape": list(video.shape),
+        "window_wall_s": window_wall, "windows_x_window_wall_s": n_windows * window_wall,
+        "beyond_windows_s": wall - n_windows * window_wall,
+        "beyond_windows_share": 1 - n_windows * window_wall / wall,
+        "window_device_span_s": spans, "gap_before_window_s": gaps, "window_host_call_s": host,
+        "card_before": state_before, "card_after": state_after,
+    }
+    log(f"200-frame rollout (config 3), {steps} DDIM steps: {wall:.3f} s wall, "
+        f"{(n - 1) / wall:.4f} generated frames/s, peak memory {peak / 2**30:.2f} GiB; "
+        f"keyframes {st.get('keyframe_sec', 0.0):.3f} s, interpolation "
+        f"{st.get('interp_sec', 0.0):.3f} s; {st['windows']} windows, "
+        f"{st['denoiser_evals_b1']} evaluations ({st.get('keyframe_evals_b1')} keyframe)")
+    for ph in phases:
+        log(f"  {ph['phase']:12s} {ph['windows']:3d} windows: {ph['wall_s']:.3f} s wall, host "
+            f"build {ph['host_build_s']:.4f} s, device wait {ph['device_wait_s']:.3f} s, "
+            f"{ph['frames_known']} frames known")
+    log(f"  windows on the device: {sum(spans):.3f} s in all, {min(spans):.3f}-{max(spans):.3f} s "
+        f"each (median {sorted(spans)[len(spans) // 2]:.3f}); device idle between windows "
+        f"{sum(gaps):.4f} s in all, at most {max(gaps):.4f} s; host time in a window's call "
+        f"{min(host):.3f}-{max(host):.3f} s")
+    log(f"  card (SM clock, its maximum, power, temperature) before: {state_before}; "
+        f"after: {state_after}")
+    log(f"  against {n_windows} x the 8-frame window's {window_wall:.3f} s = "
+        f"{n_windows * window_wall:.3f} s: {wall - n_windows * window_wall:+.3f} s "
+        f"({record['rollout']['beyond_windows_share']:+.2%} of the rollout's wall)")
+    require(tuple(video.shape) == (1, n, R, R, C), f"rollout shape {tuple(video.shape)}")
+    require(bool(torch.isfinite(video).all()), "rollout: non-finite frames")
+    require(st["windows"] == n_windows and st["denoiser_evals_b1"] == n_windows * steps * 2
+            and st["keyframe_evals_b1"] == LONG_PLAN[1] * steps * 2,
+            f"rollout stats {st}: expected {n_windows} windows")
+    require(torch.equal(video[:, 0], xs[:, 0]), "rollout: frame 0 is not the input")
+    require(torch.equal(video[:, torch.as_tensor(keys, device="cuda")], keyframe_pass["out"]),
+            "rollout: the keyframes differ from the keyframe pass's output")
+    require(bool((video[0, 1:].abs().amax(dim=(1, 2, 3)) > 0).all()),
+            "rollout: a generated frame is still all zeros")
+    require_launches("the 200-frame rollout", launches,
+                     expected_uvit_launches(fs, forwards=n_windows * steps))
+    out["rollout"] = launches
+    del video, keyframe_pass, ro, model
+    return out
 
 
 def kernel_class(name: str) -> str:
@@ -2078,6 +2361,12 @@ def main() -> int:
         small_window_check(record)
         by_path = run_uvit_paths(record, flagship(), "", "flagship", (0, 4, 5, 6, 7, 9),
                                  GRAD_PROBES)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the long-video tasks
+        small_rollout_check(record)
+        by_path.update(run_long_video_paths(record, flagship()))
         gc.collect()
         torch.cuda.empty_cache()
 

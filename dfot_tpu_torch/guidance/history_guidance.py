@@ -2,11 +2,13 @@
 
 Port of ``dfot_tpu/guidance/history_guidance.py``. The host planner
 (:class:`HistorySegment`, :class:`HGTable`, :class:`HistoryGuidance`) is a
-numpy copy of the JAX package's (whose module imports jax);
-``tests/test_torch_port_sampling.py`` holds its tables equal to the
-original's. :func:`hg_prepare` and :func:`hg_compose` are the device side on
-tensors: expand the batch by NFE = num_hist * num_gen and install the
-partial-history conditions, then take the weighted composition.
+numpy copy of the JAX package's (whose module imports jax), with every
+scheme's factory, ``from_config`` and ``plan_batched``;
+``tests/test_torch_port_sampling.py`` and ``tests/test_torch_port_rollout.py``
+hold its tables equal to the original's. :func:`hg_prepare` and
+:func:`hg_compose` are the device side on tensors: expand the batch by NFE =
+num_hist * num_gen and install the partial-history conditions, then take the
+weighted composition.
 """
 
 from __future__ import annotations
@@ -74,6 +76,14 @@ class HistorySegment:
         starts, ends = zip(*final)
         return tuple(starts), tuple(ends)
 
+    @classmethod
+    def full(cls) -> "HistorySegment":
+        return cls(ALL, (ALL,))
+
+    @classmethod
+    def partial_constant(cls, lo: float, hi: float) -> "HistorySegment":
+        return cls(ALL, ((lo, hi),))
+
 
 class HGTable(NamedTuple):
     """Static-shape tables for one sampling step (host numpy), B' in {1, B}:
@@ -112,27 +122,104 @@ class HistoryGuidance:
         if len(self.gen_segments) == 0:
             raise ValueError("need at least one gen_segment")
 
+    # ----- factories of the reference schemes; ``**_`` lets from_config pass
+    # a recipe's extra keys through
+
     @classmethod
-    def conditional(cls, timesteps: int = 1000) -> "HistoryGuidance":
-        return cls((HistorySegment(),), (1.0,), timesteps=timesteps)
+    def conditional(cls, timesteps: int = 1000, **_) -> "HistoryGuidance":
+        return cls((HistorySegment.full(),), (1.0,), timesteps=timesteps)
+
+    @classmethod
+    def stabilized_conditional(cls, stabilization_level: float, timesteps: int = 1000,
+                               **_) -> "HistoryGuidance":
+        seg = HistorySegment(ALL, (ALL,), ((stabilization_level, 1.0),))
+        return cls((seg,), (1.0,), timesteps=timesteps)
 
     @classmethod
     def vanilla(cls, guidance_scale: float, timesteps: int = 1000,
-                use_external_cond_guidance: bool = True) -> "HistoryGuidance":
+                use_external_cond_guidance: bool = True, **_) -> "HistoryGuidance":
         return cls(
-            (HistorySegment(),), (float(guidance_scale),), timesteps=timesteps,
+            (HistorySegment.full(),), (float(guidance_scale),), timesteps=timesteps,
             use_external_cond_guidance=use_external_cond_guidance,
         )
 
     @classmethod
     def stabilized_vanilla(cls, guidance_scale: float, stabilization_level: float,
-                           timesteps: int = 1000,
-                           use_external_cond_guidance: bool = True) -> "HistoryGuidance":
+                           timesteps: int = 1000, use_external_cond_guidance: bool = True,
+                           **_) -> "HistoryGuidance":
         seg = HistorySegment(ALL, (ALL,), ((stabilization_level, 1.0),))
         return cls(
             (seg,), (float(guidance_scale),), timesteps=timesteps,
             use_external_cond_guidance=use_external_cond_guidance,
         )
+
+    @classmethod
+    def fractional(cls, guidance_scale: float, freq_scale: float, timesteps: int = 1000,
+                   use_external_cond_guidance: bool = True, **_) -> "HistoryGuidance":
+        return cls(
+            (HistorySegment.full(), HistorySegment.partial_constant(freq_scale, 1.0)),
+            (1.0, float(guidance_scale) - 1.0), timesteps=timesteps,
+            use_external_cond_guidance=use_external_cond_guidance,
+        )
+
+    @classmethod
+    def stabilized_fractional(cls, guidance_scale: float, freq_scale: float,
+                              stabilization_level: float, timesteps: int = 1000,
+                              use_external_cond_guidance: bool = True,
+                              **_) -> "HistoryGuidance":
+        return cls(
+            (HistorySegment(ALL, (ALL,), ((stabilization_level, 1.0),)),
+             HistorySegment.partial_constant(freq_scale, 1.0)),
+            (1.0, float(guidance_scale) - 1.0), timesteps=timesteps,
+            use_external_cond_guidance=use_external_cond_guidance,
+        )
+
+    @classmethod
+    def temporal(cls, hist_subsequences: Sequence[Union[Sequence[int], str]],
+                 hist_weights: Sequence[float], gen_segments: Optional[Sequence] = None,
+                 timesteps: int = 1000, use_external_cond_guidance: bool = True,
+                 **_) -> "HistoryGuidance":
+        return cls(
+            tuple(HistorySegment(tuple(s) if s != ALL else ALL) for s in hist_subsequences),
+            tuple(float(w) for w in hist_weights),
+            tuple(tuple(g) if g != ALL else ALL for g in (gen_segments or [ALL])),
+            timesteps=timesteps,
+            use_external_cond_guidance=use_external_cond_guidance,
+        )
+
+    @classmethod
+    def custom(cls, hist_segments: Sequence[Dict], hist_weights: Sequence[float],
+               gen_segments: Optional[Sequence] = None, timesteps: int = 1000,
+               use_external_cond_guidance: bool = True, **_) -> "HistoryGuidance":
+        def _tup(fr):
+            if fr is None:
+                return None
+            return tuple(tuple(f) if f != ALL else ALL for f in fr)
+
+        segs = tuple(
+            HistorySegment(
+                time_indices=tuple(s["time_indices"]) if s["time_indices"] != ALL else ALL,
+                freq_ranges=_tup(s.get("freq_ranges")) or (ALL,),
+                freq_ranges_if_generated=_tup(s.get("freq_ranges_if_generated")),
+            )
+            for s in hist_segments
+        )
+        return cls(
+            segs,
+            tuple(float(w) for w in hist_weights),
+            tuple(tuple(g) if g != ALL else ALL for g in (gen_segments or [ALL])),
+            timesteps=timesteps,
+            use_external_cond_guidance=use_external_cond_guidance,
+        )
+
+    @classmethod
+    def from_config(cls, cfg, timesteps: int = 1000) -> "HistoryGuidance":
+        """The scheme a recipe names (``tasks.*.history_guidance``): a plain
+        mapping, or any object with ``to_dict()``, holding ``name`` and the
+        factory's arguments."""
+        kwargs = cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg)
+        name = kwargs.pop("name")
+        return getattr(cls, name)(**kwargs, timesteps=timesteps)
 
     def plan(self, context_mask: np.ndarray) -> HGTable:
         """Deduplicated condition table for one (T,) mask in {-1, 0, 1, 2}."""
@@ -192,6 +279,30 @@ class HistoryGuidance:
             np.asarray(weights, dtype=np.float32),
             gen_excluded[None],
             coverage[None],
+        )
+
+    def plan_batched(self, context_masks: np.ndarray) -> HGTable:
+        """Plan for a (B, T) batch of masks, each of which may differ. All
+        masks must give the same num_hist and weights (true of every factory
+        scheme, whose table size does not depend on the mask)."""
+        tables = [self.plan(m) for m in np.asarray(context_masks)]
+        H = {t.num_hist for t in tables}
+        if len(H) != 1:
+            raise ValueError(
+                "per-batch masks produced different numbers of history "
+                f"conditions ({sorted(H)}); batch them separately"
+            )
+        if any((t.cond_mask != tables[0].cond_mask).any() for t in tables) or any(
+            not np.allclose(t.weights, tables[0].weights) for t in tables
+        ):
+            raise ValueError("per-batch masks produced incompatible weight tables")
+        return HGTable(
+            np.concatenate([t.override_mask for t in tables]),
+            np.concatenate([t.override_levels for t in tables]),
+            tables[0].cond_mask,
+            tables[0].weights,
+            np.concatenate([t.gen_excluded for t in tables]),
+            np.concatenate([t.gen_coverage for t in tables]),
         )
 
 

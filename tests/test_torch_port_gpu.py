@@ -738,3 +738,60 @@ def test_ln_modulate_bwd_and_scatter_entries_refuse_other_plans(cuda):
                                          gx, stream) == 1
     torch.cuda.synchronize()
     assert not do.any()  # nothing was launched
+
+
+@pytest.mark.gpu
+def test_small_rollout_kernel_route(cuda):
+    """``predict_videos`` of a narrow flagship U-ViT (heads of 64 and 128,
+    64 px, bf16, 2 DDIM steps) over 24 frames from one: 6 keyframes in 2
+    sliding windows, then interpolation. The kernel route within 2e-2
+    relative L2 of the plain route (``chip_smoke.WINDOW_REL_TOL``), with the
+    same weights and random stream; the context frame comes back exactly."""
+    import dataclasses
+
+    from dfot_tpu_torch.algorithms.dfot_video import (build_model, flagship,
+                                                      sampling_cond_transform)
+    from dfot_tpu_torch.diffusion.core import make_schedule
+    from dfot_tpu_torch.guidance.history_guidance import HistoryGuidance
+    from dfot_tpu_torch.models.uvit import patchify_tokens, unpatchify_tokens
+    from dfot_tpu_torch.sampling import DFoTRollout, RolloutConfig
+    from dfot_tpu_torch.utils.weights import init_random_weights
+
+    fs = flagship()
+    fs = fs._replace(resolution=64, spec=dataclasses.replace(
+        fs.spec, channels=(32, 32, 64, 128), emb_channels=64, num_updown_blocks=(1, 1, 1),
+        num_mid_blocks=1, num_heads=1))
+    dcfg = dataclasses.replace(fs.dcfg, sampling_timesteps=2)
+    model = build_model(fs, token_io=True, device=cuda)
+    init_random_weights(model, torch.Generator().manual_seed(2))
+    model = model.to(torch.bfloat16).eval()
+    R, p, n = fs.resolution, fs.spec.patch_size, 24
+    ro = DFoTRollout(RolloutConfig(
+        max_tokens=8, x_shape=(R, R, 3), external_cond_type="action", keyframe_density=0.25,
+        sliding_context_len=4, cond_transform=sampling_cond_transform(model, "ray_encoding"),
+        state_codec=(lambda x: patchify_tokens(x, p), lambda x: unpatchify_tokens(x, p, R, R)),
+    ), dcfg, make_schedule(dcfg, cuda), model)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xs = torch.zeros(1, n, R, R, 3, device=cuda)
+    xs[:, 0] = torch.rand(R, R, 3, generator=g, device=cuda) * 2 - 1
+    poses = torch.zeros(1, n, 16, device=cuda)
+    poses[..., :4] = torch.tensor([1.0, 1.0, 0.5, 0.5], device=cuda)
+    poses[..., 4] = poses[..., 9] = poses[..., 14] = 1.0
+    poses[..., 7] = torch.linspace(0, 1, n, device=cuda)  # a camera moving along x
+
+    def run():
+        return ro.predict_videos(torch.Generator(device=cuda).manual_seed(6), xs, 1,
+                                 conditions=poses,
+                                 prediction_hg=HistoryGuidance.stabilized_vanilla(4.0, 0.02),
+                                 interpolation_hg=HistoryGuidance.vanilla(1.5))
+
+    ops.reset_launch_counts()
+    got = run()
+    counts = ops.launch_counts()
+    assert counts["flash_fwd"] > 0 and counts["flash_fwd"] == counts["attn_out_collect"]
+    model.use_plain_attention(True)
+    want = run()
+    model.use_plain_attention(False)
+    assert got.shape == (1, n, R, R, 3) and got.dtype == torch.float32
+    assert torch.isfinite(got).all() and torch.equal(got[:, 0], xs[:, 0])
+    assert _rel_l2(got, want) <= 2e-2

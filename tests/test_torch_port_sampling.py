@@ -101,12 +101,17 @@ def test_make_schedule_equal():
         np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)))
 
 
-@pytest.mark.parametrize("padding", [0, 3])
-def test_scheduling_matrices_equal(padding):
-    np.testing.assert_array_equal(
-        TSC.generate_scheduling_matrix("full_sequence", 8, 1000, 50, padding),
-        JSC.generate_scheduling_matrix("full_sequence", 8, 1000, 50, padding),
-    )
+@pytest.mark.parametrize("name,padding", [
+    # the full_sequence cases keep their earlier ids, "0" and "3"
+    pytest.param(name, padding, id=str(padding) if name == "full_sequence" else f"{name}-{padding}")
+    for name in ("full_sequence", "autoregressive", "interleaved", "gibbs") for padding in (0, 3, 5)
+])
+def test_scheduling_matrices_equal(name, padding):
+    for horizon, steps in ((8, 50), (5, 10), (3, 7)):
+        np.testing.assert_array_equal(
+            TSC.generate_scheduling_matrix(name, horizon, 1000, steps, padding),
+            JSC.generate_scheduling_matrix(name, horizon, 1000, steps, padding),
+        )
     np.testing.assert_array_equal(
         TSC.generate_refine_scheduling_matrix(8, 1000, 20, 4, 2, padding),
         JSC.generate_refine_scheduling_matrix(8, 1000, 20, 4, 2, padding),
@@ -302,9 +307,12 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TSM.make_window_sampler(None, dcfg, ts, reconstruction_guidance=1.0)
     with pytest.raises(NotImplementedError):
-        TR.DFoTRollout(TR.RolloutConfig(8, (4, 4, 3), scan_bucket=8), dcfg, ts, None)
+        TR.DFoTRollout(TR.RolloutConfig(8, (4, 4, 3)),
+                       dataclasses.replace(dcfg, reconstruction_guidance=1.0), ts, None)
     with pytest.raises(NotImplementedError):
-        TSC.generate_scheduling_matrix("autoregressive", 8, 1000, 10)
+        TR.DFoTRollout(TR.RolloutConfig(8, (4, 4, 3), mesh=object()), dcfg, ts, None)
+    with pytest.raises(ValueError):
+        TSC.generate_scheduling_matrix("no_such_matrix", 8, 1000, 10)
 
 
 # ---------------------------------------------------------------------------
