@@ -92,7 +92,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     counts required, a profiled step;
 16. runs that model with axial blocks at level 3 at a cut depth: route
     checks, the fp32 gradient witness, launch counts (B10 at d = 256), a
-    profile.
+    profile;
+17. runs the README's RE10K validation through the port's entry point,
+    ``dfot_tpu_torch.__main__.run(argv)`` (``python -m dfot_tpu_torch``),
+    on the flagship at full width and depth: it writes a seeded random fp32
+    UViT3DPose as an upstream-layout ``.ckpt`` under ``chiprun_out/``
+    (deleted after), runs the command with ``load=`` that file, a batch of
+    2 and one batch, the frame-wise metrics only (and no GIFs where PIL is
+    absent), and requires the model's every parameter and buffer bit-equal
+    to the file's, B1-B3 launched 32 times per forward of the window's
+    sampling plan, the 4 context frames of the prediction bit-equal to the
+    ground truth's, and finite mse, ssim and psnr in ``metrics.jsonl``; it
+    prints the phase's wall split (compose, checkpoint write, checkpoint
+    load, model build, sampling, metrics, the metrics logger) and its peak
+    memory.
 
 Steps 3, 4, 7, 10, 11, 14, 15 and 16 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
@@ -105,7 +118,7 @@ unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut: the
-whole takes about five minutes.
+whole takes about six minutes.
 """
 
 from __future__ import annotations
@@ -140,12 +153,16 @@ FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
 # the paths that are driven between a reset and a read of the launch counts
 PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
-         "base_train", "base_axial", "interp2", "rollout")
+         "base_train", "base_axial", "interp2", "rollout", "cli")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
 BATCHES = (1, 2)
 WINDOW_BATCH, TRAIN_BATCH = 2, 1
+# the validation CLI samples CLI_BATCH videos a batch, and vanilla HG runs
+# the denoiser on each twice (NFE 2), as the window does on its one video
+CLI_BATCH = 2
+CLI_DENOISER_BATCH = WINDOW_BATCH * CLI_BATCH
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12   # tensor cores, bf16
 PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
@@ -742,10 +759,11 @@ def check_kernels(record: dict) -> dict:
         return err, tol, extra
 
     def attention_site(site, B, N, H, D, DP, rope_sizes, norm, fused_width, main,
-                       in_path=False):
-        """B2, B6, B1, B4, B5, B3, B7 at one attention site. ``main``: which
-        kernels (forward, backward) report this site in the kernels line;
-        ``in_path``: also time B3 on B1's output as it has just been written."""
+                       in_path=False, backward=True):
+        """B2, B6, B1, B4, B5, B3, B7 at one attention site (B2, B1 and B3
+        alone where not ``backward``). ``main``: which kernels (forward,
+        backward) report this site in the kernels line; ``in_path``: also
+        time B3 on B1's output as it has just been written."""
         C = H * D
         is_main = lambda name: main[0] if name in FORWARD_KERNELS else main[1]
         # B2: packed qkv as the model passes it (for the U-ViT a strided slice
@@ -779,35 +797,37 @@ def check_kernels(record: dict) -> dict:
              bound(7 * B * N * 2 * C, packed_bytes + nbytes(*flat_tabs, *got), PEAK_FP32_FLOPS),
              host_us=host_us(lambda: Q._prep_cuda(qkv, tabs, H, D, DP, norm, 1e-6)), **extra)
 
-        # B6: the cotangents of q, k, v back to the packed layout
-        dys = [rand(B, H, N, DP) for _ in range(3)]
-        got, want, err, tol, extra = prep_bwd_check(site, qkv, tabs, dys, H, D, norm)
-        extra["controls"] = {}
-        if norm:
+        if backward:
+            # B6: the cotangents of q, k, v back to the packed layout
+            dys = [rand(B, H, N, DP) for _ in range(3)]
+            got, want, err, tol, extra = prep_bwd_check(site, qkv, tabs, dys, H, D, norm)
+            extra["controls"] = {}
+            if norm:
+                extra["controls"].update(rejected(
+                    "qkv_prep_bwd", site, "dx without the norm's r^3 mean(du x) term",
+                    [("dq, dk", prep_bwd_without_norm_mean(qkv, tabs, dys[0], dys[1], H, D),
+                      want[0][..., :2 * C])], 2e-2, PREP_REL_L2_TOL))
+            half = [g.clone() for g in dys]
+            for g in half:
+                g.view(B * H, N, DP)[1::2] = 0  # the odd (batch, head) items left out
             extra["controls"].update(rejected(
-                "qkv_prep_bwd", site, "dx without the norm's r^3 mean(du x) term",
-                [("dq, dk", prep_bwd_without_norm_mean(qkv, tabs, dys[0], dys[1], H, D),
-                  want[0][..., :2 * C])], 2e-2, PREP_REL_L2_TOL))
-        half = [g.clone() for g in dys]
-        for g in half:
-            g.view(B * H, N, DP)[1::2] = 0  # the odd (batch, head) items left out
-        extra["controls"].update(rejected(
-            "qkv_prep_bwd", site, "table cotangents over half the (batch, head) items",
-            list(zip(TABLE_LABELS, Q.qkv_prep_bwd(qkv, tabs, *half, H, D, norm, plain=True)[1:],
-                     want[1:])), 5e-3, PREP_REL_L2_TOL))
-        bwd = lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm)  # noqa: E731
-        note("qkv_prep_bwd", site, is_main("qkv_prep_bwd"), err, tol, bwd,
-             cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm, plain=True)),
-             # per q/k element: the forward's norm again, the rotation back,
-             # the norm's backward and two table products; the bytes the
-             # function needs: the q and k columns of the packed qkv, the
-             # tables, the d true lanes of the three cotangents, dqkv and the
-             # four fp32 table cotangents
-             bound(20 * B * N * 2 * C,
-                   2 * B * N * C * 2 + nbytes(*flat_tabs) + 3 * B * H * N * D * 2
-                   + nbytes(*got), PEAK_FP32_FLOPS),
-             host_us=host_us(bwd), **extra)
-        del fused, qkv, got, want, dys, half
+                "qkv_prep_bwd", site, "table cotangents over half the (batch, head) items",
+                list(zip(TABLE_LABELS, Q.qkv_prep_bwd(qkv, tabs, *half, H, D, norm, plain=True)[1:],
+                         want[1:])), 5e-3, PREP_REL_L2_TOL))
+            bwd = lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm)  # noqa: E731
+            note("qkv_prep_bwd", site, is_main("qkv_prep_bwd"), err, tol, bwd,
+                 cuda_ms(lambda: Q.qkv_prep_bwd(qkv, tabs, *dys, H, D, norm, plain=True)),
+                 # per q/k element: the forward's norm again, the rotation back,
+                 # the norm's backward and two table products; the bytes the
+                 # function needs: the q and k columns of the packed qkv, the
+                 # tables, the d true lanes of the three cotangents, dqkv and the
+                 # four fp32 table cotangents
+                 bound(20 * B * N * 2 * C,
+                       2 * B * N * C * 2 + nbytes(*flat_tabs) + 3 * B * H * N * D * 2
+                       + nbytes(*got), PEAK_FP32_FLOPS),
+                 host_us=host_us(bwd), **extra)
+            del dys, half
+        del fused, qkv, got, want
 
         # B1: peaked attention (score std ~3) so outputs are O(1); heads that
         # B2 pads have zero lanes D..DP, the scale and head dim of the true D
@@ -823,37 +843,38 @@ def check_kernels(record: dict) -> dict:
              cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, scale=scale)),
              host_us=host_us(fwd), **extra)
 
-        # B4, B5 on the forward's saved results; the plain versions are
-        # the explicit fp32 formulas on the same O and LSE
-        do = F.pad(rand(B, H, N, D), (0, DP - D))
-        delta = (do.float() * o.float()).sum(-1, keepdim=True)
-        err_dq, tol_dq, extra_dq = flash_dq_check(site, q, k, v, do, lse, delta, D, False)
-        err_dkv, tol_dkv, extra_dkv = flash_dkv_check(site, q, k, v, do, lse, delta, D, False)
-        # the yardstick: the backward of PyTorch's fused attention on
-        # unpadded heads, one call that gives dq, dk and dv (what B4 and B5
-        # give together)
-        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (qd, kd, vd))
-        ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
-        dod = do[..., :D].contiguous()
-        sdpa_bwd = cuda_ms(
-            lambda: torch.autograd.grad(ol, (ql, kl, vl), dod, retain_graph=True))
-        del ol, ql, kl, vl, qd, kd, vd, dod
-        # host_us: what the checks, the tile plan, the four tensor maps and
-        # the launch cost the host a call (B1 encodes three maps)
-        bwd_dq = lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
-                                        head_dim=D)
-        note("flash_bwd_dq", site, is_main("flash_bwd_dq"), err_dq, tol_dq, bwd_dq,
-             cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, False, scale),
-                     reps=3, warmup=1),
-             bound(3 * ops // 2, nbytes(q, k, v, do, lse, delta) + nbytes(q), PEAK_BF16_FLOPS),
-             sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dq), **extra_dq)
-        bwd_dkv = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
-                                          head_dim=D)
-        note("flash_bwd_dkv", site, is_main("flash_bwd_dkv"), err_dkv, tol_dkv, bwd_dkv,
-             cuda_ms(lambda: A._dkv_plain(q, k, v, do, lse, delta, False, scale),
-                     reps=3, warmup=1),
-             bound(2 * ops, nbytes(q, k, v, do, lse, delta) + 2 * nbytes(k), PEAK_BF16_FLOPS),
-             sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dkv), **extra_dkv)
+        if backward:
+            # B4, B5 on the forward's saved results; the plain versions are
+            # the explicit fp32 formulas on the same O and LSE
+            do = F.pad(rand(B, H, N, D), (0, DP - D))
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            err_dq, tol_dq, extra_dq = flash_dq_check(site, q, k, v, do, lse, delta, D, False)
+            err_dkv, tol_dkv, extra_dkv = flash_dkv_check(site, q, k, v, do, lse, delta, D, False)
+            # the yardstick: the backward of PyTorch's fused attention on
+            # unpadded heads, one call that gives dq, dk and dv (what B4 and B5
+            # give together)
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (qd, kd, vd))
+            ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            dod = do[..., :D].contiguous()
+            sdpa_bwd = cuda_ms(
+                lambda: torch.autograd.grad(ol, (ql, kl, vl), dod, retain_graph=True))
+            del ol, ql, kl, vl, qd, kd, vd, dod
+            # host_us: what the checks, the tile plan, the four tensor maps and
+            # the launch cost the host a call (B1 encodes three maps)
+            bwd_dq = lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
+                                            head_dim=D)
+            note("flash_bwd_dq", site, is_main("flash_bwd_dq"), err_dq, tol_dq, bwd_dq,
+                 cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, False, scale),
+                         reps=3, warmup=1),
+                 bound(3 * ops // 2, nbytes(q, k, v, do, lse, delta) + nbytes(q), PEAK_BF16_FLOPS),
+                 sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dq), **extra_dq)
+            bwd_dkv = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
+                                              head_dim=D)
+            note("flash_bwd_dkv", site, is_main("flash_bwd_dkv"), err_dkv, tol_dkv, bwd_dkv,
+                 cuda_ms(lambda: A._dkv_plain(q, k, v, do, lse, delta, False, scale),
+                         reps=3, warmup=1),
+                 bound(2 * ops, nbytes(q, k, v, do, lse, delta) + 2 * nbytes(k), PEAK_BF16_FLOPS),
+                 sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dkv), **extra_dkv)
 
         # B3 and B7: exact copies; PyTorch's strided copy is both the
         # plain version and the one library call. B3's bound counts the bytes
@@ -870,15 +891,16 @@ def check_kernels(record: dict) -> dict:
         note("attn_out_collect", site, is_main("attn_out_collect"), 0.0, 0.0, collect, plain,
              bound(0, B * H * N * D * o.element_size() + nbytes(got), PEAK_FP32_FLOPS), plain,
              host_us=host_us(collect), **extra, **contiguous_copy(got.numel()))
-        # B7: its bound and the device's copy count the D lanes it reads and
-        # the DP lanes (pad lanes included) it writes
-        g = rand(B, N, C)
-        got = scatter_check(site, g, H, D, DP)
-        plain = cuda_ms(lambda: Q.reference_attn_out_scatter(g, H, D, DP))
-        scatter = lambda: Q.attn_out_scatter(g, H, D, DP)  # noqa: E731
-        note("attn_out_scatter", site, is_main("attn_out_scatter"), 0.0, 0.0, scatter, plain,
-             bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain, host_us=host_us(scatter),
-             **contiguous_copy((g.numel() + got.numel()) // 2))
+        if backward:
+            # B7: its bound and the device's copy count the D lanes it reads and
+            # the DP lanes (pad lanes included) it writes
+            g = rand(B, N, C)
+            got = scatter_check(site, g, H, D, DP)
+            plain = cuda_ms(lambda: Q.reference_attn_out_scatter(g, H, D, DP))
+            scatter = lambda: Q.attn_out_scatter(g, H, D, DP)  # noqa: E731
+            note("attn_out_scatter", site, is_main("attn_out_scatter"), 0.0, 0.0, scatter, plain,
+                 bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain, host_us=host_us(scatter),
+                 **contiguous_copy((g.numel() + got.numel()) // 2))
 
     for B in BATCHES:
         for level, N, H, D in SITES:
@@ -886,6 +908,12 @@ def check_kernels(record: dict) -> dict:
             attention_site(f"level{level} B={B} N={N} H={H} d={D}", B, N, H, D, D, (8, side, side),
                            True, 7, (B == WINDOW_BATCH, B == TRAIN_BATCH),
                            in_path=(level, B) == (2, WINDOW_BATCH))
+    # the validation CLI's denoiser batch: the forward kernels only
+    for level, N, H, D in SITES:
+        side = int(math.isqrt(N // 8))
+        attention_site(f"cli level{level} B={CLI_DENOISER_BATCH} N={N} H={H} d={D}",
+                       CLI_DENOISER_BATCH, N, H, D, D, (8, side, side), True, 7, (False, False),
+                       backward=False)
     N, H, D, DP = XL_SITE
     attention_site(f"xl B={XL_BATCH} N={N} H={H} d={D}->{DP}", XL_BATCH, N, H, D, DP, (5, 16, 16),
                    False, 3, (False, False), in_path=True)
@@ -2316,6 +2344,116 @@ def profiled(record: dict, key: str, what: str, run, unprofiled_s=None) -> None:
         log(f"  {cls:40s} {ms:10.2f} ms  {ms / 1e3 / busy:7.2%}")
 
 
+README_RE10K = [
+    "+name=re10k", "dataset=realestate10k_mini", "algorithm=dfot_video_pose",
+    "experiment=video_generation", "@diffusion/continuous", "experiment.tasks=[validation]",
+    "load=pretrained:DFoT_RE10K.ckpt",
+    "++algorithm.tasks.prediction.history_guidance.name=vanilla",
+    "++algorithm.tasks.prediction.history_guidance.guidance_scale=4.0",
+]
+
+
+def run_cli_validation(record: dict, smi: str) -> dict:
+    """Phase 17: the README's RE10K validation through ``python -m
+    dfot_tpu_torch``'s ``run(argv)``, on a seeded random flagship checkpoint
+    in the upstream layout. Returns the launch counts of the run."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.algorithms.dfot_video import flagship
+    from dfot_tpu_torch.sampling.sampler import plan_sampling
+
+    fs = flagship()
+    log("the README's RE10K validation through python -m dfot_tpu_torch (flagship, full width):")
+    t0 = time.perf_counter()
+    model = build_random_model(fs, seed=70, token_io=False)
+    state = {"diffusion_model.model." + k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    OUT_DIR.mkdir(exist_ok=True)
+    ckpt = OUT_DIR / "cli_fixture.ckpt"
+    out_dir = OUT_DIR / "cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pil = importlib.util.find_spec("PIL") is not None
+    argv = README_RE10K + [
+        f"load={ckpt}", f"output_dir={out_dir}",
+        f"experiment.validation.batch_size={CLI_BATCH}", "experiment.validation.limit_batch=1",
+        "++algorithm.logging.metrics=[mse,ssim,psnr]",
+    ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
+    try:
+        torch.save({"state_dict": state}, ckpt)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        exp = run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = ops.launch_counts()
+    finally:
+        ckpt.unlink(missing_ok=True)
+    peak = torch.cuda.max_memory_allocated()
+
+    require(exp.algo.device.type == "cuda", "the CLI ran off the card")
+    got = exp.algo.model.state_dict()
+    require(sorted("diffusion_model.model." + k for k in got) == sorted(state),
+            "the CLI's model has other keys than the checkpoint")
+    unequal = [k for k, v in got.items()
+               if not torch.equal(v.cpu(), state["diffusion_model.model." + k])]
+    require(not unequal, f"{len(unequal)} tensors differ from the checkpoint's, e.g. {unequal[:3]}")
+
+    # the window's sampling plan: 4 context frames of 8, vanilla HG
+    mask = np.zeros((CLI_BATCH, fs.spec.max_temporal_length), np.int64)
+    mask[:, :4] = 1
+    d = fs.dcfg
+    plan = plan_sampling(mask, fs.history_guidance, "full_sequence", d.timesteps,
+                         d.sampling_timesteps, fs.spec.max_temporal_length)
+    forwards = int(plan.num_steps - plan.renoise.sum() - plan.noop.sum())
+    require(CLI_BATCH * plan.nfe == CLI_DENOISER_BATCH,
+            f"the CLI's denoiser batch {CLI_BATCH} x {plan.nfe} is not the one the kernels "
+            f"were checked at ({CLI_DENOISER_BATCH})")
+    stats = exp.algo.rollout.stats
+    require(stats["windows"] == 1 and stats["denoiser_evals_b1"] == forwards * CLI_BATCH * plan.nfe,
+            f"the CLI sampled {stats} against the plan's {forwards} forwards of one window")
+    require_launches("the CLI validation", launches, expected_uvit_launches(fs, forwards=forwards))
+
+    videos = exp.last_videos
+    pred, gt = videos["prediction"], videos["gt"]
+    require(tuple(pred.shape) == (CLI_BATCH, 8, 256, 256, 3) and bool(torch.isfinite(pred).all()),
+            f"prediction of shape {tuple(pred.shape)} with non-finite values")
+    require(torch.equal(pred[:, :4], gt[:, :4]),
+            "the prediction's context frames differ from the ground truth's")
+    files = [p for p in out_dir.rglob("metrics.jsonl")]
+    require(len(files) == 1, f"{len(files)} metrics.jsonl files under {out_dir}")
+    lines = [json.loads(line) for line in files[0].read_text().splitlines()]
+    metrics = {k: v for k, v in lines[-1].items() if k not in ("step", "time")}
+    keys = [f"validation/prediction/{m}" for m in ("mse", "psnr", "ssim")]
+    require(sorted(metrics) == sorted(keys) and all(math.isfinite(metrics[k]) for k in keys),
+            f"metrics.jsonl holds {metrics}")
+
+    t = exp.timings
+    split = {"compose_s": t["compose_s"], "checkpoint_write_s": write_s,
+             "checkpoint_load_s": t["checkpoint_load_s"], "model_build_s": t["model_build_s"],
+             "sampling_s": t["sampling_s"], "metrics_s": t["metrics_s"], "logger_s": t["logger_s"]}
+    record["cli"] = {
+        "argv": argv, "nvidia_smi": smi, "pil": pil, "wall_s": wall, "split_s": split,
+        "peak_memory_bytes": peak, "forwards": forwards, "nfe": plan.nfe,
+        "launches": launches, "metrics": metrics, "run_dir": str(exp.output_dir),
+        "videos": sorted(str(p.relative_to(out_dir)) for p in out_dir.rglob("*.gif")),
+    }
+    log(f"  {smi}; PIL {'present' if pil else 'absent: no GIFs (max_num_videos=0)'}")
+    log(f"  run(argv): {wall:.3f} s wall, {forwards} forwards x {plan.nfe} NFE at batch "
+        f"{CLI_BATCH}, launches B1 {launches['flash_fwd']}, B2 {launches['qkv_prep']}, "
+        f"B3 {launches['attn_out_collect']}, peak {peak / 2**30:.2f} GiB")
+    log("  split: " + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in split.items()))
+    log("  metrics: " + ", ".join(f"{k.rsplit('/', 1)[1]} {v:.6g}" for k, v in metrics.items()))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2390,6 +2528,11 @@ def main() -> int:
             record, uvit3d_pose_base(), (3,), BASE_AXIAL_DEPTH, "base_axial",
             "base-width axial U-ViT", (60, 61, 62), BASE_AXIAL_GRAD_PROBES,
             BASE_AXIAL_NORM_PROBES)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the validation entry point
+        by_path["cli"] = run_cli_validation(record, smi)
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

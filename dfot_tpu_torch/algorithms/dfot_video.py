@@ -13,10 +13,10 @@ per-block pose FiLM terms, once per window) and the training side
         ++algorithm.tasks.prediction.history_guidance.name=vanilla \
         ++algorithm.tasks.prediction.history_guidance.guidance_scale=4.0
 
-:func:`flagship` gives the values that command composes, in code (the
-machine with the card has no YAML loader); a CPU test holds them equal to
-``dfot_tpu.config``'s composition, the training values with
-``experiment.tasks=[training]``. :func:`uvit3d_pose_base` is the same recipe
+:func:`flagship` gives the values that command composes, in code, for the
+paths that build the model without a config; CPU tests hold them equal to
+``dfot_tpu.config``'s composition (the training values with
+``experiment.tasks=[training]``) and to what :func:`build_algorithm` builds. :func:`uvit3d_pose_base` is the same recipe
 on the backbone at its own published widths (heads of 256 at level 3). :func:`k600_dit_xl` does the same for the
 plain ``DFoTVideoAlgo`` on the Kinetics-600 latent recipe::
 
@@ -27,31 +27,53 @@ a DiT3D in latent space (the VideoVAE that makes and decodes the latents is
 not ported: the recipe's x is the (5, 16, 16, 16) latent window). ``build_model``
 and the ``make_train_*`` functions take either recipe. Entry points that
 build tensors take ``device=None``, which means the card.
+
+:func:`build_algorithm` builds the algorithm from a composed config, as the
+JAX package's does (``DFoTVideoAlgo`` and ``DFoTVideoPoseAlgo``): the
+backbone, the diffusion schedule and the rollout with the configured
+scheduling matrix, HG schemes and the token-layout state codec of the
+U-ViTs; ``sample_videos`` runs the configured generation tasks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+import os
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..diffusion.core import DiffusionConfig, make_schedule, resolve_device
 from ..guidance.history_guidance import HistoryGuidance
-from ..models.dit import DiT3D, DiTSpec
-from ..models.uvit import UViT3DPose, UViTSpec, precompute_pose_conditioning
+from ..models.dit import DiT3D, DiT3DPose, DiTSpec
+from ..models.uvit import (
+    UViT3D,
+    UViT3DPose,
+    UViTSpec,
+    patchify_tokens,
+    precompute_pose_conditioning,
+    unpatchify_tokens,
+)
+from ..sampling import DFoTRollout, RolloutConfig
 from ..training.noise_levels import NoiseLevelConfig
 from ..training.optim import make_optimizer
 from ..training.state import TrainState, create_train_state
 from ..training.trainer import make_train_step as _make_train_step
-from ..utils.geometry import expand_pose_conditions
+from ..utils.geometry import (
+    conditioning_dim,
+    expand_pose_conditions,
+    normalize_camera_conditions,
+    process_camera_conditions,
+)
 
 __all__ = [
     "Flagship", "DiTRecipe", "TrainRecipe", "flagship", "uvit3d_pose_base", "k600_dit_xl",
     "build_model",
     "sampling_cond_transform",
     "cond_transform", "make_train_apply", "make_train_state", "make_train_step",
+    "DFoTVideoAlgo", "DFoTVideoPoseAlgo", "build_algorithm",
 ]
 
 
@@ -321,3 +343,299 @@ def make_train_step(fs: Recipe, device=None) -> Callable:
         make_train_apply(fs), fs.dcfg, make_schedule(fs.dcfg, device), r.noise_levels,
         ema_decay=r.ema_decay, accumulate_steps=r.accumulate_steps,
     )
+
+
+# ---------------------------------------------------------------------------
+# the algorithm built from a composed config
+# ---------------------------------------------------------------------------
+
+UNPORTED_BACKBONES = ("u_net3d", "far_dit", "dit1d", "difference_dit3d")
+FRESH_INIT_SEED = 0  # the weights a run validates without a checkpoint
+
+
+class DFoTVideoAlgo:
+    """Diffusion Forcing Transformer for video generation, from the
+    ``algorithm`` config node (``dfot_tpu/algorithms/dfot_video.py:39``).
+
+    The model holds fp32 weights on ``device`` (None: the card), built under
+    ``torch.manual_seed(FRESH_INIT_SEED)`` (PyTorch's own initializers: the numbers
+    differ from the JAX package's fresh init) and replaced when a
+    checkpoint is loaded. With ``compute_dtype`` bf16 (the default, as in
+    JAX) the sampler runs the model and the pose conditioning under
+    autocast: bf16 matmuls, convolutions and attention kernels over the fp32
+    weights, as the JAX modules compute (``param_dtype`` fp32, ``dtype``
+    bf16); the sampler's own arithmetic stays fp32. A latent config builds
+    the model in latent space; making and decoding the latents is the
+    experiment's (A13).
+    """
+
+    def __init__(self, cfg, compute_dtype=torch.bfloat16, device=None):
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+
+        # ---- frame/token bookkeeping -------------------------------------
+        latent = cfg.latent
+        self.is_latent = bool(latent.enabled)
+        self.temporal_downsampling = latent.downsampling_factor[0] if self.is_latent else 1
+        c, h, w = cfg.x_shape
+        if self.is_latent:
+            ds = latent.downsampling_factor[1]
+            c = latent.num_channels
+            h, w = h // ds, w // ds
+        self.x_shape = (h, w, c)  # channel-last token shape
+        self.max_tokens = self._frames_to_tokens(cfg.max_frames)
+        self.n_context_tokens = (
+            self._frames_to_tokens(cfg.context_frames) if cfg.context_frames else 0)
+
+        # data normalization buffers (channel-last, (1, 1, C))
+        self.data_mean = self._stat(cfg.get("data_mean"))
+        self.data_std = self._stat(cfg.get("data_std"))
+
+        # ---- diffusion -----------------------------------------------------
+        self.dcfg = DiffusionConfig.from_config(cfg.diffusion)
+        self.sched = make_schedule(self.dcfg, self.device)
+
+        # ---- backbone ------------------------------------------------------
+        # U-ViTs sample in their patch-token layout: the pixel <-> patch
+        # transpose runs once per window instead of once per step
+        p = cfg.backbone.get("patch_size")
+        self._state_codec = None
+        if cfg.backbone.name in ("u_vit3d", "u_vit3d_pose") and h == w and h % p == 0:
+            self._state_codec = (lambda x: patchify_tokens(x, p),
+                                 lambda x: unpatchify_tokens(x, p, h, w))
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(FRESH_INIT_SEED)
+            self.model = self._build_backbone(token_io=self._state_codec is not None).eval()
+
+        # ---- rollout -------------------------------------------------------
+        pred, interp = cfg.tasks.prediction, cfg.tasks.interpolation
+        self.rollout_cfg = RolloutConfig(
+            max_tokens=self.max_tokens,
+            x_shape=self.x_shape,
+            scheduling_matrix=cfg.scheduling_matrix,
+            is_full_sequence=self.is_full_sequence,
+            chunk_size=cfg.chunk_size,
+            use_causal_mask=self.dcfg.use_causal_mask,
+            external_cond_type=cfg.get("external_cond_type"),
+            sliding_context_len=pred.get("sliding_context_len"),
+            keyframe_density=pred.get("keyframe_density"),
+            interpolation_max_batch_size=interp.get("max_batch_size"),
+            scan_bucket=cfg.get("scan_bucket", 0) or 0,
+            cond_transform=self._autocast(self._sampling_cond_transform()),
+            state_codec=self._state_codec,
+            refinement=(
+                dict(cfg.refinement_sampling.to_dict())
+                if cfg.refinement_sampling.enabled else None
+            ),
+        )
+        self.rollout = DFoTRollout(self.rollout_cfg, self.dcfg, self.sched,
+                                   self._autocast(self.model))
+        self.prediction_hg = HistoryGuidance.from_config(
+            pred.history_guidance, timesteps=self.dcfg.timesteps)
+        self.interpolation_hg = HistoryGuidance.from_config(
+            interp.history_guidance, timesteps=self.dcfg.timesteps)
+
+        # ---- training ------------------------------------------------------
+        self.nl_cfg = NoiseLevelConfig.from_config(cfg, self.dcfg.timesteps,
+                                                   self.n_context_tokens)
+
+    # ------------------------------------------------------------------
+    # bookkeeping
+    # ------------------------------------------------------------------
+    def _frames_to_tokens(self, n_frames: int) -> int:
+        return (n_frames - 1) // self.temporal_downsampling + 1
+
+    @property
+    def is_full_sequence(self) -> bool:
+        """Full-sequence baseline: uniform noise + full_sequence matrix
+        (context is re-noised rather than pinned)."""
+        return (
+            self.cfg.noise_level == "random_uniform"
+            and self.cfg.scheduling_matrix == "full_sequence"
+            and not self.cfg.fixed_context.enabled
+            and not self.cfg.variable_context.enabled
+        )
+
+    def _stat(self, value) -> Optional[torch.Tensor]:
+        """A normalization statistic as a (1, 1, C) fp32 tensor: from the
+        config's (C, 1, 1) list, or from the ``.npy`` file a string names
+        (None when the file is absent)."""
+        if value is None:
+            return None
+        if isinstance(value, str):
+            if not os.path.exists(value):
+                return None
+            arr = np.load(value).astype(np.float32).reshape(1, 1, -1)
+        else:
+            arr = np.asarray(value, dtype=np.float32)
+            if arr.ndim == 3:
+                arr = arr.transpose(1, 2, 0)
+        return torch.as_tensor(arr, device=self.device)
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        if self.data_mean is None:
+            return x
+        return (x - self.data_mean) / self.data_std
+
+    def unnormalize(self, x: torch.Tensor) -> torch.Tensor:
+        if self.data_mean is None:
+            return x
+        return x * self.data_std + self.data_mean
+
+    # ------------------------------------------------------------------
+    # backbone
+    # ------------------------------------------------------------------
+    def _build_backbone(self, token_io: bool) -> torch.nn.Module:
+        """The configured backbone with fp32 weights on the algorithm's
+        device (``dfot_tpu/algorithms/dfot_video.py:187``)."""
+        cfg, bcfg = self.cfg, self.cfg.backbone
+        name = bcfg.name
+        h, w, c = self.x_shape
+        if name in UNPORTED_BACKBONES:
+            raise NotImplementedError(
+                f"backbone {name!r} is not ported yet (ROADMAP.md queue A14)")
+        dropout = bcfg.get("external_cond_dropout", 0.0)
+        fourier = bcfg.get("use_fourier_noise_embedding", False)
+        with torch.device(self.device):
+            if name in ("dit3d", "dit3d_pose"):
+                spec = DiTSpec.from_config(bcfg, self.max_tokens, self.dcfg.use_causal_mask)
+                if name == "dit3d_pose":
+                    cond_cfg = bcfg.get("conditioning")
+                    ctype = "film" if cond_cfg is None else cond_cfg.get("type", "film")
+                    return DiT3DPose(
+                        spec, c, (h, w), conditioning_dim(cfg.camera_pose_conditioning.type),
+                        conditioning_type=ctype, external_cond_dropout=dropout,
+                        use_fourier_noise_emb=fourier,
+                    )
+                return DiT3D(
+                    spec, c, (h, w), cfg.get("external_cond_type"),
+                    cfg.get("external_cond_dim") or 0, cfg.get("external_cond_num_classes"),
+                    dropout, fourier,
+                )
+            if name in ("u_vit3d", "u_vit3d_pose"):
+                spec = UViTSpec.from_config(bcfg, self.max_tokens)
+                if name == "u_vit3d_pose":
+                    return UViT3DPose(
+                        spec, c, h, conditioning_dim(cfg.camera_pose_conditioning.type),
+                        use_fourier_noise_emb=fourier, token_io=token_io,
+                        external_cond_dropout=dropout,
+                    )
+                if cfg.get("external_cond_type"):
+                    raise NotImplementedError(
+                        "external conditioning of the plain U-ViT is not ported yet "
+                        "(ROADMAP.md queue A3)")
+                return UViT3D(spec, c, h, use_fourier_noise_emb=fourier, token_io=token_io)
+        raise NotImplementedError(f"backbone {name!r} is not available")
+
+    def _autocast(self, fn: Optional[Callable]) -> Optional[Callable]:
+        """``fn`` run under autocast to ``compute_dtype`` (as it is, in fp32)."""
+        if fn is None or self.compute_dtype == torch.float32:
+            return fn
+
+        def run(*args):
+            with torch.autocast(self.device.type, dtype=self.compute_dtype):
+                return fn(*args)
+
+        return run
+
+    def _sampling_cond_transform(self) -> Optional[Callable]:
+        """Map of the NFE-expanded conditions, once per window (the pose
+        algorithm's ray maps and pose FiLM terms); none here."""
+        return None
+
+    # ------------------------------------------------------------------
+    # conditions
+    # ------------------------------------------------------------------
+    def process_conditions(self, conditions):
+        """Host condition preprocessing: identity here."""
+        return conditions
+
+    # ------------------------------------------------------------------
+    # sampling (validation / generation)
+    # ------------------------------------------------------------------
+    def sample_videos(
+        self,
+        generator: Optional[torch.Generator],
+        xs: torch.Tensor,  # (B, T, h, w, c) normalized tokens
+        conditions=None,
+        tasks: Optional[Tuple[str, ...]] = None,
+        n_context_tokens: Optional[int] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Run the configured generation tasks: ``{"gt": xs, task: video}``,
+        fp32 on the device. The JAX call's ``(params, rng, ...)`` becomes
+        ``(generator, ...)``: the model holds its weights and every task
+        draws from ``generator`` in turn."""
+        if tasks is None:
+            tasks = tuple(t for t in ("prediction", "interpolation") if self.cfg.tasks[t].enabled)
+        nct = self.n_context_tokens if n_context_tokens is None else n_context_tokens
+        conds = self.process_conditions(conditions)
+        if conds is not None:
+            conds = torch.as_tensor(np.asarray(conds), device=self.device)
+        out: Dict[str, torch.Tensor] = {"gt": xs}
+        for task in tasks:
+            if task == "prediction":
+                out[task] = self.rollout.predict_videos(
+                    generator, xs, nct, conds,
+                    prediction_hg=self.prediction_hg, interpolation_hg=self.interpolation_hg,
+                )
+            elif task == "interpolation":
+                out[task] = self.rollout.interpolate_videos(
+                    generator, xs, None, conds, history_guidance=self.interpolation_hg)
+            else:
+                raise ValueError(f"unknown task {task}")
+        return out
+
+
+class DFoTVideoPoseAlgo(DFoTVideoAlgo):
+    """Camera-pose conditioned DFoT (``dfot_tpu/algorithms/dfot_video.py:512``)."""
+
+    def __init__(self, cfg, compute_dtype=torch.bfloat16, device=None):
+        if cfg.backbone.name not in ("dit3d_pose", "u_vit3d_pose"):
+            raise ValueError(
+                f"pose-conditioned DFoT requires a pose backbone, got {cfg.backbone.name}")
+        super().__init__(cfg, compute_dtype, device)
+
+    def process_conditions(self, conditions):
+        """Raw (B, T, 16) camera vectors -> the normalized vectors the
+        device expands (ray formats), or the (B, T, 12) global extrinsics;
+        fp32 numpy on the host."""
+        if conditions is None:
+            return None
+        cpc = self.cfg.camera_pose_conditioning
+        raw = np.asarray(conditions, dtype=np.float32)
+        if cpc.type == "global":
+            return process_camera_conditions(
+                raw, conditioning_type="global", normalize_by=cpc.normalize_by,
+                bound=cpc.get("bound"),
+            )
+        return normalize_camera_conditions(raw, normalize_by=cpc.normalize_by,
+                                           bound=cpc.get("bound"))
+
+    def _pose_resolution(self) -> int:
+        return self.cfg.x_shape[1] if not self.is_latent else self.x_shape[0]
+
+    def _sampling_cond_transform(self) -> Optional[Callable]:
+        cpc = self.cfg.camera_pose_conditioning
+        if cpc.type == "global":
+            return None
+        if isinstance(self.model, UViT3DPose):
+            return sampling_cond_transform(self.model, cpc.type)
+        ctype, res = cpc.type, self._pose_resolution()
+        return lambda cond: expand_pose_conditions(cond, ctype, res)
+
+
+def build_algorithm(cfg, compute_dtype=torch.bfloat16, device=None):
+    """The algorithm a composed config names, on ``device`` (None: the card)."""
+    name = cfg.algorithm.get("_name", "dfot_video")
+    # "sd_video*" are the standard-diffusion baselines: the same classes
+    # with full-sequence noise and fixed context
+    if name in ("dfot_video", "gibbs_dfot_video", "sd_video"):
+        return DFoTVideoAlgo(cfg.algorithm, compute_dtype, device)
+    if name in ("dfot_video_pose", "sd_video_3d"):
+        return DFoTVideoPoseAlgo(cfg.algorithm, compute_dtype, device)
+    if name == "difference_dfot_video":
+        raise NotImplementedError(
+            "the difference-DFoT algorithm is not ported yet (ROADMAP.md queue A14)")
+    raise NotImplementedError(f"algorithm {name!r} is not available")

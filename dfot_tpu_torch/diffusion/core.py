@@ -73,6 +73,33 @@ class DiffusionConfig:
     def is_ddim_sampling(self) -> bool:
         return self.sampling_timesteps < self.timesteps
 
+    @classmethod
+    def from_config(cls, cfg) -> "DiffusionConfig":
+        """From the ``algorithm.diffusion`` config node."""
+        lw = cfg.loss_weighting
+        ts = cfg.get("training_schedule")
+        return cls(
+            timesteps=cfg.timesteps,
+            sampling_timesteps=cfg.sampling_timesteps,
+            objective=cfg.objective,
+            beta_schedule=cfg.beta_schedule,
+            schedule_fn_kwargs=tuple(sorted(cfg.schedule_fn_kwargs.to_dict().items())),
+            loss_weighting_strategy=lw.strategy,
+            snr_clip=lw.get("snr_clip", 5.0),
+            cum_snr_decay=lw.get("cum_snr_decay", 0.9),
+            sigmoid_bias=lw.get("sigmoid_bias", -1.0),
+            ddim_sampling_eta=cfg.ddim_sampling_eta,
+            clip_noise=cfg.clip_noise,
+            use_causal_mask=cfg.use_causal_mask,
+            is_continuous=cfg.get("is_continuous", False),
+            precond_scale=cfg.get("precond_scale", 1.0),
+            training_schedule_name=(ts.name if ts is not None else "cosine"),
+            training_schedule_shift=(ts.get("shift", 1.0) if ts is not None else 1.0),
+            logsnr_min=(ts.get("logsnr_min", -15.0) if ts is not None else -15.0),
+            logsnr_max=(ts.get("logsnr_max", 15.0) if ts is not None else 15.0),
+            reconstruction_guidance=cfg.get("reconstruction_guidance", 0.0),
+        )
+
 
 class Schedule(NamedTuple):
     """fp32 schedule buffers, each (timesteps,), on one device."""

@@ -199,6 +199,31 @@ class DiTSpec:
     # difference-DiT double RoPE (not ported)
     double_rope_merge: Optional[str] = None
 
+    @classmethod
+    def from_config(cls, bcfg, max_tokens: int, causal: bool) -> "DiTSpec":
+        """From the ``algorithm.backbone`` config node, field for field as
+        ``dfot_tpu/algorithms/dfot_video.py:_build_backbone`` reads it (the
+        matrix variants' own fields wait for models/matrix.py)."""
+        return cls(
+            # matrix variants may leave hidden_size null; the effective width
+            # is embed_row_dim
+            hidden_size=bcfg.get("hidden_size") or bcfg.get("embed_row_dim"),
+            depth=bcfg.depth,
+            num_heads=bcfg.get("num_heads"),
+            mlp_ratio=bcfg.mlp_ratio,
+            spatial_mlp_ratio=bcfg.get("spatial_mlp_ratio"),
+            variant=bcfg.variant,
+            pos_emb_type=bcfg.pos_emb_type,
+            patch_size=bcfg.patch_size,
+            max_temporal_length=max_tokens,
+            use_gradient_checkpointing=bcfg.get("use_gradient_checkpointing", False),
+            remat_policy=bcfg.get("remat_policy"),
+            causal=causal,
+            double_rope_merge=(
+                bcfg.get("merge_type", "concat") if bcfg.name == "difference_dit3d" else None
+            ),
+        )
+
     @property
     def is_matrix(self) -> bool:
         return self.variant in ("full_matrix_attention", "factorized_matrix_attention")

@@ -342,6 +342,25 @@ class UViTSpec:
     max_temporal_length: int = 8
     remat_policy: Optional[str] = None
 
+    @classmethod
+    def from_config(cls, cfg, max_tokens: int) -> "UViTSpec":
+        """From the ``algorithm.backbone`` config node (the JAX package's
+        ``UViTSpec.from_config``)."""
+        return cls(
+            channels=tuple(cfg.channels),
+            emb_channels=cfg.emb_channels,
+            patch_size=cfg.patch_size,
+            block_types=tuple(cfg.block_types),
+            block_dropouts=tuple(cfg.block_dropouts),
+            num_updown_blocks=tuple(cfg.num_updown_blocks),
+            num_mid_blocks=cfg.num_mid_blocks,
+            num_heads=cfg.num_heads,
+            pos_emb_type=cfg.pos_emb_type,
+            use_checkpointing=tuple(cfg.use_checkpointing),
+            max_temporal_length=max_tokens,
+            remat_policy=cfg.get("remat_policy"),
+        )
+
 
 class UViT3D(nn.Module):
     """Residual U-ViT video denoiser; x (B, T, H, W, C) or, with

@@ -40,6 +40,25 @@ class NoiseLevelConfig:
     variable_context_prob: float = 0.25
     variable_context_dropout: float = 0.3
 
+    @classmethod
+    def from_config(cls, algo_cfg, timesteps: int, n_context_tokens: int) -> "NoiseLevelConfig":
+        """From the ``algorithm`` config node."""
+        fc, vc = algo_cfg.fixed_context, algo_cfg.variable_context
+        idx = fc.get("indices")
+        return cls(
+            noise_level=algo_cfg.noise_level,
+            timesteps=timesteps,
+            is_continuous=algo_cfg.diffusion.get("is_continuous", False),
+            n_context_tokens=n_context_tokens,
+            uniform_future=algo_cfg.uniform_future.enabled,
+            fixed_context=fc.enabled,
+            fixed_context_indices=tuple(idx) if idx else None,
+            fixed_context_dropout=fc.get("dropout", 0.0),
+            variable_context=vc.enabled,
+            variable_context_prob=vc.get("prob", 0.25),
+            variable_context_dropout=vc.get("dropout", 0.3),
+        )
+
 
 def training_noise_levels(
     generator: Optional[torch.Generator],

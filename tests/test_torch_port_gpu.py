@@ -24,7 +24,9 @@ zeros.
 """
 
 import math
+import zlib
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -795,3 +797,64 @@ def test_small_rollout_kernel_route(cuda):
     assert got.shape == (1, n, R, R, 3) and got.dtype == torch.float32
     assert torch.isfinite(got).all() and torch.equal(got[:, 0], xs[:, 0])
     assert _rel_l2(got, want) <= 2e-2
+
+
+# the README's RE10K validation at a small size (a U-ViT of two narrow levels
+# with heads of 64, 16 px, 3 DDIM steps), as tests/test_torch_port_cli.py runs it
+SMALL_CLI = [
+    "+name=tiny", "dataset=realestate10k_mini", "algorithm=dfot_video_pose",
+    "experiment=video_generation", "@diffusion/continuous", "experiment.tasks=[validation]",
+    "++algorithm.tasks.prediction.history_guidance.name=vanilla",
+    "++algorithm.tasks.prediction.history_guidance.guidance_scale=4.0",
+    "dataset.resolution=16", "++algorithm.backbone.channels=[32,64]",
+    "++algorithm.backbone.block_types=[ResBlock,TransformerBlock]",
+    "++algorithm.backbone.block_dropouts=[0.0,0.0]", "++algorithm.backbone.num_updown_blocks=[1]",
+    "++algorithm.backbone.num_mid_blocks=1", "++algorithm.backbone.num_heads=1",
+    "++algorithm.backbone.emb_channels=32", "++algorithm.backbone.use_checkpointing=[false,false]",
+    "algorithm.diffusion.sampling_timesteps=3", "experiment.validation.batch_size=2",
+    "experiment.validation.limit_batch=1", "++algorithm.logging.metrics=[mse,ssim,psnr]",
+    "++algorithm.logging.max_num_videos=0",
+]
+
+
+def _pinned_noise(shape, clip, generator=None, device=None, dtype=torch.float32):
+    """The same N(0, 1) draws for a shape on any device (the card's and the
+    CPU's generators give different streams)."""
+    seed = zlib.crc32(repr(tuple(int(s) for s in shape)).encode())
+    x = np.random.default_rng(seed).standard_normal(tuple(shape)).astype(np.float32)
+    return torch.as_tensor(x, dtype=dtype, device=device).clamp_(-clip, clip)
+
+
+@pytest.mark.gpu
+def test_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """``python -m dfot_tpu_torch`` (``run(argv)``, the card by default)
+    against the same run with ``device="cpu"`` (the plain routes): the same
+    checkpoint, bf16 compute on both, noise pinned. Generated frames within
+    the route tolerance of chip_smoke.py (2e-2 relative L2), context frames
+    exact, B1-B3 launched once per transformer block and forward."""
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.algorithms.dfot_video import build_algorithm
+    from dfot_tpu_torch.config import load_config
+    from dfot_tpu_torch.diffusion import core as DC
+    from dfot_tpu_torch.utils.weights import init_random_weights
+
+    algo = build_algorithm(load_config(SMALL_CLI), torch.float32, device="cpu")
+    init_random_weights(algo.model, torch.Generator().manual_seed(0))
+    ckpt = str(tmp_path / "fixture.ckpt")
+    torch.save({"state_dict": {"diffusion_model.model." + k: v
+                               for k, v in algo.model.state_dict().items()}}, ckpt)
+    monkeypatch.setattr(DC, "clipped_normal", _pinned_noise)
+    argv = SMALL_CLI + [f"load={ckpt}"]
+    ops.reset_launch_counts()
+    card = run(argv + [f"output_dir={tmp_path / 'card'}"])
+    launches = ops.launch_counts()
+    host = run(argv + [f"output_dir={tmp_path / 'cpu'}"], device="cpu")
+    assert card.algo.device.type == "cuda"
+    got, want = card.last_videos["prediction"].cpu(), host.last_videos["prediction"]
+    assert torch.equal(got[:, :4], want[:, :4])
+    err = (got[:, 4:] - want[:, 4:]).norm() / want[:, 4:].norm()
+    assert err <= 2e-2, float(err)
+    forwards = 3  # steps; one transformer block
+    for name in ("flash_fwd", "qkv_prep", "attn_out_collect"):
+        assert launches[name] == forwards, (name, launches)
+    assert all(math.isfinite(v) for v in card.last_metrics.values()) and card.last_metrics

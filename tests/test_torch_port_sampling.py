@@ -352,7 +352,9 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "want = {'models.remat', 'training.trainer', 'training.state', 'training.optim',\n"
-        "        'training.noise_levels', 'algorithms.dfot_video', 'ops.attention'}\n"
+        "        'training.noise_levels', 'algorithms.dfot_video', 'ops.attention',\n"
+        "        'config', 'utils.yaml_reader', 'utils.torch_ckpt', 'experiments.video_generation',\n"
+        "        '__main__'}\n"
         "missing = {'dfot_tpu_torch.' + w for w in want} - set(names)\n"
         "assert not missing, missing\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'dfot_tpu', 'triton') if m in sys.modules]\n"
