@@ -105,7 +105,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ground truth's, and finite mse, ssim and psnr in ``metrics.jsonl``; it
     prints the phase's wall split (compose, checkpoint write, checkpoint
     load, model build, sampling, metrics, the metrics logger) and its peak
-    memory.
+    memory;
+18. trains the flagship through the same entry point at full width and
+    depth and the composed batch of 8 (``experiment.tasks=[training]``,
+    checkpoints and runs under ``build/train_loop``, removed after): a run
+    warm-started from a seeded random ``.ckpt`` takes 6 steps (checkpoints
+    every 2 kept to 2, mid-run validation every 3 on one batch of 2, step 5
+    profiled), a second run resumes it by name (``load=`` its ``+name``) to
+    step 8, a third validates the second's checkpoints (``val_all_ckpt``,
+    batch 2, one batch); each run's launch counts reset before and required
+    after (the steps, the mid-run forwards and the sampled windows), the
+    kept directories the newest two, every restore and the newest
+    checkpoint of each run bit for bit against the state it holds, the
+    learning rates those of an unbroken run, finite losses, gradient norms
+    and validation losses in ``metrics.jsonl``, the swept weights the
+    checkpoint's EMA; it prints the step walls, peak memory, each
+    checkpoint's snapshot and background write seconds, the restore, the
+    mid-run validation and the profiled step's device time by class. Step 2
+    also holds B1-B7 at the flagship's two sites at this batch, the plain
+    attention one batch entry at a time.
 
 Steps 3, 4, 7, 10, 11, 14, 15 and 16 also run controls (an attention that ignores q and
 k; a backward whose dq is zero; a LayerNorm + modulate that skips the
@@ -117,8 +135,7 @@ softmax that counts the keys that pad N = 5 or 8 to a 16-key tile); all fail
 unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut: the
-whole takes about six minutes.
+``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut.
 """
 
 from __future__ import annotations
@@ -128,6 +145,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -153,7 +171,7 @@ FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
 # the paths that are driven between a reset and a read of the launch counts
 PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
-         "base_train", "base_axial", "interp2", "rollout", "cli")
+         "base_train", "base_axial", "interp2", "rollout", "cli", "train_loop")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -163,6 +181,12 @@ WINDOW_BATCH, TRAIN_BATCH = 2, 1
 # the denoiser on each twice (NFE 2), as the window does on its one video
 CLI_BATCH = 2
 CLI_DENOISER_BATCH = WINDOW_BATCH * CLI_BATCH
+# the training loop trains at the composed recipe's batch (realestate10k_mini
+# sets experiment.training.batch_size: 8); the plain attention's B x H x N x N
+# fp32 scores run one batch entry at a time above PLAIN_MAX_BATCH (at B = 8,
+# level 2, one such tensor is 19 GB)
+TRAIN_LOOP_BATCH = 8
+PLAIN_MAX_BATCH = 4
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12   # tensor cores, bf16
 PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
@@ -525,6 +549,25 @@ def attention_ops(B: int, H: int, N: int, D: int, causal: bool = False) -> int:
     return 4 * B * H * pairs * D
 
 
+def per_entry(fn):
+    """``fn`` (a plain attention formula or a control) on one batch entry at
+    a time where the batch passes ``PLAIN_MAX_BATCH``, the results
+    concatenated; every tensor argument of more than two dims is batch first."""
+    import torch
+
+    def run(*args, **kw):
+        B = args[0].shape[0]
+        if B <= PLAIN_MAX_BATCH:
+            return fn(*args, **kw)
+        outs = [fn(*(a[i:i + 1] if isinstance(a, torch.Tensor) and a.dim() > 2 else a
+                     for a in args), **kw) for i in range(B)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+
+    return run
+
+
 def dkv_without_delta(q, k, v, do, lse, delta, causal, scale):
     """Control for B5: dk from dS = P dP, without the delta term."""
     import torch
@@ -655,13 +698,15 @@ def check_kernels(record: dict) -> dict:
                    (rand(B, H, N, D, scale=1.7), rand(B, H, N, D, scale=1.7), rand(B, H, N, D)))
         o, lse = A.flash_attention(q, k, v, causal, scale, return_lse=True, head_dim=D)
         torch.cuda.synchronize()
-        o_ref, lse_ref = A.attention_reference(q, k, v, causal, scale, return_lse=True)
+        o_ref, lse_ref = per_entry(A.attention_reference)(q, k, v, causal, scale,
+                                                          return_lse=True)
         err_l = max_err(lse, lse_ref)
         log(f"  flash_fwd lse     {site}: max_abs_err {err_l:.3e} (tol 1.000e-03)")
         require(err_l <= 1e-3, f"flash_fwd lse at {site}: error {err_l} above 1e-3")
         require(not bool(o[..., D:].any()), f"flash_fwd at {site}: pad lanes not zero")
         err, tol, extra = hold("flash_fwd", site, [("o", o, o_ref)], 1e-2, ATTN_REL_L2_TOL)
-        wide = attention_scaled_for_twice_the_width(*(t[..., :D] for t in (q, k, v)), causal)
+        wide = per_entry(attention_scaled_for_twice_the_width)(*(t[..., :D] for t in (q, k, v)),
+                                                               causal)
         extra["controls"] = rejected("flash_fwd", site, "the scale of a head twice as wide",
                                      [("o", F.pad(wide, (0, DP - D)), o_ref)], 1e-2,
                                      ATTN_REL_L2_TOL)
@@ -675,14 +720,15 @@ def check_kernels(record: dict) -> dict:
         scale = 1.0 / math.sqrt(D)
         dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, head_dim=D)
         torch.cuda.synchronize()
-        dk_ref, dv_ref = A._dkv_plain(q, k, v, do, lse, delta, causal, scale)
+        dk_ref, dv_ref = per_entry(A._dkv_plain)(q, k, v, do, lse, delta, causal, scale)
         require(not bool(dk[..., D:].any() or dv[..., D:].any()),
                 f"flash_bwd_dkv at {site}: pad lanes not zero")
         err, tol, extra = hold("flash_bwd_dkv", site, (("dk", dk, dk_ref), ("dv", dv, dv_ref)),
                                2e-2, ATTN_REL_L2_TOL)
         extra["controls"] = rejected(
             "flash_bwd_dkv", site, "dk without the delta term",
-            [("dk", dkv_without_delta(q, k, v, do, lse, delta, causal, scale), dk_ref)], 2e-2,
+            [("dk", per_entry(dkv_without_delta)(q, k, v, do, lse, delta, causal, scale), dk_ref)],
+            2e-2,
             ATTN_REL_L2_TOL)
         return err, tol, extra
 
@@ -693,12 +739,13 @@ def check_kernels(record: dict) -> dict:
         scale = 1.0 / math.sqrt(D)
         dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, head_dim=D)
         torch.cuda.synchronize()
-        dq_ref = A._dq_plain(q, k, v, do, lse, delta, causal, scale)
+        dq_ref = per_entry(A._dq_plain)(q, k, v, do, lse, delta, causal, scale)
         require(not bool(dq[..., D:].any()), f"flash_bwd_dq at {site}: pad lanes not zero")
         err, tol, extra = hold("flash_bwd_dq", site, [("dq", dq, dq_ref)], 2e-2, ATTN_REL_L2_TOL)
         extra["controls"] = rejected(
             "flash_bwd_dq", site, "dq without the delta term",
-            [("dq", dq_without_delta(q, k, v, do, lse, delta, causal, scale), dq_ref)], 2e-2,
+            [("dq", per_entry(dq_without_delta)(q, k, v, do, lse, delta, causal, scale), dq_ref)],
+            2e-2,
             ATTN_REL_L2_TOL)
         return err, tol, extra
 
@@ -838,7 +885,8 @@ def check_kernels(record: dict) -> dict:
         ops = attention_ops(B, H, N, D)
         fwd = lambda: A.flash_attention(q, k, v, sm_scale=scale, head_dim=D)  # noqa: E731
         note("flash_fwd", site, is_main("flash_fwd"), err, tol, fwd,
-             cuda_ms(lambda: A.attention_reference(q, k, v, sm_scale=scale), reps=3, warmup=1),
+             cuda_ms(lambda: per_entry(A.attention_reference)(q, k, v, sm_scale=scale), reps=3,
+                     warmup=1),
              bound(ops, nbytes(q, k, v, o, lse), PEAK_BF16_FLOPS),
              cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, scale=scale)),
              host_us=host_us(fwd), **extra)
@@ -864,14 +912,14 @@ def check_kernels(record: dict) -> dict:
             bwd_dq = lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
                                             head_dim=D)
             note("flash_bwd_dq", site, is_main("flash_bwd_dq"), err_dq, tol_dq, bwd_dq,
-                 cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, False, scale),
+                 cuda_ms(lambda: per_entry(A._dq_plain)(q, k, v, do, lse, delta, False, scale),
                          reps=3, warmup=1),
                  bound(3 * ops // 2, nbytes(q, k, v, do, lse, delta) + nbytes(q), PEAK_BF16_FLOPS),
                  sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dq), **extra_dq)
             bwd_dkv = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale=scale,  # noqa: E731
                                               head_dim=D)
             note("flash_bwd_dkv", site, is_main("flash_bwd_dkv"), err_dkv, tol_dkv, bwd_dkv,
-                 cuda_ms(lambda: A._dkv_plain(q, k, v, do, lse, delta, False, scale),
+                 cuda_ms(lambda: per_entry(A._dkv_plain)(q, k, v, do, lse, delta, False, scale),
                          reps=3, warmup=1),
                  bound(2 * ops, nbytes(q, k, v, do, lse, delta) + 2 * nbytes(k), PEAK_BF16_FLOPS),
                  sdpa_bwd, library_covers="dq, dk and dv", host_us=host_us(bwd_dkv), **extra_dkv)
@@ -914,6 +962,11 @@ def check_kernels(record: dict) -> dict:
         attention_site(f"cli level{level} B={CLI_DENOISER_BATCH} N={N} H={H} d={D}",
                        CLI_DENOISER_BATCH, N, H, D, D, (8, side, side), True, 7, (False, False),
                        backward=False)
+    # the training loop's batch: every attention kernel at both flagship sites
+    for level, N, H, D in SITES:
+        side = int(math.isqrt(N // 8))
+        attention_site(f"train_loop level{level} B={TRAIN_LOOP_BATCH} N={N} H={H} d={D}",
+                       TRAIN_LOOP_BATCH, N, H, D, D, (8, side, side), True, 7, (False, False))
     N, H, D, DP = XL_SITE
     attention_site(f"xl B={XL_BATCH} N={N} H={H} d={D}->{DP}", XL_BATCH, N, H, D, DP, (5, 16, 16),
                    False, 3, (False, False), in_path=True)
@@ -2454,6 +2507,290 @@ def run_cli_validation(record: dict, smi: str) -> dict:
     return launches
 
 
+TRAIN_LOOP_STEPS, RESUME_STEPS, VAL_EVERY = 6, 8, 3
+
+
+def _state_mismatch(got, want, where: str = "") -> list:
+    """Where two state dicts differ (tensors compared on the card, bit for
+    bit; everything else by value); empty where they are equal."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        if not isinstance(got, torch.Tensor):
+            return [where]
+        g = got.detach().to("cuda")
+        w = want.detach().to("cuda")
+        return [] if g.dtype == w.dtype and torch.equal(g, w) else [where]
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [where]
+        return [m for k in want for m in _state_mismatch(got[k], want[k], f"{where}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [where]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in _state_mismatch(g, w, f"{where}/{i}")]
+    return [] if got == want else [where]
+
+
+def _jsonl(run_dir: Path) -> list:
+    files = list(run_dir.rglob("metrics.jsonl"))
+    require(len(files) == 1, f"{len(files)} metrics.jsonl files under {run_dir}")
+    return [json.loads(line) for line in files[0].read_text().splitlines()]
+
+
+def run_cli_training(record: dict, smi: str) -> dict:
+    """Phase 18: the flagship's training through ``python -m
+    dfot_tpu_torch``'s ``run(argv)`` at the composed batch of 8: a run
+    warm-started from a seeded random upstream ``.ckpt`` (6 steps,
+    checkpoints every 2 kept to 2, mid-run validation every 3, a profiled
+    step), its resume by run name to step 8, and a validation sweep of the
+    resumed run's checkpoints. Returns the launch counts of the three runs."""
+    import importlib.util
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.algorithms import dfot_video as DV
+    from dfot_tpu_torch.sampling.sampler import plan_sampling
+    from dfot_tpu_torch.training import checkpoint as C
+    from dfot_tpu_torch.training.optim import Optimizer, make_lr_schedule
+    from dfot_tpu_torch.training.state import TrainState
+
+    fs = DV.flagship()
+    t_phase = time.perf_counter()
+    log("the flagship's training through python -m dfot_tpu_torch (full width, batch "
+        f"{TRAIN_LOOP_BATCH}):")
+    # the runs and their checkpoints (7.3 GB each) go under build/, not with the reports
+    root = ROOT / "build" / "train_loop"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = root / "runs"
+    pil = importlib.util.find_spec("PIL") is not None
+    t0 = time.perf_counter()
+    model = build_random_model(fs, seed=80, token_io=False)
+    ckpt = root / "warm_start.ckpt"
+    torch.save({"state_dict": {"diffusion_model.model." + k: v.detach().cpu()
+                               for k, v in model.state_dict().items()}}, ckpt)
+    del model
+    write_s = time.perf_counter() - t0
+    train_argv = [a if a != "experiment.tasks=[validation]" else "experiment.tasks=[training]"
+                  for a in README_RE10K if not a.startswith(("load=", "+name="))] + [
+        f"output_dir={out}", "experiment.training.checkpointing.every_n_train_steps=2",
+        "++experiment.training.checkpointing.save_top_k=2",
+        f"++experiment.validation.val_every_n_step={VAL_EVERY}",
+        "experiment.validation.limit_batch=1", f"experiment.validation.batch_size={CLI_BATCH}",
+        "++algorithm.logging.loss_freq=1", "algorithm.lr_scheduler.num_warmup_steps=2",
+        "experiment.training.data.num_workers=0",
+    ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
+    argv1 = train_argv + ["+name=re10k_train", f"load={ckpt}",
+                          f"experiment.training.max_steps={TRAIN_LOOP_STEPS}",
+                          f"++experiment.training.profile_dir={root / 'profile'}",
+                          "++experiment.training.profile_at_step=4"]
+    argv2 = train_argv + ["+name=re10k_resume", "load=re10k_train",
+                          f"experiment.training.max_steps={RESUME_STEPS}"]
+
+    # every optimizer step's learning rate and wall (the step, synchronized),
+    # and every restore held against the dict it was given (the comparison's
+    # seconds are taken off the restore's)
+    lrs, walls, restores = [], [], []
+    real_step, real_load = Optimizer.step, TrainState.load_state_dict
+    real_make = DV.DFoTVideoAlgo.make_train_step
+
+    def recording_step(self):
+        lrs.append(self.lr)
+        return real_step(self)
+
+    def checked_load(self, state):
+        real_load(self, state)
+        t = time.perf_counter()
+        restores.append((_state_mismatch(self.state_dict(), state), time.perf_counter() - t))
+
+    def timed_make(self, *args, **kw):
+        step = real_make(self, *args, **kw)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            result = step(*a, **k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return result
+
+        return timed
+
+    def drive(name: str, argv: list) -> dict:
+        """One run between a reset and a read of the launch counts; what the
+        checks need of it, then the run is let go (its weights and state
+        leave the card)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        exp = run(argv)
+        C.wait_for_checkpoints()
+        torch.cuda.synchronize()
+        r = {"wall_s": time.perf_counter() - t, "launches": ops.launch_counts(),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "saves": [dict(x) for x in exp.saves], "device": exp.algo.device.type,
+             "batch": exp.cfg.experiment.training.batch_size, "run_dir": exp.output_dir,
+             "ckpt_dir": exp.ckpt_dir, "timings": dict(exp.timings)}
+        if exp.state is not None:
+            r["step"] = exp.state.step
+            r["scheduler_steps"] = exp.state.optimizer.scheduler.last_epoch
+            # the state in memory against the newest checkpoint on disk
+            t = time.perf_counter()
+            saved = C.restore_checkpoint(C.latest_checkpoint(exp.ckpt_dir))
+            r["mismatch"] = _state_mismatch(exp.state.state_dict(), saved)
+            r["compare_s"] = time.perf_counter() - t
+            del saved
+        else:
+            # the validated weights against the last swept checkpoint's EMA
+            saved = C.restore_checkpoint(exp.load_path)
+            r["mismatch"] = _state_mismatch(exp.algo.model.state_dict(),
+                                            {**saved["params"], **saved["ema_params"]})
+            r["forwards_b1"] = exp.algo.rollout.stats["denoiser_evals_b1"]
+            del saved
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    runs = {}
+    try:
+        with patched(Optimizer, "step", recording_step), \
+                patched(TrainState, "load_state_dict", checked_load), \
+                patched(DV.DFoTVideoAlgo, "make_train_step", timed_make):
+            runs["train"] = drive("train", argv1)
+            ckpt.unlink()
+            runs["resume"] = drive("resume", argv2)
+        argv3 = [a for a in README_RE10K if not a.startswith(("load=", "+name="))] + [
+            "+name=re10k_sweep", f"output_dir={out}", f"load={runs['resume']['run_dir']}",
+            "experiment.validation.val_all_ckpt=true",
+            f"experiment.validation.batch_size={CLI_BATCH}", "experiment.validation.limit_batch=1",
+            "++algorithm.logging.metrics=[mse,ssim,psnr]",
+        ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
+        runs["sweep"] = drive("sweep", argv3)
+        train, resume, sweep = runs["train"], runs["resume"], runs["sweep"]
+        phase_s = time.perf_counter() - t_phase
+
+        # -- every run on the card, the training runs at the composed batch
+        for name, r in runs.items():
+            require(r["device"] == "cuda", f"the {name} run ran off the card")
+        require(train["batch"] == resume["batch"] == TRAIN_LOOP_BATCH,
+                f"the training runs composed batch {train['batch']}, not {TRAIN_LOOP_BATCH}")
+
+        # -- launches: the train steps, the mid-run validation forwards (one
+        # batch at each of steps 3 and 6) and the swept checkpoints' windows
+        mask = np.zeros((CLI_BATCH, fs.spec.max_temporal_length), np.int64)
+        mask[:, :4] = 1
+        d = fs.dcfg
+        plan = plan_sampling(mask, fs.history_guidance, "full_sequence", d.timesteps,
+                             d.sampling_timesteps, fs.spec.max_temporal_length)
+        window = int(plan.num_steps - plan.renoise.sum() - plan.noop.sum())
+        kept_sweep = sorted(os.listdir(resume["ckpt_dir"]))
+        require_launches("the training run", train["launches"], expected_uvit_launches(
+            fs, forwards=TRAIN_LOOP_STEPS // VAL_EVERY, train_steps=TRAIN_LOOP_STEPS))
+        require_launches("the resumed run", resume["launches"], expected_uvit_launches(
+            fs, train_steps=RESUME_STEPS - TRAIN_LOOP_STEPS))
+        require_launches("the checkpoint sweep", sweep["launches"], expected_uvit_launches(
+            fs, forwards=window * len(kept_sweep)))
+        require(sweep["forwards_b1"] == window * len(kept_sweep) * CLI_BATCH * plan.nfe,
+                f"the sweep sampled {sweep['forwards_b1']} denoiser rows")
+
+        # -- the checkpoints: the newest save_top_k kept, the state bit for bit
+        kept_train = sorted(os.listdir(train["ckpt_dir"]))
+        require(kept_train == ["checkpoint_4", "checkpoint_6"],
+                f"the training run kept {kept_train}")
+        require(kept_sweep == [f"checkpoint_{RESUME_STEPS}"], f"the resumed run kept {kept_sweep}")
+        require([x["step"] for x in train["saves"]] == [2, 4, 6]
+                and [x["step"] for x in resume["saves"]] == [RESUME_STEPS],
+                f"saves at {[x['step'] for x in train['saves'] + resume['saves']]}")
+        for name in ("train", "resume"):
+            require(not runs[name]["mismatch"], f"the {name} run's state differs from its newest "
+                    f"checkpoint at {runs[name]['mismatch'][:5]}")
+        require(len(restores) == 1 and not restores[0][0],
+                f"the resume restored a state that differs from the saved one: {restores}")
+        require(not sweep["mismatch"], f"the sweep validated other weights than the checkpoint's "
+                f"EMA: {sweep['mismatch'][:5]}")
+        require(train["step"] == TRAIN_LOOP_STEPS and resume["step"] == RESUME_STEPS
+                and resume["scheduler_steps"] == RESUME_STEPS,
+                f"steps {train['step']}, {resume['step']} ({resume['scheduler_steps']} scheduled)")
+        schedule = make_lr_schedule("constant_with_warmup", fs.train.lr, 2)
+        unbroken = [schedule(i) for i in range(RESUME_STEPS)]
+        require(lrs == unbroken, f"learning rates {lrs}, an unbroken run's {unbroken}")
+
+        # -- the logs: loss and grad_norm finite at every step, the mid-run
+        # validation loss at steps 3 and 6, the denoising panel, the sweep
+        lines = _jsonl(Path(train["run_dir"])) + _jsonl(Path(resume["run_dir"]))
+        steps = {x["step"]: x for x in lines if "loss" in x}
+        require(sorted(steps) == list(range(1, RESUME_STEPS + 1)) and all(
+            math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in steps.values()),
+            f"loss lines at steps {sorted(steps)}")
+        val = {x["step"]: x["validation/loss"] for x in lines if "validation/loss" in x}
+        require(sorted(val) == [3, 6] and all(math.isfinite(v) for v in val.values()),
+                f"validation/loss at {val}")
+        vis = Path(train["run_dir"]) / "videos" / f"denoising_vis_step{VAL_EVERY}.gif"
+        require(vis.exists() or not pil, f"{vis} is missing")
+        swept = {k: v for x in _jsonl(Path(sweep["run_dir"])) for k, v in x.items()
+                 if k.startswith("validation/step_")}
+        want = [f"validation/step_{c.split('_')[1]}/prediction/{m}" for c in kept_sweep
+                for m in ("mse", "psnr", "ssim")]
+        require(sorted(swept) == sorted(want) and all(math.isfinite(v) for v in swept.values()),
+                f"the sweep logged {swept}")
+
+        # -- the profiled step (step 5, after 4): device time by kernel class
+        kernels = json.loads((root / "profile" / "kernels.json").read_text())
+        by_class = {}
+        for k in kernels:
+            by_class[kernel_class(k["kernel"])] = by_class.get(kernel_class(k["kernel"]), 0) + k["ms"]
+        busy_ms = sum(by_class.values())
+        require(busy_ms > 0 and any((root / "profile").glob("*.pt.trace.json")),
+                "the profiled step left no trace with device time")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)  # checkpoints of 7.3 GB each
+
+    # walls: run 1's six steps, the resumed run's two; the median leaves out
+    # each run's first step (a warm-up) and the profiled fifth
+    step_walls = list(walls)
+    clean = [w for i, w in enumerate(step_walls) if i not in (0, 4, TRAIN_LOOP_STEPS)]
+    median = statistics.median(clean)
+    saves = train["saves"] + resume["saves"]
+    mid_val = train["timings"].get("mid_validation_s", 0.0) / len(val)
+    by_class = dict(sorted(by_class.items(), key=lambda kv: -kv[1]))
+    record["train_loop"] = {
+        "nvidia_smi": smi, "argv": {"train": argv1, "resume": argv2, "sweep": argv3},
+        "batch": TRAIN_LOOP_BATCH, "pil": pil, "phase_wall_s": phase_s,
+        "fixture_write_s": write_s, "step_walls_s": step_walls, "step_median_s": median,
+        "steps_per_s": 1 / median, "learning_rates": lrs,
+        "checkpoints": saves,
+        "restore_s": resume["timings"]["checkpoint_restore_s"] - restores[0][1],
+        "restore_compare_s": restores[0][1],
+        "mid_validation_s_each": mid_val, "validation_loss": val,
+        "profiled_step": {"device_busy_ms": busy_ms, "by_class_ms": by_class,
+                          "profiled_wall_s": walls[4], "top_kernels": kernels[:20]},
+        "sweep_metrics": swept, "sweep_checkpoints": kept_sweep,
+        **{name: {k: v for k, v in r.items() if k != "mismatch"} for name, r in runs.items()},
+    }
+    log(f"  {smi}; PIL {'present' if pil else 'absent'}")
+    log(f"  train: {train['wall_s']:.3f} s wall, {TRAIN_LOOP_STEPS} steps at batch "
+        f"{TRAIN_LOOP_BATCH}: median {median * 1e3:.1f} ms a step ({1 / median:.3f} steps/s; "
+        f"walls {', '.join(f'{w * 1e3:.1f}' for w in step_walls)} ms), peak "
+        f"{train['peak_memory_bytes'] / 2**30:.2f} GiB; resume {resume['wall_s']:.3f} s, sweep "
+        f"{sweep['wall_s']:.3f} s, phase {phase_s:.3f} s")
+    for x in saves:
+        log(f"  checkpoint_{x['step']}: {x['bytes'] / 1e9:.2f} GB, snapshot {x['snapshot_s']:.3f} s, "
+            f"background write {x['write_s']:.3f} s")
+    log(f"  restore {record['train_loop']['restore_s']:.3f} s; mid-run validation "
+        f"{mid_val:.3f} s each; validation/loss {val}; learning rates {lrs}")
+    log(f"  profiled step: {walls[4]:.3f} s wall, {busy_ms:.1f} ms device busy; "
+        + ", ".join(f"{c} {ms:.1f}" for c, ms in list(by_class.items())[:6]))
+    log("  sweep: " + ", ".join(f"{k} {v:.6g}" for k, v in swept.items()))
+    return {name: sum(r["launches"][name] for r in runs.values()) for name, _, _ in KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -2533,6 +2870,11 @@ def main() -> int:
 
         # the validation entry point
         by_path["cli"] = run_cli_validation(record, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the training entry point
+        by_path["train_loop"] = run_cli_training(record, smi)
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

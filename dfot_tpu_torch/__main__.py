@@ -9,11 +9,13 @@ The JAX package's ``main.py`` surface::
         ++algorithm.tasks.prediction.history_guidance.guidance_scale=4.0
 
 composes the repository's ``configurations/`` (``+name=`` is required), makes
-the run directory ``output_dir/<experiment>/<task>/<dataset>/<algorithm>/<stamp>``
-and runs each task of ``experiment.tasks`` on the card. Not ported, and so
+the run directory ``output_dir/<experiment>/<task>/<dataset>/<algorithm>/<stamp>``,
+resolves ``load=<run id or name>`` through the run registry
+(``output_dir/registry.jsonl``) to that run's newest checkpoint, registers
+this run there, prints its id and runs each task of ``experiment.tasks``
+(``training``, ``validation``, ``test``) on the card. Not ported, and so
 raising ``NotImplementedError`` with their ROADMAP.md queue item: cluster
-dispatch (``cluster=``) and multi-process launches (A16); ``load=`` by run
-name, which reads the run registry, and the registry itself (A10). The XLA
+dispatch (``cluster=``) and multi-process launches (A16). The XLA
 compilation cache of ``main.py`` has no counterpart here.
 """
 
@@ -43,6 +45,7 @@ def run(argv, device=None):
     (None: the card). Returns the experiment, closed."""
     from .config import load_config
     from .experiments import build_experiment
+    from .training.checkpoint import register_run, resolve_run_checkpoint
 
     if _multiprocess_launch():
         raise NotImplementedError(
@@ -66,11 +69,19 @@ def run(argv, device=None):
         str(choices.get("algorithm", "algo")),
         stamp,
     )
+    # load= is resolved before this run is registered: registered first,
+    # this checkpoint-less run would be the newest match for its own name
     load = cfg.get("load") or cfg.get("resume")
     if load and not os.path.exists(str(load)) and not str(load).startswith("pretrained:"):
-        raise NotImplementedError(
-            f"load={load} is neither a file nor pretrained:NAME; loading a run by name reads "
-            "the run registry, which comes with the training loop (ROADMAP.md queue A10)")
+        resolved = resolve_run_checkpoint(str(load), str(cfg.output_dir))
+        if resolved is None:
+            raise FileNotFoundError(
+                f"load={load}: no such file or directory, and no run of that id or name with a "
+                f"checkpoint in {os.path.join(str(cfg.output_dir), 'registry.jsonl')}")
+        print(f"resolved load={load} -> {resolved}")
+        load = resolved
+    run_id = register_run(str(cfg.output_dir), str(cfg.name), output_dir)
+    print(f"run id: {run_id} (load={run_id} resumes this run's checkpoints)")
 
     experiment = build_experiment(cfg, output_dir, load, device)
     experiment.timings["compose_s"] = compose_s

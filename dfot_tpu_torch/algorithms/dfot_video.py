@@ -60,6 +60,7 @@ from ..sampling import DFoTRollout, RolloutConfig
 from ..training.noise_levels import NoiseLevelConfig
 from ..training.optim import make_optimizer
 from ..training.state import TrainState, create_train_state
+from ..training.trainer import denoising_loss
 from ..training.trainer import make_train_step as _make_train_step
 from ..utils.geometry import (
     conditioning_dim,
@@ -317,21 +318,32 @@ def make_train_apply(fs: Recipe) -> Callable:
     return apply
 
 
-def make_train_state(fs: Recipe, model: Optional[torch.nn.Module] = None, device=None,
-                     use_ema: bool = True) -> TrainState:
+def _new_train_state(model: torch.nn.Module, lr: float, weight_decay: float, betas,
+                     grad_clip: float, lr_scheduler: str, num_warmup_steps: int,
+                     num_training_steps: Optional[int], accumulate_steps: int) -> TrainState:
+    """AdamW with warm-up and global-norm clipping over the model's fp32
+    master weights, and the EMA shadow: the train state of a recipe and of
+    a composed config alike."""
+    opt = make_optimizer(
+        model.parameters(), lr=lr, weight_decay=weight_decay, betas=betas,
+        grad_clip=grad_clip, lr_schedule_name=lr_scheduler,
+        num_warmup_steps=num_warmup_steps, num_training_steps=num_training_steps,
+        accumulate_steps=accumulate_steps,
+    )
+    return create_train_state(model, opt, use_ema=True)
+
+
+def make_train_state(fs: Recipe, model: Optional[torch.nn.Module] = None, device=None
+                     ) -> TrainState:
     """Train state of the recipe: the model (built on ``device`` if not
     given; None is the card) with fp32 master weights, AdamW with warm-up and
     global-norm clipping, and the EMA shadow."""
     if model is None:
         model = build_model(fs, token_io=False, device=device)
     r = fs.train
-    opt = make_optimizer(
-        model.parameters(), lr=r.lr, weight_decay=r.weight_decay, betas=r.optimizer_beta,
-        grad_clip=r.grad_clip, lr_schedule_name=r.lr_scheduler,
-        num_warmup_steps=r.num_warmup_steps, num_training_steps=r.num_training_steps,
-        accumulate_steps=r.accumulate_steps,
-    )
-    return create_train_state(model, opt, use_ema=use_ema)
+    return _new_train_state(model, r.lr, r.weight_decay, r.optimizer_beta, r.grad_clip,
+                            r.lr_scheduler, r.num_warmup_steps, r.num_training_steps,
+                            r.accumulate_steps)
 
 
 def make_train_step(fs: Recipe, device=None) -> Callable:
@@ -553,6 +565,71 @@ class DFoTVideoAlgo:
         return conditions
 
     # ------------------------------------------------------------------
+    # training (``dfot_tpu/algorithms/dfot_video.py:364-445``)
+    # ------------------------------------------------------------------
+    def _cond_transform(self) -> Optional[Callable]:
+        """Expansion of a batch's (B, T, .) conditions inside the train step
+        and the eval denoiser (the pose algorithm's ray maps); none here."""
+        return None
+
+    def _train_apply(self, model, x, noise_levels, cond, cond_mask):
+        """The denoiser on the pixel layout (B, T, H, W, C) the loss is taken
+        on: conditions expanded, the U-ViT's token layout around the model
+        (a pure permutation: the same numbers as a pixel-layout model), the
+        model under autocast to ``compute_dtype``; fp32 out."""
+        ct = self._cond_transform()
+        if cond is not None and ct is not None:
+            cond = ct(cond)
+        if self._state_codec is not None:
+            x = self._state_codec[0](x)
+        if self.compute_dtype == torch.float32:
+            out = model(x, noise_levels, cond, cond_mask)
+        else:
+            with torch.autocast(x.device.type, dtype=self.compute_dtype):
+                out = model(x, noise_levels, cond, cond_mask)
+        if self._state_codec is not None:
+            out = self._state_codec[1](out)
+        return out.float()
+
+    def make_train_state(self, accumulate_steps: int = 1,
+                         num_training_steps: Optional[int] = None,
+                         grad_clip: float = 1.0) -> TrainState:
+        """Train state over the algorithm's model (its weights as they are),
+        the optimizer the ``algorithm`` node configures."""
+        c = self.cfg
+        return _new_train_state(
+            self.model, c.lr, c.weight_decay, tuple(c.optimizer_beta), grad_clip,
+            c.lr_scheduler.name, c.lr_scheduler.num_warmup_steps,
+            c.lr_scheduler.get("num_training_steps", num_training_steps), accumulate_steps)
+
+    def make_train_step(self, ema_decay: float = 0.9999, accumulate_steps: int = 1) -> Callable:
+        """``train_step(state, batch, generator) -> (state, metrics)``, batch
+        {"xs": normalized (B, T, H, W, C), "masks", "conditions"} on the device."""
+        return _make_train_step(self._train_apply, self.dcfg, self.sched, self.nl_cfg,
+                                ema_decay, accumulate_steps=accumulate_steps)
+
+    def make_eval_denoise(self) -> Callable:
+        """``eval_denoise(batch, generator) -> (masked mean loss, x0
+        reconstruction)`` on the model's current weights (the caller swaps
+        the EMA in): noise levels without context dropout, no dropout, no
+        gradients. The draws can be injected (``noise_levels``, ``noise``)."""
+
+        @torch.no_grad()
+        def eval_denoise(batch: Dict, generator: Optional[torch.Generator], *,
+                         noise_levels=None, noise=None):
+            self.model.eval()
+            return denoising_loss(
+                self._train_apply, self.dcfg, self.sched, self.nl_cfg, self.model, batch["xs"],
+                batch.get("conditions"), batch["masks"], generator, False, noise_levels, noise)
+
+        return eval_denoise
+
+    def make_eval_loss(self) -> Callable:
+        """The eval denoiser's loss alone."""
+        eval_denoise = self.make_eval_denoise()
+        return lambda batch, generator, **draws: eval_denoise(batch, generator, **draws)[0]
+
+    # ------------------------------------------------------------------
     # sampling (validation / generation)
     # ------------------------------------------------------------------
     def sample_videos(
@@ -570,6 +647,7 @@ class DFoTVideoAlgo:
         if tasks is None:
             tasks = tuple(t for t in ("prediction", "interpolation") if self.cfg.tasks[t].enabled)
         nct = self.n_context_tokens if n_context_tokens is None else n_context_tokens
+        self.model.eval()
         conds = self.process_conditions(conditions)
         if conds is not None:
             conds = torch.as_tensor(np.asarray(conds), device=self.device)
@@ -615,6 +693,15 @@ class DFoTVideoPoseAlgo(DFoTVideoAlgo):
 
     def _pose_resolution(self) -> int:
         return self.cfg.x_shape[1] if not self.is_latent else self.x_shape[0]
+
+    def _cond_transform(self) -> Optional[Callable]:
+        """Normalized (B, T, 16) pose vectors -> ray maps in the compute
+        dtype, on the device (the global conditioning goes as it is)."""
+        cpc = self.cfg.camera_pose_conditioning
+        if cpc.type == "global":
+            return None
+        ctype, res, dtype = cpc.type, self._pose_resolution(), self.compute_dtype
+        return lambda cond: expand_pose_conditions(cond, ctype, res).to(dtype)
 
     def _sampling_cond_transform(self) -> Optional[Callable]:
         cpc = self.cfg.camera_pose_conditioning

@@ -1,29 +1,49 @@
-"""Video-generation experiment: the validation loop.
+"""Video-generation experiment: the training loop and the validation loop.
 
 Port of ``dfot_tpu/experiments/video_generation.py:VideoGenerationExperiment``
-(:37), its validation side: batches from the dataset through the
-algorithm's ``sample_videos``, unnormalized, scored by ``VideoMetric`` per
-task and logged to ``metrics.jsonl`` (with sampled GIFs up to
-``algorithm.logging.max_num_videos``), with the weights of an upstream
-``.ckpt``/``.pt``/``.pth``/``.safetensors`` file (``load=``, or
-``pretrained:NAME`` for ``data/ckpts/NAME``). Without ``load=`` the weights
-are the algorithm's seeded fresh init, whose numbers differ from the JAX
-package's fresh init.
+(:37) on ``device`` (None: the card).
+
+Training (:120-402): batches of the training set (re-loaded each epoch when
+the dataset sets ``subdataset_size``), normalized on the device, through the
+algorithm's train step (AdamW, warm-up, clipping, EMA; bf16 autocast over
+fp32 master weights), warm-started from an upstream ``.ckpt`` (fresh
+optimizer, EMA = weights) or resumed from a ``checkpoint_<step>`` directory
+(``load=``, else this run's newest). The loss, gradient norm and steps/s go
+to ``metrics.jsonl`` every ``algorithm.logging.loss_freq`` steps, the only
+points where the loop waits for the device. Checkpoints every
+``every_n_train_steps`` and ``every_n_epochs``, written in the background,
+pruned to ``save_top_k``, and a last one at the end (a wait and a prune
+where the last periodic save was of the final step). Mid-run validation:
+the EMA weights' denoising loss over ``limit_batch`` batches, the
+``denoising_vis_step<N>.gif`` panel, and with ``validate_sample`` a sampled
+batch scored. A ``torch.profiler`` trace of step
+``experiment.training.profile_at_step`` goes to
+``experiment.training.profile_dir``.
+
+Validation (:405-440): batches through the algorithm's ``sample_videos``,
+unnormalized, scored by ``VideoMetric`` per task and logged (with sampled
+GIFs up to ``algorithm.logging.max_num_videos``), with the EMA weights of
+``load=`` (an upstream ``.ckpt``/``.pt``/``.pth``/``.safetensors`` file,
+``pretrained:NAME`` for ``data/ckpts/NAME``, or a ``checkpoint_<step>``
+directory), else of this run's newest checkpoint, else of the train state,
+else the algorithm's seeded fresh init, whose numbers differ from the JAX
+package's. ``val_all_ckpt`` sweeps every ``checkpoint_<step>`` directory.
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-queue item: ``training`` and the port-native ``checkpoint_<step>``
-directories (``val_all_ckpt`` too) are A10; latent experiments (the VAEs)
-are A13; ``algorithm.save_attn_map.enabled`` and a validation mesh
-(``mesh.tensor > 1``, ``mesh.sequence_parallel``) are A16.
+queue item: latent experiments (the VAEs) are A13;
+``algorithm.save_attn_map.enabled``, a training or validation mesh
+(``mesh.tensor > 1``, ``mesh.sequence_parallel``) and per-process data
+shards are A16.
 
 ``timings`` holds host-clock seconds of the experiment's phases (model
-build, checkpoint load, sampling, metrics and video logging, and the
-metrics logger's set-up and ``close``), each ending where its results are
-on the host.
+build, checkpoint load and restore, sampling, metrics and video logging,
+mid-run validation, and the metrics logger's set-up and ``close``), each
+ending where its results are on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, Optional
@@ -32,10 +52,18 @@ import numpy as np
 import torch
 
 from ..algorithms.dfot_video import build_algorithm
-from ..data.loader import DataLoader
+from ..data.loader import DataLoader, make_loader
 from ..data.video_dataset import build_dataset
 from ..metrics.video_metric import VideoMetric
+from ..training.checkpoint import (
+    latest_checkpoint,
+    prune_checkpoints,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
 from ..utils.logging import MetricsLogger, log_video
+from ..utils.profiling import trace
 from ..utils.torch_ckpt import load_state_dict, strip_checkpoint
 
 __all__ = ["VideoGenerationExperiment"]
@@ -43,13 +71,30 @@ __all__ = ["VideoGenerationExperiment"]
 TORCH_CKPT_SUFFIXES = (".ckpt", ".pt", ".pth", ".safetensors")
 
 
+def _is_torch_file(path: str) -> bool:
+    return path.startswith("pretrained:") or path.endswith(TORCH_CKPT_SUFFIXES)
+
+
+def _context_mask(task: str, B: int, T: int, nct: int) -> np.ndarray:
+    """The frames a task is given: prediction the first ``nct``,
+    interpolation both ends."""
+    ctx = np.zeros((B, T), dtype=bool)
+    if task.startswith("interpolation"):
+        ctx[:, [0, -1]] = True
+    else:
+        ctx[:, :nct] = True
+    return ctx
+
+
 class VideoGenerationExperiment:
-    """Validation of DFoT video models on ``device`` (None: the card)."""
+    """Training and validation of DFoT video models on ``device`` (None: the
+    card)."""
 
     def __init__(self, cfg, output_dir: Optional[str] = None, load: Optional[str] = None,
                  device=None):
         self.cfg = cfg
         self.output_dir = output_dir or str(cfg.get("output_dir", "outputs"))
+        self.ckpt_dir = os.path.join(self.output_dir, "checkpoints")
         self.load_path = load
         self.timings: Dict[str, float] = {}
         if cfg.algorithm.latent.enabled:
@@ -72,7 +117,9 @@ class VideoGenerationExperiment:
             name=str(cfg.get("name", "")),
         )
         self._add_time("logger_s", t0)
-        self._weights_loaded = False
+        self.state = None  # the train state, once trained
+        self.saves = []  # each checkpoint's record (training/checkpoint.py)
+        self._weights_from = None  # what the model's weights were last loaded from
         self.last_metrics: Dict[str, float] = {}
         self.last_videos: Dict[str, torch.Tensor] = {}
 
@@ -80,34 +127,279 @@ class VideoGenerationExperiment:
         if self.algo.device.type == "cuda":
             torch.cuda.synchronize(self.algo.device)
 
+    def _add_time(self, key: str, t0: float) -> None:
+        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
+
     # ------------------------------------------------------------------
     def exec_task(self, task: str) -> None:
         if task == "training":
-            raise NotImplementedError(
-                "the training loop is not ported yet (ROADMAP.md queue A10)")
-        if task in ("validation", "test"):
+            self.training()
+        elif task in ("validation", "test"):
             self.validation(namespace=task)
         else:
             raise ValueError(f"unknown task {task}")
 
     # ------------------------------------------------------------------
-    def _tokenize_batch(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        """A batch's videos as normalized tokens on the device (the latent
-        path is A13)."""
-        return self.algo.normalize(torch.as_tensor(batch["videos"], device=self.algo.device))
+    # batch -> model tokens
+    # ------------------------------------------------------------------
+    def _to_device(self, a) -> torch.Tensor:
+        """A host array on the algorithm's device; to the card through pinned
+        memory, queued without waiting for the device."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.algo.device.type == "cuda":
+            return t.pin_memory().to(self.algo.device, non_blocking=True)
+        return t.to(self.algo.device)
 
+    def _tokenize_batch(self, batch: Dict[str, np.ndarray]) -> Dict:
+        """``{"xs": normalized tokens, "masks": (B, T) frames present,
+        "conditions": raw host conditions, "gt_videos"}``; xs and masks on
+        the device (``dfot_tpu/experiments/video_generation.py:71``; the
+        latent path is A13)."""
+        algo = self.algo
+        xs = algo.normalize(self._to_device(batch["videos"]))
+        masks = self._to_device(batch["nonterminal"])
+        conds = batch.get("conds")
+        # frame -> token conversion under temporal compression: token i maps
+        # to frames ((i-1)*f, i*f]
+        f = algo.temporal_downsampling
+        if f > 1:
+            if masks.shape[1] != xs.shape[1]:
+                masks = masks[:, ::f]
+            if conds is not None and np.ndim(conds) > 1 and conds.shape[1] != xs.shape[1]:
+                conds = conds[:, ::f]
+        out = {"xs": xs, "masks": masks}
+        if conds is not None:
+            out["conditions"] = conds
+        if "videos" in batch:
+            out["gt_videos"] = batch["videos"]
+        return out
+
+    def _train_batch(self, batch: Dict[str, np.ndarray]) -> Dict:
+        """A batch as the train step and the eval denoiser take it: the
+        conditions through the algorithm's host processing, on the device."""
+        tokens = self._tokenize_batch(batch)
+        tokens.pop("gt_videos", None)
+        if "conditions" in tokens:
+            conds = self.algo.process_conditions(tokens["conditions"])
+            tokens["conditions"] = self._to_device(np.asarray(conds, np.float32))
+        return tokens
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def training(self) -> None:
+        cfg, algo = self.cfg, self.algo
+        tcfg = cfg.experiment.training
+        mesh_cfg = tcfg.get("mesh", {}) or {}
+        if int(mesh_cfg.get("tensor", 1) or 1) > 1 or mesh_cfg.get("sequence_parallel", False):
+            raise NotImplementedError(
+                "a training mesh (tensor or sequence parallel) is multi-GPU work, not ported "
+                "yet (ROADMAP.md queue A16)")
+        accumulate = tcfg.optim.get("accumulate_grad_batches", 1)
+        seed = tcfg.get("manual_seed", 0)
+        # sub-epoch resumable data: each epoch a slice of a seeded shuffle
+        use_subdataset = isinstance(cfg.dataset.get("subdataset_size"), int)
+
+        def make_train_loader(epoch: int):
+            dataset = build_dataset(cfg.dataset, "training",
+                                    current_epoch=epoch if use_subdataset else None)
+            return make_loader(dataset, tcfg.batch_size, shuffle=tcfg.data.get("shuffle", True),
+                               seed=seed, num_workers=tcfg.data.get("num_workers", 0) or 0)
+
+        loader = make_train_loader(0)
+        if len(loader) == 0:
+            raise ValueError(f"the training set holds no batch of {tcfg.batch_size}")
+
+        # warm start from torch weights (a fresh optimizer, the EMA a copy of
+        # the weights), or resume from a checkpoint directory
+        resume = self.load_path or latest_checkpoint(self.ckpt_dir)
+        if resume and _is_torch_file(str(resume)):
+            self._load_weights(str(resume))
+            resume = None
+        state = algo.make_train_state(
+            accumulate_steps=accumulate,
+            num_training_steps=tcfg.max_steps if tcfg.max_steps > 0 else None,
+            grad_clip=tcfg.optim.get("gradient_clip_val", 1.0) or 0.0,
+        )
+        if resume:
+            t0 = time.perf_counter()
+            state.load_state_dict(restore_checkpoint(str(resume)))
+            self._sync()
+            self.timings["checkpoint_restore_s"] = time.perf_counter() - t0
+        self._weights_from = None  # the model now holds the trained weights
+        train_step = algo.make_train_step(ema_decay=cfg.experiment.ema.get("decay", 0.9999),
+                                          accumulate_steps=accumulate)
+        # the random stream is not checkpointed: a resumed run draws anew
+        # from the seed, as the JAX package re-splits PRNGKey(manual_seed)
+        generator = torch.Generator(device=algo.device).manual_seed(seed)
+
+        max_steps = tcfg.max_steps if tcfg.max_steps > 0 else None
+        max_epochs = tcfg.max_epochs if tcfg.max_epochs is not None and tcfg.max_epochs > 0 \
+            else None
+        ckpt_every = tcfg.checkpointing.get("every_n_train_steps") or 0
+        ckpt_epochs = tcfg.checkpointing.get("every_n_epochs") or 0
+        save_top_k = tcfg.checkpointing.get("save_top_k", 3)
+        loss_freq = max(cfg.algorithm.logging.get("loss_freq", 100), 1)
+        profile_dir = tcfg.get("profile_dir")
+        profile_at = tcfg.get("profile_at_step", 10)
+        mid_validation = self._mid_validation(state, generator)
+        val_every, val_epoch_every = mid_validation.every_step, mid_validation.every_epoch
+
+        step = step0 = state.step
+        saved = None  # the step of the newest save
+        t_start = time.time()
+        epoch = 0
+        done = False
+        while not done:
+            for batch in loader:
+                tokens = self._train_batch(batch)
+                if profile_dir and step == profile_at:
+                    with trace(str(profile_dir)):
+                        state, metrics = train_step(state, tokens, generator)
+                        self._sync()
+                else:
+                    state, metrics = train_step(state, tokens, generator)
+                # the host counts steps: reading state on the device every
+                # step would make the loop wait for each one
+                step += 1
+                if step % loss_freq == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["steps_per_sec"] = (step - step0) / max(time.time() - t_start, 1e-9)
+                    self.logger.log(m, step)
+                if ckpt_every and step % ckpt_every == 0:
+                    self.saves.append(
+                        save_checkpoint(self.ckpt_dir, step, state, save_top_k, block=False))
+                    saved = step
+                if val_every and step % val_every == 0:
+                    mid_validation(step)
+                if max_steps is not None and step >= max_steps:
+                    done = True
+                    break
+            epoch += 1
+            if val_epoch_every and not done and epoch % val_epoch_every == 0:
+                mid_validation(step)
+            if ckpt_epochs and not done and epoch % ckpt_epochs == 0:
+                self.saves.append(
+                    save_checkpoint(self.ckpt_dir, step, state, save_top_k, block=False))
+                saved = step
+            if use_subdataset and not done:
+                loader = make_train_loader(epoch)
+            if max_epochs is not None and epoch >= max_epochs:
+                done = True
+        wait_for_checkpoints()
+        if saved == step:  # the state has not changed since: that save is the last
+            prune_checkpoints(self.ckpt_dir, save_top_k)
+        else:
+            self.saves.append(save_checkpoint(self.ckpt_dir, step, state, save_top_k))
+        self.state = state
+
+    def _mid_validation(self, state, generator):
+        """``run(at_step)``: the EMA weights' denoising loss over the first
+        ``limit_batch`` validation batches (4 when it is not a count), the
+        first batch's x0 reconstructions beside the ground truth as
+        ``videos/denoising_vis_step<N>.gif``, and with ``validate_sample``
+        that batch sampled and scored; ``run.every_step`` and
+        ``run.every_epoch`` are its cadences (0: never)."""
+        cfg, algo = self.cfg, self.algo
+        vcfg = cfg.experiment.validation
+        every_step = vcfg.get("val_every_n_step")
+        every_step = every_step if isinstance(every_step, int) and every_step > 1 else 0
+        every_epoch = vcfg.get("val_every_n_epoch") or 0
+        limit = vcfg.get("limit_batch")
+        limit = limit if isinstance(limit, int) and limit > 0 else 4
+        sample = bool(vcfg.get("validate_sample"))
+        max_vis = cfg.algorithm.logging.get("max_num_videos", 8)
+        loader = eval_denoise = None
+        if every_step or every_epoch:
+            loader = DataLoader(build_dataset(cfg.dataset, "validation"),
+                                max(vcfg.batch_size, 1))
+            eval_denoise = algo.make_eval_denoise()
+
+        def run(at_step: int) -> None:
+            t0 = time.perf_counter()
+            losses, first = [], None
+            weights = state.ema_weights() if state.ema is not None else contextlib.nullcontext()
+            with weights:
+                for j, vb in enumerate(loader):
+                    if j >= limit:
+                        break
+                    vt = self._train_batch(vb)
+                    loss, recons = eval_denoise(vt, generator)
+                    losses.append(float(loss))
+                    if j == 0:
+                        first = vb
+                        if max_vis > 0:
+                            vis = algo.unnormalize(recons[:max_vis])
+                            gt = algo.unnormalize(vt["xs"][:max_vis])
+                            log_video(vis.cpu().numpy(), gt.cpu().numpy(),
+                                      os.path.join(self.output_dir, "videos",
+                                                   f"denoising_vis_step{at_step}.gif"),
+                                      context_frames=0)
+                if losses:
+                    self.logger.log({"validation/loss": float(np.mean(losses))}, at_step)
+                if sample and first is not None:
+                    self._score_sampled_batch(first, at_step, max_vis)
+            self._sync()
+            self._add_time("mid_validation_s", t0)
+
+        run.every_step, run.every_epoch = every_step, every_epoch
+        return run
+
+    def _score_sampled_batch(self, batch, at_step: int, max_vis: int = 8) -> None:
+        """Mid-run sampled validation: one batch's videos generated with the
+        weights in the model, scored and logged
+        (``dfot_tpu/experiments/video_generation.py:442``)."""
+        cfg, algo = self.cfg, self.algo
+        tokens = self._tokenize_batch(batch)
+        generator = torch.Generator(device=algo.device).manual_seed(at_step)
+        videos = algo.sample_videos(generator, tokens["xs"], conditions=batch.get("conds"))
+        videos = {k: algo.unnormalize(v) for k, v in videos.items()}
+        gt = videos["gt"]
+        B, T = gt.shape[:2]
+        nct = algo.n_context_tokens
+        logging_cfg = cfg.algorithm.logging
+        metric_types = tuple(logging_cfg.get("metrics", ["mse", "psnr"]))
+        results: Dict[str, float] = {}
+        for task, vid in videos.items():
+            if task == "gt":
+                continue
+            ctx = _context_mask(task, B, T, nct)
+            vm = VideoMetric(metric_types, logging_cfg.get("n_metrics_frames"))
+            vm.update(vid[:max_vis], gt[:max_vis], ctx[:max_vis])
+            results.update(vm.log(f"validation/{task}"))
+            if max_vis > 0:
+                log_video(vid[:max_vis].cpu().numpy(), gt[:max_vis].cpu().numpy(),
+                          os.path.join(self.output_dir, "videos",
+                                       f"{task}_validation_step{at_step}.gif"),
+                          context_frames=nct)
+        if results:
+            self.logger.log(results, at_step)
+
+    # ------------------------------------------------------------------
+    # validation
     # ------------------------------------------------------------------
     def validation(self, namespace: str = "validation") -> None:
         vcfg = self.cfg.experiment.validation
-        if vcfg.get("val_all_ckpt"):
-            raise NotImplementedError(
-                "val_all_ckpt sweeps checkpoint_<step> directories, which come with the "
-                "training loop (ROADMAP.md queue A10)")
         mesh_cfg = vcfg.get("mesh", {}) or {}
         if int(mesh_cfg.get("tensor", 1) or 1) > 1 or mesh_cfg.get("sequence_parallel", False):
             raise NotImplementedError(
                 "a validation mesh (tensor or sequence parallel) is multi-GPU work, not "
                 "ported yet (ROADMAP.md queue A16)")
+        if vcfg.get("val_all_ckpt"):
+            # every checkpoint_<step> directory under load= (or this run's)
+            sweep = str(self.load_path) if self.load_path else self.ckpt_dir
+            if os.path.isdir(os.path.join(sweep, "checkpoints")):
+                sweep = os.path.join(sweep, "checkpoints")
+            ckpts = sorted(
+                (d for d in os.listdir(sweep) if d.startswith("checkpoint_")),
+                key=lambda d: int(d.split("_")[1]),
+            ) if os.path.isdir(sweep) else []
+            if not ckpts:
+                raise FileNotFoundError(f"val_all_ckpt: no checkpoint_<step> dirs under {sweep}")
+            for ckpt in ckpts:
+                self.load_path = os.path.join(sweep, ckpt)
+                self._validate_once(f"{namespace}/step_{int(ckpt.split('_')[1])}")
+            return
         self._validate_once(namespace)
         # extra passes: history-free repeats with 0 context tokens, and the
         # training split
@@ -147,7 +439,7 @@ class VideoGenerationExperiment:
         for i, batch in enumerate(loader):
             if i >= n_batches:
                 break
-            xs = self._tokenize_batch(batch)
+            xs = self._tokenize_batch(batch)["xs"]
             t0 = time.perf_counter()
             videos = algo.sample_videos(generator, xs, conditions=batch.get("conds"),
                                         n_context_tokens=nct)
@@ -160,16 +452,9 @@ class VideoGenerationExperiment:
             for task, vid in videos.items():
                 if task == "gt":
                     continue
-                # per-task context frames: prediction conditions on the
-                # prefix, interpolation on both endpoints
-                ctx = np.zeros((B, T), dtype=bool)
-                if task.startswith("interpolation"):
-                    ctx[:, [0, -1]] = True
-                else:
-                    ctx[:, :nct] = True
                 if task not in task_metrics:
                     task_metrics[task] = VideoMetric(metric_types, n_metrics_frames)
-                task_metrics[task].update(vid, gt, ctx)
+                task_metrics[task].update(vid, gt, _context_mask(task, B, T, nct))
                 if num_logged < max_videos:
                     log_video(
                         vid.cpu().numpy(), gt.cpu().numpy(),
@@ -189,9 +474,6 @@ class VideoGenerationExperiment:
         self.last_metrics = results
         self._add_time("metrics_s", t0)
 
-    def _add_time(self, key: str, t0: float) -> None:
-        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
-
     def close(self) -> None:
         """Close the metrics logger (and its wandb run)."""
         t0 = time.perf_counter()
@@ -199,24 +481,40 @@ class VideoGenerationExperiment:
         self._add_time("logger_s", t0)
 
     # ------------------------------------------------------------------
+    # weights
+    # ------------------------------------------------------------------
     def _load_eval_weights(self) -> None:
-        """The weights to validate, into ``algo.model``: those of the
-        ``load=`` file, or the seeded fresh init when there is none."""
-        if self._weights_loaded or self.load_path is None:
+        """The weights to validate, into ``algo.model``
+        (``dfot_tpu/experiments/video_generation.py:720``): those of
+        ``load=``, else of this run's newest checkpoint, else the train
+        state's EMA, else the seeded fresh init."""
+        path = self.load_path or latest_checkpoint(self.ckpt_dir)
+        if path is not None:
+            self._load_weights(str(path))
+        elif self.state is not None and self._weights_from is not self.state:
+            self.algo.model.load_state_dict(self.state.ema_state_dict(), strict=True)
+            self._weights_from = self.state
+
+    def _load_weights(self, path: str) -> None:
+        """An upstream torch file's weights or a checkpoint directory's EMA
+        weights (with its buffers) into ``algo.model``, once a path."""
+        if path == self._weights_from:
             return
-        path = str(self.load_path)
-        if path.startswith("pretrained:"):
-            # the reference downloads these; here they live under data/ckpts/
-            path = os.path.join("data", "ckpts", path.split(":", 1)[1])
-        if not path.endswith(TORCH_CKPT_SUFFIXES):
-            raise NotImplementedError(
-                f"load={self.load_path}: checkpoint_<step> directories come with the training "
-                "loop (ROADMAP.md queue A10); give an upstream .ckpt, .pt, .pth or .safetensors")
         t0 = time.perf_counter()
-        self._import_torch_checkpoint(path)
+        file = path
+        if file.startswith("pretrained:"):
+            # the reference downloads these; here they live under data/ckpts/
+            file = os.path.join("data", "ckpts", file.split(":", 1)[1])
+        if _is_torch_file(file):
+            self._import_torch_checkpoint(file)
+        else:
+            saved = restore_checkpoint(file)
+            self.algo.model.load_state_dict({**saved["params"], **(saved["ema_params"] or {})},
+                                            strict=True)
+            del saved
         self._sync()
-        self.timings["checkpoint_load_s"] = time.perf_counter() - t0
-        self._weights_loaded = True
+        self._add_time("checkpoint_load_s", t0)
+        self._weights_from = path
 
     def _import_torch_checkpoint(self, path: str) -> None:
         """An upstream checkpoint after the reference's surgery (EMA

@@ -8,7 +8,10 @@ kept, and the whole block, attention kernels included, runs again in the
 backward. That is the policy ``None`` / ``"none"``, the one the recipes use.
 The JAX package's selective policies (``dots``: keep matmul outputs;
 ``attn``: keep attention outputs; ``dots_attn``: both) are not ported yet
-and raise by name.
+and raise by name (ROADMAP.md queue A10): ``torch.utils.checkpoint``'s
+selective contexts see only dispatched operators, and the attention
+kernels launch inside ``torch.autograd.Function``s, so ``attn`` needs the
+attention forward registered as a ``torch.library`` custom op first.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ def remat(policy: Optional[str]) -> Callable:
         )
     if policy in REMAT_POLICIES:
         raise NotImplementedError(
-            f"remat_policy {policy!r} (selective rematerialization) is not ported; use 'none'"
+            f"remat_policy {policy!r} (selective rematerialization) is not ported yet "
+            "(ROADMAP.md queue A10); use 'none'"
         )
     raise ValueError(f"unknown remat_policy {policy!r}: want none|dots|attn|dots_attn")

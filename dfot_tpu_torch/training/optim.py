@@ -12,7 +12,7 @@ update every k).
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -62,7 +62,8 @@ class Optimizer:
 
     ``adamw`` is the ``torch.optim.AdamW`` (base learning rate 1, so the
     scheduler's factor is the learning rate itself) and ``scheduler`` its
-    ``LambdaLR``; both can be saved and restored through their state dicts.
+    ``LambdaLR``. :meth:`state_dict` holds both, the micro-step count and
+    the accumulated gradient sum, keyed by parameter name.
     """
 
     def __init__(self, params, schedule: Callable[[int], float], weight_decay: float,
@@ -81,6 +82,39 @@ class Optimizer:
     def lr(self) -> float:
         """The learning rate the next update will use."""
         return self.adamw.param_groups[0]["lr"]
+
+    def state_dict(self, names: List[str]) -> Dict:
+        """The optimizer's state with ``names[i]`` naming ``params[i]``: Adam's
+        moments and step count, the hyperparameters, the scheduler's
+        position, ``micro_step`` and the gradient sum of a cycle in progress."""
+        if len(names) != len(self.params):
+            raise ValueError(f"{len(names)} names for {len(self.params)} parameters")
+        adamw = self.adamw.state_dict()
+        groups = [{k: v for k, v in g.items() if k != "params"} for g in adamw["param_groups"]]
+        return {
+            "moments": {names[i]: s for i, s in adamw["state"].items()},
+            "param_groups": groups,
+            "scheduler": self.scheduler.state_dict(),
+            "micro_step": self.micro_step,
+            "sum": None if self._sum is None else dict(zip(names, self._sum)),
+        }
+
+    def load_state_dict(self, state: Dict, names: List[str]) -> None:
+        """Restore what :meth:`state_dict` gave, onto the parameters'
+        devices; the parameters are matched by name."""
+        index = {name: i for i, name in enumerate(names)}
+        if len(index) != len(self.params) or set(state["moments"]) - set(index):
+            raise ValueError("the saved moments name other parameters than this optimizer's")
+        groups = [dict(g, params=list(range(len(self.params)))) for g in state["param_groups"]]
+        self.adamw.load_state_dict({
+            "state": {index[n]: s for n, s in state["moments"].items()},
+            "param_groups": groups,
+        })
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.micro_step = int(state["micro_step"])
+        saved = state["sum"]
+        self._sum = None if saved is None else [
+            saved[n].to(p.device, p.dtype, copy=True) for n, p in zip(names, self.params)]
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)

@@ -4,13 +4,15 @@ Port of ``dfot_tpu/training/state.py``. The JAX state is an immutable
 pytree that each step replaces; here the model and the optimizer are
 updated in place and the state object is handed back. The fp32 parameters
 of the model are the master weights; the EMA shadow holds one fp32 tensor
-per parameter, by name.
+per parameter, by name. :meth:`TrainState.state_dict` is what a checkpoint
+holds (``training/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
@@ -37,6 +39,57 @@ class TrainState:
         if self.ema is None:
             raise ValueError("this train state keeps no EMA")
         return {**self.model.state_dict(), **self.ema}
+
+    def _param_names(self) -> List[str]:
+        """The model's name of each parameter the optimizer updates, in order."""
+        name_of = {id(p): n for n, p in self.model.named_parameters()}
+        return [name_of[id(p)] for p in self.optimizer.params]
+
+    def state_dict(self) -> Dict:
+        """``{"params": the model's state dict (parameters and buffers, under
+        its names), "ema_params", "opt_state", "step"}``; the tensors are the
+        live ones (copy them before the next step changes them)."""
+        return {
+            "params": self.model.state_dict(),
+            "ema_params": None if self.ema is None else dict(self.ema),
+            "opt_state": self.optimizer.state_dict(self._param_names()),
+            "step": self.step,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s content in place: the parameters keep
+        their identity (the optimizer's references stay valid), every value
+        comes back with the bits it was saved with."""
+        self.model.load_state_dict(state["params"], strict=True)
+        if (self.ema is None) != (state.get("ema_params") is None):
+            raise ValueError("the saved state and this one disagree on keeping an EMA")
+        if self.ema is not None:
+            saved = state["ema_params"]
+            if set(saved) != set(self.ema):
+                raise ValueError("the saved EMA names other parameters than this state's")
+            for name, shadow in self.ema.items():
+                shadow.copy_(saved[name])
+        self.optimizer.load_state_dict(state["opt_state"], self._param_names())
+        self.step = int(state["step"])
+
+    @contextlib.contextmanager
+    def ema_weights(self) -> Iterator[None]:
+        """The EMA shadow in place of the model's parameters for the
+        duration (the tensors are swapped, nothing is copied; the parameter
+        objects, which the optimizer holds, stay the same)."""
+        if self.ema is None:
+            raise ValueError("this train state keeps no EMA")
+        params = dict(self.model.named_parameters())
+        live = {}
+        try:
+            for name, shadow in self.ema.items():
+                live[name] = params[name].data
+                params[name].data = shadow
+            yield
+        finally:
+            for name, data in live.items():
+                params[name].data = data
 
 
 def create_train_state(model: nn.Module, optimizer: Optimizer, use_ema: bool = True) -> TrainState:

@@ -18,7 +18,47 @@ from .noise_levels import NoiseLevelConfig, training_noise_levels
 from .optim import global_norm
 from .state import TrainState, gated_ema_update
 
-__all__ = ["make_train_step"]
+__all__ = ["denoising_loss", "make_train_step"]
+
+
+def denoising_loss(model_apply: Callable, dcfg: dc.DiffusionConfig, sched: dc.Schedule,
+                   nl_cfg: NoiseLevelConfig, model, xs, conditions, frame_mask,
+                   generator: Optional[torch.Generator], train: bool = True,
+                   noise_levels=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(masked mean loss, x0 reconstruction) of one denoising pass: noise
+    levels drawn per token (``train=False``: no context dropout), xs
+    diffused, the denoiser's loss weighted by the frame mask and averaged
+    over all elements. The draws can be injected as in
+    :func:`make_train_step`. The train step's loss
+    (``dfot_tpu/training/trainer.py:45``) and the eval denoiser's
+    (``dfot_tpu/algorithms/dfot_video.py:388``)."""
+    dev = sched.device
+    draws = noise_levels if isinstance(noise_levels, dict) or noise_levels is None \
+        else {"levels": noise_levels}
+    k, loss_mask = training_noise_levels(generator, nl_cfg, frame_mask, train, draws)
+    xs = xs.float()
+    if noise is None:
+        noise = dc.clipped_normal(xs.shape, dcfg.clip_noise, generator, dev, xs.dtype)
+    else:
+        noise = torch.as_tensor(noise, device=dev, dtype=xs.dtype).clamp(
+            -dcfg.clip_noise, dcfg.clip_noise)
+    if dcfg.is_continuous:
+        x_t, logsnr, alpha_t, sigma_t = continuous_training_fields(dcfg, xs, k, noise)
+        out = model_apply(model, x_t, dcfg.precond_scale * logsnr, conditions, None)
+        recons, loss = continuous_v_loss(dcfg, out, x_t, noise, logsnr, alpha_t, sigma_t)
+    else:
+        noised, target = dc.training_targets(sched, dcfg, xs, k, noise)
+        out = model_apply(model, noised, k.float(), conditions, None)
+        loss = dc.training_loss(sched, dcfg, out, target, k)
+        if dcfg.objective == "pred_x0":
+            recons = out
+        elif dcfg.objective == "pred_noise":
+            recons = dc.predict_start_from_noise(sched, noised, k, out)
+        else:
+            recons = dc.predict_start_from_v(sched, noised, k, out)
+    # the frame mask weighs the loss; the mean is over all elements
+    w = dc.bcast_right(loss_mask.to(loss.dtype), loss.ndim)
+    return (loss * w).mean(), recons
 
 
 def make_train_step(
@@ -50,26 +90,8 @@ def make_train_step(
     dev = sched.device
 
     def loss_fn(model, xs, conditions, frame_mask, generator, noise_levels, noise):
-        draws = noise_levels if isinstance(noise_levels, dict) or noise_levels is None \
-            else {"levels": noise_levels}
-        k, loss_mask = training_noise_levels(generator, nl_cfg, frame_mask, True, draws)
-        xs = xs.float()
-        if noise is None:
-            noise = dc.clipped_normal(xs.shape, dcfg.clip_noise, generator, dev, xs.dtype)
-        else:
-            noise = torch.as_tensor(noise, device=dev, dtype=xs.dtype).clamp(
-                -dcfg.clip_noise, dcfg.clip_noise)
-        if dcfg.is_continuous:
-            x_t, logsnr, alpha_t, sigma_t = continuous_training_fields(dcfg, xs, k, noise)
-            out = model_apply(model, x_t, dcfg.precond_scale * logsnr, conditions, None)
-            _, loss = continuous_v_loss(dcfg, out, x_t, noise, logsnr, alpha_t, sigma_t)
-        else:
-            noised, target = dc.training_targets(sched, dcfg, xs, k, noise)
-            out = model_apply(model, noised, k.float(), conditions, None)
-            loss = dc.training_loss(sched, dcfg, out, target, k)
-        # the frame mask weighs the loss; the mean is over all elements
-        w = dc.bcast_right(loss_mask.to(loss.dtype), loss.ndim)
-        return (loss * w).mean()
+        return denoising_loss(model_apply, dcfg, sched, nl_cfg, model, xs, conditions,
+                              frame_mask, generator, True, noise_levels, noise)[0]
 
     def train_step(
         state: TrainState, batch: Dict, generator: Optional[torch.Generator], *,

@@ -382,14 +382,17 @@ def test_cli_matches_main(monkeypatch, tmp_path, fixture_ckpt, jax_imports_fouri
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["experiment.tasks=[training]"], "A10"),
-    (["load=some_run_name"], "A10"),
-    (["experiment.validation.val_all_ckpt=true"], "A10"),
+    (["experiment.tasks=[training]", "experiment.training.mesh.tensor=2"], "A16"),
+    (["++algorithm.backbone.use_checkpointing=[false,true]",
+      "++algorithm.backbone.remat_policy=dots"], "A10"),
+    (["experiment.tasks=[training]", "experiment.training.data.shuffle=true",
+      "experiment.training.data.num_workers=2"], "A12"),
     (["++algorithm.logging.metrics=[fvd,mse]"], "A15"),
     (["algorithm.save_attn_map.enabled=true"], "A16"),
     (["experiment.validation.mesh.tensor=2"], "A16"),
     (["cluster=base_slurm"], "A16"),
-], ids=["training", "load_by_name", "val_all_ckpt", "fvd", "attn_maps", "mesh", "cluster"])
+], ids=["training_mesh", "remat_policy", "shuffled_workers", "fvd", "attn_maps", "mesh",
+        "cluster"])
 def test_unported_cli_branches_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         run(SMALL + extra + [f"output_dir={tmp_path}"], device="cpu")
@@ -397,8 +400,9 @@ def test_unported_cli_branches_raise(tmp_path, extra, item):
 
 def test_unported_paths_raise(tmp_path, monkeypatch):
     out = f"output_dir={tmp_path}"
-    with pytest.raises(NotImplementedError, match="A10"):  # a checkpoint_<step> directory
-        run(SMALL + [f"load={tmp_path}", out], device="cpu")
+    (tmp_path / "checkpoint_5").mkdir()  # a checkpoint_<step> directory without its file
+    with pytest.raises(FileNotFoundError, match="not a checkpoint directory"):
+        run(SMALL + [f"load={tmp_path / 'checkpoint_5'}", out], device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):  # a dataset on disk
         run(SMALL + [f"dataset.save_dir={tmp_path}", out], device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):  # latent K600
