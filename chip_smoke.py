@@ -123,10 +123,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     checkpoint's snapshot and background write seconds, the restore, the
     mid-run validation and the profiled step's device time by class. Step 2
     also holds B1-B7 at the flagship's two sites at this batch, the plain
-    attention one batch entry at a time.
+    attention one batch entry at a time;
+19. builds FacMatDiT/L (factorized matrix attention, 257.8M) and
+    FullMatDiT/XL at full width and depth on UCF-101's latents (16 frames
+    of 8 x 8 x 32) through ``build_algorithm(load_config(argv))`` with
+    seeded random weights: for FacMatDiT/L route checks forward and forward
+    + backward at the validation batch of 32, the 50-step window at that
+    batch (B8 and B10 from the spatial blocks, nothing from the matrix
+    blocks) and a profiled 10-step one, five train steps at the training
+    batch of 32 (every block checkpointed, B8, B9, B10) and a profiled
+    one; for FullMatDiT/XL the window, a profiled 10-step one and one train
+    step (B8 and B9 only in the final layer). Then the flagship's 8-frame
+    vanilla-HG window with reconstruction guidance (a forward and a
+    backward of the model each step, B1-B7): a 3-step window on the kernel
+    route, the plain route and without the guidance gradient (the
+    control), then the 50-step window with its launch counts, wall time
+    against step 5's window and peak memory, and a profiled 10-step one.
+    Last, the base-width axial U-ViT of step 16 on the sampling route's
+    precomputed pose conditioning (level 3's pooled pose map) against the
+    raw ray maps, with the level maps dropped as the control, B1-B3 and
+    B10 launch counts required. Step 2 also holds B8, B9 and B10 at
+    FacMatDiT/L's spatial shapes.
 
-Steps 3, 4, 7, 10, 11, 14, 15 and 16 also run controls (an attention that ignores q and
-k; a backward whose dq is zero; a LayerNorm + modulate that skips the
+Steps 3, 4, 7, 10, 11, 14, 15, 16 and 19 also run controls (an attention that
+ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
 heads in reverse order; B6: dx without the norm's mean
@@ -171,7 +191,8 @@ FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
 # the paths that are driven between a reset and a read of the launch counts
 PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
-         "base_train", "base_axial", "interp2", "rollout", "cli", "train_loop")
+         "base_train", "base_axial", "interp2", "rollout", "cli", "train_loop", "facmat_window",
+         "facmat_train", "fullmat_window", "fullmat_train", "guided_window", "axial_precomputed")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -205,16 +226,19 @@ PADDED_SITE = (2048, 4, 160, 256)
 XL_BATCH = 8
 XL_SITE = (1280, 16, 72, 128)
 # LayerNorm + modulate shapes (B, N, C): K600 @DiT/XL, Minecraft @DiT/B, and
-# the factorized DiT's spatial view (B * T, P, C)
+# the spatial view (B * T, P, C) of the factorized DiT and of FacMatDiT/L at
+# its batch of 32
 LN_SHAPES = (("xl", (XL_BATCH, 1280, 1152)), ("dit_b", (8, 1024, 768)),
-             ("factorized", (128, 16, 384)))
+             ("factorized", (128, 16, 384)), ("facmat", (32 * 16, 16, 768)))
 # small-N attention shapes (items Z = B * H, N, D): the axial U-ViT's temporal
 # attention at levels 2 and 3 (B0 * tokens a frame * heads), the factorized
-# DiT's temporal and spatial attention, five latent frames, the longest row
+# DiT's temporal and spatial attention, five latent frames, the longest row,
+# FacMatDiT/L's spatial attention (32 videos x 16 frames x 6 heads of 128)
 SMALL_N_SHAPES = (("axial level2", (2 * 1024 * 9, 8, 64)), ("axial level3", (2 * 256 * 9, 8, 128)),
                   ("factorized", (8 * 16 * 6, 16, 64)), ("frames5", (8 * 256 * 6, 5, 64)),
                   ("rows32 d64", (768, 32, 64)), ("rows32 d128", (768, 32, 128)),
-                  ("base axial level3", (2 * 256 * 4, 8, 256)), ("rows32 d256", (768, 32, 256)))
+                  ("base axial level3", (2 * 256 * 4, 8, 256)), ("rows32 d256", (768, 32, 256)),
+                  ("facmat spatial", (32 * 16 * 6, 16, 128)))
 SMALL_N_MAIN = ("axial level2", "axial level3")
 # row lengths whose keys B10 pads to a 16-key tile, where a control counts the pads
 PAD_CONTROL_ROWS = (5, 8)
@@ -1197,13 +1221,17 @@ def make_rollout(fs, model, dcfg, **cfg_kw):
     return DFoTRollout(cfg, dcfg, make_schedule(dcfg, "cuda"), model)
 
 
-def run_window(ro, fs, seed: int):
+def run_window(ro, fs, seed: int, first=None):
+    """The recipe's 8-frame window from one context frame: ``first`` (1,
+    R, R, C), zeros if not given."""
     import numpy as np
     import torch
 
     T = fs.spec.max_temporal_length
     R = fs.resolution
     ctx = torch.zeros(1, T, R, R, fs.x_channels, device="cuda")
+    if first is not None:
+        ctx[:, 0] = first
     mask = np.zeros((1, T), dtype=np.int64)
     mask[:, 0] = 1
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1624,19 +1652,28 @@ def require_launches(what: str, launches: dict, expect: dict) -> None:
 def run_train_path(record: dict, key: str, what: str, fs, model, batch: dict, probes,
                    expect: dict) -> dict:
     """A recipe's training path at full width: its train state and train
-    step, a warm-up step, then ``TRAIN_STEPS`` steps between a reset and a
-    read of the launch counts, which must equal ``expect``. The warm-up of
-    the learning rate is cut to two steps so that the steps taken here move
-    the weights by a visible amount (the recipes' 10000-step warm-up starts
-    at rate 0)."""
+    step, then :func:`drive_train_steps`. The warm-up of the learning rate is
+    cut to two steps so that the steps taken here move the weights by a
+    visible amount (the recipes' 10000-step warm-up starts at rate 0)."""
     import torch
-    from dfot_tpu_torch import ops
     from dfot_tpu_torch.algorithms.dfot_video import make_train_state, make_train_step
 
     fs = fs._replace(train=fs.train._replace(num_warmup_steps=2))
     torch.cuda.reset_peak_memory_stats()
     state = make_train_state(fs, model)
-    step = make_train_step(fs)
+    return drive_train_steps(record, key, what, model, state, make_train_step(fs), batch, probes,
+                             expect, fs.train.num_warmup_steps, fs.train.grad_clip)
+
+
+def drive_train_steps(record: dict, key: str, what: str, model, state, step, batch: dict,
+                      probes, expect: dict, num_warmup_steps: int, grad_clip: float,
+                      steps: int = TRAIN_STEPS) -> dict:
+    """A warm-up step, then ``steps`` steps between a reset and a read of
+    the launch counts, which must equal ``expect``; the parameters named in
+    ``probes`` and their EMA must move."""
+    import torch
+    from dfot_tpu_torch import ops
+
     B = batch["xs"].shape[0]
     gen = torch.Generator(device="cuda").manual_seed(10)
     before = {n: p.detach().clone() for n, p in model.named_parameters() if n in probes}
@@ -1646,7 +1683,7 @@ def run_train_path(record: dict, key: str, what: str, fs, model, batch: dict, pr
     torch.cuda.synchronize()
     metrics, walls = [warm], []
     ops.reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, m = step(state, batch, gen)
         torch.cuda.synchronize()
@@ -1663,24 +1700,24 @@ def run_train_path(record: dict, key: str, what: str, fs, model, batch: dict, pr
     step_s = sum(walls) / len(walls)
     median_s = sorted(walls)[len(walls) // 2]
     record[key] = {
-        "batch": B, "steps": TRAIN_STEPS, "step_wall_s": walls, "step_s_mean": step_s,
+        "batch": B, "steps": steps, "step_wall_s": walls, "step_s_mean": step_s,
         "step_s_median": median_s, "steps_per_s": 1 / median_s, "loss": losses,
         "grad_norm": norms,
         "launches": launches,
         "peak_memory_bytes": peak, "param_max_change": moved, "ema_max_change": ema_moved,
-        "lr_after": state.optimizer.lr, "num_warmup_steps": fs.train.num_warmup_steps,
+        "lr_after": state.optimizer.lr, "num_warmup_steps": num_warmup_steps,
     }
-    log(f"{what} B={B} (AdamW, clip {fs.train.grad_clip}, EMA, bf16 "
+    log(f"{what} B={B} (AdamW, clip {grad_clip}, EMA, bf16 "
         f"compute over fp32 weights): median {median_s * 1e3:.1f} ms per step, "
-        f"{1 / median_s:.3f} steps/s, over {TRAIN_STEPS} steps "
+        f"{1 / median_s:.3f} steps/s, over {steps} steps "
         f"({', '.join(f'{w * 1e3:.1f}' for w in walls)}; mean {step_s * 1e3:.1f}), peak memory "
         f"{peak / 2**30:.2f} GiB")
     log(f"  loss {losses}  grad norm {norms}  launches {launches}")
     require(all(math.isfinite(v) for v in losses + norms), f"{what}: non-finite loss or norm")
-    require(state.step == TRAIN_STEPS + 1, f"train state counts {state.step} steps")
+    require(state.step == steps + 1, f"train state counts {state.step} steps")
     require(all(v > 0 for v in moved.values()), f"{what}: parameters unchanged: {moved}")
     require(all(v > 0 for v in ema_moved.values()), f"{what}: the EMA unchanged: {ema_moved}")
-    require_launches(f"{TRAIN_STEPS} steps of the {what}", launches, expect)
+    require_launches(f"{steps} steps of the {what}", launches, expect)
     return {"state": state, "step": step, "batch": batch, "gen": gen, "launches": launches}
 
 
@@ -2791,6 +2828,370 @@ def run_cli_training(record: dict, smi: str) -> dict:
     return {name: sum(r["launches"][name] for r in runs.values()) for name, _, _ in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the matrix-attention DiTs, reconstruction guidance, the axial
+# U-ViT's precomputed pose maps
+# ---------------------------------------------------------------------------
+
+UCF_LATENT = ["+name=ucf", "dataset=ucf_101", "algorithm=dfot_video",
+              "experiment=video_generation"]
+FAC_MAT_L = UCF_LATENT + ["algorithm/backbone=dit3d_factorized_matrix", "@FacMatDiT/L"]
+FULL_MAT_XL = UCF_LATENT + ["algorithm/backbone=dit3d_full_matrix", "@FullMatDiT/XL"]
+# the configs' 500-step learning-rate warm-up starts at rate 0: cut to 2, so
+# that the steps taken here move the weights
+MATRIX_OVERRIDES = ["algorithm.lr_scheduler.num_warmup_steps=2"]
+# reconstruction guidance on the flagship window: its weight, and the steps
+# of the window held against the plain route (each a forward and a backward
+# of the full model at the denoiser's batch of 2)
+GUIDANCE_WEIGHT = 10.0
+GUIDED_SHORT_STEPS = 3
+# a guided window, kernel vs plain route, relative L2: each step adds a bf16
+# gradient of the model (GRAD_REL_TOL's class) times sqrt(1 - alpha); the
+# sound route read 1.74e-2, the window without the guidance gradient 0.49
+GUIDED_WINDOW_REL_TOL = 5e-2
+
+
+def autocast_apply(model, x, noise_levels, cond=None, cond_mask=None):
+    """The model over fp32 weights under bf16 autocast, fp32 out: what a
+    composed algorithm's sampler and train step run."""
+    import torch
+
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        return model(x, noise_levels.float(), cond, cond_mask).float()
+
+
+def build_matrix_algorithm(argv, seed: int):
+    """``build_algorithm(load_config(argv))`` on the card, its model given
+    seeded random weights (the configured init leaves every AdaLN gate at
+    zero); with the composed config."""
+    import torch
+    from dfot_tpu_torch.algorithms.dfot_video import build_algorithm
+    from dfot_tpu_torch.config import load_config
+    from dfot_tpu_torch.utils.weights import init_random_weights
+
+    cfg = load_config(argv + MATRIX_OVERRIDES)
+    algo = build_algorithm(cfg)
+    init_random_weights(algo.model, torch.Generator().manual_seed(seed))
+    return algo, cfg
+
+
+def expected_matrix_launches(spec, forwards: int = 0, train_steps: int = 0) -> dict:
+    """Launches of a matrix-attention DiT: a matrix block launches none;
+    each spatial block of the factorized variant runs B8 once per
+    LayerNorm + modulate (twice with its MLP) and B10 once, the final layer
+    B8 once; a train step runs the spatial blocks' share twice under
+    checkpointing, and B9 once for each B8 of its forward."""
+    spatial = spec.depth if spec.variant == "factorized_matrix_attention" else 0
+    per_block = 2 if spec.spatial_mlp_ratio else 1
+    again = 2 if spec.use_gradient_checkpointing else 1
+    ln_fwd = per_block * spatial + 1
+    out = no_launches()
+    out["ln_modulate"] = forwards * ln_fwd + train_steps * (again * per_block * spatial + 1)
+    out["ln_modulate_bwd"] = train_steps * ln_fwd
+    out["small_n_attn"] = (forwards + again * train_steps) * spatial
+    return out
+
+
+def matrix_grad_probes(spec) -> tuple:
+    """A spatial block's attention and MLP modulation (factorized), the
+    middle and last matrix blocks' U and V factors and modulation, the final
+    layer."""
+    mid, last = spec.depth // 2, spec.depth - 1
+    matrix = "temporal_blocks" if spec.variant == "factorized_matrix_attention" else "blocks"
+    spatial = (("dit_base.blocks.0.attn.qkv.weight", "dit_base.blocks.0.norm2.modulation.1.weight")
+               if matrix == "temporal_blocks" else ())
+    return spatial + (
+        f"dit_base.{matrix}.{mid}.attn.qkv_u",
+        f"dit_base.{matrix}.{mid}.attn.qkv_v",
+        f"dit_base.{matrix}.{mid}.norm1.modulation.1.weight",
+        f"dit_base.{matrix}.{last}.attn.proj_v",
+        f"dit_base.{matrix}.{last}.mlp.fc1.weight",
+        "dit_base.final_layer.linear.weight",
+    )
+
+
+def run_matrix_window(algo, B: int, seed: int):
+    """The composed config's validation window: B videos of max_tokens
+    latent frames, no context (UCF-101 generates from nothing),
+    conditional sampling, through ``algo.rollout.sample_sequence``."""
+    import torch
+
+    algo.rollout.stats = {"denoiser_evals_b1": 0, "windows": 0}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return algo.rollout.sample_sequence(gen, B, length=algo.max_tokens,
+                                        history_guidance=algo.prediction_hg)
+
+
+def matrix_window(record: dict, key: str, what: str, algo, B: int, seed: int) -> dict:
+    """The 50-step window between a reset and a read of the launch counts."""
+    import torch
+    from dfot_tpu_torch import ops
+
+    spec, T = algo.model.spec, algo.max_tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = run_matrix_window(algo, B, seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    evals = algo.rollout.stats["denoiser_evals_b1"] // B
+    record[key] = {
+        "batch": B, "wall_s": wall, "denoiser_evals": evals, "latent_frames_per_s": B * T / wall,
+        "launches": launches, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "shape": list(video.shape),
+    }
+    log(f"{what} window: {B} videos x {T} latent frames, {algo.dcfg.sampling_timesteps} DDIM "
+        f"steps = {evals} evaluations at batch {B}: {wall:.3f} s wall, {B * T / wall:.2f} latent "
+        f"frames/s; peak memory {record[key]['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    require(tuple(video.shape) == (B, T, *algo.x_shape),
+            f"{what} window shape {tuple(video.shape)}")
+    require(bool(torch.isfinite(video).all()), f"{what} window: non-finite output")
+    require(evals == algo.dcfg.sampling_timesteps, f"{what} window took {evals} evaluations")
+    require_launches(f"the {what} window", launches, expected_matrix_launches(spec, forwards=evals))
+    return launches
+
+
+def matrix_train(record: dict, key: str, what: str, algo, cfg, seed: int, steps: int) -> dict:
+    """The composed config's train state and train step at its training
+    batch (every block checkpointed as configured): a warm-up step, then
+    ``steps`` steps with their launch counts required."""
+    import torch
+
+    e = cfg.experiment
+    B = e.training.batch_size
+    torch.cuda.reset_peak_memory_stats()
+    state = algo.make_train_state(grad_clip=e.training.optim.get("gradient_clip_val", 1.0) or 0.0)
+    step = algo.make_train_step(ema_decay=e.ema.get("decay", 0.9999))
+    batch = latent_batch((algo.max_tokens, *algo.x_shape), B, seed)
+    spec = algo.model.spec
+    return drive_train_steps(
+        record, key, what, algo.model, state, step, batch, matrix_grad_probes(spec),
+        expected_matrix_launches(spec, train_steps=steps),
+        cfg.algorithm.lr_scheduler.num_warmup_steps, state.optimizer.grad_clip, steps)
+
+
+def run_matrix_paths(record: dict) -> dict:
+    """Phase 19 (a) and (b): FacMatDiT/L and FullMatDiT/XL at full width and
+    depth on UCF-101's latents (16 frames of 8 x 8 x 32), each built by
+    ``build_algorithm(load_config(argv))`` with seeded random weights.
+    FacMatDiT/L: route checks forward and forward + backward at the
+    validation batch, the 50-step window at the validation batch and a
+    profiled 10-step one, five train steps at the training batch and a
+    profiled one. FullMatDiT/XL: the window, a profiled 10-step one and one
+    train step."""
+    import torch
+
+    out = {}
+    algo, cfg = build_matrix_algorithm(FAC_MAT_L, seed=80)
+    model, spec = algo.model, algo.model.spec
+    n_params = sum(p.numel() for p in model.parameters())
+    B = cfg.experiment.validation.batch_size
+    record["facmat_model"] = {"parameters": n_params, **{
+        k: getattr(spec, k) for k in ("hidden_size", "depth", "num_heads", "embed_col_dim",
+                                      "embed_row_dim", "num_col_heads", "num_row_heads")}}
+    log(f"FacMatDiT/L on UCF-101 latents {algo.x_shape}: {n_params / 1e6:.1f}M parameters "
+        f"(hidden {spec.hidden_size}, depth {spec.depth}, {spec.num_heads} spatial heads of "
+        f"{spec.hidden_size // spec.num_heads}; matrix heads {spec.num_col_heads} x "
+        f"{spec.num_row_heads} of {spec.embed_col_dim // spec.num_col_heads} x "
+        f"{spec.embed_row_dim // spec.num_row_heads}), seeded random fp32 weights under bf16 "
+        f"autocast")
+
+    batch = latent_batch((algo.max_tokens, *algo.x_shape), B, seed=81)
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    k = torch.randint(0, algo.dcfg.timesteps, (B, algo.max_tokens), generator=gen, device="cuda")
+    with torch.no_grad():
+        check_route(record, "facmat_forward", f"FacMatDiT/L forward B={B}", FORWARD_REL_TOL,
+                    model.use_plain_kernels, lambda: autocast_apply(model, batch["xs"], k),
+                    dit_controls())
+    gradient_routes(record, "facmat_gradient_route", f"FacMatDiT/L forward + backward B={B}",
+                    model, model.use_plain_kernels,
+                    discrete_loss_fn(algo.dcfg, autocast_apply, model, batch, 83),
+                    matrix_grad_probes(spec), control_ln_backward,
+                    must_reject=("blocks.0.attn.qkv.weight",))
+    del batch
+
+    out["facmat_window"] = matrix_window(record, "facmat_window", "FacMatDiT/L", algo, B, 84)
+    short, _ = build_matrix_algorithm(
+        FAC_MAT_L + [f"algorithm.diffusion.sampling_timesteps={PROFILED_WINDOW_STEPS}"], seed=80)
+    short.model.load_state_dict(model.state_dict())
+    profiled(record, "facmat_profile", f"{PROFILED_WINDOW_STEPS}-step FacMatDiT/L window",
+             lambda: run_matrix_window(short, B, 85))
+    del short
+    torch.cuda.empty_cache()
+
+    trained = matrix_train(record, "facmat_train", "FacMatDiT/L train step", algo, cfg, 86,
+                           TRAIN_STEPS)
+    out["facmat_train"] = trained["launches"]
+    profiled(record, "facmat_train_profile", "FacMatDiT/L train step",
+             lambda: trained["step"](trained["state"], trained["batch"], trained["gen"]),
+             unprofiled_s=record["facmat_train"]["step_s_median"])
+    del algo, model, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    algo, cfg = build_matrix_algorithm(FULL_MAT_XL, seed=87)
+    spec = algo.model.spec
+    n_params = sum(p.numel() for p in algo.model.parameters())
+    record["fullmat_model"] = {"parameters": n_params, "embed_col_dim": spec.embed_col_dim,
+                               "num_row_heads": spec.num_row_heads}
+    log(f"FullMatDiT/XL: {n_params / 1e6:.1f}M parameters, {spec.depth} matrix blocks (heads "
+        f"{spec.num_col_heads} x {spec.num_row_heads} of {spec.embed_col_dim // spec.num_col_heads}"
+        f" x {spec.embed_row_dim // spec.num_row_heads})")
+    B = cfg.experiment.validation.batch_size
+    out["fullmat_window"] = matrix_window(record, "fullmat_window", "FullMatDiT/XL", algo, B, 88)
+    short, _ = build_matrix_algorithm(
+        FULL_MAT_XL + [f"algorithm.diffusion.sampling_timesteps={PROFILED_WINDOW_STEPS}"], seed=87)
+    short.model.load_state_dict(algo.model.state_dict())
+    profiled(record, "fullmat_profile", f"{PROFILED_WINDOW_STEPS}-step FullMatDiT/XL window",
+             lambda: run_matrix_window(short, B, 85))
+    del short
+    out["fullmat_train"] = matrix_train(record, "fullmat_train", "FullMatDiT/XL train step",
+                                        algo, cfg, 89, 1)["launches"]
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_guided_window_paths(record: dict) -> dict:
+    """Phase 19 (c): the flagship's 8-frame vanilla-HG window with
+    reconstruction guidance (weight ``GUIDANCE_WEIGHT``) at full width and
+    depth on seeded random bf16 weights, from a seeded context frame: a
+    ``GUIDED_SHORT_STEPS``-step window on the kernel route, the plain route
+    and with the guidance gradient dropped (the control); then the 50-step
+    window with its launch counts (a forward and a backward of the model a
+    step, B1-B7), wall time against phase 5's window and peak memory, and a
+    profiled 10-step window."""
+    import dataclasses
+
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.algorithms.dfot_video import flagship
+
+    fs = flagship()
+    model = build_random_model(fs, seed=91).to(torch.bfloat16).eval()
+    first = seeded_image(fs, 92)
+    short = dataclasses.replace(fs.dcfg, sampling_timesteps=GUIDED_SHORT_STEPS)
+    guided = make_rollout(fs, model, dataclasses.replace(
+        short, reconstruction_guidance=GUIDANCE_WEIGHT))
+    unguided = make_rollout(fs, model, short)
+    current = [guided]
+
+    @contextlib.contextmanager
+    def gradient_dropped():
+        current[0] = unguided
+        try:
+            yield
+        finally:
+            current[0] = guided
+
+    check_route(record, "guided_small_window",
+                f"flagship {GUIDED_SHORT_STEPS}-step window, reconstruction guidance "
+                f"{GUIDANCE_WEIGHT}", GUIDED_WINDOW_REL_TOL, model.use_plain_attention,
+                lambda: run_window(current[0], fs, seed=93, first=first),
+                {"guidance gradient dropped": gradient_dropped})
+    del guided, unguided
+
+    ro = make_rollout(fs, model, dataclasses.replace(fs.dcfg,
+                                                     reconstruction_guidance=GUIDANCE_WEIGHT))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = run_window(ro, fs, seed=94, first=first)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    evals = ro.stats["denoiser_evals_b1"] // WINDOW_BATCH
+    T = fs.spec.max_temporal_length
+    unguided_s = record["window"]["wall_s"]
+    record["guided_window"] = {
+        "weight": GUIDANCE_WEIGHT, "wall_s": wall, "frames_per_s": (T - 1) / wall,
+        "unguided_window_wall_s": unguided_s, "wall_ratio": wall / unguided_s,
+        "launches": launches, "denoiser_evals": evals,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "shape": list(video.shape),
+    }
+    log(f"flagship 8-frame window with reconstruction guidance {GUIDANCE_WEIGHT}, 50 DDIM steps, "
+        f"vanilla HG 4.0: {wall:.3f} s wall ({wall / unguided_s:.2f} x phase 5's "
+        f"{unguided_s:.3f} s), peak memory "
+        f"{record['guided_window']['peak_memory_bytes'] / 2**30:.2f} GiB; launches {launches}")
+    require(tuple(video.shape) == (1, T, fs.resolution, fs.resolution, fs.x_channels),
+            f"guided window shape {tuple(video.shape)}")
+    require(bool(torch.isfinite(video).all()), "guided window: non-finite output")
+    require(torch.equal(video[:, 0], first), "guided window: the context frame changed")
+    require(evals == fs.dcfg.sampling_timesteps, f"guided window took {evals} evaluations")
+    # every evaluation is a forward and a backward at the denoiser's batch,
+    # the checkpointed level recomputed, as in a train step
+    require_launches("the guided window", launches, expected_uvit_launches(fs, train_steps=evals))
+    del ro, video
+    ro = make_rollout(fs, model, dataclasses.replace(
+        fs.dcfg, sampling_timesteps=PROFILED_WINDOW_STEPS,
+        reconstruction_guidance=GUIDANCE_WEIGHT))
+    profiled(record, "guided_profile", f"{PROFILED_WINDOW_STEPS}-step guided window",
+             lambda: run_window(ro, fs, seed=95, first=first))
+    del ro, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_axial_precomputed_path(record: dict) -> dict:
+    """Phase 19 (d): the base-width U-ViT with axial blocks at level 3 at
+    phase 16's cut depth, on seeded random bf16 weights: a forward (B = 2,
+    one sample's pose dropped) on the sampling route's precomputed
+    conditioning (every block's pose FiLM term, and level 3's pooled pose
+    map) between a reset and a read of the launch counts, held against the
+    same forward on the raw ray maps, with the level maps dropped as the
+    control."""
+    import dataclasses
+
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.algorithms.dfot_video import (
+        cond_transform, sampling_cond_transform, uvit3d_pose_base,
+    )
+    from dfot_tpu_torch.diffusion.continuous import continuous_model_noise_input
+    from dfot_tpu_torch.diffusion.core import make_schedule
+
+    fs = uvit3d_pose_base()
+    block_types = tuple("AxialTransformerBlock" if i == 3 else kind
+                        for i, kind in enumerate(fs.spec.block_types))
+    fs = fs._replace(spec=dataclasses.replace(fs.spec, block_types=block_types,
+                                              **BASE_AXIAL_DEPTH))
+    model = build_random_model(fs, seed=95).to(torch.bfloat16).eval()
+    B, T, R, p = AXIAL_BATCH, fs.spec.max_temporal_length, fs.resolution, fs.spec.patch_size
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    x = torch.randn(B, T, (R // p) ** 2, p * p * fs.x_channels, generator=gen, device="cuda")
+    k = torch.randint(0, fs.dcfg.timesteps, (B, T), generator=gen, device="cuda")
+    noise_in = continuous_model_noise_input(fs.dcfg, make_schedule(fs.dcfg, "cuda"), k)
+    poses = identity_poses(B, T, "cuda")
+    mask = torch.arange(B, device="cuda") % 2 == 1
+    with torch.no_grad():
+        pre = sampling_cond_transform(model, fs.conditioning_type)(poses)
+        require(set(pre["levels"]) == {"3"}, f"precomputed levels {sorted(pre['levels'])}")
+        ops.reset_launch_counts()
+        out = model(x, noise_in, pre, mask)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        raw = model(x, noise_in, cond_transform(fs, torch.bfloat16)(poses), mask)
+        dropped = model(x, noise_in, {"mods": pre["mods"], "levels": {}}, mask)
+    err, ctrl = rel_l2(out, raw), rel_l2(dropped, raw)
+    record["axial_precomputed"] = {"rel_l2": err, "control_rel_l2": ctrl, "tol": FORWARD_REL_TOL,
+                                   "launches": launches, "batch": B}
+    log(f"base-width axial U-ViT, precomputed pose conditioning vs raw ray maps B={B}: rel L2 "
+        f"{err:.3e} (tol {FORWARD_REL_TOL}); control, level maps dropped {ctrl:.3e}; launches "
+        f"{launches}")
+    require(bool(torch.isfinite(out).all()), "axial precomputed route: non-finite output")
+    require(err <= FORWARD_REL_TOL, f"axial precomputed route off by {err}")
+    require(ctrl > FORWARD_REL_TOL, f"the bound does not reject dropped level maps ({ctrl})")
+    require_launches("the axial precomputed forward", launches,
+                     expected_uvit_launches(fs, forwards=1))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2875,6 +3276,13 @@ def main() -> int:
 
         # the training entry point
         by_path["train_loop"] = run_cli_training(record, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the matrix-attention DiTs, reconstruction guidance, axial pose maps
+        by_path.update(run_matrix_paths(record))
+        by_path["guided_window"] = run_guided_window_paths(record)
+        by_path["axial_precomputed"] = run_axial_precomputed_path(record)
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

@@ -534,11 +534,11 @@ class DFoTVideoAlgo:
                         use_fourier_noise_emb=fourier, token_io=token_io,
                         external_cond_dropout=dropout,
                     )
-                if cfg.get("external_cond_type"):
-                    raise NotImplementedError(
-                        "external conditioning of the plain U-ViT is not ported yet "
-                        "(ROADMAP.md queue A3)")
-                return UViT3D(spec, c, h, use_fourier_noise_emb=fourier, token_io=token_io)
+                # the U-ViT has no label table: labels, like actions, are
+                # vectors of external_cond_dim (dfot_tpu/algorithms/dfot_video.py:276)
+                return UViT3D(spec, c, h, use_fourier_noise_emb=fourier, token_io=token_io,
+                              external_cond_dim=cfg.get("external_cond_dim") or 0,
+                              external_cond_dropout=dropout)
         raise NotImplementedError(f"backbone {name!r} is not available")
 
     def _autocast(self, fn: Optional[Callable]) -> Optional[Callable]:

@@ -35,6 +35,7 @@ __all__ = [
     "training_targets",
     "training_loss",
     "ddim_idx_to_noise_level",
+    "estimate_noise_level",
 ]
 
 CARD = "cuda"  # what ``device=None`` means
@@ -372,3 +373,16 @@ def ddim_idx_to_noise_level(timesteps: int, sampling_timesteps: int, indices) ->
     real_steps = np.linspace(-1, timesteps - 1, sampling_timesteps + 1)
     real_steps = real_steps.astype(np.int64)  # truncation toward zero
     return real_steps[np.asarray(indices)]
+
+
+def estimate_noise_level(sched: Schedule, x: torch.Tensor,
+                         mu: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Maximum-likelihood noise level of each token of x (B, T, ...), as
+    an int64 (B, T) tensor: the level whose noise variance best explains
+    the token's mean square (about ``mu``, if given)."""
+    if mu is not None:
+        x = x - mu
+    mse = x.pow(2).mean(dim=tuple(range(2, x.ndim)))  # (B, T)
+    ac = sched.alphas_cumprod
+    ll = -sched.log_one_minus_alphas_cumprod - mse[..., None] * ac / (1 - ac)
+    return ll.argmax(dim=-1)

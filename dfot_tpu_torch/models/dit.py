@@ -3,10 +3,12 @@
 Port of ``dfot_tpu/models/dit.py``. Every token carries its own conditioning
 (the (B, N, C) stream ``c``), so every frame can carry its own noise level:
 the Diffusion Forcing mechanism. Variants: ``full`` (all T*P tokens in one
-attention), ``factorized_encoder`` (alternating spatial and temporal blocks)
-and ``factorized_attention`` (the same alternation, the spatial blocks with an
-MLP of their own ratio). The two matrix-attention variants need
-``models/matrix.py`` and raise ``NotImplementedError`` (see ROADMAP.md).
+attention), ``factorized_encoder`` (alternating spatial and temporal blocks),
+``factorized_attention`` (the same alternation, the spatial blocks with an
+MLP of their own ratio), and the matrix-attention variants of
+``models/matrix.py``: ``full_matrix_attention`` (every block a matrix block)
+and ``factorized_matrix_attention`` (spatial blocks, then matrix blocks over
+the whole (T, P) grid).
 
 Layouts follow the JAX package: video (B, T, H, W, C) channel-last in and out,
 (B, N, C) tokens inside. Module and parameter names are the upstream torch
@@ -21,7 +23,7 @@ Kernels: every block's ``modulate(ln(x), shift, scale)`` is kernel B8
 :func:`dfot_tpu_torch.ops.attention.attention_route`: long rows through the
 packed route B2 -> B1 -> B3 (a head dim of 72 zero-padded to 128 inside B2),
 rows of up to 32 tokens (the factorized variants' temporal and small spatial
-attentions) through kernel B10.
+attentions) through kernel B10. Matrix blocks launch no kernel.
 
 Training follows PyTorch's idiom: ``model.train()`` switches on the condition
 dropouts (draws from the device's global generator), ``model.eval()`` switches
@@ -49,9 +51,11 @@ from .embeddings import (
     RopeTables,
     StochasticTimeEmbedding,
     get_nd_sincos_pos_embed,
+    make_rope_1d,
     make_rope_2d,
     make_rope_3d,
 )
+from .matrix import MatrixDiTBlock
 from .remat import remat
 
 __all__ = [
@@ -188,22 +192,30 @@ class DiTSpec:
     mlp_ratio: float = 4.0
     spatial_mlp_ratio: Optional[float] = None
     variant: str = "full"  # full | factorized_encoder | factorized_attention
-    # (full_matrix_attention and factorized_matrix_attention are not ported:
-    # their fields come with models/matrix.py)
+    #        | full_matrix_attention | factorized_matrix_attention
     pos_emb_type: str = "rope_3d"
     patch_size: int = 2
     max_temporal_length: int = 16
     use_gradient_checkpointing: bool = False
     remat_policy: Optional[str] = None
     causal: bool = False
+    # matrix-attention variants
+    embed_col_dim: Optional[int] = None
+    embed_row_dim: Optional[int] = None
+    num_col_heads: Optional[int] = None
+    num_row_heads: Optional[int] = None
+    matrix_multi_token: bool = False
+    flatten_matrix_rope: bool = False
+    matrix_use_bias: bool = False
+    fixed_u: Optional[str] = None
+    use_temporal_rope: bool = False
     # difference-DiT double RoPE (not ported)
     double_rope_merge: Optional[str] = None
 
     @classmethod
     def from_config(cls, bcfg, max_tokens: int, causal: bool) -> "DiTSpec":
         """From the ``algorithm.backbone`` config node, field for field as
-        ``dfot_tpu/algorithms/dfot_video.py:_build_backbone`` reads it (the
-        matrix variants' own fields wait for models/matrix.py)."""
+        ``dfot_tpu/algorithms/dfot_video.py:_build_backbone`` reads it."""
         return cls(
             # matrix variants may leave hidden_size null; the effective width
             # is embed_row_dim
@@ -219,14 +231,19 @@ class DiTSpec:
             use_gradient_checkpointing=bcfg.get("use_gradient_checkpointing", False),
             remat_policy=bcfg.get("remat_policy"),
             causal=causal,
+            embed_col_dim=bcfg.get("embed_col_dim"),
+            embed_row_dim=bcfg.get("embed_row_dim"),
+            num_col_heads=bcfg.get("num_col_heads"),
+            num_row_heads=bcfg.get("num_row_heads"),
+            matrix_multi_token=bcfg.get("matrix_multi_token") or False,
+            flatten_matrix_rope=bcfg.get("flatten_matrix_rope") or False,
+            matrix_use_bias=bcfg.get("use_bias") or False,
+            fixed_u=bcfg.get("fixed_u"),
+            use_temporal_rope=bcfg.get("use_temporal_rope", False),
             double_rope_merge=(
                 bcfg.get("merge_type", "concat") if bcfg.name == "difference_dit3d" else None
             ),
         )
-
-    @property
-    def is_matrix(self) -> bool:
-        return self.variant in ("full_matrix_attention", "factorized_matrix_attention")
 
 
 class _LearnedPosEmb(nn.Module):
@@ -243,12 +260,8 @@ class DiTBase(nn.Module):
                  out_channels: int):
         super().__init__()
         s = spec
-        if s.is_matrix:
-            raise NotImplementedError(
-                f"DiT variant {s.variant!r} needs models/matrix.py, which is not ported yet "
-                "(ROADMAP.md, queue A)"
-            )
-        if s.variant not in ("full", "factorized_encoder", "factorized_attention"):
+        if s.variant not in ("full", "factorized_encoder", "factorized_attention",
+                             "full_matrix_attention", "factorized_matrix_attention"):
             raise ValueError(f"unknown DiT variant {s.variant!r}")
         if s.double_rope_merge is not None:
             raise NotImplementedError("the difference-DiT's double RoPE is not ported (ROADMAP.md)")
@@ -289,19 +302,40 @@ class DiTBase(nn.Module):
         # the blocks of every variant, "full" included, get spatial_mlp_ratio
         # (None unless configured: NO MLP); only the temporal blocks of the
         # factorized variants get mlp_ratio. Upstream checkpoints are so.
-        self.blocks = nn.ModuleList(
-            DiTBlock(dim, s.num_heads, s.spatial_mlp_ratio, rope, s.causal and s.variant == "full")
-            for _ in range(s.depth)
-        )
-        if self.is_factorized:
+        # Matrix blocks get mlp_ratio.
+        if s.variant == "full_matrix_attention":
+            self.blocks = nn.ModuleList(self._matrix_block() for _ in range(s.depth))
+        else:
+            self.blocks = nn.ModuleList(
+                DiTBlock(dim, s.num_heads, s.spatial_mlp_ratio, rope,
+                         s.causal and s.variant == "full")
+                for _ in range(s.depth)
+            )
+        if s.variant == "factorized_matrix_attention":
+            self.temporal_blocks = nn.ModuleList(self._matrix_block() for _ in range(s.depth))
+        elif self.is_factorized:
             self.temporal_blocks = nn.ModuleList(
                 DiTBlock(dim, s.num_heads, s.mlp_ratio, None, s.causal) for _ in range(s.depth)
             )
         self.final_layer = FinalLayer(dim, out_channels)
 
+    def _matrix_block(self) -> MatrixDiTBlock:
+        s = self.spec
+        rope = None
+        if s.use_temporal_rope:
+            n, d = s.embed_col_dim // s.num_col_heads, s.embed_row_dim // s.num_row_heads
+            rope = RopeTables(make_rope_1d(n * d if s.flatten_matrix_rope else d,
+                                           s.max_temporal_length))
+        return MatrixDiTBlock(
+            self.num_patches, s.hidden_size, s.embed_col_dim, s.embed_row_dim, s.num_col_heads,
+            s.num_row_heads, s.mlp_ratio, rope, s.flatten_matrix_rope, s.matrix_multi_token,
+            s.matrix_use_bias, s.fixed_u,
+        )
+
     @property
     def is_factorized(self) -> bool:
-        return self.spec.variant in ("factorized_encoder", "factorized_attention")
+        return self.spec.variant in ("factorized_encoder", "factorized_attention",
+                                     "factorized_matrix_attention")
 
     def _run(self, block, x, c):
         if self.spec.use_gradient_checkpointing and torch.is_grad_enabled():
@@ -344,15 +378,21 @@ class DiTBase(nn.Module):
                 x = self._run(block, x, c)
             return self.final_layer(x, c)
 
-        # spatial blocks over (B*T, P), temporal blocks over (B*P, T)
+        # spatial blocks over (B*T, P); temporal blocks over (B*P, T), or,
+        # matrix blocks, over the whole (B, T*P) grid
+        matrix_temporal = s.variant == "factorized_matrix_attention"
         cs = c.reshape(B * T, P, C)
-        ct = c.reshape(B, T, P, C).transpose(1, 2).reshape(B * P, T, C)
+        if not matrix_temporal:
+            ct = c.reshape(B, T, P, C).transpose(1, 2).reshape(B * P, T, C)
         for i, block in enumerate(self.blocks):
             xs = self._run(block, x.reshape(B * T, P, C), cs)
             if i == 0 and self.temporal_pos_table is not None:
                 # the temporal table is added once, after the first spatial block
                 tp = self.temporal_pos_table.on(dev, xs.dtype)[:T]
                 xs = (xs.reshape(B, T, P, C) + tp[:, None]).reshape(B * T, P, C)
+            if matrix_temporal:
+                x = self._run(self.temporal_blocks[i], xs.reshape(B, N, C), c)
+                continue
             xt = xs.reshape(B, T, P, C).transpose(1, 2).reshape(B * P, T, C)
             xt = self._run(self.temporal_blocks[i], xt, ct)
             x = xt.reshape(B, P, T, C).transpose(1, 2).reshape(B, N, C)

@@ -39,6 +39,8 @@ from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, swap_pairs
 from .remat import remat
 from .embeddings import (
     PatchEmbed,
+    RandomDropoutCondEmbedding,
+    RoPE,
     RopeTables,
     StochasticTimeEmbedding,
     conv_as_patch_matrix,
@@ -364,14 +366,20 @@ class UViTSpec:
 
 class UViT3D(nn.Module):
     """Residual U-ViT video denoiser; x (B, T, H, W, C) or, with
-    ``token_io``, (B, T, h*w, p*p*C). Returns fp32 in the input layout."""
+    ``token_io``, (B, T, h*w, p*p*C). Returns fp32 in the input layout.
+
+    With ``external_cond_dim`` > 0 a vector condition (B, T, dim), actions or
+    labels as the dataset gives them, is embedded by a SiLU MLP
+    (``external_cond_embedding``, dropped for a whole sample with
+    probability ``external_cond_dropout`` in training mode, and wherever the
+    mask says) and added to the noise-level embedding. A ``pos_emb_type``
+    other than ``rope`` means no RoPE on any level."""
 
     def __init__(self, spec: UViTSpec, x_channels: int, resolution: int,
-                 use_fourier_noise_emb: bool = False, token_io: bool = False):
+                 use_fourier_noise_emb: bool = False, token_io: bool = False,
+                 external_cond_dim: int = 0, external_cond_dropout: float = 0.0):
         super().__init__()
         s = spec
-        if s.pos_emb_type != "rope":
-            raise NotImplementedError(f"pos_emb_type {s.pos_emb_type!r} is not ported")
         bad = set(s.block_types) - {"ResBlock", "TransformerBlock", "AxialTransformerBlock"}
         if bad:
             raise ValueError(f"unknown block types {sorted(bad)}")
@@ -400,6 +408,10 @@ class UViT3D(nn.Module):
             for i in reversed(range(L - 1))
         )
         self.project_output = PatchUnembed(p, s.channels[0], x_channels)
+        self.external_cond_dim = external_cond_dim
+        if external_cond_dim:
+            self.external_cond_embedding = RandomDropoutCondEmbedding(
+                external_cond_dim, E, external_cond_dropout)
 
     @property
     def num_levels(self) -> int:
@@ -407,6 +419,14 @@ class UViT3D(nn.Module):
 
     def level_resolution(self, i_level: int) -> int:
         return self.resolution // self.spec.patch_size // (2**i_level)
+
+    def _rope(self, table: RoPE) -> RopeTables:
+        """A level's RoPE table on the device; with a ``pos_emb_type`` other
+        than ``rope`` the identity rotation of its shape (cos 1, sin 0),
+        which carries only the q/k norm scales folded into it."""
+        if self.spec.pos_emb_type != "rope":
+            table = RoPE(np.ones_like(table.cos), np.zeros_like(table.sin), table.sizes)
+        return RopeTables(table)
 
     def _make_block(self, i: int) -> nn.Module:
         s = self.spec
@@ -416,12 +436,12 @@ class UViT3D(nn.Module):
         d, T, r = ch // s.num_heads, s.max_temporal_length, self.level_resolution(i)
         if s.block_types[i] == "TransformerBlock":
             if i not in self._ropes:
-                self._ropes[i] = {"rope": RopeTables(make_rope_3d(d, (T, r, r)))}
+                self._ropes[i] = {"rope": self._rope(make_rope_3d(d, (T, r, r)))}
             axial = {}
         else:
             if i not in self._ropes:
-                self._ropes[i] = {"rope": None, "rope_ax1": RopeTables(make_rope_1d(d, T)),
-                                  "rope_ax2": RopeTables(make_rope_2d(d, (r, r)))}
+                self._ropes[i] = {"rope": None, "rope_ax1": self._rope(make_rope_1d(d, T)),
+                                  "rope_ax2": self._rope(make_rope_2d(d, (r, r)))}
             axial = {"ax1_len": T}
         return TransformerBlock(ch, s.num_heads, s.emb_channels, dropout=s.block_dropouts[i],
                                 **self._ropes[i], **axial)
@@ -532,8 +552,9 @@ class UViT3D(nn.Module):
 
     def _conditioning(self, emb, external_cond, external_cond_mask, B, T):
         """(per-level emb maps, per-block pose FiLM terms, pose scale)."""
-        if external_cond is not None:
-            raise NotImplementedError("UViT3D external conditioning is not ported; use UViT3DPose")
+        if external_cond is not None and self.external_cond_dim:
+            cond = self.external_cond_embedding(external_cond, external_cond_mask)
+            emb = emb + cond.to(emb.dtype)
         return [emb.reshape(B * T, 1, 1, -1)] * self.num_levels, {}, None
 
 
@@ -562,13 +583,23 @@ class UViT3DPose(UViT3D):
         if isinstance(external_cond, dict):
             if self.training:
                 raise ValueError("precomputed pose conditioning is for inference only")
-            if external_cond.get("levels"):
-                raise NotImplementedError("per-level pose maps (axial blocks) are not ported")
+            levels = external_cond.get("levels") or {}
             pose_scale = None
             if external_cond_mask is not None:
                 keep = 1.0 - external_cond_mask.to(emb.dtype)
                 pose_scale = keep.reshape(B, -1).expand(B, T)
-            embs = [emb.reshape(B * T, 1, 1, E)] * self.num_levels
+            embs = []
+            for i in range(self.num_levels):
+                lm = levels.get(str(i))
+                if lm is None:
+                    embs.append(emb.reshape(B * T, 1, 1, E))
+                    continue
+                # an axial level takes its pooled pose map as it is
+                lm = lm.to(emb.dtype)
+                if pose_scale is not None:
+                    lm = lm * pose_scale[:, :, None, None, None]
+                e = emb[:, :, None, None, :] + lm
+                embs.append(e.reshape((B * T,) + e.shape[2:]))
             return embs, external_cond.get("mods") or {}, pose_scale
         hh = self.level_resolution(0)
         pose = self.external_cond_embedding.patch_embedder(external_cond)
@@ -596,14 +627,14 @@ def precompute_pose_conditioning(model: UViT3DPose, pose_map: torch.Tensor) -> d
     Every block's FiLM modulation is ``emb_layer(noise_vec + pose_map_emb)``;
     ``emb_layer`` is linear, so the pose term ``W @ pose_map_emb`` (patch
     embedding, per-level pooling, every block's projection) is computed here
-    and added inside the blocks. pose_map: raw (B, T, H, W, Cp).
-    Returns {"mods": {block_name: (B, T, h_l, w_l, 2C)}, "levels": {}}.
+    and added inside the blocks. An axial block regroups its tokens, so its
+    level keeps the pooled pose map itself, which the model adds to the
+    noise-level embedding. pose_map: raw (B, T, H, W, Cp). Returns
+    {"mods": {block_name: (B, T, h_l, w_l, 2C)},
+    "levels": {str(i_level): (B, T, h_l, w_l, E)}}, "levels" only for the
+    axial levels.
     """
     s = model.spec
-    if "AxialTransformerBlock" in s.block_types:
-        raise NotImplementedError(
-            "precomputed pose conditioning for axial blocks (per-level pose maps) is not "
-            "ported: give the model the raw pose map")
     B, T, H, W, Cp = pose_map.shape
     pe = model.external_cond_embedding.patch_embedder.proj
     dt = pe.weight.dtype
@@ -615,13 +646,16 @@ def precompute_pose_conditioning(model: UViT3DPose, pose_map: torch.Tensor) -> d
     lvls = [emb0] + [
         _nchw(lambda t, k=2**i: F.avg_pool2d(t, k), emb0) for i in range(1, model.num_levels)
     ]
-    mods = {}
+    mods, levels = {}, {}
     for name, i in model.block_names():
         blk = model.block(name)
+        if s.block_types[i] == "AxialTransformerBlock":
+            levels[str(i)] = lvls[i].reshape((B, T) + lvls[i].shape[1:])
+            continue
         if isinstance(blk, ResBlock):
             w = blk.emb_layer.weight[:, :, 0, 0]
         else:
             w = blk.norm.emb_layer.weight
         m = F.linear(lvls[i], w)
         mods[name] = m.reshape((B, T) + m.shape[1:])
-    return {"mods": mods, "levels": {}}
+    return {"mods": mods, "levels": levels}

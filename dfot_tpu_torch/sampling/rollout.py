@@ -180,7 +180,7 @@ class DFoTRollout:
         self.stats["windows"] += 1
         if conditions is not None:
             conditions = torch.as_tensor(conditions, device=dev)
-        out = self._window_fn(x_init, plan, conditions, generator)
+        out = self._window_fn(x_init, plan, conditions, generator, ctx)
         return out[:, :length]
 
     # ------------------------------------------------------------------

@@ -8,8 +8,11 @@ axis, the counterpart of the JAX ``lax.scan``: each step is a denoise, a
 go-back re-noise or a no-op, chosen from the host plan, so the loop never
 waits on the device.
 
-Reconstruction guidance and the multi-device ``mesh`` are not ported; asking
-for them raises ``NotImplementedError``.
+Reconstruction guidance differentiates each step's reconstruction loss
+against the clean context with respect to the denoiser's input (the model's
+autograd route: B2 -> B1 -> B3 forward, B7 -> B4, B5 -> B6 back). The
+multi-device ``mesh`` is not ported; asking for it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -186,15 +189,21 @@ def make_window_sampler(
     (N, T, ...), noise_input (N, T) float (discrete k or scaled logSNR),
     cond (N, ...) or None, cond_mask (N,) bool.
 
-    Returns sample_window(x_init, plan, conditions, generator) -> (B, T, ...)
-    samples. ``x_init`` is the noise-initialized window with the context
-    installed. ``cond_transform`` maps the NFE-expanded conditions
-    once per window (e.g. poses -> ray maps -> pose FiLM terms).
-    ``state_codec`` = (to_state, from_state) keeps the loop state in the
-    model's token layout.
+    Returns sample_window(x_init, plan, conditions, generator, context) ->
+    (B, T, ...) samples. ``x_init`` is the noise-initialized window with the
+    context installed; ``context`` the clean context (zeros elsewhere),
+    which reconstruction guidance needs. ``cond_transform`` maps the
+    NFE-expanded conditions once per window (e.g. poses -> ray maps -> pose
+    FiLM terms), without gradient. ``state_codec`` = (to_state, from_state)
+    keeps the loop state in the model's token layout.
+
+    With ``reconstruction_guidance`` > 0 each denoising step takes the
+    gradient of ``-w / 2 * sum(sqrt(alpha) * (x0_pred - context)^2)`` over
+    the context frames (each row divided by its count of context frames)
+    with respect to the model's input alone, and moves the predicted noise
+    by ``sqrt(1 - alpha)`` times its negation (``dfot_tpu/sampling/
+    sampler.py:362-383``).
     """
-    if reconstruction_guidance > 0:
-        raise NotImplementedError("reconstruction guidance is not ported")
     if mesh is not None:
         raise NotImplementedError("multi-device sampling (mesh) is not ported")
 
@@ -203,8 +212,30 @@ def make_window_sampler(
             return continuous_model_noise_input(dcfg, sched, k_clipped)
         return k_clipped.float()
 
+    def guided_predictions(x_e, k_clip, cond_e, condmask_e, ctx_e, ctxmask_e):
+        """The model's predictions at x_e, the noise moved along the
+        gradient of the reconstruction loss with respect to x_e."""
+        alpha = dc.bcast_right(sched.alphas_cumprod[k_clip.long()], x_e.ndim)
+        x_in = x_e.detach().requires_grad_(True)
+        with torch.enable_grad():
+            model_out = model_apply(x_in, noise_input(k_clip), cond_e, condmask_e)
+            pred_in = dc.model_predictions(sched, dcfg, x_in, k_clip, model_out)
+            mse = (pred_in.pred_x_start - ctx_e) ** 2 * alpha.sqrt()
+            m = dc.bcast_right((ctxmask_e > 0).to(mse.dtype), mse.ndim)
+            denom = m.sum(dim=1, keepdim=True).clamp(min=1)
+            likelihood = -reconstruction_guidance * 0.5 * (mse * m / denom).sum()
+            (grad,) = torch.autograd.grad(likelihood, x_in)
+        grad = torch.nan_to_num(-grad)
+        model_out = model_out.detach()
+        pred = dc.model_predictions(sched, dcfg, x_e, k_clip, model_out)
+        pred_noise = pred.pred_noise + (1 - alpha).sqrt() * grad
+        x_start = torch.where(
+            alpha > 0, dc.predict_start_from_noise(sched, x_e, k_clip, pred_noise),
+            pred.pred_x_start)
+        return dc.ModelPrediction(pred_noise, x_start, model_out)
+
     @torch.no_grad()
-    def sample_window(x_init, plan: SamplingPlan, conditions, generator=None):
+    def sample_window(x_init, plan: SamplingPlan, conditions, generator=None, context=None):
         if state_codec is not None:
             to_state, from_state = state_codec
             x_init = to_state(x_init)
@@ -214,6 +245,13 @@ def make_window_sampler(
         cond_e = None if conditions is None else torch.repeat_interleave(conditions, nfe, dim=0)
         if cond_e is not None and cond_transform is not None:
             cond_e = cond_transform(cond_e)
+        ctx_e = None
+        if reconstruction_guidance > 0:
+            if context is None:
+                raise ValueError("reconstruction guidance needs the clean context")
+            if state_codec is not None:
+                context = to_state(context)
+            ctx_e = torch.repeat_interleave(context, nfe, dim=0)
         steps = SamplingPlan(*(torch.as_tensor(a, device=dev) for a in plan))
 
         def noise_like(x):
@@ -239,8 +277,12 @@ def make_window_sampler(
                 dcfg.timesteps, replacement_only, generator,
             )
             k_clip = from_e.clamp(min=0)
-            model_out = model_apply(x_e, noise_input(k_clip), cond_e, condmask_e)
-            pred = dc.model_predictions(sched, dcfg, x_e, k_clip, model_out)
+            if ctx_e is not None:
+                pred = guided_predictions(x_e, k_clip, cond_e, condmask_e, ctx_e,
+                                          torch.repeat_interleave(cmask, nfe, dim=0))
+            else:
+                model_out = model_apply(x_e, noise_input(k_clip), cond_e, condmask_e)
+                pred = dc.model_predictions(sched, dcfg, x_e, k_clip, model_out)
             # DDIM with eta = 0 multiplies its noise by zero: skip the draw
             noise = noise_like(x_e) if use_ddpm or dcfg.ddim_sampling_eta > 0 else 0.0
             if use_ddpm:

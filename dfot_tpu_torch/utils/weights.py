@@ -11,7 +11,8 @@ quantity that is linear in them) lands on the port's parameter names, so the
 two packages' trees can be compared leaf by leaf.
 :func:`dit3d_state_dict_from_flax` is the same for DiT3D and DiT3DPose, the
 inverse of ``import_dit3d_params``; there every leaf is a permutation of its
-flax leaf, so parameters and gradients go through it alike.
+flax leaf (a matrix block's einsum factors are the leaf itself), so
+parameters and gradients go through it alike.
 """
 
 from __future__ import annotations
@@ -136,11 +137,13 @@ def uvit3d_state_dict_from_flax(
             out[key] = (
                 _patchify_conv(value, external_cond_dim, p) if kind == "kernel" else np.asarray(value)
             )
-        elif head == "noise_emb":
-            m = re.fullmatch(r"mlp/linear_(\d)/(kernel|bias)", rest)
+        elif head in ("noise_emb", "cond_emb"):
+            sub, module = (("mlp", "noise_level_pos_embedding") if head == "noise_emb"
+                           else ("embedding", "external_cond_embedding"))
+            m = re.fullmatch(sub + r"/linear_(\d)/(kernel|bias)", rest)
             if m is None:
-                raise KeyError(f"unmapped noise_emb parameter {path}")
-            key = f"noise_level_pos_embedding.embedding.linear_{m.group(1)}."
+                raise KeyError(f"unmapped {head} parameter {path}")
+            key = f"{module}.embedding.linear_{m.group(1)}."
             out[key + ("weight" if m.group(2) == "kernel" else "bias")] = (
                 _linear(value) if m.group(2) == "kernel" else np.asarray(value)
             )
@@ -186,6 +189,10 @@ _DIT_BLOCK_MODULES = {
 }
 
 
+# a matrix block's einsum factors: the flax layout is the upstream one
+_MATRIX_LEAVES = ("qkv_u", "proj_u", "qkv_v", "proj_v", "qkv_bias", "proj_bias")
+
+
 def _dense(prefix: str, kind: str, value):
     """A flax Dense leaf under the torch Linear ``prefix``."""
     if kind == "kernel":
@@ -210,10 +217,12 @@ def _dit3d_leaf(path: str, value, p: int):
     if path == "dit/pos_emb":
         return "dit_base.pos_emb.pos_emb", np.asarray(value)
     if m := re.fullmatch(r"dit/(temporal_)?block_(\d+)/(.+)", module):
+        blocks = "temporal_blocks" if m.group(1) else "blocks"
         if m.group(3) in _DIT_BLOCK_MODULES:
-            blocks = "temporal_blocks" if m.group(1) else "blocks"
             return _dense(
                 f"dit_base.{blocks}.{m.group(2)}.{_DIT_BLOCK_MODULES[m.group(3)]}", kind, value)
+        if m.group(3) == "attn" and kind in _MATRIX_LEAVES:
+            return f"dit_base.{blocks}.{m.group(2)}.attn.{kind}", np.asarray(value)
     if module == "dit/final_layer/mod/linear":
         return _dense("dit_base.final_layer.norm_final.modulation.1", kind, value)
     if module == "dit/final_layer/proj":

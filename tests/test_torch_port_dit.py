@@ -260,9 +260,12 @@ def test_dit3d_pose_matches(conditioning):
 
 
 def test_unported_dit_variants_raise_by_name():
+    # the matrix variants are ported (tests/test_torch_port_matrix.py)
+    matrix = dict(embed_col_dim=16, embed_row_dim=384, num_col_heads=1, num_row_heads=6)
     for variant in ("full_matrix_attention", "factorized_matrix_attention"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TD.DiT3D(TD.DiTSpec(variant=variant, pos_emb_type="sinusoidal_2d"), 3, (8, 8))
+        TD.DiT3D(TD.DiTSpec(variant=variant, pos_emb_type="sinusoidal_2d", **matrix), 3, (8, 8))
+    with pytest.raises(ValueError, match="unknown DiT variant"):
+        TD.DiT3D(TD.DiTSpec(variant="no_such_variant", pos_emb_type="sinusoidal_2d"), 3, (8, 8))
     with pytest.raises(NotImplementedError, match="double RoPE"):
         TD.DiT3D(TD.DiTSpec(double_rope_merge="concat"), 3, (8, 8))
     with pytest.raises(ValueError):
@@ -307,8 +310,8 @@ def test_axial_uvit_forward_matches(resolution):
     assert rel_err(got.detach(), want) < 1e-4
     from dfot_tpu_torch.models.uvit import precompute_pose_conditioning
 
-    with pytest.raises(NotImplementedError, match="axial"):
-        precompute_pose_conditioning(pm, t(pose))
+    # axial levels keep their pooled pose maps (tests/test_torch_port_remainders.py)
+    assert set(precompute_pose_conditioning(pm, t(pose))["levels"]) == {"2", "3"}
 
 
 # ---------------------------------------------------------------------------
@@ -457,11 +460,9 @@ def test_k600_recipe_matches_config_composition():
     a, e = cfg.algorithm, cfg.experiment
     want, got = dataclasses.asdict(algo.model.spec), dataclasses.asdict(r.spec)
     assert {k: want[k] for k in got} == got
-    # what the JAX spec has beyond the port's belongs to the matrix variants,
-    # which are not ported: the recipe leaves every such field at its default
-    defaults = dataclasses.asdict(type(algo.model.spec)())
-    assert {k: want[k] for k in want.keys() - got.keys()} == {
-        k: defaults[k] for k in want.keys() - got.keys()}
+    # the two specs have the same fields: the recipe leaves the matrix
+    # variants' at their defaults
+    assert want.keys() == got.keys()
     assert algo.dcfg == jax_dcfg(r.dcfg)
     assert algo.x_shape == (*r.resolution, r.x_channels)
     assert (algo.max_tokens, algo.n_context_tokens) == (r.max_tokens, r.n_context_tokens)

@@ -858,3 +858,127 @@ def test_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
     for name in ("flash_fwd", "qkv_prep", "attn_out_collect"):
         assert launches[name] == forwards, (name, launches)
     assert all(math.isfinite(v) for v in card.last_metrics.values()) and card.last_metrics
+
+
+def _rel_l2_of(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.gpu
+def test_factorized_matrix_dit_routes(cuda):
+    """A narrow FacMatDiT (the UCF-101 latent shape, 16 patches a frame,
+    spatial heads of 128): its spatial blocks on B8 and B10 (B9 back)
+    against the plain route, forward and a spatial block's gradient; the
+    matrix blocks launch nothing; a LayerNorm + modulate without its
+    normalisation falls outside the bound."""
+    from dfot_tpu_torch.models import dit
+    from dfot_tpu_torch.utils.weights import init_random_weights
+
+    spec = dit.DiTSpec(hidden_size=256, depth=2, num_heads=2, spatial_mlp_ratio=4.0,
+                       variant="factorized_matrix_attention", pos_emb_type="rope_2d",
+                       max_temporal_length=16, use_gradient_checkpointing=True,
+                       embed_col_dim=16, embed_row_dim=256, num_col_heads=1, num_row_heads=4,
+                       matrix_use_bias=True, use_temporal_rope=True)
+    with torch.device(cuda):
+        model = dit.DiT3D(spec, 32, (8, 8))
+    init_random_weights(model, torch.Generator().manual_seed(0))
+    model.eval()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 16, 8, 8, 32, generator=g, device=cuda)
+    k = torch.randint(0, 1000, (4, 16), generator=g, device=cuda).float()
+    cot = torch.randn(x.shape, generator=g, device=cuda)
+    probe = model.dit_base.blocks[0].attn.qkv.weight
+
+    def run(plain=False):
+        model.use_plain_kernels(plain)
+        model.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = model(x, k).float()
+        (out * cot).mean().backward()
+        model.use_plain_kernels(False)
+        return out.detach(), probe.grad.clone()
+
+    ops.reset_launch_counts()
+    out_k, grad_k = run()
+    launches = ops.launch_counts()
+    out_p, grad_p = run(plain=True)
+    assert _rel_l2_of(out_k, out_p) <= 2e-2
+    assert _rel_l2_of(grad_k, grad_p) <= 5e-2
+    # each spatial block: B8 twice (with its MLP), B10 once; the final layer
+    # B8 once; the checkpointed spatial blocks run again in the backward
+    assert launches == {**{n: 0 for n in launches}, "ln_modulate": 5 + 4,
+                        "ln_modulate_bwd": 5, "small_n_attn": 2 + 2}, launches
+    real = dit.ln_modulate
+    dit.ln_modulate = lambda x, shift, scale, eps=None, plain=False: x * (1 + scale) + shift
+    try:
+        out_c, _ = run()
+    finally:
+        dit.ln_modulate = real
+    assert _rel_l2_of(out_c, out_p) > 2e-2
+
+
+@pytest.mark.gpu
+def test_reconstruction_guided_window_routes(cuda):
+    """A narrow flagship (heads of 64 and 128, 64 px) samples a 3-step
+    window with reconstruction guidance: each step a forward and a backward
+    through B2 -> B1 -> B3 and B7 -> B4, B5 -> B6, against the plain route
+    within 2e-2 relative L2; the window without the guidance gradient falls
+    outside."""
+    import dataclasses
+
+    from dfot_tpu_torch.algorithms.dfot_video import (
+        build_model, flagship, sampling_cond_transform,
+    )
+    from dfot_tpu_torch.diffusion.core import make_schedule
+    from dfot_tpu_torch.models.uvit import TransformerBlock, patchify_tokens, unpatchify_tokens
+    from dfot_tpu_torch.sampling import DFoTRollout, RolloutConfig
+    from dfot_tpu_torch.utils.weights import init_random_weights
+
+    fs = flagship()
+    spec = dataclasses.replace(fs.spec, channels=(32, 32, 64, 128), emb_channels=64,
+                               num_updown_blocks=(1, 1, 1), num_mid_blocks=1, num_heads=1)
+    fs = fs._replace(spec=spec, resolution=64)
+    model = build_model(fs, device=cuda)
+    init_random_weights(model, torch.Generator().manual_seed(2))
+    model = model.to(torch.bfloat16).eval()
+    R, T, p = 64, spec.max_temporal_length, spec.patch_size
+    pose = torch.zeros(1, T, 16, device=cuda)
+    pose[..., :4] = torch.tensor([1.0, 1.0, 0.5, 0.5], device=cuda)
+    pose[..., 4] = pose[..., 9] = pose[..., 14] = 1.0
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ctx = torch.zeros(1, T, R, R, 3, device=cuda)
+    ctx[:, 0] = torch.rand(R, R, 3, generator=g, device=cuda) * 2 - 1
+    mask = np.zeros((1, T), np.int64)
+    mask[:, 0] = 1
+
+    def window(weight):
+        dcfg = dataclasses.replace(fs.dcfg, sampling_timesteps=3, reconstruction_guidance=weight)
+        ro = DFoTRollout(RolloutConfig(
+            max_tokens=T, x_shape=(R, R, 3),
+            cond_transform=sampling_cond_transform(model, fs.conditioning_type),
+            state_codec=(lambda x: patchify_tokens(x, p), lambda x: unpatchify_tokens(x, p, R, R)),
+        ), dcfg, make_schedule(dcfg, cuda), model)
+        return ro.sample_sequence(torch.Generator(device=cuda).manual_seed(4), 1, length=T,
+                                  context=ctx, context_mask=mask, conditions=pose,
+                                  history_guidance=fs.history_guidance)
+
+    ops.reset_launch_counts()
+    got = window(10.0)
+    launches = ops.launch_counts()
+    model.use_plain_attention(True)
+    try:
+        want = window(10.0)
+    finally:
+        model.use_plain_attention(False)
+    assert torch.isfinite(got).all() and torch.equal(got[:, 0], ctx[:, 0])
+    assert _rel_l2_of(got, want) <= 2e-2
+    assert _rel_l2_of(window(0.0), want) > 2e-2
+    # a step is one batched call (vanilla HG's two evaluations) forward and
+    # back, the checkpointed levels' blocks run again in the backward
+    levels = [i for name, i in model.block_names()
+              if isinstance(model.block(name), TransformerBlock)]
+    again = sum(spec.use_checkpointing[i] for i in levels)
+    for name in ("flash_fwd", "qkv_prep", "attn_out_collect"):
+        assert launches[name] == 3 * (len(levels) + again), (name, launches)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "qkv_prep_bwd", "attn_out_scatter"):
+        assert launches[name] == 3 * len(levels), (name, launches)

@@ -304,11 +304,13 @@ def test_sample_sequence_matches_jax(monkeypatch):
 def test_unported_options_raise():
     dcfg = small_dcfg()
     ts = TDC.make_schedule(dcfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TSM.make_window_sampler(None, dcfg, ts, reconstruction_guidance=1.0)
-    with pytest.raises(NotImplementedError):
-        TR.DFoTRollout(TR.RolloutConfig(8, (4, 4, 3)),
-                       dataclasses.replace(dcfg, reconstruction_guidance=1.0), ts, None)
+    # reconstruction guidance is ported (tests/test_torch_port_remainders.py);
+    # a guided window needs the clean context
+    window = TSM.make_window_sampler(None, dcfg, ts, reconstruction_guidance=1.0)
+    plan = TSM.plan_sampling(np.stack([MASKS[0]]), THG.HistoryGuidance.conditional(),
+                             "full_sequence", 1000, 3, 8)
+    with pytest.raises(ValueError, match="clean context"):
+        window(torch.zeros(1, 8, 4, 4, 3), plan, None)
     with pytest.raises(NotImplementedError):
         TR.DFoTRollout(TR.RolloutConfig(8, (4, 4, 3), mesh=object()), dcfg, ts, None)
     with pytest.raises(ValueError):
