@@ -143,9 +143,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     precomputed pose conditioning (level 3's pooled pose map) against the
     raw ray maps, with the level maps dropped as the control, B1-B3 and
     B10 launch counts required. Step 2 also holds B8, B9 and B10 at
-    FacMatDiT/L's spatial shapes.
+    FacMatDiT/L's spatial shapes;
+20. drives the latent path (``run_latent_paths``): the DMLab recipe's DC-AE
+    f8c32 at its published widths on seeded random weights, a (2 x 16, 64,
+    64, 3) batch encoded and decoded twice (the same bits) and held against
+    the same weights on the CPU in fp32 (relative L2 1e-4), with the pixel
+    shuffles in the wrong channel order as the control, timed with fp32
+    and with TF32 convolutions; a DMLab-layout directory of seeded ``.npz``
+    videos under ``build/latent/`` (360 clips of 16 frames: 11 batches of
+    32 an epoch); the recipe trained through ``run(argv)`` at its composed
+    batch of 32 with its 11 loader worker processes and the DC-AE encoding
+    each batch online, 12 steps (the 12th in the second epoch), a mid-run
+    validation every 6 decoding through the DC-AE, the step period, the
+    encode, the train step and the wait for each batch timed, one step
+    profiled in two parts (the encode; the DiT's forward, backward and
+    update); ``experiment=video_latent_preprocessing`` on the directory,
+    then 2 steps from its latents (``dataset.latent.type=pre_sample``), the
+    first batch held against the online encoding of the same clips to the
+    fp16 rounding; K600 @DiT/XL at full width, depth cut to 4, on a
+    K600-layout directory of preprocessed ``.npz`` (17 frames, 128 px): 2
+    steps at its composed batch of 16 with the VideoVAE encoding online,
+    then one validation batch decoded and scored; B1-B9 required launched
+    in each of the three training runs. Step 2 also holds B1-B7 at the
+    DMLab site (32, 6, 256, 64) and B8, B9 at C = 384 over 32 x 256 tokens.
 
-Steps 3, 4, 7, 10, 11, 14, 15, 16 and 19 also run controls (an attention that
+Steps 3, 4, 7, 10, 11, 14, 15, 16, 19 and 20 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -192,7 +214,8 @@ ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
 # the paths that are driven between a reset and a read of the launch counts
 PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
          "base_train", "base_axial", "interp2", "rollout", "cli", "train_loop", "facmat_window",
-         "facmat_train", "fullmat_window", "fullmat_train", "guided_window", "axial_precomputed")
+         "facmat_train", "fullmat_window", "fullmat_train", "guided_window", "axial_precomputed",
+         "latent_train", "latent_pre_sample", "k600_latent")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -225,11 +248,16 @@ PADDED_SITE = (2048, 4, 160, 256)
 # attention over N tokens of H heads of dim D, padded to DP inside B2
 XL_BATCH = 8
 XL_SITE = (1280, 16, 72, 128)
+# the DMLab DC-AE recipe's DiT3D: batch 32, 16 latent frames of (8 / 2)^2
+# patches (N = 256), 6 heads of 64, its RoPE grid (16, 4, 4)
+DMLAB_BATCH = 32
+DMLAB_SITE = (256, 6, 64)
 # LayerNorm + modulate shapes (B, N, C): K600 @DiT/XL, Minecraft @DiT/B, and
 # the spatial view (B * T, P, C) of the factorized DiT and of FacMatDiT/L at
 # its batch of 32
 LN_SHAPES = (("xl", (XL_BATCH, 1280, 1152)), ("dit_b", (8, 1024, 768)),
-             ("factorized", (128, 16, 384)), ("facmat", (32 * 16, 16, 768)))
+             ("factorized", (128, 16, 384)), ("facmat", (32 * 16, 16, 768)),
+             ("dmlab", (DMLAB_BATCH, 256, 384)))
 # small-N attention shapes (items Z = B * H, N, D): the axial U-ViT's temporal
 # attention at levels 2 and 3 (B0 * tokens a frame * heads), the factorized
 # DiT's temporal and spatial attention, five latent frames, the longest row,
@@ -994,6 +1022,10 @@ def check_kernels(record: dict) -> dict:
     N, H, D, DP = XL_SITE
     attention_site(f"xl B={XL_BATCH} N={N} H={H} d={D}->{DP}", XL_BATCH, N, H, D, DP, (5, 16, 16),
                    False, 3, (False, False), in_path=True)
+    # the DMLab latent recipe's train step (B1-B7 at its batch of 32)
+    N, H, D = DMLAB_SITE
+    attention_site(f"dmlab B={DMLAB_BATCH} N={N} H={H} d={D}", DMLAB_BATCH, N, H, D, D,
+                   (16, 4, 4), False, 3, (False, False))
     # d = 256: the base-width U-ViT's level 3 at the window's batch and the
     # train step's, and a head of 160 padded to 256 (listed under other sites)
     level, N, H, D = BASE_SITE
@@ -3192,6 +3224,477 @@ def run_axial_precomputed_path(record: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the latent path: the DC-AE, on-disk DMLab data in worker
+# processes, online encoding, preprocessing and pre-sampled latents, and
+# K600 @DiT/XL on the online VideoVAE
+# ---------------------------------------------------------------------------
+
+# the DMLab DC-AE recipe as composed (DiT3D full at hidden 384, depth 12, 6
+# heads; batch 32; 11 loader workers; the DC-AE f8c32 of dc_ae_preprocessor.yaml)
+DMLAB_ARGV = ["dataset=dmlab", "algorithm=dfot_video", "experiment=video_generation",
+              "wandb.mode=disabled"]
+# 24 training videos of 30 frames: 15 clips of 16 frames each, 360 clips, 11
+# full batches of 32 an epoch (so the loader keeps all 11 workers); 4
+# validation videos
+DMLAB_VIDEOS = (("training", 24, 30), ("validation", 4, 20))
+DMLAB_RES = 64
+LATENT_STEPS = 12  # the 12th step is the first of the second epoch
+LATENT_VAL_EVERY = 6
+PRE_SAMPLE_STEPS = 2
+# the DC-AE on the card in fp32 (TF32 off) against the same module on the
+# CPU: relative L2 of the latents and of the decoded pixels
+DCAE_CPU_REL_TOL = 1e-4
+# K600 @DiT/XL at full width, the depth cut from 28 to 4; its composed
+# training batch of 16 on a K600-layout directory of preprocessed .npz
+K600_ARGV = ["dataset=kinetics_600", "algorithm=dfot_video", "experiment=video_generation",
+             "@DiT/XL", "wandb.mode=disabled"]
+K600_DEPTH = 4
+K600_VIDEOS = (("training", 16, 17), ("validation", 2, 17))
+K600_RES = 128
+K600_STEPS = 2
+LATENT_PATH_KERNELS = ATTENTION_KERNELS + ("ln_modulate", "ln_modulate_bwd")  # B1-B9
+
+
+def init_vae_weights(module, generator) -> None:
+    """Seeded random VAE weights: U(-1, 1) / sqrt(fan_in) kernels, norm
+    weights 1 + U(-0.1, 0.1), biases U(-0.02, 0.02), BatchNorm statistics
+    off their defaults (means U(-0.1, 0.1), variances U(0.5, 1.5))."""
+    import torch
+
+    with torch.no_grad():
+        for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+            if not t.is_floating_point():
+                continue
+            u = torch.rand(t.shape, generator=generator) * 2 - 1
+            if name.endswith("running_var"):
+                v = 1 + 0.5 * u
+            elif name.endswith("running_mean"):
+                v = 0.1 * u
+            elif t.ndim == 1 and name.endswith("weight"):
+                v = 1 + 0.1 * u
+            elif t.ndim == 1:
+                v = 0.02 * u
+            else:
+                v = u / math.sqrt(t.shape[1] * math.prod(t.shape[2:]))
+            t.copy_(v.to(t.dtype))
+
+
+def unshuffle_channels_last_order(x, r: int = 2):
+    """pixel_unshuffle with its output channels in (r, r, C) order: the
+    wrong one (the control of the DC-AE check)."""
+    B, C, H, W = x.shape
+    x = x.reshape(B, C, H // r, r, W // r, r).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(B, C * r * r, H // r, W // r)
+
+
+def write_npz_videos(root: Path, splits, res: int, seed: int, channels_first: bool = False,
+                     actions: int = 0, raw_dir: bool = False) -> None:
+    """Seeded videos of a drifting random image, one ``.npz`` each, under
+    ``root/<split>/`` (DMLab: ``ep<i>/v<i>.npz`` with ``actions``) or, with
+    ``raw_dir``, K600's ``<split>/v<i>.npz`` beside the preprocessed
+    ``<split>_preprocessed_<res>_npz/v<i>.npz`` stored (T, C, H, W)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for split, n, length in splits:
+        for i in range(n):
+            base = rng.integers(0, 256, (res, res, 3)).astype(np.uint8)
+            video = np.stack([np.roll(base, 2 * t, axis=1) for t in range(length)])
+            if raw_dir:
+                for d, v in ((root / split, video),
+                             (root / f"{split}_preprocessed_{res}_npz", video.transpose(0, 3, 1, 2))):
+                    d.mkdir(parents=True, exist_ok=True)
+                    np.savez(d / f"v{i}.npz", video=v)
+                continue
+            d = root / split / f"ep{i}"
+            d.mkdir(parents=True, exist_ok=True)
+            arrays = {"video": video.transpose(0, 3, 1, 2) if channels_first else video}
+            if actions:
+                arrays["actions"] = rng.integers(0, actions, length)
+            np.savez(d / f"v{i}.npz", **arrays)
+
+
+class TimedLoader:
+    """A training loader whose every ``next()`` is timed on the host clock
+    (the time a step waits for its batch), with the worker processes' pids."""
+
+    def __init__(self, loader, waits: list, pids: list):
+        self.loader, self.waits, self.pids = loader, waits, pids
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t)
+            pool = getattr(self.loader, "_pool", None)
+            if pool is not None and not self.pids:
+                self.pids.extend(w.pid for w in pool._iterator._workers)
+            yield batch
+
+    def close(self):
+        self.loader.close()
+
+
+def check_dcae(rec: dict, cfg, pth: Path) -> None:
+    """(a) The recipe's DC-AE on the card: a seeded (2 x 16, 64, 64, 3)
+    batch encoded and decoded twice (the same bits), against the same
+    weights on the CPU in fp32, with a control (the pixel shuffles in the
+    wrong channel order) that the bound must reject; timed in fp32 and with
+    cuDNN's TF32 (PyTorch's default)."""
+    import numpy as np
+    import torch
+    from dfot_tpu_torch.vae import dc_ae as DC
+    from dfot_tpu_torch.vae.codec import LatentCodec
+
+    cpu_vae = DC.DCAE(DC.DCAEConfig.from_config(cfg.algorithm.vae))
+    init_vae_weights(cpu_vae, torch.Generator().manual_seed(200))
+    torch.save(cpu_vae.state_dict(), pth)
+    codec = LatentCodec(cfg.algorithm, cfg.dataset)
+    require(codec.pretrained and codec.deterministic, "the DMLab codec is not the loaded DC-AE")
+    n_params = sum(p.numel() for p in codec.vae.parameters())
+    videos = np.random.default_rng(201).uniform(0, 1, (2, 16, DMLAB_RES, DMLAB_RES, 3)) \
+        .astype(np.float32)
+    x = torch.from_numpy(videos).cuda()
+    z1 = codec.encode_video(x)
+    y1 = codec.decode_video(z1)
+    z2 = codec.encode_video(x)
+    y2 = codec.decode_video(z2)
+    torch.cuda.synchronize()
+    require(torch.equal(z1, z2) and torch.equal(y1, y2),
+            "the DC-AE on the card: two runs on the same batch differ")
+    t = time.perf_counter()
+    with torch.no_grad():
+        frames = torch.from_numpy(videos).reshape(-1, DMLAB_RES, DMLAB_RES, 3) \
+            .permute(0, 3, 1, 2) * 2 - 1
+        zc = cpu_vae.encode(frames)
+        yc = torch.clamp(cpu_vae.decode(zc) * 0.5 + 0.5, 0, 1)
+    cpu_s = time.perf_counter() - t
+    zc = zc.permute(0, 2, 3, 1).reshape(z1.shape)
+    yc = yc.permute(0, 2, 3, 1).reshape(y1.shape)
+    err_z, err_y = rel_l2(z1.cpu(), zc), rel_l2(y1.cpu(), yc)
+    with patched(DC, "pixel_unshuffle", unshuffle_channels_last_order):
+        bad = codec.encode_video(x)
+    err_bad = rel_l2(bad.cpu(), zc)
+    log(f"  DC-AE f8c32 ({n_params / 1e6:.1f}M): latents {tuple(z1.shape)}, card vs CPU fp32 "
+        f"rel L2 {err_z:.3e} (latents), {err_y:.3e} (pixels), tol {DCAE_CPU_REL_TOL}; two runs "
+        f"bit-identical; control (pixel shuffles in (r, r, C) order) {err_bad:.3e}; CPU "
+        f"{cpu_s:.1f} s")
+    require(err_z <= DCAE_CPU_REL_TOL and err_y <= DCAE_CPU_REL_TOL,
+            f"the DC-AE on the card: {err_z}, {err_y} from the CPU's above {DCAE_CPU_REL_TOL}")
+    require(err_bad > DCAE_CPU_REL_TOL, "the DC-AE bound passes the wrong channel order")
+    timed = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            timed[tf32] = (cuda_ms(lambda: codec.encode_video(x), reps=3, warmup=1),
+                           cuda_ms(lambda: codec.decode_video(z1), reps=3, warmup=1))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    frames_n = x.shape[0] * x.shape[1]
+    for tf32, (enc, dec) in timed.items():
+        log(f"  DC-AE {'TF32' if tf32 else 'fp32'} convolutions: encode {enc:.2f} ms, decode "
+            f"{dec:.2f} ms for {frames_n} frames ({enc / frames_n:.3f} + {dec / frames_n:.3f} "
+            f"ms a frame)")
+    rec["dcae"] = {"params": n_params, "latent_shape": list(z1.shape), "rel_l2_latents": err_z,
+                   "rel_l2_pixels": err_y, "tol": DCAE_CPU_REL_TOL, "control_rel_l2": err_bad,
+                   "cpu_reference_s": cpu_s, "frames": frames_n,
+                   "encode_ms": {"fp32": timed[False][0], "tf32": timed[True][0]},
+                   "decode_ms": {"fp32": timed[False][1], "tf32": timed[True][1]}}
+    del codec, cpu_vae, x, z1, z2, y1, y2, bad
+
+
+def run_latent_paths(record: dict, smi: str) -> dict:
+    """Phase 20: the latent path through ``run(argv)``. (a) The DMLab
+    recipe's DC-AE on the card against the CPU; (b) a DMLab-layout
+    directory; (c) the recipe trained at batch 32 from it with its 11 loader
+    workers and online encoding, across an epoch boundary, with a mid-run
+    validation decoding through the DC-AE, and one step profiled in two
+    parts (the encode, the DiT's forward and backward); (d) the
+    preprocessing experiment on the directory, then the recipe trained from
+    its latents (``pre_sample``), its first batch against the online
+    encoding of the same clips; (e) K600 @DiT/XL (depth cut) trained at its
+    batch of 16 on the online VideoVAE and validated (decoded). Returns the
+    launch counts of the three training runs."""
+    import importlib.util
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.algorithms import dfot_video as DV
+    from dfot_tpu_torch.config import load_config
+    from dfot_tpu_torch.data.video_dataset import build_dataset
+    from dfot_tpu_torch.experiments import video_generation as VG
+    from dfot_tpu_torch.utils.weights import init_random_weights
+    from dfot_tpu_torch.vae.codec import LatentCodec
+
+    t_phase = time.perf_counter()
+    rec = record["latent"] = {"nvidia_smi": smi}
+    root = ROOT / "build" / "latent"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    data, pth, ckpt = root / "dmlab", root / "dcae.pth", root / "dit.ckpt"
+    pil = importlib.util.find_spec("PIL") is not None
+    base = DMLAB_ARGV + [f"dataset.save_dir={data}", f"algorithm.vae.pretrained_path={pth}",
+                         "++algorithm.logging.loss_freq=1", f"output_dir={root / 'runs'}"] + (
+        [] if pil else ["++algorithm.logging.max_num_videos=0"])
+    cfg = load_config(["+name=dmlab"] + base)
+    log(f"the latent path (DMLab DC-AE recipe: DiT3D hidden {cfg.algorithm.backbone.hidden_size}, "
+        f"depth {cfg.algorithm.backbone.depth}, batch {cfg.experiment.training.batch_size}, "
+        f"{cfg.experiment.training.data.num_workers} loader workers):")
+
+    # (a) the DC-AE
+    check_dcae(rec, cfg, pth)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the dataset, and the DiT's warm start
+    t = time.perf_counter()
+    write_npz_videos(data, DMLAB_VIDEOS, DMLAB_RES, 202, actions=3)
+    algo = DV.build_algorithm(cfg, device="cpu")
+    init_random_weights(algo.model, torch.Generator().manual_seed(203))
+    torch.save({"state_dict": {"diffusion_model.model." + k: v
+                               for k, v in algo.model.state_dict().items()}}, ckpt)
+    del algo
+    rec["fixture_s"] = time.perf_counter() - t
+
+    # (c) training with online encoding
+    waits, pids, tokenize_s, step_ends, steps_s, batches = [], [], [], [], [], []
+    real_make_loader, real_train_batch = VG.make_loader, VG.VideoGenerationExperiment._train_batch
+    real_make_step = DV.DFoTVideoAlgo.make_train_step
+
+    def timed_loader(*args, **kw):
+        return TimedLoader(real_make_loader(*args, **kw), waits, pids)
+
+    def timed_train_batch(self, batch):
+        """The training batches' tokenization (the mid-run validation's
+        batches, of another size, pass untimed)."""
+        if len(batch["nonterminal"]) != self.cfg.experiment.training.batch_size:
+            return real_train_batch(self, batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_train_batch(self, batch)
+        torch.cuda.synchronize()
+        tokenize_s.append(time.perf_counter() - t)
+        batches[:] = [batch]
+        return out
+
+    def timed_make_step(self, *args, **kw):
+        step = real_make_step(self, *args, **kw)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            result = step(*a, **k)
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t)
+            step_ends.append(time.perf_counter())
+            return result
+
+        return timed
+
+    def drive(name: str, argv: list, *patches):
+        """One run between a reset and a read of the launch counts."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for module, attr, repl in patches:
+                stack.enter_context(patched(module, attr, repl))
+            exp = run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        missing = [n for n in LATENT_PATH_KERNELS if not launches[n]]
+        log(f"  {name}: {wall:.2f} s, peak memory {peak / 2 ** 30:.2f} GiB, launches "
+            + ", ".join(f"{n} {launches[n]}" for n in LATENT_PATH_KERNELS))
+        require(not missing, f"{name}: kernels launched no time: {missing}")
+        return exp, {"wall_s": wall, "launches": launches, "peak_memory_bytes": peak,
+                     "timings": dict(exp.timings)}
+
+    timing_patches = ((VG, "make_loader", timed_loader),
+                      (VG.VideoGenerationExperiment, "_train_batch", timed_train_batch),
+                      (DV.DFoTVideoAlgo, "make_train_step", timed_make_step))
+    argv = ["+name=dmlab_train"] + base + [
+        "experiment.tasks=[training]", f"load={ckpt}",
+        f"experiment.training.max_steps={LATENT_STEPS}",
+        f"experiment.validation.val_every_n_step={LATENT_VAL_EVERY}",
+        "experiment.validation.limit_batch=1"]
+    exp, r = drive("DMLab training (online DC-AE)", argv, *timing_patches)
+    loader_batches = len(build_dataset(cfg.dataset, "training")) // DMLAB_BATCH
+    require(exp.state.step == LATENT_STEPS and LATENT_STEPS > loader_batches,
+            f"DMLab training: {exp.state.step} steps over {loader_batches} batches an epoch")
+    require(len(pids) == cfg.experiment.training.data.num_workers and os.getpid() not in pids,
+            f"DMLab training: loader worker processes {pids}")
+    lines = _jsonl(Path(exp.output_dir))
+    val = [x["validation/loss"] for x in lines if "validation/loss" in x]
+    losses = [x["loss"] for x in lines if "loss" in x]
+    # every LATENT_VAL_EVERY steps, and at the end of each finished epoch
+    n_val = LATENT_STEPS // LATENT_VAL_EVERY + (LATENT_STEPS - 1) // loader_batches
+    require(len(val) == n_val and len(losses) == LATENT_STEPS
+            and all(np.isfinite(val + losses)),
+            f"DMLab training: validation losses {val}, losses {losses}")
+    periods = [b - a for a, b in zip(step_ends, step_ends[1:])]
+    steady = periods[1:]  # the second step on (the first has the set-up's warm-up)
+    r.update({"steps": LATENT_STEPS, "loader_batches_an_epoch": loader_batches,
+              "loader_workers": list(pids), "step_period_s": periods,
+              "train_step_s": list(steps_s), "tokenize_s": list(tokenize_s),
+              "batch_wait_s": list(waits),
+              "validation_losses": val, "losses": losses})
+    log(f"  DMLab step period (synchronized) median {statistics.median(steady):.3f} s, range "
+        f"{min(steady):.3f}-{max(steady):.3f} s over steps 3-{LATENT_STEPS}; of it the online "
+        f"encode median {statistics.median(tokenize_s[2:]):.3f} s, the DiT train step "
+        f"{statistics.median(steps_s[2:]):.3f} s, the wait for a batch "
+        f"{statistics.median(waits[2:]) * 1e3:.2f} ms (first batch {waits[0]:.2f} s: the "
+        f"{len(pids)} workers' start)")
+
+    # one step profiled in two parts: the encode, then the DiT's step
+    batch = batches[0]
+    step_fn = exp.algo.make_train_step(ema_decay=cfg.experiment.ema.get("decay", 0.9999))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    holder = {}
+    profiled(rec, "profile_encode", "the DMLab step's online encode",
+             lambda: holder.update(tokens=exp._train_batch(batch)))
+    profiled(rec, "profile_dit_step", "the DMLab step's DiT forward, backward and update",
+             lambda: step_fn(exp.state, holder["tokens"], gen))
+    enc = rec["profile_encode"]["device_busy_s"]
+    dit = rec["profile_dit_step"]["device_busy_s"]
+    r["encode_share_of_device_time"] = enc / (enc + dit)
+    log(f"  the step's device time: encode {enc * 1e3:.1f} ms, DiT {dit * 1e3:.1f} ms: the "
+        f"encode's share {enc / (enc + dit):.1%}")
+    rec["train"] = r
+    del exp, step_fn, holder, batch
+    batches.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) preprocessing, then the recipe from the latents on disk
+    t = time.perf_counter()
+    pre = run(["+name=dmlab_pre", "dataset=dmlab", "algorithm=dc_ae_preprocessor",
+               "experiment=video_latent_preprocessing", "wandb.mode=disabled",
+               f"dataset.save_dir={data}", f"algorithm.pretrained_path={pth}",
+               f"output_dir={root / 'pre'}"])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t
+    latent_dir = Path(f"{data}_latent_{DMLAB_RES}")
+    written = {split: sorted(os.listdir(latent_dir / split)) for split, _, _ in DMLAB_VIDEOS}
+    for split, n, length in DMLAB_VIDEOS:
+        require(written[split] == sorted([f"v{i}.npy" for i in range(n)]
+                                         + ["data_mean.npy", "data_std.npy"]),
+                f"preprocessing wrote {written[split]} for {split}")
+        lat = np.load(latent_dir / split / "v0.npy")
+        require(lat.dtype == np.float16 and lat.shape == (length, DMLAB_RES // 8,
+                                                          DMLAB_RES // 8, 32)
+                and np.isfinite(lat).all(), f"preprocessing: {split} latents {lat.shape}")
+    require(pre.pretrained, "preprocessing: the DC-AE weights were not loaded")
+    log(f"  preprocessing: {sum(n * length for _, n, length in DMLAB_VIDEOS)} frames encoded "
+        f"in {pre_s:.2f} s")
+    del pre
+    first = []
+    real_tokenize = VG.VideoGenerationExperiment._tokenize_batch
+
+    def first_tokens(self, batch):
+        out = real_tokenize(self, batch)
+        if not first:
+            first.append(out["xs"].float().cpu())
+        return out
+
+    argv = ["+name=dmlab_pre_sample"] + base + [
+        "experiment.tasks=[training]", f"load={ckpt}", "dataset.latent.type=pre_sample",
+        f"experiment.training.max_steps={PRE_SAMPLE_STEPS}",
+        "experiment.validation.val_every_n_step=0"]
+    exp, r2 = drive("DMLab training from pre-sampled latents", argv,
+                    (VG.VideoGenerationExperiment, "_tokenize_batch", first_tokens))
+    require(exp.state.step == PRE_SAMPLE_STEPS, "pre_sample training: steps")
+    del exp
+    # the online encoding of the same clips: the dataset's first 32, unshuffled
+    online_ds = build_dataset(cfg.dataset, "training")
+    videos = np.stack([online_ds[i]["videos"] for i in range(DMLAB_BATCH)])
+    codec = LatentCodec(cfg.algorithm, cfg.dataset)
+    online = codec.encode_video(torch.from_numpy(videos).cuda()).float().cpu()
+    # one clip later: the control
+    shifted = np.stack([online_ds[i + 1]["videos"] for i in range(DMLAB_BATCH)])
+    control = codec.encode_video(torch.from_numpy(shifted).cuda()).float().cpu()
+    pre_xs = first[0]
+    top = online.abs().max().item()
+
+    def off_fp16(got):
+        """Elements off by more than fp16's rounding: 2^-11 of the value
+        itself and, where the two fp32 encodes (other chunks of frames,
+        other cuDNN algorithms) leave noise on values near zero, 2^-12 of
+        the largest value."""
+        excess = (got - online).abs() - (2.0 ** -11 * online.abs() + 2.0 ** -12 * top)
+        return int((excess > 0).sum())
+
+    diff = (pre_xs - online).abs()
+    r2.update({"first_batch_max_abs_diff": diff.max().item(), "max_abs_latent": top,
+               "first_batch_rel_l2": rel_l2(pre_xs, online),
+               "elements_off": off_fp16(pre_xs), "control_elements_off": off_fp16(control),
+               "preprocess_s": pre_s})
+    log(f"  pre_sample first batch vs the online encoding of its clips: max |diff| "
+        f"{r2['first_batch_max_abs_diff']:.3e} (max |latent| {top:.3f}), rel L2 "
+        f"{r2['first_batch_rel_l2']:.3e}, {r2['elements_off']} elements past the fp16 bound; "
+        f"control (the clips one later) {r2['control_elements_off']} of {online.numel()}")
+    require(pre_xs.shape == online.shape and r2["elements_off"] == 0,
+            "pre_sample latents: off the online encoding by more than fp16 rounding")
+    require(r2["control_elements_off"] > 0, "pre_sample bound: passes the clips one later")
+    rec["pre_sample"] = r2
+    del codec, online_ds, videos, online, pre_xs, shifted, control
+    first.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) K600 @DiT/XL on the online VideoVAE
+    k600 = root / "k600"
+    write_npz_videos(k600, K600_VIDEOS, K600_RES, 204, raw_dir=True)
+    tokenize_s.clear()
+    steps_s.clear()
+    kargv = ["+name=k600_latent"] + K600_ARGV + [
+        f"dataset.save_dir={k600}", "++dataset.video_preprocessing=npz",
+        f"dataset.subdataset_size={K600_VIDEOS[0][1]}", "algorithm.vae.pretrained_path=null",
+        f"++algorithm.backbone.depth={K600_DEPTH}", "experiment.tasks=[training,validation]",
+        f"experiment.training.max_steps={K600_STEPS}",
+        "experiment.validation.val_every_n_epoch=0", "experiment.validation.batch_size=2",
+        "experiment.validation.limit_batch=1", "++algorithm.logging.metrics=[mse,ssim,psnr]",
+        "++algorithm.logging.max_num_videos=0", f"output_dir={root / 'k600_runs'}"]
+    exp, r3 = drive("K600 @DiT/XL (depth 4) on the online VideoVAE", kargv,
+                    *timing_patches[1:])
+    kcfg = exp.cfg
+    require(exp.state.step == K600_STEPS
+            and kcfg.experiment.training.batch_size == 16
+            and kcfg.algorithm.backbone.hidden_size == 1152, "K600: the recipe's batch and width")
+    pred = exp.last_videos["prediction"]
+    metrics = exp.last_metrics
+    require(tuple(pred.shape) == (2, 17, K600_RES, K600_RES, 3) and bool(torch.isfinite(pred).all())
+            and metrics and all(np.isfinite(list(metrics.values()))),
+            f"K600 validation: decoded {tuple(pred.shape)}, metrics {metrics}")
+    r3.update({"train_step_s": list(steps_s), "tokenize_s": list(tokenize_s),
+               "metrics": metrics, "decoded_shape": list(pred.shape)})
+    log(f"  K600: train steps {', '.join(f'{s:.3f}' for s in steps_s)} s, the online VideoVAE "
+        f"encode of 16 x 17 frames {', '.join(f'{s:.3f}' for s in tokenize_s)} s; validation "
+        f"decoded {tuple(pred.shape)}, " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    rec["k600"] = r3
+    del exp, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {rec['seconds']:.1f} s")
+    return {"latent_train": r["launches"], "latent_pre_sample": r2["launches"],
+            "k600_latent": r3["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3283,6 +3786,11 @@ def main() -> int:
         by_path.update(run_matrix_paths(record))
         by_path["guided_window"] = run_guided_window_paths(record)
         by_path["axial_precomputed"] = run_axial_precomputed_path(record)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the latent path: on-disk data, the VAEs, preprocessing
+        by_path.update(run_latent_paths(record, smi))
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

@@ -53,6 +53,11 @@ class Config:
         object.__setattr__(self, "_data", data)
         object.__setattr__(self, "_root", root)
 
+    def __reduce__(self):
+        # by value, for worker processes (``__getattr__`` would answer pickle's
+        # probes for ``__setstate__`` on an instance without its slots)
+        return (Config, (self._data, self._root))
+
     # -- core access ------------------------------------------------------
     def _wrap(self, value: Any) -> Any:
         root = self._root if self._root is not None else self

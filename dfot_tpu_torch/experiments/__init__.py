@@ -3,8 +3,10 @@
 from typing import Optional
 
 from .video_generation import VideoGenerationExperiment
+from .video_latent_preprocessing import VideoLatentPreprocessingExperiment
 
-__all__ = ["VideoGenerationExperiment", "build_experiment"]
+__all__ = ["VideoGenerationExperiment", "VideoLatentPreprocessingExperiment",
+           "build_experiment"]
 
 
 def build_experiment(cfg, output_dir: Optional[str] = None, load: Optional[str] = None,
@@ -13,7 +15,9 @@ def build_experiment(cfg, output_dir: Optional[str] = None, load: Optional[str] 
     name = cfg.experiment.get("_name", "video_generation")
     if name == "video_generation":
         return VideoGenerationExperiment(cfg, output_dir, load, device)
-    if name in ("video_latent_preprocessing", "video_latent_learning"):
+    if name == "video_latent_preprocessing":
+        return VideoLatentPreprocessingExperiment(cfg, output_dir, load, device)
+    if name == "video_latent_learning":
         raise NotImplementedError(
-            f"experiment {name!r} needs the VAEs, which are not ported yet (ROADMAP.md queue A13)")
+            f"experiment {name!r} trains the VAEs, which is not ported yet (ROADMAP.md queue A13)")
     raise ValueError(f"unknown experiment {name!r}")

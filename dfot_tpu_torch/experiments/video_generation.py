@@ -20,6 +20,15 @@ batch scored. A ``torch.profiler`` trace of step
 ``experiment.training.profile_at_step`` goes to
 ``experiment.training.profile_dir``.
 
+Latent recipes (``algorithm.latent.enabled``) build the dataset's VAE as a
+``LatentCodec`` on the same device (:48-52): a batch's tokens are its
+``latents`` (pre-sampled on disk), or its videos encoded online with the
+experiment's own generator (seeded 7, as the JAX package's PRNGKey(7)), or,
+for ``pre_sample`` without latents, a ``FileNotFoundError``; the
+temporal-compression mapping of masks and conditions follows (:71-110).
+Sampled latents are decoded to pixels for the metrics and GIFs, the ground
+truth kept as the batch's pixel videos where it has them (:618-630).
+
 Validation (:405-440): batches through the algorithm's ``sample_videos``,
 unnormalized, scored by ``VideoMetric`` per task and logged (with sampled
 GIFs up to ``algorithm.logging.max_num_videos``), with the EMA weights of
@@ -30,8 +39,7 @@ else the algorithm's seeded fresh init, whose numbers differ from the JAX
 package's. ``val_all_ckpt`` sweeps every ``checkpoint_<step>`` directory.
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-queue item: latent experiments (the VAEs) are A13;
-``algorithm.save_attn_map.enabled``, a training or validation mesh
+queue item: ``algorithm.save_attn_map.enabled``, a training or validation mesh
 (``mesh.tensor > 1``, ``mesh.sequence_parallel``) and per-process data
 shards are A16.
 
@@ -64,11 +72,13 @@ from ..training.checkpoint import (
 )
 from ..utils.logging import MetricsLogger, log_video
 from ..utils.profiling import trace
-from ..utils.torch_ckpt import load_state_dict, strip_checkpoint
+from ..utils.torch_ckpt import load_state_dict, resolve_weights_path, strip_checkpoint
+from ..vae.codec import LatentCodec
 
 __all__ = ["VideoGenerationExperiment"]
 
 TORCH_CKPT_SUFFIXES = (".ckpt", ".pt", ".pth", ".safetensors")
+CODEC_SEED = 7  # the online encoding's posterior draws
 
 
 def _is_torch_file(path: str) -> bool:
@@ -97,9 +107,6 @@ class VideoGenerationExperiment:
         self.ckpt_dir = os.path.join(self.output_dir, "checkpoints")
         self.load_path = load
         self.timings: Dict[str, float] = {}
-        if cfg.algorithm.latent.enabled:
-            raise NotImplementedError(
-                "latent experiments need the VAEs, which are not ported yet (ROADMAP.md queue A13)")
         attn_cfg = cfg.algorithm.get("save_attn_map")
         if attn_cfg is not None and attn_cfg.get("enabled"):
             raise NotImplementedError(
@@ -108,6 +115,11 @@ class VideoGenerationExperiment:
         os.makedirs(self.output_dir, exist_ok=True)
         t0 = time.perf_counter()
         self.algo = build_algorithm(cfg, device=device)
+        self._codec = None
+        if self.algo.is_latent:
+            self._codec = LatentCodec(cfg.algorithm, cfg.dataset, device=self.algo.device)
+            self._codec_generator = torch.Generator(device=self.algo.device).manual_seed(
+                CODEC_SEED)
         self._sync()
         self.timings["model_build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -153,10 +165,19 @@ class VideoGenerationExperiment:
     def _tokenize_batch(self, batch: Dict[str, np.ndarray]) -> Dict:
         """``{"xs": normalized tokens, "masks": (B, T) frames present,
         "conditions": raw host conditions, "gt_videos"}``; xs and masks on
-        the device (``dfot_tpu/experiments/video_generation.py:71``; the
-        latent path is A13)."""
+        the device (``dfot_tpu/experiments/video_generation.py:71``)."""
         algo = self.algo
-        xs = algo.normalize(self._to_device(batch["videos"]))
+        if not algo.is_latent:
+            xs = self._to_device(batch["videos"])
+        elif "latents" in batch:
+            xs = self._to_device(batch["latents"])
+        elif str(self.cfg.dataset.latent.type) == "online":
+            xs = self._codec.encode_video(self._to_device(batch["videos"]),
+                                          self._codec_generator)
+        else:
+            raise FileNotFoundError(
+                "pre-sampled latents missing; run experiment=video_latent_preprocessing first")
+        xs = algo.normalize(xs)
         masks = self._to_device(batch["nonterminal"])
         conds = batch.get("conds")
         # frame -> token conversion under temporal compression: token i maps
@@ -173,6 +194,15 @@ class VideoGenerationExperiment:
         if "videos" in batch:
             out["gt_videos"] = batch["videos"]
         return out
+
+    def _pixels(self, videos: Dict[str, torch.Tensor], batch) -> Dict[str, torch.Tensor]:
+        """Unnormalized sampled videos as pixels: a latent recipe's decoded,
+        its ground truth the batch's own videos where it has them
+        (``dfot_tpu/experiments/video_generation.py:618``)."""
+        if self._codec is None:
+            return videos
+        return {k: (self._to_device(batch["videos"]) if k == "gt" and "videos" in batch
+                    else self._codec.decode_video(v)) for k, v in videos.items()}
 
     def _train_batch(self, batch: Dict[str, np.ndarray]) -> Dict:
         """A batch as the train step and the eval denoiser take it: the
@@ -283,9 +313,11 @@ class VideoGenerationExperiment:
                     save_checkpoint(self.ckpt_dir, step, state, save_top_k, block=False))
                 saved = step
             if use_subdataset and not done:
+                loader.close()
                 loader = make_train_loader(epoch)
             if max_epochs is not None and epoch >= max_epochs:
                 done = True
+        loader.close()
         wait_for_checkpoints()
         if saved == step:  # the state has not changed since: that save is the last
             prune_checkpoints(self.ckpt_dir, save_top_k)
@@ -331,6 +363,10 @@ class VideoGenerationExperiment:
                         if max_vis > 0:
                             vis = algo.unnormalize(recons[:max_vis])
                             gt = algo.unnormalize(vt["xs"][:max_vis])
+                            if self._codec is not None:
+                                vis = self._codec.decode_video(vis)
+                                gt = (self._to_device(vb["videos"][:max_vis]) if "videos" in vb
+                                      else self._codec.decode_video(gt))
                             log_video(vis.cpu().numpy(), gt.cpu().numpy(),
                                       os.path.join(self.output_dir, "videos",
                                                    f"denoising_vis_step{at_step}.gif"),
@@ -353,7 +389,7 @@ class VideoGenerationExperiment:
         tokens = self._tokenize_batch(batch)
         generator = torch.Generator(device=algo.device).manual_seed(at_step)
         videos = algo.sample_videos(generator, tokens["xs"], conditions=batch.get("conds"))
-        videos = {k: algo.unnormalize(v) for k, v in videos.items()}
+        videos = self._pixels({k: algo.unnormalize(v) for k, v in videos.items()}, batch)
         gt = videos["gt"]
         B, T = gt.shape[:2]
         nct = algo.n_context_tokens
@@ -443,7 +479,7 @@ class VideoGenerationExperiment:
             t0 = time.perf_counter()
             videos = algo.sample_videos(generator, xs, conditions=batch.get("conds"),
                                         n_context_tokens=nct)
-            videos = {k: algo.unnormalize(v) for k, v in videos.items()}
+            videos = self._pixels({k: algo.unnormalize(v) for k, v in videos.items()}, batch)
             self._sync()
             self._add_time("sampling_s", t0)
             t0 = time.perf_counter()
@@ -501,10 +537,7 @@ class VideoGenerationExperiment:
         if path == self._weights_from:
             return
         t0 = time.perf_counter()
-        file = path
-        if file.startswith("pretrained:"):
-            # the reference downloads these; here they live under data/ckpts/
-            file = os.path.join("data", "ckpts", file.split(":", 1)[1])
+        file = resolve_weights_path(path)
         if _is_torch_file(file):
             self._import_torch_checkpoint(file)
         else:

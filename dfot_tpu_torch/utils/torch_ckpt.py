@@ -13,11 +13,20 @@ Fourier noise embedding's ``freqs`` and ``phases`` buffers come in with it.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import torch
 
-__all__ = ["load_state_dict", "strip_checkpoint"]
+__all__ = ["load_state_dict", "resolve_weights_path", "strip_checkpoint"]
+
+
+def resolve_weights_path(path: str) -> str:
+    """``pretrained:NAME`` is ``data/ckpts/NAME`` (the reference downloads
+    these); other paths as given."""
+    if path.startswith("pretrained:"):
+        return os.path.join("data", "ckpts", path.split(":", 1)[1])
+    return path
 
 
 def load_state_dict(path: str) -> Dict[str, Any]:

@@ -13,6 +13,12 @@ two packages' trees can be compared leaf by leaf.
 inverse of ``import_dit3d_params``; there every leaf is a permutation of its
 flax leaf (a matrix block's einsum factors are the leaf itself), so
 parameters and gradients go through it alike.
+:func:`imagevae_state_dict_from_flax`, :func:`videovae_state_dict_from_flax`
+and :func:`dcae_state_dict_from_flax` carry the JAX package's VAE
+parameters onto the port's VAEs (``vae/``): dense kernels transposed to
+torch's (out, in), conv kernels HWIO/THWIO to OIHW/OITHW, norm ``scale`` to
+``weight``; the DC-AE's the inverse of ``dfot_tpu/vae/dc_ae.py:
+import_dc_ae_params``.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["uvit3d_state_dict_from_flax", "dit3d_state_dict_from_flax", "init_random_weights"]
+__all__ = ["uvit3d_state_dict_from_flax", "dit3d_state_dict_from_flax", "init_random_weights",
+           "imagevae_state_dict_from_flax", "videovae_state_dict_from_flax",
+           "dcae_state_dict_from_flax"]
 
 
 def _linear(k):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
@@ -267,6 +275,45 @@ QK_NORM_SCALE = 2.0
 # modulations (zero-initialized in the JAX package) are DIT_MODULATION_SCALE
 # times the law, which puts shifts, scales and gates near 0.5: every block's
 # attention and MLP then reach the output, and so does the conditioning.
+def _vae_leaf(path: str, value):
+    """One flax VAE leaf -> (torch name, tensor)."""
+    parts = path.split("/")
+    v = np.asarray(value, dtype=np.float32)
+    if parts[-1] == "kernel":
+        parts[-1] = "weight"
+        if v.ndim == 2:
+            v = v.T
+        elif v.ndim >= 3:  # (*spatial, in, out) -> (out, in, *spatial)
+            v = v.transpose((v.ndim - 1, v.ndim - 2) + tuple(range(v.ndim - 2)))
+    elif parts[-1] == "scale":
+        parts[-1] = "weight"
+    return ".".join(parts), torch.from_numpy(np.ascontiguousarray(v))
+
+
+def imagevae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ImageVAE ``params`` -> the port's state dict."""
+    return dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
+
+
+def videovae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's VideoVAE ``params`` -> the port's state dict."""
+    return dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
+
+
+def dcae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's DCAE ``params`` -> the port's (diffusers) state dict,
+    with ``num_batches_tracked`` 0 beside every BatchNorm's statistics."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = re.sub(r"(down_blocks|up_blocks)_(\d+)_(\d+)", r"\1/\2/\3", path)
+        path = re.sub(r"to_qkv_multiscale_(\d+)", r"to_qkv_multiscale/\1", path)
+        name, t = _vae_leaf(path, value)
+        out[name] = t
+        if name.endswith(".running_mean"):
+            out[name[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
 DIT_QK_SCALE = 3.0
 DIT_MODULATION_SCALE = 8.0
 

@@ -385,14 +385,11 @@ def test_cli_matches_main(monkeypatch, tmp_path, fixture_ckpt, jax_imports_fouri
     (["experiment.tasks=[training]", "experiment.training.mesh.tensor=2"], "A16"),
     (["++algorithm.backbone.use_checkpointing=[false,true]",
       "++algorithm.backbone.remat_policy=dots"], "A10"),
-    (["experiment.tasks=[training]", "experiment.training.data.shuffle=true",
-      "experiment.training.data.num_workers=2"], "A12"),
     (["++algorithm.logging.metrics=[fvd,mse]"], "A15"),
     (["algorithm.save_attn_map.enabled=true"], "A16"),
     (["experiment.validation.mesh.tensor=2"], "A16"),
     (["cluster=base_slurm"], "A16"),
-], ids=["training_mesh", "remat_policy", "shuffled_workers", "fvd", "attn_maps", "mesh",
-        "cluster"])
+], ids=["training_mesh", "remat_policy", "fvd", "attn_maps", "mesh", "cluster"])
 def test_unported_cli_branches_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         run(SMALL + extra + [f"output_dir={tmp_path}"], device="cpu")
@@ -403,12 +400,12 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     (tmp_path / "checkpoint_5").mkdir()  # a checkpoint_<step> directory without its file
     with pytest.raises(FileNotFoundError, match="not a checkpoint directory"):
         run(SMALL + [f"load={tmp_path / 'checkpoint_5'}", out], device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):  # a dataset on disk
+    # a dataset directory without the split's layout: no synthetic stand-in
+    with pytest.raises(FileNotFoundError, match="split directory not found"):
         run(SMALL + [f"dataset.save_dir={tmp_path}", out], device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):  # latent K600
-        run(["+name=k600", "dataset=kinetics_600", "algorithm=dfot_video",
-             "experiment=video_generation", "@DiT/XL", "experiment.tasks=[validation]", out],
-            device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):  # the TiTok preprocessor
+        run(["+name=titok", "dataset=ucf_101", "algorithm=titok_kl_preprocessor",
+             "experiment=video_latent_preprocessing", out], device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         run(SMALL + ["experiment=video_latent_learning", out], device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")

@@ -982,3 +982,49 @@ def test_reconstruction_guided_window_routes(cuda):
         assert launches[name] == 3 * (len(levels) + again), (name, launches)
     for name in ("flash_bwd_dq", "flash_bwd_dkv", "qkv_prep_bwd", "attn_out_scatter"):
         assert launches[name] == 3 * len(levels), (name, launches)
+
+
+# the DMLab DC-AE recipe's DiT3D: 16 latent frames of (8 / 2)^2 patches, 6
+# heads of 64, batch 32; its LayerNorm + modulate at C = 384 over 32 x 256 tokens
+DMLAB_B, DMLAB_N, DMLAB_H, DMLAB_D = 32, 256, 6, 64
+
+
+@pytest.mark.gpu
+def test_dmlab_site_forward_kernels(cuda):
+    """B2 -> B1 -> B3 at the DMLab site on seeded operands, each kernel once,
+    against its plain version (tolerances of the module docstring)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    B, N, H, d = DMLAB_B, DMLAB_N, DMLAB_H, DMLAB_D
+    qkv = torch.randn(B, N, 3 * H * d, generator=g, device=cuda).to(torch.bfloat16)
+    rope = make_rope_3d(d, (16, 4, 4))
+    cos = torch.as_tensor(rope.cos, device=cuda)
+    sin = torch.as_tensor(Q.signed_sin(rope.sin), device=cuda)
+    ops.reset_launch_counts()
+    q, k, v = Q.qkv_prep(qkv, H, d, cos, sin)
+    o, lse = A.flash_attention(q, k, v, return_lse=True, head_dim=d)
+    out = Q.attn_out_collect(o, d)
+    counts = ops.launch_counts()
+    assert counts["qkv_prep"] == counts["flash_fwd"] == counts["attn_out_collect"] == 1
+    for got, want in zip((q, k, v), Q.reference_qkv_prep(qkv, H, d, cos, sin)):
+        assert _close(got, want, 2e-2)
+    o_ref, lse_ref = A.attention_reference(q, k, v, return_lse=True)
+    assert _close(o, o_ref, 1e-2) and (lse - lse_ref).abs().max() <= 1e-3
+    assert torch.equal(out, Q.reference_attn_out_collect(o, d))
+    assert out.shape == (B, N, H * d)
+
+
+@pytest.mark.gpu
+def test_dmlab_site_ln_modulate(cuda):
+    """B8 (and B9 back) at C = 384 over the DMLab batch's 32 x 256 tokens."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    shape = (DMLAB_B, DMLAB_N, DMLAB_H * DMLAB_D)
+    x = (2 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(torch.bfloat16)
+    shift, scale, gy = (torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+                        for _ in range(3))
+    ops.reset_launch_counts()
+    y = L.ln_modulate(x, shift, scale)
+    dx, dscale = L.ln_modulate_bwd(x, scale, gy)
+    assert ops.launch_counts()["ln_modulate"] == ops.launch_counts()["ln_modulate_bwd"] == 1
+    assert _close(y, L.reference_ln_modulate(x, shift, scale), 2e-2)
+    dx_ref, dscale_ref = L.reference_ln_modulate_bwd(x, scale, gy)
+    assert _close(dx, dx_ref, 2e-2) and _close(dscale, dscale_ref, 2e-2)

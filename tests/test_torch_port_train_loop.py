@@ -2,7 +2,8 @@
 
 - The training loader against ``dfot_tpu.data.loader.make_loader`` with
   ``num_workers=0`` (shuffled and not, ``drop_last`` and not, epochs 0-2)
-  and against grain's worker processes unshuffled: the same batches, exact.
+  and against grain's worker processes, shuffled and not: the same batches,
+  exact.
 - Checkpoint directories against ``dfot_tpu.training.checkpoint`` under
   the same sequence of saves (blocking and in the background): the same
   directories survive top-k pruning and ``latest_checkpoint`` names the
@@ -91,16 +92,19 @@ def test_training_loader_matches_jax(shuffle, drop_last):
 
 
 def test_unshuffled_worker_loader_matches_grain():
-    """Unshuffled, grain's worker processes load in the dataset's order: the
-    port's in-process loader gives their batches; shuffled, it refuses, and
-    so it does per-process shards."""
+    """Grain's worker processes and the port's load in the same order:
+    the dataset's unshuffled, grain's permutation shuffled; per-process
+    shards raise."""
     ds = JVD.SyntheticVideoDataset(num_videos=10, n_frames=2, resolution=4, cond_dim=16)
-    lt = TL.make_loader(ds, 3, shuffle=False, num_workers=2)
-    lj = JL.make_loader(ds, 3, shuffle=False, num_workers=2)
-    assert isinstance(lj, JL.GrainDataLoader) and len(lt) == len(lj)
-    _assert_same_batches(_batches(lt, 2), _batches(lj, 2))
-    with pytest.raises(NotImplementedError, match="A12"):
-        TL.make_loader(ds, 3, shuffle=True, num_workers=2)
+    for shuffle in (False, True):
+        lt = TL.make_loader(ds, 3, shuffle=shuffle, num_workers=2)
+        lj = JL.make_loader(ds, 3, shuffle=shuffle, num_workers=2)
+        try:
+            assert isinstance(lj, JL.GrainDataLoader) and isinstance(lt, TL.WorkerDataLoader)
+            assert len(lt) == len(lj)
+            _assert_same_batches(_batches(lt, 2), _batches(lj, 2))
+        finally:
+            lt.close()
     with pytest.raises(NotImplementedError, match="A16"):
         TL.DataLoader(ds, 3, process_shard=(0, 2))
 
