@@ -165,9 +165,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     steps at its composed batch of 16 with the VideoVAE encoding online,
     then one validation batch decoded and scored; B1-B9 required launched
     in each of the three training runs. Step 2 also holds B1-B7 at the
-    DMLab site (32, 6, 256, 64) and B8, B9 at C = 384 over 32 x 256 tokens.
+    DMLab site (32, 6, 256, 64) and B8, B9 at C = 384 over 32 x 256 tokens;
+21. (``run_slice15_paths``) K600 @DiT/XL at full depth and the flagship
+    (level 3 checkpointed) under the remat policies none, dots, attn and
+    dots_attn: the loss and the gradients of named parameters under each
+    against none at B = 2 (within ``GRAD_REL_TOL``), with the outputs the
+    attn policy keeps scaled by 1.5 as the control; five train steps at
+    batch 8 under each (a dots policy at the largest batch its kept
+    outputs, counted before it runs, leave room for), the launch counts of
+    the policy (B3 and B10 not run again under attn, as in the JAX jaxpr),
+    step wall, peak memory, and one profiled step (device busy, B1, B2, B3
+    ms). Then VAE training through ``run(argv)``
+    (``experiment=video_latent_learning``): K600's VideoVAE and
+    Minecraft's ImageVAE at full width on seeded directories in their
+    layouts, at the recipes' batches (4, 8) or the largest their memory
+    allows (from steps at 1 and 2 clips, printed), six steps, the
+    adversarial term from the third; the card's first adversarial step
+    against the CPU's in fp32 on one clip (1e-4; control: the step
+    without the adversarial term); each step's metrics and phase split,
+    peak memory, ``metrics.jsonl`` and the checkpoint. Last, the TiTok-L
+    and kl-f8 preprocessors at their published widths on seeded weights
+    (kl-f8 through the hub-name path: a warning and random weights), encode
+    ms a frame and the latents' shapes.
 
-Steps 3, 4, 7, 10, 11, 14, 15, 16, 19 and 20 also run controls (an attention that
+Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20 and 21 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -215,7 +236,9 @@ ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
 PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
          "base_train", "base_axial", "interp2", "rollout", "cli", "train_loop", "facmat_window",
          "facmat_train", "fullmat_window", "fullmat_train", "guided_window", "axial_precomputed",
-         "latent_train", "latent_pre_sample", "k600_latent")
+         "latent_train", "latent_pre_sample", "k600_latent",
+         *(f"{model}_remat_{policy}" for model in ("xl", "flagship")
+           for policy in ("none", "dots", "attn", "dots_attn")))
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -1631,13 +1654,23 @@ def no_launches() -> dict:
     return {name: 0 for name, _, _ in KERNELS}
 
 
+def _kept(policy) -> tuple:
+    """The kernels whose output a remat policy keeps, so that a checkpointed
+    block does not run them again: the ``attn`` policies keep the tensors
+    the JAX models tag ``attn_out``, the outputs of B3 (the packed route) and
+    of B10 (the small-N route); B2 and B1 run again under every policy, as
+    in the JAX jaxpr (``tests/test_torch_port_remat.py`` holds the counts)."""
+    return ("attn_out_collect", "small_n_attn") if policy in ("attn", "dots_attn") else ()
+
+
 def expected_uvit_launches(fs, forwards: int = 0, train_steps: int = 0) -> dict:
     """Launches of ``forwards`` no-grad forwards and ``train_steps`` forward
     + backward passes (or train steps) of a recipe's U-ViT: every
     transformer block runs the three forward kernels once a pass, and once
-    more in the backward where its level is checkpointed; every block runs
-    the four backward kernels once a backward; an axial block also runs B10
-    (its temporal attention) wherever it runs the forward kernels, and its
+    more in the backward where its level is checkpointed (but for what the
+    recipe's remat policy keeps, :func:`_kept`); every block runs the four
+    backward kernels once a backward; an axial block also runs B10 (its
+    temporal attention) wherever it runs the forward kernels, and its
     backward is the plain formulas."""
     s = fs.spec
     blocks = recomputed = axial = axial_recomputed = 0
@@ -1649,11 +1682,14 @@ def expected_uvit_launches(fs, forwards: int = 0, train_steps: int = 0) -> dict:
         blocks, recomputed = blocks + n, recomputed + again
         if kind == "AxialTransformerBlock":
             axial, axial_recomputed = axial + n, axial_recomputed + again
+    kept = _kept(s.remat_policy)
     out = no_launches()
     for name in ATTENTION_KERNELS:
-        out[name] = (forwards * blocks + train_steps * (blocks + recomputed)
+        again = 0 if name in kept else recomputed
+        out[name] = (forwards * blocks + train_steps * (blocks + again)
                      if name in FORWARD_KERNELS else train_steps * blocks)
-    out["small_n_attn"] = forwards * axial + train_steps * (axial + axial_recomputed)
+    again = 0 if "small_n_attn" in kept else axial_recomputed
+    out["small_n_attn"] = forwards * axial + train_steps * (axial + again)
     return out
 
 
@@ -1661,7 +1697,8 @@ def expected_dit_launches(spec, forwards: int = 0, train_steps: int = 0) -> dict
     """Launches of a full-variant DiT with long rows: a forward runs B8 once
     per block (twice where the blocks have an MLP) and once in the final
     layer, and B2, B1, B3 once per block; a train step runs all that, the
-    blocks' share twice under checkpointing, and B9 and B4-B7 once for each."""
+    blocks' share twice under checkpointing (but for what the remat policy
+    keeps, :func:`_kept`), and B9 and B4-B7 once for each."""
     per_block = 2 if spec.spatial_mlp_ratio else 1
     again = 2 if spec.use_gradient_checkpointing else 1
     ln_fwd, ln_train = per_block * spec.depth + 1, again * per_block * spec.depth + 1
@@ -1670,8 +1707,9 @@ def expected_dit_launches(spec, forwards: int = 0, train_steps: int = 0) -> dict
     out["ln_modulate_bwd"] = train_steps * ln_fwd
     for name in ATTENTION_KERNELS:
         fwd = name in FORWARD_KERNELS
+        runs = 1 if name in _kept(spec.remat_policy) else again
         out[name] = (forwards * spec.depth if fwd else 0) + train_steps * spec.depth * (
-            again if fwd else 1)
+            runs if fwd else 1)
     return out
 
 
@@ -3695,6 +3733,556 @@ def run_latent_paths(record: dict, smi: str) -> dict:
             "k600_latent": r3["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: selective rematerialization, VAE training, TiTok and kl-f8
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "dots", "attn", "dots_attn")
+# the batch of the remat steps (the recipes': flagship 8 as realestate10k's
+# training sets, K600 @DiT/XL 8 as phase 13's steps) and of the gradient check
+REMAT_BATCH = 8
+REMAT_GRAD_BATCH = 2
+# a dots policy whose kept outputs would take the card past this share of its
+# memory runs at the largest batch that stays under it
+REMAT_MEMORY_SHARE = 0.95
+# the control: under ``attn`` the kept B3 outputs come back scaled
+REMAT_CONTROL_SCALE = 1.5
+# where the control must show: the output projection of a checkpointed block,
+# whose weight gradient reads the kept tensor
+REMAT_CONTROL_PROBE = {"flagship": "mid_blocks.10.attn_out.weight",
+                       "xl": "dit_base.blocks.14.attn.proj.weight"}
+# VAE training through run(argv) on seeded directories in the recipes'
+# layouts; the adversarial term from step VAE_DISC_START (0-based) on
+VAE_DISC_START = 2
+VAE_STEPS = 6
+VAE_RES = 128
+K600_VAE_VIDEOS = (("training", 12, 17), ("validation", 2, 17))
+MINECRAFT_VAE_VIDEOS = (("training", 12, 16), ("validation", 2, 16))
+# the first step on the card against the CPU in fp32 (TF32 off), on one
+# clip at full width with its frames cut (CPU time): relative error of every
+# logged loss and relative L2 of the autoencoder's gradient, 1e-4 with a
+# smooth (squared) reconstruction loss. The recipe's L1 loss has a gradient
+# of sign(recon - x): an element where the two devices round recon - x to
+# opposite signs moves the gradient of a 5-frame clip by up to 4e-3
+# (readings 7.3e-6 to 1.2e-3). The adaptive weight divides by the norm of a
+# discriminator gradient taken through batch-statistics BatchNorm, whose
+# backward subtracts batch means (readings 5.4e-5 to 1.2e-3), and an
+# adversarial step's gradient, which flows through that BatchNorm, carries
+# both (2.1e-3 to 7.0e-3); the control reads 1.39 and more
+VAE_CPU_REL_TOL = 1e-4
+VAE_CPU_SIGN_TOL = 1e-2
+VAE_CPU_WEIGHT_TOL = 1e-2
+VAE_CPU_ADV_TOL = 5e-2
+VAE_CPU_FRAMES = {"video": 5, "image": 2}
+# the preprocessors at their published widths on seeded weights
+PRE_RES = 256
+# DMLab keeps the videos of max_frames (16) frames and more
+PRE_VIDEOS = (("training", 2, 16), ("validation", 1, 16))
+
+
+def set_remat_policy(model, policy: str) -> None:
+    """The model's blocks recomputed under ``policy`` from now on."""
+    import dataclasses
+
+    owner = model.dit_base if hasattr(model, "dit_base") else model
+    owner.spec = dataclasses.replace(owner.spec, remat_policy=policy)
+
+
+@contextlib.contextmanager
+def scaled_kept_outputs(policy: str, scale: float):
+    """Control: every checkpoint's recompute gets the outputs ``policy`` kept
+    multiplied by ``scale`` (the forward used them unscaled)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
+    from dfot_tpu_torch.models import remat as R
+
+    real = R.create_selective_checkpoint_contexts
+
+    class Scale(TorchDispatchMode):
+        def __init__(self, keep):
+            super().__init__()
+            self.keep = keep
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in self.keep and isinstance(out, torch.Tensor):
+                with _disable_current_modes():  # the checkpoint sees no extra op
+                    out = out * scale
+            return out
+
+    def contexts(policy_fn, *a, **kw):
+        caching, cached = real(policy_fn, *a, **kw)
+        keep = R.saved_ops(policy)
+
+        @contextlib.contextmanager
+        def recompute():
+            with cached, Scale(keep):
+                yield
+
+        return caching, recompute()
+
+    R.create_selective_checkpoint_contexts = contexts
+    try:
+        yield
+    finally:
+        R.create_selective_checkpoint_contexts = real
+
+
+def remat_gradients(model, loss_fn, probes) -> tuple:
+    """The loss and the probes' gradients of one forward and backward (eval
+    mode: dropout off; checkpointed blocks recomputed)."""
+    import torch
+
+    params = dict(model.named_parameters())
+    model.eval()
+    try:
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: params[n].grad.detach().clone() for n in probes}
+    finally:
+        model.train()
+        model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def kept_output_bytes(op, args) -> int:
+    """Bytes of the output of an op a remat policy keeps: a linear's
+    (``mm``, ``addmm``), B3's or B10's."""
+    import torch
+
+    x = args[0]
+    if op == torch.ops.dfot.attn_out_collect.default:
+        return x.shape[0] * x.shape[1] * x.shape[2] * args[1] * x.element_size()
+    if op == torch.ops.dfot.small_n_attention.default:
+        return x.numel() * x.element_size()
+    a, b = args[-2:]
+    return a.shape[0] * b.shape[1] * a.element_size()
+
+
+def saved_bytes_per_sample(model, loss_fn, policy: str) -> int:
+    """Bytes a policy keeps in one forward of ``loss_fn`` (whose batch is one
+    sample), counted where the policy decides, before any is kept."""
+    import torch
+    from dfot_tpu_torch.models import remat as R
+
+    kept = [0]
+    real = R.remat_policy
+
+    def counting(name):
+        fn = real(name)
+
+        def policy(ctx, op, *args, **kwargs):
+            decision = fn(ctx, op, *args, **kwargs)
+            if decision == R.CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                kept[0] += kept_output_bytes(op, args)
+            return decision
+
+        return policy
+
+    set_remat_policy(model, policy)
+    with patched(R, "remat_policy", counting):
+        loss = loss_fn()
+    del loss
+    torch.cuda.synchronize()
+    return kept[0]
+
+
+def run_remat_model(record: dict, key: str, what: str, r, model, batch_fn, loss_fn_at,
+                    probes, expect_fn) -> dict:
+    """One recipe under every remat policy: the gradient check against
+    ``none`` (with the control), then the train steps at ``REMAT_BATCH`` (a
+    dots policy at the largest batch its kept outputs leave room for), each
+    with its launch counts, and one profiled step."""
+    import torch
+    from dfot_tpu_torch.algorithms.dfot_video import make_train_state, make_train_step
+
+    rec = record.setdefault("remat", {})[key] = {}
+    loss_fn = loss_fn_at(REMAT_GRAD_BATCH)
+    grads = {}
+    for policy in REMAT_POLICIES:
+        set_remat_policy(model, policy)
+        grads[policy] = remat_gradients(model, loss_fn, probes)
+    set_remat_policy(model, "attn")
+    with scaled_kept_outputs("attn", REMAT_CONTROL_SCALE):
+        control = remat_gradients(model, loss_fn, probes)
+    loss0, g0 = grads["none"]
+    checks = {}
+    for policy, (loss, g) in [*grads.items(), ("control", control)]:
+        checks[policy] = {"loss_rel_err": abs(loss - loss0) / abs(loss0),
+                          "grad_rel_l2": {n: rel_l2(g[n], g0[n]) for n in probes}}
+    rec["gradient_check"] = {"batch": REMAT_GRAD_BATCH, "tol": GRAD_REL_TOL,
+                             "loss_tol": GRAD_LOSS_TOL, **checks}
+    log(f"{what}: loss and gradients under each remat policy against none at B="
+        f"{REMAT_GRAD_BATCH} (loss tol {GRAD_LOSS_TOL}, gradient relative L2 tol {GRAD_REL_TOL}):")
+    for policy, c in checks.items():
+        worst = max(c["grad_rel_l2"].values())
+        log(f"  {policy:10s} loss {c['loss_rel_err']:.3e}  worst gradient {worst:.3e}")
+        if policy != "control":
+            require(c["loss_rel_err"] <= GRAD_LOSS_TOL and worst <= GRAD_REL_TOL,
+                    f"{what} under {policy}: off none by {c}")
+    probe = REMAT_CONTROL_PROBE[key]
+    require(checks["control"]["grad_rel_l2"][probe] > GRAD_REL_TOL,
+            f"{what}: the bound does not reject kept outputs scaled by {REMAT_CONTROL_SCALE}: "
+            f"{checks['control']['grad_rel_l2']}")
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    one = loss_fn_at(1)
+    for policy in REMAT_POLICIES:
+        set_remat_policy(model, policy)
+        B = REMAT_BATCH
+        if "dots" in policy:
+            kept = saved_bytes_per_sample(model, one, policy)
+            peak_none = rec["none"]["peak_memory_bytes"]
+            fits = int((REMAT_MEMORY_SHARE * total) // (peak_none / REMAT_BATCH + kept))
+            B = max(1, min(REMAT_BATCH, fits))
+            log(f"{what} under {policy}: keeps {kept / 2**20:.1f} MiB a sample; predicted peak "
+                f"at B={REMAT_BATCH} {(peak_none + REMAT_BATCH * kept) / 2**30:.2f} GiB of "
+                f"{total / 2**30:.2f}: runs at B={B}")
+        else:
+            kept = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(r, model)
+        step = make_train_step(r)
+        expect = expect_fn(train_steps=TRAIN_STEPS)
+        out = drive_train_steps(rec, policy, f"{what} under remat {policy}", model, state, step,
+                                batch_fn(B), probes, expect, r.train.num_warmup_steps,
+                                r.train.grad_clip)
+        rec[policy]["kept_bytes_per_sample"] = kept
+        profiled(rec, f"{policy}_profile", f"{what} train step under remat {policy}",
+                 lambda: out["step"](out["state"], out["batch"], out["gen"]),
+                 unprofiled_s=rec[policy]["step_s_median"])
+        by = rec[f"{policy}_profile"]["by_class_ms"]
+        rec[policy]["b1_b2_b3_ms"] = [by.get(c, 0.0) for c in
+                                      ("B1 flash_fwd", "B2 qkv_prep", "B3 attn_out_collect")]
+        rec[policy]["device_busy_s"] = rec[f"{policy}_profile"]["device_busy_s"]
+        record.setdefault("remat_launches", {})[f"{key}_{policy}"] = out["launches"]
+        del out, state, step
+    set_remat_policy(model, r.spec.remat_policy)
+    log(f"{what}, per policy: step wall (median of {TRAIN_STEPS}), peak memory, device busy "
+        f"in the profiled step, B1 / B2 / B3 ms a step:")
+    for policy in REMAT_POLICIES:
+        p = rec[policy]
+        log(f"  {policy:10s} B={p['batch']}  {p['step_s_median'] * 1e3:8.1f} ms  "
+            f"{p['peak_memory_bytes'] / 2**30:6.2f} GiB  {p['device_busy_s'] * 1e3:8.1f} ms  "
+            + " / ".join(f"{ms:.2f}" for ms in p["b1_b2_b3_ms"]))
+    return {f"{key}_remat_{policy}": record["remat_launches"][f"{key}_{policy}"]
+            for policy in REMAT_POLICIES}
+
+
+def run_remat_paths(record: dict) -> dict:
+    """Phase 21 (a): K600 @DiT/XL at full depth and the flagship (level 3
+    checkpointed) under none, dots, attn and dots_attn."""
+    import dataclasses
+
+    from dfot_tpu_torch.algorithms.dfot_video import flagship, k600_dit_xl, make_train_apply
+
+    # the recipes' 10000-step warm-up starts at rate 0: cut to 2 steps, as
+    # the train paths of phases 8 and 13 do, so that the steps move the weights
+    r = k600_dit_xl()
+    r = r._replace(train=r.train._replace(num_warmup_steps=2))
+    x_shape = (r.max_tokens, *r.resolution, r.x_channels)
+    model = build_random_model(r, seed=70, token_io=False)
+    out = run_remat_model(
+        record, "xl", "K600 @DiT/XL", r, model, lambda B: latent_batch(x_shape, B, seed=71),
+        lambda B: discrete_loss_fn(r.dcfg, make_train_apply(r), model,
+                                   latent_batch(x_shape, B, seed=72), 73),
+        dit_grad_probes(r.spec.depth, False) + (REMAT_CONTROL_PROBE["xl"],),
+        lambda **kw: expected_dit_launches(model.dit_base.spec, **kw))
+    del model
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+    fs = flagship()
+    fs = fs._replace(train=fs.train._replace(num_warmup_steps=2))
+    model = build_random_model(fs, seed=74, token_io=False)
+    out.update(run_remat_model(
+        record, "flagship", "flagship", fs, model, lambda B: train_batch(fs, B, seed=75),
+        lambda B: flagship_loss_fn(fs, model, B, 76),
+        GRAD_PROBES + (REMAT_CONTROL_PROBE["flagship"],),
+        lambda **kw: expected_uvit_launches(fs._replace(spec=model.spec), **kw)))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_minecraft_videos(root: Path, splits, res: int, seed: int) -> None:
+    """Seeded videos in Minecraft's layout: ``<split>/v<i>.npy`` (T, H, W, C)
+    uint8 with its actions in ``<split>/v<i>.npz``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for split, n, length in splits:
+        d = root / split
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            base = rng.integers(0, 256, (res, res, 3)).astype(np.uint8)
+            video = np.stack([np.roll(base, 2 * t, axis=0) for t in range(length)])
+            np.save(d / f"v{i}.npy", video)
+            np.savez(d / f"v{i}.npz", actions=rng.integers(0, 4, length))
+
+
+def vae_first_step_against_cpu(rec: dict, exp, videos, kind: str) -> None:
+    """The card's first step against the CPU's in fp32 on one clip, from the
+    same weights with the same posterior noise: with the reconstruction
+    error squared (a smooth loss) its losses and autoencoder gradient within
+    ``VAE_CPU_REL_TOL``; with the recipe's loss within ``VAE_CPU_SIGN_TOL``;
+    on its first adversarial step within ``VAE_CPU_ADV_TOL``; the adaptive
+    weight within ``VAE_CPU_WEIGHT_TOL``. Control: the CPU's adversarial step against the
+    card's first."""
+    import copy
+
+    import torch
+    from dfot_tpu_torch.vae import distribution as D
+
+    clip = videos[:1, :VAE_CPU_FRAMES[kind]]
+    cpu = copy.copy(exp)
+    cpu.device = torch.device("cpu")
+    cpu.vae = copy.deepcopy(exp.vae).cpu()
+    cpu.disc = copy.deepcopy(exp.disc).cpu()
+    recipe = {k: v for k, v in exp.loss_cfg.items() if v is not None}
+    noise = {}
+
+    def pinned_sample(self, generator=None, eps=None):
+        shape = tuple(self.mean.shape)
+        if shape not in noise:
+            noise[shape] = torch.randn(shape, generator=torch.Generator().manual_seed(230))
+        return self.mean + self.std * noise[shape].to(self.mean.device)
+
+    start = [copy.deepcopy(m.state_dict()) for m in (exp.vae, exp.disc)]
+    runs = (("smooth", 0, {**recipe, "loss_type": "l2"}), ("first", 0, recipe),
+            ("adversarial", VAE_DISC_START, recipe))
+    results = {}
+    with patched(D.DiagonalGaussian, "sample", pinned_sample):
+        for e, x in ((exp, clip.cuda()), (cpu, clip)):
+            for name, step, loss_cfg in runs:
+                e.vae.load_state_dict(start[0])
+                e.disc.load_state_dict(start[1])
+                e.loss_cfg = loss_cfg
+                e.prepare()
+                metrics = {k: float(v) for k, v in e.train_step(x, step, []).items()}
+                grad = torch.cat([p.grad.flatten().cpu() for p in e.vae.parameters()])
+                results[(e.device.type, name)] = (metrics, grad)
+    exp.loss_cfg = recipe
+
+    check = {}
+    for name, _, _ in runs:
+        (got, g_got), (want, g_want) = results[("cuda", name)], results[("cpu", name)]
+        check[name] = {"metric_rel_err": {k: abs(v - want[k]) / max(abs(want[k]), 1e-12)
+                                          for k, v in got.items()},
+                       "grad_rel_l2": rel_l2(g_got, g_want)}
+    g_ctrl = rel_l2(results[("cpu", "adversarial")][1], results[("cuda", "first")][1])
+    rec["cpu_check"] = {"frames": int(clip.shape[1]), **check, "control_grad_rel_l2": g_ctrl,
+                        "tol": VAE_CPU_REL_TOL, "sign_tol": VAE_CPU_SIGN_TOL,
+                        "adversarial_tol": VAE_CPU_ADV_TOL, "weight_tol": VAE_CPU_WEIGHT_TOL,
+                        "cpu": results[("cpu", "first")][0]}
+    log(f"  card vs CPU, fp32, 1 clip of {clip.shape[1]} frames (losses; AE gradient rel L2):")
+    for name, c in check.items():
+        log(f"    {name:11s} " + ", ".join(f"{k} {v:.2e}" for k, v in c["metric_rel_err"].items())
+            + f"; gradient {c['grad_rel_l2']:.2e}")
+    log(f"    control (the adversarial step against the first): {g_ctrl:.2e}; tol "
+        f"{VAE_CPU_REL_TOL} (smooth), {VAE_CPU_SIGN_TOL} (the recipe's), {VAE_CPU_ADV_TOL} "
+        f"(adversarial), d_weight {VAE_CPU_WEIGHT_TOL}")
+    for name, c in check.items():
+        tol = {"smooth": VAE_CPU_REL_TOL, "first": VAE_CPU_SIGN_TOL}.get(name, VAE_CPU_ADV_TOL)
+        losses = {k: v for k, v in c["metric_rel_err"].items() if k != "d_weight"}
+        require(all(v <= (VAE_CPU_REL_TOL if name != "adversarial" else VAE_CPU_WEIGHT_TOL)
+                    for v in losses.values())
+                and c["metric_rel_err"]["d_weight"] <= VAE_CPU_WEIGHT_TOL
+                and c["grad_rel_l2"] <= tol,
+                f"{kind} VAE {name} step off the CPU's: {c}")
+    require(g_ctrl > 10 * VAE_CPU_SIGN_TOL, f"{kind} VAE step: the control passes ({g_ctrl})")
+    del cpu
+
+
+def run_vae_training(rec: dict, kind: str, argv: list, layout_ok) -> None:
+    """One recipe's VAE training: the batch its memory allows (up to the
+    recipe's, from two probing steps at 1 and 2 clips), the card's step
+    against the CPU's, then ``run(argv)`` with every step's metrics and
+    phases."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.config import load_config
+    from dfot_tpu_torch.data.loader import _collate
+    from dfot_tpu_torch.data.video_dataset import build_dataset
+    from dfot_tpu_torch.experiments import video_latent_learning as VL
+
+    cfg = load_config(argv)
+    recipe_batch = int(cfg.experiment.training.batch_size)
+    exp = VL.VideoLatentLearningExperiment(cfg, str(ROOT / "build" / "vae_probe"), None, "cuda")
+    n_params = sum(p.numel() for p in exp.vae.parameters())
+    dataset = build_dataset(cfg.dataset, "training")
+    videos = torch.as_tensor(_collate([dataset[i] for i in range(2)])["videos"])
+    layout_ok(videos)
+    peaks = []
+    exp.prepare()
+    for b in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        exp.train_step(videos[:b].cuda(), 0, [])
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+    per_clip, fixed = peaks[1] - peaks[0], 2 * peaks[0] - peaks[1]
+    total = torch.cuda.get_device_properties(0).total_memory
+    B = max(1, min(recipe_batch, int((REMAT_MEMORY_SHARE * total - fixed) // per_clip)))
+    log(f"  {n_params / 1e6:.1f}M-parameter VAE, clips {tuple(videos.shape[1:])}: "
+        f"{per_clip / 2**30:.2f} GiB a clip over {fixed / 2**30:.2f} GiB (steps at 1 and 2 "
+        f"clips); the recipe's batch {recipe_batch}, run at B={B}")
+    vae_first_step_against_cpu(rec, exp, videos, "video" if exp.is_video else "image")
+    del exp, dataset
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = []
+    real_step = VL.VideoLatentLearningExperiment.train_step
+
+    def recording_step(self, v, step, marks):
+        m = real_step(self, v, step, marks)
+        steps.append({k: float(x) for k, x in m.items()})
+        return m
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(VL.VideoLatentLearningExperiment, "train_step", recording_step):
+        exp = run(argv + ([f"experiment.training.batch_size={B}"] if B != recipe_batch else []))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    walls, phases = exp.timings["step_wall_s"], exp.timings["phases_s"]
+    later = walls[1:]
+    rec.update({"batch": B, "recipe_batch": recipe_batch, "parameters": n_params,
+                "frames_a_step": int(B * videos.shape[1]), "run_wall_s": wall,
+                "step_wall_s": walls, "step_s_median": statistics.median(later),
+                "phases_s": phases, "peak_memory_bytes": peak, "metrics": steps,
+                "per_clip_bytes": per_clip, "fixed_bytes": fixed})
+    mean = {k: statistics.mean(p[k] for p in phases[1:]) for k in phases[0]}
+    log(f"  {len(walls)} steps at B={B} ({B * videos.shape[1]} frames a step): step wall "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, median after the first "
+        f"{statistics.median(later):.3f} s; split (mean after the first): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in mean.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    log("  d_weight by step " + ", ".join(f"{m['d_weight']:.4g}" for m in steps)
+        + "; g_loss " + ", ".join(f"{m['g_loss']:.4g}" for m in steps))
+    require(len(steps) == VAE_STEPS and all(np.isfinite(list(m.values())).all() for m in steps),
+            f"{kind} VAE training: {steps}")
+    require(all(m["d_total"] == 0 for m in steps[:VAE_DISC_START])
+            and all(m["d_total"] > 0 and m["d_weight"] > 0 for m in steps[VAE_DISC_START:]),
+            f"{kind} VAE training: the adversarial term before and after disc_start: {steps}")
+    lines = _jsonl(Path(exp.output_dir))
+    require([x["step"] for x in lines] == [1] and "d_weight" in lines[0],
+            f"{kind} VAE training: metrics.jsonl {lines}")
+    ckpt = Path(exp.output_dir) / "checkpoints" / f"checkpoint_{VAE_STEPS}" / "state.pt"
+    require(ckpt.exists(), f"{kind} VAE training: no checkpoint at {ckpt}")
+    del exp
+
+
+def run_vae_preprocessing(rec: dict, name: str, argv: list) -> None:
+    """A preprocessor through ``run(argv)``: the encode time a frame and the
+    latent files' shapes."""
+    import numpy as np
+    import torch
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.experiments import video_latent_preprocessing as VP
+
+    times, frames = [], []
+    real = VP.VideoLatentPreprocessingExperiment._encode_video
+
+    def timed(self, video, generator):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(self, video, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        frames.append(len(video))
+        return out
+
+    with patched(VP.VideoLatentPreprocessingExperiment, "_encode_video", timed):
+        exp = run(argv)
+    n_params = sum(p.numel() for p in exp.vae.parameters())
+    data = Path(str(exp.cfg.dataset.save_dir) + f"_latent_{PRE_RES}")
+    shapes = {f"{split}/{f.name}": list(np.load(f).shape)
+              for split in ("training", "validation")
+              for f in sorted((data / split).glob("v*.npy"))}
+    ms = [1e3 * t / n for t, n in zip(times[1:], frames[1:])]
+    rec.update({"parameters": n_params, "pretrained": exp.pretrained, "encode_s": times,
+                "frames": frames, "encode_ms_a_frame": ms, "latent_shapes": shapes})
+    log(f"  {name}: {n_params / 1e6:.1f}M parameters, seeded weights; encode "
+        f"{', '.join(f'{m:.2f}' for m in ms)} ms a frame (after the first video); latents "
+        + ", ".join(f"{k} {tuple(v)}" for k, v in list(shapes.items())[:2]))
+    require(shapes and all(np.isfinite(np.load(f)).all() for f in data.rglob("v*.npy")),
+            f"{name}: latents {shapes}")
+    del exp
+
+
+def run_slice15_paths(record: dict, smi: str) -> dict:
+    """Phase 21: (a) the remat policies on K600 @DiT/XL and the flagship;
+    (b) VAE training through ``run(argv)``: K600's VideoVAE and Minecraft's
+    ImageVAE at full width on seeded directories in their layouts, the
+    adversarial term from the third step on; (c) the TiTok-L and kl-f8
+    preprocessors at their published widths."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    out = run_remat_paths(record)
+    rec = record["vae"] = {"nvidia_smi": smi}
+    root = ROOT / "build" / "vae"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    k600, mc = root / "k600", root / "minecraft"
+    write_npz_videos(k600, K600_VAE_VIDEOS, VAE_RES, 210, raw_dir=True)
+    write_minecraft_videos(mc, MINECRAFT_VAE_VIDEOS, VAE_RES, 211)
+    common = ["experiment=video_latent_learning", "++dataset.latent.enabled=false",
+              f"experiment.training.max_steps={VAE_STEPS}", "wandb.mode=disabled"]
+    runs = (
+        ("k600", "K600 VideoVAE", ["+name=k600_vae", "dataset=kinetics_600", "algorithm=video_vae",
+                                   f"dataset.save_dir={k600}", "++dataset.video_preprocessing=npz",
+                                   f"++algorithm.loss.disc_start={VAE_DISC_START}"],
+         lambda v: require(tuple(v.shape[1:]) == (17, VAE_RES, VAE_RES, 3),
+                           f"K600 clips {v.shape}")),
+        ("minecraft", "Minecraft ImageVAE", ["+name=mc_vae", "dataset=minecraft",
+                                             "algorithm=image_vae", f"dataset.save_dir={mc}",
+                                             f"++algorithm.lossconfig.disc_start={VAE_DISC_START}"],
+         lambda v: require(tuple(v.shape[1:]) == (16, VAE_RES, VAE_RES, 3),
+                           f"Minecraft clips {v.shape}")),
+    )
+    for key, what, argv, layout_ok in runs:
+        log(f"VAE training, {what} (experiment=video_latent_learning):")
+        rec[key] = {}
+        run_vae_training(rec[key], key, argv + common + [f"output_dir={root / 'runs'}"], layout_ok)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    pre = root / "pre"
+    write_npz_videos(pre, PRE_VIDEOS, PRE_RES, 212, actions=3)
+    base = ["experiment=video_latent_preprocessing", "dataset=dmlab", f"dataset.resolution={PRE_RES}",
+            "wandb.mode=disabled", f"output_dir={root / 'pre_runs'}"]
+    for key, what, argv in (
+            ("titok", "TiTok-L preprocessor", ["+name=titok", "algorithm=titok_kl_preprocessor"]),
+            ("kl_f8", "kl-f8 preprocessor", ["+name=kl_f8", "algorithm=kl_autoencoder_preprocessor"])):
+        data = root / f"pre_{key}"
+        shutil.copytree(pre, data)
+        rec[key] = {}
+        run_vae_preprocessing(rec[key], what, argv + base + [f"dataset.save_dir={data}"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "vae_probe", ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 21: {rec['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3791,6 +4379,11 @@ def main() -> int:
 
         # the latent path: on-disk data, the VAEs, preprocessing
         by_path.update(run_latent_paths(record, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # selective remat, VAE training, TiTok and kl-f8 preprocessing
+        by_path.update(run_slice15_paths(record, smi))
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

@@ -3,10 +3,11 @@
 from typing import Optional
 
 from .video_generation import VideoGenerationExperiment
+from .video_latent_learning import VideoLatentLearningExperiment
 from .video_latent_preprocessing import VideoLatentPreprocessingExperiment
 
-__all__ = ["VideoGenerationExperiment", "VideoLatentPreprocessingExperiment",
-           "build_experiment"]
+__all__ = ["VideoGenerationExperiment", "VideoLatentLearningExperiment",
+           "VideoLatentPreprocessingExperiment", "build_experiment"]
 
 
 def build_experiment(cfg, output_dir: Optional[str] = None, load: Optional[str] = None,
@@ -18,6 +19,5 @@ def build_experiment(cfg, output_dir: Optional[str] = None, load: Optional[str] 
     if name == "video_latent_preprocessing":
         return VideoLatentPreprocessingExperiment(cfg, output_dir, load, device)
     if name == "video_latent_learning":
-        raise NotImplementedError(
-            f"experiment {name!r} trains the VAEs, which is not ported yet (ROADMAP.md queue A13)")
+        return VideoLatentLearningExperiment(cfg, output_dir, load, device)
     raise ValueError(f"unknown experiment {name!r}")

@@ -11,11 +11,17 @@ Then the channel-wise statistics of the split's latents go beside them as
 ``data_mean.npy`` and ``data_std.npy``.
 
 The VAE is the algorithm's: ``dc_ae`` (the DC-AE, ``algorithm.pretrained_path``
-named and present, else seeded random), ``video`` (the VideoVAE of
-``algorithm.model``) or else the ImageVAE of ``algorithm.ddconfig``; their
-weights from ``load=``, a torch file of the module's state dict, where
-given. The ``titok`` and ``kl_autoencoder`` preprocessors raise
-(ROADMAP.md queue A13): they come with the VAE-training slice.
+named and present, else seeded random), ``titok`` (TiTok-KL, upstream
+weights from ``algorithm.pretrained_path``), ``kl_autoencoder`` (the
+diffusers kl-f8 AutoencoderKL, or the ImageVAE of ``algorithm.ddconfig``
+where given; a diffusers state dict from ``algorithm.pretrained_path`` or a
+``pretrained_model_name_or_path`` that is a local file or diffusers
+directory, else a warning and seeded random weights), ``video`` (the
+VideoVAE of ``algorithm.model``) or else the ImageVAE of
+``algorithm.ddconfig``; their weights from ``load=``, a torch file of the
+module's state dict, where given. A weights path the disk lacks raises.
+TiTok and kl-f8 keep the posterior's mode; TiTok takes videos in [0, 1],
+the others in [-1, 1]. TiTok's latents are its tokens, (T, N, token_size).
 """
 
 from __future__ import annotations
@@ -30,13 +36,41 @@ from ..data.video_dataset import VideoDataset
 from ..diffusion.core import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.torch_ckpt import load_state_dict, resolve_weights_path
-from ..vae import DCAE, DCAEConfig, ImageVAE, ImageVAEConfig, VideoVAE, VideoVAEConfig
-from ..vae import estimate_latent_stats
+from ..vae import (
+    DCAE,
+    KL_F8_CONFIG,
+    AutoencoderKL,
+    DCAEConfig,
+    ImageVAE,
+    ImageVAEConfig,
+    TiTokConfig,
+    TiTokKL,
+    VideoVAE,
+    VideoVAEConfig,
+    diffusers_state_dict,
+    estimate_latent_stats,
+)
 from ..vae.codec import RANDOM_VAE_SEED
 
 __all__ = ["VideoLatentPreprocessingExperiment"]
 
 ENCODE_SEED = 0  # the posterior draws of the KL VAEs
+
+
+def _local_diffusers_weights(name_or_path: Optional[str]) -> Optional[str]:
+    """``pretrained_model_name_or_path`` as a local weights file, where it
+    names one or a diffusers directory holding one (a hub name is not
+    fetched)."""
+    if not name_or_path:
+        return None
+    p = str(name_or_path)
+    if os.path.isfile(p):
+        return p
+    if os.path.isdir(p):
+        for fname in ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin"):
+            if os.path.exists(os.path.join(p, fname)):
+                return os.path.join(p, fname)
+    return None
 
 
 class VideoLatentPreprocessingExperiment:
@@ -55,14 +89,21 @@ class VideoLatentPreprocessingExperiment:
     def _build_vae(self) -> None:
         acfg = self.cfg.algorithm
         name = acfg.get("_name", "image_vae_preprocessor")
-        if "titok" in name or "kl_autoencoder" in name:
-            raise NotImplementedError(
-                f"the {name} preprocessor is not ported yet (ROADMAP.md queue A13)")
-        self.is_video_vae = "video" in name
+        self.is_titok = "titok" in name
+        is_kl = "kl_autoencoder" in name
+        self.is_video_vae = "video" in name and not (self.is_titok or is_kl)
         self.is_deterministic = "dc_ae" in name
+        self.keeps_mode = self.is_titok or is_kl
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(RANDOM_VAE_SEED)
-            if self.is_video_vae:
+            if self.is_titok:
+                self.vae_cfg = TiTokConfig.from_config(acfg)
+                vae = TiTokKL(self.vae_cfg)
+            elif is_kl:
+                self.vae_cfg = (ImageVAEConfig.from_config(acfg) if acfg.get("ddconfig") is not None
+                                else KL_F8_CONFIG)
+                vae = AutoencoderKL(self.vae_cfg)
+            elif self.is_video_vae:
                 self.vae_cfg = VideoVAEConfig.from_config(acfg)
                 vae = VideoVAE(self.vae_cfg)
             elif self.is_deterministic:
@@ -71,15 +112,28 @@ class VideoLatentPreprocessingExperiment:
             else:
                 self.vae_cfg = ImageVAEConfig.from_config(acfg)
                 vae = ImageVAE(self.vae_cfg)
-        path = self.load_path
-        if not path and self.is_deterministic and acfg.get("pretrained_path"):
+        path, rename = self.load_path, None
+        if not path and (self.is_deterministic or self.is_titok or is_kl) \
+                and acfg.get("pretrained_path"):
             path = resolve_weights_path(str(acfg.pretrained_path))
+            rename = diffusers_state_dict if is_kl else None
+        if not path and is_kl:
+            path = _local_diffusers_weights(acfg.get("pretrained_model_name_or_path"))
+            rename = diffusers_state_dict
+            if not path:
+                print(f"WARNING: the kl_autoencoder preprocessor has no weights "
+                      f"(pretrained_path unset and pretrained_model_name_or_path="
+                      f"{acfg.get('pretrained_model_name_or_path')!r} is not a local "
+                      f"checkpoint): latents will come from a randomly initialized VAE. Point "
+                      f"algorithm.pretrained_path at a diffusers sd-vae-ft-* checkpoint before "
+                      f"real preprocessing.")
         self.pretrained = bool(path)
         if path:
             if not os.path.exists(str(path)):
                 raise FileNotFoundError(f"VAE weights {path}: no such file")
             state = load_state_dict(str(path))
-            vae.load_state_dict(dict(state.get("state_dict", state)), strict=True)
+            state = dict(state.get("state_dict", state))
+            vae.load_state_dict(rename(state) if rename else state, strict=True)
         self.vae = vae.to(self.device).eval().requires_grad_(False)
 
     def exec_task(self, task: str) -> None:
@@ -119,12 +173,16 @@ class VideoLatentPreprocessingExperiment:
     def _encode(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         if self.is_deterministic:
             return self.vae.encode(x)
+        if self.keeps_mode:
+            return self.vae.encode(x).mode()
         return self.vae.encode(x).sample(generator)
 
     @torch.no_grad()
     def _encode_video(self, video: np.ndarray, generator: torch.Generator) -> np.ndarray:
         """(T, H, W, C) in [0, 1] -> channel-last latents, chunk by chunk."""
-        x = torch.as_tensor(np.asarray(video), dtype=torch.float32).to(self.device) * 2.0 - 1.0
+        x = torch.as_tensor(np.asarray(video), dtype=torch.float32).to(self.device)
+        if not self.is_titok:
+            x = x * 2.0 - 1.0
         chunks = []
         if self.is_video_vae:
             f = self.vae_cfg.temporal_downsampling_factor
@@ -139,7 +197,8 @@ class VideoLatentPreprocessingExperiment:
         else:
             for t in range(0, x.shape[0], self.max_encode_length):
                 seg = x[t:t + self.max_encode_length].permute(0, 3, 1, 2).contiguous()
-                chunks.append(self._encode(seg, generator).permute(0, 2, 3, 1))
+                z = self._encode(seg, generator)
+                chunks.append(z if self.is_titok else z.permute(0, 2, 3, 1))
         return torch.cat(chunks).cpu().numpy()
 
     def close(self) -> None:

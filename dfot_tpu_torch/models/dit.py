@@ -56,7 +56,7 @@ from .embeddings import (
     make_rope_3d,
 )
 from .matrix import MatrixDiTBlock
-from .remat import remat
+from .remat import remat, saved_ops
 
 __all__ = [
     "Attention", "Mlp", "AdaModulation", "DiTBlock", "FinalLayer", "DiTSpec", "DiTBase",
@@ -94,6 +94,8 @@ class Attention(nn.Module):
         H, D = self.num_heads, C // self.num_heads
         qkv = self.qkv(x)
         tabs = None if self.rope is None else self.rope.cast(x.device, qkv.dtype)
+        # the output of either route is what the JAX model tags attn_out: the
+        # route's last op (B3's or B10's) is what the attn remat policies keep
         if attention_route(N, D, self.causal) in ("flash", "padded_flash"):
             # one pass each for split + RoPE + pad and for slice + merge
             out = attention_from_packed_qkv(
@@ -264,9 +266,10 @@ class DiTBase(nn.Module):
                              "full_matrix_attention", "factorized_matrix_attention"):
             raise ValueError(f"unknown DiT variant {s.variant!r}")
         if s.double_rope_merge is not None:
-            raise NotImplementedError("the difference-DiT's double RoPE is not ported (ROADMAP.md)")
+            raise NotImplementedError(
+                "the difference-DiT's double RoPE is not ported yet (ROADMAP.md queue A14)")
         if s.use_gradient_checkpointing:
-            remat(s.remat_policy)  # raises now on a policy that is not ported
+            saved_ops(s.remat_policy)  # an unknown name raises here
         self.spec, self.num_patches = s, num_patches
         dim, head_dim = s.hidden_size, s.hidden_size // s.num_heads
         grid = tuple(spatial_grid)

@@ -36,7 +36,7 @@ from torch import nn
 
 from ..ops.attention import attention, attention_route
 from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, swap_pairs
-from .remat import remat
+from .remat import remat, saved_ops
 from .embeddings import (
     PatchEmbed,
     RandomDropoutCondEmbedding,
@@ -183,6 +183,8 @@ class _QKNormAttention:
         dispatcher, whose kernel is B10."""
         B, N, C3 = qkv.shape
         H, D = self.heads, C3 // (3 * self.heads)
+        # the output of either route is what the JAX model tags attn_out: the
+        # route's last op (B3's or B10's) is what the attn remat policies keep
         if attention_route(N, D) in ("flash", "padded_flash"):
             return attention_from_packed_qkv(
                 qkv, H, D, self._tables(qkv.device, qkv.dtype, rope),
@@ -384,7 +386,7 @@ class UViT3D(nn.Module):
         if bad:
             raise ValueError(f"unknown block types {sorted(bad)}")
         if any(s.use_checkpointing):
-            remat(s.remat_policy)  # raises now on a policy that is not ported
+            saved_ops(s.remat_policy)  # an unknown name raises here
         self.spec, self.x_channels, self.resolution = s, x_channels, resolution
         self.token_io = token_io
         self._ropes: Dict[int, dict] = {}  # per level, shared by its blocks

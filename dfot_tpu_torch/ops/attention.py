@@ -27,13 +27,20 @@ package.
 - :func:`attention` is the dispatcher (counterpart of ``attention``); its
   rule is :func:`attention_route`. Sequence-parallel ring attention is not
   ported.
+
+:func:`flash_attention` and :func:`small_n_attention` dispatch through the
+``torch.library`` custom ops ``dfot::flash_attention`` (O and LSE; B1
+forward, B4 + B5 backward) and ``dfot::small_n_attention`` (B10), whose CPU
+implementations are the plain versions and CUDA ones the kernels, so that
+``torch.utils.checkpoint``'s selective contexts see them
+(``models/remat.py``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -253,16 +260,6 @@ def _flash_cuda(q, k, v, causal, sm_scale, return_lse, head_dim):
     return (out, lse) if return_lse else out
 
 
-def _flash_forward(q, k, v, causal, sm_scale, return_lse, plain=False, head_dim=None):
-    """Kernel B1 for a CUDA tensor, its plain version for a CPU tensor (or
-    on any device with ``plain``)."""
-    if plain or q.device.type == "cpu":
-        return attention_reference(q, k, v, causal, sm_scale, return_lse)
-    if not q.is_cuda:
-        raise ValueError(f"no flash-attention path for device {q.device}")
-    return _flash_cuda(q, k, v, causal, sm_scale, return_lse, head_dim)
-
-
 def _bwd_operands(what, q, k, v, do, lse, delta):
     _check_qkv(what, q, k, v, do)
     _check_stats(what, q, lse, delta)
@@ -334,35 +331,52 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     return dk, dv
 
 
-def _wants_grad(*tensors) -> bool:
-    """Whether autograd would record an op on these tensors. Where it would
-    not (sampling), the wrappers call their kernels directly and skip the
-    autograd Function's bookkeeping."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+@torch.library.custom_op(
+    "dfot::flash_attention", mutates_args=(), device_types="cpu",
+    schema=("(Tensor q, Tensor k, Tensor v, "
+            "bool causal, float sm_scale, int head_dim, bool plain) -> (Tensor, Tensor)"))
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              sm_scale: float, head_dim: int, plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, LSE) of attention: the plain version (the implementation for CPU
+    tensors, and for any tensor with ``plain``)."""
+    return attention_reference(q, k, v, causal, sm_scale, True)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """B1 forward, B4 + B5 backward (or their plain versions)."""
+@_flash_op.register_kernel("cuda")
+def _(q, k, v, causal, sm_scale, head_dim, plain):
+    if plain:
+        return attention_reference(q, k, v, causal, sm_scale, True)
+    return _flash_cuda(q, k, v, causal, sm_scale, True, head_dim)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, plain, head_dim):
-        out, lse = _flash_forward(q, k, v, causal, sm_scale, True, plain, head_dim)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, sm_scale, plain, head_dim)
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        causal, sm_scale, plain, head_dim = ctx.args
-        delta = _delta(out, do)
-        if plain:
-            dq = _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
-            dk, dv = _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
-        else:
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
-        return dq, dk, dv, None, None, None, None
+@_flash_op.register_fake
+def _(q, k, v, causal, sm_scale, head_dim, plain):
+    B, H, N, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, N, 1), dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale, head_dim, plain = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (causal, sm_scale, head_dim, plain)
+    ctx.mark_non_differentiable(output[1])
+
+
+def _flash_backward(ctx, do, _dlse):
+    """B4 + B5 from the saved (q, k, v, O, LSE), or their plain versions."""
+    q, k, v, out, lse = ctx.saved_tensors
+    causal, sm_scale, head_dim, plain = ctx.args
+    delta = _delta(out, do)
+    if plain:
+        dq = _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
+        dk, dv = _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    else:
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(
@@ -376,24 +390,24 @@ def flash_attention(
     *,
     head_dim: Optional[int] = None,
 ):
-    """Flash attention, (B, H, N, D) layout [, lse (B, H, N, 1)].
+    """Flash attention, (B, H, N, D) layout [, lse (B, H, N, 1)], through
+    the custom op ``dfot::flash_attention``.
 
     ``sm_scale`` defaults to 1/sqrt(D). On a CUDA device this launches the
     hand-written kernels, forward and backward (bf16, D in {64, 128, 256}, N a
     multiple of 64; anything else raises); on the CPU, or on any device with
-    ``plain``, it runs the plain versions. With ``return_lse`` the call is
-    the bare forward and carries no gradient. ``head_dim`` is for the
-    callers that zero-pad heads to D (:func:`_padded_flash`,
-    ``qkv_prep.attention_from_packed_qkv``): the true head dim, whose lanes
-    alone the kernels B1, B4 and B5 then compute.
+    ``plain``, it runs the plain versions. The LSE carries no gradient.
+    ``head_dim`` is for the callers that zero-pad heads to D
+    (:func:`_padded_flash`, ``qkv_prep.attention_from_packed_qkv``): the true
+    head dim, whose lanes alone the kernels B1, B4 and B5 then compute.
     """
-    if head_dim is not None and not 0 < head_dim <= q.shape[-1]:
+    head_dim = q.shape[-1] if head_dim is None else head_dim
+    if not 0 < head_dim <= q.shape[-1]:
         raise ValueError(f"head_dim {head_dim} outside (0, {q.shape[-1]}]")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if return_lse or not _wants_grad(q, k, v):
-        return _flash_forward(q, k, v, causal, sm_scale, return_lse, plain, head_dim)
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, plain, head_dim)
+    out, lse = _flash_op(q, k, v, causal, float(sm_scale), head_dim, plain)
+    return (out, lse) if return_lse else out
 
 
 # kernel launches since the last reset
@@ -499,44 +513,54 @@ def _small_n_cuda(q, k, v):
     return out
 
 
-def _small_n_forward(q, k, v, plain):
-    """Kernel B10 for a CUDA tensor, its plain version for a CPU tensor (or
-    on any device with ``plain``)."""
-    if plain or q.device.type == "cpu":
-        if q.shape[-2] > SMALL_N_MAX:
-            raise ValueError(f"small-N attention takes N <= {SMALL_N_MAX}, got {tuple(q.shape)}")
-        return small_n_attention_reference(q, k, v)
-    if not q.is_cuda:
-        raise ValueError(f"no small-N attention path for device {q.device}")
-    return _small_n_cuda(q, k, v)
+@torch.library.custom_op(
+    "dfot::small_n_attention", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool plain) -> Tensor")
+def _small_n_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                plain: bool) -> torch.Tensor:
+    """Whole-row attention: the plain version (the implementation for CPU
+    tensors, and for any tensor with ``plain``)."""
+    return _small_n_plain(q, k, v)
 
 
-class _SmallNAttention(torch.autograd.Function):
-    """B10 forward (or its plain version); the backward is the plain
-    backward formulas on a recomputed forward: at these row lengths the
-    N x N scores are tiny."""
+@_small_n_op.register_kernel("cuda")
+def _(q, k, v, plain):
+    return _small_n_plain(q, k, v) if plain else _small_n_cuda(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v, plain):
-        ctx.save_for_backward(q, k, v)
-        return _small_n_forward(q, k, v, plain)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        o, lse = attention_reference(q, k, v, return_lse=True)
-        return (*attention_backward_reference(q, k, v, o, lse, do), None)
+def _small_n_plain(q, k, v):
+    if q.shape[-2] > SMALL_N_MAX:
+        raise ValueError(f"small-N attention takes N <= {SMALL_N_MAX}, got {tuple(q.shape)}")
+    return small_n_attention_reference(q, k, v)
+
+
+@_small_n_op.register_fake
+def _(q, k, v, plain):
+    return torch.empty_like(q)
+
+
+def _small_n_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:3])
+
+
+def _small_n_backward(ctx, do):
+    """The plain backward formulas on a recomputed plain forward: at these
+    row lengths the N x N scores are tiny."""
+    q, k, v = ctx.saved_tensors
+    o, lse = attention_reference(q, k, v, return_lse=True)
+    return (*attention_backward_reference(q, k, v, o, lse, do), None)
+
+
+_small_n_op.register_autograd(_small_n_backward, setup_context=_small_n_setup)
 
 
 def small_n_attention(q, k, v, plain: bool = False) -> torch.Tensor:
-    """Non-causal attention for short rows, (B, H, N, D) with N <= 32: the
-    whole row at once, no online softmax. On a CUDA device this launches
-    kernel B10 (bf16 or fp32, D a multiple of 64 up to 256; anything else
-    raises); on the CPU, or on any device with ``plain``, it runs the plain
-    version. Differentiable."""
-    if not _wants_grad(q, k, v):
-        return _small_n_forward(q, k, v, plain)
-    return _SmallNAttention.apply(q, k, v, plain)
+    """Non-causal attention for short rows, (B, H, N, D) with N <= 32, through
+    the custom op ``dfot::small_n_attention``: the whole row at once, no
+    online softmax. On a CUDA device this launches kernel B10 (bf16 or fp32,
+    D a multiple of 64 up to 256; anything else raises); on the CPU, or on
+    any device with ``plain``, it runs the plain version. Differentiable."""
+    return _small_n_op(q, k, v, plain)
 
 
 small_n_attention.launches = 0
@@ -593,5 +617,6 @@ def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tenso
     if route == "plain":
         return attention_reference(q, k, v, causal)
     raise NotImplementedError(
-        f"attention of shape {tuple(q.shape)} (causal={causal}): no kernel of the port takes it"
+        f"attention of shape {tuple(q.shape)} (causal={causal}): no kernel of the port takes it "
+        "(ROADMAP.md queue B)"
     )

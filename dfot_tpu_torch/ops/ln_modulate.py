@@ -29,7 +29,7 @@ import functools
 import torch
 
 from . import _cuda
-from .attention import _f32, _wants_grad
+from .attention import _f32
 
 __all__ = [
     "ln_modulate", "ln_modulate_bwd", "ln_modulate_bwd_plan", "ln_modulate_plan",
@@ -211,8 +211,8 @@ def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     autocast all three are taken as they come (the modulation of an
     autocast linear is bf16, so the caller casts x to match). Differentiable
     in all three. ``plain`` runs the plain versions on any device."""
-    if not _wants_grad(x, shift, scale):
-        return _forward(x, shift, scale, eps, plain)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, shift, scale))):
+        return _forward(x, shift, scale, eps, plain)  # no autograd bookkeeping in sampling
     return _LnModulate.apply(x, shift, scale, eps, plain)
 
 

@@ -16,11 +16,16 @@ each, forward and backward:
 - :func:`attention_from_packed_qkv` runs B2 -> B1 -> B3, the route of every
   UViT transformer block, and B7 -> B4, B5 -> B6 on the way back.
 
-A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes the
-plain versions. RoPE pairs are ADJACENT lanes (rotate_half is
-(x0, x1) -> (-x1, x0)); the sign is folded into the sin table
-(:func:`signed_sin`) and the learned RMSNorm scale into both tables before
-their cast to the model dtype, exactly as the JAX package does.
+The two differentiable passes are ``torch.library`` custom ops with their
+autograd formulas: ``dfot::qkv_prep`` (B2, B6) and ``dfot::attn_out_collect``
+(B3, B7), one op each, as the JAX package's two ``custom_vjp``s, so that a
+selective checkpoint (``models/remat.py``) sees them and can keep B3's
+output. A CUDA tensor goes to the kernels or the call raises; a CPU tensor
+takes the plain versions (the ops' CPU implementations). RoPE pairs are
+ADJACENT lanes (rotate_half is (x0, x1) -> (-x1, x0)); the sign is folded
+into the sin table (:func:`signed_sin`) and the learned RMSNorm scale into
+both tables before their cast to the model dtype, exactly as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .attention import SM_COUNT, _f32, _wants_grad, flash_attention, padded_head_dim
+from .attention import SM_COUNT, _f32, flash_attention, padded_head_dim
 
 __all__ = [
     "signed_sin",
@@ -103,7 +108,9 @@ def _prep_plain(qkv, tabs, heads, head_dim, d_out, norm, eps):
             t = t * c + swap_pairs(t) * s
         if d_out > head_dim:
             t = torch.nn.functional.pad(t, (0, d_out - head_dim))
-        outs.append(t.contiguous())
+        # v with no pad is a view of qkv: the op's outputs must be fresh tensors
+        outs.append(t.contiguous() if i < 2 or d_out > head_dim
+                    else t.clone(memory_format=torch.contiguous_format))
     return tuple(outs)
 
 
@@ -299,37 +306,55 @@ def qkv_prep_bwd(qkv, tabs, dq, dk, dv, heads, head_dim, norm=False, eps=1e-6, p
     return _prep_bwd_cuda(qkv, tabs, dq, dk, dv, heads, head_dim, norm, eps)
 
 
-class _QkvPrep(torch.autograd.Function):
-    """B2 forward, B6 backward (or their plain versions). The tables come in
-    any float dtype (fp32 on the differentiable route), are cast to qkv's
-    dtype here, after the fold, and get their cotangents back in fp32."""
-
-    @staticmethod
-    def forward(ctx, qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain):
-        tabs = ((cq.to(qkv.dtype), sq.to(qkv.dtype)), (ck.to(qkv.dtype), sk.to(qkv.dtype)))
-        ctx.save_for_backward(qkv, *tabs[0], *tabs[1])
-        ctx.args = (heads, head_dim, norm, eps, plain)
-        ctx.table_dtypes = tuple(t.dtype for t in (cq, sq, ck, sk))
-        return _prep(qkv, tabs, heads, head_dim, d_out, norm, eps, plain)
-
-    @staticmethod
-    def backward(ctx, dq, dk, dv):
-        qkv, cq, sq, ck, sk = ctx.saved_tensors
-        dqkv, *dtabs = qkv_prep_bwd(qkv, ((cq, sq), (ck, sk)), dq, dk, dv, *ctx.args)
-        dtabs = [
-            g.to(dt) if need else None
-            for g, dt, need in zip(dtabs, ctx.table_dtypes, ctx.needs_input_grad[1:5])
-        ]
-        return (dqkv if ctx.needs_input_grad[0] else None, *dtabs, *(None,) * 6)
+def _cast_tables(qkv, cq, sq, ck, sk):
+    return (cq.to(qkv.dtype), sq.to(qkv.dtype)), (ck.to(qkv.dtype), sk.to(qkv.dtype))
 
 
-def _prep_route(qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain):
-    """The preparation on folded tables of any float dtype: through the
-    autograd Function where a gradient is wanted, directly otherwise."""
-    if _wants_grad(qkv, cq, sq, ck, sk):
-        return _QkvPrep.apply(qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain)
-    tabs = ((cq.to(qkv.dtype), sq.to(qkv.dtype)), (ck.to(qkv.dtype), sk.to(qkv.dtype)))
+@torch.library.custom_op(
+    "dfot::qkv_prep", mutates_args=(), device_types="cpu",
+    schema=("(Tensor qkv, Tensor cq, Tensor sq, Tensor ck, Tensor sk, "
+            "int heads, int head_dim, int d_out, bool norm, float eps, bool plain)"
+            " -> (Tensor, Tensor, Tensor)"))
+def _qkv_prep_op(qkv: torch.Tensor, cq: torch.Tensor, sq: torch.Tensor, ck: torch.Tensor,
+                 sk: torch.Tensor, heads: int, head_dim: int, d_out: int, norm: bool,
+                 eps: float, plain: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v from the packed qkv and folded tables of any float dtype (cast
+    to qkv's here, after the fold): the plain version (the implementation for
+    CPU tensors, and for any tensor with ``plain``)."""
+    tabs = _cast_tables(qkv, cq, sq, ck, sk)
+    _check_prep_shapes(qkv, tabs, heads, head_dim, d_out)
+    return _prep_plain(qkv, tabs, heads, head_dim, d_out, norm, eps)
+
+
+@_qkv_prep_op.register_kernel("cuda")
+def _(qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain):
+    tabs = _cast_tables(qkv, cq, sq, ck, sk)
     return _prep(qkv, tabs, heads, head_dim, d_out, norm, eps, plain)
+
+
+@_qkv_prep_op.register_fake
+def _(qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain):
+    B, N, _ = qkv.shape
+    return tuple(qkv.new_empty((B, heads, N, d_out)) for _ in range(3))
+
+
+def _qkv_prep_setup(ctx, inputs, output):
+    qkv, cq, sq, ck, sk, heads, head_dim, d_out, norm, eps, plain = inputs
+    ctx.save_for_backward(qkv, cq, sq, ck, sk)
+    ctx.args = (heads, head_dim, norm, eps, plain)
+
+
+def _qkv_prep_backward(ctx, dq, dk, dv):
+    """B6 (or its plain version): the packed gradient and the fp32 table
+    cotangents, cast to each table's dtype."""
+    qkv, *tables = ctx.saved_tensors
+    dqkv, *dtabs = qkv_prep_bwd(qkv, _cast_tables(qkv, *tables), dq, dk, dv, *ctx.args)
+    dtabs = [g.to(t.dtype) if need else None
+             for g, t, need in zip(dtabs, tables, ctx.needs_input_grad[1:5])]
+    return (dqkv if ctx.needs_input_grad[0] else None, *dtabs, *(None,) * 6)
+
+
+_qkv_prep_op.register_autograd(_qkv_prep_backward, setup_context=_qkv_prep_setup)
 
 
 def qkv_prep(
@@ -360,7 +385,7 @@ def qkv_prep(
         cos[:n], sin_signed[:n], q_scale, k_scale,
         torch.float64 if qkv.dtype == torch.float64 else torch.float32,
     )
-    return _prep_route(qkv, cq, sq, ck, sk, heads, head_dim, d_out or head_dim, norm, eps, plain)
+    return _qkv_prep_op(qkv, cq, sq, ck, sk, heads, head_dim, d_out or head_dim, norm, eps, plain)
 
 
 def reference_qkv_prep(qkv, heads, head_dim, cos, sin_signed, **kwargs):
@@ -487,36 +512,48 @@ def attn_out_scatter(g: torch.Tensor, heads: int, head_dim: int, d_in: int,
     return _scatter_cuda(g, heads, head_dim, d_in)
 
 
-def _collect(o, head_dim, plain):
-    """Kernel B3 for a CUDA tensor, its plain version for a CPU tensor (or
-    on any device with ``plain``)."""
-    if plain or o.device.type == "cpu":
-        return reference_attn_out_collect(o, head_dim).contiguous()
-    if not o.is_cuda:
-        raise ValueError(f"no attn_out_collect path for device {o.device}")
+@torch.library.custom_op(
+    "dfot::attn_out_collect", mutates_args=(), device_types="cpu",
+    schema="(Tensor o, int head_dim, bool plain) -> Tensor")
+def _collect_op(o: torch.Tensor, head_dim: int, plain: bool) -> torch.Tensor:
+    """The merged heads: the plain version (the implementation for CPU
+    tensors, and for any tensor with ``plain``), always a fresh tensor."""
+    return reference_attn_out_collect(o, head_dim).clone(memory_format=torch.contiguous_format)
+
+
+@_collect_op.register_kernel("cuda")
+def _(o, head_dim, plain):
+    if plain:
+        return reference_attn_out_collect(o, head_dim).clone(memory_format=torch.contiguous_format)
     return _collect_cuda(o, head_dim)
 
 
-class _AttnOutCollect(torch.autograd.Function):
-    """B3 forward, B7 backward (or their plain versions)."""
+@_collect_op.register_fake
+def _(o, head_dim, plain):
+    B, H, N, _ = o.shape
+    return o.new_empty((B, N, H * head_dim))
 
-    @staticmethod
-    def forward(ctx, o, head_dim, plain):
-        ctx.args = (o.shape[1], head_dim, o.shape[-1], plain)
-        return _collect(o, head_dim, plain)
 
-    @staticmethod
-    def backward(ctx, g):
-        return attn_out_scatter(g, *ctx.args), None, None
+def _collect_setup(ctx, inputs, output):
+    o, head_dim, plain = inputs
+    ctx.args = (o.shape[1], head_dim, o.shape[-1], plain)
+
+
+def _collect_backward(ctx, g):
+    return attn_out_scatter(g, *ctx.args), None, None
+
+
+_collect_op.register_autograd(_collect_backward, setup_context=_collect_setup)
 
 
 def attn_out_collect(o: torch.Tensor, head_dim: int, plain: bool = False) -> torch.Tensor:
-    """(B, H, N, DP) attention output -> (B, N, H*head_dim): drop the pad
-    lanes and merge the heads in one pass. Differentiable. ``plain`` runs
-    the plain versions on any device."""
-    if not _wants_grad(o):
-        return _collect(o, head_dim, plain)
-    return _AttnOutCollect.apply(o, head_dim, plain)
+    """(B, H, N, DP) attention output -> (B, N, H*head_dim), through the
+    custom op ``dfot::attn_out_collect``: drop the pad lanes and merge the
+    heads in one pass, kernel B3 for a CUDA tensor, its plain version for a
+    CPU tensor (or on any device with ``plain``). Differentiable (B7 back).
+    It makes the output that the JAX models tag ``attn_out`` on the packed
+    route: the ``attn`` remat policies save it (``models/remat.py``)."""
+    return _collect_op(o, head_dim, plain)
 
 
 # kernel launches since the last reset
@@ -559,6 +596,6 @@ def attention_from_packed_qkv(
     # pad lanes are inert in every product, B1, B4 and B5 compute only the
     # true head dim's lanes, and B6/B7 drop and re-zero the cotangents of the rest
     DP = padded_head_dim(D)
-    q, k, v = _prep_route(qkv, cq, sq, ck, sk, heads, D, DP, norm, eps, plain)
+    q, k, v = _qkv_prep_op(qkv, cq, sq, ck, sk, heads, D, DP, norm, eps, plain)
     o = flash_attention(q, k, v, causal, 1.0 / math.sqrt(D), plain=plain, head_dim=D)
     return attn_out_collect(o, D, plain)

@@ -205,7 +205,8 @@ def make_window_sampler(
     sampler.py:362-383``).
     """
     if mesh is not None:
-        raise NotImplementedError("multi-device sampling (mesh) is not ported")
+        raise NotImplementedError(
+            "multi-device sampling (mesh) is not ported yet (ROADMAP.md queue A16)")
 
     def noise_input(k_clipped):
         if dcfg.is_continuous:

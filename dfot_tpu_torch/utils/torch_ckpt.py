@@ -30,7 +30,7 @@ def resolve_weights_path(path: str) -> str:
 
 
 def load_state_dict(path: str) -> Dict[str, Any]:
-    """The object a ``.ckpt``, ``.pt`` or ``.pth`` file holds, loaded onto
+    """The object a ``.ckpt``, ``.pt``, ``.pth`` or ``.bin`` (diffusers) file holds, loaded onto
     the CPU, or a ``.safetensors`` file's tensors (where the ``safetensors``
     package is installed). A Lightning checkpoint holds more than tensors,
     so it is unpickled in full, as the JAX package loads it: load only
@@ -41,7 +41,7 @@ def load_state_dict(path: str) -> Dict[str, Any]:
         except ImportError as e:
             raise ImportError(f"reading {path} needs the safetensors package") from e
         return dict(load_file(path))
-    if not path.endswith((".ckpt", ".pt", ".pth")):
+    if not path.endswith((".ckpt", ".pt", ".pth", ".bin")):
         raise ValueError(f"not a torch checkpoint file: {path}")
     return torch.load(path, map_location="cpu", weights_only=False)
 

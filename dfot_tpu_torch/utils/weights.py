@@ -18,7 +18,13 @@ and :func:`dcae_state_dict_from_flax` carry the JAX package's VAE
 parameters onto the port's VAEs (``vae/``): dense kernels transposed to
 torch's (out, in), conv kernels HWIO/THWIO to OIHW/OITHW, norm ``scale`` to
 ``weight``; the DC-AE's the inverse of ``dfot_tpu/vae/dc_ae.py:
-import_dc_ae_params``.
+import_dc_ae_params``. The kl-f8 AutoencoderKL is an ImageVAE and takes
+:func:`imagevae_state_dict_from_flax`.
+:func:`discriminator_state_dict_from_flax` and
+:func:`lpips_state_dict_from_flax` do the same for the VAE losses' modules
+(the discriminator's ``batch_stats`` become its BatchNorms' running
+statistics), and :func:`titok_state_dict_from_flax` is the inverse of
+``dfot_tpu/vae/titok.py:import_titok_params``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch
 
 __all__ = ["uvit3d_state_dict_from_flax", "dit3d_state_dict_from_flax", "init_random_weights",
            "imagevae_state_dict_from_flax", "videovae_state_dict_from_flax",
-           "dcae_state_dict_from_flax"]
+           "dcae_state_dict_from_flax", "discriminator_state_dict_from_flax",
+           "lpips_state_dict_from_flax", "titok_state_dict_from_flax"]
 
 
 def _linear(k):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
@@ -311,6 +318,48 @@ def dcae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
         out[name] = t
         if name.endswith(".running_mean"):
             out[name[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def discriminator_state_dict_from_flax(params: Dict[str, Any],
+                                       batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's NLayerDiscriminator ``params`` and ``batch_stats``
+    -> the port's state dict."""
+    out = dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
+    for path, v in _flatten(batch_stats).items():
+        bn, stat = path.split("/")
+        out[f"{bn}.running_{stat}"] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return out
+
+
+def lpips_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS ``params`` -> the port's state dict."""
+    return dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
+
+
+# TiTok leaves that the upstream module holds as 1x1 convs (flax: Dense)
+_TITOK_CONV1X1 = re.compile(r"(encoder/conv_out|decoder/ffn_\d|pixel_quantize_conv|"
+                            r".*/nin_shortcut)/kernel$")
+
+
+def titok_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's TiTokKL ``params`` -> the port's (upstream) state
+    dict: the inverse of ``import_titok_params``."""
+    out = {}
+    for path, value in _flatten(params).items():
+        v = np.asarray(value, dtype=np.float32)
+        if path.endswith("attn/in_proj/kernel"):
+            name, v = path[: -len("/in_proj/kernel")] + "/in_proj_weight", v.T
+        elif path.endswith("attn/in_proj/bias"):
+            name = path[: -len("/in_proj/bias")] + "/in_proj_bias"
+        elif _TITOK_CONV1X1.match(path):
+            name, v = path[: -len("kernel")] + "weight", v.T[:, :, None, None]
+        else:
+            name, t = _vae_leaf(path, v)
+            name, v = name.replace(".", "/"), t.numpy()
+        name = re.sub(r"(transformer|mid|block|up|ffn)_(\d+)", r"\1/\2", name)
+        name = re.sub(r"mlp_(c_fc|c_proj)", r"mlp/\1", name)
+        out[name.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(v))
     return out
 
 

@@ -383,13 +383,11 @@ def test_cli_matches_main(monkeypatch, tmp_path, fixture_ckpt, jax_imports_fouri
 
 @pytest.mark.parametrize("extra,item", [
     (["experiment.tasks=[training]", "experiment.training.mesh.tensor=2"], "A16"),
-    (["++algorithm.backbone.use_checkpointing=[false,true]",
-      "++algorithm.backbone.remat_policy=dots"], "A10"),
     (["++algorithm.logging.metrics=[fvd,mse]"], "A15"),
     (["algorithm.save_attn_map.enabled=true"], "A16"),
     (["experiment.validation.mesh.tensor=2"], "A16"),
     (["cluster=base_slurm"], "A16"),
-], ids=["training_mesh", "remat_policy", "fvd", "attn_maps", "mesh", "cluster"])
+], ids=["training_mesh", "fvd", "attn_maps", "mesh", "cluster"])
 def test_unported_cli_branches_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         run(SMALL + extra + [f"output_dir={tmp_path}"], device="cpu")
@@ -403,11 +401,6 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     # a dataset directory without the split's layout: no synthetic stand-in
     with pytest.raises(FileNotFoundError, match="split directory not found"):
         run(SMALL + [f"dataset.save_dir={tmp_path}", out], device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):  # the TiTok preprocessor
-        run(["+name=titok", "dataset=ucf_101", "algorithm=titok_kl_preprocessor",
-             "experiment=video_latent_preprocessing", out], device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        run(SMALL + ["experiment=video_latent_learning", out], device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="A16"):
         run(SMALL + [out], device="cpu")

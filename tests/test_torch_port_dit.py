@@ -270,8 +270,11 @@ def test_unported_dit_variants_raise_by_name():
         TD.DiT3D(TD.DiTSpec(double_rope_merge="concat"), 3, (8, 8))
     with pytest.raises(ValueError):
         TD.DiT3D(TD.DiTSpec(variant="factorized_attention", pos_emb_type="rope_3d"), 3, (8, 8))
-    with pytest.raises(NotImplementedError):
-        TD.DiT3D(TD.DiTSpec(use_gradient_checkpointing=True, remat_policy="dots"), 3, (8, 8))
+    # the selective remat policies are ported (tests/test_torch_port_remat.py)
+    for policy in ("dots", "attn", "dots_attn"):
+        TD.DiT3D(TD.DiTSpec(use_gradient_checkpointing=True, remat_policy=policy), 3, (8, 8))
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        TD.DiT3D(TD.DiTSpec(use_gradient_checkpointing=True, remat_policy="all"), 3, (8, 8))
 
 
 def test_random_weights_leave_no_gate_closed():

@@ -1028,3 +1028,53 @@ def test_dmlab_site_ln_modulate(cuda):
     assert _close(y, L.reference_ln_modulate(x, shift, scale), 2e-2)
     dx_ref, dscale_ref = L.reference_ln_modulate_bwd(x, scale, gy)
     assert _close(dx, dx_ref, 2e-2) and _close(dscale, dscale_ref, 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the attention routes as torch.library custom ops
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["flash_attention", "small_n_attention", "qkv_prep",
+                                "attn_out_collect"])
+def test_custom_ops_launch_their_kernels(cuda, op):
+    """Each ``dfot::`` op on a CUDA tensor launches its kernel once, forward
+    and backward, against its plain version (``plain=True``) on the same
+    inputs, at the tolerances above."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype).requires_grad_()
+
+    if op == "flash_attention":
+        args = [r(2, 3, 256, 128) for _ in range(3)] + [False, 1 / math.sqrt(128), 128]
+        kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        run = lambda plain: torch.ops.dfot.flash_attention(*args, plain)[0]  # noqa: E731
+    elif op == "small_n_attention":
+        args = [r(64, 4, 8, 64) for _ in range(3)]
+        kernels = ("small_n_attn",)
+        run = lambda plain: torch.ops.dfot.small_n_attention(*args, plain)  # noqa: E731
+    elif op == "qkv_prep":
+        N, H, d = 256, 2, 64
+        tabs = [r(N, d, dtype=torch.float32) for _ in range(4)]
+        args = [r(2, N, 3 * H * d)] + tabs + [H, d, 128, True, 1e-6]
+        kernels = ("qkv_prep", "qkv_prep_bwd")
+        run = lambda plain: torch.cat(torch.ops.dfot.qkv_prep(*args, plain), -1)  # noqa: E731
+    else:
+        args = [r(2, 3, 256, 128), 72]
+        kernels = ("attn_out_collect", "attn_out_scatter")
+        run = lambda plain: torch.ops.dfot.attn_out_collect(*args, plain)  # noqa: E731
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    grads = {}
+    for plain in (True, False):
+        ops.reset_launch_counts()
+        out = run(plain)
+        (out.float() * out.float().detach()).sum().backward()
+        counts = ops.launch_counts()
+        assert all(counts[k] == (0 if plain else 1) for k in kernels), (plain, counts)
+        grads[plain] = [out.detach()] + [t.grad.clone() for t in tensors]
+        for t in tensors:
+            t.grad = None
+    for got, want in zip(grads[False], grads[True]):
+        assert _close(got, want, 2e-2)
