@@ -182,13 +182,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     allows (from steps at 1 and 2 clips, printed), six steps, the
     adversarial term from the third; the card's first adversarial step
     against the CPU's in fp32 on one clip (1e-4; control: the step
-    without the adversarial term); each step's metrics and phase split,
-    peak memory, ``metrics.jsonl`` and the checkpoint. Last, the TiTok-L
-    and kl-f8 preprocessors at their published widths on seeded weights
-    (kl-f8 through the hub-name path: a warning and random weights), encode
-    ms a frame and the latents' shapes.
+    without the adversarial term), and the batch statistics a training
+    forward folds into the discriminator's running statistics (1e-4;
+    controls: torch's BatchNorm2d, momentum 0.9); each step's metrics and
+    phase split, peak memory, ``metrics.jsonl`` and the checkpoint. Last,
+    the TiTok-L and kl-f8 preprocessors at their published widths on seeded
+    weights (kl-f8 through the hub-name path: a warning and random weights),
+    encode ms a frame and the latents' shapes;
+22. (``run_slice16_paths``) the other backbones through
+    ``build_algorithm(load_config(argv))`` on seeded random weights:
+    UNet3D (``algorithm/backbone=u_net3d``, UCF-101 pixels, 31.3M) on the
+    kernel route against the plain route (forward; forward + backward with
+    dq zeroed as the control), its 50-step window at batch 32 and train
+    steps at the recipe's batch or the largest that fits; the difference
+    DFoT (@DiffDiT/B on UCF-101 latents) on each merge, the same checks on
+    the merged stream (the interleaved merge against the plain 3-D table
+    over 2T frames as well), window and steps, and its FacMatDiT leaf;
+    FAR-DiT (@FARDiT/B) and DiT1D (taichi's tokens) in bf16 against fp32
+    on the card with a control each, window and steps, launching no
+    kernel; UNet3D through ``run(argv)`` on a seeded DMLab-layout
+    directory. Step 2 also holds B1, B4 and B5 at UNet3D's sites (heads of
+    32 padded to 64, N = 256 and 64, causal and not) and B2 with the
+    doubled table (its control: the plain table over 2T frames).
 
-Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20 and 21 also run controls (an attention that
+Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21 and 22 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -238,7 +255,11 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "facmat_train", "fullmat_window", "fullmat_train", "guided_window", "axial_precomputed",
          "latent_train", "latent_pre_sample", "k600_latent",
          *(f"{model}_remat_{policy}" for model in ("xl", "flagship")
-           for policy in ("none", "dots", "attn", "dots_attn")))
+           for policy in ("none", "dots", "attn", "dots_attn")),
+         "unet3d_window", "unet3d_train", "diff_concat_window", "diff_concat_train",
+         "diff_interleaved_window", "diff_interleaved_train", "diff_facmat_window",
+         "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
+         "unet3d_cli")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -343,6 +364,17 @@ LN_TAIL_SHAPES = (((3, 7, 1152), "bf16"), ((1, 5, 384), "bf16"), ((3, 7, 896), "
 # B1, B4 and B5 at a row count that is a multiple of 64 but not of their
 # 128-row blocks, causal and not: (N, head dim, padded head dim)
 EDGE_SITES = ((192, 64, 64), (192, 128, 128), (192, 72, 128), (192, 256, 256), (192, 160, 256))
+# UNet3D's spatial softmax attention (algorithm/backbone=u_net3d on
+# ucf_101 at 64 px, its recipe's batch of 32 videos of 16 frames): heads of
+# 32 padded to 64, at level 2 (16 x 16 tokens) and in the mid block (8 x 8):
+# (label, B * T * heads, N, head dim, padded head dim); the kernels take the
+# (B * T, heads) items as one row of B * T * heads
+UNET3D_BATCH, UNET3D_FRAMES, UNET3D_HEADS = 32, 16, 4
+UNET3D_SITES = (("level2", UNET3D_BATCH * UNET3D_FRAMES * UNET3D_HEADS, 256, 32, 64),
+                ("mid", UNET3D_BATCH * UNET3D_FRAMES * UNET3D_HEADS, 64, 32, 64))
+# @DiffDiT/B on UCF-101 latents: the training batch, T frames of P patches,
+# heads of d; the video half of its merged 2T frames takes the packed route
+DIFF_SITE = (32, 16, 16, 12, 64)
 PROFILED_WINDOW_STEPS = 10
 TRAIN_STEPS = 5
 # the long-video tasks (BASELINE.json configs 2 and 3, bench.py's rollout):
@@ -1025,6 +1057,50 @@ def check_kernels(record: dict) -> dict:
                  bound(0, nbytes(g, got), PEAK_FP32_FLOPS), plain, host_us=host_us(scatter),
                  **contiguous_copy((g.numel() + got.numel()) // 2))
 
+    def unet3d_site(site, BH, N, D, DP, causal):
+        """B1, B4 and B5 at one UNet3D site (the items as heads of one batch
+        entry): the checks and controls of the edge sites, each kernel timed
+        warm and cold beside its plain version, its bound on the true lanes'
+        bytes and PyTorch's fused attention on the unpadded heads."""
+        scale = 1.0 / math.sqrt(D)
+        q, k, v, o, lse, err, tol, extra = flash_forward_check(site, 1, BH, N, D, DP, causal)
+        qd, kd, vd = (t[..., :D].contiguous() for t in (q, k, v))
+        ops = attention_ops(1, BH, N, D, causal)
+        lane = BH * N * D * 2  # one (items, N, D) bf16 tensor of true lanes
+        fwd = lambda: A.flash_attention(q, k, v, causal, scale, head_dim=D)  # noqa: E731
+        note("flash_fwd", site, False, err, tol, fwd,
+             cuda_ms(lambda: A.attention_reference(q, k, v, causal, scale), reps=3, warmup=1),
+             bound(ops, 4 * lane + nbytes(lse), PEAK_BF16_FLOPS),
+             cuda_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal,
+                                                            scale=scale)),
+             padded_bytes=nbytes(q, k, v, o, lse), host_us=host_us(fwd), **extra)
+        do = F.pad(rand(1, BH, N, D), (0, DP - D))
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        err_dq, tol_dq, extra_dq = flash_dq_check(site, q, k, v, do, lse, delta, D, causal)
+        err_dkv, tol_dkv, extra_dkv = flash_dkv_check(site, q, k, v, do, lse, delta, D, causal)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (qd, kd, vd))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, scale=scale)
+        dod = do[..., :D].contiguous()
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dod, retain_graph=True))
+        del ol, ql, kl, vl, qd, kd, vd, dod
+        stats = nbytes(lse, delta)
+        bwd_dq = lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale,  # noqa: E731
+                                        head_dim=D)
+        note("flash_bwd_dq", site, False, err_dq, tol_dq, bwd_dq,
+             cuda_ms(lambda: A._dq_plain(q, k, v, do, lse, delta, causal, scale), reps=3,
+                     warmup=1),
+             bound(3 * ops // 2, 5 * lane + stats, PEAK_BF16_FLOPS), sdpa_bwd,
+             library_covers="dq, dk and dv", padded_bytes=nbytes(q, k, v, do, lse, delta, q),
+             host_us=host_us(bwd_dq), **extra_dq)
+        bwd_dkv = lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,  # noqa: E731
+                                          head_dim=D)
+        note("flash_bwd_dkv", site, False, err_dkv, tol_dkv, bwd_dkv,
+             cuda_ms(lambda: A._dkv_plain(q, k, v, do, lse, delta, causal, scale), reps=3,
+                     warmup=1),
+             bound(2 * ops, 6 * lane + stats, PEAK_BF16_FLOPS), sdpa_bwd,
+             library_covers="dq, dk and dv", padded_bytes=nbytes(q, k, v, do, lse, delta, k, v),
+             host_us=host_us(bwd_dkv), **extra_dkv)
+
     for B in BATCHES:
         for level, N, H, D in SITES:
             side = int(math.isqrt(N // 8))
@@ -1074,6 +1150,39 @@ def check_kernels(record: dict) -> dict:
                 results[name]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
             log(f"  flash_fwd, flash_bwd_dq, flash_bwd_dkv {site}: within bounds, controls "
                 f"rejected")
+
+    # UNet3D's spatial attention: heads of 32 padded to 64, N = 256 and 64
+    # (half a 128-row block), causal and not (the model calls it non-causal).
+    # The bounds count the bytes of the 32 true lanes; ``padded_bytes`` what
+    # the kernels move with the pad lanes
+    for label, BH, N, D, DP in UNET3D_SITES:
+        for causal in (False, True):
+            unet3d_site(f"unet3d {label} BH={BH} N={N} d={D}->{DP} causal={causal}", BH, N, D,
+                        DP, causal)
+
+    # B2 with the difference DiT's doubled table: @DiffDiT/B's video half at
+    # its training batch (32 x 16 frames of 4 x 4 patches, 12 heads of 64),
+    # the interleaved merge's rows as the video half reads them (the first
+    # T * P); the control: the plain 3-D table over 2T frames
+    B, T, P, H, D = DIFF_SITE
+    N = T * P
+    site = f"difference B={B} N={N} H={H} d={D} doubled table"
+    doubled = make_rope_3d(D, (T, 4, 4), double_merge="interleaved")
+    plain = make_rope_3d(D, (2 * T, 4, 4))
+    cos, sin, pcos, psin = (torch.as_tensor(a[:N], device="cuda") for a in (
+        doubled.cos, Q.signed_sin(doubled.sin), plain.cos, Q.signed_sin(plain.sin)))
+    qkv = rand(B, N, 3 * H * D)
+    got = Q.qkv_prep(qkv, H, D, cos, sin, d_out=D)
+    torch.cuda.synchronize()
+    want = Q.reference_qkv_prep(qkv, H, D, cos, sin, d_out=D)
+    err, tol, extra = hold("qkv_prep", site, zip("qkv", got, want), 2e-2, PREP_REL_L2_TOL)
+    extra["controls"] = rejected("qkv_prep", site, "the plain 3-D table over 2T frames",
+                                 zip("qk", Q.reference_qkv_prep(qkv, H, D, pcos, psin, d_out=D),
+                                     want), 2e-2, PREP_REL_L2_TOL)
+    results["qkv_prep"].setdefault("edge_sites", {})[site] = {"max_abs_err": err, "tol": tol,
+                                                              **extra}
+    log(f"  qkv_prep          {site}: max_abs_err {err:.3e} (tol {tol:.3e}), control rejected")
+    del qkv, got, want
 
     # B3 and B7 at tails: a token count that is no multiple of any tile, at
     # every path head dim, padded or not (no timing: on no path)
@@ -1714,9 +1823,12 @@ def expected_dit_launches(spec, forwards: int = 0, train_steps: int = 0) -> dict
 
 
 def require_launches(what: str, launches: dict, expect: dict) -> None:
+    """Every kernel's launches on a path equal ``expect``; a path expected to
+    launch kernels (every one but FAR-DiT's and DiT1D's) launched some."""
     for name, n in launches.items():
         require(n == expect[name], f"kernel {name}: {n} launches on {what}, expected {expect[name]}")
-    require(any(launches.values()), f"no kernel was launched on {what}")
+    require(any(launches.values()) or not any(expect.values()),
+            f"no kernel was launched on {what}")
 
 
 def run_train_path(record: dict, key: str, what: str, fs, model, batch: dict, probes,
@@ -1764,6 +1876,7 @@ def drive_train_steps(record: dict, key: str, what: str, model, state, step, bat
 
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
+    parts = {k: [float(m[k]) for m in metrics] for k in metrics[0] if k not in ("loss", "grad_norm")}
     moved = {n: float((p.detach() - before[n]).abs().max())
              for n, p in model.named_parameters() if n in before}
     ema_moved = {n: float((state.ema[n] - ema_before[n]).abs().max()) for n in before}
@@ -1772,7 +1885,7 @@ def drive_train_steps(record: dict, key: str, what: str, model, state, step, bat
     record[key] = {
         "batch": B, "steps": steps, "step_wall_s": walls, "step_s_mean": step_s,
         "step_s_median": median_s, "steps_per_s": 1 / median_s, "loss": losses,
-        "grad_norm": norms,
+        "grad_norm": norms, **parts,
         "launches": launches,
         "peak_memory_bytes": peak, "param_max_change": moved, "ema_max_change": ema_moved,
         "lr_after": state.optimizer.lr, "num_warmup_steps": num_warmup_steps,
@@ -2992,21 +3105,26 @@ def run_matrix_window(algo, B: int, seed: int):
                                         history_guidance=algo.prediction_hg)
 
 
-def matrix_window(record: dict, key: str, what: str, algo, B: int, seed: int) -> dict:
-    """The 50-step window between a reset and a read of the launch counts."""
+def matrix_window(record: dict, key: str, what: str, algo, B: int, seed: int,
+                  expected=None, run=run_matrix_window) -> dict:
+    """The 50-step window between a reset and a read of the launch counts,
+    which must be ``expected(spec, forwards=...)`` (by default
+    :func:`expected_matrix_launches`)."""
     import torch
     from dfot_tpu_torch import ops
 
     spec, T = algo.model.spec, algo.max_tokens
+    expected = expected or expected_matrix_launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    video = run_matrix_window(algo, B, seed)
+    video = run(algo, B, seed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    evals = algo.rollout.stats["denoiser_evals_b1"] // B
+    rollout = getattr(algo, "merged_rollout", algo.rollout)
+    evals = rollout.stats["denoiser_evals_b1"] // B
     record[key] = {
         "batch": B, "wall_s": wall, "denoiser_evals": evals, "latent_frames_per_s": B * T / wall,
         "launches": launches, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -3020,26 +3138,31 @@ def matrix_window(record: dict, key: str, what: str, algo, B: int, seed: int) ->
             f"{what} window shape {tuple(video.shape)}")
     require(bool(torch.isfinite(video).all()), f"{what} window: non-finite output")
     require(evals == algo.dcfg.sampling_timesteps, f"{what} window took {evals} evaluations")
-    require_launches(f"the {what} window", launches, expected_matrix_launches(spec, forwards=evals))
+    require_launches(f"the {what} window", launches, expected(spec, forwards=evals))
     return launches
 
 
-def matrix_train(record: dict, key: str, what: str, algo, cfg, seed: int, steps: int) -> dict:
+def matrix_train(record: dict, key: str, what: str, algo, cfg, seed: int, steps: int,
+                 expected=None, probes=None, B=None) -> dict:
     """The composed config's train state and train step at its training
-    batch (every block checkpointed as configured): a warm-up step, then
-    ``steps`` steps with their launch counts required."""
+    batch (or ``B``; every block checkpointed as configured): a warm-up
+    step, then ``steps`` steps with their launch counts required
+    (``expected(spec, train_steps=...)``, by default
+    :func:`expected_matrix_launches`) and the parameters named in ``probes``
+    (by default :func:`matrix_grad_probes`) moved."""
     import torch
 
     e = cfg.experiment
-    B = e.training.batch_size
+    B = B or e.training.batch_size
+    expected = expected or expected_matrix_launches
     torch.cuda.reset_peak_memory_stats()
     state = algo.make_train_state(grad_clip=e.training.optim.get("gradient_clip_val", 1.0) or 0.0)
     step = algo.make_train_step(ema_decay=e.ema.get("decay", 0.9999))
     batch = latent_batch((algo.max_tokens, *algo.x_shape), B, seed)
     spec = algo.model.spec
     return drive_train_steps(
-        record, key, what, algo.model, state, step, batch, matrix_grad_probes(spec),
-        expected_matrix_launches(spec, train_steps=steps),
+        record, key, what, algo.model, state, step, batch, probes or matrix_grad_probes(spec),
+        expected(spec, train_steps=steps),
         cfg.algorithm.lr_scheduler.num_warmup_steps, state.optimizer.grad_clip, steps)
 
 
@@ -4039,6 +4162,7 @@ def vae_first_step_against_cpu(rec: dict, exp, videos, kind: str) -> None:
 
     import torch
     from dfot_tpu_torch.vae import distribution as D
+    from dfot_tpu_torch.vae.losses import BatchNorm
 
     clip = videos[:1, :VAE_CPU_FRAMES[kind]]
     cpu = copy.copy(exp)
@@ -4097,7 +4221,68 @@ def vae_first_step_against_cpu(rec: dict, exp, videos, kind: str) -> None:
                 and c["grad_rel_l2"] <= tol,
                 f"{kind} VAE {name} step off the CPU's: {c}")
     require(g_ctrl > 10 * VAE_CPU_SIGN_TOL, f"{kind} VAE step: the control passes ({g_ctrl})")
+
+    # the discriminator's running statistics (ROADMAP.md C9): the batch
+    # statistics one training forward of the clip's frames folds in, card
+    # against CPU, within VAE_CPU_REL_TOL. Neither control moves d_weight or a
+    # gradient (a training forward normalizes by the biased batch variance
+    # in torch's BatchNorm2d too; the momentum enters only the running
+    # statistics); each must miss here: torch's BatchNorm2d (the unbiased
+    # batch variance, n / (n - 1)) and momentum 0.9
+    def folded(e, x, make_bn=None):
+        disc = copy.deepcopy(exp.disc).to(e.device)
+        if make_bn is not None:
+            for n in range(1, disc.n_layers + 1):
+                bn = getattr(disc, f"bn{n}")
+                setattr(disc, f"bn{n}", make_bn(bn.weight.numel()).to(e.device))
+        disc.load_state_dict(start[1], strict=False)
+        with torch.no_grad():
+            disc(e._frames(e._layout(x) * 2.0 - 1.0), train=True)
+        m = 0.99  # the port's (flax's) momentum
+        out = {}
+        for stat in ("mean", "var"):
+            out[stat] = torch.cat([
+                (getattr(getattr(disc, f"bn{n}"), f"running_{stat}").float().cpu()
+                 - m * start[1][f"bn{n}.running_{stat}"].float().cpu()) / (1 - m)
+                for n in range(1, disc.n_layers + 1)])
+        return out
+
+    want = folded(cpu, clip)
+    got = folded(exp, clip.cuda())
+    stats = {k: rel_l2(got[k], want[k]) for k in want}
+    ctrl_stats = {}
+    for label, make_bn in (("torch BatchNorm2d (unbiased variance)", TorchBatchNorm),
+                           ("momentum 0.9", lambda c: BatchNorm(c, momentum=0.9))):
+        c = folded(exp, clip.cuda(), make_bn)
+        ctrl_stats[label] = {k: rel_l2(c[k], want[k]) for k in want}
+    rec["cpu_check"]["running_stats"] = {"rel_l2": stats, "controls": ctrl_stats,
+                                         "tol": VAE_CPU_REL_TOL}
+    log(f"    discriminator statistics folded in (rel L2, tol {VAE_CPU_REL_TOL}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in stats.items()) + "; controls: "
+        + "; ".join(f"{label} " + ", ".join(f"{k} {v:.2e}" for k, v in c.items())
+                    for label, c in ctrl_stats.items()))
+    require(all(v <= VAE_CPU_REL_TOL for v in stats.values()),
+            f"{kind} VAE: the discriminator's statistics off the CPU's: {stats}")
+    for label, c in ctrl_stats.items():
+        require(max(c.values()) > VAE_CPU_REL_TOL,
+                f"{kind} VAE: the statistics' bound passes the control '{label}': {c}")
     del cpu
+
+
+def TorchBatchNorm(channels: int):
+    """Control: torch's ``BatchNorm2d`` (it keeps the unbiased batch
+    variance) at flax's momentum, called as the port's BatchNorm is."""
+    import torch
+
+    class _TorchBatchNorm(torch.nn.BatchNorm2d):
+        def forward(self, x, train=False, update_stats=True):
+            if train and not update_stats:
+                return torch.nn.functional.batch_norm(x, None, None, self.weight, self.bias,
+                                                      True, 0.0, self.eps)
+            self.train(train)
+            return super().forward(x)
+
+    return _TorchBatchNorm(channels, momentum=0.01)
 
 
 def run_vae_training(rec: dict, kind: str, argv: list, layout_ok) -> None:
@@ -4283,7 +4468,467 @@ def run_slice15_paths(record: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: UNet3D, the difference DFoT, FAR-DiT and DiT1D (ROADMAP.md A14)
+# ---------------------------------------------------------------------------
+
+UNET3D_ARGV = UCF_LATENT + ["algorithm/backbone=u_net3d", "++dataset.latent.enabled=false"]
+DIFF_ARGV = ["+name=ucf", "dataset=ucf_101", "algorithm=difference_dfot_video",
+             "experiment=video_generation"]
+DIFF_B_ARGV = DIFF_ARGV + ["@DiffDiT/B"]
+DIFF_FACMAT_ARGV = DIFF_ARGV + ["algorithm/backbone=difference_dit3d_factorized_matrix"]
+FAR_ARGV = UCF_LATENT + ["algorithm/backbone=far_dit", "@FARDiT/B"]
+# taichi's (4, 1, 32) TiTok tokens as the observation shape: the composed
+# recipe hands the algorithm (32, 32, 4) latents (ROADMAP.md C11)
+DIT1D_ARGV = ["+name=taichi", "dataset=taichi", "algorithm=dfot_video",
+              "experiment=video_generation", "algorithm/backbone=dit1d",
+              "++dataset.latent.enabled=false", "dataset.observation_shape=[4,1,32]"]
+PHASE22_TRAIN_STEPS = 2
+# the forward + backward route checks' batch (videos)
+PHASE22_GRAD_BATCH = 2
+# bf16 under autocast on the card against the same model's fp32 forward on
+# the card (TF32 off), relative L2: a full model's chain of bf16 roundings
+# (a CPU rehearsal at reduced widths read 1.5e-2 and 2.0e-2); the controls
+# read 0.33 (FAR-DiT without its causal bias) and 0.82 (DiT1D's reproduce
+# blocks) there
+FP32_REL_TOL = 1e-1
+# the parameters each einsum model's train steps must move
+PHASE22_PROBES = {
+    "far": ("x_embedder.weight", "transformer_blocks.0.attn.to_q.weight",
+            "transformer_blocks.6.mlp.net.2.weight", "transformer_blocks.11.norm1.linear.weight",
+            "proj_out.weight"),
+    "dit1d": ("x_embedder.weight", "blocks.0.attn.qkv.weight", "blocks.14.mlp.fc1.weight",
+              "blocks.27.adaLN_modulation.1.weight", "final_layer.1.weight"),
+}
+# python -m dfot_tpu_torch on UNet3D from a seeded DMLab-layout directory
+UNET3D_CLI_VIDEOS = (("training", 8, 20), ("validation", 2, 20))
+
+
+def expected_unet3d_launches(algo):
+    """Launches of the algorithm's UNet3D: each softmax spatial attention
+    whose rows take the flash route (:func:`attention_route`; level i of a
+    ``res``-pixel model has (res / 2^i)^2 tokens, the mid block those of the
+    last level) runs B1 once a forward and B4, B5 once a backward (no
+    checkpointing); the temporal and the linear attention launch none."""
+    from dfot_tpu_torch.ops.attention import attention_route
+
+    s, res = algo.model.spec, algo.x_shape[0]
+    n = len(s.dim_mults)
+    factors = {res // r for r in s.attn_resolutions}
+    tokens = [(res >> (n - 1)) ** 2]  # the mid block's
+    for i in range(n):
+        # a level's down and up blocks: linear wherever configured but the deepest
+        if 2 ** i in factors and not (s.use_linear_attn and i < n - 1):
+            tokens += [(res >> i) ** 2] * 2
+    sites = sum(attention_route(N, s.attn_dim_head) in ("flash", "padded_flash") for N in tokens)
+
+    def expected(spec, forwards: int = 0, train_steps: int = 0) -> dict:
+        out = no_launches()
+        out["flash_fwd"] = sites * (forwards + train_steps)
+        out["flash_bwd_dq"] = out["flash_bwd_dkv"] = sites * train_steps
+        return out
+
+    return expected
+
+
+def expected_difference_launches(algo):
+    """Launches of the difference DiT on the merged 2T frames: DiTBase runs
+    the model's T frames as video and the other T as single-frame images
+    (its joint image-video split, as the JAX model does). The full variant's
+    video call takes the packed route (B2, B1, B3 a block; B4-B7 back), its
+    image call rows of P tokens (B10 a block where :func:`attention_route`
+    gives them to it, a plain backward), each call B8 a block and in its
+    final layer (B9 back), the blocks' share twice under checkpointing. The
+    factorized-matrix variant: twice the matrix DiT's
+    (:func:`expected_matrix_launches`), its spatial rows of P tokens on B10
+    where the route takes them (heads of 32 take the plain route)."""
+    from dfot_tpu_torch.ops.attention import attention_route
+
+    h, w, _ = algo.x_shape
+    p = algo.model.spec.patch_size
+    small_n = attention_route((h // p) * (w // p), algo.model.spec.hidden_size
+                              // algo.model.spec.num_heads) == "small_n"
+
+    def expected(spec, forwards: int = 0, train_steps: int = 0) -> dict:
+        if spec.variant != "full":
+            out = {k: 2 * v for k, v in
+                   expected_matrix_launches(spec, forwards, train_steps).items()}
+        else:
+            d = spec.depth
+            per_block = 2 if spec.spatial_mlp_ratio else 1
+            again = 2 if spec.use_gradient_checkpointing else 1
+            out = no_launches()
+            out["ln_modulate"] = 2 * (forwards * (per_block * d + 1)
+                                      + train_steps * (again * per_block * d + 1))
+            out["ln_modulate_bwd"] = 2 * train_steps * (per_block * d + 1)
+            for name in ATTENTION_KERNELS:
+                out[name] = ((forwards + again * train_steps) * d if name in FORWARD_KERNELS
+                             else train_steps * d)
+            out["small_n_attn"] = (forwards + again * train_steps) * d
+        if not small_n:
+            out["small_n_attn"] = 0
+        return out
+
+    return expected
+
+
+def expected_none(spec, forwards: int = 0, train_steps: int = 0) -> dict:
+    """FAR-DiT and DiT1D: einsum attention, no kernel (none in JAX either)."""
+    return no_launches()
+
+
+def difference_window(algo, B: int, seed: int):
+    """The difference DFoT's validation window: B videos of max_tokens
+    frames generated from nothing (UCF-101 has no context) on the merged
+    stream of twice the frames; the frames come back."""
+    import torch
+
+    algo.merged_rollout.stats = {"denoiser_evals_b1": 0, "windows": 0}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.zeros(B, algo.max_tokens, *algo.x_shape, device="cuda")
+    return algo.sample_videos(gen, xs, n_context_tokens=0)["prediction"]
+
+
+def fitting_batch(what: str, algo, cfg, seed: int) -> int:
+    """The recipe's training batch, or the largest that stays under
+    ``REMAT_MEMORY_SHARE`` of the card by two probing steps at 1 and 2
+    videos (printed)."""
+    import torch
+
+    recipe = cfg.experiment.training.batch_size
+    state = algo.make_train_state()
+    step = algo.make_train_step()
+    peaks = []
+    for b in (1, 2):
+        batch = latent_batch((algo.max_tokens, *algo.x_shape), b, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch, torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+    per, fixed = peaks[1] - peaks[0], 2 * peaks[0] - peaks[1]
+    total = torch.cuda.get_device_properties(0).total_memory
+    B = max(1, min(recipe, int((REMAT_MEMORY_SHARE * total - fixed) // max(per, 1))))
+    log(f"  {what}: {per / 2**30:.3f} GiB a video over {fixed / 2**30:.2f} GiB (steps at 1 and 2 "
+        f"videos); the recipe's batch {recipe}, run at B={B}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return B
+
+
+def fp32_check(record: dict, key: str, what: str, model, run, controls: dict) -> None:
+    """The model under bf16 autocast (``run(True)``) against its fp32
+    forward on the card (``run(False)``), within FP32_REL_TOL; no control
+    (label -> context manager, each under bf16) may be."""
+    import torch
+
+    with torch.no_grad():
+        out_b, out_f = run(True), run(False)
+        ctrl = {}
+        for label, control in controls.items():
+            with control():
+                ctrl[label] = rel_l2(run(True), out_f)
+    err = rel_l2(out_b, out_f)
+    record[key] = {"rel_l2": err, "control_rel_l2": ctrl, "tol": FP32_REL_TOL,
+                   "shape": list(out_b.shape)}
+    log(f"{what}, bf16 vs fp32 on the card: rel L2 {err:.3e} (tol {FP32_REL_TOL}); controls: "
+        + "; ".join(f"{label} {c:.3e}" for label, c in ctrl.items()))
+    require(bool(torch.isfinite(out_b).all()), f"{what}: non-finite output")
+    require(err <= FP32_REL_TOL, f"{what}: bf16 off fp32 by {err}")
+    for label, c in ctrl.items():
+        require(c > FP32_REL_TOL, f"{what}: the bound passes the control '{label}' ({c})")
+
+
+def plain_rope_table(model, frames: int):
+    """Control for the doubled table: every block of ``model``'s DiT rotates
+    with the plain 3-D table over ``frames`` frames."""
+    from dfot_tpu_torch.models.embeddings import RopeTables, make_rope_3d
+
+    base = model.dit_base
+    tables = RopeTables(make_rope_3d(base.spec.hidden_size // base.spec.num_heads,
+                                     (frames,) + tuple(model.grid)))
+
+    @contextlib.contextmanager
+    def control():
+        real = [b.attn.rope for b in base.blocks]
+        for b in base.blocks:
+            b.attn.rope = tables
+        try:
+            yield
+        finally:
+            for b, r in zip(base.blocks, real):
+                b.attn.rope = r
+
+    return control
+
+
+def model_line(what: str, algo, record: dict, key: str) -> None:
+    n_params = sum(p.numel() for p in algo.model.parameters())
+    record[key] = {"parameters": n_params, "x_shape": list(algo.x_shape),
+                   "max_tokens": algo.max_tokens}
+    log(f"{what}: {n_params / 1e6:.2f}M parameters, tokens {algo.x_shape} x {algo.max_tokens} "
+        f"frames, seeded random fp32 weights under bf16 autocast")
+
+
+def run_unet3d_paths(record: dict) -> dict:
+    """(a) UNet3D (``algorithm/backbone=u_net3d`` on ucf_101 pixels, 64 px,
+    16 frames): the kernel route against the plain route, forward at the
+    validation batch and forward + backward at PHASE22_GRAD_BATCH, with
+    controls (attention scaled for heads of 64; dq zero); the 50-step window
+    at the validation batch; train steps at the recipe's batch or the
+    largest that fits."""
+    import torch
+    from dfot_tpu_torch.models import unet3d as U
+
+    out = {}
+    algo, cfg = build_matrix_algorithm(UNET3D_ARGV, seed=110)
+    model = algo.model
+    model_line("UNet3D (u_net3d on UCF-101 pixels)", algo, record, "unet3d_model")
+    expected = expected_unet3d_launches(algo)
+    B = cfg.experiment.validation.batch_size
+    batch = latent_batch((algo.max_tokens, *algo.x_shape), B, seed=111)
+    gen = torch.Generator(device="cuda").manual_seed(112)
+    k = torch.randint(0, algo.dcfg.timesteps, (B, algo.max_tokens), generator=gen, device="cuda")
+    wide = lambda q, k_, v, causal=False, plain=False: attention_scaled_for_twice_the_width(  # noqa: E731
+        q, k_, v, causal)
+    with torch.no_grad():
+        check_route(record, "unet3d_forward", f"UNet3D forward B={B}", FORWARD_REL_TOL,
+                    model.use_plain_kernels, lambda: autocast_apply(model, batch["xs"], k),
+                    {"attention scaled for heads of 64": lambda: patched(U, "attention", wide)})
+    del batch
+    small = latent_batch((algo.max_tokens, *algo.x_shape), PHASE22_GRAD_BATCH, seed=113)
+    probes = ("init_conv.weight", "down_blocks.2.0.2.wrapper.module.attn.to_qkv.weight",
+              "mid_block.1.wrapper.module.attn.to_qkv.weight",
+              "up_blocks.1.2.wrapper.module.attn.to_qkv.weight",
+              "mid_block.2.wrapper.module.attn_block.attn.to_qkv.weight", "out.1.weight")
+    gradient_routes(record, "unet3d_gradient_route",
+                    f"UNet3D forward + backward B={PHASE22_GRAD_BATCH}", model,
+                    model.use_plain_kernels,
+                    discrete_loss_fn(algo.dcfg, autocast_apply, model, small, 114), probes,
+                    control_zero_dq, must_reject=("wrapper.module.attn.to_qkv.weight",))
+    out["unet3d_window"] = matrix_window(record, "unet3d_window", "UNet3D", algo, B, 115,
+                                        expected=expected)
+    Bt = fitting_batch("UNet3D train step", algo, cfg, 116)
+    out["unet3d_train"] = matrix_train(record, "unet3d_train", "UNet3D train step", algo, cfg,
+                                       117, PHASE22_TRAIN_STEPS, expected=expected,
+                                       probes=probes, B=Bt)["launches"]
+    record["unet3d_train"]["recipe_batch"] = cfg.experiment.training.batch_size
+    del algo, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_difference_paths(record: dict) -> dict:
+    """(b) The difference DFoT (``algorithm=difference_dfot_video`` on UCF-101
+    latents, 8 x 8 x 32, patch 2): @DiffDiT/B with each merge, the kernel
+    route against the plain route on the merged stream (forward, and forward
+    + backward with dq zeroed as the control; the interleaved merge also
+    against the plain 3-D table over the 2T frames), the window and train
+    steps; the factorized-matrix leaf's window and one step."""
+    import torch
+
+    out = {}
+    for merge in ("concat", "interleaved"):
+        key = f"diff_{merge}"
+        algo, cfg = build_matrix_algorithm(
+            DIFF_B_ARGV + [f"++algorithm.backbone.merge_type={merge}"], seed=120)
+        model, spec = algo.model, algo.model.spec
+        model_line(f"difference DiT (@DiffDiT/B, {merge})", algo, record, f"{key}_model")
+        B = cfg.experiment.validation.batch_size
+        xs = latent_batch((algo.max_tokens, *algo.x_shape), B, seed=121)["xs"]
+        merged = algo.merge(algo.differences(xs), xs)
+        gen = torch.Generator(device="cuda").manual_seed(122)
+        k = torch.randint(0, algo.dcfg.timesteps, merged.shape[:2], generator=gen, device="cuda")
+        with torch.no_grad():
+            check_route(record, f"{key}_forward", f"difference DiT ({merge}) forward B={B}",
+                        FORWARD_REL_TOL, model.use_plain_kernels,
+                        lambda: autocast_apply(model, merged, k), dit_controls())
+            # the doubled table's control, on the first T merged frames (the
+            # rest run as single-frame images, which read the table's first
+            # P rows only): the plain 3-D table over 2T frames. The concat
+            # merge's first T frames read the first copy, the plain table's
+            # first T frames: the same rows, recorded and not required
+            T = algo.max_tokens
+            sound = autocast_apply(model, merged, k)[:, :T]
+            with plain_rope_table(model, 2 * T)():
+                ctrl = rel_l2(autocast_apply(model, merged, k)[:, :T], sound)
+            record[f"{key}_forward"]["table_control_rel_l2"] = ctrl
+            log(f"  the plain 3-D table over 2T frames in place of the doubled one, on the "
+                f"first {T} merged frames: rel L2 {ctrl:.3e} (tol {FORWARD_REL_TOL})")
+            require(merge == "concat" or ctrl > FORWARD_REL_TOL,
+                    f"difference DiT ({merge}): the bound passes the plain table ({ctrl})")
+        del xs, merged
+        small = latent_batch((2 * algo.max_tokens, *algo.x_shape), PHASE22_GRAD_BATCH, seed=123)
+        d = spec.depth
+        probes = ("dit_base.blocks.0.attn.qkv.weight", f"dit_base.blocks.{d // 2}.attn.proj.weight",
+                  f"dit_base.blocks.{d - 1}.norm1.modulation.1.weight",
+                  "dit_base.final_layer.linear.weight")
+        gradient_routes(record, f"{key}_gradient_route",
+                        f"difference DiT ({merge}) forward + backward B={PHASE22_GRAD_BATCH}",
+                        model, model.use_plain_kernels,
+                        discrete_loss_fn(algo.dcfg, autocast_apply, model, small, 124), probes,
+                        control_zero_dq, must_reject=("blocks.0.attn.qkv.weight",))
+        out[f"{key}_window"] = matrix_window(record, f"{key}_window",
+                                             f"difference DiT ({merge})", algo, B, 125,
+                                             expected=expected_difference_launches(algo),
+                                             run=difference_window)
+        out[f"{key}_train"] = matrix_train(record, f"{key}_train",
+                                           f"difference DiT ({merge}) train step", algo, cfg, 126,
+                                           PHASE22_TRAIN_STEPS,
+                                           expected=expected_difference_launches(algo),
+                                           probes=probes)["launches"]
+        log(f"  diff_loss {record[f'{key}_train']['diff_loss']}, xs_loss "
+            f"{record[f'{key}_train']['xs_loss']}")
+        del algo, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    algo, cfg = build_matrix_algorithm(DIFF_FACMAT_ARGV, seed=127)
+    model_line("difference FacMatDiT (difference_dit3d_factorized_matrix, interleaved)", algo,
+               record, "diff_facmat_model")
+    B = cfg.experiment.validation.batch_size
+    out["diff_facmat_window"] = matrix_window(record, "diff_facmat_window",
+                                              "difference FacMatDiT", algo, B, 128,
+                                              expected=expected_difference_launches(algo),
+                                              run=difference_window)
+    out["diff_facmat_train"] = matrix_train(record, "diff_facmat_train",
+                                            "difference FacMatDiT train step", algo, cfg, 129, 1,
+                                            expected=expected_difference_launches(algo))["launches"]
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_einsum_paths(record: dict) -> dict:
+    """(c) FAR-DiT (@FARDiT/B on UCF-101 latents) and DiT1D (its published
+    widths, 1152 wide, depth 28, on taichi's (4, 1, 32) tokens): each at
+    bf16 against fp32 on the card with a control (FAR-DiT without its
+    frame-causal bias; DiT1D with ``reproduce`` blocks in place of
+    ``share_norm``), the window at the validation batch and train steps,
+    launching no kernel."""
+    import torch
+
+    out = {}
+    for key, what, argv, seed in (("far", "FAR-DiT (@FARDiT/B)", FAR_ARGV, 130),
+                                  ("dit1d", "DiT1D (taichi tokens)", DIT1D_ARGV, 140)):
+        algo, cfg = build_matrix_algorithm(argv, seed=seed)
+        model = algo.model
+        model_line(what, algo, record, f"{key}_model")
+        B = cfg.experiment.validation.batch_size
+        xs = latent_batch((algo.max_tokens, *algo.x_shape), min(B, 8), seed=seed + 1)["xs"]
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        k = torch.randint(0, algo.dcfg.timesteps, xs.shape[:2], generator=gen, device="cuda")
+
+        def run(bf16, model=model, xs=xs, k=k):
+            if bf16:
+                return autocast_apply(model, xs, k)
+            return model(xs, k.float()).float()
+
+        if key == "far":
+            controls = {"no frame-causal bias": lambda m=model: patched(
+                m, "causal_bias", lambda T, P, device: torch.zeros((), device=device))}
+        else:
+            @contextlib.contextmanager
+            def reproduce(m=model):
+                for b in m.blocks:
+                    b.merge_mode = "reproduce"
+                try:
+                    yield
+                finally:
+                    for b in m.blocks:
+                        b.merge_mode = "share_norm"
+
+            controls = {"reproduce blocks in place of share_norm": reproduce}
+        fp32_check(record, f"{key}_fp32", f"{what} forward B={xs.shape[0]}", model, run, controls)
+        del xs
+        probes = PHASE22_PROBES[key]
+        out[f"{key}_window"] = matrix_window(record, f"{key}_window", what, algo, B, seed + 3,
+                                             expected=expected_none)
+        out[f"{key}_train"] = matrix_train(record, f"{key}_train", f"{what} train step", algo, cfg,
+                                           seed + 4, PHASE22_TRAIN_STEPS, expected=expected_none,
+                                           probes=probes)["launches"]
+        del algo, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_unet3d_cli(record: dict) -> dict:
+    """(d) ``python -m dfot_tpu_torch`` on UNet3D: training and validation
+    through ``run(argv)`` from a seeded DMLab-layout directory (64 px,
+    actions), two steps, the launch counts reset before and read after."""
+    import shutil
+
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.__main__ import run
+
+    root = ROOT / "build" / "unet3d_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    write_npz_videos(root / "dmlab", UNET3D_CLI_VIDEOS, 64, 150, actions=3)
+    argv = ["+name=unet3d_cli", "dataset=dmlab", "algorithm=dfot_video",
+            "experiment=video_generation", "algorithm/backbone=u_net3d",
+            f"dataset.save_dir={root / 'dmlab'}", "++dataset.latent.enabled=false",
+            "experiment.tasks=[training,validation]", "experiment.training.max_steps=2",
+            "experiment.training.batch_size=4", "experiment.training.data.num_workers=0",
+            "++algorithm.logging.loss_freq=1", "experiment.validation.batch_size=2",
+            "experiment.validation.limit_batch=1", "experiment.validation.data.num_workers=0",
+            "algorithm.diffusion.sampling_timesteps=10", "++algorithm.logging.max_num_videos=0",
+            "++algorithm.logging.metrics=[mse,ssim,psnr]", "wandb.mode=disabled",
+            f"output_dir={root / 'runs'}"]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    lines = _jsonl(Path(exp.output_dir))
+    losses = [x["loss"] for x in lines if "loss" in x]
+    metrics = {k: v for x in lines for k, v in x.items() if "/" in k}
+    record["unet3d_cli"] = {"wall_s": wall, "losses": losses, "metrics": metrics,
+                            "launches": launches, "steps": exp.state.step}
+    log(f"python -m dfot_tpu_torch, UNet3D on DMLab pixels: {wall:.2f} s wall (2 train steps, "
+        f"1 validation batch); losses {losses}; metrics {metrics}; launches {launches}")
+    require(exp.state.step == 2 and len(losses) == 2 and all(map(math.isfinite, losses)),
+            f"UNet3D CLI: steps {exp.state.step}, losses {losses}")
+    require(metrics and all(map(math.isfinite, metrics.values())), f"UNet3D CLI: {metrics}")
+    require(all(launches[n] > 0 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+            and not any(v for n, v in launches.items()
+                        if n not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+            f"UNet3D CLI: launches {launches}")
+    del exp
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def run_slice16_paths(record: dict) -> dict:
+    """Phase 22: UNet3D, the difference DFoT, FAR-DiT and DiT1D through
+    ``build_algorithm(load_config(argv))`` at full width on seeded random
+    weights, and UNet3D through ``python -m dfot_tpu_torch``."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = run_unet3d_paths(record)
+    out.update(run_difference_paths(record))
+    out.update(run_einsum_paths(record))
+    out["unet3d_cli"] = run_unet3d_cli(record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["phase22_seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 22: {record['phase22_seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
+    # the allocator grows segments in place instead of caching fixed blocks:
+    # the flagship's dots step at batch 8 (74.5 GiB predicted) fits only
+    # without the fixed blocks' fragmentation (7.6 GiB reserved and unused)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -4384,6 +5029,11 @@ def main() -> int:
 
         # selective remat, VAE training, TiTok and kl-f8 preprocessing
         by_path.update(run_slice15_paths(record, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # UNet3D, the difference DFoT, FAR-DiT and DiT1D
+        by_path.update(run_slice16_paths(record))
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

@@ -48,6 +48,9 @@ import torch
 from ..diffusion.core import DiffusionConfig, make_schedule, resolve_device
 from ..guidance.history_guidance import HistoryGuidance
 from ..models.dit import DiT3D, DiT3DPose, DiTSpec
+from ..models.dit1d import DiT1D, DiT1DSpec
+from ..models.far import FARDiT, FARSpec
+from ..models.unet3d import UNet3D, UNet3DSpec
 from ..models.uvit import (
     UViT3D,
     UViT3DPose,
@@ -361,7 +364,6 @@ def make_train_step(fs: Recipe, device=None) -> Callable:
 # the algorithm built from a composed config
 # ---------------------------------------------------------------------------
 
-UNPORTED_BACKBONES = ("u_net3d", "far_dit", "dit1d", "difference_dit3d")
 FRESH_INIT_SEED = 0  # the weights a run validates without a checkpoint
 
 
@@ -505,13 +507,20 @@ class DFoTVideoAlgo:
         cfg, bcfg = self.cfg, self.cfg.backbone
         name = bcfg.name
         h, w, c = self.x_shape
-        if name in UNPORTED_BACKBONES:
-            raise NotImplementedError(
-                f"backbone {name!r} is not ported yet (ROADMAP.md queue A14)")
         dropout = bcfg.get("external_cond_dropout", 0.0)
         fourier = bcfg.get("use_fourier_noise_embedding", False)
+        cond = (cfg.get("external_cond_type"), cfg.get("external_cond_dim") or 0,
+                cfg.get("external_cond_num_classes"), dropout, fourier)
         with torch.device(self.device):
-            if name in ("dit3d", "dit3d_pose"):
+            if name == "u_net3d":
+                return UNet3D(UNet3DSpec.from_config(bcfg, self.max_tokens), c, h,
+                              self.dcfg.use_causal_mask, *cond)
+            if name == "far_dit":
+                return FARDiT(FARSpec.from_config(bcfg, self.max_tokens), c, (h, w), *cond)
+            if name == "dit1d":
+                # x_shape (C, 1, N): N tokens a frame
+                return DiT1D(DiT1DSpec.from_config(bcfg, self.max_tokens), c, w, *cond)
+            if name in ("dit3d", "dit3d_pose", "difference_dit3d"):
                 spec = DiTSpec.from_config(bcfg, self.max_tokens, self.dcfg.use_causal_mask)
                 if name == "dit3d_pose":
                     cond_cfg = bcfg.get("conditioning")
@@ -521,11 +530,7 @@ class DFoTVideoAlgo:
                         conditioning_type=ctype, external_cond_dropout=dropout,
                         use_fourier_noise_emb=fourier,
                     )
-                return DiT3D(
-                    spec, c, (h, w), cfg.get("external_cond_type"),
-                    cfg.get("external_cond_dim") or 0, cfg.get("external_cond_num_classes"),
-                    dropout, fourier,
-                )
+                return DiT3D(spec, c, (h, w), *cond)
             if name in ("u_vit3d", "u_vit3d_pose"):
                 spec = UViTSpec.from_config(bcfg, self.max_tokens)
                 if name == "u_vit3d_pose":
@@ -723,6 +728,7 @@ def build_algorithm(cfg, compute_dtype=torch.bfloat16, device=None):
     if name in ("dfot_video_pose", "sd_video_3d"):
         return DFoTVideoPoseAlgo(cfg.algorithm, compute_dtype, device)
     if name == "difference_dfot_video":
-        raise NotImplementedError(
-            "the difference-DFoT algorithm is not ported yet (ROADMAP.md queue A14)")
+        from .difference_dfot import DifferenceDFoTVideoAlgo
+
+        return DifferenceDFoTVideoAlgo(cfg.algorithm, compute_dtype, device)
     raise NotImplementedError(f"algorithm {name!r} is not available")

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 from typing import Dict, Optional
 
@@ -74,6 +75,15 @@ from ..utils.logging import MetricsLogger, log_video
 from ..utils.profiling import trace
 from ..utils.torch_ckpt import load_state_dict, resolve_weights_path, strip_checkpoint
 from ..vae.codec import LatentCodec
+
+# checkpoint entries of upstream modules that the port's backbone does not
+# hold: the temporal RoPE table (UNet3D) and the fixed sincos table (DiT1D),
+# which the port makes itself, and FAR-DiT's unused noise-level embedding
+NOT_HELD = {
+    "u_net3d": re.compile(r"rotary_time_pos_embedding\."),
+    "dit1d": re.compile(r"pos_embed$"),
+    "far_dit": re.compile(r"noise_level_pos_embedding\."),
+}
 
 __all__ = ["VideoGenerationExperiment"]
 
@@ -553,6 +563,11 @@ class VideoGenerationExperiment:
         """An upstream checkpoint after the reference's surgery (EMA
         promotion, prefix and ``_orig_mod.`` removal), loaded strictly: the
         port's modules keep the upstream names, and the Fourier noise
-        embedding's ``freqs`` and ``phases`` buffers come with it."""
+        embedding's ``freqs`` and ``phases`` buffers come with it. The
+        entries of :data:`NOT_HELD` are dropped first, as the JAX importers
+        drop them."""
         state = strip_checkpoint(load_state_dict(path))
+        dropped = NOT_HELD.get(self.cfg.algorithm.backbone.name)
+        if dropped is not None:
+            state = {k: v for k, v in state.items() if not dropped.match(k)}
         self.algo.model.load_state_dict(state, strict=True)

@@ -211,7 +211,7 @@ class DiTSpec:
     matrix_use_bias: bool = False
     fixed_u: Optional[str] = None
     use_temporal_rope: bool = False
-    # difference-DiT double RoPE (not ported)
+    # difference-DiT double RoPE: concat | interleaved | None
     double_rope_merge: Optional[str] = None
 
     @classmethod
@@ -265,9 +265,6 @@ class DiTBase(nn.Module):
         if s.variant not in ("full", "factorized_encoder", "factorized_attention",
                              "full_matrix_attention", "factorized_matrix_attention"):
             raise ValueError(f"unknown DiT variant {s.variant!r}")
-        if s.double_rope_merge is not None:
-            raise NotImplementedError(
-                "the difference-DiT's double RoPE is not ported yet (ROADMAP.md queue A14)")
         if s.use_gradient_checkpointing:
             saved_ops(s.remat_policy)  # an unknown name raises here
         self.spec, self.num_patches = s, num_patches
@@ -282,7 +279,8 @@ class DiTBase(nn.Module):
         if s.pos_emb_type == "rope_3d":
             if s.variant != "full":
                 raise ValueError("rope_3d requires the full variant")
-            rope = RopeTables(make_rope_3d(head_dim, (s.max_temporal_length,) + grid))
+            rope = RopeTables(make_rope_3d(head_dim, (s.max_temporal_length,) + grid,
+                                           double_merge=s.double_rope_merge))
         elif s.pos_emb_type == "rope_2d":
             rope = RopeTables(make_rope_2d(head_dim, grid))
         elif s.pos_emb_type == "learned_1d":

@@ -1,8 +1,8 @@
 """Embedding modules: noise level, labels, vector conditions, patches, RoPE
 and sinusoidal position tables.
 
-Port of ``dfot_tpu/models/embeddings.py`` (the twin-stream ``double_merge``
-RoPE of the difference-DiT is not ported). Module and parameter names are the
+Port of ``dfot_tpu/models/embeddings.py``, the difference-DiT's twin-stream
+RoPE (``make_rope_3d(..., double_merge=...)``) included. Module and parameter names are the
 upstream torch names, so an upstream state dict loads as is
 (``noise_level_pos_embedding.*``, ``external_cond_embedding.*``). The RoPE and
 sinusoidal tables are host numpy, copies of the JAX package's (whose module
@@ -305,9 +305,16 @@ def make_rope_2d(dim: int, sizes: Tuple[int, int], theta: float = 10000.0) -> Ro
     return make_rope_nd((dim // 2, dim // 2), sizes, theta)
 
 
-def make_rope_3d(dim: int, sizes: Tuple[int, int, int], theta: float = 10000.0) -> RoPE:
+def make_rope_3d(dim: int, sizes: Tuple[int, int, int], theta: float = 10000.0,
+                 double_merge: Optional[str] = None) -> RoPE:
     """3-axis split: head_dim // 2 frequencies across (T, H, W), H and W
-    getting equal counts (the reference's uneven-dim rule)."""
+    getting equal counts (the reference's uneven-dim rule).
+
+    ``double_merge`` (``"concat"`` | ``"interleaved"``) doubles the table for
+    the difference-DiT's twin (difference, frame) streams, which share their
+    positions: ``concat`` lays the two copies out one after the other along
+    time, ``interleaved`` repeats each frame's rows. A sequence shorter than
+    the table takes its first rows, as every table here."""
     assert dim % 2 == 0
     half = dim // 2
     r = half % 3
@@ -317,7 +324,17 @@ def make_rope_3d(dim: int, sizes: Tuple[int, int, int], theta: float = 10000.0) 
         parts = (half // 3 + 1, half // 3, half // 3)
     else:
         parts = (half // 3, half // 3 + 1, half // 3 + 1)
-    return make_rope_nd(tuple(p * 2 for p in parts), sizes, theta)
+    rope = make_rope_nd(tuple(p * 2 for p in parts), sizes, theta)
+    if double_merge is None:
+        return rope
+    cos, sin = (t.reshape(sizes[0], -1, dim) for t in (rope.cos, rope.sin))
+    if double_merge == "concat":
+        cos, sin = np.concatenate([cos, cos]), np.concatenate([sin, sin])
+    elif double_merge == "interleaved":
+        cos, sin = np.repeat(cos, 2, axis=0), np.repeat(sin, 2, axis=0)
+    else:
+        raise ValueError(f"unknown double-rope merge {double_merge}")
+    return RoPE(cos.reshape(-1, dim), sin.reshape(-1, dim), rope.sizes)
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,7 @@ from torch import nn
 
 from ..ops.attention import attention, attention_route
 from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, swap_pairs
-from .remat import remat, saved_ops
+from .remat import not_a_residual, remat, saved_ops
 from .embeddings import (
     PatchEmbed,
     RandomDropoutCondEmbedding,
@@ -218,7 +218,8 @@ class AxialAttention(nn.Module, _QKNormAttention):
 
     def forward(self, x, emb):
         o = self._attend(self.proj(self.norm(x, emb)), self.rope)
-        return o + self.out(o)
+        with not_a_residual():
+            return o + self.out(o)
 
 
 class TransformerBlock(nn.Module, _QKNormAttention):
@@ -263,14 +264,17 @@ class TransformerBlock(nn.Module, _QKNormAttention):
             qkv, mlp_h = _SplitFused.apply(fused, 3 * C)
         else:
             qkv, mlp_h = fused[..., : 3 * C], fused[..., 3 * C:]
-        x = x + self.attn_out(self._attend(qkv, self.rope))
+        o = self._attend(qkv, self.rope)
+        with not_a_residual():
+            x = x + self.attn_out(o)
         if self.use_axial:
             # (B*ax1, ax2, C) -> (B*ax2, ax1, C): attend over the frames
             x = x.reshape(B0, ax1, ax2, C).transpose(1, 2).reshape(B0 * ax2, ax1, C)
             e = emb.reshape(B0, ax1, ax2, E).transpose(1, 2).reshape(B0 * ax2, ax1, E)
             x = self.another_attn(x, e)
             x = x.reshape(B0, ax2, ax1, C).transpose(1, 2).reshape(B0 * ax1, ax2, C)
-        x = x + self.mlp_out(mlp_h)
+        with not_a_residual():
+            x = x + self.mlp_out(mlp_h)
         return x.reshape(B0, N0, C) if self.use_axial else x
 
 

@@ -1,0 +1,57 @@
+"""Run chosen phases of ``chip_smoke.py`` alone on the card.
+
+    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [21] [22]
+
+from the root of a checkout: builds the kernels, then runs the kernel
+checks (``kernels``), phase 22 (``22``) and phase 21 (``21``) in that
+order, with the smoke's settings (TF32 off, expandable allocator
+segments), and writes what they record to
+``chiprun_out/smoke_phases.json``. A quicker loop than the whole smoke
+while a phase is being written; the whole smoke is the check of record.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def main(argv) -> int:
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as CS
+    from dfot_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi, torch.__version__, torch.version.cuda, flush=True)
+    _cuda.library()
+    record, launches = {"nvidia_smi": smi}, {}
+    try:
+        for phase, run in (("kernels", lambda: CS.check_kernels(record)),
+                           ("22", lambda: launches.update(CS.run_slice16_paths(record))),
+                           ("21", lambda: launches.update(CS.run_slice15_paths(record, smi)))):
+            if phase in argv:
+                t0 = time.perf_counter()
+                run()
+                print(f"{phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "smoke_phases.json").write_text(
+            json.dumps({"record": record, "launches": launches}, indent=1, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

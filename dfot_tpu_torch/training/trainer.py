@@ -68,6 +68,7 @@ def make_train_step(
     nl_cfg: NoiseLevelConfig,
     ema_decay: float = 0.9999,
     accumulate_steps: int = 1,
+    loss_fn: Optional[Callable] = None,
 ):
     """Build ``train_step(state, batch, generator) -> (state, metrics)``.
 
@@ -86,12 +87,16 @@ def make_train_step(
     as a tensor, or a dict of draws as :func:`training_noise_levels` takes
     them), ``noise`` (unclipped N(0, 1), same shape as xs), and
     ``dropout=False`` puts the model in eval mode.
+
+    ``loss_fn(model, xs, conditions, frame_mask, generator, noise_levels,
+    noise) -> (loss, parts)`` replaces the denoising loss; ``parts``, a dict
+    of detached 0-d tensors, joins the metrics.
     """
     dev = sched.device
-
-    def loss_fn(model, xs, conditions, frame_mask, generator, noise_levels, noise):
-        return denoising_loss(model_apply, dcfg, sched, nl_cfg, model, xs, conditions,
-                              frame_mask, generator, True, noise_levels, noise)[0]
+    if loss_fn is None:
+        def loss_fn(model, xs, conditions, frame_mask, generator, noise_levels, noise):
+            return denoising_loss(model_apply, dcfg, sched, nl_cfg, model, xs, conditions,
+                                  frame_mask, generator, True, noise_levels, noise)[0], {}
 
     def train_step(
         state: TrainState, batch: Dict, generator: Optional[torch.Generator], *,
@@ -103,8 +108,8 @@ def make_train_step(
         seed = 0 if generator is None else generator.initial_seed()
         with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
             torch.manual_seed((seed * 1000003 + state.step) % (2 ** 63))
-            loss = loss_fn(model, batch["xs"], batch.get("conditions"), batch["masks"],
-                           generator, noise_levels, noise)
+            loss, parts = loss_fn(model, batch["xs"], batch.get("conditions"), batch["masks"],
+                                  generator, noise_levels, noise)
             loss.backward()
         grads = [p.grad for p in opt.params if p.grad is not None]
         grad_norm = global_norm(grads)
@@ -113,6 +118,6 @@ def make_train_step(
         if state.ema is not None:
             gated_ema_update(state.ema, dict(model.named_parameters()), ema_decay,
                              state.step, accumulate_steps)
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm, **parts}
 
     return train_step

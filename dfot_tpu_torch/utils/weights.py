@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["uvit3d_state_dict_from_flax", "dit3d_state_dict_from_flax", "init_random_weights",
+           "unet3d_state_dict_from_flax", "far_state_dict_from_flax", "dit1d_state_dict_from_flax",
            "imagevae_state_dict_from_flax", "videovae_state_dict_from_flax",
            "dcae_state_dict_from_flax", "discriminator_state_dict_from_flax",
            "lpips_state_dict_from_flax", "titok_state_dict_from_flax"]
@@ -267,6 +268,180 @@ def dit3d_state_dict_from_flax(
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 
+def _conv3d_1kk(k):  # flax per-frame Conv (kh, kw, in, out) -> torch Conv3d (out, in, 1, kh, kw)
+    return np.ascontiguousarray(np.asarray(k).transpose(3, 2, 0, 1)[:, :, None])
+
+
+def _dense_as_conv3d(k):  # flax Dense (in, out) -> torch 1x1x1 Conv3d (out, in, 1, 1, 1)
+    return np.ascontiguousarray(np.asarray(k).T[:, :, None, None, None])
+
+
+def _by_rules(flat: Dict[str, Any], rules) -> Dict[str, np.ndarray]:
+    """flax path -> torch name by the first (regex, template, converter)
+    rule that matches the whole path; an unmatched path raises."""
+    out = {}
+    for path, value in flat.items():
+        for pattern, template, conv in rules:
+            m = re.fullmatch(pattern, path)
+            if m:
+                out[m.expand(template)] = conv(value)
+                break
+        else:
+            raise KeyError(f"unmapped parameter {path}")
+    return out
+
+
+def _fp32(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+# flax leaf under a UNet3D block -> (torch suffix, converter), by block kind
+_UNET3D_LEAVES = {
+    "res": {
+        "norm1/gn/scale": ("in_layers.0.weight", np.asarray),
+        "norm1/gn/bias": ("in_layers.0.bias", np.asarray),
+        "conv1/kernel": ("in_layers.2.weight", _conv3d_1kk),
+        "conv1/bias": ("in_layers.2.bias", np.asarray),
+        "norm2/gn/scale": ("out_layers.0.weight", np.asarray),
+        "norm2/gn/bias": ("out_layers.0.bias", np.asarray),
+        "conv2/kernel": ("out_layers.2.weight", _conv3d_1kk),
+        "conv2/bias": ("out_layers.2.bias", np.asarray),
+        "emb_proj/kernel": ("emb_layers.1.weight", _linear),
+        "emb_proj/bias": ("emb_layers.1.bias", np.asarray),
+        "shortcut/kernel": ("skip_conv.weight", _dense_as_conv3d),
+        "shortcut/bias": ("skip_conv.bias", np.asarray),
+    },
+    "attn": {
+        "norm/scale": ("norm.weight", np.asarray),
+        "norm/bias": ("norm.bias", np.asarray),
+        "qkv/kernel": ("attn.to_qkv.weight", _linear),
+        "proj/kernel": ("attn.to_out.weight", _linear),
+        "proj/bias": ("attn.to_out.bias", np.asarray),
+    },
+    "conv": {"kernel": ("weight", _conv3d_1kk), "bias": ("bias", np.asarray)},
+}
+
+
+def _unet3d_module(head: str, num_levels: int, nrb: int):
+    """(torch prefix, leaf kind) of a top-level flax UNet3D module."""
+    up = lambda i: f"up_blocks.{num_levels - 1 - int(i)}"  # noqa: E731  (0 is the deepest)
+    if head in ("init_conv", "out_conv"):
+        return ("init_conv" if head == "init_conv" else "out.1"), "conv"
+    if head == "out_res":
+        return "out.0", "res"
+    if head == "init_temporal_attn":
+        return "init_temporal_attn.wrapper.module.attn_block", "attn"
+    attn = {"sattn": ".wrapper.module", "tattn": ".wrapper.module.attn_block"}
+    if m := re.fullmatch(r"mid_(res0|sattn|tattn|res1)", head):
+        i = ("res0", "sattn", "tattn", "res1").index(m[1])
+        return f"mid_block.{i}" + attn.get(m[1], ""), "attn" if i in (1, 2) else "res"
+    if m := re.fullmatch(r"down_(\d+)_ds|up_(\d+)_us", head):
+        return (f"down_blocks.{m[1]}.1.conv" if m[1] else f"{up(m[2])}.{nrb + 2}.conv"), "conv"
+    if m := re.fullmatch(r"(down|up)_(\d+)_(?:res(\d+)|(sattn|tattn))", head):
+        level = f"down_blocks.{m[2]}.0" if m[1] == "down" else up(m[2])
+        if m[3] is not None:
+            return f"{level}.{m[3]}", "res"
+        return f"{level}.{nrb + (m[4] == 'tattn')}" + attn[m[4]], "attn"
+    raise KeyError(f"unmapped UNet3D module {head}")
+
+
+def unet3d_state_dict_from_flax(params: Dict[str, Any], buffers: Optional[Dict[str, Any]],
+                                num_levels: int, num_res_blocks: int = 2
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX UNet3D variables -> the port's state dict (fp32 tensors), the
+    inverse of ``import_unet3d_params``: per-frame conv kernels to Conv3d
+    (out, in, 1, k, k), the skip Dense to a 1x1x1 Conv3d, ``up_{i}`` to
+    ``up_blocks.{num_levels - 1 - i}``. Every leaf is a permutation of its
+    flax leaf, so a tree of gradients goes through alike. ``buffers``: the
+    Fourier noise embedding's ``freqs`` and ``phases``, or None."""
+    out: Dict[str, np.ndarray] = {}
+    for path, value in _flatten(params).items():
+        head, _, rest = path.partition("/")
+        if m := re.fullmatch(r"(noise_emb/mlp|cond_emb/embedding)/(linear_\d)/(kernel|bias)", path):
+            module = ("noise_level_pos_embedding" if m[1] == "noise_emb/mlp"
+                      else "external_cond_embedding")
+            name, array = _dense(f"{module}.embedding.{m[2]}", m[3], value)
+        else:
+            prefix, kind = _unet3d_module(head, num_levels, num_res_blocks)
+            if rest not in _UNET3D_LEAVES[kind]:
+                raise KeyError(f"unmapped parameter {path}")
+            suffix, conv = _UNET3D_LEAVES[kind][rest]
+            name, array = f"{prefix}.{suffix}", conv(value)
+        out[name] = array
+    for path, value in _flatten(buffers or {}).items():
+        m = re.fullmatch(r"noise_emb/fourier/(freqs|phases)", path)
+        if m is None:
+            raise KeyError(f"unmapped buffer {path}")
+        out[f"noise_level_pos_embedding.timesteps.{m[1]}"] = np.asarray(value)
+    return _fp32(out)
+
+
+def far_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX FARDiT ``params`` -> the port's state dict (fp32 tensors), the
+    inverse of ``import_far_params``: the packed qkv Dense splits into
+    ``to_q``, ``to_k`` and ``to_v`` (a split: a tree of gradients goes
+    through alike)."""
+    b = r"block_(\d+)"
+    t = r"transformer_blocks.\1"
+    out = _by_rules(_flatten(params), [
+        (r"x_embedder/kernel", "x_embedder.weight", _linear),
+        (r"x_embedder/bias", "x_embedder.bias", np.asarray),
+        (r"t_embedder/(linear_\d)/kernel", r"timestep_embedder.\1.weight", _linear),
+        (r"t_embedder/(linear_\d)/bias", r"timestep_embedder.\1.bias", np.asarray),
+        (r"cond_emb/embedding_table", "external_cond_embedding.embedding_table.weight",
+         np.asarray),
+        (b + r"/norm(\d)/linear/kernel", t + r".norm\2.linear.weight", _linear),
+        (b + r"/norm(\d)/linear/bias", t + r".norm\2.linear.bias", np.asarray),
+        (b + r"/qkv/kernel", t + ".attn.QKV.weight", _linear),
+        (b + r"/qkv/bias", t + ".attn.QKV.bias", np.asarray),
+        (b + r"/q_norm/weight", t + ".attn.norm_q.weight", np.asarray),
+        (b + r"/k_norm/weight", t + ".attn.norm_k.weight", np.asarray),
+        (b + r"/attn_out/kernel", t + ".attn.to_out.0.weight", _linear),
+        (b + r"/attn_out/bias", t + ".attn.to_out.0.bias", np.asarray),
+        (b + r"/ff/fc1/kernel", t + ".mlp.net.0.proj.weight", _linear),
+        (b + r"/ff/fc1/bias", t + ".mlp.net.0.proj.bias", np.asarray),
+        (b + r"/ff/fc2/kernel", t + ".mlp.net.2.weight", _linear),
+        (b + r"/ff/fc2/bias", t + ".mlp.net.2.bias", np.asarray),
+        (r"norm_out/kernel", "norm_out.linear.weight", _linear),
+        (r"norm_out/bias", "norm_out.linear.bias", np.asarray),
+        (r"proj_out/kernel", "proj_out.weight", _linear),
+        (r"proj_out/bias", "proj_out.bias", np.asarray),
+    ])
+    for key in [k for k in out if ".attn.QKV." in k]:
+        for name, part in zip("qkv", np.split(out.pop(key), 3, axis=0)):
+            out[key.replace("QKV", f"to_{name}")] = part
+    return _fp32(out)
+
+
+def dit1d_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX DiT1D ``params`` -> the port's state dict (fp32 tensors), the
+    inverse of ``import_dit1d_params`` (which maps no label table; the
+    port names it ``external_cond_embedding``). Every leaf is a permutation
+    of its flax leaf: a tree of gradients goes through alike."""
+    b = r"block_(\d+)"
+    out = _by_rules(_flatten(params), [
+        (r"x_embedder/kernel", "x_embedder.weight", _linear),
+        (r"x_embedder/bias", "x_embedder.bias", np.asarray),
+        (r"t_embedder/linear_1/kernel", "t_embedder.mlp.0.weight", _linear),
+        (r"t_embedder/linear_1/bias", "t_embedder.mlp.0.bias", np.asarray),
+        (r"t_embedder/linear_2/kernel", "t_embedder.mlp.2.weight", _linear),
+        (r"t_embedder/linear_2/bias", "t_embedder.mlp.2.bias", np.asarray),
+        (r"cond_emb/embedding_table", "external_cond_embedding.embedding_table.weight",
+         np.asarray),
+        (b + r"/adaLN_modulation/kernel", r"blocks.\1.adaLN_modulation.1.weight", _linear),
+        (b + r"/adaLN_modulation/bias", r"blocks.\1.adaLN_modulation.1.bias", np.asarray),
+        (b + r"/(qkv|proj)/kernel", r"blocks.\1.attn.\2.weight", _linear),
+        (b + r"/(qkv|proj)/bias", r"blocks.\1.attn.\2.bias", np.asarray),
+        (b + r"/(q|k)_norm/scale", r"blocks.\1.attn.\2_norm.weight", np.asarray),
+        (b + r"/(q|k)_norm/bias", r"blocks.\1.attn.\2_norm.bias", np.asarray),
+        (b + r"/mlp/(fc\d)/kernel", r"blocks.\1.mlp.\2.weight", _linear),
+        (b + r"/mlp/(fc\d)/bias", r"blocks.\1.mlp.\2.bias", np.asarray),
+        (r"final_linear/kernel", "final_layer.1.weight", _linear),
+        (r"final_linear/bias", "final_layer.1.bias", np.asarray),
+    ])
+    return _fp32(out)
+
+
 # parameters the JAX package initializes to zero (residual-branch outputs),
 # but attn_out, get their random values scaled down by ZERO_INIT_SCALE:
 # small, but not zero
@@ -282,10 +457,16 @@ QK_NORM_SCALE = 2.0
 # modulations (zero-initialized in the JAX package) are DIT_MODULATION_SCALE
 # times the law, which puts shifts, scales and gates near 0.5: every block's
 # attention and MLP then reach the output, and so does the conditioning.
+def _fp32_or_wider(value) -> np.ndarray:
+    """fp32, or float64 where the leaf is float64 (a float64 comparison)."""
+    v = np.asarray(value)
+    return v.astype(np.float64 if v.dtype == np.float64 else np.float32)
+
+
 def _vae_leaf(path: str, value):
     """One flax VAE leaf -> (torch name, tensor)."""
     parts = path.split("/")
-    v = np.asarray(value, dtype=np.float32)
+    v = _fp32_or_wider(value)
     if parts[-1] == "kernel":
         parts[-1] = "weight"
         if v.ndim == 2:
@@ -328,7 +509,7 @@ def discriminator_state_dict_from_flax(params: Dict[str, Any],
     out = dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
     for path, v in _flatten(batch_stats).items():
         bn, stat = path.split("/")
-        out[f"{bn}.running_{stat}"] = torch.from_numpy(np.array(v, dtype=np.float32))
+        out[f"{bn}.running_{stat}"] = torch.from_numpy(_fp32_or_wider(v))
     return out
 
 
@@ -372,14 +553,17 @@ def init_random_weights(model: torch.nn.Module, generator: torch.Generator) -> N
     """Fill every parameter and buffer with seeded random values.
 
     Weights are U(-1, 1) / sqrt(fan_in), biases U(-0.02, 0.02), norm scales
-    1 + U(-0.1, 0.1) (q/k norm scales ``QK_NORM_SCALE`` times that). Layers
+    1 + U(-0.1, 0.1) (q/k norm scales ``QK_NORM_SCALE`` times that; FAR-DiT
+    names them ``norm_q``, ``norm_k``). Layers
     the JAX package zero-initializes get the same law times
     ``ZERO_INIT_SCALE``, small but non-zero, except ``attn_out``, which
     keeps the plain law: the output depends on every block and on the
     attention pattern. Fourier buffers get their own law (2 pi N(0, 1)
-    frequencies, 2 pi U(0, 1) phases). A DiT's modulation weights and the q and
-    k rows of its qkv projections are scaled up (``DIT_MODULATION_SCALE``,
-    ``DIT_QK_SCALE``): never zero, as its zero-initialized gates would be.
+    frequencies, 2 pi U(0, 1) phases). A DiT's modulation weights (FAR-DiT's
+    ``norm1.linear``, ``norm2.linear`` and ``norm_out.linear``) and the q and
+    k rows of its qkv projections (a UNet3D's ``to_qkv`` too) are scaled up
+    (``DIT_MODULATION_SCALE``, ``DIT_QK_SCALE``): never zero, as its
+    zero-initialized gates would be, and attention peaked.
     """
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         u = torch.rand(t.shape, generator=generator, dtype=torch.float32) * 2 - 1
@@ -387,18 +571,19 @@ def init_random_weights(model: torch.nn.Module, generator: torch.Generator) -> N
             v = 2 * math.pi * torch.randn(t.shape, generator=generator)
         elif name.endswith("timesteps.phases"):
             v = 2 * math.pi * (u + 1) / 2
-        elif t.ndim == 1 and re.search(r"(norm|in_layers\.0)(\.norm)?\.weight$", name):
+        elif t.ndim == 1 and re.search(r"(norm|norm_[qk]|(in|out)_layers\.0)(\.norm)?\.weight$",
+                                       name):
             v = 1 + 0.1 * u
-            if name.endswith(("q_norm.weight", "k_norm.weight")):
+            if name.endswith(("q_norm.weight", "k_norm.weight", "norm_q.weight", "norm_k.weight")):
                 v = v * QK_NORM_SCALE
         elif t.ndim == 1:
             v = 0.02 * u
         else:
             fan_in = t.shape[1] * math.prod(t.shape[2:])
             v = u / math.sqrt(fan_in)
-        if name.endswith("modulation.1.weight"):
+        if re.search(r"(modulation\.1|norm\d\.linear|norm_out\.linear)\.weight$", name):
             v = v * DIT_MODULATION_SCALE
-        elif name.endswith("attn.qkv.weight"):
+        elif name.endswith(("attn.qkv.weight", "attn.to_qkv.weight")):
             v[: 2 * (t.shape[0] // 3)] *= DIT_QK_SCALE
         if _ZERO_INIT.match(name):
             v = v * ZERO_INIT_SCALE

@@ -23,14 +23,19 @@ from .distribution import DiagonalGaussian
 __all__ = ["ImageVAEConfig", "Encoder", "Decoder", "ImageVAE"]
 
 
+def _at_least_fp32(x: torch.Tensor) -> torch.dtype:
+    """fp32 for half-precision tensors, the tensor's own dtype from fp32 up."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm of 32 groups, eps 1e-6, computed in fp32."""
+    """GroupNorm of 32 groups, eps 1e-6, computed in fp32 (or wider)."""
 
     def __init__(self, channels: int):
         super().__init__(32, channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+        return F.group_norm(x.to(_at_least_fp32(x)), self.num_groups, self.weight, self.bias,
                             self.eps).to(x.dtype)
 
 
@@ -72,7 +77,8 @@ class AttnBlock(nn.Module):
         B, C, H, W = x.shape
         h = self.norm(x).flatten(2).transpose(1, 2)  # (B, HW, C)
         q, k, v = self.q(h), self.k(h), self.v(h)
-        w = torch.matmul(q, k.transpose(1, 2)).float() * (C ** -0.5)
+        w = torch.matmul(q, k.transpose(1, 2))
+        w = w.to(_at_least_fp32(w)) * (C ** -0.5)
         w = torch.softmax(w, dim=-1).to(x.dtype)
         h = self.proj_out(torch.matmul(w, v))
         return x + h.transpose(1, 2).reshape(B, C, H, W)

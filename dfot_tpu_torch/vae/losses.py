@@ -107,7 +107,7 @@ def lpips_state_dict(lin_state: Mapping, vgg_state: Mapping) -> Dict[str, torch.
 
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm`` over the channels of (B, C, H, W): batch
-    statistics as mean(x^2) - mean(x)^2 (fp32, clipped at 0), running
+    statistics as mean(x^2) - mean(x)^2 (fp32 or wider, clipped at 0), running
     statistics ``momentum * running + (1 - momentum) * batch`` with the
     biased batch variance."""
 
@@ -122,7 +122,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = True) -> torch.Tensor:
         if train:
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
             if update_stats:

@@ -407,16 +407,30 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["algorithm/backbone=u_net3d"], "A14"),
-    (["algorithm/backbone=far_dit"], "A14"),
-    (["algorithm/backbone=dit1d"], "A14"),
-    (["algorithm=difference_dfot_video"], "A14"),
+    (["algorithm/backbone=u_net3d", "++algorithm.backbone.network_size=16",
+      "++algorithm.backbone.dim_mults=[1,2]", "++algorithm.backbone.attn_heads=2",
+      "++algorithm.backbone.attn_dim_head=8"], "UNet3D"),
+    (["algorithm/backbone=far_dit", "++algorithm.backbone.hidden_size=64",
+      "++algorithm.backbone.depth=1", "++algorithm.backbone.num_heads=2",
+      "++algorithm.backbone.axes_dims_rope=[8,12,12]"], "FARDiT"),
+    (["algorithm/backbone=dit1d", "++algorithm.backbone.hidden_size=64",
+      "++algorithm.backbone.depth=1", "++algorithm.backbone.num_heads=2"], "DiT1D"),
+    (["algorithm=difference_dfot_video", "++algorithm.backbone.hidden_size=64",
+      "++algorithm.backbone.depth=1", "++algorithm.backbone.num_heads=2"], "DiT3D"),
 ])
 def test_unported_algorithms_raise(extra, item):
+    """The four compositions that raised until ROADMAP.md A14 was ported
+    build (the model class named) and run one forward at 16 px."""
     argv = ["+name=ucf", "dataset=ucf_101", "algorithm=dfot_video",
-            "experiment=video_generation"] + extra
-    with pytest.raises(NotImplementedError, match=item):
-        build_algorithm(load_config(argv), device="meta")
+            "experiment=video_generation", "++dataset.latent.enabled=false",
+            "dataset.resolution=16", "dataset.max_frames=4"] + extra
+    algo = build_algorithm(load_config(argv), torch.float32, device="cpu")
+    assert type(algo.model).__name__ == item
+    h, w, c = algo.x_shape
+    x = torch.zeros(1, algo.max_tokens, h, w, c)
+    with torch.no_grad():
+        out = algo.model(x, torch.zeros(1, algo.max_tokens))
+    assert out.shape == x.shape[:2] + out.shape[2:] and torch.isfinite(out).all()
 
 
 def test_main_runs_nothing_on_import():

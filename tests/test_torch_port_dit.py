@@ -266,8 +266,15 @@ def test_unported_dit_variants_raise_by_name():
         TD.DiT3D(TD.DiTSpec(variant=variant, pos_emb_type="sinusoidal_2d", **matrix), 3, (8, 8))
     with pytest.raises(ValueError, match="unknown DiT variant"):
         TD.DiT3D(TD.DiTSpec(variant="no_such_variant", pos_emb_type="sinusoidal_2d"), 3, (8, 8))
-    with pytest.raises(NotImplementedError, match="double RoPE"):
-        TD.DiT3D(TD.DiTSpec(double_rope_merge="concat"), 3, (8, 8))
+    # the difference-DiT's double RoPE is ported: the JAX package's doubled
+    # table (tests/test_torch_port_difference.py holds the model)
+    for merge in ("concat", "interleaved"):
+        pm = TD.DiT3D(TD.DiTSpec(double_rope_merge=merge), 3, (8, 8))
+        want = JE.make_rope_3d(64, (16, 4, 4), double_merge=merge)
+        np.testing.assert_array_equal(pm.dit_base.blocks[0].attn.rope._np[0],
+                                      np.asarray(want.cos, np.float32))
+    with pytest.raises(ValueError, match="double-rope merge"):
+        TD.DiT3D(TD.DiTSpec(double_rope_merge="stacked"), 3, (8, 8))
     with pytest.raises(ValueError):
         TD.DiT3D(TD.DiTSpec(variant="factorized_attention", pos_emb_type="rope_3d"), 3, (8, 8))
     # the selective remat policies are ported (tests/test_torch_port_remat.py)

@@ -1078,3 +1078,44 @@ def test_custom_ops_launch_their_kernels(cuda, op):
             t.grad = None
     for got, want in zip(grads[False], grads[True]):
         assert _close(got, want, 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [64, 256])
+def test_flash_kernels_at_unet3d_heads(cuda, n, causal):
+    """UNet3D's spatial attention: heads of 32 padded to 64 (the true
+    1/sqrt(32) scale), N = 256 (level 2 at 64 px) and 64 (the mid block, half
+    a 128-row block); B1 and B5 as the other widths, and B4's dq."""
+    _check_wgmma_pair(cuda, 128, n, 32, 64, causal, seed=22)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    scale = 1.0 / math.sqrt(32)
+    q, k = (_padded_heads(g, 128, n, 32, 64, cuda, 1.7) for _ in range(2))
+    v, do = (_padded_heads(g, 128, n, 32, 64, cuda) for _ in range(2))
+    o, lse = A.attention_reference(q, k, v, causal, scale, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, head_dim=32)
+    dq_ref = A._dq_plain(q, k, v, do, lse, delta, causal, scale)
+    assert _close(dq, dq_ref, 2e-2) and _rel_l2(dq, dq_ref) <= 1e-2
+    assert not dq[..., 32:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["concat", "interleaved"])
+def test_qkv_prep_with_the_doubled_table(cuda, merge):
+    """B2 with the difference DiT's doubled RoPE table (its first T * P rows,
+    as a merged sequence of T frames reads them) against its plain version;
+    the interleaved table's rows differ from the plain table's."""
+    T, P, H, d = 8, 16, 4, 64
+    N = T * P
+    rope = make_rope_3d(d, (T, 4, 4), double_merge=merge)
+    cos = torch.as_tensor(rope.cos[:N], device=cuda)
+    sin = torch.as_tensor(Q.signed_sin(rope.sin)[:N], device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    qkv = torch.randn(2, N, 3 * H * d, generator=g, device=cuda).to(torch.bfloat16)
+    got = Q.qkv_prep(qkv, H, d, cos, sin, d_out=d)
+    want = Q.reference_qkv_prep(qkv, H, d, cos, sin, d_out=d)
+    for a, b in zip(got, want):
+        assert _close(a, b, 2e-2)
+    plain = make_rope_3d(d, (2 * T, 4, 4))
+    assert np.array_equal(plain.cos[:N], rope.cos[:N]) == (merge == "concat")

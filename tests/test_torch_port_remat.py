@@ -260,6 +260,9 @@ def _out_numel(op, args) -> int:
     if op == torch.ops.dfot.attn_out_collect.default:
         o, head_dim = args[:2]
         return o.shape[0] * o.shape[1] * o.shape[2] * head_dim
+    if op == aten.bmm.default:  # an einsum attention's a @ v
+        a, b = args[:2]
+        return a.shape[0] * a.shape[1] * b.shape[2]
     return args[0].numel()  # small-N attention: o is q's shape
 
 
@@ -269,12 +272,11 @@ def test_saved_outputs_match_the_jax_residuals(model, policy, pallas_interpret, 
     """What each policy keeps: the outputs the port's policy saves in one
     forward against the dense outputs and ``attn_out`` tensors the JAX jaxpr
     keeps beyond what ``none`` keeps, by element count (the port's linears
-    flatten (B, N, C) to 2-D). The port keeps all of them. A selective
-    checkpoint keeps every output its policy names, where JAX keeps only the
-    residuals its backward reads: under ``dots`` the U-ViT's ``attn_out`` and
-    ``mlp_out`` outputs, added to the residual stream and read by no VJP,
-    are kept by the port alone (two (B, N, C) tensors a block; the DiT's
-    pass through a gate, whose VJP reads them, and both keep them)."""
+    flatten (B, N, C) to 2-D): the same outputs, no more. JAX keeps only the
+    residuals its backward reads; the U-ViT's ``attn_out`` and ``mlp_out``
+    outputs, added to the residual stream and read by no VJP, run under
+    ``remat.not_a_residual`` in the port, which keeps them neither (the
+    DiT's pass through a gate, whose VJP reads them, and both keep them)."""
     jax_fn, port_fn, _ = MODELS[model]
     want = _jax_saved(*jax_fn(policy)) - _jax_saved(*jax_fn(None))
     saved = collections.Counter()
@@ -294,8 +296,7 @@ def test_saved_outputs_match_the_jax_residuals(model, policy, pallas_interpret, 
     monkeypatch.setattr(TR, "remat_policy", wrapped)
     port_fn(policy)
     assert not want - saved, (saved, want)
-    extra = {32768: 4, 8192: 2} if model == "uvit" and "dots" in policy else {}
-    assert saved - want == collections.Counter(extra), (saved, want)
+    assert saved - want == collections.Counter(), (saved, want)
 
 
 def test_jax_runs_the_flash_forward_again_under_attn(pallas_interpret):

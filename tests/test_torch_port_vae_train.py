@@ -25,6 +25,10 @@ package's (``dfot_tpu/vae/losses.py``,
   step, 1.5e-3 on the third), which Adam carries into every leaf the
   adversarial term reaches. Controls: ``disc_start`` moved by one, and the
   adaptive weight left out, each miss by more than ten times the bound.
+- That drift is fp32 rounding: in float64 the first adversarial step agrees
+  within 1e-10 (losses, ``d_weight``, every gradient leaf, the running
+  statistics; read: 1.8e-15, 1.8e-16, 4.5e-14, 1.3e-16), and torch's
+  ``BatchNorm2d`` or momentum 0.9 in the discriminator miss (6.0e-5, 0.15).
 """
 
 import os
@@ -38,6 +42,7 @@ import torch
 import main as jax_main
 from dfot_tpu.experiments import video_latent_learning as JVL
 from dfot_tpu.vae import distribution as JDist
+from dfot_tpu.vae import image_vae as JIV
 from dfot_tpu.vae import losses as JL
 from dfot_tpu_torch.__main__ import run
 from dfot_tpu_torch.experiments import video_latent_learning as TVL
@@ -308,3 +313,151 @@ def test_training_matches_main(monkeypatch, tmp_path, dmlab_root, kind):
     assert final_off(tmp_path / "ctrl_start", [f"++algorithm.{key}.disc_start=2"]) > RUN_RTOL * 10
     monkeypatch.setattr(TVL, "calculate_adaptive_weight", lambda a, b: torch.ones(()))
     assert final_off(tmp_path / "ctrl_weight") > RUN_RTOL * 10
+
+
+# ---------------------------------------------------------------------------
+# the adaptive weight and the adversarial gradient in float64
+# ---------------------------------------------------------------------------
+
+F64_RTOL = 1e-10
+
+
+def _f64_step_inputs(root):
+    """The run test's first clip (the first two videos of its directory) and
+    the IMAGE widths' models on seeded weights, for both packages."""
+    from dfot_tpu.config import load_config as jax_load_config
+    from dfot_tpu_torch.config import load_config
+    from dfot_tpu_torch.data.loader import _collate
+    from dfot_tpu_torch.data.video_dataset import build_dataset
+    from dfot_tpu_torch.vae import image_vae as TIV
+
+    argv = learning_argv(root, "unused", IMAGE)
+    tcfg, jcfg = load_config(argv), jax_load_config(argv)
+    videos = np.asarray(_collate([build_dataset(tcfg.dataset, "training")[i]
+                                  for i in range(2)])["videos"], np.float64)
+    frames = videos.reshape(-1, *videos.shape[2:])
+    jvae_cfg = JIV.ImageVAEConfig.from_config(jcfg.algorithm)
+    x0 = jnp.zeros((1,) + frames.shape[1:], jnp.float32)
+    vparams = randomize(JIV.ImageVAE(jvae_cfg).init(jax.random.PRNGKey(0), x0,
+                                                    jax.random.PRNGKey(1))["params"], 21)
+    jd, jv, _ = _disc_pair(22)
+    tvae = TIV.ImageVAE(TIV.ImageVAEConfig.from_config(tcfg.algorithm))
+    tvae.load_state_dict(imagevae_state_dict_from_flax(vparams), strict=True)
+    tdisc = TL.NLayerDiscriminator()
+    tdisc.load_state_dict(discriminator_state_dict_from_flax(jv["params"], jv["batch_stats"]),
+                          strict=True)
+    loss_cfg = dict(jcfg.algorithm.lossconfig.to_dict())
+    return frames, jvae_cfg, vparams, jv, tvae.double(), tdisc.double(), loss_cfg
+
+
+class TorchBatchNorm(torch.nn.BatchNorm2d):
+    """torch's ``BatchNorm2d`` (it keeps the unbiased batch variance) at
+    flax's momentum, called as the port's :class:`BatchNorm` is."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, momentum=0.01)
+
+    def forward(self, x, train=False, update_stats=True):
+        if train and not update_stats:
+            return torch.nn.functional.batch_norm(x, None, None, self.weight, self.bias, True,
+                                                  0.0, self.eps)
+        self.train(train)
+        return super().forward(x)
+
+
+class _Float64Scores:
+    """``jax.numpy`` with ``float32`` read as ``float64``: the JAX ImageVAE's
+    attention casts its scores to fp32 (``AttnBlock``), where the port's
+    computes them at its input's width, fp32 and up."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _jax_f64_step(frames, jvae_cfg, vparams, jv, loss_cfg, step):
+    """The JAX experiment's own step in float64, SGD at rate 1 in place of
+    Adam: the autoencoder's gradient is the parameters' change."""
+    import optax
+
+    from dfot_tpu.training.state import create_train_state
+
+    f64 = lambda tree: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)
+    exp = JVL.VideoLatentLearningExperiment.__new__(JVL.VideoLatentLearningExperiment)
+    exp.vae = JIV.ImageVAE(jvae_cfg, dtype=jnp.float64)
+    exp.disc = JL.NLayerDiscriminator(dtype=jnp.float64)
+    exp.is_video, exp.loss_cfg = False, loss_cfg
+    ae = create_train_state(f64(vparams), optax.sgd(1.0), use_ema=False)
+    d = create_train_state(f64(jv["params"]), optax.sgd(1.0), use_ema=False)
+    ae2, _, stats, metrics = exp._make_step()(ae, d, f64(jv["batch_stats"]),
+                                             jnp.asarray(frames), jax.random.PRNGKey(3), step)
+    grads = jax.tree_util.tree_map(lambda a, b: np.asarray(a - b), ae.params, ae2.params)
+    return {k: float(v) for k, v in metrics.items()}, grads, jax.device_get(stats)
+
+
+def _port_f64_step(frames, tvae, tdisc, loss_cfg, step, disc=None):
+    exp = TVL.VideoLatentLearningExperiment.__new__(TVL.VideoLatentLearningExperiment)
+    exp.vae, exp.disc = tvae, disc or tdisc
+    exp.is_video, exp.loss_cfg, exp.device = False, loss_cfg, torch.device("cpu")
+    exp.ae_opt, exp.d_opt = (torch.optim.SGD(m.parameters(), lr=0.0) for m in (exp.vae, exp.disc))
+    exp.generator = None
+    videos = torch.from_numpy(frames).reshape(2, -1, *frames.shape[1:])
+    metrics = exp.train_step(videos, step, [])
+    grads = {n: p.grad.detach().clone() for n, p in exp.vae.named_parameters()}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def test_adaptive_weight_and_adversarial_gradient_agree_in_float64(monkeypatch, dmlab_root):
+    """ROADMAP.md C9: the drift between the packages' fp32 steps is fp32
+    rounding, not a different computation. In float64 (JAX under
+    ``jax.enable_x64``, the port in ``torch.float64``), on the run test's
+    first clip and the IMAGE widths, the first adversarial step (the
+    discriminator in training mode: batch-statistics BatchNorm in the
+    autoencoder's loss) agrees within ``F64_RTOL``: every logged loss, the
+    adaptive weight ``d_weight``, the autoencoder's gradient leaf by leaf,
+    and the discriminator's running statistics after its update. The JAX
+    ImageVAE's attention scores are taken at float64 too
+    (:class:`_Float64Scores`). Controls,
+    each off by more than a hundred times the bound: the port's BatchNorm
+    with torch ``BatchNorm2d``'s unbiased running variance, and with
+    momentum 0.9."""
+    _pin_posterior(monkeypatch)
+    monkeypatch.setattr(JIV, "jnp", _Float64Scores())
+    frames, jvae_cfg, vparams, jv, tvae, tdisc, loss_cfg = _f64_step_inputs(dmlab_root)
+    loss_cfg["disc_start"] = 1
+    with jax.enable_x64(True):
+        want, jgrads, jstats = _jax_f64_step(frames, jvae_cfg, vparams, jv, loss_cfg, 1)
+    start = {k: v.clone() for k, v in tdisc.state_dict().items()}
+    got, grads = _port_f64_step(frames, tvae, tdisc, loss_cfg, 1)
+    assert want["d_weight"] > 0 and want["g_loss"] != 0
+    assert sorted(got) == sorted(want)
+    off = {k: (got[k], want[k]) for k in want
+           if abs(got[k] - want[k]) > F64_RTOL * abs(want[k])}
+    assert not off, off
+    jg = imagevae_state_dict_from_flax(jgrads)
+    assert set(jg) == set(grads)
+    # the attention's key biases shift every score of a row alike: their
+    # gradient is zero but for rounding, held against the whole gradient's norm
+    scale = torch.cat([g.flatten() for g in jg.values()]).double().norm()
+    leaves = {k: float((grads[k] - jg[k].double()).norm()
+                       / (scale if k.endswith("k.bias") else jg[k].double().norm()))
+              for k in jg}
+    assert max(leaves.values()) < F64_RTOL, max(leaves.items(), key=lambda kv: kv[1])
+    want_stats = discriminator_state_dict_from_flax(jv["params"], jstats)
+    for k, v in tdisc.state_dict().items():
+        if "running" in k:
+            assert rel_err(v, want_stats[k].double()) < F64_RTOL, k
+
+    # controls: the statistics the discriminator's update folds in
+    def stats_off(make_bn):
+        disc = TL.NLayerDiscriminator()
+        for n in (1, 2, 3):
+            setattr(disc, f"bn{n}", make_bn(getattr(disc, f"bn{n}").weight.numel()))
+        disc.load_state_dict(start, strict=False)
+        _port_f64_step(frames, tvae, tdisc, loss_cfg, 1, disc.double())
+        return max(rel_err(v, want_stats[k].double()) for k, v in disc.state_dict().items()
+                   if "running_var" in k)
+
+    assert stats_off(TorchBatchNorm) > 100 * F64_RTOL
+    assert stats_off(lambda c: TL.BatchNorm(c, momentum=0.9)) > 100 * F64_RTOL
