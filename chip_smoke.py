@@ -98,14 +98,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     on the flagship at full width and depth: it writes a seeded random fp32
     UViT3DPose as an upstream-layout ``.ckpt`` under ``chiprun_out/``
     (deleted after), runs the command with ``load=`` that file, a batch of
-    2 and one batch, the frame-wise metrics only (and no GIFs where PIL is
-    absent), and requires the model's every parameter and buffer bit-equal
-    to the file's, B1-B3 launched 32 times per forward of the window's
-    sampling plan, the 4 context frames of the prediction bit-equal to the
-    ground truth's, and finite mse, ssim and psnr in ``metrics.jsonl``; it
-    prints the phase's wall split (compose, checkpoint write, checkpoint
-    load, model build, sampling, metrics, the metrics logger) and its peak
-    memory;
+    2 and one batch, the README's metric list as composed (fvd, is, fid,
+    lpips, mse, ssim, psnr; no GIFs where PIL is absent), and requires the
+    model's every parameter and buffer bit-equal to the file's, B1-B3
+    launched 32 times per forward of the window's sampling plan, the 4
+    context frames of the prediction bit-equal to the ground truth's, the
+    composed list's names in ``metrics.jsonl`` (``fvd_uncalibrated``,
+    ``is_uncalibrated``, ``fid_uncalibrated``, ``lpips_uncalibrated``: no
+    metric weight files) with finite values, and the metric networks
+    frozen on the card; it prints the phase's wall split (compose,
+    checkpoint write, checkpoint load, model build, sampling, metrics, the
+    metrics logger), the metrics' split by metric and its peak memory;
 18. trains the flagship through the same entry point at full width and
     depth and the composed batch of 8 (``experiment.tasks=[training]``,
     checkpoints and runs under ``build/train_loop``, removed after): a run
@@ -205,7 +208,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     32 padded to 64, N = 256 and 64, causal and not) and B2 with the
     doubled table (its control: the plain table over 2T frames).
 
-Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21 and 22 also run controls (an attention that
+23. (``run_metric_paths``) the metric suite: I3D, InceptionV3 at 299 px,
+    LPIPS, CLIP B/32 and L/14 and DINO B/16 on seeded weights, each on the
+    card against the CPU in fp32 with TF32 off at the flagship
+    validation's batch (1e-4 relative L2; controls: I3D's SAME padding made
+    symmetric, a BatchNorm statistic of Inception's stem changed, LPIPS's
+    first head and CLIP's and DINO's first norm scaled), and timed a call;
+    K600's validation as composed (``[vbench, fvd, is, fid, lpips, mse,
+    ssim, psnr]``) through ``run(argv)`` on phase 20's latent path (@DiT/XL
+    at depth 4, batch 2, one batch); ``VideoMetric(["fvmd"])`` on two
+    16-frame clips of the 200-frame rollout; the host's Frechet distances
+    (``scipy.linalg.sqrtm`` at 2048 and 400 dimensions) in that validation,
+    apart from the networks' passes.
+
+Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22 and 23 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -259,7 +275,7 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "unet3d_window", "unet3d_train", "diff_concat_window", "diff_concat_train",
          "diff_interleaved_window", "diff_interleaved_train", "diff_facmat_window",
          "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
-         "unet3d_cli")
+         "unet3d_cli", "k600_metrics")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -2549,6 +2565,7 @@ def run_long_video_paths(record: dict, fs) -> dict:
     require_launches("the 200-frame rollout", launches,
                      expected_uvit_launches(fs, forwards=n_windows * steps))
     out["rollout"] = launches
+    CARRIED["rollout"] = video[:, :2 * FVMD_FRAMES].cpu()  # phase 23's FVMD clips
     del video, keyframe_pass, ro, model
     return out
 
@@ -2624,6 +2641,28 @@ README_RE10K = [
     "++algorithm.tasks.prediction.history_guidance.name=vanilla",
     "++algorithm.tasks.prediction.history_guidance.guidance_scale=4.0",
 ]
+# the names the README's composed list [fvd, is, fid, lpips, mse, ssim, psnr]
+# logs without metric weight files (realestate10k_video_generation.yaml:35)
+README_METRIC_NAMES = ("mse", "psnr", "ssim", "lpips_uncalibrated", "fvd_uncalibrated",
+                       "fid_uncalibrated", "is_uncalibrated")
+
+
+def require_registry_on_card(registry, names, what: str) -> None:
+    """The metric registry built ``names`` on the card, frozen, on its
+    seeded fallback weights."""
+    import torch
+
+    for name in names:
+        net = registry.networks.get(name)
+        require(net is not None, f"{what}: the metric network {name} was not built")
+        tensors = list(net.parameters()) + list(net.buffers())
+        tensors += [m for ms in getattr(net, "matrices", {}).values() for m in ms]
+        require(bool(tensors) and all(x.device.type == "cuda" for x in tensors)
+                and not any(p.requires_grad for p in net.parameters()),
+                f"{what}: the metric network {name} is not frozen on the card")
+        require(registry.comparable.get(name) is False,
+                f"{what}: {name} claims calibrated weights ({registry.comparable})")
+    require(registry.device.type == "cuda", f"{what}: the metric registry is on {registry.device}")
 
 
 def run_cli_validation(record: dict, smi: str) -> dict:
@@ -2654,7 +2693,6 @@ def run_cli_validation(record: dict, smi: str) -> dict:
     argv = README_RE10K + [
         f"load={ckpt}", f"output_dir={out_dir}",
         f"experiment.validation.batch_size={CLI_BATCH}", "experiment.validation.limit_batch=1",
-        "++algorithm.logging.metrics=[mse,ssim,psnr]",
     ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
     try:
         torch.save({"state_dict": state}, ckpt)
@@ -2704,9 +2742,11 @@ def run_cli_validation(record: dict, smi: str) -> dict:
     require(len(files) == 1, f"{len(files)} metrics.jsonl files under {out_dir}")
     lines = [json.loads(line) for line in files[0].read_text().splitlines()]
     metrics = {k: v for k, v in lines[-1].items() if k not in ("step", "time")}
-    keys = [f"validation/prediction/{m}" for m in ("mse", "psnr", "ssim")]
-    require(sorted(metrics) == sorted(keys) and all(math.isfinite(metrics[k]) for k in keys),
-            f"metrics.jsonl holds {metrics}")
+    # the README's list as composed, every network on its seeded fallback
+    keys = [f"validation/prediction/{m}" for m in README_METRIC_NAMES]
+    require(list(metrics) == keys and all(math.isfinite(metrics[k]) for k in keys),
+            f"metrics.jsonl holds {metrics}, not the composed list's {keys}")
+    require_registry_on_card(exp._registry, ("i3d", "lpips", "inception"), "the README validation")
 
     t = exp.timings
     split = {"compose_s": t["compose_s"], "checkpoint_write_s": write_s,
@@ -2714,6 +2754,7 @@ def run_cli_validation(record: dict, smi: str) -> dict:
              "sampling_s": t["sampling_s"], "metrics_s": t["metrics_s"], "logger_s": t["logger_s"]}
     record["cli"] = {
         "argv": argv, "nvidia_smi": smi, "pil": pil, "wall_s": wall, "split_s": split,
+        "metrics_split_s": t["metrics_split_s"],
         "peak_memory_bytes": peak, "forwards": forwards, "nfe": plan.nfe,
         "launches": launches, "metrics": metrics, "run_dir": str(exp.output_dir),
         "videos": sorted(str(p.relative_to(out_dir)) for p in out_dir.rglob("*.gif")),
@@ -2723,6 +2764,7 @@ def run_cli_validation(record: dict, smi: str) -> dict:
         f"{CLI_BATCH}, launches B1 {launches['flash_fwd']}, B2 {launches['qkv_prep']}, "
         f"B3 {launches['attn_out_collect']}, peak {peak / 2**30:.2f} GiB")
     log("  split: " + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in split.items()))
+    log("  metrics split: " + ", ".join(f"{k} {v:.3f} s" for k, v in t["metrics_split_s"].items()))
     log("  metrics: " + ", ".join(f"{k.rsplit('/', 1)[1]} {v:.6g}" for k, v in metrics.items()))
     return launches
 
@@ -2890,6 +2932,8 @@ def run_cli_training(record: dict, smi: str) -> dict:
             "+name=re10k_sweep", f"output_dir={out}", f"load={runs['resume']['run_dir']}",
             "experiment.validation.val_all_ckpt=true",
             f"experiment.validation.batch_size={CLI_BATCH}", "experiment.validation.limit_batch=1",
+            # for time: the composed list (phase 17 runs it) would score every
+            # checkpoint of the sweep with its networks and matrix square roots
             "++algorithm.logging.metrics=[mse,ssim,psnr]",
         ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
         runs["sweep"] = drive("sweep", argv3)
@@ -3827,7 +3871,8 @@ def run_latent_paths(record: dict, smi: str) -> dict:
         f"++algorithm.backbone.depth={K600_DEPTH}", "experiment.tasks=[training,validation]",
         f"experiment.training.max_steps={K600_STEPS}",
         "experiment.validation.val_every_n_epoch=0", "experiment.validation.batch_size=2",
-        "experiment.validation.limit_batch=1", "++algorithm.logging.metrics=[mse,ssim,psnr]",
+        "experiment.validation.limit_batch=1",
+        "++algorithm.logging.metrics=[mse,ssim,psnr]",  # for time: phase 23 runs K600's list
         "++algorithm.logging.max_num_videos=0", f"output_dir={root / 'k600_runs'}"]
     exp, r3 = drive("K600 @DiT/XL (depth 4) on the online VideoVAE", kargv,
                     *timing_patches[1:])
@@ -4878,8 +4923,8 @@ def run_unet3d_cli(record: dict) -> dict:
             "++algorithm.logging.loss_freq=1", "experiment.validation.batch_size=2",
             "experiment.validation.limit_batch=1", "experiment.validation.data.num_workers=0",
             "algorithm.diffusion.sampling_timesteps=10", "++algorithm.logging.max_num_videos=0",
-            "++algorithm.logging.metrics=[mse,ssim,psnr]", "wandb.mode=disabled",
-            f"output_dir={root / 'runs'}"]
+            "++algorithm.logging.metrics=[mse,ssim,psnr]",  # for time: phases 17, 23 run the lists
+            "wandb.mode=disabled", f"output_dir={root / 'runs'}"]
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -4922,6 +4967,305 @@ def run_slice16_paths(record: dict) -> dict:
     record["phase22_seconds"] = time.perf_counter() - t_phase
     log(f"  phase 22: {record['phase22_seconds']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the metric suite (ROADMAP.md A15a and the weight-free A15b)
+# ---------------------------------------------------------------------------
+
+# each frozen network on the card against the same network on the CPU, fp32
+# with TF32 off: relative L2 of the outputs (cuDNN's and the CPU's
+# convolution algorithms sum in other orders)
+METRIC_CPU_REL_TOL = 1e-4
+# the flagship validation's videos: batch 2, 8 frames of 256 px
+METRIC_VIDEOS = (CLI_BATCH, 8, 256, 256, 3)
+# K600's composed list (kinetics_600_video_generation.yaml:25) and the names
+# it logs without metric weight files
+K600_METRICS = ("vbench", "fvd", "is", "fid", "lpips", "mse", "ssim", "psnr")
+K600_METRIC_NAMES = ("mse", "psnr", "ssim", "lpips_uncalibrated", "fvd_uncalibrated",
+                     "fid_uncalibrated", "is_uncalibrated")
+VBENCH_DIM_NAMES = ("subject_consistency_uncalibrated", "background_consistency_uncalibrated",
+                    "temporal_flickering", "motion_smoothness_uncalibrated",
+                    "dynamic_degree_uncalibrated", "aesthetic_quality_uncalibrated",
+                    "quality_score")
+FVMD_FRAMES = 16
+# tensors one phase hands to a later one (the JSON record holds none)
+CARRIED: dict = {}
+
+
+def witness_weights(net, seed: int):
+    """Seeded weights under which a deep random network's output follows its
+    input: the registry's fallback law with He-scaled conv and dense
+    weights, norm scales 1 + 0.2 N, biases 0.02 N, running means 0.02 N,
+    running variances U(0.5, 1.5)."""
+    import torch
+    from dfot_tpu_torch.metrics.registry import seeded_init
+
+    g = torch.Generator().manual_seed(seed)
+    seeded_init(net, g)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.ndim >= 2 and name.endswith("weight"):
+                p.mul_(2**0.5)
+            elif p.ndim == 1 and name.endswith("weight"):
+                p.add_(0.2 * torch.randn(p.shape, generator=g))
+            elif "bias" in name:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+        for name, b in net.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.02 * torch.randn(b.shape, generator=g))
+            elif name.endswith("running_var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=g))
+    return net.eval().requires_grad_(False)
+
+
+def symmetric_same_pads(sizes, kernel, strides):
+    """The control of I3D's padding: k // 2 on both sides (``Conv3d(padding=3)``)."""
+    return tuple(p for k in reversed(kernel) for p in (k // 2, k // 2))
+
+
+def frozen_network_cases(frames):
+    """name -> (CPU network, inputs on the CPU, forward, control): each
+    network of the metric suite on seeded witness weights, its inputs made
+    from the flagship validation's seeded frames as the registry makes them,
+    and a control that changes the card's copy."""
+    import torch
+    from dfot_tpu_torch.metrics import encoders as E
+    from dfot_tpu_torch.metrics import i3d as I
+    from dfot_tpu_torch.metrics.inception import InceptionV3, inception_preprocess
+    from dfot_tpu_torch.metrics.video_metric import VideoMetric
+    from dfot_tpu_torch.vae.losses import LPIPS
+
+    B, T = METRIC_VIDEOS[:2]
+    flat = frames.reshape((B * T,) + tuple(frames.shape[2:]))
+    shifted = torch.roll(flat, 3, dims=2)  # LPIPS pairs: each frame and itself moved
+
+    def bn_stat(attr):
+        def control(net):
+            getattr(net, attr).bn.running_mean.add_(0.5)
+        return control
+
+    def scale(path):
+        def control(net):
+            module = net
+            for part in path.split("."):
+                module = getattr(module, part)
+            module.weight.mul_(1.5)
+        return control
+
+    def i3d_control(net):
+        I.same_pads = symmetric_same_pads
+
+    return {
+        "i3d": (witness_weights(I.I3D(), 230), (VideoMetric._pad_to_min_frames(frames, 9),),
+                lambda net, x: torch.cat(net(x), dim=1), i3d_control),
+        "inception": (witness_weights(InceptionV3(), 231), (inception_preprocess(flat),),
+                      lambda net, x: net(x)[0], bn_stat("Conv2d_1a_3x3")),
+        "lpips": (witness_weights(LPIPS(), 232),
+                  (flat.permute(0, 3, 1, 2) * 2 - 1, shifted.permute(0, 3, 1, 2) * 2 - 1),
+                  lambda net, a, b: net(a, b), scale("lin0")),
+        "clip_b32": (witness_weights(E.CLIPVisionEncoder(E.CLIP_B32), 233),
+                     (E.clip_preprocess(flat),), lambda net, x: net(x), scale("ln_pre")),
+        "clip_l14": (witness_weights(E.CLIPVisionEncoder(E.CLIP_L14), 234),
+                     (E.clip_preprocess(flat),), lambda net, x: net(x), scale("ln_pre")),
+        "dino": (witness_weights(E.DINOEncoder(E.DINO_B16), 235), (E.dino_preprocess(flat),),
+                 lambda net, x: net(x), scale("blocks.0.norm1")),
+    }
+
+
+def check_frozen_networks(rec: dict) -> None:
+    """(a) Each frozen network on the card against the CPU, fp32 with TF32
+    off, at the flagship validation's batch, and its control; (d) each
+    network's time a call on the card."""
+    import copy
+
+    import torch
+    from dfot_tpu_torch.metrics import i3d as I
+    from dfot_tpu_torch.metrics.registry import frozen_math
+
+    gen = torch.Generator().manual_seed(236)
+    frames = torch.rand(METRIC_VIDEOS, generator=gen)
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    with frozen_math(cpu):
+        cases = frozen_network_cases(frames)
+    rec["networks"] = {}
+    log(f"  frozen networks, card against CPU (fp32, TF32 off, relative L2 tol "
+        f"{METRIC_CPU_REL_TOL:g}), inputs from {tuple(METRIC_VIDEOS)} seeded frames:")
+    for name, (net, inputs, forward, control) in cases.items():
+        t0 = time.perf_counter()
+        with frozen_math(cpu):
+            want = forward(net, *inputs)
+        cpu_s = time.perf_counter() - t0
+        dev = copy.deepcopy(net).to(card)
+        require(all(p.device.type == "cuda" for p in dev.parameters()),
+                f"{name}: parameters off the card")
+        x = tuple(i.to(card) for i in inputs)
+        with frozen_math(card):
+            got = forward(dev, *x)
+            ms = cuda_ms(lambda: forward(dev, *x), reps=3, warmup=1)
+        err = rel_l2(got.cpu(), want)
+        real_pads = I.same_pads
+        try:
+            with torch.no_grad():
+                control(dev)
+            with frozen_math(card):
+                ctl = rel_l2(forward(dev, *x).cpu(), want)
+        finally:
+            I.same_pads = real_pads
+        n_params = sum(p.numel() for p in net.parameters())
+        rec["networks"][name] = {"rel_l2": err, "control_rel_l2": ctl, "card_ms": ms,
+                                 "cpu_s": cpu_s, "params": n_params,
+                                 "input_shapes": [list(i.shape) for i in inputs],
+                                 "output_shape": list(got.shape)}
+        log(f"    {name:10s} {n_params / 1e6:7.2f} M params, in {[tuple(i.shape) for i in inputs]}"
+            f" out {tuple(got.shape)}: rel L2 {err:.2e}, control {ctl:.2e}; "
+            f"{ms:.2f} ms a call on the card, {cpu_s:.2f} s on the CPU")
+        require(bool(torch.isfinite(got).all()) and err <= METRIC_CPU_REL_TOL,
+                f"{name} on the card is off the CPU by {err:.3e}")
+        require(ctl > METRIC_CPU_REL_TOL, f"{name}: the control passes ({ctl:.3e})")
+        del dev, x, got
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def report_host_math(rec: dict) -> None:
+    """(d) The host's Frechet distances (``scipy.linalg.sqrtm`` at FID's 2048
+    and FVD's 400 dimensions) and Inception Score in K600's validation,
+    apart from the networks' passes on the card."""
+    split = rec["k600"]["metrics_split_s"]
+    rec["host_math_s"] = {m: split[f"{m}_host"] for m in ("fid", "fvd", "is")}
+    log(f"  host math at log(): FID's Frechet distance (2048^2 sqrtm) {split['fid_host']:.3f} s, "
+        f"FVD's (400^2) {split['fvd_host']:.3f} s, IS {split['is_host']:.4f} s "
+        f"({os.cpu_count()} host cores); the networks' passes: "
+        + ", ".join(f"{m} {split[m]:.3f} s" for m in ("fvd", "fid", "lpips", "vbench")))
+
+
+def run_k600_metrics(rec: dict) -> dict:
+    """(b) K600's validation as composed, ``[vbench, fvd, is, fid, lpips,
+    mse, ssim, psnr]``, through ``run(argv)`` on the latent path as phase 20
+    sets it up (@DiT/XL at depth 4 on seeded random weights, the online
+    VideoVAE, a K600-layout directory, batch 2, one batch). Returns the
+    run's launch counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.algorithms import dfot_video as DV
+    from dfot_tpu_torch.config import load_config
+    from dfot_tpu_torch.utils.weights import init_random_weights
+
+    root = ROOT / "build" / "metrics"
+    shutil.rmtree(root, ignore_errors=True)
+    data, ckpt = root / "k600", root / "dit.ckpt"
+    write_npz_videos(data, K600_VIDEOS[1:], K600_RES, 238, raw_dir=True)
+    argv = ["+name=k600_metrics"] + K600_ARGV + [
+        f"dataset.save_dir={data}", "++dataset.video_preprocessing=npz",
+        "algorithm.vae.pretrained_path=null", f"++algorithm.backbone.depth={K600_DEPTH}",
+        "experiment.tasks=[validation]", "experiment.validation.batch_size=2",
+        "experiment.validation.limit_batch=1", "++algorithm.logging.max_num_videos=0",
+        f"output_dir={root / 'runs'}"]
+    cfg = load_config(argv)
+    require(tuple(cfg.algorithm.logging.metrics) == K600_METRICS,
+            f"K600 composes the metrics {cfg.algorithm.logging.metrics}")
+    algo = DV.build_algorithm(cfg, device="cpu")
+    init_random_weights(algo.model, torch.Generator().manual_seed(239))
+    torch.save({"state_dict": {"diffusion_model.model." + k: v
+                               for k, v in algo.model.state_dict().items()}}, ckpt)
+    del algo
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = run(argv + [f"load={ckpt}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    require(all(launches[k] > 0 for k in FORWARD_KERNELS + ("ln_modulate",)),
+            f"K600's validation sampled off the kernels: {launches}")
+    metrics = exp.last_metrics
+    keys = [f"validation/prediction/{m}" for m in K600_METRIC_NAMES] + [
+        f"validation/prediction/vbench/{d}" for d in VBENCH_DIM_NAMES]
+    require(list(metrics) == keys and all(np.isfinite(list(metrics.values()))),
+            f"K600 validation logged {metrics}, not the composed list's {keys}")
+    require_registry_on_card(exp._registry, ("i3d", "lpips", "inception", "clip_b32", "clip_l14",
+                                             "dino", "laion"), "K600's validation")
+    pred = exp.last_videos["prediction"]
+    t = exp.timings
+    rec["k600"] = {"argv": argv, "wall_s": wall, "metrics": metrics, "launches": launches,
+                   "sampling_s": t["sampling_s"], "metrics_s": t["metrics_s"],
+                   "metrics_split_s": t["metrics_split_s"], "decoded_shape": list(pred.shape)}
+    log(f"  K600 validation as composed (@DiT/XL depth {K600_DEPTH}, batch 2, decoded "
+        f"{tuple(pred.shape)}): {wall:.2f} s wall, sampling {t['sampling_s']:.2f} s, metrics "
+        f"{t['metrics_s']:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in
+                                            t["metrics_split_s"].items()) + ")")
+    log("    " + ", ".join(f"{k.split('prediction/', 1)[1]} {v:.5g}" for k, v in metrics.items()))
+    del exp, pred
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def run_fvmd(rec: dict, clips, source: str) -> None:
+    """(c) ``VideoMetric(["fvmd"])`` on two 16-frame clips (ground truth the
+    first, prediction the second) on the card, and the clips' motion
+    features with the tracker's resize on the card against the CPU."""
+    import numpy as np
+    import torch
+    from dfot_tpu_torch.metrics.motion import motion_features
+    from dfot_tpu_torch.metrics.registry import SharedMetricModelRegistry
+    from dfot_tpu_torch.metrics.video_metric import VideoMetric
+
+    gt, pred = (c.to("cuda") for c in clips)
+    reg = SharedMetricModelRegistry()
+    vm = VideoMetric(["fvmd"], reg)
+    t0 = time.perf_counter()
+    vm.update(pred, gt)
+    out = vm.log("validation/prediction")
+    wall = time.perf_counter() - t0
+    feats_card = motion_features(gt, device="cuda")
+    feats_cpu = motion_features(gt.cpu(), device="cpu")
+    diff = float(np.abs(feats_card - feats_cpu).max())
+    rec["fvmd"] = {"source": source, "shape": list(gt.shape), "metrics": out, "wall_s": wall,
+                   "features_card_vs_cpu_max_abs": diff, "feature_shape": list(feats_card.shape)}
+    log(f"  FVMD on two {tuple(gt.shape)} clips ({source}): {out}, {wall:.2f} s; the tracker's "
+        f"features with the resize on the card against the CPU: max |diff| {diff:.3g}")
+    require(list(out) == ["validation/prediction/fvmd_uncalibrated"]
+            and math.isfinite(out["validation/prediction/fvmd_uncalibrated"]),
+            f"FVMD logged {out}")
+    require(reg.comparable == {"pips": False, "fvmd": False}, f"FVMD: {reg.comparable}")
+    require(feats_card.shape == (1, 1024) and np.isfinite(feats_card).all(),
+            f"FVMD features {feats_card.shape}")
+
+
+def rollout_clips():
+    """Two 16-frame clips of the 200-frame rollout (frames 0-15 and
+    16-31), in [0, 1]."""
+    video = CARRIED["rollout"]
+    return tuple(((video[:, i:i + FVMD_FRAMES].float() + 1) / 2).clamp(0, 1)
+                 for i in (0, FVMD_FRAMES))
+
+
+def run_metric_paths(record: dict, clips=None, source: str = "the 200-frame rollout") -> dict:
+    """Phase 23: the metric suite on the card. (a) I3D, InceptionV3 at 299,
+    LPIPS, CLIP B/32 and L/14 and DINO B/16 against the CPU; (b) K600's
+    validation as composed through ``run(argv)``; (c) FVMD on two 16-frame
+    clips; (d) each network's time a call and the host's Frechet distances.
+    Returns the launch counts of (b)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    rec = record["metrics"] = {}
+    log("the metric suite (phase 23):")
+    check_frozen_networks(rec)
+    launches = run_k600_metrics(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_fvmd(rec, clips if clips is not None else rollout_clips(), source)
+    report_host_math(rec)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 23: {rec['seconds']:.1f} s")
+    return {"k600_metrics": launches}
 
 
 def main() -> int:
@@ -5034,6 +5378,11 @@ def main() -> int:
 
         # UNet3D, the difference DFoT, FAR-DiT and DiT1D
         by_path.update(run_slice16_paths(record))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the metric suite
+        by_path.update(run_metric_paths(record))
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

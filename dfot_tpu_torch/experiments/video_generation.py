@@ -43,10 +43,17 @@ queue item: ``algorithm.save_attn_map.enabled``, a training or validation mesh
 (``mesh.tensor > 1``, ``mesh.sequence_parallel``) and per-process data
 shards are A16.
 
+Every configured metric is scored (``VideoMetric``), its frozen networks
+from one ``SharedMetricModelRegistry`` on the experiment's device with the
+weights of ``algorithm.logging.metrics_weights_dir`` (random fallback
+weights and ``_uncalibrated`` names without them), built at the first
+scoring and shared by the validation passes and the mid-run validations.
+
 ``timings`` holds host-clock seconds of the experiment's phases (model
 build, checkpoint load and restore, sampling, metrics and video logging,
 mid-run validation, and the metrics logger's set-up and ``close``), each
-ending where its results are on the host.
+ending where its results are on the host; ``metrics_split_s`` splits the
+validation's metric seconds by metric (``VideoMetric.seconds``).
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ import torch
 from ..algorithms.dfot_video import build_algorithm
 from ..data.loader import DataLoader, make_loader
 from ..data.video_dataset import build_dataset
+from ..metrics.registry import SharedMetricModelRegistry
 from ..metrics.video_metric import VideoMetric
 from ..training.checkpoint import (
     latest_checkpoint,
@@ -144,6 +152,7 @@ class VideoGenerationExperiment:
         self._weights_from = None  # what the model's weights were last loaded from
         self.last_metrics: Dict[str, float] = {}
         self.last_videos: Dict[str, torch.Tensor] = {}
+        self._registry: Optional[SharedMetricModelRegistry] = None
 
     def _sync(self) -> None:
         if self.algo.device.type == "cuda":
@@ -410,7 +419,8 @@ class VideoGenerationExperiment:
             if task == "gt":
                 continue
             ctx = _context_mask(task, B, T, nct)
-            vm = VideoMetric(metric_types, logging_cfg.get("n_metrics_frames"))
+            vm = VideoMetric(metric_types, self._metric_registry(),
+                             logging_cfg.get("n_metrics_frames"))
             vm.update(vid[:max_vis], gt[:max_vis], ctx[:max_vis])
             results.update(vm.log(f"validation/{task}"))
             if max_vis > 0:
@@ -479,7 +489,8 @@ class VideoGenerationExperiment:
         max_videos = logging_cfg.get("max_num_videos", 8)
         metric_types = tuple(logging_cfg.get("metrics", ["mse", "psnr"]))
         n_metrics_frames = logging_cfg.get("n_metrics_frames")
-        VideoMetric(metric_types, n_metrics_frames)  # refuses unported metrics before sampling
+        registry = self._metric_registry()
+        VideoMetric(metric_types, registry, n_metrics_frames)  # refuses A15c files before sampling
         task_metrics: Dict[str, VideoMetric] = {}
         num_logged = 0
         for i, batch in enumerate(loader):
@@ -499,7 +510,7 @@ class VideoGenerationExperiment:
                 if task == "gt":
                     continue
                 if task not in task_metrics:
-                    task_metrics[task] = VideoMetric(metric_types, n_metrics_frames)
+                    task_metrics[task] = VideoMetric(metric_types, registry, n_metrics_frames)
                 task_metrics[task].update(vid, gt, _context_mask(task, B, T, nct))
                 if num_logged < max_videos:
                     log_video(
@@ -513,12 +524,26 @@ class VideoGenerationExperiment:
 
         t0 = time.perf_counter()
         results: Dict[str, float] = {}
+        split = self.timings.setdefault("metrics_split_s", {})
         for task, vm in task_metrics.items():
             results.update(vm.log(f"{namespace}/{task}"))
+            for name, sec in vm.seconds.items():
+                split[name] = split.get(name, 0.0) + sec
         if results:
             self.logger.log(results, 0)
         self.last_metrics = results
         self._add_time("metrics_s", t0)
+
+    def _metric_registry(self) -> SharedMetricModelRegistry:
+        """The frozen metric networks on the experiment's device, with the
+        weights of ``algorithm.logging.metrics_weights_dir``: built at the
+        first scoring and kept for the later ones (the JAX experiment keeps
+        its mid-run registry the same way,
+        ``dfot_tpu/experiments/video_generation.py:481-485``)."""
+        if self._registry is None:
+            self._registry = SharedMetricModelRegistry(
+                self.cfg.algorithm.logging.get("metrics_weights_dir"), device=self.algo.device)
+        return self._registry
 
     def close(self) -> None:
         """Close the metrics logger (and its wandb run)."""

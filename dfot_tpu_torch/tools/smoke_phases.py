@@ -1,13 +1,15 @@
 """Run chosen phases of ``chip_smoke.py`` alone on the card.
 
-    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [21] [22]
+    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [17] [23] [22] [21]
 
 from the root of a checkout: builds the kernels, then runs the kernel
-checks (``kernels``), phase 22 (``22``) and phase 21 (``21``) in that
-order, with the smoke's settings (TF32 off, expandable allocator
-segments), and writes what they record to
-``chiprun_out/smoke_phases.json``. A quicker loop than the whole smoke
-while a phase is being written; the whole smoke is the check of record.
+checks (``kernels``), phase 17 (``17``), phase 23 (``23``), phase 22
+(``22``) and phase 21 (``21``) in that order, with the smoke's settings
+(TF32 off, expandable allocator segments), and writes what they record to
+``chiprun_out/smoke_phases.json``. Phase 23 alone scores FVMD on two clips
+of a seeded drifting image in place of the rollout's. A quicker loop than
+the whole smoke while a phase is being written; the whole smoke is the
+check of record.
 """
 
 from __future__ import annotations
@@ -20,6 +22,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+
+
+def drifting_clips():
+    """Two 16-frame clips (1, 16, 256, 256, 3) of a seeded random image
+    moving 2 px a frame."""
+    import torch
+
+    base = torch.rand(1, 1, 256, 256, 3, generator=torch.Generator().manual_seed(240))
+    video = torch.cat([torch.roll(base, 2 * t, dims=3) for t in range(32)], dim=1)
+    return video[:, :16], video[:, 16:]
 
 
 def main(argv) -> int:
@@ -39,6 +51,9 @@ def main(argv) -> int:
     record, launches = {"nvidia_smi": smi}, {}
     try:
         for phase, run in (("kernels", lambda: CS.check_kernels(record)),
+                           ("17", lambda: launches.update(cli=CS.run_cli_validation(record, smi))),
+                           ("23", lambda: launches.update(CS.run_metric_paths(
+                               record, drifting_clips(), "a seeded drifting image"))),
                            ("22", lambda: launches.update(CS.run_slice16_paths(record))),
                            ("21", lambda: launches.update(CS.run_slice15_paths(record, smi)))):
             if phase in argv:

@@ -24,7 +24,14 @@ import_dc_ae_params``. The kl-f8 AutoencoderKL is an ImageVAE and takes
 :func:`lpips_state_dict_from_flax` do the same for the VAE losses' modules
 (the discriminator's ``batch_stats`` become its BatchNorms' running
 statistics), and :func:`titok_state_dict_from_flax` is the inverse of
-``dfot_tpu/vae/titok.py:import_titok_params``.
+``dfot_tpu/vae/titok.py:import_titok_params``. The metric networks' own:
+:func:`i3d_state_dict_from_flax` (the JAX package has no torch importer for
+I3D), :func:`inception_state_dict_from_flax`,
+:func:`clip_vision_state_dict_from_flax` and :func:`dino_state_dict_from_flax`
+(the inverses of ``dfot_tpu/metrics/inception.py:import_inception_params``
+and ``encoders.py:import_clip_vision_params`` / ``import_dino_params``) and
+:func:`laion_state_dict_from_npz`; each takes the tree that
+``metrics/registry.py`` reads from a ``<name>.npz``.
 """
 
 from __future__ import annotations
@@ -40,7 +47,9 @@ __all__ = ["uvit3d_state_dict_from_flax", "dit3d_state_dict_from_flax", "init_ra
            "unet3d_state_dict_from_flax", "far_state_dict_from_flax", "dit1d_state_dict_from_flax",
            "imagevae_state_dict_from_flax", "videovae_state_dict_from_flax",
            "dcae_state_dict_from_flax", "discriminator_state_dict_from_flax",
-           "lpips_state_dict_from_flax", "titok_state_dict_from_flax"]
+           "lpips_state_dict_from_flax", "titok_state_dict_from_flax", "i3d_state_dict_from_flax",
+           "inception_state_dict_from_flax", "clip_vision_state_dict_from_flax",
+           "dino_state_dict_from_flax", "laion_state_dict_from_npz"]
 
 
 def _linear(k):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
@@ -488,6 +497,13 @@ def videovae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Ten
     return dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
 
 
+def _with_batch_counts(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``num_batches_tracked`` 0 beside every BatchNorm's running mean."""
+    for name in [n for n in out if n.endswith(".running_mean")]:
+        out[name[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
 def dcae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX package's DCAE ``params`` -> the port's (diffusers) state dict,
     with ``num_batches_tracked`` 0 beside every BatchNorm's statistics."""
@@ -497,9 +513,7 @@ def dcae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]
         path = re.sub(r"to_qkv_multiscale_(\d+)", r"to_qkv_multiscale/\1", path)
         name, t = _vae_leaf(path, value)
         out[name] = t
-        if name.endswith(".running_mean"):
-            out[name[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
-    return out
+    return _with_batch_counts(out)
 
 
 def discriminator_state_dict_from_flax(params: Dict[str, Any],
@@ -516,6 +530,77 @@ def discriminator_state_dict_from_flax(params: Dict[str, Any],
 def lpips_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX package's LPIPS ``params`` -> the port's state dict."""
     return dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
+
+
+def i3d_state_dict_from_flax(params: Dict[str, Any],
+                             batch_stats: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """The JAX package's I3D ``params`` (and ``batch_stats``; without them
+    the running statistics of flax's init, mean 0 and variance 1, which is
+    what the JAX registry applies, since ``i3d.npz`` holds ``params`` only)
+    -> the port's ``metrics/i3d.py:I3D`` state dict."""
+    out = dict(_vae_leaf(p, v) for p, v in _flatten(params).items())
+    stats = _flatten(batch_stats) if batch_stats is not None else {}
+    for name in [n[: -len(".weight")] for n in out if n.endswith(".bn.weight")]:
+        flax = name.replace(".", "/")
+        c = out[name + ".weight"].shape[0]
+        for stat, default in (("mean", np.zeros(c)), ("var", np.ones(c))):
+            out[f"{name}.running_{stat}"] = torch.from_numpy(
+                _fp32_or_wider(stats.get(f"{flax}/{stat}", default)))
+    return _with_batch_counts(out)
+
+
+def inception_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's InceptionV3 ``params`` -> the port's (torchvision)
+    state dict: the inverse of ``dfot_tpu/metrics/inception.py:
+    import_inception_params``."""
+    return _with_batch_counts(dict(_vae_leaf(p, v) for p, v in _flatten(params).items()))
+
+
+def _encoder_leaf(path: str, value):
+    """One flax CLIP/DINO leaf -> (torch name, tensor)."""
+    v = np.asarray(value, dtype=np.float32)
+    if path.endswith("attn/in_proj/kernel"):
+        return path[: -len("/in_proj/kernel")].replace("/", ".") + ".in_proj_weight", \
+            torch.from_numpy(np.ascontiguousarray(v.T))
+    if path.endswith("attn/in_proj/bias"):
+        return path[: -len("/in_proj/bias")].replace("/", ".") + ".in_proj_bias", torch.from_numpy(v)
+    if path in ("proj", "class_embedding", "positional_embedding", "cls_token", "pos_embed"):
+        return path, torch.from_numpy(v)
+    return _vae_leaf(path, v)
+
+
+def clip_vision_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``CLIPVisionEncoder`` ``params`` -> the port's
+    state dict (OpenAI's ``visual.*`` names without the prefix): the inverse
+    of ``dfot_tpu/metrics/encoders.py:import_clip_vision_params``."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = re.sub(r"^resblocks_(\d+)", r"transformer/resblocks/\1", path)
+        path = re.sub(r"mlp_(c_fc|c_proj)", r"mlp/\1", path)
+        name, t = _encoder_leaf(path, value)
+        out[name] = t
+    return out
+
+
+def dino_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``DINOEncoder`` ``params`` -> the port's (timm)
+    state dict: the inverse of ``dfot_tpu/metrics/encoders.py:
+    import_dino_params``."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = re.sub(r"^blocks_(\d+)", r"blocks/\1", path)
+        path = re.sub(r"mlp_(fc1|fc2)", r"mlp/\1", path)
+        path = re.sub(r"^patch_embed/", "patch_embed/proj/", path)
+        name, t = _encoder_leaf(path, value)
+        out[name] = t
+    return out
+
+
+def laion_state_dict_from_npz(flat: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``laion.npz`` (the torch ``nn.Linear(768, 1)``'s ``weight`` (1, 768)
+    and ``bias`` (1,), which the JAX registry reads as they are) -> the
+    port's ``nn.Linear`` state dict."""
+    return {k: torch.from_numpy(np.asarray(v, dtype=np.float32)) for k, v in flat.items()}
 
 
 # TiTok leaves that the upstream module holds as 1x1 convs (flax: Dense)

@@ -413,6 +413,9 @@ def test_cli_trains_and_validates(tmp_path, dmlab_dir, case):
             "experiment.training.data.num_workers=0", "++algorithm.logging.loss_freq=1",
             "experiment.validation.batch_size=1", "experiment.validation.limit_batch=1",
             "experiment.validation.data.num_workers=0", "++algorithm.logging.max_num_videos=0",
+            # the composed list's frozen networks and its 2048-wide matrix
+            # square root would add about 15 s a case; the composed list runs
+            # in test_torch_port_cli.py
             "++algorithm.logging.metrics=[mse,psnr]", "wandb.mode=disabled",
             f"output_dir={tmp_path}"] + CLI_CASES[case]
     exp = run(argv, device="cpu")

@@ -59,7 +59,19 @@ from dfot_tpu_torch.utils import geometry as TG
 from dfot_tpu_torch.utils import torch_ckpt as TTC
 from dfot_tpu_torch.utils.weights import init_random_weights
 
+from dfot_tpu.metrics import registry as JR
+from dfot_tpu.metrics.i3d import I3D as JI3D
+from dfot_tpu.metrics.inception import InceptionV3 as JInception
+from dfot_tpu.vae.losses import LPIPS as JLPIPS
+from test_torch_port_metrics import (  # noqa: F401 (trees is a fixture)
+    FEATURE_RTOL,
+    FRAME_RTOL,
+    fast_jax_init,
+    trees,
+    write_npz,
+)
 from test_torch_port_sampling import WINDOW_RTOL, _pin_noise, rel_err
+from torch_port_helpers import one_thread
 
 SMALL = [
     "+name=tiny", "dataset=realestate10k_mini", "algorithm=dfot_video_pose",
@@ -78,12 +90,22 @@ SMALL = [
     "algorithm.diffusion.sampling_timesteps=3",
     "experiment.validation.batch_size=2",
     "experiment.validation.limit_batch=1",
+    # the composed list's I3D, LPIPS and Inception passes and its 2048-wide
+    # matrix square root (about 11 s a pass on an 8-core CPU) would multiply these
+    # tests' time: test_cli_composed_metrics_* run the composed list
     "++algorithm.logging.metrics=[mse,ssim,psnr]",
     "++algorithm.logging.max_num_videos=0",
 ]
+METRICS_CUT = "++algorithm.logging.metrics=[mse,ssim,psnr]"
 CLI_RTOL = 2e-2
 EMA_CONTROL_MIN = 1e-2
 MODEL_PREFIX = "diffusion_model.model._orig_mod."
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -377,20 +399,95 @@ def test_cli_matches_main(monkeypatch, tmp_path, fixture_ckpt, jax_imports_fouri
 
 
 # ---------------------------------------------------------------------------
+# the flagship's composed metric list
+# ---------------------------------------------------------------------------
+
+COMPOSED = [a for a in SMALL if a != METRICS_CUT]  # [fvd, is, fid, lpips, mse, ssim, psnr]
+COMPOSED_NAMES = ("mse", "psnr", "ssim", "lpips", "fvd", "fid", "is")
+
+
+@pytest.fixture(scope="module")
+def metric_weights(trees, tmp_path_factory):
+    """A ``metrics_weights_dir`` of I3D, LPIPS and InceptionV3 ``.npz``
+    files written from seeded JAX trees."""
+    wd = tmp_path_factory.mktemp("metric_weights")
+    for name in ("i3d", "lpips", "inception"):
+        write_npz(wd, name, trees[name]["params"])
+    return str(wd)
+
+
+def test_cli_composed_metrics_match_main(monkeypatch, tmp_path, fixture_ckpt,
+                                         jax_imports_fourier_buffers, metric_weights):
+    """``run(argv)`` against ``main.run(argv)`` with the README's metric list
+    as composed and every network's weights in ``metrics_weights_dir``: the
+    same keys, each a plain name; the port's values equal to the JAX suite
+    (its registry on the same files) scoring the videos the port scored; the
+    two CLIs' frame-wise values within the bf16 bound of
+    ``test_cli_matches_main``."""
+    _pin_noise(monkeypatch)
+    fast_jax_init(monkeypatch, JI3D, JLPIPS, JInception)
+    scored = {"port": [], "jax": []}
+    for side, cls in (("port", VideoMetric), ("jax", JVideoMetric)):
+        monkeypatch.setattr(cls, "update", _recording(cls.update, scored[side]))
+    argv = COMPOSED + [f"load={fixture_ckpt[0]}",
+                       f"++algorithm.logging.metrics_weights_dir={metric_weights}"]
+    exp = run(argv + [f"output_dir={tmp_path / 'port'}"], device="cpu")
+    jax_main.run(argv + [f"output_dir={tmp_path / 'jax'}"])
+    got, want = _metrics(tmp_path / "port"), _metrics(tmp_path / "jax")
+    keys = [f"validation/prediction/{m}" for m in COMPOSED_NAMES]
+    assert list(got) == list(want) == keys
+    assert exp._registry.comparable == {"lpips": True, "i3d": True, "inception": True}
+    # the I3D pass counts under fvd, IS's host math under is_host
+    assert set(exp.timings["metrics_split_s"]) == set(COMPOSED_NAMES) - {"is"} | {
+        "fvd_host", "fid_host", "is_host"}
+    for k in keys[:2]:
+        assert got[k] == pytest.approx(want[k], rel=CLI_RTOL), k
+    assert abs(got[keys[2]] - want[keys[2]]) < CLI_RTOL
+    (pred, gt, ctx), = scored["port"]
+    suite = JVideoMetric(tuple(exp.cfg.algorithm.logging.metrics),
+                         JR.SharedMetricModelRegistry(metric_weights))
+    suite.update(pred, gt, ctx)
+    for k, v in suite.log("validation/prediction").items():
+        tol = FRAME_RTOL if k.rsplit("/", 1)[1] in ("mse", "psnr", "lpips") else FEATURE_RTOL
+        assert got[k] == pytest.approx(v, rel=tol, abs=1e-5 if k.endswith("ssim") else 0), k
+
+
+def test_cli_composed_metrics_uncalibrated_without_weights(tmp_path, fixture_ckpt):
+    """Without ``metrics_weights_dir`` the composed list runs on the
+    registry's seeded fallback networks, each network metric named
+    ``_uncalibrated``."""
+    exp = run(COMPOSED + [f"load={fixture_ckpt[0]}", f"output_dir={tmp_path}"], device="cpu")
+    got = _metrics(tmp_path)
+    calibrated = ("mse", "psnr", "ssim")
+    assert list(got) == [f"validation/prediction/{m}" if m in calibrated
+                         else f"validation/prediction/{m}_uncalibrated" for m in COMPOSED_NAMES]
+    assert np.isfinite(list(got.values())).all()
+    reg = exp._registry
+    assert reg.comparable == {"lpips": False, "i3d": False, "inception": False}
+    assert all(p.device.type == "cpu" for n in ("i3d", "lpips")
+               for p in reg.networks[n].parameters())
+
+
+# ---------------------------------------------------------------------------
 # what is not ported raises, naming its queue item
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("extra,item", [
     (["experiment.tasks=[training]", "experiment.training.mesh.tensor=2"], "A16"),
-    (["++algorithm.logging.metrics=[fvd,mse]"], "A15"),
+    (["++algorithm.logging.metrics=[vbench]", "++algorithm.logging.metrics_weights_dir={raft}"],
+     "A15c"),
     (["algorithm.save_attn_map.enabled=true"], "A16"),
     (["experiment.validation.mesh.tensor=2"], "A16"),
     (["cluster=base_slurm"], "A16"),
-], ids=["training_mesh", "fvd", "attn_maps", "mesh", "cluster"])
+], ids=["training_mesh", "vbench_raft", "attn_maps", "mesh", "cluster"])
 def test_unported_cli_branches_raise(tmp_path, extra, item):
+    """``vbench_raft``: a RAFT weights file asks for a network of A15c (the
+    run refuses before it samples)."""
+    np.savez(tmp_path / "raft.npz", w=np.zeros(1))
+    extra = [e.format(raft=tmp_path) for e in extra]
     with pytest.raises(NotImplementedError, match=item):
-        run(SMALL + extra + [f"output_dir={tmp_path}"], device="cpu")
+        run(SMALL + extra + [f"output_dir={tmp_path / 'out'}"], device="cpu")
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):

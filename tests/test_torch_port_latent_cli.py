@@ -73,6 +73,9 @@ def base_argv(root: str, pth: str):
         "++algorithm.backbone.hidden_size=64", "++algorithm.backbone.depth=2",
         "++algorithm.backbone.num_heads=2", "++algorithm.backbone.external_cond_dropout=0.0",
         "algorithm.diffusion.sampling_timesteps=3",
+        # the composed list's frozen networks and its 2048-wide matrix square
+        # root would cost both packages' runs about 20 s more each; the
+        # composed list runs in test_torch_port_cli.py
         "++algorithm.logging.metrics=[mse,ssim,psnr]", "++algorithm.logging.max_num_videos=2",
     ] + dcae_args("algorithm.vae", pth)
 

@@ -40,7 +40,7 @@ from dfot_tpu_torch.ops import qkv_prep as TQ
 from dfot_tpu_torch.utils.weights import uvit3d_state_dict_from_flax
 
 from test_torch_port_dit import dit_pair, inputs as dit_inputs
-from torch_port_helpers import POSE_DIM, build_pair, t, tiny_spec
+from torch_port_helpers import POSE_DIM, build_pair, one_thread, t, tiny_spec
 
 POLICIES = ("none", "dots", "attn", "dots_attn")
 LOSS_RTOL = 1e-5
@@ -89,6 +89,12 @@ def jax_kernel_counts(closed_jaxpr) -> dict:
 
     walk(closed_jaxpr.jaxpr)
     return dict(counts)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
 
 
 @pytest.fixture
@@ -155,7 +161,7 @@ def _uvit_port(policy):
 
 
 def _uvit_jax_grads(loss, params):
-    value, grads = jax.value_and_grad(loss)(params)
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
     spec = _uvit()[0]
     return float(value), uvit3d_state_dict_from_flax(jax.device_get(grads), None, spec, 3,
                                                      POSE_DIM, cotangent=True)
@@ -194,12 +200,31 @@ def _dit_port(policy):
 def _dit_jax_grads(loss, params):
     from dfot_tpu_torch.utils.weights import dit3d_state_dict_from_flax
 
-    value, grads = jax.value_and_grad(loss)(params)
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
     return float(value), dit3d_state_dict_from_flax(jax.device_get(grads), None, 2)
 
 
 MODELS = {"uvit": (_uvit_jax, _uvit_port, _uvit_jax_grads),
           "dit": (_dit_jax, _dit_port, _dit_jax_grads)}
+
+
+# what the cases share, computed once a module (each under ``pallas_interpret``)
+@functools.lru_cache(maxsize=None)
+def port_none(model):
+    """The port's loss and gradients under ``none``."""
+    return MODELS[model][1]("none")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kernel_counts_of(model, policy):
+    """Kernel counts of the JAX jaxpr of ``jax.grad`` under ``policy``."""
+    loss, params = MODELS[model][0](policy)
+    return jax_kernel_counts(jax.make_jaxpr(jax.grad(loss))(params))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_saved_of(model, policy):
+    return _jax_saved(*MODELS[model][0](policy))
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +237,7 @@ MODELS = {"uvit": (_uvit_jax, _uvit_port, _uvit_jax_grads),
 def test_gradients_match_jax_and_none(model, policy, pallas_interpret):
     jax_fn, port_fn, jax_grads = MODELS[model]
     want_loss, want = jax_grads(*jax_fn(None if policy == "none" else policy))
-    none_loss, none = port_fn("none")
+    none_loss, none = port_none(model)
     loss, got = port_fn(policy)
     assert loss == pytest.approx(want_loss, rel=LOSS_RTOL)
     assert loss == pytest.approx(none_loss, rel=LOSS_RTOL)
@@ -226,10 +251,8 @@ def test_gradients_match_jax_and_none(model, policy, pallas_interpret):
 @pytest.mark.parametrize("model", sorted(MODELS))
 @pytest.mark.parametrize("policy", POLICIES)
 def test_recomputed_kernels_match_the_jax_jaxpr(model, policy, pallas_interpret, port_counts):
-    jax_fn, port_fn, _ = MODELS[model]
-    loss, params = jax_fn(None if policy == "none" else policy)
-    want = jax_kernel_counts(jax.make_jaxpr(jax.grad(loss))(params))
-    port_fn(policy)
+    want = jax_kernel_counts_of(model, None if policy == "none" else policy)
+    MODELS[model][1](policy)
     assert dict(port_counts) == want
 
 
@@ -277,8 +300,8 @@ def test_saved_outputs_match_the_jax_residuals(model, policy, pallas_interpret, 
     outputs, added to the residual stream and read by no VJP, run under
     ``remat.not_a_residual`` in the port, which keeps them neither (the
     DiT's pass through a gate, whose VJP reads them, and both keep them)."""
-    jax_fn, port_fn, _ = MODELS[model]
-    want = _jax_saved(*jax_fn(policy)) - _jax_saved(*jax_fn(None))
+    port_fn = MODELS[model][1]
+    want = jax_saved_of(model, policy) - jax_saved_of(model, None)
     saved = collections.Counter()
     real_fn = TR.remat_policy
 
@@ -303,8 +326,7 @@ def test_jax_runs_the_flash_forward_again_under_attn(pallas_interpret):
     """ROADMAP.md C6: under ``attn`` the JAX jaxpr keeps the collect's output
     but still runs the prep and flash kernels again for their residuals; only
     the collect is not run again."""
-    counts = {p: jax_kernel_counts(jax.make_jaxpr(jax.grad(_uvit_jax(p)[0]))(_uvit_jax(p)[1]))
-              for p in (None, "attn")}
+    counts = {p: jax_kernel_counts_of("uvit", p) for p in (None, "attn")}
     blocks = counts[None]["attn_out_collect"] // 2
     assert blocks == 3
     assert counts["attn"]["qkv_prep"] == counts[None]["qkv_prep"] == 2 * blocks
@@ -315,8 +337,7 @@ def test_jax_runs_the_flash_forward_again_under_attn(pallas_interpret):
 def test_control_policy_that_keeps_the_flash_op_misses(pallas_interpret, port_counts, monkeypatch):
     """A policy that also keeps ``dfot::flash_attention``'s outputs skips the
     flash kernel's second run: a saving the JAX package does not have."""
-    loss, params = _uvit_jax("attn")
-    want = jax_kernel_counts(jax.make_jaxpr(jax.grad(loss))(params))
+    want = jax_kernel_counts_of("uvit", "attn")
     monkeypatch.setattr(TR, "_attn_out_ops", lambda: frozenset(
         {torch.ops.dfot.attn_out_collect.default, torch.ops.dfot.flash_attention.default}))
     _uvit_port("attn")
@@ -364,23 +385,31 @@ def test_opcheck(name):
     assert all(v == "SUCCESS" for v in result.values()), result
 
 
-@pytest.mark.parametrize("policy", ["dots", "dots_attn"])
-def test_cli_trains_under_a_policy(tmp_path, policy):
-    """``python -m dfot_tpu_torch`` takes the policy from the backbone config
-    (its level 1 checkpointed): the same draws, the same losses as ``none``
-    within 1e-5 relative."""
+def _cli_run(out, name):
     from dfot_tpu_torch.__main__ import run
 
     from test_torch_port_train_cli import TRAIN, _step_metrics
 
     argv = TRAIN + ["++algorithm.backbone.use_checkpointing=[false,true]",
                     "experiment.training.max_steps=2"]
-    runs = {}
-    for name in ("none", policy):
-        exp = run(argv + [f"++algorithm.backbone.remat_policy={name}",
-                          f"output_dir={tmp_path / name}"], device="cpu")
-        assert exp.algo.model.spec.remat_policy == name
-        runs[name] = _step_metrics(tmp_path / name)
+    exp = run(argv + [f"++algorithm.backbone.remat_policy={name}", f"output_dir={out}"],
+              device="cpu")
+    assert exp.algo.model.spec.remat_policy == name
+    return _step_metrics(out)
+
+
+@pytest.fixture(scope="module")
+def cli_none(tmp_path_factory):
+    """The CLI's step metrics under ``none``, one run for every policy's case."""
+    return _cli_run(tmp_path_factory.mktemp("remat_cli") / "none", "none")
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_attn"])
+def test_cli_trains_under_a_policy(tmp_path, policy, cli_none):
+    """``python -m dfot_tpu_torch`` takes the policy from the backbone config
+    (its level 1 checkpointed): the same draws, the same losses as ``none``
+    within 1e-5 relative."""
+    runs = {"none": cli_none, policy: _cli_run(tmp_path / policy, policy)}
     assert sorted(runs["none"]) == sorted(runs[policy]) == [1, 2]
     for step, (loss, grad_norm) in runs["none"].items():
         assert runs[policy][step][0] == pytest.approx(loss, rel=LOSS_RTOL)

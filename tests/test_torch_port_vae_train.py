@@ -58,10 +58,16 @@ from dfot_tpu_torch.vae import losses as TL
 from test_torch_port_latent_cli import make_dmlab
 from test_torch_port_train_cli import _lines
 from test_torch_port_vae import randomize, rel_err
-from torch_port_helpers import pinned
+from torch_port_helpers import one_thread, pinned
 
 RTOL = 1e-5
 RUN_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
 
 
 def nchw(x):
@@ -108,11 +114,11 @@ def test_losses_match():
 def _disc_pair(seed=1):
     jd = JL.NLayerDiscriminator()
     x = np.zeros((2, 32, 32, 3), np.float32)
-    v = jd.init(jax.random.PRNGKey(0), x, True)
+    v = jax.eval_shape(lambda: jd.init(jax.random.PRNGKey(0), x, True))  # every leaf drawn below
     params = randomize(v["params"], seed)
     stats = jax.tree_util.tree_map(
         lambda a: np.random.default_rng(seed).uniform(0.5, 1.5, np.shape(a)).astype(np.float32),
-        jax.device_get(v["batch_stats"]))
+        v["batch_stats"])
     td = TL.NLayerDiscriminator()
     td.load_state_dict(discriminator_state_dict_from_flax(params, stats), strict=True)
     return jd, {"params": params, "batch_stats": stats}, td
@@ -157,12 +163,12 @@ def test_discriminator_and_its_running_statistics_match():
 def test_lpips_matches():
     jm = JL.LPIPS()
     x = np.zeros((1, 32, 32, 3), np.float32)
-    params = randomize(jm.init(jax.random.PRNGKey(0), x, x)["params"], 3)
+    params = randomize(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x, x))["params"], 3)
     tm = TL.LPIPS()
     tm.load_state_dict(lpips_state_dict_from_flax(params), strict=True)
     rng = np.random.default_rng(4)
     a, b = (rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32) for _ in range(2))
-    want = jm.apply({"params": params}, jnp.asarray(a), jnp.asarray(b))
+    want = jax.jit(jm.apply)({"params": params}, jnp.asarray(a), jnp.asarray(b))
     got = tm(nchw(a), nchw(b))
     assert got.shape == (2,)
     assert rel_err(got.detach(), want) < RTOL
@@ -338,8 +344,8 @@ def _f64_step_inputs(root):
     frames = videos.reshape(-1, *videos.shape[2:])
     jvae_cfg = JIV.ImageVAEConfig.from_config(jcfg.algorithm)
     x0 = jnp.zeros((1,) + frames.shape[1:], jnp.float32)
-    vparams = randomize(JIV.ImageVAE(jvae_cfg).init(jax.random.PRNGKey(0), x0,
-                                                    jax.random.PRNGKey(1))["params"], 21)
+    vparams = randomize(jax.eval_shape(lambda: JIV.ImageVAE(jvae_cfg).init(
+        jax.random.PRNGKey(0), x0, jax.random.PRNGKey(1)))["params"], 21)
     jd, jv, _ = _disc_pair(22)
     tvae = TIV.ImageVAE(TIV.ImageVAEConfig.from_config(tcfg.algorithm))
     tvae.load_state_dict(imagevae_state_dict_from_flax(vparams), strict=True)

@@ -8,6 +8,7 @@ the port through ``uvit3d_state_dict_from_flax``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import zlib
 
@@ -22,6 +23,29 @@ from dfot_tpu_torch.models.uvit import UViT3DPose, UViTSpec
 from dfot_tpu_torch.utils.weights import uvit3d_state_dict_from_flax
 
 POSE_DIM = 6  # 'ray' conditioning keeps the tiny maps small
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch and the BLAS under numpy and scipy on one thread, restored
+    after. The tests run one process a file on a shared host: a file whose
+    torch or BLAS work spreads over every core oversubscribes it, and its
+    spinning threads slow every other file (a 2048-wide ``scipy.linalg.
+    sqrtm``, FID's, takes 14 s on one thread against 11 s on eight of an
+    8-core CPU)."""
+    torch_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:  # the BLAS keeps its threads
+        blas = contextlib.nullcontext()
+    else:
+        blas = threadpool_limits(1)
+    try:
+        with blas:
+            yield
+    finally:
+        torch.set_num_threads(torch_threads)
 
 
 def pinned(shape) -> np.ndarray:
