@@ -221,7 +221,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     (``scipy.linalg.sqrtm`` at 2048 and 400 dimensions) in that validation,
     apart from the networks' passes.
 
-Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22 and 23 also run controls (an attention that
+24. (``run_a15c_paths``) RAFT, AMT-S, PIPs2 and MUSIQ at their published
+    widths on seeded witness weights (output heads scaled so that flows and
+    tracks move a few pixels), each on the card against the CPU in fp32
+    with TF32 off at the shapes the metrics give it (RAFT: a video's 7
+    pairs at 224^2, 20 iterations; AMT-S: its 3 even-frame pairs at 256^2;
+    PIPs2: 16 frames at 256^2, 400 points, 16 iterations; MUSIQ: 16 frames
+    at 256^2, three scales; ``A15C_CPU_REL_TOL``; controls: the correlation
+    window's offsets swapped, AMT-S's transposed convolutions unflipped,
+    MUSIQ's stem padded symmetrically), and timed a call; K600's validation
+    as composed with the four networks' ``.npz`` files (the JAX registry's
+    flattened trees) in ``metrics_weights_dir``: motion_smoothness through
+    AMT-S and dynamic_degree through RAFT, logged without
+    ``_uncalibrated``, imaging_quality through MUSIQ on its predictions,
+    B1-B3 and B8 launched; ``VideoMetric(["fvmd"])`` tracking with PIPs2
+    on the rollout's two clips.
+
+Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22, 23 and 24 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -275,7 +291,7 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "unet3d_window", "unet3d_train", "diff_concat_window", "diff_concat_train",
          "diff_interleaved_window", "diff_interleaved_train", "diff_facmat_window",
          "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
-         "unet3d_cli", "k600_metrics")
+         "unet3d_cli", "k600_metrics", "k600_a15c")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -2647,9 +2663,9 @@ README_METRIC_NAMES = ("mse", "psnr", "ssim", "lpips_uncalibrated", "fvd_uncalib
                        "fid_uncalibrated", "is_uncalibrated")
 
 
-def require_registry_on_card(registry, names, what: str) -> None:
+def require_registry_on_card(registry, names, what: str, calibrated: bool = False) -> None:
     """The metric registry built ``names`` on the card, frozen, on its
-    seeded fallback weights."""
+    seeded fallback weights (``calibrated``: on the weight files')."""
     import torch
 
     for name in names:
@@ -2660,8 +2676,8 @@ def require_registry_on_card(registry, names, what: str) -> None:
         require(bool(tensors) and all(x.device.type == "cuda" for x in tensors)
                 and not any(p.requires_grad for p in net.parameters()),
                 f"{what}: the metric network {name} is not frozen on the card")
-        require(registry.comparable.get(name) is False,
-                f"{what}: {name} claims calibrated weights ({registry.comparable})")
+        require(registry.comparable.get(name) is calibrated,
+                f"{what}: {name} is not comparable={calibrated} ({registry.comparable})")
     require(registry.device.type == "cuda", f"{what}: the metric registry is on {registry.device}")
 
 
@@ -5141,12 +5157,15 @@ def report_host_math(rec: dict) -> None:
         + ", ".join(f"{m} {split[m]:.3f} s" for m in ("fvd", "fid", "lpips", "vbench")))
 
 
-def run_k600_metrics(rec: dict) -> dict:
+def run_k600_metrics(rec: dict, weights_dir=None, key: str = "k600"):
     """(b) K600's validation as composed, ``[vbench, fvd, is, fid, lpips,
     mse, ssim, psnr]``, through ``run(argv)`` on the latent path as phase 20
     sets it up (@DiT/XL at depth 4 on seeded random weights, the online
-    VideoVAE, a K600-layout directory, batch 2, one batch). Returns the
-    run's launch counts."""
+    VideoVAE, a K600-layout directory, batch 2, one batch); with
+    ``weights_dir`` its ``algorithm.logging.metrics_weights_dir``, whose
+    ``amt.npz`` and ``raft.npz`` VBench's motion_smoothness and
+    dynamic_degree then score with. Returns the run's launch counts and
+    the experiment."""
     import shutil
 
     import numpy as np
@@ -5157,11 +5176,13 @@ def run_k600_metrics(rec: dict) -> dict:
     from dfot_tpu_torch.config import load_config
     from dfot_tpu_torch.utils.weights import init_random_weights
 
-    root = ROOT / "build" / "metrics"
+    root = ROOT / "build" / key
     shutil.rmtree(root, ignore_errors=True)
     data, ckpt = root / "k600", root / "dit.ckpt"
     write_npz_videos(data, K600_VIDEOS[1:], K600_RES, 238, raw_dir=True)
-    argv = ["+name=k600_metrics"] + K600_ARGV + [
+    weights = ([] if weights_dir is None
+               else [f"++algorithm.logging.metrics_weights_dir={weights_dir}"])
+    argv = ["+name=k600_metrics"] + K600_ARGV + weights + [
         f"dataset.save_dir={data}", "++dataset.video_preprocessing=npz",
         "algorithm.vae.pretrained_path=null", f"++algorithm.backbone.depth={K600_DEPTH}",
         "experiment.tasks=[validation]", "experiment.validation.batch_size=2",
@@ -5185,15 +5206,21 @@ def run_k600_metrics(rec: dict) -> dict:
     require(all(launches[k] > 0 for k in FORWARD_KERNELS + ("ln_modulate",)),
             f"K600's validation sampled off the kernels: {launches}")
     metrics = exp.last_metrics
+    dims = VBENCH_DIM_NAMES if weights_dir is None else tuple(
+        d.replace("_uncalibrated", "") if d.split("_un")[0] in A15C_VBENCH_DIMS else d
+        for d in VBENCH_DIM_NAMES)
     keys = [f"validation/prediction/{m}" for m in K600_METRIC_NAMES] + [
-        f"validation/prediction/vbench/{d}" for d in VBENCH_DIM_NAMES]
+        f"validation/prediction/vbench/{d}" for d in dims]
     require(list(metrics) == keys and all(np.isfinite(list(metrics.values()))),
             f"K600 validation logged {metrics}, not the composed list's {keys}")
     require_registry_on_card(exp._registry, ("i3d", "lpips", "inception", "clip_b32", "clip_l14",
                                              "dino", "laion"), "K600's validation")
+    if weights_dir is not None:
+        require_registry_on_card(exp._registry, ("amt", "raft"), "K600's validation",
+                                 calibrated=True)
     pred = exp.last_videos["prediction"]
     t = exp.timings
-    rec["k600"] = {"argv": argv, "wall_s": wall, "metrics": metrics, "launches": launches,
+    rec[key] = {"argv": argv, "wall_s": wall, "metrics": metrics, "launches": launches,
                    "sampling_s": t["sampling_s"], "metrics_s": t["metrics_s"],
                    "metrics_split_s": t["metrics_split_s"], "decoded_shape": list(pred.shape)}
     log(f"  K600 validation as composed (@DiT/XL depth {K600_DEPTH}, batch 2, decoded "
@@ -5201,9 +5228,9 @@ def run_k600_metrics(rec: dict) -> dict:
         f"{t['metrics_s']:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in
                                             t["metrics_split_s"].items()) + ")")
     log("    " + ", ".join(f"{k.split('prediction/', 1)[1]} {v:.5g}" for k, v in metrics.items()))
-    del exp, pred
+    del pred
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches, exp
 
 
 def run_fvmd(rec: dict, clips, source: str) -> None:
@@ -5258,7 +5285,7 @@ def run_metric_paths(record: dict, clips=None, source: str = "the 200-frame roll
     rec = record["metrics"] = {}
     log("the metric suite (phase 23):")
     check_frozen_networks(rec)
-    launches = run_k600_metrics(rec)
+    launches, _ = run_k600_metrics(rec)
     gc.collect()
     torch.cuda.empty_cache()
     run_fvmd(rec, clips if clips is not None else rollout_clips(), source)
@@ -5266,6 +5293,246 @@ def run_metric_paths(record: dict, clips=None, source: str = "the 200-frame roll
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 23: {rec['seconds']:.1f} s")
     return {"k600_metrics": launches}
+
+
+# phase 24: RAFT, AMT-S, PIPs2 and MUSIQ (A15c) on the card against the CPU,
+# fp32 with TF32 off, relative L2 of the outputs. The feed-forward AMT-S and
+# MUSIQ as phase 23's networks; RAFT's 20 and PIPs2's 16 refinement
+# iterations carry the first pass's differences through clamped samplers,
+# whose steps grow them (PIPs2 at 5 iterations on the CPU against JAX: 1e-7
+# to 2e-5 by how far its points move): 1e-3.
+A15C_CPU_REL_TOL = {"raft": 1e-3, "amt": 1e-4, "pips": 1e-3, "musiq": 1e-4}
+A15C_NETS = tuple(A15C_CPU_REL_TOL)
+# the witnesses' output heads scaled so that flows and tracks move a few
+# pixels, as trained networks' do (with He-scaled heads PIPs2's points run
+# off the image)
+A15C_HEADS = {"raft": (("update_block.flow_head.conv2",), 0.1),
+              "amt": (("convblock.2", "flow_head.2", "comb_block.2"), 0.1),
+              "pips": (("delta_block.dense",), 0.05)}
+A15C_VBENCH_DIMS = ("motion_smoothness", "dynamic_degree")
+RAFT_RES = 224  # dynamic_degree's resize
+
+
+def a15c_witness(name: str, seed: int):
+    """The network ``name`` at its published widths and the registry's
+    iterations on witness weights, its output heads scaled (``A15C_HEADS``)."""
+    import torch
+    from dfot_tpu_torch.metrics import amt, musiq, pips, raft
+    from dfot_tpu_torch.metrics import registry as R
+
+    net = {"raft": lambda: raft.RAFT(iters=R.RAFT_ITERS), "amt": amt.AMT_S,
+           "pips": lambda: pips.Pips(iters=R.PIPS_ITERS), "musiq": musiq.MUSIQ}[name]()
+    witness_weights(net, seed)
+    heads, scale = A15C_HEADS.get(name, ((), 1.0))
+    with torch.no_grad():
+        for pname, p in net.named_parameters():
+            if pname.endswith("weight") and any(pname.startswith(h) or f".{h}." in pname
+                                                for h in heads):
+                p.mul_(scale)
+    return net
+
+
+def tracker_points(resolution: int = 256, num_points: int = 400):
+    """``motion_features``' query grid, (N, 2) xy."""
+    import numpy as np
+
+    side = int(round(np.sqrt(num_points)))
+    lin = 8 + np.arange(side, dtype=np.float32) / (side - 1) * (resolution - 16)
+    gy, gx = np.meshgrid(lin, lin, indexing="ij")
+    return np.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+
+
+def swapped_offsets(radius, device):
+    """The control of the correlation window: offsets in (dx, dy) order."""
+    import torch
+
+    d = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    return torch.stack([dx, dy], dim=-1)
+
+
+def a15c_cases(frames, clip):
+    """name -> (CPU network, inputs, control): RAFT on video 0's 7 pairs at
+    224^2 in [0, 255], AMT-S on its 3 even-frame pairs at 256^2 (``embt``
+    0.5), PIPs2 on a 16-frame clip at 256^2 with the tracker's 400 points,
+    MUSIQ on the 16 frames at 256^2 (three scales). A control is a context
+    that breaks the card's copy: the window offsets of RAFT and PIPs2 in
+    (dx, dy) order, AMT-S's transposed convolutions unflipped, MUSIQ's stem
+    padded (3, 3) and (1, 1) instead of flax's (2, 3) and (0, 1)."""
+    import torch
+    from dfot_tpu_torch.metrics import musiq as M
+    from dfot_tpu_torch.metrics import pips as P
+    from dfot_tpu_torch.metrics import raft as R
+    from dfot_tpu_torch.metrics.resize import resize
+
+    B, T = METRIC_VIDEOS[:2]
+    v0 = resize(frames[0], (T, RAFT_RES, RAFT_RES, 3), "bilinear") * 255.0
+    pts = torch.from_numpy(tracker_points())
+    S = clip.shape[0]
+
+    @contextlib.contextmanager
+    def patched_attr(module, attr, value):
+        real = getattr(module, attr)
+        setattr(module, attr, value)
+        try:
+            yield
+        finally:
+            setattr(module, attr, real)
+
+    @contextlib.contextmanager
+    def unflipped(net):
+        with torch.no_grad():
+            for name, p in net.named_parameters():
+                if name.endswith("convblock.2.weight"):
+                    p.copy_(p.flip(2, 3))
+        yield
+
+    return {
+        "raft": (a15c_witness("raft", 241), (v0[:-1], v0[1:]),
+                 lambda net: patched_attr(R, "window_offsets", swapped_offsets)),
+        "amt": (a15c_witness("amt", 242), (frames[0, 0:T - 2:2], frames[0, 2:T:2],
+                                           torch.full((T // 2 - 1,), 0.5)), unflipped),
+        "pips": (a15c_witness("pips", 243), (pts[None].expand(S, -1, -1).contiguous(),
+                                             clip * 2.0 - 1.0),
+                 lambda net: patched_attr(P, "window_offsets", swapped_offsets)),
+        "musiq": (a15c_witness("musiq", 244), (frames.reshape((B * T,) + tuple(frames.shape[2:])),),
+                  lambda net: patched_attr(M, "same_pads", symmetric_same_pads)),
+    }
+
+
+def check_a15c_networks(rec: dict, clip) -> None:
+    """(a) Each A15c network on the card against the CPU and its control,
+    and its time a call on the card."""
+    import copy
+
+    import torch
+    from dfot_tpu_torch.metrics.registry import frozen_math
+
+    frames = torch.rand(METRIC_VIDEOS, generator=torch.Generator().manual_seed(236))
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    with frozen_math(cpu):
+        cases = a15c_cases(frames, clip)
+    rec["networks"] = {}
+    log("  A15c networks, card against CPU (fp32, TF32 off, relative L2 tol "
+        + ", ".join(f"{k} {v:g}" for k, v in A15C_CPU_REL_TOL.items()) + "):")
+    for name, (net, inputs, control) in cases.items():
+        t0 = time.perf_counter()
+        with frozen_math(cpu):
+            want = net(*inputs)
+        cpu_s = time.perf_counter() - t0
+        dev = copy.deepcopy(net).to(card)
+        require(all(p.device.type == "cuda" for p in dev.parameters()),
+                f"{name}: parameters off the card")
+        x = tuple(i.to(card) for i in inputs)
+        with frozen_math(card):
+            got = dev(*x)
+            ms = cuda_ms(lambda: dev(*x), reps=3, warmup=1)
+        err = rel_l2(got.cpu(), want)
+        with frozen_math(card), control(dev):
+            ctl = rel_l2(dev(*x).cpu(), want)
+        n_params = sum(p.numel() for p in net.parameters())
+        tol = A15C_CPU_REL_TOL[name]
+        rec["networks"][name] = {"rel_l2": err, "control_rel_l2": ctl, "tol": tol, "card_ms": ms,
+                                 "cpu_s": cpu_s, "params": n_params,
+                                 "input_shapes": [list(i.shape) for i in inputs],
+                                 "output_shape": list(got.shape)}
+        log(f"    {name:6s} {n_params / 1e6:7.2f} M params, in {[tuple(i.shape) for i in inputs]} "
+            f"out {tuple(got.shape)}: rel L2 {err:.2e}, control {ctl:.2e}; {ms:.2f} ms a call on "
+            f"the card, {cpu_s:.2f} s on the CPU")
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"{name} on the card is off the CPU by {err:.3e}")
+        require(ctl > tol, f"{name}: the control passes ({ctl:.3e})")
+        del dev, x, got
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def write_a15c_weights(directory: Path) -> None:
+    """``raft.npz``, ``amt.npz``, ``pips.npz`` and ``musiq.npz`` of the
+    witnesses, each the JAX registry's flattened flax tree."""
+    import numpy as np
+    from dfot_tpu_torch.utils.weights import _flatten, flax_tree_from_state_dict
+
+    directory.mkdir(parents=True, exist_ok=True)
+    for i, name in enumerate(A15C_NETS):
+        tree = flax_tree_from_state_dict(name, a15c_witness(name, 241 + i).state_dict())
+        np.savez(directory / f"{name}.npz", **_flatten(tree))
+
+
+def run_k600_a15c(rec: dict, weights_dir: Path) -> dict:
+    """(b) K600's validation as composed with the four weight files:
+    motion_smoothness through AMT-S and dynamic_degree through RAFT, logged
+    without ``_uncalibrated``; then imaging_quality through the run's MUSIQ
+    on its predictions (``VideoMetric``'s VBench dimensions leave it out,
+    as the JAX package's do, ``video_metric.py:27-31``)."""
+    import numpy as np
+    from dfot_tpu_torch.metrics.vbench import VBenchQuality
+
+    launches, exp = run_k600_metrics(rec, weights_dir, key="k600_a15c")
+    reg = exp._registry
+    t0 = time.perf_counter()
+    vb = VBenchQuality(("imaging_quality",), reg)
+    vb.update(exp.last_videos["prediction"])
+    iq = vb.log("validation/prediction/vbench")
+    rec["k600_a15c"]["imaging_quality"] = {"metrics": iq, "wall_s": time.perf_counter() - t0}
+    log(f"    imaging_quality through MUSIQ on the predictions: {iq}")
+    require(list(iq) == ["validation/prediction/vbench/imaging_quality",
+                         "validation/prediction/vbench/quality_score"]
+            and all(np.isfinite(list(iq.values()))), f"imaging_quality logged {iq}")
+    require_registry_on_card(reg, ("musiq",), "K600's imaging_quality", calibrated=True)
+    require(all(launches[k] > 0 for k in FORWARD_KERNELS + ("ln_modulate",)),
+            f"K600's validation with the A15c networks sampled off the kernels: {launches}")
+    del exp
+    return launches
+
+
+def run_fvmd_pips(rec: dict, clips, source: str, weights_dir: Path) -> None:
+    """(c) ``VideoMetric(["fvmd"])`` with ``pips.npz``: PIPs2 tracks on the
+    card, and ``fvmd`` is logged without ``_uncalibrated``."""
+    from dfot_tpu_torch.metrics.registry import SharedMetricModelRegistry
+    from dfot_tpu_torch.metrics.video_metric import VideoMetric
+
+    gt, pred = (c.to("cuda") for c in clips)
+    reg = SharedMetricModelRegistry(str(weights_dir))
+    vm = VideoMetric(["fvmd"], reg)
+    t0 = time.perf_counter()
+    vm.update(pred, gt)
+    out = vm.log("validation/prediction")
+    wall = time.perf_counter() - t0
+    rec["fvmd_pips"] = {"source": source, "shape": list(gt.shape), "metrics": out, "wall_s": wall}
+    log(f"  FVMD with PIPs2 on two {tuple(gt.shape)} clips ({source}): {out}, {wall:.2f} s")
+    require(list(out) == ["validation/prediction/fvmd"]
+            and math.isfinite(out["validation/prediction/fvmd"]), f"FVMD logged {out}")
+    require(reg.comparable == {"pips": True, "fvmd": True}, f"FVMD: {reg.comparable}")
+    require_registry_on_card(reg, ("pips",), "FVMD", calibrated=True)
+
+
+def run_a15c_paths(record: dict, clips=None, source: str = "the 200-frame rollout") -> dict:
+    """Phase 24: RAFT, AMT-S, PIPs2 and MUSIQ. (a) each network on the card
+    against the CPU at the metrics' shapes; (b) K600's validation as composed
+    with the four weight files; (c) FVMD with PIPs2. Returns the launch
+    counts of (b)."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    rec = record["a15c"] = {}
+    log("RAFT, AMT-S, PIPs2 and MUSIQ (phase 24):")
+    clips = clips if clips is not None else rollout_clips()
+    check_a15c_networks(rec, clips[0][0])
+    weights_dir = ROOT / "build" / "a15c_weights"
+    shutil.rmtree(weights_dir, ignore_errors=True)
+    write_a15c_weights(weights_dir)
+    launches = run_k600_a15c(rec, weights_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_fvmd_pips(rec, clips, source, weights_dir)
+    shutil.rmtree(weights_dir, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 24: {rec['seconds']:.1f} s")
+    return {"k600_a15c": launches}
 
 
 def main() -> int:
@@ -5383,6 +5650,11 @@ def main() -> int:
 
         # the metric suite
         by_path.update(run_metric_paths(record))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # RAFT, AMT-S, PIPs2 and MUSIQ
+        by_path.update(run_a15c_paths(record))
         for name, _, _ in KERNELS:
             require(any(by_path[path][name] for path in PATHS),
                     f"kernel {name} was launched on no path")

@@ -490,7 +490,7 @@ class VideoGenerationExperiment:
         metric_types = tuple(logging_cfg.get("metrics", ["mse", "psnr"]))
         n_metrics_frames = logging_cfg.get("n_metrics_frames")
         registry = self._metric_registry()
-        VideoMetric(metric_types, registry, n_metrics_frames)  # refuses A15c files before sampling
+        VideoMetric(metric_types, registry, n_metrics_frames)  # refuses unknown metrics before sampling
         task_metrics: Dict[str, VideoMetric] = {}
         num_logged = 0
         for i, batch in enumerate(loader):

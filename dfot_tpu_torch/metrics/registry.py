@@ -28,9 +28,11 @@ Every call runs under ``torch.no_grad``, with autocast off and TF32 off
 would make the scores drift with the sampler's precision.
 
 RAFT, AMT-S, PIPs2 and MUSIQ (``raft``, ``amt``, ``pips``, ``musiq``) have
-no random fallback in JAX either: without their file they return None and
-the metrics take their classical paths. With the file present they raise
-``NotImplementedError``: those networks are ROADMAP.md queue A15c.
+no random fallback, as in JAX: without their file they return None, record
+``comparable[name] = False`` and the metrics take their classical paths;
+with it they load, are checked like the others, and serve on the device
+with the JAX registry's constants (RAFT 20 iterations, PIPs2 16, AMT-S at
+``embt = 0.5``; ``RAFT_ITERS``, ``PIPS_ITERS``, ``AMT_EMBT``).
 """
 
 from __future__ import annotations
@@ -45,16 +47,25 @@ from torch import nn
 
 from ..diffusion.core import resolve_device
 from ..utils.weights import (
+    amt_state_dict_from_flax,
     clip_vision_state_dict_from_flax,
     dino_state_dict_from_flax,
     i3d_state_dict_from_flax,
     inception_state_dict_from_flax,
     laion_state_dict_from_npz,
     lpips_state_dict_from_flax,
+    musiq_state_dict_from_flax,
+    pips_state_dict_from_flax,
+    raft_state_dict_from_flax,
 )
 from .resize import resize
 
 __all__ = ["SharedMetricModelRegistry", "RandomProjectionFeatures", "seeded_init", "frozen_math"]
+
+# the JAX registry's constants (dfot_tpu/metrics/registry.py:153, 187, 223)
+RAFT_ITERS = 20
+PIPS_ITERS = 16
+AMT_EMBT = 0.5
 
 @contextlib.contextmanager
 def frozen_math(device: torch.device):
@@ -255,28 +266,63 @@ class SharedMetricModelRegistry:
         return self._serve("inception", build)
 
     # ------------------------------------------------------------------
-    # the networks of A15c: None without their file, as in JAX
-    def _not_ported(self, name: str, what: str) -> None:
-        path = self._file(name)
-        if path is not None:
-            raise NotImplementedError(
-                f"{path}: the {what} network is not ported yet (ROADMAP.md queue A15c); "
-                f"remove the file to score with the classical fallback")
-        self.comparable[name] = False
-        return None
+    # the networks without a random fallback: None without their file
+    def _weighted(self, name: str, build: Callable[[], Callable]) -> Optional[Callable]:
+        """``build()``'s callable, served, with ``<name>.npz`` present; else None."""
+        if name not in self._models:
+            if self._file(name) is None:
+                self.comparable[name] = False
+                self._models[name] = None
+            else:
+                self._serve(name, build)
+        return self._models[name]
 
     def raft(self) -> Optional[Callable]:
-        """RAFT optical flow (``raft.npz``): None without the file."""
-        return self._not_ported("raft", "RAFT")
+        """RAFT optical flow (``raft.npz``): (B, H, W, 3) x 2 in [0, 255] ->
+        (B, H, W, 2) pixel flow on the device; None without the file."""
+        from .raft import RAFT
+
+        return self._weighted("raft", lambda: self._network(
+            "raft", lambda: RAFT(iters=RAFT_ITERS), raft_state_dict_from_flax))
 
     def amt(self) -> Optional[Callable]:
-        """AMT-S frame interpolation (``amt.npz``): None without the file."""
-        return self._not_ported("amt", "AMT-S")
+        """AMT-S frame interpolation (``amt.npz``): (B, H, W, 3) x 2 in [0, 1]
+        -> the middle frames (B, H, W, 3) on the device; None without the
+        file."""
+        from .amt import AMT_S
+
+        def build():
+            net = self._network("amt", AMT_S, amt_state_dict_from_flax)
+            return lambda a, b: net(a, b, torch.full((a.shape[0],), AMT_EMBT, device=a.device))
+
+        return self._weighted("amt", build)
 
     def pips(self) -> Optional[Callable]:
-        """PIPs2 point tracking for FVMD (``pips.npz``): None without the file."""
-        return self._not_ported("pips", "PIPs2")
+        """PIPs2 point tracking for FVMD (``pips.npz``): ``track(frames (S, H,
+        W, C) in [0, 1], pts0 (N, 2))`` -> trajectories (S, N, 2), numpy; gray
+        frames are repeated to RGB and scaled to [-1, 1]. None without the
+        file."""
+        from .pips import Pips
+
+        def build():
+            net = self._network("pips", lambda: Pips(iters=PIPS_ITERS), pips_state_dict_from_flax)
+
+            def track(frames, pts0):
+                if frames.ndim == 3:
+                    frames = frames[..., None]
+                if frames.shape[-1] == 1:
+                    frames = frames.repeat_interleave(3, dim=-1)
+                trajs0 = pts0[None].expand((frames.shape[0],) + tuple(pts0.shape))
+                return net(trajs0, frames * 2.0 - 1.0).cpu().numpy()
+
+            return track
+
+        return self._weighted("pips", build)
 
     def musiq(self) -> Optional[Callable]:
-        """MUSIQ image quality (``musiq.npz``): None without the file."""
-        return self._not_ported("musiq", "MUSIQ")
+        """MUSIQ image quality (``musiq.npz``): (B, H, W, 3) in [0, 1] -> (B,)
+        scores from 0 to 100 on the device; None without the file."""
+        from .musiq import MUSIQ
+
+        return self._weighted("musiq", lambda: self._network(
+            "musiq", MUSIQ, musiq_state_dict_from_flax))

@@ -10,10 +10,12 @@ networks on its device: ``subject_consistency`` (DINO),
 ``background_consistency`` (CLIP-B/32) and ``aesthetic_quality`` (LAION
 over CLIP-L/14), each under the registry's ``frozen_math``.
 
-The network-backed variants of the flow and quality dimensions (AMT-S,
-RAFT, MUSIQ) are ROADMAP.md queue A15c: ``update`` asks the registry for
-them as the JAX package does, which gives None without their file and
-raises ``NotImplementedError`` with it.
+The flow and quality dimensions take the registry's networks where it has
+their weights, as the JAX package does: ``motion_smoothness`` through AMT-S
+(:func:`motion_smoothness_amt`), ``dynamic_degree`` through RAFT
+(:func:`dynamic_degree_raft`, frames resized by ``cv2.resize`` as in JAX)
+and ``imaging_quality`` through MUSIQ (:func:`imaging_quality_musiq`); the
+registry gives None without a file, and the classical path runs.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ def motion_smoothness(videos: np.ndarray) -> float:
 def imaging_quality(videos: np.ndarray) -> float:
     """No-reference per-frame imaging quality, [0, 1] (higher = better).
 
-    Weight-free stand-in for MUSIQ (queue A15c; registry.musiq() is None
+    Weight-free fallback for the MUSIQ path (registry.musiq() is None
     without ``musiq.npz``): this classical proxy combines normalized Laplacian-variance sharpness with
     a blockiness penalty (8px-grid gradient excess, the classic JPEG
     artifact measure). Scores are flagged ``_uncalibrated``.
@@ -120,6 +122,84 @@ def imaging_quality(videos: np.ndarray) -> float:
     off = gx.mean(axis=(-2, -1)) + 1e-8
     blocky = np.clip(on / off - 1.0, 0.0, 1.0)
     return float(np.clip(sharp * (1.0 - blocky), 0.0, 1.0).mean())
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _dynamic_degree_score(flows: np.ndarray) -> np.ndarray:
+    """Reference scoring rule on per-frame flows (vbench/dynamic_degree.py:
+    41-52): frame score = mean of the top-5% flow magnitudes."""
+    B = flows.shape[0]
+    rad = np.sqrt((flows**2).sum(-1)).reshape(B, -1)
+    k = max(1, int(rad.shape[1] * 0.05))
+    return np.sort(rad, axis=1)[:, -k:].mean(axis=1)
+
+
+def imaging_quality_musiq(videos: np.ndarray, musiq_fn) -> float:
+    """imaging_quality with the MUSIQ predictor (vbench/imaging_quality.py:
+    14-22): each frame's 0-100 rating over 100, averaged over frames, then
+    videos. videos (B, T, H, W, C) in [0, 1]."""
+    B, T = videos.shape[:2]
+    frames = videos.reshape((B * T,) + videos.shape[2:])
+    if frames.shape[-1] == 1:
+        frames = np.repeat(frames, 3, axis=-1)
+    scores = _host(musiq_fn(frames)).reshape(B, T)
+    return float(np.clip(scores.mean(axis=1) / 100.0, 0.0, 1.0).mean())
+
+
+def motion_smoothness_amt(videos: np.ndarray, amt_fn) -> float:
+    """motion_smoothness with the AMT-S interpolator (vbench/
+    motion_smoothness.py:32-49): drop the odd frames, interpolate them from
+    the even ones, score (255 - MAE) / 255 on uint8 levels. Frames are padded
+    to a multiple of 16 by edge replication and cropped back."""
+    B, T = videos.shape[:2]
+    if T < 3:
+        return 1.0
+    u8 = np.round(np.clip(videos, 0, 1) * 255.0)
+    even = u8[:, ::2]
+    odd = u8[:, 1::2]
+    n_pairs = even.shape[1] - 1
+    f0 = even[:, :-1].reshape((-1,) + even.shape[2:]) / 255.0
+    f1 = even[:, 1:].reshape((-1,) + even.shape[2:]) / 255.0
+    H, W = videos.shape[2:4]
+    ph, pw = (-H) % 16, (-W) % 16
+    if ph or pw:
+        pads = ((0, 0), (ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2), (0, 0))
+        f0 = np.pad(f0, pads, mode="edge")
+        f1 = np.pad(f1, pads, mode="edge")
+    interp = _host(amt_fn(f0, f1))
+    if ph or pw:
+        interp = interp[:, ph // 2: ph // 2 + H, pw // 2: pw // 2 + W]
+    # uint8 quantization like the reference AMT wrapper (__init__.py:33)
+    interp = np.round(np.clip(interp * 255.0, 0, 255))
+    interp = interp.reshape((B, n_pairs) + interp.shape[1:])
+    mae = np.abs(odd[:, :n_pairs] - interp).mean()
+    return float((255.0 - mae) / 255.0)
+
+
+def dynamic_degree_raft(videos: np.ndarray, raft_fn, resolution: int = 224) -> float:
+    """dynamic_degree with RAFT flow (vbench/dynamic_degree.py:54-67):
+    videos (B, T, H, W, C) in [0, 1]."""
+    import cv2
+
+    B, T = videos.shape[:2]
+    if T < 2:
+        return 0.0
+    thr = 6.0 * (resolution / 256.0)
+    count_threshold = round(4 * (T / 16.0))
+    u8 = (np.clip(videos, 0, 1) * 255).astype(np.float32)
+    frames = np.stack([[cv2.resize(u8[b, t], (resolution, resolution)) for t in range(T)]
+                       for b in range(B)])
+    if frames.ndim == 4:  # grayscale collapsed by cv2
+        frames = np.repeat(frames[..., None], 3, axis=-1)
+    dynamic = 0
+    for b in range(B):
+        flow = _host(raft_fn(frames[b, :-1], frames[b, 1:]))
+        moving = (_dynamic_degree_score(flow) > thr).sum()
+        dynamic += moving >= count_threshold
+    return float(dynamic / B)
 
 
 def dynamic_degree(videos: np.ndarray, resolution: int = 224) -> float:
@@ -195,17 +275,17 @@ class VBenchQuality:
             if dim == "temporal_flickering":
                 self._scores[dim].append(temporal_flickering(videos))
             elif dim == "motion_smoothness":
-                if reg is not None:
-                    reg.amt()  # A15c: raises with amt.npz
-                self._scores[dim].append(motion_smoothness(videos))
+                amt_fn = reg.amt() if reg is not None else None
+                self._scores[dim].append(motion_smoothness_amt(videos, amt_fn) if amt_fn is not None
+                                         else motion_smoothness(videos))
             elif dim == "dynamic_degree":
-                if reg is not None:
-                    reg.raft()
-                self._scores[dim].append(dynamic_degree(videos))
+                raft_fn = reg.raft() if reg is not None else None
+                self._scores[dim].append(dynamic_degree_raft(videos, raft_fn) if raft_fn is not None
+                                         else dynamic_degree(videos))
             elif dim == "imaging_quality":
-                if reg is not None:
-                    reg.musiq()
-                self._scores[dim].append(imaging_quality(videos))
+                musiq_fn = reg.musiq() if reg is not None else None
+                self._scores[dim].append(imaging_quality_musiq(videos, musiq_fn)
+                                         if musiq_fn is not None else imaging_quality(videos))
             elif reg is not None and dim in (
                 "subject_consistency", "background_consistency",
                 "aesthetic_quality",

@@ -69,12 +69,6 @@ class VideoMetric:
         self.n_metrics_frames = n_metrics_frames
         self.seconds: Dict[str, float] = {}
         self.reset()
-        # the networks of ROADMAP.md A15c raise here with their weights file
-        if self._vbench:
-            self.registry.amt()
-            self.registry.raft()
-        if "fvmd" in self.metric_types:
-            self.registry.pips()
 
     def reset(self) -> None:
         self._frame_acc: Dict[str, List[float]] = {m: [] for m in FRAME_WISE}
@@ -154,8 +148,9 @@ class VideoMetric:
                 self._timed(name, t0)
         if "fvmd" in types and preds.shape[1] >= 16:
             # Frechet video MOTION distance (reference fvmd.py requires
-            # >= 16 frames and skips otherwise, :36-40); the LK tracker
-            # stands in for PIPs2, and the score is flagged non-comparable
+            # >= 16 frames and skips otherwise, :36-40): PIPs2 tracks with
+            # pips.npz; otherwise the LK tracker stands in for it and the
+            # score is flagged non-comparable
             t0 = time.perf_counter()
             track_fn = reg.pips()
             reg.comparable["fvmd"] = track_fn is not None

@@ -1,13 +1,13 @@
 """Run chosen phases of ``chip_smoke.py`` alone on the card.
 
-    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [17] [23] [22] [21]
+    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [17] [23] [24] [22] [21]
 
 from the root of a checkout: builds the kernels, then runs the kernel
-checks (``kernels``), phase 17 (``17``), phase 23 (``23``), phase 22
-(``22``) and phase 21 (``21``) in that order, with the smoke's settings
-(TF32 off, expandable allocator segments), and writes what they record to
-``chiprun_out/smoke_phases.json``. Phase 23 alone scores FVMD on two clips
-of a seeded drifting image in place of the rollout's. A quicker loop than
+checks (``kernels``), phase 17 (``17``), phase 23 (``23``), phase 24
+(``24``), phase 22 (``22``) and phase 21 (``21``) in that order, with the
+smoke's settings (TF32 off, expandable allocator segments), and writes what
+they record to ``chiprun_out/smoke_phases.json``. Phases 23 and 24 alone
+track two clips of a seeded drifting image in place of the rollout's. A quicker loop than
 the whole smoke while a phase is being written; the whole smoke is the
 check of record.
 """
@@ -53,6 +53,8 @@ def main(argv) -> int:
         for phase, run in (("kernels", lambda: CS.check_kernels(record)),
                            ("17", lambda: launches.update(cli=CS.run_cli_validation(record, smi))),
                            ("23", lambda: launches.update(CS.run_metric_paths(
+                               record, drifting_clips(), "a seeded drifting image"))),
+                           ("24", lambda: launches.update(CS.run_a15c_paths(
                                record, drifting_clips(), "a seeded drifting image"))),
                            ("22", lambda: launches.update(CS.run_slice16_paths(record))),
                            ("21", lambda: launches.update(CS.run_slice15_paths(record, smi)))):

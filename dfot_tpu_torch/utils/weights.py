@@ -31,7 +31,13 @@ I3D), :func:`inception_state_dict_from_flax`,
 (the inverses of ``dfot_tpu/metrics/inception.py:import_inception_params``
 and ``encoders.py:import_clip_vision_params`` / ``import_dino_params``) and
 :func:`laion_state_dict_from_npz`; each takes the tree that
-``metrics/registry.py`` reads from a ``<name>.npz``.
+``metrics/registry.py`` reads from a ``<name>.npz``. So do
+:func:`raft_state_dict_from_flax`, :func:`amt_state_dict_from_flax`,
+:func:`pips_state_dict_from_flax` and :func:`musiq_state_dict_from_flax`, the
+inverses of ``dfot_tpu/metrics/{raft,amt,pips,musiq}.py:import_<net>_params``
+(AMT-S's ``ConvT4x4`` kernel flipped back to a ``ConvTranspose2d`` weight);
+:func:`flax_tree_from_state_dict` goes the other way for those four, so that
+a network of the port can be written as the ``.npz`` the JAX registry reads.
 """
 
 from __future__ import annotations
@@ -49,7 +55,9 @@ __all__ = ["uvit3d_state_dict_from_flax", "dit3d_state_dict_from_flax", "init_ra
            "dcae_state_dict_from_flax", "discriminator_state_dict_from_flax",
            "lpips_state_dict_from_flax", "titok_state_dict_from_flax", "i3d_state_dict_from_flax",
            "inception_state_dict_from_flax", "clip_vision_state_dict_from_flax",
-           "dino_state_dict_from_flax", "laion_state_dict_from_npz"]
+           "dino_state_dict_from_flax", "laion_state_dict_from_npz", "raft_state_dict_from_flax",
+           "amt_state_dict_from_flax", "pips_state_dict_from_flax", "musiq_state_dict_from_flax",
+           "flax_tree_from_state_dict"]
 
 
 def _linear(k):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
@@ -601,6 +609,150 @@ def laion_state_dict_from_npz(flat: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     and ``bias`` (1,), which the JAX registry reads as they are) -> the
     port's ``nn.Linear`` state dict."""
     return {k: torch.from_numpy(np.asarray(v, dtype=np.float32)) for k, v in flat.items()}
+
+
+def _stat_leaf(path: str, value):
+    """``_vae_leaf``, with a frozen BatchNorm's ``mean`` and ``var`` as
+    torch's running statistics."""
+    return _vae_leaf(re.sub(r"/(mean|var)$", r"/running_\1", path), value)
+
+
+def raft_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's RAFT ``params`` -> the port's (upstream) state dict:
+    the inverse of ``dfot_tpu/metrics/raft.py:import_raft_params``. A strided
+    block's ``norm3`` is also its ``downsample.1``, as upstream registers it."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = re.sub(r"layer(\d)_(\d)/", r"layer\1/\2/", path)
+        path = path.replace("down_conv/", "downsample/0/").replace("flow_conv", "flow_head/conv")
+        path = path.replace("mask_conv1/", "mask/0/").replace("mask_conv2/", "mask/2/")
+        name, t = _stat_leaf(path, value)
+        out[name] = t
+        if ".norm3." in name:
+            out[name.replace(".norm3.", ".downsample.1.")] = t
+    return _with_batch_counts(out)
+
+
+_CONV_PRELU = r"(pyramid\d/\d|convblock/0|conv[1-4])"
+
+
+def amt_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's AMT-S ``params`` -> the port's (upstream) state dict:
+    the inverse of ``dfot_tpu/metrics/amt.py:import_amt_params``. The
+    decoders' ``ConvT4x4`` kernel (4, 4, in, out), flipped for the dilated
+    convolution JAX runs, becomes the ``ConvTranspose2d`` weight (in, out,
+    4, 4)."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = re.sub(r"(layer|pyramid)(\d)_(\d)/", r"\1\2/\3/", path)
+        path = path.replace("down_conv/", "downsample/0/")
+        path = re.sub(r"(decoder\d)/block(\d)/", r"\1/convblock/\2/", path)
+        path = re.sub(r"(gru|feat_head|flow_head)_(\d)/", r"\1/\2/", path)
+        path = path.replace("comb_block_0/conv/", "comb_block/0/")
+        path = path.replace("comb_block_0/prelu/alpha", "comb_block/1/weight")
+        path = path.replace("comb_block_2/", "comb_block/2/")
+        path = re.sub(_CONV_PRELU + r"/conv/", r"\1/0/", path)
+        path = re.sub(_CONV_PRELU + r"/prelu/alpha$", r"\1/1/weight", path)
+        path = re.sub(r"/prelu/alpha$", "/prelu/weight", path)
+        if re.search(r"convblock/2/kernel$", path):
+            k = np.asarray(value, dtype=np.float32)[::-1, ::-1].transpose(2, 3, 0, 1)
+            out[path[: -len("kernel")].replace("/", ".") + "weight"] = torch.from_numpy(
+                np.ascontiguousarray(k))
+            continue
+        name, t = _vae_leaf(path, value)
+        out[name] = t
+    return out
+
+
+def pips_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's PIPs2 ``params`` -> the port's (upstream) state
+    dict: the inverse of ``dfot_tpu/metrics/pips.py:import_pips_params``."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = re.sub(r"layer(\d)_(\d)/", r"layer\1/\2/", path)
+        path = path.replace("down_conv/", "downsample/0/")
+        path = re.sub(r"delta_block/block_(\d+)/(conv\d)/",
+                      r"delta_block/basicblock_list/\1/\2/conv/", path)
+        path = path.replace("first_block_conv/", "first_block_conv/conv/")
+        name, t = _vae_leaf(path, value)
+        out[name] = t
+    return out
+
+
+_MUSIQ_NAMES = {"ln1": "norm1", "qkv": "attn/qkv", "attn_out": "attn/out", "ln2": "norm2",
+                "mlp_in": "mlp/fc1", "mlp_out": "mlp/fc2"}
+
+
+def musiq_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's MUSIQ ``params`` -> the port's state dict, whose
+    names ``dfot_tpu/metrics/musiq.py:import_musiq_params`` maps back."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = path.replace("patch_encoder/", "")
+        path = {"hse_embedding": "pos_emb", "scale_embedding": "scale_emb"}.get(path, path)
+        m = re.fullmatch(r"block_(\d+)/(\w+)/(\w+)", path)
+        if m:
+            path = f"blocks/{m[1]}/{_MUSIQ_NAMES[m[2]]}/{m[3]}"
+        if "/" not in path:  # the embeddings and the CLS token, as they are
+            out[path] = torch.from_numpy(np.array(value, dtype=np.float32))
+            continue
+        name, t = _vae_leaf(path, value)
+        out[name] = t
+    return out
+
+
+# torch path -> flax path of the four networks above, applied in order
+_TO_FLAX = {
+    "raft": ((r"layer(\d)/(\d)/", r"layer\1_\2/"), (r"downsample/0/", "down_conv/"),
+             (r"flow_head/conv", "flow_conv"), (r"mask/0/", "mask_conv1/"),
+             (r"mask/2/", "mask_conv2/")),
+    "amt": ((r"(layer|pyramid)(\d)/(\d)/", r"\1\2_\3/"), (r"downsample/0/", "down_conv/"),
+            (r"(decoder\d)/convblock/(\d)/", r"\1/block\2/"),
+            (r"(gru|feat_head|flow_head)/(\d)/", r"\1_\2/"),
+            (r"comb_block/0/", "comb_block_0/conv/"),
+            (r"comb_block/1/scale", "comb_block_0/prelu/alpha"),
+            (r"comb_block/2/", "comb_block_2/"),
+            (r"(pyramid\d_\d|block0|conv[1-4])/0/", r"\1/conv/"),
+            (r"(pyramid\d_\d|block0|conv[1-4])/1/scale$", r"\1/prelu/alpha"),
+            (r"/prelu/scale$", "/prelu/alpha")),
+    "pips": ((r"layer(\d)/(\d)/", r"layer\1_\2/"), (r"downsample/0/", "down_conv/"),
+             (r"basicblock_list/(\d+)/(conv\d)/conv/", r"block_\1/\2/"),
+             (r"first_block_conv/conv/", "first_block_conv/")),
+    "musiq": ((r"^(conv_root|gn_root|embedding)/", r"patch_encoder/\1/"),
+              (r"^pos_emb$", "hse_embedding"), (r"^scale_emb$", "scale_embedding"),
+              (r"^blocks/(\d+)/", r"block_\1/"), (r"/norm1/", "/ln1/"), (r"/attn/qkv/", "/qkv/"),
+              (r"/attn/out/", "/attn_out/"), (r"/norm2/", "/ln2/"), (r"/mlp/fc1/", "/mlp_in/"),
+              (r"/mlp/fc2/", "/mlp_out/")),
+}
+
+
+def flax_tree_from_state_dict(name: str, state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A state dict of the port's ``raft``, ``amt``, ``pips`` or ``musiq`` ->
+    the JAX package's ``params`` tree of that network (what ``import_<name>_
+    params`` makes of it): the inverse of ``<name>_state_dict_from_flax``."""
+    tree: Dict[str, Any] = {}
+    for key, t in state.items():
+        if key.endswith("num_batches_tracked") or ".downsample.1." in key:
+            continue  # RAFT's norm3 under its second name
+        v = t.detach().cpu().numpy().astype(np.float32)
+        *parts, leaf = key.split(".")
+        if leaf == "weight" and name == "amt" and key.endswith("convblock.2.weight"):
+            v, leaf = v.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+        elif leaf == "weight" and v.ndim >= 2:
+            v = v.T if v.ndim == 2 else v.transpose(tuple(range(2, v.ndim)) + (1, 0))
+            leaf = "kernel"
+        elif leaf == "weight":
+            leaf = "scale"
+        leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+        path = "/".join(parts + [leaf])
+        for pattern, template in _TO_FLAX[name]:
+            path = re.sub(pattern, template, path)
+        node = tree
+        *dirs, last = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[last] = np.ascontiguousarray(v)
+    return tree
 
 
 # TiTok leaves that the upstream module holds as 1x1 convs (flax: Dense)

@@ -51,6 +51,14 @@ from dfot_tpu_torch.utils.weights import (
 )
 
 from test_torch_port_vae import randomize
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 RTOL = 1e-5
 B, T = 2, 4

@@ -16,7 +16,9 @@ gradients, in the port against the JAX package.
   temporal attention (``another_attn``) runs the small-N route, whose
   backward is the plain backward formulas, and the 1D and 2D RoPE tables.
 
-fp32 on the CPU, where the port runs the plain versions of its kernels.
+fp32 on the CPU, where the port runs the plain versions of its kernels. The
+JAX forward and ``jax.value_and_grad`` are jitted (eager, the gradients took
+55 s a case on an 8-core CPU).
 Tolerances as ``tests/test_torch_port_train_step.py``'s: outputs 1e-4
 relative (L2), the loss 1e-5, every gradient leaf 1e-4 relative (L2). Two
 channels per GroupNorm group at every level (64-channel levels), as there.
@@ -37,7 +39,14 @@ from dfot_tpu_torch.algorithms.dfot_video import flagship, uvit3d_pose_base
 from dfot_tpu_torch.ops import attention as TA
 from dfot_tpu_torch.utils.weights import uvit3d_state_dict_from_flax
 
-from torch_port_helpers import POSE_DIM, build_pair, t, tiny_spec
+from torch_port_helpers import POSE_DIM, build_pair, t, tiny_spec, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT_RTOL = 1e-4
@@ -92,7 +101,7 @@ def _gradients_match(jm, jv, pm, spec, x, g, k, pose):
                        rngs={"dropout": jax.random.PRNGKey(0)})
         return jnp.mean(out * jnp.asarray(g))
 
-    want_loss, want = jax.value_and_grad(jloss)(jv["params"])
+    want_loss, want = jax.jit(jax.value_and_grad(jloss))(jv["params"])
     want = uvit3d_state_dict_from_flax(jax.device_get(want), None, spec, 3, POSE_DIM,
                                        cotangent=True)
     pm.train()
@@ -133,7 +142,7 @@ def test_head_dim_256_level_matches_jax():
     for fused in (False, True):
         force_fused_interpret(fused)
         try:
-            want = jm.apply(jv, jnp.asarray(x), jnp.asarray(k), jnp.asarray(pose), None)
+            want = jax.jit(jm.apply)(jv, jnp.asarray(x), jnp.asarray(k), jnp.asarray(pose), None)
         finally:
             force_fused_interpret(False)
         assert rel_err(got, want) < OUT_RTOL, fused

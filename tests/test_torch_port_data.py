@@ -34,6 +34,14 @@ from dfot_tpu_torch.data import clips as TC
 from dfot_tpu_torch.data import index_shuffle as TIS
 from dfot_tpu_torch.data import loader as TL
 from dfot_tpu_torch.data import video_dataset as TVD
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 RES = 16
 

@@ -43,6 +43,14 @@ from dfot_tpu_torch.utils.weights import dit3d_state_dict_from_flax, init_random
 from test_refine_and_difference import TINY_DIFF_OVERRIDES
 from test_torch_port_dit import dit_pair, rel_err
 from test_torch_port_remainders import pin_noise
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 RTOL = 1e-5
 WINDOW_RTOL = 1e-4

@@ -41,7 +41,14 @@ from dfot_tpu_torch.models import embeddings as TE
 from dfot_tpu_torch.sampling import rollout as TR
 from dfot_tpu_torch.utils.weights import dit3d_state_dict_from_flax, init_random_weights
 
-from torch_port_helpers import POSE_DIM, build_pair, pinned, t, tiny_spec
+from torch_port_helpers import POSE_DIM, build_pair, pinned, t, tiny_spec, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 OUT_RTOL = 1e-4
 GRAD_RTOL = 2e-4

@@ -33,6 +33,13 @@ from dfot_tpu_torch import ops as TOPS
 from dfot_tpu_torch.ops import attention as TA
 from dfot_tpu_torch.ops import ln_modulate as TL
 from dfot_tpu_torch.ops import qkv_prep as TQ
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
 
 
 def _t(a, dtype=None):

@@ -1119,3 +1119,62 @@ def test_qkv_prep_with_the_doubled_table(cuda, merge):
         assert _close(a, b, 2e-2)
     plain = make_rope_3d(d, (2 * T, 4, 4))
     assert np.array_equal(plain.cos[:N], rope.cos[:N]) == (merge == "concat")
+
+
+def _a15c_witness(name: str, seed: int):
+    """RAFT (2 iterations), AMT-S, PIPs2 (5) or MUSIQ (2 blocks) at their
+    widths on He-scaled seeded weights, the output heads scaled so that
+    flows and tracks move a few pixels (as ``chip_smoke.a15c_witness``)."""
+    from dfot_tpu_torch.metrics import amt, musiq, pips, raft
+    from dfot_tpu_torch.metrics.registry import seeded_init
+
+    net = {"raft": lambda: raft.RAFT(iters=2), "amt": amt.AMT_S,
+           "pips": lambda: pips.Pips(iters=5), "musiq": lambda: musiq.MUSIQ(layers=2)}[name]()
+    heads = {"raft": ("update_block.flow_head.conv2",), "pips": ("delta_block.dense",),
+             "amt": ("convblock.2", "flow_head.2", "comb_block.2")}.get(name, ())
+    g = torch.Generator().manual_seed(seed)
+    seeded_init(net, g)
+    with torch.no_grad():
+        for pname, p in net.named_parameters():
+            if p.ndim >= 2 and pname.endswith("weight"):
+                p.mul_(2**0.5 * (0.1 if any(h in pname for h in heads) else 1.0))
+            elif "bias" in pname:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+        for bname, b in net.named_buffers():
+            if bname.endswith("running_var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=g))
+    return net.eval().requires_grad_(False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["raft", "amt", "pips", "musiq"])
+def test_a15c_network_on_the_card_matches_the_cpu(cuda, name):
+    """The A15c networks on the card against the same network on the CPU,
+    fp32 with TF32 off (``frozen_math``), within the smoke's bounds
+    (``chip_smoke.A15C_CPU_REL_TOL``): 1e-4 relative L2 for AMT-S and MUSIQ,
+    1e-3 for RAFT and PIPs2, whose iterations (2 and 5 here, the registry's
+    20 and 16 in the smoke) carry the first differences through clamped
+    samplers."""
+    from dfot_tpu_torch.metrics.registry import frozen_math
+
+    g = torch.Generator().manual_seed(30)
+    if name == "raft":
+        a = torch.rand(2, 128, 128, 3, generator=g) * 255
+        args = (a, torch.roll(a, 3, dims=2))
+    elif name == "amt":
+        a = torch.rand(2, 64, 64, 3, generator=g)
+        args = (a, torch.roll(a, 2, dims=1), torch.full((2,), 0.5))
+    elif name == "pips":
+        pts = torch.rand(16, 2, generator=g) * 56 + 4
+        args = (pts[None].expand(8, -1, -1).contiguous(), torch.rand(8, 64, 64, 3, generator=g) * 2 - 1)
+    else:
+        args = (torch.rand(2, 64, 96, 3, generator=g),)
+    net = _a15c_witness(name, 31)
+    with frozen_math(torch.device("cpu")):
+        want = net(*args)
+    card = net.to(cuda)
+    with frozen_math(cuda):
+        got = card(*(a.to(cuda) for a in args)).cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = _rel_l2(got, want)
+    assert err <= {"raft": 1e-3, "pips": 1e-3}.get(name, 1e-4), err

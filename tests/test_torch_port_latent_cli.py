@@ -45,7 +45,15 @@ from dfot_tpu_torch.utils.weights import dcae_state_dict_from_flax, init_random_
 from dfot_tpu.vae import dc_ae as JDC
 
 from test_torch_port_train_cli import _fp32, _lines, _pin_draws, _step_metrics
-from test_torch_port_vae import randomize, rel_err
+from test_torch_port_vae import init_shapes, randomize, rel_err
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 RES, FRAMES, LENGTHS = 32, 4, (7, 9, 6)
 TOKEN_RTOL = LOSS_RTOL = FILE_RTOL = 1e-4
@@ -112,8 +120,7 @@ def fixture_files(tmp_path_factory):
     make_dmlab(root)
     cfg = JDC.DCAEConfig.from_config({**DCAE_WIDTHS, "latent_channels": 32})
     jm = JDC.DCAE(cfg)
-    params = randomize(jm.init(jax.random.PRNGKey(0), np.zeros((1, RES, RES, 3), np.float32))[
-        "params"], 11)
+    params = randomize(init_shapes(jm, np.zeros((1, RES, RES, 3), np.float32))["params"], 11)
     pth = str(tmp / "dcae.pth")
     torch.save(dcae_state_dict_from_flax(params), pth)
     algo = build_algorithm(load_config(base_argv(root, pth)), torch.float32, device="cpu")

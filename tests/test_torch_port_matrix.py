@@ -36,6 +36,14 @@ from dfot_tpu_torch.models import dit as TD
 from dfot_tpu_torch.models import embeddings as TE
 from dfot_tpu_torch.models import matrix as TM
 from dfot_tpu_torch.utils.weights import dit3d_state_dict_from_flax, init_random_weights
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 OUT_RTOL = 1e-5
 GRAD_RTOL = 1e-4

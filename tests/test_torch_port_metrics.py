@@ -372,15 +372,39 @@ def test_registry_refuses_a_file_that_does_not_match(name, trees, tmp_path, smal
         getattr(reg, name)()
 
 
+def _a15c_tree(name: str):
+    """The JAX module's parameter tree (shapes by ``jax.eval_shape``, zeros)."""
+    from dfot_tpu.metrics import amt, musiq, pips, raft
+
+    x = jnp.zeros((1, 64, 64, 3))
+    model, args = {"raft": (raft.RAFT(iters=1), (x, x)),
+                   "amt": (amt.AMT_S(), (x, x, jnp.full((1,), 0.5))),
+                   "pips": (pips.Pips(iters=1), (jnp.zeros((2, 4, 2)), jnp.zeros((2, 64, 64, 3)))),
+                   "musiq": (musiq.MUSIQ(), (x,))}[name]
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                  init_shapes(model, *args)["params"])
+
+
 @pytest.mark.parametrize("name", ["raft", "amt", "pips", "musiq"])
 def test_a15c_networks_are_gated(name, tmp_path):
-    """None without their file, as in JAX; with it, ``NotImplementedError``
-    naming A15c, never a quiet None."""
+    """RAFT, AMT-S, PIPs2 and MUSIQ: None without their file, as in JAX (no
+    random fallback); with the JAX tree's ``.npz`` they load, frozen on the
+    registry's device; a file that does not match raises ``ValueError``.
+    The networks are held to the JAX modules in ``test_torch_port_a15c.py``:
+    upstream parity of RAFT, AMT-S and PIPs2 is not established (ROADMAP C3)."""
     reg = SharedMetricModelRegistry(str(tmp_path), device="cpu")
     assert getattr(reg, name)() is None and reg.comparable == {name: False}
     assert getattr(JR.SharedMetricModelRegistry(str(tmp_path)), name)() is None
-    np.savez(tmp_path / f"{name}.npz", w=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="A15c"):
+    path = write_npz(tmp_path, name, _a15c_tree(name))
+    reg = SharedMetricModelRegistry(str(tmp_path), device="cpu")
+    assert callable(getattr(reg, name)()) and reg.comparable == {name: True}
+    assert all(p.device.type == "cpu" and not p.requires_grad
+               for p in reg.networks[name].parameters())
+    flat = dict(np.load(path))
+    first = sorted(flat)[0]
+    flat[first] = np.zeros(flat[first].shape + (2,), np.float32)  # a wrong shape
+    np.savez(path, **flat)
+    with pytest.raises(ValueError, match=f"{path}.*does not match the {name} model"):
         getattr(SharedMetricModelRegistry(str(tmp_path), device="cpu"), name)()
 
 

@@ -23,6 +23,13 @@ from dfot_tpu.ops import qkv_prep as JQ
 from dfot_tpu_torch.ops import attention as TA
 from dfot_tpu_torch.ops import qkv_prep as TQ
 from dfot_tpu_torch import ops as TOPS
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
 
 
 def _t(a):

@@ -26,6 +26,14 @@ from dfot_tpu.ops import attention as JA
 from dfot_tpu.ops import qkv_prep as JQ
 from dfot_tpu_torch.ops import attention as TA
 from dfot_tpu_torch.ops import qkv_prep as TQ
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 RTOL = 2e-5
 

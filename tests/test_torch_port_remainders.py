@@ -44,7 +44,14 @@ from dfot_tpu_torch.models import uvit as TU
 from dfot_tpu_torch.sampling import rollout as TR
 from dfot_tpu_torch.utils.weights import init_random_weights, uvit3d_state_dict_from_flax
 
-from torch_port_helpers import POSE_DIM, build_pair, pinned, randomize, t, tiny_spec
+from torch_port_helpers import POSE_DIM, build_pair, pinned, randomize, t, tiny_spec, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 MODEL_RTOL = 1e-4
 WINDOW_RTOL = 1e-4

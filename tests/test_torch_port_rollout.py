@@ -42,7 +42,14 @@ from test_torch_port_sampling import (
     rel_err,
     small_dcfg,
 )
-from torch_port_helpers import build_pair, tiny_spec
+from torch_port_helpers import build_pair, tiny_spec, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 R, T, P = 16, 8, 2
 CONTROL_MIN = 1e-2

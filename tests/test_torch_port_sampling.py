@@ -39,7 +39,14 @@ from dfot_tpu_torch.sampling import rollout as TR
 from dfot_tpu_torch.sampling import sampler as TSM
 from dfot_tpu_torch.sampling import scheduling as TSC
 
-from torch_port_helpers import build_pair, pinned, t, tiny_spec
+from torch_port_helpers import build_pair, pinned, t, tiny_spec, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 WINDOW_RTOL = 1e-4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -57,6 +57,14 @@ from test_torch_port_cli import SMALL, jax_imports_fourier_buffers  # noqa: F401
 from test_torch_port_sampling import _pin_noise, rel_err
 from test_torch_port_train_loop import _state_equal
 from test_torch_port_train_step import _first_bias_copy, _tie_output_bias
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 TMAIN = importlib.import_module("dfot_tpu_torch.__main__")
 FP32_RTOL, BF16_RTOL = 1e-4, 2e-2

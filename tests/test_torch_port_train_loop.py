@@ -51,7 +51,14 @@ from dfot_tpu_torch.utils.weights import init_random_weights
 
 from test_torch_port_cli import SMALL, jax_imports_fourier_buffers  # noqa: F401
 from test_torch_port_sampling import _pin_noise, rel_err
-from torch_port_helpers import POSE_DIM, pinned, t, tiny_spec
+from torch_port_helpers import POSE_DIM, pinned, t, tiny_spec, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 EVAL_LOSS_RTOL, EVAL_RECON_RTOL = 1e-5, 1e-4
 

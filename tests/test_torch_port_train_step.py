@@ -47,7 +47,14 @@ from dfot_tpu_torch.training import state as TST
 from dfot_tpu_torch.training import trainer as TT
 from dfot_tpu_torch.utils.weights import uvit3d_state_dict_from_flax
 
-from torch_port_helpers import POSE_DIM, build_pair, t, tiny_spec
+from torch_port_helpers import POSE_DIM, build_pair, t, tiny_spec, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 GRAD_RTOL = 1e-4
 STEP_RTOL, STEP_ATOL = 2e-3, 5e-2

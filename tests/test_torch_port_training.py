@@ -34,7 +34,13 @@ from dfot_tpu_torch.training import noise_levels as TNL
 from dfot_tpu_torch.training import optim as TO
 from dfot_tpu_torch.training import state as TST
 
-from torch_port_helpers import t
+from torch_port_helpers import t, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
 
 
 def jax_dcfg(dcfg):

@@ -43,7 +43,14 @@ from dfot_tpu_torch.utils.weights import (
     videovae_state_dict_from_flax,
 )
 
-from torch_port_helpers import pinned
+from torch_port_helpers import pinned, one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 EXACT_RTOL = 1e-5
 MODEL_RTOL = 1e-4
@@ -53,6 +60,12 @@ CONTROL_MIN = 1e-2  # a control must miss by at least this (relative L2)
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def init_shapes(module, *args):
+    """``module``'s init as shapes (``jax.eval_shape``): every leaf is drawn
+    by ``randomize``, so the eager init's op-by-op compiles are spared."""
+    return jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args))
 
 
 def randomize(tree, seed: int):
@@ -150,8 +163,7 @@ SMALL_DCAE = JDC.DCAEConfig(
 
 def dcae_pair(cfg=SMALL_DCAE, seed=0, res=32):
     jm = JDC.DCAE(cfg)
-    params = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, res, res, 3)))["params"],
-                       seed)
+    params = randomize(init_shapes(jm, jnp.zeros((1, res, res, 3)))["params"], seed)
     tm = TDC.DCAE(TDC.DCAEConfig(**vars(cfg)))
     tm.load_state_dict(dcae_state_dict_from_flax(params), strict=True)
     return jm, {"params": params}, tm.eval()
@@ -209,7 +221,7 @@ def test_dcae_blocks_match_jax(norm_type, res):
                   TDC.GLUMBConv(C, C, norm_type=norm_type)),
     }
     for name, (jmod, tmod) in mods.items():
-        params = randomize(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 4)
+        params = randomize(init_shapes(jmod, jnp.asarray(x))["params"], 4)
         tmod.load_state_dict(dcae_state_dict_from_flax(params), strict=True)
         want = jmod.apply({"params": params}, jnp.asarray(x))
         with torch.no_grad():
@@ -217,7 +229,7 @@ def test_dcae_blocks_match_jax(norm_type, res):
         assert rel_err(nhwc(got), want) < EXACT_RTOL, name
     # control: q and k without their ReLU
     jattn, tattn = mods["attn"]
-    params = randomize(jattn.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 4)
+    params = randomize(init_shapes(jattn, jnp.asarray(x))["params"], 4)
     want = jattn.apply({"params": params}, jnp.asarray(x))
 
     class NoReLU:
@@ -260,7 +272,7 @@ def image_pair(seed=0):
     cfg = JIV.ImageVAEConfig(**SMALL_IMAGE)
     jm = JIV.ImageVAE(cfg)
     x0 = jnp.zeros((1, 16, 16, 3))
-    params = randomize(jm.init(jax.random.PRNGKey(0), x0, jax.random.PRNGKey(1))["params"],
+    params = randomize(init_shapes(jm, x0, jax.random.PRNGKey(1))["params"],
                        seed)
     tm = TIV.ImageVAE(TIV.ImageVAEConfig(**SMALL_IMAGE))
     tm.load_state_dict(imagevae_state_dict_from_flax(params), strict=True)
@@ -296,7 +308,7 @@ SMALL_VIDEO = dict(hidden_size=32, hidden_size_mult=(1, 2, 2), num_res_blocks=1,
 def video_pair(seed=0):
     jm = JVV.VideoVAE(JVV.VideoVAEConfig(**SMALL_VIDEO))
     x0 = jnp.zeros((1, 5, 16, 16, 3))
-    params = randomize(jm.init(jax.random.PRNGKey(0), x0, jax.random.PRNGKey(1))["params"],
+    params = randomize(init_shapes(jm, x0, jax.random.PRNGKey(1))["params"],
                        seed)
     tm = TVV.VideoVAE(TVV.VideoVAEConfig(**SMALL_VIDEO))
     tm.load_state_dict(videovae_state_dict_from_flax(params), strict=True)
@@ -413,7 +425,7 @@ def test_codec_kl_vaes_match_jax(monkeypatch, kind):
                                              z_channels=4, embed_dim=4, resolution=16))
         x0 = jnp.zeros((1, 5, 16, 16, 3))
         convert = videovae_state_dict_from_flax
-    params = randomize(jm.init(jax.random.PRNGKey(0), x0, jax.random.PRNGKey(1))["params"], 8)
+    params = randomize(init_shapes(jm, x0, jax.random.PRNGKey(1))["params"], 8)
     (ja, jd), (ta, td) = codec_cfgs(vae, latent, 16)
     jc = JCodec.LatentCodec(ja, jd)
     jc.variables = {"params": params}

@@ -41,6 +41,14 @@ from dfot_tpu_torch.vae import titok as TT
 
 from test_torch_port_latent_cli import make_dmlab
 from test_torch_port_vae import rel_err
+from torch_port_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 RTOL = 1e-5
 FILE_RTOL = 1e-4
