@@ -58,13 +58,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     and depth, the two-image interpolation of BASELINE.json config 2 (8
     frames, vanilla HG at 4.0, 50 DDIM steps, twice, both timed, the second
     counted: frames 0 and 7 must come back bit for bit)
-    and config 3, the 200-frame rollout with bench.py's
-    settings (keyframe density 0.0625, 12 keyframes by stabilized vanilla
-    HG, interpolation rounds of 11 and 35 one-chunk windows by vanilla HG
-    at 1.5: 48 windows of 50 steps), each with its launch counts reset
+    and config 3's rollout cut from 200 to 72 frames (bench.py's settings
+    but a keyframe density of 0.125: 9 keyframes by stabilized vanilla HG
+    in 2 sliding windows, interpolation rounds of 8 and 8 one-chunk windows
+    by vanilla HG at 1.5: 18 windows of 50 steps), each with its launch counts reset
     before and required after; the rollout's wall time, frames/s, phase
     split and peak memory, its keyframes held bit for bit against the
-    keyframe pass's output, and its wall against 48 times step 5's window;
+    keyframe pass's output, and its wall against 18 times step 5's window;
 11. builds K600 @DiT/XL at full width and depth (DiT3D, hidden 1152, depth
     28, 16 heads of 72, 1280 tokens; its parameter count is printed) and
     runs a batch-8 forward and a forward + backward on the kernel route and
@@ -217,7 +217,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     K600's validation as composed (``[vbench, fvd, is, fid, lpips, mse,
     ssim, psnr]``) through ``run(argv)`` on phase 20's latent path (@DiT/XL
     at depth 4, batch 2, one batch); ``VideoMetric(["fvmd"])`` on two
-    16-frame clips of the 200-frame rollout; the host's Frechet distances
+    16-frame clips of the 72-frame rollout; the host's Frechet distances
     (``scipy.linalg.sqrtm`` at 2048 and 400 dimensions) in that validation,
     apart from the networks' passes.
 
@@ -237,7 +237,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     B1-B3 and B8 launched; ``VideoMetric(["fvmd"])`` tracking with PIPs2
     on the rollout's two clips.
 
-Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22, 23 and 24 also run controls (an attention that
+25. (``run_ring_paths``) ring attention (``ops/ring_attention.py``) on a
+    ``LocalRing`` of R = 2 and 4 virtual ranks at the flagship's two
+    attention sites (B 2; N 8192, 9 heads of 64; N 2048, 9 of 128): forward
+    and backward against the plain ring and against unsharded B1 + B4 + B5
+    (``RING_REL_TOL``), the exact launches of one call (R of B1 as ring
+    blocks, R each of B4 and B5), a control whose fold skips one hop, device
+    times of the whole ring and of one hop's B1, B4, B5 and fold beside B1's
+    bound and SDPA on the full N; the flagship's 50-step window with the
+    sequence-parallel context on a ring of 2 against the unsharded window
+    (``WINDOW_REL_TOL``, 800 ring blocks, no B2, B3); ``run(argv)`` in a
+    child process with ``torchrun``'s environment of one process: a
+    one-rank NCCL group, 2 flagship train steps and one validation batch;
+    the window's and the run's flagship at full width, depth cut
+    (``FLAGSHIP_CUT_DEPTH``).
+
+Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22, 23, 24 and 25 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -247,7 +262,14 @@ softmax that counts the keys that pad N = 5 or 8 to a 16-key tile); all fail
 unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``. Nothing of the earlier phases is cut.
+``chip_smoke.json`` in ``OUT_DIR``, the seconds since the start of every
+line logged to ``smoke_timeline.tsv`` beside it. Cut in depth for the
+smoke's time: config 3's rollout, 200 frames (48 windows) to 72 (18 windows);
+the guided window's profile, 10 steps to 3; the remat sweep, 5 train steps
+a policy to 3, and the sweep's flagship's depth (``FLAGSHIP_CUT_DEPTH``);
+VAE training, 6 steps to 4, its card-vs-CPU clip to 64 x 64 pixels;
+phase 25's ring window timed once each way, and its flagship's depth
+(``FLAGSHIP_CUT_DEPTH``).
 """
 
 from __future__ import annotations
@@ -278,6 +300,9 @@ KERNELS = (
     ("ln_modulate", "dfot_tpu_torch/csrc/ln_modulate.cu", "dfot_tpu/ops/ln_modulate.py:64"),
     ("ln_modulate_bwd", "dfot_tpu_torch/csrc/ln_modulate.cu", "dfot_tpu/ops/ln_modulate.py:72"),
     ("small_n_attn", "dfot_tpu_torch/csrc/small_n_attn.cu", "dfot_tpu/ops/attention.py:800"),
+    # ring attention's per-hop block: B1 launched by ops/ring_attention.py
+    # (B4, B5 in its backward); its launches are the ring's B1 launches
+    ("ring_block", "dfot_tpu_torch/csrc/flash_fwd.cu", "dfot_tpu/ops/ring_attention.py:49"),
 )
 FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
@@ -291,7 +316,7 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "unet3d_window", "unet3d_train", "diff_concat_window", "diff_concat_train",
          "diff_interleaved_window", "diff_interleaved_train", "diff_facmat_window",
          "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
-         "unet3d_cli", "k600_metrics", "k600_a15c")
+         "unet3d_cli", "k600_metrics", "k600_a15c", "ring_window", "ring_cli")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -408,14 +433,22 @@ UNET3D_SITES = (("level2", UNET3D_BATCH * UNET3D_FRAMES * UNET3D_HEADS, 256, 32,
 # heads of d; the video half of its merged 2T frames takes the packed route
 DIFF_SITE = (32, 16, 16, 12, 64)
 PROFILED_WINDOW_STEPS = 10
+# the guided window's profile (a forward and a backward each step: 3900
+# launches a step, whose processing took 45 s at 10 steps) and the remat
+# sweep's train steps, cut for the smoke's time
+GUIDED_PROFILE_STEPS = 3
 TRAIN_STEPS = 5
+REMAT_STEPS = 3
 # the long-video tasks (BASELINE.json configs 2 and 3, bench.py's rollout):
-# rollout settings, the 200-frame rollout's keyframe density and the plan
+# rollout settings, the long rollout's length, keyframe density and the plan
 # it must give (keyframes, sliding windows, chunks a round), and the small
-# rollout of the narrow model that holds the kernel route against the plain
+# rollout of the narrow model that holds the kernel route against the plain.
+# The long rollout is config 3 cut from 200 frames (48 windows) to 72 (18
+# windows) for the smoke's time; a density of 0.125 keeps its keyframe pass
+# at two sliding windows, the second with generated context
 ROLLOUT_SETTINGS = dict(external_cond_type="action", sliding_context_len=4,
                         interpolation_max_batch_size=1)
-LONG_FRAMES, LONG_DENSITY, LONG_PLAN = 200, 0.0625, (12, 2, [11, 35])
+LONG_FRAMES, LONG_DENSITY, LONG_PLAN = 72, 0.125, (9, 2, [8, 8])
 SMALL_ROLLOUT_FRAMES, SMALL_ROLLOUT_DENSITY, SMALL_ROLLOUT_PLAN = 72, 0.125, (9, 2, [8, 8])
 # the factorized DiT of configurations/algorithm/backbone/dit3d_factorized_attention.yaml
 # on the Minecraft latent shape, and the axial U-ViT's depth (flagship widths)
@@ -454,8 +487,24 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+# (seconds since the first line, the line's start) of every line logged:
+# main() writes them to OUT_DIR / "smoke_timeline.tsv", where the seconds
+# of each part of a phase can be read
+TIMELINE = []
+
+
 def log(msg: str) -> None:
+    if not TIMELINE:
+        TIMELINE.append((time.perf_counter(), ""))
+    TIMELINE.append((time.perf_counter(), msg[:120].replace("\n", " ")))
     print(msg, flush=True)
+
+
+def write_timeline() -> None:
+    t0 = TIMELINE[0][0] if TIMELINE else 0.0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "smoke_timeline.tsv").write_text(
+        "".join(f"{t - t0:.1f}\t{msg}\n" for t, msg in TIMELINE[1:]))
 
 
 def require(ok: bool, what: str) -> None:
@@ -2423,11 +2472,12 @@ def run_long_video_paths(record: dict, fs) -> dict:
     """The flagship's long-video tasks at full width and depth on a bf16
     copy of seeded random weights. ``interp2`` (BASELINE.json config 2):
     ``interpolate_videos`` of frames 0 and 7 to an 8-frame video, vanilla HG
-    at 4.0, one window. ``rollout`` (config 3, bench.py's settings): one
-    image to 200 frames by ``predict_videos``, 12 keyframes in 2 sliding
-    windows and interpolation rounds of 11 and 35 one-chunk windows, each of
-    (B = 1, T = 8, NFE 2), 50 DDIM steps; wall time, frames/s, the phase
-    split, peak memory, and the wall beyond 48 times the 8-frame window's
+    at 4.0, one window. ``rollout`` (config 3 cut from 200 frames,
+    bench.py's settings at a keyframe density of 0.125): one image to 72
+    frames by ``predict_videos``, 9 keyframes in 2 sliding windows and
+    interpolation rounds of 8 and 8 one-chunk windows, each of (B = 1, T =
+    8, NFE 2), 50 DDIM steps; wall time, frames/s, the phase split, peak
+    memory, and the wall beyond 18 times the 8-frame window's
     (``record["window"]``, the same model shape earlier in the run)."""
     import torch
     from dfot_tpu_torch import ops
@@ -2480,9 +2530,9 @@ def run_long_video_paths(record: dict, fs) -> dict:
     out["interp2"] = launches
     del video, ro
 
-    # config 3: the 200-frame rollout
+    # config 3's rollout, cut to LONG_FRAMES
     n = LONG_FRAMES
-    keys, n_windows = check_plan("200-frame rollout", n, LONG_DENSITY, T, LONG_PLAN)
+    keys, n_windows = check_plan(f"{n}-frame rollout", n, LONG_DENSITY, T, LONG_PLAN)
     ro = make_rollout(fs, model, fs.dcfg, keyframe_density=LONG_DENSITY, **ROLLOUT_SETTINGS)
     xs = torch.zeros(1, n, R, R, C, device="cuda")
     xs[:, 0] = seeded_image(fs, 80)
@@ -2550,7 +2600,7 @@ def run_long_video_paths(record: dict, fs) -> dict:
         "window_device_span_s": spans, "gap_before_window_s": gaps, "window_host_call_s": host,
         "card_before": state_before, "card_after": state_after,
     }
-    log(f"200-frame rollout (config 3), {steps} DDIM steps: {wall:.3f} s wall, "
+    log(f"{n}-frame rollout (config 3 cut from 200 frames), {steps} DDIM steps: {wall:.3f} s wall, "
         f"{(n - 1) / wall:.4f} generated frames/s, peak memory {peak / 2**30:.2f} GiB; "
         f"keyframes {st.get('keyframe_sec', 0.0):.3f} s, interpolation "
         f"{st.get('interp_sec', 0.0):.3f} s; {st['windows']} windows, "
@@ -2578,7 +2628,7 @@ def run_long_video_paths(record: dict, fs) -> dict:
             "rollout: the keyframes differ from the keyframe pass's output")
     require(bool((video[0, 1:].abs().amax(dim=(1, 2, 3)) > 0).all()),
             "rollout: a generated frame is still all zeros")
-    require_launches("the 200-frame rollout", launches,
+    require_launches(f"the {n}-frame rollout", launches,
                      expected_uvit_launches(fs, forwards=n_windows * steps))
     out["rollout"] = launches
     CARRIED["rollout"] = video[:, :2 * FVMD_FRAMES].cpu()  # phase 23's FVMD clips
@@ -2609,7 +2659,8 @@ def profiled(record: dict, key: str, what: str, run, unprofiled_s=None) -> None:
     # device-side entries that are kernels or copies: torch.optim's profiler
     # annotation ("Optimizer.step#AdamW.step") also shows up on the device
     # side and would count the optimizer's kernels twice
-    kernels = [e for e in prof.key_averages()
+    averages = prof.key_averages()  # built once: it walks every event
+    kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("Optimizer.")]
@@ -2621,7 +2672,7 @@ def profiled(record: dict, key: str, what: str, run, unprofiled_s=None) -> None:
         top.append({"kernel": e.key[:160], "class": cls, "ms": ms, "calls": e.count})
     busy = sum(by_class.values()) / 1e3
     host = sorted(
-        (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
+        (e for e in averages if e.device_type == torch.autograd.DeviceType.CPU),
         key=lambda e: -e.self_cpu_time_total)[:15]
     record[key] = {
         "wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall if busy else None,
@@ -2634,7 +2685,7 @@ def profiled(record: dict, key: str, what: str, run, unprofiled_s=None) -> None:
     # the profiler's events refer to each other in cycles: free them here, or
     # the collector may do it inside a later timed step (without this the
     # first timed train step stalled for about a second)
-    del prof, kernels, host
+    del prof, averages, kernels, host
     gc.collect()
     if not busy:
         log(f"profiled {what}: the profiler saw no device time (not measured)")
@@ -3381,9 +3432,9 @@ def run_guided_window_paths(record: dict) -> dict:
     require_launches("the guided window", launches, expected_uvit_launches(fs, train_steps=evals))
     del ro, video
     ro = make_rollout(fs, model, dataclasses.replace(
-        fs.dcfg, sampling_timesteps=PROFILED_WINDOW_STEPS,
+        fs.dcfg, sampling_timesteps=GUIDED_PROFILE_STEPS,
         reconstruction_guidance=GUIDANCE_WEIGHT))
-    profiled(record, "guided_profile", f"{PROFILED_WINDOW_STEPS}-step guided window",
+    profiled(record, "guided_profile", f"{GUIDED_PROFILE_STEPS}-step guided window",
              lambda: run_window(ro, fs, seed=95, first=first))
     del ro, model
     gc.collect()
@@ -3933,17 +3984,33 @@ REMAT_MEMORY_SHARE = 0.95
 REMAT_CONTROL_SCALE = 1.5
 # where the control must show: the output projection of a checkpointed block,
 # whose weight gradient reads the kept tensor
-REMAT_CONTROL_PROBE = {"flagship": "mid_blocks.10.attn_out.weight",
+REMAT_CONTROL_PROBE = {"flagship": "mid_blocks.3.attn_out.weight",
                        "xl": "dit_base.blocks.14.attn.proj.weight"}
+# the flagship of the remat sweep and of phase 25's window and run(argv):
+# full width, depth cut for the smoke's time (one up and one down block a
+# conv level, two at level 2, four mid blocks; both transformer levels stay,
+# level 3 checkpointed as the recipe's); the sweep's probes
+FLAGSHIP_CUT_DEPTH = dict(num_updown_blocks=(1, 1, 2), num_mid_blocks=4)
+REMAT_FLAGSHIP_PROBES = (
+    "down_blocks.0.0.in_layers.2.weight",
+    "down_blocks.2.0.fused_attn_mlp_proj.weight",
+    "down_blocks.2.0.q_norm.weight",
+    "mid_blocks.3.fused_attn_mlp_proj.weight",
+    "mid_blocks.3.q_norm.weight",
+    "mid_blocks.3.k_norm.weight",
+    "up_blocks.0.2.attn_out.weight",
+    "up_blocks.0.2.q_norm.weight",
+    "up_blocks.2.1.out_rest.1.weight",
+)
 # VAE training through run(argv) on seeded directories in the recipes'
 # layouts; the adversarial term from step VAE_DISC_START (0-based) on
 VAE_DISC_START = 2
-VAE_STEPS = 6
+VAE_STEPS = 4  # cut from the recipe's run for time; the adversarial term runs from the third
 VAE_RES = 128
 K600_VAE_VIDEOS = (("training", 12, 17), ("validation", 2, 17))
 MINECRAFT_VAE_VIDEOS = (("training", 12, 16), ("validation", 2, 16))
 # the first step on the card against the CPU in fp32 (TF32 off), on one
-# clip at full width with its frames cut (CPU time): relative error of every
+# clip at full width with its frames and pixels cut (CPU time): relative error of every
 # logged loss and relative L2 of the autoencoder's gradient, 1e-4 with a
 # smooth (squared) reconstruction loss. The recipe's L1 loss has a gradient
 # of sign(recon - x): an element where the two devices round recon - x to
@@ -3958,6 +4025,7 @@ VAE_CPU_SIGN_TOL = 1e-2
 VAE_CPU_WEIGHT_TOL = 1e-2
 VAE_CPU_ADV_TOL = 5e-2
 VAE_CPU_FRAMES = {"video": 5, "image": 2}
+VAE_CPU_CROP = 64  # the clip's top-left 64 x 64 pixels, cut from 128 for CPU time
 # the preprocessors at their published widths on seeded weights
 PRE_RES = 256
 # DMLab keeps the videos of max_frames (16) frames and more
@@ -4131,10 +4199,10 @@ def run_remat_model(record: dict, key: str, what: str, r, model, batch_fn, loss_
         torch.cuda.reset_peak_memory_stats()
         state = make_train_state(r, model)
         step = make_train_step(r)
-        expect = expect_fn(train_steps=TRAIN_STEPS)
+        expect = expect_fn(train_steps=REMAT_STEPS)
         out = drive_train_steps(rec, policy, f"{what} under remat {policy}", model, state, step,
                                 batch_fn(B), probes, expect, r.train.num_warmup_steps,
-                                r.train.grad_clip)
+                                r.train.grad_clip, steps=REMAT_STEPS)
         rec[policy]["kept_bytes_per_sample"] = kept
         profiled(rec, f"{policy}_profile", f"{what} train step under remat {policy}",
                  lambda: out["step"](out["state"], out["batch"], out["gen"]),
@@ -4146,7 +4214,7 @@ def run_remat_model(record: dict, key: str, what: str, r, model, batch_fn, loss_
         record.setdefault("remat_launches", {})[f"{key}_{policy}"] = out["launches"]
         del out, state, step
     set_remat_policy(model, r.spec.remat_policy)
-    log(f"{what}, per policy: step wall (median of {TRAIN_STEPS}), peak memory, device busy "
+    log(f"{what}, per policy: step wall (median of {REMAT_STEPS}), peak memory, device busy "
         f"in the profiled step, B1 / B2 / B3 ms a step:")
     for policy in REMAT_POLICIES:
         p = rec[policy]
@@ -4158,8 +4226,9 @@ def run_remat_model(record: dict, key: str, what: str, r, model, batch_fn, loss_
 
 
 def run_remat_paths(record: dict) -> dict:
-    """Phase 21 (a): K600 @DiT/XL at full depth and the flagship (level 3
-    checkpointed) under none, dots, attn and dots_attn."""
+    """Phase 21 (a): K600 @DiT/XL at full depth and the flagship at full
+    width, depth cut to :data:`FLAGSHIP_CUT_DEPTH` (level 3 checkpointed),
+    under none, dots, attn and dots_attn."""
     import dataclasses
 
     from dfot_tpu_torch.algorithms.dfot_video import flagship, k600_dit_xl, make_train_apply
@@ -4182,12 +4251,13 @@ def run_remat_paths(record: dict) -> dict:
 
     torch.cuda.empty_cache()
     fs = flagship()
-    fs = fs._replace(train=fs.train._replace(num_warmup_steps=2))
+    fs = fs._replace(spec=dataclasses.replace(fs.spec, **FLAGSHIP_CUT_DEPTH),
+                     train=fs.train._replace(num_warmup_steps=2))
     model = build_random_model(fs, seed=74, token_io=False)
     out.update(run_remat_model(
-        record, "flagship", "flagship", fs, model, lambda B: train_batch(fs, B, seed=75),
-        lambda B: flagship_loss_fn(fs, model, B, 76),
-        GRAD_PROBES + (REMAT_CONTROL_PROBE["flagship"],),
+        record, "flagship", "flagship (depth cut)", fs, model,
+        lambda B: train_batch(fs, B, seed=75), lambda B: flagship_loss_fn(fs, model, B, 76),
+        REMAT_FLAGSHIP_PROBES + (REMAT_CONTROL_PROBE["flagship"],),
         lambda **kw: expected_uvit_launches(fs._replace(spec=model.spec), **kw)))
     del model
     gc.collect()
@@ -4225,7 +4295,7 @@ def vae_first_step_against_cpu(rec: dict, exp, videos, kind: str) -> None:
     from dfot_tpu_torch.vae import distribution as D
     from dfot_tpu_torch.vae.losses import BatchNorm
 
-    clip = videos[:1, :VAE_CPU_FRAMES[kind]]
+    clip = videos[:1, :VAE_CPU_FRAMES[kind], :VAE_CPU_CROP, :VAE_CPU_CROP]
     cpu = copy.copy(exp)
     cpu.device = torch.device("cpu")
     cpu.vae = copy.deepcopy(exp.vae).cpu()
@@ -5266,14 +5336,14 @@ def run_fvmd(rec: dict, clips, source: str) -> None:
 
 
 def rollout_clips():
-    """Two 16-frame clips of the 200-frame rollout (frames 0-15 and
+    """Two 16-frame clips of the 72-frame rollout (frames 0-15 and
     16-31), in [0, 1]."""
     video = CARRIED["rollout"]
     return tuple(((video[:, i:i + FVMD_FRAMES].float() + 1) / 2).clamp(0, 1)
                  for i in (0, FVMD_FRAMES))
 
 
-def run_metric_paths(record: dict, clips=None, source: str = "the 200-frame rollout") -> dict:
+def run_metric_paths(record: dict, clips=None, source: str = "the 72-frame rollout") -> dict:
     """Phase 23: the metric suite on the card. (a) I3D, InceptionV3 at 299,
     LPIPS, CLIP B/32 and L/14 and DINO B/16 against the CPU; (b) K600's
     validation as composed through ``run(argv)``; (c) FVMD on two 16-frame
@@ -5508,7 +5578,7 @@ def run_fvmd_pips(rec: dict, clips, source: str, weights_dir: Path) -> None:
     require_registry_on_card(reg, ("pips",), "FVMD", calibrated=True)
 
 
-def run_a15c_paths(record: dict, clips=None, source: str = "the 200-frame rollout") -> dict:
+def run_a15c_paths(record: dict, clips=None, source: str = "the 72-frame rollout") -> dict:
     """Phase 24: RAFT, AMT-S, PIPs2 and MUSIQ. (a) each network on the card
     against the CPU at the metrics' shapes; (b) K600's validation as composed
     with the four weight files; (c) FVMD with PIPs2. Returns the launch
@@ -5533,6 +5603,304 @@ def run_a15c_paths(record: dict, clips=None, source: str = "the 200-frame rollou
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 24: {rec['seconds']:.1f} s")
     return {"k600_a15c": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: ring attention, the sequence-parallel window, a one-rank NCCL run
+# ---------------------------------------------------------------------------
+
+# the flagship's two attention shapes (level 2, level 3) at the window's
+# batch (B * NFE = 2), as (name, B, H, N, D)
+RING_SITES = (("level2", 2, 9, 8192, 64), ("level3", 2, 9, 2048, 128))
+RING_SIZES = (2, 4)
+RING_MAIN_SIZE = 2  # the ring of the kernels line and of the window
+RING_REL_TOL = 1e-2  # relative L2 of the ring against its plain version (B1's bound)
+RING_CLI_STEPS = 2
+RING_CLI_SAMPLING_STEPS = 10
+
+
+def ring_inputs(B: int, H: int, N: int, D: int, seed: int):
+    """Seeded peaked bf16 q, k, v (score std about 3) and an upstream
+    gradient."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(scale):
+        return (torch.randn(B, H, N, D, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    return rand(3.0 ** 0.5), rand(3.0 ** 0.5), rand(1.0), rand(1.0)
+
+
+def ring_skipping_one_hop(q, k, v, ring):
+    """Control: the ring's forward with the last hop's block left out of the
+    fold (the kernels of the port, one fold fewer)."""
+    import math
+
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    qs, ks, vs = (ring.shard(t) for t in (q, k, v))
+    scale, d = 1.0 / math.sqrt(q.shape[-1]), q.shape[-1]
+    o, lse = RA.block_attention(qs, ks, vs, scale, d, False)
+    for hop in range(1, ring.size):
+        ks, vs = ring.hop(ks, vs)
+        if hop < ring.size - 1:
+            o, lse = RA.fold_block(o, lse, *RA.block_attention(qs, ks, vs, scale, d, False))
+    return ring.gather(o.to(q.dtype))
+
+
+def ring_grads(fn, q, k, v, do):
+    """(o, dq, dk, dv) of ``fn(q, k, v)`` against the upstream gradient."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o = fn(*leaves)
+    return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+
+def check_ring_kernels(record: dict, results: dict) -> None:
+    """Ring attention on a LocalRing of R = 2 and 4 at the flagship's two
+    attention shapes: forward and backward against the plain ring (the same
+    ring over the plain attention and its backward formulas) and against
+    unsharded B1 + B4 + B5, by relative L2 within :data:`RING_REL_TOL`; the
+    exact launches of one call (R of B1 forward, R each of B4 and B5
+    backward); a control whose fold skips one hop must miss the bound;
+    device times of the whole ring (forward; forward + backward), of one hop
+    (B1, B4, B5 on the merged R x B batch of N / R rows) and of the fold
+    between hops, beside B1's bound at the hop shape and SDPA on the full N."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.ops import attention as A
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    rec = record.setdefault("ring", {})["kernels"] = {}
+    results.setdefault("ring_block", {"by_site": {}})
+    log(f"ring attention (LocalRing) at the flagship's attention shapes, bf16, relative L2 "
+        f"tol {RING_REL_TOL}:")
+    for i, (name, B, H, N, D) in enumerate(RING_SITES):
+        q, k, v, do = ring_inputs(B, H, N, D, seed=250 + i)
+        scale = 1.0 / math.sqrt(D)
+        ops_full = attention_ops(B, H, N, D)
+        unsharded = ring_grads(lambda a, b, c: A.flash_attention(a, b, c), q, k, v, do)
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        for R in RING_SIZES:
+            ring = RA.LocalRing(R)
+            site = f"{name} R={R} B={B} H={H} N={N} d={D}"
+            ops.reset_launch_counts()
+            got = ring_grads(lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring),
+                             q, k, v, do)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            expect = dict(no_launches(), flash_fwd=R, ring_block=R, flash_bwd_dq=R,
+                          flash_bwd_dkv=R)
+            require_launches(f"one ring call at {site}", launches, expect)
+            plain = ring_grads(
+                lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring, plain=True),
+                q, k, v, do)
+            labels = ("o", "dq", "dk", "dv")
+            vs_plain = {lb: rel_l2(g, w) for lb, g, w in zip(labels, got, plain)}
+            vs_unsharded = {lb: rel_l2(g, w) for lb, g, w in zip(labels, got, unsharded)}
+            control = rel_l2(ring_skipping_one_hop(q, k, v, ring), plain[0])
+            require(max(vs_plain.values()) <= RING_REL_TOL,
+                    f"ring at {site}: off its plain version by {vs_plain}")
+            require(max(vs_unsharded.values()) <= RING_REL_TOL,
+                    f"ring at {site}: off unsharded B1 + B4 + B5 by {vs_unsharded}")
+            require(control > RING_REL_TOL,
+                    f"ring at {site}: the bound does not reject a fold that skips one hop "
+                    f"({control:.3e})")
+            # device times: the whole ring, one hop's kernels, the fold
+            fwd = lambda: RA.sequence_parallel_attention(q, k, v, ring)  # noqa: E731
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = RA.sequence_parallel_attention(*leaves, ring)
+            ring_ms = cuda_ms(fwd)
+            ring_train_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                                retain_graph=True)) + ring_ms
+            qs, ks, vs, dos = (ring.shard(t) for t in (q, k, v, do))
+            o_hop, lse_hop = A.flash_attention(qs, ks, vs, return_lse=True)
+            delta = (dos.float() * o_hop.float()).sum(-1, keepdim=True)
+            hop_b1 = cuda_ms(lambda: A.flash_attention(qs, ks, vs, return_lse=True))
+            hop_b4 = cuda_ms(lambda: A.flash_bwd_dq(qs, ks, vs, dos, lse_hop, delta))
+            hop_b5 = cuda_ms(lambda: A.flash_bwd_dkv(qs, ks, vs, dos, lse_hop, delta))
+            acc, acc_lse = o_hop.float(), lse_hop
+            fold_ms = cuda_ms(lambda: RA.fold_block(acc, acc_lse, acc, acc_lse))
+            hop_bound = bound(attention_ops(R * B, H, N // R, D),
+                              nbytes(qs, ks, vs, o_hop, lse_hop), PEAK_BF16_FLOPS)
+            whole_bound = bound(ops_full, nbytes(q, k, v, q), PEAK_BF16_FLOPS)
+            plain_ms = cuda_ms(
+                lambda: RA.sequence_parallel_attention(q, k, v, ring, plain=True), reps=3,
+                warmup=1)
+            entry = {
+                "R": R, "vs_plain": vs_plain, "vs_unsharded": vs_unsharded,
+                "control_skip_one_hop": control, "launches": launches,
+                "ring_ms": ring_ms, "ring_cold_ms": cold_ms(fwd),
+                "ring_fwd_bwd_ms": ring_train_ms, "plain_ms": plain_ms,
+                "hop_ms": {"B1": hop_b1, "B4": hop_b4, "B5": hop_b5, "fold": fold_ms},
+                "hop_b1_bound": hop_bound, "bound": whole_bound, "sdpa_full_n_ms": sdpa,
+            }
+            rec[site] = entry
+            log(f"  {site}: vs plain {max(vs_plain.values()):.3e}, vs unsharded "
+                f"{max(vs_unsharded.values()):.3e}, control (one hop skipped) {control:.3e}; "
+                f"ring {ring_ms:.4f} ms (cold {entry['ring_cold_ms']:.4f}), fwd+bwd "
+                f"{ring_train_ms:.4f} ms, plain {plain_ms:.3f} ms; a hop: B1 {hop_b1:.4f} ms "
+                f"(bound {hop_bound['bound_ms']:.4f}), B4 {hop_b4:.4f}, B5 {hop_b5:.4f}, fold "
+                f"{fold_ms:.4f} ms; whole bound {whole_bound['bound_ms']:.4f} ms, SDPA on "
+                f"N={N} {sdpa:.4f} ms")
+            results["ring_block"]["by_site"][site] = {
+                "main": R == RING_MAIN_SIZE, "max_abs_err": max_err(got[0], plain[0]),
+                "ms": ring_ms, "cold_ms": entry["ring_cold_ms"], "plain_ms": plain_ms,
+                "bound_ms": whole_bound["bound_ms"], "bound_by": whole_bound["bound_by"],
+                "library_ms": sdpa,
+            }
+            del got, plain, leaves, out, qs, ks, vs, dos, o_hop, lse_hop, delta, acc, acc_lse
+        del q, k, v, do, unsharded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_ring_window(record: dict) -> dict:
+    """The flagship's 8-frame, 50-step vanilla-HG window at full width, its
+    depth cut to :data:`FLAGSHIP_CUT_DEPTH`, on a bf16 copy of seeded random weights, with the
+    sequence-parallel context on a LocalRing of two ranks (every transformer
+    level's attention takes the ring: 4096 and 1024 query rows a rank)
+    against the same window unsharded, the same weights and noise: relative
+    L2 within :data:`WINDOW_REL_TOL`, the ring's exact launches (B1 as
+    ring blocks, two a block a forward; no B2, B3), wall times."""
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.algorithms.dfot_video import flagship
+    from dfot_tpu_torch.ops import attention as A
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    import dataclasses
+
+    fs = flagship()
+    fs = fs._replace(spec=dataclasses.replace(fs.spec, **FLAGSHIP_CUT_DEPTH))
+    steps = fs.dcfg.sampling_timesteps
+    model = sampling_copy(fs, build_random_model(fs, seed=90, token_io=False))
+    ro = make_rollout(fs, model, fs.dcfg)
+    first = seeded_image(fs, 91)
+    run_window(ro, fs, seed=92, first=first)  # warm-up
+    torch.cuda.synchronize()
+    walls, videos, launches = {}, {}, {}
+    for form in ("unsharded", "ring"):
+        prior = A.set_sequence_parallel(RA.LocalRing(RING_MAIN_SIZE) if form == "ring" else None)
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            videos[form] = run_window(ro, fs, seed=93, first=first)
+            torch.cuda.synchronize()
+            walls.setdefault(form, []).append(time.perf_counter() - t0)
+            launches[form] = ops.launch_counts()
+        finally:
+            A.set_sequence_parallel(prior)
+    err = rel_l2(videos["ring"], videos["unsharded"])
+    blocks = launches["unsharded"]["flash_fwd"] // steps  # transformer blocks a forward
+    expect = dict(no_launches(), flash_fwd=steps * blocks * RING_MAIN_SIZE,
+                  ring_block=steps * blocks * RING_MAIN_SIZE)
+    require_launches("the ring window", launches["ring"], expect)
+    require(err <= WINDOW_REL_TOL, f"the ring window is off the unsharded one by {err:.3e}")
+    require(bool(torch.isfinite(videos["ring"]).all()), "the ring window is not finite")
+    rec = record.setdefault("ring", {})["window"] = {
+        "rel_l2_vs_unsharded": err, "tol": WINDOW_REL_TOL, "wall_s": walls,
+        "launches": launches["ring"], "ring_size": RING_MAIN_SIZE}
+    log(f"flagship 8-frame window (depth cut to {FLAGSHIP_CUT_DEPTH}), {steps} DDIM steps, vanilla "
+        f"HG 4.0, sequence-parallel on a LocalRing of {RING_MAIN_SIZE}: relative L2 {err:.3e} "
+        f"against the unsharded window "
+        f"(tol {WINDOW_REL_TOL}); wall ring {', '.join(f'{w:.3f}' for w in walls['ring'])} s, "
+        f"unsharded {', '.join(f'{w:.3f}' for w in walls['unsharded'])} s; launches "
+        f"{launches['ring']}")
+    del model, ro, videos
+    return launches["ring"]
+
+
+RING_CLI_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from dfot_tpu_torch import ops
+from dfot_tpu_torch.__main__ import run
+ops.reset_launch_counts()
+exp = run(json.loads(sys.argv[2]))
+torch.cuda.synchronize()
+print(json.dumps({"launches": ops.launch_counts(), "metrics": exp.last_metrics,
+                  "saves": [s["step"] for s in exp.saves],
+                  "peak_bytes": torch.cuda.max_memory_allocated()}))
+"""
+
+
+def run_ring_cli(record: dict) -> dict:
+    """``run(argv)`` in a child process with ``torchrun``'s environment of
+    one process: the flagship (full width, depth cut to :data:`FLAGSHIP_CUT_DEPTH`,
+    fresh seeded init) through a one-rank NCCL group and its (1, 1) mesh, 2 train steps at
+    batch 2, then one validation batch with the sampling steps cut to
+    :data:`RING_CLI_SAMPLING_STEPS`; the child prints the backend and world
+    size."""
+    import shutil
+    import socket
+
+    root = ROOT / "build" / "ring_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    argv = [a for a in README_RE10K if not a.startswith(("load=", "experiment.tasks"))] + [
+        "experiment.tasks=[training,validation]", f"output_dir={root}",
+        f"experiment.training.max_steps={RING_CLI_STEPS}", "experiment.training.batch_size=2",
+        "experiment.validation.limit_batch=1", f"experiment.validation.batch_size={CLI_BATCH}",
+        f"algorithm.diffusion.sampling_timesteps={RING_CLI_SAMPLING_STEPS}",
+        "experiment.training.data.num_workers=0", "++algorithm.logging.loss_freq=1",
+        "++algorithm.logging.max_num_videos=0", "++algorithm.logging.metrics=[mse,psnr]",
+        "wandb.mode=disabled",
+        "++algorithm.backbone.num_updown_blocks=[" + ",".join(
+            str(n) for n in FLAGSHIP_CUT_DEPTH["num_updown_blocks"]) + "]",
+        f"++algorithm.backbone.num_mid_blocks={FLAGSHIP_CUT_DEPTH['num_mid_blocks']}"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", RING_CLI_WORKER, str(ROOT), json.dumps(argv)],
+                              env=env, capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the one-rank NCCL run(argv) failed:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    group = next((ln for ln in lines if ln.startswith("process group:")), None)
+    require(group == "process group: backend nccl, world size 1",
+            f"the one-rank run did not report its NCCL group: {group!r}")
+    info = json.loads(lines[-1])
+    require(info["saves"] and info["saves"][-1] == RING_CLI_STEPS,
+            f"the one-rank run saved {info['saves']}")
+    require(bool(info["metrics"]) and all(math.isfinite(v) for v in info["metrics"].values()),
+            f"the one-rank run's validation metrics: {info['metrics']}")
+    require(info["launches"]["flash_bwd_dq"] > 0 and info["launches"]["flash_fwd"] > 0,
+            f"the one-rank run launched {info['launches']}")
+    record.setdefault("ring", {})["cli"] = {"wall_s": wall, **info, "group": group}
+    log(f"python -m dfot_tpu_torch through a one-rank NCCL group ({group}): {wall:.1f} s wall "
+        f"with the child's start, {RING_CLI_STEPS} train steps at batch 2 and one validation "
+        f"batch of {RING_CLI_SAMPLING_STEPS} steps; metrics {info['metrics']}; peak "
+        f"{info['peak_bytes'] / 2**30:.2f} GiB; launches {info['launches']}")
+    return info["launches"]
+
+
+def run_ring_paths(record: dict, results: dict) -> dict:
+    """Phase 25: ring attention's kernels at the flagship's shapes, the
+    flagship's window with the sequence-parallel context on a LocalRing, and
+    ``run(argv)`` through a one-rank NCCL group."""
+    t_phase = time.perf_counter()
+    log("ring attention and the process-group layer (phase 25):")
+    check_ring_kernels(record, results)
+    out = {"ring_window": run_ring_window(record)}
+    out["ring_cli"] = run_ring_cli(record)
+    record["ring"]["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 25: {record['ring']['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -5576,20 +5944,33 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "nvcc_build.log").write_text(_cuda.build_info["log"])
 
+    laps = record.setdefault("phase_seconds", {})
+    t_lap = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        """The seconds since the previous lap, logged and recorded."""
+        now = time.perf_counter()
+        laps[label] = now - t_lap[0]
+        log(f"  [{label}: {laps[label]:.1f} s]")
+        t_lap[0] = now
+
     try:
         log("kernels vs plain versions at the shapes of the paths (bf16):")
         results = check_kernels(record)
+        lap("kernel checks")
         from dfot_tpu_torch.algorithms.dfot_video import flagship, uvit3d_pose_base
 
         small_window_check(record)
         by_path = run_uvit_paths(record, flagship(), "", "flagship", (0, 4, 5, 6, 7, 9),
                                  GRAD_PROBES)
+        lap("flagship paths")
         gc.collect()
         torch.cuda.empty_cache()
 
         # the long-video tasks
         small_rollout_check(record)
         by_path.update(run_long_video_paths(record, flagship()))
+        lap("long-video paths")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5601,6 +5982,7 @@ def main() -> int:
         by_path["axial"] = run_axial_path(
             record, flagship(), (2, 3), AXIAL_DEPTH, "axial", "axial U-ViT", (40, 41, 42),
             AXIAL_GRAD_PROBES, AXIAL_NORM_PROBES)
+        lap("DiT family and axial U-ViT")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5613,16 +5995,19 @@ def main() -> int:
             record, uvit3d_pose_base(), (3,), BASE_AXIAL_DEPTH, "base_axial",
             "base-width axial U-ViT", (60, 61, 62), BASE_AXIAL_GRAD_PROBES,
             BASE_AXIAL_NORM_PROBES)
+        lap("base widths")
         gc.collect()
         torch.cuda.empty_cache()
 
         # the validation entry point
         by_path["cli"] = run_cli_validation(record, smi)
+        lap("phase 17")
         gc.collect()
         torch.cuda.empty_cache()
 
         # the training entry point
         by_path["train_loop"] = run_cli_training(record, smi)
+        lap("phase 18")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5630,43 +6015,58 @@ def main() -> int:
         by_path.update(run_matrix_paths(record))
         by_path["guided_window"] = run_guided_window_paths(record)
         by_path["axial_precomputed"] = run_axial_precomputed_path(record)
+        lap("phase 19")
         gc.collect()
         torch.cuda.empty_cache()
 
         # the latent path: on-disk data, the VAEs, preprocessing
         by_path.update(run_latent_paths(record, smi))
+        lap("phase 20")
         gc.collect()
         torch.cuda.empty_cache()
 
         # selective remat, VAE training, TiTok and kl-f8 preprocessing
         by_path.update(run_slice15_paths(record, smi))
+        lap("phase 21")
         gc.collect()
         torch.cuda.empty_cache()
 
         # UNet3D, the difference DFoT, FAR-DiT and DiT1D
         by_path.update(run_slice16_paths(record))
+        lap("phase 22")
         gc.collect()
         torch.cuda.empty_cache()
 
         # the metric suite
         by_path.update(run_metric_paths(record))
+        lap("phase 23")
         gc.collect()
         torch.cuda.empty_cache()
 
         # RAFT, AMT-S, PIPs2 and MUSIQ
         by_path.update(run_a15c_paths(record))
+        lap("phase 24")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ring attention, the sequence-parallel window, a one-rank NCCL run
+        by_path.update(run_ring_paths(record, results))
+        lap("phase 25")
         for name, _, _ in KERNELS:
-            require(any(by_path[path][name] for path in PATHS),
+            require(any(by_path[path].get(name, 0) for path in PATHS),
                     f"kernel {name} was launched on no path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+        write_timeline()
         return 1
+    write_timeline()
     record["seconds_total"] = time.perf_counter() - t_start
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"chip_smoke: all phases passed in {record['seconds_total']:.1f} s")
 
-    launches = {name: {path: by_path[path][name] for path in PATHS} for name, _, _ in KERNELS}
+    launches = {name: {path: by_path[path].get(name, 0) for path in PATHS}
+                for name, _, _ in KERNELS}
     log(smi)
     log(json.dumps({"kernels": kernel_summary(results, launches)}))
     log(json.dumps({"ok": True, "device": {

@@ -13,10 +13,17 @@ the run directory ``output_dir/<experiment>/<task>/<dataset>/<algorithm>/<stamp>
 resolves ``load=<run id or name>`` through the run registry
 (``output_dir/registry.jsonl``) to that run's newest checkpoint, registers
 this run there, prints its id and runs each task of ``experiment.tasks``
-(``training``, ``validation``, ``test``) on the card. Not ported, and so
-raising ``NotImplementedError`` with their ROADMAP.md queue item: cluster
-dispatch (``cluster=``) and multi-process launches (A16). The XLA
-compilation cache of ``main.py`` has no counterpart here.
+(``training``, ``validation``, ``test``) on the card.
+
+Several processes: ``torchrun --nproc_per_node=N -m dfot_tpu_torch ...``
+(or a SLURM job of several tasks) makes the process group before anything
+touches the card (``parallel.multihost.initialize``; NCCL, each process on
+its ``LOCAL_RANK``'s card), rank 0's clock stamps the one run directory,
+and rank 0 registers the run; a one-process ``torchrun`` launch makes a
+one-rank group. The group is taken down when the run ends. Cluster dispatch
+(``cluster=``) is not ported and raises ``NotImplementedError`` naming
+ROADMAP.md A16b. The XLA compilation cache of ``main.py`` has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -29,27 +36,33 @@ from datetime import datetime
 __all__ = ["run"]
 
 
-def _multiprocess_launch() -> bool:
-    """True when the environment says this is one of several processes."""
-    for var in ("WORLD_SIZE", "SLURM_NTASKS"):
-        try:
-            if int(os.environ.get(var, "1")) > 1:
-                return True
-        except ValueError:
-            pass
-    return bool(os.environ.get("COORDINATOR_ADDRESS") or os.environ.get("JAX_COORDINATOR_ADDRESS"))
-
-
 def run(argv, device=None):
     """Compose the config from ``argv`` and run its tasks on ``device``
-    (None: the card). Returns the experiment, closed."""
+    (None: the card; ``"cpu"``: a multi-process launch then runs under gloo).
+    Returns the experiment, closed."""
+    import torch.distributed as dist
+
+    from .parallel import multihost
+
+    made_group = not dist.is_initialized()
+    multihost.initialize(device=device)
+    made_group = made_group and dist.is_initialized()
+    try:
+        if dist.is_initialized():
+            multihost.rank_zero_print(f"process group: backend {dist.get_backend()}, "
+                                      f"world size {dist.get_world_size()}")
+        return _run(argv, device)
+    finally:
+        if made_group:
+            dist.destroy_process_group()
+
+
+def _run(argv, device):
     from .config import load_config
     from .experiments import build_experiment
+    from .parallel import multihost
     from .training.checkpoint import register_run, resolve_run_checkpoint
 
-    if _multiprocess_launch():
-        raise NotImplementedError(
-            "multi-process launches are not ported yet (ROADMAP.md queue A16)")
     t0 = time.perf_counter()
     cfg = load_config(argv)
     compose_s = time.perf_counter() - t0
@@ -57,10 +70,14 @@ def run(argv, device=None):
         raise ValueError("must specify a name for the run with command line argument '+name=[name]'")
     if cfg.get("cluster") is not None:
         raise NotImplementedError(
-            "cluster dispatch is not ported yet (ROADMAP.md queue A16)")
+            "cluster dispatch is not ported yet (ROADMAP.md queue A16b)")
 
     choices = cfg.get("_choices", {})
-    stamp = datetime.now().strftime("%Y-%m-%d/%H-%M-%S")
+    # one run directory for every process: rank 0's clock, to the second
+    now = datetime.now()
+    if multihost.world_size() > 1:
+        now = datetime.fromtimestamp(multihost.broadcast_from_zero(now.timestamp()))
+    stamp = now.strftime("%Y-%m-%d/%H-%M-%S")
     output_dir = os.path.join(
         str(cfg.output_dir),
         str(choices.get("experiment", "exp")),
@@ -78,10 +95,12 @@ def run(argv, device=None):
             raise FileNotFoundError(
                 f"load={load}: no such file or directory, and no run of that id or name with a "
                 f"checkpoint in {os.path.join(str(cfg.output_dir), 'registry.jsonl')}")
-        print(f"resolved load={load} -> {resolved}")
+        multihost.rank_zero_print(f"resolved load={load} -> {resolved}")
         load = resolved
-    run_id = register_run(str(cfg.output_dir), str(cfg.name), output_dir)
-    print(f"run id: {run_id} (load={run_id} resumes this run's checkpoints)")
+    if multihost.is_rank_zero():
+        run_id = register_run(str(cfg.output_dir), str(cfg.name), output_dir)
+        print(f"run id: {run_id} (load={run_id} resumes this run's checkpoints)")
+    multihost.barrier("registry")  # rank 0 has registered the run
 
     experiment = build_experiment(cfg, output_dir, load, device)
     experiment.timings["compose_s"] = compose_s

@@ -455,6 +455,13 @@ class DFoTVideoAlgo:
         self.nl_cfg = NoiseLevelConfig.from_config(cfg, self.dcfg.timesteps,
                                                    self.n_context_tokens)
 
+    def set_sampling_mesh(self, mesh) -> None:
+        """Split the NFE-expanded sampling batch over ``mesh``'s data axis
+        (``sampling/sampler.py``; None: one process evaluates every row)."""
+        self.rollout_cfg = dataclasses.replace(self.rollout_cfg, mesh=mesh)
+        self.rollout = DFoTRollout(self.rollout_cfg, self.dcfg, self.sched,
+                                   self._autocast(self.model))
+
     # ------------------------------------------------------------------
     # bookkeeping
     # ------------------------------------------------------------------
@@ -607,25 +614,31 @@ class DFoTVideoAlgo:
             c.lr_scheduler.name, c.lr_scheduler.num_warmup_steps,
             c.lr_scheduler.get("num_training_steps", num_training_steps), accumulate_steps)
 
-    def make_train_step(self, ema_decay: float = 0.9999, accumulate_steps: int = 1) -> Callable:
+    def make_train_step(self, ema_decay: float = 0.9999, accumulate_steps: int = 1,
+                        rows=None, grad_sync: Optional[Callable] = None) -> Callable:
         """``train_step(state, batch, generator) -> (state, metrics)``, batch
-        {"xs": normalized (B, T, H, W, C), "masks", "conditions"} on the device."""
+        {"xs": normalized (B, T, H, W, C), "masks", "conditions"} on the
+        device; ``rows`` and ``grad_sync`` as ``training.trainer.make_train_step``
+        takes them (a data-parallel process's share)."""
         return _make_train_step(self._train_apply, self.dcfg, self.sched, self.nl_cfg,
-                                ema_decay, accumulate_steps=accumulate_steps)
+                                ema_decay, accumulate_steps=accumulate_steps, rows=rows,
+                                grad_sync=grad_sync)
 
     def make_eval_denoise(self) -> Callable:
         """``eval_denoise(batch, generator) -> (masked mean loss, x0
         reconstruction)`` on the model's current weights (the caller swaps
         the EMA in): noise levels without context dropout, no dropout, no
-        gradients. The draws can be injected (``noise_levels``, ``noise``)."""
+        gradients. The draws can be injected (``noise_levels``, ``noise``);
+        ``rows``: the batch is a data-parallel share (``training.trainer``)."""
 
         @torch.no_grad()
         def eval_denoise(batch: Dict, generator: Optional[torch.Generator], *,
-                         noise_levels=None, noise=None):
+                         noise_levels=None, noise=None, rows=None):
             self.model.eval()
             return denoising_loss(
                 self._train_apply, self.dcfg, self.sched, self.nl_cfg, self.model, batch["xs"],
-                batch.get("conditions"), batch["masks"], generator, False, noise_levels, noise)
+                batch.get("conditions"), batch["masks"], generator, False, noise_levels, noise,
+                rows)
 
         return eval_denoise
 

@@ -12,6 +12,7 @@ model's tokens and unmerges at the end.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -22,6 +23,7 @@ from ..diffusion.continuous import continuous_training_fields, continuous_v_loss
 from ..sampling import DFoTRollout
 from ..training.noise_levels import training_noise_levels
 from ..training.trainer import make_train_step as _make_train_step
+from ..training.trainer import training_noise
 from .dfot_video import DFoTVideoAlgo
 
 __all__ = ["DifferenceDFoTVideoAlgo"]
@@ -33,10 +35,17 @@ class DifferenceDFoTVideoAlgo(DFoTVideoAlgo):
         if self.merge_type not in ("concat", "interleaved"):
             raise ValueError(f"unsupported merge type {self.merge_type}")
         super().__init__(cfg, compute_dtype, device)
-        # windows over the merged stream: twice the model's tokens
+        self._merged_rollout()
+
+    def _merged_rollout(self) -> None:
+        """Windows over the merged stream: twice the model's tokens."""
         self.merged_rollout = DFoTRollout(
             dataclasses.replace(self.rollout_cfg, max_tokens=2 * self.max_tokens),
             self.dcfg, self.sched, self._autocast(self.model))
+
+    def set_sampling_mesh(self, mesh) -> None:
+        super().set_sampling_mesh(mesh)
+        self._merged_rollout()
 
     # -- merging ------------------------------------------------------------
     def merge(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -57,21 +66,23 @@ class DifferenceDFoTVideoAlgo(DFoTVideoAlgo):
         return torch.diff(xs, dim=1, prepend=xs[:, :1])
 
     # -- training -----------------------------------------------------------
-    def _merged_loss(self, model, xs, conditions, frame_mask, generator, noise_levels, noise):
+    def _merged_loss(self, model, xs, conditions, frame_mask, generator, noise_levels, noise,
+                     rows=None):
         """(masked mean loss over both streams, {"diff_loss", "xs_loss"}): the
         levels drawn per frame and tiled, ``noise`` over the merged (B, 2T,
-        ...) stream."""
+        ...) stream; ``rows`` a data-parallel share (``training.trainer``)."""
         dcfg, sched = self.dcfg, self.sched
         dev = sched.device
         draws = noise_levels if isinstance(noise_levels, dict) or noise_levels is None \
             else {"levels": noise_levels}
-        k, loss_mask = training_noise_levels(generator, self.nl_cfg, frame_mask, True, draws)
+        k, loss_mask = training_noise_levels(generator, self.nl_cfg, frame_mask, True, draws,
+                                             rows=rows)
         xs = xs.float()
         merged = self.merge(self.differences(xs), xs)
         k2, mask2 = self.merge(k, k), self.merge(loss_mask, loss_mask)
         cond2 = None if conditions is None else self.merge(conditions, conditions)
         if noise is None:
-            noise = dc.clipped_normal(merged.shape, dcfg.clip_noise, generator, dev, merged.dtype)
+            noise = training_noise(dcfg, merged.shape, generator, dev, merged.dtype, rows)
         else:
             noise = torch.as_tensor(noise, device=dev, dtype=merged.dtype).clamp(
                 -dcfg.clip_noise, dcfg.clip_noise)
@@ -89,13 +100,16 @@ class DifferenceDFoTVideoAlgo(DFoTVideoAlgo):
         return (loss * w2).mean(), {"diff_loss": (diff_loss * w1).mean(),
                                     "xs_loss": (xs_loss * w1).mean()}
 
-    def make_train_step(self, ema_decay: float = 0.9999, accumulate_steps: int = 1):
+    def make_train_step(self, ema_decay: float = 0.9999, accumulate_steps: int = 1,
+                        rows=None, grad_sync=None):
         """``train_step(state, batch, generator) -> (state, metrics)`` on the
         merged stream; metrics add ``diff_loss`` and ``xs_loss``. The draws
         can be injected as the base step's: ``noise_levels`` per frame (B,
         T), ``noise`` over the merged (B, 2T, ...) stream."""
         return _make_train_step(self._train_apply, self.dcfg, self.sched, self.nl_cfg,
-                                ema_decay, accumulate_steps, loss_fn=self._merged_loss)
+                                ema_decay, accumulate_steps,
+                                loss_fn=functools.partial(self._merged_loss, rows=rows),
+                                grad_sync=grad_sync)
 
     # -- sampling -----------------------------------------------------------
     def sample_videos(self, generator: Optional[torch.Generator], xs: torch.Tensor,

@@ -14,8 +14,16 @@ permutation shuffled, so batches come in the JAX loader's order whatever the
 worker count. The batches are stacked here, in the main process (:177-184),
 and the worker count is capped at the number of full batches (:170). A
 worker that dies raises in the loop that reads it. ``make_loader`` (:187)
-picks the worker loader when ``num_workers > 0``. Per-process shards
-(``process_shard``) are multi-GPU work (ROADMAP.md queue A16) and raise.
+picks the worker loader when ``num_workers > 0``.
+
+``process_shard=(index, count)`` gives this process its share of every
+epoch, disjoint from the other processes' and equal in length, as the JAX
+loaders do (:19-26): ``DataLoader`` the strided slice ``index::count`` of
+the epoch order (cut to a multiple of ``count`` under ``drop_last``, else
+padded by wrapping, :45-80); ``WorkerDataLoader`` grain's
+``ShardOptions(index, count, drop_remainder=True)`` (:131-150): the
+``index``-th of ``count`` consecutive equal pieces of the records, shuffled
+within the piece. ``batch_size`` is then the process's own batch.
 """
 
 from __future__ import annotations
@@ -33,10 +41,11 @@ def _collate(items) -> Dict[str, np.ndarray]:
     return {key: np.stack([it[key] for it in items]) for key in items[0]}
 
 
-def _no_shards(process_shard) -> None:
+def _check_shard(process_shard) -> None:
     if process_shard is not None:
-        raise NotImplementedError(
-            "per-process data shards are multi-GPU work, not ported yet (ROADMAP.md queue A16)")
+        index, count = process_shard
+        if not 0 <= index < count:
+            raise ValueError(f"process shard {index} outside {count} shards")
 
 
 def _batch_count(n: int, batch_size: int, drop_last: bool) -> int:
@@ -51,21 +60,34 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
                  process_shard: Optional[Tuple[int, int]] = None):
-        _no_shards(process_shard)
+        _check_shard(process_shard)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.process_shard = process_shard
         self.epoch = 0
 
     def __len__(self) -> int:
-        return _batch_count(len(self.dataset), self.batch_size, self.drop_last)
+        n = len(self.dataset)
+        if self.process_shard is not None:
+            count = self.process_shard[1]
+            n = n // count if self.drop_last else -(-n // count)
+        return _batch_count(n, self.batch_size, self.drop_last)
 
     def _index_order(self) -> np.ndarray:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        if self.process_shard is not None:
+            # one order on every process, then a strided slice each
+            index, count = self.process_shard
+            if self.drop_last:
+                order = order[:len(order) // count * count]
+            elif len(order) % count:
+                order = np.concatenate([order, order[:count - len(order) % count]])
+            order = order[index::count]
         return order
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -92,6 +114,24 @@ class _Sampler:
         return len(self.order)
 
 
+class _ShardOrder:
+    """One process's records of an epoch under grain's sharding with
+    ``drop_remainder``: piece ``index`` of ``count`` equal consecutive pieces
+    of the records, in the piece's own (shuffled) order."""
+
+    def __init__(self, num_records: int, process_shard, shuffle: bool, seed: int):
+        index, count = process_shard
+        self.length = num_records // count
+        self.start = index * self.length
+        self.order = EpochOrder(self.length, shuffle, seed)
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __iter__(self):
+        return (self.start + key for key in self.order)
+
+
 def _identity(item):
     return item
 
@@ -105,18 +145,22 @@ class WorkerDataLoader:
                  drop_last: bool = True, seed: int = 0, num_workers: int = 4,
                  process_shard: Optional[Tuple[int, int]] = None):
         self._pool = None
-        _no_shards(process_shard)
+        _check_shard(process_shard)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.process_shard = process_shard
         self.workers = max(1, min(num_workers, len(dataset) // batch_size))
         self.epoch = 0
         self._sampler = _Sampler()
 
     def __len__(self) -> int:
-        return _batch_count(len(self.dataset), self.batch_size, self.drop_last)
+        n = len(self.dataset)
+        if self.process_shard is not None:
+            n //= self.process_shard[1]
+        return _batch_count(n, self.batch_size, self.drop_last)
 
     def _loader(self):
         if self._pool is None:
@@ -128,8 +172,15 @@ class WorkerDataLoader:
                 multiprocessing_context="spawn", persistent_workers=True)
         return self._pool
 
+    def epoch_order(self):
+        """The record order of the next epoch, this process's share."""
+        seed = self.seed + self.epoch
+        if self.process_shard is None:
+            return EpochOrder(len(self.dataset), self.shuffle, seed)
+        return _ShardOrder(len(self.dataset), self.process_shard, self.shuffle, seed)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        self._sampler.order = EpochOrder(len(self.dataset), self.shuffle, self.seed + self.epoch)
+        self._sampler.order = self.epoch_order()
         self.epoch += 1
         buf = []
         for item in self._loader():

@@ -38,10 +38,34 @@ directory), else of this run's newest checkpoint, else of the train state,
 else the algorithm's seeded fresh init, whose numbers differ from the JAX
 package's. ``val_all_ckpt`` sweeps every ``checkpoint_<step>`` directory.
 
+Several processes (``parallel/``, a ``torchrun`` or SLURM launch): the
+training mesh (:126-185) is (data, fsdp[, tensor]) over the processes, its
+data axis the largest divisor of ``batch_size`` among the processes a ring
+leaves, the rest on fsdp. A data rank loads its share of every epoch
+(``process_shard``, ``batch_size`` // data rows), draws the global batch's
+noise levels and noise and takes its rows ``index::data``, its gradients
+are averaged over the data and fsdp axes, and the losses it logs are
+averaged over the data axis. With the in-process loader
+(``experiment.training.data.num_workers=0``) the share is the strided slice
+of the one-process order, so the run equals the one-process run (model
+dropout aside: ROADMAP.md C14). With loader workers the share is grain's
+(the rank's consecutive piece of the records, shuffled within), as the JAX
+package's ``GrainDataLoader`` under data parallelism: a step's rows are
+then other records than the one-process run's. fsdp > 1 wraps the model in
+FSDP2.
+``mesh.tensor`` with ``mesh.sequence_parallel`` makes the tensor axis the
+group of ring attention (``ops/ring_attention.py``), the weights replicated
+along it. Checkpoints are gathered whole and written, and metrics and videos
+logged, by rank 0. Validation (:517-555) samples every batch on every
+process, the NFE-expanded denoiser batch split over the validation mesh's
+data axis (``set_sampling_mesh``), and rank 0 scores; the mid-run
+validation's losses and reconstructions are the data ranks' shares,
+gathered (``gather_for_metrics``). The sequence-parallel ring is put back as
+it was after training and after each validation.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-queue item: ``algorithm.save_attn_map.enabled``, a training or validation mesh
-(``mesh.tensor > 1``, ``mesh.sequence_parallel``) and per-process data
-shards are A16.
+queue item: ``algorithm.save_attn_map.enabled`` and ``mesh.tensor > 1``
+without ``mesh.sequence_parallel`` (Megatron tensor parallelism) are A16b.
 
 Every configured metric is scored (``VideoMetric``), its frozen networks
 from one ``SharedMetricModelRegistry`` on the experiment's device with the
@@ -72,6 +96,18 @@ from ..data.loader import DataLoader, make_loader
 from ..data.video_dataset import build_dataset
 from ..metrics.registry import SharedMetricModelRegistry
 from ..metrics.video_metric import VideoMetric
+from ..ops.attention import set_sequence_parallel
+from ..ops.ring_attention import ProcessRing
+from ..parallel import multihost
+from ..parallel.mesh import (
+    average_gradients,
+    axis_group,
+    make_mesh,
+    mesh_shape,
+    shard_model,
+    unsharded,
+)
+from ..training.state import load_module_state
 from ..training.checkpoint import (
     latest_checkpoint,
     prune_checkpoints,
@@ -103,6 +139,26 @@ def _is_torch_file(path: str) -> bool:
     return path.startswith("pretrained:") or path.endswith(TORCH_CKPT_SUFFIXES)
 
 
+def _mesh_options(mesh_cfg) -> tuple:
+    """(tensor, sequence_parallel) of an experiment's ``mesh`` node; what the
+    port cannot run raises."""
+    mesh_cfg = mesh_cfg or {}
+    tensor = int(mesh_cfg.get("tensor", 1) or 1)
+    sequence_parallel = bool(mesh_cfg.get("sequence_parallel", False))
+    if tensor > 1 and not sequence_parallel:
+        raise NotImplementedError(
+            "mesh.tensor > 1 without mesh.sequence_parallel is Megatron tensor parallelism, "
+            "not ported yet (ROADMAP.md queue A16b)")
+    if sequence_parallel and tensor <= 1:
+        raise ValueError("mesh.sequence_parallel needs mesh.tensor > 1")
+    return tensor, sequence_parallel
+
+
+def _ring(mesh, sequence_parallel: bool):
+    """The ring of the mesh's tensor axis, or None."""
+    return ProcessRing(axis_group(mesh, "tensor")[0]) if sequence_parallel else None
+
+
 def _context_mask(task: str, B: int, T: int, nct: int) -> np.ndarray:
     """The frames a task is given: prediction the first ``nct``,
     interpolation both ends."""
@@ -129,7 +185,7 @@ class VideoGenerationExperiment:
         if attn_cfg is not None and attn_cfg.get("enabled"):
             raise NotImplementedError(
                 "algorithm.save_attn_map needs attention capture, which is not ported yet "
-                "(ROADMAP.md queue A16)")
+                "(ROADMAP.md queue A16b)")
         os.makedirs(self.output_dir, exist_ok=True)
         t0 = time.perf_counter()
         self.algo = build_algorithm(cfg, device=device)
@@ -144,7 +200,7 @@ class VideoGenerationExperiment:
         self.logger = MetricsLogger(
             self.output_dir,
             cfg.get("wandb").to_dict() if cfg.get("wandb") else None,
-            name=str(cfg.get("name", "")),
+            name=str(cfg.get("name", "")), enabled=multihost.is_rank_zero(),
         )
         self._add_time("logger_s", t0)
         self.state = None  # the train state, once trained
@@ -237,23 +293,35 @@ class VideoGenerationExperiment:
     # training
     # ------------------------------------------------------------------
     def training(self) -> None:
+        tensor, sequence_parallel = _mesh_options(self.cfg.experiment.training.get("mesh"))
+        mesh = None
+        if torch.distributed.is_initialized() or tensor > 1:
+            batch = self.cfg.experiment.training.batch_size
+            mesh = make_mesh(mesh_shape(batch, multihost.world_size(), tensor))
+        prior = set_sequence_parallel(_ring(mesh, sequence_parallel))
+        try:
+            self._train(mesh)
+        finally:
+            set_sequence_parallel(prior)
+
+    def _train(self, mesh) -> None:
         cfg, algo = self.cfg, self.algo
         tcfg = cfg.experiment.training
-        mesh_cfg = tcfg.get("mesh", {}) or {}
-        if int(mesh_cfg.get("tensor", 1) or 1) > 1 or mesh_cfg.get("sequence_parallel", False):
-            raise NotImplementedError(
-                "a training mesh (tensor or sequence parallel) is multi-GPU work, not ported "
-                "yet (ROADMAP.md queue A16)")
         accumulate = tcfg.optim.get("accumulate_grad_batches", 1)
         seed = tcfg.get("manual_seed", 0)
         # sub-epoch resumable data: each epoch a slice of a seeded shuffle
         use_subdataset = isinstance(cfg.dataset.get("subdataset_size"), int)
+        # a data rank's share: the rows index::data of every global batch
+        data_group, data, data_index = axis_group(mesh, "data")
+        shard = (data_index, data) if data > 1 else None
 
         def make_train_loader(epoch: int):
             dataset = build_dataset(cfg.dataset, "training",
                                     current_epoch=epoch if use_subdataset else None)
-            return make_loader(dataset, tcfg.batch_size, shuffle=tcfg.data.get("shuffle", True),
-                               seed=seed, num_workers=tcfg.data.get("num_workers", 0) or 0)
+            return make_loader(dataset, tcfg.batch_size // data,
+                               shuffle=tcfg.data.get("shuffle", True), seed=seed,
+                               num_workers=tcfg.data.get("num_workers", 0) or 0,
+                               process_shard=shard)
 
         loader = make_train_loader(0)
         if len(loader) == 0:
@@ -265,6 +333,7 @@ class VideoGenerationExperiment:
         if resume and _is_torch_file(str(resume)):
             self._load_weights(str(resume))
             resume = None
+        shard_model(algo.model, mesh)
         state = algo.make_train_state(
             accumulate_steps=accumulate,
             num_training_steps=tcfg.max_steps if tcfg.max_steps > 0 else None,
@@ -276,8 +345,10 @@ class VideoGenerationExperiment:
             self._sync()
             self.timings["checkpoint_restore_s"] = time.perf_counter() - t0
         self._weights_from = None  # the model now holds the trained weights
-        train_step = algo.make_train_step(ema_decay=cfg.experiment.ema.get("decay", 0.9999),
-                                          accumulate_steps=accumulate)
+        train_step = algo.make_train_step(
+            ema_decay=cfg.experiment.ema.get("decay", 0.9999), accumulate_steps=accumulate,
+            rows=shard, grad_sync=None if mesh is None else (
+                lambda model: average_gradients(model, mesh)))
         # the random stream is not checkpointed: a resumed run draws anew
         # from the seed, as the JAX package re-splits PRNGKey(manual_seed)
         generator = torch.Generator(device=algo.device).manual_seed(seed)
@@ -291,7 +362,7 @@ class VideoGenerationExperiment:
         loss_freq = max(cfg.algorithm.logging.get("loss_freq", 100), 1)
         profile_dir = tcfg.get("profile_dir")
         profile_at = tcfg.get("profile_at_step", 10)
-        mid_validation = self._mid_validation(state, generator)
+        mid_validation = self._mid_validation(state, generator, mesh)
         val_every, val_epoch_every = mid_validation.every_step, mid_validation.every_epoch
 
         step = step0 = state.step
@@ -312,6 +383,11 @@ class VideoGenerationExperiment:
                 # step would make the loop wait for each one
                 step += 1
                 if step % loss_freq == 0:
+                    if data > 1:  # the global batch's losses: the means of the shares'
+                        names = [k for k in metrics if k != "grad_norm"]  # already global
+                        means = torch.stack([metrics[k].float() for k in names])
+                        torch.distributed.all_reduce(means, group=data_group)
+                        metrics.update(zip(names, means / data))
                     m = {k: float(v) for k, v in metrics.items()}
                     m["steps_per_sec"] = (step - step0) / max(time.time() - t_start, 1e-9)
                     self.logger.log(m, step)
@@ -338,19 +414,22 @@ class VideoGenerationExperiment:
                 done = True
         loader.close()
         wait_for_checkpoints()
-        if saved == step:  # the state has not changed since: that save is the last
-            prune_checkpoints(self.ckpt_dir, save_top_k)
-        else:
+        if saved != step:
             self.saves.append(save_checkpoint(self.ckpt_dir, step, state, save_top_k))
+        elif multihost.is_rank_zero():  # the state has not changed since: that save is the last
+            prune_checkpoints(self.ckpt_dir, save_top_k)
+        multihost.barrier("checkpoints")  # every process reads what rank 0 wrote
         self.state = state
 
-    def _mid_validation(self, state, generator):
+    def _mid_validation(self, state, generator, mesh=None):
         """``run(at_step)``: the EMA weights' denoising loss over the first
         ``limit_batch`` validation batches (4 when it is not a count), the
         first batch's x0 reconstructions beside the ground truth as
         ``videos/denoising_vis_step<N>.gif``, and with ``validate_sample``
         that batch sampled and scored; ``run.every_step`` and
-        ``run.every_epoch`` are its cadences (0: never)."""
+        ``run.every_epoch`` are its cadences (0: never). Over a data axis each
+        data rank takes its strided share of every batch (the global batch's
+        draws, its rows) and the losses and reconstructions are gathered."""
         cfg, algo = self.cfg, self.algo
         vcfg = cfg.experiment.validation
         every_step = vcfg.get("val_every_n_step")
@@ -360,11 +439,30 @@ class VideoGenerationExperiment:
         limit = limit if isinstance(limit, int) and limit > 0 else 4
         sample = bool(vcfg.get("validate_sample"))
         max_vis = cfg.algorithm.logging.get("max_num_videos", 8)
+        _, data, data_index = axis_group(mesh, "data")
+        shard = (data_index, data) if data > 1 and vcfg.batch_size % data == 0 else None
         loader = eval_denoise = None
         if every_step or every_epoch:
             loader = DataLoader(build_dataset(cfg.dataset, "validation"),
-                                max(vcfg.batch_size, 1))
+                                max(vcfg.batch_size, 1) // (shard[1] if shard else 1),
+                                process_shard=shard)
             eval_denoise = algo.make_eval_denoise()
+
+        def interleave(local):
+            """The data ranks' shares of a batch (a tensor or a dict of arrays)
+            back in the batch's order: gathered over the world, whose ranks
+            run data-major, one share per data rank kept, rows interleaved."""
+            if shard is None:
+                return local
+            world = multihost.world_size()
+
+            def order(parts):
+                b, rest = parts.shape[0] // world, tuple(parts.shape[1:])
+                parts = parts.reshape(data, world // data, b, *rest)[:, 0]
+                return parts.swapaxes(0, 1).reshape(data * b, *rest)
+
+            got = multihost.gather_for_metrics(local)
+            return {k: order(v) for k, v in got.items()} if isinstance(got, dict) else order(got)
 
         def run(at_step: int) -> None:
             t0 = time.perf_counter()
@@ -375,23 +473,27 @@ class VideoGenerationExperiment:
                     if j >= limit:
                         break
                     vt = self._train_batch(vb)
-                    loss, recons = eval_denoise(vt, generator)
-                    losses.append(float(loss))
+                    loss, recons = eval_denoise(vt, generator, rows=shard)
+                    losses.append(loss.reshape(1))
                     if j == 0:
-                        first = vb
+                        first = interleave(vb)  # the whole first batch
                         if max_vis > 0:
-                            vis = algo.unnormalize(recons[:max_vis])
-                            gt = algo.unnormalize(vt["xs"][:max_vis])
+                            vis = algo.unnormalize(interleave(recons)[:max_vis])
+                            gt = algo.unnormalize(interleave(vt["xs"])[:max_vis])
                             if self._codec is not None:
                                 vis = self._codec.decode_video(vis)
-                                gt = (self._to_device(vb["videos"][:max_vis]) if "videos" in vb
-                                      else self._codec.decode_video(gt))
-                            log_video(vis.cpu().numpy(), gt.cpu().numpy(),
-                                      os.path.join(self.output_dir, "videos",
-                                                   f"denoising_vis_step{at_step}.gif"),
-                                      context_frames=0)
+                                gt = (self._to_device(first["videos"][:max_vis])
+                                      if "videos" in first else self._codec.decode_video(gt))
+                            if multihost.is_rank_zero():
+                                log_video(vis.cpu().numpy(), gt.cpu().numpy(),
+                                          os.path.join(self.output_dir, "videos",
+                                                       f"denoising_vis_step{at_step}.gif"),
+                                          context_frames=0)
                 if losses:
-                    self.logger.log({"validation/loss": float(np.mean(losses))}, at_step)
+                    # each share's loss is the mean of equal shares of a batch:
+                    # their mean is the batch's
+                    losses = multihost.gather_for_metrics(torch.cat(losses))
+                    self.logger.log({"validation/loss": float(losses.double().mean())}, at_step)
                 if sample and first is not None:
                     self._score_sampled_batch(first, at_step, max_vis)
             self._sync()
@@ -407,8 +509,11 @@ class VideoGenerationExperiment:
         cfg, algo = self.cfg, self.algo
         tokens = self._tokenize_batch(batch)
         generator = torch.Generator(device=algo.device).manual_seed(at_step)
-        videos = algo.sample_videos(generator, tokens["xs"], conditions=batch.get("conds"))
+        with unsharded(algo.model):
+            videos = algo.sample_videos(generator, tokens["xs"], conditions=batch.get("conds"))
         videos = self._pixels({k: algo.unnormalize(v) for k, v in videos.items()}, batch)
+        if not multihost.is_rank_zero():
+            return
         gt = videos["gt"]
         B, T = gt.shape[:2]
         nct = algo.n_context_tokens
@@ -436,11 +541,25 @@ class VideoGenerationExperiment:
     # ------------------------------------------------------------------
     def validation(self, namespace: str = "validation") -> None:
         vcfg = self.cfg.experiment.validation
-        mesh_cfg = vcfg.get("mesh", {}) or {}
-        if int(mesh_cfg.get("tensor", 1) or 1) > 1 or mesh_cfg.get("sequence_parallel", False):
-            raise NotImplementedError(
-                "a validation mesh (tensor or sequence parallel) is multi-GPU work, not "
-                "ported yet (ROADMAP.md queue A16)")
+        tensor, sequence_parallel = _mesh_options(vcfg.get("mesh"))
+        ring = None
+        if torch.distributed.is_initialized():
+            # every process samples every batch; the NFE-expanded denoiser
+            # batch is split over the data axis, the ring takes the tensor axis
+            world = multihost.world_size()
+            if world % tensor:
+                raise ValueError(f"mesh.tensor={tensor} does not divide {world} processes")
+            mesh = make_mesh((world // tensor, 1) + ((tensor,) if tensor > 1 else ()))
+            self.algo.set_sampling_mesh(mesh)
+            ring = _ring(mesh, sequence_parallel)
+        prior = set_sequence_parallel(ring)
+        try:
+            self._validation(namespace)
+        finally:
+            set_sequence_parallel(prior)
+
+    def _validation(self, namespace: str) -> None:
+        vcfg = self.cfg.experiment.validation
         if vcfg.get("val_all_ckpt"):
             # every checkpoint_<step> directory under load= (or this run's)
             sweep = str(self.load_path) if self.load_path else self.ckpt_dir
@@ -498,11 +617,14 @@ class VideoGenerationExperiment:
                 break
             xs = self._tokenize_batch(batch)["xs"]
             t0 = time.perf_counter()
-            videos = algo.sample_videos(generator, xs, conditions=batch.get("conds"),
-                                        n_context_tokens=nct)
+            with unsharded(algo.model):
+                videos = algo.sample_videos(generator, xs, conditions=batch.get("conds"),
+                                            n_context_tokens=nct)
             videos = self._pixels({k: algo.unnormalize(v) for k, v in videos.items()}, batch)
             self._sync()
             self._add_time("sampling_s", t0)
+            if not multihost.is_rank_zero():  # the same videos: rank 0 scores them
+                continue
             t0 = time.perf_counter()
             gt = videos["gt"]
             B, T = gt.shape[:2]
@@ -563,7 +685,7 @@ class VideoGenerationExperiment:
         if path is not None:
             self._load_weights(str(path))
         elif self.state is not None and self._weights_from is not self.state:
-            self.algo.model.load_state_dict(self.state.ema_state_dict(), strict=True)
+            load_module_state(self.algo.model, self.state.ema_state_dict())
             self._weights_from = self.state
 
     def _load_weights(self, path: str) -> None:
@@ -577,8 +699,7 @@ class VideoGenerationExperiment:
             self._import_torch_checkpoint(file)
         else:
             saved = restore_checkpoint(file)
-            self.algo.model.load_state_dict({**saved["params"], **(saved["ema_params"] or {})},
-                                            strict=True)
+            load_module_state(self.algo.model, {**saved["params"], **(saved["ema_params"] or {})})
             del saved
         self._sync()
         self._add_time("checkpoint_load_s", t0)
@@ -595,4 +716,4 @@ class VideoGenerationExperiment:
         dropped = NOT_HELD.get(self.cfg.algorithm.backbone.name)
         if dropped is not None:
             state = {k: v for k, v in state.items() if not dropped.match(k)}
-        self.algo.model.load_state_dict(state, strict=True)
+        load_module_state(self.algo.model, state)

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-``ops.attention``, ``ops.qkv_prep`` and ``ops.ln_modulate`` are the modules;
+``ops.attention``, ``ops.qkv_prep``, ``ops.ln_modulate`` and
+``ops.ring_attention`` are the modules;
 their wrappers are re-exported here under names that do not shadow them.
 """
 
@@ -26,6 +27,7 @@ from .qkv_prep import (
     swap_pairs,
 )
 from .qkv_prep import qkv_prep as _qkv_prep
+from .ring_attention import ring_attention as _ring_attention
 
 # every kernel wrapper of the package; each carries a ``launches`` count
 KERNEL_WRAPPERS = {
@@ -39,6 +41,7 @@ KERNEL_WRAPPERS = {
     "ln_modulate": _ln_modulate,
     "ln_modulate_bwd": ln_modulate_bwd,
     "small_n_attn": small_n_attention,
+    "ring_block": _ring_attention,
 }
 
 

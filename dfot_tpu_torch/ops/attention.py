@@ -25,8 +25,10 @@ package.
   autodiff of its plain attention. Plain version:
   :func:`small_n_attention_reference`.
 - :func:`attention` is the dispatcher (counterpart of ``attention``); its
-  rule is :func:`attention_route`. Sequence-parallel ring attention is not
-  ported.
+  rule is :func:`attention_route`. With a ring set by
+  :func:`set_sequence_parallel` (the counterpart of ``set_sequence_parallel``,
+  :954), the non-causal shapes the ring owns go to
+  ``ring_attention.sequence_parallel_attention``.
 
 :func:`flash_attention` and :func:`small_n_attention` dispatch through the
 ``torch.library`` custom ops ``dfot::flash_attention`` (O and LSE; B1
@@ -50,7 +52,7 @@ __all__ = [
     "attention", "attention_reference", "attention_backward_reference",
     "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_plan",
     "small_n_attention", "small_n_attention_reference", "small_n_plan", "attention_route",
-    "padded_head_dim",
+    "padded_head_dim", "set_sequence_parallel",
 ]
 
 
@@ -566,10 +568,29 @@ def small_n_attention(q, k, v, plain: bool = False) -> torch.Tensor:
 small_n_attention.launches = 0
 
 
+# the sequence-parallel context: a ring (ops/ring_attention.py: a
+# ProcessRing or a LocalRing) or None, read by attention_route at each call
+_SEQUENCE_PARALLEL = None
+RING_MIN_ROWS = 128  # the ring takes a shape only where each rank keeps this many query rows
+
+
+def set_sequence_parallel(ring):
+    """Route the big non-causal attentions of later calls through ring
+    attention over ``ring`` (None: no ring). Returns the ring it replaces,
+    for the caller to put back."""
+    global _SEQUENCE_PARALLEL
+    prior, _SEQUENCE_PARALLEL = _SEQUENCE_PARALLEL, ring
+    return prior
+
+
 def attention_route(n: int, d: int, causal: bool = False) -> str:
     """Which path :func:`attention` takes for N tokens of head dim d, the one
     place the rule is written:
 
+    - ``"ring"``: a ring is set (:func:`set_sequence_parallel`) of R > 1
+      ranks, the call is non-causal, R divides N and each rank keeps at
+      least :data:`RING_MIN_ROWS` query rows (the JAX package's gate):
+      ring attention, kernel B1 a block (B4, B5 back);
     - ``"small_n"``: non-causal, N <= 32, d a multiple of 64 up to 256 (the
       JAX package's gate, ``d % 64 == 0``): kernel B10;
     - ``"flash"``: d in {64, 128, 256} and N a multiple of 64: kernels B1,
@@ -582,7 +603,16 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
       card as well;
     - ``"unported"``: a shape the JAX package gives to a Pallas kernel and no
       kernel of the port takes (padded head dim above 256); it raises.
+
+    The packed route of the models (``qkv_prep.attention_from_packed_qkv``)
+    is taken only where this answers ``"flash"`` or ``"padded_flash"``: where
+    the ring owns the shape they take q/k norm and RoPE in torch and then
+    :func:`attention`, as ``fused_qkv_eligible`` sends the JAX models.
     """
+    ring = _SEQUENCE_PARALLEL
+    if (ring is not None and not causal and ring.size > 1 and n % ring.size == 0
+            and n // ring.size >= RING_MIN_ROWS):
+        return "ring"
     if not causal and n <= SMALL_N_MAX and d % 64 == 0:
         return "small_n" if d <= SMALL_N_MAX_D else "unported"
     if n % 64 == 0 and d <= FLASH_WIDTHS[-1]:
@@ -608,6 +638,10 @@ def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tenso
     Each route launches its kernels for a CUDA tensor or raises, and runs
     their plain versions for a CPU tensor (or on any device with ``plain``)."""
     route = attention_route(q.shape[-2], q.shape[-1], causal)
+    if route == "ring":
+        from .ring_attention import sequence_parallel_attention
+
+        return sequence_parallel_attention(q, k, v, _SEQUENCE_PARALLEL, plain=plain)
     if route == "small_n":
         return small_n_attention(q, k, v, plain)
     if route == "flash":

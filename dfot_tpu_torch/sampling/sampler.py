@@ -10,9 +10,15 @@ waits on the device.
 
 Reconstruction guidance differentiates each step's reconstruction loss
 against the clean context with respect to the denoiser's input (the model's
-autograd route: B2 -> B1 -> B3 forward, B7 -> B4, B5 -> B6 back). The
-multi-device ``mesh`` is not ported; asking for it raises
-``NotImplementedError``.
+autograd route: B2 -> B1 -> B3 forward, B7 -> B4, B5 -> B6 back).
+
+With a ``mesh`` (``parallel/mesh.py``; the JAX ``mesh``, :226-260, :359)
+the NFE-expanded batch of every denoising step is split over the mesh's
+``data`` axis where it divides: each process evaluates its consecutive rows
+(with their reconstruction-guidance gradients) and the predictions are
+all-gathered. Every process keeps the whole sampling state and draws the
+same noise from the same generator seed, so the window is the one-process
+window on every process.
 """
 
 from __future__ import annotations
@@ -61,6 +67,47 @@ class SamplingPlan(NamedTuple):
     @property
     def nfe(self) -> int:
         return self.num_hist * self.num_gen
+
+
+def _tree_rows(tree, lo: int, hi: int):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_rows(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
+def _data_rows(mesh) -> Callable:
+    """``rows(fn, *args)``: ``fn`` of the NFE-expanded arguments (leading
+    axis the rows; dicts of such tensors too), split over the mesh's data
+    axis where the rows divide: this process's consecutive rows, then every
+    output tensor all-gathered in rank order. Without a mesh, or where the
+    rows do not divide, ``fn`` of them all."""
+    if mesh is None:
+        return lambda fn, *args: fn(*args)
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a torch DeviceMesh (parallel.make_mesh), got {mesh!r}")
+    import torch.distributed as dist
+
+    from ..parallel.mesh import axis_group
+
+    group, size, index = axis_group(mesh, "data")
+
+    def rows(fn, *args):
+        n = args[0].shape[0]
+        if size == 1 or n % size:
+            return fn(*args)
+        lo, hi = index * n // size, (index + 1) * n // size
+        out = fn(*(_tree_rows(a, lo, hi) for a in args))
+
+        def gather(t):
+            parts = [torch.empty_like(t) for _ in range(size)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts, dim=0)
+
+        return type(out)(*(gather(t) for t in out))
+
+    return rows
 
 
 def plan_sampling(
@@ -204,14 +251,16 @@ def make_window_sampler(
     by ``sqrt(1 - alpha)`` times its negation (``dfot_tpu/sampling/
     sampler.py:362-383``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device sampling (mesh) is not ported yet (ROADMAP.md queue A16)")
+    rows = _data_rows(mesh)
 
     def noise_input(k_clipped):
         if dcfg.is_continuous:
             return continuous_model_noise_input(dcfg, sched, k_clipped)
         return k_clipped.float()
+
+    def predictions(x_e, k_clip, cond_e, condmask_e):
+        model_out = model_apply(x_e, noise_input(k_clip), cond_e, condmask_e)
+        return dc.model_predictions(sched, dcfg, x_e, k_clip, model_out)
 
     def guided_predictions(x_e, k_clip, cond_e, condmask_e, ctx_e, ctxmask_e):
         """The model's predictions at x_e, the noise moved along the
@@ -279,11 +328,10 @@ def make_window_sampler(
             )
             k_clip = from_e.clamp(min=0)
             if ctx_e is not None:
-                pred = guided_predictions(x_e, k_clip, cond_e, condmask_e, ctx_e,
-                                          torch.repeat_interleave(cmask, nfe, dim=0))
+                pred = rows(guided_predictions, x_e, k_clip, cond_e, condmask_e, ctx_e,
+                            torch.repeat_interleave(cmask, nfe, dim=0))
             else:
-                model_out = model_apply(x_e, noise_input(k_clip), cond_e, condmask_e)
-                pred = dc.model_predictions(sched, dcfg, x_e, k_clip, model_out)
+                pred = rows(predictions, x_e, k_clip, cond_e, condmask_e)
             # DDIM with eta = 0 multiplies its noise by zero: skip the draw
             noise = noise_like(x_e) if use_ddpm or dcfg.ddim_sampling_eta > 0 else 0.0
             if use_ddpm:

@@ -1,10 +1,12 @@
 """Run chosen phases of ``chip_smoke.py`` alone on the card.
 
-    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [17] [23] [24] [22] [21]
+    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [17] [23] [24] [22] [21] [25]
 
 from the root of a checkout: builds the kernels, then runs the kernel
 checks (``kernels``), phase 17 (``17``), phase 23 (``23``), phase 24
-(``24``), phase 22 (``22``) and phase 21 (``21``) in that order, with the
+(``24``), phase 22 (``22``), phase 21 (``21``) and phase 25 (``25``: ring
+attention, the sequence-parallel window, a one-rank NCCL ``run(argv)``) in
+that order, with the
 smoke's settings (TF32 off, expandable allocator segments), and writes what
 they record to ``chiprun_out/smoke_phases.json``. Phases 23 and 24 alone
 track two clips of a seeded drifting image in place of the rollout's. A quicker loop than
@@ -57,7 +59,8 @@ def main(argv) -> int:
                            ("24", lambda: launches.update(CS.run_a15c_paths(
                                record, drifting_clips(), "a seeded drifting image"))),
                            ("22", lambda: launches.update(CS.run_slice16_paths(record))),
-                           ("21", lambda: launches.update(CS.run_slice15_paths(record, smi)))):
+                           ("21", lambda: launches.update(CS.run_slice15_paths(record, smi))),
+                           ("25", lambda: launches.update(CS.run_ring_paths(record, {})))):
             if phase in argv:
                 t0 = time.perf_counter()
                 run()
@@ -67,6 +70,7 @@ def main(argv) -> int:
         out.mkdir(exist_ok=True)
         (out / "smoke_phases.json").write_text(
             json.dumps({"record": record, "launches": launches}, indent=1, default=str))
+        CS.write_timeline()
     return 0
 
 

@@ -19,6 +19,10 @@ the seconds of the host copy and of the write (filled in when it ends).
 The run registry is the JAX package's ``registry.jsonl`` (one
 ``{"run_id", "name", "output_dir"}`` object a line), so either package
 resolves ``load=<run id or name>`` to runs the other registered.
+
+Under several processes every process calls :func:`save_checkpoint` (an
+FSDP2 model's sharded tensors are gathered whole, a collective) and the
+process of rank 0 alone writes and prunes.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from ..parallel.mesh import full_tensors
+from ..parallel.multihost import is_rank_zero
 
 __all__ = [
     "CHECKPOINT_FILE", "save_checkpoint", "wait_for_checkpoints", "prune_checkpoints",
@@ -100,13 +107,15 @@ def save_checkpoint(ckpt_dir: str, step: int, state, save_top_k: int = 3,
     the directories have been pruned (the disk briefly holds ``save_top_k
     + 1``); ``block=True`` writes, then prunes."""
     global _in_flight
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(ckpt_dir, f"checkpoint_{step}"))
     wait_for_checkpoints()  # at most one save in flight
     t0 = time.perf_counter()
-    payload = _to_host(state.state_dict())
+    payload = _to_host(full_tensors(state.state_dict()))
     record = {"step": int(step), "path": path, "bytes": _nbytes(payload), "block": block,
               "snapshot_s": time.perf_counter() - t0, "write_s": None}
+    if not is_rank_zero():
+        return record
+    os.makedirs(ckpt_dir, exist_ok=True)
     if block:
         _write(payload, path, record)
         if save_top_k and save_top_k > 0:

@@ -19,11 +19,11 @@ both packages the same numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["NoiseLevelConfig", "training_noise_levels"]
+__all__ = ["NoiseLevelConfig", "draw_rows", "training_noise_levels"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +60,24 @@ class NoiseLevelConfig:
         )
 
 
+def draw_rows(fn: Callable, shape, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``fn(shape)``; with ``rows=(index, count)``, ``fn`` drawn for the
+    global batch of ``count`` times ``shape[0]`` rows and this share's rows
+    ``index::count`` taken, so that the processes together draw what one
+    process draws for the global batch."""
+    if rows is None:
+        return fn(shape)
+    index, count = rows
+    return fn((shape[0] * count,) + tuple(shape[1:]))[index::count]
+
+
 def training_noise_levels(
     generator: Optional[torch.Generator],
     cfg: NoiseLevelConfig,
     frame_mask: torch.Tensor,  # (B, T) bool: frame available?
     train: bool = True,
     draws: Optional[Dict[str, torch.Tensor]] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(noise levels (B, T), loss mask (B, T) bool).
 
@@ -73,7 +85,11 @@ def training_noise_levels(
     [0, timesteps) otherwise. ``draws`` may hold any of the random parts and
     then replaces the generator for it: ``"levels"`` ((B, T), (B, 1) or
     (B, 2) by mode), ``"future"`` (B, 1), ``"context"`` (B, T) bool,
-    ``"context_drop"`` (B, 1) bool.
+    ``"context_drop"`` (B, 1) bool. ``rows=(index, count)``: the batch is
+    one of ``count`` data-parallel shares, the rows ``index::count`` of the
+    global batch; each generator draw is then made for the global batch of
+    ``count`` B rows and this share's rows taken, so that the processes
+    together draw what one process draws for the global batch.
     """
     B, T = frame_mask.shape
     dev = frame_mask.device
@@ -86,13 +102,16 @@ def training_noise_levels(
                 raise ValueError(f"draws[{name!r}] must be {shape}, got {tuple(got.shape)}")
             return got.float() if cfg.is_continuous else got.long()
         if cfg.is_continuous:
-            return torch.rand(shape, generator=generator, device=dev)
-        return torch.randint(0, cfg.timesteps, shape, generator=generator, device=dev)
+            return draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), shape,
+                             rows)
+        return draw_rows(lambda s: torch.randint(0, cfg.timesteps, s, generator=generator,
+                                                 device=dev), shape, rows)
 
     def bernoulli_of(name, p, shape):
         if name in draws:
             return torch.as_tensor(draws[name], device=dev).bool().reshape(shape)
-        return torch.rand(shape, generator=generator, device=dev) < p
+        return draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), shape,
+                         rows) < p
 
     if cfg.noise_level == "random_independent":
         levels = levels_of("levels", (B, T))

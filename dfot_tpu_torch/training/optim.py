@@ -16,7 +16,9 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["Optimizer", "make_lr_schedule", "make_optimizer", "global_norm"]
+from ..parallel.mesh import is_dtensor
+
+__all__ = ["Optimizer", "make_lr_schedule", "make_optimizer", "global_norm", "foreach"]
 
 
 def make_lr_schedule(
@@ -50,9 +52,32 @@ def make_lr_schedule(
     return schedule
 
 
+def foreach(op, tensors: List[torch.Tensor], *others, **kwargs):
+    """``op`` (a ``torch._foreach_*`` function) over ``tensors`` and the
+    lists in ``others`` position by position, one call for the plain tensors
+    and one for the DTensors (FSDP2's sharded parameters; the foreach ops
+    take one kind at a time); its results, if any, in the input order. A
+    0-d tensor argument is a plain Python number for the DTensors."""
+    if not any(is_dtensor(t) for t in tensors):
+        return op(tensors, *others, **kwargs)
+    out = [None] * len(tensors)
+    for sharded in (False, True):
+        idx = [i for i, t in enumerate(tensors) if is_dtensor(t) == sharded]
+        if not idx:
+            continue
+        args = [[lst[i] for i in idx] if isinstance(lst, (list, tuple)) else
+                (lst.item() if sharded and torch.is_tensor(lst) else lst) for lst in others]
+        got = op([tensors[i] for i in idx], *args, **kwargs)
+        for i, r in zip(idx, got or ()):
+            out[i] = r
+    return out
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in fp32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
+    """sqrt of the sum of squares over all tensors, in fp32 (a DTensor's
+    norm is that of its whole tensor)."""
+    norms = foreach(torch._foreach_norm, [t.float() for t in tensors])
+    norms = [n.full_tensor() if is_dtensor(n) else n for n in norms]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -132,16 +157,16 @@ class Optimizer:
             if self._sum is None:
                 self._sum = [g.clone() for g in grads]
             else:
-                torch._foreach_add_(self._sum, grads)
+                foreach(torch._foreach_add_, self._sum, grads)
             if self.micro_step % k:
                 return False
-            grads = torch._foreach_div(self._sum, float(k))
+            grads = foreach(torch._foreach_div, self._sum, float(k))
             self._sum = None
         if self.grad_clip and self.grad_clip > 0:
             # optax's rule: scale by clip / max(norm, clip), no epsilon
             norm = global_norm(grads)
             scale = self.grad_clip / torch.clamp(norm, min=self.grad_clip)
-            grads = torch._foreach_mul(grads, scale)
+            grads = foreach(torch._foreach_mul, grads, scale)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adamw.step()

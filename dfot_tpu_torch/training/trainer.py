@@ -14,31 +14,41 @@ import torch
 
 from ..diffusion import core as dc
 from ..diffusion.continuous import continuous_training_fields, continuous_v_loss
-from .noise_levels import NoiseLevelConfig, training_noise_levels
+from .noise_levels import NoiseLevelConfig, draw_rows, training_noise_levels
 from .optim import global_norm
 from .state import TrainState, gated_ema_update
 
-__all__ = ["denoising_loss", "make_train_step"]
+__all__ = ["denoising_loss", "make_train_step", "training_noise"]
+
+
+def training_noise(dcfg: dc.DiffusionConfig, shape, generator, device, dtype,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The diffusion noise of a training pass, clipped; with ``rows``, this
+    share's rows of the global batch's draw (:func:`draw_rows`)."""
+    return draw_rows(lambda s: dc.clipped_normal(s, dcfg.clip_noise, generator, device, dtype),
+                     shape, rows)
 
 
 def denoising_loss(model_apply: Callable, dcfg: dc.DiffusionConfig, sched: dc.Schedule,
                    nl_cfg: NoiseLevelConfig, model, xs, conditions, frame_mask,
                    generator: Optional[torch.Generator], train: bool = True,
-                   noise_levels=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   noise_levels=None, noise=None,
+                   rows: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(masked mean loss, x0 reconstruction) of one denoising pass: noise
     levels drawn per token (``train=False``: no context dropout), xs
     diffused, the denoiser's loss weighted by the frame mask and averaged
     over all elements. The draws can be injected as in
-    :func:`make_train_step`. The train step's loss
+    :func:`make_train_step`; ``rows`` as :func:`training_noise_levels` takes
+    it, for the level draws and the noise alike. The train step's loss
     (``dfot_tpu/training/trainer.py:45``) and the eval denoiser's
     (``dfot_tpu/algorithms/dfot_video.py:388``)."""
     dev = sched.device
     draws = noise_levels if isinstance(noise_levels, dict) or noise_levels is None \
         else {"levels": noise_levels}
-    k, loss_mask = training_noise_levels(generator, nl_cfg, frame_mask, train, draws)
+    k, loss_mask = training_noise_levels(generator, nl_cfg, frame_mask, train, draws, rows=rows)
     xs = xs.float()
     if noise is None:
-        noise = dc.clipped_normal(xs.shape, dcfg.clip_noise, generator, dev, xs.dtype)
+        noise = training_noise(dcfg, xs.shape, generator, dev, xs.dtype, rows)
     else:
         noise = torch.as_tensor(noise, device=dev, dtype=xs.dtype).clamp(
             -dcfg.clip_noise, dcfg.clip_noise)
@@ -69,6 +79,8 @@ def make_train_step(
     ema_decay: float = 0.9999,
     accumulate_steps: int = 1,
     loss_fn: Optional[Callable] = None,
+    rows: Optional[Tuple[int, int]] = None,
+    grad_sync: Optional[Callable] = None,
 ):
     """Build ``train_step(state, batch, generator) -> (state, metrics)``.
 
@@ -91,12 +103,19 @@ def make_train_step(
     ``loss_fn(model, xs, conditions, frame_mask, generator, noise_levels,
     noise) -> (loss, parts)`` replaces the denoising loss; ``parts``, a dict
     of detached 0-d tensors, joins the metrics.
+
+    Data parallelism: ``rows=(index, count)`` says the batch is the rows
+    ``index::count`` of a global batch (:func:`denoising_loss` then draws for
+    the global batch and takes these rows), and ``grad_sync(model)``, called
+    after the backward, averages the gradients over the processes
+    (``parallel.mesh.average_gradients``); the losses in the metrics are this
+    process's, the gradient norm the averaged gradients'.
     """
     dev = sched.device
     if loss_fn is None:
         def loss_fn(model, xs, conditions, frame_mask, generator, noise_levels, noise):
             return denoising_loss(model_apply, dcfg, sched, nl_cfg, model, xs, conditions,
-                                  frame_mask, generator, True, noise_levels, noise)[0], {}
+                                  frame_mask, generator, True, noise_levels, noise, rows)[0], {}
 
     def train_step(
         state: TrainState, batch: Dict, generator: Optional[torch.Generator], *,
@@ -111,6 +130,8 @@ def make_train_step(
             loss, parts = loss_fn(model, batch["xs"], batch.get("conditions"), batch["masks"],
                                   generator, noise_levels, noise)
             loss.backward()
+        if grad_sync is not None:
+            grad_sync(model)
         grads = [p.grad for p in opt.params if p.grad is not None]
         grad_norm = global_norm(grads)
         opt.step()

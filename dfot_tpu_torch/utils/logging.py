@@ -23,11 +23,17 @@ __all__ = ["MetricsLogger", "log_video"]
 class MetricsLogger:
     """JSONL metrics logger; mirrors to wandb when available + configured."""
 
-    def __init__(self, output_dir: str, wandb_cfg: Optional[dict] = None, name: str = ""):
-        os.makedirs(output_dir, exist_ok=True)
+    def __init__(self, output_dir: str, wandb_cfg: Optional[dict] = None, name: str = "",
+                 enabled: bool = True):
+        """``enabled=False`` (a process other than rank 0 of a multi-process
+        run) makes a logger that writes nothing."""
         self.path = os.path.join(output_dir, "metrics.jsonl")
-        self._file = open(self.path, "a")
+        self._file = None
         self._wandb = None
+        if not enabled:
+            return
+        os.makedirs(output_dir, exist_ok=True)
+        self._file = open(self.path, "a")
         if wandb_cfg and wandb_cfg.get("mode") != "disabled":
             try:
                 import wandb  # optional
@@ -42,6 +48,8 @@ class MetricsLogger:
             )
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
+        if self._file is None:
+            return
         record = {"step": int(step), "time": time.time()}
         record.update({k: float(v) for k, v in metrics.items()})
         self._file.write(json.dumps(record) + "\n")
@@ -50,7 +58,8 @@ class MetricsLogger:
             self._wandb.log(metrics, step=step)
 
     def close(self) -> None:
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
         if self._wandb is not None:
             self._wandb.finish()
 

@@ -513,8 +513,12 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     # a dataset directory without the split's layout: no synthetic stand-in
     with pytest.raises(FileNotFoundError, match="split directory not found"):
         run(SMALL + [f"dataset.save_dir={tmp_path}", out], device="cpu")
+    # a launch that says there are two processes but names neither this
+    # one's rank nor the rendezvous: refused, not run as one process
+    for var in ("RANK", "MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="RANK"):
         run(SMALL + [out], device="cpu")
 
 

@@ -160,8 +160,11 @@ def test_worker_loader_matches_grain(shuffle, seed):
     if shuffle:
         other = list(TL.DataLoader(ds, 4, shuffle=True, seed=seed))
         assert not np.array_equal(other[0]["videos"], want[0][0]["videos"])
-    with pytest.raises(NotImplementedError, match="A16"):
-        TL.make_loader(ds, 4, num_workers=2, process_shard=(0, 2))
+    # a process's share: grain's first of two consecutive pieces, shuffled
+    # within (tests/test_torch_port_parallel.py holds it to grain's sampler)
+    half = TL.make_loader(ds, 4, shuffle=shuffle, seed=seed, num_workers=2, process_shard=(0, 2))
+    assert len(half) == len(JL.make_loader(ds, 4, num_workers=2, process_shard=(0, 2)))
+    assert sorted(half.epoch_order()) == list(range(len(ds) // 2))
 
 
 # ---------------------------------------------------------------------------

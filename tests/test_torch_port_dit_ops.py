@@ -233,8 +233,9 @@ def test_packed_route_head_dim_72_matches_fused_jax():
 
 
 def test_new_wrappers_are_counted():
-    assert {"ln_modulate", "ln_modulate_bwd", "small_n_attn"} <= set(TOPS.KERNEL_WRAPPERS)
-    assert len(TOPS.KERNEL_WRAPPERS) == 10
+    assert {"ln_modulate", "ln_modulate_bwd", "small_n_attn", "ring_block"} <= set(
+        TOPS.KERNEL_WRAPPERS)
+    assert len(TOPS.KERNEL_WRAPPERS) == 11  # B1-B10 and the ring's block (B1 a hop)
     TOPS.reset_launch_counts()
     assert set(TOPS.launch_counts().values()) == {0}
 

@@ -1178,3 +1178,53 @@ def test_a15c_network_on_the_card_matches_the_cpu(cuda, name):
     assert got.shape == want.shape and torch.isfinite(got).all()
     err = _rel_l2(got, want)
     assert err <= {"raft": 1e-3, "pips": 1e-3}.get(name, 1e-4), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [2, 4])
+@pytest.mark.parametrize("shape", [(2, 3, 512, 64), (1, 2, 1024, 128), (1, 2, 512, 72)],
+                         ids=["d64", "d128", "d72_padded"])
+def test_ring_attention_launches_b1_b4_b5(cuda, R, shape):
+    """Ring attention on a LocalRing of R virtual ranks: R launches of B1
+    forward (each counted as a ring block), R each of B4 and B5 backward,
+    and O, dq, dk, dv within 1e-2 relative L2 of the plain ring (the same
+    fold over the plain attention and its backward formulas) and of
+    unsharded attention; heads of 72 padded to 128 by the ring."""
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    ring = RA.LocalRing(R)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+    ops.reset_launch_counts()
+    got = run(lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring))
+    counts = ops.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "flash_fwd": R, "ring_block": R, "flash_bwd_dq": R, "flash_bwd_dkv": R}
+    plain = run(lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring, plain=True))
+    whole = run(lambda a, b, c: A.attention_reference(a, b, c))
+    for x, p, w in zip(got, plain, whole):
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x).all()
+        for ref in (p, w):
+            err = (x.float() - ref.float()).norm() / ref.float().norm()
+            assert err <= 1e-2, err
+
+
+@pytest.mark.gpu
+def test_ring_attention_refuses_what_b1_does_not_take(cuda):
+    """A ring block on the card launches B1 or raises: fp32 operands and
+    shards of rows no multiple of 64 are refused."""
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    q = torch.randn(1, 2, 256, 64, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        RA.sequence_parallel_attention(q, q, q, RA.LocalRing(2))
+    q = torch.randn(1, 2, 96, 64, device=cuda).to(torch.bfloat16)  # 48 rows a rank
+    with pytest.raises(ValueError, match="N % 64"):
+        RA.sequence_parallel_attention(q, q, q, RA.LocalRing(2))

@@ -318,7 +318,9 @@ def test_unported_options_raise():
                              "full_sequence", 1000, 3, 8)
     with pytest.raises(ValueError, match="clean context"):
         window(torch.zeros(1, 8, 4, 4, 3), plan, None)
-    with pytest.raises(NotImplementedError):
+    # the NFE mesh is ported (tests/test_torch_port_parallel.py): it takes a
+    # DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TR.DFoTRollout(TR.RolloutConfig(8, (4, 4, 3), mesh=object()), dcfg, ts, None)
     with pytest.raises(ValueError):
         TSC.generate_scheduling_matrix("no_such_matrix", 8, 1000, 10)

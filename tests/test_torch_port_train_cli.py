@@ -118,7 +118,8 @@ def _pin_draws(monkeypatch, port=True):
     if not port:
         return
 
-    def port_levels(generator, cfg, mask, train=True, draws=None):
+    def port_levels(generator, cfg, mask, train=True, draws=None, rows=None):
+        assert rows is None  # one process
         jcfg = JNL.NoiseLevelConfig(**dataclasses.asdict(cfg))
         k, loss_mask = real(jax.random.PRNGKey(LEVELS_KEY), jcfg, jnp.asarray(mask.cpu().numpy()),
                             train)

@@ -112,8 +112,12 @@ def test_unshuffled_worker_loader_matches_grain():
             _assert_same_batches(_batches(lt, 2), _batches(lj, 2))
         finally:
             lt.close()
-    with pytest.raises(NotImplementedError, match="A16"):
-        TL.DataLoader(ds, 3, process_shard=(0, 2))
+    # per-process shares: the JAX loader's strided slices
+    for shard in ((0, 2), (1, 2)):
+        for drop_last in (False, True):
+            _assert_same_batches(
+                _batches(TL.DataLoader(ds, 3, drop_last=drop_last, process_shard=shard), 2),
+                _batches(JL.DataLoader(ds, 3, drop_last=drop_last, process_shard=shard), 2))
 
 
 # ---------------------------------------------------------------------------
