@@ -58,10 +58,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     and depth, the two-image interpolation of BASELINE.json config 2 (8
     frames, vanilla HG at 4.0, 50 DDIM steps, twice, both timed, the second
     counted: frames 0 and 7 must come back bit for bit)
-    and config 3's rollout cut from 200 to 72 frames (bench.py's settings
-    but a keyframe density of 0.125: 9 keyframes by stabilized vanilla HG
-    in 2 sliding windows, interpolation rounds of 8 and 8 one-chunk windows
-    by vanilla HG at 1.5: 18 windows of 50 steps), each with its launch counts reset
+    and config 3's rollout cut from 200 to 40 frames (bench.py's settings
+    but a keyframe density of 0.25: 10 keyframes by stabilized vanilla HG
+    in 2 sliding windows, one interpolation round of 9 one-chunk windows
+    by vanilla HG at 1.5: 11 windows of 50 steps), each with its launch counts reset
     before and required after; the rollout's wall time, frames/s, phase
     split and peak memory, its keyframes held bit for bit against the
     keyframe pass's output, and its wall against 18 times step 5's window;
@@ -109,8 +109,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     frozen on the card; it prints the phase's wall split (compose,
     checkpoint write, checkpoint load, model build, sampling, metrics, the
     metrics logger), the metrics' split by metric and its peak memory;
-18. trains the flagship through the same entry point at full width and
-    depth and the composed batch of 8 (``experiment.tasks=[training]``,
+18. trains the flagship through the same entry point at full width, its
+    depth cut to ``FLAGSHIP_CUT_DEPTH`` (``CUT_DEPTH_ARGV``; full depth
+    until PR 19), and the composed batch of 8 (``experiment.tasks=[training]``,
     checkpoints and runs under ``build/train_loop``, removed after): a run
     warm-started from a seeded random ``.ckpt`` takes 6 steps (checkpoints
     every 2 kept to 2, mid-run validation every 3 on one batch of 2, step 5
@@ -217,7 +218,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     K600's validation as composed (``[vbench, fvd, is, fid, lpips, mse,
     ssim, psnr]``) through ``run(argv)`` on phase 20's latent path (@DiT/XL
     at depth 4, batch 2, one batch); ``VideoMetric(["fvmd"])`` on two
-    16-frame clips of the 72-frame rollout; the host's Frechet distances
+    16-frame clips of the 40-frame rollout; the host's Frechet distances
     (``scipy.linalg.sqrtm`` at 2048 and 400 dimensions) in that validation,
     apart from the networks' passes.
 
@@ -252,6 +253,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     the window's and the run's flagship at full width, depth cut
     (``FLAGSHIP_CUT_DEPTH``).
 
+26. (``run_slice20_paths``) Megatron tensor parallelism on the one card:
+    :data:`TP_FLAGSHIP` processes sharing the H100 over a gloo group
+    (:data:`TP_WORKER`; NCCL puts no two ranks on one card) run the cut
+    flagship's 50-step window and 2 train steps at batch 8 with 3 of its 9
+    heads a rank, K600 @DiT/XL's 2 train steps with 8 of 16 on two of
+    them; each against the one-process run of the same seeds
+    (``WINDOW_REL_TOL``; the losses ``GRAD_LOSS_TOL``, the gradient norms
+    ``GRAD_REL_TOL``), each rank's launches equal to one process's, the
+    share of the last step in gloo's all-reduces, peak memory a rank; the
+    serving export (``tools/export_sampler.py``) of the cut flagship's step,
+    its window run by ``--load`` in a fresh process against the in-process
+    sampler (bit-equal, or its difference); the UCF-101 recipe (online DC-AE,
+    64 px, batch 32, 11 loader workers) through ``run(argv)`` for 3 steps
+    with and without its EDM ``AugmentPipe``, the host's wait a batch; the
+    attention maps of K600 @DiT/XL (depth cut to 2) captured on the card
+    against the CPU (:data:`CAPTURE_TOL`).
+
 Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22, 23, 24 and 25 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
@@ -264,12 +282,13 @@ exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke.json`` in ``OUT_DIR``, the seconds since the start of every
 line logged to ``smoke_timeline.tsv`` beside it. Cut in depth for the
-smoke's time: config 3's rollout, 200 frames (48 windows) to 72 (18 windows);
+smoke's time: config 3's rollout, 200 frames (48 windows) to 40 (11 windows;
+72 and 18 until PR 19);
 the guided window's profile, 10 steps to 3; the remat sweep, 5 train steps
 a policy to 3, and the sweep's flagship's depth (``FLAGSHIP_CUT_DEPTH``);
 VAE training, 6 steps to 4, its card-vs-CPU clip to 64 x 64 pixels;
 phase 25's ring window timed once each way, and its flagship's depth
-(``FLAGSHIP_CUT_DEPTH``).
+(``FLAGSHIP_CUT_DEPTH``); phase 18's flagship, its depth too (since PR 20).
 """
 
 from __future__ import annotations
@@ -316,7 +335,8 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "unet3d_window", "unet3d_train", "diff_concat_window", "diff_concat_train",
          "diff_interleaved_window", "diff_interleaved_train", "diff_facmat_window",
          "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
-         "unet3d_cli", "k600_metrics", "k600_a15c", "ring_window", "ring_cli")
+         "unet3d_cli", "k600_metrics", "k600_a15c", "ring_window", "ring_cli",
+         "tp_window", "tp_train", "tp_xl_train", "export", "ucf_train")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -443,12 +463,13 @@ REMAT_STEPS = 3
 # rollout settings, the long rollout's length, keyframe density and the plan
 # it must give (keyframes, sliding windows, chunks a round), and the small
 # rollout of the narrow model that holds the kernel route against the plain.
-# The long rollout is config 3 cut from 200 frames (48 windows) to 72 (18
-# windows) for the smoke's time; a density of 0.125 keeps its keyframe pass
-# at two sliding windows, the second with generated context
+# The long rollout is config 3 cut from 200 frames (48 windows) to 40 (11
+# windows; 72 and 18 until PR 19) for the smoke's time; a density of 0.25
+# keeps its keyframe pass at two sliding windows, the second with generated
+# context
 ROLLOUT_SETTINGS = dict(external_cond_type="action", sliding_context_len=4,
                         interpolation_max_batch_size=1)
-LONG_FRAMES, LONG_DENSITY, LONG_PLAN = 72, 0.125, (9, 2, [8, 8])
+LONG_FRAMES, LONG_DENSITY, LONG_PLAN = 40, 0.25, (10, 2, [9])
 SMALL_ROLLOUT_FRAMES, SMALL_ROLLOUT_DENSITY, SMALL_ROLLOUT_PLAN = 72, 0.125, (9, 2, [8, 8])
 # the factorized DiT of configurations/algorithm/backbone/dit3d_factorized_attention.yaml
 # on the Minecraft latent shape, and the axial U-ViT's depth (flagship widths)
@@ -2473,11 +2494,12 @@ def run_long_video_paths(record: dict, fs) -> dict:
     copy of seeded random weights. ``interp2`` (BASELINE.json config 2):
     ``interpolate_videos`` of frames 0 and 7 to an 8-frame video, vanilla HG
     at 4.0, one window. ``rollout`` (config 3 cut from 200 frames,
-    bench.py's settings at a keyframe density of 0.125): one image to 72
-    frames by ``predict_videos``, 9 keyframes in 2 sliding windows and
-    interpolation rounds of 8 and 8 one-chunk windows, each of (B = 1, T =
-    8, NFE 2), 50 DDIM steps; wall time, frames/s, the phase split, peak
-    memory, and the wall beyond 18 times the 8-frame window's
+    bench.py's settings at a keyframe density of 0.25): one image to
+    ``LONG_FRAMES`` frames by ``predict_videos``, keyframes in 2 sliding
+    windows and interpolation rounds of one-chunk windows (``LONG_PLAN``),
+    each of (B = 1, T = 8, NFE 2), 50 DDIM steps; wall time, frames/s, the
+    phase split, peak memory, and the wall beyond the windows' count times
+    the 8-frame window's
     (``record["window"]``, the same model shape earlier in the run)."""
     import torch
     from dfot_tpu_torch import ops
@@ -2889,11 +2911,11 @@ def run_cli_training(record: dict, smi: str) -> dict:
     from dfot_tpu_torch.training.optim import Optimizer, make_lr_schedule
     from dfot_tpu_torch.training.state import TrainState
 
-    fs = DV.flagship()
+    fs = cut_flagship()
     t_phase = time.perf_counter()
-    log("the flagship's training through python -m dfot_tpu_torch (full width, batch "
-        f"{TRAIN_LOOP_BATCH}):")
-    # the runs and their checkpoints (7.3 GB each) go under build/, not with the reports
+    log("the flagship's training through python -m dfot_tpu_torch (full width, depth cut to "
+        f"{FLAGSHIP_CUT_DEPTH}, batch {TRAIN_LOOP_BATCH}):")
+    # the runs and their checkpoints go under build/, not with the reports
     root = ROOT / "build" / "train_loop"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -2914,7 +2936,7 @@ def run_cli_training(record: dict, smi: str) -> dict:
         "experiment.validation.limit_batch=1", f"experiment.validation.batch_size={CLI_BATCH}",
         "++algorithm.logging.loss_freq=1", "algorithm.lr_scheduler.num_warmup_steps=2",
         "experiment.training.data.num_workers=0",
-    ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
+    ] + CUT_DEPTH_ARGV + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
     argv1 = train_argv + ["+name=re10k_train", f"load={ckpt}",
                           f"experiment.training.max_steps={TRAIN_LOOP_STEPS}",
                           f"++experiment.training.profile_dir={root / 'profile'}",
@@ -3002,7 +3024,7 @@ def run_cli_training(record: dict, smi: str) -> dict:
             # for time: the composed list (phase 17 runs it) would score every
             # checkpoint of the sweep with its networks and matrix square roots
             "++algorithm.logging.metrics=[mse,ssim,psnr]",
-        ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
+        ] + CUT_DEPTH_ARGV + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
         runs["sweep"] = drive("sweep", argv3)
         train, resume, sweep = runs["train"], runs["resume"], runs["sweep"]
         phase_s = time.perf_counter() - t_phase
@@ -3081,7 +3103,7 @@ def run_cli_training(record: dict, smi: str) -> dict:
         require(busy_ms > 0 and any((root / "profile").glob("*.pt.trace.json")),
                 "the profiled step left no trace with device time")
     finally:
-        shutil.rmtree(root, ignore_errors=True)  # checkpoints of 7.3 GB each
+        shutil.rmtree(root, ignore_errors=True)  # the runs and their checkpoints
 
     # walls: run 1's six steps, the resumed run's two; the median leaves out
     # each run's first step (a warm-up) and the profiled fifth
@@ -3991,6 +4013,11 @@ REMAT_CONTROL_PROBE = {"flagship": "mid_blocks.3.attn_out.weight",
 # conv level, two at level 2, four mid blocks; both transformer levels stay,
 # level 3 checkpointed as the recipe's); the sweep's probes
 FLAGSHIP_CUT_DEPTH = dict(num_updown_blocks=(1, 1, 2), num_mid_blocks=4)
+# the same cut as overrides of the composed recipe
+CUT_DEPTH_ARGV = [
+    "++algorithm.backbone.num_updown_blocks=[" + ",".join(
+        str(n) for n in FLAGSHIP_CUT_DEPTH["num_updown_blocks"]) + "]",
+    f"++algorithm.backbone.num_mid_blocks={FLAGSHIP_CUT_DEPTH['num_mid_blocks']}"]
 REMAT_FLAGSHIP_PROBES = (
     "down_blocks.0.0.in_layers.2.weight",
     "down_blocks.2.0.fused_attn_mlp_proj.weight",
@@ -5336,14 +5363,14 @@ def run_fvmd(rec: dict, clips, source: str) -> None:
 
 
 def rollout_clips():
-    """Two 16-frame clips of the 72-frame rollout (frames 0-15 and
+    """Two 16-frame clips of the long rollout (frames 0-15 and
     16-31), in [0, 1]."""
     video = CARRIED["rollout"]
     return tuple(((video[:, i:i + FVMD_FRAMES].float() + 1) / 2).clamp(0, 1)
                  for i in (0, FVMD_FRAMES))
 
 
-def run_metric_paths(record: dict, clips=None, source: str = "the 72-frame rollout") -> dict:
+def run_metric_paths(record: dict, clips=None, source: str = "the 40-frame rollout") -> dict:
     """Phase 23: the metric suite on the card. (a) I3D, InceptionV3 at 299,
     LPIPS, CLIP B/32 and L/14 and DINO B/16 against the CPU; (b) K600's
     validation as composed through ``run(argv)``; (c) FVMD on two 16-frame
@@ -5578,7 +5605,7 @@ def run_fvmd_pips(rec: dict, clips, source: str, weights_dir: Path) -> None:
     require_registry_on_card(reg, ("pips",), "FVMD", calibrated=True)
 
 
-def run_a15c_paths(record: dict, clips=None, source: str = "the 72-frame rollout") -> dict:
+def run_a15c_paths(record: dict, clips=None, source: str = "the 40-frame rollout") -> dict:
     """Phase 24: RAFT, AMT-S, PIPs2 and MUSIQ. (a) each network on the card
     against the CPU at the metrics' shapes; (b) K600's validation as composed
     with the four weight files; (c) FVMD with PIPs2. Returns the launch
@@ -5853,10 +5880,7 @@ def run_ring_cli(record: dict) -> dict:
         f"algorithm.diffusion.sampling_timesteps={RING_CLI_SAMPLING_STEPS}",
         "experiment.training.data.num_workers=0", "++algorithm.logging.loss_freq=1",
         "++algorithm.logging.max_num_videos=0", "++algorithm.logging.metrics=[mse,psnr]",
-        "wandb.mode=disabled",
-        "++algorithm.backbone.num_updown_blocks=[" + ",".join(
-            str(n) for n in FLAGSHIP_CUT_DEPTH["num_updown_blocks"]) + "]",
-        f"++algorithm.backbone.num_mid_blocks={FLAGSHIP_CUT_DEPTH['num_mid_blocks']}"]
+        "wandb.mode=disabled"] + CUT_DEPTH_ARGV
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -5900,6 +5924,506 @@ def run_ring_paths(record: dict, results: dict) -> dict:
     out["ring_cli"] = run_ring_cli(record)
     record["ring"]["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 25: {record['ring']['seconds']:.1f} s")
+    return out
+
+
+# phase 26: Megatron tensor parallelism, the serving export, the UCF-101
+# recipe with its EDM AugmentPipe, attention capture
+TP_FLAGSHIP = 3   # the flagship's 9 heads, 3 a rank
+TP_XL = 2         # K600 @DiT/XL's 16 heads, 8 a rank
+TP_TRAIN_STEPS = 2
+TP_BATCH = TRAIN_LOOP_BATCH
+# the UCF-101 recipe: 3 training steps at its batch of 32 from seeded 64 px
+# clips (17 frames: one 16-frame clip each)
+UCF_STEPS = 3
+UCF_RES = 64
+UCF_VIDEOS = (("training", 100, 17), ("validation", 2, 17))
+# attention capture: K600 @DiT/XL at full width, its depth cut to 2, one
+# denoiser forward at level int(0.1 T), card against CPU (fp32, absolute)
+CAPTURE_DEPTH = 2
+CAPTURE_TOL = 1e-3
+
+TP_WORKER = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as CS
+from dfot_tpu_torch.ops import _cuda
+
+torch.cuda.set_device(0)  # every rank on the one card
+_cuda.library()
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=rank, world_size=world)
+out = CS.tp_rank_run(sys.argv[2])
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def cut_flagship():
+    """The flagship at full width, its depth cut to :data:`FLAGSHIP_CUT_DEPTH`."""
+    import dataclasses
+
+    from dfot_tpu_torch.algorithms.dfot_video import flagship
+
+    fs = flagship()
+    return fs._replace(spec=dataclasses.replace(fs.spec, **FLAGSHIP_CUT_DEPTH))
+
+
+def train_steps(fs, model, batch: dict, group=None, reduce_timer=None) -> dict:
+    """:data:`TP_TRAIN_STEPS` train steps of a recipe (its warm-up cut to 2,
+    as :func:`run_train_path` does) on ``batch``, the model tensor-parallel
+    over ``group`` if given: losses, gradient norms, walls, launches, peak
+    memory and, with ``reduce_timer``, the seconds of the last step's
+    all-reduces."""
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.algorithms.dfot_video import make_train_state, make_train_step
+    from dfot_tpu_torch.parallel import tensor as TT
+
+    if group is not None:
+        TT.apply_tensor_parallel(model, group)
+    fs = fs._replace(train=fs.train._replace(num_warmup_steps=2))
+    state, step = make_train_state(fs, model), make_train_step(fs)
+    gen = torch.Generator(device="cuda").manual_seed(267)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, walls, reduce_s = [], [], [], None
+    for i in range(TP_TRAIN_STEPS):
+        timed = reduce_timer is not None and i == TP_TRAIN_STEPS - 1
+        ctx = patched(TT, "_all_reduce", reduce_timer) if timed else contextlib.nullcontext()
+        if timed:
+            reduce_timer.seconds = 0.0
+        t0 = time.perf_counter()
+        with ctx:
+            state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if timed:
+            reduce_s = reduce_timer.seconds
+    return {"loss": losses, "grad_norm": norms, "wall_s": walls, "launches": ops.launch_counts(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "all_reduce_s": reduce_s}
+
+
+def flagship_window(fs, model, go=None):
+    """The cut flagship's 50-step vanilla-HG window on ``model`` (a bf16
+    sampling copy) after a 2-step warm-up window (a fresh process's first
+    window pays seconds of one-time costs): (video, wall, launches, peak
+    memory). ``go``: a path to wait for before the warm-up."""
+    import dataclasses
+
+    import torch
+    from dfot_tpu_torch import ops
+
+    ro = make_rollout(fs, model, fs.dcfg)
+    first = seeded_image(fs, 261)
+    if go is not None:
+        while not Path(go).exists():
+            time.sleep(0.05)
+    run_window(make_rollout(fs, model, dataclasses.replace(fs.dcfg, sampling_timesteps=2)), fs,
+               seed=260, first=first)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = run_window(ro, fs, seed=262, first=first)
+    torch.cuda.synchronize()
+    return video, time.perf_counter() - t0, ops.launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def _all_reduce_timer():
+    """A stand-in for ``parallel.tensor._all_reduce`` that adds the seconds
+    of each reduce (the stream synchronized on both sides) to ``.seconds``."""
+    import torch
+    from dfot_tpu_torch.parallel import tensor as TT
+
+    real = TT._all_reduce
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(x, group)
+        torch.cuda.synchronize()
+        timed.seconds += time.perf_counter() - t
+        return out
+
+    timed.seconds = 0.0
+    return timed
+
+
+def tp_rank_run(out_dir: str) -> dict:
+    """One rank of the tensor-parallel processes (:data:`TP_WORKER`): the
+    cut flagship's window and train steps over all :data:`TP_FLAGSHIP`
+    ranks, K600 @DiT/XL's train steps over the first :data:`TP_XL`; the
+    same seeds as the one-process runs of :func:`run_tp_paths`, which the
+    ranks wait for (``out_dir/go``) once their models are built."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl
+    from dfot_tpu_torch.parallel import tensor as TT
+
+    rank = dist.get_rank()
+    xl_group = dist.new_group(list(range(TP_XL)))  # every rank takes part in making it
+    fs = cut_flagship()
+    out = {"rank": rank}
+    model = sampling_copy(fs, build_random_model(fs, seed=260, token_io=False))
+    TT.apply_tensor_parallel(model, dist.group.WORLD)
+    out["heads"] = sorted({m.heads for m in model.modules() if hasattr(m, "heads")})
+    video, wall, launches, peak = flagship_window(fs, model, Path(out_dir) / "go")
+    out["window"] = {"wall_s": wall, "launches": launches, "peak_memory_bytes": peak}
+    if rank == 0:
+        np.save(Path(out_dir) / "tp_window.npy", video.float().cpu().numpy())
+    del model, video
+    torch.cuda.empty_cache()
+    out["train"] = train_steps(fs, build_random_model(fs, seed=263, token_io=False),
+                               train_batch(fs, TP_BATCH, 264), dist.group.WORLD,
+                               _all_reduce_timer())
+    torch.cuda.empty_cache()
+    if rank < TP_XL:
+        r = k600_dit_xl()
+        out["xl_train"] = train_steps(
+            r, build_random_model(r, seed=265, token_io=False),
+            latent_batch((r.max_tokens, *r.resolution, r.x_channels), TP_BATCH, 266), xl_group,
+            _all_reduce_timer())
+    dist.barrier()
+    return out
+
+
+def run_tp_paths(record: dict) -> dict:
+    """(a) Megatron tensor parallelism on the one card: :data:`TP_FLAGSHIP`
+    processes over a gloo group (NCCL does not put two ranks on one card;
+    gloo's all-reduce takes CUDA tensors) run the cut flagship's 50-step
+    window and :data:`TP_TRAIN_STEPS` train steps at batch 8 with 3 of its 9
+    heads a rank, and K600 @DiT/XL's train steps with 8 of 16 a rank on
+    the first :data:`TP_XL`; each held to the one-process run of the same
+    seeds (window: ``WINDOW_REL_TOL``; each step's loss ``GRAD_LOSS_TOL``,
+    its gradient norm ``GRAD_REL_TOL``), each rank's launches equal to the
+    one process's."""
+    import socket
+
+    import numpy as np
+    import torch
+    from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl
+
+    rec = record.setdefault("tp", {})
+    fs = cut_flagship()
+    out_dir = ROOT / "build" / "tp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "go").unlink(missing_ok=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # the ranks start (imports, the card, the models) while this process
+    # runs the one-process references; they wait for ``go`` before the card
+    # work that is timed
+    t_ranks = time.perf_counter()
+    procs = []
+    for rank in range(TP_FLAGSHIP):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(TP_FLAGSHIP), LOCAL_RANK="0",
+                   INIT=f"tcp://localhost:{port}")
+        procs.append(subprocess.Popen([sys.executable, "-c", TP_WORKER, str(ROOT), str(out_dir)],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    outs = []
+    try:
+        t0 = time.perf_counter()
+        one = {}
+        model = sampling_copy(fs, build_random_model(fs, seed=260, token_io=False))
+        video, wall, launches, peak = flagship_window(fs, model)
+        one["window"] = {"wall_s": wall, "launches": launches, "peak_memory_bytes": peak}
+        del model
+        torch.cuda.empty_cache()
+        one["train"] = train_steps(fs, build_random_model(fs, seed=263, token_io=False),
+                                   train_batch(fs, TP_BATCH, 264))
+        torch.cuda.empty_cache()
+        r = k600_dit_xl()
+        one["xl_train"] = train_steps(r, build_random_model(r, seed=265, token_io=False),
+                                      latent_batch((r.max_tokens, *r.resolution, r.x_channels),
+                                                   TP_BATCH, 266))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["one_process"] = one
+        rec["one_process_s"] = time.perf_counter() - t0
+        (out_dir / "go").write_text("go")
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=900)
+            require(p.returncode == 0, f"a tensor-parallel rank failed:\n{stderr[-3000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    rec["ranks_s"] = time.perf_counter() - t_ranks
+    rec["ranks"] = outs
+    got = np.load(out_dir / "tp_window.npy")
+    err = rel_l2(torch.as_tensor(got), video.float().cpu())
+    rec["window_rel_l2"] = err
+    require(err <= WINDOW_REL_TOL, f"the tensor-parallel window is off the one-process one by "
+                                   f"{err:.3e} (tol {WINDOW_REL_TOL})")
+    for rank in outs:
+        require(rank["heads"] == [fs.spec.num_heads // TP_FLAGSHIP],
+                f"rank {rank['rank']} holds heads {rank['heads']}")
+        for path in ("window", "train", "xl_train"):
+            if path not in rank:
+                continue
+            require(rank[path]["launches"] == one[path]["launches"],
+                    f"rank {rank['rank']} {path}: launches {rank[path]['launches']} != the one "
+                    f"process's {one[path]['launches']}")
+            if path == "window":
+                continue
+            for name, tol in (("loss", GRAD_LOSS_TOL), ("grad_norm", GRAD_REL_TOL)):
+                for i, (g, w) in enumerate(zip(rank[path][name], one[path][name])):
+                    require(abs(g / w - 1) <= tol, f"rank {rank['rank']} {path} step {i}: {name} "
+                                                   f"{g} against the one process's {w} (tol {tol})")
+    r0 = outs[0]
+    share = {p: r0[p]["all_reduce_s"] / r0[p]["wall_s"][-1] for p in ("train", "xl_train")}
+    rec["all_reduce_share"] = share
+    log(f"tensor parallelism over gloo, {TP_FLAGSHIP} processes on the one card "
+        f"({rec['ranks_s']:.1f} s with their start; the one-process runs "
+        f"{rec['one_process_s']:.1f} s):")
+    log(f"  cut flagship window (3 of 9 heads a rank): relative L2 {err:.3e} against one process "
+        f"(tol {WINDOW_REL_TOL}); wall {r0['window']['wall_s']:.3f} s against "
+        f"{one['window']['wall_s']:.3f} s; launches at 3 heads {r0['window']['launches']}")
+    for path, what in (("train", "cut flagship"), ("xl_train", "K600 @DiT/XL (8 of 16 heads)")):
+        log(f"  {what} {TP_TRAIN_STEPS} train steps at batch {TP_BATCH}: loss "
+            f"{r0[path]['loss']} against {one[path]['loss']}, grad norm {r0[path]['grad_norm']} "
+            f"against {one[path]['grad_norm']}; step walls "
+            f"{', '.join(f'{w:.3f}' for w in r0[path]['wall_s'])} s against "
+            f"{', '.join(f'{w:.3f}' for w in one[path]['wall_s'])} s; all-reduce share of the "
+            f"last step {share[path]:.3f}; launches {r0[path]['launches']}")
+    log("  peak memory a rank (window, flagship step, XL step): " + "; ".join(
+        f"rank {o['rank']} " + ", ".join(
+            f"{o[p]['peak_memory_bytes'] / 2**30:.2f}" for p in ("window", "train", "xl_train")
+            if p in o) + " GiB" for o in outs) + "; one process " + ", ".join(
+        f"{one[p]['peak_memory_bytes'] / 2**30:.2f}" for p in ("window", "train", "xl_train"))
+        + " GiB")
+    return {"tp_window": r0["window"]["launches"], "tp_train": r0["train"]["launches"],
+            "tp_xl_train": r0["xl_train"]["launches"]}
+
+
+def start_export_path(record: dict) -> dict:
+    """(b) The serving export (``tools/export_sampler.py``): the cut
+    flagship's step exported (``torch.export``) and the in-process window
+    sampler run on the same model; then ``--load`` started in a fresh child
+    process (torch and the custom ops only), which runs the artifact's window
+    while the tensor-parallel paths run (:func:`finish_export_path`)."""
+    import shutil
+
+    import torch
+    from dfot_tpu_torch.tools import export_sampler as ES
+
+    rec = record.setdefault("export", {})
+    out_dir = ROOT / "build" / "export"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    model, fs, plan, x_init, poses = ES.build(False, "cuda", FLAGSHIP_CUT_DEPTH)
+    rec.update(ES.export_window(model, fs, plan, x_init, poses, str(out_dir),
+                                {k: list(v) if isinstance(v, tuple) else v
+                                 for k, v in FLAGSHIP_CUT_DEPTH.items()}))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = ES.in_process_window(model, fs, plan, x_init, poses)
+    torch.cuda.synchronize()
+    rec["in_process_s"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    saved = out_dir / "loaded.npy"
+    proc = subprocess.Popen([sys.executable, "-m", "dfot_tpu_torch.tools.export_sampler",
+                             "--load", str(out_dir), "--save", str(saved), "--device", "cuda"],
+                            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return {"proc": proc, "want": want.float().cpu(), "saved": saved}
+
+
+def finish_export_path(record: dict, started: dict) -> dict:
+    """The ``--load`` child's window against the in-process one: bit-equal,
+    or its difference within ``WINDOW_REL_TOL``."""
+    import numpy as np
+    import torch
+
+    rec = record["export"]
+    proc = started["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    require(proc.returncode == 0, f"--load failed:\n{stderr[-3000:]}")
+    rec.update(json.loads(stdout.strip().splitlines()[-1]))
+    got, want = torch.as_tensor(np.load(started["saved"])), started["want"]
+    rec["bit_equal"] = bool(torch.equal(got, want))
+    rec["max_abs_diff"] = float((got - want).abs().max())
+    rec["rel_l2"] = rel_l2(got, want)
+    require(tuple(got.shape) == tuple(want.shape), f"--load window shape {tuple(got.shape)}")
+    require(rec["rel_l2"] <= WINDOW_REL_TOL, f"the exported window is off the in-process one by "
+                                             f"{rec['rel_l2']:.3e}")
+    require(any(rec["launches"].values()), "the exported window launched no kernel")
+    log(f"serving export of the cut flagship's step: exported in {rec['export_s']:.1f} s "
+        f"({rec['artifact_bytes'] / 2**20:.1f} MiB); --load in a fresh process beside the "
+        f"tensor-parallel ranks: {rec['load_s']:.1f} s to load, {rec['run_s']:.3f} s the window "
+        f"(in process {rec['in_process_s']:.3f} s): "
+        + ("bit-equal to the in-process window" if rec["bit_equal"] else
+           f"max |diff| {rec['max_abs_diff']:.3e}, relative L2 {rec['rel_l2']:.3e} against the "
+           f"in-process window (the exported graph's ops on the card: tol {WINDOW_REL_TOL})")
+        + f"; launches {rec['launches']}")
+    return {"export": rec["launches"]}
+
+
+def write_ucf101(root: Path, res: int, seed: int) -> None:
+    """A seeded UCF-101-layout directory of drifting random images:
+    ``<split>03.json`` and ``<split>/<class>_preprocessed_<res>_npz/v_<i>.npz``
+    ((T, C, H, W) uint8)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for split, n, length in UCF_VIDEOS:
+        index = []
+        for i in range(n):
+            cls = f"Class{i % 4}"
+            index.append({"video_path": f"datasets/ucf101/{split}/{cls}/v_{i}.avi",
+                          "label": i % 4})
+            base = rng.integers(0, 256, (res, res, 3)).astype(np.uint8)
+            video = np.stack([np.roll(base, 2 * t, axis=1) for t in range(length)])
+            d = root / split / f"{cls}_preprocessed_{res}_npz"
+            d.mkdir(parents=True, exist_ok=True)
+            np.savez(d / f"v_{i}.npz", video=video.transpose(0, 3, 1, 2))
+        (root / f"{split}03.json").write_text(json.dumps(index))
+
+
+def run_ucf_path(record: dict) -> dict:
+    """(c) The UCF-101 recipe (``dataset=ucf_101``: online DC-AE tokens at 64
+    px, batch 32, the EDM ``AugmentPipe`` on every training clip in the
+    loader workers) through ``run(argv)``: :data:`UCF_STEPS` steps from a
+    seeded directory, the host's wait for each batch beside the same run
+    with ``dataset.augmentation=null``."""
+    import shutil
+    import statistics
+
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.__main__ import run
+    from dfot_tpu_torch.experiments import video_generation as VG
+
+    rec = record.setdefault("ucf", {})
+    root = ROOT / "build" / "ucf"
+    shutil.rmtree(root, ignore_errors=True)
+    write_ucf101(root / "ucf-101", UCF_RES, 270)
+    argv = ["+name=ucf", "dataset=ucf_101", "algorithm=dfot_video", "experiment=video_generation",
+            f"dataset.save_dir={root / 'ucf-101'}", "experiment.tasks=[training]",
+            f"experiment.training.max_steps={UCF_STEPS}", "++algorithm.logging.loss_freq=1",
+            "wandb.mode=disabled", f"output_dir={root / 'runs'}"]
+    real_make_loader = VG.make_loader
+    launches = None
+    try:
+        for form, extra in (("augmented", []), ("plain", ["dataset.augmentation=null"])):
+            waits, pids = [], []
+
+            def timed_loader(*args, **kw):
+                return TimedLoader(real_make_loader(*args, **kw), waits, pids)
+
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with patched(VG, "make_loader", timed_loader):
+                exp = run(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if form == "augmented":
+                launches = ops.launch_counts()
+                cfg = exp.cfg
+                require(bool(cfg.dataset.augmentation) and exp.algo.is_latent,
+                        "the UCF-101 run lacks its augmentation or its latents")
+            require(exp.state.step == UCF_STEPS, f"the UCF-101 {form} run took {exp.state.step} "
+                                                 f"steps")
+            rec[form] = {"wall_s": wall, "waits_s": waits, "workers": len(pids),
+                         "later_waits_median_s": statistics.median(waits[1:]) if waits[1:] else None}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(any(launches.values()), "the UCF-101 run launched no kernel")
+    c = cfg.experiment.training
+    log(f"UCF-101 recipe through python -m dfot_tpu_torch ({UCF_STEPS} steps at batch "
+        f"{c.batch_size}, {UCF_RES} px, online DC-AE, {c.data.num_workers} loader workers): "
+        + "; ".join(f"{form} {rec[form]['wall_s']:.1f} s, the host's wait a batch "
+                    + ", ".join(f"{w:.3f}" for w in rec[form]["waits_s"]) + " s"
+                    for form in ("augmented", "plain")) + f"; launches {launches}")
+    return {"ucf_train": launches}
+
+
+def run_capture_path(record: dict) -> dict:
+    """(d) Attention capture (``utils/attn_capture.py``): K600 @DiT/XL at full
+    width, depth cut to :data:`CAPTURE_DEPTH`, fp32, one denoiser forward of
+    a noised seeded latent at level int(0.1 T) with capture on, on the card
+    and on the CPU on the same weights: every (B, H, N, N) map within
+    :data:`CAPTURE_TOL`."""
+    import dataclasses
+    import importlib.util
+
+    import torch
+    from dfot_tpu_torch.algorithms.dfot_video import build_model, k600_dit_xl
+    from dfot_tpu_torch.diffusion import core as dc
+    from dfot_tpu_torch.utils.attn_capture import capture_attention_maps
+
+    r = k600_dit_xl()
+    r = r._replace(spec=dataclasses.replace(r.spec, depth=CAPTURE_DEPTH))
+    card = build_random_model(r, seed=280, token_io=False).eval()
+    cpu = build_model(r, token_io=False, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    T = r.max_tokens
+    gen = torch.Generator().manual_seed(281)
+    xs = torch.randn(1, T, *r.resolution, r.x_channels, generator=gen)
+    level = int(r.dcfg.timesteps * 0.1)
+    k = torch.full((1, T), level, dtype=torch.long)
+    sched = dc.make_schedule(r.dcfg, "cpu")
+    x_t = dc.q_sample(sched, xs, k, torch.randn(xs.shape, generator=gen).clamp(-20, 20))
+    t0 = time.perf_counter()
+    _, maps_card = capture_attention_maps(card, x_t.cuda(), k.float().cuda())
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    _, maps_cpu = capture_attention_maps(cpu, x_t, k.float())
+    require(maps_card and sorted(maps_card) == sorted(maps_cpu), "captured maps differ in keys")
+    worst = max(float(abs(maps_card[n] - maps_cpu[n]).max()) for n in maps_cpu)
+    rec = record["capture"] = {"maps": sorted(maps_card), "max_abs_diff": worst,
+                               "tol": CAPTURE_TOL, "card_s": card_s,
+                               "shape": list(next(iter(maps_card.values())).shape)}
+    require(worst <= CAPTURE_TOL, f"captured maps, card against CPU: {worst:.3e}")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"attention capture, K600 @DiT/XL (depth cut to {CAPTURE_DEPTH}), level {level}: "
+        f"{len(maps_card)} maps {rec['shape']}, card against CPU max |diff| {worst:.3e} "
+        f"(tol {CAPTURE_TOL}), {card_s:.2f} s on the card")
+    log("  matplotlib is " + ("present" if has_mpl else "absent") + " on this machine: the "
+        "heatmap PNGs are rendered and held to the JAX package's in the CPU tests "
+        "(tests/test_torch_port_aux.py)")
+    del card, cpu
+    return {}
+
+
+def run_slice20_paths(record: dict) -> dict:
+    """Phase 26: tensor parallelism on the one card, the serving export, the
+    UCF-101 recipe with its AugmentPipe, attention capture."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log("tensor parallelism, the serving export, UCF-101, attention capture (phase 26):")
+    # the export's --load child loads (host work) and runs its window while
+    # the tensor-parallel ranks start
+    export = start_export_path(record)
+    out = run_tp_paths(record)
+    out.update(finish_export_path(record, export))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(run_ucf_path(record))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(run_capture_path(record))
+    record["phase26_s"] = time.perf_counter() - t_phase
+    log(f"  phase 26: {record['phase26_s']:.1f} s")
     return out
 
 
@@ -6052,6 +6576,12 @@ def main() -> int:
         # ring attention, the sequence-parallel window, a one-rank NCCL run
         by_path.update(run_ring_paths(record, results))
         lap("phase 25")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # tensor parallelism, the serving export, UCF-101, attention capture
+        by_path.update(run_slice20_paths(record))
+        lap("phase 26")
         for name, _, _ in KERNELS:
             require(any(by_path[path].get(name, 0) for path in PATHS),
                     f"kernel {name} was launched on no path")

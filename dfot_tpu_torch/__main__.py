@@ -20,10 +20,14 @@ Several processes: ``torchrun --nproc_per_node=N -m dfot_tpu_torch ...``
 touches the card (``parallel.multihost.initialize``; NCCL, each process on
 its ``LOCAL_RANK``'s card), rank 0's clock stamps the one run directory,
 and rank 0 registers the run; a one-process ``torchrun`` launch makes a
-one-rank group. The group is taken down when the run ends. Cluster dispatch
-(``cluster=``) is not ported and raises ``NotImplementedError`` naming
-ROADMAP.md A16b. The XLA compilation cache of ``main.py`` has no
-counterpart here.
+one-rank group. The group is taken down when the run ends.
+
+Cluster dispatch (``cluster=<name>``, ``main.py:49-60``): on a login node
+(no ``SLURM_JOB_ID``) the cluster config's launch template is rendered with
+this command line (``python -m dfot_tpu_torch ...``), submitted with its
+``submit_command`` (``utils/cluster.py``), and ``run`` returns None; inside
+the job the run goes on as any other. The XLA compilation cache of
+``main.py`` has no counterpart here.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ __all__ = ["run"]
 def run(argv, device=None):
     """Compose the config from ``argv`` and run its tasks on ``device``
     (None: the card; ``"cpu"``: a multi-process launch then runs under gloo).
-    Returns the experiment, closed."""
+    Returns the experiment, closed (None where ``cluster=`` submitted a
+    job)."""
     import torch.distributed as dist
 
     from .parallel import multihost
@@ -69,8 +74,13 @@ def _run(argv, device):
     if "name" not in cfg:
         raise ValueError("must specify a name for the run with command line argument '+name=[name]'")
     if cfg.get("cluster") is not None:
-        raise NotImplementedError(
-            "cluster dispatch is not ported yet (ROADMAP.md queue A16b)")
+        from .utils.cluster import is_compute_node, submit_cluster_job
+
+        if not is_compute_node():
+            command = "python -m dfot_tpu_torch " + " ".join(argv)
+            script = submit_cluster_job(cfg.cluster, str(cfg.name), command, str(cfg.output_dir))
+            print(f"submitted cluster job: {script}")
+            return None
 
     choices = cfg.get("_choices", {})
     # one run directory for every process: rank 0's clock, to the second

@@ -13,8 +13,10 @@ Formats: ``.npz`` with a ``video`` array (T, H, W, C) uint8 and optional
 ``.mov``, ``.mkv`` and ``.webm`` decoded with OpenCV and rescaled and
 center-cropped to the dataset resolution (``cv2`` is imported where such a
 file is read: without it that read raises ``ImportError``). Training clips
-go through ``re10k_augment`` where the dataset config asks; the EDM
-``AugmentPipe`` raises (ROADMAP.md queue A12). ``SyntheticVideoDataset``
+go through ``re10k_augment`` (the RE10K keys), the EDM ``AugmentPipe`` (any
+other ``augmentation`` dict, the UCF-101 recipe's) or the legacy
+``augmentation_prob`` subset, each clip's ``RandomState`` seeded from its
+index as in the JAX package. ``SyntheticVideoDataset``
 makes deterministic moving-gradient videos; ``build_dataset`` returns it
 when the dataset is ``synthetic`` or its directory is absent, else the
 dataset's layout class (``data/layouts.py``), as the JAX package does.
@@ -241,7 +243,12 @@ class VideoDataset:
                 np.concatenate(pts_list) if pts_list else np.zeros(0)
             )
             arrays["pts_offsets"] = np.cumsum([0] + [len(p) for p in pts_list])
-        np.savez(cache, **arrays)
+        # written whole, then renamed: the processes of a multi-process run
+        # build the same cache at once, and a reader must not find half a file
+        tmp = f"{cache}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, cache)
         return metadata
 
     # -- loading -----------------------------------------------------------

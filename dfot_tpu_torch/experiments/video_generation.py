@@ -47,15 +47,19 @@ noise levels and noise and takes its rows ``index::data``, its gradients
 are averaged over the data and fsdp axes, and the losses it logs are
 averaged over the data axis. With the in-process loader
 (``experiment.training.data.num_workers=0``) the share is the strided slice
-of the one-process order, so the run equals the one-process run (model
-dropout aside: ROADMAP.md C14). With loader workers the share is grain's
+of the one-process order, so the run equals the one-process run (the
+model's dropouts too draw for the global batch: ``models/dropout.py``). With
+loader workers the share is grain's
 (the rank's consecutive piece of the records, shuffled within), as the JAX
 package's ``GrainDataLoader`` under data parallelism: a step's rows are
 then other records than the one-process run's. fsdp > 1 wraps the model in
 FSDP2.
 ``mesh.tensor`` with ``mesh.sequence_parallel`` makes the tensor axis the
 group of ring attention (``ops/ring_attention.py``), the weights replicated
-along it. Checkpoints are gathered whole and written, and metrics and videos
+along it; without it the tensor axis shards the weights Megatron-style
+(``parallel/tensor.py``; the validation mesh's ``tensor`` likewise), FSDP2
+then sharding the local shards. Checkpoints are gathered whole and written,
+and metrics and videos
 logged, by rank 0. Validation (:517-555) samples every batch on every
 process, the NFE-expanded denoiser batch split over the validation mesh's
 data axis (``set_sampling_mesh``), and rank 0 scores; the mid-run
@@ -63,9 +67,8 @@ validation's losses and reconstructions are the data ranks' shares,
 gathered (``gather_for_metrics``). The sequence-parallel ring is put back as
 it was after training and after each validation.
 
-What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-queue item: ``algorithm.save_attn_map.enabled`` and ``mesh.tensor > 1``
-without ``mesh.sequence_parallel`` (Megatron tensor parallelism) are A16b.
+``algorithm.save_attn_map.enabled`` saves the attention heatmaps of the
+first validation batch (``_save_attention_maps``).
 
 Every configured metric is scored (``VideoMetric``), its frozen networks
 from one ``SharedMetricModelRegistry`` on the experiment's device with the
@@ -96,16 +99,23 @@ from ..data.loader import DataLoader, make_loader
 from ..data.video_dataset import build_dataset
 from ..metrics.registry import SharedMetricModelRegistry
 from ..metrics.video_metric import VideoMetric
+from ..diffusion import core as dc
 from ..ops.attention import set_sequence_parallel
 from ..ops.ring_attention import ProcessRing
 from ..parallel import multihost
 from ..parallel.mesh import (
     average_gradients,
     axis_group,
+    is_dtensor,
     make_mesh,
     mesh_shape,
     shard_model,
     unsharded,
+)
+from ..parallel.tensor import (
+    apply_tensor_parallel,
+    remove_tensor_parallel,
+    tensor_parallel_size,
 )
 from ..training.state import load_module_state
 from ..training.checkpoint import (
@@ -115,6 +125,7 @@ from ..training.checkpoint import (
     save_checkpoint,
     wait_for_checkpoints,
 )
+from ..utils.attn_capture import capture_attention_maps, save_attention_heatmaps
 from ..utils.logging import MetricsLogger, log_video
 from ..utils.profiling import trace
 from ..utils.torch_ckpt import load_state_dict, resolve_weights_path, strip_checkpoint
@@ -140,18 +151,27 @@ def _is_torch_file(path: str) -> bool:
 
 
 def _mesh_options(mesh_cfg) -> tuple:
-    """(tensor, sequence_parallel) of an experiment's ``mesh`` node; what the
-    port cannot run raises."""
+    """(tensor, sequence_parallel) of an experiment's ``mesh`` node."""
     mesh_cfg = mesh_cfg or {}
     tensor = int(mesh_cfg.get("tensor", 1) or 1)
     sequence_parallel = bool(mesh_cfg.get("sequence_parallel", False))
-    if tensor > 1 and not sequence_parallel:
-        raise NotImplementedError(
-            "mesh.tensor > 1 without mesh.sequence_parallel is Megatron tensor parallelism, "
-            "not ported yet (ROADMAP.md queue A16b)")
     if sequence_parallel and tensor <= 1:
         raise ValueError("mesh.sequence_parallel needs mesh.tensor > 1")
     return tensor, sequence_parallel
+
+
+def _set_tensor_parallel(model, mesh, on: bool) -> None:
+    """Shard ``model`` over the mesh's tensor axis (``on``) or make it whole
+    (``parallel/tensor.py``); a model in that layout already stays as it is."""
+    group, size, _ = axis_group(mesh, "tensor") if on else (None, 1, 0)
+    if tensor_parallel_size(model) == size:
+        return
+    if any(is_dtensor(p) for p in model.parameters()):
+        raise ValueError("an FSDP2 model keeps its tensor-parallel layout: give the "
+                         "validation mesh the training mesh's tensor size")
+    remove_tensor_parallel(model)
+    if size > 1:
+        apply_tensor_parallel(model, group)
 
 
 def _ring(mesh, sequence_parallel: bool):
@@ -181,11 +201,6 @@ class VideoGenerationExperiment:
         self.ckpt_dir = os.path.join(self.output_dir, "checkpoints")
         self.load_path = load
         self.timings: Dict[str, float] = {}
-        attn_cfg = cfg.algorithm.get("save_attn_map")
-        if attn_cfg is not None and attn_cfg.get("enabled"):
-            raise NotImplementedError(
-                "algorithm.save_attn_map needs attention capture, which is not ported yet "
-                "(ROADMAP.md queue A16b)")
         os.makedirs(self.output_dir, exist_ok=True)
         t0 = time.perf_counter()
         self.algo = build_algorithm(cfg, device=device)
@@ -300,11 +315,11 @@ class VideoGenerationExperiment:
             mesh = make_mesh(mesh_shape(batch, multihost.world_size(), tensor))
         prior = set_sequence_parallel(_ring(mesh, sequence_parallel))
         try:
-            self._train(mesh)
+            self._train(mesh, tensor > 1 and not sequence_parallel)
         finally:
             set_sequence_parallel(prior)
 
-    def _train(self, mesh) -> None:
+    def _train(self, mesh, tensor_parallel: bool = False) -> None:
         cfg, algo = self.cfg, self.algo
         tcfg = cfg.experiment.training
         accumulate = tcfg.optim.get("accumulate_grad_batches", 1)
@@ -333,6 +348,7 @@ class VideoGenerationExperiment:
         if resume and _is_torch_file(str(resume)):
             self._load_weights(str(resume))
             resume = None
+        _set_tensor_parallel(algo.model, mesh, tensor_parallel)
         shard_model(algo.model, mesh)
         state = algo.make_train_state(
             accumulate_steps=accumulate,
@@ -542,7 +558,9 @@ class VideoGenerationExperiment:
     def validation(self, namespace: str = "validation") -> None:
         vcfg = self.cfg.experiment.validation
         tensor, sequence_parallel = _mesh_options(vcfg.get("mesh"))
-        ring = None
+        ring = mesh = None
+        if tensor > 1 and not torch.distributed.is_initialized():
+            raise ValueError(f"mesh.tensor={tensor} does not divide 1 processes")
         if torch.distributed.is_initialized():
             # every process samples every batch; the NFE-expanded denoiser
             # batch is split over the data axis, the ring takes the tensor axis
@@ -552,6 +570,7 @@ class VideoGenerationExperiment:
             mesh = make_mesh((world // tensor, 1) + ((tensor,) if tensor > 1 else ()))
             self.algo.set_sampling_mesh(mesh)
             ring = _ring(mesh, sequence_parallel)
+        _set_tensor_parallel(self.algo.model, mesh, tensor > 1 and not sequence_parallel)
         prior = set_sequence_parallel(ring)
         try:
             self._validation(namespace)
@@ -612,10 +631,13 @@ class VideoGenerationExperiment:
         VideoMetric(metric_types, registry, n_metrics_frames)  # refuses unknown metrics before sampling
         task_metrics: Dict[str, VideoMetric] = {}
         num_logged = 0
+        attn_cfg = cfg.algorithm.get("save_attn_map")
         for i, batch in enumerate(loader):
             if i >= n_batches:
                 break
             xs = self._tokenize_batch(batch)["xs"]
+            if i == 0 and attn_cfg is not None and attn_cfg.get("enabled"):
+                self._save_attention_maps(xs, batch, attn_cfg)
             t0 = time.perf_counter()
             with unsharded(algo.model):
                 videos = algo.sample_videos(generator, xs, conditions=batch.get("conds"),
@@ -655,6 +677,36 @@ class VideoGenerationExperiment:
             self.logger.log(results, 0)
         self.last_metrics = results
         self._add_time("metrics_s", t0)
+
+    def _save_attention_maps(self, xs, batch, attn_cfg) -> None:
+        """Per-layer attention heatmaps of one denoiser forward of the first
+        video at levels ``int(0.1 T)`` and ``int(0.7 T)`` (JAX
+        ``experiments/video_generation.py:680-714``; reference
+        attn_hook/hook.py:15-149), as PNGs under ``attn_map_dir`` (default
+        ``<run dir>/attn_maps``), and ``attn_maps_saved`` logged. The noise
+        is drawn from a generator seeded 0 (JAX: ``PRNGKey(0)``, another
+        stream). Only the DiTs' attention records its weights."""
+        algo = self.algo
+        out_dir = attn_cfg.get("attn_map_dir") or os.path.join(self.output_dir, "attn_maps")
+        xs = xs[:1]
+        conds = algo.process_conditions(batch.get("conds"))
+        if conds is not None:
+            conds = self._to_device(np.asarray(conds, np.float32)[:1])
+        generator = torch.Generator(device=algo.device).manual_seed(0)
+        paths = []
+        algo.model.eval()
+        with unsharded(algo.model):
+            for t in (int(algo.dcfg.timesteps * 0.1), int(algo.dcfg.timesteps * 0.7)):
+                k = torch.full(xs.shape[:2], t, dtype=torch.long, device=xs.device)
+                noise = dc.clipped_normal(xs.shape, algo.dcfg.clip_noise, generator, xs.device)
+                x_t = dc.q_sample(algo.sched, xs, k, noise)
+                # the denoiser on the training layout: conditions expanded,
+                # under autocast
+                _, maps = capture_attention_maps(algo.model, x_t, k.float(), conds, None,
+                                                 apply=algo._train_apply)
+                if multihost.is_rank_zero():
+                    paths = save_attention_heatmaps(maps, out_dir, timestep=t)
+        self.logger.log({"attn_maps_saved": float(len(paths))}, 0)
 
     def _metric_registry(self) -> SharedMetricModelRegistry:
         """The frozen metric networks on the experiment's device, with the

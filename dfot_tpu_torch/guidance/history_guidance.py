@@ -317,12 +317,15 @@ def _b(x: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def hg_prepare(x, from_k, to_k, mask, table: HGTable, dev_table: HGTable, q_sample_fn,
                timesteps: int, replacement_only: bool = False,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               fresh: Optional[torch.Tensor] = None):
     """Expand the batch by NFE and install the partial-history conditions.
 
     x: (B, T, *xs); from_k/to_k/mask: (B, T) integer tensors. ``table`` is the
     host table and ``dev_table`` the same arrays as tensors on x's device.
-    q_sample_fn(x_flat, k_flat) -> noised x. Returns (x, from_k, to_k,
+    q_sample_fn(x_flat, k_flat) -> noised x. ``fresh``: the (B, H, G, T,
+    *xs) noise of the excluded generation tokens, given (an exported step's
+    input) instead of drawn from ``generator``. Returns (x, from_k, to_k,
     cond_mask) with batch B * H * G in (b, h, g) row-major order.
     """
     B, T = from_k.shape
@@ -351,7 +354,8 @@ def hg_prepare(x, from_k, to_k, mask, table: HGTable, dev_table: HGTable, q_samp
     fk = torch.where(excl, timesteps - 1, fk)
     tk = torch.where(excl, timesteps - 1, tk)
     if table.gen_excluded.any():  # host check: no draw when nothing is excluded
-        fresh = torch.randn(xg.shape, generator=generator, device=xg.device, dtype=xg.dtype)
+        if fresh is None:
+            fresh = torch.randn(xg.shape, generator=generator, device=xg.device, dtype=xg.dtype)
         xg = torch.where(_b(excl, xg.ndim), fresh, xg)
 
     cond_mask = dev_table.cond_mask[None, :, None].expand(B, H, G).reshape(B * H * G)

@@ -26,7 +26,8 @@ rows of up to 32 tokens (the factorized variants' temporal and small spatial
 attentions) through kernel B10. Matrix blocks launch no kernel.
 
 Training follows PyTorch's idiom: ``model.train()`` switches on the condition
-dropouts (draws from the device's global generator), ``model.eval()`` switches
+dropouts (draws from the device's global generator for the global batch,
+``models/dropout.py``), ``model.eval()`` switches
 them off; with ``use_gradient_checkpointing`` the blocks are recomputed in the
 backward whenever gradients are enabled.
 """
@@ -40,7 +41,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention, attention_route
+from ..ops.attention import (
+    attention,
+    attention_capture_enabled,
+    attention_route,
+    attention_with_weights,
+)
 from ..ops.ln_modulate import ln_modulate
 from ..ops.qkv_prep import attention_from_packed_qkv, swap_pairs
 from .embeddings import (
@@ -55,6 +61,7 @@ from .embeddings import (
     make_rope_2d,
     make_rope_3d,
 )
+from .dropout import uniform
 from .matrix import MatrixDiTBlock
 from .remat import remat, saved_ops
 
@@ -78,25 +85,34 @@ def norm_modulate(x, shift, scale, plain: bool = False) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with optional RoPE (packed qkv matmul)."""
+    """Multi-head self-attention with optional RoPE (packed qkv matmul).
+    With attention capture on (``ops.attention.set_attention_capture``) each
+    call takes the plain weights-returning path and appends its (B, H, N, N)
+    weights to ``captured``, as the JAX module sows them."""
+
+    captured = None
 
     def __init__(self, dim: int, num_heads: int, rope: Optional[RopeTables] = None,
                  causal: bool = False):
         super().__init__()
         self.num_heads, self.rope, self.causal = num_heads, rope, causal
+        self.head_dim = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         # True: run the plain versions of the attention kernels
         self.plain = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, C = x.shape
-        H, D = self.num_heads, C // self.num_heads
+        B, N, _ = x.shape
+        # num_heads is this rank's share of the heads under tensor parallelism
+        H, D = self.num_heads, self.head_dim
+        C = H * D
         qkv = self.qkv(x)
         tabs = None if self.rope is None else self.rope.cast(x.device, qkv.dtype)
         # the output of either route is what the JAX model tags attn_out: the
         # route's last op (B3's or B10's) is what the attn remat policies keep
-        if attention_route(N, D, self.causal) in ("flash", "padded_flash"):
+        capture = attention_capture_enabled()  # utils/attn_capture.py
+        if not capture and attention_route(N, D, self.causal) in ("flash", "padded_flash"):
             # one pass each for split + RoPE + pad and for slice + merge
             out = attention_from_packed_qkv(
                 qkv, H, D, None if tabs is None else (tabs, tabs),
@@ -108,7 +124,11 @@ class Attention(nn.Module):
             cos, sin = tabs[0][:N], tabs[1][:N]
             q = q * cos + swap_pairs(q) * sin
             k = k * cos + swap_pairs(k) * sin
-        out = attention(q, k, v, causal=self.causal, plain=self.plain)
+        if capture:
+            out, weights = attention_with_weights(q, k, v, causal=self.causal)
+            self.captured = (self.captured or []) + [weights.detach()]
+        else:
+            out = attention(q, k, v, causal=self.causal, plain=self.plain)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -497,7 +517,7 @@ class DiT3DPose(nn.Module):
             return self.trunk(x_in, noise_levels)[..., : self.x_channels]
         pose_emb = self.pose_embed(external_cond).mean(dim=2)  # (B, T, C)
         if self.external_cond_dropout > 0 and self.training:
-            drop = torch.rand(x.shape[0], device=x.device) < self.external_cond_dropout
+            drop = uniform(x.shape[:1], x.device) < self.external_cond_dropout
             pose_emb = torch.where(drop[:, None, None], 0.0, pose_emb)
         elif external_cond_mask is not None:
             m = external_cond_mask.reshape(

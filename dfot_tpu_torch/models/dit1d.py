@@ -100,7 +100,7 @@ def _per_frame(x: torch.Tensor, n: int, fn) -> torch.Tensor:
 class DiT1DAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qk_norm: bool):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         if qk_norm:  # torch LayerNorm defaults: eps 1e-5, affine
@@ -109,8 +109,10 @@ class DiT1DAttention(nn.Module):
         self.qk_norm = qk_norm
 
     def forward(self, x, rope: Optional[RopeTables], bias: Optional[torch.Tensor]):
-        B, N, C = x.shape
-        H, d = self.num_heads, C // self.num_heads
+        B, N, _ = x.shape
+        # num_heads is this rank's share of the heads under tensor parallelism
+        H, d = self.num_heads, self.head_dim
+        C = H * d
         q, k, v = self.qkv(x).reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import uniform
+
 __all__ = [
     "timestep_embedding",
     "TimestepEmbedding",
@@ -100,8 +102,8 @@ class StochasticTimeEmbedding(nn.Module):
     With ``p`` > 0 (sinusoidal features only) the module owns a learned
     "unknown level" token: in training mode each position takes it with
     probability ``p`` (a draw from the device's global generator, which the
-    train step seeds), in eval mode wherever ``mask`` is True. The UViT
-    builds it with ``p`` = 0."""
+    train step seeds, for the global batch: ``models/dropout.py``), in eval
+    mode wherever ``mask`` is True. The UViT builds it with ``p`` = 0."""
 
     def __init__(self, dim: int, emb_dim: int, use_fourier: bool = False, p: float = 0.0):
         super().__init__()
@@ -118,7 +120,7 @@ class StochasticTimeEmbedding(nn.Module):
             emb = timestep_embedding(noise_levels, self.dim)
             if self.p > 0.0:
                 if self.training or self.p == 1.0 or mask is None:
-                    mask = torch.rand(emb.shape[:-1], device=emb.device) < self.p
+                    mask = uniform(emb.shape[:-1], emb.device) < self.p
                 emb = torch.where(mask[..., None], self.unknown_token.to(emb.dtype), emb)
         return self.embedding(emb)
 
@@ -127,7 +129,7 @@ class LabelEmbedding(nn.Module):
     """Class-label embedding table; with ``dropout_prob`` > 0 it has one more
     row, the null class of classifier-free guidance: in training mode each
     label takes it with that probability (a draw from the device's global
-    generator), in eval mode wherever ``mask`` is True."""
+    generator for the global batch), in eval mode wherever ``mask`` is True."""
 
     def __init__(self, num_classes: int, emb_dim: int, dropout_prob: float = 0.0):
         super().__init__()
@@ -138,7 +140,7 @@ class LabelEmbedding(nn.Module):
         labels = labels.long()
         if self.dropout_prob > 0:
             if self.training:
-                mask = torch.rand(labels.shape, device=labels.device) < self.dropout_prob
+                mask = uniform(labels.shape, labels.device) < self.dropout_prob
             if mask is not None:
                 labels = torch.where(mask, self.num_classes, labels)
         return self.embedding_table(labels)
@@ -157,7 +159,7 @@ class RandomDropoutCondEmbedding(nn.Module):
     def forward(self, cond: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         emb = self.embedding(cond)
         if self.dropout_prob > 0 and self.training:
-            mask = torch.rand(emb.shape[:1], device=emb.device) < self.dropout_prob
+            mask = uniform(emb.shape[:1], emb.device) < self.dropout_prob
         if mask is not None:
             mask = mask.reshape(mask.shape + (1,) * (emb.ndim - mask.ndim))
             emb = torch.where(mask, 0.0, emb)
@@ -228,7 +230,10 @@ class DeviceTable:
     def on(self, device, dtype=torch.float32) -> torch.Tensor:
         key = (device, dtype)
         if key not in self._dev:
-            self._dev[key] = torch.as_tensor(self._np, device=device).to(dtype)
+            table = torch.as_tensor(self._np, device=device).to(dtype)
+            if torch.compiler.is_compiling():  # a traced table is no tensor to keep
+                return table
+            self._dev[key] = table
         return self._dev[key]
 
 
@@ -250,7 +255,8 @@ class RoPE:
 
 class RopeTables:
     """RoPE tables on the device (fp32, sign folded into sin), shared by the
-    blocks that rotate alike, with one copy per device made at first use."""
+    blocks that rotate alike, with one copy per device made at first use
+    (not under tracing, whose tensors are no tables to keep)."""
 
     def __init__(self, rope: RoPE):
         # rotate_half's (-1, +1) pair sign folded into the sin table
@@ -262,9 +268,11 @@ class RopeTables:
 
     def on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         if device not in self._dev:
-            self._dev[device] = tuple(
-                torch.as_tensor(t, dtype=torch.float32, device=device) for t in self._np
-            )
+            tables = tuple(torch.as_tensor(t, dtype=torch.float32, device=device)
+                           for t in self._np)
+            if torch.compiler.is_compiling():  # traced (torch.export): not kept
+                return tables
+            self._dev[device] = tables
         return self._dev[device]
 
     def cast(self, device, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -272,7 +280,10 @@ class RopeTables:
         scale into them; cached."""
         key = (device, dtype)
         if key not in self._cast:
-            self._cast[key] = tuple(t.to(dtype).contiguous() for t in self.on(device))
+            tables = tuple(t.to(dtype).contiguous() for t in self.on(device))
+            if torch.compiler.is_compiling():
+                return tables
+            self._cast[key] = tables
         return self._cast[key]
 
 

@@ -19,7 +19,8 @@ over each frame's tokens that way and then over the frames of each position
 
 Training follows PyTorch's idiom: ``model.train()`` switches on the block
 dropouts and the whole-sample pose dropout (draws come from the device's
-global generator, which the train step seeds), ``model.eval()`` switches
+global generator, which the train step seeds, made for the global batch by
+``models/dropout.py``), ``model.eval()`` switches
 them off. Levels with ``use_checkpointing`` recompute their transformer
 blocks in the backward whenever gradients are enabled.
 """
@@ -36,6 +37,8 @@ from torch import nn
 
 from ..ops.attention import attention, attention_route
 from ..ops.qkv_prep import attention_from_packed_qkv, fold_qk_tables, swap_pairs
+from ..parallel.tensor import all_gather_last
+from .dropout import Dropout, uniform
 from .remat import not_a_residual, remat, saved_ops
 from .embeddings import (
     PatchEmbed,
@@ -164,11 +167,14 @@ class _QKNormAttention:
         every call: the table cotangents of the qkv_prep backward then reach
         ``q_norm.weight`` and ``k_norm.weight``. Otherwise the tables are
         folded once in ``dtype``, and again only when a scale changes (a
-        load, a cast or a move gives it new data or a new version)."""
+        load, a cast or a move gives it new data or a new version); under
+        tracing (``torch.export``) on every call."""
         rope = self.rope if rope is None else rope
         qw, kw = self.q_norm.weight, self.k_norm.weight
         if torch.is_grad_enabled() and (qw.requires_grad or kw.requires_grad):
             return fold_qk_tables(*rope.on(device), qw, kw, torch.float32)
+        if torch.compiler.is_compiling():  # traced (torch.export): no storage to key on
+            return fold_qk_tables(*rope.on(device), qw, kw, dtype)
         key = (device, dtype, qw.data_ptr(), qw._version, kw.data_ptr(), kw._version)
         if key != self._folded_key:
             with torch.no_grad():
@@ -216,10 +222,12 @@ class AxialAttention(nn.Module, _QKNormAttention):
         self.out = nn.Linear(dim, dim, bias=False)
         self.rope = rope
 
+    tp_group = None  # the tensor group, whose ranks hold a share of the heads
+
     def forward(self, x, emb):
         o = self._attend(self.proj(self.norm(x, emb)), self.rope)
         with not_a_residual():
-            return o + self.out(o)
+            return all_gather_last(o, self.tp_group) + self.out(o)
 
 
 class TransformerBlock(nn.Module, _QKNormAttention):
@@ -245,7 +253,7 @@ class TransformerBlock(nn.Module, _QKNormAttention):
         self.attn_out = nn.Linear(dim, dim)
         if self.use_axial:
             self.another_attn = AxialAttention(dim, heads, emb_dim, rope_ax1)
-        self.mlp_out = nn.Sequential(nn.SiLU(), nn.Dropout(dropout), nn.Linear(4 * dim, dim))
+        self.mlp_out = nn.Sequential(nn.SiLU(), Dropout(dropout), nn.Linear(4 * dim, dim))
         self.rope = rope_ax2 if self.use_axial else rope
 
     def forward(self, x, emb, pose_mod=None, pose_scale=None):
@@ -260,10 +268,13 @@ class TransformerBlock(nn.Module, _QKNormAttention):
         C = x.shape[-1]
         h = self.norm(x, emb, pose_mod, pose_scale)
         fused = self.fused_attn_mlp_proj(h)
+        # the qkv part is 3 of every 7 columns, on a tensor-parallel rank too
+        # (3C/t then 4C/t: parallel/tensor.py)
+        split = fused.shape[-1] * 3 // 7
         if torch.is_grad_enabled() and fused.requires_grad:
-            qkv, mlp_h = _SplitFused.apply(fused, 3 * C)
+            qkv, mlp_h = _SplitFused.apply(fused, split)
         else:
-            qkv, mlp_h = fused[..., : 3 * C], fused[..., 3 * C:]
+            qkv, mlp_h = fused[..., :split], fused[..., split:]
         o = self._attend(qkv, self.rope)
         with not_a_residual():
             x = x + self.attn_out(o)
@@ -612,7 +623,7 @@ class UViT3DPose(UViT3D):
         pose = pose.reshape(B, T, hh, hh, E)
         if self.external_cond_dropout > 0 and self.training:
             # whole-sample dropout of the pose conditioning (CFG)
-            drop = torch.rand(B, device=pose.device) < self.external_cond_dropout
+            drop = uniform((B,), pose.device) < self.external_cond_dropout
             pose = torch.where(drop[:, None, None, None, None], 0.0, pose)
         elif external_cond_mask is not None:
             m = external_cond_mask.reshape(

@@ -53,7 +53,38 @@ __all__ = [
     "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_plan",
     "small_n_attention", "small_n_attention_reference", "small_n_plan", "attention_route",
     "padded_head_dim", "set_sequence_parallel",
+    "attention_with_weights", "set_attention_capture", "attention_capture_enabled",
 ]
+
+# debug switch (``dfot_tpu/ops/attention.py:61-73``): when on, the DiT's
+# attention takes the weights-returning plain path and records its (B, H, N,
+# N) maps (``utils/attn_capture.py``)
+_CAPTURE_ATTENTION = False
+
+
+def set_attention_capture(enabled: bool) -> bool:
+    """Switch attention capture on or off; returns the setting it replaces."""
+    global _CAPTURE_ATTENTION
+    prior, _CAPTURE_ATTENTION = _CAPTURE_ATTENTION, bool(enabled)
+    return prior
+
+
+def attention_capture_enabled() -> bool:
+    return _CAPTURE_ATTENTION
+
+
+def attention_with_weights(q, k, v, causal: bool = False):
+    """Plain attention that also returns the (B, H, N, N) fp32 weights
+    (``dfot_tpu/ops/attention.py:1016``): the scores in fp32, scaled by
+    1/sqrt(d), causal-masked, softmaxed, and the weights in q's dtype times
+    v. A debug path, not a kernel."""
+    d = q.shape[-1]
+    s = torch.einsum("bhnd,bhmd->bhnm", q, k).float() / math.sqrt(d)
+    if causal:
+        n, m = s.shape[-2:]
+        s = s.masked_fill(~torch.ones(n, m, dtype=torch.bool, device=s.device).tril(), -1e30)
+    w = s.softmax(dim=-1)
+    return torch.einsum("bhnm,bhmd->bhnd", w.to(q.dtype), v), w
 
 
 def _full_precision(fn):

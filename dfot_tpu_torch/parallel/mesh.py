@@ -12,12 +12,12 @@ one per card, with the axes (``data``, ``fsdp``[, ``tensor``]):
   largest axis that the fsdp size divides, a smaller one (or one with no
   such axis) stays a replicated plain tensor, whose gradient is averaged
   explicitly. Processes of one data coordinate see the same rows.
-- ``tensor``: in the JAX package a Megatron layout of the projections
-  (:78-136), which under ``jit`` is a hint to XLA's partitioner and changes
-  no result. The port has no such layout yet (ROADMAP.md A16b: DTensor
-  tensor parallelism): a ``tensor`` axis serves only as the group of ring
-  attention under ``sequence_parallel``, along which the weights stay
-  replicated, and the experiments refuse it otherwise.
+- ``tensor``: Megatron tensor parallelism (``parallel/tensor.py``, the
+  JAX package's layout of :78-165 computed for real): the column- and
+  row-parallel projections hold plain local shards and sum over the axis's
+  group, applied before :func:`shard_model`, which shards the local shards
+  over (data, fsdp). Under ``sequence_parallel`` the axis is instead the
+  group of ring attention, along which the weights stay replicated.
 
 The mesh needs a process group (``multihost.initialize``); a process no
 launcher started runs without a mesh.
@@ -141,6 +141,9 @@ def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
     fully_shard(model, mesh=mesh["data", "fsdp"],
                 ignored_params={p for p, a in axes.items() if a is None},
                 shard_placement_fn=lambda p: Shard(axes[p]))
+    from .tensor import tag_shards
+
+    tag_shards(model)  # FSDP2's parameters replace the tensor-parallel shards
     return model
 
 

@@ -73,12 +73,24 @@ def foreach(op, tensors: List[torch.Tensor], *others, **kwargs):
     return out
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor], params=None) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors, in fp32 (a DTensor's
-    norm is that of its whole tensor)."""
+    norm is that of its whole tensor). ``params``, the parameters the
+    tensors belong to, in order: the squares of a tensor-parallel shard's
+    (a parameter ``parallel/tensor.py`` tagged with ``tp_group``) are summed over
+    its group, so the norm is the whole model's."""
+    tensors = list(tensors)
     norms = foreach(torch._foreach_norm, [t.float() for t in tensors])
     norms = [n.full_tensor() if is_dtensor(n) else n for n in norms]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    groups = [getattr(p, "tp_group", None) for p in params] if params is not None else []
+    group = next((g for g in groups if g is not None), None)
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    squares = torch.stack(norms) ** 2
+    sharded = torch.tensor([g is not None for g in groups], device=squares.device)
+    part = squares[sharded].sum()
+    torch.distributed.all_reduce(part, group=group)
+    return torch.sqrt(squares[~sharded].sum() + part)
 
 
 class Optimizer:
@@ -164,7 +176,7 @@ class Optimizer:
             self._sum = None
         if self.grad_clip and self.grad_clip > 0:
             # optax's rule: scale by clip / max(norm, clip), no epsilon
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.params)
             scale = self.grad_clip / torch.clamp(norm, min=self.grad_clip)
             grads = foreach(torch._foreach_mul, grads, scale)
         for p, g in zip(self.params, grads):

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import as_layout_of, is_dtensor
+from ..parallel.tensor import gather_whole, local_part
 from .optim import Optimizer, foreach
 
 __all__ = ["TrainState", "create_train_state", "ema_update", "gated_ema_update",
@@ -50,11 +51,23 @@ class TrainState:
     def state_dict(self) -> Dict:
         """``{"params": the model's state dict (parameters and buffers, under
         its names), "ema_params", "opt_state", "step"}``; the tensors are the
-        live ones (copy them before the next step changes them)."""
+        live ones (copy them before the next step changes them), but for a
+        tensor-parallel model's shards, which are gathered whole (a
+        collective: every process calls it)."""
+        model = self.model
+
+        def whole(tree):
+            return {n: gather_whole(model, n, v) for n, v in tree.items()}
+
+        opt = self.optimizer.state_dict(self._param_names())
+        opt["moments"] = {n: {k: (v if k == "step" else gather_whole(model, n, v))
+                              for k, v in m.items()} for n, m in opt["moments"].items()}
+        if opt.get("sum") is not None:
+            opt["sum"] = whole(opt["sum"])
         return {
-            "params": self.model.state_dict(),
-            "ema_params": None if self.ema is None else dict(self.ema),
-            "opt_state": self.optimizer.state_dict(self._param_names()),
+            "params": whole(model.state_dict()),
+            "ema_params": None if self.ema is None else whole(self.ema),
+            "opt_state": opt,
             "step": self.step,
         }
 
@@ -63,8 +76,8 @@ class TrainState:
         """Restore :meth:`state_dict`'s content in place: the parameters keep
         their identity (the optimizer's references stay valid), every value
         comes back with the bits it was saved with. Whole saved tensors go
-        into an FSDP2 model's sharded parameters, moments and EMA in their
-        layout."""
+        into an FSDP2 or tensor-parallel model's sharded parameters, moments
+        and EMA in their layout."""
         load_module_state(self.model, state["params"])
         if (self.ema is None) != (state.get("ema_params") is None):
             raise ValueError("the saved state and this one disagree on keeping an EMA")
@@ -73,15 +86,18 @@ class TrainState:
             if set(saved) != set(self.ema):
                 raise ValueError("the saved EMA names other parameters than this state's")
             for name, shadow in self.ema.items():
-                shadow.copy_(as_layout_of(saved[name], shadow))
+                shadow.copy_(as_layout_of(local_part(self.model, name, saved[name]), shadow))
         names = self._param_names()
         opt = dict(state["opt_state"])
         params = dict(zip(names, self.optimizer.params))
-        opt["moments"] = {
-            n: {k: (as_layout_of(v, params[n]) if k != "step" else v) for k, v in m.items()}
-            for n, m in opt["moments"].items()}
+
+        def live(n, v):
+            return as_layout_of(local_part(self.model, n, v), params[n])
+
+        opt["moments"] = {n: {k: (live(n, v) if k != "step" else v) for k, v in m.items()}
+                          for n, m in opt["moments"].items()}
         if opt.get("sum") is not None:
-            opt["sum"] = {n: as_layout_of(v, params[n]) for n, v in opt["sum"].items()}
+            opt["sum"] = {n: live(n, v) for n, v in opt["sum"].items()}
         self.optimizer.load_state_dict(opt, names)
         self.step = int(state["step"])
 
@@ -138,10 +154,12 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
 @torch.no_grad()
 def load_module_state(module: nn.Module, state: Dict[str, torch.Tensor]) -> None:
     """``module.load_state_dict(state, strict=True)``, whole saved tensors
-    put into the layout of an FSDP2 module's sharded parameters."""
+    put into the layout of an FSDP2 or tensor-parallel module's sharded
+    parameters."""
     live = module.state_dict()
     module.load_state_dict(
-        {k: as_layout_of(v, live[k]) if k in live else v for k, v in state.items()}, strict=True)
+        {k: as_layout_of(local_part(module, k, v), live[k]) if k in live else v
+         for k, v in state.items()}, strict=True)
 
 
 def gated_ema_update(ema, params, decay: float, step: int, accumulate_steps: int = 1):

@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..diffusion import core as dc
+from ..models.dropout import global_batch_rows
 from ..diffusion.continuous import continuous_training_fields, continuous_v_loss
 from .noise_levels import NoiseLevelConfig, draw_rows, training_noise_levels
 from .optim import global_norm
@@ -94,7 +95,9 @@ def make_train_step(
 
     Noise levels and noise are drawn from ``generator``; dropout inside the
     model draws from the device's global generator, seeded here from the
-    generator's seed and the step count and restored afterwards. For
+    generator's seed and the step count and restored afterwards, the same
+    stream on every process (with ``rows``, each draw is made for the
+    global batch and this share's rows kept: ``models/dropout.py``). For
     parity tests the draws can be injected: ``noise_levels`` (the level draw
     as a tensor, or a dict of draws as :func:`training_noise_levels` takes
     them), ``noise`` (unclipped N(0, 1), same shape as xs), and
@@ -125,15 +128,16 @@ def make_train_step(
         model.train(dropout)
         opt.zero_grad()
         seed = 0 if generator is None else generator.initial_seed()
-        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), \
+                global_batch_rows(rows):
             torch.manual_seed((seed * 1000003 + state.step) % (2 ** 63))
             loss, parts = loss_fn(model, batch["xs"], batch.get("conditions"), batch["masks"],
                                   generator, noise_levels, noise)
             loss.backward()
         if grad_sync is not None:
             grad_sync(model)
-        grads = [p.grad for p in opt.params if p.grad is not None]
-        grad_norm = global_norm(grads)
+        with_grad = [p for p in opt.params if p.grad is not None]
+        grad_norm = global_norm([p.grad for p in with_grad], with_grad)
         opt.step()
         state.step += 1
         if state.ema is not None:

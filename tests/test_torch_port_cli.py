@@ -486,23 +486,43 @@ def test_cli_composed_metrics_uncalibrated_without_weights(tmp_path, fixture_ckp
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["experiment.tasks=[training]", "experiment.training.mesh.tensor=2"], "A16"),
+    (["experiment.tasks=[training]", "experiment.training.mesh.tensor=2"],
+     "does not divide 1 processes"),
     (["++algorithm.logging.metrics=[vbench]", "++algorithm.logging.metrics_weights_dir={raft}"],
      "does not match the raft model"),
-    (["algorithm.save_attn_map.enabled=true"], "A16"),
-    (["experiment.validation.mesh.tensor=2"], "A16"),
-    (["cluster=base_slurm"], "A16"),
+    (["algorithm.save_attn_map.enabled=true",
+      "algorithm.save_attn_map.attn_map_dir={raft}/attn_maps"], None),
+    (["experiment.validation.mesh.tensor=2"], "does not divide 1 processes"),
+    (["cluster=base_slurm", "++cluster.submit_command=/bin/true"], None),
 ], ids=["training_mesh", "vbench_raft", "attn_maps", "mesh", "cluster"])
-def test_unported_cli_branches_raise(tmp_path, extra, item):
-    """Each unported branch raises ``NotImplementedError`` naming its queue
-    item. ``vbench_raft``: RAFT is ported (A15c), and a ``raft.npz`` that is
-    not RAFT's tree is refused with ``ValueError`` naming the file when the
+def test_unported_cli_branches_raise(tmp_path, monkeypatch, extra, item):
+    """The branches that raised ``NotImplementedError`` before they were
+    ported. A16b: a tensor axis of 2 (Megatron tensor parallelism,
+    ``tests/test_torch_port_tp.py``) in one process does not divide it
+    (``ValueError``, as the JAX mesh refuses it); ``save_attn_map`` runs (the
+    README U-ViT's attention records no maps: ``attn_maps_saved`` is 0;
+    ``tests/test_torch_port_aux.py`` holds a DiT's); ``cluster=`` on a login
+    node renders and submits the launch script and returns no experiment.
+    ``vbench_raft``: RAFT is ported (A15c), and a ``raft.npz`` that is not
+    RAFT's tree is refused with ``ValueError`` naming the file when the
     metrics first ask for the network, as in JAX."""
     np.savez(tmp_path / "raft.npz", w=np.zeros(1))
     extra = [e.format(raft=tmp_path) for e in extra]
-    error = ValueError if "raft" in item else NotImplementedError
-    with pytest.raises(error, match=item):
-        run(SMALL + extra + [f"output_dir={tmp_path / 'out'}"], device="cpu")
+    monkeypatch.delenv("SLURM_JOB_ID", raising=False)
+    argv = SMALL + extra + [f"output_dir={tmp_path / 'out'}"]
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            run(argv, device="cpu")
+        return
+    exp = run(argv, device="cpu")
+    if "cluster" in extra[0]:
+        assert exp is None
+        script = tmp_path / "out" / "slurm_logs" / "latest" / "launch.sh"
+        assert "python -m dfot_tpu_torch +name=" in script.read_text()
+        return
+    with open(exp.logger.path) as f:
+        logged = [json.loads(line) for line in f]
+    assert any(r.get("attn_maps_saved") == 0.0 for r in logged)
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):

@@ -15,11 +15,14 @@ parallelism (batch 2 over two data ranks), FSDP2 (batch 1, fsdp 2, the
 sharding floor lowered so that the tiny model has sharded parameters) and
 ring attention (``mesh.tensor=2 mesh.sequence_parallel=true``); a
 difference DFoT at data 2 likewise on its weights and every logged loss
-(``diff_loss`` and ``xs_loss`` the global batch's); with loader workers, a
+(``diff_loss`` and ``xs_loss`` the global batch's); data parallelism with the
+model's dropouts at 0.1 likewise (their masks drawn for the global batch,
+ROADMAP.md C14); with loader workers, a
 2-process run's training batches are grain's shards, rank by rank. The
 2-process runs go one after another in one pair of processes.
 """
 
+import contextlib
 import json
 
 import jax
@@ -413,17 +416,24 @@ def warm_start(tmp_path_factory):
     return path
 
 
-def _one_process_run(argv):
-    """``run(argv)`` in this process, in fp32 as the workers run: (final
-    checkpoint state, logged lines)."""
+@contextlib.contextmanager
+def TVG_fp32():
+    """The experiments build their algorithm in fp32, as the workers do."""
     from dfot_tpu_torch.experiments import video_generation as TVG
 
     real = TVG.build_algorithm
     TVG.build_algorithm = lambda cfg, device=None: real(cfg, torch.float32, device)
     try:
-        exp = run(argv, device="cpu")
+        yield
     finally:
         TVG.build_algorithm = real
+
+
+def _one_process_run(argv):
+    """``run(argv)`` in this process, in fp32 as the workers run: (final
+    checkpoint state, logged lines)."""
+    with TVG_fp32():
+        exp = run(argv, device="cpu")
     return TC.restore_checkpoint(exp.saves[-1]["path"]), _logged(exp.logger.path)
 
 
@@ -461,6 +471,7 @@ def two_process_runs(warm_start, tmp_path_factory):
     argvs["difference"] = difference_argv(tmp) + [f"output_dir={tmp / 'difference'}"]
     argvs["workers"] = worker_loader_argv() + [f"load={warm_start}",
                                                f"output_dir={tmp / 'workers'}"]
+    argvs["dropout"] = dropout_argv() + [f"load={warm_start}", f"output_dir={tmp / 'dropout'}"]
     env = {"RUNS": json.dumps(argvs), "FSDP_MIN_SIZE": "1024", **torchrun_env()}
     outs = run_workers(tmp, _RUN_WORKER, env=env, timeout=600)
     infos = [json.loads(o.strip().splitlines()[-1]) for o in outs]
@@ -566,8 +577,38 @@ def test_two_process_worker_loader_reads_grain_shards(two_process_runs):
         assert info["batches"] == want, index
 
 
+def dropout_argv() -> list:
+    """Data parallelism (batch 2 over two data ranks) with the model's
+    dropouts on: the transformer blocks' and the pose conditioning's."""
+    drop = ("++algorithm.backbone.block_dropouts=", "++algorithm.backbone.external_cond_dropout=")
+    return [a for a in TINY if not a.startswith(drop)] + [
+        "++algorithm.backbone.block_dropouts=[0.1,0.1]",
+        "++algorithm.backbone.external_cond_dropout=0.1", "experiment.training.batch_size=2"]
+
+
+def test_two_process_dropout_draws_for_the_global_batch(two_process_runs, tmp_path):
+    """ROADMAP.md C14: every dropout inside the model (the blocks', the pose
+    dropout) draws its mask for the global batch and takes the data rank's
+    rows (``models/dropout.py``), so with dropout 0.1 a 2-process data-parallel
+    run equals the one-process run: weights within 1e-5 absolute, every
+    logged number within 1e-5 relative."""
+    argv, infos = two_process_runs["dropout"]
+    argv = [a for a in argv if not a.startswith("output_dir=")]
+    want_state, want_logged = _one_process_run(argv + [f"output_dir={tmp_path / 'one'}"])
+    _assert_same_run(infos, want_state, want_logged)
+    # the dropouts are drawn: the same run without them trains other weights
+    plain = [a.replace("0.1", "0.0") if "dropout" in a else a for a in argv]
+    plain += [f"output_dir={tmp_path / 'plain'}"]
+    other, _ = _one_process_run(plain)
+    assert max(float((other["params"][k] - v).abs().max())
+               for k, v in want_state["params"].items()) > 100 * WEIGHT_ATOL
+
+
 def test_tensor_axis_without_ring_raises(tmp_path, warm_start):
-    with pytest.raises(NotImplementedError, match="A16b"):
+    """``mesh.tensor`` without ``sequence_parallel`` is Megatron tensor
+    parallelism (``tests/test_torch_port_tp.py``); in one process a tensor
+    axis of 2, with or without the ring, does not divide the processes."""
+    with pytest.raises(ValueError, match="does not divide 1 processes"):
         run(TINY + ["experiment.training.mesh.tensor=2", f"load={warm_start}",
                     f"output_dir={tmp_path}"], device="cpu")
     with pytest.raises(ValueError, match="does not divide 1 processes"):
