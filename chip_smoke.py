@@ -240,17 +240,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 25. (``run_ring_paths``) ring attention (``ops/ring_attention.py``) on a
     ``LocalRing`` of R = 2 and 4 virtual ranks at the flagship's two
-    attention sites (B 2; N 8192, 9 heads of 64; N 2048, 9 of 128): forward
-    and backward against the plain ring and against unsharded B1 + B4 + B5
-    (``RING_REL_TOL``), the exact launches of one call (R of B1 as ring
-    blocks, R each of B4 and B5), a control whose fold skips one hop, device
-    times of the whole ring and of one hop's B1, B4, B5 and fold beside B1's
-    bound and SDPA on the full N; the flagship's 50-step window with the
-    sequence-parallel context on a ring of 2 against the unsharded window
-    (``WINDOW_REL_TOL``, 800 ring blocks, no B2, B3); ``run(argv)`` in a
-    child process with ``torchrun``'s environment of one process: a
-    one-rank NCCL group, 2 flagship train steps and one validation batch;
-    the window's and the run's flagship at full width, depth cut
+    attention sites (B 2; N 8192, 9 heads of 64; N 2048, 9 of 128), a hop
+    one launch of a ring-hop kernel (B1's ring entry folding (O, LSE) in its
+    epilogue; B4's and B5's summing across hops; the visiting shard indexed,
+    not rolled): forward and backward against the plain ring and against
+    unsharded B1 + B4 + B5 (``RING_REL_TOL``), the exact launches of one
+    call (R ring-hop forwards, R each of the ring dq and dkv entries), two
+    controls (a ring that skips one hop; a fold without the rescale of the
+    running O), device times warm and cold of the whole ring and of one
+    hop's kernels beside the ring's earlier roll-based composite (B1 + fold + rolls;
+    B4 + B5 + sums + rolls), the bounds and SDPA forward and backward on the
+    full N; the flagship's 50-step window with the sequence-parallel context
+    on a ring of 2 against the unsharded window (``WINDOW_REL_TOL``, 800
+    ring-hop forwards, no B1-B3); 2 train steps of the flagship at batch 2
+    on a ring of 2 against the unsharded steps (losses ``GRAD_LOSS_TOL``,
+    gradient norms ``GRAD_REL_TOL``; R ring-hop launches for each B1, B4,
+    B5 of the unsharded steps); ``run(argv)`` in a child process with
+    ``torchrun``'s environment of one process: a one-rank NCCL group, 2
+    flagship train steps and one validation batch; the window's, the
+    steps' and the run's flagship at full width, depth cut
     (``FLAGSHIP_CUT_DEPTH``).
 
 26. (``run_slice20_paths``) Megatron tensor parallelism on the one card:
@@ -319,9 +327,13 @@ KERNELS = (
     ("ln_modulate", "dfot_tpu_torch/csrc/ln_modulate.cu", "dfot_tpu/ops/ln_modulate.py:64"),
     ("ln_modulate_bwd", "dfot_tpu_torch/csrc/ln_modulate.cu", "dfot_tpu/ops/ln_modulate.py:72"),
     ("small_n_attn", "dfot_tpu_torch/csrc/small_n_attn.cu", "dfot_tpu/ops/attention.py:800"),
-    # ring attention's per-hop block: B1 launched by ops/ring_attention.py
-    # (B4, B5 in its backward); its launches are the ring's B1 launches
-    ("ring_block", "dfot_tpu_torch/csrc/flash_fwd.cu", "dfot_tpu/ops/ring_attention.py:49"),
+    # ring attention's hop (ops/ring_attention.py): the ring entry of B1
+    # (the block and the fold) forward, the ring entries of B4 and B5 (the
+    # block's gradients summed across hops) backward, which the JAX ring
+    # reaches through _block_flash's VJP
+    ("ring_fwd", "dfot_tpu_torch/csrc/flash_fwd.cu", "dfot_tpu/ops/ring_attention.py:49"),
+    ("ring_dq", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:378"),
+    ("ring_dkv", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:500"),
 )
 FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
@@ -335,7 +347,7 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "unet3d_window", "unet3d_train", "diff_concat_window", "diff_concat_train",
          "diff_interleaved_window", "diff_interleaved_train", "diff_facmat_window",
          "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
-         "unet3d_cli", "k600_metrics", "k600_a15c", "ring_window", "ring_cli",
+         "unet3d_cli", "k600_metrics", "k600_a15c", "ring_window", "ring_train", "ring_cli",
          "tp_window", "tp_train", "tp_xl_train", "export", "ucf_train")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
@@ -5660,20 +5672,100 @@ def ring_inputs(B: int, H: int, N: int, D: int, seed: int):
 
 
 def ring_skipping_one_hop(q, k, v, ring):
-    """Control: the ring's forward with the last hop's block left out of the
-    fold (the kernels of the port, one fold fewer)."""
+    """Control: the ring's forward with the last hop left out (the ring-hop
+    kernel on every other hop, the one before last writing the output)."""
     import math
 
     from dfot_tpu_torch.ops import ring_attention as RA
 
     qs, ks, vs = (ring.shard(t) for t in (q, k, v))
-    scale, d = 1.0 / math.sqrt(q.shape[-1]), q.shape[-1]
-    o, lse = RA.block_attention(qs, ks, vs, scale, d, False)
-    for hop in range(1, ring.size):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o = lse = None
+    for hop in range(ring.size - 1):
+        o, lse = RA.ring_fwd_hop(qs, ks, vs, o, lse, ring.kv_shift(hop, qs),
+                                 hop == ring.size - 2, scale)
+    return ring.gather(o)
+
+
+def ring_fold_without_rescale(q, k, v, ring):
+    """Control: the roll-based ring (B1 blocks) with a fold that leaves out
+    the exp(lse_prev - lse_new) rescale of the running O."""
+    import math
+
+    import torch
+    from dfot_tpu_torch.ops import attention as A
+
+    qs, ks, vs = (ring.shard(t) for t in (q, k, v))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = A.flash_attention(qs, ks, vs, sm_scale=scale, return_lse=True)
+    o = o.float()
+    for _ in range(ring.size - 1):
         ks, vs = ring.hop(ks, vs)
-        if hop < ring.size - 1:
-            o, lse = RA.fold_block(o, lse, *RA.block_attention(qs, ks, vs, scale, d, False))
+        b_o, b_lse = A.flash_attention(qs, ks, vs, sm_scale=scale, return_lse=True)
+        new_lse = torch.logaddexp(lse, b_lse)
+        o, lse = o + b_o.float() * torch.exp(b_lse - new_lse), new_lse
     return ring.gather(o.to(q.dtype))
+
+
+def composite_ring_forward(qs, ks, vs, ring):
+    """The ring's forward as its earlier design ran it, rebuilt from public functions:
+    B1 with its LSE on shards rolled by ``LocalRing.hop``, its O cast to
+    fp32, ``fold_block`` between hops, one cast at the end; (O, LSE)."""
+    import math
+
+    from dfot_tpu_torch.ops import attention as A
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    scale = 1.0 / math.sqrt(qs.shape[-1])
+    o, lse = A.flash_attention(qs, ks, vs, sm_scale=scale, return_lse=True)
+    o = o.float()
+    for _ in range(ring.size - 1):
+        ks, vs = ring.hop(ks, vs)
+        b_o, b_lse = A.flash_attention(qs, ks, vs, sm_scale=scale, return_lse=True)
+        o, lse = RA.fold_block(o, lse, b_o.float(), b_lse)
+    return o.to(qs.dtype), lse
+
+
+def composite_ring_backward(qs, ks, vs, dos, o, lse, ring):
+    """The ring's backward as its earlier design ran it: delta, then B4 and B5 a hop on
+    K/V rolled with the fp32 dk, dv sums, ``+=`` into fp32 sums, the sums
+    rolled home after the last hop, one cast each; (dq, dk, dv)."""
+    import math
+
+    import torch
+    from dfot_tpu_torch.ops import attention as A
+
+    scale = 1.0 / math.sqrt(qs.shape[-1])
+    delta = (dos.float() * o.float()).sum(-1, keepdim=True)
+    dq = torch.zeros(qs.shape, dtype=torch.float32, device=qs.device)
+    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+    ck, cv = ks, vs
+    for hop in range(ring.size):
+        if hop:
+            ck, cv, dk, dv = ring.hop(ck, cv, dk, dv)
+        dq += A.flash_bwd_dq(qs, ck, cv, dos, lse, delta, False, scale)
+        b_dk, b_dv = A.flash_bwd_dkv(qs, ck, cv, dos, lse, delta, False, scale)
+        dk += b_dk
+        dv += b_dv
+    dk, dv = ring.hop(dk, dv)
+    return dq.to(qs.dtype), dk.to(ks.dtype), dv.to(vs.dtype)
+
+
+def ring_bwd_chain(which: str, ring, qs, ks, vs, dos, lse, delta, plain: bool = False):
+    """One backward's R hops of ``which`` ("dq": the ring entry of B4;
+    "dkv": B5's) on a LocalRing, as the ring's backward calls them."""
+    import math
+
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    scale = 1.0 / math.sqrt(qs.shape[-1])
+    sums = (None,) if which == "dq" else (None, None)
+    hop_fn = RA.ring_dq_hop if which == "dq" else RA.ring_dkv_hop
+    for hop in range(ring.size):
+        out = hop_fn(qs, ks, vs, dos, lse, delta, *sums, ring.kv_shift(hop, qs),
+                     hop == ring.size - 1, scale, plain=plain)
+        sums = (out,) if which == "dq" else out
+    return sums
 
 
 def ring_grads(fn, q, k, v, do):
@@ -5687,14 +5779,21 @@ def ring_grads(fn, q, k, v, do):
 
 def check_ring_kernels(record: dict, results: dict) -> None:
     """Ring attention on a LocalRing of R = 2 and 4 at the flagship's two
-    attention shapes: forward and backward against the plain ring (the same
-    ring over the plain attention and its backward formulas) and against
-    unsharded B1 + B4 + B5, by relative L2 within :data:`RING_REL_TOL`; the
-    exact launches of one call (R of B1 forward, R each of B4 and B5
-    backward); a control whose fold skips one hop must miss the bound;
-    device times of the whole ring (forward; forward + backward), of one hop
-    (B1, B4, B5 on the merged R x B batch of N / R rows) and of the fold
-    between hops, beside B1's bound at the hop shape and SDPA on the full N."""
+    attention shapes, every hop one launch of a ring-hop kernel (B1's ring
+    entry with the fold in its epilogue; B4's and B5's with the sums in the
+    kernel, the visiting shard indexed by ``kv_shift``): forward and
+    backward against the plain ring (the plain hops: the plain block, the
+    fp32 fold, the plain backward formulas) and against unsharded B1 + B4 +
+    B5, by relative L2 within :data:`RING_REL_TOL`; the exact launches of one
+    call (R ring-hop forwards, R each of the ring dq and dkv entries); two
+    controls that must miss the bound (a ring that skips one hop; a fold
+    without the rescale of the running O); device times, warm and cold, of
+    the whole ring (forward; forward + backward; the backward's dq and dkv
+    chains) beside the earlier roll-based composite rebuilt from public
+    functions (B1 + ``fold_block`` + rolls; B4 + B5 + ``+=`` + rolls), of
+    one hop's kernels beside B1, B4, B5 and the fold alone, with the bounds
+    (forward and backward, a hop and the whole ring) and SDPA's forward and
+    backward on the full N."""
     import math
 
     import torch
@@ -5704,15 +5803,23 @@ def check_ring_kernels(record: dict, results: dict) -> None:
     from dfot_tpu_torch.ops import ring_attention as RA
 
     rec = record.setdefault("ring", {})["kernels"] = {}
-    results.setdefault("ring_block", {"by_site": {}})
-    log(f"ring attention (LocalRing) at the flagship's attention shapes, bf16, relative L2 "
-        f"tol {RING_REL_TOL}:")
+    for name in ("ring_fwd", "ring_dq", "ring_dkv"):
+        results.setdefault(name, {"by_site": {}})
+    log(f"ring attention (LocalRing, one ring-hop kernel a hop) at the flagship's attention "
+        f"shapes, bf16, relative L2 tol {RING_REL_TOL}:")
     for i, (name, B, H, N, D) in enumerate(RING_SITES):
         q, k, v, do = ring_inputs(B, H, N, D, seed=250 + i)
         scale = 1.0 / math.sqrt(D)
         ops_full = attention_ops(B, H, N, D)
         unsharded = ring_grads(lambda a, b, c: A.flash_attention(a, b, c), q, k, v, do)
         sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True))
+        del ol, ql, kl, vl
+        whole_bound = bound(ops_full, nbytes(q, k, v, q), PEAK_BF16_FLOPS)
+        whole_bwd_bound = bound(7 * ops_full // 2, nbytes(q, k, v, do, q, k, v, q)
+                                + 2 * B * H * N * 4, PEAK_BF16_FLOPS)
         for R in RING_SIZES:
             ring = RA.LocalRing(R)
             site = f"{name} R={R} B={B} H={H} N={N} d={D}"
@@ -5721,8 +5828,7 @@ def check_ring_kernels(record: dict, results: dict) -> None:
                              q, k, v, do)
             torch.cuda.synchronize()
             launches = ops.launch_counts()
-            expect = dict(no_launches(), flash_fwd=R, ring_block=R, flash_bwd_dq=R,
-                          flash_bwd_dkv=R)
+            expect = dict(no_launches(), ring_fwd=R, ring_dq=R, ring_dkv=R)
             require_launches(f"one ring call at {site}", launches, expect)
             plain = ring_grads(
                 lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring, plain=True),
@@ -5730,58 +5836,121 @@ def check_ring_kernels(record: dict, results: dict) -> None:
             labels = ("o", "dq", "dk", "dv")
             vs_plain = {lb: rel_l2(g, w) for lb, g, w in zip(labels, got, plain)}
             vs_unsharded = {lb: rel_l2(g, w) for lb, g, w in zip(labels, got, unsharded)}
-            control = rel_l2(ring_skipping_one_hop(q, k, v, ring), plain[0])
+            controls = {"skip_one_hop": rel_l2(ring_skipping_one_hop(q, k, v, ring), plain[0]),
+                        "fold_without_rescale": rel_l2(ring_fold_without_rescale(q, k, v, ring),
+                                                       plain[0])}
             require(max(vs_plain.values()) <= RING_REL_TOL,
                     f"ring at {site}: off its plain version by {vs_plain}")
             require(max(vs_unsharded.values()) <= RING_REL_TOL,
                     f"ring at {site}: off unsharded B1 + B4 + B5 by {vs_unsharded}")
-            require(control > RING_REL_TOL,
-                    f"ring at {site}: the bound does not reject a fold that skips one hop "
-                    f"({control:.3e})")
-            # device times: the whole ring, one hop's kernels, the fold
+            for what, err in controls.items():
+                require(err > RING_REL_TOL,
+                        f"ring at {site}: the bound does not reject the control {what} "
+                        f"({err:.3e})")
+            # the whole ring: the ring-hop kernels against the roll-based composite
+            qs, ks, vs, dos = (ring.shard(t) for t in (q, k, v, do))
             fwd = lambda: RA.sequence_parallel_attention(q, k, v, ring)  # noqa: E731
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             out = RA.sequence_parallel_attention(*leaves, ring)
-            ring_ms = cuda_ms(fwd)
-            ring_train_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                                retain_graph=True)) + ring_ms
-            qs, ks, vs, dos = (ring.shard(t) for t in (q, k, v, do))
+            bwd = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+            comp_fwd = lambda: ring.gather(composite_ring_forward(qs, ks, vs, ring)[0])  # noqa: E731
+            o_c, lse_c = composite_ring_forward(qs, ks, vs, ring)
+            comp_bwd = lambda: composite_ring_backward(qs, ks, vs, dos, o_c, lse_c, ring)  # noqa: E731
+            comp_err = rel_l2(comp_fwd(), plain[0])
+            o_s = lse_s = None  # the final (O, LSE) the backward's hops read
+            for hop in range(R):
+                o_s, lse_s = RA.ring_fwd_hop(qs, ks, vs, o_s, lse_s, ring.kv_shift(hop, qs),
+                                             hop == R - 1, scale)
+            delta = (dos.float() * o_s.float()).sum(-1, keepdim=True)
+            chain = {w: (lambda w=w: ring_bwd_chain(w, ring, qs, ks, vs, dos, lse_s, delta))
+                     for w in ("dq", "dkv")}
+            t = {
+                "ring_ms": cuda_ms(fwd), "ring_cold_ms": cold_ms(fwd),
+                "ring_bwd_ms": cuda_ms(bwd), "ring_bwd_cold_ms": cold_ms(bwd),
+                "composite_ms": cuda_ms(comp_fwd), "composite_cold_ms": cold_ms(comp_fwd),
+                "composite_bwd_ms": cuda_ms(comp_bwd),
+                "composite_bwd_cold_ms": cold_ms(comp_bwd),
+                **{f"{w}_chain_ms": cuda_ms(fn) for w, fn in chain.items()},
+                **{f"{w}_chain_cold_ms": cold_ms(fn) for w, fn in chain.items()},
+            }
+            t["ring_fwd_bwd_ms"] = t["ring_ms"] + t["ring_bwd_ms"]
+            t["composite_fwd_bwd_ms"] = t["composite_ms"] + t["composite_bwd_ms"]
+            # one hop: the ring-hop kernels (a middle hop, the running state
+            # read and written) beside B1, B4, B5 and the fold alone
+            shift = ring.kv_shift(1, qs)
+            o_run, lse_run = RA.ring_fwd_hop(qs, ks, vs, None, None, 0, False, scale)
+            dq_run = torch.zeros(qs.shape, dtype=torch.float32, device="cuda")
+            dk_run, dv_run = torch.zeros_like(dq_run), torch.zeros_like(dq_run)
             o_hop, lse_hop = A.flash_attention(qs, ks, vs, return_lse=True)
-            delta = (dos.float() * o_hop.float()).sum(-1, keepdim=True)
-            hop_b1 = cuda_ms(lambda: A.flash_attention(qs, ks, vs, return_lse=True))
-            hop_b4 = cuda_ms(lambda: A.flash_bwd_dq(qs, ks, vs, dos, lse_hop, delta))
-            hop_b5 = cuda_ms(lambda: A.flash_bwd_dkv(qs, ks, vs, dos, lse_hop, delta))
-            acc, acc_lse = o_hop.float(), lse_hop
-            fold_ms = cuda_ms(lambda: RA.fold_block(acc, acc_lse, acc, acc_lse))
-            hop_bound = bound(attention_ops(R * B, H, N // R, D),
-                              nbytes(qs, ks, vs, o_hop, lse_hop), PEAK_BF16_FLOPS)
-            whole_bound = bound(ops_full, nbytes(q, k, v, q), PEAK_BF16_FLOPS)
+            acc = o_hop.float()
+            hop_ms = {
+                "ring_fwd": cuda_ms(lambda: RA.ring_fwd_hop(qs, ks, vs, o_run, lse_run, shift,
+                                                            False, scale)),
+                "ring_dq": cuda_ms(lambda: RA.ring_dq_hop(qs, ks, vs, dos, lse_s, delta, dq_run,
+                                                          shift, False, scale)),
+                "ring_dkv": cuda_ms(lambda: RA.ring_dkv_hop(qs, ks, vs, dos, lse_s, delta,
+                                                            dk_run, dv_run, shift, False,
+                                                            scale)),
+                "B1": cuda_ms(lambda: A.flash_attention(qs, ks, vs, return_lse=True)),
+                "B4": cuda_ms(lambda: A.flash_bwd_dq(qs, ks, vs, dos, lse_s, delta)),
+                "B5": cuda_ms(lambda: A.flash_bwd_dkv(qs, ks, vs, dos, lse_s, delta)),
+                "fold": cuda_ms(lambda: RA.fold_block(acc, lse_hop, acc, lse_hop)),
+                "roll_kv": cuda_ms(lambda: ring.hop(ks, vs)),
+            }
+            ops_hop = attention_ops(R * B, H, N // R, D)
+            state = 2 * nbytes(o_run, lse_run)  # the running state, read and written
+            hop_bound = bound(ops_hop, nbytes(qs, ks, vs) + state, PEAK_BF16_FLOPS)
+            hop_bwd_bound = bound(7 * ops_hop // 2, nbytes(qs, ks, vs, dos, lse_s, delta)
+                                  + 2 * 3 * nbytes(dq_run), PEAK_BF16_FLOPS)
             plain_ms = cuda_ms(
                 lambda: RA.sequence_parallel_attention(q, k, v, ring, plain=True), reps=3,
                 warmup=1)
+            plain_chain = {w: cuda_ms(lambda w=w: ring_bwd_chain(w, ring, qs, ks, vs, dos, lse_s,
+                                                                 delta, plain=True),
+                                      reps=3, warmup=1) for w in ("dq", "dkv")}
             entry = {
                 "R": R, "vs_plain": vs_plain, "vs_unsharded": vs_unsharded,
-                "control_skip_one_hop": control, "launches": launches,
-                "ring_ms": ring_ms, "ring_cold_ms": cold_ms(fwd),
-                "ring_fwd_bwd_ms": ring_train_ms, "plain_ms": plain_ms,
-                "hop_ms": {"B1": hop_b1, "B4": hop_b4, "B5": hop_b5, "fold": fold_ms},
-                "hop_b1_bound": hop_bound, "bound": whole_bound, "sdpa_full_n_ms": sdpa,
+                "controls": controls, "composite_vs_plain": comp_err, "launches": launches,
+                **t, "plain_ms": plain_ms, "plain_chain_ms": plain_chain, "hop_ms": hop_ms,
+                "hop_bound": hop_bound, "hop_bwd_bound": hop_bwd_bound, "bound": whole_bound,
+                "bwd_bound": whole_bwd_bound, "sdpa_full_n_ms": sdpa,
+                "sdpa_bwd_full_n_ms": sdpa_bwd,
             }
             rec[site] = entry
             log(f"  {site}: vs plain {max(vs_plain.values()):.3e}, vs unsharded "
-                f"{max(vs_unsharded.values()):.3e}, control (one hop skipped) {control:.3e}; "
-                f"ring {ring_ms:.4f} ms (cold {entry['ring_cold_ms']:.4f}), fwd+bwd "
-                f"{ring_train_ms:.4f} ms, plain {plain_ms:.3f} ms; a hop: B1 {hop_b1:.4f} ms "
-                f"(bound {hop_bound['bound_ms']:.4f}), B4 {hop_b4:.4f}, B5 {hop_b5:.4f}, fold "
-                f"{fold_ms:.4f} ms; whole bound {whole_bound['bound_ms']:.4f} ms, SDPA on "
-                f"N={N} {sdpa:.4f} ms")
-            results["ring_block"]["by_site"][site] = {
-                "main": R == RING_MAIN_SIZE, "max_abs_err": max_err(got[0], plain[0]),
-                "ms": ring_ms, "cold_ms": entry["ring_cold_ms"], "plain_ms": plain_ms,
+                f"{max(vs_unsharded.values()):.3e}, controls "
+                + ", ".join(f"{c} {e:.3e}" for c, e in controls.items()))
+            log(f"    ring {t['ring_ms']:.4f} ms (cold {t['ring_cold_ms']:.4f}) against the roll-based "
+                f"composite {t['composite_ms']:.4f} (cold {t['composite_cold_ms']:.4f}); "
+                f"backward {t['ring_bwd_ms']:.4f} (cold {t['ring_bwd_cold_ms']:.4f}) against "
+                f"{t['composite_bwd_ms']:.4f} (cold {t['composite_bwd_cold_ms']:.4f}); fwd+bwd "
+                f"{t['ring_fwd_bwd_ms']:.4f} against {t['composite_fwd_bwd_ms']:.4f} ms; dq chain "
+                f"{t['dq_chain_ms']:.4f}, dkv chain {t['dkv_chain_ms']:.4f} ms; plain "
+                f"{plain_ms:.3f} ms")
+            log(f"    a hop: " + ", ".join(f"{h} {m:.4f}" for h, m in hop_ms.items())
+                + f" ms; bounds: hop forward {hop_bound['bound_ms']:.4f}, hop backward "
+                f"{hop_bwd_bound['bound_ms']:.4f}, whole forward {whole_bound['bound_ms']:.4f}, "
+                f"whole backward {whole_bwd_bound['bound_ms']:.4f} ms; SDPA on N={N} {sdpa:.4f}, "
+                f"its backward {sdpa_bwd:.4f} ms")
+            main = R == RING_MAIN_SIZE
+            results["ring_fwd"]["by_site"][site] = {
+                "main": main, "max_abs_err": max_err(got[0], plain[0]),
+                "ms": t["ring_ms"], "cold_ms": t["ring_cold_ms"], "plain_ms": plain_ms,
                 "bound_ms": whole_bound["bound_ms"], "bound_by": whole_bound["bound_by"],
                 "library_ms": sdpa,
             }
-            del got, plain, leaves, out, qs, ks, vs, dos, o_hop, lse_hop, delta, acc, acc_lse
+            stats = 2 * B * H * N * 4  # the final LSE and delta
+            for w, idx, share, outs in (("dq", (1,), 3, (q,)), ("dkv", (2, 3), 4, (k, v))):
+                b = bound(share * ops_full // 2, nbytes(q, k, v, do, *outs) + stats,
+                          PEAK_BF16_FLOPS)
+                results[f"ring_{w}"]["by_site"][site] = {
+                    "main": main, "max_abs_err": max(max_err(got[j], plain[j]) for j in idx),
+                    "ms": t[f"{w}_chain_ms"], "cold_ms": t[f"{w}_chain_cold_ms"],
+                    "plain_ms": plain_chain[w], "bound_ms": b["bound_ms"],
+                    "bound_by": b["bound_by"], "library_ms": sdpa_bwd,
+                }
+            del got, plain, leaves, out, qs, ks, vs, dos, o_c, lse_c, o_s, lse_s, delta, chain
+            del o_run, lse_run, dq_run, dk_run, dv_run, o_hop, lse_hop, acc
         del q, k, v, do, unsharded
         gc.collect()
         torch.cuda.empty_cache()
@@ -5793,18 +5962,14 @@ def run_ring_window(record: dict) -> dict:
     sequence-parallel context on a LocalRing of two ranks (every transformer
     level's attention takes the ring: 4096 and 1024 query rows a rank)
     against the same window unsharded, the same weights and noise: relative
-    L2 within :data:`WINDOW_REL_TOL`, the ring's exact launches (B1 as
-    ring blocks, two a block a forward; no B2, B3), wall times."""
+    L2 within :data:`WINDOW_REL_TOL`, the ring's exact launches (two
+    ring-hop forwards an attention; no B1, B2, B3), wall times."""
     import torch
     from dfot_tpu_torch import ops
-    from dfot_tpu_torch.algorithms.dfot_video import flagship
     from dfot_tpu_torch.ops import attention as A
     from dfot_tpu_torch.ops import ring_attention as RA
 
-    import dataclasses
-
-    fs = flagship()
-    fs = fs._replace(spec=dataclasses.replace(fs.spec, **FLAGSHIP_CUT_DEPTH))
+    fs = cut_flagship()
     steps = fs.dcfg.sampling_timesteps
     model = sampling_copy(fs, build_random_model(fs, seed=90, token_io=False))
     ro = make_rollout(fs, model, fs.dcfg)
@@ -5825,8 +5990,7 @@ def run_ring_window(record: dict) -> dict:
             A.set_sequence_parallel(prior)
     err = rel_l2(videos["ring"], videos["unsharded"])
     blocks = launches["unsharded"]["flash_fwd"] // steps  # transformer blocks a forward
-    expect = dict(no_launches(), flash_fwd=steps * blocks * RING_MAIN_SIZE,
-                  ring_block=steps * blocks * RING_MAIN_SIZE)
+    expect = dict(no_launches(), ring_fwd=steps * blocks * RING_MAIN_SIZE)
     require_launches("the ring window", launches["ring"], expect)
     require(err <= WINDOW_REL_TOL, f"the ring window is off the unsharded one by {err:.3e}")
     require(bool(torch.isfinite(videos["ring"]).all()), "the ring window is not finite")
@@ -5841,6 +6005,54 @@ def run_ring_window(record: dict) -> dict:
         f"{launches['ring']}")
     del model, ro, videos
     return launches["ring"]
+
+
+RING_TRAIN_BATCH = 2
+
+
+def run_ring_train(record: dict) -> dict:
+    """The cut flagship's :data:`TP_TRAIN_STEPS` train steps at batch
+    :data:`RING_TRAIN_BATCH` with the sequence-parallel context on a
+    LocalRing of :data:`RING_MAIN_SIZE` against the same steps unsharded (the
+    same seeded weights, batch and draws): each step's loss within
+    ``GRAD_LOSS_TOL`` and gradient norm within ``GRAD_REL_TOL``; the ring
+    run's exact launches: R ring-hop forwards for every B1 of the unsharded
+    run (recomputation included), R of each backward entry for every B4 and
+    B5, no other attention kernel."""
+    import torch
+    from dfot_tpu_torch.ops import attention as A
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    fs = cut_flagship()
+    runs = {}
+    for form in ("unsharded", "ring"):
+        prior = A.set_sequence_parallel(RA.LocalRing(RING_MAIN_SIZE) if form == "ring" else None)
+        try:
+            runs[form] = train_steps(fs, build_random_model(fs, seed=270, token_io=False),
+                                     train_batch(fs, RING_TRAIN_BATCH, 271))
+        finally:
+            A.set_sequence_parallel(prior)
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, ring = runs["unsharded"], runs["ring"]
+    R = RING_MAIN_SIZE
+    expect = dict(no_launches(), ring_fwd=R * one["launches"]["flash_fwd"],
+                  ring_dq=R * one["launches"]["flash_bwd_dq"],
+                  ring_dkv=R * one["launches"]["flash_bwd_dkv"])
+    require_launches("the ring's train steps", ring["launches"], expect)
+    for name, tol in (("loss", GRAD_LOSS_TOL), ("grad_norm", GRAD_REL_TOL)):
+        for i, (g, w) in enumerate(zip(ring[name], one[name])):
+            require(math.isfinite(g) and abs(g / w - 1) <= tol,
+                    f"the ring's train step {i}: {name} {g} against the unsharded {w} (tol {tol})")
+    record.setdefault("ring", {})["train"] = {"ring": ring, "unsharded": one,
+                                              "batch": RING_TRAIN_BATCH, "ring_size": R}
+    log(f"cut flagship, {TP_TRAIN_STEPS} train steps at batch {RING_TRAIN_BATCH} on a LocalRing "
+        f"of {R}: loss {ring['loss']} against {one['loss']}, grad norm {ring['grad_norm']} "
+        f"against {one['grad_norm']}; step walls {', '.join(f'{w:.3f}' for w in ring['wall_s'])} "
+        f"s against {', '.join(f'{w:.3f}' for w in one['wall_s'])} s; peak "
+        f"{ring['peak_memory_bytes'] / 2**30:.2f} against "
+        f"{one['peak_memory_bytes'] / 2**30:.2f} GiB; launches {ring['launches']}")
+    return ring["launches"]
 
 
 RING_CLI_WORKER = r"""
@@ -5921,6 +6133,7 @@ def run_ring_paths(record: dict, results: dict) -> dict:
     log("ring attention and the process-group layer (phase 25):")
     check_ring_kernels(record, results)
     out = {"ring_window": run_ring_window(record)}
+    out["ring_train"] = run_ring_train(record)
     out["ring_cli"] = run_ring_cli(record)
     record["ring"]["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 25: {record['ring']['seconds']:.1f} s")

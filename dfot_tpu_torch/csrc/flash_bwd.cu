@@ -59,12 +59,64 @@
 // of DV; lanes DV..D-1 of dq, dk, dv are written as zeros (the pad lanes of
 // q, k, v and dO are zero, so they are exact). The 3-D tensor maps (d, n, bh)
 // read zeros past a head's last row; no row >= n is stored.
+//
+// Ring hops (RING = true; dfot_ring_bwd_dq, dfot_ring_bwd_dkv): the backward
+// of one hop of ring attention (dfot_tpu/ops/ring_attention.py, whose JAX
+// backward reaches these kernels' TPU counterparts through _block_flash's
+// VJP), the same kernels with two changes:
+// - the shard shift of the forward hop (csrc/flash_fwd.cu): on a LocalRing
+//   the R ranks' shards are stacked on the head axis, so at hop s query head
+//   h meets K/V head (h - s B H) mod R B H. dq's producer loads K and V at
+//   that head; dk, dv's block owns the keys of its K/V head and walks the
+//   query rows (Q, dO, LSE, delta) of head (kv head + s B H) mod R B H, the
+//   rank that meets the shard at this hop. The shift is a permutation of the
+//   heads, so one block still owns each output tile;
+// - accumulation across hops: each thread adds its dq (or dk, dv) elements
+//   into fp32 sums in device memory (read unless it is the first hop), and
+//   the last hop writes the sums in bf16 instead (pad lanes zero). No
+//   atomics; the sums stay in a fixed order, hop after hop.
 
 #include "hopper.cuh"
 
 namespace {
 
 using namespace dfot;
+
+// the cross-hop sums of a ring hop (RING kernels only)
+struct RingSum {
+  float* acc;     // fp32 (bh, n, D) sum of dq, or of dk; its first DV lanes are used
+  float* acc2;    // fp32 sum of dv (dk, dv kernel only)
+  int kv_shift;   // K/V head = (query head - kv_shift) mod bh, 0 <= kv_shift < bh
+  int read_prev;  // add to the sums; else this hop starts them
+  int last;       // write the sums in bf16 to the outputs instead of acc, acc2
+};
+
+// One row of a thread's output tile at a ring hop: its DV / 8 pairs of
+// columns 8 i + 2 c (+ 1), acc[4 i + 2 r] (+ 1) times ``scale``, plus the
+// running sum at ``sum`` (the row's fp32 sums) if ``read_prev``, stored into
+// the sums or, at the last hop, into ``out`` (the row's bf16 output). Every
+// load comes before the first store: interleaved, each load waited for
+// the store before it (the sums and the output may alias as far as the
+// compiler knows), which made a middle hop of dq 3-4 times as slow as B4 on
+// an H100.
+template <int DV>
+__device__ __forceinline__ void ring_store_row(const float* acc, int r, float scale, float* sum,
+                                               __nv_bfloat16* out, int c, const RingSum& ring) {
+  float2 prev[DV / 8];
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i)
+    prev[i] = ring.read_prev ? *reinterpret_cast<const float2*>(sum + 8 * i + 2 * c)
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+    const float x0 = fmaf(acc[4 * i + 2 * r], scale, prev[i].x);
+    const float x1 = fmaf(acc[4 * i + 2 * r + 1], scale, prev[i].y);
+    if (ring.last)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(x0, x1);
+    else
+      *reinterpret_cast<float2*>(sum + 8 * i + 2 * c) = make_float2(x0, x1);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // dk, dv: wgmma, a TMA ring of query tiles, warp specialisation
@@ -91,14 +143,15 @@ __host__ __device__ constexpr int dkv_smem_bytes() {
          8 * (1 + 2 * STAGES);
 }
 
-template <int D, int DV, int KEYS, int STAGES>
+template <int D, int DV, int KEYS, int STAGES, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int n, float sm_scale, int causal) {
+                         __nv_bfloat16* __restrict__ dv, int n, float sm_scale, int causal,
+                         const RingSum ring) {
   // split: the block's keys are both consumers', consumer 0 owns their dV
   // and consumer 1 their dK
   constexpr bool kSplit = KEYS == kKeysWide;
@@ -118,11 +171,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty = full + STAGES;
 
   const int k0 = blockIdx.x * KEYS;
-  const int head = blockIdx.y;
+  const int head = blockIdx.y;  // the K/V head whose keys the block owns
+  // the query head it meets: itself, or on a ring hop the head kv_shift on
+  int q_head = head;
+  if constexpr (RING) {
+    q_head += ring.kv_shift;
+    if (q_head >= static_cast<int>(gridDim.y)) q_head -= static_cast<int>(gridDim.y);
+  }
   // causal: queries before the block's first key see none of its keys
   const int i0 = causal ? k0 / kQRows : 0;
   const int n_tiles = n / kQRows - i0;
   const size_t row_base = static_cast<size_t>(head) * n;
+  const size_t q_base = static_cast<size_t>(q_head) * n;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -149,12 +209,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * kQ + 2 * kQRows * 4);
         for (int a = 0; a < kAtoms; ++a) {
-          tma_load_3d(qs + s * kQ + a * kQAtomBytes, &tm_q, &full[s], a * kAtomLanes, r0, head);
+          tma_load_3d(qs + s * kQ + a * kQAtomBytes, &tm_q, &full[s], a * kAtomLanes, r0,
+                      q_head);
           tma_load_3d(dos + s * kQ + a * kQAtomBytes, &tm_do, &full[s], a * kAtomLanes, r0,
-                      head);
+                      q_head);
         }
-        bulk_load(ls + s * kQRows, lse + row_base + r0, kQRows * 4, &full[s]);
-        bulk_load(dls + s * kQRows, delta + row_base + r0, kQRows * 4, &full[s]);
+        bulk_load(ls + s * kQRows, lse + q_base + r0, kQRows * 4, &full[s]);
+        bulk_load(dls + s * kQRows, delta + q_base + r0, kQRows * 4, &full[s]);
       }
     }
   } else {
@@ -273,16 +334,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the softmax scale once, on the fp32 sums; lanes DV..D-1 are zeros
     if constexpr (kSplit) {
       __nv_bfloat16* out = w == 0 ? dv : dk;
+      float* sum = w == 0 ? ring.acc2 : ring.acc;
       const float scale = w == 0 ? 1.f : sm_scale;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         if (key >= n) continue;
         __nv_bfloat16* row = out + (row_base + key) * D;
+        if constexpr (RING) {
+          ring_store_row<DV>(dv_acc, r, scale, sum + (row_base + key) * D, row, c, ring);
+          if (!ring.last) continue;
+        } else {
 #pragma unroll
-        for (int i = 0; i < DV / 8; ++i)
-          *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + 2 * c) = __floats2bfloat162_rn(
-              dv_acc[4 * i + 2 * r] * scale, dv_acc[4 * i + 2 * r + 1] * scale);
+          for (int i = 0; i < DV / 8; ++i)
+            *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + 2 * c) = __floats2bfloat162_rn(
+                dv_acc[4 * i + 2 * r] * scale, dv_acc[4 * i + 2 * r + 1] * scale);
+        }
 #pragma unroll
         for (int i = DV / 8; i < D / 8; ++i)
           *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + 2 * c) = __floats2bfloat162_rn(0.f, 0.f);
@@ -293,13 +360,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int key = key0 + 8 * r;
         if (key >= n) continue;
         const size_t row = (row_base + key) * D;
+        if constexpr (RING) {
+          ring_store_row<DV>(dk_acc, r, sm_scale, ring.acc + row, dk + row, c, ring);
+          ring_store_row<DV>(dv_acc, r, 1.f, ring.acc2 + row, dv + row, c, ring);
+          if (!ring.last) continue;
+        } else {
 #pragma unroll
-        for (int i = 0; i < DV / 8; ++i) {
-          const int col = 8 * i + 2 * c;
-          *reinterpret_cast<__nv_bfloat162*>(dk + row + col) = __floats2bfloat162_rn(
-              dk_acc[4 * i + 2 * r] * sm_scale, dk_acc[4 * i + 2 * r + 1] * sm_scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
-              __floats2bfloat162_rn(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
+          for (int i = 0; i < DV / 8; ++i) {
+            const int col = 8 * i + 2 * c;
+            *reinterpret_cast<__nv_bfloat162*>(dk + row + col) = __floats2bfloat162_rn(
+                dk_acc[4 * i + 2 * r] * sm_scale, dk_acc[4 * i + 2 * r + 1] * sm_scale);
+            *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+                __floats2bfloat162_rn(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
+          }
         }
 #pragma unroll
         for (int i = DV / 8; i < D / 8; ++i) {
@@ -335,14 +408,14 @@ __host__ __device__ constexpr int dq_smem_bytes() {
   return 1024 + 2 * dq_q_bytes<D>() + STAGES * 2 * dq_kv_bytes<D, KN>() + 8 * (1 + 2 * STAGES);
 }
 
-template <int D, int DV, int KN, int STAGES>
+template <int D, int DV, int KN, int STAGES, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int n,
-                        float sm_scale, int causal) {
+                        float sm_scale, int causal, const RingSum ring) {
   constexpr int kQ = dq_q_bytes<D>();
   constexpr int kKV = dq_kv_bytes<D, KN>();
   constexpr int kKVAtomBytes = KN * kLineBytes;
@@ -360,6 +433,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * kDqRows;
   const int head = blockIdx.y;
+  int kv_head = head;
+  if constexpr (RING) {
+    kv_head -= ring.kv_shift;
+    if (kv_head < 0) kv_head += static_cast<int>(gridDim.y);
+  }
   const int n_kv = (n + KN - 1) / KN;
   // causal: the block's last row sees keys up to q0 + 127
   const int n_tiles = causal ? min(n_kv, (q0 + kDqRows + KN - 1) / KN) : n_kv;
@@ -389,9 +467,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive_expect_tx(&full[s], 2 * kKV);
         for (int a = 0; a < kAtoms; ++a) {
           tma_load_3d(ks + s * kKV + a * kKVAtomBytes, &tm_k, &full[s], a * kAtomLanes, j * KN,
-                      head);
+                      kv_head);
           tma_load_3d(vs + s * kKV + a * kKVAtomBytes, &tm_v, &full[s], a * kAtomLanes, j * KN,
-                      head);
+                      kv_head);
         }
       }
     }
@@ -527,10 +605,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = row0 + 8 * r;
       if (row >= n) continue;
       __nv_bfloat16* out = dq + (row_base + row) * D;
+      if constexpr (RING) {
+        ring_store_row<DV>(acc, r, sm_scale, ring.acc + (row_base + row) * D, out, c, ring);
+        if (!ring.last) continue;
+      } else {
 #pragma unroll
-      for (int i = 0; i < DV / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(
-            acc[4 * i + 2 * r] * sm_scale, acc[4 * i + 2 * r + 1] * sm_scale);
+        for (int i = 0; i < DV / 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(
+              acc[4 * i + 2 * r] * sm_scale, acc[4 * i + 2 * r + 1] * sm_scale);
+      }
 #pragma unroll
       for (int i = DV / 8; i < D / 8; ++i)
         *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(0.f, 0.f);
@@ -540,48 +623,105 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 using bf16 = __nv_bfloat16;
 
-template <int D, int DV, int KN, int STAGES>
+template <int D, int DV, int KN, int STAGES, bool RING>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d_o,
                       const void* lse, const void* delta, void* dq, int bh, int n, int stages,
-                      int smem, float sm_scale, int causal, cudaStream_t stream) {
+                      int smem, float sm_scale, int causal, const RingSum& ring,
+                      cudaStream_t stream) {
   // the caller's tile plan must be the one compiled here
   if (stages != STAGES || smem != dq_smem_bytes<D, KN, STAGES>()) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   if (!make_head_map(&tm_q, q, bh, n, D, kDqRows) || !make_head_map(&tm_do, d_o, bh, n, D, kDqRows) ||
       !make_head_map(&tm_k, k, bh, n, D, KN) || !make_head_map(&tm_v, v, bh, n, D, KN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dq_kernel<D, DV, KN, STAGES>;
+  auto kernel = flash_bwd_dq_kernel<D, DV, KN, STAGES, RING>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   kernel<<<dim3((n + kDqRows - 1) / kDqRows, bh), kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), n, sm_scale, causal);
+      static_cast<bf16*>(dq), n, sm_scale, causal, ring);
   return cudaGetLastError();
 }
 
-template <int D, int DV, int KEYS, int STAGES>
+template <int D, int DV, int KEYS, int STAGES, bool RING>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int n,
-                       int stages, int smem, float sm_scale, int causal, cudaStream_t stream) {
+                       int stages, int smem, float sm_scale, int causal, const RingSum& ring,
+                       cudaStream_t stream) {
   // the caller's tile plan must be the one compiled here
   if (stages != STAGES || smem != dkv_smem_bytes<D, KEYS, STAGES>()) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   if (!make_head_map(&tm_q, q, bh, n, D, kQRows) || !make_head_map(&tm_do, d_o, bh, n, D, kQRows) ||
       !make_head_map(&tm_k, k, bh, n, D, KEYS) || !make_head_map(&tm_v, v, bh, n, D, KEYS))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dkv_kernel<D, DV, KEYS, STAGES>;
+  auto kernel = flash_bwd_dkv_kernel<D, DV, KEYS, STAGES, RING>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   kernel<<<dim3((n + KEYS - 1) / KEYS, bh), kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, sm_scale, causal);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, sm_scale, causal, ring);
   return cudaGetLastError();
 }
 
 bool shape_ok(int bh, int n, int d) {
   return bh > 0 && bh <= 65535 && n > 0 && n % 64 == 0 && (d == 64 || d == 128 || d == 256);
+}
+
+template <bool RING>
+cudaError_t dispatch_dq(const void* q, const void* k, const void* v, const void* d_o,
+                        const void* lse, const void* delta, void* dq, int bh, int n, int d,
+                        int lanes, int stages, int smem, float sm_scale, int causal,
+                        const RingSum& ring, cudaStream_t s) {
+  if (!shape_ok(bh, n, d)) return cudaErrorInvalidValue;
+  if (d == 64 && lanes == 64)
+    return launch_dq<64, 64, kDqKeys64, 4, RING>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                                 smem, sm_scale, causal, ring, s);
+  if (d == 128 && lanes == 80)
+    return launch_dq<128, 80, kDqKeys128, 4, RING>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                                   smem, sm_scale, causal, ring, s);
+  if (d == 128 && lanes == 128)
+    return launch_dq<128, 128, kDqKeys128, 4, RING>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                                    smem, sm_scale, causal, ring, s);
+  if (d == 256 && lanes == 192)
+    return launch_dq<256, 192, kDqKeys256, 3, RING>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                                    smem, sm_scale, causal, ring, s);
+  if (d == 256 && lanes == 256)
+    return launch_dq<256, 256, kDqKeys256, 3, RING>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
+                                                    smem, sm_scale, causal, ring, s);
+  return cudaErrorInvalidValue;
+}
+
+template <bool RING>
+cudaError_t dispatch_dkv(const void* q, const void* k, const void* v, const void* d_o,
+                         const void* lse, const void* delta, void* dk, void* dv, int bh, int n,
+                         int d, int lanes, int stages, int smem, float sm_scale, int causal,
+                         const RingSum& ring, cudaStream_t s) {
+  if (!shape_ok(bh, n, d)) return cudaErrorInvalidValue;
+  if (d == 64 && lanes == 64)
+    return launch_dkv<64, 64, kKeysNarrow, 4, RING>(q, k, v, d_o, lse, delta, dk, dv, bh, n,
+                                                    stages, smem, sm_scale, causal, ring, s);
+  if (d == 128 && lanes == 80)
+    return launch_dkv<128, 80, kKeysNarrow, 4, RING>(q, k, v, d_o, lse, delta, dk, dv, bh, n,
+                                                     stages, smem, sm_scale, causal, ring, s);
+  if (d == 128 && lanes == 128)
+    return launch_dkv<128, 128, kKeysNarrow, 4, RING>(q, k, v, d_o, lse, delta, dk, dv, bh, n,
+                                                      stages, smem, sm_scale, causal, ring, s);
+  if (d == 256 && lanes == 192)
+    return launch_dkv<256, 192, kKeysWide, 2, RING>(q, k, v, d_o, lse, delta, dk, dv, bh, n,
+                                                    stages, smem, sm_scale, causal, ring, s);
+  if (d == 256 && lanes == 256)
+    return launch_dkv<256, 256, kKeysWide, 2, RING>(q, k, v, d_o, lse, delta, dk, dv, bh, n,
+                                                    stages, smem, sm_scale, causal, ring, s);
+  return cudaErrorInvalidValue;
+}
+
+// a ring hop's sums: ``acc`` (and ``acc2``) are read if read_prev and
+// written unless last; the outputs are written if last
+bool ring_ok(int bh, int kv_shift, int read_prev, int last, const void* out, const void* acc) {
+  return kv_shift >= 0 && kv_shift < bh && (!last || out != nullptr) &&
+         (!(read_prev || !last) || acc != nullptr);
 }
 
 }  // namespace
@@ -598,24 +738,9 @@ extern "C" int dfot_flash_bwd_dq(const void* q, const void* k, const void* v, co
                                  const void* lse, const void* delta, void* dq, int bh, int n,
                                  int d, int lanes, int stages, int smem, float sm_scale,
                                  int causal, void* stream) {
-  if (!shape_ok(bh, n, d)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && lanes == 64)
-    return launch_dq<64, 64, kDqKeys64, 4>(q, k, v, d_o, lse, delta, dq, bh, n, stages, smem,
-                                           sm_scale, causal, s);
-  if (d == 128 && lanes == 80)
-    return launch_dq<128, 80, kDqKeys128, 4>(q, k, v, d_o, lse, delta, dq, bh, n, stages, smem,
-                                             sm_scale, causal, s);
-  if (d == 128 && lanes == 128)
-    return launch_dq<128, 128, kDqKeys128, 4>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
-                                              smem, sm_scale, causal, s);
-  if (d == 256 && lanes == 192)
-    return launch_dq<256, 192, kDqKeys256, 3>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
-                                              smem, sm_scale, causal, s);
-  if (d == 256 && lanes == 256)
-    return launch_dq<256, 256, kDqKeys256, 3>(q, k, v, d_o, lse, delta, dq, bh, n, stages,
-                                              smem, sm_scale, causal, s);
-  return cudaErrorInvalidValue;
+  return dispatch_dq<false>(q, k, v, d_o, lse, delta, dq, bh, n, d, lanes, stages, smem,
+                            sm_scale, causal, RingSum{nullptr, nullptr, 0, 0, 0},
+                            static_cast<cudaStream_t>(stream));
 }
 
 // As above, with dk, dv: (bh, n, d) contiguous bf16; every (bh, n) array
@@ -629,22 +754,43 @@ extern "C" int dfot_flash_bwd_dkv(const void* q, const void* k, const void* v, c
                                   const void* lse, const void* delta, void* dk, void* dv, int bh,
                                   int n, int d, int dv_lanes, int stages, int smem,
                                   float sm_scale, int causal, void* stream) {
-  if (!shape_ok(bh, n, d)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && dv_lanes == 64)
-    return launch_dkv<64, 64, kKeysNarrow, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
-                                              smem, sm_scale, causal, s);
-  if (d == 128 && dv_lanes == 80)
-    return launch_dkv<128, 80, kKeysNarrow, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
-                                               smem, sm_scale, causal, s);
-  if (d == 128 && dv_lanes == 128)
-    return launch_dkv<128, 128, kKeysNarrow, 4>(q, k, v, d_o, lse, delta, dk, dv, bh, n,
-                                                stages, smem, sm_scale, causal, s);
-  if (d == 256 && dv_lanes == 192)
-    return launch_dkv<256, 192, kKeysWide, 2>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
-                                              smem, sm_scale, causal, s);
-  if (d == 256 && dv_lanes == 256)
-    return launch_dkv<256, 256, kKeysWide, 2>(q, k, v, d_o, lse, delta, dk, dv, bh, n, stages,
-                                              smem, sm_scale, causal, s);
-  return cudaErrorInvalidValue;
+  return dispatch_dkv<false>(q, k, v, d_o, lse, delta, dk, dv, bh, n, d, dv_lanes, stages, smem,
+                             sm_scale, causal, RingSum{nullptr, nullptr, 0, 0, 0},
+                             static_cast<cudaStream_t>(stream));
+}
+
+// One non-causal ring hop of dq, arguments as dfot_flash_bwd_dq (lse and
+// delta: the query rows' final LSE and rowsum(dO * O)), with ``dq_acc`` the
+// fp32 (bh, n, d) sum over hops (its first lanes read if ``read_prev``,
+// written unless ``last``; null if neither) and ``dq`` (bf16) written with
+// the whole sum if ``last``, else it may be null. K/V head = (query head -
+// ``kv_shift``) mod bh. The plan is B4's (flash_plan "ring_dq").
+extern "C" int dfot_ring_bwd_dq(const void* q, const void* k, const void* v, const void* d_o,
+                                const void* lse, const void* delta, void* dq, void* dq_acc,
+                                int bh, int n, int d, int lanes, int stages, int smem,
+                                float sm_scale, int kv_shift, int read_prev, int last,
+                                void* stream) {
+  if (!ring_ok(bh, kv_shift, read_prev, last, dq, dq_acc)) return cudaErrorInvalidValue;
+  const RingSum ring{static_cast<float*>(dq_acc), nullptr, kv_shift, read_prev != 0, last != 0};
+  return dispatch_dq<true>(q, k, v, d_o, lse, delta, dq, bh, n, d, lanes, stages, smem, sm_scale,
+                           0, ring, static_cast<cudaStream_t>(stream));
+}
+
+// One non-causal ring hop of dk, dv for the keys of every K/V head against
+// the query rows of head (kv head + ``kv_shift``) mod bh, arguments as
+// dfot_flash_bwd_dkv, with ``dk_acc``, ``dv_acc`` the fp32 sums over hops
+// and ``dk``, ``dv`` the bf16 outputs, as dfot_ring_bwd_dq's. The plan is
+// B5's (flash_plan "ring_dkv").
+extern "C" int dfot_ring_bwd_dkv(const void* q, const void* k, const void* v, const void* d_o,
+                                 const void* lse, const void* delta, void* dk, void* dv,
+                                 void* dk_acc, void* dv_acc, int bh, int n, int d, int dv_lanes,
+                                 int stages, int smem, float sm_scale, int kv_shift,
+                                 int read_prev, int last, void* stream) {
+  if (!ring_ok(bh, kv_shift, read_prev, last, dk, dk_acc) ||
+      !ring_ok(bh, kv_shift, read_prev, last, dv, dv_acc))
+    return cudaErrorInvalidValue;
+  const RingSum ring{static_cast<float*>(dk_acc), static_cast<float*>(dv_acc), kv_shift,
+                     read_prev != 0, last != 0};
+  return dispatch_dkv<true>(q, k, v, d_o, lse, delta, dk, dv, bh, n, d, dv_lanes, stages, smem,
+                            sm_scale, 0, ring, static_cast<cudaStream_t>(stream));
 }

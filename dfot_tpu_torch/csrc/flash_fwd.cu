@@ -36,6 +36,23 @@
 // registers it reads are pinned (fence_regs): with one fence for both
 // groups, or a conditional wait inside the loop, ptxas serializes the
 // products (its warnings C7514, C7515).
+//
+// The ring hop (RING = true; dfot_ring_fwd) replaces one hop of
+// dfot_tpu/ops/ring_attention.py's fold: _block_flash (:49) and the
+// logaddexp fold after it (:99-111). It is this kernel with two changes:
+// - the shard shift: a LocalRing stacks its R ranks' shards on the head axis
+//   (R B H heads), so at hop s query head h attends to K/V head
+//   (h - s B H) mod R B H; the producer loads K and V at that head (kv_shift
+//   = s B H), and no shard is copied between hops;
+// - the folding epilogue: per row, lse_b = m scale + ln l, lse = logaddexp(
+//   lse_prev, lse_b) and O = O_prev exp(lse_prev - lse) + (acc / l)
+//   exp(lse_b - lse), with the running O (fp32, its DV lanes) and LSE (fp32)
+//   read from device memory after the first hop and written back, or, at
+//   the last hop, O in bf16 (pad lanes zero) and the final LSE. The block's
+//   O is folded before any bf16 rounding.
+// The running state adds 8 bytes a lane a row of reads and writes a hop
+// against the 4 n DV flops a row of the products, so the tensor cores still
+// bound the hop.
 
 #include "hopper.cuh"
 
@@ -61,12 +78,78 @@ __host__ __device__ constexpr int smem_bytes() {
   return 1024 + q_tile_bytes<D>() + 2 * STAGES * kv_tile_bytes<D, KN>() + 8 * (1 + 2 * STAGES);
 }
 
-template <int D, int DV, int KN, int STAGES>
+// the running state of a ring hop (RING kernels only)
+struct RingFold {
+  float* o_acc;   // running O, (bh, n, D) fp32, DV lanes used; read if read_prev, written if !last
+  int kv_shift;   // K/V head = (query head - kv_shift) mod bh, 0 <= kv_shift < bh
+  int read_prev;  // fold into the running (O, LSE); else this block starts it
+  int last;       // write O in bf16 to o (and the final LSE) instead of o_acc
+};
+
+// A ring hop's epilogue for this thread's two rows (row0, row0 + 8) and its
+// columns 8 i + 2 c (+ 1): the block's unnormalized O (acc), raw-score max
+// m and row sum l (already summed over the quad) folded into the running
+// (O, LSE). Every lane of a quad reads the row's running LSE before lane
+// c == 0 overwrites it (the __syncwarp between); each O element is read and
+// written by the thread that owns it.
+template <int D, int DV>
+__device__ __forceinline__ void fold_epilogue(const float* acc, const float* m_i,
+                                              const float* l_i, int row0, int c, int head, int n,
+                                              float sm_scale, bf16* __restrict__ o,
+                                              float* __restrict__ lse, const RingFold& ring) {
+  float lse_prev[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse_prev[r] = ring.read_prev && row < n ? lse[static_cast<size_t>(head) * n + row] : 0.f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    const float lse_b = m_i[r] * sm_scale + logf(l_i[r]);
+    float lse_new = lse_b, a = 0.f, b = 1.f / l_i[r];
+    if (ring.read_prev) {
+      const float mx = fmaxf(lse_prev[r], lse_b);
+      lse_new = mx + logf(expf(lse_prev[r] - mx) + expf(lse_b - mx));
+      a = expf(lse_prev[r] - lse_new);
+      b = expf(lse_b - lse_new) / l_i[r];
+    }
+    const size_t base = static_cast<size_t>(head) * n + row;
+    float* run = ring.o_acc + base * D;
+    // every load before the first store (see flash_bwd.cu:ring_store_row)
+    float2 prev[DV / 8];
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i)
+      prev[i] = ring.read_prev ? *reinterpret_cast<const float2*>(run + 8 * i + 2 * c)
+                               : make_float2(0.f, 0.f);
+    bf16* out = o + base * D;
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+      const float x0 = fmaf(prev[i].x, a, acc[4 * i + 2 * r] * b);
+      const float x1 = fmaf(prev[i].y, a, acc[4 * i + 2 * r + 1] * b);
+      if (ring.last)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(x0, x1);
+      else
+        *reinterpret_cast<float2*>(run + 8 * i + 2 * c) = make_float2(x0, x1);
+    }
+    if (ring.last) {
+#pragma unroll
+      for (int i = DV / 8; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * i + 2 * c) = __floats2bfloat162_rn(0.f, 0.f);
+    }
+    if (c == 0) lse[base] = lse_new;
+  }
+}
+
+template <int D, int DV, int KN, int STAGES, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int n, float sm_scale, int causal) {
+                     float* __restrict__ lse, int n, float sm_scale, int causal,
+                     const RingFold ring) {
   constexpr int kQTile = q_tile_bytes<D>();
   constexpr int kKVTile = kv_tile_bytes<D, KN>();
   constexpr int kKVAtomBytes = KN * kLineBytes;
@@ -83,6 +166,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qb = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * kBlock;
   const int head = blockIdx.y;
+  int kv_head = head;
+  if constexpr (RING) {
+    kv_head -= ring.kv_shift;
+    if (kv_head < 0) kv_head += static_cast<int>(gridDim.y);
+  }
   const int n_kv = (n + KN - 1) / KN;
   // causal: the block's last row sees keys up to q0 + 127
   const int n_tiles = causal ? min(n_kv, (q0 + kBlock + KN - 1) / KN) : n_kv;
@@ -110,9 +198,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive_expect_tx(&full[s], 2 * kKVTile);
         for (int a = 0; a < kAtoms; ++a) {
           tma_load_3d(ks + s * kKVTile + a * kKVAtomBytes, &tm_k, &full[s], a * kAtomLanes,
-                      j * KN, head);
+                      j * KN, kv_head);
           tma_load_3d(vs + s * kKVTile + a * kKVAtomBytes, &tm_v, &full[s], a * kAtomLanes,
-                      j * KN, head);
+                      j * KN, kv_head);
         }
       }
     }
@@ -256,6 +344,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
       l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
     }
+    if constexpr (RING) {
+      fold_epilogue<D, DV>(acc, m_i, l_i, row0, c, head, n, sm_scale, o, lse, ring);
+      return;
+    }
     const float inv[2] = {1.f / l_i[0], 1.f / l_i[1]};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -275,9 +367,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, int DV, int KN, int STAGES>
+template <int D, int DV, int KN, int STAGES, bool RING>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                   int n, int stages, int smem, float sm_scale, int causal,
+                   int n, int stages, int smem, float sm_scale, int causal, const RingFold& ring,
                    cudaStream_t stream) {
   // the caller's tile plan must be the one compiled here
   if (stages != STAGES || smem != smem_bytes<D, KN, STAGES>()) return cudaErrorInvalidValue;
@@ -285,14 +377,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   if (!make_head_map(&tm_q, q, bh, n, D, kBlock) ||
       !make_head_map(&tm_k, k, bh, n, D, KN) || !make_head_map(&tm_v, v, bh, n, D, KN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_kernel<D, DV, KN, STAGES>;
+  auto kernel = flash_fwd_kernel<D, DV, KN, STAGES, RING>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((n + kBlock - 1) / kBlock, bh);
   kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(o),
-                                           static_cast<float*>(lse), n, sm_scale, causal);
+                                           static_cast<float*>(lse), n, sm_scale, causal, ring);
   return cudaGetLastError();
+}
+
+template <bool RING>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                     int n, int d, int dv, int stages, int smem, float sm_scale, int causal,
+                     const RingFold& ring, cudaStream_t s) {
+  if (bh <= 0 || bh > 65535 || n <= 0 || n % 64 != 0) return cudaErrorInvalidValue;
+  if (d == 64 && dv == 64)
+    return launch<64, 64, 128, 4, RING>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal,
+                                        ring, s);
+  if (d == 128 && dv == 80)
+    return launch<128, 80, 128, 3, RING>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal,
+                                         ring, s);
+  if (d == 128 && dv == 128)
+    return launch<128, 128, 128, 3, RING>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal,
+                                          ring, s);
+  if (d == 256 && dv == 192)
+    return launch<256, 192, 64, 2, RING>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal,
+                                         ring, s);
+  if (d == 256 && dv == 256)
+    return launch<256, 256, 64, 2, RING>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal,
+                                         ring, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -307,17 +422,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 extern "C" int dfot_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int bh, int n, int d, int dv, int stages, int smem,
                               float sm_scale, int causal, void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || n % 64 != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && dv == 64)
-    return launch<64, 64, 128, 4>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
-  if (d == 128 && dv == 80)
-    return launch<128, 80, 128, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
-  if (d == 128 && dv == 128)
-    return launch<128, 128, 128, 3>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
-  if (d == 256 && dv == 192)
-    return launch<256, 192, 64, 2>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
-  if (d == 256 && dv == 256)
-    return launch<256, 256, 64, 2>(q, k, v, o, lse, bh, n, stages, smem, sm_scale, causal, s);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, o, lse, bh, n, d, dv, stages, smem, sm_scale, causal,
+                         RingFold{nullptr, 0, 0, 0}, static_cast<cudaStream_t>(stream));
+}
+
+// One non-causal ring hop, arguments as dfot_flash_fwd, with ``lse`` the
+// running LSE (bh, n) fp32 (read if ``read_prev``, always written) and
+// ``o_acc`` the running O (bh, n, d) fp32 (its first dv lanes read if
+// ``read_prev``, written unless ``last``; null if neither). ``o`` (bf16)
+// receives the hop's result if ``last``, else it may be null. K/V head =
+// (query head - ``kv_shift``) mod bh, 0 <= kv_shift < bh. The plan is B1's
+// (flash_plan "ring_fwd").
+extern "C" int dfot_ring_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                             void* o_acc, int bh, int n, int d, int dv, int stages, int smem,
+                             float sm_scale, int kv_shift, int read_prev, int last,
+                             void* stream) {
+  if (kv_shift < 0 || kv_shift >= bh || lse == nullptr || (last && o == nullptr) ||
+      ((read_prev || !last) && o_acc == nullptr))
+    return cudaErrorInvalidValue;
+  const RingFold ring{static_cast<float*>(o_acc), kv_shift, read_prev != 0, last != 0};
+  return dispatch<true>(q, k, v, o, lse, bh, n, d, dv, stages, smem, sm_scale, 0, ring,
+                        static_cast<cudaStream_t>(stream));
 }

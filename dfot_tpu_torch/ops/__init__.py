@@ -27,7 +27,7 @@ from .qkv_prep import (
     swap_pairs,
 )
 from .qkv_prep import qkv_prep as _qkv_prep
-from .ring_attention import ring_attention as _ring_attention
+from .ring_attention import ring_dkv_hop, ring_dq_hop, ring_fwd_hop
 
 # every kernel wrapper of the package; each carries a ``launches`` count
 KERNEL_WRAPPERS = {
@@ -41,7 +41,9 @@ KERNEL_WRAPPERS = {
     "ln_modulate": _ln_modulate,
     "ln_modulate_bwd": ln_modulate_bwd,
     "small_n_attn": small_n_attention,
-    "ring_block": _ring_attention,
+    "ring_fwd": ring_fwd_hop,
+    "ring_dq": ring_dq_hop,
+    "ring_dkv": ring_dkv_hop,
 }
 
 

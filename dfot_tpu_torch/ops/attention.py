@@ -223,10 +223,18 @@ def padded_head_dim(d: int) -> int:
     return next((w for w in FLASH_WIDTHS if w >= d), d + (-d % 64))
 
 
+# the ring hops' entries (csrc/flash_fwd.cu dfot_ring_fwd, csrc/flash_bwd.cu
+# dfot_ring_bwd_dq, dfot_ring_bwd_dkv) are B1, B4 and B5 with another head
+# index and epilogue: each takes the tile plan of the kernel it extends
+RING_PLAN_OF = {"ring_fwd": "fwd", "ring_dq": "dq", "ring_dkv": "dkv"}
+
+
 def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = None) -> dict:
     """Tile plan of kernel B1 (``kernel="fwd"``), B4 (``"dq"``) or B5
-    (``"dkv"``) for ``bh`` heads of ``n`` tokens, padded head dim ``d`` and
-    true head dim ``head_dim`` (default ``d``).
+    (``"dkv"``), or of a ring hop's entry (``"ring_fwd"``, ``"ring_dq"``,
+    ``"ring_dkv"``: B1's, B4's, B5's plan, :data:`RING_PLAN_OF`) for ``bh``
+    heads of ``n`` tokens, padded head dim ``d`` and true head dim
+    ``head_dim`` (default ``d``).
 
     Tiles are 64-lane column blocks of 128-byte rows (TMA's 128-byte swizzle).
     B1 holds a 128-row Q tile and streams K and V tiles of
@@ -246,6 +254,7 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     rounded = -(-head_dim // 16) * 16
     lanes = next(w for w in FLASH_LANES[d] if w >= rounded)
     row = d * 2  # bytes of one head-dim row of a tile
+    kernel = RING_PLAN_OF.get(kernel, kernel)
     if kernel == "fwd":
         block_rows, tile_rows = FLASH_BLOCK, FLASH_FWD_KEYS[d]
         resident, stage = block_rows * row, 2 * tile_rows * row               # Q; K, V
@@ -621,7 +630,8 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
     - ``"ring"``: a ring is set (:func:`set_sequence_parallel`) of R > 1
       ranks, the call is non-causal, R divides N and each rank keeps at
       least :data:`RING_MIN_ROWS` query rows (the JAX package's gate):
-      ring attention, kernel B1 a block (B4, B5 back);
+      ring attention, one ring-hop kernel a hop (the ring entries of B1,
+      and of B4 and B5 back);
     - ``"small_n"``: non-causal, N <= 32, d a multiple of 64 up to 256 (the
       JAX package's gate, ``d % 64 == 0``): kernel B10;
     - ``"flash"``: d in {64, 128, 256} and N a multiple of 64: kernels B1,

@@ -1,33 +1,40 @@
 """Ring (sequence-parallel) attention over R ranks.
 
 Port of ``dfot_tpu/ops/ring_attention.py``. The token axis of q, k, v is
-split over R ranks; each rank keeps its query rows and the K/V shards travel
-around the ring, one hop to ``(rank + 1) % R`` at a time, while each
-visiting shard's block is folded into an online softmax in (O, LSE) space.
-No rank ever holds the whole sequence's scores.
+split over R ranks; each rank keeps its query rows and meets the R K/V
+shards in ring order (its own, then rank r - 1's, ...), folding each block
+into an online softmax in (O, LSE) space. No rank ever holds the whole
+sequence's scores.
 
-- A block (one rank's queries against one K/V shard) is kernel B1,
-  ``flash_attention(..., return_lse=True, sm_scale=...)``, on a CUDA
-  tensor (the port of ``_block_flash``, :49), and the plain
-  ``attention_reference(..., return_lse=True)`` on the CPU or with
-  ``plain``. Its O is cast to fp32 before the fold, as ``_block_flash``
-  casts it (:57); the fold is fp32 elementwise torch (``logaddexp``, as
-  :99-111); the output is cast back to the input dtype.
-- The backward is a ``torch.autograd.Function``, not autodiff of the fold:
-  the custom op ``dfot::flash_attention`` gives its LSE no gradient, so
-  autodiff through the fold would lose every term that goes through the
-  LSE. The forward saves q, k, v, the final O and the final LSE; the
-  backward walks the ring again with delta = rowsum(dO * O) and the final
-  LSE: kernel B4 (``flash_bwd_dq``) and kernel B5 (``flash_bwd_dkv``) for
-  each hop, dq summed in place, the dk and dv sums travelling with their
-  shard and brought home by one more hop after the last.
-- A ring is one of two forms, with one fold: :class:`ProcessRing`, the R
-  processes of a ``torch.distributed`` group, whose hop is one
-  ``batch_isend_irecv`` to ``(rank + 1) % R`` (the JAX ``ppermute``'s
-  permutation, :97); and :class:`LocalRing`, R virtual ranks in one process,
-  their shards stacked on the leading axis (a merged batch of R x B), whose
-  hop is ``torch.roll`` by one along the ranks and whose block is one launch
-  of B1 (B4, B5 back) for all R ranks together.
+- A hop is one kernel launch on a CUDA tensor. Forward, :func:`ring_fwd_hop`:
+  the ring entry of B1 (``csrc/flash_fwd.cu``, ``dfot_ring_fwd``), which
+  computes the block (the port of ``_block_flash``, :49) and folds it into
+  the running fp32 (O, LSE) in its epilogue (the fold of :99-111); the last
+  hop writes O in the input dtype and the final LSE. Backward,
+  :func:`ring_dq_hop` and :func:`ring_dkv_hop`: the ring entries of B4 and
+  B5 (``csrc/flash_bwd.cu``), each adding its hop into fp32 sums in the
+  kernel and writing them in the input dtype at the last hop.
+- The backward is a ``torch.autograd.Function``, not autodiff of the fold
+  (the block's LSE would carry no gradient): the forward saves q, k, v, the
+  final O and the final LSE; the backward walks the ring again with
+  delta = rowsum(dO * O) and the final LSE.
+- A ring is one of two forms. :class:`LocalRing`: R virtual ranks in one
+  process, their shards stacked on the leading axis (a merged batch of
+  R x B, so R B H heads); no shard moves: at hop s query head h meets K/V
+  head (h - s B H) mod R B H (``kv_shift``), which the kernels index, so a
+  hop is one launch for all R ranks and copies nothing. :class:`ProcessRing`:
+  the R processes of a ``torch.distributed`` group; its shards travel, one
+  ``batch_isend_irecv`` to ``(rank + 1) % R`` a hop (the JAX ``ppermute``'s
+  permutation, :97), hop s + 1's transfer posted before hop s's kernel and
+  waited for after it (double-buffered K/V, as the JAX ring overlaps the
+  transfer with the block, :3-8); backward, the dk, dv sums travel with their
+  shard and come home with one more hop.
+- On the CPU, or with ``plain``, each hop runs its plain version
+  (:func:`ring_fwd_hop_plain`, :func:`ring_bwd_hop_plain`): the plain block
+  of the shifted shard, with O rounded to the input dtype as
+  ``_block_flash`` rounds it (:57), folded in fp32 ``logaddexp``; the plain
+  backward formulas, each hop's gradients in the input dtype added into
+  fp32 sums. That is the roll-based ring of before to the bit.
 
 :func:`sequence_parallel_attention` takes the global (B, H, N, D) arrays,
 keeps each rank's N / R rows, runs the ring and gathers O; the gradient of
@@ -43,24 +50,32 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import _cuda
 from .attention import (
     FLASH_WIDTHS,
+    _bwd_operands,
+    _check_qkv,
     _delta,
     _dkv_plain,
     _dq_plain,
-    flash_attention,
-    flash_bwd_dkv,
-    flash_bwd_dq,
+    attention_reference,
+    flash_plan,
     padded_head_dim,
 )
 
-__all__ = ["LocalRing", "ProcessRing", "ring_attention", "sequence_parallel_attention"]
+__all__ = [
+    "LocalRing", "ProcessRing", "ring_attention", "sequence_parallel_attention",
+    "ring_fwd_hop", "ring_dq_hop", "ring_dkv_hop", "ring_fwd_hop_plain", "ring_bwd_hop_plain",
+]
 
 
 class LocalRing:
     """R virtual ranks in this process. A rank's shard of a (B, H, N, D)
     tensor is its N / R rows; the R shards are stacked on the leading axis as
-    one (R B, H, N / R, D) tensor, rank r at rows r B to (r + 1) B."""
+    one (R B, H, N / R, D) tensor, rank r at rows r B to (r + 1) B. The ring
+    moves no shard: a hop's kernels read the visiting one by ``kv_shift``."""
+
+    moves_shards = False
 
     def __init__(self, size: int):
         if size < 1:
@@ -79,15 +94,37 @@ class LocalRing:
         return x.reshape(self.size, B, H, n, D).permute(1, 2, 0, 3, 4).reshape(
             B, H, self.size * n, D)
 
+    def kv_shift(self, hop: int, x: torch.Tensor) -> int:
+        """Heads of the stacked (R B, H, ...) ``x`` between a query head and
+        the K/V head it meets at ``hop``: that hop's shard is rank r - hop's."""
+        return hop * (x.shape[0] // self.size) * x.shape[1]
+
     def hop(self, *tensors: torch.Tensor):
-        """Each rank's tensors to the next rank: rank r receives rank r - 1's."""
+        """Each rank's tensors to the next rank: rank r receives rank r - 1's
+        (a copy; the ring itself indexes instead)."""
         return tuple(
             t.reshape(self.size, -1, *t.shape[1:]).roll(1, 0).reshape(t.shape) for t in tensors)
 
 
+class _Transfer:
+    """A posted hop: :meth:`wait` returns the received tensors once they
+    have arrived (under NCCL: once the current stream waits for them)."""
+
+    def __init__(self, requests, received):
+        self.requests, self.received = requests, received
+
+    def wait(self):
+        for req in self.requests:
+            req.wait()
+        return self.received
+
+
 class ProcessRing:
     """The processes of a ``torch.distributed`` group (None: the world); a
-    rank's shard is the slice of rows at its rank in the group."""
+    rank's shard is the slice of rows at its rank in the group. Its shards
+    travel from rank to rank."""
+
+    moves_shards = True
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -104,20 +141,26 @@ class ProcessRing:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherRows.apply(x, self)
 
-    def hop(self, *tensors: torch.Tensor):
-        """Each tensor to rank + 1, the previous rank's in its place."""
+    def kv_shift(self, hop: int, x: torch.Tensor) -> int:
+        return 0  # the visiting shard is the one this process holds
+
+    def start_hop(self, tensors, into=None) -> _Transfer:
+        """Post each tensor's send to rank + 1 and the receive of the
+        previous rank's into ``into`` (new tensors if None)."""
         import torch.distributed as dist
 
         if self.size == 1:
-            return tensors
-        received = tuple(torch.empty_like(t) for t in tensors)
+            return _Transfer((), tuple(tensors))
+        received = tuple(into) if into is not None else tuple(torch.empty_like(t) for t in tensors)
         ops = []
         for t, r in zip(tensors, received):
             ops.append(dist.P2POp(dist.isend, t.contiguous(), self._next, self.group))
             ops.append(dist.P2POp(dist.irecv, r, self._prev, self.group))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return received
+        return _Transfer(dist.batch_isend_irecv(ops), received)
+
+    def hop(self, *tensors: torch.Tensor):
+        """Each tensor to rank + 1, the previous rank's in its place."""
+        return self.start_hop(tensors).wait()
 
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
@@ -159,14 +202,24 @@ class _GatherRows(torch.autograd.Function):
         return ctx.ring.own_rows(g), None
 
 
-def block_attention(q, k, v, sm_scale: float, head_dim: int, plain: bool):
-    """One (queries x visiting K/V shard) block: (O fp32, LSE fp32 (..., N, 1)),
-    the LSE in natural-log units of the scaled scores. Kernel B1 on a CUDA
-    tensor, the plain version on the CPU or with ``plain``."""
-    o, lse = flash_attention(q, k, v, False, sm_scale, return_lse=True, plain=plain,
-                             head_dim=head_dim)
-    if q.is_cuda and not plain:
-        ring_attention.launches += 1
+# ---------------------------------------------------------------------------
+# plain versions of the hops
+# ---------------------------------------------------------------------------
+
+
+def _shift(t: torch.Tensor, kv_shift: int) -> torch.Tensor:
+    """``t`` (R B, H, ...) with head i of its flattened R B H heads taking
+    head (i - kv_shift) mod R B H: the shard a hop visits (a copy)."""
+    if not kv_shift:
+        return t
+    return t.flatten(0, 1).roll(kv_shift, 0).reshape(t.shape)
+
+
+def block_attention(q, k, v, sm_scale: float):
+    """The plain block: (O, LSE (..., N, 1)) in fp32, the LSE in natural-log
+    units of the scaled scores, O rounded to q's dtype first, as
+    ``_block_flash`` rounds it."""
+    o, lse = attention_reference(q, k, v, False, sm_scale, True)
     return o.float(), lse
 
 
@@ -176,15 +229,222 @@ def fold_block(o, lse, b_o, b_lse):
     return o * torch.exp(lse - new_lse) + b_o * torch.exp(b_lse - new_lse), new_lse
 
 
+def ring_fwd_hop_plain(q, k, v, o, lse, kv_shift: int, last: bool, sm_scale: float):
+    """Plain version of :func:`ring_fwd_hop`: the plain block of q against
+    the shard ``kv_shift`` heads back, folded into the running (O, LSE)
+    (None at the first hop); the new state, or at the last hop O in q's
+    dtype and the final LSE."""
+    b_o, b_lse = block_attention(q, _shift(k, kv_shift), _shift(v, kv_shift), sm_scale)
+    o, lse = (b_o, b_lse) if o is None else fold_block(o, lse, b_o, b_lse)
+    return (o.to(q.dtype), lse) if last else (o, lse)
+
+
+def _add(total, part, kv_shift: int):
+    """fp32 ``total`` (None: none yet) plus ``part`` moved ``kv_shift`` heads
+    back to its home shard."""
+    part = _shift(part, -kv_shift)
+    return part.float() if total is None else total.add_(part)
+
+
+def _ring_dq_plain(q, k, v, do, lse, delta, dq, kv_shift, last, sm_scale):
+    b = _dq_plain(q, _shift(k, kv_shift), _shift(v, kv_shift), do, lse, delta, False, sm_scale)
+    dq = _add(dq, b, 0)
+    return dq.to(q.dtype) if last else dq
+
+
+def _ring_dkv_plain(q, k, v, do, lse, delta, dk, dv, kv_shift, last, sm_scale):
+    b_dk, b_dv = _dkv_plain(q, _shift(k, kv_shift), _shift(v, kv_shift), do, lse, delta, False,
+                            sm_scale)
+    dk, dv = _add(dk, b_dk, kv_shift), _add(dv, b_dv, kv_shift)
+    return (dk.to(k.dtype), dv.to(v.dtype)) if last else (dk, dv)
+
+
+def ring_bwd_hop_plain(q, k, v, do, lse, delta, dq, dk, dv, kv_shift: int, last: bool,
+                       sm_scale: float):
+    """Plain version of :func:`ring_dq_hop` and :func:`ring_dkv_hop`: the
+    plain dq and dk, dv of q against the shard ``kv_shift`` heads back, each
+    in its input's dtype, added into the fp32 sums ``dq``, ``dk``, ``dv``
+    (None at the first hop; dk, dv at the shard's home heads); the new sums,
+    or at the last hop the sums in the inputs' dtypes."""
+    return (_ring_dq_plain(q, k, v, do, lse, delta, dq, kv_shift, last, sm_scale),
+            *_ring_dkv_plain(q, k, v, do, lse, delta, dk, dv, kv_shift, last, sm_scale))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _kernel_path(what: str, q: torch.Tensor, plain: bool) -> bool:
+    """True where the hop launches its kernel: a CUDA tensor without
+    ``plain``. A CPU tensor (or ``plain``) takes the plain version; another
+    device raises."""
+    if plain or q.device.type == "cpu":
+        return False
+    if not q.is_cuda:
+        raise ValueError(f"{what}: no path for device {q.device}")
+    return True
+
+
+def _state(what: str, t, shape, device) -> Optional[torch.Tensor]:
+    """A running fp32 state tensor as the kernels take it, or None."""
+    if t is None:
+        return None
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or t.device != device or (
+            not t.is_contiguous()):
+        raise ValueError(f"{what}: running state must be contiguous fp32 {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def ring_fwd_hop(q, k, v, o, lse, kv_shift: int, last: bool, sm_scale: float, *,
+                 head_dim: Optional[int] = None, plain: bool = False):
+    """One forward hop of the ring: the block of q (R B, H, n, D) against the
+    K/V shard ``kv_shift`` heads back, folded into the running (O, LSE)
+    (fp32 (..., n, D) and (..., n, 1); None at the first hop). Returns the
+    new state, or at the ``last`` hop O in q's dtype and the final LSE. On a
+    CUDA tensor one launch of the ring entry of B1 (bf16, D in {64, 128,
+    256}, n a multiple of 64; else it raises), which updates the state in
+    place; on the CPU, or with ``plain``, :func:`ring_fwd_hop_plain`."""
+    what = "ring attention hop"
+    if not _kernel_path(what, q, plain):
+        return ring_fwd_hop_plain(q, k, v, o, lse, kv_shift, last, sm_scale)
+    _check_qkv(what, q, k, v)
+    B, H, N, D = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    _cuda.check_aligned(what, 16, q, k, v)
+    if (o is None) != (lse is None):
+        raise ValueError(f"{what}: O and LSE are running together or not at all")
+    read_prev = lse is not None
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse = _state(what, lse, (B, H, N, 1), q.device)
+    o = _state(what, o, (B, H, N, D), q.device)
+    if lse is None:
+        lse = torch.empty((B, H, N, 1), **f32)
+    if o is None and not last:
+        o = torch.empty((B, H, N, D), **f32)
+    out = torch.empty_like(q) if last else None
+    plan = flash_plan("ring_fwd", B * H, N, D, head_dim)
+    _cuda.check(
+        _cuda.library().dfot_ring_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out), lse.data_ptr(), _ptr(o),
+            B * H, N, D, plan["lanes"], plan["stages"], plan["smem_bytes"], float(sm_scale),
+            int(kv_shift), int(read_prev), int(last), _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    ring_fwd_hop.launches += 1
+    return (out, lse) if last else (o, lse)
+
+
+def ring_dq_hop(q, k, v, do, lse, delta, dq, kv_shift: int, last: bool, sm_scale: float, *,
+                head_dim: Optional[int] = None, plain: bool = False):
+    """One backward hop's dq: q's gradient from the K/V shard ``kv_shift``
+    heads back, against the final LSE and delta = rowsum(dO * O) ((..., n,
+    1) fp32), added into the fp32 sum ``dq`` (None at the first hop).
+    Returns the new sum, or at the ``last`` hop dq in q's dtype. On a CUDA
+    tensor one launch of the ring entry of B4, which adds in place; on the
+    CPU, or with ``plain``, the plain version (:func:`ring_bwd_hop_plain`)."""
+    what = "ring attention hop backward (dq)"
+    if not _kernel_path(what, q, plain):
+        return _ring_dq_plain(q, k, v, do, lse, delta, dq, kv_shift, last, sm_scale)
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    dq = _state(what, dq, (B, H, N, D), q.device)
+    read_prev = dq is not None
+    if dq is None and not last:
+        dq = torch.empty((B, H, N, D), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q) if last else None
+    plan = flash_plan("ring_dq", B * H, N, D, head_dim)
+    _cuda.check(
+        _cuda.library().dfot_ring_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(out), _ptr(dq), B * H, N, D, plan["lanes"], plan["stages"],
+            plan["smem_bytes"], float(sm_scale), int(kv_shift), int(read_prev), int(last),
+            _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    ring_dq_hop.launches += 1
+    return out if last else dq
+
+
+def ring_dkv_hop(q, k, v, do, lse, delta, dk, dv, kv_shift: int, last: bool, sm_scale: float,
+                 *, head_dim: Optional[int] = None, plain: bool = False):
+    """One backward hop's dk, dv: the gradients of the K/V shard ``kv_shift``
+    heads back from q's rows, added into the fp32 sums ``dk``, ``dv`` at the
+    shard's home heads (None at the first hop). Returns the new sums, or at
+    the ``last`` hop dk, dv in k's and v's dtype. On a CUDA tensor one launch
+    of the ring entry of B5, whose blocks own the keys of a K/V head and walk
+    the query rows of the head ``kv_shift`` on, adding in place; on the CPU,
+    or with ``plain``, the plain version (:func:`ring_bwd_hop_plain`)."""
+    what = "ring attention hop backward (dk, dv)"
+    if not _kernel_path(what, q, plain):
+        return _ring_dkv_plain(q, k, v, do, lse, delta, dk, dv, kv_shift, last, sm_scale)
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    dk = _state(what, dk, (B, H, N, D), q.device)
+    dv = _state(what, dv, (B, H, N, D), q.device)
+    if (dk is None) != (dv is None):
+        raise ValueError(f"{what}: dk and dv are summed together or not at all")
+    read_prev = dk is not None
+    if dk is None and not last:
+        dk, dv = (torch.empty((B, H, N, D), dtype=torch.float32, device=q.device)
+                  for _ in range(2))
+    out_k, out_v = (torch.empty_like(k), torch.empty_like(v)) if last else (None, None)
+    plan = flash_plan("ring_dkv", B * H, N, D, head_dim)
+    _cuda.check(
+        _cuda.library().dfot_ring_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(out_k), _ptr(out_v), _ptr(dk), _ptr(dv), B * H, N, D,
+            plan["lanes"], plan["stages"], plan["smem_bytes"], float(sm_scale), int(kv_shift),
+            int(read_prev), int(last), _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    ring_dkv_hop.launches += 1
+    return (out_k, out_v) if last else (dk, dv)
+
+
+# kernel launches since the last reset
+ring_fwd_hop.launches = 0
+ring_dq_hop.launches = 0
+ring_dkv_hop.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the ring
+# ---------------------------------------------------------------------------
+
+
+def _visits(ring, k, v):
+    """(hop, K, V) of each hop in ring order. On a LocalRing the home shards
+    every time (the hop's ``kv_shift`` names the visiting one); on a
+    ProcessRing the shard this process holds, hop s + 1's transfer posted
+    before hop s's kernel runs and waited for after it, received into a
+    second pair of buffers (the inputs are never written)."""
+    ck, cv, spare = k, v, None
+    for hop in range(ring.size):
+        pending = None
+        if ring.moves_shards and hop < ring.size - 1:
+            pending = ring.start_hop((ck, cv), spare)
+        yield hop, ck, cv
+        if pending is not None:
+            spare = (ck, cv) if hop else None
+            ck, cv = pending.wait()
+
+
 class _Ring(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, ring, sm_scale, head_dim, plain):
-        o, lse = block_attention(q, k, v, sm_scale, head_dim, plain)
-        ck, cv = k, v
-        for _ in range(ring.size - 1):
-            ck, cv = ring.hop(ck, cv)
-            o, lse = fold_block(o, lse, *block_attention(q, ck, cv, sm_scale, head_dim, plain))
-        o = o.to(q.dtype)
+        o = lse = None
+        for hop, ck, cv in _visits(ring, k, v):
+            o, lse = ring_fwd_hop(q, ck, cv, o, lse, ring.kv_shift(hop, q), hop == ring.size - 1,
+                                  sm_scale, head_dim=head_dim, plain=plain)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (ring, sm_scale, head_dim, plain)
         return o
@@ -195,27 +455,17 @@ class _Ring(torch.autograd.Function):
         ring, sm_scale, head_dim, plain = ctx.args
         do = do.contiguous()
         delta = _delta(o, do)
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        ck, cv = k, v
-        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.zeros_like(dk)
-        for hop in range(ring.size):
-            if hop:
-                ck, cv, dk, dv = ring.hop(ck, cv, dk, dv)
-            if plain:
-                b_dq = _dq_plain(q, ck, cv, do, lse, delta, False, sm_scale)
-                b_dk, b_dv = _dkv_plain(q, ck, cv, do, lse, delta, False, sm_scale)
-            else:
-                b_dq = flash_bwd_dq(q, ck, cv, do, lse, delta, False, sm_scale,
-                                    head_dim=head_dim)
-                b_dk, b_dv = flash_bwd_dkv(q, ck, cv, do, lse, delta, False, sm_scale,
-                                           head_dim=head_dim)
-            dq += b_dq
-            dk += b_dk
-            dv += b_dv
-        if ring.size > 1:
-            dk, dv = ring.hop(dk, dv)  # each shard's sums back to its rank
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+        dq = dk = dv = None
+        for hop, ck, cv in _visits(ring, k, v):
+            shift, last = ring.kv_shift(hop, q), hop == ring.size - 1
+            dq = ring_dq_hop(q, ck, cv, do, lse, delta, dq, shift, last, sm_scale,
+                             head_dim=head_dim, plain=plain)
+            dk, dv = ring_dkv_hop(q, ck, cv, do, lse, delta, dk, dv, shift, last, sm_scale,
+                                  head_dim=head_dim, plain=plain)
+            if ring.moves_shards and ring.size > 1:
+                # the sums travel with their shard; after the last hop, home
+                dk, dv = ring.hop(dk, dv)
+        return dq, dk, dv, None, None, None, None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ring,
@@ -224,10 +474,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ring,
     global sequence being the R ranks' shards in rank order (``ring``: a
     :class:`ProcessRing`, or a :class:`LocalRing` with its ranks' shards
     stacked). ``sm_scale`` defaults to 1/sqrt(D). Differentiable. On a CUDA
-    tensor every block launches B1 forward and B4 + B5 backward (bf16, N_local
-    a multiple of 64; else it raises), heads of other widths zero-padded to
-    the next the kernels take; on the CPU, or with ``plain``, the plain
-    versions run."""
+    tensor every hop is one launch of the ring entry of B1 forward and one
+    each of B4's and B5's backward (bf16, N_local a multiple of 64; else it
+    raises), heads of other widths zero-padded to the next the kernels take;
+    on the CPU, or with ``plain``, the plain hops run."""
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -248,8 +498,3 @@ def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
             f"sequence length {q.shape[-2]} not divisible by the ring of size {ring.size}")
     o = ring_attention(ring.shard(q), ring.shard(k), ring.shard(v), ring, sm_scale, plain)
     return ring.gather(o)
-
-
-# B1 launches made for ring blocks since the last reset (each also counts in
-# flash_attention.launches)
-ring_attention.launches = 0

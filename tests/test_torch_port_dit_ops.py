@@ -233,9 +233,10 @@ def test_packed_route_head_dim_72_matches_fused_jax():
 
 
 def test_new_wrappers_are_counted():
-    assert {"ln_modulate", "ln_modulate_bwd", "small_n_attn", "ring_block"} <= set(
-        TOPS.KERNEL_WRAPPERS)
-    assert len(TOPS.KERNEL_WRAPPERS) == 11  # B1-B10 and the ring's block (B1 a hop)
+    assert {"ln_modulate", "ln_modulate_bwd", "small_n_attn", "ring_fwd", "ring_dq",
+            "ring_dkv"} <= set(TOPS.KERNEL_WRAPPERS)
+    # B1-B10 and the ring hop's three entries (B1's forward, B4's and B5's backward)
+    assert len(TOPS.KERNEL_WRAPPERS) == 13
     TOPS.reset_launch_counts()
     assert set(TOPS.launch_counts().values()) == {0}
 

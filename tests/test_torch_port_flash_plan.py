@@ -68,6 +68,25 @@ def test_plan_fits_and_contracts_over_the_true_head_dim(kernel, what, bh, n, d, 
     assert plan["smem_bytes"] == 1024 + tiles + 8 * (1 + 2 * plan["stages"])
 
 
+# a ring hop's shapes: a LocalRing of R = 2 and 4 at the flagship's two
+# attention sites (B * NFE = 2), R B H heads of N / R rows
+RING_SHAPES = tuple(
+    (f"flagship level {lvl}, ring of {R}", R * 2 * 9, n // R, d, d)
+    for lvl, n, d in ((2, 8192, 64), (3, 2048, 128)) for R in (2, 4))
+
+
+@pytest.mark.parametrize("ring_kernel,kernel", sorted(A.RING_PLAN_OF.items()))
+@pytest.mark.parametrize("what,bh,n,d,head_dim", MAIN_SHAPES + RING_SHAPES)
+def test_ring_entries_take_their_kernels_plan(ring_kernel, kernel, what, bh, n, d, head_dim):
+    """The ring hops' C entries (dfot_ring_fwd, dfot_ring_bwd_dq,
+    dfot_ring_bwd_dkv) instantiate B1, B4 and B5 with another epilogue and
+    head index and refuse any plan but theirs: the same tiles, stages and
+    shared memory at every shape, the ring's own included."""
+    plan = A.flash_plan(ring_kernel, bh, n, d, head_dim)
+    assert plan == A.flash_plan(kernel, bh, n, d, head_dim)
+    assert plan["smem_bytes"] <= A.SMEM_PER_BLOCK
+
+
 # the plans the C entries are compiled for (flash_fwd.cu, flash_bwd.cu): the
 # d <= 128 ones as before the kernels took d = 256, and the d = 256 ones
 COMPILED_PLANS = [
@@ -101,6 +120,8 @@ def test_plan_rounds_the_head_dim_up_to_a_compiled_width(d, head_dim, lanes):
 
 
 @pytest.mark.parametrize("kernel,d,head_dim", [("fwd", 96, 96), ("fwd", 128, 0),
+                                               ("ring_fwd", 96, 96), ("ring_dkv", 320, 320),
+                                               ("ring", 64, 64),
                                                ("dkv", 64, 72), ("bwd", 64, 64),
                                                ("dq", 96, 96), ("dq", 64, 72), ("dq", 128, 0),
                                                ("dq", 192, 192), ("fwd", 320, 320),

@@ -1185,11 +1185,12 @@ def test_a15c_network_on_the_card_matches_the_cpu(cuda, name):
 @pytest.mark.parametrize("shape", [(2, 3, 512, 64), (1, 2, 1024, 128), (1, 2, 512, 72)],
                          ids=["d64", "d128", "d72_padded"])
 def test_ring_attention_launches_b1_b4_b5(cuda, R, shape):
-    """Ring attention on a LocalRing of R virtual ranks: R launches of B1
-    forward (each counted as a ring block), R each of B4 and B5 backward,
-    and O, dq, dk, dv within 1e-2 relative L2 of the plain ring (the same
-    fold over the plain attention and its backward formulas) and of
-    unsharded attention; heads of 72 padded to 128 by the ring."""
+    """Ring attention on a LocalRing of R virtual ranks: R launches of the
+    ring entry of B1 forward (the fold in its epilogue), R each of B4's and
+    B5's ring entries backward (the sums in the kernels), no other kernel,
+    and O, dq, dk, dv within 1e-2 relative L2 of the plain ring (the plain
+    block, the fp32 fold and the plain backward formulas) and of unsharded
+    attention; heads of 72 padded to 128 by the ring."""
     from dfot_tpu_torch.ops import ring_attention as RA
 
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -1205,8 +1206,7 @@ def test_ring_attention_launches_b1_b4_b5(cuda, R, shape):
     ops.reset_launch_counts()
     got = run(lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring))
     counts = ops.launch_counts()
-    assert {n: c for n, c in counts.items() if c} == {
-        "flash_fwd": R, "ring_block": R, "flash_bwd_dq": R, "flash_bwd_dkv": R}
+    assert {n: c for n, c in counts.items() if c} == {"ring_fwd": R, "ring_dq": R, "ring_dkv": R}
     plain = run(lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring, plain=True))
     whole = run(lambda a, b, c: A.attention_reference(a, b, c))
     for x, p, w in zip(got, plain, whole):
@@ -1214,6 +1214,62 @@ def test_ring_attention_launches_b1_b4_b5(cuda, R, shape):
         for ref in (p, w):
             err = (x.float() - ref.float()).norm() / ref.float().norm()
             assert err <= 1e-2, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,lanes", [(64, 64), (128, 80), (256, 256)])
+def test_ring_hops_match_their_plain_versions(cuda, d, lanes):
+    """Each hop on its own, against its plain version on the same state: a
+    middle hop of a LocalRing of 3 (the running fp32 state read and
+    written, K/V ``kv_shift`` heads back: the shard of rank r - 1), and the
+    last hop (the output in bf16, pad lanes zero). The forward's O within 1e-2 relative
+    L2 (the kernel folds the block's O before any bf16 rounding, the plain
+    version after), its LSE within 1e-3; the gradient sums within 1e-2."""
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    R, B, H, n = 3, 1, 2, 256
+    g = torch.Generator(device=cuda).manual_seed(8)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, k, v, do = (rand(R * B, H, n, d) for _ in range(4))
+    if lanes < d:
+        for t in (q, k, v, do):
+            t[..., 72:] = 0
+    head_dim = 72 if lanes < d else d
+    ring, scale = RA.LocalRing(R), 1.0 / math.sqrt(head_dim)
+    shift = ring.kv_shift(1, q)
+    o0, lse0 = RA.ring_fwd_hop(q, k, v, None, None, 0, False, scale, head_dim=head_dim,
+                               plain=True)
+
+    def rel(x, w):
+        x, w = x[..., :head_dim].float(), w[..., :head_dim].float()
+        return float((x - w).norm() / w.norm())
+
+    for last in (False, True):
+        want = RA.ring_fwd_hop(q, k, v, o0.clone(), lse0.clone(), shift, last, scale, plain=True)
+        got = RA.ring_fwd_hop(q, k, v, o0.clone(), lse0.clone(), shift, last, scale,
+                              head_dim=head_dim)
+        assert got[0].dtype == (torch.bfloat16 if last else torch.float32)
+        assert rel(got[0], want[0]) <= 1e-2
+        assert (got[1] - want[1]).abs().max() <= 1e-3
+        if last:
+            assert not got[0][..., lanes:].any()
+    lse = lse0
+    delta = (do.float() * o0.to(torch.bfloat16).float()).sum(-1, keepdim=True)
+    sums = tuple(rand(R * B, H, n, d, dtype=torch.float32) for _ in range(3))
+    for last in (False, True):
+        want = RA.ring_bwd_hop_plain(q, k, v, do, lse, delta, *(t.clone() for t in sums), shift,
+                                     last, scale)
+        dq = RA.ring_dq_hop(q, k, v, do, lse, delta, sums[0].clone(), shift, last, scale,
+                            head_dim=head_dim)
+        dk, dv = RA.ring_dkv_hop(q, k, v, do, lse, delta, sums[1].clone(), sums[2].clone(),
+                                 shift, last, scale, head_dim=head_dim)
+        for x, w in zip((dq, dk, dv), want):
+            assert x.dtype == w.dtype and rel(x, w) <= 1e-2
+            if last:
+                assert not x[..., lanes:].any()
 
 
 @pytest.mark.gpu
