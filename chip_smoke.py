@@ -278,7 +278,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     attention maps of K600 @DiT/XL (depth cut to 2) captured on the card
     against the CPU (:data:`CAPTURE_TOL`).
 
-Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22, 23, 24 and 25 also run controls (an attention that
+27. (``run_wide_paths``) heads wider than 256 lanes: the wide family of B1,
+    B4 and B5 (``csrc/flash_wide.cu``) and B2, B6 past their old 256 cap,
+    with B3 and B7, at W (the base-width U-ViT's level 3 at 2 heads: (B,
+    2, 2048, 512), B = 2 forward and 1 backward) and X (K600 @DiT/XL at 4
+    heads: (8, 4, 1280, 288 -> 320)) with every check, control, timing and
+    bound of step 2's sites, SDPA on the first fused backend that takes the
+    heads (or its refusals), each wide time beside the narrow kernel's on
+    the same model (base level 3, XL); B1, B4 and B5 also at N = 192 and at
+    384 and 1152 on a small shape, causal and not; the wide ring entries at
+    W on a LocalRing of 2 against the plain ring and unsharded attention
+    with phase 25's controls, timed; then path 1, the base-width
+    UViT3DPose at 2 heads (heads of 512 at level 3, 256 at level 2), and
+    path 2, K600 @DiT/XL at 4 heads (heads of 288), both through
+    ``build_algorithm(load_config(argv))`` on seeded random weights: a
+    50-step window (path 1: the 8-frame window, vanilla HG at 4; path 2: 8
+    videos) and 2 train steps (batch 1; batch 8, checkpointed), each with
+    its launch counts required.
+
+Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22, 23, 24, 25 and 27 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
 normalisation; a LayerNorm backward without its row means), and step 2 holds
 a faulty plain version of B1-B10 against each one's bounds (B3, B7: the
@@ -334,9 +352,20 @@ KERNELS = (
     ("ring_fwd", "dfot_tpu_torch/csrc/flash_fwd.cu", "dfot_tpu/ops/ring_attention.py:49"),
     ("ring_dq", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:378"),
     ("ring_dkv", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:500"),
+    # the wide family (heads above 256 lanes): B1, B4, B5 with the output
+    # lanes sliced over the grid, and their ring entries
+    ("flash_fwd_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:114"),
+    ("flash_bwd_dq_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:378"),
+    ("flash_bwd_dkv_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:500"),
+    ("ring_fwd_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/ring_attention.py:49"),
+    ("ring_dq_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:378"),
+    ("ring_dkv_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:500"),
 )
 FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
+# B1, B4 and B5 to their wide family's entries (heads above 256 lanes)
+WIDE_OF = {"flash_fwd": "flash_fwd_wide", "flash_bwd_dq": "flash_bwd_dq_wide",
+           "flash_bwd_dkv": "flash_bwd_dkv_wide"}
 # the paths that are driven between a reset and a read of the launch counts
 PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "base_window",
          "base_train", "base_axial", "interp2", "rollout", "cli", "train_loop", "facmat_window",
@@ -348,7 +377,8 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "diff_interleaved_window", "diff_interleaved_train", "diff_facmat_window",
          "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
          "unet3d_cli", "k600_metrics", "k600_a15c", "ring_window", "ring_train", "ring_cli",
-         "tp_window", "tp_train", "tp_xl_train", "export", "ucf_train")
+         "tp_window", "tp_train", "tp_xl_train", "export", "ucf_train",
+         "wide_uvit_window", "wide_uvit_train", "wide_dit_window", "wide_dit_train", "wide_ring")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -819,7 +849,7 @@ def prep_controls(qkv, tabs, heads, head_dim, d_out, norm, eps: float = 1e-6) ->
     return out
 
 
-def check_kernels(record: dict) -> dict:
+def check_kernels(record: dict, wide: bool = False) -> dict:
     """Each kernel against its plain version at the shapes the paths give it:
     B1-B7 at the flagship's two attention sites (the train step's batch and
     the window's) and at K600 @DiT/XL's (heads of 72 padded to 128, the true
@@ -829,7 +859,8 @@ def check_kernels(record: dict) -> dict:
     its times. Every output tensor is held on its own (:func:`readings`); B1,
     B2, B4, B5, B8, B9 and B10 also by relative L2, and their bounds must
     reject a faulty plain version of each; the pad lanes of B1, B2, B4 and B5
-    must be zeros."""
+    must be zeros. With ``wide``, phase 27's sites instead (:func:`wide_sites`):
+    heads wider than 256 lanes."""
     import torch
     import torch.nn.functional as F
     from dfot_tpu_torch.models.embeddings import make_rope_3d
@@ -1214,6 +1245,10 @@ def check_kernels(record: dict) -> dict:
              bound(2 * ops, 6 * lane + stats, PEAK_BF16_FLOPS), sdpa_bwd,
              library_covers="dq, dk and dv", padded_bytes=nbytes(q, k, v, do, lse, delta, k, v),
              host_us=host_us(bwd_dkv), **extra_dkv)
+
+    if wide:
+        return wide_sites(record, results, attention_site, flash_forward_check, flash_dq_check,
+                          flash_dkv_check, rand)
 
     for B in BATCHES:
         for level, N, H, D in SITES:
@@ -1886,31 +1921,54 @@ def _kept(policy) -> tuple:
     return ("attn_out_collect", "small_n_attn") if policy in ("attn", "dots_attn") else ()
 
 
+def _is_wide(head_dim: int) -> bool:
+    """Heads whose padded width the wide family takes (above 256 lanes)."""
+    from dfot_tpu_torch.ops.attention import FLASH_WIDTHS, padded_head_dim
+
+    return padded_head_dim(head_dim) > FLASH_WIDTHS[-1]
+
+
+def _attention_launches(out: dict, blocks: dict, recomputed: dict, kept, forwards: int,
+                        train_steps: int) -> None:
+    """B1-B7's launches into ``out`` for ``blocks`` (and ``recomputed``
+    under checkpointing) transformer blocks, each split by whether its heads
+    are wide (True: B1, B4 and B5 count under their wide entries)."""
+    for name in ATTENTION_KERNELS:
+        fwd = name in FORWARD_KERNELS
+        for wide in (False, True):
+            key = WIDE_OF.get(name, name) if wide else name
+            again = 0 if name in kept else recomputed[wide]
+            out[key] += (forwards * blocks[wide] + train_steps * (blocks[wide] + again)
+                         if fwd else train_steps * blocks[wide])
+
+
 def expected_uvit_launches(fs, forwards: int = 0, train_steps: int = 0) -> dict:
     """Launches of ``forwards`` no-grad forwards and ``train_steps`` forward
-    + backward passes (or train steps) of a recipe's U-ViT: every
-    transformer block runs the three forward kernels once a pass, and once
-    more in the backward where its level is checkpointed (but for what the
-    recipe's remat policy keeps, :func:`_kept`); every block runs the four
-    backward kernels once a backward; an axial block also runs B10 (its
-    temporal attention) wherever it runs the forward kernels, and its
-    backward is the plain formulas."""
-    s = fs.spec
-    blocks = recomputed = axial = axial_recomputed = 0
+    + backward passes (or train steps) of a recipe's U-ViT (``fs``: a recipe
+    or its spec): every transformer block runs the three forward kernels
+    once a pass, and once more in the backward where its level is
+    checkpointed (but for what the recipe's remat policy keeps,
+    :func:`_kept`); every block runs the four backward kernels once a
+    backward; a level whose heads are wider than 256 lanes runs B1, B4 and B5
+    on their wide family; an axial block also runs B10 (its temporal
+    attention) wherever it runs the forward kernels, and its backward is the
+    plain formulas."""
+    s = getattr(fs, "spec", fs)
+    blocks, recomputed = {False: 0, True: 0}, {False: 0, True: 0}
+    axial = axial_recomputed = 0
     for i, kind in enumerate(s.block_types):
         if kind == "ResBlock":
             continue
         n = s.num_mid_blocks if i == len(s.channels) - 1 else 2 * s.num_updown_blocks[i]
         again = n if s.use_checkpointing[i] else 0
-        blocks, recomputed = blocks + n, recomputed + again
+        wide = _is_wide(s.channels[i] // s.num_heads)
+        blocks[wide] += n
+        recomputed[wide] += again
         if kind == "AxialTransformerBlock":
             axial, axial_recomputed = axial + n, axial_recomputed + again
     kept = _kept(s.remat_policy)
     out = no_launches()
-    for name in ATTENTION_KERNELS:
-        again = 0 if name in kept else recomputed
-        out[name] = (forwards * blocks + train_steps * (blocks + again)
-                     if name in FORWARD_KERNELS else train_steps * blocks)
+    _attention_launches(out, blocks, recomputed, kept, forwards, train_steps)
     again = 0 if "small_n_attn" in kept else axial_recomputed
     out["small_n_attn"] = forwards * axial + train_steps * (axial + again)
     return out
@@ -1928,11 +1986,11 @@ def expected_dit_launches(spec, forwards: int = 0, train_steps: int = 0) -> dict
     out = no_launches()
     out["ln_modulate"] = forwards * ln_fwd + train_steps * ln_train
     out["ln_modulate_bwd"] = train_steps * ln_fwd
-    for name in ATTENTION_KERNELS:
-        fwd = name in FORWARD_KERNELS
-        runs = 1 if name in _kept(spec.remat_policy) else again
-        out[name] = (forwards * spec.depth if fwd else 0) + train_steps * spec.depth * (
-            runs if fwd else 1)
+    # heads wider than 256 lanes run B1, B4 and B5 on their wide family
+    wide = _is_wide(spec.hidden_size // spec.num_heads)
+    blocks = {wide: spec.depth, not wide: 0}
+    recomputed = {wide: (again - 1) * spec.depth, not wide: 0}
+    _attention_launches(out, blocks, recomputed, _kept(spec.remat_policy), forwards, train_steps)
     return out
 
 
@@ -6640,6 +6698,378 @@ def run_slice20_paths(record: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: heads wider than 256 lanes
+# ---------------------------------------------------------------------------
+
+# the two wide sites: W, the base-width U-ViT's level 3 at 2 heads (N, H, d),
+# whose bound is the base level 3's (B, 4 heads of 256); X, K600 @DiT/XL at 4
+# heads (N, H, d, padded), whose bound is XL's (16 heads of 72)
+WIDE_W = (2048, 2, 512)
+WIDE_X = (1280, 4, 288, 320)
+# B1, B4 and B5 also at N = 192 (three 64-row blocks) and at 384 and 1152 on
+# one small shape, causal and not (no timing: on no path)
+WIDE_EDGE_SITES = ((192, 512, 512), (192, 288, 320), (512, 384, 384), (512, 1152, 1152))
+WIDE_RING_SIZE = 2
+WIDE_TRAIN_STEPS = 2
+# path 1: the base-width composition (the widths the CPU tests hold equal to
+# uvit3d_pose_base()) with 2 heads; path 2: K600 @DiT/XL's with 4; both built
+# by build_matrix_algorithm (the warm-ups cut to 2 so that two steps move the
+# weights)
+WIDE_UVIT_ARGV = README_RE10K + [
+    "++algorithm.backbone.channels=[128,256,512,1024]", "++algorithm.backbone.num_heads=2",
+    "++algorithm.backbone.num_updown_blocks=[3,3,3]", "++algorithm.backbone.num_mid_blocks=16",
+    "++algorithm.backbone.use_checkpointing=[false,false,false,false]",
+]
+WIDE_DIT_ARGV = ["+name=k600", "dataset=kinetics_600", "algorithm=dfot_video",
+                 "experiment=video_generation", "@DiT/XL",
+                 "++algorithm.backbone.num_heads=4"]
+
+
+def sdpa_backend(q, k, v, scale: float, do=None) -> dict:
+    """PyTorch's fused attention on unpadded heads, on the first of its fused
+    backends (flash, memory-efficient, cuDNN) that takes them: the backend,
+    its forward ms and, with ``do``, its backward's (dq, dk and dv); each
+    backend's refusal where it refused. A yardstick only: the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    refused = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+                fwd()
+                torch.cuda.synchronize()
+                out = {"backend": backend.name, "ms": cuda_ms(fwd), "bwd_ms": None,
+                       "refused": refused}
+                if do is not None:
+                    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                    o = F.scaled_dot_product_attention(*leaves, scale=scale)
+                    out["bwd_ms"] = cuda_ms(
+                        lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+                return out
+        except RuntimeError as e:
+            refused[backend.name] = str(e).splitlines()[0][:200]
+    return {"backend": None, "ms": None, "bwd_ms": None, "refused": refused}
+
+
+def wide_sites(record: dict, results: dict, attention_site, flash_forward_check, flash_dq_check,
+               flash_dkv_check, rand) -> dict:
+    """Phase 27's kernel checks, :func:`check_kernels` with ``wide`` (its
+    checkers passed in): B2, B1 and B3 at W at the window's batch (B = 2) and
+    at X (B = 8), B7, B4, B5 and B6 at W at the train step's (B = 1) and at X,
+    with every check, control, timing and bound of the narrow sites; SDPA on
+    the unpadded heads on the first fused backend that takes them
+    (:func:`sdpa_backend`); B1, B4 and B5 also at :data:`WIDE_EDGE_SITES`,
+    causal and not. The records of B1, B4 and B5 go under their wide
+    entries; B2, B3, B6 and B7 keep their names, as other sites."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    N, H, D = WIDE_W
+    w_fwd = f"wide W B={WINDOW_BATCH} N={N} H={H} d={D}"
+    w_bwd = f"wide W B={TRAIN_BATCH} N={N} H={H} d={D}"
+    # 16 x 16 tokens a frame: 8 frames at W, 5 at X
+    attention_site(w_fwd, WINDOW_BATCH, N, H, D, D, (N // 256, 16, 16), True, 7, (True, False),
+                   backward=False)
+    attention_site(w_bwd, TRAIN_BATCH, N, H, D, D, (N // 256, 16, 16), True, 7, (False, True))
+    N, H, D, DP = WIDE_X
+    x_site = f"wide X B={XL_BATCH} N={N} H={H} d={D}->{DP}"
+    attention_site(x_site, XL_BATCH, N, H, D, DP, (N // 256, 16, 16), False, 3, (True, True),
+                   in_path=True)
+    for N, D, DP in WIDE_EDGE_SITES:
+        for causal in (False, True):
+            site = f"wide edge B=1 H=2 N={N} d={D}->{DP} causal={causal}"
+            q, k, v, o, lse, err, tol, extra = flash_forward_check(site, 1, 2, N, D, DP, causal)
+            results["flash_fwd"]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
+            do = F.pad(rand(1, 2, N, D), (0, DP - D))
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            for name, check in (("flash_bwd_dq", flash_dq_check),
+                                ("flash_bwd_dkv", flash_dkv_check)):
+                err, tol, extra = check(site, q, k, v, do, lse, delta, D, causal)
+                results[name]["edge_sites"][site] = {"max_abs_err": err, "tol": tol, **extra}
+            log(f"  wide flash_fwd, flash_bwd_dq, flash_bwd_dkv {site}: within bounds, controls "
+                f"rejected")
+    # the yardstick on the fused backend that takes these heads, if any
+    for site, (B, N, H, D), backward in ((w_fwd, (WINDOW_BATCH, *WIDE_W), False),
+                                         (w_bwd, (TRAIN_BATCH, *WIDE_W), True),
+                                         (x_site, (XL_BATCH, *WIDE_X[:3]), True)):
+        q, k, v, do = (rand(B, H, N, D, scale=s) for s in (1.7, 1.7, 1.0, 1.0))
+        lib = sdpa_backend(q, k, v, 1.0 / math.sqrt(D), do if backward else None)
+        log(f"  SDPA at {site}: backend {lib['backend']}, forward {lib['ms']} ms, backward "
+            f"{lib['bwd_ms']} ms; refused by {lib['refused']}")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            r = results[name]["by_site"].get(site)
+            if r is not None:
+                r["library_ms"] = lib["ms"] if name == "flash_fwd" else lib["bwd_ms"]
+                r.update(library_backend=lib["backend"], library_refused=lib["refused"])
+        del q, k, v, do
+    for name, wide in WIDE_OF.items():
+        results[wide] = {"by_site": results[name]["by_site"],
+                         "edge_sites": results[name]["edge_sites"]}
+        results[name] = {"by_site": {}, "edge_sites": {}}
+    for name in ("qkv_prep", "attn_out_collect", "qkv_prep_bwd", "attn_out_scatter"):
+        for r in results[name]["by_site"].values():
+            r["main"] = False
+    record["wide_kernel_checks"] = results
+    _hold_operands.cache_clear()
+    _flush_buffer.cache_clear()
+    return results
+
+
+def check_wide_ring(record: dict, results: dict) -> dict:
+    """The wide family's ring entries at W at the window's batch on a
+    LocalRing of :data:`WIDE_RING_SIZE`: forward and backward through
+    ``sequence_parallel_attention`` between a reset and a read of the launch
+    counts (R of each wide ring entry, no other kernel: the ``wide_ring``
+    path), against the plain ring and against unsharded wide B1 + B4 + B5
+    (:data:`RING_REL_TOL`), the two controls of phase 25 rejected; the
+    ring's forward and its backward's dq and dkv chains timed warm and cold
+    beside their plain versions, their bounds and SDPA on the full N."""
+    import math
+
+    import torch
+    from dfot_tpu_torch import ops
+    from dfot_tpu_torch.ops import attention as A
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    N, H, D = WIDE_W
+    B, R = WINDOW_BATCH, WIDE_RING_SIZE
+    site = f"wide W R={R} B={B} H={H} N={N} d={D}"
+    q, k, v, do = ring_inputs(B, H, N, D, seed=270)
+    ring, scale = RA.LocalRing(R), 1.0 / math.sqrt(D)
+    ops.reset_launch_counts()
+    got = ring_grads(lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring), q, k, v, do)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    require_launches(f"one ring call at {site}", launches,
+                     dict(no_launches(), ring_fwd_wide=R, ring_dq_wide=R, ring_dkv_wide=R))
+    plain = ring_grads(lambda a, b, c: RA.sequence_parallel_attention(a, b, c, ring, plain=True),
+                       q, k, v, do)
+    unsharded = ring_grads(lambda a, b, c: A.flash_attention(a, b, c), q, k, v, do)
+    labels = ("o", "dq", "dk", "dv")
+    vs_plain = {lb: rel_l2(g, w) for lb, g, w in zip(labels, got, plain)}
+    vs_unsharded = {lb: rel_l2(g, w) for lb, g, w in zip(labels, got, unsharded)}
+    controls = {"skip_one_hop": rel_l2(ring_skipping_one_hop(q, k, v, ring), plain[0]),
+                "fold_without_rescale": rel_l2(ring_fold_without_rescale(q, k, v, ring),
+                                               plain[0])}
+    require(max(vs_plain.values()) <= RING_REL_TOL,
+            f"wide ring at {site}: off its plain version by {vs_plain}")
+    require(max(vs_unsharded.values()) <= RING_REL_TOL,
+            f"wide ring at {site}: off unsharded B1 + B4 + B5 by {vs_unsharded}")
+    for what, err in controls.items():
+        require(err > RING_REL_TOL,
+                f"wide ring at {site}: the bound does not reject the control {what} ({err:.3e})")
+    qs, ks, vs, dos = (ring.shard(t) for t in (q, k, v, do))
+    o_s = lse_s = None
+    for hop in range(R):
+        o_s, lse_s = RA.ring_fwd_hop(qs, ks, vs, o_s, lse_s, ring.kv_shift(hop, qs), hop == R - 1,
+                                     scale)
+    delta = (dos.float() * o_s.float()).sum(-1, keepdim=True)
+    fwd = lambda: RA.sequence_parallel_attention(q, k, v, ring)  # noqa: E731
+    chain = {w: (lambda w=w: ring_bwd_chain(w, ring, qs, ks, vs, dos, lse_s, delta))
+             for w in ("dq", "dkv")}
+    t = {"ms": cuda_ms(fwd), "cold_ms": cold_ms(fwd),
+         **{f"{w}_ms": cuda_ms(fn) for w, fn in chain.items()},
+         **{f"{w}_cold_ms": cold_ms(fn) for w, fn in chain.items()}}
+    plain_ms = cuda_ms(lambda: RA.sequence_parallel_attention(q, k, v, ring, plain=True), reps=3,
+                       warmup=1)
+    plain_chain = {w: cuda_ms(lambda w=w: ring_bwd_chain(w, ring, qs, ks, vs, dos, lse_s, delta,
+                                                         plain=True), reps=3, warmup=1)
+                   for w in ("dq", "dkv")}
+    lib = sdpa_backend(q, k, v, scale, do)
+    ops_full = attention_ops(B, H, N, D)
+    fwd_bound = bound(ops_full, nbytes(q, k, v, q), PEAK_BF16_FLOPS)
+    stats = 2 * B * H * N * 4  # the final LSE and delta
+    rec = {"site": site, "vs_plain": vs_plain, "vs_unsharded": vs_unsharded,
+           "controls": controls, "launches": launches, **t, "plain_ms": plain_ms,
+           "plain_chain_ms": plain_chain, "sdpa": lib, "bound": fwd_bound}
+    results.setdefault("ring_fwd_wide", {"by_site": {}})["by_site"][site] = {
+        "main": True, "max_abs_err": max_err(got[0], plain[0]), "ms": t["ms"],
+        "cold_ms": t["cold_ms"], "plain_ms": plain_ms, "bound_ms": fwd_bound["bound_ms"],
+        "bound_by": fwd_bound["bound_by"], "library_ms": lib["ms"],
+        "library_backend": lib["backend"]}
+    for w, idx, share, outs in (("dq", (1,), 3, (q,)), ("dkv", (2, 3), 4, (k, v))):
+        b = bound(share * ops_full // 2, nbytes(q, k, v, do, *outs) + stats, PEAK_BF16_FLOPS)
+        rec[f"{w}_bound"] = b
+        results.setdefault(f"ring_{w}_wide", {"by_site": {}})["by_site"][site] = {
+            "main": True, "max_abs_err": max(max_err(got[j], plain[j]) for j in idx),
+            "ms": t[f"{w}_ms"], "cold_ms": t[f"{w}_cold_ms"], "plain_ms": plain_chain[w],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": lib["bwd_ms"],
+            "library_backend": lib["backend"]}
+    record.setdefault("wide", {})["ring"] = rec
+    log(f"  wide ring {site}: vs plain {max(vs_plain.values()):.3e}, vs unsharded "
+        f"{max(vs_unsharded.values()):.3e}, controls "
+        + ", ".join(f"{c} {e:.3e}" for c, e in controls.items()))
+    log(f"    forward {t['ms']:.4f} ms (cold {t['cold_ms']:.4f}), dq chain {t['dq_ms']:.4f} "
+        f"(cold {t['dq_cold_ms']:.4f}), dkv chain {t['dkv_ms']:.4f} (cold {t['dkv_cold_ms']:.4f}); "
+        f"plain {plain_ms:.3f}, chains {plain_chain}; bound forward "
+        f"{fwd_bound['bound_ms']:.4f} ms; SDPA ({lib['backend']}) {lib['ms']} / {lib['bwd_ms']} "
+        f"ms, refused by {lib['refused']}")
+    del got, plain, unsharded, q, k, v, do, qs, ks, vs, dos, o_s, lse_s, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_wide_uvit_path(record: dict) -> dict:
+    """Path 1: UViT3DPose at the base widths with 2 heads (level 3: heads of
+    512 over 2048 tokens on the wide family; level 2: heads of 256 on the
+    narrow kernels) through ``build_algorithm(load_config(argv))`` on seeded
+    random weights: the 8-frame window (50 DDIM steps, vanilla HG at 4: the
+    denoiser at batch 2) and 2 train steps at batch 1, each with its launch
+    counts required."""
+    import numpy as np
+    import torch
+    from dfot_tpu_torch import ops
+
+    algo, cfg = build_matrix_algorithm(WIDE_UVIT_ARGV, seed=271)
+    s, model = algo.model.spec, algo.model
+    T, (R, _, C) = algo.max_tokens, algo.x_shape
+    heads = {f"level {i}": c // s.num_heads for i, c in enumerate(s.channels)
+             if s.block_types[i] != "ResBlock"}
+    n_params = sum(p.numel() for p in model.parameters())
+    record["wide"]["uvit_model"] = {"parameters": n_params, "channels": list(s.channels),
+                                    "num_heads": s.num_heads, "head_dims": heads}
+    log(f"path 1, base-width UViT3DPose at {s.num_heads} heads: {n_params / 1e6:.1f}M parameters, "
+        f"heads {heads}")
+    require(heads["level 3"] == 512 and heads["level 2"] == 256,
+            f"path 1's heads are {heads}, not 256 and 512")
+    ctx = torch.zeros(1, T, R, R, C, device="cuda")
+    mask = np.zeros((1, T), dtype=np.int64)
+    mask[:, 0] = 1
+    algo.rollout.stats = {"denoiser_evals_b1": 0, "windows": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = algo.rollout.sample_sequence(
+        torch.Generator(device="cuda").manual_seed(272), 1, length=T, context=ctx,
+        context_mask=mask, conditions=identity_poses(1, T, "cuda"),
+        history_guidance=algo.prediction_hg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    evals = algo.rollout.stats["denoiser_evals_b1"] // WINDOW_BATCH
+    record["wide"]["uvit_window"] = {
+        "wall_s": wall, "frames_per_s": (T - 1) / wall, "denoiser_evals": evals,
+        "launches": launches, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log(f"path 1 window: {wall:.3f} s wall, {(T - 1) / wall:.4f} generated frames/s, peak memory "
+        f"{record['wide']['uvit_window']['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    require(tuple(video.shape) == (1, T, R, R, C), f"path 1 window shape {tuple(video.shape)}")
+    require(bool(torch.isfinite(video).all()), "path 1 window: non-finite output")
+    require(evals == algo.dcfg.sampling_timesteps, f"path 1 window took {evals} evaluations")
+    require_launches("path 1's window", launches, expected_uvit_launches(s, forwards=evals))
+    del video
+    gen = torch.Generator(device="cuda").manual_seed(273)
+    batch = {"xs": torch.rand(1, T, R, R, C, generator=gen, device="cuda") * 2 - 1,
+             "conditions": identity_poses(1, T, "cuda"),
+             "masks": torch.ones(1, T, dtype=torch.bool, device="cuda")}
+    e = cfg.experiment
+    state = algo.make_train_state(grad_clip=e.training.optim.get("gradient_clip_val", 1.0) or 0.0)
+    step = algo.make_train_step(ema_decay=e.ema.get("decay", 0.9999))
+    trained = drive_train_steps(
+        record["wide"], "uvit_train", "path 1 train step", model, state, step, batch,
+        BASE_GRAD_PROBES, expected_uvit_launches(s, train_steps=WIDE_TRAIN_STEPS),
+        cfg.algorithm.lr_scheduler.num_warmup_steps, state.optimizer.grad_clip, WIDE_TRAIN_STEPS)
+    return {"wide_uvit_window": launches, "wide_uvit_train": trained["launches"]}
+
+
+def run_wide_dit_path(record: dict) -> dict:
+    """Path 2: K600 @DiT/XL with 4 heads (hidden 1152, depth 28: heads of 288
+    padded to 320 over 1280 tokens on the wide family) through
+    ``build_algorithm(load_config(argv))`` on seeded random weights: a window
+    of 8 videos (2 of 5 latent frames given) and 2 train steps at batch 8
+    with the recipe's gradient checkpointing, each with its launch counts
+    required."""
+    import numpy as np
+    import torch
+
+    algo, cfg = build_matrix_algorithm(WIDE_DIT_ARGV, seed=274)
+    s = algo.model.spec
+    n_params = sum(p.numel() for p in algo.model.parameters())
+    record["wide"]["dit_model"] = {"parameters": n_params, "hidden_size": s.hidden_size,
+                                   "depth": s.depth, "num_heads": s.num_heads,
+                                   "checkpointing": s.use_gradient_checkpointing}
+    log(f"path 2, K600 @DiT/XL at {s.num_heads} heads: {n_params / 1e6:.1f}M parameters, hidden "
+        f"{s.hidden_size}, depth {s.depth}, heads of {s.hidden_size // s.num_heads}")
+    require(s.hidden_size // s.num_heads == 288 and s.depth == 28,
+            f"path 2 is not XL at heads of 288: {s}")
+
+    def window(algo, B, seed):
+        T = algo.max_tokens
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        ctx = torch.randn(B, T, *algo.x_shape, generator=gen, device="cuda")
+        mask = np.zeros((B, T), dtype=np.int64)
+        mask[:, : algo.n_context_tokens] = 1
+        algo.rollout.stats = {"denoiser_evals_b1": 0, "windows": 0}
+        return algo.rollout.sample_sequence(gen, B, length=T, context=ctx, context_mask=mask,
+                                            history_guidance=algo.prediction_hg)
+
+    launches = matrix_window(record["wide"], "dit_window", "path 2", algo, XL_BATCH, 275,
+                             expected=expected_dit_launches, run=window)
+    train = matrix_train(record["wide"], "dit_train", "path 2 train step", algo, cfg, 276,
+                         WIDE_TRAIN_STEPS, expected=expected_dit_launches,
+                         probes=dit_grad_probes(s.depth, False), B=XL_BATCH)
+    return {"wide_dit_window": launches, "wide_dit_train": train["launches"]}
+
+
+def run_wide_paths(record: dict, results: dict) -> dict:
+    """Phase 27: heads wider than 256 lanes. The wide sites' kernel checks
+    (:func:`wide_sites`), merged into ``results`` for the kernels line and
+    set beside the narrow sites of the same models where this run checked
+    them (W against base level 3, X against XL); the wide ring entries
+    (:func:`check_wide_ring`); path 1 (:func:`run_wide_uvit_path`) and path
+    2 (:func:`run_wide_dit_path`)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log("heads wider than 256 lanes (phase 27): kernels vs plain versions at W (base level 3 at "
+        "2 heads) and X (K600 @DiT/XL at 4 heads), bf16:")
+    record["wide"] = {}
+    wide = check_kernels(record, wide=True)
+    for name, _, _ in KERNELS:
+        mine = results.setdefault(name, {"by_site": {}})
+        mine["by_site"].update(wide[name]["by_site"])
+        if wide[name].get("edge_sites"):
+            mine.setdefault("edge_sites", {}).update(wide[name]["edge_sites"])
+    # the narrow kernels' sites of the same models (check_kernels)
+    narrow = {"W": "base level3 B={B} N=2048 H=4 d=256",
+              "X": f"xl B={XL_BATCH} N=1280 H=16 d=72->128"}
+    pairs = record["wide"]["vs_narrow"] = {}
+    for name, wide_name in WIDE_OF.items():
+        for site, r in wide[wide_name]["by_site"].items():
+            if not r["main"]:
+                continue
+            key = "W" if site.startswith("wide W") else "X"
+            other = results.get(name, {}).get("by_site", {}).get(
+                narrow[key].format(B=site.split("B=")[1].split()[0]))
+            if other is not None:
+                pairs[f"{wide_name} {key}"] = {"wide_ms": r["ms"], "narrow_ms": other["ms"],
+                                               "ratio": r["ms"] / other["ms"]}
+                log(f"  {wide_name} at {key}: {r['ms']:.4f} ms against the narrow kernel's "
+                    f"{other['ms']:.4f} on the same model ({r['ms'] / other['ms']:.2f} x)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"wide_ring": check_wide_ring(record, results)}
+    out.update(run_wide_uvit_path(record))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(run_wide_dit_path(record))
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["phase27_s"] = time.perf_counter() - t_phase
+    log(f"  phase 27: {record['phase27_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     # the allocator grows segments in place instead of caching fixed blocks:
     # the flagship's dots step at batch 8 (74.5 GiB predicted) fits only
@@ -6795,6 +7225,12 @@ def main() -> int:
         # tensor parallelism, the serving export, UCF-101, attention capture
         by_path.update(run_slice20_paths(record))
         lap("phase 26")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # heads wider than 256 lanes: the wide family, B2 and B6 past 256
+        by_path.update(run_wide_paths(record, results))
+        lap("phase 27")
         for name, _, _ in KERNELS:
             require(any(by_path[path].get(name, 0) for path in PATHS),
                     f"kernel {name} was launched on no path")

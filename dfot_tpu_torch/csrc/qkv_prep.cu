@@ -30,6 +30,11 @@
 // A head dim or padded width that is no multiple of 8, or rows off a 16-byte
 // boundary (no model of the repository has one), takes the same kernel with
 // 4-byte chunks read straight from device memory (V = 2).
+// Head dims above 256 (up to kMaxHeadDim) take a wide instantiation: a warp
+// owns a row and each lane holds up to 5 chunks (the norm's sum of squares
+// still a shuffle reduction over the whole row), and a block's tile is 16
+// tokens with 3 head slots, so the tables and the ring stay within a block's
+// shared memory (160 d bytes).
 
 #include "hopper.cuh"
 
@@ -41,6 +46,9 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kTokens = 32;   // tokens of a block's tile
 constexpr int kStages = 4;    // head slots of the ring
+constexpr int kWideTokens = 16;  // the same above a head dim of 256
+constexpr int kWideStages = 3;
+constexpr int kMaxHeadDim = 1280;  // 5 16-byte (or 20 4-byte) chunks a lane of a warp
 
 // V bf16 lanes a lane moves at once: 8 (16 bytes) or 2 (4 bytes)
 template <int V>
@@ -72,14 +80,13 @@ __device__ __forceinline__ void pack_store(bf16* p, const float (&y)[V]) {
 }
 
 // One (token, head) row by a group of G lanes: chunk lane_g + i G of the
-// row's d / V chunks for each i; every lane of the warp calls it (the norm's
-// shuffles span the warp), ``valid`` false for a row past the tile.
-template <int V>
+// row's d / V chunks for each i < KMAX; every lane of the warp calls it (the
+// norm's shuffles span the warp), ``valid`` false for a row past the tile.
+template <int V, int KMAX>
 __device__ __forceinline__ void prep_row(const bf16* x, const bf16* cs, const bf16* sn,
                                          bf16* out, bool valid, int lane_g, int G, int d,
                                          int dp, bool norm, bool rotate, float eps) {
-  // d <= 256: with 16-byte chunks one per lane (G >= d / 8), else up to 4
-  constexpr int kMax = V == 8 ? 1 : 4;
+  constexpr int kMax = KMAX;
   const int nc = d / V;
   float xv[kMax][V];
   float ss = 0.f;
@@ -129,14 +136,16 @@ __device__ __forceinline__ void prep_row(const bf16* x, const bf16* cs, const bf
     if (c >= nc) pack_store<V>(out + c * V, zero);
 }
 
-// grid: (token tiles, 3 streams, batch)
-template <int V>
+// grid: (token tiles of TOKENS, 3 streams, batch); KMAX chunks a lane, a
+// ring of STAGES head slots
+template <int V, int KMAX, int TOKENS, int STAGES>
 __global__ void __launch_bounds__(kThreads)
     qkv_prep_kernel(const bf16* __restrict__ qkv, long long stride_b, long long stride_n,
                     const bf16* __restrict__ cq, const bf16* __restrict__ sq,
                     const bf16* __restrict__ ck, const bf16* __restrict__ sk,
                     bf16* __restrict__ qo, bf16* __restrict__ ko, bf16* __restrict__ vo, int n,
                     int heads, int d, int dp, int norm, float eps) {
+  constexpr int kTokens = TOKENS, kStages = STAGES;
   const int t0 = blockIdx.x * kTokens;
   const int s = blockIdx.y;  // 0 q, 1 k, 2 v
   const int b = blockIdx.z;
@@ -199,8 +208,8 @@ __global__ void __launch_bounds__(kThreads)
         const int r = r0 + threadIdx.x / G;
         const bool valid = r < rows;
         const int rr = valid ? r : 0;
-        prep_row<8>(slot + rr * d, tabs + rr * d, tabs + (kTokens + rr) * d, out_h + rr * dp,
-                    valid, lane_g, G, d, dp, normed, rotate, eps);
+        prep_row<8, KMAX>(slot + rr * d, tabs + rr * d, tabs + (kTokens + rr) * d,
+                          out_h + rr * dp, valid, lane_g, G, d, dp, normed, rotate, eps);
       }
       __syncthreads();  // every thread is done with the slot
       if (warp == 0 && h + kStages < heads) issue(h + kStages);
@@ -212,8 +221,8 @@ __global__ void __launch_bounds__(kThreads)
         const int r = r0 + threadIdx.x / G;
         const bool valid = r < rows;
         const int rr = valid ? r : 0;
-        prep_row<2>(src + rr * stride_n + h * d, cos_g + rr * d, sin_g + rr * d,
-                    out_h + rr * dp, valid, lane_g, G, d, dp, normed, rotate, eps);
+        prep_row<2, KMAX>(src + rr * stride_n + h * d, cos_g + rr * d, sin_g + rr * d,
+                          out_h + rr * dp, valid, lane_g, G, d, dp, normed, rotate, eps);
       }
     }
   }
@@ -221,21 +230,40 @@ __global__ void __launch_bounds__(kThreads)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <int V, int KMAX, int TOKENS, int STAGES>
+cudaError_t launch(const bf16* x, long long stride_b, long long stride_n, const bf16* c_q,
+                   const bf16* s_q, const bf16* c_k, const bf16* s_k, bf16* q, bf16* k, bf16* v,
+                   int batch, int n, int heads, int d, int dp, int norm, float eps,
+                   cudaStream_t s) {
+  auto kernel = qkv_prep_kernel<V, KMAX, TOKENS, STAGES>;
+  const dim3 grid((n + TOKENS - 1) / TOKENS, 3, batch);
+  // the bulk-copy route's tables and ring; the 4-byte route reads device
+  // memory directly
+  const int smem = V == 8 ? (2 + STAGES) * TOKENS * d * 2 + 8 * (STAGES + 1) : 0;
+  if (smem > 0) {
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return attr;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(x, stride_b, stride_n, c_q, s_q, c_k, s_k, q, k, v, n,
+                                      heads, d, dp, norm, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // qkv: (B, N, 3*H*D) bf16 with unit stride in the last dim (batch and token
 // strides given in elements, even); tables (N, D) bf16 contiguous; outputs
 // (B, H, N, DP) bf16 contiguous; every pointer 4-byte aligned. D even and
-// <= 256, DP even and >= D. Returns a cudaError_t code.
+// <= kMaxHeadDim (1280), DP even and >= D. Returns a cudaError_t code.
 extern "C" int dfot_qkv_prep(const void* qkv, long long stride_b, long long stride_n,
                              const void* cq, const void* sq, const void* ck, const void* sk,
                              void* qo, void* ko, void* vo, int batch, int n, int heads, int d,
                              int dp, int norm, float eps, void* stream) {
-  if (d <= 0 || d % 2 != 0 || d > 256 || dp < d || dp % 2 != 0 || heads <= 0)
+  if (d <= 0 || d % 2 != 0 || d > kMaxHeadDim || dp < d || dp % 2 != 0 || heads <= 0)
     return cudaErrorInvalidValue;
   if (stride_b % 2 != 0 || stride_n % 2 != 0) return cudaErrorInvalidValue;
   if (batch <= 0 || batch > 65535 || n <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((n + kTokens - 1) / kTokens, 3, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = d % 8 == 0 && dp % 8 == 0 && (batch == 1 || stride_b % 8 == 0) &&
                    stride_n % 8 == 0 && aligned16(qkv) && aligned16(cq) && aligned16(sq) &&
@@ -245,16 +273,18 @@ extern "C" int dfot_qkv_prep(const void* qkv, long long stride_b, long long stri
              *s_q = static_cast<const bf16*>(sq), *c_k = static_cast<const bf16*>(ck),
              *s_k = static_cast<const bf16*>(sk);
   bf16 *q = static_cast<bf16*>(qo), *k = static_cast<bf16*>(ko), *v = static_cast<bf16*>(vo);
-  if (vec) {
-    const int smem = (2 + kStages) * kTokens * d * 2 + 8 * (kStages + 1);
-    const cudaError_t attr = cudaFuncSetAttribute(
-        qkv_prep_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return attr;
-    qkv_prep_kernel<8><<<grid, kThreads, smem, s>>>(x, stride_b, stride_n, c_q, s_q, c_k, s_k, q,
-                                                   k, v, n, heads, d, dp, norm, eps);
-  } else {
-    qkv_prep_kernel<2><<<grid, kThreads, 0, s>>>(x, stride_b, stride_n, c_q, s_q, c_k, s_k, q, k,
-                                                v, n, heads, d, dp, norm, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  // d <= 256: with 16-byte chunks one per lane (G >= d / 8), else up to 4;
+  // above, a warp a row with up to 5 (or 20) chunks a lane
+  const bool wide = d > 256;
+  if (vec && !wide)
+    return launch<8, 1, kTokens, kStages>(x, stride_b, stride_n, c_q, s_q, c_k, s_k, q, k, v,
+                                          batch, n, heads, d, dp, norm, eps, s);
+  if (vec)
+    return launch<8, 5, kWideTokens, kWideStages>(x, stride_b, stride_n, c_q, s_q, c_k, s_k, q, k,
+                                                  v, batch, n, heads, d, dp, norm, eps, s);
+  if (!wide)
+    return launch<2, 4, kTokens, kStages>(x, stride_b, stride_n, c_q, s_q, c_k, s_k, q, k, v,
+                                          batch, n, heads, d, dp, norm, eps, s);
+  return launch<2, 20, kTokens, kStages>(x, stride_b, stride_n, c_q, s_q, c_k, s_k, q, k, v,
+                                         batch, n, heads, d, dp, norm, eps, s);
 }

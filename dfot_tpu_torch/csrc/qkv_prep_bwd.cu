@@ -48,6 +48,13 @@
 // A head dim or padded width that is no multiple of 8, or rows off a 16-byte
 // boundary, takes the same kernel with 4-byte chunks (V = 2, up to 4 chunks
 // a lane).
+// Head dims above 256 (up to kMaxHeadDim) take wide instantiations: a warp
+// owns a row (lanes = 32) and each lane holds KMAX chunks (2, 3 or 5 of 16
+// bytes by d, or 20 of 4), the row's two means still shuffle reductions over
+// the whole row; the registers that takes leave one block an SM, so the tile
+// is chosen for one, and a lane's ring has 3 stages of KMAX chunks. The
+// groups' partials (8 x 2 d fp32: 64 d bytes) still fit the rings' shared
+// memory (at least 96 d bytes), and are summed in the same fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,9 +68,15 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kStages = 6;       // a lane's ring: the chunks of 5 items in flight
-constexpr int kStageBytes = 2 * 16 * kThreads;  // a stage: every lane's x and dy chunks
 constexpr int kSmCount = 132;    // H100 SXM
 constexpr int kBlocksPerSm = 3;  // blocks an SM holds (registers and shared memory)
+constexpr int kWideStages = 3;   // the same above a head dim of 256
+constexpr int kWideBlocksPerSm = 1;
+constexpr int kMaxHeadDim = 1280;
+
+// a stage of a lane's ring: every lane's KMAX x and dy chunks of V bf16 lanes
+template <int V, int KMAX>
+__host__ __device__ constexpr int stage_bytes() { return 2 * KMAX * kThreads * 2 * V; }
 
 template <int V>
 struct Chunk;
@@ -115,24 +128,29 @@ __device__ __forceinline__ void cp_async_commit() {
 // The caller's plan, computed again here (dfot_tpu_torch/ops/qkv_prep.py:
 // prep_bwd_plan).
 struct Plan {
-  int lanes, tile, groups, smem, tiles;
+  int lanes, tile, groups, smem, tiles, chunks, stages;
 };
 
 Plan make_plan(int n, int d, int chunk) {
   Plan p;
+  const bool wide = d > 256;
   p.lanes = 1;
   while (p.lanes * chunk < d && p.lanes < 32) p.lanes *= 2;
   p.tile = 1;
+  const int per_sm = wide ? kWideBlocksPerSm : kBlocksPerSm;
   for (int t : {32, 16, 8, 4, 2})
-    if (t * p.lanes <= kThreads && 2 * ((n + t - 1) / t) >= kBlocksPerSm * kSmCount) {
+    if (t * p.lanes <= kThreads && 2 * ((n + t - 1) / t) >= per_sm * kSmCount) {
       p.tile = t;
       break;
     }
   p.groups = kThreads / (p.tile * p.lanes);
   p.tiles = (n + p.tile - 1) / p.tile;
-  // the lanes' rings, where the groups' partials (2 x 256 / lanes x d fp32,
-  // at most 16 KB) meet at the end
-  p.smem = kStages * kStageBytes;
+  // chunks a lane holds: one 16-byte chunk or four 4-byte ones up to d = 256
+  p.chunks = !wide ? (chunk == 8 ? 1 : 4) : chunk == 2 ? 20 : d <= 512 ? 2 : d <= 768 ? 3 : 5;
+  p.stages = wide ? kWideStages : kStages;
+  // the lanes' rings, where the groups' partials (2 x 256 / lanes x d fp32:
+  // at most 16 KB up to d = 256, 64 d bytes above) meet at the end
+  p.smem = p.stages * 2 * p.chunks * kThreads * 2 * chunk;
   return p;
 }
 
@@ -179,11 +197,14 @@ __device__ __forceinline__ void copy_v(const Args& a, int s, int t0, int rows) {
   }
 }
 
-// grid: 2 x tiles (tile, stream) blocks
-template <int V>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) qkv_prep_bwd_kernel(const Args a) {
+// grid: 2 x tiles (tile, stream) blocks; KMAX chunks a lane, a lane's ring
+// of STAGES stages, BLOCKS blocks an SM
+template <int V, int KMAX, int STAGES, int BLOCKS>
+__global__ void __launch_bounds__(kThreads, BLOCKS) qkv_prep_bwd_kernel(const Args a) {
   using C = typename Chunk<V>::T;
-  constexpr int kMax = V == 8 ? 1 : 4;  // chunks a lane holds (d <= 256)
+  constexpr int kMax = KMAX;  // chunks a lane holds
+  constexpr int kStages = STAGES;
+  constexpr int kStageBytes = stage_bytes<V, KMAX>();
   const int s = blockIdx.x % 2;         // stream: q, k
   const int t0 = (blockIdx.x / 2) * a.tile;
   const int rows = min(a.tile, a.n - t0);
@@ -345,13 +366,25 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) qkv_prep_bwd_kernel(co
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <int V, int KMAX, int STAGES, int BLOCKS>
+cudaError_t launch(const Args& a, long long blocks, int smem, cudaStream_t s) {
+  auto kernel = qkv_prep_bwd_kernel<V, KMAX, STAGES, BLOCKS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return attr;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // qkv: (B, N, 3*H*D) bf16, unit stride in the last dim (batch and token
 // strides in elements, even), as the forward read it; tables (N, D) bf16; dq,
 // dk, dv: (B, H, N, DP) bf16 contiguous; dqkv: (B, N, 3*H*D) bf16 with its
 // own batch and token strides; dcq, dsq, dck, dsk: (N, D) fp32 contiguous.
-// D even and <= 256, DP even and >= D. ``chunk`` (8: 16-byte chunks, where
+// D even and <= kMaxHeadDim (1280), DP even and >= D. ``chunk`` (8: 16-byte chunks, where
 // D, DP, the strides and the pointers allow them; else 2),
 // ``tile``, ``groups``, ``stages``, ``smem`` and ``grid``: the caller's plan
 // (dfot_tpu_torch/ops/qkv_prep.py:prep_bwd_plan), refused unless it is the
@@ -364,7 +397,8 @@ extern "C" int dfot_qkv_prep_bwd(const void* qkv, long long stride_b, long long 
                                  int d, int dp, int norm, float eps, int chunk, int tile,
                                  int groups, int stages, int smem, long long grid,
                                  void* stream) {
-  if (d <= 0 || d % 2 != 0 || d > 256 || dp < d || dp % 2 != 0) return cudaErrorInvalidValue;
+  if (d <= 0 || d % 2 != 0 || d > kMaxHeadDim || dp < d || dp % 2 != 0)
+    return cudaErrorInvalidValue;
   if (stride_b % 2 != 0 || stride_n % 2 != 0 || out_stride_b % 2 != 0 || out_stride_n % 2 != 0)
     return cudaErrorInvalidValue;
   if (batch <= 0 || heads <= 0 || n <= 0) return cudaErrorInvalidValue;
@@ -376,7 +410,7 @@ extern "C" int dfot_qkv_prep_bwd(const void* qkv, long long stride_b, long long 
   if (chunk != (vec ? 8 : 2)) return cudaErrorInvalidValue;
   const Plan p = make_plan(n, d, chunk);
   const long long blocks = 2LL * p.tiles;
-  if (tile != p.tile || groups != p.groups || stages != kStages || smem != p.smem ||
+  if (tile != p.tile || groups != p.groups || stages != p.stages || smem != p.smem ||
       grid != blocks || blocks > 2147483647LL)
     return cudaErrorInvalidValue;
   Args a;
@@ -406,10 +440,13 @@ extern "C" int dfot_qkv_prep_bwd(const void* qkv, long long stride_b, long long 
   a.groups = p.groups;
   a.tiles = p.tiles;
   auto s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    qkv_prep_bwd_kernel<8><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(a);
-  } else {
-    qkv_prep_bwd_kernel<2><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(a);
+  if (!vec && p.chunks == 20)
+    return launch<2, 20, kWideStages, kWideBlocksPerSm>(a, blocks, smem, s);
+  if (!vec) return launch<2, 4, kStages, kBlocksPerSm>(a, blocks, smem, s);
+  switch (p.chunks) {
+    case 1: return launch<8, 1, kStages, kBlocksPerSm>(a, blocks, smem, s);
+    case 2: return launch<8, 2, kWideStages, kWideBlocksPerSm>(a, blocks, smem, s);
+    case 3: return launch<8, 3, kWideStages, kWideBlocksPerSm>(a, blocks, smem, s);
+    default: return launch<8, 5, kWideStages, kWideBlocksPerSm>(a, blocks, smem, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,10 @@ from .attention import (
     attention_reference,
     flash_attention,
     flash_bwd_dkv,
+    flash_bwd_dkv_wide,
     flash_bwd_dq,
+    flash_bwd_dq_wide,
+    flash_fwd_wide,
     small_n_attention,
     small_n_attention_reference,
 )
@@ -27,7 +30,14 @@ from .qkv_prep import (
     swap_pairs,
 )
 from .qkv_prep import qkv_prep as _qkv_prep
-from .ring_attention import ring_dkv_hop, ring_dq_hop, ring_fwd_hop
+from .ring_attention import (
+    ring_dkv_hop,
+    ring_dkv_hop_wide,
+    ring_dq_hop,
+    ring_dq_hop_wide,
+    ring_fwd_hop,
+    ring_fwd_hop_wide,
+)
 
 # every kernel wrapper of the package; each carries a ``launches`` count
 KERNEL_WRAPPERS = {
@@ -44,6 +54,14 @@ KERNEL_WRAPPERS = {
     "ring_fwd": ring_fwd_hop,
     "ring_dq": ring_dq_hop,
     "ring_dkv": ring_dkv_hop,
+    # the wide family (csrc/flash_wide.cu): B1, B4, B5 and their ring entries
+    # at head dims above 256
+    "flash_fwd_wide": flash_fwd_wide,
+    "flash_bwd_dq_wide": flash_bwd_dq_wide,
+    "flash_bwd_dkv_wide": flash_bwd_dkv_wide,
+    "ring_fwd_wide": ring_fwd_hop_wide,
+    "ring_dq_wide": ring_dq_hop_wide,
+    "ring_dkv_wide": ring_dkv_hop_wide,
 }
 
 

@@ -23,7 +23,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dfot_tpu_torch"
 _SOURCES = (
-    "flash_fwd.cu", "flash_bwd.cu", "qkv_prep.cu", "qkv_prep_bwd.cu",
+    "flash_fwd.cu", "flash_bwd.cu", "flash_wide.cu", "qkv_prep.cu", "qkv_prep_bwd.cu",
     "attn_out_collect.cu", "attn_out_scatter.cu", "ln_modulate.cu", "small_n_attn.cu",
 )
 _HEADERS = ("hopper.cuh",)
@@ -53,6 +53,17 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "dfot_ring_bwd_dkv": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "dfot_flash_fwd_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dfot_flash_bwd_dq_wide": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                               _P),
+    "dfot_flash_bwd_dkv_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _I, _P),
+    "dfot_ring_fwd_wide": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                           _I, _P),
+    "dfot_ring_bwd_dq_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _I, _P),
+    "dfot_ring_bwd_dkv_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -13,7 +13,10 @@ package.
   are wgmma kernels whose tile plan (:func:`flash_plan`) is computed here
   and checked by their C entries; they take padded head dims of 64, 128 and
   256 (:data:`FLASH_WIDTHS`), and where q, k, v are zero-padded heads, the
-  true head dim (``head_dim``) lets them compute only its lanes.
+  true head dim (``head_dim``) lets them compute only its lanes. Every
+  multiple of 64 above 256 goes to their wide family (``csrc/flash_wide.cu``:
+  :func:`flash_fwd_wide`, :func:`flash_bwd_dq_wide`,
+  :func:`flash_bwd_dkv_wide`), which slices the output lanes over the grid.
 - A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes
   the plain versions: :func:`attention_reference` (the counterpart of
   ``_xla_attention``: fp32 scores, fp32 softmax, one cast at the end) and
@@ -51,6 +54,7 @@ from . import _cuda
 __all__ = [
     "attention", "attention_reference", "attention_backward_reference",
     "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_plan",
+    "flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "is_flash_width",
     "small_n_attention", "small_n_attention_reference", "small_n_plan", "attention_route",
     "padded_head_dim", "set_sequence_parallel",
     "attention_with_weights", "set_attention_capture", "attention_capture_enabled",
@@ -171,15 +175,16 @@ def attention_backward_reference(q, k, v, o, lse, do, causal=False, sm_scale=Non
 
 def _check_qkv(what, q, *others):
     """The kernels' common contract: bf16 (B, H, N, D), one shape and
-    device, D in :data:`FLASH_WIDTHS`, N a multiple of 64."""
+    device, D in :data:`FLASH_WIDTHS` or a multiple of 64 above them
+    (:func:`is_flash_width`), N a multiple of 64."""
     B, H, N, D = q.shape
     if any(t.dtype != torch.bfloat16 for t in (q, *others)):
         raise TypeError(f"{what} takes bf16, got {[t.dtype for t in (q, *others)]}")
     if any(t.shape != q.shape for t in others):
         raise ValueError(f"{what}: shapes differ: {[tuple(t.shape) for t in (q, *others)]}")
-    if D not in FLASH_WIDTHS or N % 64 or B * H > 65535:
-        raise ValueError(f"{what} takes d in {FLASH_WIDTHS} and N % 64 == 0, "
-                         f"got {tuple(q.shape)}")
+    if not is_flash_width(D) or N % 64 or B * H > 65535:
+        raise ValueError(f"{what} takes d in {FLASH_WIDTHS} or a multiple of 64 above, and "
+                         f"N % 64 == 0, got {tuple(q.shape)}")
     if any(t.device != q.device for t in others):
         raise ValueError(f"{what}: tensors on different devices")
 
@@ -212,14 +217,31 @@ FLASH_MAX_STAGES = 4
 # rounded up to 16 and then to the next compiled width
 FLASH_LANES = {64: (64,), 128: (80, 128), 256: (192, 256)}
 SMEM_PER_BLOCK = 232448     # shared memory one H100 block can take (227 KB)
+# The wide family (csrc/flash_wide.cu) at every multiple of 64 above 256: a
+# block owns 64 rows (B1, B4: queries; B5: keys) and one slice of at most 256
+# output lanes (grid z), its scores contract over the whole head in 64-lane
+# atoms streamed through stages of one atom of each operand, and its two
+# consumers take 32 rows each of a streamed 64-row tile and merge their
+# partials through shared memory at the end
+FLASH_WIDE_ROWS = 64
+FLASH_WIDE_SLICE = 256
+FLASH_WIDE_MAX_STAGES = 8
+FLASH_WIDE_ATOM_BYTES = 64 * 128     # one 64-lane atom of 64 rows
+FLASH_WIDE_MERGE_BYTES = (128 + 4) * 128 * 4  # consumer 1's partials a thread, 128 threads
+
+
+def is_flash_width(d: int) -> bool:
+    """A padded head dim some flash kernel takes: :data:`FLASH_WIDTHS`, or
+    any multiple of 64 above them (the wide family)."""
+    return d in FLASH_WIDTHS or (d > FLASH_WIDTHS[-1] and d % 64 == 0)
 
 
 def padded_head_dim(d: int) -> int:
     """The head dim the kernels take for heads of ``d`` lanes: the smallest
     of :data:`FLASH_WIDTHS` that holds d (the JAX package pads to the next
     multiple of 64 instead: 192 where the port pads to 256; zero lanes are
-    inert either way). Past the widest, the next multiple of 64, which no
-    kernel takes."""
+    inert either way). Past the widest, the next multiple of 64, the JAX
+    package's own padding, which the wide family takes."""
     return next((w for w in FLASH_WIDTHS if w >= d), d + (-d % 64))
 
 
@@ -246,15 +268,20 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     block owns, which set the grid. Stages: as many as fit the block's shared
     memory, at most four. ``lanes``: the head-dim lanes the kernel computes
     (products contract over ``k_steps`` = lanes / 16 steps); ``smem_bytes``
-    includes 1 KB of alignment slack and the mbarriers.
+    includes 1 KB of alignment slack and the mbarriers. Past 256 lanes the
+    plan is the wide family's (:func:`_wide_plan`).
     """
     head_dim = d if head_dim is None else head_dim
-    if d not in FLASH_LANES or not 0 < head_dim <= d:
+    if not is_flash_width(d) or not 0 < head_dim <= d:
         raise ValueError(f"no flash kernel for head dim {head_dim} padded to {d}")
     rounded = -(-head_dim // 16) * 16
+    kernel = RING_PLAN_OF.get(kernel, kernel)
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"unknown flash kernel {kernel!r}")
+    if d > FLASH_WIDTHS[-1]:
+        return _wide_plan(kernel, bh, n, rounded)
     lanes = next(w for w in FLASH_LANES[d] if w >= rounded)
     row = d * 2  # bytes of one head-dim row of a tile
-    kernel = RING_PLAN_OF.get(kernel, kernel)
     if kernel == "fwd":
         block_rows, tile_rows = FLASH_BLOCK, FLASH_FWD_KEYS[d]
         resident, stage = block_rows * row, 2 * tile_rows * row               # Q; K, V
@@ -265,8 +292,6 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
         block_rows, tile_rows = FLASH_DKV_KEYS[d], FLASH_BWD_Q_ROWS
         resident = 2 * block_rows * row                                       # K, V
         stage = 2 * tile_rows * row + 2 * tile_rows * 4                       # Q, dO, LSE, delta
-    else:
-        raise ValueError(f"unknown flash kernel {kernel!r}")
     barrier = 8
     stages = min(FLASH_MAX_STAGES,
                  (SMEM_PER_BLOCK - 1024 - resident - barrier) // (stage + 2 * barrier))
@@ -277,9 +302,47 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     }
 
 
+def _wide_plan(kernel: str, bh: int, n: int, lanes: int) -> dict:
+    """The wide family's plan (``csrc/flash_wide.cu:make_plan`` computes it
+    again). ``atoms``: the 64-lane atoms of the ``lanes`` computed, the last
+    contracting over ``ks_last`` k16 steps; ``slices``: 256-lane output
+    slices (the grid's z, twice over for B5: dV, then dK). A contraction step
+    brings one atom of each score product's streamed operand (``slots``: K
+    for B1; K and V for B4; Q and dO for B5); the block's own rows of the
+    other side (Q; Q and dO; K and V: ``resident_bytes``) are loaded once
+    where they fit beside two stages (``resident``), else they come with each
+    step, doubling the stage. The shared memory holds at least consumer 1's
+    partials for the final merge."""
+    atom = FLASH_WIDE_ATOM_BYTES
+    atoms = -(-lanes // 64)
+    slots = 1 if kernel == "fwd" else 2
+    resident_bytes, stage = slots * atoms * atom, slots * atom
+    barrier = 8
+    stages = min(FLASH_WIDE_MAX_STAGES,
+                 (SMEM_PER_BLOCK - 1024 - resident_bytes - barrier) // (stage + 2 * barrier))
+    resident = stages >= 2
+    if not resident:
+        resident_bytes, stage = 0, 2 * slots * atom
+        stages = min(FLASH_WIDE_MAX_STAGES,
+                     (SMEM_PER_BLOCK - 1024 - barrier) // (stage + 2 * barrier))
+    slices = -(-atoms // (FLASH_WIDE_SLICE // 64))
+    return {
+        "tile_rows": FLASH_WIDE_ROWS, "block_rows": FLASH_WIDE_ROWS, "stages": stages,
+        "smem_bytes": 1024 + max(resident_bytes + stages * stage, FLASH_WIDE_MERGE_BYTES)
+        + barrier * (1 + 2 * stages),
+        "lanes": lanes, "k_steps": lanes // 16, "atoms": atoms,
+        "ks_last": (lanes - 64 * (atoms - 1)) // 16, "slices": slices, "resident": resident,
+        "resident_bytes": resident_bytes, "stage_bytes": stage,
+        "grid": (-(-n // FLASH_WIDE_ROWS), bh, slices * (2 if kernel == "dkv" else 1)),
+    }
+
+
 def _flash_cuda(q, k, v, causal, sm_scale, return_lse, head_dim):
     B, H, N, D = q.shape
     _check_qkv("flash attention forward", q, k, v)
+    if D > FLASH_WIDTHS[-1]:
+        out, lse = flash_fwd_wide(q, k, v, causal, sm_scale, head_dim=head_dim)
+        return (out, lse) if return_lse else out
     plan = flash_plan("fwd", B * H, N, D, head_dim)
     q, k, v = (t.contiguous() for t in (q, k, v))
     _cuda.check_aligned("flash attention forward", 16, q, k, v)
@@ -310,13 +373,116 @@ def _bwd_operands(what, q, k, v, do, lse, delta):
     return tensors
 
 
+def _check_wide(what, q, *others):
+    """The wide family's contract: :func:`_check_qkv` with D above 256."""
+    _check_qkv(what, q, *others)
+    if q.shape[-1] <= FLASH_WIDTHS[-1]:
+        raise ValueError(f"{what} takes head dims above {FLASH_WIDTHS[-1]}, got {tuple(q.shape)}")
+
+
+def flash_fwd_wide(q, k, v, causal: bool = False, sm_scale: Optional[float] = None, *,
+                   head_dim: Optional[int] = None):
+    """(O, LSE) of attention at a padded head dim D above 256 (a multiple of
+    64), (B, H, N, D) layout, LSE (B, H, N, 1) fp32. On a CUDA device this
+    launches the wide B1 (``csrc/flash_wide.cu``; bf16, N a multiple of 64,
+    anything else raises); on the CPU it runs the plain version.
+    :func:`flash_attention` comes here for such heads. ``head_dim``: the true
+    head dim, whose lanes alone are computed (the rest written as zeros)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal, sm_scale, True)
+    if not q.is_cuda:
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    what = "flash attention forward (wide)"
+    _check_wide(what, q, k, v)
+    B, H, N, D = q.shape
+    plan = flash_plan("fwd", B * H, N, D, head_dim)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    _cuda.check_aligned(what, 16, q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, N, 1), dtype=torch.float32, device=q.device)
+    _cuda.check(
+        _cuda.library().dfot_flash_fwd_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B * H, N, D, plan["lanes"], plan["stages"], plan["smem_bytes"],
+            int(plan["resident"]), float(sm_scale), int(causal), _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    flash_fwd_wide.launches += 1
+    return out, lse
+
+
+def flash_bwd_dq_wide(q, k, v, do, lse, delta, causal: bool = False,
+                      sm_scale: Optional[float] = None, *, head_dim: Optional[int] = None):
+    """dq at a padded head dim above 256, arguments as :func:`flash_bwd_dq`:
+    the wide B4 (``csrc/flash_wide.cu``) on a CUDA device, the plain version
+    on the CPU. :func:`flash_bwd_dq` comes here for such heads."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    if not q.is_cuda:
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    what = "flash attention backward (dq, wide)"
+    _check_wide(what, q, k, v, do)
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    plan = flash_plan("dq", B * H, N, D, head_dim)
+    dq = torch.empty_like(q)
+    _cuda.check(
+        _cuda.library().dfot_flash_bwd_dq_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B * H, N, D, plan["lanes"], plan["stages"],
+            plan["smem_bytes"], int(plan["resident"]), float(sm_scale), int(causal),
+            _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    flash_bwd_dq_wide.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_wide(q, k, v, do, lse, delta, causal: bool = False,
+                       sm_scale: Optional[float] = None, *, head_dim: Optional[int] = None):
+    """(dk, dv) at a padded head dim above 256, arguments as
+    :func:`flash_bwd_dkv`: the wide B5 (``csrc/flash_wide.cu``) on a CUDA
+    device, the plain version on the CPU. :func:`flash_bwd_dkv` comes here
+    for such heads."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    if not q.is_cuda:
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    what = "flash attention backward (dk, dv, wide)"
+    _check_wide(what, q, k, v, do)
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    plan = flash_plan("dkv", B * H, N, D, head_dim)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _cuda.check(
+        _cuda.library().dfot_flash_bwd_dkv_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, N, D, plan["lanes"],
+            plan["stages"], plan["smem_bytes"], int(plan["resident"]), float(sm_scale),
+            int(causal), _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    flash_bwd_dkv_wide.launches += 1
+    return dk, dv
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                  sm_scale: Optional[float] = None, *,
                  head_dim: Optional[int] = None) -> torch.Tensor:
     """dq of attention from the saved LSE and delta = rowsum(dO * O), both
     (B, H, N, 1) fp32. On a CUDA device this launches kernel B4 (bf16, D in
-    {64, 128, 256}, N a multiple of 64; anything else raises); on the CPU it runs
-    the plain version. ``head_dim``: the true head dim where q, k, v, do are
+    {64, 128, 256}, or its wide family, :func:`flash_bwd_dq_wide`, at a
+    multiple of 64 above; N a multiple of 64; anything else raises); on the
+    CPU it runs the plain version. ``head_dim``: the true head dim where q, k, v, do are
     heads zero-padded to D (the kernel then computes only its lanes and
     writes the pad lanes of dq as zeros)."""
     if sm_scale is None:
@@ -325,6 +491,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
         return _dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
     if not q.is_cuda:
         raise ValueError(f"no flash-attention path for device {q.device}")
+    if q.shape[-1] > FLASH_WIDTHS[-1]:
+        return flash_bwd_dq_wide(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
     what = "flash attention backward (dq)"
     q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
     B, H, N, D = q.shape
@@ -355,6 +523,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
         return _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
     if not q.is_cuda:
         raise ValueError(f"no flash-attention path for device {q.device}")
+    if q.shape[-1] > FLASH_WIDTHS[-1]:
+        return flash_bwd_dkv_wide(q, k, v, do, lse, delta, causal, sm_scale, head_dim=head_dim)
     what = "flash attention backward (dk, dv)"
     q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
     B, H, N, D = q.shape
@@ -436,8 +606,9 @@ def flash_attention(
     the custom op ``dfot::flash_attention``.
 
     ``sm_scale`` defaults to 1/sqrt(D). On a CUDA device this launches the
-    hand-written kernels, forward and backward (bf16, D in {64, 128, 256}, N a
-    multiple of 64; anything else raises); on the CPU, or on any device with
+    hand-written kernels, forward and backward (bf16, D in {64, 128, 256} or
+    a multiple of 64 above, the wide family; N a multiple of 64; anything
+    else raises); on the CPU, or on any device with
     ``plain``, it runs the plain versions. The LSE carries no gradient.
     ``head_dim`` is for the callers that zero-pad heads to D
     (:func:`_padded_flash`, ``qkv_prep.attention_from_packed_qkv``): the true
@@ -456,6 +627,9 @@ def flash_attention(
 flash_attention.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_fwd_wide.launches = 0
+flash_bwd_dq_wide.launches = 0
+flash_bwd_dkv_wide.launches = 0
 
 
 SMALL_N_MAX = 32
@@ -634,16 +808,18 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
       and of B4 and B5 back);
     - ``"small_n"``: non-causal, N <= 32, d a multiple of 64 up to 256 (the
       JAX package's gate, ``d % 64 == 0``): kernel B10;
-    - ``"flash"``: d in {64, 128, 256} and N a multiple of 64: kernels B1,
-      B4, B5;
-    - ``"padded_flash"``: any other d up to 256 (:func:`padded_head_dim`) and
-      N a multiple of 64: the same kernels on heads zero-padded to the next
-      of those widths, with the true 1/sqrt(d) scale, sliced after;
+    - ``"flash"``: d in {64, 128, 256} or a multiple of 64 above (the wide
+      family) and N a multiple of 64: kernels B1, B4, B5;
+    - ``"padded_flash"``: any other d (:func:`padded_head_dim`) and N a
+      multiple of 64: the same kernels on heads zero-padded to the next of
+      those widths, with the true 1/sqrt(d) scale, sliced after;
     - ``"plain"``: what is left and the JAX package too computes outside any
       kernel (ragged N above 32, short causal rows): the plain version, on the
       card as well;
     - ``"unported"``: a shape the JAX package gives to a Pallas kernel and no
-      kernel of the port takes (padded head dim above 256); it raises.
+      kernel of the port takes (short rows at a head dim above 256, B10's
+      ``_small_n_kernel``): :func:`attention` computes it with the plain
+      version on the CPU and raises on the card.
 
     The packed route of the models (``qkv_prep.attention_from_packed_qkv``)
     is taken only where this answers ``"flash"`` or ``"padded_flash"``: where
@@ -656,10 +832,8 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
         return "ring"
     if not causal and n <= SMALL_N_MAX and d % 64 == 0:
         return "small_n" if d <= SMALL_N_MAX_D else "unported"
-    if n % 64 == 0 and d <= FLASH_WIDTHS[-1]:
-        return "flash" if d in FLASH_WIDTHS else "padded_flash"
-    if n % 128 == 0 and n >= 512:
-        return "unported"
+    if n % 64 == 0:
+        return "flash" if is_flash_width(d) else "padded_flash"
     return "plain"
 
 
@@ -677,7 +851,8 @@ def _padded_flash(q, k, v, causal, plain):
 def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tensor:
     """Attention dispatcher, (B, H, N, D) layout, by :func:`attention_route`.
     Each route launches its kernels for a CUDA tensor or raises, and runs
-    their plain versions for a CPU tensor (or on any device with ``plain``)."""
+    their plain versions for a CPU tensor (or on any device with ``plain``):
+    on the CPU every shape computes, the ``"unported"`` ones too."""
     route = attention_route(q.shape[-2], q.shape[-1], causal)
     if route == "ring":
         from .ring_attention import sequence_parallel_attention
@@ -691,7 +866,10 @@ def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tenso
         return _padded_flash(q, k, v, causal, plain)
     if route == "plain":
         return attention_reference(q, k, v, causal)
+    if plain or q.device.type == "cpu":
+        # short rows at a head dim above 256: B10's plain version
+        return small_n_attention(q, k, v, plain)
     raise NotImplementedError(
         f"attention of shape {tuple(q.shape)} (causal={causal}): no kernel of the port takes it "
-        "(ROADMAP.md queue B)"
+        "(short rows at a head dim above 256: ROADMAP.md queue B)"
     )

@@ -40,6 +40,10 @@ import torch
 from . import _cuda
 from .attention import SM_COUNT, _f32, flash_attention, padded_head_dim
 
+# the widest head the kernels B2 and B6 take (csrc/qkv_prep.cu and
+# csrc/qkv_prep_bwd.cu: a warp a row, 5 16-byte or 20 4-byte chunks a lane)
+PREP_MAX_HEAD_DIM = 1280
+
 __all__ = [
     "signed_sin",
     "swap_pairs",
@@ -146,8 +150,9 @@ def _check_prep_operands(what, qkv, tabs, head_dim, d_out):
         raise TypeError(f"{what} kernel takes bf16, got {qkv.dtype}")
     if qkv.stride(-1) != 1 or qkv.stride(0) % 2 or qkv.stride(1) % 2:
         raise ValueError(f"{what} kernel needs a unit, even-aligned last dim, strides {qkv.stride()}")
-    if head_dim % 2 or head_dim > 256 or d_out % 2:
-        raise ValueError(f"{what} kernel takes even head dims <= 256, got {head_dim}/{d_out}")
+    if head_dim % 2 or head_dim > PREP_MAX_HEAD_DIM or d_out % 2:
+        raise ValueError(f"{what} kernel takes even head dims <= {PREP_MAX_HEAD_DIM}, "
+                         f"got {head_dim}/{d_out}")
     flat = tuple(t.contiguous() for pair in tabs for t in pair)
     if any(t.device != qkv.device for t in flat):
         raise ValueError("RoPE tables must be on the device of qkv")
@@ -182,6 +187,10 @@ PREP_BWD_THREADS = 256
 PREP_BWD_STAGES = 6         # a lane's ring of cp.async stages
 PREP_BWD_STAGE_BYTES = 2 * 16 * PREP_BWD_THREADS  # a stage: every lane's x and dy chunks
 PREP_BWD_BLOCKS_PER_SM = 3  # blocks an SM holds: the tile is chosen for this grid
+# above a head dim of 256 a warp owns a row and a lane holds several chunks:
+# one block an SM, three stages
+PREP_BWD_WIDE_STAGES = 3
+PREP_BWD_WIDE_BLOCKS_PER_SM = 1
 
 
 @functools.lru_cache(maxsize=256)
@@ -201,22 +210,36 @@ def prep_bwd_plan(B: int, N: int, H: int, d: int, dp: int, chunk: int = 8) -> di
     ``stages`` cp.async stages. ``grid``: the 2 x tiles q and k blocks (each
     also copies the v cotangent of half the items of its tile).
     ``smem_bytes``: the rings (48 KB), where the groups' fp32 partials of
-    the table cotangents (at most 16 KB) meet at the end.
+    the table cotangents (at most 16 KB) meet at the end. Above d = 256
+    (up to :data:`PREP_MAX_HEAD_DIM`) a warp owns a row and a lane holds
+    ``chunks`` chunks (2, 3 or 5 of 16 bytes by d, or 20 of 4), one block an
+    SM (:data:`PREP_BWD_WIDE_BLOCKS_PER_SM`) and
+    :data:`PREP_BWD_WIDE_STAGES` stages; the partials (64 d bytes) still fit
+    the rings.
     """
-    if chunk not in (8, 2) or not 0 < d <= 256 or d % chunk or dp < d or dp % chunk:
+    if (chunk not in (8, 2) or not 0 < d <= PREP_MAX_HEAD_DIM or d % chunk or dp < d
+            or dp % chunk):
         raise ValueError(f"no qkv_prep backward plan for d {d}, dp {dp}, chunk {chunk}")
     if min(B, N, H) <= 0:
         raise ValueError(f"no qkv_prep backward plan for B {B}, N {N}, H {H}")
+    wide = d > 256
     lanes = 1
     while lanes * chunk < d and lanes < 32:
         lanes *= 2
+    per_sm = PREP_BWD_WIDE_BLOCKS_PER_SM if wide else PREP_BWD_BLOCKS_PER_SM
     tile = next((t for t in (32, 16, 8, 4, 2) if t * lanes <= PREP_BWD_THREADS
-                 and 2 * -(-N // t) >= PREP_BWD_BLOCKS_PER_SM * SM_COUNT), 1)
+                 and 2 * -(-N // t) >= per_sm * SM_COUNT), 1)
     groups = PREP_BWD_THREADS // (tile * lanes)
     tiles = -(-N // tile)
+    if not wide:
+        chunks = 1 if chunk == 8 else 4
+    else:
+        chunks = 20 if chunk == 2 else 2 if d <= 512 else 3 if d <= 768 else 5
+    stages = PREP_BWD_WIDE_STAGES if wide else PREP_BWD_STAGES
     return {"chunk": chunk, "lanes": lanes, "tile": tile, "groups": groups,
-            "rounds": -(-(B * H) // groups), "stages": PREP_BWD_STAGES,
-            "smem_bytes": PREP_BWD_STAGES * PREP_BWD_STAGE_BYTES,
+            "rounds": -(-(B * H) // groups), "stages": stages, "chunks": chunks,
+            "smem_bytes": stages * 2 * chunks * PREP_BWD_THREADS * 2 * chunk,
+            "partials_bytes": groups * 2 * tile * d * 4,
             "tiles": tiles, "grid": 2 * tiles}
 
 

@@ -13,7 +13,12 @@ sequence's scores.
   hop writes O in the input dtype and the final LSE. Backward,
   :func:`ring_dq_hop` and :func:`ring_dkv_hop`: the ring entries of B4 and
   B5 (``csrc/flash_bwd.cu``), each adding its hop into fp32 sums in the
-  kernel and writing them in the input dtype at the last hop.
+  kernel and writing them in the input dtype at the last hop. Heads above
+  256 lanes take the wide family's ring entries (``csrc/flash_wide.cu``:
+  :func:`ring_fwd_hop_wide`, :func:`ring_dq_hop_wide`,
+  :func:`ring_dkv_hop_wide`), whose forward reads the running LSE from one
+  buffer and writes the new one to another: the slice blocks of a row all
+  read the old one.
 - The backward is a ``torch.autograd.Function``, not autodiff of the fold
   (the block's LSE would carry no gradient): the forward saves q, k, v, the
   final O and the final LSE; the backward walks the ring again with
@@ -54,6 +59,7 @@ from . import _cuda
 from .attention import (
     FLASH_WIDTHS,
     _bwd_operands,
+    _check_wide,
     _check_qkv,
     _delta,
     _dkv_plain,
@@ -66,6 +72,7 @@ from .attention import (
 __all__ = [
     "LocalRing", "ProcessRing", "ring_attention", "sequence_parallel_attention",
     "ring_fwd_hop", "ring_dq_hop", "ring_dkv_hop", "ring_fwd_hop_plain", "ring_bwd_hop_plain",
+    "ring_fwd_hop_wide", "ring_dq_hop_wide", "ring_dkv_hop_wide",
 ]
 
 
@@ -309,10 +316,13 @@ def ring_fwd_hop(q, k, v, o, lse, kv_shift: int, last: bool, sm_scale: float, *,
     new state, or at the ``last`` hop O in q's dtype and the final LSE. On a
     CUDA tensor one launch of the ring entry of B1 (bf16, D in {64, 128,
     256}, n a multiple of 64; else it raises), which updates the state in
-    place; on the CPU, or with ``plain``, :func:`ring_fwd_hop_plain`."""
+    place, or above 256 lanes of :func:`ring_fwd_hop_wide`; on the CPU, or
+    with ``plain``, :func:`ring_fwd_hop_plain`."""
     what = "ring attention hop"
     if not _kernel_path(what, q, plain):
         return ring_fwd_hop_plain(q, k, v, o, lse, kv_shift, last, sm_scale)
+    if q.shape[-1] > FLASH_WIDTHS[-1]:
+        return ring_fwd_hop_wide(q, k, v, o, lse, kv_shift, last, sm_scale, head_dim=head_dim)
     _check_qkv(what, q, k, v)
     B, H, N, D = q.shape
     q, k, v = (t.contiguous() for t in (q, k, v))
@@ -347,11 +357,15 @@ def ring_dq_hop(q, k, v, do, lse, delta, dq, kv_shift: int, last: bool, sm_scale
     heads back, against the final LSE and delta = rowsum(dO * O) ((..., n,
     1) fp32), added into the fp32 sum ``dq`` (None at the first hop).
     Returns the new sum, or at the ``last`` hop dq in q's dtype. On a CUDA
-    tensor one launch of the ring entry of B4, which adds in place; on the
-    CPU, or with ``plain``, the plain version (:func:`ring_bwd_hop_plain`)."""
+    tensor one launch of the ring entry of B4, which adds in place (above 256
+    lanes :func:`ring_dq_hop_wide`); on the CPU, or with ``plain``, the plain
+    version (:func:`ring_bwd_hop_plain`)."""
     what = "ring attention hop backward (dq)"
     if not _kernel_path(what, q, plain):
         return _ring_dq_plain(q, k, v, do, lse, delta, dq, kv_shift, last, sm_scale)
+    if q.shape[-1] > FLASH_WIDTHS[-1]:
+        return ring_dq_hop_wide(q, k, v, do, lse, delta, dq, kv_shift, last, sm_scale,
+                                head_dim=head_dim)
     q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
     B, H, N, D = q.shape
     dq = _state(what, dq, (B, H, N, D), q.device)
@@ -380,11 +394,15 @@ def ring_dkv_hop(q, k, v, do, lse, delta, dk, dv, kv_shift: int, last: bool, sm_
     shard's home heads (None at the first hop). Returns the new sums, or at
     the ``last`` hop dk, dv in k's and v's dtype. On a CUDA tensor one launch
     of the ring entry of B5, whose blocks own the keys of a K/V head and walk
-    the query rows of the head ``kv_shift`` on, adding in place; on the CPU,
-    or with ``plain``, the plain version (:func:`ring_bwd_hop_plain`)."""
+    the query rows of the head ``kv_shift`` on, adding in place (above 256
+    lanes :func:`ring_dkv_hop_wide`); on the CPU, or with ``plain``, the
+    plain version (:func:`ring_bwd_hop_plain`)."""
     what = "ring attention hop backward (dk, dv)"
     if not _kernel_path(what, q, plain):
         return _ring_dkv_plain(q, k, v, do, lse, delta, dk, dv, kv_shift, last, sm_scale)
+    if q.shape[-1] > FLASH_WIDTHS[-1]:
+        return ring_dkv_hop_wide(q, k, v, do, lse, delta, dk, dv, kv_shift, last, sm_scale,
+                                 head_dim=head_dim)
     q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
     B, H, N, D = q.shape
     dk = _state(what, dk, (B, H, N, D), q.device)
@@ -410,10 +428,116 @@ def ring_dkv_hop(q, k, v, do, lse, delta, dk, dv, kv_shift: int, last: bool, sm_
     return (out_k, out_v) if last else (dk, dv)
 
 
+def ring_fwd_hop_wide(q, k, v, o, lse, kv_shift: int, last: bool, sm_scale: float, *,
+                      head_dim: Optional[int] = None, plain: bool = False):
+    """:func:`ring_fwd_hop` at a padded head dim above 256: one launch of
+    the wide family's ring entry of B1 (``csrc/flash_wide.cu``), which
+    folds into the running fp32 O in place and writes the new running LSE to
+    a new tensor (the one given is only read: each row's slice blocks all
+    read it). On the CPU, or with ``plain``, :func:`ring_fwd_hop_plain`."""
+    what = "ring attention hop (wide)"
+    if not _kernel_path(what, q, plain):
+        return ring_fwd_hop_plain(q, k, v, o, lse, kv_shift, last, sm_scale)
+    _check_wide(what, q, k, v)
+    B, H, N, D = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    _cuda.check_aligned(what, 16, q, k, v)
+    if (o is None) != (lse is None):
+        raise ValueError(f"{what}: O and LSE are running together or not at all")
+    read_prev = lse is not None
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse = _state(what, lse, (B, H, N, 1), q.device)
+    o = _state(what, o, (B, H, N, D), q.device)
+    lse_new = torch.empty((B, H, N, 1), **f32)
+    if o is None and not last:
+        o = torch.empty((B, H, N, D), **f32)
+    out = torch.empty_like(q) if last else None
+    plan = flash_plan("ring_fwd", B * H, N, D, head_dim)
+    _cuda.check(
+        _cuda.library().dfot_ring_fwd_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out), _ptr(lse), lse_new.data_ptr(),
+            _ptr(o), B * H, N, D, plan["lanes"], plan["stages"], plan["smem_bytes"],
+            int(plan["resident"]), float(sm_scale), int(kv_shift), int(read_prev), int(last),
+            _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    ring_fwd_hop_wide.launches += 1
+    return (out, lse_new) if last else (o, lse_new)
+
+
+def ring_dq_hop_wide(q, k, v, do, lse, delta, dq, kv_shift: int, last: bool, sm_scale: float,
+                     *, head_dim: Optional[int] = None, plain: bool = False):
+    """:func:`ring_dq_hop` at a padded head dim above 256: one launch of the
+    wide family's ring entry of B4 (``csrc/flash_wide.cu``), adding in
+    place. On the CPU, or with ``plain``, the plain version."""
+    what = "ring attention hop backward (dq, wide)"
+    if not _kernel_path(what, q, plain):
+        return _ring_dq_plain(q, k, v, do, lse, delta, dq, kv_shift, last, sm_scale)
+    _check_wide(what, q, k, v, do)
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    dq = _state(what, dq, (B, H, N, D), q.device)
+    read_prev = dq is not None
+    if dq is None and not last:
+        dq = torch.empty((B, H, N, D), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q) if last else None
+    plan = flash_plan("ring_dq", B * H, N, D, head_dim)
+    _cuda.check(
+        _cuda.library().dfot_ring_bwd_dq_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(out), _ptr(dq), B * H, N, D, plan["lanes"], plan["stages"],
+            plan["smem_bytes"], int(plan["resident"]), float(sm_scale), int(kv_shift),
+            int(read_prev), int(last), _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    ring_dq_hop_wide.launches += 1
+    return out if last else dq
+
+
+def ring_dkv_hop_wide(q, k, v, do, lse, delta, dk, dv, kv_shift: int, last: bool,
+                      sm_scale: float, *, head_dim: Optional[int] = None, plain: bool = False):
+    """:func:`ring_dkv_hop` at a padded head dim above 256: one launch of the
+    wide family's ring entry of B5 (``csrc/flash_wide.cu``), adding in
+    place. On the CPU, or with ``plain``, the plain version."""
+    what = "ring attention hop backward (dk, dv, wide)"
+    if not _kernel_path(what, q, plain):
+        return _ring_dkv_plain(q, k, v, do, lse, delta, dk, dv, kv_shift, last, sm_scale)
+    _check_wide(what, q, k, v, do)
+    q, k, v, do, lse, delta = _bwd_operands(what, q, k, v, do, lse, delta)
+    B, H, N, D = q.shape
+    dk = _state(what, dk, (B, H, N, D), q.device)
+    dv = _state(what, dv, (B, H, N, D), q.device)
+    if (dk is None) != (dv is None):
+        raise ValueError(f"{what}: dk and dv are summed together or not at all")
+    read_prev = dk is not None
+    if dk is None and not last:
+        dk, dv = (torch.empty((B, H, N, D), dtype=torch.float32, device=q.device)
+                  for _ in range(2))
+    out_k, out_v = (torch.empty_like(k), torch.empty_like(v)) if last else (None, None)
+    plan = flash_plan("ring_dkv", B * H, N, D, head_dim)
+    _cuda.check(
+        _cuda.library().dfot_ring_bwd_dkv_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(out_k), _ptr(out_v), _ptr(dk), _ptr(dv), B * H, N, D,
+            plan["lanes"], plan["stages"], plan["smem_bytes"], int(plan["resident"]),
+            float(sm_scale), int(kv_shift), int(read_prev), int(last),
+            _cuda.stream_handle(q.device),
+        ),
+        what,
+    )
+    ring_dkv_hop_wide.launches += 1
+    return (out_k, out_v) if last else (dk, dv)
+
+
 # kernel launches since the last reset
 ring_fwd_hop.launches = 0
 ring_dq_hop.launches = 0
 ring_dkv_hop.launches = 0
+ring_fwd_hop_wide.launches = 0
+ring_dq_hop_wide.launches = 0
+ring_dkv_hop_wide.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -476,12 +600,13 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ring,
     stacked). ``sm_scale`` defaults to 1/sqrt(D). Differentiable. On a CUDA
     tensor every hop is one launch of the ring entry of B1 forward and one
     each of B4's and B5's backward (bf16, N_local a multiple of 64; else it
-    raises), heads of other widths zero-padded to the next the kernels take;
+    raises; their wide family's above 256 lanes), heads of other widths
+    zero-padded to the next the kernels take;
     on the CPU, or with ``plain``, the plain hops run."""
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    if plain or not q.is_cuda or d in FLASH_WIDTHS:
+    if plain or not q.is_cuda or d == padded_head_dim(d):
         return _Ring.apply(q, k, v, ring, float(sm_scale), d, plain)
     pad = padded_head_dim(d) - d
     qp, kp, vp = (F.pad(t, (0, pad)) for t in (q, k, v))

@@ -1,13 +1,15 @@
 """Run chosen phases of ``chip_smoke.py`` alone on the card.
 
-    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [17] [23] [24] [22] [21] [25] [26]
+    python3 -m dfot_tpu_torch.tools.smoke_phases [kernels] [17] [23] [24] [22] [21] [25] [26] [27]
 
 from the root of a checkout: builds the kernels, then runs the kernel
 checks (``kernels``), phase 17 (``17``), phase 23 (``23``), phase 24
 (``24``), phase 22 (``22``), phase 21 (``21``), phase 25 (``25``: ring
 attention, the sequence-parallel window, a one-rank NCCL ``run(argv)``) and
 phase 26 (``26``: tensor parallelism over gloo on the one card, the serving
-export, the UCF-101 recipe, attention capture) in that order, with the
+export, the UCF-101 recipe, attention capture) and phase 27 (``27``: heads
+wider than 256 lanes, the wide family's kernel checks, its ring entries and
+the two wide-head paths) in that order, with the
 smoke's settings (TF32 off, expandable allocator segments), and writes what
 they record to ``chiprun_out/smoke_phases.json``. Phases 23 and 24 alone
 track two clips of a seeded drifting image in place of the rollout's. A quicker loop than
@@ -51,9 +53,9 @@ def main(argv) -> int:
                          capture_output=True, text=True).stdout.strip()
     print(smi, torch.__version__, torch.version.cuda, flush=True)
     _cuda.library()
-    record, launches = {"nvidia_smi": smi}, {}
+    record, launches, results = {"nvidia_smi": smi}, {}, {}
     try:
-        for phase, run in (("kernels", lambda: CS.check_kernels(record)),
+        for phase, run in (("kernels", lambda: results.update(CS.check_kernels(record))),
                            ("17", lambda: launches.update(cli=CS.run_cli_validation(record, smi))),
                            ("23", lambda: launches.update(CS.run_metric_paths(
                                record, drifting_clips(), "a seeded drifting image"))),
@@ -62,7 +64,8 @@ def main(argv) -> int:
                            ("22", lambda: launches.update(CS.run_slice16_paths(record))),
                            ("21", lambda: launches.update(CS.run_slice15_paths(record, smi))),
                            ("25", lambda: launches.update(CS.run_ring_paths(record, {}))),
-                           ("26", lambda: launches.update(CS.run_slice20_paths(record)))):
+                           ("26", lambda: launches.update(CS.run_slice20_paths(record))),
+                           ("27", lambda: launches.update(CS.run_wide_paths(record, results)))):
             if phase in argv:
                 t0 = time.perf_counter()
                 run()

@@ -158,7 +158,7 @@ ROUTES = [
     ((1280, 96, True), "padded_flash"),
     ((100, 64, False), "plain"),        # ragged N: XLA attention
     ((1000, 72, False), "plain"),
-    ((1024, 320, False), "unported"),   # Pallas flash at d = 320; no kernel of the port
+    ((1024, 320, False), "flash"),      # Pallas flash at d = 320; the wide family
     ((16, 320, False), "unported"),     # _small_n_kernel at d = 320
     ((300, 192, False), "plain"),
     ((2048, 256, False), "flash"),      # the base U-ViT's level 3: 1024 channels, 4 heads
@@ -167,7 +167,7 @@ ROUTES = [
     ((1024, 192, False), "padded_flash"),  # Pallas flash at d = 192; 192 -> 256 here
     ((8, 256, False), "small_n"),       # the base axial U-ViT's temporal attention
     ((16, 192, False), "small_n"),      # _small_n_kernel at d = 192
-    ((2048, 320, True), "unported"),
+    ((2048, 320, True), "flash"),
     ((8, 160, False), "plain"),
 ]
 
@@ -191,9 +191,15 @@ def test_attention_dispatcher_matches_plain_jax_attention(n, d, causal):
 
 
 def test_attention_dispatcher_refuses_what_no_kernel_takes():
-    x = torch.zeros(1, 1, 1024, 320)
-    with pytest.raises(NotImplementedError, match="no kernel"):
-        TA.attention(x, x, x)
+    """Only a CUDA tensor of a shape no kernel takes is refused (short rows
+    above 256 lanes, ``tests/test_torch_port_gpu.py``); on the CPU every
+    shape computes, as the JAX package's plain attention (2e-5)."""
+    rng = np.random.default_rng(6)
+    for shape in ((1, 1, 1024, 320), (1, 1, 16, 320)):
+        q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+        want = JA._xla_attention(*(jnp.asarray(a) for a in (q, k, v)), False)
+        np.testing.assert_allclose(TA.attention(_t(q), _t(k), _t(v)).numpy(), np.asarray(want),
+                                   atol=2e-5)
 
 
 def test_packed_route_head_dim_72_matches_fused_jax():
@@ -235,8 +241,9 @@ def test_packed_route_head_dim_72_matches_fused_jax():
 def test_new_wrappers_are_counted():
     assert {"ln_modulate", "ln_modulate_bwd", "small_n_attn", "ring_fwd", "ring_dq",
             "ring_dkv"} <= set(TOPS.KERNEL_WRAPPERS)
-    # B1-B10 and the ring hop's three entries (B1's forward, B4's and B5's backward)
-    assert len(TOPS.KERNEL_WRAPPERS) == 13
+    # B1-B10, the ring hop's three entries (B1's forward, B4's and B5's
+    # backward) and the wide family's six (B1, B4, B5 and their ring entries)
+    assert len(TOPS.KERNEL_WRAPPERS) == 19
     TOPS.reset_launch_counts()
     assert set(TOPS.launch_counts().values()) == {0}
 
@@ -244,8 +251,9 @@ def test_new_wrappers_are_counted():
 def test_no_kernel_shape_up_to_head_dim_256_is_unported():
     """Every (N, d) the JAX dispatcher gives a Pallas kernel (``_blocks_ok``
     on the padded head dim, or its small-N gate) with a padded head dim of
-    at most 256 has a kernel route in the port; past 256 it stays unported."""
-    for d in range(8, 321, 8):
+    at most 256 has a kernel route in the port; past 256 long rows do too
+    (the wide family) and only short rows (B10's) stay unported."""
+    for d in range(8, 1153, 8):
         dp = d + (-d % 64)
         for n in (8, 16, 32, 512, 1024, 1280, 2048, 8192):
             for causal in (False, True):
@@ -254,7 +262,7 @@ def test_no_kernel_shape_up_to_head_dim_256_is_unported():
                 if not pallas:
                     continue
                 route = TA.attention_route(n, d, causal)
-                if dp <= 256:
+                if dp <= 256 or not small:
                     assert route in ("small_n", "flash", "padded_flash"), (n, d, causal, route)
                 else:
                     assert route == "unported", (n, d, causal, route)

@@ -108,24 +108,27 @@ def test_plan_is_the_compiled_one(kernel, d, tile_rows, stages):
 @pytest.mark.parametrize("d,head_dim,lanes", [(64, 64, 64), (64, 40, 64), (128, 72, 80),
                                               (128, 80, 80), (128, 96, 128), (128, 128, 128),
                                               (256, 129, 192), (256, 160, 192), (256, 192, 192),
-                                              (256, 200, 256), (256, 256, 256)])
+                                              (256, 200, 256), (256, 256, 256),
+                                              (320, 320, 320), (320, 288, 288), (384, 300, 304),
+                                              (512, 512, 512), (1152, 1152, 1152)])
 def test_plan_rounds_the_head_dim_up_to_a_compiled_width(d, head_dim, lanes):
     """Only the true head dim rounded up to 16 is computed where a kernel
     for that width is compiled (80 at d = 128); other widths take the next
     compiled one (192 or 256 at d = 256), whose extra lanes are zero and
-    inert."""
+    inert. The wide family above 256 computes the true head dim rounded up
+    to 16 at every width (288 of 320)."""
     assert A.flash_plan("fwd", 1, 192, d, head_dim)["lanes"] == lanes
     assert A.flash_plan("dkv", 1, 192, d, head_dim)["lanes"] == lanes
     assert A.flash_plan("dq", 1, 192, d, head_dim)["lanes"] == lanes
 
 
 @pytest.mark.parametrize("kernel,d,head_dim", [("fwd", 96, 96), ("fwd", 128, 0),
-                                               ("ring_fwd", 96, 96), ("ring_dkv", 320, 320),
+                                               ("ring_fwd", 96, 96), ("ring_dkv", 320, 352),
                                                ("ring", 64, 64),
                                                ("dkv", 64, 72), ("bwd", 64, 64),
                                                ("dq", 96, 96), ("dq", 64, 72), ("dq", 128, 0),
-                                               ("dq", 192, 192), ("fwd", 320, 320),
-                                               ("dkv", 256, 257)])
+                                               ("dq", 192, 192), ("fwd", 352, 352),
+                                               ("dkv", 256, 257), ("ring_dkv", 320, 321)])
 def test_plan_refuses_what_no_kernel_takes(kernel, d, head_dim):
     with pytest.raises(ValueError):
         A.flash_plan(kernel, 1, 128, d, head_dim)

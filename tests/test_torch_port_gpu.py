@@ -543,8 +543,9 @@ def test_qkv_prep_token_tiles(cuda, d, dp, norm, n):
 def test_dq_and_prep_entries_refuse_what_they_do_not_take(cuda):
     """B4's C entry refuses a tile plan other than the compiled one and a
     lane count it has no instantiation for; its wrapper raises for a head
-    dim outside {64, 128, 256} and a head_dim above d. B2's entry refuses an odd
-    head dim, one above 256 and a padded width below it; its wrapper raises
+    dim outside {64, 128, 256} that is no multiple of 64 above 256 (the wide
+    family's) and a head_dim above d. B2's entry refuses an odd head dim, one
+    above its widest (1280) and a padded width below it; its wrapper raises
     for rows off a 4-byte boundary."""
     from dfot_tpu_torch.ops import _cuda
 
@@ -570,7 +571,7 @@ def test_dq_and_prep_entries_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 64, 3 * 2 * 64, device=cuda, dtype=torch.bfloat16)
     tab = torch.zeros(64, 64, device=cuda, dtype=torch.bfloat16)
     out = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
-    for d, dp in ((63, 64), (258, 258), (64, 62)):
+    for d, dp in ((63, 64), (Q.PREP_MAX_HEAD_DIM + 2, Q.PREP_MAX_HEAD_DIM + 2), (64, 62)):
         assert lib.dfot_qkv_prep(x.data_ptr(), x.stride(0), x.stride(1), *(tab.data_ptr(),) * 4,
                                  *(out.data_ptr(),) * 3, 1, 64, 2, d, dp, 0, 1e-6,
                                  stream) == 1
@@ -585,7 +586,8 @@ def test_attention_at_head_dim_256_launches_the_kernels(cuda):
     """The base-width U-ViT's level-3 attention, (1, 4, 2048, 256): the
     dispatcher's flash route launches B1, and B4 and B5 under grad, by the
     wrappers' counts; a head of 160 takes the padded route (B1 on heads
-    padded to 256); d = 320 is the one width no kernel takes."""
+    padded to 256); d = 320 takes the wide family over long rows, and only
+    its short rows (B10's) have no kernel."""
     g = torch.Generator(device=cuda).manual_seed(30)
     q, k, v = ((1.7 * torch.randn(1, 4, 2048, 256, generator=g, device=cuda)).to(
         torch.bfloat16).requires_grad_() for _ in range(3))
@@ -607,8 +609,11 @@ def test_attention_at_head_dim_256_launches_the_kernels(cuda):
     assert _close(A.attention(x, x, x), A.attention_reference(x, x, x), 1e-2)
     assert ops.launch_counts()["flash_fwd"] == 1
     wide = torch.zeros(1, 1, 1024, 320, device=cuda, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    assert A.attention(wide, wide, wide).shape == wide.shape
+    assert ops.launch_counts()["flash_fwd_wide"] == 1 and ops.launch_counts()["flash_fwd"] == 0
     with pytest.raises(NotImplementedError, match="no kernel"):
-        A.attention(wide, wide, wide)
+        A.attention(wide[:, :, :16], wide[:, :, :16], wide[:, :, :16])
 
 
 @pytest.mark.gpu
@@ -1284,3 +1289,227 @@ def test_ring_attention_refuses_what_b1_does_not_take(cuda):
     q = torch.randn(1, 2, 96, 64, device=cuda).to(torch.bfloat16)  # 48 rows a rank
     with pytest.raises(ValueError, match="N % 64"):
         RA.sequence_parallel_attention(q, q, q, RA.LocalRing(2))
+
+
+# ---------------------------------------------------------------------------
+# the wide family: heads above 256 lanes (csrc/flash_wide.cu; B2 and B6 past
+# their 256 cap)
+# ---------------------------------------------------------------------------
+
+WIDE_HEADS = [(512, 512), (288, 320), (384, 384), (320, 320)]
+
+
+def _check_wide(cuda, bh, n, d, dp, causal, seed):
+    """The wide B1, B4 and B5 on padded heads with the true head dim passed,
+    against the plain versions under the narrow kernels' bounds: O within
+    1e-2 * max(1, |ref|max) and 1e-2 relative L2, the LSE within 1e-3; dq,
+    dk, dv on the plain forward's O and LSE within 2e-2 * max(1, |ref|max)
+    and 1e-2 relative L2; pad lanes zeros; one launch each of the wide
+    wrappers and none of the narrow ones."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    scale = 1.0 / math.sqrt(d)
+    q, k = (_padded_heads(g, bh, n, d, dp, cuda, 1.7) for _ in range(2))
+    v, do = (_padded_heads(g, bh, n, d, dp, cuda) for _ in range(2))
+    ops.reset_launch_counts()
+    o, lse = A.flash_attention(q, k, v, causal, scale, return_lse=True, head_dim=d)
+    o_ref, lse_ref = A.attention_reference(q, k, v, causal, scale, return_lse=True)
+    assert _close(o, o_ref, 1e-2) and _rel_l2(o, o_ref) <= 1e-2
+    assert (lse - lse_ref).abs().max() <= 1e-3
+    assert not o[..., d:].any()
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    dq = A.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale, head_dim=d)
+    dk, dv = A.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, scale, head_dim=d)
+    refs = (A._dq_plain(q, k, v, do, lse_ref, delta, causal, scale),
+            *A._dkv_plain(q, k, v, do, lse_ref, delta, causal, scale))
+    for got, want in zip((dq, dk, dv), refs):
+        assert _close(got, want, 2e-2) and _rel_l2(got, want) <= 1e-2
+        assert not got[..., d:].any()
+    counts = {name: c for name, c in ops.launch_counts().items() if c}
+    assert counts == {"flash_fwd_wide": 1, "flash_bwd_dq_wide": 1, "flash_bwd_dkv_wide": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,dp", WIDE_HEADS)
+@pytest.mark.parametrize("bh", [1, 4])
+@pytest.mark.parametrize("n", [64, 192, 1280])
+def test_wide_flash_kernels(cuda, n, bh, d, dp, causal):
+    """The wide family where N is one 64-row block, three and twenty, with
+    one head and four (a tile past a head's last row must read zeros), causal
+    and not; heads of 288 padded to 320 contract over 288 lanes (18 k-steps)
+    and compute a 256-lane and a 64-lane slice; heads of 512 two full
+    slices."""
+    _check_wide(cuda, bh, n, d, dp, causal, seed=30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,dp", [(1152, 1152), (1000, 1024), (832, 832)])
+def test_wide_flash_kernels_past_resident_heads(cuda, d, dp, causal):
+    """Heads of 832 and more: B4's and B5's own rows no longer fit beside
+    two stages and stream with every step (the plan's ``resident`` False);
+    1152 is the widest head a shipped width gives (5 slices of B5)."""
+    assert not A.flash_plan("dq", 2, 192, dp, d)["resident"]
+    _check_wide(cuda, 2, 192, d, dp, causal, seed=31)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,H,d,d_out,width,norm", [
+    (2, 1000, 4, 512, 512, 7 * 4 * 512, True),   # the base U-ViT at 2 heads: 512 lanes, 7C rows
+    (8, 320, 4, 288, 320, 3 * 4 * 288, False),  # K600 @DiT/XL at 4 heads: 288 -> 320
+    (1, 256, 3, 384, 384, 3 * 3 * 384, True),
+    (1, 100, 1, 1152, 1152, 3 * 1152, True),    # the widest head of a shipped width
+    (2, 128, 2, 290, 320, 3 * 2 * 290, True),   # 290: 4-byte chunks
+])
+def test_wide_qkv_prep_and_backward(cuda, B, N, H, d, d_out, width, norm):
+    """B2 and B6 past their 256 cap, as ``chip_smoke.py`` holds them: q, k, v
+    within 2e-2 * max(1, |ref|max) and 1e-2 relative L2 with pad lanes zero;
+    dqkv within 2e-2, each fp32 table cotangent within 5e-3 and 1e-2 relative
+    L2 (the per-head norm sums over the whole row); B6 twice for the same
+    bits."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    fused = torch.randn(B, N, width, generator=g, device=cuda).to(torch.bfloat16)
+    qkv = fused[..., : 3 * H * d]
+    rope = make_rope_3d(d, (1, 1, N))
+    cos = torch.as_tensor(rope.cos, device=cuda)
+    sin = torch.as_tensor(Q.signed_sin(rope.sin), device=cuda)
+    scales = [torch.rand(d, generator=g, device=cuda) + 0.5 for _ in range(2)]
+    ops.reset_launch_counts()
+    kw = dict(q_scale=scales[0], k_scale=scales[1], norm=norm, d_out=d_out)
+    got = Q.qkv_prep(qkv, H, d, cos, sin, **kw)
+    want = Q.reference_qkv_prep(qkv, H, d, cos, sin, **kw)
+    for a, b in zip(got, want):
+        assert _close(a, b, 2e-2) and _rel_l2(a, b) <= 1e-2 and not a[..., d:].any()
+    tabs = Q.fold_qk_tables(cos, sin, *scales, dtype=torch.bfloat16)
+    grads = [torch.randn(B, H, N, d_out, generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(3)]
+    got = Q.qkv_prep_bwd(qkv, tabs, *grads, H, d, norm)
+    again = Q.qkv_prep_bwd(qkv, tabs, *grads, H, d, norm)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ops.launch_counts()["qkv_prep"] == 1 and ops.launch_counts()["qkv_prep_bwd"] == 2
+    want = Q.qkv_prep_bwd(qkv, tabs, *grads, H, d, norm, plain=True)
+    assert _close(got[0], want[0], 2e-2) and _rel_l2(got[0], want[0]) <= 1e-2
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and _close(a, b, 5e-3) and _rel_l2(a, b) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [288, 512])
+def test_wide_packed_route(cuda, d):
+    """The packed route at heads above 256: B2 -> wide B1 -> B3 forward, B7
+    -> wide B4, B5 -> B6 back, one launch each, within 2e-2 (5e-2 for the
+    gradients) relative L2 of the plain route."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    B, N, H = 1, 256, 2
+    qkv = torch.randn(B, N, 3 * H * d, generator=g, device=cuda).to(torch.bfloat16)
+    rope = make_rope_3d(d, (1, 16, 16))
+    tables = Q.fold_qk_tables(torch.as_tensor(rope.cos, device=cuda),
+                              torch.as_tensor(Q.signed_sin(rope.sin), device=cuda),
+                              dtype=torch.bfloat16)
+    go = torch.randn(B, N, H * d, generator=g, device=cuda).to(torch.bfloat16)
+
+    def run(plain):
+        x = qkv.clone().requires_grad_()
+        o = Q.attention_from_packed_qkv(x, H, d, tables, norm=True, plain=plain)
+        (dx,) = torch.autograd.grad(o, x, go)
+        return o, dx
+
+    ops.reset_launch_counts()
+    got = run(False)
+    counts = {name: c for name, c in ops.launch_counts().items() if c}
+    assert counts == {"qkv_prep": 1, "flash_fwd_wide": 1, "attn_out_collect": 1,
+                      "attn_out_scatter": 1, "flash_bwd_dq_wide": 1, "flash_bwd_dkv_wide": 1,
+                      "qkv_prep_bwd": 1}
+    want = run(True)
+    assert _rel_l2(got[0], want[0]) <= 2e-2 and _rel_l2(got[1], want[1]) <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,lanes", [(512, 512), (320, 288)])
+def test_wide_ring_hops_match_their_plain_versions(cuda, d, lanes):
+    """The wide ring entries on their own, as the narrow ones are tested: a
+    middle hop of a LocalRing of 3 (K/V ``kv_shift`` heads back) and the last
+    hop, forward within 1e-2 relative L2 and the LSE within 1e-3, the
+    gradient sums within 1e-2, pad lanes zero (the backward's past the
+    computed atoms: the random running sums fill the last atom's); the
+    forward's running LSE given is not written (the new one is another
+    tensor)."""
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    R, B, H, n = 3, 1, 2, 256
+    g = torch.Generator(device=cuda).manual_seed(34)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, k, v, do = (rand(R * B, H, n, d) for _ in range(4))
+    for t in (q, k, v, do):
+        t[..., lanes:] = 0
+    ring, scale = RA.LocalRing(R), 1.0 / math.sqrt(lanes)
+    shift = ring.kv_shift(1, q)
+    o0, lse0 = RA.ring_fwd_hop(q, k, v, None, None, 0, False, scale, head_dim=lanes, plain=True)
+
+    def rel(x, w):
+        x, w = x[..., :lanes].float(), w[..., :lanes].float()
+        return float((x - w).norm() / w.norm())
+
+    ops.reset_launch_counts()
+    for last in (False, True):
+        want = RA.ring_fwd_hop(q, k, v, o0.clone(), lse0.clone(), shift, last, scale, plain=True)
+        lse_in = lse0.clone()
+        got = RA.ring_fwd_hop(q, k, v, o0.clone(), lse_in, shift, last, scale, head_dim=lanes)
+        assert torch.equal(lse_in, lse0)
+        assert rel(got[0], want[0]) <= 1e-2 and (got[1] - want[1]).abs().max() <= 1e-3
+        if last:
+            assert got[0].dtype == torch.bfloat16 and not got[0][..., lanes:].any()
+    delta = (do.float() * o0.to(torch.bfloat16).float()).sum(-1, keepdim=True)
+    sums = tuple(rand(R * B, H, n, d, dtype=torch.float32) for _ in range(3))
+    for last in (False, True):
+        want = RA.ring_bwd_hop_plain(q, k, v, do, lse0, delta, *(t.clone() for t in sums), shift,
+                                     last, scale)
+        dq = RA.ring_dq_hop(q, k, v, do, lse0, delta, sums[0].clone(), shift, last, scale,
+                            head_dim=lanes)
+        dk, dv = RA.ring_dkv_hop(q, k, v, do, lse0, delta, sums[1].clone(), sums[2].clone(),
+                                 shift, last, scale, head_dim=lanes)
+        for x, w in zip((dq, dk, dv), want):
+            assert x.dtype == w.dtype and rel(x, w) <= 1e-2
+            if last:
+                assert not x[..., -(-lanes // 64) * 64:].any()
+    counts = {name: c for name, c in ops.launch_counts().items() if c}
+    assert counts == {"ring_fwd_wide": 2, "ring_dq_wide": 2, "ring_dkv_wide": 2}
+
+
+@pytest.mark.gpu
+def test_wide_ring_attention(cuda):
+    """Ring attention at heads of 512 on a LocalRing of 2: R launches of each
+    wide ring entry, O, dq, dk, dv within 1e-2 relative L2 of the plain
+    ring."""
+    from dfot_tpu_torch.ops import ring_attention as RA
+
+    g = torch.Generator(device=cuda).manual_seed(35)
+    q, k, v, do = (torch.randn(1, 2, 512, 512, generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    ring = RA.LocalRing(2)
+
+    def run(plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = RA.sequence_parallel_attention(*leaves, ring, plain=plain)
+        return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+    ops.reset_launch_counts()
+    got = run(False)
+    counts = {name: c for name, c in ops.launch_counts().items() if c}
+    assert counts == {"ring_fwd_wide": 2, "ring_dq_wide": 2, "ring_dkv_wide": 2}
+    for x, w in zip(got, run(True)):
+        assert _rel_l2(x, w) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_short_rows_above_256_raise_on_the_card(cuda):
+    """Short rows at a head dim above 256 (B10's ``_small_n_kernel`` in the
+    JAX package) have no kernel of the port yet: a CUDA tensor raises, with
+    no plain fallback; ``plain`` computes."""
+    x = torch.zeros(1, 2, 16, 320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="queue B"):
+        A.attention(x, x, x)
+    assert A.attention(x, x, x, plain=True).shape == x.shape

@@ -195,7 +195,7 @@ def test_prep_bwd_plan_at_the_xl_and_flagship_shapes():
 
 
 @pytest.mark.parametrize("B,N,H,d,dp,chunk", [(1, 64, 1, 64, 64, 4), (1, 64, 1, 63, 64, 2),
-                                              (1, 64, 1, 258, 258, 2), (1, 64, 1, 64, 32, 8),
+                                              (1, 64, 1, 1282, 1282, 2), (1, 64, 1, 64, 32, 8),
                                               (1, 64, 1, 36, 36, 8), (0, 64, 1, 64, 64, 8),
                                               (1, 0, 1, 64, 64, 8), (1, 64, 1, 64, 68, 8)])
 def test_prep_bwd_plan_refuses_what_the_kernel_refuses(B, N, H, d, dp, chunk):
@@ -216,6 +216,15 @@ def test_the_c_sources_plan_with_the_same_constants():
     b6 = _constants("qkv_prep_bwd.cu")
     assert (b6["kThreads"], b6["kStages"], b6["kSmCount"], b6["kBlocksPerSm"]) == (
         Q.PREP_BWD_THREADS, Q.PREP_BWD_STAGES, Q.SM_COUNT, Q.PREP_BWD_BLOCKS_PER_SM)
+    # the widest heads B2 and B6 take, B6's wide plan, and the wide flash
+    # family's plan (csrc/flash_wide.cu:make_plan against flash_plan)
+    assert (b6["kWideStages"], b6["kWideBlocksPerSm"], b6["kMaxHeadDim"]) == (
+        Q.PREP_BWD_WIDE_STAGES, Q.PREP_BWD_WIDE_BLOCKS_PER_SM, Q.PREP_MAX_HEAD_DIM)
+    assert _constants("qkv_prep.cu")["kMaxHeadDim"] == Q.PREP_MAX_HEAD_DIM
+    wide = _constants("flash_wide.cu")
+    assert (wide["kRows"], wide["kSliceAtoms"] * 64, wide["kMaxStages"], wide["kSmemPerBlock"],
+            wide["kBarrier"]) == (A.FLASH_WIDE_ROWS, A.FLASH_WIDE_SLICE, A.FLASH_WIDE_MAX_STAGES,
+                                  A.SMEM_PER_BLOCK, 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

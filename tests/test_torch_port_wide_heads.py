@@ -1,0 +1,321 @@
+"""Heads wider than 256 lanes in the port, on the CPU, against the JAX package.
+
+The JAX package gives every head dim that is a multiple of 64 after padding
+to its Pallas kernels (``_blocks_ok``, ``_padded_flash``); the port takes
+them on the wide family of B1, B4 and B5 (``csrc/flash_wide.cu``) and on B2
+and B6 past their old 256 cap. On the CPU every wrapper runs its kernel's
+plain version, held here against the JAX package's Pallas kernels in
+interpret mode on the same seeded fp32 inputs:
+
+- attention at (1, 2, 256, d) for d = 384 and 512 and heads of 288 padded
+  to 320, causal and not: O and the LSE within 2e-5 (sums over 256 keys in
+  another order), dq, dk, dv against ``jax.vjp`` within 1e-5 relative L2;
+- ``qkv_prep`` and its VJP at 2 heads of 288 (padded to 320) and of 512,
+  with the norm on and off: 1e-5 absolute (elementwise), the gradients
+  within 1e-5 relative L2;
+- a tiny DiT3D (hidden 576, 2 heads of 288, depth 2) forward and every
+  gradient leaf against the JAX model on its fused Pallas route, through
+  ``import_dit3d_params``: 1e-4 and 2e-4 relative (the DiT tests' bounds);
+  its weights and a tiny UViT3DPose's with a head of 512 at level 3
+  carried between the packages bit for bit, the U-ViT's forward within
+  1e-4 relative of the JAX model's, reference and fused routes;
+- the wide plans at every multiple of 64 from 320 to 1152 (and B6's up to
+  1152), and the dispatcher computing every shape on the CPU, the
+  short-row ones too.
+
+The CUDA kernels themselves are tested on the card by
+``tests/test_torch_port_gpu.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dfot_tpu.models import dit as JD
+from dfot_tpu.ops import attention as JA
+from dfot_tpu.ops import qkv_prep as JQ
+from dfot_tpu.utils.torch_ckpt import import_dit3d_params, import_uvit3d_params
+from dfot_tpu_torch.models import dit as TD
+from dfot_tpu_torch.ops import attention as TA
+from dfot_tpu_torch.ops import qkv_prep as TQ
+from dfot_tpu_torch.utils.weights import (
+    dit3d_state_dict_from_flax,
+    init_random_weights,
+    uvit3d_state_dict_from_flax,
+)
+from torch_port_helpers import POSE_DIM, build_pair, one_thread, tiny_spec
+
+OUT_ATOL = 2e-5     # attention O and LSE
+GRAD_RTOL = 1e-5    # attention and qkv_prep gradients, relative L2
+PREP_ATOL = 1e-5    # qkv_prep, elementwise
+MODEL_RTOL, MODEL_GRAD_RTOL = 1e-4, 2e-4
+WIDE = tuple(range(320, 1153, 64))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def rel_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512, 288])
+def test_wide_attention_matches_jax(d, causal):
+    """O, the LSE and dq, dk, dv of the port's plain attention at heads of
+    384 and 512 (``flash_attention``) and of 288 (``attention``'s
+    ``"padded_flash"``, 288 of 320 lanes) against the JAX package's Pallas
+    flash attention in interpret mode (``_flash_forward`` for the LSE,
+    ``jax.vjp`` of ``flash_attention`` / ``_padded_flash`` for the
+    gradients)."""
+    rng = np.random.default_rng(40 + d)
+    B, H, N = 1, 2, 256
+    q, k, v, do = (rng.standard_normal((B, H, N, d)).astype(np.float32) for _ in range(4))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    dp = TA.padded_head_dim(d)
+    assert dp == d + (-d % 64) and TA.attention_route(N, d, causal) == (
+        "flash" if d == dp else "padded_flash")
+    if d == dp:
+        jfn = lambda a, b, c: JA.flash_attention(a, b, c, causal, 128, 128, True)  # noqa: E731
+        want_o, want_lse = JA._flash_forward(jq, jk, jv, causal, 128, 128, True, return_lse=True)
+        got_o, got_lse = TA.flash_attention(_t(q), _t(k), _t(v), causal, return_lse=True)
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=OUT_ATOL)
+    else:
+        jfn = lambda a, b, c: JA._padded_flash(a, b, c, causal, True)  # noqa: E731
+        got_o = TA.attention(_t(q), _t(k), _t(v), causal)
+        want_o = jfn(jq, jk, jv)
+    assert got_o.shape == (B, H, N, d)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=OUT_ATOL)
+
+    _, vjp = jax.vjp(jfn, jq, jk, jv)
+    want = vjp(jnp.asarray(do))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    out = TA.attention(*leaves, causal)
+    got = torch.autograd.grad(out, leaves, _t(do))
+    for name, g, w in zip("qkv", got, want):
+        assert rel_err(g.numpy(), w) < GRAD_RTOL, name
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 512, 320), (2, 2, 16, 320)])
+def test_cpu_attention_computes_every_shape(shape):
+    """The repair: on the CPU ``attention`` computes what the JAX package
+    computes, long rows at a head dim of 320 (``"flash"``, the wide family's
+    plain version) and short rows above 256 (``"unported"``: B10's plain
+    version; only a CUDA tensor is refused there), as the JAX package's
+    ``attention`` (XLA on the CPU) within 2e-5."""
+    rng = np.random.default_rng(50)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    want = JA.attention(*(jnp.asarray(a) for a in (q, k, v)))
+    got = TA.attention(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OUT_ATOL)
+    route = TA.attention_route(shape[2], shape[3])
+    assert route == ("flash" if shape[2] > 32 else "unported")
+
+
+# ---------------------------------------------------------------------------
+# qkv_prep (B2) and its VJP (B6)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("d", [288, 512])
+def test_wide_qkv_prep_and_vjp_match_jax(d, norm):
+    """B2's plain version at 2 heads of 288 (padded to 320, the padding both
+    packages now share) and of 512, with the per-head norm over the whole
+    row and learned scales, against ``JQ.qkv_prep(interpret=True)``; its
+    VJP (B6's plain version: dqkv and, through the folded tables, the
+    scales' gradients) against ``jax.vjp``."""
+    rng = np.random.default_rng(60 + d)
+    B, N, H = 1, 128, 2
+    dp = TA.padded_head_dim(d)
+    qkv = rng.standard_normal((B, N, 3 * H * d)).astype(np.float32)
+    ang = rng.standard_normal((N, d // 2))
+    cos, sin = (np.repeat(f(ang), 2, axis=1).astype(np.float32) for f in (np.cos, np.sin))
+    ss = JQ.signed_sin(sin)
+    qs, ks = (1 + 0.1 * rng.standard_normal(d).astype(np.float32) for _ in range(2))
+    gs = [rng.standard_normal((B, H, N, dp)).astype(np.float32) for _ in range(3)]
+    for g in gs:
+        g[..., d:] = 0
+
+    def jfn(x, a, b):
+        return JQ.qkv_prep(x, H, d, jnp.asarray(cos), jnp.asarray(ss), q_scale=a, k_scale=b,
+                           norm=norm, d_out=dp, interpret=True)
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(qkv), jnp.asarray(qs), jnp.asarray(ks))
+    want_g = vjp(tuple(jnp.asarray(g) for g in gs))
+    leaves = [_t(a).requires_grad_() for a in (qkv, qs, ks)]
+    got = TQ.qkv_prep(leaves[0], H, d, _t(cos), _t(ss), q_scale=leaves[1], k_scale=leaves[2],
+                      norm=norm, d_out=dp)
+    for g, w in zip(got, want):
+        assert g.shape == (B, H, N, dp) and not g[..., d:].any()
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=PREP_ATOL)
+    got_g = torch.autograd.grad(got, leaves, [_t(g) for g in gs])
+    for name, g, w in zip(("qkv", "q_scale", "k_scale"), got_g, want_g):
+        assert rel_err(g.numpy(), w) < GRAD_RTOL, name
+
+
+# ---------------------------------------------------------------------------
+# a DiT3D with heads of 288
+# ---------------------------------------------------------------------------
+
+
+def test_tiny_dit3d_with_heads_of_288_matches_jax():
+    """DiT3D at hidden 576 with 2 heads of 288 and depth 2 (256 tokens: 4
+    frames of 8 x 8 patches), seeded random weights carried to the JAX
+    model by ``import_dit3d_params(port.state_dict())``: the port takes the
+    packed route (``attention_route`` answers ``"padded_flash"``, B2 pads to
+    320) and the JAX model its fused Pallas route in interpret mode
+    (``force_fused_interpret``); the forward and every gradient leaf."""
+    kw = dict(hidden_size=576, depth=2, num_heads=2, patch_size=2, max_temporal_length=4,
+              variant="full", pos_emb_type="rope_3d")
+    pm = TD.DiT3D(TD.DiTSpec(**kw), 3, (16, 16))
+    init_random_weights(pm, torch.Generator().manual_seed(70))
+    jm = JD.DiT3D(spec=JD.DiTSpec(**kw), x_channels=3, resolution=(16, 16))
+    state = {n: p.detach().numpy() for n, p in pm.state_dict().items()}
+    flax = import_dit3d_params(state)
+    back = dit3d_state_dict_from_flax(flax, None, pm.spec.patch_size)
+    assert set(back) == set(state)
+    for n, v in back.items():
+        np.testing.assert_array_equal(v.numpy(), state[n], err_msg=n)
+    params = jax.tree_util.tree_map(jnp.asarray, flax)
+    assert TA.attention_route(256, 288) == "padded_flash"
+    rng = np.random.default_rng(71)
+    x = rng.standard_normal((1, 4, 16, 16, 3)).astype(np.float32)
+    k = rng.integers(0, 1000, (1, 4)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p):
+        out = jm.apply({"params": p}, jnp.asarray(x), jnp.asarray(k))
+        return jnp.mean(out * jnp.asarray(g)), out
+
+    JQ.force_fused_interpret(True)
+    try:
+        assert JQ.fused_qkv_eligible(256, 288, 2)
+        (want_loss, want_out), want = jax.value_and_grad(jloss, has_aux=True)(params)
+    finally:
+        JQ.force_fused_interpret(False)
+    want = dit3d_state_dict_from_flax(jax.device_get(want), None, pm.spec.patch_size)
+    pm.train()
+    out = pm(_t(x), _t(k))
+    assert rel_err(out.detach().numpy(), want_out) < MODEL_RTOL
+    loss = (out * _t(g)).mean()
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-5, abs=1e-8)
+    got = {n: p.grad for n, p in pm.named_parameters()}
+    assert set(got) == set(want)
+    bad = {n: e for n in want if (e := rel_err(got[n].numpy(), want[n].numpy())) > MODEL_GRAD_RTOL}
+    assert not bad, bad
+
+
+def test_tiny_uvit_with_a_head_of_512_matches_jax():
+    """UViT3DPose whose level 3 has one head of 512 lanes (64 px: 128 tokens,
+    the wide family's route): the JAX parameters carried into the port by
+    ``uvit3d_state_dict_from_flax`` and back by ``import_uvit3d_params`` bit
+    for bit, and the forward against the JAX model on its reference
+    attention and on its fused Pallas route (interpret mode)."""
+    spec = tiny_spec(channels=(64, 64, 64, 512), num_heads=1)
+    jm, jv, pm = build_pair(spec, 64, seed=72)
+    assert dict(pm.named_parameters())["mid_blocks.0.q_norm.weight"].shape == (512,)
+    assert TA.attention_route(4 * 4 * 8, 512) == "flash"
+    params = jax.device_get(jv["params"])
+    back = import_uvit3d_params(
+        {n: v.numpy() for n, v in uvit3d_state_dict_from_flax(params, None, spec, 3,
+                                                              POSE_DIM).items()},
+        spec.num_updown_blocks, len(spec.channels), spec.patch_size)
+    flat = dict(jax.tree_util.tree_leaves_with_path(back))
+    for path, a in jax.tree_util.tree_leaves_with_path(params):
+        np.testing.assert_array_equal(np.asarray(flat[path]), np.asarray(a), err_msg=str(path))
+    rng = np.random.default_rng(73)
+    x = rng.standard_normal((1, 8, 64, 64, 3)).astype(np.float32)
+    k = rng.uniform(-2, 2, (1, 8)).astype(np.float32)
+    pose = rng.standard_normal((1, 8, 64, 64, POSE_DIM)).astype(np.float32)
+    with torch.no_grad():
+        got = pm(_t(x), _t(k), _t(pose))
+    for fused in (False, True):
+        JQ.force_fused_interpret(fused)
+        try:
+            want = jax.jit(jm.apply)(jv, jnp.asarray(x), jnp.asarray(k), jnp.asarray(pose), None)
+        finally:
+            JQ.force_fused_interpret(False)
+        assert rel_err(got.numpy(), want) < MODEL_RTOL, fused
+
+
+# ---------------------------------------------------------------------------
+# the plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv", "ring_fwd", "ring_dq", "ring_dkv"])
+def test_wide_plans_fit_at_every_width(kernel):
+    """At every multiple of 64 from 320 to 1152, at the true head dim and
+    at 48 lanes less (a head padded to the width): shared memory within one
+    H100 block's 227 KB and holding consumer 1's partials for the merge;
+    the 256-lane slices covering the computed lanes' atoms; at least two
+    stages; the grid within CUDA's limits (B5: a dV and a dK block a slice);
+    the ring entries on their kernel's plan; the block's own rows resident
+    until they no longer fit beside two stages."""
+    base = TA.RING_PLAN_OF.get(kernel, kernel)
+    for d in WIDE:
+        for head_dim in (d, d - 48):
+            plan = TA.flash_plan(kernel, 8 * 16, 8192, d, head_dim)
+            assert plan == TA.flash_plan(base, 8 * 16, 8192, d, head_dim)
+            lanes = -(-head_dim // 16) * 16
+            assert plan["lanes"] == lanes and plan["k_steps"] == lanes // 16
+            assert TA.FLASH_WIDE_MERGE_BYTES < plan["smem_bytes"] <= TA.SMEM_PER_BLOCK
+            assert plan["atoms"] == -(-lanes // 64) <= d // 64
+            assert 4 * (plan["slices"] - 1) < plan["atoms"] <= 4 * plan["slices"]
+            assert 2 <= plan["stages"] <= TA.FLASH_WIDE_MAX_STAGES
+            x, y, z = plan["grid"]
+            assert (x, y) == (8192 // 64, 8 * 16) and y <= 65535
+            assert z == plan["slices"] * (2 if base == "dkv" else 1) <= 65535
+            used = plan["resident_bytes"] + plan["stages"] * plan["stage_bytes"]
+            assert plan["smem_bytes"] == 1024 + max(used, TA.FLASH_WIDE_MERGE_BYTES) + 8 * (
+                1 + 2 * plan["stages"])
+            slots = 1 if base == "fwd" else 2
+            resident = 1024 + slots * plan["atoms"] * TA.FLASH_WIDE_ATOM_BYTES + 2 * (
+                slots * TA.FLASH_WIDE_ATOM_BYTES + 16) + 8 <= TA.SMEM_PER_BLOCK
+            assert plan["resident"] == resident
+
+
+def test_wide_plans_at_the_paths_sites():
+    """The two paths' wide sites: the base U-ViT's level 3 at 2 heads (heads
+    of 512: two full slices, every block's own rows resident) and K600
+    @DiT/XL at 4 heads (288 of 320 lanes: a 256-lane and a 64-lane slice,
+    18 k-steps)."""
+    w = TA.flash_plan("dq", 2 * 2, 2048, 512)
+    assert (w["slices"], w["atoms"], w["resident"], w["stages"]) == (2, 8, True, 6)
+    x = TA.flash_plan("fwd", 8 * 4, 1280, 320, 288)
+    assert (x["slices"], x["atoms"], x["ks_last"], x["k_steps"]) == (2, 5, 2, 18)
+    assert TA.flash_plan("dkv", 8 * 4, 1280, 320, 288)["grid"] == (20, 32, 4)
+
+
+@pytest.mark.parametrize("chunk", [8, 2])
+def test_wide_prep_bwd_plans(chunk):
+    """B6's plan for every even head dim from 258 to 1152 (a multiple of 8
+    where 16-byte chunks are asked for): a warp a row, the chunks a lane
+    holds cover the row, the groups' fp32 table partials fit the rings'
+    shared memory, which fits a block; the narrow plans as they were."""
+    for d in range(258 if chunk == 2 else 264, 1153, chunk):
+        plan = TQ.prep_bwd_plan(8, 1280, 4, d, TA.padded_head_dim(d), chunk)
+        assert plan["lanes"] == 32 and plan["chunks"] * 32 * chunk >= d
+        assert plan["partials_bytes"] <= plan["smem_bytes"] <= TA.SMEM_PER_BLOCK
+        assert plan["stages"] == TQ.PREP_BWD_WIDE_STAGES
+    narrow = TQ.prep_bwd_plan(8, 1280, 16, 72, 128, chunk)
+    assert (narrow["stages"], narrow["smem_bytes"]) == (6, 6 * TQ.PREP_BWD_STAGE_BYTES)
+    with pytest.raises(ValueError):
+        TQ.prep_bwd_plan(1, 128, 1, TQ.PREP_MAX_HEAD_DIM + chunk, 2048, chunk)
