@@ -47,7 +47,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    bf16 compute) on the kernel route and on the plain route and compares
    the loss and the gradients of named parameters;
 8. drives the training path: ``make_train_state`` + ``make_train_step`` of
-   the flagship recipe, a warm-up step and then five steps on a seeded
+   the flagship recipe, a warm-up step and then two steps on a seeded
    synthetic batch, launch counts reset just before and read just after,
    time per step and peak memory;
 9. takes one more train step under ``torch.profiler``;
@@ -55,16 +55,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     the narrow model of step 3 over 72 frames from one (9 keyframes in 2
     sliding windows, two interpolation rounds of 8 chunks: 18 windows) on
     the kernel route, the plain route and the control; then, at full width
-    and depth, the two-image interpolation of BASELINE.json config 2 (8
-    frames, vanilla HG at 4.0, 50 DDIM steps, twice, both timed, the second
-    counted: frames 0 and 7 must come back bit for bit)
-    and config 3's rollout cut from 200 to 40 frames (bench.py's settings
-    but a keyframe density of 0.25: 10 keyframes by stabilized vanilla HG
+    with the depth cut to ``FLAGSHIP_CUT_DEPTH`` (full depth until PR 24),
+    the two-image interpolation of BASELINE.json config 2 (8 frames,
+    vanilla HG at 4.0, 50 DDIM steps: frames 0 and 7 must come back bit for
+    bit) and config 3's rollout cut from 200 to 40 frames (bench.py's
+    settings but a keyframe density of 0.25: 10 keyframes by stabilized vanilla HG
     in 2 sliding windows, one interpolation round of 9 one-chunk windows
     by vanilla HG at 1.5: 11 windows of 50 steps), each with its launch counts reset
     before and required after; the rollout's wall time, frames/s, phase
     split and peak memory, its keyframes held bit for bit against the
-    keyframe pass's output, and its wall against 18 times step 5's window;
+    keyframe pass's output, and its wall against 11 times the cut model's
+    8-frame window, timed just before;
 11. builds K600 @DiT/XL at full width and depth (DiT3D, hidden 1152, depth
     28, 16 heads of 72, 1280 tokens; its parameter count is printed) and
     runs a batch-8 forward and a forward + backward on the kernel route and
@@ -73,29 +74,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     latent frames (2 context), launch counts reset before and required
     after, wall time and peak memory; then a shorter window under
     ``torch.profiler``;
-13. drives the XL training path: a warm-up step and five ``train_step``s at
+13. drives the XL training path: a warm-up step and two ``train_step``s at
     batch 8 (every block checkpointed), launch counts required, time per
     step and peak memory; then one more step under ``torch.profiler``;
 14. runs the factorized-attention DiT (hidden 384, 6 heads of 64, depth 12)
     on the Minecraft latent shape, batch 8, and the flagship U-ViT with
     axial transformer blocks at a cut depth: route checks forward and
     forward + backward, then one forward and one forward + backward with
-    launch counts required (kernel B10 on both), and the same once more
-    under ``torch.profiler``; the axial U-ViT's gradients also against an
-    fp32 plain-route witness;
+    launch counts required (kernel B10 on both); the axial U-ViT's
+    gradients also against an fp32 plain-route witness;
 15. builds UViT3DPose at the backbone's own published widths
     (``uvit3d_pose_base``: channels 128-1024, 4 heads, so level 3 has heads
     of 256 over 2048 tokens) and runs steps 4-9 on it: a full-width
     forward (B = 2) with its control, a forward + backward (B = 1) with the
     zero-dq control, the 50-step 8-frame window with its launch counts
-    required, a profiled 10-step window, six train steps with their launch
-    counts required, a profiled step;
+    required, a profiled 10-step window, a warm-up and two train steps with
+    their launch counts required, a profiled step;
 16. runs that model with axial blocks at level 3 at a cut depth: route
-    checks, the fp32 gradient witness, launch counts (B10 at d = 256), a
-    profile;
+    checks, the fp32 gradient witness, launch counts (B10 at d = 256);
 17. runs the README's RE10K validation through the port's entry point,
     ``dfot_tpu_torch.__main__.run(argv)`` (``python -m dfot_tpu_torch``),
-    on the flagship at full width and depth: it writes a seeded random fp32
+    on the flagship at full width, its depth cut to ``FLAGSHIP_CUT_DEPTH``
+    (``CUT_DEPTH_ARGV``, as step 18; full depth until PR 24): it writes a
+    seeded random fp32
     UViT3DPose as an upstream-layout ``.ckpt`` under ``chiprun_out/``
     (deleted after), runs the command with ``load=`` that file, a batch of
     2 and one batch, the README's metric list as composed (fvd, is, fid,
@@ -128,21 +129,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     mid-run validation and the profiled step's device time by class. Step 2
     also holds B1-B7 at the flagship's two sites at this batch, the plain
     attention one batch entry at a time;
-19. builds FacMatDiT/L (factorized matrix attention, 257.8M) and
-    FullMatDiT/XL at full width and depth on UCF-101's latents (16 frames
+19. builds FacMatDiT/L (factorized matrix attention) and FullMatDiT/XL at
+    full width, their 12 blocks cut to ``MATRIX_DEPTH`` (4), on UCF-101's
+    latents (16 frames
     of 8 x 8 x 32) through ``build_algorithm(load_config(argv))`` with
     seeded random weights: for FacMatDiT/L route checks forward and forward
     + backward at the validation batch of 32, the 50-step window at that
     batch (B8 and B10 from the spatial blocks, nothing from the matrix
-    blocks) and a profiled 10-step one, five train steps at the training
+    blocks) and a profiled 10-step one, two train steps at the training
     batch of 32 (every block checkpointed, B8, B9, B10) and a profiled
     one; for FullMatDiT/XL the window, a profiled 10-step one and one train
     step (B8 and B9 only in the final layer). Then the flagship's 8-frame
-    vanilla-HG window with reconstruction guidance (a forward and a
-    backward of the model each step, B1-B7): a 3-step window on the kernel
-    route, the plain route and without the guidance gradient (the
-    control), then the 50-step window with its launch counts, wall time
-    against step 5's window and peak memory, and a profiled 10-step one.
+    vanilla-HG window (depth cut to ``FLAGSHIP_CUT_DEPTH``) with
+    reconstruction guidance (a forward and a backward of the model each
+    step, B1-B7): a 3-step window on the kernel route, the plain route and
+    without the guidance gradient (the control), then the 50-step window
+    with its launch counts, wall time against the same model's unguided
+    50-step window and peak memory, and a profiled 3-step one.
     Last, the base-width axial U-ViT of step 16 on the sampling route's
     precomputed pose conditioning (level 3's pooled pose map) against the
     raw ray maps, with the level maps dropped as the control, B1-B3 and
@@ -150,8 +153,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     FacMatDiT/L's spatial shapes;
 20. drives the latent path (``run_latent_paths``): the DMLab recipe's DC-AE
     f8c32 at its published widths on seeded random weights, a (2 x 16, 64,
-    64, 3) batch encoded and decoded twice (the same bits) and held against
-    the same weights on the CPU in fp32 (relative L2 1e-4), with the pixel
+    64, 3) batch encoded and decoded twice (the same bits), 8 of its frames
+    held against the same weights on the CPU in fp32 (relative L2 1e-4), with the pixel
     shuffles in the wrong channel order as the control, timed with fp32
     and with TF32 convolutions; a DMLab-layout directory of seeded ``.npz``
     videos under ``build/latent/`` (360 clips of 16 frames: 11 batches of
@@ -170,11 +173,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     then one validation batch decoded and scored; B1-B9 required launched
     in each of the three training runs. Step 2 also holds B1-B7 at the
     DMLab site (32, 6, 256, 64) and B8, B9 at C = 384 over 32 x 256 tokens;
-21. (``run_slice15_paths``) K600 @DiT/XL at full depth and the flagship
-    (level 3 checkpointed) under the remat policies none, dots, attn and
+21. (``run_slice15_paths``) K600 @DiT/XL and the flagship at full width,
+    cut in depth (``K600_DEPTH``, ``FLAGSHIP_CUT_DEPTH``; level 3
+    checkpointed) under the remat policies none, dots, attn and
     dots_attn: the loss and the gradients of named parameters under each
     against none at B = 2 (within ``GRAD_REL_TOL``), with the outputs the
-    attn policy keeps scaled by 1.5 as the control; five train steps at
+    attn policy keeps scaled by 1.5 as the control; two train steps at
     batch 8 under each (a dots policy at the largest batch its kept
     outputs, counted before it runs, leave room for), the launch counts of
     the policy (B3 and B10 not run again under attn, as in the JAX jaxpr),
@@ -183,8 +187,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     (``experiment=video_latent_learning``): K600's VideoVAE and
     Minecraft's ImageVAE at full width on seeded directories in their
     layouts, at the recipes' batches (4, 8) or the largest their memory
-    allows (from steps at 1 and 2 clips, printed), six steps, the
-    adversarial term from the third; the card's first adversarial step
+    allows (from steps at 1 and 2 clips, printed), three steps, the
+    adversarial term on the third; the card's first adversarial step
     against the CPU's in fp32 on one clip (1e-4; control: the step
     without the adversarial term), and the batch statistics a training
     forward folds into the discriminator's running statistics (1e-4;
@@ -202,7 +206,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     DFoT (@DiffDiT/B on UCF-101 latents) on each merge, the same checks on
     the merged stream (the interleaved merge against the plain 3-D table
     over 2T frames as well), window and steps, and its FacMatDiT leaf;
-    FAR-DiT (@FARDiT/B) and DiT1D (taichi's tokens) in bf16 against fp32
+    FAR-DiT (@FARDiT/B) and DiT1D (taichi's tokens, depth cut to
+    ``DIT1D_DEPTH``; the FacMatDiT leaf to ``MATRIX_DEPTH``) in bf16 against fp32
     on the card with a control each, window and steps, launching no
     kernel; UNet3D through ``run(argv)`` on a seeded DMLab-layout
     directory. Step 2 also holds B1, B4 and B5 at UNet3D's sites (heads of
@@ -211,8 +216,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 23. (``run_metric_paths``) the metric suite: I3D, InceptionV3 at 299 px,
     LPIPS, CLIP B/32 and L/14 and DINO B/16 on seeded weights, each on the
-    card against the CPU in fp32 with TF32 off at the flagship
-    validation's batch (1e-4 relative L2; controls: I3D's SAME padding made
+    card against the CPU in fp32 with TF32 off on ``NETWORK_CHECK_VIDEOS``
+    (one video of 4 frames at 256 px; 1e-4 relative L2; controls: I3D's SAME padding made
     symmetric, a BatchNorm statistic of Inception's stem changed, LPIPS's
     first head and CLIP's and DINO's first norm scaled), and timed a call;
     K600's validation as composed (``[vbench, fvd, is, fid, lpips, mse,
@@ -225,14 +230,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 24. (``run_a15c_paths``) RAFT, AMT-S, PIPs2 and MUSIQ at their published
     widths on seeded witness weights (output heads scaled so that flows and
     tracks move a few pixels), each on the card against the CPU in fp32
-    with TF32 off at the shapes the metrics give it (RAFT: a video's 7
-    pairs at 224^2, 20 iterations; AMT-S: its 3 even-frame pairs at 256^2;
-    PIPs2: 16 frames at 256^2, 400 points, 16 iterations; MUSIQ: 16 frames
-    at 256^2, three scales; ``A15C_CPU_REL_TOL``; controls: the correlation
+    with TF32 off at the metrics' per-frame shapes on
+    ``NETWORK_CHECK_VIDEOS`` (RAFT: a video's 3 pairs at 224^2, 20
+    iterations; AMT-S: its even-frame pair at 256^2; PIPs2: 8 frames at
+    256^2, 400 points, 16 iterations; MUSIQ: 4 frames at 256^2, three
+    scales; ``A15C_CPU_REL_TOL``; controls: the correlation
     window's offsets swapped, AMT-S's transposed convolutions unflipped,
     MUSIQ's stem padded symmetrically), and timed a call; K600's validation
-    as composed with the four networks' ``.npz`` files (the JAX registry's
-    flattened trees) in ``metrics_weights_dir``: motion_smoothness through
+    with the four networks' ``.npz`` files (the JAX registry's flattened
+    trees) in ``metrics_weights_dir``, its list cut to VBench (step 23 ran
+    the rest on the same videos and weights): motion_smoothness through
     AMT-S and dynamic_degree through RAFT, logged without
     ``_uncalibrated``, imaging_quality through MUSIQ on its predictions,
     B1-B3 and B8 launched; ``VideoMetric(["fvmd"])`` tracking with PIPs2
@@ -264,16 +271,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 26. (``run_slice20_paths``) Megatron tensor parallelism on the one card:
     :data:`TP_FLAGSHIP` processes sharing the H100 over a gloo group
     (:data:`TP_WORKER`; NCCL puts no two ranks on one card) run the cut
-    flagship's 50-step window and 2 train steps at batch 8 with 3 of its 9
-    heads a rank, K600 @DiT/XL's 2 train steps with 8 of 16 on two of
-    them; each against the one-process run of the same seeds
+    flagship's window (``TP_WINDOW_STEPS``, 10 DDIM steps) and 2 train steps
+    at batch 8 with 3 of its 9 heads a rank, K600 @DiT/XL's (depth cut to
+    ``K600_DEPTH``) 2 train steps with 8 of 16 on two of them; each against
+    the one-process run of the same seeds
     (``WINDOW_REL_TOL``; the losses ``GRAD_LOSS_TOL``, the gradient norms
     ``GRAD_REL_TOL``), each rank's launches equal to one process's, the
     share of the last step in gloo's all-reduces, peak memory a rank; the
     serving export (``tools/export_sampler.py``) of the cut flagship's step,
     its window run by ``--load`` in a fresh process against the in-process
     sampler (bit-equal, or its difference); the UCF-101 recipe (online DC-AE,
-    64 px, batch 32, 11 loader workers) through ``run(argv)`` for 3 steps
+    64 px, batch 32, 11 loader workers) through ``run(argv)`` for 2 steps
     with and without its EDM ``AugmentPipe``, the host's wait a batch; the
     attention maps of K600 @DiT/XL (depth cut to 2) captured on the card
     against the CPU (:data:`CAPTURE_TOL`).
@@ -294,7 +302,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``build_algorithm(load_config(argv))`` on seeded random weights: a
     50-step window (path 1: the 8-frame window, vanilla HG at 4; path 2: 8
     videos) and 2 train steps (batch 1; batch 8, checkpointed), each with
-    its launch counts required.
+    its launch counts required; B10's wide entry (heads above 256 lanes,
+    the head streamed in 64-lane chunks) at paths 3 and 4's sites and at
+    edges of N, d and the item count, bf16 and fp32, against its plain
+    version with three controls (the scale of a head twice as wide, a
+    softmax that counts the pad keys at N = 5 and 8, scores without the
+    last 64-lane chunk); then path 3, the base-width axial U-ViT at 2 heads
+    (level 3's spatial attention on the wide family, its temporal attention
+    over 8 frames on B10's wide entry), and path 4, the factorized DiT at
+    one head of 384 (B10's wide entry both ways), each with route checks
+    forward and forward + backward and launch counts required.
 
 Steps 3, 4, 7, 10, 11, 14, 15, 16, 19, 20, 21, 22, 23, 24, 25 and 27 also run controls (an attention that
 ignores q and k; a backward whose dq is zero; a LayerNorm + modulate that skips the
@@ -307,19 +324,29 @@ unless the bound rejects them. Any failed check
 exits non-zero. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke.json`` in ``OUT_DIR``, the seconds since the start of every
-line logged to ``smoke_timeline.tsv`` beside it. Cut in depth for the
-smoke's time: config 3's rollout, 200 frames (48 windows) to 40 (11 windows;
-72 and 18 until PR 19);
-the guided window's profile, 10 steps to 3; the remat sweep, 5 train steps
-a policy to 3, and the sweep's flagship's depth (``FLAGSHIP_CUT_DEPTH``);
-VAE training, 6 steps to 4, its card-vs-CPU clip to 64 x 64 pixels;
-phase 25's ring window timed once each way, and its flagship's depth
-(``FLAGSHIP_CUT_DEPTH``); phase 18's flagship, its depth too (since PR 20).
+line logged to ``smoke_timeline.tsv`` beside it. ``SMOKE_DEADLINE_S``
+after it starts, every thread's stack is printed and the run exits
+non-zero: a hang or an overrun fails with its place. Cut for the smoke's
+time: config 3's rollout, 200 frames (48 windows) to 40 (11 windows; 72 and
+18 until PR 19), and its model's depth (PR 24); the guided window's
+profile, 10 steps to 3; the remat sweep, 5 train steps a policy to 3 and
+then 2, and the sweep's flagship's depth (``FLAGSHIP_CUT_DEPTH``); VAE
+training, 6 steps to 4 and then 3, its card-vs-CPU clip to 64 x 64
+pixels; phase 25's ring window timed once each way, and its flagship's
+depth (``FLAGSHIP_CUT_DEPTH``); phase 18's flagship, its depth too (since
+PR 20). Since PR 24: the train paths' timed steps 5 to 2; config 2 run
+once, and its depth; phase 17's, the guided window's, the matrix DiTs', the remat
+sweep's XL's, the TP XL's, DiT1D's and the difference FacMatDiT's depth;
+the TP window 50 steps to 10; UCF-101 3 steps to 2; the card-vs-CPU
+checks of the DC-AE, the frozen and A15c networks and the ImageVAE on
+fewer frames; phase 24's validation cut to VBench; the factorized and
+axial paths' profiles; profiles read from the raw events.
 """
 
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import functools
 import gc
 import json
@@ -332,6 +359,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+# seconds after which main() dumps every thread's stack and exits non-zero:
+# a kernel that hangs, or a run that overruns, fails with the place it was
+# at, before a 1200-second limit kills it without a word
+SMOKE_DEADLINE_S = 1140
 
 # (name, C source, TPU kernel it replaces)
 KERNELS = (
@@ -360,6 +391,9 @@ KERNELS = (
     ("ring_fwd_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/ring_attention.py:49"),
     ("ring_dq_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:378"),
     ("ring_dkv_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:500"),
+    # B10's wide entry: short rows at heads above 256 lanes, the head
+    # streamed in 64-lane chunks
+    ("small_n_attn_wide", "dfot_tpu_torch/csrc/small_n_attn.cu", "dfot_tpu/ops/attention.py:800"),
 )
 FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
 ATTENTION_KERNELS = tuple(name for name, _, _ in KERNELS[:7])  # B1-B7
@@ -378,7 +412,8 @@ PATHS = ("window", "train", "xl_window", "xl_train", "factorized", "axial", "bas
          "diff_facmat_train", "far_window", "far_train", "dit1d_window", "dit1d_train",
          "unet3d_cli", "k600_metrics", "k600_a15c", "ring_window", "ring_train", "ring_cli",
          "tp_window", "tp_train", "tp_xl_train", "export", "ucf_train",
-         "wide_uvit_window", "wide_uvit_train", "wide_dit_window", "wide_dit_train", "wide_ring")
+         "wide_uvit_window", "wide_uvit_train", "wide_dit_window", "wide_dit_train", "wide_ring",
+         "wide_axial", "wide_factorized")
 # the batch each path gives its kernels: the window runs the denoiser at
 # B * NFE = 2, the train step at B = 1; the kernels line reports the forward
 # kernels at the window's batch and the backward kernels at the train step's
@@ -496,11 +531,12 @@ UNET3D_SITES = (("level2", UNET3D_BATCH * UNET3D_FRAMES * UNET3D_HEADS, 256, 32,
 DIFF_SITE = (32, 16, 16, 12, 64)
 PROFILED_WINDOW_STEPS = 10
 # the guided window's profile (a forward and a backward each step: 3900
-# launches a step, whose processing took 45 s at 10 steps) and the remat
-# sweep's train steps, cut for the smoke's time
+# launches a step, whose processing took 45 s at 10 steps), and the timed
+# train steps of the train paths and of the remat sweep, cut for the
+# smoke's time (5 and 3 until PR 24)
 GUIDED_PROFILE_STEPS = 3
-TRAIN_STEPS = 5
-REMAT_STEPS = 3
+TRAIN_STEPS = 2
+REMAT_STEPS = 2
 # the long-video tasks (BASELINE.json configs 2 and 3, bench.py's rollout):
 # rollout settings, the long rollout's length, keyframe density and the plan
 # it must give (keyframes, sliding windows, chunks a round), and the small
@@ -532,7 +568,7 @@ KERNEL_CLASSES = (
     ("B7 attn_out_scatter", ("attn_out_scatter_kernel",)),
     ("B8 ln_modulate", ("ln_modulate_fwd",)),
     ("B9 ln_modulate_bwd", ("ln_modulate_bwd",)),
-    ("B10 small_n_attn", ("small_n_attn_kernel",)),
+    ("B10 small_n_attn", ("small_n_attn_kernel", "small_n_wide_kernel")),
     ("optimizer, clipping, EMA (foreach)", ("multi_tensor_apply",)),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cuDNN backward convolutions", ("dgrad", "wgrad", "bwd_data", "bwd_filter", "backward_data",
@@ -756,6 +792,18 @@ def attention_scaled_for_twice_the_width(q, k, v, causal: bool = False):
         above = torch.ones(n, n, dtype=torch.bool, device=s.device).triu(1)
         s = s.masked_fill(above, float("-inf"))
     return torch.matmul(torch.softmax(s, -1), v.float()).to(q.dtype)
+
+
+def attention_without_last_chunk(q, k, v):
+    """Control for B10's wide entry: scores that leave out the last 64-lane
+    chunk of the head (a ring step dropped or read stale), at the true
+    1/sqrt(d) scale."""
+    import torch
+
+    d = q.shape[-1]
+    s = torch.matmul(q[..., : d - 64].float(), k[..., : d - 64].float().transpose(-1, -2))
+    p = torch.softmax(s / math.sqrt(d), -1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def attention_counting_pad_keys(q, k, v):
@@ -1246,9 +1294,61 @@ def check_kernels(record: dict, wide: bool = False) -> dict:
              library_covers="dq, dk and dv", padded_bytes=nbytes(q, k, v, do, lse, delta, k, v),
              host_us=host_us(bwd_dkv), **extra_dkv)
 
+    def small_n_site(label, Z, N, D, dtype, main, timed=True):
+        """B10 on seeded heads of Z items of (N, D) in ``dtype`` (its wide
+        entry above 256 lanes) against its plain version, with the bounds
+        rejecting the scale of a head twice as wide, at N = 5 and 8 a softmax
+        that counts the pad keys, and above 256 lanes scores without the last
+        64-lane chunk (no control at N = 1: a softmax over one key is 1
+        whatever its score). ``timed``: warm, cold, the plain version and the
+        fused SDPA beside it (:func:`note`); else recorded as an edge site."""
+        name = "small_n_attn_wide" if D > A.SMALL_N_WHOLE_D else "small_n_attn"
+        site = f"{label} Z={Z} N={N} d={D}"
+        fp32 = dtype == torch.float32
+        rel, l2 = (2e-5, KERNEL_REL_L2_TOL_FP32) if fp32 else (2e-2, KERNEL_REL_L2_TOL)
+        q, k, v = (t.to(dtype) for t in
+                   (rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D)))
+        fwd = lambda: A.small_n_attention(q, k, v)  # noqa: E731
+        o = fwd()
+        torch.cuda.synchronize()
+        o_ref = A.small_n_attention_reference(q, k, v)
+        err, tol, extra = hold(name, site, [("o", o, o_ref)], rel, l2)
+        extra["controls"] = {} if N == 1 else rejected(
+            name, site, "the scale of a head twice as wide",
+            [("o", attention_scaled_for_twice_the_width(q, k, v), o_ref)], rel, l2)
+        if N in PAD_CONTROL_ROWS:
+            extra["controls"].update(rejected(
+                name, site, f"a softmax that counts {16 - N} zero-score pad keys",
+                [("o", attention_counting_pad_keys(q, k, v), o_ref)], rel, l2))
+        if D > A.SMALL_N_WHOLE_D and N > 1:
+            extra["controls"].update(rejected(
+                name, site, "scores without the last 64-lane chunk",
+                [("o", attention_without_last_chunk(q, k, v), o_ref)], rel, l2))
+        bnd = bound(4 * Z * N * N * D, nbytes(q, k, v, o),
+                    PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+        if not timed:
+            results[name].setdefault("edge_sites", {})[site] = {
+                "max_abs_err": err, "tol": tol, **bnd, **extra}
+            log(f"  {name:17s} {site}: max_abs_err {err:.3e} (tol {tol:.3e}), "
+                f"{len(extra['controls'])} controls rejected")
+        elif name == "small_n_attn_wide":
+            # PyTorch's flash backend takes no head above 256 lanes: the
+            # first fused backend that takes these heads
+            lib = sdpa_backend(q, k, v, 1.0 / math.sqrt(D))
+            note(name, site, main, err, tol, fwd,
+                 cuda_ms(lambda: A.small_n_attention_reference(q, k, v)), bnd, lib["ms"],
+                 library_backend=lib["backend"], library_refused=lib["refused"],
+                 host_us=host_us(fwd), **extra)
+        else:
+            note(name, site, main, err, tol, fwd,
+                 cuda_ms(lambda: A.small_n_attention_reference(q, k, v)), bnd,
+                 cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), host_us=host_us(fwd),
+                 **extra)
+        del q, k, v, o, o_ref
+
     if wide:
         return wide_sites(record, results, attention_site, flash_forward_check, flash_dq_check,
-                          flash_dkv_check, rand)
+                          flash_dkv_check, rand, small_n_site)
 
     for B in BATCHES:
         for level, N, H, D in SITES:
@@ -1426,30 +1526,7 @@ def check_kernels(record: dict, wide: bool = False) -> dict:
 
     for label, (Z, N, D), dtype in (*((a, b, bf16) for a, b in SMALL_N_SHAPES),
                                     *((a, b, torch.float32) for a, b in SMALL_N_FP32_SHAPES)):
-        site = f"{label} Z={Z} N={N} d={D}"
-        fp32 = dtype == torch.float32
-        rel, l2 = (2e-5, KERNEL_REL_L2_TOL_FP32) if fp32 else (2e-2, KERNEL_REL_L2_TOL)
-        q, k, v = (t.to(dtype) for t in
-                   (rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D, scale=1.5), rand(1, Z, N, D)))
-        fwd = lambda: A.small_n_attention(q, k, v)  # noqa: E731
-        o = fwd()
-        torch.cuda.synchronize()
-        o_ref = A.small_n_attention_reference(q, k, v)
-        err, tol, extra = hold("small_n_attn", site, [("o", o, o_ref)], rel, l2)
-        extra["controls"] = rejected(
-            "small_n_attn", site, "the scale of a head twice as wide",
-            [("o", attention_scaled_for_twice_the_width(q, k, v), o_ref)], rel, l2)
-        if N in PAD_CONTROL_ROWS:
-            extra["controls"].update(rejected(
-                "small_n_attn", site, f"a softmax that counts {16 - N} zero-score pad keys",
-                [("o", attention_counting_pad_keys(q, k, v), o_ref)], rel, l2))
-        note("small_n_attn", site, label in SMALL_N_MAIN, err, tol, fwd,
-             cuda_ms(lambda: A.small_n_attention_reference(q, k, v)),
-             bound(4 * Z * N * N * D, nbytes(q, k, v, o),
-                   PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS),
-             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)), host_us=host_us(fwd),
-             **extra)
-        del q, k, v, o, o_ref
+        small_n_site(label, Z, N, D, dtype, label in SMALL_N_MAIN)
     record["kernel_checks"] = results
     _hold_operands.cache_clear()  # the later phases read peak memory
     _flush_buffer.cache_clear()
@@ -1917,8 +1994,10 @@ def _kept(policy) -> tuple:
     block does not run them again: the ``attn`` policies keep the tensors
     the JAX models tag ``attn_out``, the outputs of B3 (the packed route) and
     of B10 (the small-N route); B2 and B1 run again under every policy, as
-    in the JAX jaxpr (``tests/test_torch_port_remat.py`` holds the counts)."""
-    return ("attn_out_collect", "small_n_attn") if policy in ("attn", "dots_attn") else ()
+    in the JAX jaxpr (``tests/test_torch_port_remat.py`` holds the counts).
+    B10's wide entry is the same op as B10."""
+    return (("attn_out_collect", "small_n_attn", "small_n_attn_wide")
+            if policy in ("attn", "dots_attn") else ())
 
 
 def _is_wide(head_dim: int) -> bool:
@@ -1926,6 +2005,14 @@ def _is_wide(head_dim: int) -> bool:
     from dfot_tpu_torch.ops.attention import FLASH_WIDTHS, padded_head_dim
 
     return padded_head_dim(head_dim) > FLASH_WIDTHS[-1]
+
+
+def _small_n_entry(head_dim: int) -> str:
+    """B10's entry for short rows of ``head_dim`` lanes: the wide one above
+    256 lanes."""
+    from dfot_tpu_torch.ops.attention import SMALL_N_WHOLE_D
+
+    return "small_n_attn_wide" if head_dim > SMALL_N_WHOLE_D else "small_n_attn"
 
 
 def _attention_launches(out: dict, blocks: dict, recomputed: dict, kept, forwards: int,
@@ -1951,11 +2038,11 @@ def expected_uvit_launches(fs, forwards: int = 0, train_steps: int = 0) -> dict:
     :func:`_kept`); every block runs the four backward kernels once a
     backward; a level whose heads are wider than 256 lanes runs B1, B4 and B5
     on their wide family; an axial block also runs B10 (its temporal
-    attention) wherever it runs the forward kernels, and its backward is the
-    plain formulas."""
+    attention; above 256 lanes B10's wide entry) wherever it runs the forward
+    kernels, and its backward is the plain formulas."""
     s = getattr(fs, "spec", fs)
     blocks, recomputed = {False: 0, True: 0}, {False: 0, True: 0}
-    axial = axial_recomputed = 0
+    axial = {"small_n_attn": [0, 0], "small_n_attn_wide": [0, 0]}  # blocks, recomputed
     for i, kind in enumerate(s.block_types):
         if kind == "ResBlock":
             continue
@@ -1965,12 +2052,14 @@ def expected_uvit_launches(fs, forwards: int = 0, train_steps: int = 0) -> dict:
         blocks[wide] += n
         recomputed[wide] += again
         if kind == "AxialTransformerBlock":
-            axial, axial_recomputed = axial + n, axial_recomputed + again
+            counts = axial[_small_n_entry(s.channels[i] // s.num_heads)]
+            counts[0] += n
+            counts[1] += again
     kept = _kept(s.remat_policy)
     out = no_launches()
     _attention_launches(out, blocks, recomputed, kept, forwards, train_steps)
-    again = 0 if "small_n_attn" in kept else axial_recomputed
-    out["small_n_attn"] = forwards * axial + train_steps * (axial + again)
+    for name, (n, again) in axial.items():
+        out[name] = forwards * n + train_steps * (n + (0 if name in kept else again))
     return out
 
 
@@ -2277,20 +2366,22 @@ def run_xl_paths(record: dict) -> dict:
     return {"xl_window": window_launches, "xl_train": trained["launches"]}
 
 
-def run_factorized_path(record: dict) -> dict:
+def run_factorized_path(record: dict, num_heads: int = 6, key: str = "factorized") -> dict:
     """The factorized-attention DiT of the repo's backbone config (hidden
     384, 6 heads of 64, depth 12, an MLP in the spatial blocks) on the
     Minecraft latent shape (16, 8, 8, 32), patch 2: temporal attention over
-    16 frames and spatial attention over 16 patches, both kernel B10. Route
-    checks, then one forward and one forward + backward between a reset and
-    a read of the launch counts."""
+    16 frames and spatial attention over 16 patches, both kernel B10 (at
+    ``num_heads`` 1, heads of 384: B10's wide entry). Route checks, then one
+    forward and one forward + backward between a reset and a read of the
+    launch counts, recorded under ``key``."""
     import torch
     from dfot_tpu_torch import ops
     from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl, make_train_apply
     from dfot_tpu_torch.models.dit import DiT3D, DiTSpec
     from dfot_tpu_torch.utils.weights import init_random_weights
 
-    spec = DiTSpec(hidden_size=384, depth=12, num_heads=6, mlp_ratio=4.0, spatial_mlp_ratio=4.0,
+    spec = DiTSpec(hidden_size=384, depth=12, num_heads=num_heads, mlp_ratio=4.0,
+                   spatial_mlp_ratio=4.0,
                    variant="factorized_attention", pos_emb_type="sinusoidal_factorized",
                    patch_size=2, max_temporal_length=16, use_gradient_checkpointing=True)
     x_shape, B = (16, 8, 8, 32), FACTORIZED_BATCH
@@ -2306,12 +2397,13 @@ def run_factorized_path(record: dict) -> dict:
     k = torch.randint(0, 1000, (B, x_shape[0]), generator=gen, device="cuda").float()
     loss_fn = discrete_loss_fn(recipe.dcfg, make_train_apply(recipe), train_model, batch, 33)
 
+    what = f"factorized DiT at {num_heads} heads of {spec.hidden_size // num_heads}"
     with torch.no_grad():
-        check_route(record, "factorized_forward", f"factorized DiT forward B={B}",
+        check_route(record, f"{key}_forward", f"{what} forward B={B}",
                     FORWARD_REL_TOL, model.use_plain_kernels, lambda: model(batch["xs"], k),
                     dit_controls())
-    gradient_routes(record, "factorized_gradient_route",
-                    f"factorized DiT forward + backward B={B}", train_model,
+    gradient_routes(record, f"{key}_gradient_route",
+                    f"{what} forward + backward B={B}", train_model,
                     train_model.use_plain_kernels, loss_fn, dit_grad_probes(spec.depth, True),
                     control_ln_backward, must_reject=("blocks.0.attn.qkv.weight",))
 
@@ -2323,37 +2415,33 @@ def run_factorized_path(record: dict) -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     train_model.zero_grad(set_to_none=True)
-    require(bool(torch.isfinite(out).all()), "factorized DiT: non-finite output")
+    require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
     # a spatial and a temporal block, each with an MLP, run B8 four times and
     # B10 twice; the checkpointed forward + backward runs both twice
     ln_fwd, attn_fwd = 4 * spec.depth + 1, 2 * spec.depth
     expect = {**no_launches(), "ln_modulate": ln_fwd + (2 * 4 * spec.depth + 1),
-              "ln_modulate_bwd": ln_fwd, "small_n_attn": attn_fwd + 2 * attn_fwd}
-    record["factorized"] = {"batch": B, "launches": launches, "shape": list(out.shape)}
-    log(f"factorized DiT path (one forward, one forward + backward): launches {launches}")
-    require_launches("the factorized DiT path", launches, expect)
-
-    def forward_and_backward():
-        with torch.no_grad():
-            model(batch["xs"], k)
-        loss_fn().backward()
-        train_model.zero_grad(set_to_none=True)
-
-    profiled(record, "factorized_profile", "factorized DiT path", forward_and_backward)
+              "ln_modulate_bwd": ln_fwd,
+              _small_n_entry(spec.hidden_size // num_heads): attn_fwd + 2 * attn_fwd}
+    record[key] = {"batch": B, "num_heads": num_heads, "launches": launches,
+                   "shape": list(out.shape)}
+    log(f"{what} path (one forward, one forward + backward): launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    require_launches(f"the {what} path", launches, expect)
     return launches
 
 
 def run_axial_path(record: dict, fs, axial_levels, depth: dict, key: str, what: str, seeds,
-                   probes, norm_probes) -> dict:
+                   probes, norm_probes, witness: bool = True) -> dict:
     """A pose recipe's U-ViT with ``AxialTransformerBlock`` on the
     transformer levels in ``axial_levels``, at the recipe's widths and the
     cut ``depth``: each axial block attends over a frame's tokens (B2 -> B1
     -> B3) and then over the 8 frames of each position, kernel B10 with
     B0 * tokens a frame * heads items. Route checks forward (B = 2) and
     forward + backward (B = 1, ``probes``), the fp32 gradient witness
-    (``probes`` and the temporal q/k norm scales ``norm_probes``), then one
-    forward and one forward + backward between a reset and a read of the
-    launch counts. ``seeds``: the model's, the inputs' and the loss's."""
+    (``probes`` and the temporal q/k norm scales ``norm_probes``; unless not
+    ``witness``), then one forward and one forward + backward between a
+    reset and a read of the launch counts. ``seeds``: the model's, the
+    inputs' and the loss's."""
     import dataclasses
 
     import torch
@@ -2391,7 +2479,8 @@ def run_axial_path(record: dict, fs, axial_levels, depth: dict, key: str, what: 
                     f"{what} forward + backward B={TRAIN_BATCH}", train_model,
                     train_model.use_plain_attention, loss_fn, probes, no_qk,
                     must_reject=("another_attn.proj.weight", "another_attn.out.weight"))
-    fp32_witness(record, f"{key}_fp32_witness", what, fs, train_model, probes + norm_probes)
+    if witness:
+        fp32_witness(record, f"{key}_fp32_witness", what, fs, train_model, probes + norm_probes)
 
     ops.reset_launch_counts()
     with torch.no_grad():
@@ -2408,14 +2497,6 @@ def run_axial_path(record: dict, fs, axial_levels, depth: dict, key: str, what: 
                    "shape": list(out.shape)}
     log(f"{what} path (one forward, one forward + backward): launches {launches}")
     require_launches(f"the {what} path", launches, expect)
-
-    def forward_and_backward():
-        with torch.no_grad():
-            model(x, noise_in, pose)
-        loss_fn().backward()
-        train_model.zero_grad(set_to_none=True)
-
-    profiled(record, f"{key}_profile", f"{what} path", forward_and_backward)
     return launches
 
 
@@ -2560,21 +2641,24 @@ def run_uvit_paths(record: dict, fs, key: str, what: str, seeds, probes) -> dict
 
 
 def run_long_video_paths(record: dict, fs) -> dict:
-    """The flagship's long-video tasks at full width and depth on a bf16
-    copy of seeded random weights. ``interp2`` (BASELINE.json config 2):
+    """The flagship's long-video tasks at full width, its depth cut to
+    :data:`FLAGSHIP_CUT_DEPTH` (``fs`` cut so), on a bf16 copy of seeded
+    random weights. ``interp2`` (BASELINE.json config 2):
     ``interpolate_videos`` of frames 0 and 7 to an 8-frame video, vanilla HG
-    at 4.0, one window. ``rollout`` (config 3 cut from 200 frames,
-    bench.py's settings at a keyframe density of 0.25): one image to
-    ``LONG_FRAMES`` frames by ``predict_videos``, keyframes in 2 sliding
-    windows and interpolation rounds of one-chunk windows (``LONG_PLAN``),
-    each of (B = 1, T = 8, NFE 2), 50 DDIM steps; wall time, frames/s, the
-    phase split, peak memory, and the wall beyond the windows' count times
-    the 8-frame window's
-    (``record["window"]``, the same model shape earlier in the run)."""
+    at 4.0, one window. ``rollout`` (config 3 cut from 200 frames, bench.py's
+    settings at a keyframe density of 0.25): one image to ``LONG_FRAMES``
+    frames by ``predict_videos``, keyframes in 2 sliding windows and
+    interpolation rounds of one-chunk windows (``LONG_PLAN``), each of (B =
+    1, T = 8, NFE 2), 50 DDIM steps; wall time, frames/s, the phase split,
+    peak memory, and the wall beyond the windows' count times the cut
+    model's 8-frame window's, timed just before."""
+    import dataclasses
+
     import torch
     from dfot_tpu_torch import ops
     from dfot_tpu_torch.guidance.history_guidance import HistoryGuidance
 
+    fs = fs._replace(spec=dataclasses.replace(fs.spec, **FLAGSHIP_CUT_DEPTH))
     T, R, C = fs.spec.max_temporal_length, fs.resolution, fs.x_channels
     steps = fs.dcfg.sampling_timesteps
     model = sampling_copy(fs, build_random_model(fs, seed=0, token_io=False))
@@ -2590,8 +2674,7 @@ def run_long_video_paths(record: dict, fs) -> dict:
         torch.cuda.synchronize()
         return video, time.perf_counter() - t0, ops.launch_counts()
 
-    # config 2: two-image interpolation, twice (one window's wall varies from
-    # run to run); the second run counted
+    # config 2: two-image interpolation
     ro = make_rollout(fs, model, fs.dcfg, external_cond_type="action")
     ctx = torch.zeros(1, T, R, R, C, device="cuda")
     ctx[:, 0], ctx[:, T - 1] = seeded_image(fs, 70), seeded_image(fs, 71)
@@ -2603,15 +2686,13 @@ def run_long_video_paths(record: dict, fs) -> dict:
             conditions=identity_poses(1, T, "cuda"),
             history_guidance=HistoryGuidance.vanilla(4.0, timesteps=fs.dcfg.timesteps))
 
-    _, first_wall, _ = driven(interpolate)
     video, wall, launches = driven(interpolate)
-    record["interp2"] = {"wall_s": wall, "first_wall_s": first_wall,
-                         "frames_per_s": (T - 2) / wall, "launches": launches,
+    record["interp2"] = {"wall_s": wall, "frames_per_s": (T - 2) / wall, "launches": launches,
                          "stats": dict(ro.stats), "shape": list(video.shape),
                          "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    log(f"two-image interpolation (config 2), 8 frames, {steps} DDIM steps, vanilla HG 4.0: "
-        f"{wall:.3f} s wall ({first_wall:.3f} s the run before), "
-        f"{(T - 2) / wall:.4f} generated frames/s; launches {launches}")
+    log(f"two-image interpolation (config 2, depth cut to {FLAGSHIP_CUT_DEPTH}), 8 frames, "
+        f"{steps} DDIM steps, vanilla HG 4.0: "
+        f"{wall:.3f} s wall, {(T - 2) / wall:.4f} generated frames/s; launches {launches}")
     require(tuple(video.shape) == (1, T, R, R, C) and bool(torch.isfinite(video).all()),
             f"interpolation: shape {tuple(video.shape)} or non-finite values")
     require(torch.equal(video[:, [0, T - 1]], ctx[:, [0, T - 1]]),
@@ -2622,7 +2703,9 @@ def run_long_video_paths(record: dict, fs) -> dict:
     out["interp2"] = launches
     del video, ro
 
-    # config 3's rollout, cut to LONG_FRAMES
+    # config 3's rollout, cut to LONG_FRAMES; the model's 8-frame window
+    # timed first, for the wall beyond the windows
+    _, window_wall, _, _ = flagship_window(fs, model, steps=steps)
     n = LONG_FRAMES
     keys, n_windows = check_plan(f"{n}-frame rollout", n, LONG_DENSITY, T, LONG_PLAN)
     ro = make_rollout(fs, model, fs.dcfg, keyframe_density=LONG_DENSITY, **ROLLOUT_SETTINGS)
@@ -2678,7 +2761,6 @@ def run_long_video_paths(record: dict, fs) -> dict:
     video, wall, launches = driven(run)
     state_after = card_state()
     peak = torch.cuda.max_memory_allocated()
-    window_wall = record["window"]["wall_s"]
     st = dict(ro.stats)
     spans = [a.elapsed_time(b) / 1e3 for a, b, _ in marks]
     gaps = [marks[i - 1][1].elapsed_time(marks[i][0]) / 1e3 for i in range(1, len(marks))]
@@ -2692,7 +2774,8 @@ def run_long_video_paths(record: dict, fs) -> dict:
         "window_device_span_s": spans, "gap_before_window_s": gaps, "window_host_call_s": host,
         "card_before": state_before, "card_after": state_after,
     }
-    log(f"{n}-frame rollout (config 3 cut from 200 frames), {steps} DDIM steps: {wall:.3f} s wall, "
+    log(f"{n}-frame rollout (config 3 cut from 200 frames), {steps} DDIM steps: "
+        f"{wall:.3f} s wall, "
         f"{(n - 1) / wall:.4f} generated frames/s, peak memory {peak / 2**30:.2f} GiB; "
         f"keyframes {st.get('keyframe_sec', 0.0):.3f} s, interpolation "
         f"{st.get('interp_sec', 0.0):.3f} s; {st['windows']} windows, "
@@ -2707,7 +2790,7 @@ def run_long_video_paths(record: dict, fs) -> dict:
         f"{min(host):.3f}-{max(host):.3f} s")
     log(f"  card (SM clock, its maximum, power, temperature) before: {state_before}; "
         f"after: {state_after}")
-    log(f"  against {n_windows} x the 8-frame window's {window_wall:.3f} s = "
+    log(f"  against {n_windows} x the cut model's 8-frame window's {window_wall:.3f} s = "
         f"{n_windows * window_wall:.3f} s: {wall - n_windows * window_wall:+.3f} s "
         f"({record['rollout']['beyond_windows_share']:+.2%} of the rollout's wall)")
     require(tuple(video.shape) == (1, n, R, R, C), f"rollout shape {tuple(video.shape)}")
@@ -2735,6 +2818,31 @@ def kernel_class(name: str) -> str:
     return "elementwise and copies"
 
 
+def profiled_events(prof) -> tuple:
+    """(device entries, host ops) of a finished profile, each name ->
+    [ms, count], read from the profiler's raw events: ``key_averages()``
+    first builds a Python tree of every event, seconds a profile on a busy
+    host. Device entries are kernels and copies: torch.optim's profiler
+    annotation ("Optimizer.step#AdamW.step") also shows up on the device side
+    and would count the optimizer's kernels twice. Host ops' ms include
+    their children's."""
+    import torch
+
+    device, host = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.is_user_annotation() or name.startswith("Optimizer."):
+                continue
+            into = device
+        else:
+            into = host
+        entry = into.setdefault(name, [0.0, 0])
+        entry[0] += e.duration_ns() / 1e6
+        entry[1] += 1
+    return device, host
+
+
 def profiled(record: dict, key: str, what: str, run, unprofiled_s=None) -> None:
     """``run()`` under torch.profiler: device time by kernel class and the
     share of the wall time the device sat idle. The profiler slows the host,
@@ -2748,36 +2856,25 @@ def profiled(record: dict, key: str, what: str, run, unprofiled_s=None) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side entries that are kernels or copies: torch.optim's profiler
-    # annotation ("Optimizer.step#AdamW.step") also shows up on the device
-    # side and would count the optimizer's kernels twice
-    averages = prof.key_averages()  # built once: it walks every event
-    kernels = [e for e in averages
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
+    kernels, host = profiled_events(prof)
     by_class, top = {}, []
-    for e in kernels:
-        ms = e.self_device_time_total / 1e3
-        cls = kernel_class(e.key)
+    for name, (ms, calls) in kernels.items():
+        cls = kernel_class(name)
         by_class[cls] = by_class.get(cls, 0.0) + ms
-        top.append({"kernel": e.key[:160], "class": cls, "ms": ms, "calls": e.count})
+        top.append({"kernel": name[:160], "class": cls, "ms": ms, "calls": calls})
     busy = sum(by_class.values()) / 1e3
-    host = sorted(
-        (e for e in averages if e.device_type == torch.autograd.DeviceType.CPU),
-        key=lambda e: -e.self_cpu_time_total)[:15]
     record[key] = {
         "wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall if busy else None,
-        "device_launches": sum(e.count for e in kernels),
-        "top_host_ops": [{"op": e.key[:80], "self_cpu_ms": e.self_cpu_time_total / 1e3,
-                          "calls": e.count} for e in host],
+        "device_launches": sum(calls for _, calls in kernels.values()),
+        "top_host_ops": [{"op": name[:80], "cpu_ms": ms, "calls": calls} for name, (ms, calls)
+                         in sorted(host.items(), key=lambda kv: -kv[1][0])[:15]],
         "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels": sorted(top, key=lambda r: -r["ms"])[:30],
     }
     # the profiler's events refer to each other in cycles: free them here, or
     # the collector may do it inside a later timed step (without this the
     # first timed train step stalled for about a second)
-    del prof, averages, kernels, host
+    del prof
     gc.collect()
     if not busy:
         log(f"profiled {what}: the profiler saw no device time (not measured)")
@@ -2827,7 +2924,9 @@ def require_registry_on_card(registry, names, what: str, calibrated: bool = Fals
 def run_cli_validation(record: dict, smi: str) -> dict:
     """Phase 17: the README's RE10K validation through ``python -m
     dfot_tpu_torch``'s ``run(argv)``, on a seeded random flagship checkpoint
-    in the upstream layout. Returns the launch counts of the run."""
+    in the upstream layout, at full width with its depth cut to
+    :data:`FLAGSHIP_CUT_DEPTH` (:data:`CUT_DEPTH_ARGV`, as phase 18). Returns
+    the launch counts of the run."""
     import importlib.util
     import shutil
 
@@ -2835,11 +2934,11 @@ def run_cli_validation(record: dict, smi: str) -> dict:
     import torch
     from dfot_tpu_torch import ops
     from dfot_tpu_torch.__main__ import run
-    from dfot_tpu_torch.algorithms.dfot_video import flagship
     from dfot_tpu_torch.sampling.sampler import plan_sampling
 
-    fs = flagship()
-    log("the README's RE10K validation through python -m dfot_tpu_torch (flagship, full width):")
+    fs = cut_flagship()
+    log(f"the README's RE10K validation through python -m dfot_tpu_torch (flagship, full width, "
+        f"depth cut to {FLAGSHIP_CUT_DEPTH}):")
     t0 = time.perf_counter()
     model = build_random_model(fs, seed=70, token_io=False)
     state = {"diffusion_model.model." + k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -2849,7 +2948,7 @@ def run_cli_validation(record: dict, smi: str) -> dict:
     out_dir = OUT_DIR / "cli"
     shutil.rmtree(out_dir, ignore_errors=True)
     pil = importlib.util.find_spec("PIL") is not None
-    argv = README_RE10K + [
+    argv = README_RE10K + CUT_DEPTH_ARGV + [
         f"load={ckpt}", f"output_dir={out_dir}",
         f"experiment.validation.batch_size={CLI_BATCH}", "experiment.validation.limit_batch=1",
     ] + ([] if pil else ["++algorithm.logging.max_num_videos=0"])
@@ -3221,8 +3320,13 @@ def run_cli_training(record: dict, smi: str) -> dict:
 
 UCF_LATENT = ["+name=ucf", "dataset=ucf_101", "algorithm=dfot_video",
               "experiment=video_generation"]
-FAC_MAT_L = UCF_LATENT + ["algorithm/backbone=dit3d_factorized_matrix", "@FacMatDiT/L"]
-FULL_MAT_XL = UCF_LATENT + ["algorithm/backbone=dit3d_full_matrix", "@FullMatDiT/XL"]
+# both at their published widths, their 12 blocks cut to MATRIX_DEPTH for
+# the smoke's time
+MATRIX_DEPTH = 4
+FAC_MAT_L = UCF_LATENT + ["algorithm/backbone=dit3d_factorized_matrix", "@FacMatDiT/L",
+                          f"++algorithm.backbone.depth={MATRIX_DEPTH}"]
+FULL_MAT_XL = UCF_LATENT + ["algorithm/backbone=dit3d_full_matrix", "@FullMatDiT/XL",
+                            f"++algorithm.backbone.depth={MATRIX_DEPTH}"]
 # the configs' 500-step learning-rate warm-up starts at rate 0: cut to 2, so
 # that the steps taken here move the weights
 MATRIX_OVERRIDES = ["algorithm.lr_scheduler.num_warmup_steps=2"]
@@ -3370,8 +3474,9 @@ def matrix_train(record: dict, key: str, what: str, algo, cfg, seed: int, steps:
 
 
 def run_matrix_paths(record: dict) -> dict:
-    """Phase 19 (a) and (b): FacMatDiT/L and FullMatDiT/XL at full width and
-    depth on UCF-101's latents (16 frames of 8 x 8 x 32), each built by
+    """Phase 19 (a) and (b): FacMatDiT/L and FullMatDiT/XL at full width,
+    their depth cut to :data:`MATRIX_DEPTH`, on UCF-101's latents (16
+    frames of 8 x 8 x 32), each built by
     ``build_algorithm(load_config(argv))`` with seeded random weights.
     FacMatDiT/L: route checks forward and forward + backward at the
     validation batch, the 50-step window at the validation batch and a
@@ -3454,20 +3559,20 @@ def run_matrix_paths(record: dict) -> dict:
 
 def run_guided_window_paths(record: dict) -> dict:
     """Phase 19 (c): the flagship's 8-frame vanilla-HG window with
-    reconstruction guidance (weight ``GUIDANCE_WEIGHT``) at full width and
-    depth on seeded random bf16 weights, from a seeded context frame: a
-    ``GUIDED_SHORT_STEPS``-step window on the kernel route, the plain route
-    and with the guidance gradient dropped (the control); then the 50-step
-    window with its launch counts (a forward and a backward of the model a
-    step, B1-B7), wall time against phase 5's window and peak memory, and a
-    profiled 10-step window."""
+    reconstruction guidance (weight ``GUIDANCE_WEIGHT``) at full width, its
+    depth cut to :data:`FLAGSHIP_CUT_DEPTH`, on seeded random bf16 weights,
+    from a seeded context frame: a ``GUIDED_SHORT_STEPS``-step window on the
+    kernel route, the plain route and with the guidance gradient dropped
+    (the control); then the 50-step window with its launch counts (a
+    forward and a backward of the model a step, B1-B7), wall time against
+    the unguided 50-step window of the same model and peak memory, and a
+    profiled ``GUIDED_PROFILE_STEPS``-step window."""
     import dataclasses
 
     import torch
     from dfot_tpu_torch import ops
-    from dfot_tpu_torch.algorithms.dfot_video import flagship
 
-    fs = flagship()
+    fs = cut_flagship()
     model = build_random_model(fs, seed=91).to(torch.bfloat16).eval()
     first = seeded_image(fs, 92)
     short = dataclasses.replace(fs.dcfg, sampling_timesteps=GUIDED_SHORT_STEPS)
@@ -3491,6 +3596,7 @@ def run_guided_window_paths(record: dict) -> dict:
                 {"guidance gradient dropped": gradient_dropped})
     del guided, unguided
 
+    _, unguided_s, _, _ = flagship_window(fs, model, steps=fs.dcfg.sampling_timesteps)
     ro = make_rollout(fs, model, dataclasses.replace(fs.dcfg,
                                                      reconstruction_guidance=GUIDANCE_WEIGHT))
     torch.cuda.synchronize()
@@ -3503,16 +3609,15 @@ def run_guided_window_paths(record: dict) -> dict:
     launches = ops.launch_counts()
     evals = ro.stats["denoiser_evals_b1"] // WINDOW_BATCH
     T = fs.spec.max_temporal_length
-    unguided_s = record["window"]["wall_s"]
     record["guided_window"] = {
         "weight": GUIDANCE_WEIGHT, "wall_s": wall, "frames_per_s": (T - 1) / wall,
         "unguided_window_wall_s": unguided_s, "wall_ratio": wall / unguided_s,
         "launches": launches, "denoiser_evals": evals,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(), "shape": list(video.shape),
     }
-    log(f"flagship 8-frame window with reconstruction guidance {GUIDANCE_WEIGHT}, 50 DDIM steps, "
-        f"vanilla HG 4.0: {wall:.3f} s wall ({wall / unguided_s:.2f} x phase 5's "
-        f"{unguided_s:.3f} s), peak memory "
+    log(f"flagship 8-frame window (depth cut to {FLAGSHIP_CUT_DEPTH}) with reconstruction "
+        f"guidance {GUIDANCE_WEIGHT}, 50 DDIM steps, vanilla HG 4.0: {wall:.3f} s wall "
+        f"({wall / unguided_s:.2f} x the unguided window's {unguided_s:.3f} s), peak memory "
         f"{record['guided_window']['peak_memory_bytes'] / 2**30:.2f} GiB; launches {launches}")
     require(tuple(video.shape) == (1, T, fs.resolution, fs.resolution, fs.x_channels),
             f"guided window shape {tuple(video.shape)}")
@@ -3609,6 +3714,7 @@ PRE_SAMPLE_STEPS = 2
 # the DC-AE on the card in fp32 (TF32 off) against the same module on the
 # CPU: relative L2 of the latents and of the decoded pixels
 DCAE_CPU_REL_TOL = 1e-4
+DCAE_CPU_FRAMES = 8  # of the card's 2 x 16, held against the CPU
 # K600 @DiT/XL at full width, the depth cut from 28 to 4; its composed
 # training batch of 16 on a K600-layout directory of preprocessed .npz
 K600_ARGV = ["dataset=kinetics_600", "algorithm=dfot_video", "experiment=video_generation",
@@ -3709,10 +3815,11 @@ class TimedLoader:
 
 def check_dcae(rec: dict, cfg, pth: Path) -> None:
     """(a) The recipe's DC-AE on the card: a seeded (2 x 16, 64, 64, 3)
-    batch encoded and decoded twice (the same bits), against the same
-    weights on the CPU in fp32, with a control (the pixel shuffles in the
-    wrong channel order) that the bound must reject; timed in fp32 and with
-    cuDNN's TF32 (PyTorch's default)."""
+    batch encoded and decoded twice (the same bits), its first video's
+    first :data:`DCAE_CPU_FRAMES` frames against the same weights on the
+    CPU in fp32 (the DC-AE codes each frame alone), with a control (the
+    pixel shuffles in the wrong channel order) that the bound must reject;
+    timed in fp32 and with cuDNN's TF32 (PyTorch's default)."""
     import numpy as np
     import torch
     from dfot_tpu_torch.vae import dc_ae as DC
@@ -3735,19 +3842,21 @@ def check_dcae(rec: dict, cfg, pth: Path) -> None:
     require(torch.equal(z1, z2) and torch.equal(y1, y2),
             "the DC-AE on the card: two runs on the same batch differ")
     t = time.perf_counter()
+    f = DCAE_CPU_FRAMES
     with torch.no_grad():
-        frames = torch.from_numpy(videos).reshape(-1, DMLAB_RES, DMLAB_RES, 3) \
+        frames = torch.from_numpy(videos[:1, :f]).reshape(-1, DMLAB_RES, DMLAB_RES, 3) \
             .permute(0, 3, 1, 2) * 2 - 1
         zc = cpu_vae.encode(frames)
         yc = torch.clamp(cpu_vae.decode(zc) * 0.5 + 0.5, 0, 1)
     cpu_s = time.perf_counter() - t
-    zc = zc.permute(0, 2, 3, 1).reshape(z1.shape)
-    yc = yc.permute(0, 2, 3, 1).reshape(y1.shape)
-    err_z, err_y = rel_l2(z1.cpu(), zc), rel_l2(y1.cpu(), yc)
+    zc = zc.permute(0, 2, 3, 1).reshape(z1[:1, :f].shape)
+    yc = yc.permute(0, 2, 3, 1).reshape(y1[:1, :f].shape)
+    err_z, err_y = rel_l2(z1[:1, :f].cpu(), zc), rel_l2(y1[:1, :f].cpu(), yc)
     with patched(DC, "pixel_unshuffle", unshuffle_channels_last_order):
         bad = codec.encode_video(x)
-    err_bad = rel_l2(bad.cpu(), zc)
-    log(f"  DC-AE f8c32 ({n_params / 1e6:.1f}M): latents {tuple(z1.shape)}, card vs CPU fp32 "
+    err_bad = rel_l2(bad[:1, :f].cpu(), zc)
+    log(f"  DC-AE f8c32 ({n_params / 1e6:.1f}M): latents {tuple(z1.shape)}, card vs CPU fp32 on "
+        f"{f} frames "
         f"rel L2 {err_z:.3e} (latents), {err_y:.3e} (pixels), tol {DCAE_CPU_REL_TOL}; two runs "
         f"bit-identical; control (pixel shuffles in (r, r, C) order) {err_bad:.3e}; CPU "
         f"{cpu_s:.1f} s")
@@ -3769,7 +3878,7 @@ def check_dcae(rec: dict, cfg, pth: Path) -> None:
             f"ms a frame)")
     rec["dcae"] = {"params": n_params, "latent_shape": list(z1.shape), "rel_l2_latents": err_z,
                    "rel_l2_pixels": err_y, "tol": DCAE_CPU_REL_TOL, "control_rel_l2": err_bad,
-                   "cpu_reference_s": cpu_s, "frames": frames_n,
+                   "cpu_reference_s": cpu_s, "cpu_frames": f, "frames": frames_n,
                    "encode_ms": {"fp32": timed[False][0], "tf32": timed[True][0]},
                    "decode_ms": {"fp32": timed[False][1], "tf32": timed[True][1]}}
     del codec, cpu_vae, x, z1, z2, y1, y2, bad
@@ -4077,7 +4186,7 @@ REMAT_CONTROL_SCALE = 1.5
 # where the control must show: the output projection of a checkpointed block,
 # whose weight gradient reads the kept tensor
 REMAT_CONTROL_PROBE = {"flagship": "mid_blocks.3.attn_out.weight",
-                       "xl": "dit_base.blocks.14.attn.proj.weight"}
+                       "xl": "dit_base.blocks.2.attn.proj.weight"}
 # the flagship of the remat sweep and of phase 25's window and run(argv):
 # full width, depth cut for the smoke's time (one up and one down block a
 # conv level, two at level 2, four mid blocks; both transformer levels stay,
@@ -4102,7 +4211,7 @@ REMAT_FLAGSHIP_PROBES = (
 # VAE training through run(argv) on seeded directories in the recipes'
 # layouts; the adversarial term from step VAE_DISC_START (0-based) on
 VAE_DISC_START = 2
-VAE_STEPS = 4  # cut from the recipe's run for time; the adversarial term runs from the third
+VAE_STEPS = 3  # cut from the recipe's run for time; the adversarial term runs on the third
 VAE_RES = 128
 K600_VAE_VIDEOS = (("training", 12, 17), ("validation", 2, 17))
 MINECRAFT_VAE_VIDEOS = (("training", 12, 16), ("validation", 2, 16))
@@ -4121,7 +4230,7 @@ VAE_CPU_REL_TOL = 1e-4
 VAE_CPU_SIGN_TOL = 1e-2
 VAE_CPU_WEIGHT_TOL = 1e-2
 VAE_CPU_ADV_TOL = 5e-2
-VAE_CPU_FRAMES = {"video": 5, "image": 2}
+VAE_CPU_FRAMES = {"video": 5, "image": 1}
 VAE_CPU_CROP = 64  # the clip's top-left 64 x 64 pixels, cut from 128 for CPU time
 # the preprocessors at their published widths on seeded weights
 PRE_RES = 256
@@ -4323,9 +4432,10 @@ def run_remat_model(record: dict, key: str, what: str, r, model, batch_fn, loss_
 
 
 def run_remat_paths(record: dict) -> dict:
-    """Phase 21 (a): K600 @DiT/XL at full depth and the flagship at full
-    width, depth cut to :data:`FLAGSHIP_CUT_DEPTH` (level 3 checkpointed),
-    under none, dots, attn and dots_attn."""
+    """Phase 21 (a): K600 @DiT/XL at full width, its depth cut to
+    :data:`K600_DEPTH` (every block checkpointed, as the recipe's), and the
+    flagship at full width, depth cut to :data:`FLAGSHIP_CUT_DEPTH` (level 3
+    checkpointed), under none, dots, attn and dots_attn."""
     import dataclasses
 
     from dfot_tpu_torch.algorithms.dfot_video import flagship, k600_dit_xl, make_train_apply
@@ -4333,11 +4443,13 @@ def run_remat_paths(record: dict) -> dict:
     # the recipes' 10000-step warm-up starts at rate 0: cut to 2 steps, as
     # the train paths of phases 8 and 13 do, so that the steps move the weights
     r = k600_dit_xl()
-    r = r._replace(train=r.train._replace(num_warmup_steps=2))
+    r = r._replace(spec=dataclasses.replace(r.spec, depth=K600_DEPTH),
+                   train=r.train._replace(num_warmup_steps=2))
     x_shape = (r.max_tokens, *r.resolution, r.x_channels)
     model = build_random_model(r, seed=70, token_io=False)
     out = run_remat_model(
-        record, "xl", "K600 @DiT/XL", r, model, lambda B: latent_batch(x_shape, B, seed=71),
+        record, "xl", "K600 @DiT/XL (depth cut)", r, model,
+        lambda B: latent_batch(x_shape, B, seed=71),
         lambda B: discrete_loss_fn(r.dcfg, make_train_apply(r), model,
                                    latent_batch(x_shape, B, seed=72), 73),
         dit_grad_probes(r.spec.depth, False) + (REMAT_CONTROL_PROBE["xl"],),
@@ -4704,13 +4816,18 @@ UNET3D_ARGV = UCF_LATENT + ["algorithm/backbone=u_net3d", "++dataset.latent.enab
 DIFF_ARGV = ["+name=ucf", "dataset=ucf_101", "algorithm=difference_dfot_video",
              "experiment=video_generation"]
 DIFF_B_ARGV = DIFF_ARGV + ["@DiffDiT/B"]
-DIFF_FACMAT_ARGV = DIFF_ARGV + ["algorithm/backbone=difference_dit3d_factorized_matrix"]
+# at its published width, its 12 blocks cut to MATRIX_DEPTH as phase 19's
+DIFF_FACMAT_ARGV = DIFF_ARGV + ["algorithm/backbone=difference_dit3d_factorized_matrix",
+                                f"++algorithm.backbone.depth={MATRIX_DEPTH}"]
 FAR_ARGV = UCF_LATENT + ["algorithm/backbone=far_dit", "@FARDiT/B"]
 # taichi's (4, 1, 32) TiTok tokens as the observation shape: the composed
-# recipe hands the algorithm (32, 32, 4) latents (ROADMAP.md C11)
+# recipe hands the algorithm (32, 32, 4) latents (ROADMAP.md C11); DiT1D at
+# its published width, its 28 blocks cut to DIT1D_DEPTH for the smoke's time
+DIT1D_DEPTH = 8
 DIT1D_ARGV = ["+name=taichi", "dataset=taichi", "algorithm=dfot_video",
               "experiment=video_generation", "algorithm/backbone=dit1d",
-              "++dataset.latent.enabled=false", "dataset.observation_shape=[4,1,32]"]
+              "++dataset.latent.enabled=false", "dataset.observation_shape=[4,1,32]",
+              f"++algorithm.backbone.depth={DIT1D_DEPTH}"]
 PHASE22_TRAIN_STEPS = 2
 # the forward + backward route checks' batch (videos)
 PHASE22_GRAD_BATCH = 2
@@ -4725,8 +4842,9 @@ PHASE22_PROBES = {
     "far": ("x_embedder.weight", "transformer_blocks.0.attn.to_q.weight",
             "transformer_blocks.6.mlp.net.2.weight", "transformer_blocks.11.norm1.linear.weight",
             "proj_out.weight"),
-    "dit1d": ("x_embedder.weight", "blocks.0.attn.qkv.weight", "blocks.14.mlp.fc1.weight",
-              "blocks.27.adaLN_modulation.1.weight", "final_layer.1.weight"),
+    "dit1d": ("x_embedder.weight", "blocks.0.attn.qkv.weight",
+              f"blocks.{DIT1D_DEPTH // 2}.mlp.fc1.weight",
+              f"blocks.{DIT1D_DEPTH - 1}.adaLN_modulation.1.weight", "final_layer.1.weight"),
 }
 # python -m dfot_tpu_torch on UNet3D from a seeded DMLab-layout directory
 UNET3D_CLI_VIDEOS = (("training", 8, 20), ("validation", 2, 20))
@@ -5033,7 +5151,8 @@ def run_difference_paths(record: dict) -> dict:
 
 def run_einsum_paths(record: dict) -> dict:
     """(c) FAR-DiT (@FARDiT/B on UCF-101 latents) and DiT1D (its published
-    widths, 1152 wide, depth 28, on taichi's (4, 1, 32) tokens): each at
+    widths, 1152 wide, depth 28 cut to :data:`DIT1D_DEPTH`, on taichi's (4,
+    1, 32) tokens): each at
     bf16 against fp32 on the card with a control (FAR-DiT without its
     frame-causal bias; DiT1D with ``reproduce`` blocks in place of
     ``share_norm``), the window at the validation batch and train steps,
@@ -5162,6 +5281,11 @@ def run_slice16_paths(record: dict) -> dict:
 METRIC_CPU_REL_TOL = 1e-4
 # the flagship validation's videos: batch 2, 8 frames of 256 px
 METRIC_VIDEOS = (CLI_BATCH, 8, 256, 256, 3)
+# the frozen and A15c networks' card-vs-CPU checks: one video of 4 such
+# frames (I3D pads it to its 9), cut from METRIC_VIDEOS for the CPU's time;
+# PIPs2 on the first A15C_PIPS_FRAMES frames of its 16-frame clip
+NETWORK_CHECK_VIDEOS = (1, 4, 256, 256, 3)
+A15C_PIPS_FRAMES = 8
 # K600's composed list (kinetics_600_video_generation.yaml:25) and the names
 # it logs without metric weight files
 K600_METRICS = ("vbench", "fvd", "is", "fid", "lpips", "mse", "ssim", "psnr")
@@ -5219,7 +5343,7 @@ def frozen_network_cases(frames):
     from dfot_tpu_torch.metrics.video_metric import VideoMetric
     from dfot_tpu_torch.vae.losses import LPIPS
 
-    B, T = METRIC_VIDEOS[:2]
+    B, T = frames.shape[:2]
     flat = frames.reshape((B * T,) + tuple(frames.shape[2:]))
     shifted = torch.roll(flat, 3, dims=2)  # LPIPS pairs: each frame and itself moved
 
@@ -5258,8 +5382,8 @@ def frozen_network_cases(frames):
 
 def check_frozen_networks(rec: dict) -> None:
     """(a) Each frozen network on the card against the CPU, fp32 with TF32
-    off, at the flagship validation's batch, and its control; (d) each
-    network's time a call on the card."""
+    off, on :data:`NETWORK_CHECK_VIDEOS`, and its control; (d) each
+    network's time a call on the card at that batch."""
     import copy
 
     import torch
@@ -5267,13 +5391,13 @@ def check_frozen_networks(rec: dict) -> None:
     from dfot_tpu_torch.metrics.registry import frozen_math
 
     gen = torch.Generator().manual_seed(236)
-    frames = torch.rand(METRIC_VIDEOS, generator=gen)
+    frames = torch.rand(NETWORK_CHECK_VIDEOS, generator=gen)
     cpu, card = torch.device("cpu"), torch.device("cuda")
     with frozen_math(cpu):
         cases = frozen_network_cases(frames)
     rec["networks"] = {}
     log(f"  frozen networks, card against CPU (fp32, TF32 off, relative L2 tol "
-        f"{METRIC_CPU_REL_TOL:g}), inputs from {tuple(METRIC_VIDEOS)} seeded frames:")
+        f"{METRIC_CPU_REL_TOL:g}), inputs from {tuple(NETWORK_CHECK_VIDEOS)} seeded frames:")
     for name, (net, inputs, forward, control) in cases.items():
         t0 = time.perf_counter()
         with frozen_math(cpu):
@@ -5324,15 +5448,17 @@ def report_host_math(rec: dict) -> None:
         + ", ".join(f"{m} {split[m]:.3f} s" for m in ("fvd", "fid", "lpips", "vbench")))
 
 
-def run_k600_metrics(rec: dict, weights_dir=None, key: str = "k600"):
+def run_k600_metrics(rec: dict, weights_dir=None, key: str = "k600", vbench_only: bool = False):
     """(b) K600's validation as composed, ``[vbench, fvd, is, fid, lpips,
     mse, ssim, psnr]``, through ``run(argv)`` on the latent path as phase 20
     sets it up (@DiT/XL at depth 4 on seeded random weights, the online
     VideoVAE, a K600-layout directory, batch 2, one batch); with
     ``weights_dir`` its ``algorithm.logging.metrics_weights_dir``, whose
     ``amt.npz`` and ``raft.npz`` VBench's motion_smoothness and
-    dynamic_degree then score with. Returns the run's launch counts and
-    the experiment."""
+    dynamic_degree then score with; with ``vbench_only`` the list cut to
+    VBench (the run's other metrics are the default run's again, on the same
+    seeded videos and weights). Returns the run's launch counts and the
+    experiment."""
     import shutil
 
     import numpy as np
@@ -5349,6 +5475,7 @@ def run_k600_metrics(rec: dict, weights_dir=None, key: str = "k600"):
     write_npz_videos(data, K600_VIDEOS[1:], K600_RES, 238, raw_dir=True)
     weights = ([] if weights_dir is None
                else [f"++algorithm.logging.metrics_weights_dir={weights_dir}"])
+    weights += ["++algorithm.logging.metrics=[vbench]"] if vbench_only else []
     argv = ["+name=k600_metrics"] + K600_ARGV + weights + [
         f"dataset.save_dir={data}", "++dataset.video_preprocessing=npz",
         "algorithm.vae.pretrained_path=null", f"++algorithm.backbone.depth={K600_DEPTH}",
@@ -5356,7 +5483,7 @@ def run_k600_metrics(rec: dict, weights_dir=None, key: str = "k600"):
         "experiment.validation.limit_batch=1", "++algorithm.logging.max_num_videos=0",
         f"output_dir={root / 'runs'}"]
     cfg = load_config(argv)
-    require(tuple(cfg.algorithm.logging.metrics) == K600_METRICS,
+    require(tuple(cfg.algorithm.logging.metrics) == (("vbench",) if vbench_only else K600_METRICS),
             f"K600 composes the metrics {cfg.algorithm.logging.metrics}")
     algo = DV.build_algorithm(cfg, device="cpu")
     init_random_weights(algo.model, torch.Generator().manual_seed(239))
@@ -5376,12 +5503,12 @@ def run_k600_metrics(rec: dict, weights_dir=None, key: str = "k600"):
     dims = VBENCH_DIM_NAMES if weights_dir is None else tuple(
         d.replace("_uncalibrated", "") if d.split("_un")[0] in A15C_VBENCH_DIMS else d
         for d in VBENCH_DIM_NAMES)
-    keys = [f"validation/prediction/{m}" for m in K600_METRIC_NAMES] + [
+    keys = [f"validation/prediction/{m}" for m in ([] if vbench_only else K600_METRIC_NAMES)] + [
         f"validation/prediction/vbench/{d}" for d in dims]
     require(list(metrics) == keys and all(np.isfinite(list(metrics.values()))),
             f"K600 validation logged {metrics}, not the composed list's {keys}")
-    require_registry_on_card(exp._registry, ("i3d", "lpips", "inception", "clip_b32", "clip_l14",
-                                             "dino", "laion"), "K600's validation")
+    require_registry_on_card(exp._registry, (() if vbench_only else ("i3d", "lpips", "inception"))
+                             + ("clip_b32", "clip_l14", "dino", "laion"), "K600's validation")
     if weights_dir is not None:
         require_registry_on_card(exp._registry, ("amt", "raft"), "K600's validation",
                                  calibrated=True)
@@ -5519,10 +5646,10 @@ def swapped_offsets(radius, device):
 
 
 def a15c_cases(frames, clip):
-    """name -> (CPU network, inputs, control): RAFT on video 0's 7 pairs at
-    224^2 in [0, 255], AMT-S on its 3 even-frame pairs at 256^2 (``embt``
-    0.5), PIPs2 on a 16-frame clip at 256^2 with the tracker's 400 points,
-    MUSIQ on the 16 frames at 256^2 (three scales). A control is a context
+    """name -> (CPU network, inputs, control): RAFT on video 0's T - 1 pairs
+    at 224^2 in [0, 255], AMT-S on its even-frame pairs at 256^2 (``embt``
+    0.5), PIPs2 on ``clip`` at 256^2 with the tracker's 400 points, MUSIQ
+    on the frames at 256^2 (three scales). A control is a context
     that breaks the card's copy: the window offsets of RAFT and PIPs2 in
     (dx, dy) order, AMT-S's transposed convolutions unflipped, MUSIQ's stem
     padded (3, 3) and (1, 1) instead of flax's (2, 3) and (0, 1)."""
@@ -5532,7 +5659,7 @@ def a15c_cases(frames, clip):
     from dfot_tpu_torch.metrics import raft as R
     from dfot_tpu_torch.metrics.resize import resize
 
-    B, T = METRIC_VIDEOS[:2]
+    B, T = frames.shape[:2]
     v0 = resize(frames[0], (T, RAFT_RES, RAFT_RES, 3), "bilinear") * 255.0
     pts = torch.from_numpy(tracker_points())
     S = clip.shape[0]
@@ -5568,17 +5695,18 @@ def a15c_cases(frames, clip):
 
 
 def check_a15c_networks(rec: dict, clip) -> None:
-    """(a) Each A15c network on the card against the CPU and its control,
-    and its time a call on the card."""
+    """(a) Each A15c network on the card against the CPU and its control on
+    :data:`NETWORK_CHECK_VIDEOS` and the clip's first
+    :data:`A15C_PIPS_FRAMES` frames, and its time a call on the card."""
     import copy
 
     import torch
     from dfot_tpu_torch.metrics.registry import frozen_math
 
-    frames = torch.rand(METRIC_VIDEOS, generator=torch.Generator().manual_seed(236))
+    frames = torch.rand(NETWORK_CHECK_VIDEOS, generator=torch.Generator().manual_seed(236))
     cpu, card = torch.device("cpu"), torch.device("cuda")
     with frozen_math(cpu):
-        cases = a15c_cases(frames, clip)
+        cases = a15c_cases(frames, clip[:A15C_PIPS_FRAMES])
     rec["networks"] = {}
     log("  A15c networks, card against CPU (fp32, TF32 off, relative L2 tol "
         + ", ".join(f"{k} {v:g}" for k, v in A15C_CPU_REL_TOL.items()) + "):")
@@ -5628,15 +5756,16 @@ def write_a15c_weights(directory: Path) -> None:
 
 
 def run_k600_a15c(rec: dict, weights_dir: Path) -> dict:
-    """(b) K600's validation as composed with the four weight files:
-    motion_smoothness through AMT-S and dynamic_degree through RAFT, logged
-    without ``_uncalibrated``; then imaging_quality through the run's MUSIQ
+    """(b) K600's validation with the four weight files, its list cut to
+    VBench (phase 23 ran the rest on the same videos): motion_smoothness
+    through AMT-S and dynamic_degree through RAFT, logged without
+    ``_uncalibrated``; then imaging_quality through the run's MUSIQ
     on its predictions (``VideoMetric``'s VBench dimensions leave it out,
     as the JAX package's do, ``video_metric.py:27-31``)."""
     import numpy as np
     from dfot_tpu_torch.metrics.vbench import VBenchQuality
 
-    launches, exp = run_k600_metrics(rec, weights_dir, key="k600_a15c")
+    launches, exp = run_k600_metrics(rec, weights_dir, key="k600_a15c", vbench_only=True)
     reg = exp._registry
     t0 = time.perf_counter()
     vb = VBenchQuality(("imaging_quality",), reg)
@@ -6204,9 +6333,12 @@ TP_FLAGSHIP = 3   # the flagship's 9 heads, 3 a rank
 TP_XL = 2         # K600 @DiT/XL's 16 heads, 8 a rank
 TP_TRAIN_STEPS = 2
 TP_BATCH = TRAIN_LOOP_BATCH
-# the UCF-101 recipe: 3 training steps at its batch of 32 from seeded 64 px
+# DDIM steps of the tensor-parallel window and of the one-process window it
+# is held to (cut from the recipe's 50 for the smoke's time)
+TP_WINDOW_STEPS = 10
+# the UCF-101 recipe: 2 training steps at its batch of 32 from seeded 64 px
 # clips (17 frames: one 16-frame clip each)
-UCF_STEPS = 3
+UCF_STEPS = 2
 UCF_RES = 64
 UCF_VIDEOS = (("training", 100, 17), ("validation", 2, 17))
 # attention capture: K600 @DiT/XL at full width, its depth cut to 2, one
@@ -6242,6 +6374,16 @@ def cut_flagship():
 
     fs = flagship()
     return fs._replace(spec=dataclasses.replace(fs.spec, **FLAGSHIP_CUT_DEPTH))
+
+
+def cut_xl():
+    """K600 @DiT/XL at full width, its depth cut to :data:`K600_DEPTH`."""
+    import dataclasses
+
+    from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl
+
+    r = k600_dit_xl()
+    return r._replace(spec=dataclasses.replace(r.spec, depth=K600_DEPTH))
 
 
 def train_steps(fs, model, batch: dict, group=None, reduce_timer=None) -> dict:
@@ -6282,17 +6424,17 @@ def train_steps(fs, model, batch: dict, group=None, reduce_timer=None) -> dict:
             "peak_memory_bytes": torch.cuda.max_memory_allocated(), "all_reduce_s": reduce_s}
 
 
-def flagship_window(fs, model, go=None):
-    """The cut flagship's 50-step vanilla-HG window on ``model`` (a bf16
-    sampling copy) after a 2-step warm-up window (a fresh process's first
-    window pays seconds of one-time costs): (video, wall, launches, peak
-    memory). ``go``: a path to wait for before the warm-up."""
+def flagship_window(fs, model, go=None, steps: int = TP_WINDOW_STEPS):
+    """The cut flagship's ``steps``-step vanilla-HG window on ``model`` (a
+    bf16 sampling copy) after a 2-step warm-up window (a fresh process's
+    first window pays seconds of one-time costs): (video, wall, launches,
+    peak memory). ``go``: a path to wait for before the warm-up."""
     import dataclasses
 
     import torch
     from dfot_tpu_torch import ops
 
-    ro = make_rollout(fs, model, fs.dcfg)
+    ro = make_rollout(fs, model, dataclasses.replace(fs.dcfg, sampling_timesteps=steps))
     first = seeded_image(fs, 261)
     if go is not None:
         while not Path(go).exists():
@@ -6337,7 +6479,6 @@ def tp_rank_run(out_dir: str) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
-    from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl
     from dfot_tpu_torch.parallel import tensor as TT
 
     rank = dist.get_rank()
@@ -6358,7 +6499,7 @@ def tp_rank_run(out_dir: str) -> dict:
                                _all_reduce_timer())
     torch.cuda.empty_cache()
     if rank < TP_XL:
-        r = k600_dit_xl()
+        r = cut_xl()
         out["xl_train"] = train_steps(
             r, build_random_model(r, seed=265, token_io=False),
             latent_batch((r.max_tokens, *r.resolution, r.x_channels), TP_BATCH, 266), xl_group,
@@ -6370,9 +6511,10 @@ def tp_rank_run(out_dir: str) -> dict:
 def run_tp_paths(record: dict) -> dict:
     """(a) Megatron tensor parallelism on the one card: :data:`TP_FLAGSHIP`
     processes over a gloo group (NCCL does not put two ranks on one card;
-    gloo's all-reduce takes CUDA tensors) run the cut flagship's 50-step
-    window and :data:`TP_TRAIN_STEPS` train steps at batch 8 with 3 of its 9
-    heads a rank, and K600 @DiT/XL's train steps with 8 of 16 a rank on
+    gloo's all-reduce takes CUDA tensors) run the cut flagship's window
+    (:data:`TP_WINDOW_STEPS` steps) and :data:`TP_TRAIN_STEPS` train steps
+    at batch 8 with 3 of its 9 heads a rank, and K600 @DiT/XL's (depth cut
+    to :data:`K600_DEPTH`) train steps with 8 of 16 a rank on
     the first :data:`TP_XL`; each held to the one-process run of the same
     seeds (window: ``WINDOW_REL_TOL``; each step's loss ``GRAD_LOSS_TOL``,
     its gradient norm ``GRAD_REL_TOL``), each rank's launches equal to the
@@ -6381,7 +6523,6 @@ def run_tp_paths(record: dict) -> dict:
 
     import numpy as np
     import torch
-    from dfot_tpu_torch.algorithms.dfot_video import k600_dit_xl
 
     rec = record.setdefault("tp", {})
     fs = cut_flagship()
@@ -6414,7 +6555,7 @@ def run_tp_paths(record: dict) -> dict:
         one["train"] = train_steps(fs, build_random_model(fs, seed=263, token_io=False),
                                    train_batch(fs, TP_BATCH, 264))
         torch.cuda.empty_cache()
-        r = k600_dit_xl()
+        r = cut_xl()
         one["xl_train"] = train_steps(r, build_random_model(r, seed=265, token_io=False),
                                       latent_batch((r.max_tokens, *r.resolution, r.x_channels),
                                                    TP_BATCH, 266))
@@ -6459,10 +6600,12 @@ def run_tp_paths(record: dict) -> dict:
     log(f"tensor parallelism over gloo, {TP_FLAGSHIP} processes on the one card "
         f"({rec['ranks_s']:.1f} s with their start; the one-process runs "
         f"{rec['one_process_s']:.1f} s):")
-    log(f"  cut flagship window (3 of 9 heads a rank): relative L2 {err:.3e} against one process "
+    log(f"  cut flagship window ({TP_WINDOW_STEPS} steps, 3 of 9 heads a rank): relative L2 "
+        f"{err:.3e} against one process "
         f"(tol {WINDOW_REL_TOL}); wall {r0['window']['wall_s']:.3f} s against "
         f"{one['window']['wall_s']:.3f} s; launches at 3 heads {r0['window']['launches']}")
-    for path, what in (("train", "cut flagship"), ("xl_train", "K600 @DiT/XL (8 of 16 heads)")):
+    for path, what in (("train", "cut flagship"),
+                       ("xl_train", f"K600 @DiT/XL (depth {K600_DEPTH}, 8 of 16 heads)")):
         log(f"  {what} {TP_TRAIN_STEPS} train steps at batch {TP_BATCH}: loss "
             f"{r0[path]['loss']} against {one[path]['loss']}, grad norm {r0[path]['grad_norm']} "
             f"against {one[path]['grad_norm']}; step walls "
@@ -6712,6 +6855,16 @@ WIDE_X = (1280, 4, 288, 320)
 WIDE_EDGE_SITES = ((192, 512, 512), (192, 288, 320), (512, 384, 384), (512, 1152, 1152))
 WIDE_RING_SIZE = 2
 WIDE_TRAIN_STEPS = 2
+# B10's wide entry (heads above 256 lanes, streamed in 64-lane chunks): the
+# sites of paths 3 and 4, items Z = B * H of (N, d) (the base-width axial
+# U-ViT's level 3 at 2 heads and B = 2: 2 x 256 positions x 2 heads of 8
+# frames; the factorized DiT at one head and B = 8: 8 x 16 frames of 16
+# patches), then edges of N, d and the item count, bf16 and fp32
+SMALL_N_WIDE_SITES = (("wide axial W", (1024, 8, 512), "bfloat16"),
+                      ("wide factorized", (128, 16, 384), "bfloat16"))
+SMALL_N_WIDE_EDGES = ((333, 32, 1152, "bfloat16"), (70000, 5, 384, "bfloat16"),
+                      (64, 17, 576, "bfloat16"), (7, 1, 320, "bfloat16"),
+                      (100, 32, 1152, "float32"), (1000, 32, 768, "float32"))
 # path 1: the base-width composition (the widths the CPU tests hold equal to
 # uvit3d_pose_base()) with 2 heads; path 2: K600 @DiT/XL's with 4; both built
 # by build_matrix_algorithm (the warm-ups cut to 2 so that two steps move the
@@ -6758,15 +6911,17 @@ def sdpa_backend(q, k, v, scale: float, do=None) -> dict:
 
 
 def wide_sites(record: dict, results: dict, attention_site, flash_forward_check, flash_dq_check,
-               flash_dkv_check, rand) -> dict:
+               flash_dkv_check, rand, small_n_site) -> dict:
     """Phase 27's kernel checks, :func:`check_kernels` with ``wide`` (its
     checkers passed in): B2, B1 and B3 at W at the window's batch (B = 2) and
     at X (B = 8), B7, B4, B5 and B6 at W at the train step's (B = 1) and at X,
     with every check, control, timing and bound of the narrow sites; SDPA on
     the unpadded heads on the first fused backend that takes them
     (:func:`sdpa_backend`); B1, B4 and B5 also at :data:`WIDE_EDGE_SITES`,
-    causal and not. The records of B1, B4 and B5 go under their wide
-    entries; B2, B3, B6 and B7 keep their names, as other sites."""
+    causal and not; B10's wide entry at :data:`SMALL_N_WIDE_SITES` (timed,
+    beside SDPA) and :data:`SMALL_N_WIDE_EDGES`. The records of B1, B4 and
+    B5 go under their wide entries; B2, B3, B6 and B7 keep their names, as
+    other sites."""
     import math
 
     import torch
@@ -6810,6 +6965,10 @@ def wide_sites(record: dict, results: dict, attention_site, flash_forward_check,
                 r["library_ms"] = lib["ms"] if name == "flash_fwd" else lib["bwd_ms"]
                 r.update(library_backend=lib["backend"], library_refused=lib["refused"])
         del q, k, v, do
+    for label, (Z, N, D), dtype in SMALL_N_WIDE_SITES:
+        small_n_site(label, Z, N, D, getattr(torch, dtype), True)
+    for Z, N, D, dtype in SMALL_N_WIDE_EDGES:
+        small_n_site(f"wide edge {dtype}", Z, N, D, getattr(torch, dtype), False, timed=False)
     for name, wide in WIDE_OF.items():
         results[wide] = {"by_site": results[name]["by_site"],
                          "edge_sites": results[name]["edge_sites"]}
@@ -7027,7 +7186,12 @@ def run_wide_paths(record: dict, results: dict) -> dict:
     set beside the narrow sites of the same models where this run checked
     them (W against base level 3, X against XL); the wide ring entries
     (:func:`check_wide_ring`); path 1 (:func:`run_wide_uvit_path`) and path
-    2 (:func:`run_wide_dit_path`)."""
+    2 (:func:`run_wide_dit_path`); path 3, the base-width axial U-ViT at 2
+    heads (level 3: spatial attention on the wide B1-B7, temporal on B10's
+    wide entry), and path 4, the factorized DiT at one head of 384 (B10's
+    wide entry both ways), with their route checks and launch counts."""
+    import dataclasses
+
     import torch
 
     t_phase = time.perf_counter()
@@ -7065,12 +7229,25 @@ def run_wide_paths(record: dict, results: dict) -> dict:
     out.update(run_wide_dit_path(record))
     gc.collect()
     torch.cuda.empty_cache()
+    from dfot_tpu_torch.algorithms.dfot_video import uvit3d_pose_base
+
+    base = uvit3d_pose_base()
+    base = base._replace(spec=dataclasses.replace(base.spec, num_heads=2))
+    out["wide_axial"] = run_axial_path(
+        record, base, (3,), BASE_AXIAL_DEPTH, "wide_axial", "base-width axial U-ViT at 2 heads",
+        (277, 278, 279), BASE_AXIAL_GRAD_PROBES, BASE_AXIAL_NORM_PROBES, witness=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wide_factorized"] = run_factorized_path(record, num_heads=1, key="wide_factorized")
+    gc.collect()
+    torch.cuda.empty_cache()
     record["phase27_s"] = time.perf_counter() - t_phase
     log(f"  phase 27: {record['phase27_s']:.1f} s")
     return out
 
 
 def main() -> int:
+    faulthandler.dump_traceback_later(SMOKE_DEADLINE_S, exit=True)
     # the allocator grows segments in place instead of caching fixed blocks:
     # the flagship's dots step at batch 8 (74.5 GiB predicted) fits only
     # without the fixed blocks' fragmentation (7.6 GiB reserved and unused)
@@ -7256,4 +7433,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    faulthandler.cancel_dump_traceback_later()
+    sys.exit(code)

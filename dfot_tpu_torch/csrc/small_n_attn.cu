@@ -39,6 +39,9 @@
 //   the softmax by shuffles, then p v by (4 rows, 4 channels) tasks, both
 //   register-blocked over 16-byte loads; o goes out in 16-byte stores
 //   straight from registers.
+//
+// Head dims above 256 go to the wide entry (dfot_small_n_attn_wide, at the
+// end), which streams the head in 64-lane chunks; its note says why.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,11 +73,11 @@ struct Plan {
 
 __host__ __device__ inline int round16(int bytes) { return (bytes + 15) / 16 * 16; }
 
-bool make_plan(long long items, int n, int d, int elem_bytes, Plan* p) {
-  const int item_bytes = 3 * n * (d * elem_bytes + kRowPad);
+// ``item_bytes``: an item's share of a stage (the narrow entry: its whole q,
+// k, v rows; the wide entry: one 64-lane chunk of two of them)
+bool make_plan(long long items, int n, int item_bytes, bool fp32, Plan* p) {
   // bf16: a warp an item's 16 query rows, up to 4 warps; fp32: 8 warps share
   // the stage's items, as many as give the score phase 256 (row, 4-key) tasks
-  const bool fp32 = elem_bytes == 4;
   const int units = n <= 16 ? 1 : 2;
   const int most = fp32 ? std::min(kMaxItemsFp32, (255 + n * ((n + 3) / 4)) / (n * ((n + 3) / 4)))
                         : kMaxWarps / units;
@@ -486,6 +489,375 @@ int launch_n(const void* q, const void* k, const void* v, void* o, long long ite
   return launch<T, 4>(q, k, v, o, items, n, d, scale, plan, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The wide entry: head dims above 256, the head streamed in 64-lane chunks
+// ---------------------------------------------------------------------------
+//
+// The same function as the narrow entry (the TPU kernel _small_n_kernel at
+// d > 256, which the JAX dispatcher gives every non-causal row of N <= 32
+// with d % 64 == 0), and the same bound: bytes. Whole rows no longer fit: an
+// item's q, k, v take 3 n (d e + 16) bytes, 221,952 at (32, 1152) in bf16 and
+// 443,904 in fp32 against the 232,448 a block has, and a warp's 16 x d fp32
+// output would take 256 registers a thread at d = 512. So the head streams
+// through one cp.async ring in 64-lane chunks. A group of items takes 2 d /
+// 64 ring steps: d / 64 score steps, each bringing the q and k chunk of the
+// group's items, over which the scores accumulate (bf16: on mma.sync into the
+// warp's 16 x 32 fp32 fragments; fp32: exact FMAs into the block's n x (n + 1)
+// score rows), the softmax after the last; then d / 64 output steps, each
+// bringing v's chunk, from which the 64 lanes of o are computed, cast and
+// stored before the next. A stage and the registers no longer depend on d,
+// and q, k and v are each read once. (The wide flash family's route, output
+// slices over the grid, would read q and k again for every slice: five times
+// the score bytes at d = 1152, in a kernel bound by bytes.)
+//
+// Every step is one commit group of the ring, the empty ones past the
+// block's last step too, so the wait before step i always leaves the newest
+// stages - 1 groups in flight, across the two phases and across groups.
+
+constexpr int kChunk = 64;  // lanes of a streamed chunk
+
+template <typename T>
+__host__ __device__ constexpr int wide_row_bytes() {
+  return kChunk * static_cast<int>(sizeof(T)) + kRowPad;
+}
+
+// bf16: the warp's 16 query rows (from ``row0``) of one item against its keys,
+// on one 64-lane chunk of q (``qs``) and k (``ks``), accumulated into ``s``
+template <int NT8>
+__device__ __forceinline__ void wide_scores_bf16(const unsigned char* qs, const unsigned char* ks,
+                                                 float (&s)[NT8][4], int n, int row0, int lane) {
+  constexpr int rb = wide_row_bytes<__nv_bfloat16>();
+  int qrow = row0 + lane % 16;
+  if (qrow >= n) qrow = row0;
+  const uint32_t qa = smem_u32(qs) + qrow * rb + (lane / 16) * 16;
+  const uint32_t kb = smem_u32(ks) + ((lane / 8) % 2) * 16;
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, qa + kk * 32);
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      int krow = nt * 8 + lane % 8;
+      if (krow >= n) krow = 0;
+      uint32_t b[2];
+      ldmatrix_x2(b, kb + krow * rb + kk * 32);
+      mma_16816(s[nt], a, b[0], b[1]);
+    }
+  }
+}
+
+// bf16: the softmax of the warp's rows g and g + 8 (a quad each), in base 2,
+// keys past n at -inf, packed to the A fragments of p v
+template <int NT8>
+__device__ __forceinline__ void wide_softmax_bf16(float (&s)[NT8][4],
+                                                  uint32_t (&pa)[(NT8 + 1) / 2][4], int n,
+                                                  float scale, int lane) {
+  constexpr int KS = (NT8 + 1) / 2;
+  const float scale2 = scale * 1.4426950408889634f;
+  const int t4 = lane % 4;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool key = nt * 8 + 2 * t4 + e < n;
+      s[nt][e] = key ? s[nt][e] * scale2 : -INFINITY;
+      s[nt][2 + e] = key ? s[nt][2 + e] * scale2 : -INFINITY;
+      m0 = fmaxf(m0, s[nt][e]);
+      m1 = fmaxf(m1, s[nt][2 + e]);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = exp2f(s[nt][e] - m0);
+      s[nt][2 + e] = exp2f(s[nt][2 + e] - m1);
+      l0 += s[nt][e];
+      l1 += s[nt][2 + e];
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = 1.f / l0;
+  l1 = 1.f / l1;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    pa[ks][0] = pack_bf16x2(s[2 * ks][0] * l0, s[2 * ks][1] * l0);
+    pa[ks][1] = pack_bf16x2(s[2 * ks][2] * l1, s[2 * ks][3] * l1);
+    if (2 * ks + 1 < NT8) {
+      pa[ks][2] = pack_bf16x2(s[2 * ks + 1][0] * l0, s[2 * ks + 1][1] * l0);
+      pa[ks][3] = pack_bf16x2(s[2 * ks + 1][2] * l1, s[2 * ks + 1][3] * l1);
+    } else {
+      pa[ks][2] = pa[ks][3] = 0u;
+    }
+  }
+}
+
+// bf16: the warp's 16 rows of one 64-lane chunk of o = p v from v's chunk at
+// ``vs``, staged in the item's rows at ``os`` (the stage's k half, free in an
+// output step) and written to ``out`` (the chunk's first lane of the item's
+// row 0) in 16-byte stores
+template <int NT8>
+__device__ __forceinline__ void wide_out_bf16(const unsigned char* vs, unsigned char* os,
+                                              const uint32_t (&pa)[(NT8 + 1) / 2][4],
+                                              __nv_bfloat16* out, int n, int d, int row0,
+                                              int lane) {
+  constexpr int KS = (NT8 + 1) / 2;
+  constexpr int rb = wide_row_bytes<__nv_bfloat16>();
+  const int g = lane / 4, t4 = lane % 4, r0 = row0 + g, r1 = r0 + 8;
+  int vrow[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    vrow[ks] = ks * 16 + lane % 16;
+    if (vrow[ks] >= n) vrow[ks] = 0;
+  }
+  const uint32_t vb = smem_u32(vs) + (lane / 16) * 16;
+#pragma unroll
+  for (int c16 = 0; c16 < kChunk / 16; ++c16) {
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vb + vrow[ks] * rb + c16 * 32);
+      mma_16816(acc[0], pa[ks], b[0], b[1]);
+      mma_16816(acc[1], pa[ks], b[2], b[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int byte = (c16 * 16 + h * 8 + 2 * t4) * 2;
+      if (r0 < n)
+        *reinterpret_cast<uint32_t*>(os + r0 * rb + byte) = pack_bf16x2(acc[h][0], acc[h][1]);
+      if (r1 < n)
+        *reinterpret_cast<uint32_t*>(os + r1 * rb + byte) = pack_bf16x2(acc[h][2], acc[h][3]);
+    }
+  }
+  __syncwarp();
+  constexpr int cpr = kChunk / 8;  // 16-byte pieces of a chunk's row
+  const int rows = min(16, n - row0);
+  for (int c = lane; c < rows * cpr; c += 32) {
+    const int r = row0 + c / cpr, col = c % cpr;
+    *reinterpret_cast<uint4*>(out + r * d + col * 8) =
+        *reinterpret_cast<const uint4*>(os + r * rb + col * 16);
+  }
+  __syncwarp();
+}
+
+// fp32: the scores of a stage's ``items`` items on one 64-lane chunk of q
+// (``qs``) and k (``ks``), by (row, 4 keys) tasks (keys kq + j quarts), added
+// to the score rows ``sc`` (n + 1 floats a row; set on the first chunk)
+__device__ __forceinline__ void wide_scores_fp32(const unsigned char* qs, const unsigned char* ks,
+                                                 float* sc, int items, int n, bool first) {
+  constexpr int rb = wide_row_bytes<float>();
+  const int quarts = (n + 3) / 4, sld = n + 1, rows = items * n;
+  for (int task = threadIdx.x; task < rows * quarts; task += blockDim.x) {
+    const int row = task / quarts, kq = task - row * quarts;
+    const int row_0 = row - row % n;  // the item's row 0
+    const float4* q = reinterpret_cast<const float4*>(qs + row * rb);
+    const float4* k[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      k[j] = reinterpret_cast<const float4*>(ks + (row_0 + min(kq + quarts * j, n - 1)) * rb);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int c = 0; c < kChunk / 4; ++c) {
+      const float4 qv = q[c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = dot4(qv, k[j][c], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kq + quarts * j < n) {
+        float* dst = sc + row * sld + kq + quarts * j;
+        *dst = first ? acc[j] : *dst + acc[j];
+      }
+  }
+}
+
+// fp32: the scaled scores of each row turned into its softmax, a thread a row
+__device__ __forceinline__ void wide_softmax_fp32(float* sc, int items, int n, float scale) {
+  for (int row = threadIdx.x; row < items * n; row += blockDim.x) {
+    float* s = sc + row * (n + 1);
+    float m = -INFINITY;
+    for (int j = 0; j < n; ++j) {
+      s[j] *= scale;
+      m = fmaxf(m, s[j]);
+    }
+    float l = 0.f;
+    for (int j = 0; j < n; ++j) {
+      s[j] = expf(s[j] - m);
+      l += s[j];
+    }
+    for (int j = 0; j < n; ++j) s[j] = s[j] / l;
+  }
+}
+
+// fp32: one 64-lane chunk of o = p v for a stage's items from v's chunk at
+// ``vs``, by (4 rows, 4 lanes) tasks, stored to ``out`` (the chunk's first
+// lane of the first item's row 0) straight from registers
+__device__ __forceinline__ void wide_out_fp32(const unsigned char* vs, const float* sc,
+                                              float* out, int items, int n, int d) {
+  constexpr int rb = wide_row_bytes<float>();
+  constexpr int quads = kChunk / 4;
+  const int quarts = (n + 3) / 4, sld = n + 1;
+  for (int task = threadIdx.x; task < items * quarts * quads; task += blockDim.x) {
+    const int rq = task / quads, cq = task - rq * quads;
+    const int it = rq / quarts, r4 = 4 * (rq - it * quarts);
+    const float* p[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[r] = sc + (it * n + min(r4 + r, n - 1)) * sld;
+    float4 acc[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const unsigned char* v = vs + it * n * rb;
+    for (int j = 0; j < n; ++j) {
+      const float4 vv = reinterpret_cast<const float4*>(v + j * rb)[cq];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float pr = p[r][j];
+        acc[r].x = fmaf(pr, vv.x, acc[r].x);
+        acc[r].y = fmaf(pr, vv.y, acc[r].y);
+        acc[r].z = fmaf(pr, vv.z, acc[r].z);
+        acc[r].w = fmaf(pr, vv.w, acc[r].w);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r4 + r < n)
+        reinterpret_cast<float4*>(out + static_cast<long long>(it * n + r4 + r) * d)[cq] = acc[r];
+  }
+}
+
+template <typename T, int NT8>
+__global__ void __launch_bounds__(kWarpsFp32 * 32)
+    small_n_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o, long long items, int n, int d,
+                        float scale, int items_per_stage, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kFp32 = sizeof(T) == 4;
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte piece
+  constexpr int kCpr = kChunk / kElems;                      // 16-byte pieces of a chunk's row
+  constexpr int rb = wide_row_bytes<T>();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int units = n <= 16 ? 1 : 2;
+  // a stage: the chunk of q (score steps) or v (output steps), then k's chunk
+  const int half = items_per_stage * n * rb, stage_bytes = 2 * half;
+  float* sc = reinterpret_cast<float*>(smem);  // fp32: the scores, before the ring
+  unsigned char* ring = smem + (kFp32 ? round16(items_per_stage * n * (n + 1) * 4) : 0);
+  const int chunks = d / kChunk, per_group = 2 * chunks;
+  const long long groups = (items + items_per_stage - 1) / items_per_stage;
+  const int count =
+      groups > blockIdx.x ? static_cast<int>((groups - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+  const long long steps = static_cast<long long>(count) * per_group;
+  auto first_item = [&](int gi) {
+    return (blockIdx.x + static_cast<long long>(gi) * gridDim.x) * items_per_stage;
+  };
+
+  // step j of this block into stage j % stages: of group j / per_group, the
+  // q and k chunk c of its items (c = j % per_group < chunks) or v's chunk
+  // c - chunks, every thread copying 16-byte pieces
+  auto load = [&](long long j) {
+    const int gi = static_cast<int>(j / per_group), ph = static_cast<int>(j % per_group);
+    const long long first = first_item(gi);
+    const int rows =
+        static_cast<int>(min(static_cast<long long>(items_per_stage), items - first)) * n;
+    const bool score = ph < chunks;
+    const long long base = first * n * d + (score ? ph : ph - chunks) * kChunk;
+    unsigned char* slot = ring + static_cast<int>(j % stages) * stage_bytes;
+    for (int t = 0; t < (score ? 2 : 1); ++t) {
+      const T* src = (score ? (t == 0 ? q : k) : v) + base;
+      unsigned char* dst = slot + t * half;
+      for (int c = tid; c < rows * kCpr; c += blockDim.x) {
+        const int row = c / kCpr, col = c % kCpr;
+        cp_async16(dst + row * rb + col * 16,
+                   src + static_cast<long long>(row) * d + col * kElems);
+      }
+    }
+  };
+
+  for (int j = 0; j < stages - 1; ++j) {
+    if (j < steps) load(j);
+    cp_async_commit();
+  }
+  long long i = 0;  // this block's next step
+  // step i's stage, once it has come, with step i + stages - 1 in flight
+  auto arrive = [&]() {
+    if (i + stages - 1 < steps) load(i + stages - 1);
+    cp_async_commit();
+    cp_async_wait(stages - 1);
+    __syncthreads();
+    return ring + static_cast<int>(i % stages) * stage_bytes;
+  };
+
+  for (int gi = 0; gi < count; ++gi) {
+    const long long first = first_item(gi);
+    const int here =
+        static_cast<int>(min(static_cast<long long>(items_per_stage), items - first));
+    if constexpr (kFp32) {
+      float* out = reinterpret_cast<float*>(o) + first * n * d;
+      for (int c = 0; c < chunks; ++c, ++i) {
+        unsigned char* stage = arrive();
+        wide_scores_fp32(stage, stage + half, sc, here, n, c == 0);
+        if (c == chunks - 1) {
+          __syncthreads();
+          wide_softmax_fp32(sc, here, n, scale);
+        }
+        __syncthreads();  // the stage is refilled by a later step's load
+      }
+      for (int c = 0; c < chunks; ++c, ++i) {
+        unsigned char* stage = arrive();
+        wide_out_fp32(stage, sc, out + c * kChunk, here, n, d);
+        __syncthreads();
+      }
+    } else {
+      constexpr int KS = (NT8 + 1) / 2;
+      const int it = warp / units, row0 = 16 * (warp % units);
+      const bool mine = it < here;
+      const int item_off = it * n * rb;
+      float s[NT8][4];
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int c = 0; c < chunks; ++c, ++i) {
+        unsigned char* stage = arrive();
+        if (mine)
+          wide_scores_bf16<NT8>(stage + item_off, stage + half + item_off, s, n, row0, lane);
+        __syncthreads();
+      }
+      uint32_t pa[KS][4];
+      if (mine) wide_softmax_bf16<NT8>(s, pa, n, scale, lane);
+      __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(o) + (first + it) * n * d;
+      for (int c = 0; c < chunks; ++c, ++i) {
+        unsigned char* stage = arrive();
+        if (mine)
+          wide_out_bf16<NT8>(stage + item_off, stage + half + item_off, pa, out + c * kChunk, n,
+                             d, row0, lane);
+        __syncthreads();
+      }
+    }
+  }
+  cp_async_wait(0);
+}
+
+template <typename T, int NT8>
+int launch_wide(const void* q, const void* k, const void* v, void* o, long long items, int n,
+                int d, float scale, const Plan& plan, cudaStream_t stream) {
+  auto kernel = small_n_wide_kernel<T, NT8>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlock);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<static_cast<unsigned>(plan.grid), plan.warps * 32, plan.smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), items, n, d, scale, plan.items_per_stage, plan.stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o: (items, N, D) contiguous, all bf16 (is_fp32 = 0) or all fp32
@@ -500,11 +872,33 @@ extern "C" int dfot_small_n_attn(const void* q, const void* k, const void* v, vo
   if (items <= 0 || n <= 0 || n > kMaxN || d <= 0 || d % 16 != 0 || d > 256)
     return cudaErrorInvalidValue;
   Plan plan;
-  if (!make_plan(items, n, d, is_fp32 ? 4 : 2, &plan) || plan.warps != warps ||
+  if (!make_plan(items, n, 3 * n * (d * (is_fp32 ? 4 : 2) + kRowPad), is_fp32, &plan) ||
+      plan.warps != warps ||
       plan.items_per_stage != items_per_stage || plan.stages != stages || plan.smem != smem ||
       plan.grid != grid)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return is_fp32 ? launch_n<float>(q, k, v, o, items, n, d, scale, plan, s)
                  : launch_n<__nv_bfloat16>(q, k, v, o, items, n, d, scale, plan, s);
+}
+
+// The wide entry, d > 256: arguments as dfot_small_n_attn's, D a multiple of
+// 64 above 256, and the plan's item share one 64-lane chunk of two operands.
+extern "C" int dfot_small_n_attn_wide(const void* q, const void* k, const void* v, void* o,
+                                      long long items, int n, int d, float scale, int is_fp32,
+                                      int warps, int items_per_stage, int stages, int smem,
+                                      long long grid, void* stream) {
+  if (items <= 0 || n <= 0 || n > kMaxN || d <= 256 || d % kChunk != 0)
+    return cudaErrorInvalidValue;
+  Plan plan;
+  if (!make_plan(items, n, 2 * n * (kChunk * (is_fp32 ? 4 : 2) + kRowPad), is_fp32, &plan) ||
+      plan.warps != warps || plan.items_per_stage != items_per_stage || plan.stages != stages ||
+      plan.smem != smem || plan.grid != grid)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (is_fp32) return launch_wide<float, 1>(q, k, v, o, items, n, d, scale, plan, s);
+  if (n <= 8) return launch_wide<bf16, 1>(q, k, v, o, items, n, d, scale, plan, s);
+  if (n <= 16) return launch_wide<bf16, 2>(q, k, v, o, items, n, d, scale, plan, s);
+  return launch_wide<bf16, 4>(q, k, v, o, items, n, d, scale, plan, s);
 }

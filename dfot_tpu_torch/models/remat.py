@@ -19,7 +19,8 @@ what the forward keeps; the backward runs the rest of the block again:
   (``tag_attn_out``): the attention output of each route. A tensor is tagged
   by the op that makes it, for ``torch.utils.checkpoint``'s selective
   contexts see ops, not names: ``dfot::attn_out_collect`` (kernel B3, the
-  packed route's last op) and ``dfot::small_n_attention`` (kernel B10). The
+  packed route's last op) and ``dfot::small_n_attention`` (kernel B10, and
+  its wide entry above 256 lanes: the same op). The
   flash op ``dfot::flash_attention`` (kernel B1) is never kept: its
   backward needs q, k, v, O and the LSE, residuals JAX does not name, so
   JAX runs B1 (and B2 before it) again under ``attn`` too (ROADMAP.md C6).

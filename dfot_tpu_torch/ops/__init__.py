@@ -16,6 +16,7 @@ from .attention import (
     flash_fwd_wide,
     small_n_attention,
     small_n_attention_reference,
+    small_n_attention_wide,
 )
 from .ln_modulate import ln_modulate_bwd, reference_ln_modulate, reference_ln_modulate_bwd
 from .ln_modulate import ln_modulate as _ln_modulate
@@ -62,6 +63,9 @@ KERNEL_WRAPPERS = {
     "ring_fwd_wide": ring_fwd_hop_wide,
     "ring_dq_wide": ring_dq_hop_wide,
     "ring_dkv_wide": ring_dkv_hop_wide,
+    # B10's wide entry (csrc/small_n_attn.cu): short rows at head dims above
+    # 256, the head streamed in 64-lane chunks
+    "small_n_attn_wide": small_n_attention_wide,
 }
 
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "dfot_ln_modulate_fwd": (_P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _L, _P),
     "dfot_ln_modulate_bwd": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _L, _P),
     "dfot_small_n_attn": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P),
+    "dfot_small_n_attn_wide": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _I, _L, _P),
     "dfot_ring_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "dfot_ring_bwd_dq": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),

@@ -23,7 +23,8 @@ package.
   :func:`attention_backward_reference` (the explicit backward formulas in
   fp32, not autograd of the forward).
 - :func:`small_n_attention` is whole-row attention for N <= 32: its forward
-  is kernel B10 (``csrc/small_n_attn.cu``, the port of ``_small_n_kernel``),
+  is kernel B10 (``csrc/small_n_attn.cu``, the port of ``_small_n_kernel``;
+  above 256 lanes its wide entry, :func:`small_n_attention_wide`),
   its backward the plain backward formulas, as the JAX package leaves it to
   autodiff of its plain attention. Plain version:
   :func:`small_n_attention_reference`.
@@ -55,7 +56,8 @@ __all__ = [
     "attention", "attention_reference", "attention_backward_reference",
     "flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_plan",
     "flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "is_flash_width",
-    "small_n_attention", "small_n_attention_reference", "small_n_plan", "attention_route",
+    "small_n_attention", "small_n_attention_wide", "small_n_attention_reference",
+    "small_n_plan", "attention_route",
     "padded_head_dim", "set_sequence_parallel",
     "attention_with_weights", "set_attention_capture", "attention_capture_enabled",
 ]
@@ -633,7 +635,10 @@ flash_bwd_dkv_wide.launches = 0
 
 
 SMALL_N_MAX = 32
-SMALL_N_MAX_D = 256  # kernel B10 takes head dims that are multiples of 64 up to this
+# kernel B10 holds an item's whole q, k, v rows in a stage up to this head
+# dim; above it, its wide entry streams the head in 64-lane chunks
+SMALL_N_WHOLE_D = 256
+SMALL_N_CHUNK = 64
 
 
 @_full_precision
@@ -664,7 +669,10 @@ def small_n_plan(items: int, n: int, d: int, dtype: torch.dtype) -> dict:
     checks it.
 
     A stage holds the q, k, v rows of ``items_per_stage`` items, rows padded
-    by 16 bytes (``3 n (d e + 16)`` bytes an item). bf16: an item takes
+    by 16 bytes (``3 n (d e + 16)`` bytes an item); above
+    :data:`SMALL_N_WHOLE_D` (``wide``: the wide entry, ``d`` a multiple of
+    64) one 64-lane chunk of q and k or of v and a free half, ``2 n (64 e +
+    16)`` bytes an item whatever ``d``. bf16: an item takes
     ``units`` warps (16 query rows each: one for n <= 16, two above) and a
     block ``warps`` = units x items_per_stage, from 4 items (or 2) down; fp32:
     a block is 8 warps whose threads share the stage's items, from as many
@@ -677,10 +685,13 @@ def small_n_plan(items: int, n: int, d: int, dtype: torch.dtype) -> dict:
     """
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"no small-N kernel for {dtype}")
-    if items <= 0 or not 1 <= n <= SMALL_N_MAX or d <= 0 or d % 16 or d > SMALL_N_MAX_D:
+    wide = d > SMALL_N_WHOLE_D
+    if items <= 0 or not 1 <= n <= SMALL_N_MAX or d <= 0 or d % (SMALL_N_CHUNK if wide else 16):
         raise ValueError(f"no small-N plan for {items} items of ({n}, {d})")
     fp32 = dtype == torch.float32
-    item_bytes = 3 * n * (d * (4 if fp32 else 2) + SMALL_N_ROW_PAD)
+    e = 4 if fp32 else 2
+    item_bytes = (2 * n * (SMALL_N_CHUNK * e + SMALL_N_ROW_PAD) if wide
+                  else 3 * n * (d * e + SMALL_N_ROW_PAD))
     units = 1 if n <= 16 else 2
     tasks = n * -(-n // 4)
     most = (min(SMALL_N_MAX_ITEMS_FP32, -(-256 // tasks)) if fp32
@@ -693,8 +704,9 @@ def small_n_plan(items: int, n: int, d: int, dtype: torch.dtype) -> dict:
             budget = min(SMEM_PER_BLOCK, (SMEM_PER_SM - per_sm * SMEM_BLOCK_RESERVE) // per_sm)
             stages = min(SMALL_N_MAX_STAGES, (budget - fixed) // stage)
             if stages >= 2:
-                return {"units": 0 if fp32 else units, "warps": warps, "items_per_stage": ipb,
-                        "stages": stages, "smem_bytes": fixed + stages * stage,
+                return {"wide": wide, "units": 0 if fp32 else units, "warps": warps,
+                        "items_per_stage": ipb, "stages": stages, "stage_bytes": stage,
+                        "smem_bytes": fixed + stages * stage,
                         "blocks_per_sm": per_sm,
                         "grid": min(-(-items // ipb), per_sm * SM_COUNT)}
     raise ValueError(f"no small-N plan fits ({n}, {d}) {dtype}")
@@ -707,25 +719,28 @@ def _small_n_cuda(q, k, v):
         raise TypeError(f"{what} takes all bf16 or all fp32, got {[t.dtype for t in (q, k, v)]}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{what}: shapes differ: {[tuple(t.shape) for t in (q, k, v)]}")
-    if not 1 <= N <= SMALL_N_MAX or D % 64 or not 0 < D <= SMALL_N_MAX_D:
-        raise ValueError(f"{what} takes N <= {SMALL_N_MAX} and d in multiples of 64 up to "
-                         f"{SMALL_N_MAX_D}, got {tuple(q.shape)}")
+    if not 1 <= N <= SMALL_N_MAX or D % 64 or D <= 0:
+        raise ValueError(f"{what} takes N <= {SMALL_N_MAX} and d in multiples of 64, "
+                         f"got {tuple(q.shape)}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError(f"{what}: tensors on different devices")
     q, k, v = (t.contiguous() for t in (q, k, v))
     _cuda.check_aligned(what, 16, q, k, v)
     plan = small_n_plan(B * H, N, D, q.dtype)
+    lib = _cuda.library()
+    entry, wrapper = ((lib.dfot_small_n_attn_wide, small_n_attention_wide) if plan["wide"]
+                      else (lib.dfot_small_n_attn, small_n_attention))
     out = torch.empty_like(q)
     _cuda.check(
-        _cuda.library().dfot_small_n_attn(
+        entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, D,
             1.0 / math.sqrt(D), int(q.dtype == torch.float32), plan["warps"],
             plan["items_per_stage"], plan["stages"], plan["smem_bytes"], plan["grid"],
             _cuda.stream_handle(q.device),
         ),
-        what,
+        what + (" (wide)" if plan["wide"] else ""),
     )
-    small_n_attention.launches += 1
+    wrapper.launches += 1
     return out
 
 
@@ -774,12 +789,27 @@ def small_n_attention(q, k, v, plain: bool = False) -> torch.Tensor:
     """Non-causal attention for short rows, (B, H, N, D) with N <= 32, through
     the custom op ``dfot::small_n_attention``: the whole row at once, no
     online softmax. On a CUDA device this launches kernel B10 (bf16 or fp32,
-    D a multiple of 64 up to 256; anything else raises); on the CPU, or on
+    D a multiple of 64; above 256 its wide entry, counted under
+    :func:`small_n_attention_wide`; anything else raises); on the CPU, or on
     any device with ``plain``, it runs the plain version. Differentiable."""
     return _small_n_op(q, k, v, plain)
 
 
+def small_n_attention_wide(q, k, v) -> torch.Tensor:
+    """B10's wide entry (``dfot_small_n_attn_wide``: head dims above 256, a
+    multiple of 64, streamed in 64-lane chunks), forward only, (B, H, N, D)
+    with N <= 32: the kernel on a CUDA device, the plain version on the CPU.
+    :func:`small_n_attention` comes here for such heads."""
+    if q.device.type == "cpu":
+        return _small_n_plain(q, k, v)
+    if q.shape[-1] <= SMALL_N_WHOLE_D:
+        raise ValueError(f"B10's wide entry takes head dims above {SMALL_N_WHOLE_D}, "
+                         f"got {tuple(q.shape)}")
+    return _small_n_cuda(q, k, v)
+
+
 small_n_attention.launches = 0
+small_n_attention_wide.launches = 0
 
 
 # the sequence-parallel context: a ring (ops/ring_attention.py: a
@@ -806,8 +836,9 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
       least :data:`RING_MIN_ROWS` query rows (the JAX package's gate):
       ring attention, one ring-hop kernel a hop (the ring entries of B1,
       and of B4 and B5 back);
-    - ``"small_n"``: non-causal, N <= 32, d a multiple of 64 up to 256 (the
-      JAX package's gate, ``d % 64 == 0``): kernel B10;
+    - ``"small_n"``: non-causal, N <= 32, d a multiple of 64 (the JAX
+      package's gate, ``d % 64 == 0``, with no upper limit): kernel B10,
+      above 256 lanes its wide entry;
     - ``"flash"``: d in {64, 128, 256} or a multiple of 64 above (the wide
       family) and N a multiple of 64: kernels B1, B4, B5;
     - ``"padded_flash"``: any other d (:func:`padded_head_dim`) and N a
@@ -815,11 +846,7 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
       those widths, with the true 1/sqrt(d) scale, sliced after;
     - ``"plain"``: what is left and the JAX package too computes outside any
       kernel (ragged N above 32, short causal rows): the plain version, on the
-      card as well;
-    - ``"unported"``: a shape the JAX package gives to a Pallas kernel and no
-      kernel of the port takes (short rows at a head dim above 256, B10's
-      ``_small_n_kernel``): :func:`attention` computes it with the plain
-      version on the CPU and raises on the card.
+      card as well.
 
     The packed route of the models (``qkv_prep.attention_from_packed_qkv``)
     is taken only where this answers ``"flash"`` or ``"padded_flash"``: where
@@ -831,7 +858,7 @@ def attention_route(n: int, d: int, causal: bool = False) -> str:
             and n // ring.size >= RING_MIN_ROWS):
         return "ring"
     if not causal and n <= SMALL_N_MAX and d % 64 == 0:
-        return "small_n" if d <= SMALL_N_MAX_D else "unported"
+        return "small_n"
     if n % 64 == 0:
         return "flash" if is_flash_width(d) else "padded_flash"
     return "plain"
@@ -851,8 +878,7 @@ def _padded_flash(q, k, v, causal, plain):
 def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tensor:
     """Attention dispatcher, (B, H, N, D) layout, by :func:`attention_route`.
     Each route launches its kernels for a CUDA tensor or raises, and runs
-    their plain versions for a CPU tensor (or on any device with ``plain``):
-    on the CPU every shape computes, the ``"unported"`` ones too."""
+    their plain versions for a CPU tensor (or on any device with ``plain``)."""
     route = attention_route(q.shape[-2], q.shape[-1], causal)
     if route == "ring":
         from .ring_attention import sequence_parallel_attention
@@ -864,12 +890,4 @@ def attention(q, k, v, causal: bool = False, plain: bool = False) -> torch.Tenso
         return flash_attention(q, k, v, causal, plain=plain)
     if route == "padded_flash":
         return _padded_flash(q, k, v, causal, plain)
-    if route == "plain":
-        return attention_reference(q, k, v, causal)
-    if plain or q.device.type == "cpu":
-        # short rows at a head dim above 256: B10's plain version
-        return small_n_attention(q, k, v, plain)
-    raise NotImplementedError(
-        f"attention of shape {tuple(q.shape)} (causal={causal}): no kernel of the port takes it "
-        "(short rows at a head dim above 256: ROADMAP.md queue B)"
-    )
+    return attention_reference(q, k, v, causal)  # "plain"

@@ -12,8 +12,9 @@ seeded numpy inputs:
 - the head-dim-72 packed route (B2 with ``d_out`` 128, B1 at the true scale,
   B3 back to 72; B7, B4, B5, B6 on the way back) against the JAX fused route
   under ``force_fused_interpret(True)``: 2e-5 / 1e-4 absolute;
-- the dispatcher's rule, as a table: no shape the JAX package gives a Pallas
-  kernel with a head dim up to 256 is left ``"unported"``.
+- the dispatcher's rule, as a table: every shape the JAX package gives a
+  Pallas kernel has a kernel route (short rows above 256 lanes: B10's wide
+  entry), and B10's plans fit at every N and head dim.
 
 The CUDA kernels themselves are tested on the card by
 ``tests/test_torch_port_gpu.py``.
@@ -119,7 +120,8 @@ def test_ln_modulate_takes_token_wise_conditioning_only():
         TL.ln_modulate(x.to("meta"), x.to("meta"), x.to("meta"))
 
 
-@pytest.mark.parametrize("n,d", [(8, 64), (16, 64), (5, 64), (32, 128), (8, 256), (32, 256)])
+@pytest.mark.parametrize("n,d", [(8, 64), (16, 64), (5, 64), (32, 128), (8, 256), (32, 256),
+                                 (8, 320), (16, 384), (5, 512), (32, 1152)])
 def test_small_n_attention_matches_pallas_kernel(n, d):
     rng = np.random.default_rng(3)
     q, k, v, g = (rng.standard_normal((4, 3, n, d)).astype(np.float32) for _ in range(4))
@@ -159,7 +161,7 @@ ROUTES = [
     ((100, 64, False), "plain"),        # ragged N: XLA attention
     ((1000, 72, False), "plain"),
     ((1024, 320, False), "flash"),      # Pallas flash at d = 320; the wide family
-    ((16, 320, False), "unported"),     # _small_n_kernel at d = 320
+    ((16, 320, False), "small_n"),      # _small_n_kernel at d = 320: B10's wide entry
     ((300, 192, False), "plain"),
     ((2048, 256, False), "flash"),      # the base U-ViT's level 3: 1024 channels, 4 heads
     ((2048, 256, True), "flash"),
@@ -191,9 +193,10 @@ def test_attention_dispatcher_matches_plain_jax_attention(n, d, causal):
 
 
 def test_attention_dispatcher_refuses_what_no_kernel_takes():
-    """Only a CUDA tensor of a shape no kernel takes is refused (short rows
-    above 256 lanes, ``tests/test_torch_port_gpu.py``); on the CPU every
-    shape computes, as the JAX package's plain attention (2e-5)."""
+    """Only a CUDA tensor of a shape no kernel takes is refused
+    (``tests/test_torch_port_gpu.py``); on the CPU every shape computes, as
+    the JAX package's plain attention (2e-5), long and short rows at 320
+    lanes too."""
     rng = np.random.default_rng(6)
     for shape in ((1, 1, 1024, 320), (1, 1, 16, 320)):
         q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
@@ -242,17 +245,19 @@ def test_new_wrappers_are_counted():
     assert {"ln_modulate", "ln_modulate_bwd", "small_n_attn", "ring_fwd", "ring_dq",
             "ring_dkv"} <= set(TOPS.KERNEL_WRAPPERS)
     # B1-B10, the ring hop's three entries (B1's forward, B4's and B5's
-    # backward) and the wide family's six (B1, B4, B5 and their ring entries)
-    assert len(TOPS.KERNEL_WRAPPERS) == 19
+    # backward), the wide family's six (B1, B4, B5 and their ring entries)
+    # and B10's wide entry
+    assert len(TOPS.KERNEL_WRAPPERS) == 20
+    assert TOPS.KERNEL_WRAPPERS["small_n_attn_wide"] is TA.small_n_attention_wide
     TOPS.reset_launch_counts()
     assert set(TOPS.launch_counts().values()) == {0}
 
 
 def test_no_kernel_shape_up_to_head_dim_256_is_unported():
     """Every (N, d) the JAX dispatcher gives a Pallas kernel (``_blocks_ok``
-    on the padded head dim, or its small-N gate) with a padded head dim of
-    at most 256 has a kernel route in the port; past 256 long rows do too
-    (the wide family) and only short rows (B10's) stay unported."""
+    on the padded head dim, or its small-N gate) has a kernel route in the
+    port, at every head dim up to 1152: long rows past 256 on the wide
+    family, short rows past 256 on B10's wide entry."""
     for d in range(8, 1153, 8):
         dp = d + (-d % 64)
         for n in (8, 16, 32, 512, 1024, 1280, 2048, 8192):
@@ -262,7 +267,28 @@ def test_no_kernel_shape_up_to_head_dim_256_is_unported():
                 if not pallas:
                     continue
                 route = TA.attention_route(n, d, causal)
-                if dp <= 256 or not small:
-                    assert route in ("small_n", "flash", "padded_flash"), (n, d, causal, route)
-                else:
-                    assert route == "unported", (n, d, causal, route)
+                assert route == "small_n" if small else route in ("flash", "padded_flash"), (
+                    n, d, causal, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_small_n_plans_fit_at_every_n_and_head_dim(dtype):
+    """B10's plan at every N in 1..32 and every head dim in 64..2048 (step
+    64): within one H100 block's shared memory with at least two stages and
+    at least one block an SM; above 256 lanes (the wide entry) a stage holds
+    a 64-lane chunk of two operands, so its bytes do not grow with d."""
+    for n in range(1, 33):
+        wide_stage = None
+        for d in range(64, 2049, 64):
+            plan = TA.small_n_plan(1000, n, d, dtype)
+            assert plan["wide"] == (d > TA.SMALL_N_WHOLE_D)
+            assert 2 <= plan["stages"] <= TA.SMALL_N_MAX_STAGES, (n, d)
+            assert plan["smem_bytes"] <= TA.SMEM_PER_BLOCK, (n, d)
+            assert plan["blocks_per_sm"] * (plan["smem_bytes"] + TA.SMEM_BLOCK_RESERVE) <= (
+                TA.SMEM_PER_SM), (n, d)
+            assert plan["smem_bytes"] >= plan["stages"] * plan["stage_bytes"]
+            if plan["wide"]:
+                wide_stage = wide_stage or plan["stage_bytes"]
+                assert plan["stage_bytes"] == wide_stage, (n, d)
+    with pytest.raises(ValueError):
+        TA.small_n_plan(1000, 8, 352, dtype)  # above 256 only multiples of 64

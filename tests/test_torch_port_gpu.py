@@ -329,20 +329,28 @@ def test_ln_modulate_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("z,n,d", [(18432, 8, 64), (4608, 8, 128), (768, 16, 64), (70000, 5, 64),
                                    (333, 32, 64), (100, 32, 128), (7, 1, 64), (2048, 8, 256),
-                                   (100, 32, 256), (64, 16, 192)])
+                                   (100, 32, 256), (64, 16, 192),
+                                   (1024, 8, 512), (128, 16, 384), (333, 32, 1152),
+                                   (70000, 5, 384), (64, 17, 576), (7, 1, 320), (100, 32, 1152),
+                                   (1000, 32, 768)])
 def test_small_n_attention(cuda, z, n, d, dtype, rel):
     """B10 at the axial (N = 8, d = 64, 128 and 256) and factorized-DiT
     (N = 16) shapes, at row lengths that are no multiple of a tensor-core
     tile, at the longest row (in fp32 its item passes 48 KB of shared memory;
     at d = 256 it passes the budget in bf16 too and takes a block of its
-    own), and with more items than a grid's second dimension holds."""
+    own), and with more items than a grid's second dimension holds; above
+    256 lanes its wide entry, at the axial U-ViT's level 3 at 2 heads (8,
+    512), the factorized DiT at one head (16, 384) and edges of N and d."""
     g = torch.Generator(device=cuda).manual_seed(11)
     q, k, v = ((1.5 * torch.randn(2, z // 2 or 1, n, d, generator=g, device=cuda)).to(
         dtype).requires_grad_() for _ in range(3))
     cot = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    entry, other = ("small_n_attn_wide", "small_n_attn") if d > 256 else ("small_n_attn",
+                                                                          "small_n_attn_wide")
     ops.reset_launch_counts()
     o = A.attention(q, k, v)  # the dispatcher sends short rows to B10
-    assert ops.launch_counts()["small_n_attn"] == 1 and ops.launch_counts()["flash_fwd"] == 0
+    counts = ops.launch_counts()
+    assert counts[entry] == 1 and counts[other] == 0 and counts["flash_fwd"] == 0
     o_ref = A.small_n_attention_reference(q, k, v)
     assert o.dtype == dtype and _close(o, o_ref, rel)
     assert _close(o, A.attention_reference(q, k, v), rel)
@@ -350,7 +358,7 @@ def test_small_n_attention(cuda, z, n, d, dtype, rel):
     want = torch.autograd.grad(A.attention(q, k, v, plain=True), (q, k, v), cot)
     for a, b in zip(grads, want):
         assert _close(a, b, rel)
-    assert ops.launch_counts()["small_n_attn"] == 1
+    assert ops.launch_counts()[entry] == 1
 
 
 @pytest.mark.gpu
@@ -361,14 +369,17 @@ def test_small_n_attention_rejects_what_it_does_not_take(cuda):
         A.small_n_attention(y, y, y)  # N > 32
     with pytest.raises(ValueError, match="d in"):
         A.small_n_attention(y[..., :8, :32], y[..., :8, :32], y[..., :8, :32])  # d = 32
-    wide = torch.zeros(1, 2, 8, 320, device=cuda, dtype=torch.bfloat16)
+    odd = torch.zeros(1, 2, 8, 352, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="d in"):
-        A.small_n_attention(wide, wide, wide)  # d = 320
+        A.small_n_attention(odd, odd, odd)  # d = 352, no multiple of 64
+    with pytest.raises(ValueError, match="d in"):
+        A.small_n_attention_wide(odd, odd, odd)
     with pytest.raises(TypeError):
         A.small_n_attention(y[..., :8, :].half(), y[..., :8, :].half(), y[..., :8, :].half())
     with pytest.raises(TypeError):
         A.small_n_attention(y[..., :8, :].float(), y[..., :8, :], y[..., :8, :])  # mixed
     assert ops.launch_counts()["small_n_attn"] == 0
+    assert ops.launch_counts()["small_n_attn_wide"] == 0
     # a causal short row is no shape of B10: the dispatcher computes it plainly
     short = y[..., :8, :].contiguous()
     out = A.attention(short, short, short, causal=True)
@@ -586,8 +597,8 @@ def test_attention_at_head_dim_256_launches_the_kernels(cuda):
     """The base-width U-ViT's level-3 attention, (1, 4, 2048, 256): the
     dispatcher's flash route launches B1, and B4 and B5 under grad, by the
     wrappers' counts; a head of 160 takes the padded route (B1 on heads
-    padded to 256); d = 320 takes the wide family over long rows, and only
-    its short rows (B10's) have no kernel."""
+    padded to 256); d = 320 takes the wide family over long rows and B10's
+    wide entry over short rows."""
     g = torch.Generator(device=cuda).manual_seed(30)
     q, k, v = ((1.7 * torch.randn(1, 4, 2048, 256, generator=g, device=cuda)).to(
         torch.bfloat16).requires_grad_() for _ in range(3))
@@ -612,8 +623,11 @@ def test_attention_at_head_dim_256_launches_the_kernels(cuda):
     ops.reset_launch_counts()
     assert A.attention(wide, wide, wide).shape == wide.shape
     assert ops.launch_counts()["flash_fwd_wide"] == 1 and ops.launch_counts()["flash_fwd"] == 0
-    with pytest.raises(NotImplementedError, match="no kernel"):
-        A.attention(wide[:, :, :16], wide[:, :, :16], wide[:, :, :16])
+    short = wide[:, :, :16].contiguous()
+    ops.reset_launch_counts()
+    assert A.attention(short, short, short).shape == short.shape
+    assert ops.launch_counts()["small_n_attn_wide"] == 1
+    assert ops.launch_counts()["small_n_attn"] == 0
 
 
 @pytest.mark.gpu
@@ -1507,9 +1521,16 @@ def test_wide_ring_attention(cuda):
 @pytest.mark.gpu
 def test_short_rows_above_256_raise_on_the_card(cuda):
     """Short rows at a head dim above 256 (B10's ``_small_n_kernel`` in the
-    JAX package) have no kernel of the port yet: a CUDA tensor raises, with
-    no plain fallback; ``plain`` computes."""
-    x = torch.zeros(1, 2, 16, 320, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        A.attention(x, x, x)
-    assert A.attention(x, x, x, plain=True).shape == x.shape
+    JAX package) run on B10's wide entry, and what it does not take raises
+    on a CUDA tensor, with no plain fallback: a head dim that is no multiple
+    of 64, fp16; ``plain`` computes."""
+    x = torch.randn(1, 2, 16, 320, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    assert _close(A.attention(x, x, x), A.attention(x, x, x, plain=True), 2e-2)
+    assert ops.launch_counts()["small_n_attn_wide"] == 1
+    odd = torch.zeros(1, 2, 16, 352, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        A.small_n_attention(odd, odd, odd)
+    with pytest.raises(TypeError):
+        A.small_n_attention(x.half(), x.half(), x.half())
+    assert ops.launch_counts()["small_n_attn_wide"] == 1

@@ -131,11 +131,19 @@ def test_small_n_plan_at_the_path_shapes():
     assert plan["grid"] == 4 * A.SM_COUNT
     plan = A.small_n_plan(768, 32, 256, torch.bfloat16)
     assert (plan["units"], plan["warps"], plan["items_per_stage"]) == (2, 4, 2)
+    # the wide entry's two path sites: the base axial U-ViT's level 3 at 2
+    # heads of 512 (one 64-lane chunk of 4 items of 8 rows a stage) and the
+    # factorized DiT at one head of 384
+    plan = A.small_n_plan(2 * 256 * 2, 8, 512, torch.bfloat16)
+    assert plan["wide"] and (plan["items_per_stage"], plan["stages"], plan["stage_bytes"],
+                             plan["grid"]) == (4, 4, 4 * 2 * 8 * 144, 256)
+    plan = A.small_n_plan(8 * 16, 16, 384, torch.bfloat16)
+    assert plan["wide"] and (plan["items_per_stage"], plan["stages"], plan["grid"]) == (4, 3, 32)
 
 
 @pytest.mark.parametrize("items,n,d,dtype", [(0, 8, 64, torch.bfloat16), (8, 0, 64, torch.bfloat16),
                                              (8, 33, 64, torch.bfloat16), (8, 8, 72, torch.float32),
-                                             (8, 8, 320, torch.bfloat16), (8, 8, 0, torch.float32)])
+                                             (8, 8, 352, torch.bfloat16), (8, 8, 0, torch.float32)])
 def test_small_n_plan_refuses_what_the_kernel_refuses(items, n, d, dtype):
     with pytest.raises(ValueError):
         A.small_n_plan(items, n, d, dtype)
@@ -209,10 +217,10 @@ def test_the_c_sources_plan_with_the_same_constants():
     b10 = _constants("small_n_attn.cu")
     assert (b10["kMaxN"], b10["kMaxWarps"], b10["kWarpsFp32"], b10["kMaxItemsFp32"],
             b10["kMaxStages"], b10["kRowPad"], b10["kSmCount"], b10["kSmemPerSm"],
-            b10["kSmemPerBlock"], b10["kBlockReserve"]) == (
+            b10["kSmemPerBlock"], b10["kBlockReserve"], b10["kChunk"]) == (
         A.SMALL_N_MAX, A.SMALL_N_MAX_WARPS, A.SMALL_N_WARPS_FP32, A.SMALL_N_MAX_ITEMS_FP32,
         A.SMALL_N_MAX_STAGES, A.SMALL_N_ROW_PAD, A.SM_COUNT, A.SMEM_PER_SM,
-        A.SMEM_PER_BLOCK, A.SMEM_BLOCK_RESERVE)
+        A.SMEM_PER_BLOCK, A.SMEM_BLOCK_RESERVE, A.SMALL_N_CHUNK)
     b6 = _constants("qkv_prep_bwd.cu")
     assert (b6["kThreads"], b6["kStages"], b6["kSmCount"], b6["kBlocksPerSm"]) == (
         Q.PREP_BWD_THREADS, Q.PREP_BWD_STAGES, Q.SM_COUNT, Q.PREP_BWD_BLOCKS_PER_SM)

@@ -19,6 +19,10 @@ interpret mode on the same seeded fp32 inputs:
   its weights and a tiny UViT3DPose's with a head of 512 at level 3
   carried between the packages bit for bit, the U-ViT's forward within
   1e-4 relative of the JAX model's, reference and fused routes;
+- short rows above 256 lanes (B10's wide entry on the card): a tiny axial
+  U-ViT with one head of 320 at level 3 and a tiny factorized DiT with one
+  head of 384, weights both ways, forward and every gradient leaf within
+  1e-4 relative (``tests/test_torch_port_base.py``'s bounds);
 - the wide plans at every multiple of 64 from 320 to 1152 (and B6's up to
   1152), and the dispatcher computing every shape on the CPU, the
   short-row ones too.
@@ -51,6 +55,7 @@ OUT_ATOL = 2e-5     # attention O and LSE
 GRAD_RTOL = 1e-5    # attention and qkv_prep gradients, relative L2
 PREP_ATOL = 1e-5    # qkv_prep, elementwise
 MODEL_RTOL, MODEL_GRAD_RTOL = 1e-4, 2e-4
+UVIT_RTOL = 1e-4    # tests/test_torch_port_base.py's: outputs and every gradient leaf
 WIDE = tuple(range(320, 1153, 64))
 
 
@@ -115,16 +120,16 @@ def test_wide_attention_matches_jax(d, causal):
 def test_cpu_attention_computes_every_shape(shape):
     """The repair: on the CPU ``attention`` computes what the JAX package
     computes, long rows at a head dim of 320 (``"flash"``, the wide family's
-    plain version) and short rows above 256 (``"unported"``: B10's plain
-    version; only a CUDA tensor is refused there), as the JAX package's
-    ``attention`` (XLA on the CPU) within 2e-5."""
+    plain version) and short rows above 256 (``"small_n"``: the plain
+    version of B10, whose wide entry takes them on the card), as the JAX
+    package's ``attention`` (XLA on the CPU) within 2e-5."""
     rng = np.random.default_rng(50)
     q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
     want = JA.attention(*(jnp.asarray(a) for a in (q, k, v)))
     got = TA.attention(_t(q), _t(k), _t(v))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OUT_ATOL)
     route = TA.attention_route(shape[2], shape[3])
-    assert route == ("flash" if shape[2] > 32 else "unported")
+    assert route == ("flash" if shape[2] > 32 else "small_n")
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +258,103 @@ def test_tiny_uvit_with_a_head_of_512_matches_jax():
         finally:
             JQ.force_fused_interpret(False)
         assert rel_err(got.numpy(), want) < MODEL_RTOL, fused
+
+
+# ---------------------------------------------------------------------------
+# short rows above 256 lanes: B10's wide entry on two models
+# ---------------------------------------------------------------------------
+
+
+def _model_errors(apply, params, to_state, pm, run, g):
+    """The port's output (``run()``, training mode, dropouts 0), its loss
+    (the output times ``g``, meaned) and every gradient leaf against
+    ``jax.value_and_grad`` of the same loss of ``apply(params)``, the leaves
+    mapped by ``to_state``: the loss within 1e-5; returns the output's and
+    each leaf's relative L2 error."""
+    def jloss(p):
+        out = apply(p)
+        return jnp.mean(out * jnp.asarray(g)), out
+
+    (want_loss, want_out), want = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    want = to_state(jax.device_get(want))
+    pm.train()
+    out = run()
+    loss = (out * _t(g)).mean()
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-5, abs=1e-8)
+    got = {n: p.grad for n, p in pm.named_parameters()}
+    assert set(got) == set(want) and all(v is not None for v in got.values())
+    return rel_err(out.detach().numpy(), want_out), {
+        n: rel_err(got[n].numpy(), want[n].numpy()) for n in want}
+
+
+def test_tiny_axial_uvit_with_a_head_of_320_matches_jax():
+    """The axial U-ViT whose level 3 has one head of 320 (32 px: 4 tokens a
+    frame, 8 frames), so that its spatial rows (4, 320) and its temporal
+    rows (8, 320) both take the small-N route, B10's wide entry on the card:
+    the weights across and back bit for bit, the forward and every gradient
+    leaf against the JAX model (its plain attention on the CPU), at
+    ``tests/test_torch_port_base.py``'s tolerances (1e-4 relative)."""
+    spec = tiny_spec(channels=(64, 64, 64, 320), num_heads=1, block_types=(
+        "ResBlock", "ResBlock", "AxialTransformerBlock", "AxialTransformerBlock"))
+    jm, jv, pm = build_pair(spec, 32, seed=74)
+    assert TA.attention_route(4, 320) == TA.attention_route(8, 320) == "small_n"
+    params = jax.device_get(jv["params"])
+    back = import_uvit3d_params(
+        {n: v.numpy() for n, v in uvit3d_state_dict_from_flax(params, None, spec, 3,
+                                                              POSE_DIM).items()},
+        spec.num_updown_blocks, len(spec.channels), spec.patch_size)
+    flat = dict(jax.tree_util.tree_leaves_with_path(back))
+    for path, a in jax.tree_util.tree_leaves_with_path(params):
+        np.testing.assert_array_equal(np.asarray(flat[path]), np.asarray(a), err_msg=str(path))
+    rng = np.random.default_rng(75)
+    x, g = (rng.standard_normal((1, 8, 32, 32, 3)).astype(np.float32) for _ in range(2))
+    k = rng.uniform(-2, 2, (1, 8)).astype(np.float32)
+    pose = rng.standard_normal((1, 8, 32, 32, POSE_DIM)).astype(np.float32)
+    out_err, errs = _model_errors(
+        lambda p: jm.apply({"params": p, "buffers": jv["buffers"]}, jnp.asarray(x),
+                           jnp.asarray(k), jnp.asarray(pose), None, train=True,
+                           rngs={"dropout": jax.random.PRNGKey(0)}),
+        jv["params"],
+        lambda tree: uvit3d_state_dict_from_flax(tree, None, spec, 3, POSE_DIM, cotangent=True),
+        pm, lambda: pm(_t(x), _t(k), _t(pose)), g)
+    assert out_err < UVIT_RTOL
+    assert len([n for n in errs if "another_attn.q_norm" in n]) == 3
+    bad = {n: e for n, e in errs.items() if e > UVIT_RTOL}
+    assert not bad, bad
+
+
+def test_tiny_factorized_dit_with_one_head_of_384_matches_jax():
+    """The factorized-attention DiT at its config's hidden 384 with one head
+    (depth 2, 8 frames of 4 x 4 patches): spatial rows (16, 384) and
+    temporal rows (8, 384), both B10's wide entry on the card; the weights
+    across by ``import_dit3d_params`` and back by
+    ``dit3d_state_dict_from_flax`` bit for bit, the forward and every
+    gradient leaf against the JAX model (1e-4 relative)."""
+    kw = dict(hidden_size=384, depth=2, num_heads=1, patch_size=2, max_temporal_length=8,
+              variant="factorized_attention", pos_emb_type="sinusoidal_factorized",
+              spatial_mlp_ratio=4.0)
+    pm = TD.DiT3D(TD.DiTSpec(**kw), 3, (8, 8))
+    init_random_weights(pm, torch.Generator().manual_seed(76))
+    jm = JD.DiT3D(spec=JD.DiTSpec(**kw), x_channels=3, resolution=(8, 8))
+    state = {n: p.detach().numpy() for n, p in pm.state_dict().items()}
+    flax = import_dit3d_params(state)
+    back = dit3d_state_dict_from_flax(flax, None, pm.spec.patch_size)
+    assert set(back) == set(state)
+    for n, v in back.items():
+        np.testing.assert_array_equal(v.numpy(), state[n], err_msg=n)
+    params = jax.tree_util.tree_map(jnp.asarray, flax)
+    assert TA.attention_route(16, 384) == TA.attention_route(8, 384) == "small_n"
+    rng = np.random.default_rng(77)
+    x, g = (rng.standard_normal((1, 8, 8, 8, 3)).astype(np.float32) for _ in range(2))
+    k = rng.integers(0, 1000, (1, 8)).astype(np.float32)
+    out_err, errs = _model_errors(
+        lambda p: jm.apply({"params": p}, jnp.asarray(x), jnp.asarray(k)), params,
+        lambda tree: dit3d_state_dict_from_flax(tree, None, pm.spec.patch_size),
+        pm, lambda: pm(_t(x), _t(k)), g)
+    assert out_err < UVIT_RTOL
+    bad = {n: e for n, e in errs.items() if e > UVIT_RTOL}
+    assert not bad, bad
 
 
 # ---------------------------------------------------------------------------
