@@ -303,7 +303,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     50-step window (path 1: the 8-frame window, vanilla HG at 4; path 2: 8
     videos) and 2 train steps (batch 1; batch 8, checkpointed), each with
     its launch counts required; B10's wide entry (heads above 256 lanes,
-    the head streamed in 64-lane chunks) at paths 3 and 4's sites and at
+    whole items with the head spread over a block's warps, or streamed in
+    64-lane chunks where whole items do not fit) at paths 3 and 4's sites and at
     edges of N, d and the item count, bf16 and fp32, against its plain
     version with three controls (the scale of a head twice as wide, a
     softmax that counts the pad keys at N = 5 and 8, scores without the
@@ -383,8 +384,9 @@ KERNELS = (
     ("ring_fwd", "dfot_tpu_torch/csrc/flash_fwd.cu", "dfot_tpu/ops/ring_attention.py:49"),
     ("ring_dq", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:378"),
     ("ring_dkv", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:500"),
-    # the wide family (heads above 256 lanes): B1, B4, B5 with the output
-    # lanes sliced over the grid, and their ring entries
+    # the wide family (heads above 256 lanes): B1 with 512-lane output slices
+    # a block (its two consumers exchanging partial scores), B4, B5 with
+    # 256-lane output slices over the grid, and their ring entries
     ("flash_fwd_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:114"),
     ("flash_bwd_dq_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:378"),
     ("flash_bwd_dkv_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:500"),
@@ -392,7 +394,7 @@ KERNELS = (
     ("ring_dq_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:378"),
     ("ring_dkv_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:500"),
     # B10's wide entry: short rows at heads above 256 lanes, the head
-    # streamed in 64-lane chunks
+    # spread over a block's warps
     ("small_n_attn_wide", "dfot_tpu_torch/csrc/small_n_attn.cu", "dfot_tpu/ops/attention.py:800"),
 )
 FORWARD_KERNELS = ("flash_fwd", "qkv_prep", "attn_out_collect")
@@ -6855,7 +6857,7 @@ WIDE_X = (1280, 4, 288, 320)
 WIDE_EDGE_SITES = ((192, 512, 512), (192, 288, 320), (512, 384, 384), (512, 1152, 1152))
 WIDE_RING_SIZE = 2
 WIDE_TRAIN_STEPS = 2
-# B10's wide entry (heads above 256 lanes, streamed in 64-lane chunks): the
+# B10's wide entry (heads above 256 lanes, the head spread over the warps): the
 # sites of paths 3 and 4, items Z = B * H of (N, d) (the base-width axial
 # U-ViT's level 3 at 2 heads and B = 2: 2 x 256 positions x 2 heads of 8
 # frames; the factorized DiT at one head and B = 8: 8 x 16 frames of 16

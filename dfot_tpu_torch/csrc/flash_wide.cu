@@ -4,62 +4,83 @@
 //
 // Replaces, at the head dims dfot_tpu/ops/attention.py gives its Pallas
 // kernels past 256 (any multiple of 64, ``_blocks_ok`` :914, padded at
-// :1006-1012), the TPU kernels _flash_kernel (:114, reached through
-// _flash_forward), _flash_bwd_dq_kernel and _flash_bwd_dq_stream_kernel
-// (:378, :423) and _flash_bwd_dkv_kernel (:500), and the ring hop
-// _block_flash (dfot_tpu/ops/ring_attention.py:49) with its fold. The
-// functions are those of csrc/flash_fwd.cu and csrc/flash_bwd.cu: O and the
-// natural-log LSE of the scaled scores; dq = scale sum_k ds k, dk = scale
-// sum_q ds^T q, dv = sum_q p^T dO with p recomputed from the saved LSE and
-// delta = rowsum(dO * O) given; a ring hop folds its block into the running
-// fp32 (O, LSE) or adds its gradients into fp32 sums.
+// :1006-1012), the TPU kernels _flash_kernel and _flash_kernel_pvt (:114,
+// :183, reached through _flash_forward :275), _flash_bwd_dq_kernel and
+// _flash_bwd_dq_stream_kernel (:378, :423) and _flash_bwd_dkv_kernel (:500),
+// and the ring hop _block_flash (dfot_tpu/ops/ring_attention.py:49) with its
+// fold. The functions are those of csrc/flash_fwd.cu and csrc/flash_bwd.cu:
+// O and the natural-log LSE of the scaled scores; dq = scale sum_k ds k,
+// dk = scale sum_q ds^T q, dv = sum_q p^T dO with p recomputed from the
+// saved LSE and delta = rowsum(dO * O) given; a ring hop folds its block
+// into the running fp32 (O, LSE) or adds its gradients into fp32 sums.
 //
 // Bound: 4 N^2 d (forward), 3 N^2 d (dq) and 4 N^2 d (dk, dv) multiply-adds
 // per (batch, head) against O(N d) bytes, so the tensor cores bound them. The
 // narrow kernels keep a whole head row in registers and shared memory; past
 // 256 lanes that no longer fits (the O, dQ, dK or dV accumulator of 64 rows
-// already takes 128 registers a consumer thread at 256 lanes, and ptxas
-// serializes wgmma past about 224), so this family tiles the head dim:
-// - lane slices in the grid: a block owns 64 rows (queries for B1 and B4,
-//   keys for B5) and one slice of at most 256 output lanes (4 atoms of 64)
-//   of one output: O, dQ, or one of dK and dV (grid z: the slices; for B5
-//   the dV slices, then the dK ones). No accumulator exceeds 128 registers a
-//   thread. Each slice block recomputes the scores over the whole head, so
-//   at d = 512 B1 does 6 N^2 d operations where the bound counts 4 N^2 d;
-// - the scores over the whole head, in 64-lane atoms: S = Q K^T (and
-//   dP = dO V^T in the backward; S^T = K Q^T and dP^T = V dO^T in B5)
-//   contract over the true head dim rounded up to 16, one TMA step a 64-lane
-//   atom of the streamed tile (K, or K and V; Q, or Q and dO in B5), so a
-//   stage is 8 or 16 KB whatever d is. The block's own rows of the other side
-//   (Q, Q and dO, K and V) are loaded once where they fit beside two stages
-//   ("resident"); otherwise they come with every step (the plan's choice,
-//   ops/attention.py:flash_plan). After the score atoms, the slice's atoms
-//   of the output product's operand (V; K for dQ; dO for dV; Q for dK)
-//   stream the same way;
-// - two consumer warpgroups share each 64-row tile of the streamed side,
-//   32 rows each (keys in B1 and B4, queries in B5): each keeps its own
-//   partial sums (B1: its own online softmax over its keys, max and sum), and
+// takes 128 registers a consumer thread at 256 lanes, and ptxas serializes
+// wgmma past about 224), so a block owns 64 rows and streams the whole other
+// side of the head through shared memory. On the card the forward waits on
+// neither its loads (a variant that loads nothing takes as long) nor L2: it
+// waits on its own products. The scores read both operands from shared memory
+// (m64 n64 k16: 4 KB a step, the SM's 128 bytes a clock), and the exchange of
+// partial scores and the softmax leave the tensor cores idle between them. So
+// its design computes each score once and keeps its products asynchronous:
+//
+// The forward (flash_wide_fwd_kernel; B1 and its ring entry):
+// - a block owns 64 query rows and an output slice of up to 512 lanes (8
+//   atoms of 64; grid z: the slices, one at every head up to 512 lanes), and
+//   each of its two consumer warpgroups keeps O for its share of the slice's
+//   atoms (at most 4: 128 registers a thread);
+// - the scores of a 64-key tile are contracted over the head's 64-lane atoms
+//   split between the consumers, each into a partial m64 n64 tile; the two
+//   partials are exchanged through shared memory (2 x 16 KB) between named
+//   barriers and both consumers add them as S0 + S1, so both hold the same
+//   scores, maxima, sums and P bit for bit and normalise their halves of O
+//   alike. The split balances the two consumers' products (an atom of either
+//   product is 4 k16 steps of n64). Whole atoms, each behind a fence of its
+//   own, keep every product out of a branch of its batch, where ptxas would
+//   serialize them all (its note C7520); the lanes past the true head dim
+//   are zeros, so the last atom's pad steps add nothing;
+// - Q is loaded once where it fits beside the exchange and two one-atom
+//   stages (every head up to 1408 lanes), else its atoms come with K's; each
+//   key tile streams K (every computed atom), then V (the slice's atoms),
+//   through a ring of stages of up to 8 atoms (64 KB) with full/empty
+//   mbarriers, one producer thread issuing TMA; a tile wider than a stage
+//   takes several;
+// - the online softmax runs on both consumers alike (a running max of the
+//   raw scores, exp2), P is rounded to bf16 in registers and is the register
+//   A operand of O += P V (m64 n64 an atom, V in its natural layout as the
+//   transposed B operand); only the true head dim's lanes are computed and
+//   lanes past them are written as zeros;
+// - a ring hop folds (O, LSE) in the epilogue, the running LSE read from one
+//   buffer and the new one written to another (the slices of a row past 512
+//   lanes all read the old one), O's lanes each read before being written.
+//
+// The backward (flash_wide_kernel; B4, B5 and their ring entries):
+// - lane slices in the grid: a block owns 64 rows (queries for B4, keys for
+//   B5) and one slice of at most 256 output lanes (4 atoms) of dQ, or of one
+//   of dK and dV (grid z: the dV slices, then the dK ones); each slice block
+//   recomputes the scores over the whole head;
+// - the scores over the whole head, in 64-lane atoms: S = Q K^T and dP = dO
+//   V^T (S^T = K Q^T and dP^T = V dO^T in B5) contract over the true head dim
+//   rounded up to 16, one TMA step a 64-lane atom of the streamed tiles (K
+//   and V; Q and dO in B5), so a stage is 16 KB whatever d is. The block's
+//   own rows of the other side (Q and dO, K and V) are loaded once where they
+//   fit beside two stages ("resident"), otherwise they come with every step.
+//   After the score atoms, the slice's atoms of the output product's operand
+//   (K for dQ; dO for dV; Q for dK) stream the same way;
+// - two consumer warpgroups share each 64-row tile of the streamed side, 32
+//   rows each (keys in B4, queries in B5), each keeping its own partial sums;
 //   at the end consumer 1 hands its partials over shared memory to consumer
-//   0, which merges them (a fixed order: deterministic) and stores. A
-//   producer warpgroup gives up its registers (setmaxnreg) and one thread
-//   issues every TMA load through a ring of stages with full/empty mbarriers;
-// - the products are wgmma: the scores shared-memory x shared-memory (m64
-//   n32), the output products register-A (P, dS, P^T or dS^T rounded to bf16
-//   in registers) x the transposed shared-memory operand (m64 n64 an atom).
-//   Each atom's batch of products is one wgmma group behind its own fence;
-//   a stage is released when the group after it has been issued and it has
-//   completed (wgmma.wait_group 1);
-// - only the true head dim's lanes are computed: the scores contract over it
-//   rounded up to 16, the slices cover its atoms, lanes past them are written
-//   as zeros (lanes of the last atom past the true head dim come out zero
-//   from the operands' zero pad lanes);
-// - the ring hops (RING = true): on a LocalRing the K/V head at hop s is
-//   (h - s B H) mod R B H (B5: its blocks own the keys of a K/V head and
-//   walk the queries of head (h + s B H) mod R B H); the forward's fold reads
-//   the running LSE from one buffer and writes the new one to another, so no
-//   slice block can overwrite an LSE another has not read (every slice
-//   computes the same new LSE from the same scores; slice 0 stores it); the
-//   O slices, and the backward's sums, are disjoint by lane. No atomics.
+//   0, which adds them (a fixed order: deterministic) and stores;
+// - the score products are wgmma shared-memory x shared-memory (m64 n32), the
+//   output products register-A (dS, P^T or dS^T rounded to bf16 in registers)
+//   x the transposed shared-memory operand (m64 n64 an atom); a stage is
+//   released when the group after it has been issued and it has completed;
+// - the ring hops: on a LocalRing the K/V head at hop s is (h - s B H) mod R B
+//   H (B5: its blocks own the keys of a K/V head and walk the queries of head
+//   (h + s B H) mod R B H); the sums are disjoint by lane. No atomics.
 
 #include <algorithm>
 
@@ -71,24 +92,29 @@ using namespace dfot;
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;                      // rows of a block, and of a streamed tile
-constexpr int kHalf = 32;                      // a consumer's rows of a streamed tile
+constexpr int kHalf = 32;                      // B4, B5: a consumer's rows of a streamed tile
 constexpr int kSlotBytes = kRows * kLineBytes;  // one 64-lane atom of 64 rows: 8 KB
-constexpr int kSliceAtoms = 4;                 // 256 lanes: an output slice
+constexpr int kSliceAtoms = 4;                 // B4, B5: 256 lanes, an output slice
 constexpr int kThreads = 384;                  // producer + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kMaxStages = 8;
 constexpr int kAcc = kSliceAtoms * 32;         // a consumer thread's accumulator registers
-// consumer 1's partials for the merge: its accumulator and (B1) two maxima
-// and two sums a thread
-constexpr int kMergeBytes = (kAcc + 4) * 128 * 4;
+// B4, B5: consumer 1's partials for the merge, its accumulator
+constexpr int kMergeBytes = kAcc * 128 * 4;
 constexpr int kSmemPerBlock = 232448;
 constexpr int kBarrier = 8;
 constexpr float kNegInf = -1e30f;
+// the forward: 8 atoms (512 lanes) an output slice, of which a consumer owns
+// at most kSliceAtoms; a stage holds at most 8 atoms; both consumers'
+// partial 64 x 64 fp32 scores
+constexpr int kFwdSliceAtoms = 8;
+constexpr int kStageAtoms = 8;
+constexpr int kExchangeBytes = 32768;  // 2 x 64 x 64 x 4
 
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Kind { kDq = 1, kDkv = 2 };
 
-// The tile plan, as ops/attention.py:flash_plan computes it for the wide
-// family; the C entries compute it again and refuse any other.
+// The backward's tile plan, as ops/attention.py:flash_plan computes it for
+// the wide family; the C entries compute it again and refuse any other.
 struct Plan {
   int atoms;       // 64-lane atoms of the computed lanes
   int ks_last;     // k16 steps of the last atom
@@ -97,12 +123,12 @@ struct Plan {
   int stages, stage_bytes, resident_bytes, smem;
 };
 
-Plan make_plan(int kind, int lanes) {
+Plan make_plan(int lanes) {
   Plan p;
   p.atoms = (lanes + kAtomLanes - 1) / kAtomLanes;
   p.ks_last = (lanes - kAtomLanes * (p.atoms - 1)) / 16;
   p.slices = (p.atoms + kSliceAtoms - 1) / kSliceAtoms;
-  const int slots = kind == kFwd ? 1 : 2;  // products of a contraction step: S, or S and dP
+  constexpr int slots = 2;  // products of a contraction step: S and dP
   p.resident_bytes = slots * p.atoms * kSlotBytes;
   p.stage_bytes = slots * kSlotBytes;
   p.stages = std::min(kMaxStages, (kSmemPerBlock - 1024 - p.resident_bytes - kBarrier) /
@@ -119,6 +145,46 @@ Plan make_plan(int kind, int lanes) {
   return p;
 }
 
+// The forward's tile plan (ops/attention.py:_wide_fwd_plan computes it too):
+// Q resident where it fits beside the exchange and two one-atom stages,
+// stages of as many atoms (of K, and of Q's where Q streams) as let two fit,
+// at most kStageAtoms and the computed atoms, and as many stages as fit.
+struct FwdPlan {
+  int atoms;           // 64-lane atoms of the computed lanes
+  int slices;          // output slices of 512 lanes
+  int resident;        // Q loaded once
+  int stage_atoms;     // atoms of K (with Q's alongside, where it streams) or of V a stage
+  int stages, stage_bytes, resident_bytes, smem;
+};
+
+FwdPlan make_fwd_plan(int lanes) {
+  FwdPlan p;
+  p.atoms = (lanes + kAtomLanes - 1) / kAtomLanes;
+  p.slices = (p.atoms + kFwdSliceAtoms - 1) / kFwdSliceAtoms;
+  const int room = kSmemPerBlock - 1024 - kExchangeBytes - kBarrier * (1 + 2 * kMaxStages);
+  p.resident = room - p.atoms * kSlotBytes >= 2 * kSlotBytes;
+  p.resident_bytes = p.resident ? p.atoms * kSlotBytes : 0;
+  const int unit = p.resident ? kSlotBytes : 2 * kSlotBytes;  // a stage's bytes an atom of K
+  p.stage_atoms =
+      std::min(std::min(kStageAtoms, p.atoms), (room - p.resident_bytes) / (2 * unit));
+  p.stage_bytes = p.stage_atoms * unit;
+  p.stages = std::min(kMaxStages, (room - p.resident_bytes) / p.stage_bytes);
+  p.smem = 1024 + p.resident_bytes + kExchangeBytes + p.stages * p.stage_bytes +
+           kBarrier * (1 + 2 * p.stages);
+  return p;
+}
+
+// The forward's split of a slice's ``sa`` O atoms and the head's ``atoms``
+// score atoms between the consumers: consumer 0 owns O atoms [0, a0) of the
+// slice and score atoms [0, t0), consumer 1 the rest; a0 = ceil(sa / 2), and
+// t0 gives both as even a count of atoms as it can (each is 4 k16 steps of
+// n64 products in either product; ops/attention.py:wide_fwd_split).
+__host__ __device__ inline void fwd_split(int sa, int atoms, int* a0, int* t0) {
+  *a0 = (sa + 1) / 2;
+  const int twice = atoms + sa - 2 * *a0;
+  *t0 = twice <= 0 ? 0 : twice / 2 < atoms ? twice / 2 : atoms;
+}
+
 struct Params {
   bf16* out0;             // B1: o; B4: dq; B5: dk
   bf16* out1;             // B5: dv
@@ -128,6 +194,7 @@ struct Params {
   float* sum0;            // ring: the running O (B1), dq (B4) or dk (B5) sums, fp32
   float* sum1;            // ring B5: the dv sums
   int n, d, atoms, ks_last, slices, resident, stages, stage_bytes, resident_bytes;
+  int stage_atoms;        // B1: atoms a stage
   float sm_scale;
   int causal, kv_shift, read_prev, last;
 };
@@ -182,8 +249,8 @@ __device__ __forceinline__ void store_row(const float* acc, int r, int sa, float
           __floats2bfloat162_rn(0.f, 0.f);
 }
 
-// Maps: r0, r1 the block's own side (B1: Q; B4: Q, dO; B5: K, V), s0, s1 the
-// streamed side (B1: K, V; B4: K, V; B5: Q, dO); every box 64 lanes x 64 rows.
+// The backward. Maps: r0, r1 the block's own side (B4: Q, dO; B5: K, V), s0,
+// s1 the streamed side (B4: K, V; B5: Q, dO); every box 64 lanes x 64 rows.
 template <int KIND, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wide_kernel(const __grid_constant__ CUtensorMap tm_r0,
@@ -192,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const __grid_constant__ CUtensorMap tm_s1, const Params p) {
   // slots of a step's streamed side: the resident side's atoms follow them
   // where they are not resident
-  constexpr int kS = KIND == kFwd ? 1 : 2;
+  constexpr int kS = 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align_1024(smem_raw);
   unsigned char* ring = base + p.resident_bytes;
@@ -220,9 +287,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (dk_block) slice -= p.slices;
   }
   const int sa = min(kSliceAtoms, A - kSliceAtoms * slice);
-  // the score products of a step: S (and dP)
-  const int kinds = KIND == kFwd || (KIND == kDkv && !dk_block) ? 1 : 2;
-  // streamed tiles: causal B1, B4 see keys up to the block's last row; a
+  // the score products of a step: S and dP (a dV block: S alone)
+  const int kinds = KIND == kDkv && !dk_block ? 1 : 2;
+  // streamed tiles: a causal B4 block sees keys up to its last row; a
   // causal B5 block's keys are seen by the queries from its first key on
   int t_first = 0, n_tiles = n / kRows;
   if (p.causal) {
@@ -255,9 +322,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             tma_load_3d(base + (i * A + a) * kSlotBytes, i ? &tm_r1 : &tm_r0, res_full,
                         a * kAtomLanes, r0, head);
       }
-      // the output product's operand: V (B1), K (B4), dO (B5 dV), Q (B5 dK)
-      const CUtensorMap* out_map =
-          KIND == kFwd || (KIND == kDkv && !dk_block) ? &tm_s1 : &tm_s0;
+      // the output product's operand: K (B4), dO (B5 dV), Q (B5 dK)
+      const CUtensorMap* out_map = KIND == kDkv && !dk_block ? &tm_s1 : &tm_s0;
       RingPos pos;
       for (int t = 0; t < n_tiles; ++t) {
         const int row_t = (t_first + t) * kRows;
@@ -300,8 +366,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};  // B1: raw-score max, partial sums
-  float l2r[2] = {0.f, 0.f}, dlr[2] = {0.f, 0.f};          // B4: the rows' LSE (log2) and delta
+  float l2r[2] = {0.f, 0.f}, dlr[2] = {0.f, 0.f};  // B4: the rows' LSE (log2) and delta
   if constexpr (KIND == kDq) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -370,40 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     release(prev);
 
     // the A operand of the output product, in fp32 in sc
-    if constexpr (KIND == kFwd) {
-      // online softmax over this consumer's keys; keys after the row masked
-      const bool masked = p.causal && col0 + kHalf - 1 > r0;
-      float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (masked && col0 + 8 * i + 2 * c + (e & 1) > row0 + 8 * (e / 2))
-            sc[4 * i + e] = kNegInf;
-          mx[e / 2] = fmaxf(mx[e / 2], sc[4 * i + e]);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        alpha[r] = exp2f((m_i[r] - mx[r]) * a2);
-        m_i[r] = mx[r];
-        l_i[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // a masked score is 0 even where the row has no key yet (max -inf)
-          float pv = exp2f(fmaf(sc[4 * i + e], a2, -mx[e / 2] * a2));
-          if (sc[4 * i + e] == kNegInf) pv = 0.f;
-          sc[4 * i + e] = pv;
-          l_i[e / 2] += pv;
-        }
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i % 4) / 2];
-    } else if constexpr (KIND == kDq) {
+    if constexpr (KIND == kDq) {
       const bool masked = p.causal && col0 + kHalf - 1 > r0;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -466,37 +498,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kAcc; ++i)
       if (i / 32 < sa) mbuf[i * 128 + t128] = acc[i];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mbuf[(kAcc + r) * 128 + t128] = m_i[r];
-      mbuf[(kAcc + 2 + r) * 128 + t128] = l_i[r];
-    }
   }
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
   if (w == 1) return;
 
   // consumer 0 merges, in a fixed order, and stores
-  if constexpr (KIND == kFwd) {
-    float c0[2], c1[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m1 = mbuf[(kAcc + r) * 128 + t128];
-      const float mx = fmaxf(m_i[r], m1);
-      c0[r] = exp2f((m_i[r] - mx) * a2);
-      c1[r] = exp2f((m1 - mx) * a2);
-      l_i[r] = l_i[r] * c0[r] + mbuf[(kAcc + 2 + r) * 128 + t128] * c1[r];
-      m_i[r] = mx;
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    }
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i)
-      if (i / 32 < sa) acc[i] = acc[i] * c0[(i % 4) / 2] + mbuf[i * 128 + t128] * c1[(i % 4) / 2];
-  } else {
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i)
-      if (i / 32 < sa) acc[i] += mbuf[i * 128 + t128];
-  }
+  for (int i = 0; i < kAcc; ++i)
+    if (i / 32 < sa) acc[i] += mbuf[i * 128 + t128];
 
   const int D = p.d, lane0 = kSliceAtoms * kAtomLanes * slice;
   // the last slice also zeroes the atoms past the computed ones
@@ -504,30 +513,266 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int zero_from = tail ? A : 0, zero_to = tail ? D / kAtomLanes : 0;
   bf16* out = KIND == kDkv && !dk_block ? p.out1 : p.out0;
   float* sums = KIND == kDkv && !dk_block ? p.sum1 : p.sum0;
-  const float scale = KIND == kFwd || (KIND == kDkv && !dk_block) ? 1.f : p.sm_scale;
+  const float scale = KIND == kDkv && !dk_block ? 1.f : p.sm_scale;
+  const bool to_sum = RING && !p.last;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const size_t row = own + row0 + 8 * r;
-    if constexpr (KIND == kFwd) {
-      const float lse_b = m_i[r] * p.sm_scale + logf(l_i[r]);
-      float lse_new = lse_b, ka = 0.f, kb = 1.f / l_i[r];
-      if (RING && p.read_prev) {
-        const float lp = p.lse_prev[row];
-        const float mx = fmaxf(lp, lse_b);
-        lse_new = mx + logf(expf(lp - mx) + expf(lse_b - mx));
-        ka = expf(lp - lse_new);
-        kb = expf(lse_b - lse_new) / l_i[r];
-      }
-      const bool to_sum = RING && !p.last;
-      store_row(acc, r, sa, ka, kb, lane0, c, out + row * D, RING ? p.sum0 + row * D : nullptr,
-                RING && p.read_prev, to_sum, to_sum ? 0 : zero_from, to_sum ? 0 : zero_to);
-      if (slice == 0 && c == 0 && p.lse != nullptr) p.lse[row] = lse_new;
-    } else {
-      const bool to_sum = RING && !p.last;
-      store_row(acc, r, sa, 1.f, scale, lane0, c, out + row * D,
-                RING ? sums + row * D : nullptr, RING && p.read_prev, to_sum,
-                to_sum ? 0 : zero_from, to_sum ? 0 : zero_to);
+    store_row(acc, r, sa, 1.f, scale, lane0, c, out + row * D, RING ? sums + row * D : nullptr,
+              RING && p.read_prev, to_sum, to_sum ? 0 : zero_from, to_sum ? 0 : zero_to);
+  }
+}
+
+// The forward: Q (where it streams, its atoms come with K's: tm_q read at
+// every key tile), K, V; every box 64 lanes x 64 rows.
+template <bool RING>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wide_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);  // Q where resident
+  float* xchg = reinterpret_cast<float*>(base + p.resident_bytes);
+  unsigned char* ring = base + p.resident_bytes + kExchangeBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + p.stages * p.stage_bytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + p.stages;
+
+  const int n = p.n, A = p.atoms, SA = p.stage_atoms, stages = p.stages;
+  // causal: the longest rows first, so the short ones fill the tail
+  const int rb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int r0 = rb * kRows;
+  const int head = blockIdx.y, slice = blockIdx.z;
+  int kv = head;  // K/V head
+  if constexpr (RING) {
+    kv -= p.kv_shift;
+    if (kv < 0) kv += static_cast<int>(gridDim.y);
+  }
+  const int sa = min(kFwdSliceAtoms, A - kFwdSliceAtoms * slice);  // the slice's atoms
+  int a0, t0;
+  fwd_split(sa, A, &a0, &t0);
+  // causal: the block's last row sees keys up to r0 + 63
+  const int n_tiles = p.causal ? rb + 1 : n / kRows;
+  const int k_stages = (A + SA - 1) / SA, v_stages = (sa + SA - 1) / SA;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      if (p.resident) {
+        mbar_arrive_expect_tx(q_full, A * kSlotBytes);
+        for (int a = 0; a < A; ++a)
+          tma_load_3d(base + a * kSlotBytes, &tm_q, q_full, a * kAtomLanes, r0, head);
+      }
+      RingPos pos;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int key0 = t * kRows;
+        for (int st = 0; st < k_stages; ++st) {
+          const int lo = st * SA, hi = min(lo + SA, A);
+          mbar_wait(&empty[pos.slot], pos.phase ^ 1);
+          unsigned char* stage = ring + pos.slot * p.stage_bytes;
+          mbar_arrive_expect_tx(&full[pos.slot], (hi - lo) * kSlotBytes * (p.resident ? 1 : 2));
+          for (int a = lo; a < hi; ++a) {
+            tma_load_3d(stage + (a - lo) * kSlotBytes, &tm_k, &full[pos.slot], a * kAtomLanes,
+                        key0, kv);
+            if (!p.resident)
+              tma_load_3d(stage + (SA + a - lo) * kSlotBytes, &tm_q, &full[pos.slot],
+                          a * kAtomLanes, r0, head);
+          }
+          pos.advance(stages);
+        }
+        for (int st = 0; st < v_stages; ++st) {
+          const int lo = st * SA, hi = min(lo + SA, sa);
+          mbar_wait(&empty[pos.slot], pos.phase ^ 1);
+          unsigned char* stage = ring + pos.slot * p.stage_bytes;
+          mbar_arrive_expect_tx(&full[pos.slot], (hi - lo) * kSlotBytes);
+          for (int a = lo; a < hi; ++a)
+            tma_load_3d(stage + (a - lo) * kSlotBytes, &tm_v, &full[pos.slot],
+                        (kFwdSliceAtoms * slice + a) * kAtomLanes, key0, kv);
+          pos.advance(stages);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: both own the block's 64 rows; consumer w the score
+  // atoms [k_lo, k_hi) and the slice's O atoms [v_lo, v_hi)
+  setmaxnreg_inc<240>();
+  const int w = threadIdx.x / 128 - 1;
+  const int t128 = threadIdx.x % 128;
+  const int warp = t128 / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const float a2 = p.sm_scale * kLog2e;  // exp(x * scale) = exp2(x * a2)
+  const int k_lo = w ? t0 : 0, k_hi = w ? A : t0;
+  const int v_lo = w ? a0 : 0, v_hi = w ? sa : a0;
+  const uint32_t q_a = smem_u32(base), ring_a = smem_u32(ring);
+  float* mine = xchg + w * kRows * kRows;
+  const float* theirs = xchg + (1 - w) * kRows * kRows;
+
+  auto release = [&](int slot) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  };
+
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};  // raw-score max, partial sums
+  uint32_t pa[4][4];
+
+  if (p.resident) mbar_wait(q_full, 0);
+  RingPos pos;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = t * kRows;
+    // this consumer's partial scores over its atoms of every K stage: whole
+    // atoms, accumulating into a zeroed tile, each atom's 4 k16 steps behind
+    // a fence of their own and committed as a group right after them, the
+    // stage released once its groups are done. A group that could be empty
+    // (a commit after a branch or a loop that issued nothing) makes ptxas
+    // serialize every product of the kernel (its note C7520). The lanes past
+    // the true head dim are zeros in Q and K, so the last atom's pad steps
+    // add nothing
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_regs<32>(sc);
+    for (int st = 0; st < k_stages; ++st) {
+      const int lo = st * SA, hi = min(lo + SA, A);
+      mbar_wait(&full[pos.slot], pos.phase);
+      const uint32_t stg = ring_a + pos.slot * p.stage_bytes;
+#pragma unroll 1
+      for (int a = max(lo, k_lo); a < min(hi, k_hi); ++a) {
+        const uint32_t qd = p.resident ? q_a + a * kSlotBytes : stg + (SA + a - lo) * kSlotBytes;
+        const uint32_t kd = stg + (a - lo) * kSlotBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaSS<64>::mma(sc, sw128_desc(qd + kk * 32), sw128_desc(kd + kk * 32), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      release(pos.slot);
+      pos.advance(stages);
+    }
+    fence_regs<32>(sc);
+
+    // the exchange: S = S0 + S1 on both consumers, the same bits
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the other has read my last partial
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mine[i * 128 + t128] = sc[i];
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float other = theirs[i * 128 + t128];
+      sc[i] = w == 0 ? sc[i] + other : other + sc[i];
+    }
+
+    // online softmax; keys after the row masked (causal, the diagonal tile)
+    if (p.causal && key0 + kRows - 1 > r0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * i + 2 * c + (e & 1) > row0 + 8 * (e / 2)) sc[4 * i + e] = kNegInf;
+    }
+    float mx[2] = {m_i[0], m_i[1]}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f((m_i[r] - mx[r]) * a2);
+      m_i[r] = mx[r];
+      l_i[r] *= alpha[r];
+    }
+    const float mb0 = mx[0] * a2, mb1 = mx[1] * a2;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sc[4 * i + 0] = exp2f(fmaf(sc[4 * i + 0], a2, -mb0));
+      sc[4 * i + 1] = exp2f(fmaf(sc[4 * i + 1], a2, -mb0));
+      sc[4 * i + 2] = exp2f(fmaf(sc[4 * i + 2], a2, -mb1));
+      sc[4 * i + 3] = exp2f(fmaf(sc[4 * i + 3], a2, -mb1));
+      l_i[0] += sc[4 * i] + sc[4 * i + 1];
+      l_i[1] += sc[4 * i + 2] + sc[4 * i + 3];
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i % 4) / 2];
+    pack_a<4>(pa, sc);
+
+    // O += P V on this consumer's atoms of every V stage, each atom's
+    // products behind a fence of their own in their branch and committed
+    // there; the accumulator and P pinned once, before the first product
+    // (pinning an atom's registers inside the stage loop would read
+    // registers a product of the stage before may still write)
+    fence_regs<kAcc>(acc);
+    fence_regs<4>(pa);
+    for (int st = 0; st < v_stages; ++st) {
+      const int lo = st * SA, hi = min(lo + SA, sa);
+      mbar_wait(&full[pos.slot], pos.phase);
+      const uint32_t stg = ring_a + pos.slot * p.stage_bytes;
+#pragma unroll
+      for (int at = 0; at < kSliceAtoms; ++at) {
+        const int a = v_lo + at;  // the slice's atom
+        if (a < v_hi && a >= lo && a < hi) {
+          const uint32_t b = stg + (a - lo) * kSlotBytes;
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc)
+            WgmmaRS<64>::mma(acc + 32 * at, pa[kc], sw128_desc(b + kc * 16 * kLineBytes), 1);
+          wgmma_commit();
+        }
+      }
+      wgmma_wait<0>();
+      release(pos.slot);
+      pos.advance(stages);
+    }
+    fence_regs<kAcc>(acc);
+    fence_regs<4>(pa);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+  }
+  const int D = p.d, lane0 = kAtomLanes * (kFwdSliceAtoms * slice + v_lo);
+  // consumer 1 of the last slice also zeroes the atoms past the computed ones
+  const bool tail = w == 1 && slice == p.slices - 1;
+  const int zero_from = tail ? A : 0, zero_to = tail ? D / kAtomLanes : 0;
+  const size_t own = static_cast<size_t>(head) * n;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t row = own + row0 + 8 * r;
+    const float lse_b = m_i[r] * p.sm_scale + logf(l_i[r]);
+    float lse_new = lse_b, ka = 0.f, kb = 1.f / l_i[r];
+    if (RING && p.read_prev) {
+      const float lp = p.lse_prev[row];
+      const float mx = fmaxf(lp, lse_b);
+      lse_new = mx + logf(expf(lp - mx) + expf(lse_b - mx));
+      ka = expf(lp - lse_new);
+      kb = expf(lse_b - lse_new) / l_i[r];
+    }
+    const bool to_sum = RING && !p.last;
+    store_row(acc, r, v_hi - v_lo, ka, kb, lane0, c, p.out0 + row * D,
+              RING ? p.sum0 + row * D : nullptr, RING && p.read_prev, to_sum,
+              to_sum ? 0 : zero_from, to_sum ? 0 : zero_to);
+    if (slice == 0 && w == 0 && c == 0 && p.lse != nullptr) p.lse[row] = lse_new;
   }
 }
 
@@ -538,7 +783,7 @@ cudaError_t launch(const void* r0, const void* r1, const void* s0, const void* s
   if (bh <= 0 || bh > 65535 || n <= 0 || n % kRows != 0 || d <= 256 || d % kAtomLanes != 0 ||
       lanes <= 0 || lanes % 16 != 0 || lanes > d)
     return cudaErrorInvalidValue;
-  const Plan plan = make_plan(KIND, lanes);
+  const Plan plan = make_plan(lanes);
   // the caller's tile plan must be the one computed here
   if (plan.stages != stages || plan.smem != smem || plan.resident != (resident != 0))
     return cudaErrorInvalidValue;
@@ -559,6 +804,37 @@ cudaError_t launch(const void* r0, const void* r1, const void* s0, const void* s
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n / kRows, bh, KIND == kDkv ? 2 * plan.slices : plan.slices);
   kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+template <bool RING>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, Params p, int bh, int lanes,
+                       int stages, int smem, int resident, cudaStream_t stream) {
+  const int n = p.n, d = p.d;
+  if (bh <= 0 || bh > 65535 || n <= 0 || n % kRows != 0 || d <= 256 || d % kAtomLanes != 0 ||
+      lanes <= 0 || lanes % 16 != 0 || lanes > d)
+    return cudaErrorInvalidValue;
+  const FwdPlan plan = make_fwd_plan(lanes);
+  // the caller's tile plan must be the one computed here
+  if (plan.stages != stages || plan.smem != smem || plan.resident != (resident != 0))
+    return cudaErrorInvalidValue;
+  p.atoms = plan.atoms;
+  p.slices = plan.slices;
+  p.resident = plan.resident;
+  p.stage_atoms = plan.stage_atoms;
+  p.stages = plan.stages;
+  p.stage_bytes = plan.stage_bytes;
+  p.resident_bytes = plan.resident_bytes;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (!make_head_map(&maps[i], ptrs[i], bh, n, d, kRows)) return cudaErrorInvalidValue;
+  auto kernel = flash_wide_fwd_kernel<RING>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n / kRows, bh, plan.slices);
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
@@ -593,8 +869,8 @@ extern "C" int dfot_flash_fwd_wide(const void* q, const void* k, const void* v, 
   Params p = params(n, d, sm_scale, causal);
   p.out0 = static_cast<bf16*>(o);
   p.lse = static_cast<float*>(lse);
-  return launch<kFwd, false>(q, q, k, v, p, bh, lanes, stages, smem, resident,
-                             static_cast<cudaStream_t>(stream));
+  return launch_fwd<false>(q, k, v, p, bh, lanes, stages, smem, resident,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // dq of the wide family, arguments as dfot_flash_fwd_wide with lse, delta
@@ -649,8 +925,8 @@ extern "C" int dfot_ring_fwd_wide(const void* q, const void* k, const void* v, v
   p.kv_shift = kv_shift;
   p.read_prev = read_prev != 0;
   p.last = last != 0;
-  return launch<kFwd, true>(q, q, k, v, p, bh, lanes, stages, smem, resident,
-                            static_cast<cudaStream_t>(stream));
+  return launch_fwd<true>(q, k, v, p, bh, lanes, stages, smem, resident,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // One non-causal ring hop of the wide dq, arguments as dfot_flash_bwd_dq_wide,

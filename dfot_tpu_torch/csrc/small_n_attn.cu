@@ -41,7 +41,7 @@
 //   straight from registers.
 //
 // Head dims above 256 go to the wide entry (dfot_small_n_attn_wide, at the
-// end), which streams the head in 64-lane chunks; its note says why.
+// end), which spreads an item's head over a block's warps; its note says why.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,22 +65,28 @@ constexpr int kSmemPerBlock = 232448;
 constexpr int kBlockReserve = 1024;  // shared memory the card keeps for each block
 
 // The caller's plan (dfot_tpu_torch/ops/attention.py:small_n_plan), computed
-// again here: warps a block, items a stage, stages, shared memory, grid.
+// again here: warps a block, items a stage, stages, shared memory, grid; and
+// for the wide entry whether a stage holds whole items.
 struct Plan {
   int warps, items_per_stage, stages, smem;
   long long grid;
+  bool whole;
 };
 
 __host__ __device__ inline int round16(int bytes) { return (bytes + 15) / 16 * 16; }
 
-// ``item_bytes``: an item's share of a stage (the narrow entry: its whole q,
-// k, v rows; the wide entry: one 64-lane chunk of two of them)
-bool make_plan(long long items, int n, int item_bytes, bool fp32, Plan* p) {
+// ``item_bytes``: an item's share of a stage (its whole q, k, v rows, or on
+// the wide entry's chunked ring one 64-lane chunk of two of them). ``wave``
+// (the wide entry): at most as many items a stage as leave a group for
+// every SM where the items allow.
+bool make_plan(long long items, int n, int item_bytes, bool fp32, Plan* p, bool wave = false) {
   // bf16: a warp an item's 16 query rows, up to 4 warps; fp32: 8 warps share
   // the stage's items, as many as give the score phase 256 (row, 4-key) tasks
   const int units = n <= 16 ? 1 : 2;
-  const int most = fp32 ? std::min(kMaxItemsFp32, (255 + n * ((n + 3) / 4)) / (n * ((n + 3) / 4)))
-                        : kMaxWarps / units;
+  int most = fp32 ? std::min(kMaxItemsFp32, (255 + n * ((n + 3) / 4)) / (n * ((n + 3) / 4)))
+                  : kMaxWarps / units;
+  while (wave && most > 1 && (items + most - 1) / most < std::min<long long>(items, kSmCount))
+    --most;
   for (int ipb = most; ipb >= 1; --ipb) {
     const int warps = fp32 ? kWarpsFp32 : ipb * units, stage = ipb * item_bytes;
     const int fixed = fp32 ? round16(ipb * n * (n + 1) * 4) : 0;
@@ -90,7 +96,7 @@ bool make_plan(long long items, int n, int item_bytes, bool fp32, Plan* p) {
       if (stages >= 2) {
         const long long groups = (items + ipb - 1) / ipb;
         *p = {warps, ipb, stages, fixed + stages * stage,
-              std::min(groups, static_cast<long long>(per_sm) * kSmCount)};
+              std::min(groups, static_cast<long long>(per_sm) * kSmCount), true};
         return true;
       }
     }
@@ -117,7 +123,11 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
     case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
     case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
 }
 
@@ -490,43 +500,61 @@ int launch_n(const void* q, const void* k, const void* v, void* o, long long ite
 }
 
 // ---------------------------------------------------------------------------
-// The wide entry: head dims above 256, the head streamed in 64-lane chunks
+// The wide entry: head dims above 256, the head spread over the warps
 // ---------------------------------------------------------------------------
 //
 // The same function as the narrow entry (the TPU kernel _small_n_kernel at
 // d > 256, which the JAX dispatcher gives every non-causal row of N <= 32
-// with d % 64 == 0), and the same bound: bytes. Whole rows no longer fit: an
-// item's q, k, v take 3 n (d e + 16) bytes, 221,952 at (32, 1152) in bf16 and
-// 443,904 in fp32 against the 232,448 a block has, and a warp's 16 x d fp32
-// output would take 256 registers a thread at d = 512. So the head streams
-// through one cp.async ring in 64-lane chunks. A group of items takes 2 d /
-// 64 ring steps: d / 64 score steps, each bringing the q and k chunk of the
-// group's items, over which the scores accumulate (bf16: on mma.sync into the
-// warp's 16 x 32 fp32 fragments; fp32: exact FMAs into the block's n x (n + 1)
-// score rows), the softmax after the last; then d / 64 output steps, each
-// bringing v's chunk, from which the 64 lanes of o are computed, cast and
-// stored before the next. A stage and the registers no longer depend on d,
-// and q, k and v are each read once. (The wide flash family's route, output
-// slices over the grid, would read q and k again for every slice: five times
-// the score bytes at d = 1152, in a kernel bound by bytes.)
-//
-// Every step is one commit group of the ring, the empty ones past the
-// block's last step too, so the wait before step i always leaves the newest
-// stages - 1 groups in flight, across the two phases and across groups.
+// with d % 64 == 0), and the same bound: bytes. What holds it back is
+// latency, not bytes: the paths give it few items (the factorized DiT at one
+// head: 128 items of (16, 384), 4.8 MB), so a plan of several items a block
+// leaves most SMs idle, and each block's items would wait on a chain of
+// dependent loads. So:
+// - whole-item stages where two stages of an item fit a block's share of the
+//   SM (every path site: an item of (16, 384) is 37.6 KB): one item a group,
+//   its q and k rows one cp.async commit group and its v rows a second, so
+//   the scores start while v is still in flight; as many blocks as items, up
+//   to the SM's share (4, 2 or 1 blocks an SM), so the grid covers a wave of
+//   132 SMs wherever there are that many items;
+// - bf16: the item's head spread over the block's warps: each 16-row unit of
+//   the item takes ``parts`` warps (d / 64 chunks dealt round, at most 8
+//   warps a block), each contracting its own 64-lane chunks of q and k into
+//   partial scores on mma.sync; the partials are summed through shared
+//   memory in one fixed order (part 0 first), so every warp of a unit holds
+//   the same scores bit for bit and runs the same softmax; each warp then
+//   computes o on its own chunks of v, staged in the item's q rows (free
+//   once every warp has its scores) and written in 16-byte stores;
+// - fp32: whole items on the narrow entry's fp32 kernel (its 8 warps share a
+//   stage's items), with fewer items a stage where that gives a wave;
+// - where two stages of a whole item do not fit (bf16 (32, 1152); fp32 rows
+//   of 32 at 768 and more), the head streams through one cp.async ring in
+//   64-lane chunks: d / 64 score steps bringing the q and k chunk of a group
+//   of items, the softmax after the last, then d / 64 output steps bringing
+//   v's chunk, whose 64 lanes of o are computed, cast and stored before the
+//   next. A stage and the registers no longer depend on d, and q, k and v
+//   are each read once. Every step is one commit group of the ring, the
+//   empty ones past the block's last step too, so the wait before step i
+//   always leaves the newest stages - 1 groups in flight, across the two
+//   phases and across groups.
 
-constexpr int kChunk = 64;  // lanes of a streamed chunk
+constexpr int kChunk = 64;     // lanes of a chunk
+constexpr int kWideWarps = 8;  // bf16 whole items: warps of a block, at most
 
 template <typename T>
 __host__ __device__ constexpr int wide_row_bytes() {
   return kChunk * static_cast<int>(sizeof(T)) + kRowPad;
 }
 
+// key tiles of 8 for rows of n: 1, 2 or 4
+__host__ __device__ inline int key_tiles(int n) { return n <= 8 ? 1 : n <= 16 ? 2 : 4; }
+
 // bf16: the warp's 16 query rows (from ``row0``) of one item against its keys,
-// on one 64-lane chunk of q (``qs``) and k (``ks``), accumulated into ``s``
+// on one 64-lane chunk of q (``qs``) and k (``ks``), rows ``rb`` bytes apart,
+// accumulated into ``s``
 template <int NT8>
 __device__ __forceinline__ void wide_scores_bf16(const unsigned char* qs, const unsigned char* ks,
-                                                 float (&s)[NT8][4], int n, int row0, int lane) {
-  constexpr int rb = wide_row_bytes<__nv_bfloat16>();
+                                                 int rb, float (&s)[NT8][4], int n, int row0,
+                                                 int lane) {
   int qrow = row0 + lane % 16;
   if (qrow >= n) qrow = row0;
   const uint32_t qa = smem_u32(qs) + qrow * rb + (lane / 16) * 16;
@@ -602,16 +630,15 @@ __device__ __forceinline__ void wide_softmax_bf16(float (&s)[NT8][4],
 }
 
 // bf16: the warp's 16 rows of one 64-lane chunk of o = p v from v's chunk at
-// ``vs``, staged in the item's rows at ``os`` (the stage's k half, free in an
-// output step) and written to ``out`` (the chunk's first lane of the item's
-// row 0) in 16-byte stores
+// ``vs``, staged in the item's rows at ``os`` (``rb`` bytes apart, the chunk's
+// own lanes of rows no other warp reads any more) and written to ``out`` (the
+// chunk's first lane of the item's row 0) in 16-byte stores
 template <int NT8>
-__device__ __forceinline__ void wide_out_bf16(const unsigned char* vs, unsigned char* os,
+__device__ __forceinline__ void wide_out_bf16(const unsigned char* vs, unsigned char* os, int rb,
                                               const uint32_t (&pa)[(NT8 + 1) / 2][4],
                                               __nv_bfloat16* out, int n, int d, int row0,
                                               int lane) {
   constexpr int KS = (NT8 + 1) / 2;
-  constexpr int rb = wide_row_bytes<__nv_bfloat16>();
   const int g = lane / 4, t4 = lane % 4, r0 = row0 + g, r1 = r0 + 8;
   int vrow[KS];
 #pragma unroll
@@ -648,6 +675,92 @@ __device__ __forceinline__ void wide_out_bf16(const unsigned char* vs, unsigned 
         *reinterpret_cast<const uint4*>(os + r * rb + col * 16);
   }
   __syncwarp();
+}
+
+// bf16 whole items: the block's items one at a time (one an SM's share of
+// blocks, walking the items b, b + grid, ...), each in a stage of the ring as
+// two commit groups (q and k, then v); warp w takes 16-row unit w / parts
+// and the 64-lane chunks c = w % parts, + parts, ...
+template <int NT8>
+__global__ void __launch_bounds__(kWideWarps * 32)
+    small_n_whole_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                         long long items, int n, int d, float scale, int parts, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int KS = (NT8 + 1) / 2;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int unit = warp / parts, part = warp % parts, row0 = 16 * unit;
+  const int chunks = d / kChunk, cpr = d / 8, rb = 2 * d + kRowPad;
+  const int tensor_bytes = n * rb, item_bytes = 3 * tensor_bytes;
+  // the warps' partial scores, [warp][key tile][element][lane], then the ring
+  float* xs = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + (blockDim.x / 32) * NT8 * 4 * 32 * 4;
+  const int count =
+      items > blockIdx.x ? static_cast<int>((items - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+
+  // the block's i-th item into stage i % stages, as two commit groups (empty
+  // past the block's last item): its q and k rows, then its v rows
+  auto issue = [&](int i) {
+    const long long item = blockIdx.x + static_cast<long long>(i) * gridDim.x;
+    unsigned char* slot = ring + (i % stages) * item_bytes;
+    for (int h = 0; h < 2; ++h) {
+      if (i < count) {
+        for (int t = 2 * h; t < 2 + h; ++t) {
+          const __nv_bfloat16* src = (t == 0 ? q : t == 1 ? k : v) + item * n * d;
+          unsigned char* dst = slot + t * tensor_bytes;
+          for (int c = tid; c < n * cpr; c += blockDim.x) {
+            const int row = c / cpr, col = c - row * cpr;
+            cp_async16(dst + row * rb + col * 16, src + row * d + col * 8);
+          }
+        }
+      }
+      cp_async_commit();
+    }
+  };
+
+  for (int i = 0; i < stages - 1; ++i) issue(i);
+  for (int i = 0; i < count; ++i) {
+    issue(i + stages - 1);  // the stage item i - 1 left
+    unsigned char* qs = ring + (i % stages) * item_bytes;
+    unsigned char* ks = qs + tensor_bytes;
+    unsigned char* vs = ks + tensor_bytes;
+    // q and k of item i: its v and the later items' groups may be in flight
+    cp_async_wait(2 * stages - 1);
+    __syncthreads();
+    float s[NT8][4];
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int c = part; c < chunks; c += parts)
+      wide_scores_bf16<NT8>(qs + c * 128, ks + c * 128, rb, s, n, row0, lane);
+    if (parts > 1) {
+      // the unit's partials summed part 0 first, the same bits on every warp
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xs[((warp * NT8 + nt) * 4 + e) * 32 + lane] = s[nt][e];
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sum = xs[((unit * parts * NT8 + nt) * 4 + e) * 32 + lane];
+          for (int j = 1; j < parts; ++j)
+            sum += xs[(((unit * parts + j) * NT8 + nt) * 4 + e) * 32 + lane];
+          s[nt][e] = sum;
+        }
+    }
+    uint32_t pa[KS][4];
+    wide_softmax_bf16<NT8>(s, pa, n, scale, lane);
+    // v of item i; past this barrier no warp reads q or k of the item, nor
+    // the partials
+    cp_async_wait(2 * stages - 2);
+    __syncthreads();
+    __nv_bfloat16* out = o + (blockIdx.x + static_cast<long long>(i) * gridDim.x) * n * d;
+    for (int c = part; c < chunks; c += parts)
+      wide_out_bf16<NT8>(vs + c * 128, qs + c * 128, rb, pa, out + c * kChunk, n, d, row0, lane);
+    __syncthreads();  // the stage is refilled by a later item's load
+  }
+  cp_async_wait(0);
 }
 
 // fp32: the scores of a stage's ``items`` items on one 64-lane chunk of q
@@ -735,6 +848,7 @@ __device__ __forceinline__ void wide_out_fp32(const unsigned char* vs, const flo
   }
 }
 
+// the chunked ring: items too wide for two whole stages
 template <typename T, int NT8>
 __global__ void __launch_bounds__(kWarpsFp32 * 32)
     small_n_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -827,7 +941,7 @@ __global__ void __launch_bounds__(kWarpsFp32 * 32)
       for (int c = 0; c < chunks; ++c, ++i) {
         unsigned char* stage = arrive();
         if (mine)
-          wide_scores_bf16<NT8>(stage + item_off, stage + half + item_off, s, n, row0, lane);
+          wide_scores_bf16<NT8>(stage + item_off, stage + half + item_off, rb, s, n, row0, lane);
         __syncthreads();
       }
       uint32_t pa[KS][4];
@@ -836,13 +950,44 @@ __global__ void __launch_bounds__(kWarpsFp32 * 32)
       for (int c = 0; c < chunks; ++c, ++i) {
         unsigned char* stage = arrive();
         if (mine)
-          wide_out_bf16<NT8>(stage + item_off, stage + half + item_off, pa, out + c * kChunk, n,
-                             d, row0, lane);
+          wide_out_bf16<NT8>(stage + item_off, stage + half + item_off, rb, pa,
+                             out + c * kChunk, n, d, row0, lane);
         __syncthreads();
       }
     }
   }
   cp_async_wait(0);
+}
+
+// The wide entry's plan. Whole items where two stages of one fit a block:
+// bf16, one item a group, each 16-row unit's head dealt over ``parts`` warps
+// (as many as leave each warp the fewest chunks, at most kWideWarps a
+// block), the warps' partial scores beside the ring, at 4, 2 or 1 blocks an
+// SM, the most that fit; fp32, the narrow entry's plan with a wave of
+// groups. Otherwise the chunked ring, with a wave of groups.
+bool make_wide_plan(long long items, int n, int d, bool fp32, Plan* p) {
+  const int whole = 3 * n * (d * (fp32 ? 4 : 2) + kRowPad);
+  if (fp32) {
+    if (round16(n * (n + 1) * 4) + 2 * whole <= kSmemPerBlock)
+      return make_plan(items, n, whole, true, p, true);
+  } else {
+    const int units = n <= 16 ? 1 : 2, chunks = d / kChunk, most = kWideWarps / units;
+    const int per = (chunks + most - 1) / most, warps = units * ((chunks + per - 1) / per);
+    const int fixed = warps * key_tiles(n) * 4 * 32 * 4;
+    for (int per_sm : {4, 2, 1}) {
+      const int budget = std::min(kSmemPerBlock, (kSmemPerSm - per_sm * kBlockReserve) / per_sm);
+      const int stages = std::min(kMaxStages, (budget - fixed) / whole);
+      if (stages >= 2) {
+        *p = {warps, 1, stages, fixed + stages * whole,
+              std::min(items, static_cast<long long>(per_sm) * kSmCount), true};
+        return true;
+      }
+    }
+  }
+  if (!make_plan(items, n, 2 * n * (kChunk * (fp32 ? 4 : 2) + kRowPad), fp32, p, true))
+    return false;
+  p->whole = false;
+  return true;
 }
 
 template <typename T, int NT8>
@@ -855,6 +1000,21 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, long long 
   kernel<<<static_cast<unsigned>(plan.grid), plan.warps * 32, plan.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), items, n, d, scale, plan.items_per_stage, plan.stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT8>
+int launch_whole(const void* q, const void* k, const void* v, void* o, long long items, int n,
+                 int d, float scale, const Plan& plan, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  auto kernel = small_n_whole_kernel<NT8>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlock);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int units = n <= 16 ? 1 : 2;
+  kernel<<<static_cast<unsigned>(plan.grid), plan.warps * 32, plan.smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), items, n, d, scale, plan.warps / units, plan.stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -883,7 +1043,7 @@ extern "C" int dfot_small_n_attn(const void* q, const void* k, const void* v, vo
 }
 
 // The wide entry, d > 256: arguments as dfot_small_n_attn's, D a multiple of
-// 64 above 256, and the plan's item share one 64-lane chunk of two operands.
+// 64 above 256, the plan the wide entry's (make_wide_plan).
 extern "C" int dfot_small_n_attn_wide(const void* q, const void* k, const void* v, void* o,
                                       long long items, int n, int d, float scale, int is_fp32,
                                       int warps, int items_per_stage, int stages, int smem,
@@ -891,14 +1051,21 @@ extern "C" int dfot_small_n_attn_wide(const void* q, const void* k, const void* 
   if (items <= 0 || n <= 0 || n > kMaxN || d <= 256 || d % kChunk != 0)
     return cudaErrorInvalidValue;
   Plan plan;
-  if (!make_plan(items, n, 2 * n * (kChunk * (is_fp32 ? 4 : 2) + kRowPad), is_fp32, &plan) ||
-      plan.warps != warps || plan.items_per_stage != items_per_stage || plan.stages != stages ||
-      plan.smem != smem || plan.grid != grid)
+  if (!make_wide_plan(items, n, d, is_fp32, &plan) || plan.warps != warps ||
+      plan.items_per_stage != items_per_stage || plan.stages != stages || plan.smem != smem ||
+      plan.grid != grid)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
+  const int nt8 = key_tiles(n);
+  if (plan.whole) {
+    if (is_fp32) return launch<float, 4>(q, k, v, o, items, n, d, scale, plan, s);
+    if (nt8 == 1) return launch_whole<1>(q, k, v, o, items, n, d, scale, plan, s);
+    if (nt8 == 2) return launch_whole<2>(q, k, v, o, items, n, d, scale, plan, s);
+    return launch_whole<4>(q, k, v, o, items, n, d, scale, plan, s);
+  }
   if (is_fp32) return launch_wide<float, 1>(q, k, v, o, items, n, d, scale, plan, s);
-  if (n <= 8) return launch_wide<bf16, 1>(q, k, v, o, items, n, d, scale, plan, s);
-  if (n <= 16) return launch_wide<bf16, 2>(q, k, v, o, items, n, d, scale, plan, s);
+  if (nt8 == 1) return launch_wide<bf16, 1>(q, k, v, o, items, n, d, scale, plan, s);
+  if (nt8 == 2) return launch_wide<bf16, 2>(q, k, v, o, items, n, d, scale, plan, s);
   return launch_wide<bf16, 4>(q, k, v, o, items, n, d, scale, plan, s);
 }

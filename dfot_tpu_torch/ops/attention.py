@@ -220,16 +220,24 @@ FLASH_MAX_STAGES = 4
 FLASH_LANES = {64: (64,), 128: (80, 128), 256: (192, 256)}
 SMEM_PER_BLOCK = 232448     # shared memory one H100 block can take (227 KB)
 # The wide family (csrc/flash_wide.cu) at every multiple of 64 above 256: a
-# block owns 64 rows (B1, B4: queries; B5: keys) and one slice of at most 256
-# output lanes (grid z), its scores contract over the whole head in 64-lane
-# atoms streamed through stages of one atom of each operand, and its two
-# consumers take 32 rows each of a streamed 64-row tile and merge their
-# partials through shared memory at the end
+# block owns 64 rows (B1, B4: queries; B5: keys). The backward (B4, B5): one
+# slice of at most 256 output lanes (grid z), its scores contracted over the
+# whole head in 64-lane atoms streamed through stages of one atom of each
+# operand, its two consumers taking 32 rows each of a streamed 64-row tile and
+# merging their partials through shared memory at the end. The forward (B1):
+# one slice of at most 512 lanes, each consumer owning O for its share of the
+# slice's atoms and contracting the scores over its share of the head's
+# atoms, the two partial score tiles exchanged through shared memory; Q
+# loaded once, whole key tiles of K, then of V, streamed through stages of up
+# to 8 atoms
 FLASH_WIDE_ROWS = 64
 FLASH_WIDE_SLICE = 256
+FLASH_WIDE_FWD_SLICE = 512
+FLASH_WIDE_STAGE_ATOMS = 8
 FLASH_WIDE_MAX_STAGES = 8
 FLASH_WIDE_ATOM_BYTES = 64 * 128     # one 64-lane atom of 64 rows
-FLASH_WIDE_MERGE_BYTES = (128 + 4) * 128 * 4  # consumer 1's partials a thread, 128 threads
+FLASH_WIDE_MERGE_BYTES = 128 * 128 * 4  # consumer 1's partials, 128 a thread
+FLASH_WIDE_EXCHANGE_BYTES = 2 * 64 * 64 * 4   # both consumers' partial 64 x 64 fp32 scores
 
 
 def is_flash_width(d: int) -> bool:
@@ -281,7 +289,7 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"unknown flash kernel {kernel!r}")
     if d > FLASH_WIDTHS[-1]:
-        return _wide_plan(kernel, bh, n, rounded)
+        return (_wide_fwd_plan if kernel == "fwd" else _wide_plan)(kernel, bh, n, rounded)
     lanes = next(w for w in FLASH_LANES[d] if w >= rounded)
     row = d * 2  # bytes of one head-dim row of a tile
     if kernel == "fwd":
@@ -304,20 +312,68 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     }
 
 
-def _wide_plan(kernel: str, bh: int, n: int, lanes: int) -> dict:
-    """The wide family's plan (``csrc/flash_wide.cu:make_plan`` computes it
-    again). ``atoms``: the 64-lane atoms of the ``lanes`` computed, the last
-    contracting over ``ks_last`` k16 steps; ``slices``: 256-lane output
-    slices (the grid's z, twice over for B5: dV, then dK). A contraction step
-    brings one atom of each score product's streamed operand (``slots``: K
-    for B1; K and V for B4; Q and dO for B5); the block's own rows of the
-    other side (Q; Q and dO; K and V: ``resident_bytes``) are loaded once
-    where they fit beside two stages (``resident``), else they come with each
-    step, doubling the stage. The shared memory holds at least consumer 1's
-    partials for the final merge."""
+def wide_fwd_split(sa: int, atoms: int) -> tuple:
+    """How the wide B1's two consumers share a slice of ``sa`` O atoms and
+    the head's ``atoms`` score atoms (``csrc/flash_wide.cu:fwd_split``):
+    consumer 0 owns O atoms [0, a0) of the slice and score atoms [0, t0),
+    consumer 1 the rest; a0 = ceil(sa / 2), t0 the split that gives both as
+    even a count of atoms as it can (each is 4 k16 steps of n64 products in
+    either product)."""
+    a0 = -(-sa // 2)
+    return a0, min(atoms, max(0, atoms + sa - 2 * a0) // 2)
+
+
+def _wide_fwd_plan(kernel: str, bh: int, n: int, lanes: int) -> dict:
+    """The wide B1's plan (``csrc/flash_wide.cu:make_fwd_plan`` computes it
+    again). ``atoms``: the 64-lane atoms of the ``lanes`` computed, over
+    which the scores contract whole (the pad lanes of the last are zeros);
+    ``slices``: 512-lane output slices (the grid's z), each shared by the two
+    consumers as ``splits`` says (:func:`wide_fwd_split`, per slice). Q is ``resident``
+    (loaded once) where it fits beside the exchange of partial scores and two
+    one-atom stages; a stage holds ``stage_atoms`` atoms of K (with Q's
+    alongside where Q streams) or of V, as many as let two stages fit, at
+    most :data:`FLASH_WIDE_STAGE_ATOMS` and ``atoms``, and there are as many
+    stages as fit."""
     atom = FLASH_WIDE_ATOM_BYTES
     atoms = -(-lanes // 64)
-    slots = 1 if kernel == "fwd" else 2
+    barrier = 8
+    room = (SMEM_PER_BLOCK - 1024 - FLASH_WIDE_EXCHANGE_BYTES
+            - barrier * (1 + 2 * FLASH_WIDE_MAX_STAGES))
+    resident = room - atoms * atom >= 2 * atom
+    resident_bytes = atoms * atom if resident else 0
+    unit = atom if resident else 2 * atom
+    stage_atoms = min(FLASH_WIDE_STAGE_ATOMS, atoms, (room - resident_bytes) // (2 * unit))
+    stage = stage_atoms * unit
+    stages = min(FLASH_WIDE_MAX_STAGES, (room - resident_bytes) // stage)
+    per = FLASH_WIDE_FWD_SLICE // 64
+    slices = -(-atoms // per)
+    return {
+        "tile_rows": FLASH_WIDE_ROWS, "block_rows": FLASH_WIDE_ROWS, "stages": stages,
+        "smem_bytes": 1024 + resident_bytes + FLASH_WIDE_EXCHANGE_BYTES + stages * stage
+        + barrier * (1 + 2 * stages),
+        "lanes": lanes, "k_steps": lanes // 16, "atoms": atoms,
+        "ks_last": (lanes - 64 * (atoms - 1)) // 16, "slices": slices, "resident": resident,
+        "resident_bytes": resident_bytes, "stage_atoms": stage_atoms, "stage_bytes": stage,
+        "splits": tuple(wide_fwd_split(min(per, atoms - per * z), atoms)
+                        for z in range(slices)),
+        "grid": (-(-n // FLASH_WIDE_ROWS), bh, slices),
+    }
+
+
+def _wide_plan(kernel: str, bh: int, n: int, lanes: int) -> dict:
+    """The wide B4's and B5's plan (``csrc/flash_wide.cu:make_plan``
+    computes it again). ``atoms``: the 64-lane atoms of the ``lanes``
+    computed, the last contracting over ``ks_last`` k16 steps; ``slices``:
+    256-lane output slices (the grid's z, twice over for B5: dV, then dK). A
+    contraction step brings one atom of each score product's streamed operand
+    (K and V for B4; Q and dO for B5); the block's own rows of the other side
+    (Q and dO; K and V: ``resident_bytes``) are loaded once where they fit
+    beside two stages (``resident``), else they come with each step, doubling
+    the stage. The shared memory holds at least consumer 1's partials for the
+    final merge."""
+    atom = FLASH_WIDE_ATOM_BYTES
+    atoms = -(-lanes // 64)
+    slots = 2
     resident_bytes, stage = slots * atoms * atom, slots * atom
     barrier = 8
     stages = min(FLASH_WIDE_MAX_STAGES,
@@ -635,8 +691,8 @@ flash_bwd_dkv_wide.launches = 0
 
 
 SMALL_N_MAX = 32
-# kernel B10 holds an item's whole q, k, v rows in a stage up to this head
-# dim; above it, its wide entry streams the head in 64-lane chunks
+# kernel B10 takes head dims up to this one on its narrow entry; above it, on
+# its wide entry, which spreads an item's head over a block's warps
 SMALL_N_WHOLE_D = 256
 SMALL_N_CHUNK = 64
 
@@ -660,42 +716,19 @@ SMALL_N_WARPS_FP32 = 8      # fp32: warps of a block
 SMALL_N_MAX_ITEMS_FP32 = 16
 SMALL_N_MAX_STAGES = 4
 SMALL_N_ROW_PAD = 16        # bytes after each shared-memory row (ldmatrix's banks)
+SMALL_N_WIDE_WARPS = 8      # the wide entry's whole items in bf16: warps of a block, at most
 
 
-@functools.lru_cache(maxsize=256)
-def small_n_plan(items: int, n: int, d: int, dtype: torch.dtype) -> dict:
-    """Plan of kernel B10 for ``items`` items of ``n`` tokens and head dim
-    ``d`` in ``dtype`` (bf16 or fp32), as its C entry computes it again and
-    checks it.
-
-    A stage holds the q, k, v rows of ``items_per_stage`` items, rows padded
-    by 16 bytes (``3 n (d e + 16)`` bytes an item); above
-    :data:`SMALL_N_WHOLE_D` (``wide``: the wide entry, ``d`` a multiple of
-    64) one 64-lane chunk of q and k or of v and a free half, ``2 n (64 e +
-    16)`` bytes an item whatever ``d``. bf16: an item takes
-    ``units`` warps (16 query rows each: one for n <= 16, two above) and a
-    block ``warps`` = units x items_per_stage, from 4 items (or 2) down; fp32:
-    a block is 8 warps whose threads share the stage's items, from as many
-    as give its score phase 256 (row, 4-key) tasks (at most 16) down, and
-    holds their n x (n + 1) fp32 scores beside the ring. The first count of
-    items a stage that, at 4, 2 or 1 blocks an SM, leaves two stages in the
-    block's share of the SM's shared memory is taken, with as many stages as
-    fit (at most 4); ``grid``: that many blocks an SM over
-    :data:`SM_COUNT` SMs, or fewer where there are fewer groups.
-    """
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"no small-N kernel for {dtype}")
-    wide = d > SMALL_N_WHOLE_D
-    if items <= 0 or not 1 <= n <= SMALL_N_MAX or d <= 0 or d % (SMALL_N_CHUNK if wide else 16):
-        raise ValueError(f"no small-N plan for {items} items of ({n}, {d})")
-    fp32 = dtype == torch.float32
-    e = 4 if fp32 else 2
-    item_bytes = (2 * n * (SMALL_N_CHUNK * e + SMALL_N_ROW_PAD) if wide
-                  else 3 * n * (d * e + SMALL_N_ROW_PAD))
+def _ring_plan(items, n, item_bytes, fp32, wide, wave):
+    """B10's ring plan: items a stage from the most down (with ``wave``, no
+    more than leave a group for every SM where the items allow), the first
+    that leaves two stages at 4, 2 or 1 blocks an SM."""
     units = 1 if n <= 16 else 2
     tasks = n * -(-n // 4)
     most = (min(SMALL_N_MAX_ITEMS_FP32, -(-256 // tasks)) if fp32
             else SMALL_N_MAX_WARPS // units)
+    while wave and most > 1 and -(-items // most) < min(items, SM_COUNT):
+        most -= 1
     for ipb in range(most, 0, -1):
         warps = SMALL_N_WARPS_FP32 if fp32 else ipb * units
         stage = ipb * item_bytes
@@ -704,12 +737,84 @@ def small_n_plan(items: int, n: int, d: int, dtype: torch.dtype) -> dict:
             budget = min(SMEM_PER_BLOCK, (SMEM_PER_SM - per_sm * SMEM_BLOCK_RESERVE) // per_sm)
             stages = min(SMALL_N_MAX_STAGES, (budget - fixed) // stage)
             if stages >= 2:
-                return {"wide": wide, "units": 0 if fp32 else units, "warps": warps,
-                        "items_per_stage": ipb, "stages": stages, "stage_bytes": stage,
-                        "smem_bytes": fixed + stages * stage,
-                        "blocks_per_sm": per_sm,
+                return {"wide": wide, "whole": True, "units": 0 if fp32 else units,
+                        "parts": 0 if fp32 else 1, "warps": warps, "items_per_stage": ipb,
+                        "stages": stages, "stage_bytes": stage,
+                        "smem_bytes": fixed + stages * stage, "blocks_per_sm": per_sm,
                         "grid": min(-(-items // ipb), per_sm * SM_COUNT)}
-    raise ValueError(f"no small-N plan fits ({n}, {d}) {dtype}")
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def small_n_plan(items: int, n: int, d: int, dtype: torch.dtype) -> dict:
+    """Plan of kernel B10 for ``items`` items of ``n`` tokens and head dim
+    ``d`` in ``dtype`` (bf16 or fp32), as its C entry computes it again and
+    checks it.
+
+    Narrow entry (``d`` up to :data:`SMALL_N_WHOLE_D`): a stage holds the q,
+    k, v rows of ``items_per_stage`` items, rows padded by 16 bytes (``3 n (d
+    e + 16)`` bytes an item); bf16: an item takes ``units`` warps (16 query
+    rows each: one for n <= 16, two above) and a block ``warps`` = units x
+    items_per_stage, from 4 items (or 2) down; fp32: a block is 8 warps whose
+    threads share the stage's items, from as many as give its score phase
+    256 (row, 4-key) tasks (at most 16) down, and holds their n x (n + 1)
+    fp32 scores beside the ring. The first count of items a stage that, at
+    4, 2 or 1 blocks an SM, leaves two stages in the block's share of the
+    SM's shared memory is taken, with as many stages as fit (at most 4);
+    ``grid``: that many blocks an SM over :data:`SM_COUNT` SMs, or fewer
+    where there are fewer groups.
+
+    Wide entry (``wide``: ``d`` a multiple of 64 above 256). Where two stages
+    of a whole item fit a block (``whole``): in bf16 one item a stage, each
+    16-row unit's head dealt over ``parts`` warps (64-lane chunks c = part,
+    part + parts, ...: as many warps as leave each the fewest chunks, at most
+    :data:`SMALL_N_WIDE_WARPS` a block), the warps' partial scores (``units
+    x parts`` warps x key tiles of 8 x 512 bytes) beside the ring, at the
+    most blocks an SM (4, 2, 1) that leave two stages, and a block for every
+    item up to that many an SM; in fp32 the narrow entry's plan, with no
+    more items a stage than leave a group for every SM where the items
+    allow. Otherwise a stage holds one 64-lane chunk of q and k or of v and
+    a free half, ``2 n (64 e + 16)`` bytes an item whatever ``d``, on the
+    narrow entry's rule with that same wave of groups.
+    """
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"no small-N kernel for {dtype}")
+    wide = d > SMALL_N_WHOLE_D
+    if items <= 0 or not 1 <= n <= SMALL_N_MAX or d <= 0 or d % (SMALL_N_CHUNK if wide else 16):
+        raise ValueError(f"no small-N plan for {items} items of ({n}, {d})")
+    fp32 = dtype == torch.float32
+    e = 4 if fp32 else 2
+    whole = 3 * n * (d * e + SMALL_N_ROW_PAD)
+    plan = None
+    if not wide:
+        plan = _ring_plan(items, n, whole, fp32, False, False)
+    elif fp32:
+        if -(-n * (n + 1) * 4 // 16) * 16 + 2 * whole <= SMEM_PER_BLOCK:
+            plan = _ring_plan(items, n, whole, True, True, True)
+    else:
+        units = 1 if n <= 16 else 2
+        most, chunks = SMALL_N_WIDE_WARPS // units, d // SMALL_N_CHUNK
+        per = -(-chunks // most)
+        parts = -(-chunks // per)
+        warps = units * parts
+        fixed = warps * (1 if n <= 8 else 2 if n <= 16 else 4) * 4 * 32 * 4
+        for per_sm in (4, 2, 1):
+            budget = min(SMEM_PER_BLOCK, (SMEM_PER_SM - per_sm * SMEM_BLOCK_RESERVE) // per_sm)
+            stages = min(SMALL_N_MAX_STAGES, (budget - fixed) // whole)
+            if stages >= 2:
+                plan = {"wide": True, "whole": True, "units": units, "parts": parts,
+                        "warps": warps, "items_per_stage": 1, "stages": stages,
+                        "stage_bytes": whole, "smem_bytes": fixed + stages * whole,
+                        "blocks_per_sm": per_sm, "grid": min(items, per_sm * SM_COUNT)}
+                break
+    if wide and plan is None:
+        plan = _ring_plan(items, n, 2 * n * (SMALL_N_CHUNK * e + SMALL_N_ROW_PAD), fp32, True,
+                          True)
+        if plan is not None:
+            plan["whole"] = False
+    if plan is None:
+        raise ValueError(f"no small-N plan fits ({n}, {d}) {dtype}")
+    return plan
 
 
 def _small_n_cuda(q, k, v):
@@ -797,7 +902,8 @@ def small_n_attention(q, k, v, plain: bool = False) -> torch.Tensor:
 
 def small_n_attention_wide(q, k, v) -> torch.Tensor:
     """B10's wide entry (``dfot_small_n_attn_wide``: head dims above 256, a
-    multiple of 64, streamed in 64-lane chunks), forward only, (B, H, N, D)
+    multiple of 64, the head spread over a block's warps, or streamed in
+    64-lane chunks where whole items do not fit), forward only, (B, H, N, D)
     with N <= 32: the kernel on a CUDA device, the plain version on the CPU.
     :func:`small_n_attention` comes here for such heads."""
     if q.device.type == "cpu":

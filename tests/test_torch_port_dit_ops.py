@@ -276,9 +276,11 @@ def test_small_n_plans_fit_at_every_n_and_head_dim(dtype):
     """B10's plan at every N in 1..32 and every head dim in 64..2048 (step
     64): within one H100 block's shared memory with at least two stages and
     at least one block an SM; above 256 lanes (the wide entry) a stage holds
-    a 64-lane chunk of two operands, so its bytes do not grow with d."""
+    a whole item where two stages of one fit a block, else a 64-lane chunk
+    of two operands, whose bytes do not grow with d."""
+    es = 2 if dtype == torch.bfloat16 else 4
     for n in range(1, 33):
-        wide_stage = None
+        chunk_stage = None
         for d in range(64, 2049, 64):
             plan = TA.small_n_plan(1000, n, d, dtype)
             assert plan["wide"] == (d > TA.SMALL_N_WHOLE_D)
@@ -287,8 +289,11 @@ def test_small_n_plans_fit_at_every_n_and_head_dim(dtype):
             assert plan["blocks_per_sm"] * (plan["smem_bytes"] + TA.SMEM_BLOCK_RESERVE) <= (
                 TA.SMEM_PER_SM), (n, d)
             assert plan["smem_bytes"] >= plan["stages"] * plan["stage_bytes"]
-            if plan["wide"]:
-                wide_stage = wide_stage or plan["stage_bytes"]
-                assert plan["stage_bytes"] == wide_stage, (n, d)
+            if plan["wide"] and plan["whole"]:
+                items = plan["items_per_stage"]
+                assert plan["stage_bytes"] == items * 3 * n * (d * es + 16), (n, d)
+            elif plan["wide"]:
+                chunk_stage = chunk_stage or plan["stage_bytes"]
+                assert plan["stage_bytes"] == chunk_stage, (n, d)
     with pytest.raises(ValueError):
         TA.small_n_plan(1000, 8, 352, dtype)  # above 256 only multiples of 64

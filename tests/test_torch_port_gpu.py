@@ -1358,6 +1358,18 @@ def test_wide_flash_kernels(cuda, n, bh, d, dp, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,dp", [(576, 576), (1280, 1280)])
+def test_wide_flash_kernels_at_two_and_three_slices(cuda, d, dp, causal):
+    """The wide B1 where a row's lanes take two 512-lane slices (576: the
+    second slice one atom, all of it consumer 0's) and three (1280, the
+    widest head B2 and B6 take, Q resident beside two-atom stages), with
+    the backward at the same heads."""
+    assert A.flash_plan("fwd", 2, 192, dp, d)["slices"] == -(-dp // 512)
+    _check_wide(cuda, 2, 192, d, dp, causal, seed=36)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d,dp", [(1152, 1152), (1000, 1024), (832, 832)])
 def test_wide_flash_kernels_past_resident_heads(cuda, d, dp, causal):
     """Heads of 832 and more: B4's and B5's own rows no longer fit beside
@@ -1439,7 +1451,7 @@ def test_wide_packed_route(cuda, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,lanes", [(512, 512), (320, 288)])
+@pytest.mark.parametrize("d,lanes", [(512, 512), (320, 288), (576, 576)])
 def test_wide_ring_hops_match_their_plain_versions(cuda, d, lanes):
     """The wide ring entries on their own, as the narrow ones are tested: a
     middle hop of a LocalRing of 3 (K/V ``kv_shift`` heads back) and the last
@@ -1516,6 +1528,95 @@ def test_wide_ring_attention(cuda):
     assert counts == {"ring_fwd_wide": 2, "ring_dq_wide": 2, "ring_dkv_wide": 2}
     for x, w in zip(got, run(True)):
         assert _rel_l2(x, w) <= 1e-2
+
+
+def _copy_lanes(x, src, dst, width):
+    """``x`` with lanes [dst, dst + width) set to lanes [src, src + width)."""
+    x = x.clone()
+    x[..., dst:dst + width] = x[..., src:src + width]
+    return x
+
+
+def _halves_bits_differ(o, src, dst, width):
+    return not torch.equal(o[..., src:src + width], o[..., dst:dst + width])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n,d,dp,src,dst", [(2048, 512, 512, 0, 256),   # W: 4 atoms each
+                                            (1280, 288, 320, 0, 192),   # X: atoms 0-2 | 3-4
+                                            (192, 1152, 1152, 0, 1088)])  # slices 0 and 2
+def test_wide_b1_consumers_share_the_scores(cuda, n, d, dp, src, dst, causal):
+    """Both consumers of a wide B1 block add the two partial score tiles in
+    the same order, so they hold the same P and the same row sums: where
+    V's lanes owned by consumer 1 (or by another slice block) repeat lanes
+    owned by consumer 0, O's lanes come out equal bit for bit, and O is
+    within B1's bounds of the plain version. The controls: a softmax over
+    one consumer's partial scores alone (no exchange) falls outside the
+    bounds, and at the two path sites the plain O with one half normalised
+    by a row sum one fp32 ulp away differs in bits, as the bit check
+    requires (at 192 rows such a fault may reach no bf16 bit: a relative
+    1.2e-7 against bf16's spacing of 3.9e-3 flips about one value in 30 000,
+    and the 64 compared lanes of 4 heads hold 49 152)."""
+    g = torch.Generator(device=cuda).manual_seed(37)
+    scale = 1.0 / math.sqrt(d)
+    q, k = (_padded_heads(g, 4, n, d, dp, cuda, 1.7) for _ in range(2))
+    v = _copy_lanes(_padded_heads(g, 4, n, d, dp, cuda), src, dst, 64)
+    ops.reset_launch_counts()
+    o, lse = A.flash_attention(q, k, v, causal, scale, return_lse=True, head_dim=d)
+    assert ops.launch_counts()["flash_fwd_wide"] == 1
+    assert not _halves_bits_differ(o, src, dst, 64)
+    o_ref, lse_ref = A.attention_reference(q, k, v, causal, scale, return_lse=True)
+    assert _close(o, o_ref, 1e-2) and _rel_l2(o, o_ref) <= 1e-2
+    assert (lse - lse_ref).abs().max() <= 1e-3
+    # control 1: consumer 1's scores over its own atoms alone
+    cut = 64 * A.flash_plan("fwd", 4, n, dp, d)["splits"][0][1]
+    alone = A.attention_reference(F.pad(q[..., cut:], (cut, 0)), F.pad(k[..., cut:], (cut, 0)),
+                                  v, causal, scale)
+    assert not (_close(alone, o_ref, 1e-2) and _rel_l2(alone, o_ref) <= 1e-2)
+    if n < 1280:
+        return
+    # control 2: one half normalised by a row sum an ulp away
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(n, n, device=cuda, dtype=torch.bool).triu(1), -float("inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    pv = torch.matmul(p.to(torch.bfloat16).float(), v.float())
+    faulty = (pv / l).to(torch.bfloat16)
+    faulty[..., dst:dst + 64] = (pv[..., dst:dst + 64] / torch.nextafter(
+        l, torch.full_like(l, float("inf")))).to(torch.bfloat16)
+    assert _halves_bits_differ(faulty, src, dst, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z,n,d", [(128, 16, 384), (1024, 8, 512), (64, 17, 576), (7, 1, 320)])
+def test_small_n_wide_warps_share_the_scores(cuda, z, n, d):
+    """B10's wide entry on whole items: the warps of a 16-row unit sum their
+    partial scores through shared memory in one order, so where v's 64-lane
+    chunks (each a different warp's) repeat chunk 0, o's chunks come out
+    equal bit for bit, within the bf16 bounds of the plain version. The
+    control: scores without one warp's chunk (the first, whose q and k are
+    what the others' are not) fall outside the bounds."""
+    plan = A.small_n_plan(z, n, d, torch.bfloat16)
+    assert plan["whole"] and plan["parts"] > 1
+    g = torch.Generator(device=cuda).manual_seed(38)
+    q, k = ((1.5 * torch.randn(1, z, n, d, generator=g, device=cuda)).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(1, z, n, 64, generator=g, device=cuda).to(torch.bfloat16).repeat(1, 1, 1,
+                                                                                      d // 64)
+    ops.reset_launch_counts()
+    o = A.small_n_attention(q, k, v)
+    assert ops.launch_counts()["small_n_attn_wide"] == 1
+    for c in range(1, d // 64):
+        assert torch.equal(o[..., :64], o[..., 64 * c:64 * c + 64]), c
+    o_ref = A.small_n_attention_reference(q, k, v)
+    assert _close(o, o_ref, 2e-2)
+    if n > 1:
+        without = A.small_n_attention_reference(
+            torch.cat([torch.zeros_like(q[..., :64]), q[..., 64:]], -1), k, v)
+        # the plain version's scale is that of the whole head
+        assert not _close(without, o_ref, 2e-2)
 
 
 @pytest.mark.gpu

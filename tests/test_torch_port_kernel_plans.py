@@ -131,14 +131,72 @@ def test_small_n_plan_at_the_path_shapes():
     assert plan["grid"] == 4 * A.SM_COUNT
     plan = A.small_n_plan(768, 32, 256, torch.bfloat16)
     assert (plan["units"], plan["warps"], plan["items_per_stage"]) == (2, 4, 2)
-    # the wide entry's two path sites: the base axial U-ViT's level 3 at 2
-    # heads of 512 (one 64-lane chunk of 4 items of 8 rows a stage) and the
-    # factorized DiT at one head of 384
+    # the wide entry's two path sites, whole items a stage and the head dealt
+    # one 64-lane chunk a warp: the base axial U-ViT's level 3 at 2 heads of
+    # 512 (8 warps an item, 4 blocks an SM, a block for every item up to
+    # 528) and the factorized DiT at one head of 384 (6 warps, a block for
+    # each of the 128 items)
     plan = A.small_n_plan(2 * 256 * 2, 8, 512, torch.bfloat16)
-    assert plan["wide"] and (plan["items_per_stage"], plan["stages"], plan["stage_bytes"],
-                             plan["grid"]) == (4, 4, 4 * 2 * 8 * 144, 256)
+    assert plan["wide"] and plan["whole"]
+    assert (plan["parts"], plan["warps"], plan["items_per_stage"], plan["stages"],
+            plan["stage_bytes"], plan["blocks_per_sm"], plan["grid"]) == (
+        8, 8, 1, 2, 3 * 8 * (512 * 2 + 16), 4, 4 * A.SM_COUNT)
     plan = A.small_n_plan(8 * 16, 16, 384, torch.bfloat16)
-    assert plan["wide"] and (plan["items_per_stage"], plan["stages"], plan["grid"]) == (4, 3, 32)
+    assert plan["wide"] and plan["whole"]
+    assert (plan["parts"], plan["warps"], plan["items_per_stage"], plan["stages"],
+            plan["blocks_per_sm"], plan["grid"]) == (6, 6, 1, 2, 2, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("items", [1, 7, 128, 1000, 70000])
+def test_small_n_wide_plans_cover_every_item_and_fill_the_card(items, dtype):
+    """B10's wide entry at every N from 1 to 32 and every head dim from 320 to
+    2048: the grid walks every item once (a group of ``items_per_stage`` a
+    stage) and covers a wave of SMs where the items allow; the shared memory
+    fits a block and the blocks an SM; whole items where two stages of one
+    fit a block, else the chunked ring; in bf16 whole items each 16-row unit
+    deals its 64-lane chunks over ``parts`` warps, each chunk to one warp,
+    at most 8 warps a block, the warps' partial scores beside the ring."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    for n in range(1, 33):
+        for d in range(320, 2049, 64):
+            plan = A.small_n_plan(items, n, d, dtype)
+            ipb, grid = plan["items_per_stage"], plan["grid"]
+            groups = math.ceil(items / ipb)
+            walked = sorted(g for b in range(grid) for g in range(b, groups, grid))
+            assert walked == list(range(groups))
+            assert grid >= min(items, A.SM_COUNT)
+            assert plan["smem_bytes"] <= A.SMEM_PER_BLOCK
+            assert plan["blocks_per_sm"] * (plan["smem_bytes"] + A.SMEM_BLOCK_RESERVE) <= (
+                A.SMEM_PER_SM)
+            assert 2 <= plan["stages"] <= A.SMALL_N_MAX_STAGES
+            whole = 3 * n * (d * es + A.SMALL_N_ROW_PAD)
+            chunk = 2 * n * (64 * es + A.SMALL_N_ROW_PAD)
+            scores = 0 if dtype == torch.bfloat16 else math.ceil(ipb * n * (n + 1) * 4 / 16) * 16
+            if plan["whole"] and dtype == torch.bfloat16:
+                units, parts, chunks = plan["units"], plan["parts"], d // 64
+                assert ipb == 1 and 16 * (units - 1) < n <= 16 * units
+                assert plan["warps"] == units * parts <= A.SMALL_N_WIDE_WARPS
+                dealt = sorted(c for part in range(parts) for c in range(part, chunks, parts))
+                assert dealt == list(range(chunks))
+                # the fewest chunks a warp that the warps allow
+                per = math.ceil(chunks / parts)
+                assert per == math.ceil(chunks / (A.SMALL_N_WIDE_WARPS // units))
+                tiles = 1 if n <= 8 else 2 if n <= 16 else 4
+                scores = plan["warps"] * tiles * 4 * 32 * 4
+            assert plan["stage_bytes"] == ipb * (whole if plan["whole"] else chunk)
+            assert plan["smem_bytes"] == scores + plan["stages"] * plan["stage_bytes"]
+            # whole items exactly where two stages of one (and the scores) fit
+            if dtype == torch.bfloat16:
+                units = 1 if n <= 16 else 2
+                most = A.SMALL_N_WIDE_WARPS // units
+                per = math.ceil((d // 64) / most)
+                warps = units * math.ceil((d // 64) / per)
+                fits = warps * (1 if n <= 8 else 2 if n <= 16 else 4) * 512 + 2 * whole <= (
+                    A.SMEM_PER_BLOCK)
+            else:
+                fits = math.ceil(n * (n + 1) * 4 / 16) * 16 + 2 * whole <= A.SMEM_PER_BLOCK
+            assert plan["whole"] == fits, (n, d)
 
 
 @pytest.mark.parametrize("items,n,d,dtype", [(0, 8, 64, torch.bfloat16), (8, 0, 64, torch.bfloat16),
@@ -217,10 +275,10 @@ def test_the_c_sources_plan_with_the_same_constants():
     b10 = _constants("small_n_attn.cu")
     assert (b10["kMaxN"], b10["kMaxWarps"], b10["kWarpsFp32"], b10["kMaxItemsFp32"],
             b10["kMaxStages"], b10["kRowPad"], b10["kSmCount"], b10["kSmemPerSm"],
-            b10["kSmemPerBlock"], b10["kBlockReserve"], b10["kChunk"]) == (
+            b10["kSmemPerBlock"], b10["kBlockReserve"], b10["kChunk"], b10["kWideWarps"]) == (
         A.SMALL_N_MAX, A.SMALL_N_MAX_WARPS, A.SMALL_N_WARPS_FP32, A.SMALL_N_MAX_ITEMS_FP32,
         A.SMALL_N_MAX_STAGES, A.SMALL_N_ROW_PAD, A.SM_COUNT, A.SMEM_PER_SM,
-        A.SMEM_PER_BLOCK, A.SMEM_BLOCK_RESERVE, A.SMALL_N_CHUNK)
+        A.SMEM_PER_BLOCK, A.SMEM_BLOCK_RESERVE, A.SMALL_N_CHUNK, A.SMALL_N_WIDE_WARPS)
     b6 = _constants("qkv_prep_bwd.cu")
     assert (b6["kThreads"], b6["kStages"], b6["kSmCount"], b6["kBlocksPerSm"]) == (
         Q.PREP_BWD_THREADS, Q.PREP_BWD_STAGES, Q.SM_COUNT, Q.PREP_BWD_BLOCKS_PER_SM)
@@ -233,6 +291,10 @@ def test_the_c_sources_plan_with_the_same_constants():
     assert (wide["kRows"], wide["kSliceAtoms"] * 64, wide["kMaxStages"], wide["kSmemPerBlock"],
             wide["kBarrier"]) == (A.FLASH_WIDE_ROWS, A.FLASH_WIDE_SLICE, A.FLASH_WIDE_MAX_STAGES,
                                   A.SMEM_PER_BLOCK, 8)
+    # the wide B1's own: 512-lane slices, stages of up to 8 atoms, the two
+    # consumers' partial score tiles
+    assert (wide["kFwdSliceAtoms"] * 64, wide["kStageAtoms"], wide["kExchangeBytes"]) == (
+        A.FLASH_WIDE_FWD_SLICE, A.FLASH_WIDE_STAGE_ATOMS, A.FLASH_WIDE_EXCHANGE_BYTES)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -23,8 +23,9 @@ interpret mode on the same seeded fp32 inputs:
   U-ViT with one head of 320 at level 3 and a tiny factorized DiT with one
   head of 384, weights both ways, forward and every gradient leaf within
   1e-4 relative (``tests/test_torch_port_base.py``'s bounds);
-- the wide plans at every multiple of 64 from 320 to 1152 (and B6's up to
-  1152), and the dispatcher computing every shape on the CPU, the
+- the wide plans at every multiple of 64 from 320 to 1280 (and B6's up to
+  1152), the wide B1's two consumers owning every lane of O and every score
+  step once, and the dispatcher computing every shape on the CPU, the
   short-row ones too.
 
 The CUDA kernels themselves are tested on the card by
@@ -56,7 +57,8 @@ GRAD_RTOL = 1e-5    # attention and qkv_prep gradients, relative L2
 PREP_ATOL = 1e-5    # qkv_prep, elementwise
 MODEL_RTOL, MODEL_GRAD_RTOL = 1e-4, 2e-4
 UVIT_RTOL = 1e-4    # tests/test_torch_port_base.py's: outputs and every gradient leaf
-WIDE = tuple(range(320, 1153, 64))
+WIDE = tuple(range(320, 1281, 64))
+WIDE_PLAN_ROWS = (64, 192, 1280, 2048, 8192)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -364,45 +366,125 @@ def test_tiny_factorized_dit_with_one_head_of_384_matches_jax():
 
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv", "ring_fwd", "ring_dq", "ring_dkv"])
 def test_wide_plans_fit_at_every_width(kernel):
-    """At every multiple of 64 from 320 to 1152, at the true head dim and
-    at 48 lanes less (a head padded to the width): shared memory within one
-    H100 block's 227 KB and holding consumer 1's partials for the merge;
-    the 256-lane slices covering the computed lanes' atoms; at least two
-    stages; the grid within CUDA's limits (B5: a dV and a dK block a slice);
-    the ring entries on their kernel's plan; the block's own rows resident
-    until they no longer fit beside two stages."""
+    """At every multiple of 64 from 320 to 1280, at the true head dim and at
+    48 lanes less (a head padded to the width), N from 64 to 8192: shared
+    memory within one H100 block's 227 KB; at least two stages; the grid
+    within CUDA's limits; the ring entries on their kernel's plan. B4, B5:
+    holding consumer 1's partials for the merge, 256-lane slices covering the
+    computed lanes' atoms (B5: a dV and a dK block a slice), the block's own
+    rows resident until they no longer fit beside two stages. B1: 512-lane
+    slices, the exchange of partial scores, Q resident where it fits beside
+    two one-atom stages, stages of as many atoms as let two fit."""
     base = TA.RING_PLAN_OF.get(kernel, kernel)
     for d in WIDE:
         for head_dim in (d, d - 48):
-            plan = TA.flash_plan(kernel, 8 * 16, 8192, d, head_dim)
-            assert plan == TA.flash_plan(base, 8 * 16, 8192, d, head_dim)
-            lanes = -(-head_dim // 16) * 16
-            assert plan["lanes"] == lanes and plan["k_steps"] == lanes // 16
-            assert TA.FLASH_WIDE_MERGE_BYTES < plan["smem_bytes"] <= TA.SMEM_PER_BLOCK
-            assert plan["atoms"] == -(-lanes // 64) <= d // 64
-            assert 4 * (plan["slices"] - 1) < plan["atoms"] <= 4 * plan["slices"]
-            assert 2 <= plan["stages"] <= TA.FLASH_WIDE_MAX_STAGES
-            x, y, z = plan["grid"]
-            assert (x, y) == (8192 // 64, 8 * 16) and y <= 65535
-            assert z == plan["slices"] * (2 if base == "dkv" else 1) <= 65535
-            used = plan["resident_bytes"] + plan["stages"] * plan["stage_bytes"]
-            assert plan["smem_bytes"] == 1024 + max(used, TA.FLASH_WIDE_MERGE_BYTES) + 8 * (
-                1 + 2 * plan["stages"])
-            slots = 1 if base == "fwd" else 2
-            resident = 1024 + slots * plan["atoms"] * TA.FLASH_WIDE_ATOM_BYTES + 2 * (
-                slots * TA.FLASH_WIDE_ATOM_BYTES + 16) + 8 <= TA.SMEM_PER_BLOCK
-            assert plan["resident"] == resident
+            for n in WIDE_PLAN_ROWS:
+                plan = TA.flash_plan(kernel, 8 * 16, n, d, head_dim)
+                assert plan == TA.flash_plan(base, 8 * 16, n, d, head_dim)
+                lanes = -(-head_dim // 16) * 16
+                assert plan["lanes"] == lanes and plan["k_steps"] == lanes // 16
+                assert plan["smem_bytes"] <= TA.SMEM_PER_BLOCK
+                assert plan["atoms"] == -(-lanes // 64) <= d // 64
+                assert 2 <= plan["stages"] <= TA.FLASH_WIDE_MAX_STAGES
+                x, y, z = plan["grid"]
+                assert (x, y) == (n // 64, 8 * 16) and y <= 65535
+                atom, barriers = TA.FLASH_WIDE_ATOM_BYTES, 8 * (1 + 2 * plan["stages"])
+                if base == "fwd":
+                    assert 8 * (plan["slices"] - 1) < plan["atoms"] <= 8 * plan["slices"] == 8 * z
+                    used = plan["resident_bytes"] + plan["stages"] * plan["stage_bytes"]
+                    assert plan["smem_bytes"] == 1024 + used + TA.FLASH_WIDE_EXCHANGE_BYTES + (
+                        barriers)
+                    room = (TA.SMEM_PER_BLOCK - 1024 - TA.FLASH_WIDE_EXCHANGE_BYTES
+                            - 8 * (1 + 2 * TA.FLASH_WIDE_MAX_STAGES))
+                    assert plan["resident"] == (plan["atoms"] * atom + 2 * atom <= room)
+                    unit = atom if plan["resident"] else 2 * atom
+                    sa = plan["stage_atoms"]
+                    assert 1 <= sa <= min(TA.FLASH_WIDE_STAGE_ATOMS, plan["atoms"])
+                    assert plan["stage_bytes"] == sa * unit
+                    # the most atoms a stage that leave room for two stages
+                    assert plan["resident_bytes"] + 2 * sa * unit <= room
+                    assert sa == min(TA.FLASH_WIDE_STAGE_ATOMS, plan["atoms"]) or (
+                        plan["resident_bytes"] + 2 * (sa + 1) * unit > room)
+                    continue
+                assert TA.FLASH_WIDE_MERGE_BYTES < plan["smem_bytes"]
+                assert 4 * (plan["slices"] - 1) < plan["atoms"] <= 4 * plan["slices"]
+                assert z == plan["slices"] * (2 if base == "dkv" else 1) <= 65535
+                used = plan["resident_bytes"] + plan["stages"] * plan["stage_bytes"]
+                assert plan["smem_bytes"] == 1024 + max(used, TA.FLASH_WIDE_MERGE_BYTES) + (
+                    barriers)
+                resident = 1024 + 2 * plan["atoms"] * atom + 2 * (2 * atom + 16) + 8 <= (
+                    TA.SMEM_PER_BLOCK)
+                assert plan["resident"] == resident
+
+
+def _wide_fwd_walk(plan):
+    """The wide B1's loops, as ``csrc/flash_wide.cu:flash_wide_fwd_kernel``
+    runs them, for every block of a query-row block: for each slice and each
+    consumer, the score atoms it contracts (from each K stage of a key tile)
+    and the head's atoms of O it accumulates (from each V stage)."""
+    A, SA = plan["atoms"], plan["stage_atoms"]
+    walked = []
+    for z, (a0, t0) in enumerate(plan["splits"]):
+        sa = min(8, A - 8 * z)
+        for w in (0, 1):
+            k_lo, k_hi = (t0, A) if w else (0, t0)
+            v_lo, v_hi = (a0, sa) if w else (0, a0)
+            scores, atoms = [], []
+            for st in range(-(-A // SA)):
+                lo, hi = st * SA, min(st * SA + SA, A)
+                scores += list(range(max(lo, k_lo), min(hi, k_hi)))
+            for st in range(-(-sa // SA)):
+                lo, hi = st * SA, min(st * SA + SA, sa)
+                atoms += [8 * z + v_lo + at for at in range(4)
+                          if v_lo + at < v_hi and lo <= v_lo + at < hi]
+            walked.append((z, w, scores, atoms))
+    return walked
+
+
+def test_wide_fwd_plan_owns_every_lane_and_score_step_once():
+    """The wide B1 at every multiple of 64 from 320 to 1280 (true head dims d
+    and d - 48), N from 64 to 8192: every output atom of a query-row block is
+    accumulated by exactly one consumer of one slice block, no consumer
+    holds more than 4 (128 registers a thread); in every slice block each
+    64-lane atom of the scores is contracted by exactly one of the two
+    consumers (their partials are then summed on both); the split gives the
+    two consumers counts of atoms (4 k16 steps of n64 products each, in
+    either product) within one of each other."""
+    for d in WIDE:
+        for head_dim in (d, d - 48):
+            for n in WIDE_PLAN_ROWS:
+                plan = TA.flash_plan("fwd", 4, n, d, head_dim)
+                walked = _wide_fwd_walk(plan)
+                owned = sorted(a for _, _, _, atoms in walked for a in atoms)
+                assert owned == list(range(plan["atoms"])), (d, head_dim)
+                for z in range(plan["slices"]):
+                    mine = [(scores, atoms) for zz, _, scores, atoms in walked if zz == z]
+                    assert sorted(mine[0][0] + mine[1][0]) == list(range(plan["atoms"]))
+                    assert all(len(atoms) <= 4 for _, atoms in mine)
+                    work = [len(scores) + len(atoms) for scores, atoms in mine]
+                    assert abs(work[0] - work[1]) <= 1, (d, head_dim, z, work)
 
 
 def test_wide_plans_at_the_paths_sites():
-    """The two paths' wide sites: the base U-ViT's level 3 at 2 heads (heads
-    of 512: two full slices, every block's own rows resident) and K600
-    @DiT/XL at 4 heads (288 of 320 lanes: a 256-lane and a 64-lane slice,
-    18 k-steps)."""
-    w = TA.flash_plan("dq", 2 * 2, 2048, 512)
-    assert (w["slices"], w["atoms"], w["resident"], w["stages"]) == (2, 8, True, 6)
+    """The two paths' wide sites. W, the base U-ViT's level 3 at 2 heads of
+    512: the wide B1 in one 512-lane slice with Q resident, each consumer
+    owning 256 lanes of O and 4 of the 8 score atoms, key tiles of K and of V
+    a 64 KB stage each; B4 and B5 two 256-lane slices with every block's own
+    rows resident. X, K600 @DiT/XL at 4 heads (288 of 320 lanes): the wide
+    B1 in one slice, consumer 0 owning 192 lanes of O and 2 score atoms,
+    consumer 1 128 lanes and 3 (5 atoms of products each); B5 a 256-lane and
+    a 64-lane slice, twice."""
+    w = TA.flash_plan("fwd", 2 * 2, 2048, 512)
+    assert (w["slices"], w["resident"], w["stage_atoms"], w["stages"], w["splits"]) == (
+        1, True, 8, 2, ((4, 4),))
+    assert w["smem_bytes"] == 1024 + 64 * 1024 + 32 * 1024 + 2 * 64 * 1024 + 8 * 5
+    assert w["grid"] == (32, 4, 1)
+    dq = TA.flash_plan("dq", 2 * 2, 2048, 512)
+    assert (dq["slices"], dq["atoms"], dq["resident"], dq["stages"]) == (2, 8, True, 6)
     x = TA.flash_plan("fwd", 8 * 4, 1280, 320, 288)
-    assert (x["slices"], x["atoms"], x["ks_last"], x["k_steps"]) == (2, 5, 2, 18)
+    assert (x["slices"], x["atoms"], x["k_steps"], x["resident"], x["splits"]) == (
+        1, 5, 18, True, ((3, 2),))
+    assert (x["stage_atoms"], x["stages"], x["grid"]) == (5, 3, (20, 32, 1))
     assert TA.flash_plan("dkv", 8 * 4, 1280, 320, 288)["grid"] == (20, 32, 4)
 
 
