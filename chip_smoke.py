@@ -384,9 +384,9 @@ KERNELS = (
     ("ring_fwd", "dfot_tpu_torch/csrc/flash_fwd.cu", "dfot_tpu/ops/ring_attention.py:49"),
     ("ring_dq", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:378"),
     ("ring_dkv", "dfot_tpu_torch/csrc/flash_bwd.cu", "dfot_tpu/ops/attention.py:500"),
-    # the wide family (heads above 256 lanes): B1 with 512-lane output slices
-    # a block (its two consumers exchanging partial scores), B4, B5 with
-    # 256-lane output slices over the grid, and their ring entries
+    # the wide family (heads above 256 lanes): B1, B4, B5 with an output
+    # slice of up to 512 lanes a block (B4, B5 256 where that grid fits one
+    # wave), its two consumers exchanging score tiles, and their ring entries
     ("flash_fwd_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:114"),
     ("flash_bwd_dq_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:378"),
     ("flash_bwd_dkv_wide", "dfot_tpu_torch/csrc/flash_wide.cu", "dfot_tpu/ops/attention.py:500"),

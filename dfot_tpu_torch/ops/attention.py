@@ -220,24 +220,22 @@ FLASH_MAX_STAGES = 4
 FLASH_LANES = {64: (64,), 128: (80, 128), 256: (192, 256)}
 SMEM_PER_BLOCK = 232448     # shared memory one H100 block can take (227 KB)
 # The wide family (csrc/flash_wide.cu) at every multiple of 64 above 256: a
-# block owns 64 rows (B1, B4: queries; B5: keys). The backward (B4, B5): one
-# slice of at most 256 output lanes (grid z), its scores contracted over the
-# whole head in 64-lane atoms streamed through stages of one atom of each
-# operand, its two consumers taking 32 rows each of a streamed 64-row tile and
-# merging their partials through shared memory at the end. The forward (B1):
-# one slice of at most 512 lanes, each consumer owning O for its share of the
-# slice's atoms and contracting the scores over its share of the head's
-# atoms, the two partial score tiles exchanged through shared memory; Q
-# loaded once, whole key tiles of K, then of V, streamed through stages of up
-# to 8 atoms
+# block owns 64 rows (B1, B4: queries; B5: keys) and one output slice of at
+# most 512 lanes (grid z; B4 and B5 256 lanes where those fill the card
+# better, :func:`wide_slice_atoms`), each of its two consumers owning the
+# output for its share of the slice's atoms. The scores of a 64-row tile of
+# the streamed side are m64 n64 tiles contracted over the head's 64-lane
+# atoms, once a block: one score product (B1's S, a dV block's) split by
+# atoms between the consumers, two (S and dP: B4, a dK block) one each; the
+# two tiles exchanged through shared memory. The block's own rows loaded once
+# where they fit; the streamed tiles through stages of up to 8 atoms
 FLASH_WIDE_ROWS = 64
-FLASH_WIDE_SLICE = 256
-FLASH_WIDE_FWD_SLICE = 512
+FLASH_WIDE_SLICE = 512
+FLASH_WIDE_SMALL_SLICE = 256
 FLASH_WIDE_STAGE_ATOMS = 8
 FLASH_WIDE_MAX_STAGES = 8
 FLASH_WIDE_ATOM_BYTES = 64 * 128     # one 64-lane atom of 64 rows
-FLASH_WIDE_MERGE_BYTES = 128 * 128 * 4  # consumer 1's partials, 128 a thread
-FLASH_WIDE_EXCHANGE_BYTES = 2 * 64 * 64 * 4   # both consumers' partial 64 x 64 fp32 scores
+FLASH_WIDE_EXCHANGE_BYTES = 2 * 64 * 64 * 4   # both consumers' 64 x 64 fp32 score tiles
 
 
 def is_flash_width(d: int) -> bool:
@@ -289,7 +287,7 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"unknown flash kernel {kernel!r}")
     if d > FLASH_WIDTHS[-1]:
-        return (_wide_fwd_plan if kernel == "fwd" else _wide_plan)(kernel, bh, n, rounded)
+        return _wide_plan(kernel, bh, n, rounded)
     lanes = next(w for w in FLASH_LANES[d] if w >= rounded)
     row = d * 2  # bytes of one head-dim row of a tile
     if kernel == "fwd":
@@ -312,85 +310,72 @@ def flash_plan(kernel: str, bh: int, n: int, d: int, head_dim: Optional[int] = N
     }
 
 
-def wide_fwd_split(sa: int, atoms: int) -> tuple:
-    """How the wide B1's two consumers share a slice of ``sa`` O atoms and
-    the head's ``atoms`` score atoms (``csrc/flash_wide.cu:fwd_split``):
-    consumer 0 owns O atoms [0, a0) of the slice and score atoms [0, t0),
-    consumer 1 the rest; a0 = ceil(sa / 2), t0 the split that gives both as
-    even a count of atoms as it can (each is 4 k16 steps of n64 products in
-    either product)."""
+def wide_split(sa: int, atoms: int) -> tuple:
+    """How a wide block's two consumers share a slice of ``sa`` output
+    atoms and the head's ``atoms`` score atoms of one score product
+    (``csrc/flash_wide.cu:split``): consumer 0 owns output atoms [0, a0) of
+    the slice and score atoms [0, t0), consumer 1 the rest; a0 = ceil(sa /
+    2), t0 the split that gives both as even a count of atoms as it can (each
+    is 4 k16 steps of n64 products in either product). With two score
+    products (B4, B5's dK blocks) the output atoms are shared alike and
+    consumer w contracts product w (S, dP) over every atom."""
     a0 = -(-sa // 2)
     return a0, min(atoms, max(0, atoms + sa - 2 * a0) // 2)
 
 
-def _wide_fwd_plan(kernel: str, bh: int, n: int, lanes: int) -> dict:
-    """The wide B1's plan (``csrc/flash_wide.cu:make_fwd_plan`` computes it
-    again). ``atoms``: the 64-lane atoms of the ``lanes`` computed, over
-    which the scores contract whole (the pad lanes of the last are zeros);
-    ``slices``: 512-lane output slices (the grid's z), each shared by the two
-    consumers as ``splits`` says (:func:`wide_fwd_split`, per slice). Q is ``resident``
-    (loaded once) where it fits beside the exchange of partial scores and two
-    one-atom stages; a stage holds ``stage_atoms`` atoms of K (with Q's
-    alongside where Q streams) or of V, as many as let two stages fit, at
+def wide_slice_atoms(kernel: str, bh: int, n: int, atoms: int) -> int:
+    """The output atoms of a wide block's slice: 8 (:data:`FLASH_WIDE_SLICE`),
+    but for B4 and B5 4 (:data:`FLASH_WIDE_SMALL_SLICE`) where the grid of
+    256-lane slices fits one wave of :data:`SM_COUNT` blocks and has more
+    blocks than the 512-lane one: every block then runs at once either way,
+    and a 256-lane block computes the same scores and half the output
+    product (``csrc/flash_wide.cu:slice_atoms_of``)."""
+    big, small = FLASH_WIDE_SLICE // 64, FLASH_WIDE_SMALL_SLICE // 64
+    if kernel == "fwd" or atoms <= small:
+        return big
+    blocks = -(-n // FLASH_WIDE_ROWS) * bh * -(-atoms // small) * (2 if kernel == "dkv" else 1)
+    return small if blocks <= SM_COUNT else big
+
+
+def _wide_plan(kernel: str, bh: int, n: int, lanes: int) -> dict:
+    """The wide family's plan, B1's (``kernel`` "fwd"), B4's ("dq") or B5's
+    ("dkv") (``csrc/flash_wide.cu:make_plan`` computes it again).
+    ``atoms``: the 64-lane atoms of the ``lanes`` computed, over which the
+    scores contract whole (the pad lanes of the last are zeros);
+    ``slice_atoms`` (:func:`wide_slice_atoms`): the output atoms of a slice;
+    ``slices``: the grid's z (twice over for B5: dK, then dV), each shared by
+    the two consumers as ``splits`` says (:func:`wide_split`, per slice).
+    The block's own rows of the score products' A operands (B1: Q; B4: Q
+    and dO; B5: K and V) are ``resident`` (loaded once) where they fit
+    beside the exchange of score tiles and two one-atom stages; a stage holds
+    ``stage_atoms`` atoms of each score product's streamed operand (with the
+    own rows' alongside where they stream), as many as let two stages fit, at
     most :data:`FLASH_WIDE_STAGE_ATOMS` and ``atoms``, and there are as many
-    stages as fit."""
+    stages as fit; an output stage holds ``out_atoms`` atoms of the output
+    product's operand, as many as its bytes take, at most a slice's."""
     atom = FLASH_WIDE_ATOM_BYTES
     atoms = -(-lanes // 64)
+    sides = 1 if kernel == "fwd" else 2
     barrier = 8
     room = (SMEM_PER_BLOCK - 1024 - FLASH_WIDE_EXCHANGE_BYTES
             - barrier * (1 + 2 * FLASH_WIDE_MAX_STAGES))
-    resident = room - atoms * atom >= 2 * atom
-    resident_bytes = atoms * atom if resident else 0
-    unit = atom if resident else 2 * atom
+    resident = room - sides * atoms * atom >= 2 * sides * atom
+    resident_bytes = sides * atoms * atom if resident else 0
+    unit = sides * atom * (1 if resident else 2)
     stage_atoms = min(FLASH_WIDE_STAGE_ATOMS, atoms, (room - resident_bytes) // (2 * unit))
     stage = stage_atoms * unit
     stages = min(FLASH_WIDE_MAX_STAGES, (room - resident_bytes) // stage)
-    per = FLASH_WIDE_FWD_SLICE // 64
+    per = wide_slice_atoms(kernel, bh, n, atoms)
     slices = -(-atoms // per)
     return {
         "tile_rows": FLASH_WIDE_ROWS, "block_rows": FLASH_WIDE_ROWS, "stages": stages,
         "smem_bytes": 1024 + resident_bytes + FLASH_WIDE_EXCHANGE_BYTES + stages * stage
         + barrier * (1 + 2 * stages),
         "lanes": lanes, "k_steps": lanes // 16, "atoms": atoms,
-        "ks_last": (lanes - 64 * (atoms - 1)) // 16, "slices": slices, "resident": resident,
+        "slice_atoms": per, "slices": slices, "resident": resident,
         "resident_bytes": resident_bytes, "stage_atoms": stage_atoms, "stage_bytes": stage,
-        "splits": tuple(wide_fwd_split(min(per, atoms - per * z), atoms)
-                        for z in range(slices)),
-        "grid": (-(-n // FLASH_WIDE_ROWS), bh, slices),
-    }
-
-
-def _wide_plan(kernel: str, bh: int, n: int, lanes: int) -> dict:
-    """The wide B4's and B5's plan (``csrc/flash_wide.cu:make_plan``
-    computes it again). ``atoms``: the 64-lane atoms of the ``lanes``
-    computed, the last contracting over ``ks_last`` k16 steps; ``slices``:
-    256-lane output slices (the grid's z, twice over for B5: dV, then dK). A
-    contraction step brings one atom of each score product's streamed operand
-    (K and V for B4; Q and dO for B5); the block's own rows of the other side
-    (Q and dO; K and V: ``resident_bytes``) are loaded once where they fit
-    beside two stages (``resident``), else they come with each step, doubling
-    the stage. The shared memory holds at least consumer 1's partials for the
-    final merge."""
-    atom = FLASH_WIDE_ATOM_BYTES
-    atoms = -(-lanes // 64)
-    slots = 2
-    resident_bytes, stage = slots * atoms * atom, slots * atom
-    barrier = 8
-    stages = min(FLASH_WIDE_MAX_STAGES,
-                 (SMEM_PER_BLOCK - 1024 - resident_bytes - barrier) // (stage + 2 * barrier))
-    resident = stages >= 2
-    if not resident:
-        resident_bytes, stage = 0, 2 * slots * atom
-        stages = min(FLASH_WIDE_MAX_STAGES,
-                     (SMEM_PER_BLOCK - 1024 - barrier) // (stage + 2 * barrier))
-    slices = -(-atoms // (FLASH_WIDE_SLICE // 64))
-    return {
-        "tile_rows": FLASH_WIDE_ROWS, "block_rows": FLASH_WIDE_ROWS, "stages": stages,
-        "smem_bytes": 1024 + max(resident_bytes + stages * stage, FLASH_WIDE_MERGE_BYTES)
-        + barrier * (1 + 2 * stages),
-        "lanes": lanes, "k_steps": lanes // 16, "atoms": atoms,
-        "ks_last": (lanes - 64 * (atoms - 1)) // 16, "slices": slices, "resident": resident,
-        "resident_bytes": resident_bytes, "stage_bytes": stage,
+        "out_atoms": min(per, stage // atom),
+        "splits": tuple(wide_split(min(per, atoms - per * z), atoms) for z in range(slices)),
         "grid": (-(-n // FLASH_WIDE_ROWS), bh, slices * (2 if kernel == "dkv" else 1)),
     }
 

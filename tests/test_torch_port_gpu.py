@@ -1350,9 +1350,10 @@ def _check_wide(cuda, bh, n, d, dp, causal, seed):
 def test_wide_flash_kernels(cuda, n, bh, d, dp, causal):
     """The wide family where N is one 64-row block, three and twenty, with
     one head and four (a tile past a head's last row must read zeros), causal
-    and not; heads of 288 padded to 320 contract over 288 lanes (18 k-steps)
-    and compute a 256-lane and a 64-lane slice; heads of 512 two full
-    slices."""
+    and not; heads of 288 padded to 320 contract over 288 lanes (18 k-steps),
+    the backward in one slice or, on the grids whose 256-lane blocks fit one
+    wave, in a 256-lane and a 64-lane one; heads of 512 in one slice or two
+    full ones."""
     _check_wide(cuda, bh, n, d, dp, causal, seed=30)
 
 
@@ -1370,11 +1371,13 @@ def test_wide_flash_kernels_at_two_and_three_slices(cuda, d, dp, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d,dp", [(1152, 1152), (1000, 1024), (832, 832)])
+@pytest.mark.parametrize("d,dp", [(1152, 1152), (1000, 1024), (832, 832), (1536, 1536)])
 def test_wide_flash_kernels_past_resident_heads(cuda, d, dp, causal):
     """Heads of 832 and more: B4's and B5's own rows no longer fit beside
     two stages and stream with every step (the plan's ``resident`` False);
-    1152 is the widest head a shipped width gives (5 slices of B5)."""
+    1152 is the widest head a shipped width gives (5 slices of B5); at 1536
+    B1's Q streams too, its output stages taking twice a score stage's
+    atoms."""
     assert not A.flash_plan("dq", 2, 192, dp, d)["resident"]
     _check_wide(cuda, 2, 192, d, dp, causal, seed=31)
 
@@ -1587,6 +1590,58 @@ def test_wide_b1_consumers_share_the_scores(cuda, n, d, dp, src, dst, causal):
     faulty[..., dst:dst + 64] = (pv[..., dst:dst + 64] / torch.nextafter(
         l, torch.full_like(l, float("inf")))).to(torch.bfloat16)
     assert _halves_bits_differ(faulty, src, dst, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,n,d,dp,dsts", [
+    (2, 2048, 512, 512, (128, 256)),   # W at B = 1: B4 in two 256-lane slices
+    (4, 2048, 512, 512, (128, 256)),   # W at B = 2: one 512-lane slice
+    (32, 1280, 288, 320, (192,)),      # X: atoms 0-2 | 3-4
+    (4, 192, 1152, 1152, (1088,)),     # five slices, the own rows streamed
+])
+def test_wide_bwd_consumers_share_the_scores(cuda, bh, n, d, dp, dsts, causal):
+    """The wide B4 and B5: both consumers of a block hold the same dS (B4,
+    a dK block: consumer 0's S and consumer 1's dP, exchanged) or the same P
+    (a dV block: the two partial score tiles added in one order), and every
+    slice block the same as the others, so where q's, k's and dO's lanes
+    owned by another consumer or slice repeat lanes 0-63, dk's, dq's and dv's
+    lanes come out equal bit for bit; two runs give the same bits; all
+    within B4's and B5's bounds of the plain versions. At W and B = 1 the
+    grid rule gives B4 256-lane slices (128 blocks) and B5 one 512-lane
+    slice. The control: dv from one consumer's partial scores alone (a dV
+    block's atoms of consumer 1) falls outside the bounds."""
+    g = torch.Generator(device=cuda).manual_seed(39)
+    scale = 1.0 / math.sqrt(d)
+    q, k = (_padded_heads(g, bh, n, d, dp, cuda, 1.7) for _ in range(2))
+    v, do = (_padded_heads(g, bh, n, d, dp, cuda) for _ in range(2))
+    for dst in dsts:
+        q, k, do = (_copy_lanes(t, 0, dst, 64) for t in (q, k, do))
+    o, lse = A.attention_reference(q, k, v, causal, scale, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    if (bh, n) == (2, 2048):
+        assert A.flash_plan("dq", bh, n, dp, d)["slice_atoms"] == 4
+        assert A.flash_plan("dkv", bh, n, dp, d)["slice_atoms"] == 8
+    ops.reset_launch_counts()
+    runs = [(A.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, head_dim=d),
+             *A.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, head_dim=d))
+            for _ in range(2)]
+    counts = {name: c for name, c in ops.launch_counts().items() if c}
+    assert counts == {"flash_bwd_dq_wide": 2, "flash_bwd_dkv_wide": 2}
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for x in runs[0]:
+        for dst in dsts:
+            assert not _halves_bits_differ(x, 0, dst, 64), dst
+    refs = (A._dq_plain(q, k, v, do, lse, delta, causal, scale),
+            *A._dkv_plain(q, k, v, do, lse, delta, causal, scale))
+    for got, want in zip(runs[0], refs):
+        assert _close(got, want, 2e-2) and _rel_l2(got, want) <= 1e-2
+        assert not got[..., d:].any()
+    cut = 64 * A.flash_plan("dkv", bh, n, dp, d)["splits"][0][1]
+    alone = A._dkv_plain(F.pad(q[..., cut:], (cut, 0)), F.pad(k[..., cut:], (cut, 0)), v, do,
+                         lse, delta, causal, scale)[1]
+    assert not (_close(alone, refs[2], 2e-2) and _rel_l2(alone, refs[2]) <= 1e-2)
 
 
 @pytest.mark.gpu

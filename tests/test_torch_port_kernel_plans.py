@@ -288,13 +288,14 @@ def test_the_c_sources_plan_with_the_same_constants():
         Q.PREP_BWD_WIDE_STAGES, Q.PREP_BWD_WIDE_BLOCKS_PER_SM, Q.PREP_MAX_HEAD_DIM)
     assert _constants("qkv_prep.cu")["kMaxHeadDim"] == Q.PREP_MAX_HEAD_DIM
     wide = _constants("flash_wide.cu")
-    assert (wide["kRows"], wide["kSliceAtoms"] * 64, wide["kMaxStages"], wide["kSmemPerBlock"],
-            wide["kBarrier"]) == (A.FLASH_WIDE_ROWS, A.FLASH_WIDE_SLICE, A.FLASH_WIDE_MAX_STAGES,
-                                  A.SMEM_PER_BLOCK, 8)
-    # the wide B1's own: 512-lane slices, stages of up to 8 atoms, the two
-    # consumers' partial score tiles
-    assert (wide["kFwdSliceAtoms"] * 64, wide["kStageAtoms"], wide["kExchangeBytes"]) == (
-        A.FLASH_WIDE_FWD_SLICE, A.FLASH_WIDE_STAGE_ATOMS, A.FLASH_WIDE_EXCHANGE_BYTES)
+    assert (wide["kRows"], wide["kMaxStages"], wide["kSmemPerBlock"], wide["kBarrier"],
+            wide["kSmCount"]) == (A.FLASH_WIDE_ROWS, A.FLASH_WIDE_MAX_STAGES, A.SMEM_PER_BLOCK,
+                                  8, A.SM_COUNT)
+    # the slices (512 lanes; B4's and B5's 256 where those fill the card),
+    # stages of up to 8 atoms, the two consumers' score tiles
+    assert (wide["kSliceAtoms"] * 64, wide["kSmallSliceAtoms"] * 64, wide["kStageAtoms"],
+            wide["kExchangeBytes"]) == (A.FLASH_WIDE_SLICE, A.FLASH_WIDE_SMALL_SLICE,
+                                        A.FLASH_WIDE_STAGE_ATOMS, A.FLASH_WIDE_EXCHANGE_BYTES)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -24,9 +24,10 @@ interpret mode on the same seeded fp32 inputs:
   head of 384, weights both ways, forward and every gradient leaf within
   1e-4 relative (``tests/test_torch_port_base.py``'s bounds);
 - the wide plans at every multiple of 64 from 320 to 1280 (and B6's up to
-  1152), the wide B1's two consumers owning every lane of O and every score
-  step once, and the dispatcher computing every shape on the CPU, the
-  short-row ones too.
+  1152), the two consumers of a wide B1, B4 or B5 block owning every output
+  lane and every score step once, the grid rule of B4's and B5's slice
+  widths, and the dispatcher computing every shape on the CPU, the short-row
+  ones too.
 
 The CUDA kernels themselves are tested on the card by
 ``tests/test_torch_port_gpu.py``.
@@ -367,78 +368,100 @@ def test_tiny_factorized_dit_with_one_head_of_384_matches_jax():
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv", "ring_fwd", "ring_dq", "ring_dkv"])
 def test_wide_plans_fit_at_every_width(kernel):
     """At every multiple of 64 from 320 to 1280, at the true head dim and at
-    48 lanes less (a head padded to the width), N from 64 to 8192: shared
-    memory within one H100 block's 227 KB; at least two stages; the grid
-    within CUDA's limits; the ring entries on their kernel's plan. B4, B5:
-    holding consumer 1's partials for the merge, 256-lane slices covering the
-    computed lanes' atoms (B5: a dV and a dK block a slice), the block's own
-    rows resident until they no longer fit beside two stages. B1: 512-lane
-    slices, the exchange of partial scores, Q resident where it fits beside
-    two one-atom stages, stages of as many atoms as let two fit."""
+    48 lanes less (a head padded to the width), N from 64 to 8192, 2 and 128
+    heads: shared memory within one H100 block's 227 KB, the exchange of
+    score tiles included; at least two stages; the grid within CUDA's
+    limits; the ring entries on their kernel's plan. Slices of 512 lanes
+    covering the computed lanes' atoms (B5: a dK and a dV block a slice), of
+    256 for B4 and B5 where those fit one wave and add blocks; the block's
+    own rows (B1: Q; B4: Q and dO; B5: K and V) resident where they fit
+    beside two one-atom stages; stages of as many atoms as let two fit; output
+    stages of as many atoms as a stage's bytes take, at most a slice's."""
     base = TA.RING_PLAN_OF.get(kernel, kernel)
+    sides = 1 if base == "fwd" else 2
+    atom = TA.FLASH_WIDE_ATOM_BYTES
     for d in WIDE:
         for head_dim in (d, d - 48):
             for n in WIDE_PLAN_ROWS:
-                plan = TA.flash_plan(kernel, 8 * 16, n, d, head_dim)
-                assert plan == TA.flash_plan(base, 8 * 16, n, d, head_dim)
-                lanes = -(-head_dim // 16) * 16
-                assert plan["lanes"] == lanes and plan["k_steps"] == lanes // 16
-                assert plan["smem_bytes"] <= TA.SMEM_PER_BLOCK
-                assert plan["atoms"] == -(-lanes // 64) <= d // 64
-                assert 2 <= plan["stages"] <= TA.FLASH_WIDE_MAX_STAGES
-                x, y, z = plan["grid"]
-                assert (x, y) == (n // 64, 8 * 16) and y <= 65535
-                atom, barriers = TA.FLASH_WIDE_ATOM_BYTES, 8 * (1 + 2 * plan["stages"])
-                if base == "fwd":
-                    assert 8 * (plan["slices"] - 1) < plan["atoms"] <= 8 * plan["slices"] == 8 * z
+                for bh in (2, 8 * 16):
+                    plan = TA.flash_plan(kernel, bh, n, d, head_dim)
+                    assert plan == TA.flash_plan(base, bh, n, d, head_dim)
+                    lanes = -(-head_dim // 16) * 16
+                    assert plan["lanes"] == lanes and plan["k_steps"] == lanes // 16
+                    assert plan["smem_bytes"] <= TA.SMEM_PER_BLOCK
+                    atoms = plan["atoms"]
+                    assert atoms == -(-lanes // 64) <= d // 64
+                    assert 2 <= plan["stages"] <= TA.FLASH_WIDE_MAX_STAGES
+                    x, y, z = plan["grid"]
+                    per = plan["slice_atoms"]
+                    assert (x, y) == (n // 64, bh) and y <= 65535
+                    assert per * (plan["slices"] - 1) < atoms <= per * plan["slices"]
+                    assert z == plan["slices"] * (2 if base == "dkv" else 1) <= 65535
+                    small = -(-n // 64) * bh * -(-atoms // 4) * (2 if base == "dkv" else 1)
+                    assert per == (4 if base != "fwd" and atoms > 4 and small <= TA.SM_COUNT
+                                   else 8)
+                    barriers = 8 * (1 + 2 * plan["stages"])
                     used = plan["resident_bytes"] + plan["stages"] * plan["stage_bytes"]
                     assert plan["smem_bytes"] == 1024 + used + TA.FLASH_WIDE_EXCHANGE_BYTES + (
                         barriers)
                     room = (TA.SMEM_PER_BLOCK - 1024 - TA.FLASH_WIDE_EXCHANGE_BYTES
                             - 8 * (1 + 2 * TA.FLASH_WIDE_MAX_STAGES))
-                    assert plan["resident"] == (plan["atoms"] * atom + 2 * atom <= room)
-                    unit = atom if plan["resident"] else 2 * atom
+                    assert plan["resident"] == (sides * (atoms + 2) * atom <= room)
+                    unit = sides * atom * (1 if plan["resident"] else 2)
                     sa = plan["stage_atoms"]
-                    assert 1 <= sa <= min(TA.FLASH_WIDE_STAGE_ATOMS, plan["atoms"])
+                    assert 1 <= sa <= min(TA.FLASH_WIDE_STAGE_ATOMS, atoms)
                     assert plan["stage_bytes"] == sa * unit
                     # the most atoms a stage that leave room for two stages
                     assert plan["resident_bytes"] + 2 * sa * unit <= room
-                    assert sa == min(TA.FLASH_WIDE_STAGE_ATOMS, plan["atoms"]) or (
+                    assert sa == min(TA.FLASH_WIDE_STAGE_ATOMS, atoms) or (
                         plan["resident_bytes"] + 2 * (sa + 1) * unit > room)
-                    continue
-                assert TA.FLASH_WIDE_MERGE_BYTES < plan["smem_bytes"]
-                assert 4 * (plan["slices"] - 1) < plan["atoms"] <= 4 * plan["slices"]
-                assert z == plan["slices"] * (2 if base == "dkv" else 1) <= 65535
-                used = plan["resident_bytes"] + plan["stages"] * plan["stage_bytes"]
-                assert plan["smem_bytes"] == 1024 + max(used, TA.FLASH_WIDE_MERGE_BYTES) + (
-                    barriers)
-                resident = 1024 + 2 * plan["atoms"] * atom + 2 * (2 * atom + 16) + 8 <= (
-                    TA.SMEM_PER_BLOCK)
-                assert plan["resident"] == resident
+                    assert plan["out_atoms"] == min(per, plan["stage_bytes"] // atom) >= sa
 
 
-def _wide_fwd_walk(plan):
-    """The wide B1's loops, as ``csrc/flash_wide.cu:flash_wide_fwd_kernel``
-    runs them, for every block of a query-row block: for each slice and each
-    consumer, the score atoms it contracts (from each K stage of a key tile)
-    and the head's atoms of O it accumulates (from each V stage)."""
-    A, SA = plan["atoms"], plan["stage_atoms"]
+def _wide_walk(plan, kinds=1):
+    """The wide family's consumer loops, as ``csrc/flash_wide.cu`` runs them
+    (``score_tile``, ``output_product``) for every slice block of a row
+    block: for each slice and consumer, the (product, atom) score steps it
+    contracts from the score stages of a tile and the head's output atoms it
+    accumulates from the output stages. ``kinds``: the block's score
+    products (B1's S and a dV block's: one, split by atoms; B4's and a dK
+    block's S and dP: two, consumer w contracting product w)."""
+    A, SA, OA, per = plan["atoms"], plan["stage_atoms"], plan["out_atoms"], plan["slice_atoms"]
     walked = []
     for z, (a0, t0) in enumerate(plan["splits"]):
-        sa = min(8, A - 8 * z)
+        sa = min(per, A - per * z)
         for w in (0, 1):
-            k_lo, k_hi = (t0, A) if w else (0, t0)
+            prod = w if kinds == 2 else 0
+            k_lo, k_hi = (0, A) if kinds == 2 else (t0, A) if w else (0, t0)
             v_lo, v_hi = (a0, sa) if w else (0, a0)
             scores, atoms = [], []
-            for st in range(-(-A // SA)):
-                lo, hi = st * SA, min(st * SA + SA, A)
-                scores += list(range(max(lo, k_lo), min(hi, k_hi)))
-            for st in range(-(-sa // SA)):
-                lo, hi = st * SA, min(st * SA + SA, sa)
-                atoms += [8 * z + v_lo + at for at in range(4)
+            for lo in range(0, A, SA):
+                hi = min(lo + SA, A)
+                scores += [(prod, a) for a in range(max(lo, k_lo), min(hi, k_hi))]
+            for lo in range(0, sa, OA):
+                hi = min(lo + OA, sa)
+                atoms += [per * z + v_lo + at for at in range(4)
                           if v_lo + at < v_hi and lo <= v_lo + at < hi]
             walked.append((z, w, scores, atoms))
     return walked
+
+
+def _owns_every_atom_and_step_once(plan, kinds, where):
+    """Every output atom accumulated by exactly one consumer of one slice
+    block, at most 4 a consumer (128 registers a thread); in every slice
+    block each (product, atom) score step contracted by exactly one
+    consumer; the two consumers' counts of atom products (4 k16 steps of n64
+    each, in any product) within one of each other."""
+    walked = _wide_walk(plan, kinds)
+    owned = sorted(a for _, _, _, atoms in walked for a in atoms)
+    assert owned == list(range(plan["atoms"])), where
+    steps = sorted((k, a) for k in range(kinds) for a in range(plan["atoms"]))
+    for z in range(plan["slices"]):
+        mine = [(scores, atoms) for zz, _, scores, atoms in walked if zz == z]
+        assert sorted(mine[0][0] + mine[1][0]) == steps, (where, z)
+        assert all(len(atoms) <= 4 for _, atoms in mine), (where, z)
+        work = [len(scores) + len(atoms) for scores, atoms in mine]
+        assert abs(work[0] - work[1]) <= 1, (where, z, work)
 
 
 def test_wide_fwd_plan_owns_every_lane_and_score_step_once():
@@ -454,38 +477,78 @@ def test_wide_fwd_plan_owns_every_lane_and_score_step_once():
         for head_dim in (d, d - 48):
             for n in WIDE_PLAN_ROWS:
                 plan = TA.flash_plan("fwd", 4, n, d, head_dim)
-                walked = _wide_fwd_walk(plan)
-                owned = sorted(a for _, _, _, atoms in walked for a in atoms)
-                assert owned == list(range(plan["atoms"])), (d, head_dim)
-                for z in range(plan["slices"]):
-                    mine = [(scores, atoms) for zz, _, scores, atoms in walked if zz == z]
-                    assert sorted(mine[0][0] + mine[1][0]) == list(range(plan["atoms"]))
-                    assert all(len(atoms) <= 4 for _, atoms in mine)
-                    work = [len(scores) + len(atoms) for scores, atoms in mine]
-                    assert abs(work[0] - work[1]) <= 1, (d, head_dim, z, work)
+                _owns_every_atom_and_step_once(plan, 1, (d, head_dim, n))
+
+
+@pytest.mark.parametrize("d", range(320, 1153, 64))
+@pytest.mark.parametrize("kernel", ["dq", "dkv", "ring_dq", "ring_dkv"])
+def test_wide_bwd_plan_owns_every_lane_and_score_step_once(kernel, d):
+    """The wide B4 and B5 (and their ring entries) at heads of d and d - 48
+    true lanes, N from 64 to 8192 and 2 or 128 heads, and at the paths' two
+    sites (W: 2 heads of 512 over 2048 rows at B = 1 and 2; X: 32 heads of
+    288 padded to 320 over 1280 rows): every lane of dq, dk and dv is owned
+    by exactly one consumer of one block, every score step (S and dP over
+    every atom; a dV block's S alone) contracted exactly once a block, the
+    consumers' work within one atom of each other; the slice width the grid
+    rule gives: 256 lanes where that grid fits one wave and has more blocks,
+    so that B4 at W and B = 1 runs 128 blocks, not 64."""
+    base = TA.RING_PLAN_OF.get(kernel, kernel)
+    shapes = [(bh, n, d, hd) for hd in (d, d - 48) for n in WIDE_PLAN_ROWS for bh in (2, 128)]
+    if d == 320:
+        shapes.append((32, 1280, 320, 288))   # X
+    if d == 512:
+        shapes += [(2, 2048, 512, 512), (4, 2048, 512, 512)]  # W at B = 1 and 2
+    for bh, n, dp, hd in shapes:
+        plan = TA.flash_plan(kernel, bh, n, dp, hd)
+        where = (kernel, bh, n, dp, hd)
+        # B4's blocks and B5's dK blocks: S and dP; B5's dV blocks: S
+        for kinds in ((2,) if base == "dq" else (2, 1)):
+            _owns_every_atom_and_step_once(plan, kinds, where)
+        blocks = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
+        per_slice = plan["grid"][0] * plan["grid"][1] * (2 if base == "dkv" else 1)
+        # the grid of the other slice width
+        other = per_slice * -(-plan["atoms"] // (8 if plan["slice_atoms"] == 4 else 4))
+        if plan["slice_atoms"] == 4:
+            # every 256-lane block runs at once, and there are more of them
+            assert other < blocks <= TA.SM_COUNT, where
+        else:
+            assert plan["atoms"] <= 4 or other > TA.SM_COUNT, where
+    if d == 512:
+        w1 = TA.flash_plan(kernel, 2, 2048, 512)
+        want = (2, 128) if base == "dq" else (1, 128)
+        assert (w1["slices"], w1["grid"][0] * w1["grid"][1] * w1["grid"][2]) == want
 
 
 def test_wide_plans_at_the_paths_sites():
     """The two paths' wide sites. W, the base U-ViT's level 3 at 2 heads of
     512: the wide B1 in one 512-lane slice with Q resident, each consumer
     owning 256 lanes of O and 4 of the 8 score atoms, key tiles of K and of V
-    a 64 KB stage each; B4 and B5 two 256-lane slices with every block's own
-    rows resident. X, K600 @DiT/XL at 4 heads (288 of 320 lanes): the wide
-    B1 in one slice, consumer 0 owning 192 lanes of O and 2 score atoms,
-    consumer 1 128 lanes and 3 (5 atoms of products each); B5 a 256-lane and
-    a 64-lane slice, twice."""
+    a 64 KB stage each; B4 and B5 with the block's own rows resident beside
+    two stages of 2 atoms of each score operand (32 KB), an output stage
+    taking 4 atoms; at the train step's B = 1 B4 in two 256-lane slices (128
+    blocks), B5 in one slice (128 blocks); at B = 2 B4 in one. X, K600
+    @DiT/XL at 4 heads (288 of 320 lanes): the wide B1 in one slice, consumer
+    0 owning 192 lanes of O and 2 score atoms, consumer 1 128 lanes and 3 (5
+    atoms of products each); B4 and B5 in one slice, stages of 3 atoms, the
+    5 output atoms in one stage; B5 640 dK and 640 dV blocks."""
     w = TA.flash_plan("fwd", 2 * 2, 2048, 512)
     assert (w["slices"], w["resident"], w["stage_atoms"], w["stages"], w["splits"]) == (
         1, True, 8, 2, ((4, 4),))
     assert w["smem_bytes"] == 1024 + 64 * 1024 + 32 * 1024 + 2 * 64 * 1024 + 8 * 5
     assert w["grid"] == (32, 4, 1)
     dq = TA.flash_plan("dq", 2 * 2, 2048, 512)
-    assert (dq["slices"], dq["atoms"], dq["resident"], dq["stages"]) == (2, 8, True, 6)
+    assert (dq["slices"], dq["atoms"], dq["resident"], dq["stages"]) == (1, 8, True, 2)
+    assert (dq["stage_atoms"], dq["out_atoms"], dq["grid"]) == (2, 4, (32, 4, 1))
+    assert dq["smem_bytes"] == 1024 + 128 * 1024 + 32 * 1024 + 2 * 32 * 1024 + 8 * 5
+    assert TA.flash_plan("dq", 2, 2048, 512)["grid"] == (32, 2, 2)
+    assert TA.flash_plan("dkv", 2, 2048, 512)["grid"] == (32, 2, 2)
     x = TA.flash_plan("fwd", 8 * 4, 1280, 320, 288)
     assert (x["slices"], x["atoms"], x["k_steps"], x["resident"], x["splits"]) == (
         1, 5, 18, True, ((3, 2),))
     assert (x["stage_atoms"], x["stages"], x["grid"]) == (5, 3, (20, 32, 1))
-    assert TA.flash_plan("dkv", 8 * 4, 1280, 320, 288)["grid"] == (20, 32, 4)
+    xb = TA.flash_plan("dkv", 8 * 4, 1280, 320, 288)
+    assert (xb["slices"], xb["stage_atoms"], xb["out_atoms"], xb["stages"]) == (1, 3, 6, 2)
+    assert xb["grid"] == (20, 32, 2)
 
 
 @pytest.mark.parametrize("chunk", [8, 2])
